@@ -6,13 +6,20 @@ Phases (each prints its lines; any failure exits non-zero, and there is no
 CPU path — without a CUDA device the script fails):
 
 1. device: name, count, and ``nvidia-smi`` name + power limit;
-2. build: compile the serving path's kernel from the sources in the
-   checkout with ``nvcc`` and print the ``-Xptxas -v`` report;
-3. kernels: the kernel against its plain PyTorch version on the card at
-   the serving path's shapes, with stated tolerances (TF32 is off for
+2. build: compile every kernel library from the sources in the checkout
+   with ``nvcc`` (one process each, in parallel) and print each kernel's
+   ``-Xptxas -v`` registers, spills and shared memory;
+3. kernels: paged attention against its plain PyTorch version on the card
+   at the serving path's shapes, with stated tolerances (TF32 is off for
    both cuBLAS and cuDNN), then, at a decode and a prefill shape, compared
    again and timed with CUDA events (L2 flushed before every call) beside
    its HBM-bytes bound;
+   flash: the forward, dq and dk/dv kernels through
+   ``FlashAttentionFunction`` against their plain versions (15 cases: the
+   1b shape in bf16 at the training shape's micro-batch 4 and in
+   fp16/fp32, d 128 and d 256, non-causal, sq < skv, sq > skv, odd
+   lengths, windows), one case twice for bitwise-equal results; then each kernel timed at the training shape beside its bound,
+   its plain version and ``scaled_dot_product_attention`` as a yardstick;
 4. engine: a 2-layer Llama-2-7B-width engine (d_model 4096) in fp32, the
    same weights on cuda and on cpu, one ``put`` of 3 mixed-length prompts;
    logits must agree within 1e-3;
@@ -21,7 +28,16 @@ CPU path — without a CUDA device the script fails):
    8 requests to completion; kernel launch counts are reset just before
    and read just after;
 6. profile: the same requests again under ``torch.profiler``: device time
-   by kernel and the device's idle share.
+   by kernel and the device's idle share;
+7. trainer: a 2-layer Llama-1b-width model in fp32, the same weights on
+   cuda and cpu, one ``train_batch`` each through ``initialize``: loss,
+   grad norm and updated weights must agree;
+8. training: ``Llama("1b")`` at full width and depth (bf16 compute, fp32
+   masters, AdamW, full remat, GAS 2 of 4 x 2048 tokens), 2 warm-up and 4
+   timed ``train_batch`` steps with the flash launch counts reset just
+   before and read just after; step time (the four timed steps' mean),
+   tokens/s, MFU, peak memory;
+9. train profile: one more step under ``torch.profiler``.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -29,22 +45,39 @@ The line before the last is the ``kernels`` JSON object; the last line is
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
                   torch.float32: 67e12}   # dense, no sparsity
+LIBRARIES = ("paged_attention", "flash_attention")
 PAGED_REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:159"
 PAGED_SOURCE = "deepspeed_tpu_torch/csrc/paged_attention.cu"
+FLASH_SOURCE = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+FLASH_KERNELS = {
+    # name: (wrapper whose .launches counts it, replaced pallas_call,
+    #        operations per visible (q-head, key) pair per channel)
+    "flash_forward": (fa.flash_forward,
+                      "deepspeed_tpu/ops/pallas/flash_attention.py:200", 4),
+    "flash_backward_dq": (fa.flash_backward_dq,
+                          "deepspeed_tpu/ops/pallas/flash_attention.py:354", 6),
+    "flash_backward_dkv": (fa.flash_backward_dkv,
+                           "deepspeed_tpu/ops/pallas/flash_attention.py:386",
+                           8),
+}
+GRAD_REL_TOL = 1e-2                # bf16/fp16 grads: max err / max |plain|
 FP32_TOL = 2e-5                    # abs, TF32 off
 HALF_TOL = (4e-3, 1e-2)            # bf16/fp16: abs + rel * |plain|
 L2_FLUSH_BYTES = 512 << 20         # well above the H100's 50 MB L2
@@ -106,9 +139,11 @@ def phase_device() -> dict:
 
 # ---------------------------------------------------------------- phase 2
 def phase_build() -> None:
+    """Build every kernel library at once (one nvcc each, in parallel)."""
     t0 = time.perf_counter()
-    op_builder.load("paged_attention")
-    log(f"build: {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(op_builder.load, LIBRARIES))
+    log(f"build: {time.perf_counter() - t0:.2f} s for {list(LIBRARIES)}")
     for name, text in op_builder.build_logs.items():
         for line in text.splitlines():
             if "ptxas" in line or "registers" in line or "smem" in line:
@@ -304,10 +339,11 @@ def phase_engine() -> None:
 
 
 # ---------------------------------------------------------------- phase 5
-def phase_serving(card: str) -> int:
+def phase_serving(card: str) -> tuple:
     """Llama-2-7B, full width and depth, bf16, seeded random weights,
     behind ServingEngine (FCFS): 8 requests of 64-1536 prompt tokens, 32
-    new tokens each. Returns the paged-attention launches of the run."""
+    new tokens each. Returns (the paged-attention launches of the run, the
+    engine, the prompts) for the profile phase."""
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                       RaggedInferenceEngine)
     from deepspeed_tpu_torch.models.llama import Llama
@@ -424,22 +460,432 @@ def phase_profile(eng, prompts, card: str) -> None:
             f"x{e.count:<6d} {e.key[:110]}")
 
 
+# ------------------------------------------------------- phase 3 (flash)
+FLASH_CASES = [
+    # label, b, sq, skv, hq, hkv, d, causal, window, dtype; bf16/fp16 at
+    # d 64/128 run the tensor-core kernels, fp32 and d 256 the scalar ones;
+    # 1b-bf16 is the training path's shape (TRAIN_SHAPE)
+    ("1b-bf16", 4, 2048, 2048, 32, 4, 64, True, 0, torch.bfloat16),
+    ("1b-fp16", 2, 2048, 2048, 32, 4, 64, True, 0, torch.float16),
+    ("1b-fp32", 2, 2048, 2048, 32, 4, 64, True, 0, torch.float32),
+    ("d128-mha-bf16", 1, 1024, 1024, 16, 16, 128, True, 0, torch.bfloat16),
+    ("d128-gqa-fp16", 1, 1024, 1024, 16, 4, 128, True, 0, torch.float16),
+    ("d256-gqa-bf16", 1, 512, 512, 8, 2, 256, True, 0, torch.bfloat16),
+    ("d256-gqa-fp32", 1, 512, 512, 8, 2, 256, True, 0, torch.float32),
+    ("non-causal-bf16", 2, 512, 512, 8, 2, 64, False, 0, torch.bfloat16),
+    ("sq256-skv1024-bf16", 1, 256, 1024, 8, 2, 64, True, 0, torch.bfloat16),
+    ("sq256-skv1024-fp32", 1, 256, 1024, 8, 2, 64, True, 0, torch.float32),
+    ("sq1024-skv256-bf16", 1, 1024, 256, 8, 2, 64, True, 0, torch.bfloat16),
+    ("sq1024-skv256-fp32", 1, 1024, 256, 8, 2, 64, True, 0, torch.float32),
+    ("odd-1000-bf16", 1, 1000, 1000, 8, 2, 64, True, 0, torch.bfloat16),
+    ("sq333-skv517-window100-fp16", 1, 333, 517, 8, 2, 128, True, 100,
+     torch.float16),
+    ("window256-bf16", 1, 2048, 2048, 8, 2, 64, True, 256, torch.bfloat16),
+]
+TRAIN_SHAPE = dict(b=4, s=2048, hq=32, hkv=4, d=64)   # Llama("1b"), GAS 2
+
+
+def _visible_pairs(b, sq, skv, hq, causal, window) -> int:
+    """(query head, key) pairs the mask lets through, over the batch."""
+    if not causal:
+        return b * hq * sq * skv
+    q_pos = np.arange(sq) + (skv - sq)
+    hi = np.clip(q_pos + 1, 0, skv)
+    lo = np.clip(q_pos - window + 1, 0, None) if window > 0 else 0
+    return b * hq * int(np.clip(hi - lo, 0, None).sum())
+
+
+def _flash_inputs(gen, b, sq, skv, hq, hkv, d, dtype):
+    """q, k, v, dO: seeded normal values in ``dtype`` on the card."""
+    def mk(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).cuda()
+    return mk(b, sq, hq, d), mk(b, skv, hkv, d), mk(b, skv, hkv, d), \
+        mk(b, sq, hq, d)
+
+
+def _flash_kernels(q, k, v, do, causal, window):
+    """(out, lse, dq, dk, dv) through FlashAttentionFunction: the forward
+    kernel, then the dq and dk/dv kernels backward from ``do``."""
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out, lse = fa.FlashAttentionFunction.apply(q, k, v, causal, None, window)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    return out.detach(), lse, dq, dk, dv
+
+
+def _flash_plain(q, k, v, do, causal, window):
+    out, lse = fa.flash_attention_forward_reference(q, k, v, causal=causal,
+                                                    window=window)
+    dq, dk, dv = fa.flash_attention_backward_reference(
+        q, k, v, out, lse, do, causal=causal, window=window)
+    return out, lse, dq, dk, dv
+
+
+def _flash_errors(got, ref, dtype) -> tuple:
+    """(ok, {name: (max_abs_err, max |plain|)}, tolerance text). out:
+    2e-5 abs (fp32) or 4e-3 abs + 1e-2 rel per element (bf16/fp16); lse
+    (fp32 in every dtype): 1e-4 abs + 1e-5 rel; gradients: 1e-4 abs +
+    1e-4 rel per element (fp32) or max error <= 1e-2 max |plain|."""
+    ok, errs = True, {}
+    for name, g, r in zip(("out", "lse", "dq", "dk", "dv"), got, ref):
+        g, r = g.float(), r.float()
+        err = (g - r).abs()
+        errs[name] = (err.max().item(), r.abs().max().item())
+        if name == "out" and dtype == torch.float32:
+            ok &= errs[name][0] <= FP32_TOL
+        elif name == "out":
+            ok &= bool((err <= HALF_TOL[0] + HALF_TOL[1] * r.abs()).all())
+        elif name == "lse":
+            ok &= bool((err <= 1e-4 + 1e-5 * r.abs()).all())
+        elif dtype == torch.float32:
+            ok &= bool((err <= 1e-4 + 1e-4 * r.abs()).all())
+        else:
+            ok &= errs[name][0] <= GRAD_REL_TOL * errs[name][1]
+        ok &= bool(torch.isfinite(g).all())
+    tol = ("out 2e-5 abs, lse 1e-4 abs + 1e-5 rel, grads 1e-4 abs + 1e-4 rel"
+           if dtype == torch.float32 else
+           f"out {HALF_TOL[0]} abs + {HALF_TOL[1]} rel, lse 1e-4 abs + 1e-5 "
+           f"rel, grads max err <= {GRAD_REL_TOL} max |plain|")
+    return ok, errs, tol
+
+
+def phase_flash_kernels() -> dict:
+    """The three flash kernels (through FlashAttentionFunction, backward
+    from a fixed random dO) against their plain versions, one case run
+    twice for bitwise-equal gradients. Returns the worst max abs error of
+    each kernel's outputs."""
+    gen = torch.Generator().manual_seed(1)
+    worst = {"flash_forward": 0.0, "flash_backward_dq": 0.0,
+             "flash_backward_dkv": 0.0}
+    for label, b, sq, skv, hq, hkv, d, causal, window, dtype in FLASH_CASES:
+        q, k, v, do = _flash_inputs(gen, b, sq, skv, hq, hkv, d, dtype)
+        got = _flash_kernels(q, k, v, do, causal, window)
+        torch.cuda.synchronize()
+        ref = _flash_plain(q, k, v, do, causal, window)
+        ok, errs, tol = _flash_errors(got, ref, dtype)
+        if sq > skv:     # rows before the first key see nothing: 0, 1e30
+            ok &= bool((got[0][:, :sq - skv] == 0).all()
+                       and (got[1][:, :, :sq - skv] == 1e30).all())
+        log(f"flash: {label} " + " ".join(
+            f"{n} {e:.2e}/{m:.2e}" for n, (e, m) in errs.items())
+            + f" (max abs err / max |plain|; {tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"flash kernels disagree with their plain "
+                             f"versions on {label}")
+        worst["flash_forward"] = max(worst["flash_forward"], errs["out"][0])
+        worst["flash_backward_dq"] = max(worst["flash_backward_dq"],
+                                         errs["dq"][0])
+        worst["flash_backward_dkv"] = max(worst["flash_backward_dkv"],
+                                          errs["dk"][0], errs["dv"][0])
+        if label == "1b-bf16":
+            again = _flash_kernels(q, k, v, do, causal, window)
+            same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+            log(f"flash: {label} run twice: out, lse, dq, dk, dv bitwise "
+                f"equal: {same}")
+            if not same:
+                raise SystemExit("flash kernels are not bitwise repeatable")
+        del got, ref, q, k, v, do
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_flash_timing(flush: torch.Tensor) -> dict:
+    """Forward, dq and dk/dv at the training shape (b 4, s 2048, hq 32,
+    hkv 4, d 64, bf16, causal), each timed with CUDA events after an L2
+    flush, beside its bound, its plain version (one plain backward computes
+    dq, dk and dv together) and scaled_dot_product_attention as the
+    library yardstick (its backward = fwd+bwd - fwd; never on the port's
+    path)."""
+    import torch.nn.functional as F
+
+    t = TRAIN_SHAPE
+    b, s, hq, hkv, d = t["b"], t["s"], t["hq"], t["hkv"], t["d"]
+    gen = torch.Generator().manual_seed(2)
+    q, k, v, do = _flash_inputs(gen, b, s, s, hq, hkv, d, torch.bfloat16)
+    out, lse = fa.flash_forward(q, k, v, causal=True)
+    delta = fa._delta(out, do)
+    kernels = {
+        "flash_forward": lambda: fa.flash_forward(q, k, v, causal=True),
+        "flash_backward_dq": lambda: fa.flash_backward_dq(
+            q, k, v, do, lse, delta, causal=True),
+        "flash_backward_dkv": lambda: fa.flash_backward_dkv(
+            q, k, v, do, lse, delta, causal=True),
+    }
+    plain_fwd = lambda: fa.flash_attention_forward_reference(  # noqa: E731
+        q, k, v, causal=True)
+    plain_bwd = lambda: fa._backward_from_delta(  # noqa: E731
+        q, k, v, lse, delta, do, True, None, 0)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qg, kg, vg), dot)
+
+    # plain, kernel, kernel, plain: compare within one call, in turns
+    p_f1, p_b1 = cuda_ms(plain_fwd, 3, flush), cuda_ms(plain_bwd, 3, flush)
+    kms = {n: [cuda_ms(fn, 10, flush), cuda_ms(fn, 10, flush)]
+           for n, fn in kernels.items()}
+    p_f2, p_b2 = cuda_ms(plain_fwd, 3, flush), cuda_ms(plain_bwd, 3, flush)
+    lib_f = cuda_ms(lib_fwd, 10, flush)
+    lib_b = cuda_ms(lib_fwd_bwd, 10, flush) - lib_f
+    pairs = _visible_pairs(b, s, s, hq, True, 0)
+    e = q.element_size()
+    qbytes, kvbytes, rowbytes = q.numel() * e, k.numel() * e, b * hq * s * 4
+    nbytes = {  # each input read once, each output written once
+        "flash_forward": 2 * qbytes + 2 * kvbytes + rowbytes,
+        "flash_backward_dq": 3 * qbytes + 2 * kvbytes + 2 * rowbytes,
+        "flash_backward_dkv": 2 * qbytes + 4 * kvbytes + 2 * rowbytes,
+    }
+    res = {}
+    for name, (_, _, per_pair) in FLASH_KERNELS.items():
+        ops = float(per_pair) * d * pairs
+        t_ops = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        fwd = name == "flash_forward"
+        res[name] = {
+            "ms": min(kms[name]),
+            "plain_ms": min(p_f1, p_f2) if fwd else min(p_b1, p_b2),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_f if fwd else lib_b,
+            "ops": ops, "bytes": nbytes[name]}
+        r = res[name]
+        log(f"flash: {name} b4 s2048 hq32 hkv4 d64 bf16 causal: kernel "
+            f"{kms[name][0]:.4f}/{kms[name][1]:.4f} ms, plain "
+            f"{(p_f1, p_f2) if fwd else (p_b1, p_b2)} ms"
+            f"{'' if fwd else ' (the whole plain backward)'}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {ops:.3e} ops, "
+            f"{nbytes[name]} B), sdpa {r['library_ms']:.4f} ms"
+            f"{'' if fwd else ' (its whole backward)'}; "
+            f"{ops / r['ms'] / 1e9:.1f} TFLOP/s")
+    return res
+
+
+# ---------------------------------------------------------------- phase 7
+def phase_trainer_parity() -> None:
+    """A 2-layer Llama("1b") in fp32, the same weights on cuda and cpu, seq
+    256, micro-batch 2, GAS 2, one train_batch each: loss within 1e-5 rel,
+    grad norm within 1e-4 rel, and the updated weights within 1e-6 abs
+    except where a gradient element lies within 100x of Adam's eps (1e-8):
+    there the first step is lr * g / (|g| + eps) and carries g's summation
+    noise, bounded by 2 lr."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import Llama
+    from deepspeed_tpu_torch.runtime.optimizers import Transform
+
+    t0 = time.perf_counter()
+    lr = 1e-4
+    cfg = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+           "gradient_clipping": 1.0, "steps_per_print": 1000,
+           "optimizer": {"type": "adamw",
+                         "params": {"lr": lr, "weight_decay": 0.1}}}
+    cpu_model = Llama("1b", device="cpu", seed=2, n_layers=2)
+    gpu_model = Llama("1b", device="cuda", seed=2, n_layers=2)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 32000, (4, 256)))
+    out, small = {}, {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        eng, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                 device=dev)
+        if dev == "cpu":
+            inner = eng.optimizer
+
+            def update(grads, state, params, inner=inner):
+                small.update({n: g.abs() < 1e-6 for n, g in grads.items()})
+                return inner.update(grads, state, params)
+
+            eng.optimizer = Transform(inner.init, update)
+        m = eng.train_batch({"input_ids": toks})
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]), eng.params)
+    torch.cuda.synchronize()
+    (gl, gn, gp), (cl, cn, cp) = out["cuda"], out["cpu"]
+    worst, worst_near_eps, n_out, n_all = 0.0, 0.0, 0, 0
+    for name, w in cp.items():
+        d = (gp[name].cpu() - w).abs()
+        beyond = d > 1e-6
+        n_out += int(beyond.sum())
+        n_all += d.numel()
+        worst = max(worst, d[~small[name]].max().item()
+                    if (~small[name]).any() else 0.0)
+        if beyond.any():
+            worst_near_eps = max(worst_near_eps, d[beyond].max().item())
+            if not bool(small[name][beyond].all()):
+                raise SystemExit(f"trainer: {name} moved differently on "
+                                 f"cuda and cpu where its gradient is not "
+                                 f"near Adam's eps")
+    ok = (abs(gl - cl) <= 1e-5 * abs(cl) and abs(gn - cn) <= 1e-4 * abs(cn)
+          and worst <= 1e-6 and worst_near_eps <= 2 * lr)
+    log(f"trainer: 2-layer Llama-1b fp32, 4x256 tokens, GAS 2: loss cuda "
+        f"{gl:.7f} cpu {cl:.7f} (1e-5 rel), grad_norm cuda {gn:.6f} cpu "
+        f"{cn:.6f} (1e-4 rel); updated weights max |cuda - cpu| {worst:.2e} "
+        f"where |g| >= 1e-6 (tol 1e-6), {n_out} of {n_all} elements beyond "
+        f"1e-6, all with |g| < 1e-6, max {worst_near_eps:.2e} (<= 2 lr) "
+        f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        raise SystemExit("trainer on cuda disagrees with cpu")
+    del cpu_model, gpu_model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 8
+def phase_training(card: str):
+    """Llama("1b") at full width and depth (22 layers, 1.1e9 parameters,
+    seeded random fp32 master weights), bf16 compute, full remat, GAS 2 of
+    4 x 2048 tokens, AdamW, clipping: 2 warm-up steps, then 4 timed steps
+    with the flash launch counts reset just before and read just after."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Llama("1b", seed=0)
+    c = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    cfg = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
+           "gradient_clipping": 1.0, "steps_per_print": 1000,
+           "bf16": {"enabled": True},
+           "optimizer": {"type": "adamw",
+                         "params": {"lr": 1e-4, "weight_decay": 0.1}}}
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, c.vocab_size, (8, 2048))).cuda()
+    batch = {"input_ids": toks}
+    torch.cuda.synchronize()
+    log(f"training: Llama-1b {n_params} params ({c.n_layers} layers, "
+        f"d_model {c.d_model}, {c.n_heads}/{c.n_kv_heads} heads), bf16 "
+        f"compute, fp32 masters + AdamW, remat {c.remat_policy}, GAS "
+        f"{engine.gradient_accumulation_steps} x {toks.shape[0] // 2} x "
+        f"{toks.shape[1]} tokens; built in {time.perf_counter() - t0:.1f} s")
+    losses, norms, skipped, times = [], [], [], []
+
+    def step():
+        t1 = time.perf_counter()
+        m = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        skipped.append(bool(m["skipped"]))
+
+    for _ in range(2):
+        step()
+    for wrapper, *_ in FLASH_KERNELS.values():
+        wrapper.launches = 0
+    for _ in range(4):
+        step()
+    launches = {n: w.launches for n, (w, *_) in FLASH_KERNELS.items()}
+    per_step = {"flash_forward": c.n_layers * 2 * 2,     # fwd + replay, GAS
+                "flash_backward_dq": c.n_layers * 2,
+                "flash_backward_dkv": c.n_layers * 2}
+    step_s = sum(times[2:]) / 4                          # all four timed
+    tok_s = toks.shape[0] * (toks.shape[1] - 1) / step_s
+    mfu = tok_s * c.flops_per_token(toks.shape[1]) / PEAK_OPS_PER_S[
+        torch.bfloat16]
+    peak = torch.cuda.max_memory_allocated()
+    ok = (all(np.isfinite(losses)) and all(np.isfinite(norms))
+          and not any(skipped) and losses[-1] < losses[0]
+          and all(launches[n] == 4 * per_step[n] for n in launches))
+    log(f"training: losses {[round(x, 5) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in norms]}, skipped {skipped}")
+    log(f"training: flash launches in 4 timed steps {launches} (per step "
+        f"{per_step}: {c.n_layers} layers x forward + remat replay x GAS 2)")
+    log(f"training [{card}]: step times {[round(x, 4) for x in times]} s; "
+        f"timed step (mean of four) {step_s:.4f} s, "
+        f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (flops_per_token(2048) = "
+        f"{c.flops_per_token(toks.shape[1]):.4e}, peak 989 TFLOP/s bf16)")
+    log(f"training [{card}]: torch.cuda.max_memory_allocated() = {peak} B")
+    if not ok:
+        raise SystemExit("training phase failed")
+    return engine, batch, launches
+
+
+# ---------------------------------------------------------------- phase 9
+def phase_training_profile(engine, batch, card: str) -> None:
+    """One more training step under torch.profiler: device time by group
+    and the device's idle share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    if total_us <= 0:
+        log(f"train profile [{card}]: torch.profiler recorded no device "
+            f"time: breakdown not measured")
+        return
+    groups = {"flash_forward": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
+              "gemm": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        g = ("flash_forward" if "flash_forward" in name else
+             "flash_dq" if "flash_backward_dq" in name else
+             "flash_dkv" if "flash_backward_dkv" in name else
+             "gemm" if any(x in name for x in ("nvjet", "gemm", "xmma",
+                                               "cutlass", "cublas"))
+             else "other")
+        groups[g] += e.self_device_time_total
+    log(f"train profile [{card}]: profiled step wall {wall:.3f} s, device "
+        f"busy {total_us / 1e6:.3f} s, idle share "
+        f"{max(0.0, 1 - total_us / 1e6 / wall):.3f}; device time "
+        + ", ".join(f"{g} {us / 1e3:.1f} ms ({us / total_us:.1%})"
+                    for g, us in groups.items()))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"train profile: {e.self_device_time_total / 1e3:9.2f} ms "
+            f"x{e.count:<6d} {e.key[:110]}")
+
+
 def main() -> int:
+    t0 = time.perf_counter()
     dev = phase_device()
     phase_build()
     kern = phase_kernels()
+    flash_err = phase_flash_kernels()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flash_t = phase_flash_timing(flush)
+    del flush
+    torch.cuda.empty_cache()
     phase_engine()
     launches, eng, prompts = phase_serving(dev["card"])
     phase_profile(eng, prompts, dev["card"])
+    del eng, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_trainer_parity()
+    engine, batch, flash_launches = phase_training(dev["card"])
+    phase_training_profile(engine, batch, dev["card"])
     d = kern["timings"]["decode_16x1024"]
-    entry = {"name": "paged_attention", "route": "cuda",
-             "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
-             "launches": launches, "max_abs_err": kern["max_abs_err"],
-             "ms": d["ms"], "kernel_ms": d["ms"], "plain_ms": d["plain_ms"],
-             "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-             "library_ms": None, "parity": "ok", "shape": "decode_16x1024",
-             "timings": kern["timings"], "card": dev["card"]}
-    log(json.dumps({"kernels": [entry]}))
+    entries = [{"name": "paged_attention", "route": "cuda",
+                "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
+                "launches": launches, "max_abs_err": kern["max_abs_err"],
+                "ms": d["ms"], "kernel_ms": d["ms"],
+                "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                "bound_by": d["bound_by"], "library_ms": None,
+                "parity": "ok", "shape": "decode_16x1024",
+                "timings": kern["timings"], "card": dev["card"]}]
+    for name, (_, replaces, _) in FLASH_KERNELS.items():
+        t = flash_t[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": replaces, "launches": flash_launches[name],
+            "max_abs_err": flash_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "parity": "ok", "shape": "b4_s2048_hq32_hkv4_d64_bf16_causal",
+            "card": dev["card"]})
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": dev["name"],
                                            "count": dev["count"]}}))

@@ -6,16 +6,68 @@ its module paths (``deepspeed_tpu_torch/<sub>/<mod>.py`` ports
 ``jax`` or ``deepspeed_tpu``. Its kernels are hand-written for Hopper
 (``csrc/``), each beside a plain PyTorch version of the same function.
 
-This slice serves Llama through the ragged engine and the serving
-front-end:
+It serves Llama through the ragged engine and the serving front-end, and
+trains it on one device:
 
     from deepspeed_tpu_torch.models.llama import Llama
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                       RaggedInferenceEngine)
     from deepspeed_tpu_torch.serving.server import ServingEngine
 
+    import deepspeed_tpu_torch
+    engine, opt, _, sched = deepspeed_tpu_torch.initialize(
+        model=Llama("1b"), config={"train_batch_size": 8, ...})
+    metrics = engine.train_batch({"input_ids": tokens})
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``.
 """
 
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Tuple
+
+from .config import Config, ConfigError  # noqa: F401
+from .runtime.engine import TrainEngine
+
 __version__ = "0.1.0"
+
+
+def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
+               model: Any = None, config: Any = None,
+               config_params: Any = None, optimizer: Any = None,
+               lr_scheduler: Any = None, training_data: Any = None,
+               device=None) -> Tuple[TrainEngine, Any, Any, Any]:
+    """Bring up a single-device training engine; returns ``(engine,
+    optimizer, dataloader, lr_scheduler)`` as ``deepspeed_tpu.initialize``
+    does.
+
+    Pass either ``loss_fn(params, batch) -> loss | (loss, aux)`` plus
+    ``params`` (a ``{name: tensor}`` dict), or ``model`` — an object with
+    ``named_parameters()`` and ``loss(batch, params=...)`` (the port's
+    :class:`~deepspeed_tpu_torch.models.transformer.Transformer`), whose
+    own weights are the initial parameters unless ``params`` is given.
+    ``config`` is a dict or a path to a DeepSpeed-style JSON file. The
+    dataloader (``training_data``) comes with a later slice."""
+    cfg = Config.from_any(config if config is not None else config_params)
+    if training_data is not None:
+        raise NotImplementedError(
+            "training_data (runtime/dataloader.py) comes with a later slice "
+            "of deepspeed_tpu_torch (ROADMAP.md, Queue A); pass batches to "
+            "engine.train_batch")
+    if loss_fn is None:
+        if model is None or not hasattr(model, "loss"):
+            raise ValueError("initialize() needs loss_fn+params, or a model "
+                             "exposing .loss()")
+
+        def loss_fn(p, batch):
+            return model.loss(batch, params=p)
+    if params is None:
+        if model is None or not hasattr(model, "named_parameters"):
+            raise ValueError("initialize() needs params, or a model exposing "
+                             ".named_parameters()")
+        params = dict(model.named_parameters())
+    engine = TrainEngine(loss_fn=loss_fn, params=params, config=cfg,
+                         model=model, optimizer=optimizer,
+                         lr_scheduler=lr_scheduler, device=device)
+    return engine, engine.optimizer, None, engine.lr_schedule

@@ -11,15 +11,13 @@ arrays first (``jax.tree_util.tree_map(np.asarray, params)``).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
 
-from ..models.transformer import Transformer
+from ..models.transformer import LAYER_LEAVES as _LAYER_LEAVES, Transformer
 
-_LAYER_LEAVES = ("attn_norm_w", "wq", "wk", "wv", "wo", "mlp_norm_w",
-                 "w_gate", "w_up", "w_down")
 _TOP_LEAVES = ("tok_embed", "final_norm_w", "lm_head")
 
 
@@ -60,3 +58,24 @@ def load_jax_params(model: Transformer, params_np: Dict[str, Any]
         for i, blk in enumerate(model.layers):
             _copy(getattr(blk, name), stacked[i], f"layers/{name}[{i}]")
     return model
+
+
+def export_params(params: Union[Transformer, Mapping[str, torch.Tensor]]
+                  ) -> Dict[str, Any]:
+    """The inverse of :func:`load_jax_params`: a model's weights (or a
+    ``{name: tensor}`` dict with the names of its ``named_parameters()``,
+    such as a ``TrainEngine``'s ``params``) as nested dicts of fp32 numpy
+    arrays in the JAX package's layout, layer leaves stacked
+    ``[n_layers, ...]``."""
+    if isinstance(params, Transformer):
+        params = dict(params.named_parameters())
+
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    n = 1 + max(int(k.split(".")[1]) for k in params if k.startswith("layers."))
+    out: Dict[str, Any] = {name: arr(params[name]) for name in _TOP_LEAVES}
+    out["layers"] = {name: np.stack([arr(params[f"layers.{i}.{name}"])
+                                     for i in range(n)])
+                     for name in _LAYER_LEAVES}
+    return out

@@ -1,19 +1,36 @@
-"""Configuration of the port: ``ConfigError`` and the ``serving`` block.
+"""Configuration of the port.
 
-Ports the part of ``deepspeed_tpu/config.py`` that the ported serving
-front-end reads: :class:`ServingConfig` with the same keys, defaults and
-validation. Keys of features that later slices port (speculative serving,
-KV quantization, model versions, the stuck-tick watchdog, fleet / region /
-rollout / KV-tier blocks) raise ``NotImplementedError`` when set to
-anything but their "off" value, instead of being silently ignored.
+Ports the parts of ``deepspeed_tpu/config.py`` that the ported paths read:
+
+* :class:`ServingConfig` (the ``serving`` block of the serving front-end).
+  Keys of features that later slices port (speculative serving, KV
+  quantization, model versions, the stuck-tick watchdog, fleet / region /
+  rollout / KV-tier blocks) raise ``NotImplementedError`` when set to
+  anything but their "off" value, instead of being silently ignored.
+* :class:`Config` for the single-device trainer: the batch triple and its
+  resolution, ``gradient_clipping``, ``steps_per_print`` and the
+  ``optimizer`` / ``scheduler`` / ``fp16`` / ``bf16`` blocks, with the same
+  keys, defaults and checks. ``seed`` is not read: the port's model holds
+  its weights from its own seed (``Llama(..., seed=...)``), so the key
+  gets the unknown-key warning. Blocks that turn on a feature of a later
+  slice (ZeRO stages > 0, offload, a multi-device mesh, pipelining,
+  compressed collectives, telemetry, checkpoint saving, resilience) raise
+  :class:`ConfigError` naming that slice; other unknown keys warn.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional
+import copy
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Union
+
+import torch
 
 from .utils.logging import logger
+
+AUTO = "auto"
 
 
 class ConfigError(ValueError):
@@ -23,6 +40,242 @@ class ConfigError(ValueError):
 def _take(d: Dict[str, Any], key: str, default: Any) -> Any:
     v = d.pop(key, default)
     return default if v is None else v
+
+
+def _warn_unknown(d: Dict[str, Any], section: str) -> None:
+    for k in d:
+        logger.warning(f"Unknown config key '{k}' in section '{section}' "
+                       f"— ignored")
+
+
+@dataclass
+class OptimizerConfig:
+    """The ``optimizer`` block."""
+
+    type: str = "adamw"
+    params: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "OptimizerConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(type=str(_take(d, "type", "adamw")).lower(),
+                  params=dict(_take(d, "params", {})))
+        _warn_unknown(d, "optimizer")
+        return out
+
+
+@dataclass
+class SchedulerConfig:
+    """The ``scheduler`` block."""
+
+    type: Optional[str] = None
+    params: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "SchedulerConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(type=_take(d, "type", None),
+                  params=dict(_take(d, "params", {})))
+        _warn_unknown(d, "scheduler")
+        return out
+
+
+@dataclass
+class FP16Config:
+    """The ``fp16`` block with its dynamic loss-scaling knobs
+    (``loss_scale`` 0 means dynamic)."""
+
+    enabled: bool = False
+    loss_scale: float = 0.0
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+    consecutive_hysteresis: bool = False
+
+    @property
+    def dynamic_loss_scale(self) -> bool:
+        return self.loss_scale == 0
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "FP16Config":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(
+            enabled=bool(_take(d, "enabled", False)),
+            loss_scale=float(_take(d, "loss_scale", 0.0)),
+            initial_scale_power=int(_take(d, "initial_scale_power", 16)),
+            loss_scale_window=int(_take(d, "loss_scale_window", 1000)),
+            hysteresis=int(_take(d, "hysteresis", 2)),
+            min_loss_scale=float(_take(d, "min_loss_scale", 1.0)),
+            consecutive_hysteresis=bool(_take(d, "consecutive_hysteresis",
+                                              False)),
+        )
+        d.pop("auto_cast", None)
+        d.pop("fp16_master_weights_and_grads", None)
+        _warn_unknown(d, "fp16")
+        return out
+
+
+@dataclass
+class BF16Config:
+    enabled: bool = False
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "BF16Config":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(enabled=bool(_take(d, "enabled", False)))
+        d.pop("immediate_grad_update", None)
+        _warn_unknown(d, "bf16")
+        return out
+
+
+def _later_slice(key: str, value: Any) -> None:
+    raise ConfigError(
+        f"config '{key}' = {value!r} turns on a feature that comes with a "
+        f"later slice of deepspeed_tpu_torch (ROADMAP.md, Queue A); this "
+        f"slice trains on one device without it")
+
+
+def _check_later_slice_blocks(d: Dict[str, Any]) -> None:
+    """Pop the blocks of later slices; raise when one turns its feature on."""
+    zero = dict(d.pop("zero_optimization", None) or {})
+    if int(zero.get("stage", 0) or 0) > 0:
+        _later_slice("zero_optimization.stage", zero["stage"])
+    for key in ("offload_param", "offload_optimizer"):
+        dev = (zero.get(key) or {}).get("device", "none")
+        if dev not in (None, "none"):
+            _later_slice(f"zero_optimization.{key}.device", dev)
+    mesh = d.pop("mesh", None) or {}
+    if any(int(v) > 1 for v in mesh.values() if v is not None):
+        _later_slice("mesh", mesh)
+    pipe = d.pop("pipeline", None) or {}
+    if int(pipe.get("stages", 1) or 1) > 1:
+        _later_slice("pipeline.stages", pipe["stages"])
+    cc = d.pop("comm_compression", None) or {}
+    if cc.get("enabled") is True:
+        _later_slice("comm_compression.enabled", True)
+    tel = d.pop("telemetry", None) or {}
+    if tel.get("enabled"):
+        _later_slice("telemetry.enabled", tel["enabled"])
+    ckpt = d.pop("checkpoint", None) or {}
+    if ckpt.get("save_dir"):
+        _later_slice("checkpoint.save_dir", ckpt["save_dir"])
+    res = d.pop("resilience", None)
+    if res:
+        _later_slice("resilience", res)
+
+
+@dataclass
+class Config:
+    """Top-level typed config of the single-device trainer (the keys this
+    slice reads; see the module docstring)."""
+
+    train_batch_size: Optional[int] = None
+    train_micro_batch_size_per_gpu: Optional[int] = None
+    gradient_accumulation_steps: Optional[int] = None
+    steps_per_print: int = 10
+    gradient_clipping: float = 0.0
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    fp16: FP16Config = field(default_factory=FP16Config)
+    bf16: BF16Config = field(default_factory=BF16Config)
+
+    @classmethod
+    def from_any(cls, config: Union[str, Dict[str, Any], "Config", None]
+                 ) -> "Config":
+        if config is None:
+            return cls()
+        if isinstance(config, Config):
+            return config
+        if isinstance(config, str):
+            if not os.path.isfile(config):
+                raise ConfigError(f"config file not found: {config}")
+            with open(config) as f:
+                config = json.load(f)
+        if not isinstance(config, dict):
+            raise ConfigError(f"config must be a dict or path, got "
+                              f"{type(config)}")
+        return cls.from_dict(config)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Config":
+        d = copy.deepcopy(d)
+
+        def intval(key):
+            v = _take(d, key, None)
+            if v is None or (isinstance(v, str) and v.lower() == AUTO):
+                return None
+            return int(v)
+
+        _check_later_slice_blocks(d)
+        cfg = cls(
+            train_batch_size=intval("train_batch_size"),
+            train_micro_batch_size_per_gpu=intval(
+                "train_micro_batch_size_per_gpu"),
+            gradient_accumulation_steps=intval("gradient_accumulation_steps"),
+            steps_per_print=int(_take(d, "steps_per_print", 10)),
+            gradient_clipping=float(_take(d, "gradient_clipping", 0.0)),
+            optimizer=OptimizerConfig.from_dict(_take(d, "optimizer", None)),
+            scheduler=SchedulerConfig.from_dict(_take(d, "scheduler", None)),
+            fp16=FP16Config.from_dict(_take(d, "fp16", None)),
+            bf16=BF16Config.from_dict(_take(d, "bf16", None)),
+        )
+        if cfg.fp16.enabled and cfg.bf16.enabled:
+            raise ConfigError("fp16 and bf16 cannot both be enabled")
+        _warn_unknown(d, "<top-level>")
+        return cfg
+
+    def resolve_batch_config(self) -> None:
+        """Resolve train_batch = micro_batch * GAS on one device: any two of
+        the three determine the third, a single given value is completed
+        with GAS 1, and all three given are validated."""
+        tb, mb, gas = (self.train_batch_size,
+                       self.train_micro_batch_size_per_gpu,
+                       self.gradient_accumulation_steps)
+        if tb is not None and mb is not None and gas is not None:
+            if tb != mb * gas:
+                raise ConfigError(f"train_batch_size ({tb}) != micro_batch "
+                                  f"({mb}) * gas ({gas})")
+        elif tb is not None and mb is not None:
+            if tb % mb != 0:
+                raise ConfigError(f"train_batch_size ({tb}) not divisible by "
+                                  f"micro_batch ({mb})")
+            gas = tb // mb
+        elif tb is not None and gas is not None:
+            if tb % gas != 0:
+                raise ConfigError(f"train_batch_size ({tb}) not divisible by "
+                                  f"gas ({gas})")
+            mb = tb // gas
+        elif mb is not None and gas is not None:
+            tb = mb * gas
+        elif tb is not None:
+            gas, mb = 1, tb
+        elif mb is not None:
+            gas, tb = 1, mb
+        else:
+            raise ConfigError(
+                "At least one of train_batch_size / "
+                "train_micro_batch_size_per_gpu / gradient_accumulation_steps "
+                "must be set")
+        self.train_batch_size = tb
+        self.train_micro_batch_size_per_gpu = mb
+        self.gradient_accumulation_steps = gas
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        if self.bf16.enabled:
+            return torch.bfloat16
+        if self.fp16.enabled:
+            return torch.float16
+        return torch.float32
 
 
 # serving keys of later slices -> the value that means "off"

@@ -12,26 +12,47 @@ a carried JAX parameter tree loads without transposes
 layer leaves ``[n_layers, ...]``; here each layer is a :class:`Block` in
 ``Transformer.layers`` holding the same leaf names.
 
-This slice carries the serving path: the ragged engine
-(:mod:`deepspeed_tpu_torch.inference.ragged`) runs the attention block
-itself over the paged KV pool and calls :meth:`Transformer._embed`,
-:meth:`Transformer._mlp` and :meth:`Transformer._head`. The dense
-``apply``/``loss`` path (training, the v1 engine) comes with the training
-slice.
+Two paths share the weights:
+
+* serving: the ragged engine (:mod:`deepspeed_tpu_torch.inference.ragged`)
+  runs the attention block itself over the paged KV pool and calls
+  :meth:`Transformer._embed`, :meth:`Transformer._mlp` and
+  :meth:`Transformer._head`, under ``torch.inference_mode()``;
+* training: :meth:`Transformer.apply` and :meth:`Transformer.loss`, the
+  dense path. Like the JAX package's functional ``apply(params, ...)``,
+  they take an optional ``params`` dict (``{name: tensor}`` with the names
+  of ``named_parameters()``), so the trainer runs the model on its
+  compute-dtype copy of the master weights. Each layer runs under
+  ``torch.utils.checkpoint`` when ``remat`` is on, with its weights passed
+  in explicitly, so the backward pass replays it on the same tensors.
+  Attention is :func:`~deepspeed_tpu_torch.ops.attention.flash_attention`
+  (``use_flash``) or the plain ``dot_product_attention``. The KV-cache
+  branch of ``apply``, sequence parallelism, ALiBi and encoder masks come
+  with later slices.
+
+The module's own parameters never require grad (serving needs none); the
+trainer's compute copy does.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.attention import dot_product_attention, flash_attention
 from ..ops.norms import rms_norm
+from ..ops.rotary import apply_rotary, rope_frequencies
+from ..runtime.activation_checkpointing import checkpoint_wrapper
 from ..utils.device import resolve_device
+
+Params = Dict[str, torch.Tensor]
+LAYER_LEAVES = ("attn_norm_w", "wq", "wk", "wv", "wo", "mlp_norm_w",
+                "w_gate", "w_up", "w_down")
 
 
 @dataclass
@@ -114,6 +135,52 @@ class TransformerConfig:
         """Rotated dims per head (GPT-NeoX rope_pct), even-rounded."""
         return int(self.head_dim * self.rope_pct) // 2 * 2
 
+    def _shared_param_count(self) -> int:
+        """Attention + norms + embeddings (everything but the FFN)."""
+        d, v, n = self.d_model, self.vocab_size, self.n_layers
+        hd = self.head_dim
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        if self.qkv_bias:
+            attn += self.n_heads * hd + 2 * self.n_kv_heads * hd
+        if self.attn_o_bias:
+            attn += d
+        norms = (2 * d) * n + (d if self.prenorm else 0)
+        if self.norm == "layer":
+            norms *= 2  # weights + biases
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.position == "learned":
+            emb += self.max_seq_len * d
+        emb += self.type_vocab_size * d
+        if self.embed_norm:
+            emb += 2 * d
+        head = 0
+        if self.mlm_head:
+            head += d * d + d + 2 * d + v  # transform + LN + decoder bias
+        if self.pooler:
+            head += d * d + d
+        return n * attn + norms + emb + head
+
+    def param_count(self) -> int:
+        d, f, n = self.d_model, self.d_ff, self.n_layers
+        mlp = (3 if self.activation == "silu_glu" else 2) * d * f
+        if self.use_bias:
+            mlp += f + d
+        return self._shared_param_count() + n * mlp
+
+    def _attn_flop_len(self, seq_len: int) -> int:
+        """Summed per-layer attention lengths: sliding-window layers attend
+        at most ``window`` keys, so min(seq, window)."""
+        if self.attn_windows is not None:
+            return sum(min(seq_len, w) if w > 0 else seq_len
+                       for w in self.attn_windows)
+        return self.n_layers * seq_len
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Forward+backward FLOPs/token (standard 6N + attention term)."""
+        return 6.0 * self.param_count() \
+            + 12.0 * self.d_model * self._attn_flop_len(seq_len)
+
 
 def _check_supported(c: TransformerConfig) -> None:
     """The Llama flag set only; everything else belongs to a later slice."""
@@ -157,6 +224,11 @@ class Block(nn.Module):
         self.w_gate = p(d, f)
         self.w_up = p(d, f)
         self.w_down = p(f, d)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        """``block["wq"]``: a Block reads like the dict of one layer's
+        leaves that the training path passes around."""
+        return getattr(self, name)
 
 
 class Transformer(nn.Module):
@@ -217,23 +289,194 @@ class Transformer(nn.Module):
         normal_(self.lm_head, 1.0 / math.sqrt(c.d_model))
         return self
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the dense forward (training, v1 engine) comes with the training "
-            "slice; serve through deepspeed_tpu_torch.inference.ragged")
+    # ------------------------------------------------------------------
+    def _params(self, params: Optional[Mapping[str, torch.Tensor]]
+                ) -> Mapping[str, torch.Tensor]:
+        return dict(self.named_parameters()) if params is None else params
+
+    def forward(self, tokens, positions=None, return_hidden: bool = False,
+                params: Optional[Params] = None, kv_caches=None):
+        return self.apply(tokens, positions, return_hidden, params=params,
+                          kv_caches=kv_caches)
+
+    def apply(self, tokens: torch.Tensor, positions=None,
+              return_hidden: bool = False, *,
+              params: Optional[Params] = None, kv_caches=None):
+        """Forward. tokens: [b, s] int -> fp32 logits [b, s, vocab], or the
+        pre-head hidden states [b, s, d] with ``return_hidden``. ``params``
+        (default: the module's own) is a ``{name: tensor}`` dict with the
+        names of ``named_parameters()``; the compute dtype is its ``wq``'s.
+        """
+        if kv_caches is not None:
+            raise NotImplementedError(
+                "the KV-cache branch of the dense apply comes with a later "
+                "slice; serve through deepspeed_tpu_torch.inference.ragged")
+        p = self._params(params)
+        c = self.config
+        x = self._embed(tokens, p)
+        angles = rope_frequencies(c.rotary_dim, c.max_seq_len, c.rope_theta,
+                                  device=x.device)
+        x = self._encode(p, x, angles, positions)
+        return x if return_hidden else self._head(x, p)
+
+    def _static_window(self, length: int) -> int:
+        """The uniform sliding window that binds at this length, else 0
+        (per-layer-varying windows are a later slice's)."""
+        c = self.config
+        if not c.window_binds(length):
+            return 0
+        if len(set(c.attn_windows)) != 1:
+            raise NotImplementedError(
+                "per-layer-varying attention windows in the dense path come "
+                "with a later slice (ROADMAP.md, Queue A)")
+        return int(c.attn_windows[0])
+
+    def _block(self, x: torch.Tensor, lp: Mapping[str, torch.Tensor],
+               angles: torch.Tensor, positions=None,
+               window: int = 0) -> torch.Tensor:
+        """One pre-norm decoder layer. x: [b, s, d]; ``lp`` maps the leaf
+        names of :data:`LAYER_LEAVES` to this layer's weights."""
+        c = self.config
+        hd = c.head_dim
+        b, s, _ = x.shape
+        h = rms_norm(x, lp["attn_norm_w"], c.norm_eps)
+        q = (h @ lp["wq"]).reshape(b, s, c.n_heads, hd)
+        kk = (h @ lp["wk"]).reshape(b, s, c.n_kv_heads, hd)
+        vv = (h @ lp["wv"]).reshape(b, s, c.n_kv_heads, hd)
+        q = apply_rotary(q, angles, positions, rotary_dim=c.rotary_dim,
+                         interleaved=c.rope_interleaved)
+        kk = apply_rotary(kk, angles, positions, rotary_dim=c.rotary_dim,
+                          interleaved=c.rope_interleaved)
+        attend = flash_attention if c.use_flash else dot_product_attention
+        attn = attend(q, kk, vv, causal=True, scale=c.attn_scale,
+                      window=window)
+        x = x + attn.reshape(b, s, c.n_heads * hd) @ lp["wo"]
+        h = rms_norm(x, lp["mlp_norm_w"], c.norm_eps)
+        return x + self._mlp(h, lp)
+
+    def _encode(self, p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                angles: torch.Tensor, positions=None) -> torch.Tensor:
+        """The layer stack over embedded inputs x: [b, s, d]. With
+        ``remat`` (and autograd recording), each layer runs under
+        :func:`~deepspeed_tpu_torch.runtime.activation_checkpointing.checkpoint_wrapper`
+        with ``remat_policy``: only its input is kept, and the backward
+        pass runs it again."""
+        c = self.config
+        window = self._static_window(x.shape[1])
+
+        def block(x, *leaves):
+            return self._block(x, dict(zip(LAYER_LEAVES, leaves)), angles,
+                               positions, window)
+
+        if c.remat and torch.is_grad_enabled():
+            block = checkpoint_wrapper(block, policy=c.remat_policy)
+        for i in range(c.n_layers):
+            x = block(x, *(p[f"layers.{i}.{n}"] for n in LAYER_LEAVES))
+        return x
 
     # ------------------------------------------------------------------
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _targets_from_batch(self, batch: Mapping[str, Any]):
+        """(inputs, targets, mask) for next-token CE. batch:
+        {"input_ids": [b, s]} with optional "labels" (shifted internally
+        when absent) and "loss_mask". The shift keeps the full length and
+        masks the last position instead of slicing."""
+        tokens = batch["input_ids"]
+        if "labels" in batch:
+            mask = batch.get("loss_mask")
+            return tokens, batch["labels"], (None if mask is None
+                                              else mask.float())
+        targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        last_off = torch.ones(tokens.shape, dtype=torch.float32,
+                              device=tokens.device)
+        last_off[:, -1] = 0.0
+        mask = batch.get("loss_mask")
+        mask = last_off if mask is None else mask.float() * last_off
+        return tokens, targets, mask
+
+    def _ce_terms(self, logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor]):
+        """(weighted nll sum, weight sum, z-loss sum) of one [b, s, v]
+        fp32 logits block."""
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+        if mask is not None:
+            mask = mask[:, : nll.shape[1]].float()
+            nll_sum = torch.sum(nll * mask)
+            denom = torch.sum(mask)
+        else:
+            nll_sum = torch.sum(nll)
+            denom = torch.tensor(float(nll.numel()), device=nll.device)
+        z_sum = torch.zeros([], device=nll.device)
+        if self.config.z_loss > 0:
+            z = torch.square(torch.logsumexp(logits, dim=-1))
+            if mask is not None:
+                z = z * mask
+            z_sum = torch.sum(z)
+        return nll_sum, denom, z_sum
+
+    def loss(self, batch: Mapping[str, Any],
+             params: Optional[Params] = None) -> torch.Tensor:
+        """Next-token cross entropy (+ z-loss), a 0-dim fp32 tensor. With
+        ``loss_chunk_size`` > 0 the head and CE run over token chunks, each
+        recomputed in the backward pass, so the full fp32 logits never
+        exist at once."""
+        p = self._params(params)
+        inputs, targets, mask = self._targets_from_batch(batch)
+        cs = self.config.loss_chunk_size
+        if cs > 0:
+            x = self.apply(inputs, return_hidden=True, params=p)
+            nll_sum, denom, z_sum = self._ce_chunked(p, x, targets, mask, cs)
+        else:
+            logits = self.apply(inputs, params=p)
+            nll_sum, denom, z_sum = self._ce_terms(logits, targets, mask)
+        denom = torch.clamp(denom, min=1.0)
+        loss = nll_sum / denom
+        if self.config.z_loss > 0:
+            loss = loss + self.config.z_loss * z_sum / denom
+        return loss
+
+    def _ce_chunked(self, p, x, targets, mask, chunk: int):
+        """Head + CE over flattened token chunks of ``chunk`` rows, each
+        under a checkpoint: the backward pass recomputes a chunk's logits
+        from its [chunk, d] hidden slice instead of storing them."""
+        d = x.shape[-1]
+        xf = x.reshape(-1, d)
+        tf = targets.reshape(-1)
+        mf = torch.ones(tf.shape, dtype=torch.float32, device=x.device) \
+            if mask is None else mask.reshape(-1).float()
+
+        def body(xc, tc, mc):
+            logits = self._head(xc[None], p)          # [1, chunk, vocab]
+            return torch.stack(self._ce_terms(logits, tc[None], mc[None]))
+
+        if torch.is_grad_enabled():
+            body = checkpoint_wrapper(body, policy="full")
+        sums = torch.zeros(3, device=x.device)
+        for i in range(0, xf.shape[0], chunk):
+            sums = sums + body(xf[i:i + chunk], tf[i:i + chunk],
+                               mf[i:i + chunk])
+        return sums[0], sums[1], sums[2]
+
+    # ------------------------------------------------------------------
+    def _embed(self, tokens: torch.Tensor,
+               params: Optional[Mapping[str, torch.Tensor]] = None
+               ) -> torch.Tensor:
         """Token embedding: [..., s] -> [..., s, d] in the compute dtype
         (the dtype of ``wq``)."""
-        return self.tok_embed[tokens.long()].to(self.layers[0].wq.dtype)
+        p = self._params(params)
+        return F.embedding(tokens.long(), p["tok_embed"]).to(
+            p["layers.0.wq"].dtype)
 
-    def _mlp(self, h: torch.Tensor, layer: Block) -> torch.Tensor:
-        """Gated-SiLU FFN: (silu(h @ w_gate) * (h @ w_up)) @ w_down."""
-        up = F.silu(h @ layer.w_gate) * (h @ layer.w_up)
-        return up @ layer.w_down
+    def _mlp(self, h: torch.Tensor, lp) -> torch.Tensor:
+        """Gated-SiLU FFN: (silu(h @ w_gate) * (h @ w_up)) @ w_down. ``lp``
+        is a :class:`Block` or a dict of one layer's leaves."""
+        up = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
+        return up @ lp["w_down"]
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, x: torch.Tensor,
+              params: Optional[Mapping[str, torch.Tensor]] = None
+              ) -> torch.Tensor:
         """Final norm + LM head: [..., d] -> fp32 logits [..., vocab]."""
-        x = rms_norm(x, self.final_norm_w, self.config.norm_eps)
-        return (x @ self.lm_head.to(x.dtype)).float()
+        p = self._params(params)
+        x = rms_norm(x, p["final_norm_w"], self.config.norm_eps)
+        return (x @ p["lm_head"].to(x.dtype)).float()

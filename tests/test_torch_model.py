@@ -3,9 +3,9 @@
 ``rms_norm`` and ``apply_rotary`` are held to the JAX functions at fp32,
 1e-6; the Llama ``Transformer``'s ``_embed`` / ``_mlp`` / ``_head`` to the
 JAX model on carried weights. Also here: the presets, the weight carry's
-checks, the unsupported-flag errors, the entry points' CUDA default, and
-the scan showing that the port and ``chip_smoke.py`` import neither
-``jax`` nor ``deepspeed_tpu``.
+checks, the unsupported-flag errors, the serving and training entry
+points' CUDA default, and the scan showing that the port and
+``chip_smoke.py`` import neither ``jax`` nor ``deepspeed_tpu``.
 """
 
 import ast
@@ -139,8 +139,10 @@ def test_init_is_seeded():
 def test_other_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="later slice"):
         Llama("tiny", device="cpu", **{**TINY, **flag})
-    with pytest.raises(NotImplementedError):
-        Llama("tiny", device="cpu", **TINY)(torch.zeros(1, 2, dtype=torch.long))
+    # the dense forward runs; its KV-cache branch comes with a later slice
+    with pytest.raises(NotImplementedError, match="later slice"):
+        Llama("tiny", device="cpu", **TINY)(torch.zeros(1, 2, dtype=torch.long),
+                                            kv_caches=())
 
 
 def test_weight_carry_checks_shapes_and_leaves(carried):
@@ -179,6 +181,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(eng, start=False)
     ServingEngine(eng, start=False, device="cpu")
+
+
+def test_trainer_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.config import Config
+    from deepspeed_tpu_torch.runtime.engine import TrainEngine
+
+    model = Llama("tiny", device="cpu", **TINY)
+    cfg = {"train_batch_size": 2}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=model, config=cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainEngine(loss_fn=lambda p, b: model.loss(b, params=p),
+                    params=dict(model.named_parameters()),
+                    config=Config.from_dict(cfg))
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                device="cpu")
+    assert engine.device == torch.device("cpu")
 
 
 def _port_sources():
