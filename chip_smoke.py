@@ -7,13 +7,17 @@ CPU path — without a CUDA device the script fails):
 
 1. device: name, count, and ``nvidia-smi`` name + power limit;
 2. build: compile every kernel library from the sources in the checkout
-   with ``nvcc`` (one process each, in parallel) and print each kernel's
-   ``-Xptxas -v`` registers, spills and shared memory;
+   with ``nvcc`` (one process each, all started together) and print each
+   kernel's ``-Xptxas -v`` registers, spills and shared memory;
 3. kernels: paged attention against its plain PyTorch version on the card
    at the serving path's shapes, with stated tolerances (TF32 is off for
    both cuBLAS and cuDNN), then, at a decode and a prefill shape, compared
    again and timed with CUDA events (L2 flushed before every call) beside
-   its HBM-bytes bound;
+   its HBM-bytes bound; the same over int8 and int4 pools (the quantized-
+   pool kernel); blockwise quantize and dequantize bitwise against their
+   plain versions (fp32/bf16/fp16, bits 8/4, blocks 128/256, row counts
+   that are not multiples of 32, path A's weight shapes), timed at
+   [4096, 11008] bf16;
    flash: the forward, dq and dk/dv kernels through
    ``FlashAttentionFunction`` against their plain versions (15 cases: the
    1b shape in bf16 at the training shape's micro-batch 4 and in
@@ -22,13 +26,24 @@ CPU path — without a CUDA device the script fails):
    its plain version and ``scaled_dot_product_attention`` as a yardstick;
 4. engine: a 2-layer Llama-2-7B-width engine (d_model 4096) in fp32, the
    same weights on cuda and on cpu, one ``put`` of 3 mixed-length prompts;
-   logits must agree within 1e-3;
+   logits must agree within 1e-3; then path B (int8 and int4 KV pools) and
+   path A (``init_inference`` with int8 and int4 weights) at the same
+   width, cuda against cpu: quantized weights and dequantized weights
+   bitwise equal, logits within 2e-2 of the largest, greedy tokens
+   identical;
 5. serving: Llama-2-7B at full width and depth (bf16, seeded random
    weights) behind ``ServingEngine`` (FCFS) over ``RaggedInferenceEngine``,
    8 requests to completion; kernel launch counts are reset just before
    and read just after;
 6. profile: the same requests again under ``torch.profiler``: device time
-   by kernel and the device's idle share;
+   by kernel and the device's idle share; then the same 8 requests over an
+   int8 and an int4 KV pool at the bf16 pool's byte budget (path B), the
+   int8 run profiled too;
+6a. inference: ``init_inference(Llama("7b"))`` with int8 weights at group
+   256 (path A), then bf16 and int4 weights: 4 prompts of 128 tokens, 32
+   new tokens greedy; weight bytes, memory, prefill and decode times,
+   dequantize launches per forward, and one profiled int8 and bf16 decode
+   step;
 7. trainer: a 2-layer Llama-1b-width model in fp32, the same weights on
    cuda and cpu, one ``train_batch`` each through ``initialize``: loss,
    grad norm and updated weights must agree;
@@ -50,7 +65,6 @@ import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -58,12 +72,31 @@ import torch
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
+from deepspeed_tpu_torch.ops import quant as qk
+from deepspeed_tpu_torch.ops.quantizer import quantize_kv
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
                   torch.float32: 67e12}   # dense, no sparsity
-LIBRARIES = ("paged_attention", "flash_attention")
+LIBRARIES = ("paged_attention", "flash_attention", "quant")
 PAGED_REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:159"
+# the same Pallas kernel with kv_bits 8/4: its quantized-pool read
+PAGED_QUANT_REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:91"
+# counter of each paged-attention variant, by the engine's kv_quant
+PAGED_COUNTER = {"none": "launches", "int8": "int8_launches",
+                 "int4": "int4_launches"}
+QUANT_SOURCE = "deepspeed_tpu_torch/csrc/quant.cu"
+QUANT_KERNELS = {
+    # name: (wrapper whose .launches counts it, replaced pallas_call,
+    #        fp32 operations per element)
+    "quantize_blockwise": (qk.quantize_blockwise,
+                           "deepspeed_tpu/ops/pallas/quant.py:72", 6),
+    "dequantize_blockwise": (qk.dequantize_blockwise,
+                             "deepspeed_tpu/ops/pallas/quant.py:103", 1),
+}
+# Llama-2-7B weight shapes path A quantizes and dequantizes
+PATH_A_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (32000, 4096)]
+FP_POOL_BYTES = 2048 * 8_388_608   # phase 5's bf16 pool: 2048 pages of 16
 PAGED_SOURCE = "deepspeed_tpu_torch/csrc/paged_attention.cu"
 FLASH_SOURCE = "deepspeed_tpu_torch/csrc/flash_attention.cu"
 FLASH_KERNELS = {
@@ -139,11 +172,13 @@ def phase_device() -> dict:
 
 # ---------------------------------------------------------------- phase 2
 def phase_build() -> None:
-    """Build every kernel library at once (one nvcc each, in parallel)."""
+    """Build every kernel library: one nvcc process per source, all
+    started together (``op_builder.load_all``)."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        list(pool.map(op_builder.load, LIBRARIES))
-    log(f"build: {time.perf_counter() - t0:.2f} s for {list(LIBRARIES)}")
+    op_builder.load_all(LIBRARIES)
+    log(f"build: {time.perf_counter() - t0:.2f} s for {list(LIBRARIES)} ("
+        + ", ".join(f"{n} done at {t:.2f} s"
+                    for n, t in op_builder.build_seconds.items()) + ")")
     for name, text in op_builder.build_logs.items():
         for line in text.splitlines():
             if "ptxas" in line or "registers" in line or "smem" in line:
@@ -185,11 +220,13 @@ def _paged_inputs(gen, contexts, hq, hkv, hd, block, dtype, *,
             torch.tensor(slots, dtype=torch.int32, device=dev))
 
 
-def _bound(q, kp, tables, positions, seq_slots, live_pages, window):
+def _bound(q, kp, tables, positions, seq_slots, live_pages, window,
+           kv_bits: int = 0):
     """(bound_ms, bound_by, bytes, ops) for one call on these inputs:
-    bytes = the distinct K/V pages the walk needs, q, out, tables,
-    positions and slots, each once; ops = 4 per (query head, visible key,
-    channel)."""
+    bytes = the distinct K/V pages the walk needs (with ``kv_bits``, their
+    payload and one fp32 scale per head-vector), q, out, tables, positions
+    and slots, each once; ops = 4 per (query head, visible key, channel),
+    at q's type's peak (fp32's for quantized pools, whose math is fp32)."""
     T, hq, hd = q.shape
     _, hkv, block, _ = kp.shape
     tab = tables.cpu().numpy()
@@ -204,13 +241,24 @@ def _bound(q, kp, tables, positions, seq_slots, live_pages, window):
         pages.update(int(x) for x in tab[r, lo:hi])
         keys += (p + 1) if window <= 0 else min(p + 1, window)
     elem = q.element_size()
-    nbytes = (2 * len(pages) * hkv * block * hd * elem + 2 * q.numel() * elem
+    row_bytes = hd * kv_bits // 8 + 4 if kv_bits else hd * elem
+    nbytes = (2 * len(pages) * hkv * block * row_bytes + 2 * q.numel() * elem
               + 4 * (tables.numel() + positions.numel() + seq_slots.numel()))
     ops = 4.0 * keys * hq * hd
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[q.dtype] * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32 if kv_bits else q.dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
+
+
+PAGED_SHAPES = {
+    # 16 sequences decoding at 1024 context: one token each
+    "decode_16x1024": dict(contexts=[1024] * 16, prefill_of=None,
+                           decode=True, live=64),
+    # one 512-token prefill chunk of a 512-token prompt
+    "prefill_512": dict(contexts=[512], prefill_of=(0, 512), decode=False,
+                        live=32),
+}
 
 
 def phase_kernels() -> dict:
@@ -251,15 +299,7 @@ def phase_kernels() -> dict:
 
     timings = {}
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    shapes = {
-        # 16 sequences decoding at 1024 context: one token each
-        "decode_16x1024": dict(contexts=[1024] * 16, prefill_of=None,
-                               decode=True, live=64),
-        # one 512-token prefill chunk of a 512-token prompt
-        "prefill_512": dict(contexts=[512], prefill_of=(0, 512),
-                            decode=False, live=32),
-    }
-    for label, spec in shapes.items():
+    for label, spec in PAGED_SHAPES.items():
         q, kp, vp, tab, pos, slots = _paged_inputs(
             gen, spec["contexts"], 32, 32, 128, 16, torch.bfloat16,
             prefill_of=spec["prefill_of"], decode=spec["decode"],
@@ -300,6 +340,176 @@ def phase_kernels() -> dict:
     return {"max_abs_err": worst, "timings": timings}
 
 
+def _quantized_pools(kp, vp, bits):
+    """(k payload, v payload, quant kwargs) of fp pools, by quantize_kv."""
+    kq, ks = quantize_kv(kp, bits)
+    vq, vs = quantize_kv(vp, bits)
+    return kq, vq, dict(k_scale=ks, v_scale=vs, kv_bits=bits)
+
+
+def phase_paged_quant(flush: torch.Tensor) -> dict:
+    """The quantized-pool kernel (int8, int4) against its plain version:
+    PR 1's 7b shapes in bf16 and fp32 q, a window, GQA with hd 64; then
+    decode_16x1024 and prefill_512 compared again and timed beside their
+    bound (payload + scale bytes). Returns {bits: {max_abs_err, timings}}."""
+    gen = torch.Generator().manual_seed(4)
+    ctxs = [1, 17, 1000, 4096]
+    cases = [
+        # name, contexts, hq, hkv, hd, block, dtype, window, max_pages, live
+        ("7b-bf16", ctxs, 32, 32, 128, 16, torch.bfloat16, 0, 512, 256),
+        ("7b-fp32", ctxs, 32, 32, 128, 16, torch.float32, 0, 512, 256),
+        ("7b-window256-bf16", ctxs, 32, 32, 128, 16, torch.bfloat16, 256,
+         512, 256),
+        ("gqa-hd64-window-fp32", ctxs, 32, 4, 64, 16, torch.float32, 100,
+         512, 256),
+    ]
+    out = {}
+    for bits in (8, 4):
+        worst = 0.0
+        for name, contexts, hq, hkv, hd, block, dtype, window, mp, live in \
+                cases:
+            q, kp, vp, tab, pos, slots = _paged_inputs(
+                gen, contexts, hq, hkv, hd, block, dtype,
+                prefill_of=(2, 16), max_pages=mp)
+            kq, vq, quant = _quantized_pools(kp, vp, bits)
+            got = pa.paged_attention(q, kq, vq, tab, pos, seq_slots=slots,
+                                     live_pages=live, window=window, **quant)
+            torch.cuda.synchronize()
+            ref = pa.paged_attention_reference(
+                q, kq, vq, tab, pos, seq_slots=slots, live_pages=live,
+                window=window, **quant)
+            ok, err, tol = check_half_or_fp32(got, ref)
+            log(f"kernels: paged_attention int{bits} {name} T={q.shape[0]} "
+                f"max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"quantized paged_attention disagrees with "
+                                 f"its plain version on int{bits} {name}")
+            worst = max(worst, err)
+        timings = {}
+        for label, spec in PAGED_SHAPES.items():
+            q, kp, vp, tab, pos, slots = _paged_inputs(
+                gen, spec["contexts"], 32, 32, 128, 16, torch.bfloat16,
+                prefill_of=spec["prefill_of"], decode=spec["decode"],
+                max_pages=256, extra_pages=0)
+            kq, vq, quant = _quantized_pools(kp, vp, bits)
+            del kp, vp
+            live = spec["live"]
+
+            def kern():
+                return pa.paged_attention(q, kq, vq, tab, pos,
+                                          seq_slots=slots, live_pages=live,
+                                          **quant)
+
+            def plain():
+                return pa.paged_attention_reference(
+                    q, kq, vq, tab, pos, seq_slots=slots, live_pages=live,
+                    **quant)
+
+            got, ref = kern(), plain()
+            ok, err, tol = check_half_or_fp32(got, ref)
+            log(f"kernels: paged_attention int{bits} {label} "
+                f"T={q.shape[0]} max_abs_err={err:.3e} tol={tol} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"quantized paged_attention disagrees with "
+                                 f"its plain version on int{bits} {label}")
+            worst = max(worst, err)
+            p1 = cuda_ms(plain, 3, flush)
+            k1 = cuda_ms(kern, 20, flush)
+            k2 = cuda_ms(kern, 20, flush)
+            p2 = cuda_ms(plain, 3, flush)
+            bound_ms, bound_by, nbytes, ops = _bound(q, kq, tab, pos, slots,
+                                                     live, 0, kv_bits=bits)
+            timings[label] = {"T": q.shape[0], "ms": min(k1, k2),
+                              "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+                              "bound_by": bound_by, "bytes": nbytes,
+                              "ops": ops}
+            log(f"kernels: paged_attention int{bits} {label} "
+                f"T={q.shape[0]} kernel {k1:.4f}/{k2:.4f} ms plain "
+                f"{p1:.4f}/{p2:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, "
+                f"{nbytes} B)")
+        out[bits] = {"max_abs_err": worst, "timings": timings}
+    return out
+
+
+def phase_quant_kernels(flush: torch.Tensor) -> dict:
+    """Rows 5 and 6: quantize and dequantize against their plain versions,
+    bitwise (payload, scales and dequantized values), over fp32, bf16 and
+    fp16 inputs, bits 8 and 4 (int4 also packed, as the v1 engine stores
+    it), blocks 128 and 256, row counts that are not multiples of 32, and
+    path A's weight shapes in bf16; then both timed at [4096, 11008] bf16,
+    int8, block 256 beside their bound. Returns {name: timing}."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def make(shape, dtype):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x *= torch.rand((shape[0], 1), generator=gen, device="cuda") * 10
+        x[0] = 0.0                            # an all-zero block: scale 1
+        return x.to(dtype)
+
+    cases = [((333, 512), dtype, bits, block, pack)
+             for dtype in (torch.float32, torch.bfloat16, torch.float16)
+             for bits, pack in ((8, False), (4, False), (4, True))
+             for block in (128, 256)]
+    cases += [(shape, torch.bfloat16, bits, 256, bits == 4)
+              for shape in PATH_A_SHAPES for bits in (8, 4)]
+    worst = 0.0
+    for shape, dtype, bits, block, pack in cases:
+        x = make(shape, dtype)
+        q, s = qk.quantize_blockwise(x, bits=bits, block=block, pack=pack)
+        got = qk.dequantize_blockwise(q, s, block=block, dtype=dtype,
+                                      packed=pack)
+        torch.cuda.synchronize()
+        rq, rs = qk.quantize_blockwise_reference(x, bits, block, pack)
+        ref = qk.dequantize_blockwise_reference(rq, rs, block, dtype, pack)
+        same = (torch.equal(q, rq), torch.equal(s, rs), torch.equal(got, ref))
+        worst = max(worst, (got.float() - ref.float()).abs().max().item())
+        rows = x.numel() // block
+        log(f"quant: {tuple(shape)} {str(dtype)[6:]} bits {bits} block "
+            f"{block}{' packed' if pack else ''} ({rows} rows, rows % 32 = "
+            f"{rows % 32}): payload, scale, dequantized bitwise equal "
+            f"{same} {'ok' if all(same) else 'FAIL'}")
+        if not all(same):
+            raise SystemExit(f"quantize/dequantize kernels differ from their "
+                             f"plain versions on {shape} {dtype} bits {bits}")
+        del x, q, s, got, rq, rs, ref
+    x = make((4096, 11008), torch.bfloat16)
+    q, s = qk.quantize_blockwise(x, bits=8, block=256)
+    fns = {
+        "quantize_blockwise": (
+            lambda: qk.quantize_blockwise(x, bits=8, block=256),
+            lambda: qk.quantize_blockwise_reference(x, 8, 256)),
+        "dequantize_blockwise": (
+            lambda: qk.dequantize_blockwise(q, s, block=256,
+                                            dtype=torch.bfloat16),
+            lambda: qk.dequantize_blockwise_reference(q, s, 256,
+                                                      torch.bfloat16)),
+    }
+    # each input read once, each output written once: the same bytes both
+    # ways (bf16 values, int8 payload, fp32 scales)
+    nbytes = x.numel() * 2 + q.numel() + s.numel() * 4
+    res = {}
+    for name, (kern, plain) in fns.items():
+        p1 = cuda_ms(plain, 3, flush)
+        k1 = cuda_ms(kern, 20, flush)
+        k2 = cuda_ms(kern, 20, flush)
+        p2 = cuda_ms(plain, 3, flush)
+        ops = float(QUANT_KERNELS[name][2]) * x.numel()
+        t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "max_abs_err": worst,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                     "bytes": nbytes, "ops": ops}
+        log(f"quant: {name} [4096, 11008] bf16 int8 block 256: kernel "
+            f"{k1:.4f}/{k2:.4f} ms plain {p1:.4f}/{p2:.4f} ms bound "
+            f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']}, "
+            f"{nbytes} B, {ops:.3e} ops); {nbytes / min(k1, k2) / 1e6:.1f} "
+            f"GB/s")
+    return res
+
+
 # ---------------------------------------------------------------- phase 4
 def phase_engine() -> None:
     """2-layer Llama-2-7B-width engine, fp32, the same weights on cuda and
@@ -338,29 +548,177 @@ def phase_engine() -> None:
     torch.cuda.empty_cache()
 
 
+def _close(got: np.ndarray, ref: np.ndarray, rel: float) -> tuple:
+    """(ok, max abs err): finite, and max |got - ref| <= rel * max |ref|."""
+    err = float(np.abs(got - ref).max())
+    ok = bool(np.isfinite(got).all()) and err <= rel * float(np.abs(ref).max())
+    return ok, err
+
+
+# logits of a 2-layer engine on cuda vs cpu, max err / max |ref|: in bf16
+# (two layers of bf16 rounding), and over quantized KV pools in any dtype,
+# where K/V that differ in their last bits can round to neighbouring
+# int8/int4 levels (one level is absmax/127 or absmax/7 of a head-vector)
+ENGINE_REL = 2e-2
+
+
+def phase_ragged_quant_parity() -> None:
+    """Path B at Llama-2-7B's width, 2 layers, fp32, the same weights on
+    cuda and cpu, over int8 and int4 KV pools: the logits of one put of 3
+    prompts within 2e-2 of the largest, 8 greedy tokens per prompt
+    identical, zero leaked blocks. (In bf16, K/V that differ by one bf16
+    step between the devices flip int4 levels often enough to move the
+    logits by more; the kernel itself is held in bf16 in phase 3.)"""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine,
+                                                      assert_block_balance)
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    t0 = time.perf_counter()
+    cpu_model = Llama("7b", device="cpu", dtype=torch.float32, seed=1,
+                      n_layers=2)
+    gpu_model = Llama("7b", device="cuda", dtype=torch.float32, seed=1,
+                      n_layers=2)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(7)
+    prompts = {1: rng.integers(1, 32000, 5).tolist(),
+               2: rng.integers(1, 32000, 77).tolist(),
+               3: rng.integers(1, 32000, 300).tolist()}
+    for kvq in ("int8", "int4"):
+        cfg = dict(token_budget=512, max_seqs=4, kv_block_size=16,
+                   n_kv_blocks=64, max_context=4096, dtype=torch.float32,
+                   kv_quant=kvq)
+        engs = {dev: RaggedInferenceEngine(m, RaggedConfig(**cfg), device=dev)
+                for dev, m in (("cuda", gpu_model), ("cpu", cpu_model))}
+        counter = PAGED_COUNTER[kvq]
+        before = getattr(pa.paged_attention, counter)
+        logits = {dev: e.put(list(prompts), list(prompts.values()))
+                  for dev, e in engs.items()}
+        launched = getattr(pa.paged_attention, counter) - before
+        ok, err = _close(logits["cuda"], logits["cpu"], ENGINE_REL)
+        for e in engs.values():
+            e.flush(list(prompts))
+        toks = {dev: e.generate(prompts, max_new_tokens=8)
+                for dev, e in engs.items()}
+        same = toks["cuda"] == toks["cpu"]
+        for e in engs.values():
+            assert_block_balance(e, expect_free=64)
+        ok &= same and launched == 2
+        log(f"parity B: 2-layer d_model 4096 fp32 kv_quant={kvq}: put "
+            f"logits cuda vs cpu max_abs_err={err:.3e} (2e-2 max|ref| = "
+            f"{ENGINE_REL * np.abs(logits['cpu']).max():.3e}), {launched} "
+            f"{counter}; 8 greedy tokens x 3 identical: {same}; blocks "
+            f"balanced, 64 free {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"path B on cuda disagrees with cpu ({kvq})")
+        del engs
+    del cpu_model, gpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"parity B: done in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_inference_parity() -> None:
+    """Path A at Llama-2-7B's width, 2 layers, the same weights on cuda
+    and cpu, int8 and int4 at group 256. bf16: quantized payloads and
+    scales, and every dequantized weight, bitwise equal; last-token logits
+    within 2e-2 of the largest. fp32: 16 greedy tokens identical (in bf16,
+    random weights give argmax near-ties that summation order can flip)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.engine import _is_wq
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    t0 = time.perf_counter()
+    cpu_model = Llama("7b", device="cpu", dtype=torch.float32, seed=3,
+                      n_layers=2)
+    gpu_model = Llama("7b", device="cuda", dtype=torch.float32, n_layers=2)
+    params = dict(cpu_model.named_parameters())      # one set of weights
+    ids = np.random.default_rng(6).integers(1, 32000, (2, 16))
+    for bits in (8, 4):
+        quant = {"enabled": True, "bits": bits, "group_size": 256}
+        conf = {"dtype": "bfloat16", "quant": quant}
+        before = qk.quantize_blockwise.launches
+        g = deepspeed_tpu_torch.init_inference((gpu_model, params), conf)
+        n_quant = qk.quantize_blockwise.launches - before
+        c = deepspeed_tpu_torch.init_inference((cpu_model, params), conf,
+                                               device="cpu")
+        same_q = all(torch.equal(t.cpu(), c.params[n][k] if _is_wq(
+            c.params[n]) else c.params[n])
+            for n, leaf in g.params.items()
+            for k, t in (leaf.items() if _is_wq(leaf) else [(None, leaf)]))
+        same_w = all(torch.equal(g._leaf(n).cpu(), c._leaf(n))
+                     for n in c.params)
+        lg = g.forward(ids)[:, -1].cpu().numpy()
+        lc = c.forward(ids)[:, -1].numpy()
+        ok, err = _close(lg, lc, ENGINE_REL)
+        ok &= same_q and same_w and n_quant == 20
+        log(f"parity A: 2-layer d_model 4096 bf16 int{bits} group 256: "
+            f"{n_quant} quantize launches (2 x 9 layer leaves + embedding + "
+            f"head), payloads and scales bitwise equal {same_q}, dequantized "
+            f"weights bitwise equal {same_w}, last-token logits max_abs_err "
+            f"{err:.3e} (2e-2 max|ref|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"path A int{bits} bf16 on cuda disagrees with "
+                             f"cpu")
+        del g, c
+        engs = {dev: deepspeed_tpu_torch.init_inference(
+            (m, params), {"dtype": "float32", "temperature": 0.0,
+                          "quant": quant}, device=dev)
+            for dev, m in (("cuda", gpu_model), ("cpu", cpu_model))}
+        before = qk.dequantize_blockwise.launches
+        toks = {"cuda": engs["cuda"].generate(ids, max_new_tokens=16)}
+        n_deq = qk.dequantize_blockwise.launches - before
+        toks["cpu"] = engs["cpu"].generate(ids, max_new_tokens=16)
+        same = np.array_equal(toks["cuda"], toks["cpu"])
+        ok = same and n_deq == 16 * 20 and toks["cuda"].shape == (2, 32)
+        log(f"parity A: 2-layer fp32 int{bits}: 16 greedy tokens x 2 "
+            f"identical on cuda and cpu: {same}; {n_deq} dequantize launches "
+            f"(16 forwards x 20) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"path A int{bits} fp32 greedy tokens differ "
+                             f"between cuda and cpu")
+        del engs
+    del cpu_model, gpu_model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"parity A: done in {time.perf_counter() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------- phase 5
-def phase_serving(card: str) -> tuple:
+def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
     """Llama-2-7B, full width and depth, bf16, seeded random weights,
     behind ServingEngine (FCFS): 8 requests of 64-1536 prompt tokens, 32
-    new tokens each. Returns (the paged-attention launches of the run, the
-    engine, the prompts) for the profile phase."""
+    new tokens each, over a bf16 pool of 2048 pages or, with ``kv_quant``,
+    an int8/int4 pool of the same bytes (path B). ``model`` reuses an
+    earlier phase's weights. Returns (the paged-attention launches of the
+    run, the engine, the prompts) for the profile phase."""
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
-                                                      RaggedInferenceEngine)
+                                                      RaggedInferenceEngine,
+                                                      kv_blocks_for_bytes)
     from deepspeed_tpu_torch.models.llama import Llama
     from deepspeed_tpu_torch.serving.request import RequestState
     from deepspeed_tpu_torch.serving.server import ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = Llama("7b", dtype=torch.bfloat16, seed=0)
+    if model is None:
+        model = Llama("7b", dtype=torch.bfloat16, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    cfg = RaggedConfig(token_budget=512, max_seqs=16, kv_block_size=16,
-                       n_kv_blocks=2048, max_context=4096,
-                       dtype=torch.bfloat16)
+    n_layers = model.config.n_layers
+    shape = dict(token_budget=512, max_seqs=16, kv_block_size=16,
+                 max_context=4096, dtype=torch.bfloat16, kv_quant=kv_quant)
+    pages = kv_blocks_for_bytes(FP_POOL_BYTES, model.config,
+                                RaggedConfig(**shape))
+    cfg = RaggedConfig(n_kv_blocks=pages, **shape)
     eng = RaggedInferenceEngine(model, cfg)
     torch.cuda.synchronize()
-    log(f"serving: Llama-2-7B {n_params} params bf16, pool "
-        f"{cfg.n_kv_blocks}x{cfg.kv_block_size} pages, built in "
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for leaves in eng.kv_pool for t in leaves)
+    counter = PAGED_COUNTER[kv_quant]
+    tag = "serving" if kv_quant == "none" else f"serving {kv_quant}"
+    log(f"{tag}: Llama-2-7B {n_params} params bf16, kv_quant={kv_quant} "
+        f"pool {cfg.n_kv_blocks}x{cfg.kv_block_size} pages, {pool_bytes} B "
+        f"(budget {FP_POOL_BYTES} B), built in "
         f"{time.perf_counter() - t0:.1f} s")
     puts = [0]
     real_put = eng.put
@@ -373,12 +731,13 @@ def phase_serving(card: str) -> tuple:
     rng = np.random.default_rng(0)
     lengths = rng.integers(64, 1537, 8)
     prompts = [rng.integers(1, 32000, int(n)).tolist() for n in lengths]
-    srv = ServingEngine(eng, {"policy": "fcfs"})
+    srv = ServingEngine(eng, {"policy": "fcfs", "kv_quant": kv_quant})
     try:
         # warm-up request (cuBLAS handles, allocator), outside the count
         srv.submit(prompts[0][:16], max_new_tokens=2).result(timeout=600)
         torch.cuda.synchronize()
-        pa.paged_attention.launches = 0
+        for name in PAGED_COUNTER.values():
+            setattr(pa.paged_attention, name, 0)
         puts[0] = 0
         t1 = time.perf_counter()
         reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
@@ -386,28 +745,32 @@ def phase_serving(card: str) -> tuple:
             r.wait(timeout=900)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        launches, n_puts = pa.paged_attention.launches, puts[0]
+        counts = {n: getattr(pa.paged_attention, n)
+                  for n in PAGED_COUNTER.values()}
+        launches, n_puts = counts[counter], puts[0]
     finally:
         srv.close(timeout=60)
     leaks = srv.block_leaks()
     states = [r.state for r in reqs]
     ntok = [len(r.tokens) for r in reqs]
     ttft = sorted(r.ttft_s for r in reqs if r.ttft_s is not None)
-    log(f"serving: prompt lengths {lengths.tolist()}, states "
+    log(f"{tag}: prompt lengths {lengths.tolist()}, states "
         f"{[s.value for s in states]}, tokens {ntok}")
     ok = (all(s is RequestState.FINISHED for s in states)
           and ntok == [32] * 8 and leaks == [] and len(ttft) == 8
           and all(0 <= t < 32000 for r in reqs for t in r.tokens)
-          and launches == 32 * n_puts and launches > 0)
-    log(f"serving: {n_puts} engine puts, {launches} paged_attention "
-        f"launches (32 layers x puts = {32 * n_puts}), block leaks {leaks}")
-    log(f"serving [{card}]: wall {wall:.3f} s for 8 requests, TTFT p50 "
+          and launches == n_layers * n_puts and launches > 0
+          and sum(counts.values()) == launches)
+    log(f"{tag}: {n_puts} engine puts, paged_attention launches {counts} "
+        f"({n_layers} layers x puts = {n_layers * n_puts}, all {counter}), "
+        f"block leaks {leaks}")
+    log(f"{tag} [{card}]: wall {wall:.3f} s for 8 requests, TTFT p50 "
         f"{ttft[len(ttft) // 2]:.3f} s max {ttft[-1]:.3f} s, "
         f"{sum(ntok) / wall:.1f} generated tokens/s")
     logits = eng.put([10_000], [prompts[1][:40]])
     eng.flush([10_000])
     ok = ok and logits.shape == (1, 32000) and np.isfinite(logits).all()
-    log(f"serving: torch.cuda.max_memory_allocated() = "
+    log(f"{tag}: torch.cuda.max_memory_allocated() = "
         f"{torch.cuda.max_memory_allocated()} B")
     if not ok:
         raise SystemExit("serving phase failed")
@@ -415,7 +778,7 @@ def phase_serving(card: str) -> tuple:
 
 
 # ---------------------------------------------------------------- phase 6
-def phase_profile(eng, prompts, card: str) -> None:
+def phase_profile(eng, prompts, card: str, tag: str = "profile") -> None:
     """The same 8 requests again under torch.profiler (CPU + CUDA
     activities): device time by kernel, and the device's idle share of the
     wall time. Profiling slows the host, so this run's wall time is not the
@@ -440,7 +803,7 @@ def phase_profile(eng, prompts, card: str) -> None:
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us <= 0:
-        log(f"profile [{card}]: torch.profiler recorded no device time: "
+        log(f"{tag} [{card}]: torch.profiler recorded no device time: "
             f"kernel breakdown not measured")
         return
     groups = {"paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
@@ -450,14 +813,159 @@ def phase_profile(eng, prompts, card: str) -> None:
             "gemm" if any(k in name for k in ("nvjet", "gemm", "xmma",
                                                "cutlass")) else "other"
         groups[g] += e.self_device_time_total
-    log(f"profile [{card}]: profiled wall {wall:.3f} s, device busy "
+    log(f"{tag} [{card}]: profiled wall {wall:.3f} s, device busy "
         f"{total_us / 1e6:.3f} s, idle share "
         f"{max(0.0, 1 - total_us / 1e6 / wall):.3f}; device time "
         + ", ".join(f"{g} {us / 1e3:.1f} ms ({us / total_us:.1%})"
                     for g, us in groups.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"profile: {e.self_device_time_total / 1e3:9.2f} ms "
+        log(f"{tag}: {e.self_device_time_total / 1e3:9.2f} ms "
             f"x{e.count:<6d} {e.key[:110]}")
+
+
+# --------------------------------------------------------------- phase 6a
+def _device_groups(prof, groups: dict) -> tuple:
+    """(total device us, {group: us}) of a profile's CUDA kernels, each
+    kernel in the first group whose keys its name contains, else
+    "other"."""
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    out = {g: 0.0 for g in list(groups) + ["other"]}
+    for e in kernels:
+        name = e.key.lower()
+        g = next((g for g, keys in groups.items()
+                  if any(k in name for k in keys)), "other")
+        out[g] += e.self_device_time_total
+    return sum(out.values()), out, kernels
+
+
+def phase_inference(card: str) -> dict:
+    """Path A: ``init_inference(Llama("7b"))`` at full width and depth
+    (seeded random bf16 weights) with int8 weights at group 256, then bf16
+    and int4 weights: 4 prompts of 128 tokens, 32 new tokens greedy. For
+    int8 the quantize and dequantize counts are reset just before the
+    engine is built and read after its last generate. Prints weight bytes,
+    memory, prefill and decode times, tokens/s and dequantize launches per
+    forward; profiles one int8 and one bf16 decode step. Returns the int8
+    launches."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    ids = np.random.default_rng(8).integers(1, 32000, (4, 128))
+    logits, launches = {}, {}
+    for mode in ("int8", "bf16", "int4"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if mode == "int8":
+            for wrapper, *_ in QUANT_KERNELS.values():
+                wrapper.launches = 0
+        t0 = time.perf_counter()
+        q0 = qk.quantize_blockwise.launches
+        model = Llama("7b", dtype=torch.bfloat16, seed=0)
+        bf16_bytes = sum(p.numel() * 2 for p in model.parameters())
+        # every leaf but final_norm_w: 9 per layer, embedding and head
+        n_wq = 9 * model.config.n_layers + 2
+        cfg = {"dtype": "bfloat16", "temperature": 0.0}
+        if mode != "bf16":
+            cfg["quant"] = {"enabled": True, "bits": int(mode[3:]),
+                            "group_size": 256}
+        eng = deepspeed_tpu_torch.init_inference(model, cfg)
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        peak_build = torch.cuda.max_memory_allocated()
+        held = torch.cuda.memory_allocated()
+        n_quant = qk.quantize_blockwise.launches - q0
+        torch.cuda.reset_peak_memory_stats()           # generate's own peak
+        eng.generate(ids, max_new_tokens=2)            # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.generate(ids, max_new_tokens=1)            # prefill + 1 token
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        d0 = qk.dequantize_blockwise.launches
+        t1 = time.perf_counter()
+        out = eng.generate(ids, max_new_tokens=32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        per_fwd = (qk.dequantize_blockwise.launches - d0) / 32
+        logits[mode] = eng.forward(ids[:1])[0, -1].cpu().numpy()
+        if mode == "int8":
+            launches = {n: w.launches for n, (w, *_) in QUANT_KERNELS.items()}
+        decode_ms = (wall - prefill_s) / 31 * 1e3
+        pb = eng.param_bytes()
+        ok = (out.shape == (4, 160) and ((out >= 0) & (out < 32000)).all()
+              and np.isfinite(logits[mode]).all()
+              and per_fwd == (0 if mode == "bf16" else n_wq)
+              and n_quant == (0 if mode == "bf16" else n_wq))
+        log(f"inference {mode}: param_bytes {pb} ({pb / bf16_bytes:.4f} of "
+            f"bf16 {bf16_bytes}), built in {built_s:.1f} s with {n_quant} "
+            f"quantize launches; max_memory_allocated after build "
+            f"{peak_build} B, allocated {held} B")
+        log(f"inference {mode} [{card}]: 4 x 128-token prompts: prefill (+1 "
+            f"token) {prefill_s * 1e3:.2f} ms; 32 new tokens in {wall:.4f} s "
+            f"= {4 * 32 / wall:.1f} tokens/s, decode {decode_ms:.3f} ms per "
+            f"step; {per_fwd:.0f} dequantize launches per forward; "
+            f"max_memory_allocated during generate "
+            f"{torch.cuda.max_memory_allocated()} B {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"path A {mode} failed")
+        if mode != "int4":
+            _profile_decode_step(eng, ids, card, mode)
+        del eng, model
+    for mode in ("int8", "int4"):
+        a, b = logits[mode], logits["bf16"]
+        cos = float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+        log(f"inference: last-token logits {mode} vs bf16 weights: cosine "
+            f"{cos:.5f}, max_abs_err {np.abs(a - b).max():.3e} (max |bf16| "
+            f"{np.abs(b).max():.3e}), same argmax {a.argmax() == b.argmax()}")
+        if mode == "int8" and cos < 0.95:
+            raise SystemExit("int8 weights moved the logits too far from "
+                             "the bf16 weights' (cosine < 0.95)")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"path A launched no quantize/dequantize: "
+                         f"{launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _profile_decode_step(eng, ids, card: str, mode: str) -> None:
+    """One decode step under torch.profiler: device time by group and the
+    device's idle share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        caches = eng._alloc_cache(ids.shape[0], ids.shape[1] + 1)
+        tokens = torch.from_numpy(ids).cuda()
+        logits, caches = eng._prefill(tokens, caches)
+        nxt = logits.argmax(-1)
+        eng._step_logits(nxt, caches, ids.shape[1])   # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng._step_logits(nxt, caches, ids.shape[1])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    total_us, groups, kernels = _device_groups(
+        prof, {"dequantize": ("dequantize",),
+               "gemm": ("nvjet", "gemm", "xmma", "cutlass", "cublas")})
+    if total_us <= 0:
+        log(f"inference profile {mode} [{card}]: torch.profiler recorded no "
+            f"device time: breakdown not measured")
+        return
+    n_launch = sum(e.count for e in kernels)
+    log(f"inference profile {mode} decode step [{card}]: wall "
+        f"{wall * 1e3:.3f} ms, {n_launch} kernel launches, device busy "
+        f"{total_us / 1e3:.3f} ms, idle share "
+        f"{max(0.0, 1 - total_us / 1e6 / wall):.3f}; device time "
+        + ", ".join(f"{g} {us / 1e3:.3f} ms ({us / total_us:.1%})"
+                    for g, us in groups.items()))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"inference profile {mode}: "
+            f"{e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+            f"{e.key[:110]}")
 
 
 # ------------------------------------------------------- phase 3 (flash)
@@ -851,17 +1359,31 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     kern = phase_kernels()
-    flash_err = phase_flash_kernels()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    kern_q = phase_paged_quant(flush)
+    quant_t = phase_quant_kernels(flush)
+    flash_err = phase_flash_kernels()
     flash_t = phase_flash_timing(flush)
     del flush
     torch.cuda.empty_cache()
     phase_engine()
+    phase_ragged_quant_parity()
+    phase_inference_parity()
     launches, eng, prompts = phase_serving(dev["card"])
     phase_profile(eng, prompts, dev["card"])
-    del eng, prompts
+    model = eng.model
+    paged_q = {}
+    for kvq in ("int8", "int4"):
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        paged_q[kvq], eng, _ = phase_serving(dev["card"], model, kvq)
+        if kvq == "int8":
+            phase_profile(eng, prompts, dev["card"], "profile int8")
+    del eng, model, prompts
     gc.collect()
     torch.cuda.empty_cache()
+    quant_launches = phase_inference(dev["card"])
     phase_trainer_parity()
     engine, batch, flash_launches = phase_training(dev["card"])
     phase_training_profile(engine, batch, dev["card"])
@@ -874,6 +1396,18 @@ def main() -> int:
                 "bound_by": d["bound_by"], "library_ms": None,
                 "parity": "ok", "shape": "decode_16x1024",
                 "timings": kern["timings"], "card": dev["card"]}]
+    for bits in (8, 4):
+        kq = kern_q[bits]
+        d = kq["timings"]["decode_16x1024"]
+        entries.append({
+            "name": f"paged_attention_int{bits}", "route": "cuda",
+            "source": PAGED_SOURCE, "replaces": PAGED_QUANT_REPLACES,
+            "launches": paged_q[f"int{bits}"],
+            "max_abs_err": kq["max_abs_err"], "ms": d["ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": None, "parity": "ok",
+            "shape": "decode_16x1024", "timings": kq["timings"],
+            "card": dev["card"]})
     for name, (_, replaces, _) in FLASH_KERNELS.items():
         t = flash_t[name]
         entries.append({
@@ -884,6 +1418,16 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "parity": "ok", "shape": "b4_s2048_hq32_hkv4_d64_bf16_causal",
             "card": dev["card"]})
+    for name, (_, replaces, _) in QUANT_KERNELS.items():
+        t = quant_t[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": QUANT_SOURCE,
+            "replaces": replaces, "launches": quant_launches[name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "parity": "bitwise",
+            "shape": "4096x11008_bf16_int8_block256", "card": dev["card"]})
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,10 @@ its module paths (``deepspeed_tpu_torch/<sub>/<mod>.py`` ports
 ``jax`` or ``deepspeed_tpu``. Its kernels are hand-written for Hopper
 (``csrc/``), each beside a plain PyTorch version of the same function.
 
-It serves Llama through the ragged engine and the serving front-end, and
-trains it on one device:
+It serves Llama through the ragged engine and the serving front-end
+(optionally over int8/int4 KV pools), generates through the v1 inference
+engine (optionally with ZeRO-Inference int8/int4 weights), and trains it
+on one device:
 
     from deepspeed_tpu_torch.models.llama import Llama
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
@@ -19,6 +21,12 @@ trains it on one device:
         model=Llama("1b"), config={"train_batch_size": 8, ...})
     metrics = engine.train_batch({"input_ids": tokens})
 
+    engine = deepspeed_tpu_torch.init_inference(
+        Llama("7b", dtype=torch.bfloat16),
+        config={"dtype": "bfloat16", "temperature": 0.0,
+                "quant": {"enabled": True, "bits": 8, "group_size": 256}})
+    out = engine.generate(ids, max_new_tokens=32)
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``.
 """
@@ -28,6 +36,7 @@ from __future__ import annotations
 from typing import Any, Callable, Optional, Tuple
 
 from .config import Config, ConfigError  # noqa: F401
+from .inference.engine import InferenceConfig, InferenceEngine
 from .runtime.engine import TrainEngine
 
 __version__ = "0.1.0"
@@ -71,3 +80,21 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
                          model=model, optimizer=optimizer,
                          lr_scheduler=lr_scheduler, device=device)
     return engine, engine.optimizer, None, engine.lr_schedule
+
+
+def init_inference(model: Any = None, config: Any = None, *, device=None,
+                   **kwargs) -> InferenceEngine:
+    """Bring up the v1 inference engine, as ``deepspeed_tpu.init_inference``
+    does. ``model`` is a model, or a ``(model, params)`` pair whose
+    ``params`` is a ``{name: tensor}`` dict as :func:`initialize` takes.
+    ``config`` is a dict (or an ``InferenceConfig``); ``kwargs`` override
+    its keys. A ``checkpoint`` entry (loading from a checkpoint directory)
+    comes with a later slice and raises."""
+    icfg = InferenceConfig.from_any(config, **kwargs)
+    params = None
+    if isinstance(model, tuple):
+        model, params = model
+    if model is None and not icfg.extras.get("checkpoint"):
+        raise ValueError("init_inference() needs a model or a (model, "
+                         "params) pair")
+    return InferenceEngine(model, icfg, params=params, device=device)

@@ -280,7 +280,7 @@ class Config:
 
 # serving keys of later slices -> the value that means "off"
 _LATER_SLICE_KEYS = {
-    "speculative": False, "kv_quant": "none", "model_version": 0,
+    "speculative": False, "model_version": 0,
     "stuck_tick_timeout_s": 0, "fleet": {}, "region": {}, "rollout": {},
     "kv_tier": {},
 }
@@ -302,7 +302,9 @@ class ServingConfig:
     immediately. ``reserve_output_blocks`` charges admission for the
     whole remaining output, so an admitted request cannot exhaust the KV
     pool mid-decode. ``tick_retry_limit`` is the per-request budget for
-    re-queue-on-tick-fault before the request is failed."""
+    re-queue-on-tick-fault before the request is failed. ``kv_quant``
+    declares the engine's KV storage (``"none"``, ``"int8"``, ``"int4"``);
+    the server refuses an engine that stores KV otherwise."""
 
     max_queue: int = 256
     policy: str = "slo"
@@ -314,6 +316,7 @@ class ServingConfig:
     poll_interval_s: float = 0.002
     drain_timeout_s: float = 120.0
     tick_retry_limit: int = 1
+    kv_quant: str = "none"
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ServingConfig":
@@ -341,6 +344,7 @@ class ServingConfig:
             poll_interval_s=float(_take(d, "poll_interval_s", 0.002)),
             drain_timeout_s=float(_take(d, "drain_timeout_s", 120.0)),
             tick_retry_limit=int(_take(d, "tick_retry_limit", 1)),
+            kv_quant=str(_take(d, "kv_quant", "none")),
         )
         if out.policy not in ("slo", "fcfs"):
             raise ConfigError(
@@ -359,6 +363,10 @@ class ServingConfig:
             raise ConfigError(
                 f"serving.default_max_new_tokens must be >= 1, got "
                 f"{out.default_max_new_tokens}")
+        if out.kv_quant not in ("none", "int8", "int4"):
+            raise ConfigError(
+                f"serving.kv_quant must be 'none', 'int8' or 'int4', got "
+                f"'{out.kv_quant}'")
         for k in d:
             logger.warning(f"Unknown config key '{k}' in section 'serving' "
                            f"— ignored")

@@ -10,6 +10,14 @@ hand-written Hopper kernel, :mod:`deepspeed_tpu_torch.ops.paged_attention`)
 → o-proj → RMSNorm → gated-SiLU MLP. The head runs only on each
 sequence's last token. The other matrix products stay ``torch.matmul``.
 
+Quantized pools (``kv_quant`` ``"int8"`` / ``"int4"``): each K/V
+head-vector is quantized on its way into the pool
+(:func:`~deepspeed_tpu_torch.ops.quantizer.quantize_kv`, one fp32 scale
+per head-vector), payload and scale scattered together, and the
+paged-attention kernel dequantizes in its read. At a fixed pool byte
+budget (:func:`kv_blocks_for_bytes`) an int8 pool holds about twice, an
+int4 pool about four times the pages of a bf16 one.
+
 PyTorch runs eagerly, so the step is not compiled; the JAX package's
 static shapes are kept all the same — the step width is rounded up to a
 token bucket and the page walk to a power of two — because they fix the
@@ -20,10 +28,10 @@ In place where JAX donated buffers: the KV pool is updated in place by
 every step, and the engine casts and moves the model's weights in place
 to the engine's dtype and device.
 
-Not in this slice (later slices, ROADMAP.md): ``kv_quant`` int8/int4
-pools, tensor parallelism, speculative ``put_spec`` / drafts,
-``export_kv`` / ``import_kv``, the global KV tier, ``trim``, and sampling
-with temperature > 0.
+Not in this slice (later slices, ROADMAP.md): tensor parallelism,
+speculative ``put_spec`` / drafts, ``export_kv`` / ``import_kv`` (with or
+without scales), the global KV tier, ``trim``, and sampling with
+temperature > 0.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_attention
+from ..ops.quantizer import quantize_kv, quantized_nbytes
 from ..ops.ragged_host import build_batch, fill_tables
 from ..ops.rotary import apply_rotary, rope_frequencies
 from ..utils.device import resolve_device
@@ -223,6 +232,30 @@ def assert_block_balance(engine, expect_free: Optional[int] = None) -> None:
             f"({rep['held']} pages still referenced)")
 
 
+_KV_BITS = {"none": 0, "int8": 8, "int4": 4}
+
+
+def kv_page_bytes(model_config, ragged_config) -> int:
+    """Bytes one KV page (K + V, all layers) takes in the pool under
+    ``ragged_config.kv_quant``: the payload plus, when quantized, one fp32
+    scale per head-vector."""
+    c, cfg = model_config, ragged_config
+    rows = c.n_layers * c.n_kv_heads * cfg.kv_block_size      # per K or V
+    bits = _KV_BITS[cfg.kv_quant]
+    if bits == 0:
+        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        return 2 * rows * c.head_dim * itemsize
+    return 2 * quantized_nbytes(rows * c.head_dim, bits, c.head_dim)
+
+
+def kv_blocks_for_bytes(budget_bytes: int, model_config,
+                        ragged_config) -> int:
+    """Pages a ``budget_bytes`` KV pool holds under the config's
+    ``kv_quant`` mode (at least 1)."""
+    return max(1, int(budget_bytes)
+               // kv_page_bytes(model_config, ragged_config))
+
+
 @dataclass
 class SequenceDescriptor:
     """uid, slot, tokens seen/scheduled, owned KV blocks."""
@@ -257,7 +290,8 @@ class RaggedConfig:
     # blocks into an LRU cache keyed by the token prefix; new prompts
     # sharing a full-block prefix skip its prefill
     enable_prefix_cache: bool = False
-    # quantized KV storage: only "none" in this slice
+    # quantized KV storage ("none" | "int8" | "int4"): pages hold int8
+    # payloads or int4 nibbles with one fp32 scale per K/V head-vector
     kv_quant: str = "none"
 
 
@@ -288,10 +322,15 @@ class RaggedInferenceEngine:
             raise ValueError(
                 f"max_context {cfg.max_context} must be a multiple of "
                 f"kv_block_size {cfg.kv_block_size}")
-        if cfg.kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant='{cfg.kv_quant}': quantized KV pools come with "
-                f"ops/quantizer.py in a later slice")
+        if cfg.kv_quant not in _KV_BITS:
+            raise ValueError(
+                f"kv_quant must be 'none', 'int8' or 'int4', got "
+                f"'{cfg.kv_quant}'")
+        self._kv_bits = _KV_BITS[cfg.kv_quant]
+        if self._kv_bits == 4 and c.head_dim % 2:
+            raise ValueError(
+                f"kv_quant='int4' packs two channels per byte and needs an "
+                f"even head_dim, got {c.head_dim}")
         if cfg.temperature != 0.0:
             raise NotImplementedError(
                 "sampling with temperature > 0 comes in a later slice; "
@@ -312,12 +351,21 @@ class RaggedInferenceEngine:
         self.max_pages = cfg.max_context // cfg.kv_block_size
         # paged KV pool: per-layer [n_blocks + 1, hkv, block, hd] tensors;
         # the last page is the sink that padding lanes scatter into, so an
-        # inactive lane never aliases a live page
-        shape = (cfg.n_kv_blocks + 1, c.n_kv_heads, cfg.kv_block_size,
-                 c.head_dim)
+        # inactive lane never aliases a live page. Quantized pools hold
+        # int8 [.., hd] or nibble-packed uint8 [.., hd // 2] payloads, plus
+        # (k scales, v scales) [n_blocks + 1, hkv, block] fp32 leaves; all
+        # start at zero, so an unwritten page dequantizes to zeros
+        pages = (cfg.n_kv_blocks + 1, c.n_kv_heads, cfg.kv_block_size)
+        shape, dtype = {
+            0: (pages + (c.head_dim,), cfg.dtype),
+            8: (pages + (c.head_dim,), torch.int8),
+            4: (pages + (c.head_dim // 2,), torch.uint8)}[self._kv_bits]
+        n_leaves = 4 if self._kv_bits else 2
         self.kv_pool = tuple(
-            tuple(torch.zeros(shape, dtype=cfg.dtype, device=self.device)
-                  for _ in range(c.n_layers)) for _ in range(2))
+            tuple(torch.zeros(pages if i >= 2 else shape,
+                              dtype=torch.float32 if i >= 2 else dtype,
+                              device=self.device)
+                  for _ in range(c.n_layers)) for i in range(n_leaves))
         self._angles = rope_frequencies(c.rotary_dim, c.max_seq_len,
                                         c.rope_theta, device=self.device)
         # per-layer sliding windows (0 = global causal)
@@ -778,6 +826,8 @@ class RaggedInferenceEngine:
         rope_pos = positions[:, None]
         for li, blk in enumerate(model.layers):
             kp, vp = self.kv_pool[0][li], self.kv_pool[1][li]
+            ks = self.kv_pool[2][li] if self._kv_bits else None
+            vs = self.kv_pool[3][li] if self._kv_bits else None
             h = rms_norm(x, blk.attn_norm_w, c.norm_eps)
             q = (h @ blk.wq).reshape(-1, c.n_heads, c.head_dim)
             kk = (h @ blk.wk).reshape(-1, c.n_kv_heads, c.head_dim)
@@ -789,13 +839,20 @@ class RaggedInferenceEngine:
                               rotary_dim=c.rotary_dim,
                               interleaved=c.rope_interleaved)[:, 0]
             # pool [pages, hkv, block, hd]; two advanced indices around a
-            # slice put the lane dim first: the value is [T, hkv, hd]
+            # slice put the lane dim first: the value is [T, hkv, hd].
+            # Quantized pools take the payload and its scale [T, hkv]
+            if self._kv_bits:
+                kk, sk = quantize_kv(kk, self._kv_bits)
+                vv, sv = quantize_kv(vv, self._kv_bits)
+                ks[page, :, row] = sk
+                vs[page, :, row] = sv
             kp[page, :, row] = kk.to(kp.dtype)
             vp[page, :, row] = vv.to(vp.dtype)
             attn = paged_attention(q.contiguous(), kp, vp, block_tables,
                                    positions, seq_slots=safe_slot,
                                    live_pages=live_pages,
-                                   window=self._windows[li])
+                                   window=self._windows[li], k_scale=ks,
+                                   v_scale=vs, kv_bits=self._kv_bits)
             attn = attn.to(x.dtype).reshape(-1, c.n_heads * c.head_dim)
             x = x + attn @ blk.wo
             h = rms_norm(x, blk.mlp_norm_w, c.norm_eps)

@@ -26,9 +26,18 @@ Two paths share the weights:
   ``torch.utils.checkpoint`` when ``remat`` is on, with its weights passed
   in explicitly, so the backward pass replays it on the same tensors.
   Attention is :func:`~deepspeed_tpu_torch.ops.attention.flash_attention`
-  (``use_flash``) or the plain ``dot_product_attention``. The KV-cache
-  branch of ``apply``, sequence parallelism, ALiBi and encoder masks come
-  with later slices.
+  (``use_flash``) or the plain ``dot_product_attention``;
+* generation: the KV-cache branch of :meth:`Transformer.apply`, which the
+  v1 inference engine (:mod:`deepspeed_tpu_torch.inference.engine`) runs
+  over a static cache. The new K/V are written into the cache in place at
+  ``cache_pos``, and attention is the plain ``dot_product_attention`` over
+  the whole cache, as in the JAX package. Layer leaves are read from
+  ``params`` one layer at a time, just before the layer runs, so a mapping
+  that makes a leaf when it is read (the engine's dequantizing view) holds
+  one layer's weights at a time.
+
+Sequence parallelism, ALiBi, encoder masks and sliding windows on the
+KV-cache path come with later slices.
 
 The module's own parameters never require grad (serving needs none); the
 trainer's compute copy does.
@@ -295,29 +304,68 @@ class Transformer(nn.Module):
         return dict(self.named_parameters()) if params is None else params
 
     def forward(self, tokens, positions=None, return_hidden: bool = False,
-                params: Optional[Params] = None, kv_caches=None):
+                params: Optional[Params] = None, kv_caches=None,
+                cache_pos: Optional[int] = None,
+                last_token_only: bool = False):
         return self.apply(tokens, positions, return_hidden, params=params,
-                          kv_caches=kv_caches)
+                          kv_caches=kv_caches, cache_pos=cache_pos,
+                          last_token_only=last_token_only)
 
     def apply(self, tokens: torch.Tensor, positions=None,
               return_hidden: bool = False, *,
-              params: Optional[Params] = None, kv_caches=None):
+              params: Optional[Mapping[str, torch.Tensor]] = None,
+              kv_caches=None, cache_pos: Optional[int] = None,
+              last_token_only: bool = False):
         """Forward. tokens: [b, s] int -> fp32 logits [b, s, vocab], or the
         pre-head hidden states [b, s, d] with ``return_hidden``. ``params``
-        (default: the module's own) is a ``{name: tensor}`` dict with the
-        names of ``named_parameters()``; the compute dtype is its ``wq``'s.
-        """
-        if kv_caches is not None:
-            raise NotImplementedError(
-                "the KV-cache branch of the dense apply comes with a later "
-                "slice; serve through deepspeed_tpu_torch.inference.ragged")
+        (default: the module's own) maps the names of
+        ``named_parameters()`` to tensors; the compute dtype is its
+        ``compute_dtype`` attribute where it has one, else its ``wq``'s.
+
+        ``kv_caches``: a ``(k, v)`` pair, each a stacked ``[n_layers, b,
+        max_len, hkv, hd]`` tensor or a sequence of per-layer ``[b,
+        max_len, hkv, hd]`` tensors. This step's K/V are written into them
+        in place at ``cache_pos`` (an int), query i attends cache slots
+        ``k <= cache_pos + i``, and ``(out, kv_caches)`` is returned.
+        ``positions`` (default ``0..s-1``) are the RoPE positions; decode
+        passes the absolute ones. ``last_token_only`` keeps only the last
+        position before the head."""
         p = self._params(params)
         c = self.config
         x = self._embed(tokens, p)
         angles = rope_frequencies(c.rotary_dim, c.max_seq_len, c.rope_theta,
                                   device=x.device)
-        x = self._encode(p, x, angles, positions)
-        return x if return_hidden else self._head(x, p)
+        if kv_caches is None:
+            x = self._encode(p, x, angles, positions)
+        else:
+            x = self._cached_layers(p, x, angles, positions, kv_caches,
+                                    cache_pos)
+        if last_token_only:
+            x = x[:, -1:]
+        out = x if return_hidden else self._head(x, p)
+        return out if kv_caches is None else (out, kv_caches)
+
+    def _cached_layers(self, p, x, angles, positions, kv_caches,
+                       cache_pos: Optional[int]) -> torch.Tensor:
+        """The layer stack of the KV-cache branch (JAX ``apply`` with
+        ``kv_caches``): each layer's leaves are read just before it runs."""
+        c = self.config
+        if c.attn_windows is not None and any(w > 0 for w in c.attn_windows):
+            raise NotImplementedError(
+                "sliding windows on the KV-cache path come with a later "
+                "slice (ROADMAP.md, Queue A)")
+        ks, vs = kv_caches
+        if cache_pos is None:
+            raise ValueError("kv_caches needs cache_pos")
+        max_len = ks[0].shape[1]
+        if not 0 <= int(cache_pos) <= max_len - x.shape[1]:
+            raise ValueError(f"cache_pos {cache_pos} + {x.shape[1]} tokens "
+                             f"does not fit a cache of {max_len} slots")
+        for i in range(c.n_layers):
+            lp = {n: p[f"layers.{i}.{n}"] for n in LAYER_LEAVES}
+            x = self._block(x, lp, angles, positions,
+                            kv_cache=(ks[i], vs[i], int(cache_pos)))
+        return x
 
     def _static_window(self, length: int) -> int:
         """The uniform sliding window that binds at this length, else 0
@@ -333,9 +381,11 @@ class Transformer(nn.Module):
 
     def _block(self, x: torch.Tensor, lp: Mapping[str, torch.Tensor],
                angles: torch.Tensor, positions=None,
-               window: int = 0) -> torch.Tensor:
+               window: int = 0, kv_cache=None) -> torch.Tensor:
         """One pre-norm decoder layer. x: [b, s, d]; ``lp`` maps the leaf
-        names of :data:`LAYER_LEAVES` to this layer's weights."""
+        names of :data:`LAYER_LEAVES` to this layer's weights. With
+        ``kv_cache`` = (k cache, v cache, cache_pos), this step's K/V are
+        written into the caches in place and attention runs over them."""
         c = self.config
         hd = c.head_dim
         b, s, _ = x.shape
@@ -347,9 +397,22 @@ class Transformer(nn.Module):
                          interleaved=c.rope_interleaved)
         kk = apply_rotary(kk, angles, positions, rotary_dim=c.rotary_dim,
                           interleaved=c.rope_interleaved)
-        attend = flash_attention if c.use_flash else dot_product_attention
-        attn = attend(q, kk, vv, causal=True, scale=c.attn_scale,
-                      window=window)
+        if kv_cache is not None:
+            ck, cv, pos0 = kv_cache
+            ck[:, pos0:pos0 + s] = kk
+            cv[:, pos0:pos0 + s] = vv
+            # query i sits at absolute position pos0 + i and sees every
+            # cache slot up to itself (which also masks the unwritten tail)
+            q_abs = pos0 + torch.arange(s, device=x.device)
+            k_pos = torch.arange(ck.shape[1], device=x.device)
+            mask = k_pos[None, :] <= q_abs[:, None]
+            attn = dot_product_attention(q, ck, cv, causal=False,
+                                         mask=mask[None, None],
+                                         scale=c.attn_scale)
+        else:
+            attend = flash_attention if c.use_flash else dot_product_attention
+            attn = attend(q, kk, vv, causal=True, scale=c.attn_scale,
+                          window=window)
         x = x + attn.reshape(b, s, c.n_heads * hd) @ lp["wo"]
         h = rms_norm(x, lp["mlp_norm_w"], c.norm_eps)
         return x + self._mlp(h, lp)
@@ -462,10 +525,11 @@ class Transformer(nn.Module):
                params: Optional[Mapping[str, torch.Tensor]] = None
                ) -> torch.Tensor:
         """Token embedding: [..., s] -> [..., s, d] in the compute dtype
-        (the dtype of ``wq``)."""
+        (``params.compute_dtype`` where the mapping has one, so that no
+        layer leaf is read for it; else the dtype of ``wq``)."""
         p = self._params(params)
-        return F.embedding(tokens.long(), p["tok_embed"]).to(
-            p["layers.0.wq"].dtype)
+        dtype = getattr(p, "compute_dtype", None) or p["layers.0.wq"].dtype
+        return F.embedding(tokens.long(), p["tok_embed"]).to(dtype)
 
     def _mlp(self, h: torch.Tensor, lp) -> torch.Tensor:
         """Gated-SiLU FFN: (silu(h @ w_gate) * (h @ w_up)) @ w_down. ``lp``

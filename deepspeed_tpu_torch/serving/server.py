@@ -102,6 +102,13 @@ class ServingEngine:
         if engine.device != self.device:
             raise ValueError(f"ServingEngine on {self.device} over an engine "
                              f"on {engine.device}: pass the engine's device")
+        # a declared kv_quant must match the engine's own KV storage
+        want_quant = str(config.kv_quant)
+        have_quant = str(getattr(engine.config, "kv_quant", "none"))
+        if want_quant != "none" and want_quant != have_quant:
+            raise ValueError(
+                f"serving.kv_quant='{want_quant}' but the engine stores "
+                f"KV as '{have_quant}' — configure both from one source")
         self._engine = engine
         self.policy = policy if policy is not None else make_policy(
             config.policy, **(dict(kv_pressure=config.kv_pressure,

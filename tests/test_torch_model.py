@@ -139,10 +139,12 @@ def test_init_is_seeded():
 def test_other_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="later slice"):
         Llama("tiny", device="cpu", **{**TINY, **flag})
-    # the dense forward runs; its KV-cache branch comes with a later slice
+    # the KV-cache branch runs; sliding windows on it come with a later slice
+    caches = (torch.zeros(2, 1, 8, 2, 16), torch.zeros(2, 1, 8, 2, 16))
     with pytest.raises(NotImplementedError, match="later slice"):
-        Llama("tiny", device="cpu", **TINY)(torch.zeros(1, 2, dtype=torch.long),
-                                            kv_caches=())
+        Llama("tiny", device="cpu", **{**TINY, "attn_windows": (4, 4)})(
+            torch.zeros(1, 2, dtype=torch.long), kv_caches=caches,
+            cache_pos=0)
 
 
 def test_weight_carry_checks_shapes_and_leaves(carried):

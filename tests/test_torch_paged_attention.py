@@ -3,7 +3,8 @@
 The port's plain ``paged_attention_reference`` (what the wrapper runs on CPU
 tensors) is held against the JAX Pallas kernel in interpret mode and against
 the JAX gather reference, fp32, 1e-5 abs/rel, on inputs made with numpy from
-a seed. The CUDA kernel itself runs only on a GPU: the ``gpu`` test holds it
+a seed, over fp pools and over int8 / int4 pools quantized by
+``quantize_kv``. The CUDA kernel itself runs only on a GPU: the ``gpu`` test holds it
 against the plain version there and skips here.
 """
 
@@ -18,6 +19,7 @@ from deepspeed_tpu.ops.pallas.paged_attention import (
     paged_attention_reference as jax_paged_reference)
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
+from deepspeed_tpu_torch.ops.quantizer import quantize_kv
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -91,6 +93,77 @@ def test_plain_matches_jax_kernel_and_reference(name):
                              window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(jk), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(jr), **TOL)
+
+
+def _quantized(kp, vp, bits):
+    """(k payload, v payload, k scales, v scales) as torch tensors."""
+    qk, sk = quantize_kv(torch.from_numpy(kp), bits)
+    qv, sv = quantize_kv(torch.from_numpy(vp), bits)
+    return qk, qv, sk, sv
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("name", ["per-token-tables", "seq-slots",
+                                  "gqa-window-live", "tail-mask"])
+def test_quantized_pools_match_jax_kernel_and_reference(name, bits):
+    kw, per_token, window = CASES[name]
+    q, kp, vp, tables, slots, pos = _inputs(17, **kw)
+    live = kw.get("live_pages")
+    tok_tables = tables[slots]
+    qk, qv, sk, sv = _quantized(kp, vp, bits)
+    q_t, tab_t, slots_t, pos_t, tok_t = _torch(q, tables, slots, pos,
+                                               tok_tables)
+    quant = dict(k_scale=sk, v_scale=sv, kv_bits=bits)
+    jquant = dict(k_scale=jnp.asarray(sk.numpy()),
+                  v_scale=jnp.asarray(sv.numpy()), kv_bits=bits)
+    jk_pool, jv_pool = jnp.asarray(qk.numpy()), jnp.asarray(qv.numpy())
+    if per_token:
+        got = pa.paged_attention_reference(q_t, qk, qv, tok_t, pos_t,
+                                           live_pages=live, window=window,
+                                           **quant)
+        jk = jax_paged_attention(jnp.asarray(q), jk_pool, jv_pool,
+                                 jnp.asarray(tok_tables), jnp.asarray(pos),
+                                 live_pages=live, window=window,
+                                 interpret=True, **jquant)
+    else:
+        got = pa.paged_attention_reference(q_t, qk, qv, tab_t, pos_t,
+                                           seq_slots=slots_t, live_pages=live,
+                                           window=window, **quant)
+        jk = jax_paged_attention(jnp.asarray(q), jk_pool, jv_pool,
+                                 jnp.asarray(tables), jnp.asarray(pos),
+                                 seq_slots=jnp.asarray(slots),
+                                 live_pages=live, window=window,
+                                 interpret=True, **jquant)
+    jr = jax_paged_reference(jnp.asarray(q), jk_pool, jv_pool,
+                             jnp.asarray(tok_tables), jnp.asarray(pos),
+                             window=window, **jquant)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jk), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jr), **TOL)
+    # the wrapper on CPU tensors is the plain version, and counts nothing
+    counts = (pa.paged_attention.int8_launches,
+              pa.paged_attention.int4_launches)
+    again = pa.paged_attention(q_t, qk, qv, tab_t, pos_t, seq_slots=slots_t,
+                               live_pages=live, window=window, **quant)
+    assert torch.equal(again, pa.paged_attention_reference(
+        q_t, qk, qv, tab_t, pos_t, seq_slots=slots_t, live_pages=live,
+        window=window, **quant))
+    assert counts == (pa.paged_attention.int8_launches,
+                      pa.paged_attention.int4_launches)
+
+
+@pytest.mark.parametrize("mutate,match", [
+    (lambda a: {**a, "kv_bits": 4}, "kv_bits=4"),
+    (lambda a: {**a, "v_scale": None}, "v_scale"),
+    (lambda a: {**a, "k_scale": a["k_scale"][:, :1]}, "k_scale"),
+    (lambda a: {**a, "kv_bits": 2}, "kv_bits"),
+])
+def test_quantized_pool_geometry_is_checked(mutate, match):
+    q, kp, vp, tables, slots, pos = _inputs(9)
+    qk, qv, sk, sv = _quantized(kp, vp, 8)
+    a = mutate(dict(k_scale=sk, v_scale=sv, kv_bits=8))
+    q_t, tab_t, pos_t, slots_t = _torch(q, tables, pos, slots)
+    with pytest.raises(ValueError, match=match):
+        pa.paged_attention(q_t, qk, qv, tab_t, pos_t, seq_slots=slots_t, **a)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_without_counting():
@@ -180,5 +253,32 @@ def test_cuda_kernel_matches_plain_version(dtype, atol, rtol):
     assert pa.paged_attention.launches == before + 1
     ref = pa.paged_attention_reference(*args, seq_slots=s, live_pages=6,
                                        window=37)
+    err = (got.float() - ref.float()).abs()
+    assert bool((err <= atol + rtol * ref.float().abs()).all()), err.max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 4e-3, 1e-2)])
+def test_cuda_quantized_kernel_matches_plain_version(bits, dtype, atol, rtol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, kp, vp, tables, slots, pos = _inputs(18, T=24, hq=8, hkv=2, hd=128,
+                                            block=16, max_pages=8,
+                                            live_pages=6, tail=True)
+    qk, qv, sk, sv = (a.cuda() for a in _quantized(kp, vp, bits))
+    q_t, tab_t, pos_t, s = (a.cuda() for a in _torch(q, tables, pos, slots))
+    q_t = q_t.to(dtype)
+    quant = dict(k_scale=sk, v_scale=sv, kv_bits=bits)
+    name = f"int{bits}_launches"
+    before = getattr(pa.paged_attention, name)
+    got = pa.paged_attention(q_t, qk, qv, tab_t, pos_t, seq_slots=s,
+                             live_pages=6, window=37, **quant)
+    torch.cuda.synchronize()
+    assert getattr(pa.paged_attention, name) == before + 1
+    ref = pa.paged_attention_reference(q_t, qk, qv, tab_t, pos_t, seq_slots=s,
+                                       live_pages=6, window=37, **quant)
+    assert got.dtype == dtype
     err = (got.float() - ref.float()).abs()
     assert bool((err <= atol + rtol * ref.float().abs()).all()), err.max()

@@ -5,7 +5,10 @@ fp32. ``put`` logits agree within 1e-4 — including a prompt longer than
 the token budget, which spans several SplitFuse steps — and greedy
 ``generate`` / ``stream`` / ``decode_steps`` streams are identical. The
 host-side pieces (allocator, prefix cache, block balance, pool
-exhaustion) and the pool scatter's indexing are checked on their own.
+exhaustion) and the pool scatter's indexing are checked on their own. With
+``kv_quant`` int8 and int4 the pools hold quantized payloads and scales:
+greedy streams stay identical to the JAX engine's, logits agree within
+1e-4, and ``kv_blocks_for_bytes`` sizes the pools alike.
 """
 
 import numpy as np
@@ -17,12 +20,15 @@ import jax.numpy as jnp
 
 from deepspeed_tpu.inference.ragged import (
     RaggedConfig as JaxRaggedConfig,
-    RaggedInferenceEngine as JaxRaggedEngine)
+    RaggedInferenceEngine as JaxRaggedEngine,
+    kv_blocks_for_bytes as jax_kv_blocks_for_bytes,
+    kv_page_bytes as jax_kv_page_bytes)
 from deepspeed_tpu.models import Llama as JaxLlama
 from deepspeed_tpu_torch.checkpoint.jax_params import load_jax_params
 from deepspeed_tpu_torch.inference.ragged import (
     BlockedAllocator, PoolExhausted, RaggedConfig, RaggedInferenceEngine,
-    assert_block_balance, block_balance_report)
+    assert_block_balance, block_balance_report, kv_blocks_for_bytes,
+    kv_page_bytes)
 from deepspeed_tpu_torch.models.llama import Llama
 from deepspeed_tpu_torch.ops.ragged_host import build_batch, fill_tables
 
@@ -220,11 +226,67 @@ def test_query_and_can_schedule(models):
     assert 0 < te.kv_occupancy() < 1
 
 
-@pytest.mark.parametrize("kw,match", [(dict(kv_quant="int8"), "quantized"),
+@pytest.mark.parametrize("kw,match", [(dict(kv_quant="fp8"), "kv_quant"),
                                       (dict(temperature=0.7), "temperature")])
 def test_later_slice_options_raise(models, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """Sampling is a later slice's; an unknown kv_quant is refused as the
+    JAX engine refuses it."""
+    exc = ValueError if "kv_quant" in kw else NotImplementedError
+    with pytest.raises(exc, match=match):
         _pair(models, **kw)
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "int4"])
+def test_quantized_pools_match_jax(models, kv_quant):
+    je, te = _pair(models, kv_quant=kv_quant)
+    assert te.kv_pool[0][0].dtype == (torch.int8 if kv_quant == "int8"
+                                      else torch.uint8)
+    assert te.kv_pool[0][0].shape[-1] == (16 if kv_quant == "int8" else 8)
+    assert len(te.kv_pool) == 4 and te.kv_pool[2][0].dtype == torch.float32
+    prompts = {1: _prompt(1, 5), 2: _prompt(2, 45), 3: _prompt(3, 13)}
+    uids, toks = list(prompts), list(prompts.values())
+    _assert_rows(te.put(uids, toks), je.put(uids, toks))
+    je.flush(uids)
+    te.flush(uids)
+    prompts = {7: _prompt(7, 40), 8: _prompt(8, 6), 9: _prompt(9, 17)}
+    ref = je.generate(prompts, max_new_tokens=12, decode_chunk=5)
+    assert te.generate(prompts, max_new_tokens=12, decode_chunk=5) == ref
+    assert_block_balance(te, expect_free=CFG["n_kv_blocks"])
+    # pages never written (all but the ones used and the sink) keep zero
+    # payloads and zero scales
+    sink = CFG["n_kv_blocks"]
+    used = {int(p) for leaf in te.kv_pool[2]
+            for p in torch.nonzero(leaf.abs().sum(dim=(1, 2)))[:, 0]}
+    assert sink in used and len(used) < sink
+    for leaf in te.kv_pool[0] + te.kv_pool[2]:
+        unused = [p for p in range(sink) if p not in used]
+        assert not leaf[unused].any()
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8", "int4"])
+def test_kv_page_bytes_and_blocks_for_bytes_match_jax(kv_quant):
+    """At Llama-2-7B's widths and the fp pool's byte budget (2048 bf16
+    pages of 16 tokens)."""
+    from deepspeed_tpu.models.llama import llama_config as jax_llama_config
+    from deepspeed_tpu_torch.models.llama import llama_config
+
+    tc, jc = llama_config("7b"), jax_llama_config("7b")
+    tcfg = RaggedConfig(kv_block_size=16, dtype=torch.bfloat16,
+                        kv_quant=kv_quant)
+    jcfg = JaxRaggedConfig(kv_block_size=16, dtype=jnp.bfloat16,
+                           kv_quant=kv_quant)
+    budget = 2048 * kv_page_bytes(tc, RaggedConfig(kv_block_size=16,
+                                                   dtype=torch.bfloat16))
+    assert budget == 2048 * 8_388_608
+    assert kv_page_bytes(tc, tcfg) == jax_kv_page_bytes(jc, jcfg)
+    got = kv_blocks_for_bytes(budget, tc, tcfg)
+    assert got == jax_kv_blocks_for_bytes(budget, jc, jcfg)
+    assert got == {"none": 2048, "int8": 3971, "int4": 7710}[kv_quant]
+
+
+def test_int4_pools_need_an_even_head_dim(models):
+    with pytest.raises(ValueError, match="even head_dim"):
+        _pair(models, model_kw=dict(d_model=60, n_heads=4), kv_quant="int4")
 
 
 @pytest.mark.gpu
@@ -250,6 +312,38 @@ def test_cuda_engine_matches_cpu_engine(models):
     assert pa.paged_attention.launches == before + kw["n_layers"]
     ref = engines["cpu"].put(list(prompts), list(prompts.values()))
     _assert_rows(got, ref)
+    for e in engines.values():
+        e.flush(list(prompts))
+    assert engines["cuda"].generate(prompts, max_new_tokens=10) == \
+        engines["cpu"].generate(prompts, max_new_tokens=10)
+    assert_block_balance(engines["cuda"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_quant", ["int8", "int4"])
+def test_cuda_quantized_pool_engine_matches_cpu_engine(kv_quant):
+    """The quantized-pool kernel inside the engine against the plain
+    version: the same weights on cuda and cpu, fp32, greedy streams
+    identical, one launch per layer and put."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(TINY, d_model=128, n_heads=2, n_kv_heads=1)
+    cpu_model = Llama("tiny", device="cpu", seed=3, **kw)
+    cuda_model = Llama("tiny", device="cuda", **kw)
+    cuda_model.load_state_dict(cpu_model.state_dict())
+    engines = {dev: RaggedInferenceEngine(
+        m, RaggedConfig(dtype=torch.float32, kv_quant=kv_quant, **CFG),
+        device=dev) for dev, m in (("cuda", cuda_model), ("cpu", cpu_model))}
+    prompts = {1: _prompt(70, 45), 2: _prompt(71, 9), 3: _prompt(72, 20)}
+    name = f"{kv_quant}_launches"
+    before = getattr(pa.paged_attention, name)
+    got = engines["cuda"].put(list(prompts), list(prompts.values()))
+    assert getattr(pa.paged_attention, name) == before + kw["n_layers"]
+    _assert_rows(got, engines["cpu"].put(list(prompts),
+                                         list(prompts.values())))
     for e in engines.values():
         e.flush(list(prompts))
     assert engines["cuda"].generate(prompts, max_new_tokens=10) == \

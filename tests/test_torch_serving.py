@@ -4,7 +4,10 @@ With manual ``step()`` and the FCFS policy, the port's ``ServingEngine``
 emits the same greedy streams as the JAX package's server on the same
 weights. The lifecycle (state machine, policies, backpressure, cancel at
 every stage, preempt-and-resume, tick-fault retry) is checked with zero
-leaked KV blocks, plus one run through the real driver thread.
+leaked KV blocks, plus one run through the real driver thread. Over
+int8 and int4 KV pools (``serving.kv_quant``) the streams stay identical
+to the JAX server's, and a declared ``kv_quant`` the engine does not store
+is refused at construction.
 """
 
 import numpy as np
@@ -253,10 +256,45 @@ def test_serving_config():
         ServingConfig.from_dict({"policy": "lifo"})
     with pytest.raises(ConfigError):
         ServingConfig.from_dict({"kv_pressure": 2.0})
-    for key, val in (("speculative", True), ("kv_quant", "int8"),
+    for key, val in (("speculative", True),
                      ("stuck_tick_timeout_s", 30.0), ("fleet", {"n": 2})):
         with pytest.raises(NotImplementedError, match="later slice"):
             ServingConfig.from_dict({key: val})
+    assert ServingConfig.from_dict({"kv_quant": "int4"}).kv_quant == "int4"
+    assert ServingConfig().kv_quant == "none"
+    with pytest.raises(ConfigError, match="kv_quant"):
+        ServingConfig.from_dict({"kv_quant": "fp8"})
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "int4"])
+def test_quantized_pool_streams_identical_to_jax_server(models, kv_quant):
+    prompts = [_prompt(1, 9), _prompt(2, 45), _prompt(3, 20), _prompt(4, 3),
+               _prompt(5, 30)]
+    cfg = {"policy": "fcfs", "kv_quant": kv_quant}
+    jsrv = JaxServingEngine(_jax_engine(models, kv_quant=kv_quant), cfg,
+                            start=False)
+    tsrv = ServingEngine(_engine(models, kv_quant=kv_quant), cfg,
+                         start=False, device="cpu")
+    jreqs = [jsrv.submit(p, max_new_tokens=6) for p in prompts]
+    treqs = [tsrv.submit(p, max_new_tokens=6) for p in prompts]
+    _tick_until(tsrv, lambda: all(r.is_terminal for r in treqs))
+    _tick_until(jsrv, lambda: all(r.is_terminal for r in jreqs))
+    assert [r.tokens for r in treqs] == [r.tokens for r in jreqs]
+    assert all(r.state is RequestState.FINISHED for r in treqs)
+    assert tsrv.block_leaks() == []
+
+
+def test_declared_kv_quant_must_match_the_engine(models):
+    for want, have in (("int8", "none"), ("int4", "int8")):
+        with pytest.raises(ValueError, match="kv_quant"):
+            ServingEngine(_engine(models, kv_quant=have),
+                          {"kv_quant": want}, start=False, device="cpu")
+        with pytest.raises(ValueError, match="kv_quant"):
+            JaxServingEngine(_jax_engine(models, kv_quant=have),
+                             {"kv_quant": want}, start=False)
+    # "none" declares nothing: any engine is taken
+    ServingEngine(_engine(models, kv_quant="int8"), {"kv_quant": "none"},
+                  start=False, device="cpu")
 
 
 def test_server_and_engine_devices_must_agree(models):
