@@ -50,18 +50,14 @@ _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
 
 @dataclass
 class InferenceConfig:
-    """The JAX package's ``InferenceConfig``: dtype, tensor_parallel,
-    max_out_tokens, the accepted-for-parity flags, sampling, the comm
-    kernel backend and the ZeRO-Inference ``quant`` block (``{"enabled",
-    "bits", "group_size"}``, also accepted as ``quantization``)."""
+    """The settings of the JAX package's ``InferenceConfig`` that this
+    engine reads: dtype, tensor_parallel, sampling, the comm kernel
+    backend and the ZeRO-Inference ``quant`` block (``{"enabled", "bits",
+    "group_size"}``, also accepted as ``quantization``). Any other key
+    lands in ``extras``; ``enable_cuda_graph: True`` raises."""
 
     dtype: str = "bfloat16"
     tensor_parallel: int = 1
-    max_out_tokens: int = 2048
-    min_out_tokens: int = 1
-    replace_with_kernel_inject: bool = True   # accepted for API parity
-    enable_cuda_graph: bool = False           # accepted for API parity
-    max_batch_size: int = 8
     temperature: float = 1.0
     top_k: int = 0                            # 0 = no top-k filter
     top_p: float = 1.0
@@ -155,6 +151,11 @@ class InferenceEngine:
                 "loading a checkpoint named in the config (checkpoint/hf.py) "
                 "comes with a later slice (ROADMAP.md, Queue A item 10); "
                 "pass (model, params) instead")
+        if cfg.extras.get("enable_cuda_graph"):
+            raise NotImplementedError(
+                "enable_cuda_graph=True: capturing the decode step in a CUDA "
+                "graph is later work (ROADMAP.md, Queue B: launch "
+                "overhead of the quantized paths)")
         self.device = resolve_device(device)
         self.dtype = cfg.torch_dtype
         self.model = model

@@ -6,8 +6,7 @@ plain C interface. ``nvcc`` compiles it for Hopper
 :func:`load` opens with ``ctypes`` — no PyTorch headers, so a build takes
 seconds. Libraries land in ``build/kernels/`` at the repo root (listed in
 ``.gitignore``), named by a hash of source and flags, and are built at
-first use in a process; :func:`load_all` starts several builds together.
-A missing ``nvcc`` or a failed build raises.
+first use in a process. A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -17,9 +16,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 CSRC = REPO_ROOT / "deepspeed_tpu_torch" / "csrc"
@@ -31,8 +29,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's output per library: the -Xptxas -v register / shared-memory report
 build_logs: Dict[str, str] = {}
-# seconds from the start of a load_all() until each library's nvcc ended
-build_seconds: Dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -55,40 +51,23 @@ def find_nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, compiled at first use."""
-    return load_all([name])[name]
-
-
-def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
-    """The libraries built from ``csrc/<name>.cu`` for each name. Every
-    build still needed starts at once (one ``nvcc`` process each); then
-    each is waited for in turn. ``build_seconds`` records how long each
-    took from the common start until its process was seen to end."""
-    procs = {}
-    t0 = time.perf_counter()
-    for name in names:
-        if name in _libs:
-            continue
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
-                                + src.read_bytes())
-        out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-        if out.exists():
-            build_logs[name] = "(cached build)"
-            _libs[name] = ctypes.CDLL(str(out))
-            continue
+    if name in _libs:
+        return _libs[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
+    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        build_logs[name] = "(cached build)"
+    else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       cmd, tmp, out)
-    for name, (proc, *_) in procs.items():     # wait for all before raising
-        build_logs[name] = proc.communicate()[0]
-        build_seconds[name] = time.perf_counter() - t0
-    for name, (proc, cmd, tmp, out) in procs.items():
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        build_logs[name] = proc.stdout
         if proc.returncode != 0:
             raise RuntimeError(f"CUDA kernel build failed: {' '.join(cmd)}\n"
-                               f"{build_logs[name]}")
+                               f"{proc.stdout}")
         os.replace(tmp, out)     # atomic: a concurrent builder sees all or nothing
-        _libs[name] = ctypes.CDLL(str(out))
-    return {name: _libs[name] for name in names}
+    _libs[name] = ctypes.CDLL(str(out))
+    return _libs[name]

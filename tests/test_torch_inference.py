@@ -291,6 +291,7 @@ def test_generation_past_max_seq_len_raises(greedy_pair):
     (dict(mp_size=2), NotImplementedError, "tensor_parallel"),
     (dict(kernel_backend="pallas"), NotImplementedError, "rows 7-9"),
     (dict(checkpoint="/nonexistent"), NotImplementedError, "checkpoint"),
+    (dict(enable_cuda_graph=True), NotImplementedError, "CUDA graph"),
     (dict(kernel_backend="tpu"), ValueError, "kernel_backend"),
     (dict(quant={"enabled": True, "bits": 2}), ValueError, "bits"),
 ])
