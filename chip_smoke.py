@@ -18,6 +18,12 @@ CPU path — without a CUDA device the script fails):
    plain versions (fp32/bf16/fp16, bits 8/4, blocks 128/256, row counts
    that are not multiples of 32, path A's weight shapes), timed at
    [4096, 11008] bf16;
+   fused collectives: dequant_matmul, matmul_pallas and matmul_quantize
+   against their plain versions (fp32/bf16, int8/int4, trans_a, m = 1, a
+   row length the block does not divide, integer-valued cases bitwise),
+   each timed at the ZeRO-3 path's shapes beside ``torch.matmul`` and
+   compared there too (rows 7 and 8 also into a column slice of the
+   ring's gathered output, as the fused backend writes them);
    flash: the forward, dq and dk/dv kernels through
    ``FlashAttentionFunction`` against their plain versions (15 cases: the
    1b shape in bf16 at the training shape's micro-batch 4 and in
@@ -53,7 +59,24 @@ CPU path — without a CUDA device the script fails):
    timed ``train_batch`` steps with the flash launch counts reset just
    before and read just after; step time (the four timed steps' mean),
    tokens/s, MFU, peak memory;
-9. train profile: one more step under ``torch.profiler``.
+9. train profile: one more step under ``torch.profiler``;
+10. ZeRO-3 parity: ``SequentialBlockModel((64, 256, 512, 64))`` in fp32,
+   ZeRO stage 3 over 2 ranks, one pair of rank processes on cuda (both on
+   the one card, over gloo) and one on cpu, from the same seed-made
+   weights and batch: 3 steps compressed (w8/g4) and dense, on the fused
+   and the reference comm backend; losses and weights within stated
+   tolerances, per step the int4 gradient levels apart and the weights
+   moved, fused vs reference, the facade counters, and two planted
+   gradient-payload faults that the limits must reject;
+11. ZeRO-3 training: ``SequentialBlockModel((4096, 11008, 4096, 11008,
+   4096))`` (Llama-2-7B's MLP widths, 180.4 M params) through
+   ``initialize`` -> ``train_batch``, world 2 on the one card over gloo
+   (NCCL refuses two ranks on one device), bf16 compute on a bf16 batch
+   of 4096 x 4096, compressed and dense, fused and reference: 2 warm-up
+   and 4 timed steps per configuration with the dequant_matmul /
+   matmul_pallas / matmul_quantize counts set to 0 between them and read
+   per rank; step time, peak memory, and one profiled step of the
+   compressed fused run.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -64,6 +87,8 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -73,6 +98,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import fused_collectives as fc
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops import quant as qk
@@ -81,7 +107,8 @@ from deepspeed_tpu_torch.ops.quantizer import quantize_kv
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
                   torch.float32: 67e12}   # dense, no sparsity
-LIBRARIES = ("paged_attention", "flash_attention", "quant")
+LIBRARIES = ("paged_attention", "flash_attention", "quant",
+             "fused_collectives")
 PAGED_REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:159"
 # the same Pallas kernel with kv_bits 8/4: its quantized-pool read
 PAGED_QUANT_REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:91"
@@ -113,6 +140,38 @@ FLASH_KERNELS = {
                            "deepspeed_tpu/ops/pallas/flash_attention.py:386",
                            8),
 }
+FUSED_SOURCE = "deepspeed_tpu_torch/csrc/fused_collectives.cu"
+FUSED_KERNELS = {
+    # name: (wrapper whose .launches counts it, replaced pallas_call)
+    "dequant_matmul": (fc.dequant_matmul,
+                       "deepspeed_tpu/ops/pallas/fused_collectives.py:122"),
+    "matmul_pallas": (fc.matmul_pallas,
+                      "deepspeed_tpu/ops/pallas/fused_collectives.py:156"),
+    "matmul_quantize": (fc.matmul_quantize,
+                        "deepspeed_tpu/ops/pallas/fused_collectives.py:239"),
+}
+FUSED_SHAPES = {
+    "dequant_matmul": "h [2048, 4096] bf16 x int8 [4096, 5504] block 256",
+    "matmul_pallas": "h [2048, 4096] bf16 x [4096, 5504] bf16",
+    "matmul_quantize": "h^T [4096, 2048] x g [2048, 11008] bf16 -> int4 "
+                       "block 256",
+}
+FUSED_LIBRARY = {   # what torch.matmul computes beside each kernel
+    "dequant_matmul": "the bf16 product of the dequantized weight only: a "
+                      "yardstick",
+    "matmul_pallas": "the same product, bf16 output",
+    "matmul_quantize": "the product only, bf16 output: a yardstick",
+}
+# random operands: fp32 accumulation in another order (over 512 terms in
+# the small cases, 4096 at the path's shape)
+FUSED_REL = 1e-5
+# matmul_quantize at the path's shape: a level lands one apart where the
+# fp32 product sits within its summation error of a rounding boundary
+# (an H100 run read 102 of 45088768); a wrong tile moves whole blocks
+FUSED_LEVELS_APART = 1e-4
+# fused vs reference engine losses at full width: the losses are bf16, and
+# H100 runs read them equal; one bf16 ulp allows one rounding apart
+ZERO3_LOSS_ULPS = 1
 GRAD_REL_TOL = 1e-2                # bf16/fp16 grads: max err / max |plain|
 FP32_TOL = 2e-5                    # abs, TF32 off
 HALF_TOL = (4e-3, 1e-2)            # bf16/fp16: abs + rel * |plain|
@@ -936,8 +995,7 @@ def phase_profile(eng, prompts, card: str, tag: str = "profile") -> None:
             wall = time.perf_counter() - t0
     finally:
         srv.close(timeout=60)
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    kernels = _device_events(prof)
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us <= 0:
         log(f"{tag} [{card}]: torch.profiler recorded no device time: "
@@ -961,12 +1019,27 @@ def phase_profile(eng, prompts, card: str, tag: str = "profile") -> None:
 
 
 # --------------------------------------------------------------- phase 6a
+def _device_events(prof) -> list:
+    """A profile's device work, its CUDA kernels and memcpys, by name. A
+    ``record_function`` range (``gloo:recv``, ``gloo:send``) is mirrored
+    onto the device timeline as a user annotation spanning the host's
+    wait; it is not device work and is left out, as is any other name
+    that also names a host op."""
+    on_dev, host = [], set()
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            on_dev.append(e)
+        else:
+            host.add(e.key)
+    return [e for e in on_dev if not getattr(e, "is_user_annotation", False)
+            and e.key not in host and not e.key.startswith("gloo:")]
+
+
 def _device_groups(prof, groups: dict) -> tuple:
     """(total device us, {group: us}) of a profile's CUDA kernels, each
     kernel in the first group whose keys its name contains, else
     "other"."""
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    kernels = _device_events(prof)
     out = {g: 0.0 for g in list(groups) + ["other"]}
     for e in kernels:
         name = e.key.lower()
@@ -1463,8 +1536,7 @@ def phase_training_profile(engine, batch, card: str) -> None:
         engine.train_batch(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    kernels = _device_events(prof)
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us <= 0:
         log(f"train profile [{card}]: torch.profiler recorded no device "
@@ -1491,6 +1563,694 @@ def phase_training_profile(engine, batch, card: str) -> None:
             f"x{e.count:<6d} {e.key[:110]}")
 
 
+# ------------------------------------------------------ phase 3 (fused)
+def _exact_payload(gen, k, b, bits, block):
+    """A payload whose dequantized weight is integer levels times powers
+    of two (scales 2^e), so every product with integer h is exact."""
+    qmax = 2 ** (bits - 1) - 1
+    q = torch.randint(-qmax - 1, qmax + 1, (k * b,), generator=gen,
+                      device="cuda").to(torch.int8)
+    e = torch.randint(-2, 2, (k * b // block,), generator=gen,
+                      device="cuda").float()
+    return (fc.pack_int4(q) if bits == 4 else q), torch.pow(2.0, e)
+
+
+def _rand_payload(gen, k, b, bits, block):
+    w = torch.randn((k, b), generator=gen, device="cuda")
+    q, s = qk.quantize_blockwise_reference(w, bits, block)
+    return (fc.pack_int4(q) if bits == 4 else q.reshape(-1)), s
+
+
+def _fused_case(name, got, ref, exact) -> float:
+    """Max abs error; bitwise equality in the exact (integer-valued) cases,
+    else within FUSED_REL of the plain version's largest magnitude."""
+    err = (got.float() - ref.float()).abs().max().item()
+    if exact:
+        ok = torch.equal(got, ref)
+        tol = "bitwise"
+    else:
+        ok = err <= FUSED_REL * ref.float().abs().max().item()
+        tol = f"{FUSED_REL} x max|plain|"
+    ok = ok and bool(torch.isfinite(got.float()).all())
+    log(f"fused: {name}: max abs err {err:.3e} ({tol}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"fused kernel disagrees with its plain version: "
+                         f"{name}")
+    return err
+
+
+def _quantize_case(name, a, b, bits, block, trans_a, exact) -> float:
+    """matmul_quantize against its plain version: on integer operands
+    payload and scales bitwise; else scales within 1e-5 relative and the
+    payload levels equal where the scales are, entries one level away
+    counted (never more than one)."""
+    p, s = fc.matmul_quantize(a, b, bits=bits, block=block, trans_a=trans_a)
+    rp, rs = fc.matmul_quantize_reference(a, b, bits=bits, block=block,
+                                          trans_a=trans_a)
+    torch.cuda.synchronize()
+    lv = (fc.unpack_int4(p) if bits == 4 else p).int()
+    rlv = (fc.unpack_int4(rp) if bits == 4 else rp).int()
+    moved = int((lv != rlv).sum())
+    same = torch.repeat_interleave(s == rs, block)
+    if exact:
+        ok = torch.equal(p, rp) and torch.equal(s, rs)
+        what = "payload and scales bitwise"
+    else:
+        ok = (bool(((s - rs).abs() <= 1e-5 * rs.abs()).all())
+              and int((lv - rlv).abs().max()) <= 1
+              and moved <= max(1, lv.numel() // 1000))
+        what = (f"scales within 1e-5 rel, {moved} of {lv.numel()} levels "
+                f"one apart ({int((lv[same] != rlv[same]).sum())} where the "
+                f"scales are equal: summation order)")
+    log(f"fused: {name}: {what} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"matmul_quantize disagrees with its plain "
+                         f"version: {name}")
+    return float((s - rs).abs().max())
+
+
+def _path_quantize_case(name, got, ref, bits, block) -> float:
+    """matmul_quantize against its plain version at the path's shape:
+    scales within 1e-5 relative, no level more than one apart, and at most
+    FUSED_LEVELS_APART of the levels one apart. Returns the scales' max
+    abs difference."""
+    (p, s), (rp, rs) = got, ref
+    lv = (fc.unpack_int4(p) if bits == 4 else p).int()
+    rlv = (fc.unpack_int4(rp) if bits == 4 else rp).int()
+    apart = int((lv != rlv).sum())
+    gap = int((lv - rlv).abs().max())
+    limit = int(FUSED_LEVELS_APART * lv.numel())
+    scale_rel = ((s - rs).abs() / rs.abs()).max().item()
+    same = torch.repeat_interleave(s == rs, block)
+    ok = scale_rel <= 1e-5 and gap <= 1 and apart <= limit
+    log(f"fused: {name}: scales max rel {scale_rel:.2e} (<= 1e-5), {apart} "
+        f"of {lv.numel()} levels one apart (<= {limit}; "
+        f"{int((lv[same] != rlv[same]).sum())} where the scales are equal: "
+        f"summation order), max gap {gap} (<= 1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"matmul_quantize disagrees with its plain version: "
+                         f"{name}")
+    return float((s - rs).abs().max())
+
+
+def phase_fused_kernels(flush: torch.Tensor) -> dict:
+    """Rows 7-9 against their plain versions on the card (fp32 and bf16,
+    bits 8 and 4, trans_a both ways, m = 1, a row length the block does
+    not divide, and integer-valued cases that must be bitwise equal), then
+    each timed at the ZeRO-3 path's shapes beside its bound, its plain
+    version and torch.matmul of the same product (cuBLAS, TF32 off; for
+    rows 7 and 9 it computes the product only: a yardstick)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    errs = {n: 0.0 for n in FUSED_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        for m in (1, 333):
+            k, b = 512, 1376
+            a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            w = torch.randn((k, b), generator=gen, device="cuda").to(dtype)
+            errs["matmul_pallas"] = max(errs["matmul_pallas"], _fused_case(
+                f"matmul_pallas {dn} m {m} k {k} n {b}",
+                fc.matmul_pallas(a, w), fc.matmul_reference(a, w), False))
+            for bits in (8, 4):
+                pl, sc = _rand_payload(gen, k, b, bits, 256)
+                errs["dequant_matmul"] = max(
+                    errs["dequant_matmul"], _fused_case(
+                        f"dequant_matmul {dn} int{bits} m {m} k {k} b {b}",
+                        fc.dequant_matmul(a, pl, sc, bits=bits, block=256,
+                                          b=b, w_dtype=dtype),
+                        fc.dequant_matmul_reference(a, pl, sc, bits=bits,
+                                                    block=256, b=b,
+                                                    w_dtype=dtype), False))
+        # exact: integer h, integer levels with power-of-two scales
+        h = torch.randint(-3, 4, (77, 256), generator=gen,
+                          device="cuda").to(dtype)
+        for bits in (8, 4):
+            pl, sc = _exact_payload(gen, 256, 320, bits, 256)
+            _fused_case(f"dequant_matmul {dn} int{bits} integer-valued",
+                        fc.dequant_matmul(h, pl, sc, bits=bits, block=256,
+                                          b=320, w_dtype=dtype),
+                        fc.dequant_matmul_reference(h, pl, sc, bits=bits,
+                                                    block=256, b=320,
+                                                    w_dtype=dtype), True)
+        wi = torch.randint(-3, 4, (256, 320), generator=gen,
+                           device="cuda").to(dtype)
+        _fused_case(f"matmul_pallas {dn} integer-valued",
+                    fc.matmul_pallas(h, wi), fc.matmul_reference(h, wi), True)
+        for bits in (8, 4):
+            for rows, kc, n, trans_a in ((1, 384, 512, False),
+                                         (200, 384, 768, True),
+                                         (64, 96, 320, False),
+                                         (64, 96, 320, True)):
+                sh_a = (kc, rows) if trans_a else (rows, kc)
+                for exact in (True, False):
+                    if exact:
+                        a = torch.randint(-3, 4, sh_a, generator=gen,
+                                          device="cuda").to(dtype)
+                        b = torch.randint(-3, 4, (kc, n), generator=gen,
+                                          device="cuda").to(dtype)
+                    else:
+                        a = torch.randn(sh_a, generator=gen,
+                                        device="cuda").to(dtype)
+                        b = torch.randn((kc, n), generator=gen,
+                                        device="cuda").to(dtype)
+                    e = _quantize_case(
+                        f"matmul_quantize {dn} int{bits} rows {rows} k {kc} "
+                        f"n {n} trans_a {trans_a}"
+                        f"{' integer-valued' if exact else ''}",
+                        a, b, bits, 256, trans_a, exact)
+                    errs["matmul_quantize"] = max(errs["matmul_quantize"], e)
+    for _ in range(2):   # the same inputs twice: bitwise the same
+        y1 = fc.matmul_quantize(a, b, bits=4, block=256, trans_a=True)
+        y2 = fc.matmul_quantize(a, b, bits=4, block=256, trans_a=True)
+        if not (torch.equal(y1[0], y2[0]) and torch.equal(y1[1], y2[1])):
+            raise SystemExit("matmul_quantize: two runs differ")
+
+    # timing at the ZeRO-3 path's shapes: block 0's fused forward tile
+    # (h [2048, 4096] x its [4096, 5504] shard) and its weight gradient
+    # (h^T [4096, 2048] x g [2048, 11008] -> int4)
+    m, k, bsh, n = 2048, 4096, 5504, 11008
+    h = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((k, bsh), generator=gen, device="cuda") * 0.05) \
+        .to(torch.bfloat16)
+    pl, sc = qk.quantize_blockwise(w.reshape(-1).float(), bits=8, block=256)
+    g = torch.randn((m, n), generator=gen, device="cuda").to(torch.bfloat16)
+    fns = {
+        "dequant_matmul": (
+            lambda out=None: fc.dequant_matmul(h, pl, sc, bits=8, block=256,
+                                               b=bsh, w_dtype=torch.bfloat16,
+                                               out=out),
+            lambda: fc.dequant_matmul_reference(h, pl, sc, bits=8, block=256,
+                                                b=bsh,
+                                                w_dtype=torch.bfloat16),
+            lambda: torch.matmul(h, w),
+            2.0 * m * k * bsh,
+            h.numel() * 2 + pl.numel() + sc.numel() * 4 + m * bsh * 4),
+        "matmul_pallas": (
+            lambda out=None: fc.matmul_pallas(h, w, out=out),
+            lambda: fc.matmul_reference(h, w),
+            lambda: torch.matmul(h, w),
+            2.0 * m * k * bsh, h.numel() * 2 + w.numel() * 2 + m * bsh * 4),
+        "matmul_quantize": (
+            lambda: fc.matmul_quantize(h, g, bits=4, block=256, trans_a=True),
+            lambda: fc.matmul_quantize_reference(h, g, bits=4, block=256,
+                                                 trans_a=True),
+            lambda: torch.matmul(h.t(), g),
+            2.0 * m * k * n,
+            h.numel() * 2 + g.numel() * 2 + k * n // 2 + k * n // 256 * 4),
+    }
+    # the ring's gathered output at world 2: [m, 2 * bsh] fp32, each tile a
+    # column slice (row stride 2 * bsh), NaN where no tile was written
+    gathered = torch.empty((m, 2 * bsh), dtype=torch.float32, device="cuda")
+    res = {}
+    for name, (kern, plain, lib, ops, nbytes) in fns.items():
+        p1 = cuda_ms(plain, 3, flush)
+        k1, k2 = cuda_ms(kern, 10, flush), cuda_ms(kern, 10, flush)
+        p2 = cuda_ms(plain, 3, flush)
+        lib_ms = cuda_ms(lib, 10, flush)
+        t_ops = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "library_ms": lib_ms, "max_abs_err": errs[name],
+                     "ops": ops, "bytes": nbytes}
+        r = res[name]
+        if name == "matmul_quantize":
+            r["max_abs_err"] = max(r["max_abs_err"], _path_quantize_case(
+                f"matmul_quantize at the path's shape {FUSED_SHAPES[name]}",
+                kern(), plain(), 4, 256))
+        else:
+            got = kern()
+            ref = plain()
+            r["max_abs_err"] = max(r["max_abs_err"], _fused_case(
+                f"{name} at the path's shape {FUSED_SHAPES[name]}", got, ref,
+                False))
+            gathered.fill_(float("nan"))
+            tile = kern(out=gathered[:, bsh:])
+            torch.cuda.synchronize()
+            good = (tile.data_ptr() == gathered[:, bsh:].data_ptr()
+                    and torch.equal(tile, got)
+                    and bool(torch.isnan(gathered[:, :bsh]).all()))
+            log(f"fused: {name} into the column slice [:, {bsh}:] of the "
+                f"gathered fp32 [{m}, {2 * bsh}] output (row stride "
+                f"{2 * bsh}): bitwise the contiguous result, the other "
+                f"columns untouched {'ok' if good else 'FAIL'}")
+            if not good:
+                raise SystemExit(f"{name}: the column-slice output differs")
+            del got, ref, tile
+        log(f"fused: {name} {FUSED_SHAPES[name]}: kernel {k1:.4f}/{k2:.4f} "
+            f"ms, plain {p1:.4f}/{p2:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {ops:.3e} ops, {nbytes} B), torch.matmul "
+            f"{lib_ms:.4f} ms ({FUSED_LIBRARY[name]}); "
+            f"{ops / r['ms'] / 1e9:.1f} TFLOP/s")
+    return res
+
+
+# ----------------------------------------- phases 10-11: ZeRO-3, 2 ranks
+def _rank_entry(rank: int, world: int, port: int, device: str, job: str,
+                args: tuple, out) -> None:
+    """One rank process: join the gloo group, run ``job``, send back its
+    result (or the traceback)."""
+    import traceback
+
+    try:
+        from deepspeed_tpu_torch.comm import comm
+
+        torch.set_num_threads(2)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        comm.init_distributed("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                              world_size=world, rank=rank, timeout_s=600)
+        out.put((rank, "ok", RANK_JOBS[job](rank, world, device, *args)))
+        comm.barrier()
+        comm.destroy()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def _start_ranks(world: int, device: str, job: str, args: tuple):
+    import socket
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [ctx.Process(target=_rank_entry, daemon=True,
+                         args=(r, world, port, device, job, args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, q
+
+
+def _join_ranks(procs, q, timeout: float) -> list:
+    """Every rank's result within ``timeout`` seconds; a failed or silent
+    rank kills them all and fails the script. Every join has a timeout."""
+    import queue as queue_mod
+
+    deadline = time.monotonic() + timeout
+    got = {}
+    try:
+        while len(got) < len(procs):
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise SystemExit(f"ranks {sorted(set(range(len(procs))) - set(got))} "
+                                 f"did not finish in {timeout} s")
+            try:
+                rank, status, value = q.get(timeout=min(left, 5))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if not p.is_alive() and r not in got]
+                if dead:
+                    raise SystemExit(f"ranks {dead} exited without a result")
+                continue
+            if status != "ok":
+                raise SystemExit(f"rank {rank} failed:\n{value}")
+            got[rank] = value
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 10))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        for p in procs:
+            p.join(timeout=10)
+    return [got[r] for r in range(len(procs))]
+
+
+def _zero3_config(enabled: bool, backend: str, dtype: str, rows: int,
+                  lr: float) -> dict:
+    cfg = {"train_batch_size": rows, "steps_per_print": 1000,
+           "optimizer": {"type": "adamw", "params": {"lr": lr}},
+           "zero_optimization": {"stage": 3,
+                                 "stage3_param_persistence_threshold": 0},
+           "comm_compression": {"enabled": enabled, "weight_bits": 8,
+                                "grad_bits": 4, "overlap": "staged",
+                                "kernel_backend": backend}}
+    if dtype == "bf16":
+        cfg["bf16"] = {"enabled": True}
+    return cfg
+
+
+def _zero3_batch(dims, rows: int, dtype, device: str) -> dict:
+    gen = torch.Generator().manual_seed(7)
+    return {"x": torch.randn((rows, dims[0]), generator=gen).to(device, dtype),
+            "y": torch.randn((rows, dims[-1]), generator=gen).to(device,
+                                                                  dtype)}
+
+
+def _planted_fault(fault, payload):
+    """A wrong quantized gradient payload (int4, packed), for the controls
+    that the parity limits must fail: ``"pair_order"`` swaps the two
+    nibbles of every byte (element 2i in the high nibble); ``"one_level"``
+    moves every 64th level one up (one down at the top level, 7)."""
+    from deepspeed_tpu_torch.ops.quantizer import pack_int4, unpack_int4
+
+    if fault == "pair_order":
+        return ((payload >> 4) | (payload << 4)).to(torch.uint8)
+    q = unpack_int4(payload).clone()
+    pick = q[::64]
+    q[::64] = torch.where(pick >= 7, pick - 1, pick + 1)
+    return pack_int4(q)
+
+
+def _job_parity(rank, world, device, dims, runs, steps):
+    """Small-width ZeRO-3 runs from the seed-made weights: per run, the
+    losses, grad norms, the facade counters, and on rank 0 the full
+    weights after each step and, per step, the int4 gradient levels this
+    rank put on the wire in each quantized reduction's two hops: its
+    contribution (first hop) and its re-quantized reduced chunk (second
+    hop). A run with a fault plants it in the first hop's payloads (a
+    control)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import compressed as cc
+    from deepspeed_tpu_torch.ops.quantizer import unpack_int4
+    from deepspeed_tpu_torch.parallel.zero import SequentialBlockModel
+    from deepspeed_tpu_torch.telemetry.registry import (MetricsRegistry,
+                                                        set_registry)
+
+    batch = _zero3_batch(dims, 32, torch.float32, device)
+    exchange, quantize = cc.quantized_chunk_exchange, cc._quantize
+    out = {}
+    for name, enabled, backend, fault in runs:
+        sent = []
+
+        def tapped(payload, s, **kw):
+            if fault is not None:
+                payload = _planted_fault(fault, payload)
+            if kw["qspec"].bits != 4:
+                return exchange(payload, s, **kw)
+            hops = sent[-1]
+            hops[0].append(unpack_int4(payload).cpu().numpy())
+
+            def requantized(flat, spec, stats):
+                p2, s2 = quantize(flat, spec, stats)
+                hops[1].append(unpack_int4(p2).cpu().numpy())
+                return p2, s2
+
+            cc._quantize = requantized
+            try:
+                return exchange(payload, s, **kw)
+            finally:
+                cc._quantize = quantize
+
+        reg = set_registry(MetricsRegistry())
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=SequentialBlockModel(dims, seed=0, device="cpu"),
+            config=_zero3_config(enabled, backend, "fp32", 32, 1e-2),
+            device=device)
+        losses, norms, params = [], [], []
+        cc.quantized_chunk_exchange = tapped
+        try:
+            for _ in range(steps):
+                sent.append(([], []))
+                m = engine.train_batch(batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                full = engine.full_params()
+                params.append({n: p.cpu().numpy() for n, p in full.items()})
+        finally:
+            cc.quantized_chunk_exchange = exchange
+        out[name] = {"losses": losses, "norms": norms,
+                     "fused": reg.counter("comm/facade/fused").value,
+                     "fallbacks": reg.counter("comm/facade/fallbacks").value,
+                     "params": params if rank == 0 else None,
+                     "levels": sent if rank == 0 else None}
+    return out
+
+
+def _job_train(rank, world, device, dims, runs, rows, warm, timed):
+    """Full-width ZeRO-3 training: per run, ``warm`` steps, the kernel
+    counts set to 0, ``timed`` steps, the counts read; the compressed fused
+    run then profiles one more step."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.parallel.zero import SequentialBlockModel
+
+    model = SequentialBlockModel(dims, seed=0, device="cpu")
+    batch = _zero3_batch(dims, rows, torch.bfloat16, device)
+    counted = {**{n: w for n, (w, *_) in FUSED_KERNELS.items()},
+               "quantize_blockwise": qk.quantize_blockwise,
+               "dequantize_blockwise": qk.dequantize_blockwise}
+    out = {}
+    for name, enabled, backend in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=model, config=_zero3_config(enabled, backend, "bf16", rows,
+                                              1e-3), device=device)
+        built = time.perf_counter() - t0
+        losses, times = [], []
+        for i in range(warm + timed):
+            if i == warm:
+                for w in counted.values():
+                    w.launches = 0
+            t1 = time.perf_counter()
+            m = engine.train_batch(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+        launches = {n: w.launches for n, w in counted.items()}
+        res = {"losses": losses, "times": times, "launches": launches,
+               "built_s": built,
+               "peak": torch.cuda.max_memory_allocated(),
+               "transport": torch.distributed.get_backend()}
+        if name == "compressed_fused":
+            res["profile"] = _profile_zero3_step(engine, batch)
+        out[name] = res
+        del engine
+    return out
+
+
+def _profile_zero3_step(engine, batch) -> dict:
+    """One train_batch under torch.profiler: device time by kernel group
+    and the device's idle share of the step's wall time (this rank)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = _device_events(prof)
+    total_us = sum(e.self_device_time_total for e in kernels)
+    groups = {g: 0.0 for g in ("dequant_matmul", "matmul_pallas",
+                               "matmul_quantize", "quantize", "dequantize",
+                               "gemm", "memcpy", "other")}
+    for e in kernels:
+        n = e.key.lower()
+        # mma_kernel<T, Tile<BM, BN, ..>, TRANS_A, MODE, QUANT, VEC>: the
+        # quantize epilogue's QUANT is true; MODE 0 is the dense twin
+        mma = re.search(r"mma_kernel<[^,]+, [^>]+>, (\w+), (\d), (\w+)", n)
+        g = ("matmul_quantize" if mma and mma.group(3) == "true"
+             else "matmul_pallas" if mma and mma.group(2) == "0"
+             else "dequant_matmul" if mma
+             else "dequantize" if "dequantize_kernel" in n
+             else "quantize" if "quantize_kernel" in n
+             else "memcpy" if "memcpy" in n
+             else "gemm" if any(x in n for x in ("nvjet", "gemm", "xmma",
+                                                  "cutlass", "cublas"))
+             else "other")
+        groups[g] += e.self_device_time_total
+    top = [(e.key[:100], e.self_device_time_total / 1e3, e.count)
+           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]]
+    return {"wall_s": wall, "busy_s": total_us / 1e6, "groups_ms":
+            {g: us / 1e3 for g, us in groups.items()}, "top": top}
+
+
+RANK_JOBS = {"parity": _job_parity, "train": _job_train}
+PARITY_DIMS = (64, 256, 512, 64)
+ZERO3_DIMS = (4096, 11008, 4096, 11008, 4096)   # Llama-2-7B MLP widths
+
+
+def _parity_steps(g, c) -> list:
+    """Per step, cuda against cpu (rank 0): (weights beyond 1e-5, then per
+    hop (int4 gradient levels apart, levels sent), and the largest level
+    gap)."""
+    out = []
+    for i, (gp, cp) in enumerate(zip(g["params"], c["params"])):
+        moved = sum(int((np.abs(gp[n] - v) > 1e-5).sum())
+                    for n, v in cp.items())
+        hops, gap = [], 0
+        for gh, ch in zip(g["levels"][i], c["levels"][i]):
+            apart = total = 0
+            for gl, cl in zip(gh, ch):
+                d = np.abs(gl.astype(np.int32) - cl.astype(np.int32))
+                apart += int((d > 0).sum())
+                total += d.size
+                gap = max(gap, int(d.max()))
+            hops.append((apart, total))
+        out.append((moved, hops, gap))
+    return out
+
+
+def _parity_verdict(g, c, enabled) -> tuple:
+    """(within the limits, losses max rel, weights beyond 1e-5 after the
+    last step, their limit, the largest weight gap) of a cuda run against
+    the cpu run. Limits: dense losses 1e-5 rel, weights 1e-5 abs except at
+    most 1 in 10^4 (gradients at Adam's eps scale, where summation order
+    decides the update); compressed losses 2e-4 rel, at most 1 in 200
+    weights beyond 1e-5 after the first step (only that step's own level
+    flips) and 1 in 100 after the last, all within 2 lr a step."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                        c["losses"]))
+    steps = _parity_steps(g, c)
+    n_all = sum(v.size for v in c["params"][-1].values())
+    worst = max(float(np.abs(g["params"][-1][n] - v).max())
+                for n, v in c["params"][-1].items())
+    limit = n_all // (100 if enabled else 10_000)
+    good = (loss_rel <= (2e-4 if enabled else 1e-5)
+            and steps[-1][0] <= limit
+            and (not enabled or steps[0][0] <= n_all // 200)
+            and worst <= len(steps) * 2 * 1e-2)
+    return good, loss_rel, steps, limit, worst, n_all
+
+
+def phase_zero3_parity() -> None:
+    """World 2, one set of rank processes on cuda (both on the one card,
+    over gloo) and one on cpu, from the same seed-made weights and batch:
+    3 steps of SequentialBlockModel(PARITY_DIMS) in fp32, compressed
+    (w8/g4) and dense, each on the fused and the reference backend, within
+    :func:`_parity_verdict`'s limits. Compressed, an int4 gradient level
+    that lands one apart on the two devices moves its weight by up to 2
+    lr, and the moved weights change the next step's gradients, so the
+    moved set grows step by step: the phase prints, per step, the levels
+    apart and the weights moved. Two controls on cuda plant a fault in the
+    fused run's gradient payloads (:func:`_planted_fault`); each must fail
+    the compressed limits."""
+    t0 = time.perf_counter()
+    runs = [(f"{c}_{b}", c == "compressed", b, None)
+            for c in ("compressed", "dense") for b in ("pallas", "xla")]
+    controls = [(f"control_{f}", True, "pallas", f)
+                for f in ("pair_order", "one_level")]
+    sets = {dev: _start_ranks(2, dev, "parity",
+                              (PARITY_DIMS, runs + (controls if dev == "cuda"
+                                                    else []), 3))
+            for dev in ("cuda", "cpu")}
+    res = {dev: _join_ranks(*sets[dev], timeout=300)[0] for dev in sets}
+    ok = True
+    for name, enabled, backend, fault in runs + controls:
+        g = res["cuda"][name]
+        c = res["cpu"]["compressed_pallas" if fault else name]
+        within, loss_rel, steps, limit, worst, n_all = _parity_verdict(
+            g, c, enabled)
+        counters = (g["fused"] == c["fused"]
+                    and (g["fused"] > 0) == (backend == "pallas")
+                    and (not enabled or g["fallbacks"] > 0))
+        good = (not within) if fault else (within and counters)
+        ok = ok and good
+        per_step = "; ".join(
+            f"step {i + 1}: int4 gradient levels apart {h[0][0]} of "
+            f"{h[0][1]} (first hop), {h[1][0]} of {h[1][1]} (re-quantized "
+            f"chunk), max gap {gap}; {mv} weights beyond 1e-5"
+            for i, (mv, h, gap) in enumerate(steps))
+        log(f"zero3 parity: {name}: losses cuda {g['losses']} cpu "
+            f"{c['losses']} (max rel {loss_rel:.2e}; tol "
+            f"{2e-4 if enabled else 1e-5}); weights beyond 1e-5: "
+            f"{steps[-1][0]} of {n_all} (<= {limit}"
+            f"{f', step 1 <= {n_all // 200}' if enabled else ''}), max "
+            f"{worst:.2e}; {per_step}; comm/facade/fused {g['fused']:.0f}, "
+            f"fallbacks {g['fallbacks']:.0f}"
+            + (f"; a planted fault ({fault}): "
+               f"{'rejected' if not within else 'NOT rejected'}"
+               if fault else "") + f" {'ok' if good else 'FAIL'}")
+    for tag in ("compressed", "dense"):
+        f, r = res["cuda"][f"{tag}_pallas"], res["cuda"][f"{tag}_xla"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(f["losses"],
+                                                      r["losses"]))
+        good = rel <= (2e-4 if tag == "compressed" else 1e-5)
+        ok = ok and good
+        log(f"zero3 parity: cuda fused vs reference, {tag}: losses max rel "
+            f"{rel:.2e} {'ok' if good else 'FAIL'}")
+    log(f"zero3 parity: {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise SystemExit("ZeRO-3 parity failed")
+
+
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values (8 significant bits) at ``x``."""
+    return math.ldexp(1.0, math.frexp(abs(x))[1] - 8)
+
+
+def phase_zero3_training(card: str) -> dict:
+    """The slice's path at full width: SequentialBlockModel(ZERO3_DIMS),
+    world 2 on the one card over gloo, bf16 compute on fp32 masters, a bf16
+    batch of 4096 x 4096 (2048 rows a rank), AdamW lr 1e-3, compressed
+    (w8/g4) and dense, each on the fused and the reference backend: 2
+    warm-up and 4 timed steps with the kernel counts set to 0 between
+    them. Returns each fused kernel's launches on rank 0 in the four timed
+    steps of the run that takes it."""
+    t0 = time.perf_counter()
+    runs = [(f"{c}_{b}", c == "compressed", "pallas" if b == "fused"
+             else "xla") for c in ("compressed", "dense")
+            for b in ("fused", "reference")]
+    res = _join_ranks(*_start_ranks(2, "cuda", "train",
+                                    (ZERO3_DIMS, runs, 4096, 2, 4)),
+                      timeout=900)
+    n_params = sum(ZERO3_DIMS[i] * ZERO3_DIMS[i + 1] + ZERO3_DIMS[i + 1]
+                   for i in range(len(ZERO3_DIMS) - 1))
+    want = {"compressed_fused": {"dequant_matmul": 4, "matmul_pallas": 0,
+                                 "matmul_quantize": 2},
+            "dense_fused": {"dequant_matmul": 0, "matmul_pallas": 4,
+                            "matmul_quantize": 0}}
+    ok = True
+    for name, *_ in runs:
+        for r, rr in enumerate(res):
+            x = rr[name]
+            falling = x["losses"][-1] < x["losses"][0]
+            finite = all(np.isfinite(x["losses"]))
+            per_step = {k: v / 4 for k, v in x["launches"].items()}
+            counts_ok = all(per_step[k] == v
+                            for k, v in want.get(name, {}).items())
+            if name.endswith("reference"):
+                counts_ok = all(per_step[k] == 0 for k in FUSED_KERNELS)
+            good = falling and finite and counts_ok
+            ok = ok and good
+            step = sum(x["times"][2:]) / 4
+            log(f"zero3 [{card}] {name} rank {r}: losses "
+                f"{[round(v, 6) for v in x['losses']]}, step times "
+                f"{[round(v, 4) for v in x['times']]} s, timed step (mean "
+                f"of four) {step:.4f} s, launches per step {per_step}, peak "
+                f"{x['peak']} B, built in {x['built_s']:.1f} s, transport "
+                f"{x['transport']} (2 ranks on one card) "
+                f"{'ok' if good else 'FAIL'}")
+    for tag in ("compressed", "dense"):
+        f, r = res[0][f"{tag}_fused"], res[0][f"{tag}_reference"]
+        ulps = max(abs(a - b) / _bf16_ulp(b) for a, b in zip(f["losses"],
+                                                              r["losses"]))
+        good = ulps <= ZERO3_LOSS_ULPS
+        ok = ok and good
+        log(f"zero3 [{card}] {tag}: fused vs reference losses at most "
+            f"{ulps:g} bf16 ulps apart (tol {ZERO3_LOSS_ULPS}) "
+            f"{'ok' if good else 'FAIL'}")
+    prof = res[0]["compressed_fused"]["profile"]
+    if prof["busy_s"] > 0:
+        log(f"zero3 profile [{card}] compressed fused rank 0: wall "
+            f"{prof['wall_s']:.3f} s, device busy {prof['busy_s']:.3f} s, "
+            f"idle share {max(0.0, 1 - prof['busy_s'] / prof['wall_s']):.3f}"
+            f"; device time " + ", ".join(
+                f"{g} {ms:.1f} ms" for g, ms in prof["groups_ms"].items()))
+        for key, ms, count in prof["top"]:
+            log(f"zero3 profile: {ms:9.2f} ms x{count:<5d} {key}")
+    else:
+        log(f"zero3 profile [{card}]: torch.profiler recorded no device "
+            f"time: breakdown not measured")
+    log(f"zero3: SequentialBlockModel{ZERO3_DIMS} ({n_params} params), "
+        f"world 2 over gloo, {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise SystemExit("ZeRO-3 training phase failed")
+    # each kernel's launches in the run that takes it: rows 7 and 9 the
+    # compressed fused run, row 8 the dense fused run (4 timed steps, rank 0)
+    return {n: res[0]["dense_fused" if n == "matmul_pallas"
+                      else "compressed_fused"]["launches"][n]
+            for n in FUSED_KERNELS}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     dev = phase_device()
@@ -1501,6 +2261,7 @@ def main() -> int:
     quant_t = phase_quant_kernels(flush)
     flash_err = phase_flash_kernels()
     flash_t = phase_flash_timing(flush)
+    fused_t = phase_fused_kernels(flush)
     del flush
     torch.cuda.empty_cache()
     phase_engine()
@@ -1524,6 +2285,11 @@ def main() -> int:
     phase_trainer_parity()
     engine, batch, flash_launches = phase_training(dev["card"])
     phase_training_profile(engine, batch, dev["card"])
+    del engine, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_zero3_parity()
+    fused_launches = phase_zero3_training(dev["card"])
     d = kern["timings"]["decode_16x1024"]
     entries = [{"name": "paged_attention", "route": "cuda",
                 "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
@@ -1565,6 +2331,16 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "parity": "bitwise",
             "shape": "4096x11008_bf16_int8_block256", "card": dev["card"]})
+    for name, (_, replaces) in FUSED_KERNELS.items():
+        t = fused_t[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": FUSED_SOURCE,
+            "replaces": replaces, "launches": fused_launches[name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library": FUSED_LIBRARY[name], "parity": "ok",
+            "shape": FUSED_SHAPES[name], "card": dev["card"]})
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,12 +8,14 @@ its module paths (``deepspeed_tpu_torch/<sub>/<mod>.py`` ports
 
 It serves Llama through the ragged engine and the serving front-end
 (optionally over int8/int4 KV pools), generates through the v1 inference
-engine (optionally with ZeRO-Inference int8/int4 weights), and trains it
-on one device:
+engine (optionally with ZeRO-Inference int8/int4 weights), trains it on
+one device, and trains a ``zero3_blocks`` model with ZeRO stage 3 over
+several ranks through the compressed-collective facade:
 
     from deepspeed_tpu_torch.models.llama import Llama
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                       RaggedInferenceEngine)
+    from deepspeed_tpu_torch.parallel.zero import SequentialBlockModel
     from deepspeed_tpu_torch.serving.server import ServingEngine
 
     import deepspeed_tpu_torch
@@ -27,6 +29,14 @@ on one device:
                 "quant": {"enabled": True, "bits": 8, "group_size": 256}})
     out = engine.generate(ids, max_new_tokens=32)
 
+    # each rank (one process per rank):
+    deepspeed_tpu_torch.init_distributed(dist_backend="nccl")   # or "gloo"
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=SequentialBlockModel((4096, 11008, 4096)), config={
+            "train_batch_size": 64, "zero_optimization": {"stage": 3},
+            "comm_compression": {"enabled": True, "grad_bits": 4}})
+    metrics = engine.train_batch({"x": x, "y": y})   # the global batch
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``.
 """
@@ -35,6 +45,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional, Tuple
 
+from .comm.comm import init_distributed  # noqa: F401
 from .config import Config, ConfigError  # noqa: F401
 from .inference.engine import InferenceConfig, InferenceEngine
 from .runtime.engine import TrainEngine
@@ -47,30 +58,28 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
                config_params: Any = None, optimizer: Any = None,
                lr_scheduler: Any = None, training_data: Any = None,
                device=None) -> Tuple[TrainEngine, Any, Any, Any]:
-    """Bring up a single-device training engine; returns ``(engine,
-    optimizer, dataloader, lr_scheduler)`` as ``deepspeed_tpu.initialize``
-    does.
+    """Bring up a training engine (one device, or ZeRO-3 over the ranks of
+    ``init_distributed``); returns ``(engine, optimizer, dataloader,
+    lr_scheduler)`` as ``deepspeed_tpu.initialize`` does.
 
     Pass either ``loss_fn(params, batch) -> loss | (loss, aux)`` plus
     ``params`` (a ``{name: tensor}`` dict), or ``model`` — an object with
     ``named_parameters()`` and ``loss(batch, params=...)`` (the port's
-    :class:`~deepspeed_tpu_torch.models.transformer.Transformer`), whose
-    own weights are the initial parameters unless ``params`` is given.
-    ``config`` is a dict or a path to a DeepSpeed-style JSON file. The
-    dataloader (``training_data``) comes with a later slice."""
+    :class:`~deepspeed_tpu_torch.models.transformer.Transformer`, or a
+    :class:`~deepspeed_tpu_torch.parallel.zero.SequentialBlockModel`,
+    whose ``zero3_blocks`` ZeRO stage 3 needs), whose own weights are the
+    initial parameters unless ``params`` is given. ``config`` is a dict or
+    a path to a DeepSpeed-style JSON file. The dataloader
+    (``training_data``) comes with a later slice."""
     cfg = Config.from_any(config if config is not None else config_params)
     if training_data is not None:
         raise NotImplementedError(
             "training_data (runtime/dataloader.py) comes with a later slice "
             "of deepspeed_tpu_torch (ROADMAP.md, Queue A); pass batches to "
             "engine.train_batch")
-    if loss_fn is None:
-        if model is None or not hasattr(model, "loss"):
-            raise ValueError("initialize() needs loss_fn+params, or a model "
-                             "exposing .loss()")
-
-        def loss_fn(p, batch):
-            return model.loss(batch, params=p)
+    if loss_fn is None and (model is None or not hasattr(model, "loss")):
+        raise ValueError("initialize() needs loss_fn+params, or a model "
+                         "exposing .loss()")
     if params is None:
         if model is None or not hasattr(model, "named_parameters"):
             raise ValueError("initialize() needs params, or a model exposing "

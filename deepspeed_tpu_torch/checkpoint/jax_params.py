@@ -1,4 +1,5 @@
-"""Carry a JAX parameter tree into the port's ``Transformer``.
+"""Carry a JAX parameter tree into the port's ``Transformer`` or
+``SequentialBlockModel``, and export it back.
 
 The JAX package's ``Transformer.init`` returns a tree of arrays: top-level
 ``tok_embed`` ``[vocab, d]``, ``final_norm_w`` ``[d]``, ``lm_head``
@@ -7,6 +8,10 @@ The JAX package's ``Transformer.init`` returns a tree of arrays: top-level
 out]`` layout, so a leaf copies over as it is. The port imports nothing
 of JAX for this: the caller converts the tree to nested dicts of numpy
 arrays first (``jax.tree_util.tree_map(np.asarray, params)``).
+
+The JAX ``SequentialBlockModel`` tree is ``{"block_i": {"w": [din, dout],
+"b": [dout]}}``; the port's model names the same leaves ``block_i.w`` and
+``block_i.b`` (:func:`load_block_params`, :func:`export_block_params`).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import LAYER_LEAVES as _LAYER_LEAVES, Transformer
+from ..parallel.zero import SequentialBlockModel
 
 _TOP_LEAVES = ("tok_embed", "final_norm_w", "lm_head")
 
@@ -78,4 +84,38 @@ def export_params(params: Union[Transformer, Mapping[str, torch.Tensor]]
     out["layers"] = {name: np.stack([arr(params[f"layers.{i}.{name}"])
                                      for i in range(n)])
                      for name in _LAYER_LEAVES}
+    return out
+
+
+@torch.no_grad()
+def load_block_params(model: SequentialBlockModel,
+                      params_np: Mapping[str, Mapping[str, Any]]
+                      ) -> SequentialBlockModel:
+    """Copy a JAX ``SequentialBlockModel`` tree (``{"block_i": {"w", "b"}}``
+    of numpy arrays) into ``model``'s weights, in place. Missing or extra
+    blocks or leaves and shape mismatches raise. Returns ``model``."""
+    own = dict(model.named_parameters())
+    theirs = {f"{blk}.{leaf}": v for blk, leaves in params_np.items()
+              for leaf, v in leaves.items()}
+    if set(own) != set(theirs):
+        raise ValueError(f"JAX params do not match the model: missing "
+                         f"{sorted(set(own) - set(theirs))}, unexpected "
+                         f"{sorted(set(theirs) - set(own))}")
+    for name, dst in own.items():
+        _copy(dst, theirs[name], name)
+    return model
+
+
+def export_block_params(params: Union[SequentialBlockModel,
+                                      Mapping[str, torch.Tensor]]
+                        ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of :func:`load_block_params`: a model's weights, or a
+    ``{"block_i.w": tensor, ...}`` dict such as ``TrainEngine.full_params()``,
+    as the JAX tree of fp32 numpy arrays."""
+    if isinstance(params, SequentialBlockModel):
+        params = dict(params.named_parameters())
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, t in params.items():
+        blk, leaf = name.split(".")
+        out.setdefault(blk, {})[leaf] = t.detach().float().cpu().numpy()
     return out

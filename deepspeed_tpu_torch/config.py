@@ -7,15 +7,18 @@ Ports the parts of ``deepspeed_tpu/config.py`` that the ported paths read:
   quantization, model versions, the stuck-tick watchdog, fleet / region /
   rollout / KV-tier blocks) raise ``NotImplementedError`` when set to
   anything but their "off" value, instead of being silently ignored.
-* :class:`Config` for the single-device trainer: the batch triple and its
-  resolution, ``gradient_clipping``, ``steps_per_print`` and the
-  ``optimizer`` / ``scheduler`` / ``fp16`` / ``bf16`` blocks, with the same
-  keys, defaults and checks. ``seed`` is not read: the port's model holds
-  its weights from its own seed (``Llama(..., seed=...)``), so the key
-  gets the unknown-key warning. Blocks that turn on a feature of a later
-  slice (ZeRO stages > 0, offload, a multi-device mesh, pipelining,
-  compressed collectives, telemetry, checkpoint saving, resilience) raise
-  :class:`ConfigError` naming that slice; other unknown keys warn.
+* :class:`Config` for the trainer: the batch triple and its resolution
+  over the data-parallel world, ``gradient_clipping``, ``steps_per_print``
+  and the ``optimizer`` / ``scheduler`` / ``fp16`` / ``bf16`` blocks; the
+  ``zero_optimization`` block for stages 0 and 3 (:class:`ZeroConfig`),
+  ``comm_compression`` (:class:`CommCompressionConfig`) and ``mesh`` with
+  the ``data`` axis, with the same keys, defaults and checks. ``seed`` is
+  not read: the port's models hold their weights from their own seed
+  (``Llama(..., seed=...)``), so the key gets the unknown-key warning.
+  Settings of later slices (ZeRO stages 1-2, hpZ, MiCS, offload, mesh
+  axes other than ``data``, pipelining, telemetry, checkpoint saving,
+  resilience) raise :class:`ConfigError` naming that slice; other unknown
+  keys warn.
 """
 
 from __future__ import annotations
@@ -137,31 +140,181 @@ class BF16Config:
         return out
 
 
-def _later_slice(key: str, value: Any) -> None:
+def _later_slice(key: str, value: Any, where: str = "ROADMAP.md, Queue A"
+                 ) -> None:
     raise ConfigError(
         f"config '{key}' = {value!r} turns on a feature that comes with a "
-        f"later slice of deepspeed_tpu_torch (ROADMAP.md, Queue A); this "
-        f"slice trains on one device without it")
+        f"later slice of deepspeed_tpu_torch ({where})")
+
+
+# reference zero_optimization knobs that do not change what the port runs
+# (bucket sizes, prefetch and liveness limits of the hook machinery)
+_INERT_ZERO_KEYS = (
+    "allgather_partitions", "allgather_bucket_size", "overlap_comm",
+    "reduce_scatter", "reduce_bucket_size", "contiguous_gradients",
+    "sub_group_size", "stage3_max_live_parameters",
+    "stage3_max_reuse_distance", "stage3_prefetch_bucket_size",
+    "stage3_gather_16bit_weights_on_model_save", "round_robin_gradients",
+    "ignore_unused_parameters", "cpu_offload", "cpu_offload_params",
+    "load_from_fp32_weights", "elastic_checkpoint",
+    "zero_quantized_nontrainable_weights", "memory_efficient_linear",
+    "param_persistence_threshold", "model_persistence_threshold",
+    "max_live_parameters", "max_reuse_distance", "prefetch_bucket_size",
+    "gather_16bit_weights_on_model_save", "use_multi_rank_bucket_allreduce",
+    "legacy_stage1", "mics_hierarchical_params_gather")
+
+
+@dataclass
+class ZeroConfig:
+    """The ``zero_optimization`` block. Stage 0 (one device) and stage 3
+    (parameters, gradients and optimizer state sharded over the ``data``
+    axis, trained through the staged block schedule) are ported; stages 1
+    and 2, hpZ (``zero_hpz_partition_size`` > 1), MiCS and offload raise
+    :class:`ConfigError` naming their slice (ROADMAP.md, Queue A item 12)."""
+
+    stage: int = 0
+    stage3_param_persistence_threshold: int = 10_000
+    zero_quantized_weights: bool = False
+    zero_quantized_gradients: bool = False
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ZeroConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        where = "ROADMAP.md, Queue A item 12"
+        out = cls(
+            stage=int(_take(d, "stage", 0)),
+            stage3_param_persistence_threshold=int(float(_take(
+                d, "stage3_param_persistence_threshold", 10_000))),
+            zero_quantized_weights=bool(_take(d, "zero_quantized_weights",
+                                              False)),
+            zero_quantized_gradients=bool(_take(
+                d, "zero_quantized_gradients", False)),
+        )
+        if out.stage not in (0, 1, 2, 3):
+            raise ConfigError(f"zero_optimization.stage must be 0..3, got "
+                              f"{out.stage}")
+        if out.stage in (1, 2):
+            _later_slice("zero_optimization.stage", out.stage, where)
+        hpz = int(_take(d, "zero_hpz_partition_size", 1))
+        if hpz > 1:
+            _later_slice("zero_optimization.zero_hpz_partition_size", hpz,
+                         where)
+        mics = int(_take(d, "mics_shard_size", -1))
+        if mics > 0:
+            _later_slice("zero_optimization.mics_shard_size", mics, where)
+        for key in ("offload_param", "offload_optimizer"):
+            dev = (_take(d, key, None) or {}).get("device", "none")
+            if dev not in (None, "none"):
+                _later_slice(f"zero_optimization.{key}.device", dev, where)
+        for k in _INERT_ZERO_KEYS:
+            d.pop(k, None)
+        _warn_unknown(d, "zero_optimization")
+        return out
+
+
+@dataclass
+class CommCompressionConfig:
+    """The ``comm_compression`` block of the compressed-collective facade
+    (``comm/compressed.py``), with the JAX package's keys, defaults and
+    checks: ``enabled`` is ``"auto"`` (on when the data-parallel group
+    reaches ``mesh_size_threshold`` ranks), ``true`` or ``false``; the
+    weight (qwZ) and gradient (qgZ) hops' bits and blocks; ``overlap``
+    (``"staged"``, ``"serial"`` or ``"off"``) picks the block schedule's
+    issue order; ``error_stats`` adds ``quant_rel_err`` to the step
+    metrics; ``kernel_backend`` is ``"auto"``, ``"xla"`` (the unfused
+    reference) or ``"pallas"`` (the fused CUDA kernels; see
+    ``comm/backends.py``)."""
+
+    enabled: Any = "auto"
+    mesh_size_threshold: int = 16
+    weight_bits: int = 8
+    weight_block: int = 256
+    grad_bits: int = 8
+    grad_block: int = 256
+    overlap: str = "staged"
+    error_stats: bool = False
+    kernel_backend: str = "auto"
+
+    def resolve_enabled(self, dp_size: int) -> bool:
+        if isinstance(self.enabled, bool):
+            return self.enabled
+        return dp_size >= self.mesh_size_threshold
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]
+                  ) -> "CommCompressionConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        enabled = _take(d, "enabled", "auto")
+        if not isinstance(enabled, bool):
+            if str(enabled).lower() != "auto":
+                raise ConfigError(
+                    f"comm_compression.enabled must be true/false/'auto', "
+                    f"got {enabled!r}")
+            enabled = "auto"
+        out = cls(
+            enabled=enabled,
+            mesh_size_threshold=int(_take(d, "mesh_size_threshold", 16)),
+            weight_bits=int(_take(d, "weight_bits", 8)),
+            weight_block=int(_take(d, "weight_block", 256)),
+            grad_bits=int(_take(d, "grad_bits", 8)),
+            grad_block=int(_take(d, "grad_block", 256)),
+            overlap=str(_take(d, "overlap", "staged")),
+            error_stats=bool(_take(d, "error_stats", False)),
+            kernel_backend=str(_take(d, "kernel_backend", "auto")),
+        )
+        for name, bits in (("weight_bits", out.weight_bits),
+                           ("grad_bits", out.grad_bits)):
+            if bits not in (4, 8):
+                raise ConfigError(
+                    f"comm_compression.{name} must be 4 or 8, got {bits}")
+        for name, block in (("weight_block", out.weight_block),
+                            ("grad_block", out.grad_block)):
+            if block <= 0 or block % 2:
+                raise ConfigError(
+                    f"comm_compression.{name} must be positive and even, "
+                    f"got {block}")
+        if out.overlap not in ("staged", "serial", "off"):
+            raise ConfigError(
+                f"comm_compression.overlap must be 'staged', 'serial' or "
+                f"'off', got '{out.overlap}'")
+        if out.mesh_size_threshold < 1:
+            raise ConfigError(
+                f"comm_compression.mesh_size_threshold must be >= 1, got "
+                f"{out.mesh_size_threshold}")
+        if out.kernel_backend not in ("auto", "xla", "pallas"):
+            raise ConfigError(
+                f"comm_compression.kernel_backend must be 'auto', 'xla' or "
+                f"'pallas', got '{out.kernel_backend}'")
+        _warn_unknown(d, "comm_compression")
+        return out
+
+
+def _mesh_from_dict(d: Optional[Dict[str, Any]]) -> Dict[str, int]:
+    """The ``mesh`` block: axis sizes. ``data`` (-1: all ranks) is
+    checked against the world size when the engine builds its topology
+    (``parallel/mesh.py``); another axis above 1 raises here."""
+    from .parallel.mesh import LATER_AXES, MESH_AXES
+
+    sizes = {}
+    for axis, n in (d or {}).items():
+        if axis not in MESH_AXES:
+            raise ConfigError(f"unknown mesh axis '{axis}'")
+        n = int(n)
+        if axis != "data" and n > 1:
+            _later_slice(f"mesh.{axis}", n, LATER_AXES[axis])
+        sizes[axis] = n
+    return sizes
 
 
 def _check_later_slice_blocks(d: Dict[str, Any]) -> None:
     """Pop the blocks of later slices; raise when one turns its feature on."""
-    zero = dict(d.pop("zero_optimization", None) or {})
-    if int(zero.get("stage", 0) or 0) > 0:
-        _later_slice("zero_optimization.stage", zero["stage"])
-    for key in ("offload_param", "offload_optimizer"):
-        dev = (zero.get(key) or {}).get("device", "none")
-        if dev not in (None, "none"):
-            _later_slice(f"zero_optimization.{key}.device", dev)
-    mesh = d.pop("mesh", None) or {}
-    if any(int(v) > 1 for v in mesh.values() if v is not None):
-        _later_slice("mesh", mesh)
     pipe = d.pop("pipeline", None) or {}
     if int(pipe.get("stages", 1) or 1) > 1:
         _later_slice("pipeline.stages", pipe["stages"])
-    cc = d.pop("comm_compression", None) or {}
-    if cc.get("enabled") is True:
-        _later_slice("comm_compression.enabled", True)
     tel = d.pop("telemetry", None) or {}
     if tel.get("enabled"):
         _later_slice("telemetry.enabled", tel["enabled"])
@@ -187,6 +340,10 @@ class Config:
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     fp16: FP16Config = field(default_factory=FP16Config)
     bf16: BF16Config = field(default_factory=BF16Config)
+    zero: ZeroConfig = field(default_factory=ZeroConfig)
+    comm_compression: CommCompressionConfig = field(
+        default_factory=CommCompressionConfig)
+    mesh: Dict[str, int] = field(default_factory=dict)
 
     @classmethod
     def from_any(cls, config: Union[str, Dict[str, Any], "Config", None]
@@ -227,39 +384,47 @@ class Config:
             scheduler=SchedulerConfig.from_dict(_take(d, "scheduler", None)),
             fp16=FP16Config.from_dict(_take(d, "fp16", None)),
             bf16=BF16Config.from_dict(_take(d, "bf16", None)),
+            zero=ZeroConfig.from_dict(_take(d, "zero_optimization", None)),
+            comm_compression=CommCompressionConfig.from_dict(
+                _take(d, "comm_compression", None)),
+            mesh=_mesh_from_dict(_take(d, "mesh", None)),
         )
         if cfg.fp16.enabled and cfg.bf16.enabled:
             raise ConfigError("fp16 and bf16 cannot both be enabled")
         _warn_unknown(d, "<top-level>")
         return cfg
 
-    def resolve_batch_config(self) -> None:
-        """Resolve train_batch = micro_batch * GAS on one device: any two of
+    def resolve_batch_config(self, dp_world_size: int = 1) -> None:
+        """Resolve train_batch = micro_batch * GAS * dp_world: any two of
         the three determine the third, a single given value is completed
         with GAS 1, and all three given are validated."""
         tb, mb, gas = (self.train_batch_size,
                        self.train_micro_batch_size_per_gpu,
                        self.gradient_accumulation_steps)
+        dp = dp_world_size
         if tb is not None and mb is not None and gas is not None:
-            if tb != mb * gas:
+            if tb != mb * gas * dp:
                 raise ConfigError(f"train_batch_size ({tb}) != micro_batch "
-                                  f"({mb}) * gas ({gas})")
+                                  f"({mb}) * gas ({gas}) * dp_world ({dp})")
         elif tb is not None and mb is not None:
-            if tb % mb != 0:
+            if tb % (mb * dp) != 0:
                 raise ConfigError(f"train_batch_size ({tb}) not divisible by "
-                                  f"micro_batch ({mb})")
-            gas = tb // mb
+                                  f"micro_batch ({mb}) * dp_world ({dp})")
+            gas = tb // (mb * dp)
         elif tb is not None and gas is not None:
-            if tb % gas != 0:
+            if tb % (gas * dp) != 0:
                 raise ConfigError(f"train_batch_size ({tb}) not divisible by "
-                                  f"gas ({gas})")
-            mb = tb // gas
+                                  f"gas ({gas}) * dp_world ({dp})")
+            mb = tb // (gas * dp)
         elif mb is not None and gas is not None:
-            tb = mb * gas
+            tb = mb * gas * dp
         elif tb is not None:
-            gas, mb = 1, tb
+            if tb % dp != 0:
+                raise ConfigError(f"train_batch_size ({tb}) not divisible by "
+                                  f"dp world size ({dp})")
+            gas, mb = 1, tb // dp
         elif mb is not None:
-            gas, tb = 1, mb
+            gas, tb = 1, mb * dp
         else:
             raise ConfigError(
                 "At least one of train_batch_size / "

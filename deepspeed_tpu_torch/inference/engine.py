@@ -135,15 +135,13 @@ class InferenceEngine:
         if cfg.tensor_parallel > 1:
             raise NotImplementedError(
                 f"tensor_parallel={cfg.tensor_parallel}: tensor-parallel "
-                f"inference comes with the multi-rank slice (ROADMAP.md, "
-                f"Queue A items 6 and 12)")
-        if cfg.kernel_backend == "pallas":
-            raise NotImplementedError(
-                "kernel_backend='pallas': the fused comm backend's kernels "
-                "(dequant_matmul, matmul_pallas, matmul_quantize, TPU "
-                "kernel rows 7-9) come with the multi-rank slice "
-                "(ROADMAP.md, Queue B)")
-        if cfg.kernel_backend not in ("auto", "xla"):
+                f"inference comes with a later slice (ROADMAP.md, Queue A "
+                f"item 6); the fused backend's matmul_all_reduce "
+                f"(comm/backends.py, kernel rows 7-9) is ready for its "
+                f"decode MLP")
+        # kernel_backend binds the fused comm backend only under tensor
+        # parallelism, as the JAX engine does: at tp 1 it changes nothing
+        if cfg.kernel_backend not in ("auto", "xla", "pallas"):
             raise ValueError(f"kernel_backend must be 'auto', 'xla' or "
                              f"'pallas', got '{cfg.kernel_backend}'")
         if cfg.extras.get("checkpoint"):

@@ -289,7 +289,8 @@ def test_generation_past_max_seq_len_raises(greedy_pair):
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(tensor_parallel=2), NotImplementedError, "tensor_parallel"),
     (dict(mp_size=2), NotImplementedError, "tensor_parallel"),
-    (dict(kernel_backend="pallas"), NotImplementedError, "rows 7-9"),
+    (dict(tensor_parallel=2, kernel_backend="pallas"), NotImplementedError,
+     "rows 7-9"),
     (dict(checkpoint="/nonexistent"), NotImplementedError, "checkpoint"),
     (dict(enable_cuda_graph=True), NotImplementedError, "CUDA graph"),
     (dict(kernel_backend="tpu"), ValueError, "kernel_backend"),
@@ -300,6 +301,22 @@ def test_unported_and_bad_options_raise(models, kw, exc, match):
     tm = Llama("tiny", device="cpu", **TINY)
     with pytest.raises(exc, match=match):
         deepspeed_tpu_torch.init_inference(tm, config=kw, device="cpu")
+
+
+def test_pallas_backend_at_tp1_binds_nothing(models):
+    """As the JAX engine: kernel_backend='pallas' is accepted at tensor
+    parallelism 1 and changes nothing (the backend binds only under TP)."""
+    _, _, pnp = models
+    ids = _ids(3, 2, 6)
+    out = {}
+    for kb in ("auto", "pallas"):
+        tm = load_jax_params(Llama("tiny", device="cpu", **TINY), pnp)
+        eng = deepspeed_tpu_torch.init_inference(
+            tm, config={"dtype": "float32", "kernel_backend": kb},
+            device="cpu")
+        out[kb] = eng.generate(ids, max_new_tokens=4)
+    np.testing.assert_array_equal(np.asarray(out["auto"]),
+                                  np.asarray(out["pallas"]))
 
 
 def test_config_aliases_match_jax():

@@ -392,9 +392,9 @@ def test_batch_resolution_errors(given, match):
 @pytest.mark.parametrize("block", [
     {"zero_optimization": {"stage": 2}},
     {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
-    {"mesh": {"data": 2}},
+    {"mesh": {"model": 2}},
     {"pipeline": {"stages": 2}},
-    {"comm_compression": {"enabled": True}},
+    {"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
     {"telemetry": {"enabled": True}},
     {"checkpoint": {"save_dir": "ckpt"}},
     {"resilience": {"divergence": {"nan_action": "skip"}}},
