@@ -7,8 +7,9 @@ CPU path — without a CUDA device the script fails):
 
 1. device: name, count, and ``nvidia-smi`` name + power limit;
 2. build: compile every kernel library from the sources in the checkout
-   with ``nvcc`` (one process each, all started together) and print each
-   kernel's ``-Xptxas -v`` registers, spills and shared memory;
+   with ``nvcc`` (one process each, all started together, with two
+   scratch builds of fused_collectives.cu for a measurement) and print
+   each kernel's ``-Xptxas -v`` registers, spills and shared memory;
 3. kernels: paged attention against its plain PyTorch version on the card
    at the serving path's shapes, with stated tolerances (TF32 is off for
    both cuBLAS and cuDNN), then, at a decode and a prefill shape, compared
@@ -19,11 +20,16 @@ CPU path — without a CUDA device the script fails):
    that are not multiples of 32, path A's weight shapes), timed at
    [4096, 11008] bf16;
    fused collectives: dequant_matmul, matmul_pallas and matmul_quantize
-   against their plain versions (fp32/bf16, int8/int4, trans_a, m = 1, a
-   row length the block does not divide, integer-valued cases bitwise),
-   each timed at the ZeRO-3 path's shapes beside ``torch.matmul`` and
-   compared there too (rows 7 and 8 also into a column slice of the
-   ring's gathered output, as the fused backend writes them);
+   against their plain versions on the mma.sync / FMA kernels (fp32/bf16,
+   int8/int4, trans_a, m = 1, a row length the block does not divide,
+   integer-valued cases bitwise), then rows 7 and 8 on the Hopper kernel
+   (TMA + wgmma: bf16/fp16, int8/int4 at blocks 256/64/96, ragged m, n and
+   k, integer-valued cases bitwise, each twice and into a column slice,
+   every launch counted on ``.wgmma_launches``); each row timed at the
+   ZeRO-3 path's shapes beside one PyTorch call (rows 7 and 8 on the
+   Hopper kernel, with TFLOP/s) and compared there too (rows 7 and 8 also
+   into a column slice of the ring's gathered output, as the fused backend
+   writes them); row 7's converter share from two scratch builds;
    flash: the forward, dq and dk/dv kernels through
    ``FlashAttentionFunction`` against their plain versions (15 cases: the
    1b shape in bf16 at the training shape's micro-batch 4 and in
@@ -75,8 +81,8 @@ CPU path — without a CUDA device the script fails):
    of 4096 x 4096, compressed and dense, fused and reference: 2 warm-up
    and 4 timed steps per configuration with the dequant_matmul /
    matmul_pallas / matmul_quantize counts set to 0 between them and read
-   per rank; step time, peak memory, and one profiled step of the
-   compressed fused run.
+   per rank (every row 7 and 8 launch on the Hopper kernel); step time,
+   peak memory, and one profiled step of the compressed fused run.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -109,6 +115,10 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
                   torch.float32: 67e12}   # dense, no sparsity
 LIBRARIES = ("paged_attention", "flash_attention", "quant",
              "fused_collectives")
+# scratch builds of fused_collectives.cu for one measurement: row 7 with
+# its converter's stores off, and with the converter idle
+SCRATCH_BUILDS = [("fused_collectives", {"DST_FC_CONVERTER": 1}),
+                  ("fused_collectives", {"DST_FC_CONVERTER": 0})]
 PAGED_REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:159"
 # the same Pallas kernel with kv_bits 8/4: its quantized-pool read
 PAGED_QUANT_REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:91"
@@ -156,12 +166,29 @@ FUSED_SHAPES = {
     "matmul_quantize": "h^T [4096, 2048] x g [2048, 11008] bf16 -> int4 "
                        "block 256",
 }
-FUSED_LIBRARY = {   # what torch.matmul computes beside each kernel
-    "dequant_matmul": "the bf16 product of the dequantized weight only: a "
+FUSED_LIBRARY = {   # the PyTorch call timed beside each kernel
+    "dequant_matmul": "torch.mm(h, w, out_dtype=torch.float32) of the bf16 "
+                      "weight before quantization: the product only, a "
                       "yardstick",
-    "matmul_pallas": "the same product, bf16 output",
-    "matmul_quantize": "the product only, bf16 output: a yardstick",
+    "matmul_pallas": "torch.mm(h, w, out_dtype=torch.float32): the same "
+                     "product, fp32 output",
+    "matmul_quantize": "torch.matmul(h.t(), g): the product only, bf16 "
+                       "output, a yardstick",
 }
+# the kernel each row takes at the path's shapes
+FUSED_PATH = {"dequant_matmul": "wgmma: TMA ring + converter warps + "
+                                "wgmma m64n256k16, 128 x 256 tiles",
+              "matmul_pallas": "wgmma: TMA ring + wgmma m64n256k16, "
+                               "128 x 256 tiles",
+              "matmul_quantize": "mma.sync m16n8k16, 64 x 256 tiles, "
+                                 "quantize epilogue"}
+# the Hopper kernel's cases: (m, k, n) with ragged m, n 320 / 1376 and k
+# not a multiple of the 64-deep stage (520, 528) beside the path's 4096;
+# (bits, block) of the weight, None dense, each block where it divides k*n
+WGMMA_SHAPES = [(1, 520, 320), (77, 4096, 1376), (333, 520, 1376),
+                (77, 528, 320)]
+WGMMA_WEIGHTS = [(None, None), (8, 256), (4, 256), (8, 64), (4, 64),
+                 (8, 96), (4, 96)]
 # random operands: fp32 accumulation in another order (over 512 terms in
 # the small cases, 4096 at the path's shape)
 FUSED_REL = 1e-5
@@ -233,27 +260,40 @@ def phase_device() -> dict:
 
 
 # ---------------------------------------------------------------- phase 2
-def _timed_load(name: str) -> float:
+def _timed_load(build) -> float:
     t0 = time.perf_counter()
-    op_builder.load(name)
+    op_builder.load(*build)
     return time.perf_counter() - t0
 
 
 def phase_build() -> None:
-    """Build every kernel library at once (one nvcc each, in parallel).
+    """Build every kernel library at once (one nvcc each, in parallel),
+    with the two scratch builds of row 7's converter (SCRATCH_BUILDS).
     Each library's own seconds are printed beside the wall time: their sum
-    is what a one-after-another loop would take."""
+    is what a one-after-another loop would take. The ptxas report is
+    printed for the libraries the port runs, and the Hopper kernel's
+    dynamic shared memory, which ptxas does not report."""
+    builds = [(name, None) for name in LIBRARIES] + SCRATCH_BUILDS
+    keys = [" ".join([name] + [f"-D{k}={v}" for k, v in
+                               sorted((defines or {}).items())])
+            for name, defines in builds]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        secs = dict(zip(LIBRARIES, pool.map(_timed_load, LIBRARIES)))
-    log(f"build: {time.perf_counter() - t0:.2f} s wall for {list(LIBRARIES)} "
-        f"in parallel; each library's own seconds "
+    with ThreadPoolExecutor(len(builds)) as pool:
+        secs = dict(zip(keys, pool.map(_timed_load, builds)))
+    log(f"build: {time.perf_counter() - t0:.2f} s wall for {keys} in "
+        f"parallel; each library's own seconds "
         + ", ".join(f"{n} {s:.2f}" for n, s in secs.items())
         + f" (sum {sum(secs.values()):.2f})")
-    for name, text in op_builder.build_logs.items():
-        for line in text.splitlines():
-            if "ptxas" in line or "registers" in line or "smem" in line:
+    for name in LIBRARIES:
+        for line in op_builder.build_logs[name].splitlines():
+            if any(w in line for w in ("ptxas", "registers", "smem",
+                                       "spill")):
                 log(f"build[{name}]: {line.strip()}")
+    lib = fc._library()
+    log("build[fused_collectives]: wgmma_kernel dynamic shared memory "
+        + ", ".join(f"{what} {lib.dst_fc_wgmma_smem(bits)} B"
+                    for what, bits in (("dense", 0), ("int8", 8),
+                                       ("int4", 4))))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1654,49 +1694,184 @@ def _path_quantize_case(name, got, ref, bits, block) -> float:
     return float((s - rs).abs().max())
 
 
+def _old_path(wrapper, before: int, name: str) -> None:
+    """The case took the mma.sync / FMA kernels: the wrapper's Hopper count
+    did not move."""
+    if wrapper.wgmma_launches != before:
+        raise SystemExit(f"{name}: took the Hopper kernel, expected the "
+                         f"mma.sync / FMA kernels")
+
+
+def _wgmma_cases(gen) -> dict:
+    """Rows 7 and 8 on the Hopper kernel (TMA + wgmma) against their plain
+    versions: bf16 and fp16, dense and int8/int4 weights at blocks 256, 64
+    and 96, m 1 / 77 / 333, n 320 / 1376, k 520 / 528 (not multiples of the
+    64-deep stage) and 4096; random operands within FUSED_REL, integer-
+    valued ones bitwise; each case run twice (bitwise equal) and once into
+    the column slice [:, n:] of a NaN-filled [m, 2n] output (bitwise the
+    contiguous result, the other columns untouched), all three launches
+    counted on the wrapper's ``.wgmma_launches``. Returns the largest
+    random-case error per row."""
+    errs = {"dequant_matmul": 0.0, "matmul_pallas": 0.0}
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float16):
+        dn = str(dtype)[6:]
+        for m, k, n in WGMMA_SHAPES:
+            for bits, block in WGMMA_WEIGHTS:
+                if bits is not None and (k * n) % block:
+                    continue
+                for exact in (False, True):
+                    if exact:
+                        h = torch.randint(-3, 4, (m, k), generator=gen,
+                                          device="cuda").to(dtype)
+                    else:
+                        h = torch.randn((m, k), generator=gen,
+                                        device="cuda").to(dtype)
+                    if bits is None:
+                        name = "matmul_pallas"
+                        w = (torch.randint(-3, 4, (k, n), generator=gen,
+                                           device="cuda") if exact else
+                             torch.randn((k, n), generator=gen,
+                                         device="cuda")).to(dtype)
+                        kern = lambda out=None: fc.matmul_pallas(h, w,
+                                                                 out=out)
+                        ref = fc.matmul_reference(h, w)
+                        what = f"{dn} dense"
+                    else:
+                        name = "dequant_matmul"
+                        pl, sc = (_exact_payload if exact else _rand_payload)(
+                            gen, k, n, bits, block)
+                        kw = dict(bits=bits, block=block, b=n, w_dtype=dtype)
+                        kern = lambda out=None: fc.dequant_matmul(
+                            h, pl, sc, out=out, **kw)
+                        ref = fc.dequant_matmul_reference(h, pl, sc, **kw)
+                        what = f"{dn} int{bits} block {block}"
+                    wrapper = FUSED_KERNELS[name][0]
+                    before = wrapper.wgmma_launches
+                    got, again = kern(), kern()
+                    wide = torch.full((m, 2 * n), float("nan"),
+                                      device="cuda")
+                    tile = kern(out=wide[:, n:])
+                    torch.cuda.synchronize()
+                    moved = wrapper.wgmma_launches - before
+                    err = _fused_case(
+                        f"{name} [wgmma] {what} m {m} k {k} n {n}"
+                        f"{' integer-valued' if exact else ''}", got, ref,
+                        exact)
+                    if not exact:
+                        errs[name] = max(errs[name], err)
+                    good = (moved == 3 and torch.equal(again, got)
+                            and tile.data_ptr() == wide[:, n:].data_ptr()
+                            and torch.equal(tile, got)
+                            and bool(torch.isnan(wide[:, :n]).all()))
+                    if not good:
+                        raise SystemExit(
+                            f"{name} [wgmma] {what} m {m} k {k} n {n}: "
+                            f"{moved} of 3 launches on the Hopper kernel, "
+                            f"reruns / column slice bitwise: "
+                            f"{torch.equal(again, got)} / "
+                            f"{torch.equal(tile, got)}")
+                    cases += 1
+    log(f"fused: the Hopper kernel: {cases} cases, each twice bitwise equal "
+        f"and into a column slice bitwise the contiguous result, every "
+        f"launch counted on .wgmma_launches ok")
+    return errs
+
+
+def _converter_share(h, pl, sc, n, flush) -> dict:
+    """Row 7's time at the path's shape on the kernel and on two scratch
+    builds (DST_FC_CONVERTER in the source): the converter's stores off,
+    and the converter idle (what the TMA + wgmma pipeline alone takes).
+    Timed in turns: kernel, stores off, idle, idle, stores off, kernel."""
+    m, k = h.shape
+    y = torch.empty((m, n), dtype=torch.float32, device="cuda")
+    libs = {"kernel": fc._library(),
+            "stores off": fc._library({"DST_FC_CONVERTER": 1}),
+            "idle": fc._library({"DST_FC_CONVERTER": 0})}
+
+    def call(lib):
+        def f():
+            err = lib.dst_fc_dequant_matmul_wgmma(
+                h.data_ptr(), pl.data_ptr(), sc.data_ptr(), y.data_ptr(), m,
+                n, k, n, 8, 256, 2, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"converter variant launch failed: {err}")
+        return f
+
+    order = ["kernel", "stores off", "idle", "idle", "stores off", "kernel"]
+    times = {key: [] for key in libs}
+    for key in order:
+        times[key].append(cuda_ms(call(libs[key]), 10, flush))
+    res = {key: min(v) for key, v in times.items()}
+    log(f"fused: dequant_matmul converter share at the path's shape (int8, "
+        f"block 256): kernel {res['kernel']:.4f} ms, converter stores off "
+        f"{res['stores off']:.4f} ms, converter idle {res['idle']:.4f} ms "
+        f"(runs: " + ", ".join(f"{key} " + "/".join(f"{t:.4f}" for t in v)
+                               for key, v in times.items())
+        + f"); the converter adds "
+        f"{res['kernel'] - res['idle']:.4f} ms to the pipeline's "
+        f"{res['idle']:.4f}")
+    return res
+
+
 def phase_fused_kernels(flush: torch.Tensor) -> dict:
-    """Rows 7-9 against their plain versions on the card (fp32 and bf16,
-    bits 8 and 4, trans_a both ways, m = 1, a row length the block does
-    not divide, and integer-valued cases that must be bitwise equal), then
-    each timed at the ZeRO-3 path's shapes beside its bound, its plain
-    version and torch.matmul of the same product (cuBLAS, TF32 off; for
-    rows 7 and 9 it computes the product only: a yardstick)."""
+    """Rows 7-9 against their plain versions on the card. The mma.sync /
+    FMA kernels: fp32 and bf16 shapes the Hopper kernel does not take,
+    bits 8 and 4, trans_a both ways, m = 1, a row length the block does not
+    divide, and integer-valued cases that must be bitwise equal. The Hopper
+    kernel of rows 7 and 8: :func:`_wgmma_cases`. Then each row timed at
+    the ZeRO-3 path's shapes beside its bound, its plain version and one
+    PyTorch call (cuBLAS, TF32 off): for rows 7 and 8 ``torch.mm`` of the
+    bf16 operands with an fp32 output, as the kernels write (for row 7 the
+    product only: a yardstick); for row 9 ``torch.matmul`` of the product,
+    bf16 output (a yardstick). Rows 7 and 8 there must take the Hopper
+    kernel; row 7's converter share is timed on scratch builds."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     errs = {n: 0.0 for n in FUSED_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype)[6:]
+        # shapes the Hopper kernel does not take: n % 8 != 0 (dense), a
+        # payload row of 1368 bytes (no multiple of 16 / 32: int8 / int4)
+        k, nd, nq = 512, 1372, 1368
         for m in (1, 333):
-            k, b = 512, 1376
             a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-            w = torch.randn((k, b), generator=gen, device="cuda").to(dtype)
+            w = torch.randn((k, nd), generator=gen, device="cuda").to(dtype)
+            before = fc.matmul_pallas.wgmma_launches
             errs["matmul_pallas"] = max(errs["matmul_pallas"], _fused_case(
-                f"matmul_pallas {dn} m {m} k {k} n {b}",
+                f"matmul_pallas {dn} m {m} k {k} n {nd}",
                 fc.matmul_pallas(a, w), fc.matmul_reference(a, w), False))
+            _old_path(fc.matmul_pallas, before, "matmul_pallas")
             for bits in (8, 4):
-                pl, sc = _rand_payload(gen, k, b, bits, 256)
+                pl, sc = _rand_payload(gen, k, nq, bits, 256)
+                before = fc.dequant_matmul.wgmma_launches
                 errs["dequant_matmul"] = max(
                     errs["dequant_matmul"], _fused_case(
-                        f"dequant_matmul {dn} int{bits} m {m} k {k} b {b}",
+                        f"dequant_matmul {dn} int{bits} m {m} k {k} b {nq}",
                         fc.dequant_matmul(a, pl, sc, bits=bits, block=256,
-                                          b=b, w_dtype=dtype),
+                                          b=nq, w_dtype=dtype),
                         fc.dequant_matmul_reference(a, pl, sc, bits=bits,
-                                                    block=256, b=b,
+                                                    block=256, b=nq,
                                                     w_dtype=dtype), False))
+                _old_path(fc.dequant_matmul, before, "dequant_matmul")
         # exact: integer h, integer levels with power-of-two scales
         h = torch.randint(-3, 4, (77, 256), generator=gen,
                           device="cuda").to(dtype)
+        before = fc.dequant_matmul.wgmma_launches
         for bits in (8, 4):
-            pl, sc = _exact_payload(gen, 256, 320, bits, 256)
+            pl, sc = _exact_payload(gen, 256, 328, bits, 256)
             _fused_case(f"dequant_matmul {dn} int{bits} integer-valued",
                         fc.dequant_matmul(h, pl, sc, bits=bits, block=256,
-                                          b=320, w_dtype=dtype),
+                                          b=328, w_dtype=dtype),
                         fc.dequant_matmul_reference(h, pl, sc, bits=bits,
-                                                    block=256, b=320,
+                                                    block=256, b=328,
                                                     w_dtype=dtype), True)
-        wi = torch.randint(-3, 4, (256, 320), generator=gen,
+        _old_path(fc.dequant_matmul, before, "dequant_matmul")
+        wi = torch.randint(-3, 4, (256, 324), generator=gen,
                            device="cuda").to(dtype)
+        before = fc.matmul_pallas.wgmma_launches
         _fused_case(f"matmul_pallas {dn} integer-valued",
                     fc.matmul_pallas(h, wi), fc.matmul_reference(h, wi), True)
+        _old_path(fc.matmul_pallas, before, "matmul_pallas")
         for bits in (8, 4):
             for rows, kc, n, trans_a in ((1, 384, 512, False),
                                          (200, 384, 768, True),
@@ -1725,6 +1900,8 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
         y2 = fc.matmul_quantize(a, b, bits=4, block=256, trans_a=True)
         if not (torch.equal(y1[0], y2[0]) and torch.equal(y1[1], y2[1])):
             raise SystemExit("matmul_quantize: two runs differ")
+    for name, e in _wgmma_cases(gen).items():
+        errs[name] = max(errs[name], e)
 
     # timing at the ZeRO-3 path's shapes: block 0's fused forward tile
     # (h [2048, 4096] x its [4096, 5504] shard) and its weight gradient
@@ -1743,13 +1920,13 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
             lambda: fc.dequant_matmul_reference(h, pl, sc, bits=8, block=256,
                                                 b=bsh,
                                                 w_dtype=torch.bfloat16),
-            lambda: torch.matmul(h, w),
+            lambda: torch.mm(h, w, out_dtype=torch.float32),
             2.0 * m * k * bsh,
             h.numel() * 2 + pl.numel() + sc.numel() * 4 + m * bsh * 4),
         "matmul_pallas": (
             lambda out=None: fc.matmul_pallas(h, w, out=out),
             lambda: fc.matmul_reference(h, w),
-            lambda: torch.matmul(h, w),
+            lambda: torch.mm(h, w, out_dtype=torch.float32),
             2.0 * m * k * bsh, h.numel() * 2 + w.numel() * 2 + m * bsh * 4),
         "matmul_quantize": (
             lambda: fc.matmul_quantize(h, g, bits=4, block=256, trans_a=True),
@@ -1764,17 +1941,24 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
     gathered = torch.empty((m, 2 * bsh), dtype=torch.float32, device="cuda")
     res = {}
     for name, (kern, plain, lib, ops, nbytes) in fns.items():
+        wrapper = FUSED_KERNELS[name][0]
+        hopper = getattr(wrapper, "wgmma_launches", None)
         p1 = cuda_ms(plain, 3, flush)
         k1, k2 = cuda_ms(kern, 10, flush), cuda_ms(kern, 10, flush)
         p2 = cuda_ms(plain, 3, flush)
         lib_ms = cuda_ms(lib, 10, flush)
+        path = FUSED_PATH[name]
+        if hopper is not None and wrapper.wgmma_launches - hopper != 24:
+            raise SystemExit(f"{name} at the path's shape: "
+                             f"{wrapper.wgmma_launches - hopper} of 24 timed "
+                             f"launches on the Hopper kernel")
         t_ops = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         res[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "library_ms": lib_ms, "max_abs_err": errs[name],
-                     "ops": ops, "bytes": nbytes}
+                     "ops": ops, "bytes": nbytes, "path": path}
         r = res[name]
         if name == "matmul_quantize":
             r["max_abs_err"] = max(r["max_abs_err"], _path_quantize_case(
@@ -1799,11 +1983,14 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
             if not good:
                 raise SystemExit(f"{name}: the column-slice output differs")
             del got, ref, tile
-        log(f"fused: {name} {FUSED_SHAPES[name]}: kernel {k1:.4f}/{k2:.4f} "
-            f"ms, plain {p1:.4f}/{p2:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}, {ops:.3e} ops, {nbytes} B), torch.matmul "
-            f"{lib_ms:.4f} ms ({FUSED_LIBRARY[name]}); "
-            f"{ops / r['ms'] / 1e9:.1f} TFLOP/s")
+        log(f"fused: {name} {FUSED_SHAPES[name]} [{path}]: kernel "
+            f"{k1:.4f}/{k2:.4f} ms ({ops / r['ms'] / 1e9:.1f} TFLOP/s), "
+            f"plain {p1:.4f}/{p2:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {ops:.3e} ops, {nbytes} B), library "
+            f"{lib_ms:.4f} ms ({ops / lib_ms / 1e9:.1f} TFLOP/s; "
+            f"{FUSED_LIBRARY[name]})")
+    res["dequant_matmul"]["converter"] = _converter_share(h, pl, sc, bsh,
+                                                          flush)
     return res
 
 
@@ -2009,13 +2196,18 @@ def _job_train(rank, world, device, dims, runs, rows, warm, timed):
             if i == warm:
                 for w in counted.values():
                     w.launches = 0
+                    if hasattr(w, "wgmma_launches"):
+                        w.wgmma_launches = 0
             t1 = time.perf_counter()
             m = engine.train_batch(batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t1)
             losses.append(float(m["loss"]))
         launches = {n: w.launches for n, w in counted.items()}
+        wgmma = {n: w.wgmma_launches for n, w in counted.items()
+                 if hasattr(w, "wgmma_launches")}
         res = {"losses": losses, "times": times, "launches": launches,
+               "wgmma_launches": wgmma,
                "built_s": built,
                "peak": torch.cuda.max_memory_allocated(),
                "transport": torch.distributed.get_backend()}
@@ -2045,9 +2237,13 @@ def _profile_zero3_step(engine, batch) -> dict:
     for e in kernels:
         n = e.key.lower()
         # mma_kernel<T, Tile<BM, BN, ..>, TRANS_A, MODE, QUANT, VEC>: the
-        # quantize epilogue's QUANT is true; MODE 0 is the dense twin
+        # quantize epilogue's QUANT is true; MODE 0 is the dense twin; the
+        # Hopper kernel is wgmma_kernel<T, MODE>
         mma = re.search(r"mma_kernel<[^,]+, [^>]+>, (\w+), (\d), (\w+)", n)
-        g = ("matmul_quantize" if mma and mma.group(3) == "true"
+        hop = re.search(r"wgmma_kernel<[^,]+, (\d)>", n)
+        g = ("matmul_pallas" if hop and hop.group(1) == "0"
+             else "dequant_matmul" if hop
+             else "matmul_quantize" if mma and mma.group(3) == "true"
              else "matmul_pallas" if mma and mma.group(2) == "0"
              else "dequant_matmul" if mma
              else "dequantize" if "dequantize_kernel" in n
@@ -2183,8 +2379,10 @@ def phase_zero3_training(card: str) -> dict:
     batch of 4096 x 4096 (2048 rows a rank), AdamW lr 1e-3, compressed
     (w8/g4) and dense, each on the fused and the reference backend: 2
     warm-up and 4 timed steps with the kernel counts set to 0 between
-    them. Returns each fused kernel's launches on rank 0 in the four timed
-    steps of the run that takes it."""
+    them. Every launch of rows 7 and 8 in a fused run must take the Hopper
+    kernel. Returns each fused kernel's launches on rank 0 in the four
+    timed steps of the run that takes it, and rows 7 and 8's launches on
+    the Hopper kernel there."""
     t0 = time.perf_counter()
     runs = [(f"{c}_{b}", c == "compressed", "pallas" if b == "fused"
              else "xla") for c in ("compressed", "dense")
@@ -2205,8 +2403,12 @@ def phase_zero3_training(card: str) -> dict:
             falling = x["losses"][-1] < x["losses"][0]
             finite = all(np.isfinite(x["losses"]))
             per_step = {k: v / 4 for k, v in x["launches"].items()}
+            hopper = {k: v / 4 for k, v in x["wgmma_launches"].items()}
             counts_ok = all(per_step[k] == v
                             for k, v in want.get(name, {}).items())
+            # rows 7 and 8: every launch on the Hopper kernel
+            counts_ok = counts_ok and all(hopper[k] == per_step[k]
+                                          for k in hopper)
             if name.endswith("reference"):
                 counts_ok = all(per_step[k] == 0 for k in FUSED_KERNELS)
             good = falling and finite and counts_ok
@@ -2215,7 +2417,8 @@ def phase_zero3_training(card: str) -> dict:
             log(f"zero3 [{card}] {name} rank {r}: losses "
                 f"{[round(v, 6) for v in x['losses']]}, step times "
                 f"{[round(v, 4) for v in x['times']]} s, timed step (mean "
-                f"of four) {step:.4f} s, launches per step {per_step}, peak "
+                f"of four) {step:.4f} s, launches per step {per_step} (on the "
+                f"Hopper kernel {hopper}), peak "
                 f"{x['peak']} B, built in {x['built_s']:.1f} s, transport "
                 f"{x['transport']} (2 ranks on one card) "
                 f"{'ok' if good else 'FAIL'}")
@@ -2246,9 +2449,11 @@ def phase_zero3_training(card: str) -> dict:
         raise SystemExit("ZeRO-3 training phase failed")
     # each kernel's launches in the run that takes it: rows 7 and 9 the
     # compressed fused run, row 8 the dense fused run (4 timed steps, rank 0)
-    return {n: res[0]["dense_fused" if n == "matmul_pallas"
-                      else "compressed_fused"]["launches"][n]
-            for n in FUSED_KERNELS}
+    run = {n: res[0]["dense_fused" if n == "matmul_pallas"
+                     else "compressed_fused"] for n in FUSED_KERNELS}
+    return ({n: run[n]["launches"][n] for n in FUSED_KERNELS},
+            {n: run[n]["wgmma_launches"][n] for n in FUSED_KERNELS
+             if n in run[n]["wgmma_launches"]})
 
 
 def main() -> int:
@@ -2289,7 +2494,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_zero3_parity()
-    fused_launches = phase_zero3_training(dev["card"])
+    fused_launches, fused_wgmma = phase_zero3_training(dev["card"])
     d = kern["timings"]["decode_16x1024"]
     entries = [{"name": "paged_attention", "route": "cuda",
                 "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
@@ -2340,7 +2545,12 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library": FUSED_LIBRARY[name], "parity": "ok",
+            "path": t["path"], "tflops": t["ops"] / t["ms"] / 1e9,
             "shape": FUSED_SHAPES[name], "card": dev["card"]})
+        if name in fused_wgmma:
+            entries[-1]["wgmma_launches"] = fused_wgmma[name]
+        if "converter" in t:
+            entries[-1]["converter_ms"] = t["converter"]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

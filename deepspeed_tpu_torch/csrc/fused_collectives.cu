@@ -21,29 +21,42 @@
 //                    q = clamp(rint(x / scale), -qmax-1, qmax); int4 packed.
 //
 // Rounding contract: every output element is one fp32 accumulation over the
-// FULL contraction, in k order (16-wide mma steps for bf16/fp16, one fmaf
-// per k for fp32, never TF32), with no split-K. So an element's value does
-// not depend on the m/n tiling, two runs are bitwise equal, and the
-// quantize epilogue sees exactly the matmul kernel's product.
+// FULL contraction, in k order (16-wide mma / wgmma steps for bf16/fp16,
+// one fmaf per k for fp32, never TF32), with no split-K. So an element's
+// value does not depend on the m/n tiling or the output's row stride, two
+// runs are bitwise equal, integer-valued operands give the exact product,
+// and the quantize epilogue sees exactly the matmul kernel's product.
 //
 // What bounds them on the H100: at the ZeRO-3 path's shapes (m 2048, k 4096,
 // n 5504 / 11008, bf16) the tensor-core operations, ~93-185 GFLOP against
-// ~85 MB. Design, simple and right first: a 256-thread block owns a 128 x
-// 128 output tile (64 x 256 for the quantize epilogue, so that a block owns
-// whole 256-wide quantization blocks); each of its 8 warps owns a 32 x 64
-// piece and runs mma.sync m16n8k16 with fp32 accumulators over 32-deep k
-// steps staged in shared memory: A row-major (or a^T as it lies, for
-// `trans_a`), B row-major, rows padded by 8 elements, fragments by 32-bit
-// loads or ldmatrix .trans. Staging uses 16-byte loads where rows split
-// into aligned 8-element pieces, else single elements. The weight is
-// dequantized while it is staged (the prologue: 8 payload values, one
-// scale, one 16-byte store). fp32 operands take a 256-thread scalar-FMA
-// kernel. The quantize epilogue writes the fp32 tile to shared memory and
-// gives each (row, block) to a warp: shuffle absmax, IEEE divide, rintf,
-// pack. A block that does not divide 256 or the row length takes a second
-// pass in this file (matmul to an fp32 scratch, then the quantize kernel).
-// Later work: cp.async / TMA double buffering, wgmma, a persistent grid.
+// ~85 MB. Two designs:
+// - The Hopper kernel (namespace hop) takes the bf16/fp16 products of
+//   matmul and dequant_matmul whose operands TMA can read (16-byte aligned
+//   bases and row strides; see `wgmma_ok`): a 384-thread block owns a
+//   128 x 256 output tile; warp 0 keeps TMA loads of 64-deep stages in
+//   flight into a ring of shared memory (128-byte swizzle, mbarriers);
+//   for dequant_matmul warps 1-3 dequantize the raw payload stage into the
+//   bf16/fp16 B stage; two consumer warpgroups run wgmma m64n256k16 with
+//   fp32 accumulators in registers and store them straight to `out` at
+//   its row stride. Its section below says more.
+// - The mma.sync tile loop takes the rest of the 16-bit products and the
+//   quantize epilogue: a 256-thread block owns a 128 x 128 output tile
+//   (64 x 256 for the quantize epilogue, so that a block owns whole
+//   256-wide quantization blocks); each of its 8 warps owns a 32 x 64
+//   piece and runs mma.sync m16n8k16 with fp32 accumulators over 32-deep
+//   k steps staged in shared memory: A row-major (or a^T as it lies, for
+//   `trans_a`), B row-major, rows padded by 8 elements, fragments by
+//   32-bit loads or ldmatrix .trans. Staging uses 16-byte loads where rows
+//   split into aligned 8-element pieces, else single elements. The weight
+//   is dequantized while it is staged (the prologue: 8 payload values, one
+//   scale, one 16-byte store). The quantize epilogue writes the fp32 tile
+//   to shared memory and gives each (row, block) to a warp: shuffle
+//   absmax, IEEE divide, rintf, pack. A block that does not divide 256 or
+//   the row length takes a second pass in this file (matmul to an fp32
+//   scratch, then the quantize kernel).
+// fp32 operands take a 256-thread scalar-FMA kernel.
 
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -437,6 +450,465 @@ mma_kernel(Operands<T> op, Store st, Quant qt) {
   }
 }
 
+// ------------------------------------------- Hopper path: TMA + wgmma
+// The bf16/fp16 products of dequant_matmul and matmul_pallas. A block of
+// three warpgroups owns a BM x BN output tile and walks the whole
+// contraction in 64-deep stages held in a ring of shared memory:
+// - warp 0 is the producer: one thread issues the TMA loads of A (box 64 x
+//   128, 128-byte swizzle, K-major for wgmma) and of B (four boxes of 64 n
+//   x 64 k rows, 128-byte swizzle, N-major: wgmma's transpose bit) or, for
+//   row 7, of the raw payload tile (int8 64 x 256, packed int4 64 x 128
+//   bytes, no swizzle);
+// - for row 7, warps 1-3 are the converter: they dequantize the payload
+//   stage into the swizzled B stage with load_b8's arithmetic, then fence
+//   the generic proxy against the async one before they tell the
+//   consumers. Each thread loads its pieces' scales a stage ahead, and
+//   the payload of half its rows before it converts them: with one
+//   converter warp a scheduler, the loads' latency, not the arithmetic,
+//   sets its pace;
+// - warpgroups 1 and 2 are the consumers, 64 rows of the tile each:
+//   wgmma.mma_async m64n256k16 with fp32 accumulators in registers, one
+//   wgmma group left in flight while the next stage is waited for; the
+//   epilogue stores the accumulators straight to `out` at row stride
+//   `ldo`, masking the ragged m and n edges.
+// TMA fills zeros past the edges of A, B and the payload (whose scale is
+// then 0), so a ragged k adds +0. Barriers per stage: full (A, and dense
+// B, landed), pfull (payload landed), bready (the converter wrote B) and
+// empty (both consumers are done with the stage: its A, B and payload are
+// free). BM x BN = 128 x 256 (a 256 x 128 tile, two m64n128 a consumer,
+// would halve the dequantize work per product, but ptxas spilled it).
+// A measurement switch for row 7's converter, set by -D in scratch builds
+// (chip_smoke.py times them to find the converter's share of the kernel):
+// 2 (the kernel) converts and stores; 1 converts but stores only a value
+// that never occurs (two all-ones halves: NaNs no finite q * s gives);
+// 0 converts nothing, so the consumers multiply whatever the B stages hold.
+#ifndef DST_FC_CONVERTER
+#define DST_FC_CONVERTER 2
+#endif
+
+namespace hop {
+
+constexpr int BM = 128, BN = 256, BK = 64;
+constexpr int kBoxN = 64;                   // one 128-byte swizzle atom
+constexpr int kBoxBytes = BK * kBoxN * 2;   // 8 KB
+constexpr int kThreads = 384;
+// the converter, warps 1-3: thread ct keeps column piece ct % 32 (8
+// columns) and takes rows ct / 32 + 3 i of each stage
+constexpr int kConverters = 96;
+constexpr int kRowStep = kConverters / (BN / 8);
+constexpr int kConvRows = (BK + kRowStep - 1) / kRowStep;
+constexpr int kConvBatch = (kConvRows + 1) / 2;  // rows loaded, then converted
+
+template <int MODE>
+struct Cfg {
+  static constexpr bool DQ = MODE != kDense;
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BK * BN * 2;
+  static constexpr int P_ROW = MODE == kInt4 ? BN / 2 : BN;  // payload bytes
+  static constexpr int P_BYTES = DQ ? BK * P_ROW : 0;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES + P_BYTES;
+  // as many stages as fit, up to 4: 4 dense, 3 int8, 4 int4
+  static constexpr int FIT = (232448 - 1024 - 4 * 4 * 8) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  // 1024 bytes of slack to align the ring to the 128-byte swizzle's period
+  static constexpr size_t SMEM =
+      1024 + static_cast<size_t>(STAGES) * STAGE_BYTES + 4 * STAGES * 8;
+  static_assert(SMEM <= 232448, "shared memory of a block");
+  // registers a thread after setmaxnreg: warpgroup 0 gives its spare ones
+  // to the consumers; the ring's shared memory keeps one block on an SM,
+  // whose 65536 registers hold the sum
+  static constexpr int LOADER_REGS = DQ ? 152 : 40;
+  static constexpr int CONSUMER_REGS = DQ ? 176 : 232;
+  static_assert((LOADER_REGS + 2 * CONSUMER_REGS) * 128 <= 65536,
+                "register budget");
+};
+
+struct Params {
+  float* out;
+  const float* scales;  // row 7: one per `block` flat weight elements
+  int m, n, k, ldo;
+  int block;
+  int vec2;  // out and ldo allow 8-byte stores
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// a shared-memory matrix descriptor of wgmma, 128-byte swizzle: for K-major
+// A, sbo = 1024 (8 rows of 128 bytes); for N-major B, lbo = the stride of
+// the 64-wide n atoms and sbo = 1024 (8 k rows)
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+#define DST_ACC128(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
+  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),          \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),          \
+  "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),          \
+  "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),          \
+  "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),          \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),          \
+  "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),          \
+  "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),          \
+  "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),          \
+  "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),          \
+  "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),          \
+  "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),          \
+  "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),          \
+  "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),         \
+  "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),     \
+  "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),     \
+  "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),     \
+  "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),     \
+  "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),     \
+  "+f"(d[126]), "+f"(d[127])
+
+#define DST_D128                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "   \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "   \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "   \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127}"
+
+// d[64 x 256] += A[64 x 16] (K-major) * B[16 x 256] (N-major: transpose
+// bit of B set), fp32 accumulators; asynchronous until wgmma.wait_group
+template <typename T>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile("wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
+                 DST_D128 ", %128, %129, 1, 1, 1, 0, 1;\n"
+                 : DST_ACC128(d) : "l"(da), "l"(db));
+  } else {
+    asm volatile("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+                 DST_D128 ", %128, %129, 1, 1, 1, 0, 1;\n"
+                 : DST_ACC128(d) : "l"(da), "l"(db));
+  }
+}
+
+// keeps the compiler from moving accumulator reads across the wgmma waits
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^23 as fp32 bits: an integer j < 2^23 OR-ed into its mantissa reads as
+// 2^23 + j, and taking 2^23 + bias away gives j - bias exactly
+constexpr uint32_t kTwo23 = 0x4B000000u;
+
+// byte e of x in the low mantissa byte of 2^23 (the selector as an
+// immediate, the constant `two23` in a register)
+template <int E>
+__device__ __forceinline__ float byte_in_two23(uint32_t x, uint32_t two23) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(two23),
+      "n"(0x7650 | E));
+  return __uint_as_float(r);
+}
+
+// 8 consecutive weight elements from their payload bytes and one scale,
+// as 16 bytes of T: to_T(float(q) * s) each, load_b8's arithmetic. float(q)
+// takes no conversion instruction: int8 q + 128 is the byte XOR 0x80, int4
+// q + 8 the nibble XOR 8 (pack_int4's nibbles, element 2i low), and both
+// come back exactly from 2^23 + (q + bias) - (2^23 + bias); so float(q) * s
+// rounds once, then once more to T, as the plain dequantize does
+template <typename T, int MODE>
+__device__ __forceinline__ uint4 dequant8(uint2 raw, float s,
+                                          uint32_t two23) {
+  float v[8];
+  if constexpr (MODE == kInt8) {
+    const uint32_t lo = raw.x ^ 0x80808080u, hi = raw.y ^ 0x80808080u;
+    v[0] = byte_in_two23<0>(lo, two23);
+    v[1] = byte_in_two23<1>(lo, two23);
+    v[2] = byte_in_two23<2>(lo, two23);
+    v[3] = byte_in_two23<3>(lo, two23);
+    v[4] = byte_in_two23<0>(hi, two23);
+    v[5] = byte_in_two23<1>(hi, two23);
+    v[6] = byte_in_two23<2>(hi, two23);
+    v[7] = byte_in_two23<3>(hi, two23);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = (v[e] - 8388736.f) * s;
+  } else {
+    const uint32_t x = raw.x ^ 0x88888888u;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = (__uint_as_float(((x >> (4 * e)) & 0xFu) | two23) - 8388616.f) *
+             s;
+  }
+  return make_uint4(pack2<T>(v[0], v[1]), pack2<T>(v[2], v[3]),
+                    pack2<T>(v[4], v[5]), pack2<T>(v[6], v[7]));
+}
+
+// The scales of a converter thread's pieces in the stage at k0: rows
+// k0 + r0 + kRowStep i, columns gj .. gj + 7, one scale each (the launcher
+// checked block % 8 == 0 and k * n < 2^31). The flat index f = gk * n + gj
+// steps by kRowStep * n a row, so its quotient by `block` steps by dq with
+// remainder dr: one division a stage, none a row. 0 outside the weight.
+__device__ __forceinline__ void stage_scales(float (&sc)[kConvRows],
+                                             const Params& p, int k0, int r0,
+                                             int gj, uint32_t dq,
+                                             uint32_t dr) {
+  const uint32_t f = static_cast<uint32_t>(k0 + r0) * p.n + gj;
+  const uint32_t blk = static_cast<uint32_t>(p.block);
+  uint32_t q = f / blk, rem = f - q * blk;
+#pragma unroll
+  for (int i = 0; i < kConvRows; ++i) {
+    const int gk = k0 + r0 + kRowStep * i;
+    sc[i] = r0 + kRowStep * i < BK && gk < p.k && gj < p.n
+                ? __ldg(p.scales + q) : 0.f;
+    q += dq;
+    rem += dr;
+    if (rem >= blk) {
+      rem -= blk;
+      ++q;
+    }
+  }
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads, 1)
+wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+             const __grid_constant__ CUtensorMap tm_b, Params p) {
+  using C = Cfg<MODE>;
+  constexpr int S = C::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  // stage s: A at base + s * STAGE_BYTES, B after it, then the payload
+  const uint32_t bars = base + S * C::STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (S + s); };
+  auto pfull = [&](int s) { return bars + 8 * (2 * S + s); };
+  auto bready = [&](int s) { return bars + 8 * (3 * S + s); };
+  // the warpgroup, broadcast from lane 0 so that the compiler sees
+  // warp-uniform branches around setmaxnreg and wgmma (.sync.aligned)
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                             0);
+  const int t = threadIdx.x % 128;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (p.k + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+      if constexpr (C::DQ) {
+        mbar_init(pfull(s), 1);
+        mbar_init(bready(s), kConverters);  // every converter thread
+      }
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        C::LOADER_REGS));
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        C::CONSUMER_REGS));
+  }
+  if (wg == 0 && t < 32) {
+    // ---- producer: one thread keeps the ring's TMA loads in flight
+    if (t == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tm_a)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tm_b)) : "memory");
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % S;
+        mbar_wait(empty(s), ((it / S) & 1) ^ 1);
+        const uint32_t sa = base + s * C::STAGE_BYTES;
+        const int k0 = it * BK;
+        mbar_expect_tx(full(s), C::A_BYTES + (C::DQ ? 0 : C::B_BYTES));
+        tma_load(sa, &tm_a, full(s), k0, m0);
+        if constexpr (C::DQ) {
+          mbar_expect_tx(pfull(s), C::P_BYTES);
+          tma_load(sa + C::A_BYTES + C::B_BYTES, &tm_b, pfull(s),
+                   MODE == kInt4 ? n0 / 2 : n0, k0);
+        } else {
+#pragma unroll
+          for (int i = 0; i < BN / kBoxN; ++i)
+            tma_load(sa + C::A_BYTES + i * kBoxBytes, &tm_b, full(s),
+                     n0 + i * kBoxN, k0);
+        }
+      }
+    }
+  } else if (wg == 0) {
+    // ---- converter (warps 1-3): payload stage -> swizzled B stage; the
+    // next stage's scales are loaded while this one is converted
+    if constexpr (C::DQ) {
+      constexpr int R = kConvRows;
+      const int ct = t - 32, jp = ct % (BN / 8), r0 = ct / (BN / 8);
+      const int gj = n0 + 8 * jp;
+      const uint32_t step = static_cast<uint32_t>(kRowStep) * p.n;
+      const uint32_t dq = step / p.block, dr = step % p.block;
+      uint32_t two23;  // in a register, so that prmt takes its selector
+      asm("mov.b32 %0, %1;" : "=r"(two23) : "n"(kTwo23));
+      float cur[R], nxt[R];
+      stage_scales(cur, p, 0, r0, gj, dq, dr);
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % S;
+        if (it + 1 < nk) stage_scales(nxt, p, (it + 1) * BK, r0, gj, dq, dr);
+        mbar_wait(pfull(s), (it / S) & 1);
+        unsigned char* __restrict__ bs =
+            smem + s * C::STAGE_BYTES + C::A_BYTES;
+        const unsigned char* __restrict__ ps = bs + C::B_BYTES;
+        // half the rows' payload first, then their conversions, which are
+        // independent of each other (one warp a scheduler needs the ILP)
+#pragma unroll
+        for (int i0 = 0; i0 < R; i0 += kConvBatch) {
+          uint2 pay[kConvBatch];
+#pragma unroll
+          for (int b = 0; b < kConvBatch; ++b) {
+            const int i = i0 + b, r = r0 + kRowStep * i;
+            pay[b] = make_uint2(0u, 0u);
+            if (i < R && r < BK) {
+              if constexpr (MODE == kInt8)
+                pay[b] = *reinterpret_cast<const uint2*>(ps + r * C::P_ROW +
+                                                         8 * jp);
+              else
+                pay[b].x = *reinterpret_cast<const uint32_t*>(
+                    ps + r * C::P_ROW + 4 * jp);
+            }
+          }
+#pragma unroll
+          for (int b = 0; b < kConvBatch; ++b) {
+            const int i = i0 + b, r = r0 + kRowStep * i;
+            if (i >= R || r >= BK || DST_FC_CONVERTER == 0) continue;
+            const uint4 v = dequant8<T, MODE>(pay[b], cur[i], two23);
+            // 128-byte swizzle: 16-byte chunk c of row r lands at c ^ (r % 8)
+            if (DST_FC_CONVERTER == 2 || v.x == 0xFFFFFFFFu)
+              *reinterpret_cast<uint4*>(bs + (jp >> 3) * kBoxBytes +
+                                        r * 128 +
+                                        (((jp & 7) ^ (r & 7)) << 4)) = v;
+          }
+        }
+        // generic-proxy writes, read next by wgmma through the async proxy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(bready(s));
+#pragma unroll
+        for (int i = 0; i < R; ++i) cur[i] = nxt[i];
+      }
+    }
+  } else {
+    // ---- consumers: rows 64 c .. 64 c + 63 of the tile
+    const int c = wg - 1;
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    for (int it = 0; it < nk; ++it) {
+      const int s = it % S;
+      const uint32_t ph = (it / S) & 1;
+      mbar_wait(full(s), ph);
+      if constexpr (C::DQ) mbar_wait(bready(s), ph);
+      const uint32_t sa = base + s * C::STAGE_BYTES + c * 64 * 128;
+      const uint32_t sb = base + s * C::STAGE_BYTES + C::A_BYTES;
+      fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      // k step kk: A 32 bytes along its 128-byte rows, B 16 rows of 128
+      // bytes
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_n256<T>(d, wg_desc(sa + 32 * kk, 16, 1024),
+                      wg_desc(sb + kk * 16 * 128, kBoxBytes, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the previous stage's group is done: free it
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_acc(d);
+      if (it > 0 && (t & 31) == 0) mbar_arrive(empty((it - 1) % S));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(d);
+    // d[4 j + e]: row 16 w + lane / 4 (+ 8 for e >= 2), column 8 j +
+    // 2 (lane % 4) (+ 1 for odd e), w the warp within the warpgroup
+    const int w = t >> 5, lane = t & 31;
+    const int r0 = m0 + 64 * c + 16 * w + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        if (row >= p.m || col >= p.n) continue;
+        float* o = p.out + static_cast<long long>(row) * p.ldo + col;
+        const float lo = d[4 * j + 2 * h], hi = d[4 * j + 2 * h + 1];
+        if (p.vec2 && col + 1 < p.n) {
+          *reinterpret_cast<float2*>(o) = make_float2(lo, hi);
+        } else {
+          o[0] = lo;
+          if (col + 1 < p.n) o[1] = hi;
+        }
+      }
+    }
+  }
+}
+
+#undef DST_ACC128
+#undef DST_D128
+
+}  // namespace hop
+
 // ------------------------------------------------------- fp32 FMA path
 constexpr int kFmaThreads = 256;
 
@@ -623,6 +1095,100 @@ int dispatch(int dtype, const void* a, const void* b, const float* scales,
   }
 }
 
+// ------------------------------------------- Hopper path: the launcher
+// cuTensorMapEncodeTiled comes from the driver through the runtime, so the
+// library needs no link against libcuda
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn lookup_encoder() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return reinterpret_cast<EncodeTiledFn>(fn);
+}
+
+// the tensor map of a row-major [rows, cols] matrix of `esize`-byte
+// elements, box [box_rows, box_cols]; zeros are read past its edges
+int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int esize,
+              const void* ptr, int rows, int cols, int box_rows,
+              int box_cols, bool swizzle) {
+  static const EncodeTiledFn encode = lookup_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esize};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// what the Hopper path takes (ops/fused_collectives.py `wgmma_path` states
+// the same): bf16/fp16, TMA's 16-byte aligned bases and row strides, whole
+// 8-element pieces a scale each, a 32-bit flat weight index; bits 0 = dense
+bool wgmma_ok(int dtype, const void* a, const void* b, int m, int n, int k,
+              int bits, int block) {
+  if ((dtype != 1 && dtype != 2) || m < 1 || n < 1 || k < 1 || k % 8 ||
+      n % 8 || !aligned(a, 16) || !aligned(b, 16))
+    return false;
+  if (bits == 0) return true;
+  return block % 8 == 0 && n % (bits == 8 ? 16 : 32) == 0 &&
+         static_cast<long long>(k) * n < (1LL << 31);
+}
+
+template <typename T, int MODE>
+int launch_wgmma(const void* a, const void* b, const float* scales,
+                 float* out, int m, int n, int k, int ldo, int block,
+                 cudaStream_t s) {
+  using C = hop::Cfg<MODE>;
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tm_a, tm_b;
+  int err = encode_2d(&tm_a, type, 2, a, m, k, hop::BM, hop::BK, true);
+  if (err) return err;
+  err = MODE == kDense
+      ? encode_2d(&tm_b, type, 2, b, k, n, hop::BK, hop::kBoxN, true)
+      : encode_2d(&tm_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, b, k,
+                  MODE == kInt8 ? n : n / 2, hop::BK, C::P_ROW, false);
+  if (err) return err;
+  auto kernel = hop::wgmma_kernel<T, MODE>;
+  err = set_smem(kernel, C::SMEM);
+  if (err) return err;
+  hop::Params p{out, scales, m, n, k, ldo, block,
+                ldo % 2 == 0 && aligned(out, 8)};
+  dim3 grid((n + hop::BN - 1) / hop::BN, (m + hop::BM - 1) / hop::BM);
+  kernel<<<grid, hop::kThreads, C::SMEM, s>>>(tm_a, tm_b, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int dispatch_wgmma(int dtype, const void* a, const void* b,
+                   const float* scales, float* out, int m, int n, int k,
+                   int ldo, int block, cudaStream_t s) {
+  return dtype == 1
+      ? launch_wgmma<__half, MODE>(a, b, scales, out, m, n, k, ldo, block, s)
+      : launch_wgmma<__nv_bfloat16, MODE>(a, b, scales, out, m, n, k, ldo,
+                                          block, s);
+}
+
 bool bad(int m, int n, int k, int dtype) {
   return m < 0 || n < 0 || k < 0 || dtype < 0 || dtype > 2;
 }
@@ -662,6 +1228,36 @@ extern "C" int dst_fc_dequant_matmul(const void* h, const void* payload,
                                            block, st, Quant{}, s);
 }
 
+// The same two products on the Hopper kernel (TMA + wgmma). They take only
+// what `wgmma_ok` accepts and return cudaErrorInvalidValue otherwise: the
+// caller decides the path (ops/fused_collectives.py `wgmma_path`), and
+// nothing here gives way to the other kernels.
+extern "C" int dst_fc_matmul_wgmma(const void* a, const void* b, float* out,
+                                   int m, int n, int k, int ldo, int dtype,
+                                   void* stream) {
+  if (ldo < n || !wgmma_ok(dtype, a, b, m, n, k, 0, 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_wgmma<kDense>(dtype, a, b, nullptr, out, m, n, k, ldo, 1,
+                                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dst_fc_dequant_matmul_wgmma(const void* h, const void* payload,
+                                           const float* scales, float* out,
+                                           int m, int n, int k, int ldo,
+                                           int bits, int block, int dtype,
+                                           void* stream) {
+  if (ldo < n || (bits != 4 && bits != 8) || block < 8 ||
+      (static_cast<long long>(k) * n) % block != 0 ||
+      !wgmma_ok(dtype, h, payload, m, n, k, bits, block))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bits == 8
+      ? dispatch_wgmma<kInt8>(dtype, h, payload, scales, out, m, n, k, ldo,
+                              block, s)
+      : dispatch_wgmma<kInt4>(dtype, h, payload, scales, out, m, n, k, ldo,
+                              block, s);
+}
+
 // (payload, scales) of the blockwise quantization of A @ b, A = a [rows, k]
 // or, with trans_a, a [k, rows] read transposed; b [k, n]. `scratch` (fp32
 // [rows, n]) is used, and must be given, only when the block does not divide
@@ -698,6 +1294,14 @@ extern "C" int dst_fc_matmul_quantize(const void* a, const void* b,
   quantize_rows_kernel<<<static_cast<unsigned>(grid), 256, 0, s>>>(
       scratch, qrows, qt);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dynamic shared memory of the Hopper kernel a launch asks for (bits 0:
+// dense, 8, 4), for the build report
+extern "C" int dst_fc_wgmma_smem(int bits) {
+  return static_cast<int>(bits == 8   ? hop::Cfg<kInt8>::SMEM
+                          : bits == 4 ? hop::Cfg<kInt4>::SMEM
+                                      : hop::Cfg<kDense>::SMEM);
 }
 
 extern "C" const char* dst_fc_error_string(int code) {

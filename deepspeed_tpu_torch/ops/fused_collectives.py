@@ -19,6 +19,14 @@ them), built by ``nvcc`` at first use and called through ``ctypes``
 PyTorch's current stream, adds one to its ``.launches`` and raises on what
 the kernel does not take; on CPU tensors it runs the plain version.
 
+``dequant_matmul`` and ``matmul_pallas`` have two kernels: the Hopper one
+(TMA loads into a ring of shared memory, ``wgmma``, converter warps
+for the dequantize) for the bf16/fp16 products that :func:`wgmma_path`
+accepts, and the ``mma.sync`` / fp32 FMA tile loop for the rest. The
+predicate alone picks; each wrapper counts the Hopper launches in
+``.wgmma_launches`` beside ``.launches``, and a Hopper kernel that fails
+raises like any other: nothing gives way to the other kernel.
+
 Layouts follow the facade's wire format: ``payload`` is the flat int8
 ``[k*b]`` (uint8 ``[k*b/2]`` nibble-packed for int4, ``pack_int4``'s
 layout: two's complement, element 2i low) whose row-major reshape is the
@@ -41,16 +49,24 @@ from .quantizer import pack_int4, unpack_int4
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
-def _library() -> ctypes.CDLL:
-    lib = op_builder.load("fused_collectives")
+def _library(defines=None) -> ctypes.CDLL:
+    """The kernels' library; ``defines`` builds a scratch variant (see
+    ``DST_FC_CONVERTER`` in the source)."""
+    lib = op_builder.load("fused_collectives", defines)
     if lib.dst_fc_matmul.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.dst_fc_matmul.argtypes = [vp, vp, vp] + [i] * 5 + [vp]
         lib.dst_fc_dequant_matmul.argtypes = [vp] * 4 + [i] * 7 + [vp]
         lib.dst_fc_matmul_quantize.argtypes = [vp] * 5 + [i] * 7 + [vp]
+        lib.dst_fc_matmul_wgmma.argtypes = lib.dst_fc_matmul.argtypes
+        lib.dst_fc_dequant_matmul_wgmma.argtypes = \
+            lib.dst_fc_dequant_matmul.argtypes
         for fn in (lib.dst_fc_matmul, lib.dst_fc_dequant_matmul,
-                   lib.dst_fc_matmul_quantize):
+                   lib.dst_fc_matmul_quantize, lib.dst_fc_matmul_wgmma,
+                   lib.dst_fc_dequant_matmul_wgmma):
             fn.restype = ctypes.c_int
+        lib.dst_fc_wgmma_smem.argtypes = [i]
+        lib.dst_fc_wgmma_smem.restype = ctypes.c_int
         lib.dst_fc_error_string.argtypes = [ctypes.c_int]
         lib.dst_fc_error_string.restype = ctypes.c_char_p
     return lib
@@ -140,6 +156,34 @@ def matmul_quantize_reference(a: torch.Tensor, b: torch.Tensor, *,
 # ----------------------------------------------------------------------
 # wrappers
 
+# int8 / int4 payload rows must be whole 16-byte TMA strides: n bytes, n/2
+_PAYLOAD_N_MULTIPLE = {8: 16, 4: 32}
+
+
+def wgmma_path(dtype: torch.dtype, m: int, n: int, k: int,
+               addrs: Tuple[int, ...], *, bits: Optional[int] = None,
+               block: Optional[int] = None) -> bool:
+    """Whether the Hopper kernel (TMA + ``wgmma``) computes the product
+    ``[m, k] @ [k, n]``; else the ``mma.sync`` / fp32 FMA kernels do.
+    ``addrs`` are the base addresses of the operands that TMA reads (``a``
+    and ``b``; ``h`` and the payload). ``bits`` (8 or 4) and ``block``
+    describe a quantized weight (:func:`dequant_matmul`); ``None`` a dense
+    one. It takes bf16/fp16 operands whose bases are 16-byte aligned and
+    whose rows are whole 16-byte strides (``k % 8 == 0``, ``n % 8 == 0``;
+    for the payload ``n % 16 == 0`` (int8) or ``n % 32 == 0`` (int4)), a
+    block of whole 8-element pieces (``block % 8 == 0``) and a flat weight
+    index below 2^31. ``fused_collectives.cu``'s ``wgmma_ok`` checks the
+    same and refuses the rest."""
+    if dtype not in (torch.bfloat16, torch.float16) or min(m, n, k) < 1:
+        return False
+    if k % 8 or n % 8 or any(p % 16 for p in addrs):
+        return False
+    if bits is None:
+        return True
+    return (block % 8 == 0 and n % _PAYLOAD_N_MULTIPLE[bits] == 0
+            and k * n < 2 ** 31)
+
+
 def dequant_matmul(h: torch.Tensor, payload: torch.Tensor,
                    scales: torch.Tensor, *, bits: int, block: int, b: int,
                    w_dtype=torch.float32,
@@ -174,10 +218,15 @@ def dequant_matmul(h: torch.Tensor, payload: torch.Tensor,
         raise ValueError(f"scales must be fp32 [{k * b // block}]")
     lib = _library()
     y = _out(m, b, h.device, out)
-    _raise_on(lib, "dequant_matmul", lib.dst_fc_dequant_matmul(
+    hopper = wgmma_path(h.dtype, m, b, k, (h.data_ptr(), payload.data_ptr()),
+                        bits=bits, block=block)
+    fn = lib.dst_fc_dequant_matmul_wgmma if hopper \
+        else lib.dst_fc_dequant_matmul
+    _raise_on(lib, "dequant_matmul", fn(
         h.data_ptr(), payload.data_ptr(), scales.data_ptr(), y.data_ptr(),
         m, b, k, y.stride(0), bits, block, _DTYPE_CODE[h.dtype], _stream(h)))
     dequant_matmul.launches += 1
+    dequant_matmul.wgmma_launches += hopper
     return y
 
 
@@ -200,10 +249,13 @@ def matmul_pallas(a: torch.Tensor, b: torch.Tensor, *,
                         f"{b.dtype}")
     lib = _library()
     y = _out(m, n, a.device, out)
-    _raise_on(lib, "matmul_pallas", lib.dst_fc_matmul(
+    hopper = wgmma_path(a.dtype, m, n, k, (a.data_ptr(), b.data_ptr()))
+    fn = lib.dst_fc_matmul_wgmma if hopper else lib.dst_fc_matmul
+    _raise_on(lib, "matmul_pallas", fn(
         a.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k, y.stride(0),
         _DTYPE_CODE[a.dtype], _stream(a)))
     matmul_pallas.launches += 1
+    matmul_pallas.wgmma_launches += hopper
     return y
 
 
@@ -254,5 +306,7 @@ def matmul_quantize(a: torch.Tensor, b: torch.Tensor, *, bits: int,
 
 
 dequant_matmul.launches = 0
+dequant_matmul.wgmma_launches = 0
 matmul_pallas.launches = 0
+matmul_pallas.wgmma_launches = 0
 matmul_quantize.launches = 0

@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Mapping, Optional
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 CSRC = REPO_ROOT / "deepspeed_tpu_torch" / "csrc"
@@ -49,25 +49,31 @@ def find_nvcc() -> str:
         "kernels of deepspeed_tpu_torch are built from source at first use")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu``, compiled at first use."""
-    if name in _libs:
-        return _libs[name]
+def load(name: str,
+         defines: Optional[Mapping[str, int]] = None) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, compiled at first use.
+    ``defines`` (``-D`` macros) build a separate library, a scratch variant
+    for a measurement; its log is ``build_logs["<name> -DKEY=VALUE"]``."""
+    flags = tuple(f"-D{k}={v}" for k, v in sorted((defines or {}).items()))
+    key = " ".join((name,) + flags)
+    if key in _libs:
+        return _libs[key]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode()
+                            + src.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
-        build_logs[name] = "(cached build)"
+        build_logs[key] = "(cached build)"
     else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-        build_logs[name] = proc.stdout
+        build_logs[key] = proc.stdout
         if proc.returncode != 0:
             raise RuntimeError(f"CUDA kernel build failed: {' '.join(cmd)}\n"
                                f"{proc.stdout}")
         os.replace(tmp, out)     # atomic: a concurrent builder sees all or nothing
-    _libs[name] = ctypes.CDLL(str(out))
-    return _libs[name]
+    _libs[key] = ctypes.CDLL(str(out))
+    return _libs[key]

@@ -24,8 +24,15 @@ on the CPU (kernel rows 7-9 of PERF.md's table).
   ``"pallas"`` and ``"xla"`` backends and the JAX engine on a 4-device
   virtual mesh, from the same carried weights (see the test for the
   tolerances); serial and staged issue bitwise equal.
+* The dispatch predicate ``wgmma_path`` (which bf16/fp16 products the
+  Hopper TMA + wgmma kernel takes): the ZeRO-3 path's shapes, unaligned
+  shapes, fp32, payload widths TMA cannot stride, blocks of partial
+  pieces, and a base pointer one element off.
 * Config, weight carry, and the ``gpu``-marked kernel checks (skipped
-  without a card).
+  without a card): the mma.sync kernels, and the Hopper kernel against
+  the plain versions (bf16/fp16, int8/int4, blocks 256/64/96, ragged m, n
+  and k), bitwise on integer-valued operands, across two runs and into a
+  column slice, each case counted on ``.wgmma_launches``.
 """
 
 import numpy as np
@@ -475,6 +482,77 @@ def test_block_weight_carry_round_trips():
         load_block_params(SequentialBlockModel(DIMS, device="cpu"), bad)
 
 
+# ------------------------------------------ the Hopper kernel's dispatch
+
+# h [2048, 4096] bf16 times a [4096, 5504] shard: the ZeRO-3 path's tile
+PATH_M, PATH_K, PATH_N = 2048, 4096, 5504
+
+
+def _addr(dtype, offset=0):
+    """A CPU base address of ``dtype``, ``offset`` elements past an
+    allocation's start (the allocator aligns starts to 64 bytes)."""
+    return torch.empty(64, dtype=dtype)[offset:].data_ptr()
+
+
+@pytest.mark.parametrize("case,want", [
+    # the path's shapes: row 8 and row 7 (int8 / int4, block 256)
+    (dict(dtype=torch.bfloat16), True),
+    (dict(dtype=torch.float16), True),
+    (dict(dtype=torch.bfloat16, bits=8, block=256), True),
+    (dict(dtype=torch.bfloat16, bits=4, block=256), True),
+    (dict(dtype=torch.float16, bits=8, block=96), True),
+    (dict(dtype=torch.bfloat16, m=1, k=520, n=320, bits=8, block=64), True),
+    # fp32 keeps the FMA kernel
+    (dict(dtype=torch.float32), False),
+    (dict(dtype=torch.float32, bits=8, block=256), False),
+    # rows that are not whole 16-byte TMA strides
+    (dict(dtype=torch.bfloat16, k=100), False),
+    (dict(dtype=torch.bfloat16, n=1370), False),
+    (dict(dtype=torch.bfloat16, n=200, bits=8, block=64), False),
+    (dict(dtype=torch.bfloat16, n=336, bits=4, block=64), False),
+    (dict(dtype=torch.bfloat16, n=336, bits=8, block=64), True),
+    # a block of partial 8-element pieces; an empty product; a flat index
+    # past 2^31
+    (dict(dtype=torch.bfloat16, bits=8, block=100), False),
+    (dict(dtype=torch.bfloat16, m=0), False),
+    (dict(dtype=torch.bfloat16, k=65536, n=32768, bits=8, block=256), False),
+    # a base pointer one element off its allocation's aligned start
+    (dict(dtype=torch.bfloat16, off_a=1), False),
+    (dict(dtype=torch.bfloat16, off_b=1), False),
+    (dict(dtype=torch.bfloat16, bits=8, block=256, off_b=1), False),
+    (dict(dtype=torch.bfloat16, bits=4, block=256, off_b=16), True),
+])
+def test_wgmma_path_predicate(case, want):
+    c = {**dict(m=PATH_M, k=PATH_K, n=PATH_N, bits=None, block=None,
+                off_a=0, off_b=0), **case}
+    b_dtype = c["dtype"] if c["bits"] is None else torch.int8
+    addrs = (_addr(c["dtype"], c["off_a"]), _addr(b_dtype, c["off_b"]))
+    assert fc.wgmma_path(c["dtype"], c["m"], c["n"], c["k"], addrs,
+                         bits=c["bits"], block=c["block"]) is want
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_wgmma_path_leaves_the_old_gpu_case(bits):
+    """test_dequant_matmul_kernel_matches_plain's b = 200 keeps the
+    mma.sync kernel: 200 columns are no whole 16-byte payload stride."""
+    addrs = (_addr(torch.bfloat16), _addr(torch.int8))
+    assert not fc.wgmma_path(torch.bfloat16, 77, 200, 160, addrs, bits=bits,
+                             block=64)
+
+
+def test_cpu_wrappers_leave_the_kernel_counts():
+    before = (fc.matmul_pallas.launches, fc.matmul_pallas.wgmma_launches,
+              fc.dequant_matmul.launches, fc.dequant_matmul.wgmma_launches)
+    h = torch.ones((2, 16), dtype=torch.bfloat16)
+    fc.matmul_pallas(h, torch.ones((16, 32), dtype=torch.bfloat16))
+    q, s = fc.quantize_blockwise_reference(torch.ones(16, 32), 8, 64)
+    fc.dequant_matmul(h, q.reshape(-1), s, bits=8, block=64, b=32,
+                      w_dtype=torch.bfloat16)
+    assert (fc.matmul_pallas.launches, fc.matmul_pallas.wgmma_launches,
+            fc.dequant_matmul.launches,
+            fc.dequant_matmul.wgmma_launches) == before
+
+
 # -------------------------------------------------- on the card only
 
 def _cuda_or_skip():
@@ -496,11 +574,14 @@ def test_dequant_matmul_kernel_matches_plain(dtype, bits, m):
     q, s = fc.quantize_blockwise_reference(w, bits, 64)
     payload = fc.pack_int4(q) if bits == 4 else q.reshape(-1)
     h = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    before = fc.dequant_matmul.wgmma_launches
     got = fc.dequant_matmul(h, payload, s, bits=bits, block=64, b=b,
                             w_dtype=dtype)
     ref = fc.dequant_matmul_reference(h, payload, s, bits=bits, block=64,
                                       b=b, w_dtype=dtype)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+    # b = 200 is no whole 16-byte payload stride: the mma.sync kernel
+    assert fc.dequant_matmul.wgmma_launches == before
 
 
 @pytest.mark.gpu
@@ -522,3 +603,131 @@ def test_matmul_quantize_kernel_matches_plain_on_integers(dtype, bits, shape):
     assert torch.equal(p, rp) and torch.equal(s, rs)
     y = fc.matmul_pallas(a.t().contiguous() if trans_a else a, b)
     assert torch.equal(y, fc.matmul_reference(a.t() if trans_a else a, b))
+
+
+# the Hopper kernel: (m, k, n) with ragged m, n 1376 / 320, k not a multiple
+# of the 64-deep stage (520, 528) and the path's 4096
+WGMMA_SHAPES = [(1, 520, 320), (77, 4096, 1376), (333, 520, 1376),
+                (77, 528, 320)]
+
+
+def _wgmma_operands(gen, m, k, n, dtype, bits, block, integer):
+    """h and, for bits None, b; else (payload, scales). Integer-valued:
+    small integers, levels with power-of-two scales (exact products)."""
+    if integer:
+        h = torch.randint(-3, 4, (m, k), generator=gen, device="cuda")
+    else:
+        h = torch.randn((m, k), generator=gen, device="cuda")
+    h = h.to(dtype)
+    if bits is None:
+        w = (torch.randint(-3, 4, (k, n), generator=gen, device="cuda")
+             if integer else torch.randn((k, n), generator=gen,
+                                         device="cuda"))
+        return h, (w.to(dtype),)
+    if integer:
+        qmax = 2 ** (bits - 1) - 1
+        q = torch.randint(-qmax - 1, qmax + 1, (k * n,), generator=gen,
+                          device="cuda").to(torch.int8)
+        e = torch.randint(-2, 2, (k * n // block,), generator=gen,
+                          device="cuda").float()
+        s = torch.pow(2.0, e)
+    else:
+        q, s = fc.quantize_blockwise_reference(
+            torch.randn((k, n), generator=gen, device="cuda"), bits, block)
+    return h, (fc.pack_int4(q) if bits == 4 else q.reshape(-1), s)
+
+
+def _wgmma_pair(h, w, n, dtype, bits, block, out=None):
+    """(kernel, plain) of matmul_pallas (bits None) or dequant_matmul."""
+    if bits is None:
+        return (fc.matmul_pallas(h, w[0], out=out),
+                fc.matmul_reference(h, w[0]))
+    kw = dict(bits=bits, block=block, b=n, w_dtype=dtype)
+    return (fc.dequant_matmul(h, *w, out=out, **kw),
+            fc.dequant_matmul_reference(h, *w, **kw))
+
+
+def _wgmma_counter(bits):
+    return fc.matmul_pallas if bits is None else fc.dequant_matmul
+
+
+# (bits, block) of each weight kind, a block wherever it divides k*n
+WGMMA_CASES = [(shape, bits, block) for shape in WGMMA_SHAPES
+               for bits, block in [(None, None), (8, 256), (4, 256), (8, 64),
+                                   (4, 64), (8, 96), (4, 96)]
+               if block is None or (shape[1] * shape[2]) % block == 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,bits,block", WGMMA_CASES)
+def test_wgmma_kernel_matches_plain(dtype, shape, bits, block):
+    """Random operands: within 1e-5 of max |plain| (fp32 sums in another
+    order), on the Hopper kernel."""
+    _cuda_or_skip()
+    m, k, n = shape
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    h, w = _wgmma_operands(gen, m, k, n, dtype, bits, block, False)
+    before = _wgmma_counter(bits).wgmma_launches
+    got, ref = _wgmma_pair(h, w, n, dtype, bits, block)
+    torch.cuda.synchronize()
+    assert _wgmma_counter(bits).wgmma_launches == before + 1
+    assert got.shape == (m, n) and bool(torch.isfinite(got).all())
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+WGMMA_EXACT_CASES = [(shape, bits, block)
+                     for shape in [(77, 528, 1376), (333, 4096, 320)]
+                     for bits, block in [(None, None), (8, 256), (4, 64),
+                                         (8, 96)]
+                     if block is None or (shape[1] * shape[2]) % block == 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,bits,block", WGMMA_EXACT_CASES)
+def test_wgmma_kernel_bitwise(dtype, shape, bits, block):
+    """Integer-valued operands: bitwise the plain version; two runs
+    bitwise equal; into a column slice of a wider fp32 output, bitwise the
+    contiguous result with the other columns untouched."""
+    _cuda_or_skip()
+    m, k, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(m + n)
+    h, w = _wgmma_operands(gen, m, k, n, dtype, bits, block, True)
+    before = _wgmma_counter(bits).wgmma_launches
+    got, ref = _wgmma_pair(h, w, n, dtype, bits, block)
+    again, _ = _wgmma_pair(h, w, n, dtype, bits, block)
+    wide = torch.full((m, 3 * n), float("nan"), device="cuda")
+    tile, _ = _wgmma_pair(h, w, n, dtype, bits, block,
+                          out=wide[:, n:2 * n])
+    torch.cuda.synchronize()
+    assert _wgmma_counter(bits).wgmma_launches == before + 3
+    assert torch.equal(got, ref)
+    assert torch.equal(again, got)
+    assert tile.data_ptr() == wide[:, n:].data_ptr()
+    assert torch.equal(wide[:, n:2 * n], got)
+    assert bool(torch.isnan(wide[:, :n]).all())
+    assert bool(torch.isnan(wide[:, 2 * n:]).all())
+
+
+@pytest.mark.gpu
+def test_wgmma_kernel_random_column_slice_and_reruns():
+    """Random operands at the path's shape: two runs and a column slice of
+    the ring's gathered output (row stride 2n) bitwise the first run."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h, w = _wgmma_operands(gen, PATH_M, PATH_K, PATH_N, torch.bfloat16, 8,
+                           256, False)
+    kw = dict(bits=8, block=256, b=PATH_N, w_dtype=torch.bfloat16)
+    before = fc.dequant_matmul.wgmma_launches
+    got = fc.dequant_matmul(h, *w, **kw)
+    again = fc.dequant_matmul(h, *w, **kw)
+    wide = torch.full((PATH_M, 2 * PATH_N), float("nan"), device="cuda")
+    fc.dequant_matmul(h, *w, out=wide[:, PATH_N:], **kw)
+    torch.cuda.synchronize()
+    assert fc.dequant_matmul.wgmma_launches == before + 3
+    assert torch.equal(again, got)
+    assert torch.equal(wide[:, PATH_N:], got)
+    assert bool(torch.isnan(wide[:, :PATH_N]).all())
