@@ -9,7 +9,9 @@ CPU path — without a CUDA device the script fails):
 2. build: compile every kernel library from the sources in the checkout
    with ``nvcc`` (one process each, all started together, with two
    scratch builds of fused_collectives.cu for a measurement) and print
-   each kernel's ``-Xptxas -v`` registers, spills and shared memory;
+   each kernel's ``-Xptxas -v`` registers, spills and shared memory, with
+   a summary of the Hopper flash backward kernels (registers, spills,
+   dynamic shared memory; a spill there fails the script);
 3. kernels: paged attention against its plain PyTorch version on the card
    at the serving path's shapes, with stated tolerances (TF32 is off for
    both cuBLAS and cuDNN), then, at a decode and a prefill shape, compared
@@ -34,8 +36,13 @@ CPU path — without a CUDA device the script fails):
    ``FlashAttentionFunction`` against their plain versions (15 cases: the
    1b shape in bf16 at the training shape's micro-batch 4 and in
    fp16/fp32, d 128 and d 256, non-causal, sq < skv, sq > skv, odd
-   lengths, windows), one case twice for bitwise-equal results; then each kernel timed at the training shape beside its bound,
-   its plain version and ``scaled_dot_product_attention`` as a yardstick;
+   lengths, windows), one case twice for bitwise-equal results; each case
+   logs which kernels took its backward and fails unless the Hopper dq
+   and dk/dv kernels (TMA + wgmma) ran exactly where
+   ``flash_wgmma_path`` accepts it; then each kernel timed at the training
+   shape beside its bound, its plain version and
+   ``scaled_dot_product_attention`` as a yardstick (the backward also
+   beside the mma.sync kernels it replaced, in turns);
 4. engine: a 2-layer Llama-2-7B-width engine (d_model 4096) in fp32, the
    same weights on cuda and on cpu, one ``put`` of 3 mixed-length prompts;
    logits must agree within 1e-3; then path B (int8 and int4 KV pools, in
@@ -63,7 +70,8 @@ CPU path — without a CUDA device the script fails):
 8. training: ``Llama("1b")`` at full width and depth (bf16 compute, fp32
    masters, AdamW, full remat, GAS 2 of 4 x 2048 tokens), 2 warm-up and 4
    timed ``train_batch`` steps with the flash launch counts reset just
-   before and read just after; step time (the four timed steps' mean),
+   before and read just after (every dq and dk/dv launch must be on the
+   Hopper kernels); step time (the four timed steps' mean),
    tokens/s, MFU, peak memory;
 9. train profile: one more step under ``torch.profiler``;
 10. ZeRO-3 parity: ``SequentialBlockModel((64, 256, 512, 64))`` in fp32,
@@ -294,6 +302,35 @@ def phase_build() -> None:
         + ", ".join(f"{what} {lib.dst_fc_wgmma_smem(bits)} B"
                     for what, bits in (("dense", 0), ("int8", 8),
                                        ("int4", 4))))
+    lib = fa._library()
+    smem = {"dq": lib.dst_flash_wgmma_smem(0),
+            "dkv": lib.dst_flash_wgmma_smem(1)}
+    for kernel, used in _ptxas_report("flash_attention", "wgmma").items():
+        which = "dkv" if "dkv" in kernel else "dq"
+        log(f"build[flash_attention]: Hopper {kernel}: {used}; dynamic "
+            f"shared memory {smem[which]} B")
+
+
+def _ptxas_report(library: str, marker: str) -> dict:
+    """{kernel entry (mangled, abridged): ptxas's "Used ..." line and any
+    spill line} for the entries of ``library`` whose name holds
+    ``marker``. Raises if ptxas reports spills there."""
+    report, entry = {}, None
+    for line in op_builder.build_logs[library].splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+            entry = entry if marker in entry else None
+        elif entry and ("Used" in line or "spill" in line):
+            m = re.search(
+                r"_cu_[0-9a-f]{8}\d+([A-Za-z]\w*?_kernel)I\d+(\w+?)EE", entry)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else entry[:60]
+            report[name] = (report.get(name, "") + " " + line.split(":", 1)
+                            [-1].strip()).strip()
+    spills = [n for n, r in report.items()
+              if re.search(r"[1-9]\d* bytes spill", r)]
+    if spills:
+        raise SystemExit(f"{library}: ptxas spills in {spills}")
+    return report
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1241,6 +1278,12 @@ FLASH_CASES = [
     ("window256-bf16", 1, 2048, 2048, 8, 2, 64, True, 256, torch.bfloat16),
 ]
 TRAIN_SHAPE = dict(b=4, s=2048, hq=32, hkv=4, d=64)   # Llama("1b"), GAS 2
+# the kernel each flash row takes at the training shape
+FLASH_PATH = {"flash_forward": "mma.sync m16n8k16, 64-row q tiles",
+              "flash_backward_dq": "wgmma: TMA ring of K/V tiles, 128 q rows "
+                                   "a block, m64n64k16",
+              "flash_backward_dkv": "wgmma: TMA ring of Q/dO tiles, 128 keys "
+                                    "a block, m64n64k16"}
 
 
 def _visible_pairs(b, sq, skv, hq, causal, window) -> int:
@@ -1306,6 +1349,17 @@ def _flash_errors(got, ref, dtype) -> tuple:
     return ok, errs, tol
 
 
+def _backward_counts() -> list:
+    """[dq launches, dq Hopper launches, dk/dv, dk/dv Hopper]."""
+    return [fa.flash_backward_dq.launches, fa.flash_backward_dq.wgmma_launches,
+            fa.flash_backward_dkv.launches,
+            fa.flash_backward_dkv.wgmma_launches]
+
+
+def _flash_old_path(dtype, d) -> str:
+    return "mma.sync" if dtype != torch.float32 and d <= 128 else "scalar"
+
+
 def phase_flash_kernels() -> dict:
     """The three flash kernels (through FlashAttentionFunction, backward
     from a fixed random dO) against their plain versions, one case run
@@ -1316,19 +1370,32 @@ def phase_flash_kernels() -> dict:
              "flash_backward_dkv": 0.0}
     for label, b, sq, skv, hq, hkv, d, causal, window, dtype in FLASH_CASES:
         q, k, v, do = _flash_inputs(gen, b, sq, skv, hq, hkv, d, dtype)
+        hopper = fa.flash_wgmma_path(dtype, d, hq, hkv, tuple(
+            t.data_ptr() for t in (q, k, v, do)))
+        before = _backward_counts()
         got = _flash_kernels(q, k, v, do, causal, window)
         torch.cuda.synchronize()
+        moved = [a - b_ for a, b_ in zip(_backward_counts(), before)]
         ref = _flash_plain(q, k, v, do, causal, window)
         ok, errs, tol = _flash_errors(got, ref, dtype)
         if sq > skv:     # rows before the first key see nothing: 0, 1e30
             ok &= bool((got[0][:, :sq - skv] == 0).all()
                        and (got[1][:, :, :sq - skv] == 1e30).all())
+        # one dq and one dk/dv launch, on the Hopper kernels exactly when
+        # flash_wgmma_path accepts the case
+        path_ok = moved == [1, int(hopper), 1, int(hopper)]
+        path = "Hopper TMA + wgmma" if hopper else _flash_old_path(dtype, d)
         log(f"flash: {label} " + " ".join(
             f"{n} {e:.2e}/{m:.2e}" for n, (e, m) in errs.items())
-            + f" (max abs err / max |plain|; {tol}) {'ok' if ok else 'FAIL'}")
+            + f" (max abs err / max |plain|; {tol}); backward on the {path} "
+            f"kernels (dq, dq wgmma, dk/dv, dk/dv wgmma launches {moved}) "
+            f"{'ok' if ok and path_ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"flash kernels disagree with their plain "
                              f"versions on {label}")
+        if not path_ok:
+            raise SystemExit(f"flash backward of {label} did not take the "
+                             f"path flash_wgmma_path names: {moved}")
         worst["flash_forward"] = max(worst["flash_forward"], errs["out"][0])
         worst["flash_backward_dq"] = max(worst["flash_backward_dq"],
                                          errs["dq"][0])
@@ -1384,11 +1451,37 @@ def phase_flash_timing(flush: torch.Tensor) -> dict:
                                            enable_gqa=True)
         return torch.autograd.grad(o, (qg, kg, vg), dot)
 
-    # plain, kernel, kernel, plain: compare within one call, in turns
+    # the mma.sync backward kernels that the Hopper ones replaced at this
+    # shape, on the same inputs, called through the library
+    lib = fa._library()
+    args = fa._backward_args(q, k, v, do, lse, delta, True, None, 0)
+    ptrs = tuple(x.data_ptr() for x in (q, k, v, do, lse, delta))
+    dq_o, dk_o, dv_o = (torch.empty_like(x) for x in (q, k, v))
+
+    def mma_dq():
+        fa._raise_on(lib, lib.dst_flash_backward_dq(
+            *ptrs, dq_o.data_ptr(), *args), "flash_backward_dq (mma.sync)")
+
+    def mma_dkv():
+        fa._raise_on(lib, lib.dst_flash_backward_dkv(
+            *ptrs, dk_o.data_ptr(), dv_o.data_ptr(), *args),
+            "flash_backward_dkv (mma.sync)")
+
+    mma = {"flash_backward_dq": mma_dq, "flash_backward_dkv": mma_dkv}
+    # plain, kernel, kernel, plain (the backward: mma.sync, Hopper, Hopper,
+    # mma.sync): compare within one call, in turns
+    before = _backward_counts()
     p_f1, p_b1 = cuda_ms(plain_fwd, 3, flush), cuda_ms(plain_bwd, 3, flush)
+    mms = {n: [cuda_ms(fn, 10, flush)] for n, fn in mma.items()}
     kms = {n: [cuda_ms(fn, 10, flush), cuda_ms(fn, 10, flush)]
            for n, fn in kernels.items()}
+    for n, fn in mma.items():
+        mms[n].append(cuda_ms(fn, 10, flush))
     p_f2, p_b2 = cuda_ms(plain_fwd, 3, flush), cuda_ms(plain_bwd, 3, flush)
+    moved = [a - b_ for a, b_ in zip(_backward_counts(), before)]
+    if moved != [24, 24, 24, 24]:
+        raise SystemExit(f"flash timing: the timed backward calls were not "
+                         f"all on the Hopper kernels: {moved}")
     lib_f = cuda_ms(lib_fwd, 10, flush)
     lib_b = cuda_ms(lib_fwd_bwd, 10, flush) - lib_f
     pairs = _visible_pairs(b, s, s, hq, True, 0)
@@ -1411,16 +1504,24 @@ def phase_flash_timing(flush: torch.Tensor) -> dict:
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_f if fwd else lib_b,
-            "ops": ops, "bytes": nbytes[name]}
+            "ops": ops, "bytes": nbytes[name],
+            "path": FLASH_PATH[name]}
         r = res[name]
+        if not fwd:
+            r["mma_ms"] = min(mms[name])
         log(f"flash: {name} b4 s2048 hq32 hkv4 d64 bf16 causal: kernel "
-            f"{kms[name][0]:.4f}/{kms[name][1]:.4f} ms, plain "
-            f"{(p_f1, p_f2) if fwd else (p_b1, p_b2)} ms"
+            f"{kms[name][0]:.4f}/{kms[name][1]:.4f} ms"
+            + ("" if fwd else f" ({r['path']}; the mma.sync kernel "
+               f"{mms[name][0]:.4f}/{mms[name][1]:.4f} ms)")
+            + f", plain {(p_f1, p_f2) if fwd else (p_b1, p_b2)} ms"
             f"{'' if fwd else ' (the whole plain backward)'}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {ops:.3e} ops, "
             f"{nbytes[name]} B), sdpa {r['library_ms']:.4f} ms"
             f"{'' if fwd else ' (its whole backward)'}; "
             f"{ops / r['ms'] / 1e9:.1f} TFLOP/s")
+    bwd = res["flash_backward_dq"]["ms"] + res["flash_backward_dkv"]["ms"]
+    log(f"flash: backward dq + dk/dv {bwd:.4f} ms, {bwd / lib_b:.2f}x SDPA's "
+        f"whole backward ({lib_b:.4f} ms)")
     return res
 
 
@@ -1536,9 +1637,13 @@ def phase_training(card: str):
         step()
     for wrapper, *_ in FLASH_KERNELS.values():
         wrapper.launches = 0
+        if hasattr(wrapper, "wgmma_launches"):
+            wrapper.wgmma_launches = 0
     for _ in range(4):
         step()
     launches = {n: w.launches for n, (w, *_) in FLASH_KERNELS.items()}
+    hopper = {n: w.wgmma_launches for n, (w, *_) in FLASH_KERNELS.items()
+              if hasattr(w, "wgmma_launches")}
     per_step = {"flash_forward": c.n_layers * 2 * 2,     # fwd + replay, GAS
                 "flash_backward_dq": c.n_layers * 2,
                 "flash_backward_dkv": c.n_layers * 2}
@@ -1549,11 +1654,14 @@ def phase_training(card: str):
     peak = torch.cuda.max_memory_allocated()
     ok = (all(np.isfinite(losses)) and all(np.isfinite(norms))
           and not any(skipped) and losses[-1] < losses[0]
-          and all(launches[n] == 4 * per_step[n] for n in launches))
+          and all(launches[n] == 4 * per_step[n] for n in launches)
+          and all(hopper[n] == launches[n] for n in hopper))
     log(f"training: losses {[round(x, 5) for x in losses]}, grad norms "
         f"{[round(x, 4) for x in norms]}, skipped {skipped}")
     log(f"training: flash launches in 4 timed steps {launches} (per step "
-        f"{per_step}: {c.n_layers} layers x forward + remat replay x GAS 2)")
+        f"{per_step}: {c.n_layers} layers x forward + remat replay x GAS 2); "
+        f"on the Hopper backward kernels {hopper} (all of them: "
+        f"{all(hopper[n] == launches[n] for n in hopper)})")
     log(f"training [{card}]: step times {[round(x, 4) for x in times]} s; "
         f"timed step (mean of four) {step_s:.4f} s, "
         f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (flops_per_token(2048) = "
@@ -1561,7 +1669,7 @@ def phase_training(card: str):
     log(f"training [{card}]: torch.cuda.max_memory_allocated() = {peak} B")
     if not ok:
         raise SystemExit("training phase failed")
-    return engine, batch, launches
+    return engine, batch, launches, hopper
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2488,7 +2596,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     quant_launches = phase_inference(dev["card"])
     phase_trainer_parity()
-    engine, batch, flash_launches = phase_training(dev["card"])
+    engine, batch, flash_launches, flash_wgmma = phase_training(dev["card"])
     phase_training_profile(engine, batch, dev["card"])
     del engine, batch
     gc.collect()
@@ -2525,7 +2633,11 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "parity": "ok", "shape": "b4_s2048_hq32_hkv4_d64_bf16_causal",
+            "path": t["path"], "tflops": t["ops"] / t["ms"] / 1e9,
             "card": dev["card"]})
+        if name in flash_wgmma:
+            entries[-1]["wgmma_launches"] = flash_wgmma[name]
+            entries[-1]["mma_sync_ms"] = t["mma_ms"]
     for name, (_, replaces, _) in QUANT_KERNELS.items():
         t = quant_t[name]
         entries.append({

@@ -27,13 +27,13 @@
 // hq 32, hkv 4, d 64, causal) the forward does about 6.9e10 operations
 // (4 d per visible (q-head, key) pair) against about 77 MB of q, k, v, out
 // and lse: some 900 operations per byte, three times the ~295 where the
-// tensor cores stop waiting for HBM. dq does 6 d and dk/dv 8 d per pair.
-// So the products belong on the tensor cores.
+// tensor cores stop waiting for HBM. dq does 6 d (1.03e11) and dk/dv 8 d
+// (1.38e11) per pair against about as many bytes. So the products belong
+// on the tensor cores, and at the full rate only wgmma reaches them.
 //
-// Design (simple and right first). The TPU grid walks kv tiles in order and
-// carries the softmax state in VMEM scratch; here each thread block owns one
-// output tile and loops over the tiles it needs itself, so nothing crosses
-// blocks:
+// Design. The TPU grid walks kv tiles in order and carries the softmax
+// state in VMEM scratch; here each thread block owns one output tile and
+// loops over the tiles it needs itself, so nothing crosses blocks:
 // - forward: one block per (q tile of 64 rows, q-head, batch). It stages its
 //   Q tile once, then each K/V tile of the range the causal band and the
 //   window allow (`_tile_runs` :61; tiles above the diagonal or below the
@@ -45,27 +45,45 @@
 //   that reach this kv tile (`_q_tile_clamp` :164), and sums dK and dV in
 //   fp32 registers. No atomics: every output element is written once by one
 //   block, so two runs give bitwise-equal gradients.
-// Two instruction paths share that structure:
-// - bf16/fp16 at d 64 and 128 (the training path): four warps per block,
-//   mma.sync m16n8k16 on T operands staged in shared memory, fp32
-//   accumulators; P and dS pass from the score accumulators straight into
-//   the next product's A operand (see the tensor-core section below).
+// Three instruction paths share that structure:
+// - the backward in bf16/fp16 at d 64 (the training path) takes the Hopper
+//   kernels `flash_backward_dq_wgmma_kernel` (replacing `_dq_kernel`) and
+//   `flash_backward_dkv_wgmma_kernel` (replacing `_dkv_kernel`): a
+//   producer warp keeps TMA loads of the streamed tiles (K/V for dq, Q/dO
+//   with their lse and delta rows for dk/dv) in flight into a 4-stage ring
+//   of mbarrier-guarded shared memory, and two consumer warpgroups of 64
+//   rows run wgmma m64n64k16 on the tiles as TMA wrote them (128-byte
+//   swizzle): K-major for S = Q.K^T and dP = dO.V^T, MN-major through
+//   wgmma's transpose bit for dQ = dS.K, dV = P^T.dO and dK = dS^T.Q, so no
+//   tile is ever copied transposed. A dq block owns 128 q rows, a dk/dv
+//   block 128 keys; the grids launch the heaviest tiles of the causal
+//   triangle first. Its section below says more.
+// - bf16/fp16 forward at d 64 and 128, and the backward at d 128 (whose
+//   dK and dV accumulators would not fit the wgmma kernels' registers):
+//   four warps per block, mma.sync m16n8k16 on T operands staged in shared
+//   memory, fp32 accumulators; P and dS pass from the score accumulators
+//   straight into the next product's A operand (see the tensor-core
+//   section below).
 // - fp32, and d 256: 256 threads on a 16 x 16 grid, scalar fp32 FMA over
 //   tiles converted to fp32 in shared memory (rows padded by one float);
 //   kv tiles are 32 rows at d 256 so dk/dv stays under 227 KB.
 // Above 48 KB of shared memory the launcher raises the dynamic limit.
-// Later work: wgmma on bf16/fp16 tiles fed by TMA into a ring of K/V stages,
-// FA3-style warp specialisation (a producer warp for the copies, consumer
-// warpgroups for the products, softmax overlapped with the next product),
-// and a persistent schedule that balances the causal triangle across SMs.
+// Later work: the forward on TMA + wgmma, softmax overlapped with the next
+// product inside a warpgroup, and a persistent schedule over the causal
+// triangle.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors, tensor maps
+
 namespace {
+
+using namespace hopper;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;  // a 16 x 16 thread grid over every tile
@@ -129,6 +147,14 @@ struct Problem {
     if (!causal) return true;
     const int qp = row + skv - sq;
     return col <= qp && (window <= 0 || col > qp - window);
+  }
+  // every query row of [r_lo, r_hi] sees every key of [k_lo, k_hi]
+  __device__ __forceinline__ bool all_visible(int r_lo, int r_hi, int k_lo,
+                                              int k_hi) const {
+    if (r_hi >= sq || k_hi >= skv) return false;
+    if (!causal) return true;
+    return k_hi <= r_lo + diag() &&
+           (window <= 0 || k_lo > r_hi + diag() - window);
   }
 };
 
@@ -1020,6 +1046,471 @@ flash_backward_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------- Hopper path: TMA + wgmma
+// The backward's two kernels for bf16/fp16 at head_dim 64 (what
+// `hopper_ok` and ops/flash_attention.py `flash_wgmma_path` accept). A
+// block is three warpgroups: warpgroup 0's first warp is the producer,
+// which keeps TMA loads of the streamed tiles in flight into a ring of
+// shared memory (128-byte swizzle: a row of 64 16-bit channels is one
+// swizzle atom wide); warpgroups 1 and 2 are the consumers, 64 rows of
+// the block's tile each, and run wgmma m64n64k16 with fp32 accumulators
+// in registers. Every product reads its tiles as TMA wrote them: Q, dO, K
+// and V lie [rows][d], which is K-major for the score products (the
+// contraction runs over d) and MN-major, through wgmma's transpose bit,
+// for dV, dK and dQ (the contraction runs over the rows). P and dS go from
+// the score accumulators into the next product's A registers, rounded to
+// T (the accumulator layout of a warp is the A fragment's, as
+// `scores_as_a` uses for mma.sync). The tensor maps are 4-D over
+// (d, heads, seq, batch): a box never crosses into the next sequence, and
+// TMA fills the ragged tail with zeros, which `Problem::visible` masks.
+// Tiles that the mask cannot touch (`all_visible`) skip it.
+constexpr int kHopThreads = 384;
+constexpr int kRows64 = 64 * 128;  // bytes of 64 rows of d 64 in 16 bits
+constexpr int kStages = 4;
+constexpr float kLog2e = 1.4426950408889634f;
+// dq: a block owns 128 q rows and streams kv tiles of 64 keys
+constexpr int kDqRows = 128, kDqKv = 64;
+// dk/dv: a block owns 128 keys and streams q tiles of 64 rows of each
+// q-head of its group
+constexpr int kDkvKeys = 128, kDkvQ = 64;
+
+// shared memory, from a 1024-byte aligned base: the resident tiles, the
+// ring, then the mbarriers (one for the resident tiles, full and empty a
+// stage); 1024 bytes of slack for the alignment
+struct DqLayout {
+  static constexpr int Q = 0, DO = kDqRows * 128;  // 16384 bytes each
+  static constexpr int RING = 2 * kDqRows * 128;
+  static constexpr int STAGE = 2 * kRows64;        // K, then V
+  static constexpr int BARS = RING + kStages * STAGE;
+  static constexpr int SMEM = 1024 + BARS + 8 * (1 + 2 * kStages);
+};
+struct DkvLayout {
+  static constexpr int K = 0, V = kDkvKeys * 128;  // 16384 bytes each
+  static constexpr int RING = 2 * kDkvKeys * 128;
+  // Q, dO, then lse * log2(e) and delta of the tile's 64 rows (fp32), the
+  // stage padded to a multiple of 1024 bytes
+  static constexpr int STATS = 2 * kRows64;
+  static constexpr int STAGE = 2 * kRows64 + 1024;
+  static constexpr int BARS = RING + kStages * STAGE;
+  static constexpr int SMEM = 1024 + BARS + 8 * (1 + 2 * kStages);
+};
+static_assert(DqLayout::SMEM <= 232448 && DkvLayout::SMEM <= 232448,
+              "shared memory of a block");
+
+#define DST_ACC32(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),           \
+  "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),           \
+  "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),           \
+  "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define DST_D32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64]: A from shared memory (K-major
+// descriptor da), B from shared memory (descriptor db, MN-major when
+// TRANS_B); accumulate 0 overwrites d. Asynchronous until wgmma_wait.
+template <typename T, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " DST_D32
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : DST_ACC32(d) : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DST_D32
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : DST_ACC32(d) : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  }
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64] with A from registers: warp w of
+// the warpgroup holds rows 16 w .. 16 w + 15 in mma.sync's m16n8k16 A
+// layout: a[0] row g, columns 2t and 2t + 1; a[1] row g + 8; a[2] and a[3]
+// the same rows, columns 2t + 8 and 2t + 9; g = lane / 4, t = lane % 4
+template <typename T, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " DST_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : DST_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TRANS_B));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DST_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : DST_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(TRANS_B));
+  }
+}
+
+#undef DST_ACC32
+#undef DST_D32
+
+// Accumulator element x = 4 j + e of a warp's m64n64 tile sits at row
+// 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2. The A fragment of k step
+// kk (columns 16 kk .. 16 kk + 15) is then elements 8 kk .. 8 kk + 7 in
+// pairs, rounded to T.
+template <typename T>
+__device__ __forceinline__ void acc_as_a(uint32_t (&a)[4][4],
+                                         const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// the descriptor of k step kk of a 64-row tile at shared address `tile`:
+// K-major (k along the 128-byte rows) or MN-major (k down the rows)
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return wg_desc(tile + 32 * kk, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return wg_desc(tile + 2048 * kk, kRows64, 1024);
+}
+
+// dq of one kv tile in place of s (S = Q.K^T, fp32) for the thread's rows
+// rl, rl + 8 (lse2: lse * log2 e; dl: delta) and keys k0 + 8 j + 2 t + e % 2
+template <bool MASK>
+__device__ __forceinline__ void dq_scores(const Problem& p, float (&s)[32],
+                                          const float (&dp)[32],
+                                          const float (&lse2)[2],
+                                          const float (&dl)[2], int row0,
+                                          int k0, int tq) {
+  const float sl2 = p.scale * kLog2e;
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int ri = (x >> 1) & 1;
+    const bool vis =
+        !MASK || p.visible(row0 + 8 * ri, k0 + 8 * (x >> 2) + 2 * tq + (x & 1));
+    const float pr = vis ? exp2f(s[x] * sl2 - lse2[ri]) : 0.f;
+    s[x] = pr * (dp[x] - dl[ri]) * p.scale;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kHopThreads, 1)
+flash_backward_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               T* __restrict__ dq, Problem p) {
+  using L = DqLayout;
+  extern __shared__ __align__(1024) unsigned char ring_raw[];
+  const uint32_t raw = smem_addr(ring_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BARS;
+  const uint32_t qbar = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  // the warpgroup, broadcast from lane 0 so that the compiler sees
+  // warp-uniform branches around wgmma (.sync.aligned)
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                             0);
+  const int t = threadIdx.x % 128;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (p.hq / p.hkv);
+  // heaviest first: under causal masking the last q tiles see most keys
+  const int nq = (p.sq + kDqRows - 1) / kDqRows;
+  const int qt = p.causal ? nq - 1 - static_cast<int>(blockIdx.z)
+                          : static_cast<int>(blockIdx.z);
+  const int r0 = qt * kDqRows;
+  int lo, hi;
+  kv_tile_range(p, r0, min(r0 + kDqRows, p.sq) - 1, kDqKv, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: Q and dO once, then K and V of each kv tile
+    if (t == 0) {
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      mbar_expect_tx(qbar, 2 * kDqRows * 128);
+      tma_load_4d(base + L::Q, &tm_q, qbar, 0, h, r0, b);
+      tma_load_4d(base + L::DO, &tm_do, qbar, 0, h, r0, b);
+      for (int j = lo; j < hi; ++j) {
+        const int i = j - lo, s = i % kStages;
+        mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+        const uint32_t st = base + L::RING + s * L::STAGE;
+        mbar_expect_tx(full(s), L::STAGE);
+        tma_load_4d(st, &tm_k, full(s), 0, hk, j * kDqKv, b);
+        tma_load_4d(st + kRows64, &tm_v, full(s), 0, hk, j * kDqKv, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: q rows 64 c .. 64 c + 63 of the tile
+  const int c = wg - 1;
+  const int lane = t & 31, tq = lane & 3;
+  const int row0 = r0 + 64 * c + 16 * (t >> 5) + (lane >> 2);  // and + 8
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int row = row0 + 8 * ri;
+    const long long at = (static_cast<long long>(b) * p.hq + h) * p.sq + row;
+    lse2[ri] = row < p.sq ? lse[at] * kLog2e : 0.f;
+    dl[ri] = row < p.sq ? delta[at] : 0.f;
+  }
+  float acc[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+  const uint32_t qa = base + L::Q + c * kRows64;
+  const uint32_t da = base + L::DO + c * kRows64;
+  mbar_wait(qbar, 0);
+  for (int j = lo; j < hi; ++j) {
+    const int i = j - lo, s = i % kStages, k0 = j * kDqKv;
+    mbar_wait(full(s), (i / kStages) & 1);
+    const uint32_t ks = base + L::RING + s * L::STAGE, vs = ks + kRows64;
+    // S = Q.K^T and dP = dO.V^T, the contraction over d (K-major)
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<T, 0>(sc, desc_k(qa, kk), desc_k(ks, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<T, 0>(dp, desc_k(da, kk), desc_k(vs, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
+    fence_acc(dp);
+    if (p.all_visible(r0 + 64 * c, r0 + 64 * c + 63, k0, k0 + kDqKv - 1))
+      dq_scores<false>(p, sc, dp, lse2, dl, row0, k0, tq);
+    else
+      dq_scores<true>(p, sc, dp, lse2, dl, row0, k0, tq);
+    // dQ += dS.K with dS rounded to T, the contraction over the keys
+    // (K read MN-major)
+    uint32_t a[4][4];
+    acc_as_a<T>(a, sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, 1>(acc, a[kk], desc_mn(ks, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int row = row0 + 8 * ri;
+    if (row >= p.sq) continue;
+    T* o = dq + ((static_cast<long long>(b) * p.sq + row) * p.hq + h) * 64;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      *reinterpret_cast<uint32_t*>(o + 8 * jj + 2 * tq) =
+          pack2<T>(acc[4 * jj + 2 * ri], acc[4 * jj + 2 * ri + 1]);
+  }
+}
+
+// P^T and dS^T of one q tile in place of st (S^T = K.Q^T) and dpt
+// (dP^T = V.dO^T) for the thread's keys key0, key0 + 8 and the tile's
+// rows r0 + 8 j + 2 t + e % 2 (stats: lse * log2 e, then delta, of the
+// tile's 64 rows)
+template <bool MASK>
+__device__ __forceinline__ void dkv_scores(const Problem& p, float (&st)[32],
+                                           float (&dpt)[32],
+                                           const float* stats, int r0,
+                                           int key0, int tq) {
+  const float sl2 = p.scale * kLog2e;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int ql = 8 * jj + 2 * tq;
+    const float2 l2 = *reinterpret_cast<const float2*>(stats + ql);
+    const float2 dl = *reinterpret_cast<const float2*>(stats + 64 + ql);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * jj + e;
+      const bool vis = !MASK || p.visible(r0 + ql + (e & 1), key0 + 8 * (e >> 1));
+      const float pr =
+          vis ? exp2f(st[x] * sl2 - ((e & 1) ? l2.y : l2.x)) : 0.f;
+      st[x] = pr;
+      dpt[x] = pr * (dpt[x] - ((e & 1) ? dl.y : dl.x)) * p.scale;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kHopThreads, 1)
+flash_backward_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_do,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                T* __restrict__ dk, T* __restrict__ dv,
+                                Problem p) {
+  using L = DkvLayout;
+  extern __shared__ __align__(1024) unsigned char ring_raw[];
+  const uint32_t raw = smem_addr(ring_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = ring_raw + (base - raw);
+  const uint32_t bars = base + L::BARS;
+  const uint32_t kvbar = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                             0);
+  const int t = threadIdx.x % 128;
+  // kv tile 0 first: under causal masking it is seen by the most rows
+  const int hk = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int group = p.hq / p.hkv;
+  const int k0 = kt * kDkvKeys;
+  int lo, hi;
+  q_tile_range(p, k0, min(k0 + kDkvKeys, p.skv) - 1, kDkvQ, &lo, &hi);
+  // the walk: q tiles lo .. hi - 1 of each q-head of the group
+  const int nqt = hi > lo ? hi - lo : 0;
+  const int steps = group * nqt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);  // every lane of the producer warp
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer warp: K and V once; each step's Q and dO by TMA, its
+    // lse and delta rows by the warp's lanes
+    if (t < 32) {
+      if (t == 0) {
+        prefetch_tensormap(&tm_q);
+        prefetch_tensormap(&tm_do);
+        mbar_expect_tx(kvbar, 2 * kDkvKeys * 128);
+        tma_load_4d(base + L::K, &tm_k, kvbar, 0, hk, k0, b);
+        tma_load_4d(base + L::V, &tm_v, kvbar, 0, hk, k0, b);
+      }
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % kStages;
+        const int h = hk * group + i / nqt, r0 = (lo + i % nqt) * kDkvQ;
+        mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+        const uint32_t st = base + L::RING + s * L::STAGE;
+        float* stats = reinterpret_cast<float*>(smem + L::RING +
+                                                s * L::STAGE + L::STATS);
+        for (int r = t; r < kDkvQ; r += 32) {
+          const int row = r0 + r;
+          const long long at =
+              (static_cast<long long>(b) * p.hq + h) * p.sq + row;
+          stats[r] = row < p.sq ? lse[at] * kLog2e : 0.f;
+          stats[kDkvQ + r] = row < p.sq ? delta[at] : 0.f;
+        }
+        if (t == 0) {
+          mbar_expect_tx(full(s), 2 * kRows64);
+          tma_load_4d(st, &tm_q, full(s), 0, h, r0, b);
+          tma_load_4d(st + kRows64, &tm_do, full(s), 0, h, r0, b);
+        } else {
+          mbar_arrive(full(s));
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: keys 64 c .. 64 c + 63 of the tile
+  const int c = wg - 1;
+  const int lane = t & 31, tq = lane & 3;
+  const int kc0 = k0 + 64 * c;
+  const int key0 = kc0 + 16 * (t >> 5) + (lane >> 2);  // and key0 + 8
+  float dka[32], dva[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.f;
+  const uint32_t ka = base + L::K + c * kRows64;
+  const uint32_t va = base + L::V + c * kRows64;
+  mbar_wait(kvbar, 0);
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % kStages, r0 = (lo + i % nqt) * kDkvQ;
+    mbar_wait(full(s), (i / kStages) & 1);
+    const uint32_t qs = base + L::RING + s * L::STAGE, dos = qs + kRows64;
+    const float* stats = reinterpret_cast<const float*>(
+        smem + L::RING + s * L::STAGE + L::STATS);
+    // S^T = K.Q^T and dP^T = V.dO^T, the contraction over d (K-major)
+    float st[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<T, 0>(st, desc_k(ka, kk), desc_k(qs, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<T, 0>(dpt, desc_k(va, kk), desc_k(dos, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(st);
+    fence_acc(dpt);
+    if (p.all_visible(r0, r0 + kDkvQ - 1, kc0, kc0 + 63))
+      dkv_scores<false>(p, st, dpt, stats, r0, key0, tq);
+    else
+      dkv_scores<true>(p, st, dpt, stats, r0, key0, tq);
+    // dV += P^T.dO (P in dO's dtype) and dK += dS^T.Q (dS in Q's dtype),
+    // the contraction over the tile's rows (dO and Q read MN-major)
+    uint32_t ap[4][4], ads[4][4];
+    acc_as_a<T>(ap, st);
+    acc_as_a<T>(ads, dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T, 1>(dva, ap[kk], desc_mn(dos, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T, 1>(dka, ads[kk], desc_mn(qs, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dva);
+    fence_acc(dka);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(ap[kk]);
+      fence_regs(ads[kk]);
+    }
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int key = key0 + 8 * ri;
+    if (key >= p.skv) continue;
+    const long long off =
+        ((static_cast<long long>(b) * p.skv + key) * p.hkv + hk) * 64;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * jj + 2 * tq) =
+          pack2<T>(dka[4 * jj + 2 * ri], dka[4 * jj + 2 * ri + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * jj + 2 * tq) =
+          pack2<T>(dva[4 * jj + 2 * ri], dva[4 * jj + 2 * ri + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 template <int D>
 size_t forward_smem() {
@@ -1158,12 +1649,17 @@ int launch_d(Which which, const Args& a, const Problem& p, int d,
   }
 }
 
+bool bad_problem(const Args& a, int sq, int skv, int hq, int hkv, int d,
+                 int causal, int window, int dtype) {
+  return a.b < 1 || sq < 1 || skv < 1 || hkv < 1 || hq % hkv != 0 ||
+         !(d == 64 || d == 128 || d == 256) || dtype < 0 || dtype > 2 ||
+         window < 0 || (window > 0 && !causal) || a.b > 65535 || hq > 65535;
+}
+
 int dispatch(Which which, const Args& a, int sq, int skv, int hq, int hkv,
              int d, int causal, int window, float scale, int dtype,
              void* stream) {
-  if (a.b < 1 || sq < 1 || skv < 1 || hkv < 1 || hq % hkv != 0 ||
-      !(d == 64 || d == 128 || d == 256) || dtype < 0 || dtype > 2 ||
-      window < 0 || (window > 0 && !causal) || a.b > 65535 || hq > 65535)
+  if (bad_problem(a, sq, skv, hq, hkv, d, causal, window, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Problem p{sq, skv, hq, hkv, causal ? 1 : 0, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1175,6 +1671,82 @@ int dispatch(Which which, const Args& a, int sq, int skv, int hq, int hkv,
     default:
       return launch_d<__nv_bfloat16>(which, a, p, d, s);
   }
+}
+
+// ------------------------------------------- Hopper path: the launcher
+// What the Hopper backward takes (ops/flash_attention.py
+// `flash_wgmma_path` states the same): bf16/fp16 at head_dim 64, whose
+// rows are one 128-byte swizzle atom (so every stride of the tensor maps
+// is a multiple of 16 bytes), TMA's 16-byte aligned bases, and tile counts
+// that fit the grid's z dimension.
+bool hopper_ok(const Args& a, int sq, int skv, int d, int dtype) {
+  return (dtype == 1 || dtype == 2) && d == 64 && aligned16(a.q) &&
+         aligned16(a.k) && aligned16(a.v) && aligned16(a.dout) &&
+         (sq + kDqRows - 1) / kDqRows <= 65535 &&
+         (skv + kDkvKeys - 1) / kDkvKeys <= 65535;
+}
+
+// the tensor map of a [b, s, heads, 64] tensor of 16-bit T as the 4-D
+// array (d, heads, seq, batch), innermost first; box: `rows` rows of one
+// head's 64 channels
+template <typename T>
+int encode_heads(CUtensorMap* map, const void* ptr, int b, int s, int heads,
+                 int rows) {
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t row = 64 * sizeof(T);
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * s};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  return encode_tiled(map, type, 4, ptr, dims, strides, box, true);
+}
+
+template <typename T>
+int launch_wgmma(Which which, const Args& a, const Problem& p,
+                 cudaStream_t s) {
+  const bool dq = which == Which::kDq;
+  const int qrows = dq ? kDqRows : kDkvQ, kvrows = dq ? kDqKv : kDkvKeys;
+  CUtensorMap tq, tdo, tk, tv;
+  int err = encode_heads<T>(&tq, a.q, a.b, p.sq, p.hq, qrows);
+  if (!err) err = encode_heads<T>(&tdo, a.dout, a.b, p.sq, p.hq, qrows);
+  if (!err) err = encode_heads<T>(&tk, a.k, a.b, p.skv, p.hkv, kvrows);
+  if (!err) err = encode_heads<T>(&tv, a.v, a.b, p.skv, p.hkv, kvrows);
+  if (err) return err;
+  if (dq) {
+    auto kernel = flash_backward_dq_wgmma_kernel<T>;
+    err = prepare(kernel, DqLayout::SMEM);
+    if (err) return err;
+    const dim3 grid(p.hq, a.b, (p.sq + kDqRows - 1) / kDqRows);
+    kernel<<<grid, kHopThreads, DqLayout::SMEM, s>>>(
+        tq, tdo, tk, tv, a.lse_in, a.delta, static_cast<T*>(a.out), p);
+  } else {
+    auto kernel = flash_backward_dkv_wgmma_kernel<T>;
+    err = prepare(kernel, DkvLayout::SMEM);
+    if (err) return err;
+    const dim3 grid(p.hkv, a.b, (p.skv + kDkvKeys - 1) / kDkvKeys);
+    kernel<<<grid, kHopThreads, DkvLayout::SMEM, s>>>(
+        tq, tdo, tk, tv, a.lse_in, a.delta, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the Hopper kernels take only what `hopper_ok` accepts and return
+// cudaErrorInvalidValue otherwise: the caller decides the path, and nothing
+// here gives way to the other kernels
+int dispatch_wgmma(Which which, const Args& a, int sq, int skv, int hq,
+                   int hkv, int d, int causal, int window, float scale,
+                   int dtype, void* stream) {
+  if (bad_problem(a, sq, skv, hq, hkv, d, causal, window, dtype) ||
+      !hopper_ok(a, sq, skv, d, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Problem p{sq, skv, hq, hkv, causal ? 1 : 0, window, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? launch_wgmma<__half>(which, a, p, s)
+                    : launch_wgmma<__nv_bfloat16>(which, a, p, s);
 }
 
 }  // namespace
@@ -1213,6 +1785,34 @@ extern "C" int dst_flash_backward_dkv(const void* q, const void* k,
   Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, nullptr, b};
   return dispatch(Which::kDkv, a, sq, skv, hq, hkv, d, causal, window, scale,
                   dtype, stream);
+}
+
+// The same two kernels on the Hopper path (TMA + wgmma), for what
+// `hopper_ok` accepts (ops/flash_attention.py `flash_wgmma_path`).
+extern "C" int dst_flash_backward_dq_wgmma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, int b, int sq, int skv,
+    int hq, int hkv, int d, int causal, int window, float scale, int dtype,
+    void* stream) {
+  Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, nullptr, b};
+  return dispatch_wgmma(Which::kDq, a, sq, skv, hq, hkv, d, causal, window,
+                        scale, dtype, stream);
+}
+
+extern "C" int dst_flash_backward_dkv_wgmma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv, int b, int sq,
+    int skv, int hq, int hkv, int d, int causal, int window, float scale,
+    int dtype, void* stream) {
+  Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, nullptr, b};
+  return dispatch_wgmma(Which::kDkv, a, sq, skv, hq, hkv, d, causal, window,
+                        scale, dtype, stream);
+}
+
+// dynamic shared memory a launch of the Hopper dq (0) or dk/dv (1) kernel
+// asks for, for the build report
+extern "C" int dst_flash_wgmma_smem(int dkv) {
+  return dkv ? DkvLayout::SMEM : DqLayout::SMEM;
 }
 
 extern "C" const char* dst_cuda_error_string(int code) {

@@ -56,7 +56,6 @@
 //   scratch, then the quantize kernel).
 // fp32 operands take a 256-thread scalar-FMA kernel.
 
-#include <cuda.h>  // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -64,7 +63,11 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors, tensor maps
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kBM = 64;        // output rows per block, fp32
 constexpr int kBKh = 32;       // k per stage, bf16/fp16
@@ -192,10 +195,6 @@ __device__ void quantize_tile(const float* ctile, int m0, int n0, int m,
 // ---------------------------------------------------- tensor-core path
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // four 8x8 b16 matrices, transposed: lane l gives the row address of
@@ -531,51 +530,6 @@ struct Params {
   int vec2;  // out and ldo allow 8-byte stores
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// a shared-memory matrix descriptor of wgmma, 128-byte swizzle: for K-major
-// A, sbo = 1024 (8 rows of 128 bytes); for N-major B, lbo = the stride of
-// the 64-wide n atoms and sbo = 1024 (8 k rows)
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
-                                            uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
 #define DST_ACC128(d)                                                        \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
@@ -630,12 +584,6 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
                  DST_D128 ", %128, %129, 1, 1, 1, 0, 1;\n"
                  : DST_ACC128(d) : "l"(da), "l"(db));
   }
-}
-
-// keeps the compiler from moving accumulator reads across the wgmma waits
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 template <typename T>
@@ -781,16 +729,16 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
         const uint32_t sa = base + s * C::STAGE_BYTES;
         const int k0 = it * BK;
         mbar_expect_tx(full(s), C::A_BYTES + (C::DQ ? 0 : C::B_BYTES));
-        tma_load(sa, &tm_a, full(s), k0, m0);
+        tma_load_2d(sa, &tm_a, full(s), k0, m0);
         if constexpr (C::DQ) {
           mbar_expect_tx(pfull(s), C::P_BYTES);
-          tma_load(sa + C::A_BYTES + C::B_BYTES, &tm_b, pfull(s),
-                   MODE == kInt4 ? n0 / 2 : n0, k0);
+          tma_load_2d(sa + C::A_BYTES + C::B_BYTES, &tm_b, pfull(s),
+                      MODE == kInt4 ? n0 / 2 : n0, k0);
         } else {
 #pragma unroll
           for (int i = 0; i < BN / kBoxN; ++i)
-            tma_load(sa + C::A_BYTES + i * kBoxBytes, &tm_b, full(s),
-                     n0 + i * kBoxN, k0);
+            tma_load_2d(sa + C::A_BYTES + i * kBoxBytes, &tm_b, full(s),
+                        n0 + i * kBoxN, k0);
         }
       }
     }
@@ -1096,50 +1044,6 @@ int dispatch(int dtype, const void* a, const void* b, const float* scales,
 }
 
 // ------------------------------------------- Hopper path: the launcher
-// cuTensorMapEncodeTiled comes from the driver through the runtime, so the
-// library needs no link against libcuda
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn lookup_encoder() {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-  const cudaError_t err = cudaGetDriverEntryPointByVersion(
-      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-  const cudaError_t err = cudaGetDriverEntryPoint(
-      "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-    return nullptr;
-  return reinterpret_cast<EncodeTiledFn>(fn);
-}
-
-// the tensor map of a row-major [rows, cols] matrix of `esize`-byte
-// elements, box [box_rows, box_cols]; zeros are read past its edges
-int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int esize,
-              const void* ptr, int rows, int cols, int box_rows,
-              int box_cols, bool swizzle) {
-  static const EncodeTiledFn encode = lookup_encoder();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esize};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(
-      map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 // what the Hopper path takes (ops/fused_collectives.py `wgmma_path` states
 // the same): bf16/fp16, TMA's 16-byte aligned bases and row strides, whole
 // 8-element pieces a scale each, a 32-bit flat weight index; bits 0 = dense

@@ -7,7 +7,9 @@ Ports ``deepspeed_tpu/ops/pallas/flash_attention.py``: ``_flash_forward``
 ``flash_attention`` ``custom_vjp``. The kernels are CUDA C++ in
 ``deepspeed_tpu_torch/csrc/flash_attention.cu`` (see its header for the
 design and what bounds them), built by ``nvcc`` at first use and called
-through ``ctypes`` (:mod:`.op_builder`).
+through ``ctypes`` (:mod:`.op_builder`). The backward's bf16/fp16 work at
+head_dim 64 goes to its Hopper kernels (TMA + ``wgmma``,
+:func:`flash_wgmma_path`).
 
 Layout contract (the JAX package's, unchanged):
   q:    [b, sq, hq, d]        k, v: [b, skv, hkv, d]   (hq % hkv == 0)
@@ -46,8 +48,13 @@ def _library() -> ctypes.CDLL:
         lib.dst_flash_forward.argtypes = [ctypes.c_void_p] * 5 + dims
         lib.dst_flash_backward_dq.argtypes = [ctypes.c_void_p] * 7 + dims
         lib.dst_flash_backward_dkv.argtypes = [ctypes.c_void_p] * 8 + dims
+        lib.dst_flash_backward_dq_wgmma.argtypes = [ctypes.c_void_p] * 7 + dims
+        lib.dst_flash_backward_dkv_wgmma.argtypes = [ctypes.c_void_p] * 8 \
+            + dims
+        lib.dst_flash_wgmma_smem.argtypes = [ctypes.c_int]
         for fn in (lib.dst_flash_forward, lib.dst_flash_backward_dq,
-                   lib.dst_flash_backward_dkv):
+                   lib.dst_flash_backward_dkv, lib.dst_flash_backward_dq_wgmma,
+                   lib.dst_flash_backward_dkv_wgmma, lib.dst_flash_wgmma_smem):
             fn.restype = ctypes.c_int
         lib.dst_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dst_cuda_error_string.restype = ctypes.c_char_p
@@ -214,6 +221,25 @@ def flash_forward(q, k, v, *, causal: bool = True,
     return out, lse
 
 
+def flash_wgmma_path(dtype: torch.dtype, d: int, hq: int, hkv: int,
+                     addrs: Tuple[int, ...]) -> bool:
+    """Whether the backward's Hopper kernels (TMA + ``wgmma``) compute dq
+    and dk/dv; else the ``mma.sync`` (bf16/fp16 at d 64/128) or scalar
+    kernels do. ``addrs`` are the base addresses that TMA reads (q, k, v,
+    dout). It takes bf16/fp16 at head_dim 64 (a row is one 128-byte
+    swizzle atom, so every stride of the tensor maps is a whole 16 bytes)
+    with 16-byte aligned bases; ``flash_attention.cu``'s ``hopper_ok``
+    checks the same and refuses the rest."""
+    return (dtype in (torch.bfloat16, torch.float16) and d == 64
+            and hkv >= 1 and hq % hkv == 0
+            and all(a % 16 == 0 for a in addrs))
+
+
+def _hopper(q, k, v, dout) -> bool:
+    return flash_wgmma_path(q.dtype, q.shape[-1], q.shape[2], k.shape[2],
+                            tuple(t.data_ptr() for t in (q, k, v, dout)))
+
+
 def _backward_args(q, k, v, dout, lse, delta, causal, scale, window):
     """Checks shared by the two backward kernels; returns the C arguments
     after the pointers."""
@@ -237,19 +263,23 @@ def flash_backward_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
                       scale: Optional[float] = None, window: int = 0):
     """dq from the saved LSE and delta = rowsum(dO * O) ([b, hq, sq] fp32).
     On CUDA tensors this launches the dq kernel and adds one to
-    ``flash_backward_dq.launches``; on CPU tensors it runs the plain
-    version."""
+    ``flash_backward_dq.launches`` (and to ``.wgmma_launches`` when
+    :func:`flash_wgmma_path` picks the Hopper kernel); on CPU tensors it
+    runs the plain version."""
     if q.device.type == "cpu":
         return _backward_from_delta(q, k, v, lse, delta, dout, causal,
                                     scale, window)[0]
     args = _backward_args(q, k, v, dout, lse, delta, causal, scale, window)
     lib = _library()
     dq = torch.empty_like(q)
-    err = lib.dst_flash_backward_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    dout.data_ptr(), lse.data_ptr(),
-                                    delta.data_ptr(), dq.data_ptr(), *args)
+    hopper = _hopper(q, k, v, dout)
+    fn = lib.dst_flash_backward_dq_wgmma if hopper \
+        else lib.dst_flash_backward_dq
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args)
     _raise_on(lib, err, "flash_backward_dq")
     flash_backward_dq.launches += 1
+    flash_backward_dq.wgmma_launches += hopper
     return dq
 
 
@@ -258,8 +288,9 @@ def flash_backward_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
     """(dk, dv), each kv-head summed over its query heads inside one thread
     block (no atomics: two runs give equal bits). On CUDA tensors this
     launches the dk/dv kernel and adds one to
-    ``flash_backward_dkv.launches``; on CPU tensors it runs the plain
-    version."""
+    ``flash_backward_dkv.launches`` (and to ``.wgmma_launches`` when
+    :func:`flash_wgmma_path` picks the Hopper kernel); on CPU tensors it
+    runs the plain version."""
     if q.device.type == "cpu":
         return _backward_from_delta(q, k, v, lse, delta, dout, causal,
                                     scale, window)[1:]
@@ -267,12 +298,15 @@ def flash_backward_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
     lib = _library()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    err = lib.dst_flash_backward_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     dout.data_ptr(), lse.data_ptr(),
-                                     delta.data_ptr(), dk.data_ptr(),
-                                     dv.data_ptr(), *args)
+    hopper = _hopper(q, k, v, dout)
+    fn = lib.dst_flash_backward_dkv_wgmma if hopper \
+        else lib.dst_flash_backward_dkv
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             *args)
     _raise_on(lib, err, "flash_backward_dkv")
     flash_backward_dkv.launches += 1
+    flash_backward_dkv.wgmma_launches += hopper
     return dk, dv
 
 
@@ -296,10 +330,13 @@ def flash_backward(q, k, v, out, lse, dout, *, causal: bool = True,
     return dq, dk, dv
 
 
-# launch counters: one per kernel, bumped only where it launches
+# launch counters: one per kernel, bumped only where it launches; the
+# backward's also count their Hopper-kernel launches
 flash_forward.launches = 0
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
+flash_backward_dq.wgmma_launches = 0
+flash_backward_dkv.wgmma_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):

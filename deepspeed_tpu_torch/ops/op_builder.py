@@ -5,8 +5,9 @@ plain C interface. ``nvcc`` compiles it for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library that
 :func:`load` opens with ``ctypes`` — no PyTorch headers, so a build takes
 seconds. Libraries land in ``build/kernels/`` at the repo root (listed in
-``.gitignore``), named by a hash of source and flags, and are built at
-first use in a process. A missing ``nvcc`` or a failed build raises.
+``.gitignore``), named by a hash of the flags, the source and every header
+``csrc/*.cuh`` (:func:`source_digest`), and are built at first use in a
+process. A missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -49,6 +50,17 @@ def find_nvcc() -> str:
         "kernels of deepspeed_tpu_torch are built from source at first use")
 
 
+def source_digest(name: str, flags=(), csrc: Path = CSRC) -> str:
+    """Hex digest that names the library of ``csrc/<name>.cu``: nvcc's
+    flags, the source, and every ``*.cuh`` header beside it (by name and
+    content), so that an edited header never reuses a stale build."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
+    h.update((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return h.hexdigest()
+
+
 def load(name: str,
          defines: Optional[Mapping[str, int]] = None) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, compiled at first use.
@@ -59,9 +71,7 @@ def load(name: str,
     if key in _libs:
         return _libs[key]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode()
-                            + src.read_bytes())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"lib{name}-{source_digest(name, flags)[:16]}.so"
     if out.exists():
         build_logs[key] = "(cached build)"
     else:

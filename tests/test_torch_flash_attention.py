@@ -9,8 +9,11 @@ on the same (out, lse), and ``FlashAttentionFunction``'s gradients against
 causal and non-causal, GQA/MQA, sq < skv, sq > skv (rows that see no key:
 0 and LSE 1e30), a window band, a scale override and multi-tile grids.
 ``dot_product_attention`` is held to its JAX twin with masks, bias and
-scale. The CUDA kernels run only on a GPU: the ``gpu`` tests hold them
-against the plain versions there and skip here.
+scale. ``flash_wgmma_path`` (which backward the Hopper TMA + wgmma
+kernels take) is checked on the CPU. The CUDA kernels run only on a GPU:
+the ``gpu`` tests hold them against the plain versions there and skip
+here; the Hopper backward's cases also check its launch counts and that
+two runs give equal bits.
 """
 
 import numpy as np
@@ -178,6 +181,41 @@ def test_wrapper_raises_on_a_device_it_has_no_kernel_for():
         fa.flash_forward(*meta)
 
 
+WGMMA_PATH_CASES = {
+    # name: (dtype, d, hq, hkv, address offset in bytes) -> Hopper kernels?
+    "1b-bf16": ((torch.bfloat16, 64, 32, 4, 0), True),
+    "fp16-mha": ((torch.float16, 64, 8, 8, 0), True),
+    "mqa-bf16": ((torch.bfloat16, 64, 8, 1, 0), True),
+    "fp32": ((torch.float32, 64, 32, 4, 0), False),
+    "d128": ((torch.bfloat16, 128, 16, 4, 0), False),
+    "d256": ((torch.float16, 256, 8, 2, 0), False),
+    "unaligned": ((torch.bfloat16, 64, 32, 4, 8), False),
+    "heads-not-grouped": ((torch.bfloat16, 64, 6, 4, 0), False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WGMMA_PATH_CASES))
+def test_flash_wgmma_path_predicate(name):
+    (dtype, d, hq, hkv, off), want = WGMMA_PATH_CASES[name]
+    addrs = (4096, 8192 + off, 12288, 16384)
+    assert fa.flash_wgmma_path(dtype, d, hq, hkv, addrs) is want
+
+
+def test_cpu_wrappers_leave_the_hopper_counts():
+    q, k, v, do = _t(*_qkv(8, 1, 8, 8, 4, 2, 64))
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    before = (fa.flash_backward_dq.launches,
+              fa.flash_backward_dq.wgmma_launches,
+              fa.flash_backward_dkv.launches,
+              fa.flash_backward_dkv.wgmma_launches)
+    out, lse = fa.flash_forward(q, k, v)
+    fa.flash_backward(q, k, v, out, lse, do)
+    assert before == (fa.flash_backward_dq.launches,
+                      fa.flash_backward_dq.wgmma_launches,
+                      fa.flash_backward_dkv.launches,
+                      fa.flash_backward_dkv.wgmma_launches)
+
+
 def _cuda_case(seed, b, sq, skv, hq, hkv, d, dtype):
     gen = torch.Generator().manual_seed(seed)
     mk = lambda *s: torch.randn(s, generator=gen).to(dtype).cuda()  # noqa: E731
@@ -227,3 +265,52 @@ def test_cuda_kernels_match_plain_versions(case):
         assert err <= bound, (what, err, scale)
     dk2, dv2 = fa.flash_backward_dkv(q, k, v, do, lse, fa._delta(out, do), **kw)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+HOPPER_CASES = [
+    # b, sq, skv, hq, hkv, causal, window, dtype at d 64: GQA groups 1, 2,
+    # 4 and 8, sq < skv and sq > skv, ragged lengths (TMA zero-fills the
+    # tail of the last tile), windows, non-causal
+    (1, 256, 256, 4, 4, True, 0, torch.bfloat16),
+    (2, 300, 300, 8, 4, True, 0, torch.float16),
+    (1, 1000, 1000, 16, 2, True, 0, torch.bfloat16),
+    (1, 333, 517, 8, 2, True, 0, torch.float16),
+    (1, 517, 333, 8, 2, True, 0, torch.bfloat16),
+    (1, 600, 600, 8, 2, True, 100, torch.bfloat16),
+    (1, 333, 517, 8, 2, True, 100, torch.float16),
+    (1, 200, 330, 4, 1, False, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", HOPPER_CASES)
+def test_cuda_hopper_backward_matches_plain_and_repeats(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    b, sq, skv, hq, hkv, causal, window, dtype = case
+    q, k, v, do = _cuda_case(1, b, sq, skv, hq, hkv, 64, dtype)
+    assert fa.flash_wgmma_path(dtype, 64, hq, hkv,
+                               tuple(t.data_ptr() for t in (q, k, v, do)))
+    kw = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_forward_reference(q, k, v, **kw)
+    delta = fa._delta(out, do)
+    dq_w = fa.flash_backward_dq.wgmma_launches
+    dkv_w = fa.flash_backward_dkv.wgmma_launches
+    dq = fa.flash_backward_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta, **kw)
+    dq2 = fa.flash_backward_dq(q, k, v, do, lse, delta, **kw)
+    dk2, dv2 = fa.flash_backward_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_backward_dq.wgmma_launches == dq_w + 2
+    assert fa.flash_backward_dkv.wgmma_launches == dkv_w + 2
+    rdq, rdk, rdv = fa._backward_from_delta(q, k, v, lse, delta, do, causal,
+                                            None, window)
+    for got, ref, what in ((dq, rdq, "dq"), (dk, rdk, "dk"), (dv, rdv, "dv")):
+        assert bool(torch.isfinite(got).all()), what
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        assert err <= 2e-2 * scale, (what, err, scale)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
+        and torch.equal(dv, dv2)
+    if sq > skv:    # rows before the first key see nothing: dq 0
+        assert bool((dq[:, :sq - skv] == 0).all())
