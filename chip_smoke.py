@@ -10,17 +10,23 @@ CPU path — without a CUDA device the script fails):
    with ``nvcc`` (one process each, all started together, with two
    scratch builds of fused_collectives.cu for a measurement) and print
    each kernel's ``-Xptxas -v`` registers, spills and shared memory, with
-   a summary of the Hopper flash backward kernels (registers, spills,
-   dynamic shared memory; a spill there fails the script);
+   a summary of the Hopper flash kernels and the paged tile, split and
+   combine kernels (registers, spills, dynamic shared memory; a spill
+   there fails the script);
 3. kernels: paged attention against its plain PyTorch version on the card
-   at the serving path's shapes, with stated tolerances (TF32 is off for
-   both cuBLAS and cuDNN), then, at a decode and a prefill shape, compared
-   again and timed with CUDA events (L2 flushed before every call) beside
-   its HBM-bytes bound; the same over int8 and int4 pools (the quantized-
-   pool kernel); blockwise quantize and dequantize bitwise against their
-   plain versions (fp32/bf16/fp16, bits 8/4, blocks 128/256, row counts
-   that are not multiples of 32, path A's weight shapes), timed at
-   [4096, 11008] bf16;
+   at the serving path's shapes and at tile and lane cases (chunks that
+   are no multiple of 64 or start mid-page, two sequences in one 64-lane
+   window, blocks 8-64, windows, 1 and 16 decode lanes), with stated
+   tolerances (TF32 is off for both cuBLAS and cuDNN), each run twice for
+   bitwise-equal outputs and failing unless tile items and lane items ran
+   exactly where the work list has them; then, at a decode and a prefill
+   shape, timed with CUDA events (L2 flushed before every call) beside
+   the per-(token, kv-head) kernel they replaced, the plain version and
+   the bound; the same over int8 and int4 pools (lane items, beside the
+   replaced quantized-pool kernel); blockwise quantize and dequantize
+   bitwise against their plain versions (fp32/bf16/fp16, bits 8/4,
+   blocks 128/256, row counts that are not multiples of 32, path A's
+   weight shapes), timed at [4096, 11008] bf16;
    fused collectives: dequant_matmul, matmul_pallas and matmul_quantize
    against their plain versions on the mma.sync / FMA kernels (fp32/bf16,
    int8/int4, trans_a, m = 1, a row length the block does not divide,
@@ -37,12 +43,12 @@ CPU path — without a CUDA device the script fails):
    1b shape in bf16 at the training shape's micro-batch 4 and in
    fp16/fp32, d 128 and d 256, non-causal, sq < skv, sq > skv, odd
    lengths, windows), one case twice for bitwise-equal results; each case
-   logs which kernels took its backward and fails unless the Hopper dq
-   and dk/dv kernels (TMA + wgmma) ran exactly where
-   ``flash_wgmma_path`` accepts it; then each kernel timed at the training
-   shape beside its bound, its plain version and
-   ``scaled_dot_product_attention`` as a yardstick (the backward also
-   beside the mma.sync kernels it replaced, in turns);
+   logs which kernels took it and fails unless the Hopper forward ran
+   exactly where ``flash_forward_wgmma_path`` accepts it and the Hopper
+   dq and dk/dv kernels (TMA + wgmma) exactly where ``flash_wgmma_path``
+   does; then each kernel timed at the training shape beside its bound,
+   its plain version, ``scaled_dot_product_attention`` as a yardstick and
+   the mma.sync kernel it replaced, in turns;
 4. engine: a 2-layer Llama-2-7B-width engine (d_model 4096) in fp32, the
    same weights on cuda and on cpu, one ``put`` of 3 mixed-length prompts;
    logits must agree within 1e-3; then path B (int8 and int4 KV pools, in
@@ -54,7 +60,11 @@ CPU path — without a CUDA device the script fails):
 5. serving: Llama-2-7B at full width and depth (bf16, seeded random
    weights) behind ``ServingEngine`` (FCFS) over ``RaggedInferenceEngine``,
    8 requests to completion; kernel launch counts are reset just before
-   and read just after;
+   and read just after (the puts with prefill runs must have taken tile
+   items, the rest lane items);
+5b. paged mixed put: layer 0's paged-attention call of a serving put that
+   holds decode lanes and a prefill chunk, compared and timed as the
+   phase 3 shapes are;
 6. profile: the same requests again under ``torch.profiler``: device time
    by kernel and the device's idle share; then the same 8 requests over an
    int8 and an int4 KV pool at the bf16 pool's byte budget (path B), the
@@ -70,8 +80,8 @@ CPU path — without a CUDA device the script fails):
 8. training: ``Llama("1b")`` at full width and depth (bf16 compute, fp32
    masters, AdamW, full remat, GAS 2 of 4 x 2048 tokens), 2 warm-up and 4
    timed ``train_batch`` steps with the flash launch counts reset just
-   before and read just after (every dq and dk/dv launch must be on the
-   Hopper kernels); step time (the four timed steps' mean),
+   before and read just after (every forward, dq and dk/dv launch must be
+   on the Hopper kernels); step time (the four timed steps' mean),
    tokens/s, MFU, peak memory;
 9. train profile: one more step under ``torch.profiler``;
 10. ZeRO-3 parity: ``SequentialBlockModel((64, 256, 512, 64))`` in fp32,
@@ -133,6 +143,13 @@ PAGED_QUANT_REPLACES = "deepspeed_tpu/ops/pallas/paged_attention.py:91"
 # counter of each paged-attention variant, by the engine's kv_quant
 PAGED_COUNTER = {"none": "launches", "int8": "int8_launches",
                  "int4": "int4_launches"}
+# ... and of the calls that ran tile items / lane items
+PAGED_PATH_COUNTERS = (*PAGED_COUNTER.values(), "tile_launches",
+                       "split_launches")
+PAGED_PATH = ("tile items (prefill runs, bf16/fp16 at hd 64/128): TMA page "
+              "loads + wgmma m64n64k16, 64 lanes a block; lane items (decode "
+              "and the rest): split-K over pages, bulk-copy ring, fp32 "
+              "SIMT, combine pass")
 QUANT_SOURCE = "deepspeed_tpu_torch/csrc/quant.cu"
 QUANT_KERNELS = {
     # name: (wrapper whose .launches counts it, replaced pallas_call,
@@ -303,23 +320,28 @@ def phase_build() -> None:
                     for what, bits in (("dense", 0), ("int8", 8),
                                        ("int4", 4))))
     lib = fa._library()
-    smem = {"dq": lib.dst_flash_wgmma_smem(0),
-            "dkv": lib.dst_flash_wgmma_smem(1)}
-    for kernel, used in _ptxas_report("flash_attention", "wgmma").items():
-        which = "dkv" if "dkv" in kernel else "dq"
+    for kernel, used in _ptxas_report("flash_attention", ("wgmma",)).items():
+        which = (2 if "Li64" in kernel else 3) if "forward" in kernel else \
+            1 if "dkv" in kernel else 0
         log(f"build[flash_attention]: Hopper {kernel}: {used}; dynamic "
-            f"shared memory {smem[which]} B")
-
-
-def _ptxas_report(library: str, marker: str) -> dict:
+            f"shared memory {lib.dst_flash_wgmma_smem(which)} B")
+    lib = pa._library()
+    for kernel, used in _ptxas_report(
+            "paged_attention", ("paged_tile", "paged_split",
+                                "paged_combine")).items():
+        smem = "" if "tile" not in kernel else (
+            f"; dynamic shared memory "
+            f"{lib.dst_paged_tile_smem(64 if 'Li64' in kernel else 128)} B")
+        log(f"build[paged_attention]: {kernel}: {used}{smem}")
+def _ptxas_report(library: str, markers: tuple) -> dict:
     """{kernel entry (mangled, abridged): ptxas's "Used ..." line and any
-    spill line} for the entries of ``library`` whose name holds
-    ``marker``. Raises if ptxas reports spills there."""
+    spill line} for the entries of ``library`` (a build log's key) whose
+    name holds one of ``markers``. Raises if ptxas reports spills there."""
     report, entry = {}, None
     for line in op_builder.build_logs[library].splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line
-            entry = entry if marker in entry else None
+            entry = entry if any(m in entry for m in markers) else None
         elif entry and ("Used" in line or "spill" in line):
             m = re.search(
                 r"_cu_[0-9a-f]{8}\d+([A-Za-z]\w*?_kernel)I\d+(\w+?)EE", entry)
@@ -338,10 +360,10 @@ def _paged_inputs(gen, contexts, hq, hkv, hd, block, dtype, *,
                   prefill_of=None, max_pages=None, extra_pages=8,
                   decode=True, dev="cuda"):
     """One decode token per context (at position ctx-1) unless ``decode``
-    is False, plus, when ``prefill_of`` = (seq index, n), a prefill chunk
-    of n tokens ending at that sequence's last position. Per-sequence
-    tables with seq_slots; pages drawn as a random permutation of the
-    pool."""
+    is False, plus, for each (seq index, n) of ``prefill_of`` (one pair or
+    a list), a prefill chunk of n tokens ending at that sequence's last
+    position. Per-sequence tables with seq_slots; pages drawn as a random
+    permutation of the pool."""
     pages_per = [-(-c // block) for c in contexts]
     max_pages = max_pages or max(pages_per)
     n_pages = sum(pages_per) + extra_pages
@@ -353,8 +375,9 @@ def _paged_inputs(gen, contexts, hq, hkv, hd, block, dtype, *,
         at += n
     slots = list(range(len(contexts))) if decode else []
     pos = [c - 1 for c in contexts] if decode else []
-    if prefill_of is not None:
-        s, n = prefill_of
+    chunks = [prefill_of] if isinstance(prefill_of, tuple) else \
+        (prefill_of or [])
+    for s, n in chunks:
         slots += [s] * n
         pos += list(range(contexts[s] - n, contexts[s]))
     T = len(slots)
@@ -409,6 +432,121 @@ PAGED_SHAPES = {
 }
 
 
+def _paged_path(q, kp, tab, slots, live, quantized=False) -> tuple:
+    """(tile items?, lane items?) in the work list the wrapper runs for
+    this call (ops/paged_attention.py ``paged_work_arrays``)."""
+    t, i, _ = pa.paged_work_arrays(
+        slots.cpu().numpy(), q.shape[0], pa._walk_bound(live, tab.shape[1]),
+        kp.shape[1], pa._takes_tiles(True, q.dtype, kp, quantized, None))
+    return len(t) > 0, len(i) > 0
+
+
+def _paged_counts() -> tuple:
+    return (pa.paged_attention.tile_launches,
+            pa.paged_attention.split_launches)
+
+
+def _paged_twice(name, q, kp, vp, tab, pos, slots, live, window, work=None,
+                 **quant):
+    """The wrapper twice on one input (with ``work``, that work list)
+    against the plain version: stated tolerance, bitwise-equal runs, and
+    tile / lane items launched exactly where the work list has them.
+    Returns the max abs error."""
+    want = _paged_path(q, kp, tab, slots, live, bool(quant)) if work is None \
+        else (work.n_tiles > 0, work.n_items > 0)
+    before = _paged_counts()
+    kw = dict(seq_slots=slots, live_pages=live, window=window, **quant)
+    got = pa.paged_attention(q, kp, vp, tab, pos, work=work, **kw)
+    again = pa.paged_attention(q, kp, vp, tab, pos, work=work, **kw)
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(_paged_counts(), before))
+    ref = pa.paged_attention_reference(q, kp, vp, tab, pos, **kw)
+    ok, err, tol = check_half_or_fp32(got, ref)
+    same = torch.equal(got, again)
+    path_ok = moved == (2 * want[0], 2 * want[1])
+    log(f"kernels: paged_attention {name} T={q.shape[0]} max_abs_err="
+        f"{err:.3e} tol={tol}; twice bitwise equal {same}; tile / lane "
+        f"launches {moved} (work list: tiles {want[0]}, lane items "
+        f"{want[1]}) {'ok' if ok and same and path_ok else 'FAIL'}")
+    if not (ok and same and path_ok):
+        raise SystemExit(f"paged_attention failed on {name}")
+    return err
+
+
+def _old_paged(q, kp, vp, tab, pos, slots, live, k_scale=None, v_scale=None,
+               kv_bits=8):
+    """A call of the per-(token, kv-head) kernel that the work list's
+    kernels replaced (`dst_paged_attention`, `dst_paged_attention_quant`
+    for quantized pools) on the same inputs."""
+    lib = pa._library()
+    out = torch.empty_like(q)
+    T, hq, hd = q.shape
+    n_pages, hkv, block, _ = kp.shape
+    geometry = (T, hq, hkv, hd, n_pages, block, tab.shape[1],
+                pa._walk_bound(live, tab.shape[1]), 0, 1.0 / math.sqrt(hd),
+                pa._DTYPE_CODE[q.dtype])
+    stream = torch.cuda.current_stream().cuda_stream
+    if k_scale is None:
+        err = lib.dst_paged_attention(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tab.data_ptr(),
+            slots.data_ptr(), pos.data_ptr(), out.data_ptr(), *geometry,
+            stream)
+    else:
+        err = lib.dst_paged_attention_quant(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), tab.data_ptr(), slots.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), *geometry, kv_bits, stream)
+    pa._raise_on(lib, err)
+    return out
+
+
+def _time_paged(label, q, kp, vp, tab, pos, slots, live, flush, work=None,
+                **quant):
+    """The new paths (``work``, or a work list planned once, as an engine
+    put does), the replaced kernel and the plain version on one input, in
+    turns (plain, old, new, new, old, plain), beside the bound. Returns
+    the timing."""
+    T = q.shape[0]
+    if work is None:
+        work = pa.plan_paged_work(
+            slots.cpu().numpy(), T, pa._walk_bound(live, tab.shape[1]), kp,
+            dtype=q.dtype, quantized=bool(quant))
+    tiles, items = work.n_tiles > 0, work.n_items > 0
+    kw = dict(seq_slots=slots, live_pages=live, **quant)
+
+    def kern():
+        return pa.paged_attention(q, kp, vp, tab, pos, work=work, **kw)
+
+    def old():
+        return _old_paged(q, kp, vp, tab, pos, slots, live, **quant)
+
+    def plain():
+        return pa.paged_attention_reference(q, kp, vp, tab, pos, **kw)
+
+    ref = plain()
+    for what, fn in (("kernel", kern), ("old kernel", old)):
+        ok, err, tol = check_half_or_fp32(fn(), ref)
+        if not ok:
+            raise SystemExit(f"paged_attention {label}: the {what} disagrees "
+                             f"with the plain version ({err:.3e}, {tol})")
+    p1, o1 = cuda_ms(plain, 3, flush), cuda_ms(old, 20, flush)
+    k1, k2 = cuda_ms(kern, 20, flush), cuda_ms(kern, 20, flush)
+    o2, p2 = cuda_ms(old, 20, flush), cuda_ms(plain, 3, flush)
+    bits = quant.get("kv_bits", 0) if quant else 0
+    bound_ms, bound_by, nbytes, ops = _bound(q, kp, tab, pos, slots, live, 0,
+                                             kv_bits=bits)
+    path = " + ".join(n for n, on in (("tile items", tiles),
+                                      ("lane items", items)) if on)
+    log(f"kernels: paged_attention {label} T={T} ({path}) kernel "
+        f"{k1:.4f}/{k2:.4f} ms, the replaced kernel {o1:.4f}/{o2:.4f} ms, "
+        f"plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{nbytes} B, {ops:.3e} ops); {nbytes / min(k1, k2) / 1e6:.1f} GB/s, "
+        f"{ops / min(k1, k2) / 1e9:.2f} TFLOP/s")
+    return {"T": T, "ms": min(k1, k2), "old_ms": min(o1, o2),
+            "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "ops": ops, "path": path}
+
+
 def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -417,33 +555,49 @@ def phase_kernels() -> dict:
     gen = torch.Generator().manual_seed(0)
     ctxs = [1, 17, 1000, 4096]
     cases = [
-        # name, contexts, hq, hkv, hd, block, dtype, window, max_pages, live
-        ("7b-bf16", ctxs, 32, 32, 128, 16, torch.bfloat16, 0, 512, 256),
-        ("7b-fp16", ctxs, 32, 32, 128, 16, torch.float16, 0, 512, 256),
-        ("7b-fp32", ctxs, 32, 32, 128, 16, torch.float32, 0, 512, 256),
-        ("1b-gqa-window-fp32", ctxs, 32, 4, 64, 16, torch.float32, 256, 512, 256),
-        ("1b-gqa-window-bf16", ctxs, 32, 4, 64, 16, torch.bfloat16, 256, 512, 256),
-        ("hd256-block64-fp32", [1, 70, 700], 8, 2, 256, 64, torch.float32, 0, 16, 16),
-        ("hd64-block1-bf16", [1, 5, 40], 8, 8, 64, 1, torch.bfloat16, 7, 64, 64),
+        # name, contexts, hq, hkv, hd, block, dtype, window, max_pages,
+        # live, prefill chunks (seq, n); bf16/fp16 at hd 64/128 with
+        # block >= 8 put runs of >= 16 lanes on tile items, every other
+        # lane takes lane items
+        ("7b-bf16", ctxs, 32, 32, 128, 16, torch.bfloat16, 0, 512, 256,
+         (2, 16)),
+        ("7b-fp16", ctxs, 32, 32, 128, 16, torch.float16, 0, 512, 256,
+         (2, 16)),
+        ("7b-fp32", ctxs, 32, 32, 128, 16, torch.float32, 0, 512, 256,
+         (2, 16)),
+        ("1b-gqa-window-fp32", ctxs, 32, 4, 64, 16, torch.float32, 256, 512,
+         256, (2, 16)),
+        ("1b-gqa-window-bf16", ctxs, 32, 4, 64, 16, torch.bfloat16, 256, 512,
+         256, (2, 16)),
+        ("hd256-block64-fp32", [1, 70, 700], 8, 2, 256, 64, torch.float32, 0,
+         16, 16, (2, 16)),
+        ("hd64-block1-bf16", [1, 5, 40], 8, 8, 64, 1, torch.bfloat16, 7, 64,
+         64, (2, 16)),
+        # tile cases: a chunk that is no multiple of 64, one that starts
+        # mid-page, two sequences' chunks inside one 64-lane window, block
+        # 32 and 8, a window across a tile
+        ("chunk70-block32-bf16", [200], 32, 32, 128, 32, torch.bfloat16, 0,
+         64, 8, (0, 70)),
+        ("chunk-mid-page-fp16", [137], 32, 4, 64, 16, torch.float16, 0, 64,
+         16, (0, 100)),
+        ("two-sequences-one-window-bf16", [90, 120], 32, 32, 128, 16,
+         torch.bfloat16, 0, 64, 8, [(0, 40), (1, 40)]),
+        ("block8-window-bf16", [250], 8, 2, 64, 8, torch.bfloat16, 40, 64,
+         32, (0, 100)),
+        # lane cases: 1-lane decode at 17, 16 lanes at 4096
+        ("decode1x17-bf16", [17], 32, 32, 128, 16, torch.bfloat16, 0, 256,
+         2, None),
+        ("decode16x4096-gqa-bf16", [4096] * 16, 32, 4, 64, 16,
+         torch.bfloat16, 0, 256, 256, None),
     ]
     worst = 0.0
-    for name, contexts, hq, hkv, hd, block, dtype, window, mp, live in cases:
+    for (name, contexts, hq, hkv, hd, block, dtype, window, mp, live,
+         chunks) in cases:
         q, kp, vp, tab, pos, slots = _paged_inputs(
-            gen, contexts, hq, hkv, hd, block, dtype,
-            prefill_of=(2, 16) if len(contexts) > 2 else None, max_pages=mp)
-        got = pa.paged_attention(q, kp, vp, tab, pos, seq_slots=slots,
-                                 live_pages=live, window=window)
-        torch.cuda.synchronize()
-        ref = pa.paged_attention_reference(q, kp, vp, tab, pos,
-                                           seq_slots=slots, live_pages=live,
-                                           window=window)
-        ok, err, tol = check_half_or_fp32(got, ref)
-        log(f"kernels: paged_attention {name} T={q.shape[0]} max_abs_err="
-            f"{err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"paged_attention disagrees with its plain "
-                             f"version on {name}")
-        worst = max(worst, err)
+            gen, contexts, hq, hkv, hd, block, dtype, prefill_of=chunks,
+            max_pages=mp, decode=len(contexts) > 2 or chunks is None)
+        worst = max(worst, _paged_twice(name, q, kp, vp, tab, pos, slots,
+                                        live, window))
 
     timings = {}
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -452,38 +606,10 @@ def phase_kernels() -> dict:
             gen, spec["contexts"], 32, 32, 128, 16, torch.bfloat16,
             prefill_of=spec["prefill_of"], decode=spec["decode"],
             max_pages=256, extra_pages=0)
-        live = spec["live"]
-
-        def kern():
-            return pa.paged_attention(q, kp, vp, tab, pos, seq_slots=slots,
-                                      live_pages=live)
-
-        def plain():
-            return pa.paged_attention_reference(q, kp, vp, tab, pos,
-                                                seq_slots=slots,
-                                                live_pages=live)
-
-        got, ref = kern(), plain()
-        ok, err, tol = check_half_or_fp32(got, ref)
-        log(f"kernels: paged_attention {label} T={q.shape[0]} max_abs_err="
-            f"{err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"paged_attention disagrees with its plain "
-                             f"version on {label}")
-        worst = max(worst, err)
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        p1 = cuda_ms(plain, 3, flush)
-        k1 = cuda_ms(kern, 20, flush)
-        k2 = cuda_ms(kern, 20, flush)
-        p2 = cuda_ms(plain, 3, flush)
-        bound_ms, bound_by, nbytes, ops = _bound(q, kp, tab, pos, slots,
-                                                 live, 0)
-        timings[label] = {"T": q.shape[0], "ms": min(k1, k2),
-                          "plain_ms": min(p1, p2), "bound_ms": bound_ms,
-                          "bound_by": bound_by, "bytes": nbytes, "ops": ops}
-        log(f"kernels: paged_attention {label} T={q.shape[0]} kernel "
-            f"{k1:.4f}/{k2:.4f} ms plain {p1:.4f}/{p2:.4f} ms bound "
-            f"{bound_ms:.4f} ms ({bound_by}, {nbytes} B)")
+        worst = max(worst, _paged_twice(label, q, kp, vp, tab, pos, slots,
+                                        spec["live"], 0))
+        timings[label] = _time_paged(label, q, kp, vp, tab, pos, slots,
+                                     spec["live"], flush)
     del flush
     return {"max_abs_err": worst, "timings": timings}
 
@@ -496,10 +622,12 @@ def _quantized_pools(kp, vp, bits):
 
 
 def phase_paged_quant(flush: torch.Tensor) -> dict:
-    """The quantized-pool kernel (int8, int4) against its plain version:
-    PR 1's 7b shapes in bf16 and fp32 q, a window, GQA with hd 64; then
-    decode_16x1024 and prefill_512 compared again and timed beside their
-    bound (payload + scale bytes). Returns {bits: {max_abs_err, timings}}."""
+    """Quantized pools (int8, int4), all on lane items, against the plain
+    version: the 7b shapes in bf16 and fp32 q, a window, GQA with hd
+    64, a prefill chunk, each twice for bitwise-equal runs; then
+    decode_16x1024 and prefill_512 timed beside the replaced
+    quantized-pool kernel and their bound (payload + scale bytes).
+    Returns {bits: {max_abs_err, timings}}."""
     gen = torch.Generator().manual_seed(4)
     ctxs = [1, 17, 1000, 4096]
     cases = [
@@ -520,19 +648,9 @@ def phase_paged_quant(flush: torch.Tensor) -> dict:
                 gen, contexts, hq, hkv, hd, block, dtype,
                 prefill_of=(2, 16), max_pages=mp)
             kq, vq, quant = _quantized_pools(kp, vp, bits)
-            got = pa.paged_attention(q, kq, vq, tab, pos, seq_slots=slots,
-                                     live_pages=live, window=window, **quant)
-            torch.cuda.synchronize()
-            ref = pa.paged_attention_reference(
-                q, kq, vq, tab, pos, seq_slots=slots, live_pages=live,
-                window=window, **quant)
-            ok, err, tol = check_half_or_fp32(got, ref)
-            log(f"kernels: paged_attention int{bits} {name} T={q.shape[0]} "
-                f"max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"quantized paged_attention disagrees with "
-                                 f"its plain version on int{bits} {name}")
-            worst = max(worst, err)
+            worst = max(worst, _paged_twice(f"int{bits} {name}", q, kq, vq,
+                                            tab, pos, slots, live, window,
+                                            **quant))
         timings = {}
         for label, spec in PAGED_SHAPES.items():
             q, kp, vp, tab, pos, slots = _paged_inputs(
@@ -541,41 +659,12 @@ def phase_paged_quant(flush: torch.Tensor) -> dict:
                 max_pages=256, extra_pages=0)
             kq, vq, quant = _quantized_pools(kp, vp, bits)
             del kp, vp
-            live = spec["live"]
-
-            def kern():
-                return pa.paged_attention(q, kq, vq, tab, pos,
-                                          seq_slots=slots, live_pages=live,
-                                          **quant)
-
-            def plain():
-                return pa.paged_attention_reference(
-                    q, kq, vq, tab, pos, seq_slots=slots, live_pages=live,
-                    **quant)
-
-            got, ref = kern(), plain()
-            ok, err, tol = check_half_or_fp32(got, ref)
-            log(f"kernels: paged_attention int{bits} {label} "
-                f"T={q.shape[0]} max_abs_err={err:.3e} tol={tol} "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"quantized paged_attention disagrees with "
-                                 f"its plain version on int{bits} {label}")
-            worst = max(worst, err)
-            p1 = cuda_ms(plain, 3, flush)
-            k1 = cuda_ms(kern, 20, flush)
-            k2 = cuda_ms(kern, 20, flush)
-            p2 = cuda_ms(plain, 3, flush)
-            bound_ms, bound_by, nbytes, ops = _bound(q, kq, tab, pos, slots,
-                                                     live, 0, kv_bits=bits)
-            timings[label] = {"T": q.shape[0], "ms": min(k1, k2),
-                              "plain_ms": min(p1, p2), "bound_ms": bound_ms,
-                              "bound_by": bound_by, "bytes": nbytes,
-                              "ops": ops}
-            log(f"kernels: paged_attention int{bits} {label} "
-                f"T={q.shape[0]} kernel {k1:.4f}/{k2:.4f} ms plain "
-                f"{p1:.4f}/{p2:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, "
-                f"{nbytes} B)")
+            worst = max(worst, _paged_twice(f"int{bits} {label}", q, kq, vq,
+                                            tab, pos, slots, spec["live"], 0,
+                                            **quant))
+            timings[label] = _time_paged(f"int{bits} {label}", q, kq, vq,
+                                         tab, pos, slots, spec["live"],
+                                         flush, **quant)
         out[bits] = {"max_abs_err": worst, "timings": timings}
     return out
 
@@ -772,6 +861,39 @@ def _same_pools(a, b) -> bool:
                for x, y in zip(la, lb))
 
 
+def _bf16_generate(engines: dict, prompts: dict) -> None:
+    """generate (a prefill put, then one decode_steps chunk of 15 steps)
+    on the 2-layer engines over bf16 pools, whose prefill runs take tile
+    items: on cuda the put must run tile and lane items and the decode
+    steps lane items alone, one launch a layer each; both streams hold 16
+    in-vocabulary tokens a prompt, and their agreement is printed (bf16
+    rounds differently on the two devices, so it is not required). No
+    leaked blocks."""
+    from deepspeed_tpu_torch.inference.ragged import assert_block_balance
+
+    uids = list(prompts)
+    for e in engines.values():
+        e.flush(uids)
+    before = _paged_counts()
+    streams = {dev: e.generate(prompts, max_new_tokens=16)
+               for dev, e in engines.items()}
+    moved = tuple(a - b for a, b in zip(_paged_counts(), before))
+    want = (2, 2 * (1 + 15))        # 2 layers x (1 put; the put + 15 steps)
+    same = sum(a == b for u in uids
+               for a, b in zip(streams["cuda"][u], streams["cpu"][u]))
+    ok = (moved == want and all(
+        len(t) == 16 and all(0 <= x < 32000 for x in t)
+        for st in streams.values() for t in st.values()))
+    for e in engines.values():
+        assert_block_balance(e, expect_free=64)
+    log(f"parity B: 2-layer d_model 4096 bfloat16 kv_quant=none: generate "
+        f"16 tokens x 3 on cuda: tile / split launches {moved} (want "
+        f"{want}); tokens equal to cpu's {same} of {16 * len(uids)}; "
+        f"blocks balanced, 64 free {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("path B: generate over a bf16 pool failed")
+
+
 def phase_ragged_quant_parity() -> None:
     """Path B at Llama-2-7B's width, 2 layers, the same weights on cuda
     and cpu, one put of 3 prompts (5, 40 and 77 tokens) over int8 and int4
@@ -813,13 +935,17 @@ def phase_ragged_quant_parity() -> None:
                 kv_quant=kvq), device=dev)
 
         t1 = time.perf_counter()
-        none = {dev: engine(m, dev, "none").put(uids, toks)
-                for dev, m in (("cuda", gpu_model), ("cpu", cpu_model))}
+        plain = {dev: engine(m, dev, "none")
+                 for dev, m in (("cuda", gpu_model), ("cpu", cpu_model))}
+        none = {dev: e.put(uids, toks) for dev, e in plain.items()}
         err_none = _max_err(none["cuda"], none["cpu"])
         log(f"parity B: 2-layer d_model 4096 {dname} kv_quant=none: put "
             f"logits cuda vs cpu max_abs_err={err_none:.3e}, max|ref| "
             f"{np.abs(none['cpu']).max():.3e} "
             f"({time.perf_counter() - t1:.1f} s)")
+        if dtype == torch.bfloat16:
+            _bf16_generate(plain, prompts)
+        del plain
         for kvq in ("int8", "int4"):
             t1 = time.perf_counter()
             bits = int(kvq[3:])
@@ -965,6 +1091,7 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
     an int8/int4 pool of the same bytes (path B). ``model`` reuses an
     earlier phase's weights. Returns (the paged-attention launches of the
     run, the engine, the prompts) for the profile phase."""
+    import deepspeed_tpu_torch.inference.ragged as ragged_mod
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                       RaggedInferenceEngine,
                                                       kv_blocks_for_bytes)
@@ -993,14 +1120,37 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
         f"pool {cfg.n_kv_blocks}x{cfg.kv_block_size} pages, {pool_bytes} B "
         f"(budget {FP_POOL_BYTES} B), built in "
         f"{time.perf_counter() - t0:.1f} s")
-    puts = [0]
+    # puts, puts that ran tile items / lane items (from the counters'
+    # moves, which must be 0 or one a layer), and puts whose move was not
+    puts = [0, 0, 0, 0]
     real_put = eng.put
 
     def counted_put(uids, toks):
+        before = _paged_counts()
+        logits = real_put(uids, toks)
+        moved = [a - b for a, b in zip(_paged_counts(), before)]
         puts[0] += 1
-        return real_put(uids, toks)
+        puts[1] += moved[0] > 0
+        puts[2] += moved[1] > 0
+        puts[3] += any(n not in (0, n_layers) for n in moved)
+        return logits
 
     eng.put = counted_put
+    # layer 0's call of the first put that runs a prefill chunk on tile
+    # items and decode lanes on lane items, kept (not copied) for phase 5b
+    mixed = {}
+    real_paged = ragged_mod.paged_attention
+
+    def recording(q, kp, vp, tables, positions, **kw):
+        work = kw.get("work")
+        if not mixed and kv_quant == "none" and work is not None \
+                and work.n_tiles and work.n_lanes > work.n_pad:
+            mixed.update(q=q, kp=kp, vp=vp, tab=tables, pos=positions,
+                         slots=kw["seq_slots"], live=kw["live_pages"],
+                         work=work)
+        return real_paged(q, kp, vp, tables, positions, **kw)
+
+    ragged_mod.paged_attention = recording
     rng = np.random.default_rng(0)
     lengths = rng.integers(64, 1537, 8)
     prompts = [rng.integers(1, 32000, int(n)).tolist() for n in lengths]
@@ -1009,9 +1159,9 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
         # warm-up request (cuBLAS handles, allocator), outside the count
         srv.submit(prompts[0][:16], max_new_tokens=2).result(timeout=600)
         torch.cuda.synchronize()
-        for name in PAGED_COUNTER.values():
+        for name in PAGED_PATH_COUNTERS:
             setattr(pa.paged_attention, name, 0)
-        puts[0] = 0
+        puts[:] = [0, 0, 0, 0]
         t1 = time.perf_counter()
         reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
         for r in reqs:
@@ -1019,10 +1169,12 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         counts = {n: getattr(pa.paged_attention, n)
-                  for n in PAGED_COUNTER.values()}
-        launches, n_puts = counts[counter], puts[0]
+                  for n in PAGED_PATH_COUNTERS}
+        launches, (n_puts, tile_puts, item_puts, odd_puts) = \
+            counts[counter], puts
     finally:
         srv.close(timeout=60)
+        ragged_mod.paged_attention = real_paged
     leaks = srv.block_leaks()
     states = [r.state for r in reqs]
     ntok = [len(r.tokens) for r in reqs]
@@ -1033,10 +1185,15 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
           and ntok == [32] * 8 and leaks == [] and len(ttft) == 8
           and all(0 <= t < 32000 for r in reqs for t in r.tokens)
           and launches == n_layers * n_puts and launches > 0
-          and sum(counts.values()) == launches)
-    log(f"{tag}: {n_puts} engine puts, paged_attention launches {counts} "
-        f"({n_layers} layers x puts = {n_layers * n_puts}, all {counter}), "
-        f"block leaks {leaks}")
+          and sum(counts[n] for n in PAGED_COUNTER.values()) == launches
+          and counts["tile_launches"] == n_layers * tile_puts
+          and counts["split_launches"] == n_layers * item_puts
+          and odd_puts == 0
+          and (tile_puts > 0) == (kv_quant == "none"))
+    log(f"{tag}: {n_puts} engine puts ({tile_puts} with prefill tile items, "
+        f"{item_puts} with lane items), paged_attention launches {counts} "
+        f"({n_layers} layers x puts = {n_layers * n_puts}, all {counter}; "
+        f"tile / split launches = layers x those puts), block leaks {leaks}")
     log(f"{tag} [{card}]: wall {wall:.3f} s for 8 requests, TTFT p50 "
         f"{ttft[len(ttft) // 2]:.3f} s max {ttft[-1]:.3f} s, "
         f"{sum(ntok) / wall:.1f} generated tokens/s")
@@ -1047,7 +1204,32 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
         f"{torch.cuda.max_memory_allocated()} B")
     if not ok:
         raise SystemExit("serving phase failed")
-    return launches, eng, prompts
+    paths = {"launches": launches, "tile_launches": counts["tile_launches"],
+             "split_launches": counts["split_launches"], "mixed": mixed}
+    return paths, eng, prompts
+
+
+# --------------------------------------------------------------- phase 5b
+def phase_paged_mixed(mixed: dict, card: str) -> dict:
+    """Layer 0's paged-attention call of a mixed put recorded in phase 5
+    (decode lanes + a prefill chunk over the serving pool): compared with
+    the plain version twice, then timed beside the replaced kernel, the
+    plain version and its bound."""
+    if not mixed:
+        raise SystemExit("serving recorded no put with both tile and lane "
+                         "items")
+    m = mixed
+    args = (m["q"], m["kp"], m["vp"], m["tab"], m["pos"], m["slots"],
+            m["live"])
+    _paged_twice("mixed_put", *args, 0, work=m["work"])
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    t = _time_paged(f"mixed_put [{card}]", *args, flush, work=m["work"])
+    plan = m["work"].plan.cpu().numpy()
+    t["work"] = {"T": m["work"].T, "tiles": plan[:2 * m["work"].n_tiles]
+                 .reshape(-1, 2).tolist(), "lane_items": m["work"].n_items,
+                 "lanes": m["work"].n_lanes, "padding": m["work"].n_pad}
+    log(f"kernels: paged_attention mixed_put work list {t['work']}")
+    return t
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1081,7 +1263,7 @@ def phase_profile(eng, prompts, card: str, tag: str = "profile") -> None:
     groups = {"paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
-        g = "paged_attention" if "paged_attention" in name else \
+        g = "paged_attention" if "paged_" in name else \
             "gemm" if any(k in name for k in ("nvjet", "gemm", "xmma",
                                                "cutlass")) else "other"
         groups[g] += e.self_device_time_total
@@ -1279,7 +1461,8 @@ FLASH_CASES = [
 ]
 TRAIN_SHAPE = dict(b=4, s=2048, hq=32, hkv=4, d=64)   # Llama("1b"), GAS 2
 # the kernel each flash row takes at the training shape
-FLASH_PATH = {"flash_forward": "mma.sync m16n8k16, 64-row q tiles",
+FLASH_PATH = {"flash_forward": "wgmma: TMA ring of K/V tiles, 128 q rows "
+                               "a block, m64n64k16",
               "flash_backward_dq": "wgmma: TMA ring of K/V tiles, 128 q rows "
                                    "a block, m64n64k16",
               "flash_backward_dkv": "wgmma: TMA ring of Q/dO tiles, 128 keys "
@@ -1349,9 +1532,11 @@ def _flash_errors(got, ref, dtype) -> tuple:
     return ok, errs, tol
 
 
-def _backward_counts() -> list:
-    """[dq launches, dq Hopper launches, dk/dv, dk/dv Hopper]."""
-    return [fa.flash_backward_dq.launches, fa.flash_backward_dq.wgmma_launches,
+def _flash_counts() -> list:
+    """[forward launches, forward Hopper launches, dq, dq Hopper, dk/dv,
+    dk/dv Hopper]."""
+    return [fa.flash_forward.launches, fa.flash_forward.wgmma_launches,
+            fa.flash_backward_dq.launches, fa.flash_backward_dq.wgmma_launches,
             fa.flash_backward_dkv.launches,
             fa.flash_backward_dkv.wgmma_launches]
 
@@ -1372,30 +1557,39 @@ def phase_flash_kernels() -> dict:
         q, k, v, do = _flash_inputs(gen, b, sq, skv, hq, hkv, d, dtype)
         hopper = fa.flash_wgmma_path(dtype, d, hq, hkv, tuple(
             t.data_ptr() for t in (q, k, v, do)))
-        before = _backward_counts()
+        fwd_hopper = fa.flash_forward_wgmma_path(
+            dtype, d, hq, hkv, tuple(t.data_ptr() for t in (q, k, v)),
+            1.0 / math.sqrt(d))
+        before = _flash_counts()
         got = _flash_kernels(q, k, v, do, causal, window)
         torch.cuda.synchronize()
-        moved = [a - b_ for a, b_ in zip(_backward_counts(), before)]
+        moved = [a - b_ for a, b_ in zip(_flash_counts(), before)]
         ref = _flash_plain(q, k, v, do, causal, window)
         ok, errs, tol = _flash_errors(got, ref, dtype)
         if sq > skv:     # rows before the first key see nothing: 0, 1e30
             ok &= bool((got[0][:, :sq - skv] == 0).all()
                        and (got[1][:, :, :sq - skv] == 1e30).all())
-        # one dq and one dk/dv launch, on the Hopper kernels exactly when
-        # flash_wgmma_path accepts the case
-        path_ok = moved == [1, int(hopper), 1, int(hopper)]
+        # one forward, dq and dk/dv launch each, on the Hopper kernels
+        # exactly when flash_forward_wgmma_path / flash_wgmma_path accept
+        # the case
+        path_ok = moved == [1, int(fwd_hopper), 1, int(hopper), 1,
+                            int(hopper)]
+        fpath = "Hopper TMA + wgmma" if fwd_hopper else \
+            _flash_old_path(dtype, d)
         path = "Hopper TMA + wgmma" if hopper else _flash_old_path(dtype, d)
         log(f"flash: {label} " + " ".join(
             f"{n} {e:.2e}/{m:.2e}" for n, (e, m) in errs.items())
-            + f" (max abs err / max |plain|; {tol}); backward on the {path} "
-            f"kernels (dq, dq wgmma, dk/dv, dk/dv wgmma launches {moved}) "
+            + f" (max abs err / max |plain|; {tol}); forward on the {fpath} "
+            f"kernel, backward on the {path} kernels (forward, forward "
+            f"wgmma, dq, dq wgmma, dk/dv, dk/dv wgmma launches {moved}) "
             f"{'ok' if ok and path_ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"flash kernels disagree with their plain "
                              f"versions on {label}")
         if not path_ok:
-            raise SystemExit(f"flash backward of {label} did not take the "
-                             f"path flash_wgmma_path names: {moved}")
+            raise SystemExit(f"flash kernels of {label} did not take the "
+                             f"paths flash_forward_wgmma_path and "
+                             f"flash_wgmma_path name: {moved}")
         worst["flash_forward"] = max(worst["flash_forward"], errs["out"][0])
         worst["flash_backward_dq"] = max(worst["flash_backward_dq"],
                                          errs["dq"][0])
@@ -1467,10 +1661,18 @@ def phase_flash_timing(flush: torch.Tensor) -> dict:
             *ptrs, dk_o.data_ptr(), dv_o.data_ptr(), *args),
             "flash_backward_dkv (mma.sync)")
 
-    mma = {"flash_backward_dq": mma_dq, "flash_backward_dkv": mma_dkv}
-    # plain, kernel, kernel, plain (the backward: mma.sync, Hopper, Hopper,
-    # mma.sync): compare within one call, in turns
-    before = _backward_counts()
+    fwd_out, fwd_lse = torch.empty_like(q), torch.empty_like(lse)
+
+    def mma_fwd():
+        fa._raise_on(lib, lib.dst_flash_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), fwd_out.data_ptr(),
+            fwd_lse.data_ptr(), *args), "flash_forward (mma.sync)")
+
+    mma = {"flash_forward": mma_fwd, "flash_backward_dq": mma_dq,
+           "flash_backward_dkv": mma_dkv}
+    # plain, kernel, kernel, plain (and the replaced mma.sync kernels
+    # around the Hopper ones): compare within one call, in turns
+    before = _flash_counts()
     p_f1, p_b1 = cuda_ms(plain_fwd, 3, flush), cuda_ms(plain_bwd, 3, flush)
     mms = {n: [cuda_ms(fn, 10, flush)] for n, fn in mma.items()}
     kms = {n: [cuda_ms(fn, 10, flush), cuda_ms(fn, 10, flush)]
@@ -1478,12 +1680,13 @@ def phase_flash_timing(flush: torch.Tensor) -> dict:
     for n, fn in mma.items():
         mms[n].append(cuda_ms(fn, 10, flush))
     p_f2, p_b2 = cuda_ms(plain_fwd, 3, flush), cuda_ms(plain_bwd, 3, flush)
-    moved = [a - b_ for a, b_ in zip(_backward_counts(), before)]
-    if moved != [24, 24, 24, 24]:
-        raise SystemExit(f"flash timing: the timed backward calls were not "
-                         f"all on the Hopper kernels: {moved}")
+    moved = [a - b_ for a, b_ in zip(_flash_counts(), before)]
+    if moved != [24] * 6:
+        raise SystemExit(f"flash timing: the timed calls were not all on "
+                         f"the Hopper kernels: {moved}")
     lib_f = cuda_ms(lib_fwd, 10, flush)
     lib_b = cuda_ms(lib_fwd_bwd, 10, flush) - lib_f
+
     pairs = _visible_pairs(b, s, s, hq, True, 0)
     e = q.element_size()
     qbytes, kvbytes, rowbytes = q.numel() * e, k.numel() * e, b * hq * s * 4
@@ -1507,12 +1710,11 @@ def phase_flash_timing(flush: torch.Tensor) -> dict:
             "ops": ops, "bytes": nbytes[name],
             "path": FLASH_PATH[name]}
         r = res[name]
-        if not fwd:
-            r["mma_ms"] = min(mms[name])
+        r["mma_ms"] = min(mms[name])
         log(f"flash: {name} b4 s2048 hq32 hkv4 d64 bf16 causal: kernel "
             f"{kms[name][0]:.4f}/{kms[name][1]:.4f} ms"
-            + ("" if fwd else f" ({r['path']}; the mma.sync kernel "
-               f"{mms[name][0]:.4f}/{mms[name][1]:.4f} ms)")
+            + f" ({r['path']}; the mma.sync kernel "
+            f"{mms[name][0]:.4f}/{mms[name][1]:.4f} ms)"
             + f", plain {(p_f1, p_f2) if fwd else (p_b1, p_b2)} ms"
             f"{'' if fwd else ' (the whole plain backward)'}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {ops:.3e} ops, "
@@ -1598,7 +1800,8 @@ def phase_training(card: str):
     """Llama("1b") at full width and depth (22 layers, 1.1e9 parameters,
     seeded random fp32 master weights), bf16 compute, full remat, GAS 2 of
     4 x 2048 tokens, AdamW, clipping: 2 warm-up steps, then 4 timed steps
-    with the flash launch counts reset just before and read just after."""
+    with the flash launch counts reset just before and read just after;
+    every forward, dq and dk/dv launch must be on the Hopper kernels."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.llama import Llama
 
@@ -1660,7 +1863,7 @@ def phase_training(card: str):
         f"{[round(x, 4) for x in norms]}, skipped {skipped}")
     log(f"training: flash launches in 4 timed steps {launches} (per step "
         f"{per_step}: {c.n_layers} layers x forward + remat replay x GAS 2); "
-        f"on the Hopper backward kernels {hopper} (all of them: "
+        f"on the Hopper kernels {hopper} (all of them: "
         f"{all(hopper[n] == launches[n] for n in hopper)})")
     log(f"training [{card}]: step times {[round(x, 4) for x in times]} s; "
         f"timed step (mean of four) {step_s:.4f} s, "
@@ -2580,7 +2783,8 @@ def main() -> int:
     phase_engine()
     phase_ragged_quant_parity()
     phase_inference_parity()
-    launches, eng, prompts = phase_serving(dev["card"])
+    paths, eng, prompts = phase_serving(dev["card"])
+    mixed_t = phase_paged_mixed(paths.pop("mixed"), dev["card"])
     phase_profile(eng, prompts, dev["card"])
     model = eng.model
     paged_q = {}
@@ -2589,6 +2793,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         paged_q[kvq], eng, _ = phase_serving(dev["card"], model, kvq)
+        del paged_q[kvq]["mixed"]
         if kvq == "int8":
             phase_profile(eng, prompts, dev["card"], "profile int8")
     del eng, model, prompts
@@ -2606,24 +2811,30 @@ def main() -> int:
     d = kern["timings"]["decode_16x1024"]
     entries = [{"name": "paged_attention", "route": "cuda",
                 "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
-                "launches": launches, "max_abs_err": kern["max_abs_err"],
+                "launches": paths["launches"],
+                "tile_launches": paths["tile_launches"],
+                "split_launches": paths["split_launches"],
+                "max_abs_err": kern["max_abs_err"],
                 "ms": d["ms"], "kernel_ms": d["ms"],
                 "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
                 "bound_by": d["bound_by"], "library_ms": None,
-                "parity": "ok", "shape": "decode_16x1024",
-                "timings": kern["timings"], "card": dev["card"]}]
+                "parity": "ok", "shape": "decode_16x1024", "path": PAGED_PATH,
+                "timings": {**kern["timings"], "mixed_put": mixed_t},
+                "card": dev["card"]}]
     for bits in (8, 4):
-        kq = kern_q[bits]
+        kq, run = kern_q[bits], paged_q[f"int{bits}"]
         d = kq["timings"]["decode_16x1024"]
         entries.append({
             "name": f"paged_attention_int{bits}", "route": "cuda",
             "source": PAGED_SOURCE, "replaces": PAGED_QUANT_REPLACES,
-            "launches": paged_q[f"int{bits}"],
+            "launches": run["launches"],
+            "tile_launches": run["tile_launches"],
+            "split_launches": run["split_launches"],
             "max_abs_err": kq["max_abs_err"], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": None, "parity": "ok",
-            "shape": "decode_16x1024", "timings": kq["timings"],
-            "card": dev["card"]})
+            "shape": "decode_16x1024", "path": "lane items (every lane)",
+            "timings": kq["timings"], "card": dev["card"]})
     for name, (_, replaces, _) in FLASH_KERNELS.items():
         t = flash_t[name]
         entries.append({

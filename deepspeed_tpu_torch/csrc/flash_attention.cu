@@ -46,31 +46,38 @@
 //   fp32 registers. No atomics: every output element is written once by one
 //   block, so two runs give bitwise-equal gradients.
 // Three instruction paths share that structure:
-// - the backward in bf16/fp16 at d 64 (the training path) takes the Hopper
-//   kernels `flash_backward_dq_wgmma_kernel` (replacing `_dq_kernel`) and
-//   `flash_backward_dkv_wgmma_kernel` (replacing `_dkv_kernel`): a
-//   producer warp keeps TMA loads of the streamed tiles (K/V for dq, Q/dO
-//   with their lse and delta rows for dk/dv) in flight into a 4-stage ring
-//   of mbarrier-guarded shared memory, and two consumer warpgroups of 64
-//   rows run wgmma m64n64k16 on the tiles as TMA wrote them (128-byte
-//   swizzle): K-major for S = Q.K^T and dP = dO.V^T, MN-major through
-//   wgmma's transpose bit for dQ = dS.K, dV = P^T.dO and dK = dS^T.Q, so no
-//   tile is ever copied transposed. A dq block owns 128 q rows, a dk/dv
-//   block 128 keys; the grids launch the heaviest tiles of the causal
-//   triangle first. Its section below says more.
-// - bf16/fp16 forward at d 64 and 128, and the backward at d 128 (whose
-//   dK and dV accumulators would not fit the wgmma kernels' registers):
-//   four warps per block, mma.sync m16n8k16 on T operands staged in shared
-//   memory, fp32 accumulators; P and dS pass from the score accumulators
-//   straight into the next product's A operand (see the tensor-core
-//   section below).
+// - the forward in bf16/fp16 at d 64 and 128 takes the Hopper kernel
+//   `flash_forward_wgmma_kernel` (replacing `_fwd_kernel`): a producer
+//   warp keeps TMA loads of K/V tiles in flight into an mbarrier ring, two
+//   consumer warpgroups of 64 q rows run attn_fwd.cuh's mainloop (wgmma
+//   m64n64k16 for S = Q.K^T and O += P.V, the online softmax in
+//   registers between them), 128 q rows a block, heaviest q tiles first.
+//   The backward in bf16/fp16 at d 64 (the training path) takes the
+//   Hopper kernels `flash_backward_dq_wgmma_kernel` (replacing
+//   `_dq_kernel`) and `flash_backward_dkv_wgmma_kernel` (replacing
+//   `_dkv_kernel`): a producer warp keeps TMA loads of the streamed tiles
+//   (K/V for dq, Q/dO with their lse and delta rows for dk/dv) in flight
+//   into a 4-stage ring of mbarrier-guarded shared memory, and two
+//   consumer warpgroups of 64 rows run wgmma m64n64k16 on the tiles as TMA
+//   wrote them (128-byte swizzle): K-major for S = Q.K^T and dP = dO.V^T,
+//   MN-major through wgmma's transpose bit for dQ = dS.K, dV = P^T.dO and
+//   dK = dS^T.Q, so no tile is ever copied transposed. A dq block owns 128
+//   q rows, a dk/dv block 128 keys; the grids launch the heaviest tiles of
+//   the causal triangle first. The Hopper sections below say more.
+// - the backward at d 128 (whose dK and dV accumulators would not fit the
+//   wgmma kernels' registers), and the forward and backward wherever the
+//   caller does not take the Hopper kernels: four warps per block,
+//   mma.sync m16n8k16 on T operands staged in shared memory, fp32
+//   accumulators; P and dS pass from the score accumulators straight into
+//   the next product's A operand (see the tensor-core section below).
+//   `flash_forward_mma_kernel` stays as the yardstick the Hopper forward
+//   is timed against.
 // - fp32, and d 256: 256 threads on a 16 x 16 grid, scalar fp32 FMA over
 //   tiles converted to fp32 in shared memory (rows padded by one float);
 //   kv tiles are 32 rows at d 256 so dk/dv stays under 227 KB.
 // Above 48 KB of shared memory the launcher raises the dynamic limit.
-// Later work: the forward on TMA + wgmma, softmax overlapped with the next
-// product inside a warpgroup, and a persistent schedule over the causal
-// triangle.
+// Later work: softmax overlapped with the next product inside a
+// warpgroup, and a persistent schedule over the causal triangle.
 
 #include <cstdint>
 #include <type_traits>
@@ -79,13 +86,12 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
-#include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors, tensor maps
+#include "attn_fwd.cuh"  // the forward mainloop, wgmma helpers, hopper.cuh
 
 namespace {
 
-using namespace hopper;
+using namespace attn;
 
-constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;  // a 16 x 16 thread grid over every tile
 constexpr int kBQ = 64;        // q rows per tile
 
@@ -609,19 +615,6 @@ __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // c += a (16 x 16, row-major) . b (16 x 8, col-major), fp32 accumulators
 template <typename T>
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
@@ -1065,9 +1058,7 @@ flash_backward_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // TMA fills the ragged tail with zeros, which `Problem::visible` masks.
 // Tiles that the mask cannot touch (`all_visible`) skip it.
 constexpr int kHopThreads = 384;
-constexpr int kRows64 = 64 * 128;  // bytes of 64 rows of d 64 in 16 bits
 constexpr int kStages = 4;
-constexpr float kLog2e = 1.4426950408889634f;
 // dq: a block owns 128 q rows and streams kv tiles of 64 keys
 constexpr int kDqRows = 128, kDqKv = 64;
 // dk/dv: a block owns 128 keys and streams q tiles of 64 rows of each
@@ -1096,93 +1087,6 @@ struct DkvLayout {
 };
 static_assert(DqLayout::SMEM <= 232448 && DkvLayout::SMEM <= 232448,
               "shared memory of a block");
-
-#define DST_ACC32(d)                                                         \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
-  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
-  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),           \
-  "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),           \
-  "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),           \
-  "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-#define DST_D32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31}"
-
-// d[64 x 64] (+)= A[64 x 16] . B[16 x 64]: A from shared memory (K-major
-// descriptor da), B from shared memory (descriptor db, MN-major when
-// TRANS_B); accumulate 0 overwrites d. Asynchronous until wgmma_wait.
-template <typename T, int TRANS_B>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " DST_D32
-        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
-        : DST_ACC32(d) : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DST_D32
-        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
-        : DST_ACC32(d) : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
-  }
-}
-
-// d[64 x 64] += A[64 x 16] . B[16 x 64] with A from registers: warp w of
-// the warpgroup holds rows 16 w .. 16 w + 15 in mma.sync's m16n8k16 A
-// layout: a[0] row g, columns 2t and 2t + 1; a[1] row g + 8; a[2] and a[3]
-// the same rows, columns 2t + 8 and 2t + 9; g = lane / 4, t = lane % 4
-template <typename T, int TRANS_B>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " DST_D32
-        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : DST_ACC32(d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-          "n"(TRANS_B));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DST_D32
-        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : DST_ACC32(d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-          "n"(TRANS_B));
-  }
-}
-
-#undef DST_ACC32
-#undef DST_D32
-
-// Accumulator element x = 4 j + e of a warp's m64n64 tile sits at row
-// 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2. The A fragment of k step
-// kk (columns 16 kk .. 16 kk + 15) is then elements 8 kk .. 8 kk + 7 in
-// pairs, rounded to T.
-template <typename T>
-__device__ __forceinline__ void acc_as_a(uint32_t (&a)[4][4],
-                                         const float (&s)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-}
-
-// the descriptor of k step kk of a 64-row tile at shared address `tile`:
-// K-major (k along the 128-byte rows) or MN-major (k down the rows)
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return wg_desc(tile + 32 * kk, 16, 1024);
-}
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return wg_desc(tile + 2048 * kk, kRows64, 1024);
-}
 
 // dq of one kv tile in place of s (S = Q.K^T, fp32) for the thread's rows
 // rl, rl + 8 (lse2: lse * log2 e; dl: delta) and keys k0 + 8 j + 2 t + e % 2
@@ -1511,6 +1415,139 @@ flash_backward_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ------------------------------------------- Hopper path: the forward
+// `flash_forward_wgmma_kernel` replaces `_fwd_kernel` for bf16/fp16 at
+// head_dim 64 and 128 (what `fwd_hopper_ok` and ops/flash_attention.py
+// `flash_forward_wgmma_path` accept). A block owns 128 q rows of one
+// q-head: two consumer warpgroups of 64 rows (warps 0-7), then one
+// producer warp (warp 8), which loads the Q tile once and keeps the K/V
+// tiles of 64 keys that the causal band and the window reach in flight
+// in an mbarrier ring (4 stages at d 64, 3 at d 128). Each consumer runs
+// attn_fwd.cuh's `fwd_mainloop` over the stages: S = Q.K^T by wgmma, the
+// online softmax in registers (the mask only on tiles that cross the
+// diagonal, the band's edge or the ragged end), P rounded to T into A
+// registers, O += P.V with V read MN-major. The grid launches the
+// heaviest q tiles of the causal triangle first.
+constexpr int kFwdRows = 128;
+constexpr int kFwdThreads = 2 * 128 + 32;
+
+template <int D>
+struct FwdLayout {
+  static constexpr int H = D / 64;                 // swizzle atoms a row
+  static constexpr int QH = kFwdRows * 128;        // bytes between Q halves
+  static constexpr int RING = H * QH;              // Q: [H][128 rows][128 B]
+  static constexpr int STAGES = D == 64 ? 4 : 3;
+  static constexpr int STAGE = 2 * H * kRows64;    // K halves, then V halves
+  static constexpr int BARS = RING + STAGES * STAGE;
+  static constexpr int SMEM = 1024 + BARS + 8 * (1 + 2 * STAGES);
+};
+static_assert(FwdLayout<128>::SMEM <= 232448, "shared memory of a block");
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_forward_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           T* __restrict__ out, float* __restrict__ lse,
+                           Problem p) {
+  using L = FwdLayout<D>;
+  constexpr int H = L::H, S = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char ring_raw[];
+  const uint32_t raw = smem_addr(ring_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BARS;
+  const uint32_t qbar = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + S + s); };
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                             0);
+  const int t = threadIdx.x % 128;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (p.hq / p.hkv);
+  // heaviest first: under causal masking the last q tiles see most keys
+  const int nq = (p.sq + kFwdRows - 1) / kFwdRows;
+  const int qt = p.causal ? nq - 1 - static_cast<int>(blockIdx.z)
+                          : static_cast<int>(blockIdx.z);
+  const int r0 = qt * kFwdRows;
+  int lo, hi;
+  kv_tile_range(p, r0, min(r0 + kFwdRows, p.sq) - 1, 64, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer warp: Q once, then K and V of each kv tile
+    if (t == 0) {
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      mbar_expect_tx(qbar, H * L::QH);
+      for (int hh = 0; hh < H; ++hh)
+        tma_load_4d(base + hh * L::QH, &tm_q, qbar, 64 * hh, h, r0, b);
+      for (int j = lo; j < hi; ++j) {
+        const int i = j - lo, s = i % S;
+        mbar_wait(empty(s), ((i / S) & 1) ^ 1);
+        const uint32_t st = base + L::RING + s * L::STAGE;
+        mbar_expect_tx(full(s), L::STAGE);
+        for (int hh = 0; hh < H; ++hh) {
+          tma_load_4d(st + hh * kRows64, &tm_k, full(s), 64 * hh, hk, j * 64,
+                      b);
+          tma_load_4d(st + (H + hh) * kRows64, &tm_v, full(s), 64 * hh, hk,
+                      j * 64, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: q rows 64 wg .. 64 wg + 63 of the tile
+  const int lane = t & 31, tq = lane & 3;
+  const int rl = r0 + 64 * wg;
+  const int row0 = rl + 16 * (t >> 5) + (lane >> 2);  // and row0 + 8
+  float o[H][32];
+#pragma unroll
+  for (int hh = 0; hh < H; ++hh)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) o[hh][x] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const uint32_t qa = base + wg * kRows64;
+  mbar_wait(qbar, 0);
+  auto stage = [&](int i) {
+    mbar_wait(full(i % S), (i / S) & 1);
+    return base + L::RING + (i % S) * L::STAGE;
+  };
+  auto release = [&](int i) {
+    if (lane == 0) mbar_arrive(empty(i % S));
+  };
+  auto masked = [&](int i) {
+    const int k0 = (lo + i) * 64;
+    return !p.all_visible(rl, rl + 63, k0, k0 + 63);
+  };
+  auto vis = [&](int i, int ri, int col) {
+    return p.visible(row0 + 8 * ri, (lo + i) * 64 + col);
+  };
+  fwd_mainloop<T, D>(o, m, l, qa, L::QH, kRows64, max(hi - lo, 0),
+                     p.scale * kLog2e, stage, release, masked, vis);
+  fwd_finish<D>(o, l);
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int row = row0 + 8 * ri;
+    if (row >= p.sq) continue;
+    fwd_store_row<T, D>(
+        out + ((static_cast<long long>(b) * p.sq + row) * p.hq + h) * D, o,
+        ri);
+    if (tq == 0)
+      lse[(static_cast<long long>(b) * p.hq + h) * p.sq + row] =
+          l[ri] == 0.f ? -kNegInf : m[ri] * p.scale + logf(l[ri]);
+  }
+}
+
 // ---------------------------------------------------------------- launch
 template <int D>
 size_t forward_smem() {
@@ -1686,34 +1723,16 @@ bool hopper_ok(const Args& a, int sq, int skv, int d, int dtype) {
          (skv + kDkvKeys - 1) / kDkvKeys <= 65535;
 }
 
-// the tensor map of a [b, s, heads, 64] tensor of 16-bit T as the 4-D
-// array (d, heads, seq, batch), innermost first; box: `rows` rows of one
-// head's 64 channels
-template <typename T>
-int encode_heads(CUtensorMap* map, const void* ptr, int b, int s, int heads,
-                 int rows) {
-  const CUtensorMapDataType type = std::is_same<T, __half>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const cuuint64_t row = 64 * sizeof(T);
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * s};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  return encode_tiled(map, type, 4, ptr, dims, strides, box, true);
-}
-
 template <typename T>
 int launch_wgmma(Which which, const Args& a, const Problem& p,
                  cudaStream_t s) {
   const bool dq = which == Which::kDq;
   const int qrows = dq ? kDqRows : kDkvQ, kvrows = dq ? kDqKv : kDkvKeys;
   CUtensorMap tq, tdo, tk, tv;
-  int err = encode_heads<T>(&tq, a.q, a.b, p.sq, p.hq, qrows);
-  if (!err) err = encode_heads<T>(&tdo, a.dout, a.b, p.sq, p.hq, qrows);
-  if (!err) err = encode_heads<T>(&tk, a.k, a.b, p.skv, p.hkv, kvrows);
-  if (!err) err = encode_heads<T>(&tv, a.v, a.b, p.skv, p.hkv, kvrows);
+  int err = encode_heads<T>(&tq, a.q, a.b, p.sq, p.hq, 64, qrows);
+  if (!err) err = encode_heads<T>(&tdo, a.dout, a.b, p.sq, p.hq, 64, qrows);
+  if (!err) err = encode_heads<T>(&tk, a.k, a.b, p.skv, p.hkv, 64, kvrows);
+  if (!err) err = encode_heads<T>(&tv, a.v, a.b, p.skv, p.hkv, 64, kvrows);
   if (err) return err;
   if (dq) {
     auto kernel = flash_backward_dq_wgmma_kernel<T>;
@@ -1734,17 +1753,57 @@ int launch_wgmma(Which which, const Args& a, const Problem& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the Hopper kernels take only what `hopper_ok` accepts and return
-// cudaErrorInvalidValue otherwise: the caller decides the path, and nothing
-// here gives way to the other kernels
+// What the Hopper forward takes (ops/flash_attention.py
+// `flash_forward_wgmma_path` states the same): bf16/fp16 at head_dim 64
+// or 128 (one or two swizzle atoms a row), a positive scale (the running
+// max is taken over the raw scores, with the scale folded into exp2),
+// 16-byte aligned bases, and q tiles that fit the grid's z dimension.
+bool fwd_hopper_ok(const Args& a, int sq, int d, int dtype, float scale) {
+  return (dtype == 1 || dtype == 2) && (d == 64 || d == 128) &&
+         scale > 0.f && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+         (sq + kFwdRows - 1) / kFwdRows <= 65535;
+}
+
+template <typename T, int D>
+int launch_forward_wgmma(const Args& a, const Problem& p, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  int err = encode_heads<T>(&tq, a.q, a.b, p.sq, p.hq, D, kFwdRows);
+  if (!err) err = encode_heads<T>(&tk, a.k, a.b, p.skv, p.hkv, D, 64);
+  if (!err) err = encode_heads<T>(&tv, a.v, a.b, p.skv, p.hkv, D, 64);
+  if (err) return err;
+  auto kernel = flash_forward_wgmma_kernel<T, D>;
+  err = prepare(kernel, FwdLayout<D>::SMEM);
+  if (err) return err;
+  const dim3 grid(p.hq, a.b, (p.sq + kFwdRows - 1) / kFwdRows);
+  kernel<<<grid, kFwdThreads, FwdLayout<D>::SMEM, s>>>(
+      tq, tk, tv, static_cast<T*>(a.out), a.lse_out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_forward_wgmma_d(const Args& a, const Problem& p, int d,
+                           cudaStream_t s) {
+  return d == 64 ? launch_forward_wgmma<T, 64>(a, p, s)
+                 : launch_forward_wgmma<T, 128>(a, p, s);
+}
+
+// the Hopper kernels take only what `fwd_hopper_ok` (forward) and
+// `hopper_ok` (dq, dk/dv) accept and return cudaErrorInvalidValue
+// otherwise: the caller decides the path, and nothing here gives way to
+// the other kernels
 int dispatch_wgmma(Which which, const Args& a, int sq, int skv, int hq,
                    int hkv, int d, int causal, int window, float scale,
                    int dtype, void* stream) {
+  const bool fwd = which == Which::kForward;
   if (bad_problem(a, sq, skv, hq, hkv, d, causal, window, dtype) ||
-      !hopper_ok(a, sq, skv, d, dtype))
+      (fwd ? !fwd_hopper_ok(a, sq, d, dtype, scale)
+           : !hopper_ok(a, sq, skv, d, dtype)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Problem p{sq, skv, hq, hkv, causal ? 1 : 0, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fwd)
+    return dtype == 1 ? launch_forward_wgmma_d<__half>(a, p, d, s)
+                      : launch_forward_wgmma_d<__nv_bfloat16>(a, p, d, s);
   return dtype == 1 ? launch_wgmma<__half>(which, a, p, s)
                     : launch_wgmma<__nv_bfloat16>(which, a, p, s);
 }
@@ -1787,7 +1846,19 @@ extern "C" int dst_flash_backward_dkv(const void* q, const void* k,
                   dtype, stream);
 }
 
-// The same two kernels on the Hopper path (TMA + wgmma), for what
+// The forward on the Hopper path (TMA + wgmma), for what `fwd_hopper_ok`
+// accepts (ops/flash_attention.py `flash_forward_wgmma_path`).
+extern "C" int dst_flash_forward_wgmma(const void* q, const void* k,
+                                       const void* v, void* out, float* lse,
+                                       int b, int sq, int skv, int hq,
+                                       int hkv, int d, int causal, int window,
+                                       float scale, int dtype, void* stream) {
+  Args a{q, k, v, nullptr, nullptr, nullptr, out, nullptr, nullptr, lse, b};
+  return dispatch_wgmma(Which::kForward, a, sq, skv, hq, hkv, d, causal,
+                        window, scale, dtype, stream);
+}
+
+// The dq and dk/dv kernels on the Hopper path (TMA + wgmma), for what
 // `hopper_ok` accepts (ops/flash_attention.py `flash_wgmma_path`).
 extern "C" int dst_flash_backward_dq_wgmma(
     const void* q, const void* k, const void* v, const void* dout,
@@ -1809,10 +1880,19 @@ extern "C" int dst_flash_backward_dkv_wgmma(
                         scale, dtype, stream);
 }
 
-// dynamic shared memory a launch of the Hopper dq (0) or dk/dv (1) kernel
-// asks for, for the build report
-extern "C" int dst_flash_wgmma_smem(int dkv) {
-  return dkv ? DkvLayout::SMEM : DqLayout::SMEM;
+// dynamic shared memory a launch of a Hopper kernel asks for, for the
+// build report: dq (0), dk/dv (1), the forward at d 64 (2) and d 128 (3)
+extern "C" int dst_flash_wgmma_smem(int which) {
+  switch (which) {
+    case 0:
+      return DqLayout::SMEM;
+    case 1:
+      return DkvLayout::SMEM;
+    case 2:
+      return FwdLayout<64>::SMEM;
+    default:
+      return FwdLayout<128>::SMEM;
+  }
 }
 
 extern "C" const char* dst_cuda_error_string(int code) {

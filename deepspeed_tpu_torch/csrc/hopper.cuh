@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (fused_collectives.cu rows 7/8, flash_attention.cu's backward):
-// mbarriers, TMA tensor loads, wgmma shared-memory descriptors and fences,
-// and the host-side encoding of TMA tensor maps. Everything is inline and
-// lives in namespace `hopper`; each .cu file that includes this header
-// gets its own copy inside its own shared library.
+// (fused_collectives.cu rows 7/8, flash_attention.cu, paged_attention.cu):
+// mbarriers, TMA tensor loads and bulk copies, wgmma shared-memory
+// descriptors and fences, and the host-side encoding of TMA tensor maps.
+// Everything is inline and lives in namespace `hopper`; each .cu file that
+// includes this header gets its own copy inside its own shared library.
 //
 // The tensor maps are encoded with cuTensorMapEncodeTiled taken from the
 // driver through the runtime (cudaGetDriverEntryPointByVersion), so a
@@ -84,6 +84,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global src into shared memory at dst, a bulk copy of the
+// async proxy (no tensor map); completes its bytes on mbarrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..ops.norms import rms_norm
-from ..ops.paged_attention import paged_attention
+from ..ops.paged_attention import paged_attention, plan_paged_work
 from ..ops.quantizer import quantize_kv, quantized_nbytes
 from ..ops.ragged_host import build_batch, fill_tables
 from ..ops.rotary import apply_rotary, rope_frequencies
@@ -534,9 +534,10 @@ class RaggedInferenceEngine:
         sel_idx = np.zeros((cfg.max_seqs,), np.int64)
         for uid, idx in last_index.items():
             sel_idx[self.seqs[uid].slot] = idx
+        live_pages = self._live_pages_bucket()
         x = self._core(self._dev(flat_tokens), self._dev(flat_slot),
                        self._dev(flat_pos), self._dev(self._host_tables()),
-                       self._live_pages_bucket())
+                       live_pages, self._paged_work(flat_slot, live_pages))
         # head only on each sequence's selected (last) token; only the
         # [max_seqs, vocab] rows travel to the host
         logits = self.model._head(x[self._dev(sel_idx)]).cpu().numpy()
@@ -601,6 +602,20 @@ class RaggedInferenceEngine:
         return fill_tables([s.blocks for s in live], [s.slot for s in live],
                            self.config.max_seqs, self.max_pages)
 
+    def _paged_work(self, flat_slot: np.ndarray, live_pages: int):
+        """The paged-attention work list of one step, planned once on the
+        host from the slots the kernels read (padding lanes' -1 clamped to
+        0, as ``_core`` does; the padding lanes themselves marked, so they
+        neither join a tile nor thin the decode lanes' splits) and shared
+        by every layer; None off the card."""
+        if self.device.type != "cuda":
+            return None
+        return plan_paged_work(
+            np.maximum(flat_slot, 0), len(flat_slot),
+            min(live_pages, self.max_pages), self.kv_pool[0][0],
+            dtype=self.config.dtype, quantized=bool(self._kv_bits),
+            pad=flat_slot < 0)
+
     def _live_pages_bucket(self) -> int:
         """Page-walk bound for this step: smallest power of two >= the
         longest live sequence's page count."""
@@ -656,13 +671,18 @@ class RaggedInferenceEngine:
             self._dev(slots)
         tables = self._dev(self._host_tables())
         live_pages = self._live_pages_bucket()
+        # one decode lane per sequence, each on its own slot: lane items
+        # only (no run of one slot makes a tile), so a lane whose slot
+        # drops to -1 mid-chunk (EOS) never sits inside a tile
+        work = self._paged_work(slots, live_pages)
         alive = slots_t >= 0
         if eos >= 0:
             alive = alive & (toks_t != eos)
         gens = []
         for _ in range(k):
             slots_eff = torch.where(alive, slots_t, torch.full_like(slots_t, -1))
-            x = self._core(toks_t, slots_eff, pos_t, tables, live_pages)
+            x = self._core(toks_t, slots_eff, pos_t, tables, live_pages,
+                           work)
             nxt = torch.argmax(self.model._head(x), dim=-1).to(torch.int32)
             if eos >= 0:
                 nxt = torch.where(alive, nxt, torch.full_like(nxt, eos))
@@ -801,10 +821,11 @@ class RaggedInferenceEngine:
     # -- the ragged forward ------------------------------------------------
     def _core(self, tokens: torch.Tensor, slots: torch.Tensor,
               positions: torch.Tensor, block_tables: torch.Tensor,
-              live_pages: int) -> torch.Tensor:
+              live_pages: int, work=None) -> torch.Tensor:
         """The shared ragged forward over [T] lanes (int32 tokens, slots
         with -1 on padding lanes, positions) and the per-sequence
-        [max_seqs, max_pages] int32 block tables -> hidden states [T, d].
+        [max_seqs, max_pages] int32 block tables -> hidden states [T, d];
+        ``work`` is the step's paged-attention work list (``_paged_work``).
         Updates the KV pool in place: each layer scatters this step's K/V
         into its pages BEFORE the attention kernel reads them (same
         stream), so the tokens of one prefill chunk see each other."""
@@ -852,7 +873,8 @@ class RaggedInferenceEngine:
                                    positions, seq_slots=safe_slot,
                                    live_pages=live_pages,
                                    window=self._windows[li], k_scale=ks,
-                                   v_scale=vs, kv_bits=self._kv_bits)
+                                   v_scale=vs, kv_bits=self._kv_bits,
+                                   work=work)
             attn = attn.to(x.dtype).reshape(-1, c.n_heads * c.head_dim)
             x = x + attn @ blk.wo
             h = rms_norm(x, blk.mlp_norm_w, c.norm_eps)

@@ -7,9 +7,10 @@ Ports ``deepspeed_tpu/ops/pallas/flash_attention.py``: ``_flash_forward``
 ``flash_attention`` ``custom_vjp``. The kernels are CUDA C++ in
 ``deepspeed_tpu_torch/csrc/flash_attention.cu`` (see its header for the
 design and what bounds them), built by ``nvcc`` at first use and called
-through ``ctypes`` (:mod:`.op_builder`). The backward's bf16/fp16 work at
-head_dim 64 goes to its Hopper kernels (TMA + ``wgmma``,
-:func:`flash_wgmma_path`).
+through ``ctypes`` (:mod:`.op_builder`). The forward's bf16/fp16 work at
+head_dim 64 and 128 goes to its Hopper kernel (TMA + ``wgmma``,
+:func:`flash_forward_wgmma_path`), the backward's at head_dim 64 to its
+two (:func:`flash_wgmma_path`).
 
 Layout contract (the JAX package's, unchanged):
   q:    [b, sq, hq, d]        k, v: [b, skv, hkv, d]   (hq % hkv == 0)
@@ -46,13 +47,15 @@ def _library() -> ctypes.CDLL:
         dims = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p]
         lib.dst_flash_forward.argtypes = [ctypes.c_void_p] * 5 + dims
+        lib.dst_flash_forward_wgmma.argtypes = [ctypes.c_void_p] * 5 + dims
         lib.dst_flash_backward_dq.argtypes = [ctypes.c_void_p] * 7 + dims
         lib.dst_flash_backward_dkv.argtypes = [ctypes.c_void_p] * 8 + dims
         lib.dst_flash_backward_dq_wgmma.argtypes = [ctypes.c_void_p] * 7 + dims
         lib.dst_flash_backward_dkv_wgmma.argtypes = [ctypes.c_void_p] * 8 \
             + dims
         lib.dst_flash_wgmma_smem.argtypes = [ctypes.c_int]
-        for fn in (lib.dst_flash_forward, lib.dst_flash_backward_dq,
+        for fn in (lib.dst_flash_forward, lib.dst_flash_forward_wgmma,
+                   lib.dst_flash_backward_dq,
                    lib.dst_flash_backward_dkv, lib.dst_flash_backward_dq_wgmma,
                    lib.dst_flash_backward_dkv_wgmma, lib.dst_flash_wgmma_smem):
             fn.restype = ctypes.c_int
@@ -193,13 +196,29 @@ def _check_cuda(*tensors) -> None:
         raise ValueError("flash attention inputs must be 16-byte aligned")
 
 
+def flash_forward_wgmma_path(dtype: torch.dtype, d: int, hq: int, hkv: int,
+                             addrs: Tuple[int, ...], scale: float) -> bool:
+    """Whether the forward's Hopper kernel (TMA + ``wgmma``) computes
+    (out, lse); else the ``mma.sync`` (bf16/fp16 at d 64/128) or scalar
+    kernel does. ``addrs`` are the base addresses that TMA reads (q, k,
+    v). It takes bf16/fp16 at head_dim 64 or 128 (one or two 128-byte
+    swizzle atoms a row) with 16-byte aligned bases and a positive scale
+    (the kernel keeps its running max over the raw scores and folds the
+    scale into exp2); ``flash_attention.cu``'s ``fwd_hopper_ok`` checks the
+    same and refuses the rest."""
+    return (dtype in (torch.bfloat16, torch.float16) and d in (64, 128)
+            and hkv >= 1 and hq % hkv == 0 and scale > 0
+            and all(a % 16 == 0 for a in addrs))
+
+
 def flash_forward(q, k, v, *, causal: bool = True,
                   scale: Optional[float] = None, window: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) of the forward. On CUDA tensors this launches the
     forward kernel on PyTorch's current stream and adds one to
-    ``flash_forward.launches``; on CPU tensors it runs
-    :func:`flash_attention_forward_reference`."""
+    ``flash_forward.launches`` (and to ``.wgmma_launches`` when
+    :func:`flash_forward_wgmma_path` picks the Hopper kernel); on CPU
+    tensors it runs :func:`flash_attention_forward_reference`."""
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_attention_forward_reference(q, k, v, causal=causal,
@@ -211,13 +230,16 @@ def flash_forward(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    err = lib.dst_flash_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, sq, skv, hq, hkv, d, int(causal), int(window),
-        float(scale), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    hopper = flash_forward_wgmma_path(
+        q.dtype, d, hq, hkv, tuple(t.data_ptr() for t in (q, k, v)), scale)
+    fn = lib.dst_flash_forward_wgmma if hopper else lib.dst_flash_forward
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), b, sq, skv, hq, hkv, d, int(causal), int(window),
+             float(scale), _DTYPE_CODE[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, "flash_forward")
     flash_forward.launches += 1
+    flash_forward.wgmma_launches += hopper
     return out, lse
 
 
@@ -330,9 +352,10 @@ def flash_backward(q, k, v, out, lse, dout, *, causal: bool = True,
     return dq, dk, dv
 
 
-# launch counters: one per kernel, bumped only where it launches; the
-# backward's also count their Hopper-kernel launches
+# launch counters: one per kernel, bumped only where it launches; each
+# also counts its Hopper-kernel launches
 flash_forward.launches = 0
+flash_forward.wgmma_launches = 0
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
 flash_backward_dq.wgmma_launches = 0

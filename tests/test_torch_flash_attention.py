@@ -9,11 +9,11 @@ on the same (out, lse), and ``FlashAttentionFunction``'s gradients against
 causal and non-causal, GQA/MQA, sq < skv, sq > skv (rows that see no key:
 0 and LSE 1e30), a window band, a scale override and multi-tile grids.
 ``dot_product_attention`` is held to its JAX twin with masks, bias and
-scale. ``flash_wgmma_path`` (which backward the Hopper TMA + wgmma
-kernels take) is checked on the CPU. The CUDA kernels run only on a GPU:
-the ``gpu`` tests hold them against the plain versions there and skip
-here; the Hopper backward's cases also check its launch counts and that
-two runs give equal bits.
+scale. ``flash_wgmma_path`` and ``flash_forward_wgmma_path`` (which
+backward and forward the Hopper TMA + wgmma kernels take) are checked on
+the CPU. The CUDA kernels run only on a GPU: the ``gpu`` tests hold them
+against the plain versions there and skip here; the Hopper kernels'
+cases also check their launch counts and that two runs give equal bits.
 """
 
 import numpy as np
@@ -201,19 +201,38 @@ def test_flash_wgmma_path_predicate(name):
     assert fa.flash_wgmma_path(dtype, d, hq, hkv, addrs) is want
 
 
+FWD_PATH_CASES = {
+    # name: (dtype, d, hq, hkv, address offset, scale) -> Hopper forward?
+    "1b-bf16": ((torch.bfloat16, 64, 32, 4, 0, 0.125), True),
+    "7b-fp16-d128": ((torch.float16, 128, 32, 32, 0, 0.088), True),
+    "fp32": ((torch.float32, 64, 32, 4, 0, 0.125), False),
+    "d256": ((torch.bfloat16, 256, 8, 2, 0, 0.0625), False),
+    "unaligned": ((torch.bfloat16, 128, 8, 2, 8, 0.088), False),
+    "negative-scale": ((torch.bfloat16, 64, 8, 2, 0, -0.125), False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FWD_PATH_CASES))
+def test_flash_forward_wgmma_path_predicate(name):
+    (dtype, d, hq, hkv, off, scale), want = FWD_PATH_CASES[name]
+    addrs = (4096, 8192 + off, 12288)
+    assert fa.flash_forward_wgmma_path(dtype, d, hq, hkv, addrs,
+                                       scale) is want
+
+
 def test_cpu_wrappers_leave_the_hopper_counts():
     q, k, v, do = _t(*_qkv(8, 1, 8, 8, 4, 2, 64))
     q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
-    before = (fa.flash_backward_dq.launches,
-              fa.flash_backward_dq.wgmma_launches,
-              fa.flash_backward_dkv.launches,
-              fa.flash_backward_dkv.wgmma_launches)
+    def counts():
+        return (fa.flash_forward.launches, fa.flash_forward.wgmma_launches,
+                fa.flash_backward_dq.launches,
+                fa.flash_backward_dq.wgmma_launches,
+                fa.flash_backward_dkv.launches,
+                fa.flash_backward_dkv.wgmma_launches)
+    before = counts()
     out, lse = fa.flash_forward(q, k, v)
     fa.flash_backward(q, k, v, out, lse, do)
-    assert before == (fa.flash_backward_dq.launches,
-                      fa.flash_backward_dq.wgmma_launches,
-                      fa.flash_backward_dkv.launches,
-                      fa.flash_backward_dkv.wgmma_launches)
+    assert before == counts()
 
 
 def _cuda_case(seed, b, sq, skv, hq, hkv, d, dtype):
@@ -314,3 +333,46 @@ def test_cuda_hopper_backward_matches_plain_and_repeats(case):
         and torch.equal(dv, dv2)
     if sq > skv:    # rows before the first key see nothing: dq 0
         assert bool((dq[:, :sq - skv] == 0).all())
+
+
+FWD_CASES = [
+    # b, sq, skv, hq, hkv, d, causal, window, dtype: the training shape
+    # (Llama("1b"), micro-batch 4) in bf16 and fp16, non-causal, sq < skv
+    # and sq > skv, ragged lengths, windows, GQA groups 1, 2, 4 and 8, d 128
+    (4, 2048, 2048, 32, 4, 64, True, 0, torch.bfloat16),
+    (4, 2048, 2048, 32, 4, 64, True, 0, torch.float16),
+    (2, 300, 300, 8, 8, 64, False, 0, torch.bfloat16),
+    (1, 333, 517, 8, 4, 64, True, 0, torch.float16),
+    (1, 517, 333, 8, 2, 64, True, 0, torch.bfloat16),
+    (1, 600, 600, 8, 1, 64, True, 100, torch.bfloat16),
+    (1, 1000, 1000, 16, 2, 128, True, 0, torch.bfloat16),
+    (1, 333, 517, 8, 2, 128, True, 77, torch.float16),
+    (1, 200, 330, 4, 1, 128, False, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_cuda_hopper_forward_matches_plain_and_repeats(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    b, sq, skv, hq, hkv, d, causal, window, dtype = case
+    q, k, v, _ = _cuda_case(2, b, sq, skv, hq, hkv, d, dtype)
+    assert fa.flash_forward_wgmma_path(
+        dtype, d, hq, hkv, tuple(t.data_ptr() for t in (q, k, v)),
+        1.0 / np.sqrt(d))
+    kw = dict(causal=causal, window=window)
+    w = fa.flash_forward.wgmma_launches
+    out, lse = fa.flash_forward(q, k, v, **kw)
+    out2, lse2 = fa.flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_forward.wgmma_launches == w + 2
+    rout, rlse = fa.flash_attention_forward_reference(q, k, v, **kw)
+    err = (out.float() - rout.float()).abs()
+    assert bool((err <= 4e-3 + 1e-2 * rout.float().abs()).all()), err.max()
+    err = (lse - rlse).abs()
+    assert bool((err <= 1e-4 + 1e-5 * rlse.abs()).all()), err.max()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    if sq > skv:    # rows before the first key see nothing: 0 and 1e30
+        assert bool((out[:, :sq - skv] == 0).all())
+        assert bool((lse[:, :, :sq - skv] == 1e30).all())

@@ -20,9 +20,14 @@ def csrc(tmp_path):
 
 
 def test_sources_include_the_shared_hopper_header():
-    for name in ("flash_attention", "fused_collectives"):
-        text = (op_builder.CSRC / f"{name}.cu").read_text()
-        assert '#include "hopper.cuh"' in text, name
+    # directly, or through attn_fwd.cuh (the attention forward's mainloop,
+    # shared by the two attention files)
+    def text(name):
+        return (op_builder.CSRC / name).read_text()
+    for name in ("fused_collectives.cu", "attn_fwd.cuh"):
+        assert '#include "hopper.cuh"' in text(name), name
+    for name in ("flash_attention.cu", "paged_attention.cu"):
+        assert '#include "attn_fwd.cuh"' in text(name), name
     assert (op_builder.CSRC / "hopper.cuh").is_file()
 
 

@@ -349,3 +349,60 @@ def test_cuda_quantized_pool_engine_matches_cpu_engine(kv_quant):
     assert engines["cuda"].generate(prompts, max_new_tokens=10) == \
         engines["cpu"].generate(prompts, max_new_tokens=10)
     assert_block_balance(engines["cuda"])
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_pool_engine_puts_tiles_then_decodes_on_lane_items():
+    """A bf16 pool at head_dim 64 with pages of 8, which the tile kernel
+    takes: the first prefill put runs the 20-token chunk it schedules on
+    tile items with the engine's own work list, and decode_steps runs
+    lane items only, one launch a layer and step. Logits within 3e-2 x
+    max|ref| of the cpu engine's in bf16 (on the CPU this model's bf16
+    logits lie within 1.1 % of its fp32 ones), greedy streams
+    identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(TINY, d_model=128, n_heads=2, n_kv_heads=1)
+    cpu_model = Llama("tiny", device="cpu", seed=3, dtype=torch.bfloat16,
+                      **kw)
+    cuda_model = Llama("tiny", device="cuda", dtype=torch.bfloat16, **kw)
+    cuda_model.load_state_dict(cpu_model.state_dict())
+    engines = {dev: RaggedInferenceEngine(
+        m, RaggedConfig(dtype=torch.bfloat16, **CFG), device=dev)
+        for dev, m in (("cuda", cuda_model), ("cpu", cpu_model))}
+    prompts = {1: _prompt(70, 45), 2: _prompt(71, 9), 3: _prompt(72, 20)}
+    uids, toks = list(prompts), list(prompts.values())
+
+    def counts():
+        return (pa.paged_attention.tile_launches,
+                pa.paged_attention.split_launches)
+
+    before = counts()
+    got = engines["cuda"].put(uids, toks)
+    assert counts()[0] - before[0] == kw["n_layers"]
+    ref = engines["cpu"].put(uids, toks)
+    m = ~np.isnan(ref)
+    assert np.array_equal(np.isnan(got), ~m)
+    assert np.abs(got[m] - ref[m]).max() <= 3e-2 * np.abs(ref[m]).max()
+    for e in engines.values():
+        e.flush(uids)
+    first = {u: 5 for u in uids}
+    streams = {}
+    for dev, e in engines.items():
+        e.put(uids, toks)
+        while any(e.seqs[u].pending for u in uids):
+            pending = [u for u in uids if e.seqs[u].pending]
+            e.put(pending, [[] for _ in pending])
+        before = counts()
+        streams[dev] = e.decode_steps(first, 6)
+        if dev == "cuda":
+            assert counts()[0] == before[0]
+            assert counts()[1] - before[1] == 6 * kw["n_layers"]
+        e.flush(uids)
+    assert streams["cuda"] == streams["cpu"]
+    assert engines["cuda"].generate(prompts, max_new_tokens=10) == \
+        engines["cpu"].generate(prompts, max_new_tokens=10)
+    assert_block_balance(engines["cuda"])
