@@ -10,9 +10,10 @@ CPU path — without a CUDA device the script fails):
    with ``nvcc`` (one process each, all started together, with two
    scratch builds of fused_collectives.cu for a measurement) and print
    each kernel's ``-Xptxas -v`` registers, spills and shared memory, with
-   a summary of the Hopper flash kernels and the paged tile, split and
-   combine kernels (registers, spills, dynamic shared memory; a spill
-   there fails the script);
+   a summary of the Hopper kernels: the fused collectives' wgmma_kernel
+   (rows 7-9), the flash kernels and the paged tile, split and combine
+   kernels (registers, spills, dynamic shared memory; a spill there fails
+   the script);
 3. kernels: paged attention against its plain PyTorch version on the card
    at the serving path's shapes and at tile and lane cases (chunks that
    are no multiple of 64 or start mid-page, two sequences in one 64-lane
@@ -28,16 +29,21 @@ CPU path — without a CUDA device the script fails):
    blocks 128/256, row counts that are not multiples of 32, path A's
    weight shapes), timed at [4096, 11008] bf16;
    fused collectives: dequant_matmul, matmul_pallas and matmul_quantize
-   against their plain versions on the mma.sync / FMA kernels (fp32/bf16,
-   int8/int4, trans_a, m = 1, a row length the block does not divide,
-   integer-valued cases bitwise), then rows 7 and 8 on the Hopper kernel
-   (TMA + wgmma: bf16/fp16, int8/int4 at blocks 256/64/96, ragged m, n and
-   k, integer-valued cases bitwise, each twice and into a column slice,
-   every launch counted on ``.wgmma_launches``); each row timed at the
-   ZeRO-3 path's shapes beside one PyTorch call (rows 7 and 8 on the
-   Hopper kernel, with TFLOP/s) and compared there too (rows 7 and 8 also
-   into a column slice of the ring's gathered output, as the fused backend
-   writes them); row 7's converter share from two scratch builds;
+   against their plain versions on the mma.sync / FMA kernels (fp32/bf16
+   shapes the Hopper predicates refuse, int8/int4, trans_a, m = 1, a row
+   length the block does not divide, integer-valued cases bitwise), then
+   rows 7 and 8 on the Hopper kernel (TMA + wgmma: bf16/fp16, int8/int4
+   at blocks 256/64/96, ragged m, n and k, integer-valued cases bitwise,
+   each twice and into a column slice, every launch counted on
+   ``.wgmma_launches``) and row 9 on it (bf16/fp16, trans_a both ways,
+   int8/int4, blocks 256/128/64/32, ragged rows, n and k, integer-valued
+   cases bitwise, each thrice, two refused cases on the mma.sync kernel);
+   each row timed at the ZeRO-3 path's shapes beside one PyTorch call
+   (on the Hopper kernel, with TFLOP/s; row 9 also beside PR 4's mma.sync
+   kernel, in turns) and compared there too (rows 7 and 8 also into a
+   column slice of the ring's gathered output, as the fused backend
+   writes them; row 9 twice bitwise); row 7's converter share from two
+   scratch builds;
    flash: the forward, dq and dk/dv kernels through
    ``FlashAttentionFunction`` against their plain versions (15 cases: the
    1b shape in bf16 at the training shape's micro-batch 4 and in
@@ -99,7 +105,7 @@ CPU path — without a CUDA device the script fails):
    of 4096 x 4096, compressed and dense, fused and reference: 2 warm-up
    and 4 timed steps per configuration with the dequant_matmul /
    matmul_pallas / matmul_quantize counts set to 0 between them and read
-   per rank (every row 7 and 8 launch on the Hopper kernel); step time,
+   per rank (every row 7-9 launch on the Hopper kernel); step time,
    peak memory, and one profiled step of the compressed fused run.
 
 The line before the last is the ``kernels`` JSON object; the last line is
@@ -205,8 +211,9 @@ FUSED_PATH = {"dequant_matmul": "wgmma: TMA ring + converter warps + "
                                 "wgmma m64n256k16, 128 x 256 tiles",
               "matmul_pallas": "wgmma: TMA ring + wgmma m64n256k16, "
                                "128 x 256 tiles",
-              "matmul_quantize": "mma.sync m16n8k16, 64 x 256 tiles, "
-                                 "quantize epilogue"}
+              "matmul_quantize": "wgmma: TMA ring (a^T M-major) + wgmma "
+                                 "m64n256k16, 128 x 256 tiles, quantize "
+                                 "and pack in registers"}
 # the Hopper kernel's cases: (m, k, n) with ragged m, n 320 / 1376 and k
 # not a multiple of the 64-deep stage (520, 528) beside the path's 4096;
 # (bits, block) of the weight, None dense, each block where it divides k*n
@@ -214,6 +221,16 @@ WGMMA_SHAPES = [(1, 520, 320), (77, 4096, 1376), (333, 520, 1376),
                 (77, 528, 320)]
 WGMMA_WEIGHTS = [(None, None), (8, 256), (4, 256), (8, 64), (4, 64),
                  (8, 96), (4, 96)]
+# row 9's cases on it: (rows, k, n, block) with ragged rows, n that is no
+# multiple of the 256-wide tile (320, 1376, 384) and k 520 / 528 beside
+# 2048; under trans_a the rows are a's row length, which TMA needs in whole
+# 16-byte strides (72 / 328 there). Blocks 256 / 128 / 64, and 32 where n
+# (1376) takes no larger one
+WGMMA_QUANT_SHAPES = [(77, 520, 320, 64), (333, 528, 1376, 32),
+                      (77, 2048, 384, 128), (333, 2048, 1280, 256)]
+# ... and two it refuses (rows 77 under trans_a; block 96): the mma.sync
+# kernel, one pass and two
+WGMMA_QUANT_REFUSED = [(77, 520, 320, 64, True), (77, 520, 384, 96, False)]
 # random operands: fp32 accumulation in another order (over 512 terms in
 # the small cases, 4096 at the path's shape)
 FUSED_REL = 1e-5
@@ -315,10 +332,12 @@ def phase_build() -> None:
                                        "spill")):
                 log(f"build[{name}]: {line.strip()}")
     lib = fc._library()
-    log("build[fused_collectives]: wgmma_kernel dynamic shared memory "
-        + ", ".join(f"{what} {lib.dst_fc_wgmma_smem(bits)} B"
-                    for what, bits in (("dense", 0), ("int8", 8),
-                                       ("int4", 4))))
+    for kernel, used in _ptxas_report("fused_collectives",
+                                      ("wgmma_kernel",)).items():
+        mode = re.search(r"MODE (\d)", kernel)
+        bits = {"1": 8, "2": 4}.get(mode.group(1) if mode else "0", 0)
+        log(f"build[fused_collectives]: Hopper {kernel}: {used}; dynamic "
+            f"shared memory {lib.dst_fc_wgmma_smem(bits)} B")
     lib = fa._library()
     for kernel, used in _ptxas_report("flash_attention", ("wgmma",)).items():
         which = (2 if "Li64" in kernel else 3) if "forward" in kernel else \
@@ -346,6 +365,12 @@ def _ptxas_report(library: str, markers: tuple) -> dict:
             m = re.search(
                 r"_cu_[0-9a-f]{8}\d+([A-Za-z]\w*?_kernel)I\d+(\w+?)EE", entry)
             name = f"{m.group(1)}<{m.group(2)}>" if m else entry[:60]
+            # fused_collectives.cu's wgmma_kernel<T, MODE, TRANS_A, QBITS>
+            m = re.search(r"wgmma_kernelI\d+(__nv_bfloat16|__half)Li(\d)E"
+                          r"Lb([01])ELi(\d)E", entry)
+            if m:
+                name = (f"wgmma_kernel<{m.group(1)}, MODE {m.group(2)}, "
+                        f"TRANS_A {m.group(3)}, QBITS {m.group(4)}>")
             report[name] = (report.get(name, "") + " " + line.split(":", 1)
                             [-1].strip()).strip()
     spills = [n for n, r in report.items()
@@ -2089,6 +2114,66 @@ def _wgmma_cases(gen) -> dict:
     return errs
 
 
+def _wgmma_quantize_cases(gen) -> float:
+    """Row 9 on the Hopper kernel against its plain version: bf16 and
+    fp16, trans_a both ways, int8 and int4, WGMMA_QUANT_SHAPES; integer-
+    valued operands bitwise, random ones within :func:`_quantize_case`'s
+    levels rule; each case run twice more, bitwise equal, all three
+    launches counted on ``.wgmma_launches``. Then WGMMA_QUANT_REFUSED on
+    the mma.sync kernel. Returns the largest scale error."""
+    err, cases = 0.0, 0
+    for dtype in (torch.bfloat16, torch.float16):
+        dn = str(dtype)[6:]
+        for trans_a in (True, False):
+            for bits in (8, 4):
+                for rows, k, n, block in WGMMA_QUANT_SHAPES:
+                    rows -= rows % 8 if trans_a else 0
+                    sh_a = (k, rows) if trans_a else (rows, k)
+                    for exact in (True, False):
+                        mk = ((lambda sh: torch.randint(
+                            -3, 4, sh, generator=gen, device="cuda"))
+                            if exact else (lambda sh: torch.randn(
+                                sh, generator=gen, device="cuda")))
+                        a, b = mk(sh_a).to(dtype), mk((k, n)).to(dtype)
+                        what = (f"matmul_quantize [wgmma] {dn} int{bits} "
+                                f"block {block} rows {rows} k {k} n {n} "
+                                f"trans_a {trans_a}"
+                                f"{' integer-valued' if exact else ''}")
+                        before = fc.matmul_quantize.wgmma_launches
+                        e = _quantize_case(what, a, b, bits, block, trans_a,
+                                           exact)
+                        if not exact:
+                            err = max(err, e)
+                        kw = dict(bits=bits, block=block, trans_a=trans_a)
+                        y1 = fc.matmul_quantize(a, b, **kw)
+                        y2 = fc.matmul_quantize(a, b, **kw)
+                        torch.cuda.synchronize()
+                        moved = fc.matmul_quantize.wgmma_launches - before
+                        if not (moved == 3 and torch.equal(y1[0], y2[0])
+                                and torch.equal(y1[1], y2[1])):
+                            raise SystemExit(
+                                f"{what}: {moved} of 3 launches on the "
+                                f"Hopper kernel, reruns bitwise: "
+                                f"{torch.equal(y1[0], y2[0])}")
+                        cases += 1
+    for rows, k, n, block, trans_a in WGMMA_QUANT_REFUSED:
+        sh_a = (k, rows) if trans_a else (rows, k)
+        a = torch.randn(sh_a, generator=gen, device="cuda").to(torch.bfloat16)
+        b = torch.randn((k, n), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        before = fc.matmul_quantize.wgmma_launches
+        err = max(err, _quantize_case(
+            f"matmul_quantize bf16 int4 block {block} rows {rows} k {k} n "
+            f"{n} trans_a {trans_a} (refused by wgmma_quantize_path)", a, b,
+            4, block, trans_a, False))
+        _old_path(fc.matmul_quantize, before, "matmul_quantize")
+    log(f"fused: row 9 on the Hopper kernel: {cases} cases, each twice more "
+        f"bitwise equal, every launch counted on .wgmma_launches; "
+        f"{len(WGMMA_QUANT_REFUSED)} refused cases on the mma.sync kernel "
+        f"ok")
+    return err
+
+
 def _converter_share(h, pl, sc, n, flush) -> dict:
     """Row 7's time at the path's shape on the kernel and on two scratch
     builds (DST_FC_CONVERTER in the source): the converter's stores off,
@@ -2130,13 +2215,15 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
     FMA kernels: fp32 and bf16 shapes the Hopper kernel does not take,
     bits 8 and 4, trans_a both ways, m = 1, a row length the block does not
     divide, and integer-valued cases that must be bitwise equal. The Hopper
-    kernel of rows 7 and 8: :func:`_wgmma_cases`. Then each row timed at
-    the ZeRO-3 path's shapes beside its bound, its plain version and one
-    PyTorch call (cuBLAS, TF32 off): for rows 7 and 8 ``torch.mm`` of the
-    bf16 operands with an fp32 output, as the kernels write (for row 7 the
-    product only: a yardstick); for row 9 ``torch.matmul`` of the product,
-    bf16 output (a yardstick). Rows 7 and 8 there must take the Hopper
-    kernel; row 7's converter share is timed on scratch builds."""
+    kernel of rows 7 and 8: :func:`_wgmma_cases`; of row 9:
+    :func:`_wgmma_quantize_cases`. Then each row timed at the ZeRO-3
+    path's shapes beside its bound, its plain version and one PyTorch call
+    (cuBLAS, TF32 off): for rows 7 and 8 ``torch.mm`` of the bf16 operands
+    with an fp32 output, as the kernels write (for row 7 the product only:
+    a yardstick); for row 9 ``torch.matmul`` of the product, bf16 output
+    (a yardstick), and PR 4's mma.sync kernel, in turns with the Hopper
+    kernel. Every timed launch there must take the Hopper kernel; row 7's
+    converter share is timed on scratch builds."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     errs = {n: 0.0 for n in FUSED_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
@@ -2183,9 +2270,12 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
         _fused_case(f"matmul_pallas {dn} integer-valued",
                     fc.matmul_pallas(h, wi), fc.matmul_reference(h, wi), True)
         _old_path(fc.matmul_pallas, before, "matmul_pallas")
+        # shapes the Hopper kernel refuses (k 388 and, under trans_a, 202
+        # rows: no whole 16-byte strides; n 320: no whole 256-blocks, the
+        # second pass)
         for bits in (8, 4):
-            for rows, kc, n, trans_a in ((1, 384, 512, False),
-                                         (200, 384, 768, True),
+            for rows, kc, n, trans_a in ((1, 388, 512, False),
+                                         (202, 384, 768, True),
                                          (64, 96, 320, False),
                                          (64, 96, 320, True)):
                 sh_a = (kc, rows) if trans_a else (rows, kc)
@@ -2200,11 +2290,13 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
                                         device="cuda").to(dtype)
                         b = torch.randn((kc, n), generator=gen,
                                         device="cuda").to(dtype)
+                    before = fc.matmul_quantize.wgmma_launches
                     e = _quantize_case(
                         f"matmul_quantize {dn} int{bits} rows {rows} k {kc} "
                         f"n {n} trans_a {trans_a}"
                         f"{' integer-valued' if exact else ''}",
                         a, b, bits, 256, trans_a, exact)
+                    _old_path(fc.matmul_quantize, before, "matmul_quantize")
                     errs["matmul_quantize"] = max(errs["matmul_quantize"], e)
     for _ in range(2):   # the same inputs twice: bitwise the same
         y1 = fc.matmul_quantize(a, b, bits=4, block=256, trans_a=True)
@@ -2213,6 +2305,8 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
             raise SystemExit("matmul_quantize: two runs differ")
     for name, e in _wgmma_cases(gen).items():
         errs[name] = max(errs[name], e)
+    errs["matmul_quantize"] = max(errs["matmul_quantize"],
+                                  _wgmma_quantize_cases(gen))
 
     # timing at the ZeRO-3 path's shapes: block 0's fused forward tile
     # (h [2048, 4096] x its [4096, 5504] shard) and its weight gradient
@@ -2247,19 +2341,35 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
             2.0 * m * k * n,
             h.numel() * 2 + g.numel() * 2 + k * n // 2 + k * n // 256 * 4),
     }
+    # the kernel row 9 had before (PR 4's mma.sync tile loop with the
+    # quantize epilogue), called through its own entry at the same shape
+    mq_out = (torch.empty(k * n // 2, dtype=torch.uint8, device="cuda"),
+              torch.empty(k * n // 256, dtype=torch.float32, device="cuda"))
+
+    def mma_quantize():
+        err = fc._library().dst_fc_matmul_quantize(
+            h.data_ptr(), g.data_ptr(), mq_out[0].data_ptr(),
+            mq_out[1].data_ptr(), 0, k, n, m, 1, 4, 256, 2,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"mma.sync matmul_quantize launch failed: {err}")
     # the ring's gathered output at world 2: [m, 2 * bsh] fp32, each tile a
     # column slice (row stride 2 * bsh), NaN where no tile was written
     gathered = torch.empty((m, 2 * bsh), dtype=torch.float32, device="cuda")
     res = {}
     for name, (kern, plain, lib, ops, nbytes) in fns.items():
         wrapper = FUSED_KERNELS[name][0]
-        hopper = getattr(wrapper, "wgmma_launches", None)
+        hopper = wrapper.wgmma_launches
+        old = mma_quantize if name == "matmul_quantize" else None
         p1 = cuda_ms(plain, 3, flush)
-        k1, k2 = cuda_ms(kern, 10, flush), cuda_ms(kern, 10, flush)
+        k1 = cuda_ms(kern, 10, flush)
+        o1, o2 = (cuda_ms(old, 10, flush), cuda_ms(old, 10, flush)) if old \
+            else (None, None)
+        k2 = cuda_ms(kern, 10, flush)
         p2 = cuda_ms(plain, 3, flush)
         lib_ms = cuda_ms(lib, 10, flush)
         path = FUSED_PATH[name]
-        if hopper is not None and wrapper.wgmma_launches - hopper != 24:
+        if wrapper.wgmma_launches - hopper != 24:
             raise SystemExit(f"{name} at the path's shape: "
                              f"{wrapper.wgmma_launches - hopper} of 24 timed "
                              f"launches on the Hopper kernel")
@@ -2272,9 +2382,23 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
                      "ops": ops, "bytes": nbytes, "path": path}
         r = res[name]
         if name == "matmul_quantize":
+            r["mma_sync_ms"] = min(o1, o2)
+            got, again = kern(), kern()
             r["max_abs_err"] = max(r["max_abs_err"], _path_quantize_case(
                 f"matmul_quantize at the path's shape {FUSED_SHAPES[name]}",
-                kern(), plain(), 4, 256))
+                got, plain(), 4, 256))
+            mma_quantize()
+            torch.cuda.synchronize()
+            good = all(torch.equal(x, y) for x, y in zip(got, again))
+            apart = int((fc.unpack_int4(mq_out[0])
+                         != fc.unpack_int4(got[0])).sum())
+            log(f"fused: matmul_quantize at the path's shape: two runs "
+                f"bitwise equal {'ok' if good else 'FAIL'}; levels apart "
+                f"from PR 4's mma.sync kernel's: {apart}")
+            if not good:
+                raise SystemExit("matmul_quantize: two runs differ at the "
+                                 "path's shape")
+            del got, again
         else:
             got = kern()
             ref = plain()
@@ -2296,7 +2420,8 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
             del got, ref, tile
         log(f"fused: {name} {FUSED_SHAPES[name]} [{path}]: kernel "
             f"{k1:.4f}/{k2:.4f} ms ({ops / r['ms'] / 1e9:.1f} TFLOP/s), "
-            f"plain {p1:.4f}/{p2:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            + (f"PR 4's mma.sync kernel {o1:.4f}/{o2:.4f} ms, " if old else "")
+            + f"plain {p1:.4f}/{p2:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}, {ops:.3e} ops, {nbytes} B), library "
             f"{lib_ms:.4f} ms ({ops / lib_ms / 1e9:.1f} TFLOP/s; "
             f"{FUSED_LIBRARY[name]})")
@@ -2549,10 +2674,12 @@ def _profile_zero3_step(engine, batch) -> dict:
         n = e.key.lower()
         # mma_kernel<T, Tile<BM, BN, ..>, TRANS_A, MODE, QUANT, VEC>: the
         # quantize epilogue's QUANT is true; MODE 0 is the dense twin; the
-        # Hopper kernel is wgmma_kernel<T, MODE>
+        # Hopper kernel is wgmma_kernel<T, MODE, TRANS_A, QBITS>, QBITS > 0
+        # for row 9
         mma = re.search(r"mma_kernel<[^,]+, [^>]+>, (\w+), (\d), (\w+)", n)
-        hop = re.search(r"wgmma_kernel<[^,]+, (\d)>", n)
-        g = ("matmul_pallas" if hop and hop.group(1) == "0"
+        hop = re.search(r"wgmma_kernel<[^,]+, (\d), \w+, (\d)>", n)
+        g = ("matmul_quantize" if hop and hop.group(2) != "0"
+             else "matmul_pallas" if hop and hop.group(1) == "0"
              else "dequant_matmul" if hop
              else "matmul_quantize" if mma and mma.group(3) == "true"
              else "matmul_pallas" if mma and mma.group(2) == "0"
@@ -2690,10 +2817,10 @@ def phase_zero3_training(card: str) -> dict:
     batch of 4096 x 4096 (2048 rows a rank), AdamW lr 1e-3, compressed
     (w8/g4) and dense, each on the fused and the reference backend: 2
     warm-up and 4 timed steps with the kernel counts set to 0 between
-    them. Every launch of rows 7 and 8 in a fused run must take the Hopper
+    them. Every launch of rows 7-9 in a fused run must take the Hopper
     kernel. Returns each fused kernel's launches on rank 0 in the four
-    timed steps of the run that takes it, and rows 7 and 8's launches on
-    the Hopper kernel there."""
+    timed steps of the run that takes it, and its launches on the Hopper
+    kernel there."""
     t0 = time.perf_counter()
     runs = [(f"{c}_{b}", c == "compressed", "pallas" if b == "fused"
              else "xla") for c in ("compressed", "dense")
@@ -2717,7 +2844,7 @@ def phase_zero3_training(card: str) -> dict:
             hopper = {k: v / 4 for k, v in x["wgmma_launches"].items()}
             counts_ok = all(per_step[k] == v
                             for k, v in want.get(name, {}).items())
-            # rows 7 and 8: every launch on the Hopper kernel
+            # rows 7-9: every launch on the Hopper kernel
             counts_ok = counts_ok and all(hopper[k] == per_step[k]
                                           for k in hopper)
             if name.endswith("reference"):
@@ -2874,6 +3001,8 @@ def main() -> int:
             entries[-1]["wgmma_launches"] = fused_wgmma[name]
         if "converter" in t:
             entries[-1]["converter_ms"] = t["converter"]
+        if "mma_sync_ms" in t:
+            entries[-1]["mma_sync_ms"] = t["mma_sync_ms"]
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

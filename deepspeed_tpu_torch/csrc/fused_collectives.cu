@@ -28,32 +28,45 @@
 // and the quantize epilogue sees exactly the matmul kernel's product.
 //
 // What bounds them on the H100: at the ZeRO-3 path's shapes (m 2048, k 4096,
-// n 5504 / 11008, bf16) the tensor-core operations, ~93-185 GFLOP against
-// ~85 MB. Two designs:
-// - The Hopper kernel (namespace hop) takes the bf16/fp16 products of
-//   matmul and dequant_matmul whose operands TMA can read (16-byte aligned
-//   bases and row strides; see `wgmma_ok`): a 384-thread block owns a
-//   128 x 256 output tile; warp 0 keeps TMA loads of 64-deep stages in
-//   flight into a ring of shared memory (128-byte swizzle, mbarriers);
-//   for dequant_matmul warps 1-3 dequantize the raw payload stage into the
+// n 5504 for rows 7/8; row 9's a^T [4096, 2048] x g [2048, 11008] -> int4)
+// the tensor-core operations, ~93-185 GFLOP against ~61-85 MB. Row 9's
+// quantize adds ~10 fp32 operations (an IEEE divide, rint, clamp, pack) an
+// element, 0.45 G on the CUDA cores, and 22.5 MB of payload. Two designs:
+// - The Hopper kernel (namespace hop) takes the bf16/fp16 products whose
+//   operands TMA can read (16-byte aligned bases and row strides; see
+//   `wgmma_ok` and `wgmma_quantize_ok`): a 384-thread block owns a 128 x
+//   256 output tile; warp 0 keeps TMA loads of 64-deep stages in flight
+//   into a ring of shared memory (128-byte swizzle, mbarriers); for
+//   dequant_matmul warps 1-3 dequantize the raw payload stage into the
 //   bf16/fp16 B stage; two consumer warpgroups run wgmma m64n256k16 with
-//   fp32 accumulators in registers and store them straight to `out` at
-//   its row stride. Its section below says more.
-// - The mma.sync tile loop takes the rest of the 16-bit products and the
-//   quantize epilogue: a 256-thread block owns a 128 x 128 output tile
-//   (64 x 256 for the quantize epilogue, so that a block owns whole
-//   256-wide quantization blocks); each of its 8 warps owns a 32 x 64
-//   piece and runs mma.sync m16n8k16 with fp32 accumulators over 32-deep
-//   k steps staged in shared memory: A row-major (or a^T as it lies, for
-//   `trans_a`), B row-major, rows padded by 8 elements, fragments by
-//   32-bit loads or ldmatrix .trans. Staging uses 16-byte loads where rows
-//   split into aligned 8-element pieces, else single elements. The weight
-//   is dequantized while it is staged (the prologue: 8 payload values, one
-//   scale, one 16-byte store). The quantize epilogue writes the fp32 tile
-//   to shared memory and gives each (row, block) to a warp: shuffle
-//   absmax, IEEE divide, rintf, pack. A block that does not divide 256 or
-//   the row length takes a second pass in this file (matmul to an fp32
-//   scratch, then the quantize kernel).
+//   fp32 accumulators in registers. Rows 7/8 store the accumulators
+//   straight to `out`. Row 9's a^T is read as the [k, m] array lies: its
+//   boxes are M-major and wgmma reads them through the transpose bit of A,
+//   so nothing is staged transposed. Row 9 quantizes in the consumers'
+//   registers, so the fp32 product never leaves them: a row's 256 columns
+//   lie in one quad of a warp, a block's absmax is the thread's part and
+//   two shuffles; the payload bytes of a row, scattered over the quad
+//   (int4 byte 4 j + q from lane q), are gathered by a quad transpose of
+//   shuffles into whole 16-byte pieces, one vector store each. Shuffles,
+//   not a staging buffer: the ring's stages are free only once both
+//   consumer warpgroups are done, and each warpgroup finishes on its own.
+//   Its grid walks the m tiles first, so a wave shares B panels and all of
+//   a^T stays in L2. The section below says more.
+// - The mma.sync tile loop takes the rest of the 16-bit products: a
+//   256-thread block owns a 128 x 128 output tile (64 x 256 for the
+//   quantize epilogue, so that a block owns whole 256-wide quantization
+//   blocks); each of its 8 warps owns a 32 x 64 piece and runs mma.sync
+//   m16n8k16 with fp32 accumulators over 32-deep k steps staged in shared
+//   memory: A row-major (or a^T as it lies, for `trans_a`), B row-major,
+//   rows padded by 8 elements, fragments by 32-bit loads or ldmatrix
+//   .trans. Staging uses 16-byte loads where rows split into aligned
+//   8-element pieces, else single elements. The weight is dequantized
+//   while it is staged (the prologue: 8 payload values, one scale, one
+//   16-byte store). The quantize epilogue writes the fp32 tile to shared
+//   memory and gives each (row, block) to a warp: shuffle absmax, IEEE
+//   divide, rintf, pack. A block that does not divide 256 or the row
+//   length takes a second pass in this file (matmul to an fp32 scratch,
+//   then the quantize kernel).
 // fp32 operands take a 256-thread scalar-FMA kernel.
 
 #include <cuda_bf16.h>
@@ -450,14 +463,16 @@ mma_kernel(Operands<T> op, Store st, Quant qt) {
 }
 
 // ------------------------------------------- Hopper path: TMA + wgmma
-// The bf16/fp16 products of dequant_matmul and matmul_pallas. A block of
-// three warpgroups owns a BM x BN output tile and walks the whole
-// contraction in 64-deep stages held in a ring of shared memory:
+// The bf16/fp16 products of dequant_matmul, matmul_pallas and
+// matmul_quantize. A block of three warpgroups owns a BM x BN output tile
+// and walks the whole contraction in 64-deep stages held in a ring of
+// shared memory:
 // - warp 0 is the producer: one thread issues the TMA loads of A (box 64 x
-//   128, 128-byte swizzle, K-major for wgmma) and of B (four boxes of 64 n
-//   x 64 k rows, 128-byte swizzle, N-major: wgmma's transpose bit) or, for
-//   row 7, of the raw payload tile (int8 64 x 256, packed int4 64 x 128
-//   bytes, no swizzle);
+//   128, 128-byte swizzle, K-major for wgmma; for row 9's a^T two boxes of
+//   64 k rows x 64 m of the [k, m] array, M-major: wgmma's transpose bit
+//   for A) and of B (four boxes of 64 n x 64 k rows, 128-byte swizzle,
+//   N-major: wgmma's transpose bit) or, for row 7, of the raw payload tile
+//   (int8 64 x 256, packed int4 64 x 128 bytes, no swizzle);
 // - for row 7, warps 1-3 are the converter: they dequantize the payload
 //   stage into the swizzled B stage with load_b8's arithmetic, then fence
 //   the generic proxy against the async one before they tell the
@@ -469,7 +484,8 @@ mma_kernel(Operands<T> op, Store st, Quant qt) {
 //   wgmma.mma_async m64n256k16 with fp32 accumulators in registers, one
 //   wgmma group left in flight while the next stage is waited for; the
 //   epilogue stores the accumulators straight to `out` at row stride
-//   `ldo`, masking the ragged m and n edges.
+//   `ldo`, masking the ragged m and n edges, or (row 9) quantizes them
+//   where they lie: quantize_rows.
 // TMA fills zeros past the edges of A, B and the payload (whose scale is
 // then 0), so a ragged k adds +0. Barriers per stage: full (A, and dense
 // B, landed), pfull (payload landed), bready (the converter wrote B) and
@@ -526,8 +542,11 @@ struct Params {
   float* out;
   const float* scales;  // row 7: one per `block` flat weight elements
   int m, n, k, ldo;
-  int block;
-  int vec2;  // out and ldo allow 8-byte stores
+  int block;  // row 7: of the weight; row 9: of the product
+  int vec2;   // out and ldo allow 8-byte stores
+  void* payload;   // row 9: int8 [m * n], or packed int4 [m * n / 2]
+  float* qscales;  // row 9: [m * n / block]
+  int vec16;       // row 9: the payload's rows allow 16-byte stores
 };
 
 #define DST_ACC128(d)                                                        \
@@ -570,19 +589,21 @@ struct Params {
   "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
   "%124, %125, %126, %127}"
 
-// d[64 x 256] += A[64 x 16] (K-major) * B[16 x 256] (N-major: transpose
-// bit of B set), fp32 accumulators; asynchronous until wgmma.wait_group
-template <typename T>
+// d[64 x 256] += A[64 x 16] * B[16 x 256] (N-major: transpose bit of B
+// set), fp32 accumulators; asynchronous until wgmma.wait_group. A is
+// K-major, or M-major with TRANS_A (the transpose bit of A set: row 9's
+// a^T, read as a [k, m] lies)
+template <typename T, bool TRANS_A = false>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
                                            uint64_t db) {
   if constexpr (std::is_same<T, __half>::value) {
     asm volatile("wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
-                 DST_D128 ", %128, %129, 1, 1, 1, 0, 1;\n"
-                 : DST_ACC128(d) : "l"(da), "l"(db));
+                 DST_D128 ", %128, %129, 1, 1, 1, %130, 1;\n"
+                 : DST_ACC128(d) : "l"(da), "l"(db), "n"(TRANS_A ? 1 : 0));
   } else {
     asm volatile("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-                 DST_D128 ", %128, %129, 1, 1, 1, 0, 1;\n"
-                 : DST_ACC128(d) : "l"(da), "l"(db));
+                 DST_D128 ", %128, %129, 1, 1, 1, %130, 1;\n"
+                 : DST_ACC128(d) : "l"(da), "l"(db), "n"(TRANS_A ? 1 : 0));
   }
 }
 
@@ -672,7 +693,136 @@ __device__ __forceinline__ void stage_scales(float (&sc)[kConvRows],
   }
 }
 
-template <typename T, int MODE>
+// ---- row 9's epilogue: the blockwise quantize in the consumers' registers
+// Words w[o .. o+3] of the four lanes of a quad, transposed across it:
+// afterwards lane q's w[o + i] is lane i's w[o + q]. Two butterfly rounds
+// of two shuffles each swap a lane-index bit with a word-index bit.
+// (o a constant once the caller's loop is unrolled)
+template <int N>
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[N], int o,
+                                               int q) {
+#pragma unroll
+  for (int bit = 2; bit > 0; bit >>= 1) {
+    const bool hi = q & bit;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i & bit) continue;
+      // send the word whose index bit differs from the lane's, receive
+      // the partner's into the same slot
+      const uint32_t r = __shfl_xor_sync(0xffffffffu,
+                                         hi ? w[o + i] : w[o + i + bit], bit);
+      if (hi)
+        w[o + i] = r;
+      else
+        w[o + i + bit] = r;
+    }
+  }
+}
+
+// The two rows of one consumer thread (d[4 j + 2 h + e]: row row0 + 8 h,
+// column n0 + 8 j + 2 q + e, q = lane % 4, as the store epilogue reads
+// them), quantized in blocks of 8 * BJ columns and stored. A block's 2 BJ
+// values a row lie in this thread, the rest in its quad: the absmax takes
+// two shuffles. Each element is quant_one of its scale (quant.cu's
+// arithmetic), packed into payload words w (int4: byte e of w[i] is column
+// pair j = 4 i + e, a whole byte; int8: half e of w[i] is pair j = 2 i +
+// e); a quad transpose then gives each lane whole 16-byte pieces of the
+// payload row (`piece` below), stored with one vector store each.
+template <int BITS, int BJ>
+__device__ __forceinline__ void quantize_rows(float (&d)[128],
+                                              const Params& p, int row0,
+                                              int n0, int q) {
+  constexpr float kQmax = BITS == 8 ? 127.f : 7.f;
+  constexpr int kWords = BITS == 8 ? 16 : 8;  // payload words a row
+  constexpr int kSpan = BITS == 8 ? 16 : 32;  // columns a 16-byte piece
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const bool live = row < p.m;
+    const long long flat = static_cast<long long>(row) * p.n;
+    uint32_t w[kWords];
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = 0u;
+#pragma unroll
+    for (int g = 0; g < 32 / BJ; ++g) {
+      float amax = 0.f;
+#pragma unroll
+      for (int j = g * BJ; j < (g + 1) * BJ; ++j)
+        amax = fmaxf(amax, fmaxf(fabsf(d[4 * j + 2 * h]),
+                                 fabsf(d[4 * j + 2 * h + 1])));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+      float s = __fdiv_rn(amax, kQmax);
+      if (s == 0.f) s = 1.f;
+      const int col = n0 + 8 * BJ * g;
+      if (live && (g & 3) == q && col < p.n)
+        p.qscales[static_cast<long long>(row) * (p.n / p.block) +
+                  col / p.block] = s;
+#pragma unroll
+      for (int j = g * BJ; j < (g + 1) * BJ; ++j) {
+        const uint32_t lo = quant_one(d[4 * j + 2 * h], s, kQmax);
+        const uint32_t hi = quant_one(d[4 * j + 2 * h + 1], s, kQmax);
+        if constexpr (BITS == 4)
+          w[j >> 2] |= ((lo & 0xFu) | (hi & 0xFu) << 4) << (8 * (j & 3));
+        else
+          w[j >> 1] |= ((lo & 0xFFu) | (hi & 0xFFu) << 8) << (16 * (j & 1));
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < kWords; o += 4) {
+      quad_transpose(w, o, q);
+      // w[o + i] is lane i's word of piece o + q: the payload row's bytes
+      // 16 (o + q) .. + 15, interleaved lane by lane
+      const uint32_t s0 = w[o], s1 = w[o + 1], s2 = w[o + 2], s3 = w[o + 3];
+      uint4 v;
+      if constexpr (BITS == 4) {  // byte e of each lane's word, in turn
+        const uint32_t t0 = __byte_perm(s0, s1, 0x5140);
+        const uint32_t t1 = __byte_perm(s2, s3, 0x5140);
+        const uint32_t t2 = __byte_perm(s0, s1, 0x7362);
+        const uint32_t t3 = __byte_perm(s2, s3, 0x7362);
+        v = make_uint4(
+            __byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+            __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632));
+      } else {  // half e of each lane's word, in turn
+        v = make_uint4(
+            __byte_perm(s0, s1, 0x5410), __byte_perm(s2, s3, 0x5410),
+            __byte_perm(s0, s1, 0x7632), __byte_perm(s2, s3, 0x7632));
+      }
+      const int piece = o + q, c0 = n0 + kSpan * piece;
+      if (!live || c0 >= p.n) continue;
+      unsigned char* dst = static_cast<unsigned char*>(p.payload) +
+                           (flat + c0) * BITS / 8;
+      if (p.vec16 && c0 + kSpan <= p.n) {
+        *reinterpret_cast<uint4*>(dst) = v;
+      } else {  // a 4-byte word never straddles n (n % 8 == 0)
+        const uint32_t part[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c0 + e * kSpan / 4 < p.n)
+            reinterpret_cast<uint32_t*>(dst)[e] = part[e];
+      }
+    }
+  }
+}
+
+template <int BITS>
+__device__ __forceinline__ void quantize_tile_regs(float (&d)[128],
+                                                   const Params& p, int row0,
+                                                   int n0, int q) {
+  switch (p.block) {  // the launcher took only these
+    case 256: quantize_rows<BITS, 32>(d, p, row0, n0, q); break;
+    case 128: quantize_rows<BITS, 16>(d, p, row0, n0, q); break;
+    case 64: quantize_rows<BITS, 8>(d, p, row0, n0, q); break;
+    case 32: quantize_rows<BITS, 4>(d, p, row0, n0, q); break;
+    case 16: quantize_rows<BITS, 2>(d, p, row0, n0, q); break;
+    default: quantize_rows<BITS, 1>(d, p, row0, n0, q); break;
+  }
+}
+
+// MODE: B dense or dequantized (row 7). TRANS_A: A is a [k, m] (row 9's
+// a^T). QBITS: 0 stores the fp32 product (rows 7, 8); 8 or 4 quantizes
+// it (row 9).
+template <typename T, int MODE, bool TRANS_A, int QBITS>
 __global__ void __launch_bounds__(kThreads, 1)
 wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
              const __grid_constant__ CUtensorMap tm_b, Params p) {
@@ -693,7 +843,10 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
                              0);
   const int t = threadIdx.x % 128;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // row 9 walks the m tiles first: a wave of blocks then shares a few B
+  // panels, and all of A stays in L2 (the path's a^T is 16 MB, b 45 MB)
+  const int m0 = (QBITS ? blockIdx.x : blockIdx.y) * BM;
+  const int n0 = (QBITS ? blockIdx.y : blockIdx.x) * BN;
   const int nk = (p.k + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
@@ -729,7 +882,12 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
         const uint32_t sa = base + s * C::STAGE_BYTES;
         const int k0 = it * BK;
         mbar_expect_tx(full(s), C::A_BYTES + (C::DQ ? 0 : C::B_BYTES));
-        tma_load_2d(sa, &tm_a, full(s), k0, m0);
+        if constexpr (TRANS_A) {  // two boxes of 64 k rows x 64 m
+          tma_load_2d(sa, &tm_a, full(s), m0, k0);
+          tma_load_2d(sa + kBoxBytes, &tm_a, full(s), m0 + kBoxN, k0);
+        } else {
+          tma_load_2d(sa, &tm_a, full(s), k0, m0);
+        }
         if constexpr (C::DQ) {
           mbar_expect_tx(pfull(s), C::P_BYTES);
           tma_load_2d(sa + C::A_BYTES + C::B_BYTES, &tm_b, pfull(s),
@@ -810,16 +968,20 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
       const uint32_t ph = (it / S) & 1;
       mbar_wait(full(s), ph);
       if constexpr (C::DQ) mbar_wait(bready(s), ph);
-      const uint32_t sa = base + s * C::STAGE_BYTES + c * 64 * 128;
+      // this consumer's 64 rows of A: 64 rows of 128 bytes (K-major) or,
+      // with TRANS_A, one 64-wide M atom, the box of 64 k rows at c
+      const uint32_t sa = base + s * C::STAGE_BYTES + c * kBoxBytes;
       const uint32_t sb = base + s * C::STAGE_BYTES + C::A_BYTES;
       fence_acc(d);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-      // k step kk: A 32 bytes along its 128-byte rows, B 16 rows of 128
-      // bytes
+      // k step kk: A 32 bytes along its 128-byte rows (K-major) or 16 rows
+      // of 128 bytes (M-major), B 16 rows of 128 bytes
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_n256<T>(d, wg_desc(sa + 32 * kk, 16, 1024),
-                      wg_desc(sb + kk * 16 * 128, kBoxBytes, 1024));
+        wgmma_n256<T, TRANS_A>(
+            d, TRANS_A ? wg_desc(sa + kk * 16 * 128, kBoxBytes, 1024)
+                       : wg_desc(sa + 32 * kk, 16, 1024),
+            wg_desc(sb + kk * 16 * 128, kBoxBytes, 1024));
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       // the previous stage's group is done: free it
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
@@ -832,6 +994,10 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
     // 2 (lane % 4) (+ 1 for odd e), w the warp within the warpgroup
     const int w = t >> 5, lane = t & 31;
     const int r0 = m0 + 64 * c + 16 * w + (lane >> 2);
+    if constexpr (QBITS != 0) {
+      quantize_tile_regs<QBITS>(d, p, r0, n0, lane & 3);
+      return;
+    }
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * (lane & 3);
@@ -1073,7 +1239,7 @@ int launch_wgmma(const void* a, const void* b, const float* scales,
       : encode_2d(&tm_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, b, k,
                   MODE == kInt8 ? n : n / 2, hop::BK, C::P_ROW, false);
   if (err) return err;
-  auto kernel = hop::wgmma_kernel<T, MODE>;
+  auto kernel = hop::wgmma_kernel<T, MODE, false, 0>;
   err = set_smem(kernel, C::SMEM);
   if (err) return err;
   hop::Params p{out, scales, m, n, k, ldo, block,
@@ -1091,6 +1257,72 @@ int dispatch_wgmma(int dtype, const void* a, const void* b,
       ? launch_wgmma<__half, MODE>(a, b, scales, out, m, n, k, ldo, block, s)
       : launch_wgmma<__nv_bfloat16, MODE>(a, b, scales, out, m, n, k, ldo,
                                           block, s);
+}
+
+// what row 9's Hopper kernel takes (ops/fused_collectives.py
+// `wgmma_quantize_path` states the same): bf16/fp16, 16-byte aligned bases,
+// A's and B's rows whole 16-byte strides (a [rows, k], or [k, rows] with
+// trans_a; b [k, n]), quantization blocks that tile the 256-wide output
+// tile and the rows (block | 256, block | n, block % 8 == 0), and n tiles
+// within the grid's 65535
+bool wgmma_quantize_ok(int dtype, const void* a, const void* b, int rows,
+                       int n, int k, int trans_a, int block) {
+  return (dtype == 1 || dtype == 2) && rows >= 1 && n >= 1 && k >= 1 &&
+         (trans_a ? rows : k) % 8 == 0 && n % 8 == 0 && aligned(a, 16) &&
+         aligned(b, 16) && block >= 8 && block % 8 == 0 &&
+         hop::BN % block == 0 && n % block == 0 &&
+         (n + hop::BN - 1) / hop::BN <= 65535;
+}
+
+template <typename T, bool TRANS_A, int BITS>
+int launch_wgmma_quantize(const void* a, const void* b, void* payload,
+                          float* scales, int rows, int n, int k, int block,
+                          cudaStream_t s) {
+  using C = hop::Cfg<kDense>;
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tm_a, tm_b;
+  // a^T: the [k, rows] array in boxes of 64 k rows x 64 rows (M-major)
+  int err = TRANS_A
+      ? encode_2d(&tm_a, type, 2, a, k, rows, hop::BK, hop::kBoxN, true)
+      : encode_2d(&tm_a, type, 2, a, rows, k, hop::BM, hop::BK, true);
+  if (err) return err;
+  err = encode_2d(&tm_b, type, 2, b, k, n, hop::BK, hop::kBoxN, true);
+  if (err) return err;
+  auto kernel = hop::wgmma_kernel<T, kDense, TRANS_A, BITS>;
+  err = set_smem(kernel, C::SMEM);
+  if (err) return err;
+  hop::Params p{};
+  p.m = rows;
+  p.n = n;
+  p.k = k;
+  p.block = block;
+  p.payload = payload;
+  p.qscales = scales;
+  p.vec16 = n % (BITS == 8 ? 16 : 32) == 0 && aligned(payload, 16);
+  // m tiles on x, the fastest in the order blocks start
+  dim3 grid((rows + hop::BM - 1) / hop::BM, (n + hop::BN - 1) / hop::BN);
+  kernel<<<grid, hop::kThreads, C::SMEM, s>>>(tm_a, tm_b, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_wgmma_quantize(const void* a, const void* b, void* payload,
+                            float* scales, int rows, int n, int k,
+                            int trans_a, int bits, int block,
+                            cudaStream_t s) {
+  if (trans_a)
+    return bits == 8
+        ? launch_wgmma_quantize<T, true, 8>(a, b, payload, scales, rows, n,
+                                            k, block, s)
+        : launch_wgmma_quantize<T, true, 4>(a, b, payload, scales, rows, n,
+                                            k, block, s);
+  return bits == 8
+      ? launch_wgmma_quantize<T, false, 8>(a, b, payload, scales, rows, n, k,
+                                           block, s)
+      : launch_wgmma_quantize<T, false, 4>(a, b, payload, scales, rows, n, k,
+                                           block, s);
 }
 
 bool bad(int m, int n, int k, int dtype) {
@@ -1200,8 +1432,29 @@ extern "C" int dst_fc_matmul_quantize(const void* a, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The same on row 9's Hopper kernel (TMA + wgmma, the quantize in the
+// consumers' registers). It takes only what `wgmma_quantize_ok` accepts and
+// returns cudaErrorInvalidValue otherwise: the caller decides the path
+// (ops/fused_collectives.py `wgmma_quantize_path`), and nothing here gives
+// way to the kernel above. No scratch: every block takes one pass.
+extern "C" int dst_fc_matmul_quantize_wgmma(const void* a, const void* b,
+                                            void* payload, float* scales,
+                                            int rows, int n, int k,
+                                            int trans_a, int bits, int block,
+                                            int dtype, void* stream) {
+  if ((bits != 4 && bits != 8) ||
+      !wgmma_quantize_ok(dtype, a, b, rows, n, k, trans_a, block))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1
+      ? dispatch_wgmma_quantize<__half>(a, b, payload, scales, rows, n, k,
+                                        trans_a, bits, block, s)
+      : dispatch_wgmma_quantize<__nv_bfloat16>(a, b, payload, scales, rows,
+                                               n, k, trans_a, bits, block, s);
+}
+
 // dynamic shared memory of the Hopper kernel a launch asks for (bits 0:
-// dense, 8, 4), for the build report
+// a dense B, rows 8 and 9; 8 and 4: row 7's weight), for the build report
 extern "C" int dst_fc_wgmma_smem(int bits) {
   return static_cast<int>(bits == 8   ? hop::Cfg<kInt8>::SMEM
                           : bits == 4 ? hop::Cfg<kInt4>::SMEM

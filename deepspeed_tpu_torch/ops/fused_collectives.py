@@ -19,13 +19,15 @@ them), built by ``nvcc`` at first use and called through ``ctypes``
 PyTorch's current stream, adds one to its ``.launches`` and raises on what
 the kernel does not take; on CPU tensors it runs the plain version.
 
-``dequant_matmul`` and ``matmul_pallas`` have two kernels: the Hopper one
-(TMA loads into a ring of shared memory, ``wgmma``, converter warps
-for the dequantize) for the bf16/fp16 products that :func:`wgmma_path`
-accepts, and the ``mma.sync`` / fp32 FMA tile loop for the rest. The
-predicate alone picks; each wrapper counts the Hopper launches in
-``.wgmma_launches`` beside ``.launches``, and a Hopper kernel that fails
-raises like any other: nothing gives way to the other kernel.
+Each wrapper has two kernels: the Hopper one (TMA loads into a ring of
+shared memory, ``wgmma``; converter warps for the dequantize; for
+``matmul_quantize`` the quantize in the consumers' registers) for the
+bf16/fp16 products that :func:`wgmma_path` (:func:`wgmma_quantize_path`
+for ``matmul_quantize``) accepts, and the ``mma.sync`` / fp32 FMA tile
+loop for the rest. The predicate alone picks; each wrapper counts the
+Hopper launches in ``.wgmma_launches`` beside ``.launches``, and a Hopper
+kernel that fails raises like any other: nothing gives way to the other
+kernel.
 
 Layouts follow the facade's wire format: ``payload`` is the flat int8
 ``[k*b]`` (uint8 ``[k*b/2]`` nibble-packed for int4, ``pack_int4``'s
@@ -61,9 +63,11 @@ def _library(defines=None) -> ctypes.CDLL:
         lib.dst_fc_matmul_wgmma.argtypes = lib.dst_fc_matmul.argtypes
         lib.dst_fc_dequant_matmul_wgmma.argtypes = \
             lib.dst_fc_dequant_matmul.argtypes
+        lib.dst_fc_matmul_quantize_wgmma.argtypes = [vp] * 4 + [i] * 7 + [vp]
         for fn in (lib.dst_fc_matmul, lib.dst_fc_dequant_matmul,
                    lib.dst_fc_matmul_quantize, lib.dst_fc_matmul_wgmma,
-                   lib.dst_fc_dequant_matmul_wgmma):
+                   lib.dst_fc_dequant_matmul_wgmma,
+                   lib.dst_fc_matmul_quantize_wgmma):
             fn.restype = ctypes.c_int
         lib.dst_fc_wgmma_smem.argtypes = [i]
         lib.dst_fc_wgmma_smem.restype = ctypes.c_int
@@ -184,6 +188,35 @@ def wgmma_path(dtype: torch.dtype, m: int, n: int, k: int,
             and k * n < 2 ** 31)
 
 
+# row 9's output tile is 256 columns wide: a quantization block must tile
+# it; and its n tiles must fit the grid's 65535
+_QUANT_TILE_N = 256
+_MAX_N_TILES = 65535
+
+
+def wgmma_quantize_path(dtype: torch.dtype, rows: int, n: int, k: int,
+                        trans_a: bool, addrs: Tuple[int, ...], *,
+                        block: int) -> bool:
+    """Whether the Hopper kernel (TMA + ``wgmma``, the quantize in the
+    consumers' registers) computes :func:`matmul_quantize` of ``A [rows,
+    k] @ b [k, n]``, ``A = a`` or, with ``trans_a``, ``a.T`` read from the
+    ``[k, rows]`` array as it lies; else the ``mma.sync`` / fp32 FMA
+    kernels do. ``addrs`` are the base addresses of ``a`` and ``b``. It
+    takes bf16/fp16 operands whose bases are 16-byte aligned and whose rows
+    are whole 16-byte strides (``k % 8 == 0``, or ``rows % 8 == 0`` with
+    ``trans_a``; ``n % 8 == 0``), and a block that tiles the kernel's
+    256-wide output tile and the product's rows (``block % 8 == 0``,
+    ``256 % block == 0``, ``n % block == 0``). ``fused_collectives.cu``'s
+    ``wgmma_quantize_ok`` checks the same and refuses the rest."""
+    if dtype not in (torch.bfloat16, torch.float16) or min(rows, n, k) < 1:
+        return False
+    if (rows if trans_a else k) % 8 or n % 8 or any(p % 16 for p in addrs):
+        return False
+    return (block >= 8 and block % 8 == 0 and _QUANT_TILE_N % block == 0
+            and n % block == 0
+            and -(-n // _QUANT_TILE_N) <= _MAX_N_TILES)
+
+
 def dequant_matmul(h: torch.Tensor, payload: torch.Tensor,
                    scales: torch.Tensor, *, bits: int, block: int, b: int,
                    w_dtype=torch.float32,
@@ -267,7 +300,8 @@ def matmul_quantize(a: torch.Tensor, b: torch.Tensor, *, bits: int,
     epilogue: ``(payload, scales)`` with payload the flat int8
     ``[rows*block]`` (uint8 ``[rows*block/2]`` packed for int4) and scales
     fp32 ``[rows]``, rows = product size / block, ready for
-    ``comm.compressed.quantized_chunk_exchange``."""
+    ``comm.compressed.quantized_chunk_exchange``. :func:`wgmma_quantize_path`
+    picks the kernel."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     kc, out_rows = a.shape if trans_a else a.shape[::-1]
@@ -294,14 +328,25 @@ def matmul_quantize(a: torch.Tensor, b: torch.Tensor, *, bits: int,
                           dtype=torch.uint8 if bits == 4 else torch.int8,
                           device=a.device)
     scales = torch.empty(rows, dtype=torch.float32, device=a.device)
-    one_pass = 256 % block == 0 and n % block == 0
-    scratch = None if one_pass else torch.empty(
-        (out_rows, n), dtype=torch.float32, device=a.device)
-    _raise_on(lib, "matmul_quantize", lib.dst_fc_matmul_quantize(
-        a.data_ptr(), b.data_ptr(), payload.data_ptr(), scales.data_ptr(),
-        0 if scratch is None else scratch.data_ptr(), out_rows, n, kc,
-        int(trans_a), bits, block, _DTYPE_CODE[a.dtype], _stream(a)))
+    hopper = wgmma_quantize_path(a.dtype, out_rows, n, kc, trans_a,
+                                 (a.data_ptr(), b.data_ptr()), block=block)
+    if hopper:
+        err = lib.dst_fc_matmul_quantize_wgmma(
+            a.data_ptr(), b.data_ptr(), payload.data_ptr(),
+            scales.data_ptr(), out_rows, n, kc, int(trans_a), bits, block,
+            _DTYPE_CODE[a.dtype], _stream(a))
+    else:
+        one_pass = 256 % block == 0 and n % block == 0
+        scratch = None if one_pass else torch.empty(
+            (out_rows, n), dtype=torch.float32, device=a.device)
+        err = lib.dst_fc_matmul_quantize(
+            a.data_ptr(), b.data_ptr(), payload.data_ptr(),
+            scales.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), out_rows, n, kc,
+            int(trans_a), bits, block, _DTYPE_CODE[a.dtype], _stream(a))
+    _raise_on(lib, "matmul_quantize", err)
     matmul_quantize.launches += 1
+    matmul_quantize.wgmma_launches += hopper
     return payload, scales
 
 
@@ -310,3 +355,4 @@ dequant_matmul.wgmma_launches = 0
 matmul_pallas.launches = 0
 matmul_pallas.wgmma_launches = 0
 matmul_quantize.launches = 0
+matmul_quantize.wgmma_launches = 0

@@ -28,11 +28,19 @@ on the CPU (kernel rows 7-9 of PERF.md's table).
   Hopper TMA + wgmma kernel takes): the ZeRO-3 path's shapes, unaligned
   shapes, fp32, payload widths TMA cannot stride, blocks of partial
   pieces, and a base pointer one element off.
+* The dispatch predicate ``wgmma_quantize_path`` (which ``matmul_quantize``
+  products the Hopper kernel takes): the ZeRO-3 path's shape with
+  ``trans_a`` on and off, the blocks it takes (256, 128, 64, 8) and those
+  it refuses (96, 2, 512, one that does not divide n), fp32, unaligned
+  bases, and rows that are no whole 16-byte strides.
 * Config, weight carry, and the ``gpu``-marked kernel checks (skipped
   without a card): the mma.sync kernels, and the Hopper kernel against
-  the plain versions (bf16/fp16, int8/int4, blocks 256/64/96, ragged m, n
-  and k), bitwise on integer-valued operands, across two runs and into a
-  column slice, each case counted on ``.wgmma_launches``.
+  the plain versions (rows 7/8: bf16/fp16, int8/int4, blocks 256/64/96,
+  ragged m, n and k, bitwise on integer-valued operands, across two runs
+  and into a column slice; row 9: bf16/fp16, ``trans_a`` both ways,
+  int8/int4, blocks 256/128/64/32, ragged rows, n and k, bitwise on
+  integer-valued operands and twice, on random ones within the levels
+  rule), each case counted on ``.wgmma_launches``.
 """
 
 import numpy as np
@@ -540,17 +548,65 @@ def test_wgmma_path_leaves_the_old_gpu_case(bits):
                              block=64)
 
 
+# row 9 at the path's shape: h^T [4096, 2048] x g [2048, 11008] -> int4,
+# the weight gradient of a [4096, 11008] block
+QPATH_ROWS, QPATH_K, QPATH_N = 4096, 2048, 11008
+
+
+@pytest.mark.parametrize("case,want", [
+    # the path's shape, both transpositions; the blocks it takes
+    (dict(), True),
+    (dict(trans_a=False), True),
+    (dict(dtype=torch.float16), True),
+    (dict(block=128), True),
+    (dict(block=64), True),
+    (dict(block=8), True),
+    # blocks that do not tile the 256-wide output tile, or fall short of a
+    # whole 8-element piece
+    (dict(block=96), False),
+    (dict(block=2), False),
+    (dict(block=512), False),
+    # a block that does not divide the row length n
+    (dict(n=320, block=256), False),
+    (dict(n=320, block=64), True),
+    # fp32 keeps the FMA kernel
+    (dict(dtype=torch.float32), False),
+    # a base pointer one element off its allocation's aligned start
+    (dict(off_a=1), False),
+    (dict(off_b=1), False),
+    # rows that are not whole 16-byte strides: b's n, a's rows under
+    # trans_a (a is [k, rows]), a's k without it (a is [rows, k])
+    (dict(n=11004, block=8), False),
+    (dict(rows=4092), False),
+    (dict(rows=4092, trans_a=False), True),
+    (dict(k=2044, trans_a=False), False),
+    (dict(k=2044), True),
+    # an empty product
+    (dict(rows=0), False),
+])
+def test_wgmma_quantize_path_predicate(case, want):
+    c = {**dict(dtype=torch.bfloat16, rows=QPATH_ROWS, n=QPATH_N, k=QPATH_K,
+                trans_a=True, block=256, off_a=0, off_b=0), **case}
+    addrs = (_addr(c["dtype"], c["off_a"]), _addr(c["dtype"], c["off_b"]))
+    assert fc.wgmma_quantize_path(c["dtype"], c["rows"], c["n"], c["k"],
+                                  c["trans_a"], addrs,
+                                  block=c["block"]) is want
+
+
 def test_cpu_wrappers_leave_the_kernel_counts():
-    before = (fc.matmul_pallas.launches, fc.matmul_pallas.wgmma_launches,
-              fc.dequant_matmul.launches, fc.dequant_matmul.wgmma_launches)
+    wrappers = (fc.matmul_pallas, fc.dequant_matmul, fc.matmul_quantize)
+    before = [(w.launches, w.wgmma_launches) for w in wrappers]
     h = torch.ones((2, 16), dtype=torch.bfloat16)
     fc.matmul_pallas(h, torch.ones((16, 32), dtype=torch.bfloat16))
     q, s = fc.quantize_blockwise_reference(torch.ones(16, 32), 8, 64)
     fc.dequant_matmul(h, q.reshape(-1), s, bits=8, block=64, b=32,
                       w_dtype=torch.bfloat16)
-    assert (fc.matmul_pallas.launches, fc.matmul_pallas.wgmma_launches,
-            fc.dequant_matmul.launches,
-            fc.dequant_matmul.wgmma_launches) == before
+    # the path's kind of call at a size the Hopper predicate takes
+    a, b = torch.ones((16, 8), dtype=torch.bfloat16), \
+        torch.ones((16, 256), dtype=torch.bfloat16)
+    for bits in (8, 4):
+        fc.matmul_quantize(a, b, bits=bits, block=256, trans_a=True)
+    assert [(w.launches, w.wgmma_launches) for w in wrappers] == before
 
 
 # -------------------------------------------------- on the card only
@@ -731,3 +787,81 @@ def test_wgmma_kernel_random_column_slice_and_reruns():
     assert torch.equal(again, got)
     assert torch.equal(wide[:, PATH_N:], got)
     assert bool(torch.isnan(wide[:, :PATH_N]).all())
+
+
+# row 9 on the Hopper kernel: (rows, k, n, block) with ragged rows, n that
+# is no multiple of the 256-wide tile (320, 1376, 384), k no multiple of the
+# 64-deep stage (520, 528) beside 2048. Under trans_a the rows are a's row
+# length, which TMA needs in whole 16-byte strides: 72 / 328 there.
+WGMMA_QUANT_SHAPES = [(77, 520, 320, 64), (333, 528, 1376, 32),
+                      (77, 2048, 384, 128), (333, 2048, 1280, 256)]
+
+
+def _quant_operands(gen, shape, dtype, trans_a, integer):
+    rows, k, n, _ = shape
+    rows -= rows % 8 if trans_a else 0
+    a_shape = (k, rows) if trans_a else (rows, k)
+    if integer:
+        a = torch.randint(-3, 4, a_shape, generator=gen, device="cuda")
+        b = torch.randint(-3, 4, (k, n), generator=gen, device="cuda")
+    else:
+        a = torch.randn(a_shape, generator=gen, device="cuda")
+        b = torch.randn((k, n), generator=gen, device="cuda")
+    return a.to(dtype), b.to(dtype)
+
+
+def _levels_of(payload, bits):
+    return (unpack_int4(payload) if bits == 4 else payload).int()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("trans_a", [True, False])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape", WGMMA_QUANT_SHAPES)
+def test_wgmma_quantize_kernel_bitwise(dtype, trans_a, bits, shape):
+    """Integer-valued operands (exact products and sums): payload and
+    scales bitwise the plain version's, two runs bitwise equal, both
+    launches on the Hopper kernel."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape) + bits)
+    a, b = _quant_operands(gen, shape, dtype, trans_a, True)
+    kw = dict(bits=bits, block=shape[3], trans_a=trans_a)
+    rows = a.shape[1] if trans_a else a.shape[0]
+    assert fc.wgmma_quantize_path(dtype, rows, b.shape[1], b.shape[0],
+                                  trans_a, (a.data_ptr(), b.data_ptr()),
+                                  block=shape[3])
+    before = fc.matmul_quantize.wgmma_launches
+    p, s = fc.matmul_quantize(a, b, **kw)
+    p2, s2 = fc.matmul_quantize(a, b, **kw)
+    rp, rs = fc.matmul_quantize_reference(a, b, **kw)
+    torch.cuda.synchronize()
+    assert fc.matmul_quantize.wgmma_launches == before + 2
+    assert torch.equal(p, rp) and torch.equal(s, rs)
+    assert torch.equal(p2, p) and torch.equal(s2, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("trans_a", [True, False])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape", WGMMA_QUANT_SHAPES)
+def test_wgmma_quantize_kernel_matches_plain(dtype, trans_a, bits, shape):
+    """Random operands on the Hopper kernel: scales within 1e-5 relative,
+    no level more than one apart, and at most one in 1000 levels one apart
+    (fp32 sums in another order move a product across a rounding boundary
+    now and then)."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape) + 2 * bits)
+    a, b = _quant_operands(gen, shape, dtype, trans_a, False)
+    kw = dict(bits=bits, block=shape[3], trans_a=trans_a)
+    before = fc.matmul_quantize.wgmma_launches
+    p, s = fc.matmul_quantize(a, b, **kw)
+    rp, rs = fc.matmul_quantize_reference(a, b, **kw)
+    torch.cuda.synchronize()
+    assert fc.matmul_quantize.wgmma_launches == before + 1
+    assert bool(((s - rs).abs() <= 1e-5 * rs.abs()).all())
+    lv, rlv = _levels_of(p, bits), _levels_of(rp, bits)
+    assert int((lv - rlv).abs().max()) <= 1
+    assert int((lv != rlv).sum()) <= max(1, lv.numel() // 1000)
