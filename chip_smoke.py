@@ -5,7 +5,8 @@
 Phases (each prints its lines; any failure exits non-zero, and there is no
 CPU path — without a CUDA device the script fails):
 
-1. device: name, count, and ``nvidia-smi`` name + power limit;
+1. device: name, count, the host's CPU count, ATen CPU capability and
+   torch threads, and ``nvidia-smi`` name + power limit;
 2. build: compile every kernel library from the sources in the checkout
    with ``nvcc`` (one process each, all started together, with two
    scratch builds of fused_collectives.cu for a measurement) and print
@@ -75,6 +76,20 @@ CPU path — without a CUDA device the script fails):
    by kernel and the device's idle share; then the same 8 requests over an
    int8 and an int4 KV pool at the bf16 pool's byte budget (path B), the
    int8 run profiled too;
+6b. speculative serving and the KV hand-off on the same model: 8
+   requests of draftable prompts (random segments repeated in place)
+   through ``ServingEngine`` with ``serving.speculative`` on, then off,
+   launches counted from 0 for each (every put and verify put on one
+   paged launch a layer); streams identical, or a near-tie within the
+   verify error; ``put_spec`` driven directly over the bf16 pool and an
+   int8 pool (oracle drafts accepted, random drafts rejected and trimmed,
+   verify rows against put of the same contexts), layer 0's verify paged
+   call compared with the plain version twice and timed beside its bound;
+   ``export_kv`` -> ``import_kv`` and ``export_prefix`` ->
+   ``import_prefix`` between two engines over bf16 and int8 pools
+   (identical tokens, bitwise pages, equal checksums, only the suffix
+   scheduled); sampled ``generate`` (temperature 0.8, top-k 50, top-p
+   0.9), seeded and chunk-invariant;
 6a. inference: ``init_inference(Llama("7b"))`` with int8 weights at group
    256 (path A), then bf16 and int4 weights: 4 prompts of 128 tokens, 32
    new tokens greedy; weight bytes, memory, prefill and decode times,
@@ -118,6 +133,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -297,6 +313,10 @@ def phase_device() -> dict:
     card = smi[0].strip() if smi else "nvidia-smi gave nothing"
     log(f"device: {name} count={count} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
+    # the host's CPU decides the cpu ranks' fp32 rounding (phase 10)
+    log(f"host: {os.cpu_count()} CPUs, ATen CPU capability "
+        f"{torch.backends.cpu.get_cpu_capability()}, "
+        f"{torch.get_num_threads()} torch threads")
     log(card)
     return {"name": name, "count": count, "card": card}
 
@@ -1300,6 +1320,458 @@ def phase_profile(eng, prompts, card: str, tag: str = "profile") -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"{tag}: {e.self_device_time_total / 1e3:9.2f} ms "
             f"x{e.count:<6d} {e.key[:110]}")
+
+
+# --------------------------------------------------------------- phase 6b
+# speculative serving of phase 5's shape (ServingConfig keys)
+SPEC_SERVING = {"policy": "fcfs", "speculative": True, "spec_lookahead": 4,
+                "spec_ngram": 3}
+# verify rows against put of the same contexts, bf16 over 32 layers: the
+# verify put computes a chain's rows in another batch than put's one-token
+# steps (other cuBLAS shapes, other split-K spans), so they round
+# differently: max |verify - put| / max |put|
+SPEC_REL = 5e-2
+SPEC_SHAPE = dict(token_budget=512, max_seqs=16, kv_block_size=16,
+                  max_context=4096, dtype=torch.bfloat16)
+
+
+def _draftable_prompts(rng, n: int) -> list:
+    """``n`` prompts of 64-1536 tokens, each made of seeded random
+    segments of 8-48 tokens, each segment repeated 2-4 times in place (so
+    a prompt-lookup draft finds earlier occurrences)."""
+    out = []
+    for length in rng.integers(64, 1537, n):
+        p = []
+        while len(p) < length:
+            seg = rng.integers(1, 32000, int(rng.integers(8, 49))).tolist()
+            p += seg * int(rng.integers(2, 5))
+        out.append(p[:int(length)])
+    return out
+
+
+def _resolve(eng, uids, toks) -> dict:
+    """put() until every uid's prompt is prefilled: uid -> fp32 logits of
+    its last token."""
+    rows = {}
+    logits = eng.put(list(uids), [list(t) for t in toks])
+    while True:
+        pending = []
+        for u, row in zip(uids, logits):
+            if np.isnan(row).any():
+                pending.append(u)
+            elif u not in rows:
+                rows[u] = row
+        if not pending:
+            return rows
+        uids = pending
+        logits = eng.put(pending, [[] for _ in pending])
+
+
+def _serve_counted(eng, prompts, cfg: dict, n_layers: int) -> dict:
+    """The requests through ServingEngine(cfg), counting the engine's puts
+    and put_specs (each must move the tile / split counters by 0 or one a
+    layer) with every paged counter set to 0 just before and read just
+    after. Returns the requests, wall time and counts."""
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+
+    steps = {"put": 0, "put_spec": 0, "tile": 0, "split": 0, "odd": 0}
+    real = {name: getattr(eng, name) for name in ("put", "put_spec")}
+
+    def counted(name):
+        def call(*args):
+            before = _paged_counts()
+            out = real[name](*args)
+            moved = [a - b for a, b in zip(_paged_counts(), before)]
+            steps[name] += 1
+            steps["tile"] += moved[0] > 0
+            steps["split"] += moved[1] > 0
+            steps["odd"] += any(n not in (0, n_layers) for n in moved)
+            return out
+        return call
+
+    for name in real:
+        setattr(eng, name, counted(name))
+    srv = ServingEngine(eng, cfg)
+    try:
+        srv.submit(prompts[0][:16], max_new_tokens=2).result(timeout=600)
+        torch.cuda.synchronize()
+        for name in PAGED_PATH_COUNTERS:
+            setattr(pa.paged_attention, name, 0)
+        for k in steps:
+            steps[k] = 0
+        t0 = time.perf_counter()
+        reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
+        for r in reqs:
+            r.wait(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: getattr(pa.paged_attention, n)
+                  for n in PAGED_PATH_COUNTERS}
+    finally:
+        srv.close(timeout=60)
+        for name in real:
+            delattr(eng, name)
+    return {"reqs": reqs, "wall": wall, "counts": counts, "steps": steps,
+            "leaks": srv.block_leaks()}
+
+
+def _verify_round(eng, n_layers: int, rng, prompts, tag: str,
+                  record: bool) -> dict:
+    """One put_spec at full width, driven directly: 3 sequences with
+    oracle drafts (4 tokens each: the greedy continuation that twins of
+    them, prefilled alike, decode by plain puts), 2 with random drafts, 1
+    plain decode and a fresh 200-token prompt (a prefill chunk). The
+    verify rows of the oracle chains are held against the twins' put
+    logits of the same contexts (SPEC_REL); oracle chains must be accepted
+    whole and random ones rejected, up to near-ties (a rejection where
+    the twin's top two logits lie within twice the measured error); the
+    rejected tails are trimmed as the server trims them, and the block
+    balance holds. With ``record``, layer 0's paged call of the verify put
+    is kept for timing."""
+    import deepspeed_tpu_torch.inference.ragged as ragged_mod
+    from deepspeed_tpu_torch.inference.ragged import block_balance_report
+
+    oracle, twins, rand, plain = [1, 2, 3], [11, 12, 13], [4, 5], [6]
+    fresh = 7
+    ctx = {u: prompts[i][:400] for i, u in enumerate(oracle + rand + plain)}
+    ctx.update({t: ctx[u] for t, u in zip(twins, oracle)})
+    first = _resolve(eng, list(ctx), list(ctx.values()))
+    # the twins decode 5 tokens by plain puts: their logits are put's
+    # logits of the oracle chains' contexts
+    chain = {t: [int(np.argmax(first[t]))] for t in twins}
+    put_rows = {t: [] for t in twins}
+    for _ in range(5):
+        out = eng.put(twins, [[chain[t][-1]] for t in twins])
+        for t, row in zip(twins, out):
+            put_rows[t].append(row)
+            chain[t].append(int(np.argmax(row)))
+    feed = [[chain[t][0]] for t in twins] \
+        + [[int(np.argmax(first[u]))] for u in rand + plain] \
+        + [rng.integers(1, 32000, 200).tolist()]
+    drafts = [chain[t][1:5] for t in twins] \
+        + [rng.integers(1, 32000, 4).tolist() for _ in rand] + [[], []]
+    uids = oracle + rand + plain + [fresh]
+    seen0 = {u: eng.seqs[u].seen for u in oracle + rand}
+    kept = {}
+    real_paged = ragged_mod.paged_attention
+
+    def recording(q, kp, vp, tables, positions, **kw):
+        if record and not kept:
+            kept.update(q=q, kp=kp, vp=vp, tab=tables, pos=positions,
+                        slots=kw["seq_slots"], live=kw["live_pages"],
+                        work=kw["work"], quant={
+                            k: kw[k] for k in ("k_scale", "v_scale",
+                                               "kv_bits")
+                            if kw.get("k_scale") is not None})
+        return real_paged(q, kp, vp, tables, positions, **kw)
+
+    ragged_mod.paged_attention = recording
+    before = _paged_counts()
+    try:
+        out, verified = eng.put_spec(uids, feed, drafts)
+        torch.cuda.synchronize()
+    finally:
+        ragged_mod.paged_attention = real_paged
+    moved = tuple(a - b for a, b in zip(_paged_counts(), before))
+    want_moved = (0 if eng._kv_bits else n_layers, n_layers)
+    err, scale, near, accepted = 0.0, 0.0, [], {}
+    for u, t in zip(oracle, twins):
+        got_chain, rows = verified[u]
+        ref = np.stack(put_rows[t][:5])
+        err = max(err, _max_err(rows, ref))
+        scale = max(scale, float(np.abs(ref).max()))
+    for u in oracle + rand:
+        got_chain, rows = verified[u]
+        a = np.argmax(rows, axis=-1)
+        matched = 0
+        while matched < len(got_chain) - 1 and \
+                int(a[matched]) == got_chain[matched + 1]:
+            matched += 1
+        accepted[u] = matched
+        if u in oracle and matched < 4:
+            t = twins[oracle.index(u)]
+            row = put_rows[t][matched]
+            gap = float(row.max() - row[int(a[matched])])
+            near.append((u, matched, gap))
+        eng.trim(u, seen0[u] + matched + 1)
+    trimmed = all(eng.seqs[u].seen == len(eng.seqs[u].tokens)
+                  == seen0[u] + accepted[u] + 1 for u in oracle + rand)
+    ok_rows = err <= SPEC_REL * scale and np.isfinite(out).all()
+    ok_near = all(gap <= 2 * err for _, _, gap in near)
+    eng.flush(list(eng.seqs))
+    balance = block_balance_report(eng)
+    ok = (ok_rows and ok_near and trimmed and moved == want_moved
+          and set(verified) == set(oracle + rand)
+          and all(accepted[u] == 0 for u in rand)
+          and not np.isnan(out).any() and not balance["problems"]
+          and balance["free"] == eng.allocator.n_blocks)
+    log(f"{tag}: put_spec of 3 oracle chains, 2 random chains, 1 decode and "
+        f"a 200-token prefill chunk: verify rows vs put of the same contexts "
+        f"max abs err {err:.4e} (max |put| {scale:.3e}, tol SPEC_REL "
+        f"{SPEC_REL} x max |put|); accepted {accepted} (oracle 4 each, "
+        f"random 0); near-ties {near}; rejected tails trimmed {trimmed}, "
+        f"blocks balanced; tile / split launches {moved} (want "
+        f"{want_moved}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{tag}: verify put failed")
+    return {"err": err, "scale": scale, "kept": kept}
+
+
+def _verify_call(kept: dict, card: str, tag: str) -> dict:
+    """Layer 0's paged call of the verify put: against the plain version
+    twice (tile / lane counters as the work list plans), then timed beside
+    its bound, the plain version and the replaced kernel."""
+    k = kept
+    args = (k["q"], k["kp"], k["vp"], k["tab"], k["pos"], k["slots"],
+            k["live"])
+    _paged_twice(f"{tag}_verify_put", *args, 0, work=k["work"], **k["quant"])
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    t = _time_paged(f"{tag}_verify_put [{card}]", *args, flush,
+                    work=k["work"], **k["quant"])
+    w = k["work"]
+    t["work"] = {"T": w.T, "tiles": w.plan.cpu().numpy()[:2 * w.n_tiles]
+                 .reshape(-1, 2).tolist(), "lane_items": w.n_items,
+                 "lanes": w.n_lanes, "padding": w.n_pad}
+    log(f"kernels: paged_attention {tag}_verify_put work list {t['work']}")
+    return t
+
+
+def _near_tie(eng, req_prompt, stream, j) -> float:
+    """Top-two logit gap of a put of ``prompt + stream[:j]``: how close
+    the plain run's position j was to a tie."""
+    row = _resolve(eng, [900_000], [req_prompt + stream[:j]])[900_000]
+    eng.flush([900_000])
+    top2 = np.sort(row)[-2:]
+    return float(top2[1] - top2[0])
+
+
+def _handoff(model, kv_quant: str, rng, card: str) -> dict:
+    """Engines A and B over ``model``, 512 pages each, prefix cache on: A
+    prefills 4 prompts, exports each (``export_kv``), B imports them; both
+    then decode 32 greedy tokens, which must be identical, B's imported
+    pages (and scales) bitwise A's. Then ``export_prefix`` from A ->
+    ``import_prefix`` into B -> B's own export: equal checksums; a put on
+    B of a prompt sharing the prefix schedules only its suffix, its logits
+    within SPEC_REL of A's same put."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine,
+                                                      block_balance_report)
+
+    cfg = RaggedConfig(n_kv_blocks=512, enable_prefix_cache=True,
+                       kv_quant=kv_quant, **SPEC_SHAPE)
+    a, b = RaggedInferenceEngine(model, cfg), RaggedInferenceEngine(model, cfg)
+    prompts = [rng.integers(1, 32000, int(n)).tolist()
+               for n in rng.integers(100, 700, 4)]
+    uids = [1, 2, 3, 4]
+    first = _resolve(a, uids, prompts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exports = [a.export_kv(u) for u in uids]
+    t_exp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for u, e in zip(uids, exports):
+        b.import_kv(u, e)
+    torch.cuda.synchronize()
+    t_imp = time.perf_counter() - t0
+    nbytes = sum(e.nbytes for e in exports)
+    same_pages = all(
+        torch.equal(la[a.seqs[u].blocks], lb[b.seqs[u].blocks])
+        for u in uids for ga, gb in zip(a.kv_pool, b.kv_pool)
+        for la, lb in zip(ga, gb))
+    feed = {u: int(np.argmax(first[u])) for u in uids}
+    ta, tb = a.decode_steps(feed, 32), b.decode_steps(feed, 32)
+    same_tokens = ta == tb
+    a.flush(uids)
+    b.flush(uids)
+    # prefix adoption: A's cache holds the prompts' full blocks now
+    prefix = prompts[0][:min(256, len(prompts[0]) // 16 * 16)]
+    t0 = time.perf_counter()
+    ex = a.export_prefix(prefix)
+    t_pexp = time.perf_counter() - t0
+    b.prefix_cache.drop_all(b.allocator)
+    t0 = time.perf_counter()
+    landed = b.import_prefix(ex)
+    torch.cuda.synchronize()
+    t_pimp = time.perf_counter() - t0
+    back = b.export_prefix(prefix)
+    same_sum = back.checksum == ex.checksum and back.verify() and ex.verify()
+    probe = prefix + rng.integers(1, 32000, 40).tolist()
+    sched = []
+    real_validate = b._validate_sched
+
+    def spy(s):
+        sched.append(sum(take for _, take in s))
+        return real_validate(s)
+
+    b._validate_sched = spy
+    try:
+        got = b.put([50], [probe])
+    finally:
+        del b._validate_sched
+    ref = a.put([50], [probe])
+    ok_logits, lerr = _close(got, ref, SPEC_REL)
+    for e in (a, b):
+        e.flush([50])
+    leaks = block_balance_report(a)["problems"] \
+        + block_balance_report(b)["problems"]
+    ok = (not leaks and same_tokens and same_pages and landed and same_sum
+          and sched == [40] and ok_logits
+          and all(len(t) == 32 for t in ta.values()))
+    log(f"hand-off {kv_quant} [{card}]: 4 prompts of "
+        f"{[len(p) for p in prompts]} tokens: export_kv {t_exp * 1e3:.2f} "
+        f"ms, import_kv {t_imp * 1e3:.2f} ms for {nbytes} B "
+        f"({sum(e.n_pages for e in exports)} pages); imported pages bitwise "
+        f"{same_pages}; 32 greedy tokens identical {same_tokens}; prefix "
+        f"export {t_pexp * 1e3:.2f} ms / import {t_pimp * 1e3:.2f} ms, "
+        f"{ex.wire_bytes} B on the wire ({ex.logical_bytes} B unquantized), "
+        f"checksums equal after the round trip {same_sum}; a put of the "
+        f"{len(prefix)}-token prefix + 40 tokens on B scheduled {sched} tokens, logits vs A's "
+        f"max abs err {lerr:.3e} (tol SPEC_REL x max |A|); block leaks "
+        f"{leaks} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"hand-off over a {kv_quant} pool failed")
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"export_ms": t_exp * 1e3, "import_ms": t_imp * 1e3,
+            "bytes": nbytes}
+
+
+def _sampled(model, rng, card: str) -> None:
+    """``generate`` at temperature 0.8, top-k 50, top-p 0.9: finite,
+    in-vocabulary streams, the same seed twice the same streams, and
+    decode chunks of 1 and 8 the same streams."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+
+    prompts = {u: rng.integers(1, 32000, int(n)).tolist()
+               for u, n in enumerate(rng.integers(20, 300, 4))}
+    cfg = RaggedConfig(n_kv_blocks=256, temperature=0.8, top_k=50,
+                       top_p=0.9, **SPEC_SHAPE)
+
+    def run(seed, chunk):
+        eng = RaggedInferenceEngine(model, cfg, seed=seed)
+        t0 = time.perf_counter()
+        out = eng.generate({u: list(p) for u, p in prompts.items()},
+                           max_new_tokens=32, decode_chunk=chunk)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (a, wa), (b, wb), (c, wc) = run(7, 8), run(7, 8), run(7, 1)
+    ok = (a == b == c and all(len(t) == 32 and all(0 <= x < 32000 for x in t)
+                              for t in a.values()))
+    greedy_like = sum(len(set(t)) for t in a.values())
+    log(f"sampled [{card}]: generate 4 x 32 tokens at temperature 0.8, "
+        f"top-k 50, top-p 0.9, seed 7: same seed twice identical "
+        f"{a == b}, decode chunks 8 and 1 identical {a == c}, "
+        f"{greedy_like} distinct tokens in 128; {wa:.3f} / {wb:.3f} s "
+        f"(chunk 8), {wc:.3f} s (chunk 1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("sampled decoding failed")
+
+
+def phase_speculative(model, card: str) -> dict:
+    """Speculative serving and the KV hand-off on Llama-2-7B (phase 5's
+    model and shape): (a) 8 requests of draftable prompts through
+    ServingEngine with ``speculative`` on, then off; streams identical up
+    to near-ties; (b) put_spec driven directly over the bf16 pool and an
+    int8 pool, layer 0's verify paged call compared and timed; (c)
+    ``export_kv`` / ``import_kv`` and prefix adoption between two engines,
+    bf16 and int8; (d) sampled ``generate``, seeded and chunk-invariant.
+    Returns the verify launches and timings for the kernels line."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine,
+                                                      kv_blocks_for_bytes)
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    t_phase = time.perf_counter()
+    n_layers = model.config.n_layers
+    rng = np.random.default_rng(9)
+    prompts = _draftable_prompts(rng, 8)
+    cfg = RaggedConfig(n_kv_blocks=kv_blocks_for_bytes(
+        FP_POOL_BYTES, model.config, RaggedConfig(**SPEC_SHAPE)),
+        **SPEC_SHAPE)
+    eng = RaggedInferenceEngine(model, cfg)
+    spec = _serve_counted(eng, prompts, SPEC_SERVING, n_layers)
+    plain = _serve_counted(eng, prompts, {**SPEC_SERVING,
+                                          "speculative": False}, n_layers)
+    stats = dict(eng.spec_stats)
+    rounds = {}
+    for name, run in (("speculative", spec), ("plain", plain)):
+        reqs, st = run["reqs"], run["steps"]
+        ttft = sorted(r.ttft_s for r in reqs)
+        ntok = [len(r.tokens) for r in reqs]
+        c = run["counts"]
+        ok = (all(r.state is RequestState.FINISHED for r in reqs)
+              and ntok == [32] * 8 and run["leaks"] == []
+              and c["launches"] == n_layers * (st["put"] + st["put_spec"])
+              and c["launches"] > 0
+              and c["tile_launches"] == n_layers * st["tile"]
+              and c["split_launches"] == n_layers * st["split"]
+              and st["odd"] == 0 and st["tile"] > 0)
+        rounds[name] = ok
+        log(f"speculative serving [{card}] {name}: {st['put']} puts + "
+            f"{st['put_spec']} verify puts, paged_attention launches {c} "
+            f"({n_layers} layers x steps; tile / split launches = layers x "
+            f"the steps that ran them), block leaks {run['leaks']}; wall "
+            f"{run['wall']:.3f} s, TTFT p50 {ttft[len(ttft) // 2]:.3f} s max "
+            f"{ttft[-1]:.3f} s, {sum(ntok) / run['wall']:.1f} generated "
+            f"tokens/s {'ok' if ok else 'FAIL'}")
+    sreqs, preqs = spec["reqs"], plain["reqs"]
+    log(f"speculative serving: prompt lengths {[len(p) for p in prompts]}; "
+        f"engine spec_stats {stats} (proposed / accepted draft tokens, "
+        f"verify rounds); per request proposed "
+        f"{[r.spec_proposed for r in sreqs]} accepted "
+        f"{[r.spec_accepted for r in sreqs]}; plain stream 0: "
+        f"{preqs[0].tokens}")
+    verify = _verify_round(eng, n_layers, rng, prompts, "verify bf16",
+                           record=True)
+    t_bf16 = _verify_call(verify["kept"], card, "bf16")
+    verify["kept"].clear()
+    # streams: identical, or a near-tie within the verify error measured
+    same, ties = 0, []
+    for p, rs, rp in zip(prompts, sreqs, preqs):
+        if rs.tokens == rp.tokens:
+            same += 1
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(rs.tokens, rp.tokens))
+                 if x != y)
+        ties.append((rs.uid, j, _near_tie(eng, p, rp.tokens, j)))
+    ok_streams = all(gap <= 2 * verify["err"] for _, _, gap in ties)
+    ok = (all(rounds.values()) and stats["proposed"] > 0 and ok_streams
+          and spec["steps"]["put_spec"] > 0)
+    log(f"speculative serving: streams identical to the plain run {same} of "
+        f"8; differing (request, first position, plain run's top-two gap) "
+        f"{ties} against 2 x the verify error {2 * verify['err']:.4e}; "
+        f"verify puts {spec['steps']['put_spec']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("speculative serving failed")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) over an int8 pool, counted from 0
+    eng = RaggedInferenceEngine(model, RaggedConfig(
+        n_kv_blocks=512, kv_quant="int8", **SPEC_SHAPE))
+    for name in PAGED_PATH_COUNTERS:
+        setattr(pa.paged_attention, name, 0)
+    verify_q = _verify_round(eng, n_layers, rng, prompts, "verify int8",
+                             record=True)
+    int8_launches = pa.paged_attention.int8_launches
+    t_int8 = _verify_call(verify_q["kept"], card, "int8")
+    verify_q["kept"].clear()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the hand-off, (d) sampling
+    handoff = {q: _handoff(model, q, rng, card) for q in ("none", "int8")}
+    _sampled(model, rng, card)
+    log(f"speculative: phase 6b took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": spec["counts"]["launches"],
+            "tile_launches": spec["counts"]["tile_launches"],
+            "split_launches": spec["counts"]["split_launches"],
+            "int8_launches": int8_launches, "bf16": t_bf16, "int8": t_int8,
+            "handoff": handoff, "spec_stats": stats}
 
 
 # --------------------------------------------------------------- phase 6a
@@ -2914,7 +3386,11 @@ def main() -> int:
     mixed_t = phase_paged_mixed(paths.pop("mixed"), dev["card"])
     phase_profile(eng, prompts, dev["card"])
     model = eng.model
-    paged_q = {}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = phase_speculative(model, dev["card"])
+    paged_q, eng = {}, None
     for kvq in ("int8", "int4"):
         del eng
         gc.collect()
@@ -2941,12 +3417,16 @@ def main() -> int:
                 "launches": paths["launches"],
                 "tile_launches": paths["tile_launches"],
                 "split_launches": paths["split_launches"],
+                "verify_launches": spec["launches"],
+                "verify_tile_launches": spec["tile_launches"],
+                "verify_split_launches": spec["split_launches"],
                 "max_abs_err": kern["max_abs_err"],
                 "ms": d["ms"], "kernel_ms": d["ms"],
                 "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
                 "bound_by": d["bound_by"], "library_ms": None,
                 "parity": "ok", "shape": "decode_16x1024", "path": PAGED_PATH,
-                "timings": {**kern["timings"], "mixed_put": mixed_t},
+                "timings": {**kern["timings"], "mixed_put": mixed_t,
+                            "verify_put": spec["bf16"]},
                 "card": dev["card"]}]
     for bits in (8, 4):
         kq, run = kern_q[bits], paged_q[f"int{bits}"]
@@ -2962,6 +3442,9 @@ def main() -> int:
             "bound_by": d["bound_by"], "library_ms": None, "parity": "ok",
             "shape": "decode_16x1024", "path": "lane items (every lane)",
             "timings": kq["timings"], "card": dev["card"]})
+    entries[1]["verify_launches"] = spec["int8_launches"]
+    entries[1]["timings"] = {**entries[1]["timings"],
+                             "verify_put": spec["int8"]}
     for name, (_, replaces, _) in FLASH_KERNELS.items():
         t = flash_t[name]
         entries.append({

@@ -12,6 +12,11 @@ arrays first (``jax.tree_util.tree_map(np.asarray, params)``).
 The JAX ``SequentialBlockModel`` tree is ``{"block_i": {"w": [din, dout],
 "b": [dout]}}``; the port's model names the same leaves ``block_i.w`` and
 ``block_i.b`` (:func:`load_block_params`, :func:`export_block_params`).
+
+The JAX ragged engine's hand-off objects carry over too: a ``KVExport``
+(:func:`load_kv_export`) or a ``PrefixExport`` (:func:`load_prefix_export`)
+with numpy pages and scales becomes the port's, bytes unchanged, so the
+port's engine can continue a prefill that the JAX engine ran.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
+from ..inference.ragged import KVExport
 from ..models.transformer import LAYER_LEAVES as _LAYER_LEAVES, Transformer
 from ..parallel.zero import SequentialBlockModel
+from ..serving.kvtier import PrefixExport
 
 _TOP_LEAVES = ("tok_embed", "final_norm_w", "lm_head")
 
@@ -119,3 +126,47 @@ def export_block_params(params: Union[SequentialBlockModel,
         blk, leaf = name.split(".")
         out.setdefault(blk, {})[leaf] = t.detach().float().cpu().numpy()
     return out
+
+
+def _host_tensor(a: Any) -> torch.Tensor:
+    """A numpy array as a CPU tensor with the same bytes; bfloat16 (an
+    ``ml_dtypes`` array, which torch cannot take) through an int16 view."""
+    arr = np.ascontiguousarray(np.asarray(a))
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def load_kv_export(export: Any) -> KVExport:
+    """The port's :class:`~deepspeed_tpu_torch.inference.ragged.KVExport`
+    of a JAX ``KVExport`` (numpy pages and scales), bytes unchanged, for
+    ``RaggedInferenceEngine.import_kv``."""
+    scales = [None if a is None else _host_tensor(a)
+              for a in (export.k_scales, export.v_scales)]
+    return KVExport(
+        uid=int(export.uid), tokens=[int(t) for t in export.tokens],
+        seen=int(export.seen), prompt_len=int(export.prompt_len),
+        kv_block_size=int(export.kv_block_size),
+        n_layers=int(export.n_layers), n_kv_heads=int(export.n_kv_heads),
+        head_dim=int(export.head_dim), dtype=str(export.dtype),
+        k_pages=_host_tensor(export.k_pages),
+        v_pages=_host_tensor(export.v_pages),
+        kv_quant=str(export.kv_quant), k_scales=scales[0],
+        v_scales=scales[1])
+
+
+def load_prefix_export(export: Any) -> PrefixExport:
+    """The port's :class:`~deepspeed_tpu_torch.serving.kvtier.PrefixExport`
+    of a JAX ``PrefixExport``, bytes unchanged and keeping the checksum
+    the JAX side stamped (so ``verify`` still catches corruption on the
+    way)."""
+    def pair(p):
+        return None if p is None else tuple(_host_tensor(a) for a in p)
+    return PrefixExport(
+        tokens=export.tokens, n_pages=export.n_pages,
+        block_size=export.block_size, n_layers=export.n_layers,
+        n_kv_heads=export.n_kv_heads, head_dim=export.head_dim,
+        dtype=export.dtype, kv_quant=export.kv_quant,
+        pages=pair(export.pages), scales=pair(export.scales),
+        wire_bytes=export.wire_bytes, logical_bytes=export.logical_bytes,
+        source=export.source, checksum=export.checksum)

@@ -2,11 +2,12 @@
 
 Ports the parts of ``deepspeed_tpu/config.py`` that the ported paths read:
 
-* :class:`ServingConfig` (the ``serving`` block of the serving front-end).
-  Keys of features that later slices port (speculative serving, KV
-  quantization, model versions, the stuck-tick watchdog, fleet / region /
-  rollout / KV-tier blocks) raise ``NotImplementedError`` when set to
-  anything but their "off" value, instead of being silently ignored.
+* :class:`ServingConfig` (the ``serving`` block of the serving front-end,
+  speculative serving and ``kv_quant`` included). Keys of features that
+  later slices port (model versions, the stuck-tick watchdog, fleet /
+  region / rollout / KV-tier blocks) raise ``NotImplementedError`` when
+  set to anything but their "off" value, instead of being silently
+  ignored.
 * :class:`Config` for the trainer: the batch triple and its resolution
   over the data-parallel world, ``gradient_clipping``, ``steps_per_print``
   and the ``optimizer`` / ``scheduler`` / ``fp16`` / ``bf16`` blocks; the
@@ -445,14 +446,12 @@ class Config:
 
 # serving keys of later slices -> the value that means "off"
 _LATER_SLICE_KEYS = {
-    "speculative": False, "model_version": 0,
+    "model_version": 0,
     "stuck_tick_timeout_s": 0, "fleet": {}, "region": {}, "rollout": {},
     "kv_tier": {},
 }
 # knobs that only act when one of the features above is on
-_INERT_KEYS = ("spec_lookahead", "spec_ngram", "spec_accept_floor",
-               "spec_floor_min_proposed", "spec_ema",
-               "stuck_tick_escalate_polls")
+_INERT_KEYS = ("stuck_tick_escalate_polls",)
 
 
 @dataclass
@@ -469,7 +468,16 @@ class ServingConfig:
     pool mid-decode. ``tick_retry_limit`` is the per-request budget for
     re-queue-on-tick-fault before the request is failed. ``kv_quant``
     declares the engine's KV storage (``"none"``, ``"int8"``, ``"int4"``);
-    the server refuses an engine that stores KV otherwise."""
+    the server refuses an engine that stores KV otherwise.
+
+    ``speculative`` turns on prompt-lookup speculative decoding inside the
+    serving tick: draft chains (``spec_ngram``-gram lookups, at most
+    ``spec_lookahead`` tokens) verify in the tick's one ragged step, greedy
+    output stays token-identical, and drafting spends only the tick's
+    token-budget slack, sized by a per-priority-class acceptance EMA
+    (smoothing ``spec_ema``). A request falls back to plain decode when
+    its rolling acceptance EMA drops below ``spec_accept_floor`` after at
+    least ``spec_floor_min_proposed`` proposed tokens."""
 
     max_queue: int = 256
     policy: str = "slo"
@@ -481,6 +489,12 @@ class ServingConfig:
     poll_interval_s: float = 0.002
     drain_timeout_s: float = 120.0
     tick_retry_limit: int = 1
+    speculative: bool = False
+    spec_lookahead: int = 4
+    spec_ngram: int = 3
+    spec_accept_floor: float = 0.25
+    spec_floor_min_proposed: int = 16
+    spec_ema: float = 0.25
     kv_quant: str = "none"
 
     @classmethod
@@ -509,6 +523,13 @@ class ServingConfig:
             poll_interval_s=float(_take(d, "poll_interval_s", 0.002)),
             drain_timeout_s=float(_take(d, "drain_timeout_s", 120.0)),
             tick_retry_limit=int(_take(d, "tick_retry_limit", 1)),
+            speculative=bool(_take(d, "speculative", False)),
+            spec_lookahead=int(_take(d, "spec_lookahead", 4)),
+            spec_ngram=int(_take(d, "spec_ngram", 3)),
+            spec_accept_floor=float(_take(d, "spec_accept_floor", 0.25)),
+            spec_floor_min_proposed=int(
+                _take(d, "spec_floor_min_proposed", 16)),
+            spec_ema=float(_take(d, "spec_ema", 0.25)),
             kv_quant=str(_take(d, "kv_quant", "none")),
         )
         if out.policy not in ("slo", "fcfs"):
@@ -528,6 +549,17 @@ class ServingConfig:
             raise ConfigError(
                 f"serving.default_max_new_tokens must be >= 1, got "
                 f"{out.default_max_new_tokens}")
+        if out.spec_lookahead < 1 or out.spec_ngram < 1:
+            raise ConfigError(
+                f"serving.spec_lookahead/spec_ngram must be >= 1, got "
+                f"{out.spec_lookahead}/{out.spec_ngram}")
+        if not 0.0 <= out.spec_accept_floor <= 1.0:
+            raise ConfigError(
+                f"serving.spec_accept_floor must be in [0, 1], got "
+                f"{out.spec_accept_floor}")
+        if not 0.0 < out.spec_ema <= 1.0:
+            raise ConfigError(
+                f"serving.spec_ema must be in (0, 1], got {out.spec_ema}")
         if out.kv_quant not in ("none", "int8", "int4"):
             raise ConfigError(
                 f"serving.kv_quant must be 'none', 'int8' or 'int4', got "

@@ -498,10 +498,15 @@ def _sample(logits: torch.Tensor, generator: torch.Generator,
             temperature: float, top_k: int, top_p: float) -> torch.Tensor:
     """Greedy when temperature == 0, else a draw from the filtered logits
     with ``generator`` (PyTorch's stream, not JAX's: the two frameworks
-    draw different numbers from one seed). -> int32 [b]."""
+    draw different numbers from one seed). -> int32 [b].
+
+    The draw is ``torch.multinomial``'s for one sample, argmax(p / E) with
+    E ~ Exp(1) from ``generator``, written out without multinomial's
+    validity check: that check reads a value back to the host, and a
+    sampled decode chunk must not wait on the host at every step."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(_filter_logits(logits.float(), temperature, top_k,
                                          top_p), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0] \
-        .to(torch.int32)
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / race, dim=-1).to(torch.int32)

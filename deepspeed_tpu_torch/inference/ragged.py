@@ -28,29 +28,44 @@ In place where JAX donated buffers: the KV pool is updated in place by
 every step, and the engine casts and moves the model's weights in place
 to the engine's dtype and device.
 
-Not in this slice (later slices, ROADMAP.md): tensor parallelism,
-speculative ``put_spec`` / drafts, ``export_kv`` / ``import_kv`` (with or
-without scales), the global KV tier, ``trim``, and sampling with
-temperature > 0.
+Beyond ``put``: sampled decoding (``temperature`` / ``top_k`` / ``top_p``,
+drawn on the device from a generator reseeded from ``(seed, step)``, so a
+sampled stream does not depend on how ``decode_steps`` chunks it);
+``trim`` with copy-on-write of a shared boundary page; prompt-lookup
+drafts (:class:`NgramIndex`, ``draft_tokens``) verified by ``put_spec``
+(the serving tick's speculative step) and ``generate_speculative``; the
+disaggregated hand-off ``export_kv`` / ``import_kv`` (:class:`KVExport`,
+quantized payload and scales as pooled); and the global KV tier's seams
+``export_prefix`` / ``import_prefix`` (checksummed
+:class:`~deepspeed_tpu_torch.serving.kvtier.PrefixExport`), the prefix
+cache's eviction hook and the cold-tier re-admission. Every path that
+runs the model plans its paged-attention work list with ``_paged_work``.
+
+Not in the port yet (ROADMAP.md): tensor parallelism, the per-request
+and per-step telemetry records, and the chaos hook of ``export_prefix``.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
-import time
+import hashlib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..comm.comm import record_collective
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_attention, plan_paged_work
 from ..ops.quantizer import quantize_kv, quantized_nbytes
 from ..ops.ragged_host import build_batch, fill_tables
 from ..ops.rotary import apply_rotary, rope_frequencies
+from ..serving.kvtier import CorruptExport, PrefixExport, prefix_hash
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
+from .engine import _sample
 
 
 class PoolExhausted(RuntimeError):
@@ -109,9 +124,13 @@ class PrefixCache:
     pages (refcounted via :class:`BlockedAllocator`) and skips their
     prefill. Sharing covers FULL blocks only and is capped at
     ``len(prompt) - 1`` tokens, so the engine's scatters only write
-    positions at or after the shared region's end."""
+    positions at or after the shared region's end.
 
-    def __init__(self, block_size: int):
+    ``on_evict(key, blocks)``, when set, runs as an entry is evicted and
+    before its references drop (its pages are still valid to read): the
+    global KV tier's directory-invalidate and cold-spill seam."""
+
+    def __init__(self, block_size: int, on_evict=None):
         self.block_size = block_size
         # prefix tuple -> block ids (one cache retain each), oldest first
         self._entries: "collections.OrderedDict[Tuple[int, ...], List[int]]" \
@@ -120,6 +139,10 @@ class PrefixCache:
         self._block_refs: Dict[int, int] = {}
         self.hits = 0
         self.misses = 0
+        self.on_evict = on_evict
+
+    def __len__(self) -> int:
+        return len(self._entries)
 
     def match(self, prompt: Sequence[int]) -> Tuple[int, List[int]]:
         """Longest cached full-block prefix of ``prompt``, capped so at
@@ -135,6 +158,21 @@ class PrefixCache:
                 return k * bs, ent
         self.misses += 1
         return 0, []
+
+    def lookup(self, tokens: Sequence[int]) -> Tuple[Optional[Tuple[int, ...]],
+                                                     List[int]]:
+        """Longest full-block prefix entry covering ``tokens``, without
+        :meth:`match`'s one-token-to-prefill cap (adoption and export want
+        whole entries). Refreshes the entry's recency; counts no hit or
+        miss. Returns (key, blocks) or (None, [])."""
+        bs = self.block_size
+        for k in range(len(tokens) // bs, 0, -1):
+            key = tuple(int(t) for t in tokens[: k * bs])
+            ent = self._entries.get(key)
+            if ent is not None:
+                self._entries.move_to_end(key)
+                return key, ent
+        return None, []
 
     def _hold(self, key, blocks, allocator: BlockedAllocator) -> None:
         allocator.retain(blocks)
@@ -165,7 +203,11 @@ class PrefixCache:
             self._hold(kkey, held[:kk], allocator)
 
     def _evict_one(self, allocator: BlockedAllocator) -> None:
-        _, blocks = self._entries.popitem(last=False)   # LRU
+        key, blocks = self._entries.popitem(last=False)   # LRU
+        if self.on_evict is not None:
+            # before the release: a cold-spill copy reads the pages while
+            # this entry's references still keep them off the free list
+            self.on_evict(key, blocks)
         allocator.release(blocks)
         for b in blocks:
             self._block_refs[b] -= 1
@@ -182,6 +224,10 @@ class PrefixCache:
         cache dropped: pages whose every reference is the cache's own."""
         return sum(1 for b, n in self._block_refs.items()
                    if allocator.refcount(b) == n)
+
+    def drop_all(self, allocator: BlockedAllocator) -> None:
+        while self._entries:
+            self._evict_one(allocator)
 
 
 def block_balance_report(engine) -> Dict[str, Any]:
@@ -256,6 +302,140 @@ def kv_blocks_for_bytes(budget_bytes: int, model_config,
                // kv_page_bytes(model_config, ragged_config))
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The JAX spelling of a floating dtype ("bfloat16", "float32"), so
+    the two packages' export geometries compare equal."""
+    return str(dtype).replace("torch.", "")
+
+
+def _prompt_lookup(ctx: Sequence[int], ngram: int, k: int) -> List[int]:
+    """Prompt-lookup drafting: if the trailing ``ngram`` of ``ctx``
+    occurred earlier, propose the (up to ``k``) tokens that followed its
+    most recent earlier occurrence with a full ``k``-token continuation,
+    else those of the occurrence with the longest continuation."""
+    if k <= 0 or ngram <= 0 or len(ctx) <= ngram:
+        return []
+    arr = np.asarray(ctx, np.int32)
+    pat = arr[-ngram:]
+    win = np.lib.stride_tricks.sliding_window_view(arr[:-1], ngram)
+    hits = np.nonzero((win == pat).all(axis=1))[0]
+    if len(hits) == 0:
+        return []
+    cont_len = np.minimum(len(arr) - (hits + ngram), k)
+    full = np.nonzero(cont_len == k)[0]
+    j = int(hits[full[-1]] if len(full) else hits[np.argmax(cont_len)])
+    return arr[j + ngram: j + ngram + k].tolist()
+
+
+class NgramIndex:
+    """Incremental n-gram position index over one sequence's token stream:
+    the memoized :func:`_prompt_lookup`, proposing exactly what it does in
+    O(new tokens) a draft round. Each full window's start is recorded once
+    (key -> ascending starts) as the stream grows; a trim of the tail pops
+    exactly the invalidated entries off an append-ordered stack."""
+
+    def __init__(self, ngram: int):
+        self.ngram = int(ngram)
+        self._toks: List[int] = []
+        self._pos: Dict[Tuple[int, ...], List[int]] = {}
+        self._order: List[Tuple[int, Tuple[int, ...]]] = []  # (start, key)
+
+    def sync(self, tokens: Sequence[int]) -> None:
+        """Index the tokens appended since the last call (the indexed
+        prefix must be unchanged; a shorter stream truncates first)."""
+        n = self.ngram
+        if len(tokens) < len(self._toks):
+            self.truncate(len(tokens))
+        self._toks.extend(int(t) for t in tokens[len(self._toks):])
+        start = self._order[-1][0] + 1 if self._order else 0
+        for h in range(start, len(self._toks) - n + 1):
+            key = tuple(self._toks[h:h + n])
+            self._pos.setdefault(key, []).append(h)
+            self._order.append((h, key))
+
+    def truncate(self, length: int) -> None:
+        """Drop the stream's tail past ``length``: O(removed)."""
+        del self._toks[length:]
+        n = self.ngram
+        while self._order and self._order[-1][0] + n > length:
+            _, key = self._order.pop()
+            lst = self._pos[key]
+            lst.pop()                            # ascending: the last one
+            if not lst:
+                del self._pos[key]
+
+    def lookup(self, extra: Sequence[int], k: int) -> List[int]:
+        """:func:`_prompt_lookup` of ``tokens + extra`` without rescanning
+        the indexed tokens."""
+        n = self.ngram
+        toks = self._toks
+        ctx_len = len(toks) + len(extra)
+        if k <= 0 or n <= 0 or ctx_len <= n:
+            return []
+
+        def at(i: int) -> int:
+            return toks[i] if i < len(toks) else int(extra[i - len(toks)])
+
+        pat = tuple(at(ctx_len - n + j) for j in range(n))
+        limit = ctx_len - 1 - n          # last admissible window start
+        base = self._pos.get(pat, [])
+        hi = bisect.bisect_right(base, min(limit, len(toks) - n))
+        # windows that overlap ``extra`` are not indexed: check them here
+        manual = [h for h in range(max(0, len(toks) - n + 1), limit + 1)
+                  if all(at(h + j) == pat[j] for j in range(n))]
+        if hi == 0 and not manual:
+            return []
+        # the most recent start with a full k-token continuation (manual
+        # starts all come after indexed ones), else the earliest start
+        full_limit = ctx_len - n - k
+        j = next((h for h in reversed(manual) if h <= full_limit), None)
+        if j is None:
+            idx = bisect.bisect_right(base, full_limit, 0, hi)
+            if idx:
+                j = base[idx - 1]
+        if j is None:
+            j = base[0] if hi else manual[0]
+        return [at(i) for i in range(j + n, min(j + n + k, ctx_len))]
+
+
+@dataclass
+class KVExport:
+    """Host snapshot of one sequence's KV state: the unit of the
+    disaggregated prefill -> decode hand-off (``export_kv`` /
+    ``import_kv``). ``k_pages``/``v_pages`` are CPU tensors [n_layers,
+    n_pages, hkv, block, hd] in the pool's storage (on quantized pools
+    the int8 payload, or nibble-packed uint8 [.., hd // 2], with fp32
+    ``k_scales``/``v_scales`` [n_layers, n_pages, hkv, block]); the
+    importer adopts them bit-identically. ``dtype`` is the engine's
+    compute dtype in the JAX spelling ("bfloat16", "float32")."""
+
+    uid: int
+    tokens: List[int]          # fed context (prompt + any decoded tokens)
+    seen: int                  # tokens whose KV the pages hold
+    prompt_len: int
+    kv_block_size: int
+    n_layers: int
+    n_kv_heads: int
+    head_dim: int
+    dtype: str
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+    kv_quant: str = "none"
+    k_scales: Optional[torch.Tensor] = None
+    v_scales: Optional[torch.Tensor] = None
+
+    @property
+    def n_pages(self) -> int:
+        return int(self.k_pages.shape[1])
+
+    @property
+    def nbytes(self) -> int:
+        leaves = [self.k_pages, self.v_pages]
+        if self.k_scales is not None:
+            leaves += [self.k_scales, self.v_scales]
+        return int(sum(t.numel() * t.element_size() for t in leaves))
+
+
 @dataclass
 class SequenceDescriptor:
     """uid, slot, tokens seen/scheduled, owned KV blocks."""
@@ -265,6 +445,7 @@ class SequenceDescriptor:
     tokens: List[int] = field(default_factory=list)  # full known token stream
     seen: int = 0                                    # tokens already in KV
     blocks: List[int] = field(default_factory=list)
+    prompt_len: int = 0
 
     @property
     def pending(self) -> int:
@@ -283,9 +464,10 @@ class RaggedConfig:
     n_kv_blocks: int = 256
     max_context: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    # sampling: only greedy (0.0) in this slice; top-k / top-p come with
-    # temperature sampling
+    # sampling (the v1 engine's ``_sample``); 0.0 = greedy
     temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
     # automatic prefix caching: completed sequences publish their full KV
     # blocks into an LRU cache keyed by the token prefix; new prompts
     # sharing a full-block prefix skip its prefill
@@ -305,11 +487,13 @@ class RaggedInferenceEngine:
     steps). ``generate`` drives put/decode_steps/flush to completion.
     ``device`` defaults to ``"cuda"``; without a CUDA device it raises
     unless ``device="cpu"`` is asked for. The model's weights are cast
-    and moved in place to ``config.dtype`` on ``device``.
+    and moved in place to ``config.dtype`` on ``device``. ``seed`` seeds
+    the sampling streams (the JAX engine's ``rng``): PyTorch's generators,
+    so a sampled stream is not the JAX engine's.
     """
 
     def __init__(self, model, config: Optional[RaggedConfig] = None,
-                 device=None):
+                 device=None, seed: int = 0):
         self.config = cfg = config or RaggedConfig()
         self.device = resolve_device(device)
         self.model = model
@@ -331,10 +515,10 @@ class RaggedInferenceEngine:
             raise ValueError(
                 f"kv_quant='int4' packs two channels per byte and needs an "
                 f"even head_dim, got {c.head_dim}")
-        if cfg.temperature != 0.0:
-            raise NotImplementedError(
-                "sampling with temperature > 0 comes in a later slice; "
-                "this slice decodes greedily (temperature=0.0)")
+        if cfg.temperature < 0.0:
+            raise ValueError(
+                f"temperature must be >= 0 (0 = greedy), got "
+                f"{cfg.temperature}")
         if c.window_binds(cfg.max_context):
             log_dist("RaggedInferenceEngine: binding sliding window — "
                      "banded paged attention")
@@ -377,6 +561,29 @@ class RaggedInferenceEngine:
         # decode-heavy step runs at the smallest fitting width
         self._buckets = [b for b in (64, 256, 1024) if b < cfg.token_budget] \
             + [cfg.token_budget]
+        # speculative acceptance stats (generate_speculative and the
+        # serving tick's verify rounds) and the per-uid memoized n-gram
+        # draft indices (extended on draft, truncated by trim, dropped on
+        # flush / discard)
+        self.spec_stats = {"proposed": 0, "accepted": 0, "rounds": 0}
+        self._ngram_idx: Dict[int, NgramIndex] = {}
+        # global-KV-tier seams, inert until enable_kv_tier attaches them,
+        # and the adoption counters
+        self._cold_tier = None
+        self._on_prefix_invalidate = None
+        self._kv_tier_member = ""
+        self.kvtier_cold_spills = 0
+        self.kvtier_cold_readmits = 0
+        self.kvtier_adopt_imports = 0
+        # sampling streams: a decode step reseeds the device generator
+        # from (seed, global step), so the stream does not depend on how
+        # decode_steps chunks it; prefill first tokens take a stream of
+        # their own (one reseed per resolved round) on the host
+        self._seed = int(seed)
+        self._gen = torch.Generator(device=self.device)
+        self._host_gen = torch.Generator()
+        self._decode_step_counter = 0
+        self._prefill_round_counter = 0
         log_dist(f"RaggedInferenceEngine: budget={cfg.token_budget} "
                  f"blocks={cfg.n_kv_blocks}x{cfg.kv_block_size} "
                  f"device={self.device}")
@@ -428,6 +635,7 @@ class RaggedInferenceEngine:
         the sequence's full KV blocks are published first."""
         for uid in uids:
             seq = self.seqs.pop(uid, None)
+            self._ngram_idx.pop(uid, None)
             if seq is not None:
                 if self.prefix_cache is not None:
                     self.prefix_cache.publish(seq.tokens, seq.blocks,
@@ -453,6 +661,7 @@ class RaggedInferenceEngine:
         NOTHING into the prefix cache — the recovery hook for a failed
         step whose KV integrity is unknown."""
         seq = self.seqs.pop(uid, None)
+        self._ngram_idx.pop(uid, None)
         if seq is None:
             return
         self.allocator.free(seq.blocks)
@@ -469,11 +678,365 @@ class RaggedInferenceEngine:
         prefix cache (1.0 = exhausted)."""
         return 1.0 - self.allocator.free_blocks / self.allocator.n_blocks
 
+    def kv_demand(self) -> float:
+        """Fraction of the pool that live demand holds: pages the prefix
+        cache could reclaim do not count (a warm cache may fill the pool
+        at idle without being pressure)."""
+        return 1.0 - self._available_blocks() / self.allocator.n_blocks
+
+    # -- speculative drafting -------------------------------------------
+    def draft_tokens(self, uid: int, next_token: Optional[int],
+                     ngram: int, k: int) -> List[int]:
+        """Prompt-lookup draft for ``uid``'s next decode step: up to ``k``
+        tokens continuing ``tokens + [next_token]`` (the pending token, not
+        yet fed, as a virtual suffix), from the uid's memoized
+        :class:`NgramIndex`."""
+        seq = self.seqs[uid]
+        idx = self._ngram_idx.get(uid)
+        if idx is None or idx.ngram != int(ngram):
+            idx = NgramIndex(ngram)
+            self._ngram_idx[uid] = idx
+        idx.sync(seq.tokens)
+        return idx.lookup([] if next_token is None else [int(next_token)], k)
+
+    def record_spec(self, proposed: int = 0, accepted: int = 0,
+                    rounds: int = 0) -> None:
+        """Fold one speculative verify outcome into ``spec_stats`` (the
+        JAX engine also mirrors it into the telemetry registry; that comes
+        with the port's telemetry, ROADMAP.md Queue A item 4)."""
+        s = self.spec_stats
+        s["proposed"] += int(proposed)
+        s["accepted"] += int(accepted)
+        s["rounds"] += int(rounds)
+
+    # -- KV export / import (disaggregated prefill -> decode hand-off) ---
+    def _gather_pages(self, blocks: Sequence[int]):
+        """Host copies of ``blocks`` from every layer's leaves, stacked
+        [n_layers, n_pages, ...]: (k, v, k_scales or None, v_scales or
+        None)."""
+        idx = torch.as_tensor(list(blocks), dtype=torch.long,
+                              device=self.device)
+        out = [torch.stack([leaf[idx] for leaf in group]).cpu()
+               for group in self.kv_pool]
+        return tuple(out) if self._kv_bits else (out[0], out[1], None, None)
+
+    def _logical_bytes(self, n_pages: int) -> int:
+        """What an unquantized copy of ``n_pages`` pages would move: the
+        ledger's denominator for the wire bytes of a hand-off."""
+        c = self.model.config
+        itemsize = torch.empty((), dtype=self.config.dtype).element_size()
+        return (2 * n_pages * c.n_layers * c.n_kv_heads
+                * self.config.kv_block_size * c.head_dim * itemsize)
+
+    def _geometry(self) -> Tuple[int, int, int, int, str, str]:
+        c, cfg = self.model.config, self.config
+        return (cfg.kv_block_size, c.n_layers, c.n_kv_heads, c.head_dim,
+                _dtype_name(cfg.dtype), cfg.kv_quant)
+
+    def export_kv(self, uid: int) -> KVExport:
+        """Snapshot ``uid``'s KV pages and token stream for another
+        engine to continue (a prefill replica hands a sequence to a
+        decode replica). The sequence must be fully prefilled. Nothing is
+        released: the caller then ``preempt``s or ``discard``s it."""
+        seq = self.seqs.get(uid)
+        if seq is None:
+            raise KeyError(f"uid {uid} has no live sequence to export")
+        if seq.pending:
+            raise ValueError(
+                f"uid {uid}: {seq.pending} tokens still pending prefill — "
+                "a mid-prefill export would hand off torn context")
+        if seq.seen == 0 or not seq.blocks:
+            raise ValueError(f"uid {uid}: nothing prefilled yet")
+        c = self.model.config
+        # rows past ``seen`` in the last page are never read; they ride
+        # along
+        k, v, ks, vs = self._gather_pages(seq.blocks)
+        export = KVExport(uid=uid, tokens=list(seq.tokens), seen=seq.seen,
+                          prompt_len=seq.prompt_len,
+                          kv_block_size=self.config.kv_block_size,
+                          n_layers=c.n_layers, n_kv_heads=c.n_kv_heads,
+                          head_dim=c.head_dim,
+                          dtype=_dtype_name(self.config.dtype),
+                          k_pages=k, v_pages=v,
+                          kv_quant=self.config.kv_quant,
+                          k_scales=ks, v_scales=vs)
+        record_collective("kv_handoff", self._logical_bytes(len(seq.blocks)),
+                          export.nbytes)
+        return export
+
+    def import_kv(self, uid: int, export: KVExport) -> None:
+        """Adopt an exported sequence: allocate pages from this engine's
+        pool (evicting cached prefixes under pressure), write the pages
+        (and scales) in as they were exported, and create a live
+        descriptor at ``seen``, so the next ``put(uid, [next_token])`` or
+        ``decode_steps`` continues the stream without a re-prefill.
+
+        Raises :class:`PoolExhausted` (recoverable) or ``ValueError`` on a
+        geometry mismatch; on any failure nothing is mutated."""
+        cfg = self.config
+        if uid in self.seqs:
+            raise ValueError(f"uid {uid} already live in this engine")
+        want = self._geometry()
+        have = (export.kv_block_size, export.n_layers, export.n_kv_heads,
+                export.head_dim, export.dtype, export.kv_quant)
+        if want != have:
+            raise ValueError(
+                f"KV geometry mismatch: engine (block,layers,hkv,hd,dtype,"
+                f"kv_quant)={want} vs export {have}")
+        if self._kv_bits and (export.k_scales is None
+                              or export.v_scales is None):
+            raise ValueError(
+                f"export tagged kv_quant={export.kv_quant} carries no scales")
+        if export.seen != len(export.tokens):
+            raise ValueError(
+                f"export seen {export.seen} != tokens {len(export.tokens)}")
+        if export.seen > cfg.max_context:
+            raise ValueError(
+                f"export context {export.seen} exceeds max_context "
+                f"{cfg.max_context}")
+        need = export.n_pages
+        if need != -(-export.seen // cfg.kv_block_size):
+            raise ValueError(
+                f"export carries {need} pages for {export.seen} tokens")
+        if not self._free_slots:
+            raise RuntimeError("no free sequence slots; flush() first")
+        if need > self.allocator.free_blocks and self.prefix_cache is not None:
+            self.prefix_cache.evict_for(self.allocator, need)
+        blocks = self.allocator.allocate(need)        # may raise PoolExhausted
+        try:
+            self._write_pages(blocks, export.k_pages, export.v_pages,
+                              export.k_scales, export.v_scales)
+        except BaseException:
+            self.allocator.release(blocks)
+            raise
+        self.seqs[uid] = SequenceDescriptor(
+            uid=uid, slot=self._free_slots.pop(),
+            tokens=[int(t) for t in export.tokens], seen=int(export.seen),
+            blocks=blocks, prompt_len=int(export.prompt_len))
+        self._resume_uids.discard(uid)
+
+    @torch.inference_mode()
+    def _write_pages(self, blocks: Sequence[int], k, v, ks=None,
+                     vs=None) -> None:
+        """Write imported pages into every layer's leaves at ``blocks``
+        (payload and, on quantized pools, scales: the pool ends up holding
+        the exported bytes, never a requantization). The JAX package pads
+        the page count to a power of two to bound its compile cache; the
+        eager port writes exactly these pages."""
+        idx = torch.as_tensor(list(blocks), dtype=torch.long,
+                              device=self.device)
+        groups = (k, v, ks, vs) if self._kv_bits else (k, v)
+        for src, leaves in zip(groups, self.kv_pool):
+            if tuple(src.shape) != (len(leaves), len(blocks)) \
+                    + tuple(leaves[0].shape[1:]):
+                raise ValueError(
+                    f"imported pages {tuple(src.shape)} do not fit leaves "
+                    f"{tuple(leaves[0].shape)} x {len(leaves)} layers at "
+                    f"{len(blocks)} pages")
+        for src, leaves in zip(groups, self.kv_pool):
+            src = src.to(self.device)
+            for i, leaf in enumerate(leaves):
+                leaf[idx] = src[i].to(leaf.dtype)
+
+    # -- global KV tier seams ---------------------------------------------
+    def enable_kv_tier(self, *, member: str = "", cold_tier=None,
+                       on_invalidate=None) -> None:
+        """Attach this engine to a global KV tier: ``cold_tier`` (a
+        :class:`~deepspeed_tpu_torch.serving.kvtier.ColdTier`) receives
+        evicted prefixes, and ``on_invalidate(hash)`` drops the
+        directory entry at eviction time."""
+        self._kv_tier_member = str(member)
+        self._cold_tier = cold_tier
+        self._on_prefix_invalidate = on_invalidate
+        if self.prefix_cache is not None and (
+                cold_tier is not None or on_invalidate is not None):
+            self.prefix_cache.on_evict = self._on_prefix_evict
+
+    def _on_prefix_evict(self, key: Tuple[int, ...],
+                         blocks: List[int]) -> None:
+        """The prefix cache's eviction hook: invalidate the directory
+        entry first (it must be gone before the pages can be reused), then
+        spill a host copy into the cold tier."""
+        if self._on_prefix_invalidate is not None:
+            self._on_prefix_invalidate(prefix_hash(key))
+        cold = self._cold_tier
+        if cold is not None:
+            export = self._gather_prefix_export(key, list(blocks))
+            if cold.put(export):
+                self.kvtier_cold_spills += 1
+
+    def prefix_residency_hashes(self) -> List[int]:
+        """Hashes of every resident prefix-cache entry: the set a replica
+        publishes into the prefix directory."""
+        if self.prefix_cache is None:
+            return []
+        return [prefix_hash(k) for k in self.prefix_cache._entries]
+
+    def _gather_prefix_export(self, key: Tuple[int, ...],
+                              blocks: List[int]) -> PrefixExport:
+        """Host-copy ``blocks`` (payload and scales as pooled) into a
+        checksummed :class:`PrefixExport`."""
+        k, v, ks, vs = self._gather_pages(blocks)
+        scales = (ks, vs) if self._kv_bits else None
+        wire = sum(t.numel() * t.element_size() for t in (k, v)
+                   + (scales or ()))
+        block, layers, hkv, hd, dtype, kv_quant = self._geometry()
+        return PrefixExport(
+            tokens=key, n_pages=len(blocks), block_size=block,
+            n_layers=layers, n_kv_heads=hkv, head_dim=hd, dtype=dtype,
+            kv_quant=kv_quant, pages=(k, v), scales=scales,
+            wire_bytes=wire, logical_bytes=self._logical_bytes(len(blocks)),
+            source=self._kv_tier_member)
+
+    def export_prefix(self, tokens: Sequence[int]) -> Optional[PrefixExport]:
+        """Snapshot the longest cached full-block prefix of ``tokens`` for
+        another replica to adopt; None on a cache miss. The pages are
+        retained across the host copy, and the transfer is booked as a
+        ``kv_adopt`` row of the bytes-on-wire ledger. (The JAX package's
+        wire-corruption chaos hook here comes with the port's chaos
+        injector.)"""
+        if self.prefix_cache is None:
+            return None
+        key, blocks = self.prefix_cache.lookup(tokens)
+        if not blocks:
+            return None
+        blocks = list(blocks)
+        self.allocator.retain(blocks)
+        try:
+            export = self._gather_prefix_export(key, blocks)
+        finally:
+            self.allocator.release(blocks)
+        record_collective("kv_adopt", export.logical_bytes,
+                          export.wire_bytes)
+        return export
+
+    def import_prefix(self, export: PrefixExport) -> bool:
+        """Adopt an exported prefix into this engine's prefix cache (no
+        live sequence). The checksum is verified first
+        (:class:`~deepspeed_tpu_torch.serving.kvtier.CorruptExport`), then
+        the geometry; the pages are allocated, written and published, and
+        the cache ends holding the only references. Returns False when
+        the prefix is already resident; raises ValueError or
+        :class:`PoolExhausted` (the caller falls back to prefill)."""
+        if self.prefix_cache is None:
+            raise ValueError("prefix cache disabled; nothing to adopt into")
+        cfg = self.config
+        if not export.verify():
+            raise CorruptExport("prefix export failed checksum verification "
+                                "(corrupted in transit)")
+        want = self._geometry()
+        if want != export.geometry():
+            raise ValueError(
+                f"prefix KV geometry mismatch: engine (block,layers,hkv,"
+                f"hd,dtype,kv_quant)={want} vs export {export.geometry()}")
+        if self._kv_bits and export.scales is None:
+            raise ValueError(
+                f"export tagged kv_quant={export.kv_quant} carries no "
+                f"scales")
+        need = export.n_pages
+        if need <= 0 or need != len(export.tokens) // cfg.kv_block_size \
+                or len(export.tokens) % cfg.kv_block_size:
+            raise ValueError(
+                f"prefix export carries {need} pages for "
+                f"{len(export.tokens)} tokens (full blocks required)")
+        if len(export.tokens) > cfg.max_context:
+            raise ValueError(
+                f"prefix length {len(export.tokens)} exceeds max_context "
+                f"{cfg.max_context}")
+        if tuple(export.tokens) in self.prefix_cache._entries:
+            return False
+        if need > self.allocator.free_blocks:
+            self.prefix_cache.evict_for(self.allocator, need)
+        blocks = self.allocator.allocate(need)    # may raise PoolExhausted
+        try:
+            k, v = export.pages
+            ks, vs = export.scales if self._kv_bits else (None, None)
+            self._write_pages(blocks, k, v, ks, vs)
+        except BaseException:
+            self.allocator.release(blocks)
+            raise
+        # publish takes the cache's own references, then the allocation's
+        # drops: the cache holds the only ones
+        self.prefix_cache.publish(export.tokens, blocks, len(export.tokens),
+                                  self.allocator)
+        self.allocator.release(blocks)
+        self.kvtier_adopt_imports += 1
+        return True
+
+    def _cold_readmit(self, tokens: Sequence[int]) -> None:
+        """Re-admit the longest spilled full-block prefix of ``tokens``
+        that the device cache lacks, through :meth:`import_prefix`, so the
+        admission match finds it. Best effort: pool pressure or a failed
+        verify leaves plain prefill."""
+        bs = self.config.kv_block_size
+        for k in range((len(tokens) - 1) // bs, 0, -1):
+            key = tuple(int(t) for t in tokens[: k * bs])
+            if key in self.prefix_cache._entries:
+                return              # the device cache is at least as good
+            export = self._cold_tier.get(key)
+            if export is None:
+                continue
+            try:
+                if self.import_prefix(export):
+                    self.kvtier_cold_readmits += 1
+            except (ValueError, RuntimeError):
+                pass                # PoolExhausted / corrupt: plain prefill
+            return
+
+    # -- rewind ------------------------------------------------------------
+    def trim(self, uid: int, length: int) -> None:
+        """Rewind ``uid`` to its first ``length`` tokens, freeing the
+        pages past them. Attention reads are position-bounded, so KV past
+        the trim point is never read; the next step overwrites it. A
+        boundary page that another holder shares (the prefix cache or
+        another sequence) is first copied to a private page, allocated
+        before anything changes: a failed trim leaves the sequence as it
+        was."""
+        seq = self.seqs[uid]
+        if not 0 <= length <= seq.seen:
+            raise ValueError(
+                f"uid {uid}: trim length {length} outside [0, seen={seq.seen}]")
+        bs = self.config.kv_block_size
+        keep = -(-length // bs) if length else 0
+        cow_new = None
+        if (length % bs and keep <= len(seq.blocks)
+                and self.allocator.refcount(seq.blocks[keep - 1]) > 1):
+            if (self.allocator.free_blocks < 1
+                    and self.prefix_cache is not None):
+                self.prefix_cache.evict_for(self.allocator, 1)
+            # the eviction may have dropped the cache's reference on the
+            # boundary page, making it private
+            if self.allocator.refcount(seq.blocks[keep - 1]) > 1:
+                cow_new = self.allocator.allocate(1)[0]   # may raise
+        seq.tokens = seq.tokens[:length]
+        seq.seen = length
+        ngi = self._ngram_idx.get(uid)
+        if ngi is not None:
+            ngi.truncate(length)
+        if keep < len(seq.blocks):
+            self.allocator.free(seq.blocks[keep:])
+            del seq.blocks[keep:]
+        if cow_new is not None:
+            old = seq.blocks[keep - 1]
+            self._copy_page(old, cow_new)
+            self.allocator.release([old])
+            seq.blocks[keep - 1] = cow_new
+
+    @torch.inference_mode()
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy page ``src`` to ``dst`` in every leaf of every layer,
+        scales included (trim's copy-on-write)."""
+        for leaves in self.kv_pool:
+            for leaf in leaves:
+                leaf[dst].copy_(leaf[src])
+
     # -- step ------------------------------------------------------------
     def _admit_tokens(self, uids: Sequence[int],
                       tokens: Sequence[Sequence[int]]) -> None:
-        """Fresh uids get a slot (and adopt the longest cached full-block
-        prefix); existing ones append their chunk."""
+        """put()'s first phase, shared with :meth:`put_spec`: fresh uids
+        get a slot (and adopt the longest cached full-block prefix, after
+        a cold-tier re-admission when a cold tier is attached); existing
+        ones append their chunk."""
         for uid, toks in zip(uids, tokens):
             new = uid not in self.seqs
             if new:
@@ -484,7 +1047,11 @@ class RaggedInferenceEngine:
                     uid=uid, slot=self._free_slots.pop())
             seq = self.seqs[uid]
             seq.tokens.extend(int(t) for t in toks)
+            if new:
+                seq.prompt_len = len(seq.tokens)
             if new and self.prefix_cache is not None and seq.tokens:
+                if self._cold_tier is not None:
+                    self._cold_readmit(seq.tokens)
                 shared, blocks = self.prefix_cache.match(seq.tokens)
                 if shared:
                     self.allocator.retain(blocks)
@@ -548,6 +1115,139 @@ class RaggedInferenceEngine:
                 out[i] = logits[seq.slot]
         return out
 
+    def put_spec(self, uids: Sequence[int], tokens: Sequence[Sequence[int]],
+                 drafts: Sequence[Sequence[int]]
+                 ) -> Tuple[np.ndarray, Dict[int, Tuple[List[int], np.ndarray]]]:
+        """One ragged step that also verifies speculative draft chains:
+        the serving tick's speculative entry point. Prefill chunks, plain
+        decodes and draft-extended decodes pack into one step.
+
+        ``drafts[i]`` proposes tokens after ``tokens[i]``, which must then
+        be exactly one pending decode token. Returns ``(out, verified)``:
+        ``out`` is put()'s [len(uids), vocab] last-row logits (NaN
+        mid-prefill rows unchanged); ``verified`` maps each drafted uid to
+        ``(chain, rows)``, the chain scheduled (first element the fed
+        token) and fp32 logits [len(chain), vocab] for each of its
+        positions. The caller accepts the longest greedy-matching prefix
+        and must ``trim`` the rejected tail before the uid's next step.
+
+        Chains are all-or-strip under the token budget: proposals the
+        budget cannot hold are stripped from the stream, never left as
+        pending context. Every chain is validated before any draft token
+        is appended, and on PoolExhausted every draft token is stripped
+        before the raise, so a retry with a plain ``put`` of empty chunks
+        sees exactly put()'s admitted state."""
+        cfg = self.config
+        self._admit_tokens(uids, tokens)
+        for uid, d in zip(uids, drafts):
+            if d and self.seqs[uid].pending != 1:
+                raise ValueError(
+                    f"uid {uid}: a draft chain continues exactly one "
+                    f"pending decode token, found "
+                    f"pending={self.seqs[uid].pending}")
+        appended: Dict[int, int] = {}     # uid -> draft tokens on the stream
+        for uid, d in zip(uids, drafts):
+            if not d:
+                continue
+            self.seqs[uid].tokens.extend(int(t) for t in d)
+            appended[uid] = len(d)
+        try:
+            sched = self._pack_splitfuse()
+            if not sched:
+                raise ValueError("put_spec() called with no pending tokens")
+            # all-or-strip: drop the proposals the budget left behind
+            take_of = {seq.uid: take for seq, take in sched}
+            for uid in list(appended):
+                seq = self.seqs[uid]
+                chain_len = 1 + appended[uid]
+                take = take_of.get(uid, 0)
+                if take < chain_len:
+                    strip = chain_len - max(take, 1)
+                    if strip:
+                        del seq.tokens[len(seq.tokens) - strip:]
+                        appended[uid] -= strip
+                    if appended[uid] <= 0:
+                        appended.pop(uid)
+            sched = [(seq, min(take, seq.pending))
+                     for seq, take in sched if seq.pending > 0]
+            needs = self._validate_sched(sched)
+        except BaseException:
+            for uid, n in appended.items():
+                seq = self.seqs[uid]
+                del seq.tokens[len(seq.tokens) - n:]
+            raise
+        flat_tokens, flat_slot, flat_pos, last_idx = \
+            self._allocate_and_build(sched, needs)
+        k_max = 1
+        for seq, take in sched:
+            if seq.uid in appended:
+                while k_max < take:
+                    k_max *= 2
+        sel_rows = np.zeros((cfg.max_seqs, k_max), np.int64)
+        last_index: Dict[int, int] = {}
+        for (seq, take), li in zip(sched, last_idx):
+            li = int(li)
+            sel_rows[seq.slot, :] = li        # padding rows: never read
+            if seq.uid in appended:
+                sel_rows[seq.slot, :take] = np.arange(li - take + 1, li + 1)
+            seq.seen += take
+            last_index[seq.uid] = li
+        logits = self._verify_step(flat_tokens, flat_slot, flat_pos, sel_rows)
+        out = np.full((len(uids), logits.shape[-1]), np.nan, np.float32)
+        for i, uid in enumerate(uids):
+            seq = self.seqs[uid]
+            if seq.pending == 0 and uid in last_index:
+                # sel_rows[slot, -1] is the last scheduled row whether or
+                # not the slot carried a chain: put()'s contract holds
+                out[i] = logits[seq.slot, -1]
+        verified: Dict[int, Tuple[List[int], np.ndarray]] = {}
+        for seq, take in sched:
+            if seq.uid in appended:
+                chain = [int(t) for t in seq.tokens[seq.seen - take:
+                                                    seq.seen]]
+                verified[seq.uid] = (chain, logits[seq.slot, :take])
+        return out, verified
+
+    def _put_verify(self, uids: Sequence[int],
+                    chains: Sequence[List[int]]) -> List[np.ndarray]:
+        """Speculative-verify step of :meth:`generate_speculative`: admit
+        each uid's token chain and return the logits of every chain row.
+        Validates before touching any stream: a failed round leaves no
+        unverified draft token behind."""
+        cfg = self.config
+        sched = [(self.seqs[u], len(c)) for u, c in zip(uids, chains)]
+        needs = self._validate_sched(sched)
+        for u, c in zip(uids, chains):
+            self.seqs[u].tokens.extend(int(t) for t in c)
+        flat_tokens, flat_slot, flat_pos, last_idx = \
+            self._allocate_and_build(sched, needs)
+        k_max = 1
+        while k_max < max(take for _, take in sched):
+            k_max *= 2
+        sel_rows = np.zeros((cfg.max_seqs, k_max), np.int64)
+        for (seq, take), li in zip(sched, last_idx):
+            li = int(li)
+            sel_rows[seq.slot, :take] = np.arange(li - take + 1, li + 1)
+            sel_rows[seq.slot, take:] = li      # padding rows: never read
+            seq.seen += take
+        logits = self._verify_step(flat_tokens, flat_slot, flat_pos, sel_rows)
+        return [logits[seq.slot, :take] for seq, take in sched]
+
+    @torch.inference_mode()
+    def _verify_step(self, flat_tokens, flat_slot, flat_pos,
+                     sel_rows: np.ndarray) -> np.ndarray:
+        """The verify step: put()'s forward (its paged-attention work list
+        from the same ``_paged_work``), then the head on the [max_seqs,
+        k_max] ``sel_rows`` rows (k_max a power of two). -> fp32 logits
+        [max_seqs, k_max, vocab] on the host."""
+        live_pages = self._live_pages_bucket()
+        x = self._core(self._dev(flat_tokens), self._dev(flat_slot),
+                       self._dev(flat_pos), self._dev(self._host_tables()),
+                       live_pages, self._paged_work(flat_slot, live_pages))
+        rows = self._dev(sel_rows.reshape(-1))
+        logits = self.model._head(x[rows])
+        return logits.reshape(sel_rows.shape + (-1,)).cpu().numpy()
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
@@ -603,13 +1303,19 @@ class RaggedInferenceEngine:
                            self.config.max_seqs, self.max_pages)
 
     def _paged_work(self, flat_slot: np.ndarray, live_pages: int):
-        """The paged-attention work list of one step, planned once on the
-        host from the slots the kernels read (padding lanes' -1 clamped to
-        0, as ``_core`` does; the padding lanes themselves marked, so they
-        neither join a tile nor thin the decode lanes' splits) and shared
-        by every layer; None off the card."""
+        """The paged-attention work list of one step (:meth:`_plan_work`),
+        shared by every layer; None off the card, where the wrapper runs
+        the plain version."""
         if self.device.type != "cuda":
             return None
+        return self._plan_work(flat_slot, live_pages)
+
+    def _plan_work(self, flat_slot: np.ndarray, live_pages: int):
+        """Plan a step's work list on the host from the slots the kernels
+        read: padding lanes' -1 clamped to 0, as ``_core`` does, and the
+        padding lanes marked, so they neither join a tile nor thin the
+        real lanes' splits. put, put_spec and decode_steps all plan here,
+        with the wrapper's own tile decision."""
         return plan_paged_work(
             np.maximum(flat_slot, 0), len(flat_slot),
             min(live_pages, self.max_pages), self.kv_pool[0][0],
@@ -628,9 +1334,12 @@ class RaggedInferenceEngine:
     @torch.inference_mode()
     def decode_steps(self, first_tokens: Dict[int, int], k: int,
                      eos_token_id: Optional[int] = None) -> Dict[int, List[int]]:
-        """Greedily decode ``k`` tokens for every uid in ``first_tokens``,
+        """Decode ``k`` tokens (greedy, or sampled under the config's
+        temperature / top-k / top-p) for every uid in ``first_tokens``,
         one ragged step per token with the tokens fed back on the device
-        (no host round trip inside the chunk).
+        (no host round trip inside the chunk). A sampled step draws for
+        all ``max_seqs`` rows from the generator reseeded from (seed,
+        global step): a stream does not depend on how calls chunk it.
 
         ``first_tokens[uid]`` is the next input token (from the previous
         step's logits, not yet admitted). Returns uid -> the k tokens
@@ -679,11 +1388,13 @@ class RaggedInferenceEngine:
         if eos >= 0:
             alive = alive & (toks_t != eos)
         gens = []
-        for _ in range(k):
+        step0 = self._decode_step_counter
+        self._decode_step_counter += k
+        for i in range(k):
             slots_eff = torch.where(alive, slots_t, torch.full_like(slots_t, -1))
             x = self._core(toks_t, slots_eff, pos_t, tables, live_pages,
                            work)
-            nxt = torch.argmax(self.model._head(x), dim=-1).to(torch.int32)
+            nxt = self._next_tokens(self.model._head(x), step0 + i)
             if eos >= 0:
                 nxt = torch.where(alive, nxt, torch.full_like(nxt, eos))
                 new_alive = alive & (nxt != eos)
@@ -716,11 +1427,42 @@ class RaggedInferenceEngine:
             out[uid] = chain
         return out
 
+    # -- sampling ----------------------------------------------------------
+    def _reseed(self, gen: torch.Generator, stream: str,
+                counter: int) -> torch.Generator:
+        """Reseed ``gen`` from (seed, stream, counter): each draw of a
+        stream is fixed by its counter alone. A reseed only sets the
+        generator's host-side state."""
+        digest = hashlib.sha256(
+            f"{self._seed}:{stream}:{counter}".encode()).digest()
+        return gen.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+
+    def _next_tokens(self, logits: torch.Tensor, step: int) -> torch.Tensor:
+        """Next tokens [S] int32 of a decode step's logits [S, vocab], on
+        the device: argmax when greedy, else a draw of global decode step
+        ``step``."""
+        cfg = self.config
+        if cfg.temperature == 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return _sample(logits, self._reseed(self._gen, "decode", step),
+                       cfg.temperature, cfg.top_k, cfg.top_p)
+
+    def _sample_first(self, rows) -> List[int]:
+        """First decode token(s) from resolved prefill logits rows: greedy
+        on the host, else one draw a prefill round on the host's stream
+        (its counter moves only when sampling, so greedy calls never shift
+        a later sampled stream)."""
+        cfg = self.config
+        if cfg.temperature == 0.0:
+            return [int(np.argmax(r)) for r in rows]
+        gen = self._reseed(self._host_gen, "prefill",
+                           self._prefill_round_counter)
+        self._prefill_round_counter += 1
+        toks = _sample(torch.from_numpy(np.stack(rows)), gen,
+                       cfg.temperature, cfg.top_k, cfg.top_p)
+        return [int(t) for t in toks]
+
     # -- generation convenience -----------------------------------------
-    @staticmethod
-    def _sample_first(rows) -> List[int]:
-        """First decode token(s) from resolved prefill logits (greedy)."""
-        return [int(np.argmax(r)) for r in rows]
 
     def stream(self, uid: int, prompt: Sequence[int], *,
                max_new_tokens: int = 128,
@@ -761,8 +1503,9 @@ class RaggedInferenceEngine:
                  eos_token_id: Optional[int] = None,
                  decode_chunk: int = 16) -> Dict[int, List[int]]:
         """SplitFuse put() steps until every prompt is prefilled, then
-        ``decode_steps`` chunks of up to ``decode_chunk`` tokens. Greedy.
-        Returns uid -> generated tokens."""
+        ``decode_steps`` chunks of up to ``decode_chunk`` tokens. Greedy
+        when ``config.temperature`` is 0, else sampled (the stream does not
+        depend on ``decode_chunk``). Returns uid -> generated tokens."""
         done: Dict[int, List[int]] = {u: [] for u in prompts}
         first = self._prefill_first(prompts, done)
         live = {u: t for u, t in first.items()
@@ -817,6 +1560,78 @@ class RaggedInferenceEngine:
         for u, t in first.items():
             done[u].append(t)
         return first
+
+    def generate_speculative(self, prompts: Dict[int, Sequence[int]],
+                             max_new_tokens: int = 32,
+                             eos_token_id: Optional[int] = None,
+                             ngram: int = 3,
+                             lookahead: int = 4) -> Dict[int, List[int]]:
+        """Prompt-lookup speculative decoding, greedy only. Each round
+        drafts up to ``lookahead`` tokens a sequence by matching its
+        trailing ``ngram`` against earlier context, verifies every chain
+        in one ragged step, accepts the longest matching prefix and trims
+        the rejected tail. Greedy acceptance makes the output
+        token-identical to ``generate()``; acceptance only changes how
+        many steps it takes. Stats land in ``self.spec_stats``."""
+        if self.config.temperature != 0.0:
+            raise NotImplementedError(
+                "speculative decoding is greedy-only (temperature == 0); "
+                "sampled acceptance needs rejection sampling")
+        done: Dict[int, List[int]] = {u: [] for u in prompts}
+        first = self._prefill_first(prompts, done)
+        live = {u: t for u, t in first.items()
+                if len(done[u]) < max_new_tokens
+                and not (eos_token_id is not None and t == eos_token_id)}
+        while live:
+            # fair-share the token budget so a round fits one step
+            share = max(1, self.config.token_budget // len(live))
+            v_uids, v_chains = [], []
+            for u, t0 in live.items():
+                seq = self.seqs[u]
+                room = self.config.max_context - seq.seen
+                if room <= 0:
+                    continue
+                k = max(0, min(lookahead, room - 1, share - 1,
+                               max_new_tokens - len(done[u]) - 1))
+                v_uids.append(u)
+                v_chains.append([t0] + self.draft_tokens(u, t0, ngram, k))
+            if not v_uids:
+                break
+            rows = self._put_verify(v_uids, v_chains)
+            round_proposed = round_accepted = 0
+            nxt: Dict[int, int] = {}
+            for u, chain, lr in zip(v_uids, v_chains, rows):
+                a = np.argmax(lr, axis=-1)            # [len(chain)]
+                matched = 0
+                while (matched < len(chain) - 1
+                       and int(a[matched]) == chain[matched + 1]):
+                    matched += 1
+                round_proposed += len(chain) - 1
+                round_accepted += matched
+                emitted = [int(x) for x in a[:matched + 1]]
+                seq = self.seqs[u]
+                seen0 = seq.seen - len(chain)
+                stop_at = None
+                if eos_token_id is not None and eos_token_id in emitted:
+                    stop_at = emitted.index(eos_token_id)
+                    emitted = emitted[:stop_at + 1]
+                # rewind to the validated prefix: the rejected rows are
+                # never read, but the token stream must stay clean
+                keep = seen0 + (stop_at if stop_at is not None
+                                else matched) + 1
+                if keep < seq.seen:
+                    self.trim(u, keep)
+                done[u].extend(emitted)
+                if (stop_at is None and len(done[u]) < max_new_tokens
+                        and seq.seen < self.config.max_context):
+                    nxt[u] = emitted[-1]
+            self.record_spec(proposed=round_proposed,
+                             accepted=round_accepted, rounds=1)
+            live = nxt
+        for u in done:
+            done[u] = done[u][:max_new_tokens]
+        self.flush(list(prompts))
+        return done
 
     # -- the ragged forward ------------------------------------------------
     def _core(self, tokens: torch.Tensor, slots: torch.Tensor,

@@ -15,9 +15,10 @@ FINISHED / CANCELLED / REJECTED are terminal; any other transition raises
 tokens generated so far: on re-admission the engine prefills
 ``prompt + emitted`` and greedy decode continues the stream bit-exactly.
 
-Not in this slice: the speculative-decoding ledger, model-version and
-tenant stamps, hand-off flags and trace spans (later slices; see
-ROADMAP.md).
+Each request carries its speculative-decoding ledger (drafted tokens
+proposed and accepted, the rolling acceptance EMA and the fallback
+latch). Not in the port yet: model-version and tenant stamps, hand-off
+flags and trace spans (ROADMAP.md, Queue A items 4-5).
 """
 
 from __future__ import annotations
@@ -88,6 +89,10 @@ class Request:
     error: Optional[str] = None
     preemptions: int = 0
     retries: int = 0          # tick-fault re-queues (distinct from preempts)
+    # speculative-decoding ledger: draft tokens proposed / accepted for
+    # this request over its whole life
+    spec_proposed: int = 0
+    spec_accepted: int = 0
     t_submit: Optional[float] = None     # clock.now() stamps
     t_first_token: Optional[float] = None
     t_finish: Optional[float] = None
@@ -110,6 +115,12 @@ class Request:
         # the previous tick's logits, not yet admitted as context)
         self._pending_token: Optional[int] = None
         self._cancel_requested = False
+        # speculative driver state: the rolling acceptance EMA (optimistic
+        # start: full drafts until the request proves unpredictable) and
+        # the fallback latch (below the floor drafting stops for good;
+        # the stream is the same either way)
+        self._spec_ema = 1.0
+        self._spec_disabled = False
 
     # -- state machine --------------------------------------------------
     def transition(self, new: RequestState) -> None:

@@ -105,6 +105,29 @@ class CapacityView:
         need += sum(self._live_reserved.values())
         return max(0, need - self._engine._available_blocks())
 
+    # -- speculative token credit: drafting spends only the tick's
+    # token-budget slack, sized by the class acceptance EMA
+    def draft_budget(self, n_decodes: int, prefill_tokens: int) -> int:
+        """Token-budget slack draft chains may add this tick: the engine
+        budget minus one token a live decode minus the prefill backlog's
+        claim (pending prompt tokens, capped at the budget). Prefill's
+        claim comes off the top, so drafting never starves prompt
+        progress; with no slack the tick is a plain decode."""
+        budget = self._engine.config.token_budget
+        claim = min(max(0, int(prefill_tokens)), budget)
+        return max(0, budget - max(0, int(n_decodes)) - claim)
+
+    @staticmethod
+    def chain_len_for(accept_ema: float, lookahead: int) -> int:
+        """Draft length under the class acceptance EMA: the lookahead
+        scaled by the EMA (rounded). A cold class keeps a one-token probe,
+        or its EMA could never move again; a hopeless request is the
+        fallback latch's business (``spec_accept_floor``)."""
+        if lookahead < 1:
+            return 0
+        c = min(1.0, max(0.0, float(accept_ema)))
+        return max(1, min(int(lookahead), int(c * lookahead + 0.5)))
+
     def evictable_blocks(self, seq) -> int:
         """Pages that actually become schedulable if ``seq`` is evicted:
         those whose every non-cache reference is this sequence's own

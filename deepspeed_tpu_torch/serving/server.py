@@ -15,7 +15,14 @@ Ports the ``ServingEngine`` core of ``deepspeed_tpu/serving/server.py``:
 * a tick fault (device error) discards the touched engine state — never
   publishing suspect KV into the prefix cache — and re-queues each touched
   request until its retry budget is spent;
-* ``drain()`` stops admission and serves out the backlog.
+* ``drain()`` stops admission and serves out the backlog;
+* with ``serving.speculative``, eligible decodes carry prompt-lookup
+  draft chains that the engine verifies in the tick's one ragged step
+  (``put_spec``); the longest greedy-matching prefix is accepted and the
+  rejected tail trimmed, so the streams stay token-identical to plain
+  serving. Drafting spends only the tick's token-budget slack and is
+  sized by a per-priority-class acceptance EMA; a request whose own EMA
+  falls below the floor latches to plain decode.
 
 Serving decodes greedily (argmax on the engine's returned logits).
 
@@ -23,10 +30,10 @@ The driver thread launches the CUDA work: it selects the server's device
 before its first tick, and every launch goes to PyTorch's current stream
 of that thread.
 
-Not in this slice (later slices, ROADMAP.md): hot swap, migration and
-hand-off, adoption and the global KV tier, telemetry spans and digest,
-the stuck-tick watchdog and preemption latch, chaos injection and
-gray-failure evidence, and speculative serving.
+Not in the port yet (ROADMAP.md, Queue A items 4-5): hot swap,
+migration and hand-off, adoption and the global KV tier, telemetry
+spans, request events and digest, the stuck-tick watchdog and
+preemption latch, chaos injection and gray-failure evidence.
 """
 
 from __future__ import annotations
@@ -110,6 +117,16 @@ class ServingEngine:
                 f"serving.kv_quant='{want_quant}' but the engine stores "
                 f"KV as '{have_quant}' — configure both from one source")
         self._engine = engine
+        # speculative decoding needs the engine's draft / verify surface;
+        # per-priority-class acceptance EMAs size the chains
+        self._spec_on = bool(config.speculative) and \
+            hasattr(engine, "put_spec") and hasattr(engine, "draft_tokens")
+        self._spec_ema_by_class: Dict[int, float] = {}
+        if config.speculative and not self._spec_on:
+            logger.warning(
+                "ServingEngine: serving.speculative requested but the "
+                "engine has no put_spec/draft_tokens surface — serving "
+                "plain decode")
         self.policy = policy if policy is not None else make_policy(
             config.policy, **(dict(kv_pressure=config.kv_pressure,
                                    reject_expired=config.reject_expired,
@@ -126,7 +143,9 @@ class ServingEngine:
         self._tick_count = 0
         self._driver: Optional[threading.Thread] = None
         log_dist(f"ServingEngine: policy={self.policy.name} "
-                 f"max_queue={config.max_queue} device={self.device}")
+                 f"max_queue={config.max_queue} device={self.device}"
+                 + (f" speculative=on(lookahead={config.spec_lookahead})"
+                    if self._spec_on else ""))
         if start:
             self.start()
 
@@ -302,21 +321,24 @@ class ServingEngine:
 
     def _tick(self) -> bool:
         """One driver iteration: cancellations, admission (+ preemption),
-        one engine ``put()`` and token dispatch. Returns False when idle."""
+        one engine ``put()`` (``put_spec`` when draft chains ride along)
+        and token dispatch. Returns False when idle."""
         with self._lock:
             self._process_cancellations()
-            self._admit()
-            uids, toks = self._build_feed()
+            capacity = self._admit()
+            uids, toks, drafts = self._build_feed(capacity)
         if not uids:
             return False
         self._tick_count += 1
         try:
-            uids, logits = self._put_with_recovery(uids, toks)
+            uids, logits, verified = self._put_with_recovery(uids, toks,
+                                                             drafts)
         except Exception as e:
             self._on_tick_fault(uids, e)
             return True
+        accepted = self._verify_drafts(verified)
         with self._lock:
-            emissions, finished = self._dispatch(uids, logits)
+            emissions, finished = self._dispatch(uids, logits, accepted)
         # user callbacks run OUTSIDE the serving lock, and BEFORE the
         # request turns terminal below, so stream() sees every token
         for req, tok in emissions:
@@ -384,39 +406,87 @@ class ServingEngine:
                     f"(priority {victim.priority}, "
                     f"{len(victim.tokens)} tokens in)")
 
-    def _build_feed(self) -> Tuple[List[int], List[List[int]]]:
+    def _build_feed(self, capacity: CapacityView
+                    ) -> Tuple[List[int], List[List[int]], List[List[int]]]:
         """This tick's ``put()`` arguments: full resume context for
         freshly admitted requests, empty continuation chunks for
-        mid-prefill ones, one pending decode token each for the rest."""
+        mid-prefill ones, one pending decode token each for the rest.
+
+        With speculative serving on, eligible decodes also get a draft
+        chain, sized by the class acceptance credit
+        (``CapacityView.chain_len_for``) and paid for out of the tick's
+        token-budget slack (``CapacityView.draft_budget``)."""
         uids: List[int] = []
         toks: List[List[int]] = []
+        drafts: List[List[int]] = []
+        decode_rows: List[Tuple[int, Request]] = []
+        prefill_tokens = 0
         for uid, req in self._live.items():
             seq = self._engine.seqs.get(uid)
             if seq is None:
                 uids.append(uid)
                 toks.append(req.prompt + req.tokens)
+                prefill_tokens += len(req.prompt) + len(req.tokens)
             elif seq.pending > 0:
                 uids.append(uid)
                 toks.append([])
+                prefill_tokens += seq.pending
             elif req._pending_token is not None:
                 uids.append(uid)
                 toks.append([req._pending_token])
-        return uids, toks
+                decode_rows.append((len(uids) - 1, req))
+            else:
+                continue
+            drafts.append([])
+        if self._spec_on and decode_rows:
+            slack = capacity.draft_budget(len(decode_rows), prefill_tokens)
+            cfg = self.config
+            for i, req in decode_rows:
+                if slack <= 0:
+                    break
+                if req._spec_disabled:
+                    continue
+                ema = self._spec_ema_by_class.get(req.priority, 1.0)
+                k = CapacityView.chain_len_for(ema, cfg.spec_lookahead)
+                seq = self._engine.seqs[req.uid]
+                k = min(k, slack,
+                        self._engine.config.max_context - seq.seen - 1,
+                        req.max_new_tokens - len(req.tokens) - 1)
+                if k <= 0:
+                    continue
+                guesses = self._engine.draft_tokens(
+                    req.uid, req._pending_token, cfg.spec_ngram, k)
+                if guesses:
+                    drafts[i] = guesses
+                    slack -= len(guesses)
+        return uids, toks, drafts
 
     # -- tick phases (lock NOT held) ------------------------------------
-    def _put_with_recovery(self, uids, toks):
+    def _put_with_recovery(self, uids, toks, drafts):
         """One engine tick; on KV-pool exhaustion, preempt the cheapest
         decode and retry. Tokens are admitted to the engine's descriptors
         before its pool check, so retries feed empty chunks — and an
-        evicted victim leaves the feed entirely."""
+        evicted victim leaves the feed entirely. Returns (uids, logits,
+        verified chains).
+
+        With draft chains the first attempt is the verify step
+        (``put_spec``); a PoolExhausted there strips every draft token
+        before raising, so the retry is a plain put of the admitted feed:
+        speculation is never worth an eviction."""
         uids, toks = list(uids), list(toks)
+        use_spec = any(drafts)
         attempts = 0
         while True:
             try:
-                return uids, self._engine.put(uids, toks)
+                if use_spec:
+                    out, verified = self._engine.put_spec(uids, toks,
+                                                          list(drafts))
+                    return uids, out, verified
+                return uids, self._engine.put(uids, toks), {}
             except PoolExhausted:
                 # typed catch: a device error takes the tick-fault path
                 # once instead of preempting healthy decodes
+                use_spec = False       # the drafts were stripped
                 with self._lock:
                     if attempts >= len(self._live):
                         raise
@@ -474,12 +544,89 @@ class ServingEngine:
                                  f"retries: {exc}")
                     self._retire(req, RequestState.CANCELLED)
 
+    def _verify_drafts(self, verified) -> Dict[int, List[int]]:
+        """Greedy accept / trim pass over the tick's verified draft chains
+        (driver thread, outside the serving lock: a trim may copy a
+        page). Each chain's longest argmax-matching prefix is accepted —
+        row 0 is exactly the plain tick's logits, so the stream is
+        token-identical to plain serving by induction — and the engine
+        rewinds to the validated context. Returns uid -> the tokens that
+        ``_dispatch`` emits. Acceptance feeds the request's rolling EMA
+        (the fallback latch) and its class's EMA (chain sizing).
+
+        A trim that fails (its copy-on-write page may not be allocable)
+        sends that request down the tick-fault path, this round's tokens
+        withheld (the resume re-prefill produces them again), while every
+        other uid's acceptance proceeds."""
+        if not verified:
+            return {}
+        with self._lock:
+            reqs = {uid: self._live.get(uid) for uid in verified}
+        eng = self._engine
+        cfg = self.config
+        accepted: Dict[int, List[int]] = {}
+        failed: Dict[int, Exception] = {}
+        tick_prop = tick_acc = 0
+        for uid, (chain, rows) in verified.items():
+            req = reqs.get(uid)
+            seq = eng.seqs.get(uid)
+            a = np.argmax(np.asarray(rows), axis=-1)
+            matched = 0
+            while (matched < len(chain) - 1
+                   and int(a[matched]) == chain[matched + 1]):
+                matched += 1
+            proposed = len(chain) - 1
+            tick_prop += proposed
+            tick_acc += matched
+            if req is None or seq is None:      # evicted mid-tick
+                continue
+            emitted = [int(x) for x in a[:matched + 1]]
+            emitted = emitted[:max(0, req.max_new_tokens - len(req.tokens))]
+            if req.eos_token_id is not None and req.eos_token_id in emitted:
+                emitted = emitted[:emitted.index(req.eos_token_id) + 1]
+            # fed = the chain; validated = the pending token and the
+            # accepted (and emitted) proposals
+            keep = seq.seen - len(chain) + len(emitted)
+            try:
+                if keep < seq.seen:
+                    eng.trim(uid, keep)
+            except Exception as e:
+                failed[uid] = e
+                continue
+            accepted[uid] = emitted
+            if proposed:
+                req.spec_proposed += proposed
+                req.spec_accepted += matched
+                rate = matched / proposed
+                alpha = cfg.spec_ema
+                req._spec_ema = (1 - alpha) * req._spec_ema + alpha * rate
+                with self._lock:
+                    cur = self._spec_ema_by_class.get(req.priority, 1.0)
+                    self._spec_ema_by_class[req.priority] = \
+                        (1 - alpha) * cur + alpha * rate
+                if (not req._spec_disabled
+                        and req.spec_proposed >= cfg.spec_floor_min_proposed
+                        and req._spec_ema < cfg.spec_accept_floor):
+                    # this request's context is unpredictable: stop paying
+                    # for drafts (the stream is the same either way)
+                    req._spec_disabled = True
+        if tick_prop:
+            eng.record_spec(proposed=tick_prop, accepted=tick_acc, rounds=1)
+        if failed:
+            # discard the suspect engine state (the chain is still on the
+            # stream) and requeue under the retry budget: the resume
+            # re-prefills the tokens delivered before this tick
+            self._on_tick_fault(list(failed), next(iter(failed.values())))
+        return accepted
+
     # -- dispatch (serving lock held) ------------------------------------
-    def _dispatch(self, uids, logits: np.ndarray
+    def _dispatch(self, uids, logits: np.ndarray,
+                  accepted: Dict[int, List[int]]
                   ) -> Tuple[List[Tuple[Request, int]], List[int]]:
-        """Turn the tick's logits into emitted tokens. Returns ((request,
-        token) pairs for ``on_token`` delivery, finished uids); delivery
-        and retirement happen back in ``_tick``."""
+        """Turn the tick's logits (and accepted draft runs) into emitted
+        tokens. Returns ((request, token) pairs for ``on_token`` delivery,
+        finished uids); delivery and retirement happen back in
+        ``_tick``."""
         now = self._clock.now()
         finished: List[int] = []
         emissions: List[Tuple[Request, int]] = []
@@ -487,6 +634,19 @@ class ServingEngine:
             req = self._live.get(uid)
             if req is None or np.isnan(row[0]):
                 continue                      # evicted mid-tick / prefilling
+            if uid in accepted:
+                # a verified chain: the whole accepted run, in order
+                emitted = accepted[uid]
+                for tok in emitted:
+                    req.tokens.append(tok)
+                    if req.on_token is not None:
+                        emissions.append((req, tok))
+                req._pending_token = emitted[-1]
+                if (len(req.tokens) >= req.max_new_tokens
+                        or (req.eos_token_id is not None
+                            and emitted[-1] == req.eos_token_id)):
+                    finished.append(uid)
+                continue
             tok = int(np.argmax(row))
             if req.state is RequestState.PREFILL:
                 req.transition(RequestState.DECODE)

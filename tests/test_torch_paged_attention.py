@@ -659,3 +659,77 @@ def test_cuda_quantized_lane_items_match_plain_and_repeat(name, bits):
     ok, err = _half_close(got, ref, dtype)
     assert ok, err
     assert torch.equal(got, again)
+
+
+def test_verify_step_work_list_puts_chains_on_lane_items():
+    """A speculative verify step as the ragged engine builds it (a put_spec
+    of draft chains of 2-9 lanes beside a 30-lane prefill chunk and
+    padding, bf16 pool at head_dim 64): the engine's planner sends every
+    chain lane to lane items and the prefill run to tile items, the
+    wrapper's check accepts the list, the split-K lane items over it merge
+    to the plain version, and the plain version over the step's lanes
+    equals the JAX Pallas kernel in interpret mode (fp32, 1e-5)."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    model = Llama("tiny", device="cpu", n_layers=1, d_model=128, n_heads=2,
+                  n_kv_heads=2, vocab_size=64, max_seq_len=256)
+    eng = RaggedInferenceEngine(
+        model, RaggedConfig(token_budget=64, max_seqs=8, kv_block_size=16,
+                            n_kv_blocks=40, max_context=128,
+                            dtype=torch.bfloat16), device="cpu")
+    rng = np.random.default_rng(3)
+    firsts = {}
+    for uid in range(1, 7):
+        row = eng.put([uid], [rng.integers(1, 64, 5 + 7 * uid).tolist()])
+        firsts[uid] = int(np.argmax(row[0]))
+    calls = []
+    real_core = eng._core
+
+    def spy(tokens, slots, positions, tables, live_pages, work=None):
+        calls.append((slots.numpy().copy(), positions.numpy().copy(),
+                      tables.numpy().copy(), live_pages))
+        return real_core(tokens, slots, positions, tables, live_pages, work)
+
+    eng._core = spy
+    drafts = {uid: rng.integers(1, 64, n).tolist()
+              for uid, n in zip(range(1, 7), (1, 2, 3, 5, 8, 0))}
+    eng.put_spec(list(range(1, 8)),
+                 [[firsts[u]] for u in range(1, 7)]
+                 + [rng.integers(1, 64, 30).tolist()],
+                 [drafts[u] for u in range(1, 7)] + [[]])
+    (slots, pos, tables, live), = calls
+    assert len(slots) == 64 and (slots < 0).sum() == 64 - 30 - 25
+    work = eng._plan_work(slots, live)
+    t, i, l = (a.reshape(-1, w) for a, w in zip(
+        np.split(work.plan.numpy(), [2 * work.n_tiles,
+                                     2 * work.n_tiles + 3 * work.n_items]),
+        (2, 3, 3)))
+    prefill = np.flatnonzero(slots == eng.seqs[7].slot)
+    assert len(prefill) == 30
+    tiled = sorted(x for t0, n in t for x in range(t0, t0 + n))
+    assert tiled == prefill.tolist()
+    chain_lanes = np.flatnonzero((slots >= 0) & (slots != eng.seqs[7].slot))
+    assert sorted(set(l[:, 0]) & set(chain_lanes)) == chain_lanes.tolist()
+    walk = min(live, eng.max_pages)
+    pa.check_paged_work(work, len(slots), walk, 2, pa._takes_tiles(
+        True, torch.bfloat16, eng.kv_pool[0][0], False, None))
+    # the function over that list, on random fp32 q / pools
+    safe = np.maximum(slots, 0)
+    q = rng.standard_normal((len(slots), 2, 64)).astype(np.float32)
+    kp, vp = (rng.standard_normal((41, 2, 16, 64)).astype(np.float32)
+              for _ in "kv")
+    ref = pa.paged_attention_reference(
+        *_torch(q, kp, vp, tables, pos), seq_slots=torch.from_numpy(safe),
+        live_pages=walk)
+    jk = jax_paged_attention(jnp.asarray(q), jnp.asarray(kp),
+                             jnp.asarray(vp), jnp.asarray(tables),
+                             jnp.asarray(pos), seq_slots=jnp.asarray(safe),
+                             live_pages=walk, interpret=True)
+    np.testing.assert_allclose(ref.numpy(), np.asarray(jk), **TOL)
+    real = l[~(slots[l[:, 0]] < 0)]
+    got = _run_lane_items(q.astype(np.float64), kp, vp, tables, safe, pos,
+                          walk, 0, i, real)
+    np.testing.assert_allclose(got[real[:, 0]], ref.numpy()[real[:, 0]],
+                               **TOL)

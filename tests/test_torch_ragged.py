@@ -8,7 +8,11 @@ host-side pieces (allocator, prefix cache, block balance, pool
 exhaustion) and the pool scatter's indexing are checked on their own. With
 ``kv_quant`` int8 and int4 the pools hold quantized payloads and scales:
 greedy streams stay identical to the JAX engine's, logits agree within
-1e-4, and ``kv_blocks_for_bytes`` sizes the pools alike.
+1e-4, and ``kv_blocks_for_bytes`` sizes the pools alike. ``trim`` (with
+its copy-on-write of a shared boundary page) leaves the JAX engine's
+tokens, blocks and refcounts; ``export_kv`` / ``import_kv`` hand a
+sequence over bitwise, also from a JAX export; sampled decoding is
+seeded, in vocab and invariant to the decode chunk.
 """
 
 import numpy as np
@@ -24,7 +28,10 @@ from deepspeed_tpu.inference.ragged import (
     kv_blocks_for_bytes as jax_kv_blocks_for_bytes,
     kv_page_bytes as jax_kv_page_bytes)
 from deepspeed_tpu.models import Llama as JaxLlama
-from deepspeed_tpu_torch.checkpoint.jax_params import load_jax_params
+from deepspeed_tpu_torch.checkpoint.jax_params import (load_jax_params,
+                                                       load_kv_export)
+from deepspeed_tpu_torch.comm.comm import get_comms_logger
+from deepspeed_tpu_torch.inference.engine import _filter_logits
 from deepspeed_tpu_torch.inference.ragged import (
     BlockedAllocator, PoolExhausted, RaggedConfig, RaggedInferenceEngine,
     assert_block_balance, block_balance_report, kv_blocks_for_bytes,
@@ -227,12 +234,12 @@ def test_query_and_can_schedule(models):
 
 
 @pytest.mark.parametrize("kw,match", [(dict(kv_quant="fp8"), "kv_quant"),
-                                      (dict(temperature=0.7), "temperature")])
+                                      (dict(temperature=-0.7), "temperature")])
 def test_later_slice_options_raise(models, kw, match):
-    """Sampling is a later slice's; an unknown kv_quant is refused as the
-    JAX engine refuses it."""
-    exc = ValueError if "kv_quant" in kw else NotImplementedError
-    with pytest.raises(exc, match=match):
+    """An unknown kv_quant is refused as the JAX engine refuses it, and a
+    negative temperature is refused (sampling itself is ported:
+    ``test_sampled_decoding_is_seeded_and_chunk_invariant``)."""
+    with pytest.raises(ValueError, match=match):
         _pair(models, **kw)
 
 
@@ -406,3 +413,139 @@ def test_cuda_bf16_pool_engine_puts_tiles_then_decodes_on_lane_items():
     assert engines["cuda"].generate(prompts, max_new_tokens=10) == \
         engines["cpu"].generate(prompts, max_new_tokens=10)
     assert_block_balance(engines["cuda"])
+
+
+def _refcounts(eng, uid):
+    return [eng.allocator.refcount(b) for b in eng.seqs[uid].blocks]
+
+
+def test_trim_and_copy_on_write_match_jax(models):
+    """Trim after a decode chunk, then into a page the prefix cache
+    shares: the same tokens, block ids and refcounts as the JAX engine,
+    the continuation's logits within 1e-4, and the cached prefix left
+    intact for the next prompt."""
+    je, te = _pair(models, enable_prefix_cache=True)
+    p = _prompt(70, 16)
+    assert te.generate({1: p}, max_new_tokens=6) == \
+        je.generate({1: p}, max_new_tokens=6)
+    for eng in (je, te):
+        first = int(np.argmax(eng.put([2], [p])[0]))
+        eng.decode_steps({2: first}, 5)
+        eng.trim(2, 19)                   # back into the decoded tail
+    assert te.seqs[2].tokens == je.seqs[2].tokens
+    shared = te.seqs[2].blocks[0]
+    assert te.allocator.refcount(shared) >= 2
+    for eng in (je, te):
+        eng.trim(2, 4)                    # into the shared page: a copy
+    assert te.seqs[2].blocks == je.seqs[2].blocks
+    assert te.seqs[2].blocks[0] != shared
+    assert _refcounts(te, 2) == _refcounts(je, 2) == [1]
+    assert te.seqs[2].tokens == je.seqs[2].tokens == p[:4]
+    _assert_rows(te.put([2], [[3, 5, 7, 9]]), je.put([2], [[3, 5, 7, 9]]))
+    for eng in (je, te):
+        eng.flush([2])
+    assert te.generate({3: p}, max_new_tokens=6) == \
+        je.generate({3: p}, max_new_tokens=6)
+    assert_block_balance(te)
+    with pytest.raises(ValueError, match="trim length"):
+        te.put([4], [p])
+        te.trim(4, 99)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8", "int4"])
+def test_export_import_kv_bitwise_and_from_jax(models, kv_quant):
+    """A hand-off between two port engines moves the pages (and scales)
+    bitwise and continues the greedy stream; a JAX export carried across
+    continues the JAX engine's stream with identical tokens and logits
+    within 1e-4."""
+    je, a = _pair(models, kv_quant=kv_quant)
+    p = _prompt(71, 21)
+    first = int(np.argmax(a.put([1], [p])[0]))
+    logger = get_comms_logger()
+    logger.enabled = True
+    try:
+        before = logger.snapshot_totals().get("kv_handoff", {})
+        export = a.export_kv(1)
+        after = logger.snapshot_totals()["kv_handoff"]
+    finally:
+        logger.enabled = False
+    # the ledger books an fp copy's bytes beside the bytes on the wire
+    assert after["count"] == before.get("count", 0) + 1
+    assert after["wire_bytes"] - before.get("wire_bytes", 0) == export.nbytes
+    assert after["bytes"] - before.get("bytes", 0) == 2 * 3 * 2 * 2 * 8 * 16 * 4
+    assert export.n_pages == 3 and export.seen == 21
+    assert export.dtype == "float32" and export.kv_quant == kv_quant
+    assert (export.k_scales is None) == (kv_quant == "none")
+    _, b = _pair(models, kv_quant=kv_quant, n_kv_blocks=16)
+    b.put([5], [_prompt(72, 9)])          # B's pages are not A's
+    b.import_kv(7, export)
+    src, dst = a.seqs[1].blocks, b.seqs[7].blocks
+    for ga, gb in zip(a.kv_pool, b.kv_pool):
+        for la, lb in zip(ga, gb):
+            assert torch.equal(la[src], lb[dst])
+    assert b.decode_steps({7: first}, 6)[7] == a.decode_steps({1: first}, 6)[1]
+    assert_block_balance(b)
+    # from the JAX engine: its export continues on the port
+    jfirst = int(np.argmax(je.put([1], [p])[0]))
+    assert jfirst == first
+    _, c = _pair(models, kv_quant=kv_quant)
+    c.import_kv(3, load_kv_export(je.export_kv(1)))
+    ref = je.put([1], [[first]])
+    _assert_rows(c.put([3], [[first]]), ref)
+    nxt = int(np.argmax(ref[0]))
+    assert c.decode_steps({3: nxt}, 5)[3] == je.decode_steps({1: nxt}, 5)[1]
+    with pytest.raises(ValueError, match="already live"):
+        c.import_kv(3, export)
+    assert_block_balance(c)
+
+
+def test_import_kv_failures_mutate_nothing(models):
+    _, a = _pair(models)
+    a.put([1], [_prompt(73, 20)])
+    export = a.export_kv(1)
+    _, q = _pair(models, kv_quant="int8")
+    with pytest.raises(ValueError, match="geometry"):
+        q.import_kv(2, export)
+    _, small = _pair(models, n_kv_blocks=2)
+    with pytest.raises(PoolExhausted):
+        small.import_kv(2, export)
+    for eng in (q, small):
+        assert eng.seqs == {}
+        assert_block_balance(eng, expect_free=eng.allocator.n_blocks)
+    with pytest.raises(ValueError, match="pending"):
+        a.put([2], [_prompt(74, 60)])     # mid-prefill after one step
+        a.export_kv(2)
+    with pytest.raises(KeyError):
+        a.export_kv(99)
+
+
+def test_sampled_decoding_is_seeded_and_chunk_invariant(models):
+    """temperature 0.8, top-k 20, top-p 0.9: the same seed gives the same
+    streams whatever the decode chunk; another seed differs; every token
+    lies in the filtered set of its logits."""
+    tm = _pair(models)[1].model
+    prompts = {0: _prompt(80, 9), 1: _prompt(81, 12)}
+
+    def run(seed, chunk, **kw):
+        eng = RaggedInferenceEngine(
+            tm, RaggedConfig(dtype=torch.float32, temperature=0.8, top_k=20,
+                             top_p=0.9, **{**CFG, **kw}),
+            device="cpu", seed=seed)
+        return eng.generate({u: list(p) for u, p in prompts.items()},
+                            max_new_tokens=12, decode_chunk=chunk)
+
+    a, b, c = run(5, 1), run(5, 7), run(6, 7)
+    assert a == b and a != c
+    assert all(0 <= t < 128 for s in a.values() for t in s)
+    # the stream of one step: every draw is inside top-k/top-p of its row
+    eng = RaggedInferenceEngine(
+        tm, RaggedConfig(dtype=torch.float32, temperature=0.8, top_k=20,
+                         top_p=0.9, **CFG), device="cpu", seed=5)
+    rows = eng.put([0, 1], [prompts[0], prompts[1]])
+    logits = torch.from_numpy(rows)
+    kept = torch.isfinite(_filter_logits(logits, 0.8, 20, 0.9))
+    for _ in range(20):
+        toks = eng._next_tokens(logits, 0)
+        assert all(kept[i, t] for i, t in enumerate(toks.tolist()))
+    assert torch.equal(eng._next_tokens(logits, 3),
+                       eng._next_tokens(logits, 3))

@@ -256,10 +256,12 @@ def test_serving_config():
         ServingConfig.from_dict({"policy": "lifo"})
     with pytest.raises(ConfigError):
         ServingConfig.from_dict({"kv_pressure": 2.0})
-    for key, val in (("speculative", True),
+    for key, val in (("model_version", 1), ("kv_tier", {"enabled": True}),
                      ("stuck_tick_timeout_s", 30.0), ("fleet", {"n": 2})):
         with pytest.raises(NotImplementedError, match="later slice"):
             ServingConfig.from_dict({key: val})
+    # speculative serving is ported (tests/test_torch_spec.py)
+    assert ServingConfig.from_dict({"speculative": True}).speculative
     assert ServingConfig.from_dict({"kv_quant": "int4"}).kv_quant == "int4"
     assert ServingConfig().kv_quant == "none"
     with pytest.raises(ConfigError, match="kv_quant"):
