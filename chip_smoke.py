@@ -1,12 +1,15 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --probe-cpu-reference   # phase 10's cpu ranks
+                                                  # under other settings
 
 Phases (each prints its lines; any failure exits non-zero, and there is no
 CPU path — without a CUDA device the script fails):
 
-1. device: name, count, the host's CPU count, ATen CPU capability and
-   torch threads, and ``nvidia-smi`` name + power limit;
+1. device: name, count, the host's CPU count, model and ISA flags, ATen
+   CPU capability and torch threads, and ``nvidia-smi`` name + power
+   limit;
 2. build: compile every kernel library from the sources in the checkout
    with ``nvcc`` (one process each, all started together, with two
    scratch builds of fused_collectives.cu for a measurement) and print
@@ -90,6 +93,20 @@ CPU path — without a CUDA device the script fails):
    (identical tokens, bitwise pages, equal checksums, only the suffix
    scheduled); sampled ``generate`` (temperature 0.8, top-k 50, top-p
    0.9), seeded and chunk-invariant;
+6c. replicas: two ``ServingEngine`` replicas over 512-page engines on
+   the same Llama-2-7B, phase 5's 8 requests: (a) with the JSON-lines
+   request sink, tracing and a fault injector on (valid records, TTFT p50
+   from the records within 5 % of the host clock's, trace trees and the
+   Chrome trace without problems), then off / on interleaved for the
+   cost; (f) every put's batch build and block tables on the native host
+   library (``csrc/ragged_host.cpp``), timed against numpy; (b) kill ->
+   ``migrate_out`` -> ``adopt``, bf16 and int8 pairs, streams equal an
+   uninterrupted run up to near-ties, export / import ms and bytes; (c)
+   kill -> ``evacuate`` -> resubmit; (e) the preemption latch, an
+   injected tick fault, the stuck-tick watchdog; (d) ``hot_swap``: a
+   corrupt and a failing load keep version 0, a seed-1 load serves a
+   fresh seed-1 engine's streams bitwise after 2 warm-up ticks; (g) the
+   phase's paged launches (from 0), tile and lane items;
 6a. inference: ``init_inference(Llama("7b"))`` with int8 weights at group
    256 (path A), then bf16 and int4 weights: 4 prompts of 128 tokens, 32
    new tokens greedy; weight bytes, memory, prefill and decode times,
@@ -109,7 +126,10 @@ CPU path — without a CUDA device the script fails):
    ZeRO stage 3 over 2 ranks, one pair of rank processes on cuda (both on
    the one card, over gloo) and one on cpu, from the same seed-made
    weights and batch: 3 steps compressed (w8/g4) and dense, on the fused
-   and the reference comm backend; losses and weights within stated
+   and the reference comm backend (the cpu ranks pinned to ATen
+   capability avx2, MKL_CBWR=COMPATIBLE and 2 threads by
+   ``utils/cpu_pin.py``, and failing if they run under anything else);
+   losses and weights within stated
    tolerances, per step the int4 gradient levels apart and the weights
    moved, fused vs reference, the facade counters, and two planted
    gradient-payload faults that the limits must reject;
@@ -139,6 +159,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -313,10 +334,15 @@ def phase_device() -> dict:
     card = smi[0].strip() if smi else "nvidia-smi gave nothing"
     log(f"device: {name} count={count} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
-    # the host's CPU decides the cpu ranks' fp32 rounding (phase 10)
-    log(f"host: {os.cpu_count()} CPUs, ATen CPU capability "
-        f"{torch.backends.cpu.get_cpu_capability()}, "
-        f"{torch.get_num_threads()} torch threads")
+    # the host's CPU decides the cpu ranks' fp32 rounding (phase 10); the
+    # ranks pin it (cpu_pin: ATen capability, MKL path, thread counts)
+    from deepspeed_tpu_torch.utils import cpu_pin
+
+    log(f"host: {os.cpu_count()} CPUs, {cpu_pin.cpu_report()}, ATen CPU "
+        f"capability {torch.backends.cpu.get_cpu_capability()} here, "
+        f"{torch.get_num_threads()} torch threads; cpu ranks pinned to "
+        f"{cpu_pin.PINNED_CAPABILITY}, MKL_CBWR=COMPATIBLE, "
+        f"{cpu_pin.PINNED_THREADS} threads")
     log(card)
     return {"name": name, "count": count, "card": card}
 
@@ -1771,7 +1797,581 @@ def phase_speculative(model, card: str) -> dict:
             "tile_launches": spec["counts"]["tile_launches"],
             "split_launches": spec["counts"]["split_launches"],
             "int8_launches": int8_launches, "bf16": t_bf16, "int8": t_int8,
-            "handoff": handoff, "spec_stats": stats}
+            "handoff": handoff, "spec_stats": stats,
+            "err": {"none": verify["err"], "int8": verify_q["err"]}}
+
+
+# --------------------------------------------------------------- phase 6c
+REPLICA_PAGES = 512
+REPLICA_SHAPE = dict(token_budget=512, max_seqs=16, kv_block_size=16,
+                     max_context=4096, dtype=torch.bfloat16)
+REPLICA_SERVING = {"policy": "fcfs", "stuck_tick_timeout_s": 0}
+
+
+class _PutCounter:
+    """Wraps engines' ``put``: counts puts and the puts that ran tile /
+    lane items (the paged counters must move by 0 or one a layer)."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers = n_layers
+        self.steps = {"put": 0, "tile": 0, "split": 0, "odd": 0}
+
+    def wrap(self, eng):
+        real = eng.put
+
+        def put(uids, toks):
+            before = _paged_counts()
+            out = real(uids, toks)
+            moved = [a - b for a, b in zip(_paged_counts(), before)]
+            self.steps["put"] += 1
+            self.steps["tile"] += moved[0] > 0
+            self.steps["split"] += moved[1] > 0
+            self.steps["odd"] += any(n not in (0, self.n_layers)
+                                     for n in moved)
+            return out
+
+        eng.put = put
+        return eng
+
+
+def _drive(servers, done, limit: int = 4000) -> None:
+    """Manual driver ticks over ``servers`` until ``done()``."""
+    for _ in range(limit):
+        if done():
+            return
+        for s in servers:
+            s.step()
+    raise SystemExit(f"replicas made no progress in {limit} ticks")
+
+
+def _streams_ok(eng, prompts, got, ref, err: float) -> tuple:
+    """Streams of 32 tokens equal to ``ref``, or differing first at a
+    near-tie of the reference run: a top-two logit gap within twice the
+    measured verify error (phase 6b's rule). Returns (ok, identical,
+    [(request, first position, gap)])."""
+    same, ties = 0, []
+    for i, (p, g, r) in enumerate(zip(prompts, got, ref)):
+        if g == r:
+            same += 1
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(g, r)) if x != y),
+                 min(len(g), len(r)))
+        ties.append((i, j, _near_tie(eng, p, r, j)))
+    ok = (all(len(g) == 32 for g in got)
+          and all(gap <= 2 * err for _, _, gap in ties))
+    return ok, same, ties
+
+
+def _replica_telemetry(tmp: str) -> tuple:
+    """Install request records (JSON lines under ``tmp``), tracing and a
+    fault injector with nothing armed; returns (telemetry, tracer,
+    injector)."""
+    from deepspeed_tpu_torch.config import TelemetryConfig
+    from deepspeed_tpu_torch.resilience import chaos
+    from deepspeed_tpu_torch.telemetry import (MetricsRegistry, Telemetry,
+                                               get_tracer, set_telemetry)
+
+    t = set_telemetry(Telemetry(TelemetryConfig(
+        enabled=True, output_dir=tmp, jsonl_path="",
+        requests_jsonl_path=os.path.join(tmp, "requests.jsonl"),
+        stall_detection=False, tracing=True), registry=MetricsRegistry()))
+    return t, get_tracer(), chaos.install_fault_injector(
+        chaos.FaultInjector())
+
+
+def _replica_telemetry_off() -> None:
+    from deepspeed_tpu_torch.resilience import chaos
+    from deepspeed_tpu_torch.telemetry import set_telemetry, set_tracer
+
+    set_telemetry(None)
+    set_tracer(None)
+    chaos.install_fault_injector(None)
+
+
+def _serve_threaded(eng, prompts, replica_id: str) -> dict:
+    """The requests through a ServingEngine with its driver and watchdog
+    threads: streams, wall time, and each request's TTFT read on the host
+    clock here (submit to the first on_token call)."""
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+
+    srv = ServingEngine(eng, {"policy": "fcfs", "stuck_tick_timeout_s": 30},
+                        replica_id=replica_id)
+    first, sub = {}, {}
+    try:
+        t0 = time.perf_counter()
+        reqs = []
+        for i, p in enumerate(prompts):
+            sub[i] = time.perf_counter()
+            reqs.append(srv.submit(
+                p, max_new_tokens=32,
+                on_token=lambda tok, i=i: first.setdefault(
+                    i, time.perf_counter())))
+        for r in reqs:
+            r.wait(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        srv.close(timeout=60)
+    return {"reqs": reqs, "wall": wall, "leaks": srv.block_leaks(),
+            "ttft_host": sorted(first[i] - sub[i] for i in first)}
+
+
+def _telemetry_run(eng, prompts, card: str) -> dict:
+    """6c (a): the 8 requests with telemetry, tracing and a fault
+    injector on, every record and trace tree checked; then off / on /
+    off / on on the same engine for the cost."""
+    import tempfile
+
+    from deepspeed_tpu_torch.telemetry import (trace_tree_problems,
+                                               validate_chrome_trace,
+                                               validate_request_record)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tel, tracer, _ = _replica_telemetry(tmp)
+        try:
+            run = _serve_threaded(eng, prompts, "a")
+            with open(os.path.join(tmp, "requests.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            counters = {k: v for k, v in tel.registry.snapshot().items()
+                        if k.startswith("serving/a/")}
+            trees = [trace_tree_problems(tracer.spans_for_trace(r["trace_id"]))
+                     for r in records]
+            chrome = validate_chrome_trace(tracer.export_chrome_trace(
+                os.path.join(tmp, "trace.json")))
+        finally:
+            _replica_telemetry_off()
+        runs = {"on": [run["wall"]], "off": []}
+        for mode in ("off", "on", "off", "on"):
+            if mode == "on":
+                _replica_telemetry(tmp)
+            try:
+                runs[mode].append(_serve_threaded(eng, prompts, "a")["wall"])
+            finally:
+                _replica_telemetry_off()
+    reqs = run["reqs"]
+    rec_ttft = sorted(r["ttft_s"] for r in records)
+    p50_rec = rec_ttft[len(rec_ttft) // 2]
+    p50_host = run["ttft_host"][len(run["ttft_host"]) // 2]
+    ntok = sum(len(r.tokens) for r in reqs)
+    ok = (len(records) == 8 and all(not validate_request_record(r)
+                                    for r in records)
+          and {r["state"] for r in records} == {"finished"}
+          and len(run["ttft_host"]) == 8
+          and abs(p50_rec - p50_host) <= 0.05 * p50_host
+          and all(not t for t in trees) and not chrome
+          and all(len(r.tokens) == 32 for r in reqs) and not run["leaks"]
+          and counters.get("serving/a/completed") == 8)
+    on, off = runs["on"], runs["off"]
+    log(f"replicas (a) [{card}]: telemetry + tracing + fault injector on: "
+        f"{len(records)} valid request records, TTFT p50 {p50_rec:.4f} s "
+        f"(records) vs {p50_host:.4f} s (host clock at the first on_token), "
+        f"{len(trees)} trace trees without problems, Chrome trace "
+        f"problems {chrome}; wall on {[round(w, 4) for w in on]} s "
+        f"({[round(ntok / w, 1) for w in on]} tokens/s), off "
+        f"{[round(w, 4) for w in off]} s "
+        f"({[round(ntok / w, 1) for w in off]} tokens/s), in the order on, "
+        f"off, on, off, on; counters {counters} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("replica telemetry failed")
+    return {"streams": [list(r.tokens) for r in reqs], "wall_on": on,
+            "wall_off": off, "ttft_p50": p50_rec}
+
+
+def _host_batch_timing(calls: list, card: str) -> dict:
+    """6c (f): ``build_batch`` + ``fill_tables`` of each recorded put,
+    native against numpy, in turns (µs per put, the host's CPU)."""
+    from deepspeed_tpu_torch.ops import ragged_host as rh
+
+    def per_put(native):
+        t0 = time.perf_counter()
+        for bb, ft in calls:
+            rh.build_batch(*bb, native=native)
+            rh.fill_tables(*ft, native=native)
+        return (time.perf_counter() - t0) / len(calls) * 1e6
+
+    nat, ref = [], []
+    n0 = (rh.build_batch.native_launches, rh.fill_tables.native_launches)
+    for _ in range(5):
+        nat.append(per_put(True))
+        ref.append(per_put(False))
+    # the timing's own native calls are not the path's
+    rh.build_batch.native_launches, rh.fill_tables.native_launches = n0
+    out = {"native_us": min(nat), "numpy_us": min(ref), "puts": len(calls)}
+    log(f"replicas (f) [{card}]: host batch build + block tables per put "
+        f"over the {len(calls)} puts of (a)'s five runs: native {out['native_us']:.1f} "
+        f"µs, numpy {out['numpy_us']:.1f} µs (best of 5 passes each, in "
+        f"turns; host CPU: {os.cpu_count()} CPUs)")
+    return out
+
+
+def _migration(model, prompts, ref, kv_quant: str, err: float, card: str,
+               counter) -> dict:
+    """6c (b): replica a serves the 8 requests, is killed mid-decode and
+    ``migrate_out`` ships its decodes to replica b (``adopt``), the rest
+    re-queued there; every request must finish with 32 tokens equal to
+    ``ref`` up to near-ties, and neither replica may leak a block."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+
+    cfg = RaggedConfig(n_kv_blocks=REPLICA_PAGES, kv_quant=kv_quant,
+                       **REPLICA_SHAPE)
+    ea = counter.wrap(RaggedInferenceEngine(model, cfg))
+    eb = counter.wrap(RaggedInferenceEngine(model, cfg))
+    scfg = {**REPLICA_SERVING, "kv_quant": kv_quant}
+    a = ServingEngine(ea, scfg, start=False, replica_id="a")
+    b = ServingEngine(eb, scfg, start=False, replica_id="b")
+    times = {"export": [], "import": [], "bytes": []}
+    real_exp, real_imp = ea.export_kv, eb.import_kv
+
+    def export_kv(uid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = real_exp(uid)
+        torch.cuda.synchronize()
+        times["export"].append((time.perf_counter() - t0) * 1e3)
+        times["bytes"].append(e.nbytes)
+        return e
+
+    def import_kv(uid, e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_imp(uid, e)
+        torch.cuda.synchronize()
+        times["import"].append((time.perf_counter() - t0) * 1e3)
+
+    ea.export_kv, eb.import_kv = export_kv, import_kv
+    reqs = [a.submit(p, max_new_tokens=32) for p in prompts]
+    _drive([a], lambda: sum(len(r.tokens) >= 4 for r in reqs) >= 4)
+    at_kill = [len(r.tokens) for r in reqs]
+    a.kill()
+    queued, exports = a.migrate_out()
+    for req, exp in exports:
+        if not b.adopt(req, exp):
+            raise SystemExit("replica b refused an adoption")
+    for req in queued:
+        if b.submit_request(req, requeue=True) is not req:
+            raise SystemExit("replica b refused a re-queued request")
+    _drive([b], lambda: all(r.is_terminal for r in reqs))
+    got = [list(r.tokens) for r in reqs]
+    ok_s, same, ties = _streams_ok(eb, prompts, got, ref, err)
+    leaks = a.block_leaks() + b.block_leaks()
+    ok = (ok_s and not leaks and len(exports) > 0
+          and len(times["import"]) == len(exports)
+          and all(r.state.value == "finished" for r in reqs))
+    n = max(1, len(exports))
+    log(f"replicas (b) {kv_quant} [{card}]: killed a mid-decode at tokens "
+        f"{at_kill}; migrate_out shipped {len(exports)} decodes (export_kv "
+        f"{sum(times['export']) / n:.3f} ms, import_kv "
+        f"{sum(times['import']) / n:.3f} ms, {sum(times['bytes']) // n} B "
+        f"per migrated request) and re-queued {len(queued)}; streams equal "
+        f"the uninterrupted run {same} of 8, differing (request, first "
+        f"position, top-two gap) {ties} against 2 x {err:.4e}; block "
+        f"leaks {leaks} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"replica migration over a {kv_quant} pool failed")
+    return {"export_ms": sum(times["export"]) / n,
+            "import_ms": sum(times["import"]) / n,
+            "bytes": sum(times["bytes"]) // n, "migrated": len(exports)}
+
+
+def _evacuation(model, prompts, ref, err: float, card: str, counter):
+    """6c (c): replica a (4 slots) holding queued, prefilling and decoding
+    requests is killed and evacuated; everything resubmitted to replica b
+    must finish equal to ``ref`` up to near-ties, with no leak. Then (e)'s
+    latch on a fresh 4-slot replica: live work drains, the queue is
+    rejected."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.resilience.preemption import PreemptionGuard
+    from deepspeed_tpu_torch.serving.request import RequestState
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+
+    small = RaggedConfig(n_kv_blocks=REPLICA_PAGES,
+                         **{**REPLICA_SHAPE, "max_seqs": 4})
+    ea = counter.wrap(RaggedInferenceEngine(model, small))
+    eb = counter.wrap(RaggedInferenceEngine(model, RaggedConfig(
+        n_kv_blocks=REPLICA_PAGES, **REPLICA_SHAPE)))
+    a = ServingEngine(ea, REPLICA_SERVING, start=False, replica_id="a")
+    b = ServingEngine(eb, REPLICA_SERVING, start=False, replica_id="b")
+    reqs = [a.submit(p, max_new_tokens=32) for p in prompts]
+    _drive([a], lambda: {r.state for r in reqs} >= {
+        RequestState.QUEUED, RequestState.PREFILL, RequestState.DECODE})
+    held = sorted({r.state.value for r in reqs})
+    a.kill()
+    orphans = a.evacuate()
+    for r in orphans:
+        if b.submit_request(r, requeue=True) is not r:
+            raise SystemExit("replica b refused an evacuated request")
+    _drive([b], lambda: all(r.is_terminal for r in reqs))
+    ok_s, same, ties = _streams_ok(eb, prompts, [r.tokens for r in reqs],
+                                   ref, err)
+    leaks = a.block_leaks() + b.block_leaks()
+    ok = ok_s and not leaks and len(orphans) == 8
+    log(f"replicas (c) [{card}]: killed a holding {held}, evacuated "
+        f"{len(orphans)} to b; streams equal the uninterrupted run {same} "
+        f"of 8, differing {ties}; block leaks {leaks} "
+        f"{'ok' if ok else 'FAIL'}")
+    # (e) the latch
+    guard = PreemptionGuard()
+    c = ServingEngine(ea, REPLICA_SERVING, start=False, replica_id="c",
+                      preemption_guard=guard)
+    lreqs = [c.submit(p, max_new_tokens=32) for p in prompts]
+    c.step()
+    guard.request_stop()
+    _drive([c], lambda: all(r.is_terminal for r in lreqs))
+    states = [r.state.value for r in lreqs]
+    late = c.submit(prompts[0], max_new_tokens=4)
+    ok_latch = (states.count("finished") == 4
+                and states.count("rejected") == 4
+                and late.state is RequestState.REJECTED
+                and not c.block_leaks())
+    log(f"replicas (e) latch [{card}]: preemption latched after one tick: "
+        f"states {states}, a later submit {late.state.value} "
+        f"({late.error}) {'ok' if ok_latch else 'FAIL'}")
+    if not (ok and ok_latch):
+        raise SystemExit("replica evacuation / latch failed")
+
+
+def _faults(model, prompts, ref, err: float, card: str, counter) -> None:
+    """6c (e): an injected tick fault is retried and the streams stay
+    those of ``ref`` (up to near-ties); a put delayed 0.4 s under a
+    0.05 s stuck-tick timeout moves ``serving/e/stuck_ticks``."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.resilience import chaos
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+    from deepspeed_tpu_torch.telemetry import get_telemetry
+
+    eng = counter.wrap(RaggedInferenceEngine(model, RaggedConfig(
+        n_kv_blocks=REPLICA_PAGES, **REPLICA_SHAPE)))
+    chaos.install_fault_injector(chaos.FaultInjector(serving_tick_fail_at=3))
+    try:
+        srv = ServingEngine(eng, REPLICA_SERVING, start=False,
+                            replica_id="e")
+        reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
+        _drive([srv], lambda: all(r.is_terminal for r in reqs))
+    finally:
+        inj = chaos.get_fault_injector()
+        chaos.install_fault_injector(None)
+    ok_s, same, ties = _streams_ok(eng, prompts, [r.tokens for r in reqs],
+                                   ref, err)
+    retried = [r.retries for r in reqs]
+    reg = get_telemetry().registry
+    ok = (ok_s and inj.injected.get("serving_tick_fail") == 1
+          and max(retried) == 1 and not srv.block_leaks()
+          and reg.counter("serving/e/tick_faults").value >= 1)
+    log(f"replicas (e) tick fault [{card}]: injected at tick 3, retries "
+        f"{retried}; streams equal the uninterrupted run {same} of 8, "
+        f"differing {ties} {'ok' if ok else 'FAIL'}")
+    stuck0 = reg.counter("serving/e/stuck_ticks").value
+    real, delayed = eng.put, []
+
+    def slow_put(uids, toks):
+        if not delayed:
+            delayed.append(1)
+            time.sleep(0.4)
+        return real(uids, toks)
+
+    eng.put = slow_put
+    srv = ServingEngine(eng, {"policy": "fcfs", "stuck_tick_timeout_s": 0.05},
+                        replica_id="e")
+    try:
+        r = srv.submit(prompts[5], max_new_tokens=4)
+        r.wait(timeout=120)
+    finally:
+        srv.close(timeout=60)
+        eng.put = real
+    stuck = reg.counter("serving/e/stuck_ticks").value - stuck0
+    ok_w = stuck >= 1 and len(r.tokens) == 4 and srv.watchdog_unhealthy
+    log(f"replicas (e) watchdog [{card}]: one put delayed 0.4 s under "
+        f"stuck_tick_timeout_s 0.05: serving/e/stuck_ticks +{stuck:.0f}, "
+        f"watchdog_unhealthy {srv.watchdog_unhealthy}, the request "
+        f"finished with {len(r.tokens)} tokens {'ok' if ok_w else 'FAIL'}")
+    if not (ok and ok_w):
+        raise SystemExit("replica fault handling failed")
+
+
+def _hot_swap(model, prompts, card: str, counter) -> None:
+    """6c (d): serve, stop admission, then hot_swap(1, load_fn) three
+    ways: an injected corrupt load and a raising load_fn each leave
+    version 0 serving the same streams bitwise; a load_fn that copies a
+    seed-1 Llama-2-7B into the model in place (``torch.no_grad``) serves,
+    after the 2 warm-up ticks, streams bitwise those of a fresh engine on
+    the seed-1 weights with the same requests."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.models.llama import Llama
+    from deepspeed_tpu_torch.resilience import chaos
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+
+    def fresh():
+        return counter.wrap(RaggedInferenceEngine(model, RaggedConfig(
+            n_kv_blocks=REPLICA_PAGES, **REPLICA_SHAPE)))
+
+    srv = ServingEngine(fresh(), REPLICA_SERVING, start=False,
+                        replica_id="d")
+
+    def serve(s):
+        reqs = [s.submit(p, max_new_tokens=32) for p in prompts]
+        _drive([s], lambda: all(r.is_terminal for r in reqs))
+        return [list(r.tokens) for r in reqs]
+
+    def load_seed1():
+        new = Llama("7b", dtype=torch.bfloat16, seed=1)
+        with torch.no_grad():
+            for (_, p), (_, q) in zip(model.named_parameters(),
+                                      new.named_parameters()):
+                p.copy_(q)
+        del new
+        torch.cuda.synchronize()
+
+    def broken():
+        raise OSError("checkpoint shard missing")
+
+    s0 = serve(srv)
+    outcomes = []
+    inj = chaos.install_fault_injector(chaos.FaultInjector())
+    try:
+        inj.arm_corrupt_swap(1)
+        for fn in (load_seed1, broken):
+            srv.stop_admission()
+            ok = srv.hot_swap(1, fn)
+            outcomes.append((ok, srv.model_version, serve(srv) == s0))
+    finally:
+        chaos.install_fault_injector(None)
+    srv.stop_admission()
+    t0 = time.perf_counter()
+    swapped = srv.hot_swap(1, load_seed1)
+    t_swap = time.perf_counter() - t0
+    warm = [srv.warmup_remaining]
+    while srv.warmup_remaining:
+        srv.step()
+        warm.append(srv.warmup_remaining)
+    s1 = serve(srv)
+    ref1 = serve(ServingEngine(fresh(), REPLICA_SERVING, start=False,
+                               replica_id="d1"))
+    ok = (outcomes == [(False, 0, True), (False, 0, True)] and swapped
+          and srv.model_version == 1 and warm == [2, 1, 0]
+          and s1 == ref1 and s1 != s0 and all(len(t) == 32 for t in s1)
+          and not srv.block_leaks())
+    log(f"replicas (d) hot swap [{card}]: injected corrupt load and a "
+        f"raising load_fn -> (swapped, version, streams bitwise the old "
+        f"ones) {outcomes}; seed-1 load_fn swapped {swapped} in "
+        f"{t_swap:.2f} s, warm-up ticks left {warm}, version "
+        f"{srv.model_version}; streams bitwise a fresh engine on the seed-1 "
+        f"weights {s1 == ref1}, different from version 0's {s1 != s0} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("replica hot swap failed")
+
+
+def phase_replicas(model, card: str, err: dict) -> dict:
+    """Two Llama-2-7B replicas on the card (phase 5's model and requests),
+    each a ``ServingEngine`` over its own 512-page engine: (a) telemetry,
+    tracing and a fault injector on, then off / on interleaved; (f) the
+    native host library on every put of (a), timed against numpy; (b)
+    kill -> migrate_out -> adopt, bf16 and int8 pairs; (c) kill ->
+    evacuate -> resubmit, and the preemption latch; (e) an injected tick
+    fault and the stuck-tick watchdog; (d) hot swap. (g): the paged
+    launches of the phase (counters set to 0 at its start and read at its
+    end), every put on one launch a layer, split into tile and lane
+    items. ``err``: phase 6b's verify errors (the near-tie rule)."""
+    import deepspeed_tpu_torch.inference.ragged as ragged_mod
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.ops import ragged_host as rh
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+
+    t_phase = time.perf_counter()
+    n_layers = model.config.n_layers
+    rng = np.random.default_rng(0)           # phase 5's requests
+    lengths = rng.integers(64, 1537, 8)
+    prompts = [rng.integers(1, 32000, int(n)).tolist() for n in lengths]
+    counter = _PutCounter(n_layers)
+    eng = RaggedInferenceEngine(model, RaggedConfig(
+        n_kv_blocks=REPLICA_PAGES, **REPLICA_SHAPE))
+    _resolve(eng, [77], [prompts[0][:16]])   # warm-up, outside the count
+    eng.flush([77])
+    torch.cuda.synchronize()
+    for name in PAGED_PATH_COUNTERS:
+        setattr(pa.paged_attention, name, 0)
+    rh.build_batch.native_launches = rh.fill_tables.native_launches = 0
+    counter.wrap(eng)
+    # (a) + (f): the host batch code's arguments of every put of (a)'s
+    # runs, and its native launches
+    calls, real_bb, real_ft = [], ragged_mod.build_batch, \
+        ragged_mod.fill_tables
+
+    def bb(*args, **kw):
+        calls.append([args, None])
+        return real_bb(*args, **kw)
+
+    def ft(*args, **kw):
+        blocks, slots, max_seqs, max_pages = args
+        calls[-1][1] = ([list(b) for b in blocks], list(slots), max_seqs,
+                        max_pages)
+        return real_ft(*args, **kw)
+
+    ragged_mod.build_batch, ragged_mod.fill_tables = bb, ft
+    try:
+        puts0 = counter.steps["put"]
+        tel = _telemetry_run(eng, prompts, card)
+    finally:
+        ragged_mod.build_batch, ragged_mod.fill_tables = real_bb, real_ft
+    puts_a = counter.steps["put"] - puts0
+    native = (rh.build_batch.native_launches, rh.fill_tables.native_launches)
+    ok_native = native == (puts_a, puts_a) and puts_a > 0
+    log(f"replicas (f): {puts_a} puts in (a), native build_batch / "
+        f"fill_tables launches {native} {'ok' if ok_native else 'FAIL'}")
+    if not ok_native:
+        raise SystemExit("the native host library missed puts")
+    host = _host_batch_timing(calls, card)
+    ref = tel["streams"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    mig = {"none": _migration(model, prompts, ref, "none", err["none"],
+                              card, counter)}
+    # the int8 pair against an uninterrupted int8 replica
+    eq = counter.wrap(RaggedInferenceEngine(model, RaggedConfig(
+        n_kv_blocks=REPLICA_PAGES, kv_quant="int8", **REPLICA_SHAPE)))
+    s = ServingEngine(eq, {**REPLICA_SERVING, "kv_quant": "int8"},
+                      start=False, replica_id="q")
+    qreqs = [s.submit(p, max_new_tokens=32) for p in prompts]
+    _drive([s], lambda: all(r.is_terminal for r in qreqs))
+    del eq, s
+    mig["int8"] = _migration(model, prompts, [r.tokens for r in qreqs],
+                             "int8", err["int8"], card, counter)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _evacuation(model, prompts, ref, err["none"], card, counter)
+    _faults(model, prompts, ref, err["none"], card, counter)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _hot_swap(model, prompts, card, counter)     # the model ends on seed 1
+    counts = {n: getattr(pa.paged_attention, n) for n in PAGED_PATH_COUNTERS}
+    st = counter.steps
+    ok = (counts["launches"] + counts["int8_launches"]
+          == n_layers * st["put"] and counts["launches"] > 0
+          and counts["int8_launches"] > 0 and counts["int4_launches"] == 0
+          and counts["tile_launches"] == n_layers * st["tile"]
+          and counts["split_launches"] == n_layers * st["split"]
+          and st["odd"] == 0 and st["tile"] > 0)
+    log(f"replicas (g) [{card}]: {st['put']} puts over the phase's "
+        f"replicas, paged_attention launches {counts} ({n_layers} layers x "
+        f"puts = {n_layers * st['put']}; {st['tile']} puts ran tile items, "
+        f"{st['split']} lane items; every launch on the Hopper kernels) "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"replicas: phase 6c took {time.perf_counter() - t_phase:.1f} s")
+    if not ok:
+        raise SystemExit("replica phase launches do not add up")
+    return {"launches": counts["launches"],
+            "int8_launches": counts["int8_launches"],
+            "tile_launches": counts["tile_launches"],
+            "split_launches": counts["split_launches"],
+            "telemetry": tel, "host": host, "migration": mig}
+
 
 
 # --------------------------------------------------------------- phase 6a
@@ -2904,15 +3504,29 @@ def phase_fused_kernels(flush: torch.Tensor) -> dict:
 
 # ----------------------------------------- phases 10-11: ZeRO-3, 2 ranks
 def _rank_entry(rank: int, world: int, port: int, device: str, job: str,
-                args: tuple, out) -> None:
+                args: tuple, out, pin: bool = True, threads: int = 2) -> None:
     """One rank process: join the gloo group, run ``job``, send back its
-    result (or the traceback)."""
+    result (or the traceback). A cpu rank computes the reference of
+    phase 10: with ``pin`` (the default) its parent started it under
+    ``cpu_pin.pinned_env`` (capability, MKL path, threads) and it fails
+    unless it runs under exactly those; each rank reports what it ran
+    under. ``pin=False`` (the probe) only sets ``threads``."""
     import traceback
 
     try:
         from deepspeed_tpu_torch.comm import comm
+        from deepspeed_tpu_torch.utils import cpu_pin
 
-        torch.set_num_threads(2)
+        if device == "cpu" and pin:
+            cpu_pin.pin_threads()
+            ran = cpu_pin.check_pinned()
+        else:
+            torch.set_num_threads(threads)
+            ran = {"capability": torch.backends.cpu.get_cpu_capability(),
+                   "mkl_cbwr": os.environ.get("MKL_CBWR"),
+                   "threads": torch.get_num_threads()}
+        if rank == 0:
+            print(f"[chip_smoke] {device} ranks run under {ran}", flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         comm.init_distributed("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -2924,9 +3538,16 @@ def _rank_entry(rank: int, world: int, port: int, device: str, job: str,
         out.put((rank, "error", traceback.format_exc()))
 
 
-def _start_ranks(world: int, device: str, job: str, args: tuple):
+def _start_ranks(world: int, device: str, job: str, args: tuple,
+                 env: Optional[dict] = None, pin: bool = True,
+                 threads: int = 2):
+    """Spawn ``world`` rank processes. Cpu ranks start under
+    ``cpu_pin.pinned_env`` (set here, in the parent: ATen reads its
+    capability when the child imports torch) unless ``pin`` is False;
+    ``env`` adds variables for the children (the probe's capability)."""
     import socket
     import torch.multiprocessing as mp
+    from deepspeed_tpu_torch.utils import cpu_pin
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
@@ -2934,10 +3555,22 @@ def _start_ranks(world: int, device: str, job: str, args: tuple):
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     procs = [ctx.Process(target=_rank_entry, daemon=True,
-                         args=(r, world, port, device, job, args, q))
+                         args=(r, world, port, device, job, args, q, pin,
+                               threads))
              for r in range(world)]
-    for p in procs:
-        p.start()
+    pinned = (cpu_pin.pinned_env({}) if device == "cpu" and pin else {})
+    extra = {**pinned, **(env or {})}
+    old = {k: os.environ.get(k) for k in extra}
+    os.environ.update(extra)
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return procs, q
 
 
@@ -3399,7 +4032,11 @@ def main() -> int:
         del paged_q[kvq]["mixed"]
         if kvq == "int8":
             phase_profile(eng, prompts, dev["card"], "profile int8")
-    del eng, model, prompts
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    replicas = phase_replicas(model, dev["card"], spec["err"])
+    del model, prompts
     gc.collect()
     torch.cuda.empty_cache()
     quant_launches = phase_inference(dev["card"])
@@ -3420,6 +4057,9 @@ def main() -> int:
                 "verify_launches": spec["launches"],
                 "verify_tile_launches": spec["tile_launches"],
                 "verify_split_launches": spec["split_launches"],
+                "replica_launches": replicas["launches"],
+                "replica_tile_launches": replicas["tile_launches"],
+                "replica_split_launches": replicas["split_launches"],
                 "max_abs_err": kern["max_abs_err"],
                 "ms": d["ms"], "kernel_ms": d["ms"],
                 "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
@@ -3443,6 +4083,7 @@ def main() -> int:
             "shape": "decode_16x1024", "path": "lane items (every lane)",
             "timings": kq["timings"], "card": dev["card"]})
     entries[1]["verify_launches"] = spec["int8_launches"]
+    entries[1]["replica_launches"] = replicas["int8_launches"]
     entries[1]["timings"] = {**entries[1]["timings"],
                              "verify_put": spec["int8"]}
     for name, (_, replaces, _) in FLASH_KERNELS.items():
@@ -3494,5 +4135,35 @@ def main() -> int:
     return 0
 
 
+def probe_cpu_reference() -> int:
+    """``python3 chip_smoke.py --probe-cpu-reference``: phase 10's cpu
+    rank pair, unpinned, under ATEN_CPU_CAPABILITY default / avx2 / avx512
+    at 1 / 2 / 8 threads, then at the host's own capability under each
+    MKL_CBWR code path, then pinned, printing each step-0 loss of the
+    compressed fused run (the one phase 10 once read another loss on) and
+    of the dense run. Finds which property moves the cpu reference.
+    Needs no card."""
+    from deepspeed_tpu_torch.utils import cpu_pin
+
+    log(f"host: {os.cpu_count()} CPUs, {cpu_pin.cpu_report()}")
+    runs = [("compressed_pallas", True, "pallas", None),
+            ("dense_xla", False, "xla", None)]
+    settings = [({"ATEN_CPU_CAPABILITY": cap}, t)
+                for cap in ("default", "avx2", "avx512") for t in (1, 2, 8)]
+    settings += [({"MKL_CBWR": m}, 2) for m in ("AVX2", "AVX512",
+                                               "COMPATIBLE")]
+    settings.append((None, cpu_pin.PINNED_THREADS))
+    for env, threads in settings:
+        procs, q = _start_ranks(2, "cpu", "parity", (PARITY_DIMS, runs, 1),
+                                env=env, pin=env is None, threads=threads)
+        res = _join_ranks(procs, q, timeout=300)[0]
+        log(f"cpu reference probe: {env or 'pinned'} threads {threads}: "
+            f"step-0 loss compressed {res['compressed_pallas']['losses'][0]!r}"
+            f" dense {res['dense_xla']['losses'][0]!r}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--probe-cpu-reference"]:
+        sys.exit(probe_cpu_reference())
     sys.exit(main())

@@ -102,6 +102,17 @@ def configure_comms_logger(enabled: bool, verbose: bool = False) -> None:
     _COMMS_LOGGER.verbose = verbose
 
 
+# chaos hook: resilience.chaos.install_fault_injector points this at the
+# installed FaultInjector's on_collective (delay / fail injection, as
+# ``deepspeed_tpu/comm/comm.py``'s hook). None = no overhead on a call.
+_CHAOS_HOOK = None
+
+
+def _chaos(op: str) -> None:
+    if _CHAOS_HOOK is not None:
+        _CHAOS_HOOK(op)
+
+
 def record_collective(op: str, logical_bytes: int, wire_bytes: int,
                       axis_name: Optional[str] = None, world: int = 0) -> None:
     """Ledger entry for a facade-issued collective: ``logical_bytes`` is
@@ -175,6 +186,7 @@ def get_local_rank() -> int:
 
 
 def barrier(group=None) -> None:
+    _chaos("barrier")
     if dist.is_initialized():
         dist.barrier(group)
 
@@ -213,6 +225,7 @@ def _empty_like_on(t: torch.Tensor, shape=None) -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, group=None) -> List[torch.Tensor]:
     """Every rank's ``x``, in group-rank order, on ``x``'s device."""
+    _chaos("all_gather")
     w = to_transport(x, group)
     parts = [_empty_like_on(w) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, w, group=group)
@@ -222,6 +235,7 @@ def all_gather(x: torch.Tensor, group=None) -> List[torch.Tensor]:
 def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """``x [world, ...]``: row r goes to group rank r; row r of the result
     came from group rank r."""
+    _chaos("all_to_all")
     w = to_transport(x, group)
     out = _empty_like_on(w)
     dist.all_to_all_single(out, w, group=group)
@@ -232,6 +246,7 @@ def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM,
                group=None) -> torch.Tensor:
     """A new tensor: ``op`` over the group's ``x`` (order up to the
     backend)."""
+    _chaos("all_reduce")
     w = to_transport(x, group)
     if w is x:
         w = x.clone()
@@ -259,6 +274,7 @@ def ring_send_recv(x: torch.Tensor, group=None) -> PendingRecv:
     """Send ``x`` to the group's next rank and receive the previous
     rank's, asynchronously (``isend`` / ``irecv``): the call returns once
     both are issued."""
+    _chaos("ppermute")
     world = dist.get_world_size(group)
     me = dist.get_rank(group)
     nxt = dist.get_global_rank(group, (me + 1) % world) if group else \

@@ -2,12 +2,14 @@
 
 Ports the parts of ``deepspeed_tpu/config.py`` that the ported paths read:
 
-* :class:`ServingConfig` (the ``serving`` block of the serving front-end,
-  speculative serving and ``kv_quant`` included). Keys of features that
-  later slices port (model versions, the stuck-tick watchdog, fleet /
-  region / rollout / KV-tier blocks) raise ``NotImplementedError`` when
-  set to anything but their "off" value, instead of being silently
+* :class:`ServingConfig` (the ``serving`` block of the serving front-end:
+  speculative serving, ``kv_quant``, the stuck-tick watchdog, model
+  versions and the ``kv_tier`` block, :class:`KVTierConfig`). The fleet's
+  blocks (``fleet`` / ``region`` / ``rollout``) raise
+  ``NotImplementedError`` unless empty, instead of being silently
   ignored.
+* :class:`TelemetryConfig` (the ``telemetry`` block of the serving path)
+  and :class:`ChaosConfig` (seeded fault injection).
 * :class:`Config` for the trainer: the batch triple and its resolution
   over the data-parallel world, ``gradient_clipping``, ``steps_per_print``
   and the ``optimizer`` / ``scheduler`` / ``fp16`` / ``bf16`` blocks; the
@@ -318,7 +320,11 @@ def _check_later_slice_blocks(d: Dict[str, Any]) -> None:
         _later_slice("pipeline.stages", pipe["stages"])
     tel = d.pop("telemetry", None) or {}
     if tel.get("enabled"):
-        _later_slice("telemetry.enabled", tel["enabled"])
+        # serving telemetry is ported (TelemetryConfig); the trainer's
+        # per-step StepStats records are not yet
+        _later_slice("telemetry.enabled", tel["enabled"],
+                     "TrainEngine step telemetry: ROADMAP.md, Queue A "
+                     "item 9")
     ckpt = d.pop("checkpoint", None) or {}
     if ckpt.get("save_dir"):
         _later_slice("checkpoint.save_dir", ckpt["save_dir"])
@@ -444,14 +450,247 @@ class Config:
         return torch.float32
 
 
-# serving keys of later slices -> the value that means "off"
-_LATER_SLICE_KEYS = {
-    "model_version": 0,
-    "stuck_tick_timeout_s": 0, "fleet": {}, "region": {}, "rollout": {},
-    "kv_tier": {},
-}
-# knobs that only act when one of the features above is on
-_INERT_KEYS = ("stuck_tick_escalate_polls",)
+@dataclass
+class TelemetryConfig:
+    """The ``telemetry`` block (docs/observability.md): the pipeline that
+    :func:`~deepspeed_tpu_torch.telemetry.configure_telemetry` installs.
+
+    The serving path and the engines feed it request records, counters,
+    gauges and (with ``tracing``) request span trees. The trainer's
+    per-step StepStats records come with a later slice (ROADMAP.md,
+    Queue A item 9), so the training config still refuses
+    ``telemetry.enabled``."""
+
+    enabled: bool = False
+    output_dir: str = "telemetry"
+    jsonl_path: Optional[str] = None       # default: <output_dir>/steps.jsonl
+    prometheus_path: Optional[str] = None  # e.g. <output_dir>/metrics.prom
+    flush_every: int = 1
+    export_every: int = 10
+    stall_detection: bool = True
+    stall_factor: float = 3.0
+    stall_window: int = 20
+    stall_warmup_steps: int = 2
+    heartbeat_path: Optional[str] = None
+    # serving-request span records (docs/serving.md); None defaults to
+    # <output_dir>/requests.jsonl, "" disables the sink
+    requests_jsonl_path: Optional[str] = None
+    # request-scoped distributed tracing + flight recorder
+    # (telemetry/tracing.py, docs/observability.md). Off by default:
+    # zero extra host syncs / clock reads on every hot path.
+    tracing: bool = False
+    trace_ring: int = 4096          # finished-span ring buffer size
+    flight_capacity: int = 512      # flight-recorder ring size
+    flight_dump_dir: Optional[str] = None  # auto-dump dir; None = in-memory
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "TelemetryConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(
+            enabled=bool(_take(d, "enabled", False)),
+            output_dir=str(_take(d, "output_dir", "telemetry")),
+            jsonl_path=_take(d, "jsonl_path", None),
+            prometheus_path=_take(d, "prometheus_path", None),
+            flush_every=int(_take(d, "flush_every", 1)),
+            export_every=int(_take(d, "export_every", 10)),
+            stall_detection=bool(_take(d, "stall_detection", True)),
+            stall_factor=float(_take(d, "stall_factor", 3.0)),
+            stall_window=int(_take(d, "stall_window", 20)),
+            stall_warmup_steps=int(_take(d, "stall_warmup_steps", 2)),
+            heartbeat_path=_take(d, "heartbeat_path", None),
+            requests_jsonl_path=_take(d, "requests_jsonl_path", None),
+            tracing=bool(_take(d, "tracing", False)),
+            trace_ring=int(_take(d, "trace_ring", 4096)),
+            flight_capacity=int(_take(d, "flight_capacity", 512)),
+            flight_dump_dir=_take(d, "flight_dump_dir", None),
+        )
+        if out.trace_ring < 1 or out.flight_capacity < 1:
+            raise ConfigError(
+                "telemetry.trace_ring and telemetry.flight_capacity must "
+                f"be >= 1, got {out.trace_ring}/{out.flight_capacity}")
+        if out.stall_factor <= 1.0:
+            raise ConfigError(
+                f"telemetry.stall_factor must exceed 1.0, got {out.stall_factor}")
+        _warn_unknown(d, "telemetry")
+        return out
+
+
+@dataclass
+class ChaosConfig:
+    """Seeded fault injection (``resilience/chaos.py`` FaultInjector). All
+    ``*_at_save`` are 1-based save counts, ``*_at_step`` match the engine's
+    ``global_steps`` at the start of a train_batch; -1 disables."""
+
+    enabled: bool = False
+    seed: int = 0
+    crash_before_commit_at_save: int = -1
+    crash_after_commit_at_save: int = -1
+    corrupt_shard_at_save: int = -1
+    sigterm_at_step: int = -1
+    crash_at_step: int = -1
+    exit_process: bool = False  # os._exit instead of raising InjectedFault
+    exit_code: int = 113
+    collective_fail_op: str = ""
+    collective_fail_at_call: int = -1
+    collective_delay_s: float = 0.0
+    collective_delay_every: int = 0
+    serving_tick_fail_at: int = -1
+    serving_tick_fail_every: int = 0
+    # kill serving replica #replica_die_index once its engine has run
+    # replica_die_at_tick ticks (-1 disables; one-shot)
+    replica_die_at_tick: int = -1
+    replica_die_index: int = 0
+    # kill serving cell #cell_die_index (whole failure domain) once any
+    # of its replicas has run cell_die_at_tick ticks (-1 disables)
+    cell_die_at_tick: int = -1
+    cell_die_index: int = 0
+    # delay every fleet autoscaler decision by this many (virtual)
+    # seconds — models real controller observe/decide/boot lag
+    autoscaler_lag_s: float = 0.0
+    # rollout-targeted faults (serving/rollout.py): corrupt the next N
+    # hot-swap weight loads (the swap must fall back to the old version,
+    # the controller must retry/rollback — never strand the replica);
+    # kill the replica being flipped on the Nth flip (1-based, one-shot,
+    # -1 disables); stall every other engine tick of one model version
+    # (the injected canary SLO regression auto-rollback is gated on)
+    corrupt_swap_count: int = 0
+    die_at_flip: int = -1
+    degrade_version: int = -1
+    # gray-failure faults (docs/fault_tolerance.md "Gray failures"):
+    # every Nth serving KV import raises a recoverable fault (the
+    # adoption falls back to a requeue; 0 disables). The per-replica
+    # k x-slowdowns and stall bursts are runtime-armed on the injector
+    # (degrade_replica / arm_stall_burst), not config keys — they name
+    # replicas that only exist once the fleet is up.
+    flaky_import_every: int = 0
+    # global-KV-tier faults (docs/serving.md "Global KV tier"): every
+    # Nth directory publish also injects one bogus residency entry (a
+    # directory lie — routing must detect the miss and fall back);
+    # every Nth prefix export corrupts the wire payload while keeping
+    # the stamped checksum (the importer's verify() must catch it);
+    # every Nth cold-tier put is dropped (host memory pressure — the
+    # prefix degrades to re-prefill, never double-frees). 0 disables.
+    stale_directory_every: int = 0
+    corrupt_adopt_every: int = 0
+    cold_pressure_every: int = 0
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ChaosConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(
+            enabled=bool(_take(d, "enabled", False)),
+            seed=int(_take(d, "seed", 0)),
+            crash_before_commit_at_save=int(_take(d, "crash_before_commit_at_save", -1)),
+            crash_after_commit_at_save=int(_take(d, "crash_after_commit_at_save", -1)),
+            corrupt_shard_at_save=int(_take(d, "corrupt_shard_at_save", -1)),
+            sigterm_at_step=int(_take(d, "sigterm_at_step", -1)),
+            crash_at_step=int(_take(d, "crash_at_step", -1)),
+            exit_process=bool(_take(d, "exit_process", False)),
+            exit_code=int(_take(d, "exit_code", 113)),
+            collective_fail_op=str(_take(d, "collective_fail_op", "")),
+            collective_fail_at_call=int(_take(d, "collective_fail_at_call", -1)),
+            collective_delay_s=float(_take(d, "collective_delay_s", 0.0)),
+            collective_delay_every=int(_take(d, "collective_delay_every", 0)),
+            serving_tick_fail_at=int(_take(d, "serving_tick_fail_at", -1)),
+            serving_tick_fail_every=int(_take(d, "serving_tick_fail_every", 0)),
+            replica_die_at_tick=int(_take(d, "replica_die_at_tick", -1)),
+            replica_die_index=int(_take(d, "replica_die_index", 0)),
+            cell_die_at_tick=int(_take(d, "cell_die_at_tick", -1)),
+            cell_die_index=int(_take(d, "cell_die_index", 0)),
+            autoscaler_lag_s=float(_take(d, "autoscaler_lag_s", 0.0)),
+            corrupt_swap_count=int(_take(d, "corrupt_swap_count", 0)),
+            die_at_flip=int(_take(d, "die_at_flip", -1)),
+            degrade_version=int(_take(d, "degrade_version", -1)),
+            flaky_import_every=int(_take(d, "flaky_import_every", 0)),
+            stale_directory_every=int(_take(d, "stale_directory_every", 0)),
+            corrupt_adopt_every=int(_take(d, "corrupt_adopt_every", 0)),
+            cold_pressure_every=int(_take(d, "cold_pressure_every", 0)),
+        )
+        if out.autoscaler_lag_s < 0:
+            raise ConfigError(
+                f"resilience.chaos.autoscaler_lag_s must be >= 0, got "
+                f"{out.autoscaler_lag_s}")
+        if out.corrupt_swap_count < 0:
+            raise ConfigError(
+                f"resilience.chaos.corrupt_swap_count must be >= 0, got "
+                f"{out.corrupt_swap_count}")
+        if out.flaky_import_every < 0:
+            raise ConfigError(
+                f"resilience.chaos.flaky_import_every must be >= 0, got "
+                f"{out.flaky_import_every}")
+        for knob in ("stale_directory_every", "corrupt_adopt_every",
+                     "cold_pressure_every"):
+            if getattr(out, knob) < 0:
+                raise ConfigError(
+                    f"resilience.chaos.{knob} must be >= 0, got "
+                    f"{getattr(out, knob)}")
+        _warn_unknown(d, "resilience.chaos")
+        return out
+
+
+@dataclass
+class KVTierConfig:
+    """The ``serving.kv_tier`` block: the global KV tier
+    (docs/serving.md "Global KV tier"). Default OFF — with
+    ``enabled=False`` no directory, adoption pen, or cold tier is
+    constructed and old traces/seeds replay bit-identically.
+
+    ``publish_interval_s`` is the residency-publication cadence (each
+    replica's driver snapshots its prefix-cache keys at most this often,
+    piggybacked on the fleet's poll); ``directory_staleness_s`` bounds
+    how old a directory entry may be before routing stops trusting it —
+    it must be at least the publish interval, or every entry would
+    expire before its holder could refresh it. ``adoption`` gates
+    cross-replica prefix adoption (directory hit on another replica ->
+    quantized pages on the wire); ``cold_tier``/``cold_capacity_pages``
+    gate the host-memory spill store for evicted prefixes."""
+
+    enabled: bool = False
+    publish_interval_s: float = 1.0
+    directory_staleness_s: float = 5.0
+    adoption: bool = True
+    cold_tier: bool = True
+    cold_capacity_pages: int = 256
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "KVTierConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(
+            enabled=bool(_take(d, "enabled", False)),
+            publish_interval_s=float(_take(d, "publish_interval_s", 1.0)),
+            directory_staleness_s=float(
+                _take(d, "directory_staleness_s", 5.0)),
+            adoption=bool(_take(d, "adoption", True)),
+            cold_tier=bool(_take(d, "cold_tier", True)),
+            cold_capacity_pages=int(_take(d, "cold_capacity_pages", 256)),
+        )
+        if out.publish_interval_s <= 0:
+            raise ConfigError(
+                f"serving.kv_tier.publish_interval_s must be > 0, got "
+                f"{out.publish_interval_s}")
+        if out.directory_staleness_s < out.publish_interval_s:
+            raise ConfigError(
+                f"serving.kv_tier.directory_staleness_s must be >= "
+                f"publish_interval_s ({out.publish_interval_s}), got "
+                f"{out.directory_staleness_s}")
+        if out.cold_tier and out.cold_capacity_pages < 1:
+            raise ConfigError(
+                f"serving.kv_tier.cold_capacity_pages must be >= 1 when "
+                f"the cold tier is enabled, got {out.cold_capacity_pages}")
+        _warn_unknown(d, "serving.kv_tier")
+        return out
+
+
+# serving blocks of the fleet layer (ROADMAP.md, Queue A item 5)
+_LATER_SLICE_KEYS = ("fleet", "region", "rollout")
+# hot_swap's warm-up without a rollout block: the JAX RolloutConfig default
+DEFAULT_WARMUP_TICKS = 2
 
 
 @dataclass
@@ -469,6 +708,15 @@ class ServingConfig:
     re-queue-on-tick-fault before the request is failed. ``kv_quant``
     declares the engine's KV storage (``"none"``, ``"int8"``, ``"int4"``);
     the server refuses an engine that stores KV otherwise.
+
+    ``stuck_tick_timeout_s`` arms the stuck-tick watchdog (0 disables
+    it); after ``stuck_tick_escalate_polls`` consecutive stuck polls the
+    replica marks itself watchdog-unhealthy (0: log only).
+    ``model_version`` is the weights' version a replica starts serving
+    (bumped by ``hot_swap``); ``kv_tier`` is the global KV tier's block
+    (:class:`KVTierConfig`). The ``fleet``, ``region`` and ``rollout``
+    blocks raise ``NotImplementedError`` unless empty: they come with the
+    fleet (ROADMAP.md, Queue A item 5).
 
     ``speculative`` turns on prompt-lookup speculative decoding inside the
     serving tick: draft chains (``spec_ngram``-gram lookups, at most
@@ -488,6 +736,8 @@ class ServingConfig:
     default_max_new_tokens: int = 128
     poll_interval_s: float = 0.002
     drain_timeout_s: float = 120.0
+    stuck_tick_timeout_s: float = 30.0
+    stuck_tick_escalate_polls: int = 3
     tick_retry_limit: int = 1
     speculative: bool = False
     spec_lookahead: int = 4
@@ -496,23 +746,24 @@ class ServingConfig:
     spec_floor_min_proposed: int = 16
     spec_ema: float = 0.25
     kv_quant: str = "none"
+    model_version: int = 0
+    kv_tier: KVTierConfig = field(default_factory=KVTierConfig)
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ServingConfig":
         if not d:
             return cls()
         d = dict(d)
-        for key in _INERT_KEYS:
-            d.pop(key, None)
-        for key, off in _LATER_SLICE_KEYS.items():
+        for key in _LATER_SLICE_KEYS:
             if key in d:
                 v = d.pop(key)
-                if v is not None and v != off:
+                if v:
                     raise NotImplementedError(
                         f"serving.{key}={v!r}: not ported yet — it comes "
                         f"with a later slice of deepspeed_tpu_torch "
-                        f"(ROADMAP.md, Queue A)")
+                        f"(the fleet: ROADMAP.md, Queue A item 5)")
         out = cls(
+            kv_tier=KVTierConfig.from_dict(_take(d, "kv_tier", None)),
             max_queue=int(_take(d, "max_queue", 256)),
             policy=str(_take(d, "policy", "slo")),
             kv_pressure=float(_take(d, "kv_pressure", 0.90)),
@@ -522,6 +773,9 @@ class ServingConfig:
             default_max_new_tokens=int(_take(d, "default_max_new_tokens", 128)),
             poll_interval_s=float(_take(d, "poll_interval_s", 0.002)),
             drain_timeout_s=float(_take(d, "drain_timeout_s", 120.0)),
+            stuck_tick_timeout_s=float(_take(d, "stuck_tick_timeout_s", 30.0)),
+            stuck_tick_escalate_polls=int(
+                _take(d, "stuck_tick_escalate_polls", 3)),
             tick_retry_limit=int(_take(d, "tick_retry_limit", 1)),
             speculative=bool(_take(d, "speculative", False)),
             spec_lookahead=int(_take(d, "spec_lookahead", 4)),
@@ -531,7 +785,16 @@ class ServingConfig:
                 _take(d, "spec_floor_min_proposed", 16)),
             spec_ema=float(_take(d, "spec_ema", 0.25)),
             kv_quant=str(_take(d, "kv_quant", "none")),
+            model_version=int(_take(d, "model_version", 0)),
         )
+        if out.model_version < 0:
+            raise ConfigError(
+                f"serving.model_version must be >= 0, got "
+                f"{out.model_version}")
+        if out.stuck_tick_escalate_polls < 0:
+            raise ConfigError(
+                f"serving.stuck_tick_escalate_polls must be >= 0, got "
+                f"{out.stuck_tick_escalate_polls}")
         if out.policy not in ("slo", "fcfs"):
             raise ConfigError(
                 f"serving.policy must be 'slo' or 'fcfs', got '{out.policy}'")

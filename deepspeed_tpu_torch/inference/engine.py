@@ -25,12 +25,14 @@ because the dequantize is elementwise.
 
 Not ported (later slices, ROADMAP.md Queue A): tensor parallelism
 (``tensor_parallel`` > 1), the fused ``pallas`` comm backend (TPU kernel
-rows 7-9), loading a ``checkpoint`` named in the config, and the request
-telemetry of ``generate``.
+rows 7-9) and loading a ``checkpoint`` named in the config.
+``generate`` records its request telemetry (TTFT, latency, decode
+tokens/s) into the global pipeline when one is enabled.
 """
 
 from __future__ import annotations
 
+import time
 from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, Optional, Tuple, Union
@@ -299,6 +301,12 @@ class InferenceEngine:
         b, s = ids.shape
         self._check_len(s + max_new_tokens)
         cfg = self.config
+        # request telemetry: TTFT and decode throughput, read at the host
+        # copies the loop makes anyway (no extra device sync)
+        from ..telemetry import get_telemetry
+
+        telem = get_telemetry()
+        t_start = time.perf_counter()
         caches = self._alloc_cache(b, s + max_new_tokens)
         logits, caches = self._prefill(tokens, caches)
         next_tok = _sample(logits, self._gen, cfg.temperature, cfg.top_k,
@@ -308,10 +316,13 @@ class InferenceEngine:
         if eos_token_id is not None:
             finished |= step == eos_token_id
         out = [step]
+        t_first = time.perf_counter()   # first token on the host
+        n_generated = b   # real tokens produced (finished rows emit padding)
         pos = s
         for _ in range(max_new_tokens - 1):
             if finished.all():
                 break
+            n_generated += int(b - finished.sum())
             logits, caches = self._step_logits(next_tok, caches, pos)
             next_tok = _sample(logits, self._gen, cfg.temperature,
                                cfg.top_k, cfg.top_p)
@@ -322,6 +333,15 @@ class InferenceEngine:
                 next_tok = torch.from_numpy(step).to(self.device)
             out.append(step)
             pos += 1
+        if telem.enabled:
+            t_end = time.perf_counter()
+            decode_s = t_end - t_first
+            n_decoded = n_generated - b
+            telem.record_request(
+                latency_s=t_end - t_start, ttft_s=t_first - t_start,
+                new_tokens=n_generated,
+                decode_tokens_per_s=(n_decoded / decode_s
+                                     if n_decoded and decode_s > 0 else None))
         return np.concatenate([ids, np.stack(out, axis=1)], axis=1)
 
     def _beam_step(self, caches, last_tokens: torch.Tensor, pos: int,

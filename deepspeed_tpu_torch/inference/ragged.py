@@ -41,8 +41,14 @@ quantized payload and scales as pooled); and the global KV tier's seams
 cache's eviction hook and the cold-tier re-admission. Every path that
 runs the model plans its paged-attention work list with ``_paged_work``.
 
-Not in the port yet (ROADMAP.md): tensor parallelism, the per-request
-and per-step telemetry records, and the chaos hook of ``export_prefix``.
+Telemetry (the global pipeline of :mod:`deepspeed_tpu_torch.telemetry`,
+resolved per call): per-request TTFT at the first logits and latency at
+``flush``, per-step ``inference/ragged_steps`` / ``scheduled_tokens`` /
+occupancy series, the ``record_spec`` mirror and the hand-off counters;
+all host dict updates. ``export_prefix`` carries the chaos injector's
+wire-corruption hook.
+
+Not in the port yet (ROADMAP.md): tensor parallelism.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from __future__ import annotations
 import bisect
 import collections
 import hashlib
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -445,6 +452,10 @@ class SequenceDescriptor:
     tokens: List[int] = field(default_factory=list)  # full known token stream
     seen: int = 0                                    # tokens already in KV
     blocks: List[int] = field(default_factory=list)
+    # telemetry clocks: t_admitted is cleared once TTFT is recorded;
+    # t_created survives until flush() reports end-to-end latency
+    t_admitted: Optional[float] = None
+    t_created: Optional[float] = None
     prompt_len: int = 0
 
     @property
@@ -528,9 +539,9 @@ class RaggedInferenceEngine:
                              if cfg.enable_prefix_cache else None)
         self.seqs: Dict[int, SequenceDescriptor] = {}
         self._free_slots = list(range(cfg.max_seqs))
-        # uids whose next admission is a RESUME (post-preempt/discard); the
-        # request telemetry of a later slice skips their TTFT/latency
-        # records, and the server clears markers of uids that went terminal
+        # uids whose next admission is a RESUME (post-preempt/discard): the
+        # request telemetry skips their TTFT/latency records, and the
+        # server clears markers of uids that went terminal
         self._resume_uids: set = set()
         self.max_pages = cfg.max_context // cfg.kv_block_size
         # paged KV pool: per-layer [n_blocks + 1, hkv, block, hd] tensors;
@@ -630,13 +641,28 @@ class RaggedInferenceEngine:
         return (len(new) <= len(self._free_slots)
                 and need_blocks <= self._available_blocks())
 
+    @property
+    def _telemetry(self):
+        # resolved per call: the global pipeline may be installed after
+        # this engine is constructed
+        from ..telemetry import get_telemetry
+
+        return get_telemetry()
+
     def flush(self, uids: Sequence[int]) -> None:
         """Release sequence state + KV blocks. With the prefix cache on,
         the sequence's full KV blocks are published first."""
+        now = time.perf_counter()
         for uid in uids:
             seq = self.seqs.pop(uid, None)
             self._ngram_idx.pop(uid, None)
             if seq is not None:
+                if seq.t_created is not None:
+                    # the request retires here: end-to-end latency and
+                    # the tokens generated past the admitted prompt
+                    self._telemetry.record_request(
+                        latency_s=now - seq.t_created,
+                        new_tokens=max(0, len(seq.tokens) - seq.prompt_len))
                 if self.prefix_cache is not None:
                     self.prefix_cache.publish(seq.tokens, seq.blocks,
                                               seq.seen, self.allocator)
@@ -652,6 +678,7 @@ class RaggedInferenceEngine:
         if seq is None:
             return []
         toks = list(seq.tokens[:seq.seen])
+        seq.t_created = None          # suppress request-retired telemetry
         self.flush([uid])
         self._resume_uids.add(uid)
         return toks
@@ -678,6 +705,26 @@ class RaggedInferenceEngine:
         prefix cache (1.0 = exhausted)."""
         return 1.0 - self.allocator.free_blocks / self.allocator.n_blocks
 
+    def _note_ttft(self, seq: SequenceDescriptor, now: float) -> None:
+        """The prompt is fully prefilled and its first logits are on the
+        host: record TTFT once (latency follows at ``flush``)."""
+        if seq.t_admitted is not None:
+            self._telemetry.record_request(ttft_s=now - seq.t_admitted)
+            seq.t_admitted = None
+
+    def _record_step_telemetry(self, sched) -> None:
+        """Per-ragged-step series: scheduled tokens and pool occupancy
+        (host dict updates only)."""
+        t = self._telemetry
+        if not t.enabled:
+            return
+        r = t.registry
+        r.counter("inference/ragged_steps").inc()
+        r.counter("inference/scheduled_tokens").inc(
+            sum(take for _, take in sched))
+        r.gauge("inference/kv_occupancy").set(self.kv_occupancy())
+        r.gauge("inference/live_sequences").set(len(self.seqs))
+
     def kv_demand(self) -> float:
         """Fraction of the pool that live demand holds: pages the prefix
         cache could reclaim do not count (a warm cache may fill the pool
@@ -701,13 +748,26 @@ class RaggedInferenceEngine:
 
     def record_spec(self, proposed: int = 0, accepted: int = 0,
                     rounds: int = 0) -> None:
-        """Fold one speculative verify outcome into ``spec_stats`` (the
-        JAX engine also mirrors it into the telemetry registry; that comes
-        with the port's telemetry, ROADMAP.md Queue A item 4)."""
+        """Fold one speculative verify outcome into ``spec_stats`` and the
+        telemetry registry (``inference/spec_*`` counters and the
+        acceptance gauge)."""
         s = self.spec_stats
         s["proposed"] += int(proposed)
         s["accepted"] += int(accepted)
         s["rounds"] += int(rounds)
+        t = self._telemetry
+        if not t.enabled:
+            return
+        r = t.registry
+        if rounds:
+            r.counter("inference/spec_rounds").inc(rounds)
+        if proposed:
+            r.counter("inference/spec_proposed").inc(proposed)
+        if accepted:
+            r.counter("inference/spec_accepted").inc(accepted)
+        if s["proposed"]:
+            r.gauge("inference/spec_acceptance").set(
+                s["accepted"] / s["proposed"])
 
     # -- KV export / import (disaggregated prefill -> decode hand-off) ---
     def _gather_pages(self, blocks: Sequence[int]):
@@ -760,6 +820,13 @@ class RaggedInferenceEngine:
                           k_pages=k, v_pages=v,
                           kv_quant=self.config.kv_quant,
                           k_scales=ks, v_scales=vs)
+        t = self._telemetry
+        if t.enabled:
+            t.registry.counter("inference/kv_exports").inc()
+            t.registry.counter("inference/kv_export_pages").inc(
+                len(seq.blocks))
+            t.registry.counter("inference/kv_export_bytes").inc(
+                export.nbytes)
         record_collective("kv_handoff", self._logical_bytes(len(seq.blocks)),
                           export.nbytes)
         return export
@@ -813,7 +880,12 @@ class RaggedInferenceEngine:
             uid=uid, slot=self._free_slots.pop(),
             tokens=[int(t) for t in export.tokens], seen=int(export.seen),
             blocks=blocks, prompt_len=int(export.prompt_len))
+        # no request telemetry (t_admitted / t_created stay None): the
+        # serving layer's request span owns handed-off work end to end
         self._resume_uids.discard(uid)
+        t = self._telemetry
+        if t.enabled:
+            t.registry.counter("inference/kv_imports").inc()
 
     @torch.inference_mode()
     def _write_pages(self, blocks: Sequence[int], k, v, ks=None,
@@ -892,9 +964,10 @@ class RaggedInferenceEngine:
         """Snapshot the longest cached full-block prefix of ``tokens`` for
         another replica to adopt; None on a cache miss. The pages are
         retained across the host copy, and the transfer is booked as a
-        ``kv_adopt`` row of the bytes-on-wire ledger. (The JAX package's
-        wire-corruption chaos hook here comes with the port's chaos
-        injector.)"""
+        ``kv_adopt`` row of the bytes-on-wire ledger. An installed chaos
+        injector may corrupt the wire payload after the checksum was
+        stamped (``on_prefix_export``): the importer's verify must catch
+        it."""
         if self.prefix_cache is None:
             return None
         key, blocks = self.prefix_cache.lookup(tokens)
@@ -906,8 +979,23 @@ class RaggedInferenceEngine:
             export = self._gather_prefix_export(key, blocks)
         finally:
             self.allocator.release(blocks)
+        t = self._telemetry
+        if t.enabled:
+            t.registry.counter("inference/prefix_exports").inc()
+            t.registry.counter("inference/prefix_export_pages").inc(
+                len(blocks))
+            t.registry.counter("inference/prefix_export_bytes").inc(
+                export.wire_bytes)
         record_collective("kv_adopt", export.logical_bytes,
                           export.wire_bytes)
+        from ..resilience.chaos import get_fault_injector
+
+        inj = get_fault_injector()
+        if inj is not None and inj.on_prefix_export():
+            # adoption-wire corruption: flip one token after the checksum
+            # was stamped
+            export.tokens = ((export.tokens[0] ^ 0x1,)
+                             + export.tokens[1:])
         return export
 
     def import_prefix(self, export: PrefixExport) -> bool:
@@ -961,6 +1049,10 @@ class RaggedInferenceEngine:
                                   self.allocator)
         self.allocator.release(blocks)
         self.kvtier_adopt_imports += 1
+        t = self._telemetry
+        if t.enabled:
+            t.registry.counter("inference/prefix_imports").inc()
+            t.registry.counter("inference/prefix_import_pages").inc(need)
         return True
 
     def _cold_readmit(self, tokens: Sequence[int]) -> None:
@@ -979,6 +1071,10 @@ class RaggedInferenceEngine:
             try:
                 if self.import_prefix(export):
                     self.kvtier_cold_readmits += 1
+                    t = self._telemetry
+                    if t.enabled:
+                        t.registry.counter(
+                            "inference/prefix_cold_readmits").inc()
             except (ValueError, RuntimeError):
                 pass                # PoolExhausted / corrupt: plain prefill
             return
@@ -1042,9 +1138,13 @@ class RaggedInferenceEngine:
             if new:
                 if not self._free_slots:
                     raise RuntimeError("no free sequence slots; flush() first")
+                now = time.perf_counter()
+                resumed = uid in self._resume_uids
                 self._resume_uids.discard(uid)
                 self.seqs[uid] = SequenceDescriptor(
-                    uid=uid, slot=self._free_slots.pop())
+                    uid=uid, slot=self._free_slots.pop(),
+                    t_admitted=None if resumed else now,
+                    t_created=None if resumed else now)
             seq = self.seqs[uid]
             seq.tokens.extend(int(t) for t in toks)
             if new:
@@ -1109,10 +1209,13 @@ class RaggedInferenceEngine:
         # [max_seqs, vocab] rows travel to the host
         logits = self.model._head(x[self._dev(sel_idx)]).cpu().numpy()
         out = np.full((len(uids), logits.shape[-1]), np.nan, np.float32)
+        now = time.perf_counter()
         for i, uid in enumerate(uids):
             seq = self.seqs[uid]
             if seq.pending == 0 and uid in last_index:
                 out[i] = logits[seq.slot]
+                self._note_ttft(seq, now)
+        self._record_step_telemetry(sched)
         return out
 
     def put_spec(self, uids: Sequence[int], tokens: Sequence[Sequence[int]],
@@ -1194,18 +1297,21 @@ class RaggedInferenceEngine:
             last_index[seq.uid] = li
         logits = self._verify_step(flat_tokens, flat_slot, flat_pos, sel_rows)
         out = np.full((len(uids), logits.shape[-1]), np.nan, np.float32)
+        now = time.perf_counter()
         for i, uid in enumerate(uids):
             seq = self.seqs[uid]
             if seq.pending == 0 and uid in last_index:
                 # sel_rows[slot, -1] is the last scheduled row whether or
                 # not the slot carried a chain: put()'s contract holds
                 out[i] = logits[seq.slot, -1]
+                self._note_ttft(seq, now)
         verified: Dict[int, Tuple[List[int], np.ndarray]] = {}
         for seq, take in sched:
             if seq.uid in appended:
                 chain = [int(t) for t in seq.tokens[seq.seen - take:
                                                     seq.seen]]
                 verified[seq.uid] = (chain, logits[seq.slot, :take])
+        self._record_step_telemetry(sched)
         return out, verified
 
     def _put_verify(self, uids: Sequence[int],
@@ -1283,7 +1389,8 @@ class RaggedInferenceEngine:
             chunks.append(seq.tokens[seq.seen:seq.seen + take])
             seens_l.append(seq.seen)
             slots_l.append(seq.slot)
-        return build_batch(chunks, seens_l, slots_l, T)
+        return build_batch(chunks, seens_l, slots_l, T,
+                           native=self.device.type == "cuda")
 
     def _check_pool(self, needs) -> None:
         """The whole schedule's new-block demand must fit the pool before
@@ -1300,7 +1407,8 @@ class RaggedInferenceEngine:
     def _host_tables(self) -> np.ndarray:
         live = list(self.seqs.values())
         return fill_tables([s.blocks for s in live], [s.slot for s in live],
-                           self.config.max_seqs, self.max_pages)
+                           self.config.max_seqs, self.max_pages,
+                           native=self.device.type == "cuda")
 
     def _paged_work(self, flat_slot: np.ndarray, live_pages: int):
         """The paged-attention work list of one step (:meth:`_plan_work`),

@@ -1,1 +1,2 @@
-"""Resilience seams of the port (this slice: the clock)."""
+"""Resilience seams of the port: the clock, counters, the lock-order
+sanitizer, the preemption guard and seeded chaos injection."""

@@ -1,7 +1,7 @@
-"""The data half of the global KV tier: prefix exports, the prefix
-directory and the host-memory cold tier.
+"""The global KV tier: prefix exports, the prefix directory, the
+host-memory cold tier and the :class:`KVTier` facade.
 
-Ports the data pieces of ``deepspeed_tpu/serving/kvtier.py``:
+Ports ``deepspeed_tpu/serving/kvtier.py``:
 
 * :func:`prefix_hash` — the directory key of a full-block prefix, the
   same process-stable 64-bit hash the JAX package's affinity ring walks;
@@ -13,33 +13,38 @@ Ports the data pieces of ``deepspeed_tpu/serving/kvtier.py``:
   holders, invalidated synchronously on eviction;
 * :class:`ColdTier` — a host-memory LRU of evicted prefixes, accounted
   in KV pages; entries are host copies that hold no device-pool
-  reference.
+  reference. An installed chaos injector drops every Nth put
+  (``on_cold_put``: injected host-memory pressure);
+* :class:`KVTier` — one fleet's directory plus (optionally) its shared
+  cold tier, built from a :class:`~deepspeed_tpu_torch.config.
+  KVTierConfig`; :meth:`KVTier.publish_residency` is the fleet poll's
+  per-replica residency publish with the ``on_directory_publish`` chaos
+  hook (``deepspeed_tpu/serving/fleet.py:1389-1399``).
 
 In the port the pages of an export are CPU tensors. A checksum reads each
 payload's bytes through an integer view of the same width (numpy has no
 bf16), so the port and the JAX package stamp equal checksums on equal
 tokens and equal page bytes.
 
-``PrefixDirectory._lock`` and ``ColdTier._lock`` are leaf locks: nothing
-blocking runs under them and no other lock is taken inside them.
-
-Not here yet (ROADMAP.md, Queue A items 4-5): the ``KVTier`` facade and
-the serving ``kv_tier`` key come with the fleet; the cold tier's
-injected-pressure drops come with the chaos injector.
+``PrefixDirectory._lock`` and ``ColdTier._lock`` are leaf locks, built
+through the lock-order sanitizer's seam (:mod:`~deepspeed_tpu_torch.
+resilience.locksan`): nothing blocking runs under them and no other lock
+is taken inside them.
 """
 
 from __future__ import annotations
 
 import hashlib
-import threading
 from collections import OrderedDict
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["PrefixExport", "PrefixDirectory", "ColdTier", "CorruptExport",
-           "prefix_hash", "export_checksum"]
+from ..resilience.locksan import named_lock
+
+__all__ = ["PrefixExport", "PrefixDirectory", "ColdTier", "KVTier",
+           "CorruptExport", "prefix_hash", "export_checksum"]
 
 # same-width integer views for the dtypes numpy cannot hold
 _INT_VIEW = {torch.bfloat16: torch.int16, torch.float16: torch.int16}
@@ -169,7 +174,7 @@ class PrefixDirectory:
 
     def __init__(self, staleness_s: float):
         self.staleness_s = float(staleness_s)
-        self._lock = threading.Lock()
+        self._lock = named_lock("PrefixDirectory._lock")
         self._holders: Dict[int, Dict[str, float]] = {}
         self._by_member: Dict[str, set] = {}
         self.publishes = 0
@@ -259,7 +264,8 @@ class PrefixDirectory:
 class ColdTier:
     """Host-memory LRU of evicted prefixes, accounted in KV pages.
     ``put`` evicts LRU entries until the newcomer fits and refuses
-    (counted) an entry bigger than the whole tier."""
+    (counted) an entry bigger than the whole tier; the chaos injector's
+    ``on_cold_put`` drops a put (counted in ``chaos_drops``)."""
 
     def __init__(self, capacity_pages: int):
         if capacity_pages < 1:
@@ -267,7 +273,7 @@ class ColdTier:
                 f"cold-tier capacity must be >= 1 page, got "
                 f"{capacity_pages}")
         self.capacity_pages = int(capacity_pages)
-        self._lock = threading.Lock()
+        self._lock = named_lock("ColdTier._lock")
         self._entries: "OrderedDict[Tuple[int, ...], PrefixExport]" = \
             OrderedDict()
         self._used = 0
@@ -276,9 +282,18 @@ class ColdTier:
         self.misses = 0
         self.evictions = 0
         self.rejects = 0
+        self.chaos_drops = 0
 
     def put(self, export: PrefixExport) -> bool:
-        """Admit an evicted prefix. Returns False when refused."""
+        """Admit an evicted prefix. Returns False when refused (bigger
+        than the tier, or dropped by injected cold pressure)."""
+        from ..resilience.chaos import get_fault_injector
+
+        inj = get_fault_injector()
+        if inj is not None and inj.on_cold_put():
+            with self._lock:
+                self.chaos_drops += 1
+            return False
         with self._lock:
             self.puts += 1
             if export.n_pages > self.capacity_pages:
@@ -353,4 +368,53 @@ class ColdTier:
                     "capacity_pages": self.capacity_pages,
                     "puts": self.puts, "hits": self.hits,
                     "misses": self.misses, "evictions": self.evictions,
-                    "rejects": self.rejects}
+                    "rejects": self.rejects,
+                    "chaos_drops": self.chaos_drops}
+
+
+class KVTier:
+    """One fleet's slice of the global KV tier: the shared directory plus
+    (optionally) the shared host cold tier, built from a
+    :class:`~deepspeed_tpu_torch.config.KVTierConfig`. The fleet owns one
+    and hands it to every replica (``ServingEngine.enable_kv_tier``); the
+    cold tier is fleet-wide, so a prefix spilled by one replica can be
+    re-admitted by any sibling."""
+
+    def __init__(self, config: Any):
+        self.config = config
+        self.directory = PrefixDirectory(config.directory_staleness_s)
+        self.cold: Optional[ColdTier] = (
+            ColdTier(config.cold_capacity_pages) if config.cold_tier
+            else None)
+
+    def drop_member(self, member: str) -> int:
+        """Death / migration hook: the member's directory entries must
+        not outlive its pages. The cold tier is not dropped — its entries
+        are host copies that survived the donor by construction."""
+        return self.directory.drop_member(member)
+
+    def publish_residency(self, member: str,
+                          snapshot: Optional[tuple]) -> None:
+        """Publish one replica's residency snapshot
+        (``ServingEngine.residency_snapshot()``: hashes, t_captured),
+        stamped with its capture time, not the publish time, so a wedged
+        driver's entries age past the staleness bound. An installed chaos
+        injector may add a bogus hash (``on_directory_publish``: a
+        directory lie that routing must survive)."""
+        if snapshot is None:
+            return
+        from ..resilience.chaos import get_fault_injector
+
+        hashes, t = snapshot
+        inj = get_fault_injector()
+        if inj is not None:
+            bogus = inj.on_directory_publish(member)
+            if bogus is not None:
+                hashes = list(hashes) + [bogus]
+        self.directory.publish(member, hashes, t)
+
+    def snapshot(self) -> Dict[str, Any]:
+        out = {"directory": self.directory.snapshot()}
+        if self.cold is not None:
+            out["cold"] = self.cold.stats()
+        return out

@@ -256,9 +256,19 @@ def test_serving_config():
         ServingConfig.from_dict({"policy": "lifo"})
     with pytest.raises(ConfigError):
         ServingConfig.from_dict({"kv_pressure": 2.0})
-    for key, val in (("model_version", 1), ("kv_tier", {"enabled": True}),
-                     ("stuck_tick_timeout_s", 30.0), ("fleet", {"n": 2})):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    # the replica's keys are ported; the fleet's blocks still raise
+    c = ServingConfig.from_dict({"model_version": 1,
+                                 "kv_tier": {"enabled": True},
+                                 "stuck_tick_timeout_s": 0.5,
+                                 "stuck_tick_escalate_polls": 2})
+    assert (c.model_version, c.kv_tier.enabled, c.stuck_tick_timeout_s,
+            c.stuck_tick_escalate_polls) == (1, True, 0.5, 2)
+    assert ServingConfig().stuck_tick_timeout_s == 30.0
+    with pytest.raises(ConfigError, match="model_version"):
+        ServingConfig.from_dict({"model_version": -1})
+    for key, val in (("fleet", {"n": 2}), ("region", {"cells": 2}),
+                     ("rollout", {"warmup_ticks": 3})):
+        with pytest.raises(NotImplementedError, match="later slice.*item 5"):
             ServingConfig.from_dict({key: val})
     # speculative serving is ported (tests/test_torch_spec.py)
     assert ServingConfig.from_dict({"speculative": True}).speculative
