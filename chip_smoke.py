@@ -107,6 +107,21 @@ CPU path — without a CUDA device the script fails):
    corrupt and a failing load keep version 0, a seed-1 load serves a
    fresh seed-1 engine's streams bitwise after 2 warm-up ticks; (g) the
    phase's paged launches (from 0), tile and lane items;
+6d. fleet: ``ServingFleet`` over Llama-2-7B replicas (one shared model,
+   a fresh 512-page engine per replica): (a) 3 replicas, prefix-affinity
+   routing, driver and monitor threads, 16 requests from 4 shared
+   512-token prefixes (routed counts, each prefix on one replica,
+   prefix-cache hit tokens, TTFT p50 / max, tokens/s, streams equal a
+   single-engine run up to near-ties, no leak); (c) the same traffic
+   again and ``kill_replica`` mid-decode: orphans fail over, all finish;
+   (b) 1 prefill + 3 decode replicas: phase 5's 8 requests hand off
+   through ``export_kv`` / ``import_kv`` (ms and bytes per hand-off);
+   (d) int8 pools: ``scale_to(4)``, ``scale_to(2)`` under load (the
+   drained replicas serve out), one ``autoscale_once`` against
+   ``compute_serving_replicas``; (e) a hedge against a replica the
+   fault injector slows 8x (the shadow wins, the loser's span is
+   suppressed, one record per client request); (g) the phase's paged
+   launches (from 0), tile and lane items, peak memory;
 6a. inference: ``init_inference(Llama("7b"))`` with int8 weights at group
    256 (path A), then bf16 and int4 weights: 4 prompts of 128 tokens, 32
    new tokens greedy; weight bytes, memory, prefill and decode times,
@@ -157,6 +172,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -2373,6 +2389,471 @@ def phase_replicas(model, card: str, err: dict) -> dict:
             "telemetry": tel, "host": host, "migration": mig}
 
 
+# --------------------------------------------------------------- phase 6d
+FLEET_PREFIX = 512            # tokens of each shared prefix of (a)
+FLEET_SERVING = {"policy": "fcfs", "stuck_tick_timeout_s": 30}
+
+
+class _FleetCounter(_PutCounter):
+    """:class:`_PutCounter` for engines driven from several replica
+    driver threads: one lock serializes their puts, so each put's move of
+    the paged counters is its own. Also counts prefix-cache hit tokens
+    (``prefix_cache.match``) and times ``export_kv`` / ``import_kv``
+    (synchronized, ms) with the bytes of each export."""
+
+    def __init__(self, n_layers: int):
+        super().__init__(n_layers)
+        self.lock = threading.Lock()
+        self.hit_tokens = 0
+        self.handoff = {"export": [], "import": [], "bytes": []}
+
+    def wrap(self, eng):
+        super().wrap(eng)
+        put, lock = eng.put, self.lock
+
+        def locked_put(uids, toks):
+            with lock:
+                return put(uids, toks)
+
+        eng.put = locked_put
+        if eng.prefix_cache is not None:
+            match = eng.prefix_cache.match
+
+            def counted_match(prompt):     # called inside a locked put
+                shared, blocks = match(prompt)
+                self.hit_tokens += shared
+                return shared, blocks
+
+            eng.prefix_cache.match = counted_match
+        exp, imp, times = eng.export_kv, eng.import_kv, self.handoff
+
+        def export_kv(uid):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e = exp(uid)
+            torch.cuda.synchronize()
+            times["export"].append((time.perf_counter() - t0) * 1e3)
+            times["bytes"].append(e.nbytes)
+            return e
+
+        def import_kv(uid, e):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imp(uid, e)
+            torch.cuda.synchronize()
+            times["import"].append((time.perf_counter() - t0) * 1e3)
+
+        eng.export_kv, eng.import_kv = export_kv, import_kv
+        return eng
+
+
+def _serve_once(eng, prompts, n: int = 32) -> list:
+    """Greedy streams of ``prompts`` from one manually driven replica over
+    ``eng``: the uninterrupted single-engine reference."""
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+
+    srv = ServingEngine(eng, REPLICA_SERVING, start=False, replica_id="ref")
+    reqs = [srv.submit(p, max_new_tokens=n) for p in prompts]
+    _drive([srv], lambda: all(r.is_terminal for r in reqs))
+    if srv.block_leaks():
+        raise SystemExit(f"reference replica leaked: {srv.block_leaks()}")
+    return [list(r.tokens) for r in reqs]
+
+
+def _wait(cond, what: str, timeout: float = 300.0) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"fleet: {what} within {timeout:.0f} s")
+        time.sleep(0.002)
+
+
+def _fleet_unified(model, counter, ref_eng, err: float, card: str) -> dict:
+    """6d (a) + (c): a 3-replica prefix-affinity fleet with its driver and
+    monitor threads. (a) 4 seeded 512-token prefixes x 4 seeded suffixes
+    of 1-15 tokens (under one 16-token block, so each prompt's routing key
+    is its prefix), one request of each prefix first, then the other
+    twelve; (c) the sixteen again, and the replica holding the most is
+    killed once one of its requests has decoded 2 tokens."""
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.serving import ServingFleet
+
+    rng = np.random.default_rng(11)
+    prefixes = [rng.integers(1, 32000, FLEET_PREFIX).tolist()
+                for _ in range(4)]
+    suffixes = [rng.integers(1, 32000, int(n)).tolist()
+                for n in rng.integers(1, 16, 4)]
+    prompts = [prefixes[i % 4] + suffixes[i // 4] for i in range(16)]
+    ref = _serve_once(ref_eng, prompts)
+    ref_eng.prefix_cache.drop_all(ref_eng.allocator)
+    cfg = RaggedConfig(n_kv_blocks=REPLICA_PAGES, enable_prefix_cache=True,
+                       **REPLICA_SHAPE)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tel, _, _ = _replica_telemetry(tmp)
+        fleet = ServingFleet(
+            lambda: counter.wrap(RaggedInferenceEngine(model, cfg)),
+            {"replicas": 3, "router": "prefix_affinity"}, FLEET_SERVING)
+        try:
+            hits0 = counter.hit_tokens
+            t0 = time.perf_counter()
+            reqs = [fleet.submit(p, max_new_tokens=32) for p in prompts[:4]]
+            placed = [fleet._requests[r.uid][1] for r in reqs]
+            _wait(lambda: all(r.is_terminal for r in reqs), "(a) warm-up")
+            t1 = time.perf_counter()
+            reqs += [fleet.submit(p, max_new_tokens=32) for p in prompts[4:]]
+            placed += [fleet._requests[r.uid][1] for r in reqs[4:]]
+            _wait(lambda: all(r.is_terminal for r in reqs), "(a) served")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            wall, cold, warm = t2 - t0, t1 - t0, t2 - t1
+            # read before the near-tie puts below, which match too
+            hits = counter.hit_tokens - hits0
+            reg = tel.registry.snapshot()
+            got = [list(r.tokens) for r in reqs]
+            ok_s, same, ties = _streams_ok(ref_eng, prompts, got, ref, err)
+            ttft = sorted(r.t_first_token - r.t_submit for r in reqs)
+            groups = [{placed[i] for i in range(16) if i % 4 == g}
+                      for g in range(4)]
+            routed = {n: placed.count(n) for n in sorted(set(placed))}
+            ntok = sum(len(g) for g in got)
+            leaks_a = fleet.block_leaks()
+            ok = (ok_s and not leaks_a and all(len(g) == 1 for g in groups)
+                  and reg.get("serving/fleet/routed") == 16
+                  and reg.get("serving/fleet/affinity_hits") == 16
+                  and hits >= 12 * FLEET_PREFIX
+                  and all(r.state.value == "finished" for r in reqs))
+            log(f"fleet (a) [{card}]: 3 replicas, prefix_affinity, 16 "
+                f"requests (4 prefixes x 4 suffixes): routed per replica "
+                f"{routed}, replicas per prefix {[sorted(g) for g in groups]}"
+                f", affinity hits {reg.get('serving/fleet/affinity_hits')}, "
+                f"prefix-cache hit tokens {hits} (expect 12 x "
+                f"{FLEET_PREFIX}), TTFT p50 {ttft[8]:.4f} s max "
+                f"{ttft[-1]:.4f} s, {ntok} tokens in {wall:.3f} s = "
+                f"{ntok / wall:.1f} tokens/s (the 4 cold requests "
+                f"{cold:.3f} s, then the 12 warm {warm:.3f} s = "
+                f"{384 / warm:.1f} tokens/s); streams equal the "
+                f"single-engine run {same} of 16, differing (request, first "
+                f"position, top-two gap) {ties} against 2 x {err:.4e}; "
+                f"block leaks {leaks_a} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("fleet (a) failed")
+            out["a"] = {"routed": routed, "hit_tokens": hits,
+                        "ttft_p50": ttft[8], "ttft_max": ttft[-1],
+                        "tokens_per_s": ntok / wall, "wall": wall,
+                        "cold_s": cold, "warm_s": warm}
+            # (c): the same traffic again; kill the busiest replica once
+            # one of its requests is 2 tokens into its decode
+            t0 = time.perf_counter()
+            reqs = [fleet.submit(p, max_new_tokens=32) for p in prompts]
+            where = {r.uid: fleet._requests[r.uid][1] for r in reqs}
+            victim = max(sorted(set(where.values())),
+                         key=list(where.values()).count)
+            mine = [r for r in reqs if where[r.uid] == victim]
+            _wait(lambda: any(len(r.tokens) >= 2 for r in mine),
+                  "(c) a decode on the victim")
+            at_kill = [len(r.tokens) for r in mine]
+            if not fleet.kill_replica(victim, reason="phase 6d (c)"):
+                raise SystemExit(f"fleet (c): {victim} could not be killed")
+            _wait(lambda: all(r.is_terminal for r in reqs), "(c) served")
+            wall_c = time.perf_counter() - t0
+            reg = tel.registry.snapshot()
+            got = [list(r.tokens) for r in reqs]
+            ok_s, same, ties = _streams_ok(ref_eng, prompts, got, ref, err)
+            fleet.drain(timeout=60)
+            leaks = fleet.block_leaks()
+            failovers = reg.get("serving/fleet/failovers", 0)
+            ok = (ok_s and not leaks and failovers >= 1
+                  and all(r.state.value == "finished" for r in reqs)
+                  and len(fleet.healthy_replicas) == 2)
+            log(f"fleet (c) [{card}]: killed {victim} holding {len(mine)} "
+                f"requests at tokens {at_kill}; {failovers} failed over, "
+                f"all 16 finished in {wall_c:.3f} s; streams equal the "
+                f"single-engine run {same} of 16, differing {ties}; "
+                f"healthy replicas {[r.name for r in fleet.healthy_replicas]}"
+                f"; block leaks (dead replica included) {leaks} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("fleet (c) failed")
+            out["c"] = {"victim": victim, "orphans": failovers,
+                        "wall": wall_c}
+        finally:
+            fleet.close(timeout=60)
+            _replica_telemetry_off()
+    return out
+
+
+def _fleet_disaggregated(model, counter, ref_eng, prompts, ref, err: float,
+                         card: str) -> dict:
+    """6d (b): 1 prefill + 3 decode replicas, driven by ``step()``: phase
+    5's 8 requests each prefill on the prefill replica and move to a
+    decode replica through ``export_kv`` / ``import_kv``."""
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.serving import ServingFleet
+
+    cfg = RaggedConfig(n_kv_blocks=REPLICA_PAGES, enable_prefix_cache=True,
+                       **REPLICA_SHAPE)
+    times = counter.handoff
+    for v in times.values():
+        v.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        tel, _, _ = _replica_telemetry(tmp)
+        fleet = ServingFleet(
+            lambda: counter.wrap(RaggedInferenceEngine(model, cfg)),
+            {"disaggregated": True, "prefill_replicas": 1, "replicas": 3},
+            REPLICA_SERVING, start=False)
+        try:
+            t0 = time.perf_counter()
+            reqs = [fleet.submit(p, max_new_tokens=32) for p in prompts]
+            for _ in range(4000):
+                if all(r.is_terminal for r in reqs):
+                    break
+                fleet.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            reg = tel.registry.snapshot()
+            got = [list(r.tokens) for r in reqs]
+            ok_s, same, ties = _streams_ok(ref_eng, prompts, got, ref, err)
+            fleet.drain(timeout=60)
+            leaks = fleet.block_leaks()
+            n = len(times["export"])
+            ok = (ok_s and not leaks and n == 8 == len(times["import"])
+                  and reg.get("serving/fleet/handoffs") == 8
+                  and all(r.state.value == "finished" for r in reqs))
+            mb = [b / 2 ** 20 for b in times["bytes"]]
+            log(f"fleet (b) [{card}]: 1 prefill + 3 decode replicas, 8 "
+                f"requests: {reg.get('serving/fleet/handoffs')} hand-offs; "
+                f"export_kv ms {[round(x, 3) for x in times['export']]}, "
+                f"import_kv ms {[round(x, 3) for x in times['import']]}, MB "
+                f"{[round(x, 2) for x in mb]} (per hand-off: export "
+                f"{sum(times['export']) / max(n, 1):.3f} ms, import "
+                f"{sum(times['import']) / max(n, 1):.3f} ms, "
+                f"{sum(mb) / max(n, 1):.2f} MB); {sum(map(len, got))} tokens "
+                f"in {wall:.3f} s; streams equal the single-engine run "
+                f"{same} of 8, differing {ties} against 2 x {err:.4e}; "
+                f"block leaks {leaks} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("fleet (b) failed")
+        finally:
+            fleet.close(timeout=60)
+            _replica_telemetry_off()
+    return {"handoffs": n, "export_ms": sum(times["export"]) / n,
+            "import_ms": sum(times["import"]) / n,
+            "bytes": sum(times["bytes"]) // n, "wall": wall}
+
+
+def _fleet_scaling(model, counter, prompts, card: str) -> dict:
+    """6d (d) over int8 pools, driven by ``step()``: ``scale_to(4)``, the
+    8 requests, ``scale_to(2)`` while they are served (the two drained
+    replicas serve out their backlog before they are reaped); then 12
+    queued requests and one ``autoscale_once``, which must size the pool
+    as ``compute_serving_replicas`` does for the same signals."""
+    from deepspeed_tpu_torch.elasticity import compute_serving_replicas
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.serving import ServingFleet
+
+    cfg = RaggedConfig(n_kv_blocks=REPLICA_PAGES, kv_quant="int8",
+                       **REPLICA_SHAPE)
+    fleet = ServingFleet(
+        lambda: counter.wrap(RaggedInferenceEngine(model, cfg)),
+        {"replicas": 2, "max_replicas": 4, "autoscale": True,
+         "autoscale_interval_s": 1e9, "scale_up_queue_per_replica": 4.0},
+        {**REPLICA_SERVING, "kv_quant": "int8"}, start=False)
+    try:
+        fleet.scale_to(4)
+        up = len(fleet.healthy_replicas)
+        reqs = [fleet.submit(p, max_new_tokens=32) for p in prompts]
+        where = {fleet._requests[r.uid][1] for r in reqs}
+        for _ in range(3):
+            fleet.step()
+        fleet.scale_to(2)
+        draining = [(r.name, r.load) for r in fleet.replicas
+                    if r.state == "draining"]
+        for _ in range(4000):
+            if all(r.is_terminal for r in reqs):
+                break
+            fleet.step()
+        fleet.scale_to(2)                    # reaps the drained replicas
+        states = sorted(r.state for r in fleet.replicas)
+        burst = [fleet.submit(p[:64], max_new_tokens=8)
+                 for p in prompts + prompts[:4]]
+        healthy = fleet.healthy_replicas
+        depth = sum(r.serving.queue_depth for r in healthy)
+        want = compute_serving_replicas(
+            len(healthy), queue_depth=depth,
+            kv_occupancy=max(r.engine.kv_demand() for r in healthy),
+            in_sla_ratio=fleet.in_sla_ratio(), config=fleet._elastic_config())
+        target = fleet.autoscale_once()
+        after = len(fleet.healthy_replicas)
+        for _ in range(4000):
+            if all(r.is_terminal for r in burst):
+                break
+            fleet.step()
+        fleet.drain(timeout=60)
+        leaks = fleet.block_leaks()
+        ok = (up == 4 and len(where) == 4 and len(draining) == 2
+              and all(load > 0 for _, load in draining)
+              and states == ["dead", "dead", "healthy", "healthy"]
+              and all(r.state.value == "finished" and len(r.tokens) == 32
+                      for r in reqs)
+              and depth == 12 and target == want == 3 and after == 3
+              and all(r.state.value == "finished" for r in burst)
+              and not leaks)
+        log(f"fleet (d) int8 pools [{card}]: scale_to(4) -> {up} healthy, "
+            f"8 requests over {len(where)} replicas, scale_to(2) drained "
+            f"{draining} (name, load) which served out their backlog: "
+            f"states {states}; then {depth} queued requests: autoscale_once "
+            f"-> {target} (compute_serving_replicas {want}), {after} "
+            f"healthy; all finished; block leaks {leaks} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("fleet (d) failed")
+    finally:
+        fleet.close(timeout=60)
+    return {"scaled_up": up, "drained": len(draining), "target": target}
+
+
+def _fleet_hedge(model, counter, ref_eng, prompts, ref, err: float,
+                 card: str) -> dict:
+    """6d (e): two replicas with hedging on, under a ``SimClock`` and
+    ``step()``; replica-0 degraded 8x by the fault injector (7 of 8 busy
+    ticks stall). Its request misses half its TTFT deadline, a shadow goes
+    to replica-1 and wins; the primary is cancelled with its KV
+    discarded unpublished and its span suppressed."""
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.resilience.clock import SimClock
+    from deepspeed_tpu_torch.serving import ServingFleet
+
+    cfg = RaggedConfig(n_kv_blocks=REPLICA_PAGES, enable_prefix_cache=True,
+                       **REPLICA_SHAPE)
+    sim = SimClock(start=100.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tel, _, inj = _replica_telemetry(tmp)
+        fleet = ServingFleet(
+            lambda: counter.wrap(RaggedInferenceEngine(model, cfg)),
+            {"replicas": 2, "hedge": True, "hedge_ttft_fraction": 0.5},
+            REPLICA_SERVING, start=False, clock=sim)
+        try:
+            inj.degrade_replica("replica-0", 8)
+            delivered = []
+            reqs = [fleet.submit(p, max_new_tokens=32, ttft_deadline_s=0.04,
+                                 client_request_id=f"h{i}",
+                                 on_token=delivered.append if i == 0
+                                 else None)
+                    for i, p in enumerate(prompts[:2])]
+            placed = [fleet._requests[r.uid][1] for r in reqs]
+            for _ in range(4000):
+                if all(r.is_terminal for r in reqs) and not fleet._hedges:
+                    break
+                fleet.step()
+                sim.advance(0.01)
+            snap = fleet.gray_snapshot()
+            reg = tel.registry.snapshot()
+            fleet.drain(timeout=60)
+            leaks = fleet.block_leaks()
+        finally:
+            fleet.close(timeout=60)
+            tel.close()
+            _replica_telemetry_off()
+        with open(os.path.join(tmp, "requests.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    pairs = snap["hedges"]
+    won = [p for p in pairs if p["winner_uid"] == p["shadow_uid"]]
+    crids = sorted(r["client_request_id"] for r in records)
+    suppressed = reg.get("serving/replica-0/hedge_suppressed_spans", 0)
+    ok_s, same, ties = _streams_ok(ref_eng, prompts[:1], [delivered],
+                                   ref[:1], err)
+    ok = (placed == ["replica-0", "replica-1"] and len(won) >= 1
+          and reg.get("serving/fleet/hedges", 0) >= 1
+          and crids == ["h0", "h1"] and suppressed >= 1 and ok_s
+          and not leaks)
+    log(f"fleet (e) [{card}]: hedge on, replica-0 degraded 8x, requests "
+        f"placed {placed}: {snap['hedged_total']} hedge(s) dispatched, "
+        f"shadow won {len(won)}, hedge_suppressed_spans on replica-0 "
+        f"{suppressed}, request records {crids} (one per client request), "
+        f"the client's stream of request h0 equals the single-engine run: "
+        f"{bool(same)} (differing {ties}); block leaks {leaks} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("fleet (e) failed")
+    return {"hedges": snap["hedged_total"], "suppressed": suppressed}
+
+
+def phase_fleet(model, card: str, err: dict) -> dict:
+    """6d: ``ServingFleet`` over Llama-2-7B replicas (``model`` shared by
+    every replica: the factory's fresh engine, same weights), each replica
+    a 512-page engine: (a) + (c) a threaded prefix-affinity fleet and a
+    failover, (b) disaggregated prefill -> decode hand-offs, (d) scaling
+    and one autoscale decision over int8 pools, (e) a hedge. The paged
+    counters are set to 0 at the phase's start and read at its end (its
+    fleets' and its reference runs' puts, every one on one launch a layer,
+    split into tile and lane items). ``err``: phase 6b's verify errors."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    n_layers = model.config.n_layers
+    counter = _FleetCounter(n_layers)
+    rng = np.random.default_rng(0)           # phase 5's requests
+    lengths = rng.integers(64, 1537, 8)
+    prompts = [rng.integers(1, 32000, int(n)).tolist() for n in lengths]
+    for name in PAGED_PATH_COUNTERS:
+        setattr(pa.paged_attention, name, 0)
+    ref_eng = counter.wrap(RaggedInferenceEngine(model, RaggedConfig(
+        n_kv_blocks=REPLICA_PAGES, enable_prefix_cache=True,
+        **REPLICA_SHAPE)))
+    ref = _serve_once(ref_eng, prompts)
+    ref_eng.prefix_cache.drop_all(ref_eng.allocator)
+    out = {"unified": _fleet_unified(model, counter, ref_eng, err["none"],
+                                     card)}
+    gc.collect()
+    out["disaggregated"] = _fleet_disaggregated(
+        model, counter, ref_eng, prompts, ref, err["none"], card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["scaling"] = _fleet_scaling(model, counter, prompts, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["hedge"] = _fleet_hedge(model, counter, ref_eng, prompts, ref,
+                                err["none"], card)
+    del ref_eng
+    counts = {n: getattr(pa.paged_attention, n) for n in PAGED_PATH_COUNTERS}
+    st = counter.steps
+    ok = (counts["launches"] + counts["int8_launches"]
+          == n_layers * st["put"] and counts["launches"] > 0
+          and counts["int8_launches"] > 0 and counts["int4_launches"] == 0
+          and counts["tile_launches"] == n_layers * st["tile"]
+          and counts["split_launches"] == n_layers * st["split"]
+          and st["odd"] == 0 and st["tile"] > 0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"fleet (g) [{card}]: {st['put']} puts over the phase's fleets and "
+        f"reference runs, paged_attention launches {counts} ({n_layers} "
+        f"layers x puts = {n_layers * st['put']}; {st['tile']} puts ran "
+        f"tile items, {st['split']} lane items; every launch on the Hopper "
+        f"kernels); peak memory {peak:.2f} GiB {'ok' if ok else 'FAIL'}")
+    took = time.perf_counter() - t_phase
+    log(f"fleet: phase 6d took {took:.1f} s")
+    if not ok:
+        raise SystemExit("fleet phase launches do not add up")
+    out.update({"launches": counts["launches"],
+                "int8_launches": counts["int8_launches"],
+                "tile_launches": counts["tile_launches"],
+                "split_launches": counts["split_launches"],
+                "peak_gib": peak, "seconds": took})
+    return out
+
+
 
 # --------------------------------------------------------------- phase 6a
 def _device_events(prof) -> list:
@@ -4036,6 +4517,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     replicas = phase_replicas(model, dev["card"], spec["err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(model, dev["card"], spec["err"])
     del model, prompts
     gc.collect()
     torch.cuda.empty_cache()
@@ -4060,6 +4544,9 @@ def main() -> int:
                 "replica_launches": replicas["launches"],
                 "replica_tile_launches": replicas["tile_launches"],
                 "replica_split_launches": replicas["split_launches"],
+                "fleet_launches": fleet["launches"],
+                "fleet_tile_launches": fleet["tile_launches"],
+                "fleet_split_launches": fleet["split_launches"],
                 "max_abs_err": kern["max_abs_err"],
                 "ms": d["ms"], "kernel_ms": d["ms"],
                 "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
@@ -4084,6 +4571,7 @@ def main() -> int:
             "timings": kq["timings"], "card": dev["card"]})
     entries[1]["verify_launches"] = spec["int8_launches"]
     entries[1]["replica_launches"] = replicas["int8_launches"]
+    entries[1]["fleet_launches"] = fleet["int8_launches"]
     entries[1]["timings"] = {**entries[1]["timings"],
                              "verify_put": spec["int8"]}
     for name, (_, replaces, _) in FLASH_KERNELS.items():

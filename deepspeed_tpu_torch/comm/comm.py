@@ -117,7 +117,18 @@ def record_collective(op: str, logical_bytes: int, wire_bytes: int,
                       axis_name: Optional[str] = None, world: int = 0) -> None:
     """Ledger entry for a facade-issued collective: ``logical_bytes`` is
     what the uncompressed path would move per rank, ``wire_bytes`` the
-    payload actually sent (quantized values + scales)."""
+    payload actually sent (quantized values + scales).
+
+    Fires the chaos hook under ``op`` first, as the JAX package does, so a
+    ``FaultInjector(collective_fail_op=op)`` fails the caller before the
+    row is booked (the hand-off's ``export_kv`` books ``kv_handoff``, a
+    prefix export ``kv_adopt``). A facade call whose transport goes
+    through the raw wrappers below also fires the primitive's name there
+    (``all_gather``, ``all_reduce``, ...), on every call. The JAX
+    package's facade calls ``jax.lax`` directly: it fires its op name
+    only, once per traced program, so a fault aimed at a primitive's
+    name reaches facade traffic in the port and not in the JAX package."""
+    _chaos(op)
     _COMMS_LOGGER.append(op, int(logical_bytes), world, axis_name,
                          wire_bytes=int(wire_bytes))
 

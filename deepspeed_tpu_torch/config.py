@@ -4,8 +4,9 @@ Ports the parts of ``deepspeed_tpu/config.py`` that the ported paths read:
 
 * :class:`ServingConfig` (the ``serving`` block of the serving front-end:
   speculative serving, ``kv_quant``, the stuck-tick watchdog, model
-  versions and the ``kv_tier`` block, :class:`KVTierConfig`). The fleet's
-  blocks (``fleet`` / ``region`` / ``rollout``) raise
+  versions, the ``kv_tier`` block, :class:`KVTierConfig`, and the
+  ``fleet`` block, :class:`FleetConfig`). The region's blocks
+  (``region`` / ``rollout``, ROADMAP.md Queue A item 5b) raise
   ``NotImplementedError`` unless empty, instead of being silently
   ignored.
 * :class:`TelemetryConfig` (the ``telemetry`` block of the serving path)
@@ -687,8 +688,190 @@ class KVTierConfig:
         return out
 
 
-# serving blocks of the fleet layer (ROADMAP.md, Queue A item 5)
-_LATER_SLICE_KEYS = ("fleet", "region", "rollout")
+@dataclass
+class FleetConfig:
+    """The ``serving.fleet`` block: the multi-replica front-end
+    (:class:`~deepspeed_tpu_torch.serving.fleet.ServingFleet`).
+
+    ``router`` picks the routing policy (``"least_loaded"`` or
+    ``"prefix_affinity"`` — consistent hashing on the prompt's full-block
+    prefix so repeat traffic lands on the replica holding its cached KV).
+    ``disaggregated`` splits the fleet into ``prefill_replicas`` replicas
+    that only compute prompt KV and hand pages off to the decode
+    replicas. ``autoscale`` turns on the telemetry-driven controller; the
+    sizing policy itself lives in
+    :class:`deepspeed_tpu_torch.elasticity.ServingElasticityConfig` (the
+    ``min_replicas``..``sla_low`` knobs here are forwarded to it, so
+    training and serving elasticity share one policy surface).
+    ``failover`` re-queues a dead replica's in-flight requests onto the
+    survivors via the bit-exact resume path; ``respawn`` additionally
+    replaces dead replicas while the healthy count sits below
+    ``min_replicas``."""
+
+    replicas: int = 1
+    router: str = "least_loaded"
+    affinity_vnodes: int = 64
+    affinity_spill_load: int = 0
+    disaggregated: bool = False
+    prefill_replicas: int = 1
+    health_interval_s: float = 0.05
+    failover: bool = True
+    respawn: bool = True
+    autoscale: bool = False
+    autoscale_interval_s: float = 1.0
+    min_replicas: int = 1
+    max_replicas: int = 8
+    scale_up_queue_per_replica: float = 8.0
+    scale_down_queue_per_replica: float = 1.0
+    kv_high: float = 0.85
+    sla_low: float = 0.90
+    sla_window: int = 64
+    # route-retry discipline (resilience/retry.py RetryBudget): each
+    # refused replica pick past the first consumes one unit from a
+    # budget shared fleet-wide (and region-wide when the fleet belongs
+    # to a region's cell), with jittered exponential backoff between
+    # attempts — a replica/cell that refuses forever is given up on
+    # explicitly (REJECTED span) instead of being hammered in a tight
+    # loop. 0 budget = first refusal already rejects.
+    route_retry_budget: int = 256
+    route_backoff_s: float = 0.02
+    route_backoff_jitter: float = 0.5
+    # gray-failure plane (serving/health.py) — all default OFF.
+    # ``quarantine`` drains a replica whose continuous health score
+    # breaches ``quarantine_threshold`` for ``quarantine_after``
+    # consecutive monitor polls out of the NEW-work routing view (never
+    # below ``min_replicas`` — the capacity floor), dwells
+    # ``quarantine_dwell_s``, then probes it with live traffic and
+    # re-admits after ``quarantine_readmit_polls`` clean polls (a
+    # probation breach doubles the dwell — hysteresis against flap).
+    # ``breakers`` arms per-replica routing circuit breakers
+    # (closed -> open after ``breaker_failures`` consecutive failures,
+    # half-open single probe after ``breaker_cooldown_s``).  ``hedge``
+    # dispatches a backup leg for an interactive request once
+    # ``hedge_ttft_fraction`` of its TTFT deadline has elapsed with no
+    # first token — first token wins, the loser is cancelled with its
+    # KV discarded, and the SLO ledger judges the request once.
+    quarantine: bool = False
+    quarantine_threshold: float = 0.5
+    quarantine_after: int = 3
+    quarantine_dwell_s: float = 8.0
+    quarantine_readmit_polls: int = 3
+    breakers: bool = False
+    breaker_failures: int = 4
+    breaker_cooldown_s: float = 5.0
+    hedge: bool = False
+    hedge_ttft_fraction: float = 0.6
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "FleetConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(
+            replicas=int(_take(d, "replicas", 1)),
+            router=str(_take(d, "router", "least_loaded")),
+            affinity_vnodes=int(_take(d, "affinity_vnodes", 64)),
+            affinity_spill_load=int(_take(d, "affinity_spill_load", 0)),
+            disaggregated=bool(_take(d, "disaggregated", False)),
+            prefill_replicas=int(_take(d, "prefill_replicas", 1)),
+            health_interval_s=float(_take(d, "health_interval_s", 0.05)),
+            failover=bool(_take(d, "failover", True)),
+            respawn=bool(_take(d, "respawn", True)),
+            autoscale=bool(_take(d, "autoscale", False)),
+            autoscale_interval_s=float(_take(d, "autoscale_interval_s", 1.0)),
+            min_replicas=int(_take(d, "min_replicas", 1)),
+            max_replicas=int(_take(d, "max_replicas", 8)),
+            scale_up_queue_per_replica=float(
+                _take(d, "scale_up_queue_per_replica", 8.0)),
+            scale_down_queue_per_replica=float(
+                _take(d, "scale_down_queue_per_replica", 1.0)),
+            kv_high=float(_take(d, "kv_high", 0.85)),
+            sla_low=float(_take(d, "sla_low", 0.90)),
+            sla_window=int(_take(d, "sla_window", 64)),
+            route_retry_budget=int(_take(d, "route_retry_budget", 256)),
+            route_backoff_s=float(_take(d, "route_backoff_s", 0.02)),
+            route_backoff_jitter=float(
+                _take(d, "route_backoff_jitter", 0.5)),
+            quarantine=bool(_take(d, "quarantine", False)),
+            quarantine_threshold=float(
+                _take(d, "quarantine_threshold", 0.5)),
+            quarantine_after=int(_take(d, "quarantine_after", 3)),
+            quarantine_dwell_s=float(
+                _take(d, "quarantine_dwell_s", 8.0)),
+            quarantine_readmit_polls=int(
+                _take(d, "quarantine_readmit_polls", 3)),
+            breakers=bool(_take(d, "breakers", False)),
+            breaker_failures=int(_take(d, "breaker_failures", 4)),
+            breaker_cooldown_s=float(
+                _take(d, "breaker_cooldown_s", 5.0)),
+            hedge=bool(_take(d, "hedge", False)),
+            hedge_ttft_fraction=float(
+                _take(d, "hedge_ttft_fraction", 0.6)),
+        )
+        if out.route_retry_budget < 0:
+            raise ConfigError(
+                f"serving.fleet.route_retry_budget must be >= 0, got "
+                f"{out.route_retry_budget}")
+        if out.route_backoff_s < 0 or out.route_backoff_jitter < 0:
+            raise ConfigError(
+                "serving.fleet route_backoff_s and route_backoff_jitter "
+                "must be >= 0")
+        if out.router not in ("least_loaded", "prefix_affinity",
+                              "residency"):
+            raise ConfigError(
+                f"serving.fleet.router must be 'least_loaded', "
+                f"'prefix_affinity' or 'residency', got '{out.router}'")
+        if out.replicas < 1:
+            raise ConfigError(
+                f"serving.fleet.replicas must be >= 1, got {out.replicas}")
+        if out.disaggregated and out.prefill_replicas < 1:
+            raise ConfigError(
+                f"serving.fleet.prefill_replicas must be >= 1 in "
+                f"disaggregated mode, got {out.prefill_replicas}")
+        if not 1 <= out.min_replicas <= out.max_replicas:
+            raise ConfigError(
+                f"serving.fleet needs 1 <= min_replicas <= max_replicas, "
+                f"got [{out.min_replicas}, {out.max_replicas}]")
+        if out.scale_down_queue_per_replica > out.scale_up_queue_per_replica:
+            # fail at parse, not as an ElasticityError inside every
+            # monitor poll (the hysteresis band must be non-negative)
+            raise ConfigError(
+                "serving.fleet.scale_down_queue_per_replica must not "
+                "exceed scale_up_queue_per_replica "
+                f"({out.scale_down_queue_per_replica} > "
+                f"{out.scale_up_queue_per_replica})")
+        if out.sla_window < 1:
+            raise ConfigError(
+                f"serving.fleet.sla_window must be >= 1, got "
+                f"{out.sla_window}")
+        if not 0.0 < out.quarantine_threshold <= 1.0:
+            raise ConfigError(
+                f"serving.fleet.quarantine_threshold must be in (0, 1], "
+                f"got {out.quarantine_threshold}")
+        if out.quarantine_after < 1 or out.quarantine_readmit_polls < 1:
+            raise ConfigError(
+                "serving.fleet quarantine_after and "
+                "quarantine_readmit_polls must be >= 1")
+        if out.quarantine_dwell_s <= 0:
+            raise ConfigError(
+                f"serving.fleet.quarantine_dwell_s must be > 0, got "
+                f"{out.quarantine_dwell_s}")
+        if out.breaker_failures < 1 or out.breaker_cooldown_s <= 0:
+            raise ConfigError(
+                "serving.fleet breaker_failures must be >= 1 and "
+                "breaker_cooldown_s > 0")
+        if not 0.0 < out.hedge_ttft_fraction < 1.0:
+            # 0 would hedge EVERY interactive request on submit; 1
+            # would hedge only after the deadline is already blown
+            raise ConfigError(
+                f"serving.fleet.hedge_ttft_fraction must be in (0, 1), "
+                f"got {out.hedge_ttft_fraction}")
+        _warn_unknown(d, "serving.fleet")
+        return out
+
+
+# serving blocks of the region layer (ROADMAP.md, Queue A item 5b)
+_LATER_SLICE_KEYS = ("region", "rollout")
 # hot_swap's warm-up without a rollout block: the JAX RolloutConfig default
 DEFAULT_WARMUP_TICKS = 2
 
@@ -714,9 +897,10 @@ class ServingConfig:
     replica marks itself watchdog-unhealthy (0: log only).
     ``model_version`` is the weights' version a replica starts serving
     (bumped by ``hot_swap``); ``kv_tier`` is the global KV tier's block
-    (:class:`KVTierConfig`). The ``fleet``, ``region`` and ``rollout``
-    blocks raise ``NotImplementedError`` unless empty: they come with the
-    fleet (ROADMAP.md, Queue A item 5).
+    (:class:`KVTierConfig`); ``fleet`` is the multi-replica front-end's
+    block (:class:`FleetConfig`). The ``region`` and ``rollout`` blocks
+    raise ``NotImplementedError`` unless empty: they come with the region
+    (ROADMAP.md, Queue A item 5b).
 
     ``speculative`` turns on prompt-lookup speculative decoding inside the
     serving tick: draft chains (``spec_ngram``-gram lookups, at most
@@ -747,6 +931,7 @@ class ServingConfig:
     spec_ema: float = 0.25
     kv_quant: str = "none"
     model_version: int = 0
+    fleet: FleetConfig = field(default_factory=FleetConfig)
     kv_tier: KVTierConfig = field(default_factory=KVTierConfig)
 
     @classmethod
@@ -761,8 +946,9 @@ class ServingConfig:
                     raise NotImplementedError(
                         f"serving.{key}={v!r}: not ported yet — it comes "
                         f"with a later slice of deepspeed_tpu_torch "
-                        f"(the fleet: ROADMAP.md, Queue A item 5)")
+                        f"(the region: ROADMAP.md, Queue A item 5b)")
         out = cls(
+            fleet=FleetConfig.from_dict(_take(d, "fleet", None)),
             kv_tier=KVTierConfig.from_dict(_take(d, "kv_tier", None)),
             max_queue=int(_take(d, "max_queue", 256)),
             policy=str(_take(d, "policy", "slo")),

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..resilience.locksan import named_lock
+from .router import _hash64
 
 __all__ = ["PrefixExport", "PrefixDirectory", "ColdTier", "KVTier",
            "CorruptExport", "prefix_hash", "export_checksum"]
@@ -53,13 +54,6 @@ _INT_VIEW = {torch.bfloat16: torch.int16, torch.float16: torch.int16}
 class CorruptExport(ValueError):
     """An adopted export failed its checksum at the importer. A
     ValueError, so every "degrade to local prefill" handler covers it."""
-
-
-def _hash64(data: str) -> int:
-    """Stable 64-bit hash (sha256-derived, identical across processes;
-    the JAX package's ``router._hash64``)."""
-    return int.from_bytes(
-        hashlib.sha256(data.encode("utf-8")).digest()[:8], "big")
 
 
 def prefix_hash(tokens: Sequence[int]) -> int:

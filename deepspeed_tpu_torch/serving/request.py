@@ -153,6 +153,11 @@ class Request:
         # fleet-internal: hand this request from its prefill replica to a
         # decode replica once its first token resolves (disaggregated mode)
         self._handoff_requested = False
+        # routing witness, stamped by the fleet: the soft canary/stable
+        # version preference had no accepting capacity and this request
+        # spilled to whatever could serve (availability over version
+        # affinity)
+        self._canary_spilled = False
         # speculative-decoding driver state: rolling per-request
         # acceptance EMA (optimistic start — a fresh request gets full
         # drafts until it proves unpredictable) and the per-request

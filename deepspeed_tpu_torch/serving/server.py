@@ -890,7 +890,7 @@ class ServingEngine:
     def gray_drain(self) -> Tuple[int, int]:
         """(busy_ticks, distress_ticks) since the previous drain, in one
         lock acquisition — the fleet monitor folds the ratio into this
-        replica's ``ReplicaHealth`` (``serving/health.py``, with the fleet)
+        replica's :class:`~deepspeed_tpu_torch.serving.health.ReplicaHealth`
         score each poll. Draining (rather than cumulative counters)
         keeps every poll's sample independent, so one bad burst ages out
         of the EWMA instead of haunting the lifetime average."""
@@ -1361,7 +1361,11 @@ class ServingEngine:
     def _process_cancellations(self) -> None:
         for uid, req in list(self._live.items()):
             if req._cancel_requested:
-                self._release_engine_state(uid, publish=True)
+                # a hedge loser's KV is suspect (the replica lost the race
+                # for a reason): discard it unpublished instead of
+                # offering it to the prefix cache
+                self._release_engine_state(
+                    uid, publish=not getattr(req, "_discard_kv", False))
                 del self._live[uid]
                 self._retire(req, RequestState.CANCELLED)
 
@@ -1834,7 +1838,7 @@ class ServingEngine:
         with self._lock:
             backlog, self._span_backlog = self._span_backlog, []
         for req in backlog:
-            emit_request_span(self._telemetry, req, digest=self.digest)
+            self._emit_span(req)
             if self._on_retire is not None:
                 try:
                     self._on_retire(req)
@@ -1842,6 +1846,26 @@ class ServingEngine:
                     logger.exception(
                         f"ServingEngine: on_retire callback failed "
                         f"(request {req.uid})")
+
+    def _emit_span(self, req: Request) -> None:
+        gate = getattr(req, "_hedge", None)
+        if gate is not None:
+            # a terminal leg decides a still-undecided hedge race (the
+            # primary wins by default: its outcome is what the client
+            # sees; a shadow that dies first just failed to help)
+            gate.settle(req.uid)
+            if gate.is_suppressed(req.uid):
+                # decided loser: the ledger judges the client request
+                # once, on the winning leg — no span, no SLO verdict. The
+                # trace tree still closes (an open root would read as a
+                # leaked request)
+                finish_request_trace(req, state=req.state.value,
+                                     new_tokens=len(req.tokens),
+                                     error=req.error,
+                                     hedge_suppressed=True)
+                self._count("hedge_suppressed_spans")
+                return
+        emit_request_span(self._telemetry, req, digest=self.digest)
 
     def _update_gauges(self) -> None:
         t = self._telemetry

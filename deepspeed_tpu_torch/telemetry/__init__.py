@@ -1,7 +1,8 @@
 """Unified telemetry: the shared metrics registry, request/step span
 records, sinks, heartbeat and stall detection, the request-scoped tracer
-and the replica digest (ports ``deepspeed_tpu/telemetry``; ``slo.py``
-comes with the fleet)."""
+and the replica digest (ports ``deepspeed_tpu/telemetry``; ``slo.py``,
+whose one user is the region, comes with it: ROADMAP.md Queue A item
+5b)."""
 
 from .registry import (  # noqa: F401
     Counter,

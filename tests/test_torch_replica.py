@@ -23,11 +23,17 @@ same script on both sides and requires identical observations:
 Scenarios: telemetry on, the stuck-tick watchdog, the preemption latch,
 hot swap (success, a raising ``load_fn``, an injected corrupt load),
 migrate_out -> adopt (with and without flaky imports), kill -> evacuate ->
-resubmit, ``steal_queued``, ``gray_drain`` under degraded ticks, the
+resubmit, a migration whose first ``kv_handoff`` export fails under
+chaos (falling back to evacuate), ``steal_queued``, ``gray_drain`` under degraded ticks, the
 disaggregated hand-off callback, KV-tier prefix adoption (clean and
 corrupted) and chaos tick faults. A last test runs the port's driver
 and watchdog threads under ``use_locksan`` with zero violations.
 Tolerance: none — every comparison is exact equality.
+
+Both packages' process-global comms loggers are pinned on (and reset) for
+each scenario: each package books ``comm/...`` registry rows only while
+its own logger is enabled, and other test files in the same process may
+leave the JAX one on.
 """
 
 import contextlib
@@ -40,6 +46,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import deepspeed_tpu.comm.comm as jcomm
 import deepspeed_tpu.resilience.chaos as jchaos
 import deepspeed_tpu.resilience.clock as jclock
 import deepspeed_tpu.resilience.locksan as jlocksan
@@ -47,6 +54,7 @@ import deepspeed_tpu.resilience.preemption as jpre
 import deepspeed_tpu.serving.kvtier as jkvtier
 import deepspeed_tpu.telemetry as jtel
 import deepspeed_tpu.telemetry.tracing as jtracing
+import deepspeed_tpu_torch.comm.comm as tcomm
 import deepspeed_tpu_torch.resilience.chaos as tchaos
 import deepspeed_tpu_torch.resilience.clock as tclock
 import deepspeed_tpu_torch.resilience.locksan as tlocksan
@@ -85,6 +93,22 @@ def weights():
     return jm, [jax.tree_util.tree_map(np.asarray,
                                        jm.init(jax.random.PRNGKey(s)))
                 for s in (5, 6)]
+
+
+@contextlib.contextmanager
+def comms_loggers_on():
+    """Both packages' comms loggers enabled and reset for the block; each
+    logger's previous ``enabled`` / ``verbose`` restored after it."""
+    saved = [(m, m.get_comms_logger().enabled, m.get_comms_logger().verbose)
+             for m in (jcomm, tcomm)]
+    for m, _, _ in saved:
+        m.configure_comms_logger(True)
+        m.get_comms_logger().reset()
+    try:
+        yield
+    finally:
+        for m, enabled, verbose in saved:
+            m.configure_comms_logger(enabled, verbose)
 
 
 class Side:
@@ -133,8 +157,9 @@ class Side:
 
     @contextlib.contextmanager
     def instrumented(self, tmp_path, injector=None):
-        """SimClock, telemetry (records + tracing) and an optional fault
-        injector installed for the block; cleared after it."""
+        """SimClock, telemetry (records + tracing), both comms loggers on
+        (:func:`comms_loggers_on`) and an optional fault injector
+        installed for the block; cleared after it."""
         out = tmp_path / self.name
         out.mkdir(parents=True, exist_ok=True)
         self.records_path = out / "requests.jsonl"
@@ -143,7 +168,7 @@ class Side:
             enabled=True, output_dir=str(out), jsonl_path="",
             requests_jsonl_path=str(self.records_path),
             stall_detection=False, tracing=True, flight_capacity=64)
-        with self.clock.use_clock(self.sim):
+        with self.clock.use_clock(self.sim), comms_loggers_on():
             t = self.tel.set_telemetry(self.tel.Telemetry(
                 cfg, registry=self.tel.MetricsRegistry()))
             self.telemetry = t
@@ -383,6 +408,46 @@ def test_migrate_out_then_adopt(weights, tmp_path, flaky):
     assert adopted + fallbacks == len(obs["shipped"])
     assert (fallbacks > 0) == bool(flaky)
     assert reg["inference/kv_exports"] == len(obs["shipped"])
+
+
+def test_migration_under_failed_kv_handoff_falls_back_to_evacuate(
+        weights, tmp_path):
+    """A ``kv_handoff`` collective fault (the chaos hook in
+    ``record_collective``) fails the first export of ``migrate_out`` as a
+    crash, before any request has left the replica: the caller falls back
+    to ``evacuate`` and resubmits every request, which re-prefills
+    elsewhere with unchanged streams."""
+    def scenario(side):
+        a, b = _two(side)
+        reqs = [a.submit(p, max_new_tokens=8) for p in PROMPTS]
+        side.drive([a], lambda: sum(len(r.tokens) >= 2 for r in reqs) >= 3)
+        a.kill()
+        try:
+            a.migrate_out()
+            failed = None
+        except side.chaos.CollectiveFault as e:
+            failed = str(e)
+        orphans = a.evacuate()
+        for r in orphans:
+            assert b.submit_request(r, requeue=True) is r
+        side.drive([b], lambda: all(r.is_terminal for r in reqs))
+        ref = _reference(side, PROMPTS, 8)
+        return side.observe(reqs, failed=failed,
+                            orphans=sorted(reqs.index(r) for r in orphans),
+                            leaks=a.block_leaks() + b.block_leaks(),
+                            same=[r.tokens for r in reqs] == ref)
+
+    obs = _run(weights, tmp_path, scenario,
+               injector={"collective_fail_op": "kv_handoff",
+                         "collective_fail_at_call": 1})
+    assert obs["failed"] == "injected fault: collective_fail:kv_handoff"
+    assert obs["orphans"] == [0, 1, 2, 3, 4]
+    assert obs["leaks"] == [] and obs["same"]
+    assert obs["states"] == ["finished"] * 5
+    reg = obs["registry"]
+    assert "comm/kv_handoff/calls" not in reg     # the failed one unbooked
+    assert reg["inference/kv_exports"] == 1
+    assert reg["resilience/chaos/collective_fail/kv_handoff"] == 1
 
 
 def test_kill_evacuate_resubmit(weights, tmp_path):
