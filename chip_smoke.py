@@ -122,6 +122,23 @@ CPU path — without a CUDA device the script fails):
    fault injector slows 8x (the shadow wins, the loser's span is
    suppressed, one record per client request); (g) the phase's paged
    launches (from 0), tile and lane items, peak memory;
+6e. region: a ``Region`` of Llama-2-7B cells on the same model (a fresh
+   512-page engine per replica): (a) 2 cells x 2 prefix-affinity
+   replicas with the monitor and driver threads, 6d (a)'s 16 requests
+   (each prefix on one cell and replica, prefix-cache hit tokens, TTFT
+   p50 / max, tokens/s, streams equal a single-engine run up to
+   near-ties, no leak); (b) the same traffic again and ``kill_cell`` on
+   the busiest cell mid-decode: its orphans finish on the other cell;
+   (c) 2 cells x (1 prefill + 1 decode), cell-0's decode replica dead,
+   the cells severed while hand-offs are in flight (``CellUnreachable``,
+   hand-offs decoded on cell-0's prefill replica, cell-1 serving its own
+   while unreachable), then a heal and a rebalance of the requests
+   queued meanwhile; (d) ``start_rollout(2, load_fn)`` to a second
+   Llama-2-7B's weights under traffic, to DONE (no stream mixes
+   versions, v2 streams equal a single-engine run on v2 up to
+   near-ties), then a rollout with an injected canary SLO regression
+   that rolls back; (e) the phase's paged launches (from 0), tile and
+   lane items, peak memory;
 6a. inference: ``init_inference(Llama("7b"))`` with int8 weights at group
    256 (path A), then bf16 and int4 weights: 4 prompts of 128 tokens, 32
    new tokens greedy; weight bytes, memory, prefill and decode times,
@@ -1860,8 +1877,8 @@ def _drive(servers, done, limit: int = 4000) -> None:
     raise SystemExit(f"replicas made no progress in {limit} ticks")
 
 
-def _streams_ok(eng, prompts, got, ref, err: float) -> tuple:
-    """Streams of 32 tokens equal to ``ref``, or differing first at a
+def _streams_ok(eng, prompts, got, ref, err: float, n: int = 32) -> tuple:
+    """Streams of ``n`` tokens equal to ``ref``, or differing first at a
     near-tie of the reference run: a top-two logit gap within twice the
     measured verify error (phase 6b's rule). Returns (ok, identical,
     [(request, first position, gap)])."""
@@ -1873,7 +1890,7 @@ def _streams_ok(eng, prompts, got, ref, err: float) -> tuple:
         j = next((k for k, (x, y) in enumerate(zip(g, r)) if x != y),
                  min(len(g), len(r)))
         ties.append((i, j, _near_tie(eng, p, r, j)))
-    ok = (all(len(g) == 32 for g in got)
+    ok = (all(len(g) == n for g in got)
           and all(gap <= 2 * err for _, _, gap in ties))
     return ok, same, ties
 
@@ -2468,6 +2485,18 @@ def _wait(cond, what: str, timeout: float = 300.0) -> None:
         time.sleep(0.002)
 
 
+def _affinity_prompts() -> list:
+    """6d (a)'s and 6e (a)'s 16 prompts: 4 seeded ``FLEET_PREFIX``-token
+    prefixes x 4 seeded suffixes of 1-15 tokens (under one 16-token
+    block, so each prompt's routing key is its prefix), prefix i % 4."""
+    rng = np.random.default_rng(11)
+    prefixes = [rng.integers(1, 32000, FLEET_PREFIX).tolist()
+                for _ in range(4)]
+    suffixes = [rng.integers(1, 32000, int(n)).tolist()
+                for n in rng.integers(1, 16, 4)]
+    return [prefixes[i % 4] + suffixes[i // 4] for i in range(16)]
+
+
 def _fleet_unified(model, counter, ref_eng, err: float, card: str) -> dict:
     """6d (a) + (c): a 3-replica prefix-affinity fleet with its driver and
     monitor threads. (a) 4 seeded 512-token prefixes x 4 seeded suffixes
@@ -2481,12 +2510,7 @@ def _fleet_unified(model, counter, ref_eng, err: float, card: str) -> dict:
                                                       RaggedInferenceEngine)
     from deepspeed_tpu_torch.serving import ServingFleet
 
-    rng = np.random.default_rng(11)
-    prefixes = [rng.integers(1, 32000, FLEET_PREFIX).tolist()
-                for _ in range(4)]
-    suffixes = [rng.integers(1, 32000, int(n)).tolist()
-                for n in rng.integers(1, 16, 4)]
-    prompts = [prefixes[i % 4] + suffixes[i // 4] for i in range(16)]
+    prompts = _affinity_prompts()
     ref = _serve_once(ref_eng, prompts)
     ref_eng.prefix_cache.drop_all(ref_eng.allocator)
     cfg = RaggedConfig(n_kv_blocks=REPLICA_PAGES, enable_prefix_cache=True,
@@ -2853,6 +2877,466 @@ def phase_fleet(model, card: str, err: dict) -> dict:
                 "peak_gib": peak, "seconds": took})
     return out
 
+
+
+# --------------------------------------------------------------- phase 6e
+REGION_FLEET = {"replicas": 2, "router": "prefix_affinity"}
+REGION_DISAGG = {"disaggregated": True, "prefill_replicas": 1,
+                 "replicas": 1, "respawn": False}
+# (d): a canary slice of half the tenants, a short observe window for the
+# rollout that promotes and a long one for the one that must roll back
+REGION_ROLLOUT = {"canary_fraction": 0.5, "canary_observe_ticks": 20,
+                  "slo_regression_threshold": 0.2, "min_canary_samples": 4,
+                  "warmup_ticks": 1, "swap_retry_limit": 2,
+                  "max_flip_attempts": 4}
+ROLLOUT_DT = 0.01             # virtual seconds a region step in (d)
+ROLLOUT_DEADLINE = 0.25       # (d)'s regression run: 25 region steps
+ROLLOUT_TOKENS = 16
+ROLLOUT_WAVES = 40
+# region steps without arrivals after each wave of (d): the controller
+# counts a flipped replica only at a poll that finds it accepting with no
+# load, and a request arriving between the end of its warm-up and that
+# poll lands on it first (ROADMAP Queue C, C5)
+ROLLOUT_GAP = 2
+
+
+def _region_place(region, req) -> tuple:
+    """(cell, replica) a request was routed to, read right after submit."""
+    cell = region._requests.get(req.uid, (None, None))[1]
+    fleet = region._cells[cell].fleet if cell is not None else None
+    rep = (fleet._requests.get(req.uid, (None, None))[1]
+           if fleet is not None else None)
+    return cell, rep
+
+
+def _region_unified(factory, counter, ref_eng, err: float, card: str) -> dict:
+    """6e (a) + (b): 2 cells of 2 prefix-affinity replicas behind a
+    ``Region`` with its monitor and every replica's driver thread. (a)
+    6d (a)'s 16 requests, one of each prefix first, then the other
+    twelve; (b) the sixteen again, and the cell holding the most is
+    killed once one of its requests has decoded 2 tokens."""
+    import tempfile
+
+    from deepspeed_tpu_torch.serving import Region
+
+    prompts = _affinity_prompts()
+    ref = _serve_once(ref_eng, prompts)
+    ref_eng.prefix_cache.drop_all(ref_eng.allocator)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tel, _, _ = _replica_telemetry(tmp)
+        region = Region(factory, {"cells": 2}, REGION_FLEET, FLEET_SERVING,
+                        start=True)
+        try:
+            hits0 = counter.hit_tokens
+            t0 = time.perf_counter()
+            reqs = [region.submit(p, max_new_tokens=32) for p in prompts[:4]]
+            placed = [_region_place(region, r) for r in reqs]
+            _wait(lambda: all(r.is_terminal for r in reqs),
+                  "region (a) warm-up")
+            t1 = time.perf_counter()
+            reqs += [region.submit(p, max_new_tokens=32)
+                     for p in prompts[4:]]
+            placed += [_region_place(region, r) for r in reqs[4:]]
+            _wait(lambda: all(r.is_terminal for r in reqs),
+                  "region (a) served")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            wall, cold, warm = t2 - t0, t1 - t0, t2 - t1
+            hits = counter.hit_tokens - hits0
+            reg = tel.registry.snapshot()
+            got = [list(r.tokens) for r in reqs]
+            ok_s, same, ties = _streams_ok(ref_eng, prompts, got, ref, err)
+            ttft = sorted(r.t_first_token - r.t_submit for r in reqs)
+            groups = [sorted({placed[i] for i in range(16) if i % 4 == g})
+                      for g in range(4)]
+            ntok = sum(len(g) for g in got)
+            leaks = region.block_leaks()
+            ok = (ok_s and not leaks and all(len(g) == 1 for g in groups)
+                  and reg.get("serving/region/routed") == 16
+                  and hits >= 12 * FLEET_PREFIX
+                  and all(r.state.value == "finished" for r in reqs))
+            log(f"region (a) [{card}]: 2 cells x 2 replicas, "
+                f"prefix_affinity, 16 requests (4 prefixes x 4 suffixes): "
+                f"(cell, replica) per prefix {groups}, routed "
+                f"{reg.get('serving/region/routed')}, prefix-cache hit "
+                f"tokens {hits} (expect 12 x {FLEET_PREFIX}), TTFT p50 "
+                f"{ttft[8]:.4f} s max {ttft[-1]:.4f} s, {ntok} tokens in "
+                f"{wall:.3f} s = {ntok / wall:.1f} tokens/s (the 4 cold "
+                f"requests {cold:.3f} s, then the 12 warm {warm:.3f} s = "
+                f"{384 / warm:.1f} tokens/s); streams equal the "
+                f"single-engine run {same} of 16, differing (request, first "
+                f"position, top-two gap) {ties} against 2 x {err:.4e}; "
+                f"block leaks {leaks} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("region (a) failed")
+            out["a"] = {"placed": groups, "hit_tokens": hits,
+                        "ttft_p50": ttft[8], "ttft_max": ttft[-1],
+                        "tokens_per_s": ntok / wall, "wall": wall,
+                        "cold_s": cold, "warm_s": warm}
+            t0 = time.perf_counter()
+            reqs = [region.submit(p, max_new_tokens=32) for p in prompts]
+            where = {r.uid: _region_place(region, r)[0] for r in reqs}
+            victim = max(sorted(set(where.values())),
+                         key=list(where.values()).count)
+            mine = [r for r in reqs if where[r.uid] == victim]
+            _wait(lambda: any(len(r.tokens) >= 2 for r in mine),
+                  "(b) a decode on the victim cell")
+            at_kill = [len(r.tokens) for r in mine]
+            if not region.kill_cell(victim, reason="phase 6e (b)"):
+                raise SystemExit(f"region (b): {victim} could not be killed")
+            _wait(lambda: all(r.is_terminal for r in reqs), "(b) served")
+            wall_b = time.perf_counter() - t0
+            reg = tel.registry.snapshot()
+            got = [list(r.tokens) for r in reqs]
+            ok_s, same, ties = _streams_ok(ref_eng, prompts, got, ref, err)
+            region.drain(timeout=60)
+            leaks = region.block_leaks()
+            orphans = reg.get("serving/region/cell_failovers", 0)
+            cells = {c.name: c.state for c in region.cells}
+            ok = (ok_s and not leaks and orphans >= 1
+                  and all(r.state.value == "finished" for r in reqs)
+                  and list(cells.values()).count("dead") == 1)
+            log(f"region (b) [{card}]: killed {victim} holding {len(mine)} "
+                f"requests at tokens {at_kill}; {orphans} orphans re-placed "
+                f"on the other cell, all 16 finished in {wall_b:.3f} s; "
+                f"streams equal the single-engine run {same} of 16, "
+                f"differing {ties}; cells {cells}; block leaks (the dead "
+                f"cell's included) {leaks} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("region (b) failed")
+            out["b"] = {"victim": victim, "orphans": orphans,
+                        "wall": wall_b}
+        finally:
+            region.close(timeout=60)
+            _replica_telemetry_off()
+    return out
+
+
+def _region_partition(factory, counter, ref_eng, prompts, ref, err: float,
+                      card: str) -> dict:
+    """6e (c): 2 cells of 1 prefill + 1 decode replica, driven by
+    ``step()``. Cell-0 loses its decode replica, phase 5's 8 requests are
+    submitted, and after the first step the region and cell-0 are severed
+    from cell-1 while hand-offs are in flight: cell-0's hand-offs escalate
+    across cells, meet ``CellUnreachable`` and are decoded by cell-0's
+    prefill replica; cell-1, unreachable, serves out its own. 6 short
+    requests submitted during the partition all queue on cell-0; the heal
+    and the poll after it rebalance the queue onto cell-1."""
+    import tempfile
+
+    from deepspeed_tpu_torch.serving import CellUnreachable, Region
+    from deepspeed_tpu_torch.serving.cell import check_reachable
+
+    burst = [p[:48] for p in prompts[:6]]
+    ref_burst = _serve_once(ref_eng, burst)
+    times = counter.handoff
+    for v in times.values():
+        v.clear()
+
+    def drive(reqs):
+        for _ in range(4000):
+            if all(r.is_terminal for r in reqs):
+                return
+            region.step()
+        raise SystemExit("region (c) made no progress")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tel, _, inj = _replica_telemetry(tmp)
+        region = Region(factory, {"cells": 2, "rebalance_threshold": 1.0},
+                        REGION_DISAGG, REPLICA_SERVING, start=False)
+        try:
+            cell0 = region._cells["cell-0"]
+            decode = [r.name for r in cell0.fleet.replicas
+                      if r.role == "decode"]
+            cell0.fleet.kill_replica(decode[0], reason="phase 6e (c)")
+            t0 = time.perf_counter()
+            reqs = [region.submit(p, max_new_tokens=32) for p in prompts]
+            placed = [_region_place(region, r)[0] for r in reqs]
+            region.step()
+            inj.sever({"cell-0", region.name}, {"cell-1"})
+            try:
+                check_reachable("cell-0", "cell-1", op="kv_adoption")
+                typed = None
+            except CellUnreachable as e:
+                typed = f"{type(e).__name__}: {e}"
+            drive(reqs)
+            served = [r.state.value for r in reqs]
+            late = [region.submit(p, max_new_tokens=32) for p in burst]
+            before = [_region_place(region, r)[0] for r in late]
+            inj.heal_partitions()
+            region.poll()
+            after = [_region_place(region, r)[0] for r in late]
+            drive(late)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            reg = tel.registry.snapshot()
+            ok_a, same_a, ties_a = _streams_ok(
+                ref_eng, prompts, [list(r.tokens) for r in reqs], ref, err)
+            ok_b, same_b, ties_b = _streams_ok(
+                ref_eng, burst, [list(r.tokens) for r in late], ref_burst,
+                err)
+            region.drain(timeout=60)
+            leaks = region.block_leaks()
+        finally:
+            region.close(timeout=60)
+            _replica_telemetry_off()
+    handoffs = sum(v for k, v in reg.items()
+                   if k.endswith("/fleet/handoffs"))
+    blocked = reg.get("serving/region/partition_blocked_handoffs", 0)
+    degrades = reg.get("serving/region/handoff_degrades", 0)
+    adopted = reg.get("serving/region/handoff_escalations", 0)
+    moved = reg.get("serving/region/rebalanced", 0)
+    n = len(times["export"])
+    mb = [b / 2 ** 20 for b in times["bytes"]]
+    ok = (ok_a and ok_b and not leaks and typed is not None
+          and "cell-0" in placed and "cell-1" in placed
+          and served == ["finished"] * 8 and blocked >= 1 and degrades >= 1
+          and set(before) == {"cell-0"} and "cell-1" in after and moved >= 1
+          and all(r.state.value == "finished" for r in late))
+    log(f"region (c) [{card}]: 2 cells x (1 prefill + 1 decode), cell-0's "
+        f"decode replica dead, phase 5's 8 requests on cells {placed}; "
+        f"severed {{cell-0, region}} | {{cell-1}} after the first step: "
+        f"check_reachable -> {typed}; {adopted} cross-cell adoption(s) "
+        f"before the sever, {blocked} blocked by the partition, {degrades} "
+        f"decoded by cell-0's prefill replica; all 8 finished while "
+        f"partitioned {served == ['finished'] * 8}; 6 requests submitted "
+        f"during the partition on {before}, after the heal and a poll on "
+        f"{after} ({moved} rebalanced); {handoffs} hand-offs, export_kv ms "
+        f"{[round(x, 3) for x in times['export']]}, import_kv ms "
+        f"{[round(x, 3) for x in times['import']]}, MB "
+        f"{[round(x, 2) for x in mb]} (per hand-off: export "
+        f"{sum(times['export']) / max(n, 1):.3f} ms, import "
+        f"{sum(times['import']) / max(len(times['import']), 1):.3f} ms, "
+        f"{sum(mb) / max(n, 1):.2f} MB); 14 requests in {wall:.3f} s; "
+        f"streams equal the single-engine run {same_a} of 8 and {same_b} "
+        f"of 6, differing {ties_a + ties_b}; block leaks {leaks} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("region (c) failed")
+    return {"handoffs": handoffs, "blocked": blocked, "degrades": degrades,
+            "adopted": adopted, "rebalanced": moved,
+            "export_ms": sum(times["export"]) / max(n, 1),
+            "import_ms": sum(times["import"]) / max(len(times["import"]), 1),
+            "bytes": sum(times["bytes"]) // max(n, 1), "wall": wall}
+
+
+def _region_rollout(model, counter, cfg, ref_eng, err: float,
+                    card: str) -> dict:
+    """6e (d): 2 cells of 2 replicas on version 1 (``model``), driven by
+    ``step()`` under a ``SimClock``, waves of 8 requests (8 seeded prompts,
+    8 tenants), each served out and followed by ``ROLLOUT_GAP`` quiet
+    steps. ``start_rollout(2, load_fn)`` to a second
+    Llama-2-7B (seed 2) runs to DONE; then, on a fresh region, a rollout
+    to it with the injected canary SLO regression (``degrade_model_version``,
+    deadlines of 25 steps) must roll back. The ``load_fn`` points the
+    engine of the one replica being flipped (admission stopped, no load,
+    not on the target version) at the target version's model."""
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.ragged import RaggedInferenceEngine
+    from deepspeed_tpu_torch.models.llama import Llama
+    from deepspeed_tpu_torch.resilience.clock import SimClock
+    from deepspeed_tpu_torch.serving import TERMINAL_PHASES, Region
+
+    v2 = Llama("7b", dtype=torch.bfloat16, seed=2)
+    models = {1: model, 2: v2}
+    rng = np.random.default_rng(12)
+    pool = [rng.integers(1, 32000, int(n)).tolist()
+            for n in rng.integers(24, 65, 8)]
+    ref_eng2 = counter.wrap(RaggedInferenceEngine(v2, cfg))
+    refs = {1: _serve_once(ref_eng, pool, ROLLOUT_TOKENS),
+            2: _serve_once(ref_eng2, pool, ROLLOUT_TOKENS)}
+    engs = {1: ref_eng, 2: ref_eng2}
+    factory = (lambda: counter.wrap(RaggedInferenceEngine(model, cfg)))
+
+    def run(regress: bool) -> dict:
+        sim = SimClock(start=100.0)
+        rollout = dict(REGION_ROLLOUT,
+                       canary_observe_ticks=120 if regress else 20)
+        flips = []
+        with tempfile.TemporaryDirectory() as tmp:
+            tel, _, inj = _replica_telemetry(tmp)
+            region = Region(factory, {"cells": 2},
+                            {"replicas": 2, "router": "least_loaded",
+                             "respawn": False},
+                            {**REPLICA_SERVING, "model_version": 1,
+                             "rollout": rollout},
+                            start=False, clock=sim)
+
+            def load_fn():
+                ro = region.rollout
+                target = (ro.stable_version if ro.phase == "rolling_back"
+                          else ro.target_version)
+                flipping = [r for c in region.live_cells
+                            for r in c.fleet.replicas
+                            if r.state == "healthy" and not r.accepting
+                            and r.load == 0 and r.version != target]
+                if len(flipping) != 1:
+                    raise SystemExit(f"region (d): {len(flipping)} replicas "
+                                     f"being flipped, expected one")
+                rep = flipping[0]
+                rep.engine.model = models[target]
+                flips.append((rep.name, rep.version, target))
+
+            reqs, steps = [], 0
+            try:
+                t0 = time.perf_counter()
+                for wave in range(ROLLOUT_WAVES):
+                    batch = [region.submit(
+                        p, max_new_tokens=ROLLOUT_TOKENS, tenant=f"t{i}",
+                        deadline_s=ROLLOUT_DEADLINE if regress else None)
+                        for i, p in enumerate(pool)]
+                    reqs += batch
+                    if wave == 0:
+                        started = region.start_rollout(2, load_fn=load_fn)
+                        if regress:
+                            inj.degrade_model_version(2)
+                    gap = ROLLOUT_GAP
+                    while gap:
+                        region.step()
+                        sim.advance(ROLLOUT_DT)
+                        steps += 1
+                        gap -= all(r.is_terminal for r in batch)
+                    if region.rollout.phase in TERMINAL_PHASES:
+                        break
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                reg = tel.registry.snapshot()
+                phase = region.rollout.phase
+                log_kinds = [row["kind"] for row in region.version_log]
+                reps = [(r.name, r.version, models[r.version] is r.engine.model)
+                        for c in region.live_cells for r in c.fleet.replicas
+                        if r.state != "dead"]
+                region.drain(timeout=60)
+                leaks = region.block_leaks()
+            finally:
+                region.close(timeout=60)
+                _replica_telemetry_off()
+        mixed = sum(len(set(r.served_versions)) != 1 for r in reqs)
+        by_version = {}
+        for v in (1, 2):
+            mine = [(pool.index(r.prompt), list(r.tokens)) for r in reqs
+                    if r.served_versions == [v]]
+            by_version[v] = (len(mine), _streams_ok(
+                engs[v], [pool[i] for i, _ in mine], [g for _, g in mine],
+                [refs[v][i] for i, _ in mine], err, ROLLOUT_TOKENS))
+        if phase not in TERMINAL_PHASES:
+            raise SystemExit(f"region (d): rollout still {phase} after "
+                             f"{ROLLOUT_WAVES} waves")
+        return {"started": started, "phase": phase, "log": log_kinds,
+                "reps": reps, "flips": flips, "mixed": mixed,
+                "by_version": by_version, "steps": steps, "wall": wall,
+                "requests": len(reqs), "leaks": leaks,
+                "finished": sum(r.state.value == "finished" for r in reqs),
+                "regressions": reg.get("serving/rollout/canary_regressions",
+                                       0),
+                "degraded": sum(v for key, v in reg.items()
+                                if key.endswith("/degraded_ticks"))}
+
+    def report(tag, r, want_phase, want_version, want_log):
+        n1, (ok1, same1, ties1) = r["by_version"][1]
+        n2, (ok2, same2, ties2) = r["by_version"][2]
+        ok = (r["started"] and r["phase"] == want_phase and r["mixed"] == 0
+              and ok1 and ok2 and n2 > 0 and not r["leaks"]
+              and r["finished"] == r["requests"]
+              and all(v == want_version and same for _, v, same in r["reps"])
+              and want_log(r["log"]))
+        log(f"region (d) {tag} [{card}]: {r['requests']} requests over "
+            f"{r['steps']} region steps ({r['wall']:.3f} s): phase "
+            f"{r['phase']}, version_log {r['log']}, flips (replica, from, "
+            f"to) {r['flips']}, replicas (name, version, engine on that "
+            f"version's model) {r['reps']}; canary regressions "
+            f"{r['regressions']}, degraded ticks {r['degraded']}; streams "
+            f"mixing versions {r['mixed']}; served on v1 {n1} (equal to "
+            f"the v1 single-engine run {same1}, differing {ties1}), on v2 "
+            f"{n2} (equal to the v2 single-engine run {same2}, differing "
+            f"{ties2}); block leaks {r['leaks']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"region (d) {tag} failed")
+
+    done = run(regress=False)
+    report("rollout", done, "done", 2,
+           lambda kinds: kinds == ["start", "canary_live", "promote",
+                                   "done"])
+    gc.collect()
+    back = run(regress=True)
+    report("canary regression", back, "rolled_back", 1,
+           lambda kinds: kinds[0] == "start" and "rollback" in kinds
+           and kinds[-1] == "rolled_back" and "done" not in kinds)
+    del ref_eng2, v2, models, engs
+    return {"done_steps": done["steps"], "done_wall": done["wall"],
+            "done_flips": len(done["flips"]),
+            "rollback_steps": back["steps"], "rollback_wall": back["wall"],
+            "rollback_flips": len(back["flips"])}
+
+
+def phase_region(model, card: str, err: dict) -> dict:
+    """6e: a ``Region`` of Llama-2-7B cells (``model`` shared by every
+    replica, each a fresh 512-page engine): (a) + (b) two-tier routing
+    with threads and a whole-cell outage, (c) a partition of a
+    disaggregated region, its heal and rebalance, (d) a rollout to a
+    second model's weights and one that rolls back. The paged counters
+    are set to 0 at the phase's start and read at its end (every put of
+    its regions and reference runs on one launch a layer, split into tile
+    and lane items). ``err``: phase 6b's verify errors."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    n_layers = model.config.n_layers
+    counter = _FleetCounter(n_layers)
+    rng = np.random.default_rng(0)           # phase 5's requests
+    lengths = rng.integers(64, 1537, 8)
+    prompts = [rng.integers(1, 32000, int(n)).tolist() for n in lengths]
+    for name in PAGED_PATH_COUNTERS:
+        setattr(pa.paged_attention, name, 0)
+    cfg = RaggedConfig(n_kv_blocks=REPLICA_PAGES, enable_prefix_cache=True,
+                       **REPLICA_SHAPE)
+    factory = (lambda: counter.wrap(RaggedInferenceEngine(model, cfg)))
+    ref_eng = counter.wrap(RaggedInferenceEngine(model, cfg))
+    out = {"unified": _region_unified(factory, counter, ref_eng,
+                                      err["none"], card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = _serve_once(ref_eng, prompts)
+    ref_eng.prefix_cache.drop_all(ref_eng.allocator)
+    out["partition"] = _region_partition(factory, counter, ref_eng, prompts,
+                                         ref, err["none"], card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    del ref_eng
+    # (d) without the prefix cache: a hot swap keeps the engine's cached
+    # pages, which hold the old version's KV (ROADMAP Queue C)
+    plain = RaggedConfig(n_kv_blocks=REPLICA_PAGES, **REPLICA_SHAPE)
+    out["rollout"] = _region_rollout(
+        model, counter, plain,
+        counter.wrap(RaggedInferenceEngine(model, plain)), err["none"], card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {n: getattr(pa.paged_attention, n) for n in PAGED_PATH_COUNTERS}
+    st = counter.steps
+    ok = (counts["launches"] == n_layers * st["put"] and counts["launches"] > 0
+          and counts["int8_launches"] == 0 and counts["int4_launches"] == 0
+          and counts["tile_launches"] == n_layers * st["tile"]
+          and counts["split_launches"] == n_layers * st["split"]
+          and st["odd"] == 0 and st["tile"] > 0 and st["split"] > 0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"region (e) [{card}]: {st['put']} puts over the phase's regions and "
+        f"reference runs, paged_attention launches {counts} ({n_layers} "
+        f"layers x puts = {n_layers * st['put']}; {st['tile']} puts ran "
+        f"tile items, {st['split']} lane items; every launch on the Hopper "
+        f"kernels); peak memory {peak:.2f} GiB {'ok' if ok else 'FAIL'}")
+    took = time.perf_counter() - t_phase
+    log(f"region: phase 6e took {took:.1f} s")
+    if not ok:
+        raise SystemExit("region phase launches do not add up")
+    out.update({"launches": counts["launches"],
+                "tile_launches": counts["tile_launches"],
+                "split_launches": counts["split_launches"],
+                "peak_gib": peak, "seconds": took})
+    return out
 
 
 # --------------------------------------------------------------- phase 6a
@@ -4520,6 +5004,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fleet = phase_fleet(model, dev["card"], spec["err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    region = phase_region(model, dev["card"], spec["err"])
     del model, prompts
     gc.collect()
     torch.cuda.empty_cache()
@@ -4547,6 +5034,9 @@ def main() -> int:
                 "fleet_launches": fleet["launches"],
                 "fleet_tile_launches": fleet["tile_launches"],
                 "fleet_split_launches": fleet["split_launches"],
+                "region_launches": region["launches"],
+                "region_tile_launches": region["tile_launches"],
+                "region_split_launches": region["split_launches"],
                 "max_abs_err": kern["max_abs_err"],
                 "ms": d["ms"], "kernel_ms": d["ms"],
                 "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],

@@ -5,10 +5,8 @@ Ports the parts of ``deepspeed_tpu/config.py`` that the ported paths read:
 * :class:`ServingConfig` (the ``serving`` block of the serving front-end:
   speculative serving, ``kv_quant``, the stuck-tick watchdog, model
   versions, the ``kv_tier`` block, :class:`KVTierConfig`, and the
-  ``fleet`` block, :class:`FleetConfig`). The region's blocks
-  (``region`` / ``rollout``, ROADMAP.md Queue A item 5b) raise
-  ``NotImplementedError`` unless empty, instead of being silently
-  ignored.
+  ``fleet`` block, :class:`FleetConfig`, and the region's ``region`` and
+  ``rollout`` blocks, :class:`RegionConfig` and :class:`RolloutConfig`).
 * :class:`TelemetryConfig` (the ``telemetry`` block of the serving path)
   and :class:`ChaosConfig` (seeded fault injection).
 * :class:`Config` for the trainer: the batch triple and its resolution
@@ -870,10 +868,189 @@ class FleetConfig:
         return out
 
 
-# serving blocks of the region layer (ROADMAP.md, Queue A item 5b)
-_LATER_SLICE_KEYS = ("region", "rollout")
-# hot_swap's warm-up without a rollout block: the JAX RolloutConfig default
-DEFAULT_WARMUP_TICKS = 2
+@dataclass
+class RegionConfig:
+    """The ``serving.region`` block: the cell-based fleet-of-fleets
+    front-end (:class:`~deepspeed_tpu_torch.serving.region.Region`).
+
+    ``cells`` fleets (each a :class:`FleetConfig`-shaped failure domain)
+    sit behind one :class:`~deepspeed_tpu_torch.serving.Region` that routes by
+    a two-tier consistent hash: a ``cell_ring_vnodes``-point cell ring
+    picks the failure domain from each cell's PUBLISHED load/health
+    digest (queue depth, KV demand, in-SLA window — refreshed on the
+    monitor cadence, never scanned per route), then the cell's own
+    router picks the replica. ``cell_spill_load`` (0 = off) spills a
+    request off an overloaded primary cell to the least-loaded
+    reachable one (digest queue depth per healthy replica >= the
+    threshold), mirroring the replica ring's spill valve one tier up.
+
+    Brownout: when reachable demand exceeds ``brownout_queue_per_replica``
+    queued requests per healthy reachable replica, the region sheds NEW
+    work below a priority floor that climbs one tier per additional
+    multiple of the threshold (the brownout ladder), always with a
+    REJECTED span — explicit degradation, never silent drops.
+    ``brownout_exit_ratio`` is the hysteresis: a floor level is left
+    only once pressure falls below ``ratio`` x its entry threshold.
+
+    ``rebalance_threshold`` (queued requests per replica above the
+    reachable mean, 0 = off) lets a heal re-spread QUEUED work from
+    cells that bore the partition onto the rejoined capacity.
+
+    Telemetry plane (the region's rollups): every
+    ``telemetry_rollup_every``-th digest refresh the region pulls each
+    cell's telemetry digest delta (sketch merges + counter deltas +
+    SLO verdicts) into its accumulator and SLO tracker. The ``slo_*``
+    knobs parameterize the per-tenant SLO objective
+    (:class:`~deepspeed_tpu_torch.telemetry.slo.SLOObjective`): target in-SLA
+    ratio over ``slo_window_s`` of virtual time, with fast/slow
+    burn-rate alert windows and thresholds."""
+
+    cells: int = 2
+    cell_ring_vnodes: int = 32
+    cell_spill_load: int = 0
+    brownout_queue_per_replica: float = 8.0
+    brownout_exit_ratio: float = 0.5
+    rebalance_threshold: float = 4.0
+    health_interval_s: float = 0.05
+    telemetry_rollup_every: int = 1
+    slo_target: float = 0.95
+    slo_window_s: float = 240.0
+    slo_fast_window_s: float = 300.0
+    slo_slow_window_s: float = 3600.0
+    slo_fast_burn: float = 14.4
+    slo_slow_burn: float = 6.0
+    slo_min_samples: int = 4
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "RegionConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(
+            cells=int(_take(d, "cells", 2)),
+            cell_ring_vnodes=int(_take(d, "cell_ring_vnodes", 32)),
+            cell_spill_load=int(_take(d, "cell_spill_load", 0)),
+            brownout_queue_per_replica=float(
+                _take(d, "brownout_queue_per_replica", 8.0)),
+            brownout_exit_ratio=float(
+                _take(d, "brownout_exit_ratio", 0.5)),
+            rebalance_threshold=float(
+                _take(d, "rebalance_threshold", 4.0)),
+            health_interval_s=float(_take(d, "health_interval_s", 0.05)),
+            telemetry_rollup_every=int(
+                _take(d, "telemetry_rollup_every", 1)),
+            slo_target=float(_take(d, "slo_target", 0.95)),
+            slo_window_s=float(_take(d, "slo_window_s", 240.0)),
+            slo_fast_window_s=float(_take(d, "slo_fast_window_s", 300.0)),
+            slo_slow_window_s=float(
+                _take(d, "slo_slow_window_s", 3600.0)),
+            slo_fast_burn=float(_take(d, "slo_fast_burn", 14.4)),
+            slo_slow_burn=float(_take(d, "slo_slow_burn", 6.0)),
+            slo_min_samples=int(_take(d, "slo_min_samples", 4)),
+        )
+        if out.cells < 1:
+            raise ConfigError(
+                f"serving.region.cells must be >= 1, got {out.cells}")
+        if out.cell_ring_vnodes < 1:
+            raise ConfigError(
+                f"serving.region.cell_ring_vnodes must be >= 1, got "
+                f"{out.cell_ring_vnodes}")
+        if out.brownout_queue_per_replica <= 0:
+            raise ConfigError(
+                f"serving.region.brownout_queue_per_replica must be > 0, "
+                f"got {out.brownout_queue_per_replica}")
+        if not 0.0 <= out.brownout_exit_ratio <= 1.0:
+            # exit above entry would re-enter the level it just left on
+            # the very next poll (oscillation, not hysteresis)
+            raise ConfigError(
+                f"serving.region.brownout_exit_ratio must be in [0, 1], "
+                f"got {out.brownout_exit_ratio}")
+        if out.rebalance_threshold < 0:
+            raise ConfigError(
+                f"serving.region.rebalance_threshold must be >= 0, got "
+                f"{out.rebalance_threshold}")
+        if out.telemetry_rollup_every < 1:
+            # 0 would divide-by-zero the poll's cadence modulo; a named
+            # error at parse beats a ZeroDivisionError mid-rollup
+            raise ConfigError(
+                f"serving.region.telemetry_rollup_every must be >= 1, "
+                f"got {out.telemetry_rollup_every}")
+        _warn_unknown(d, "serving.region")
+        return out
+
+
+@dataclass
+class RolloutConfig:
+    """The ``serving.rollout`` block: zero-downtime model rollout
+    (:class:`~deepspeed_tpu_torch.serving.rollout.RolloutController`).
+
+    ``canary_fraction`` is the tenant-sticky traffic slice routed to the
+    canary version while the controller observes it.  The canary is
+    judged after ``canary_observe_ticks`` controller steps: if the
+    canary's in-SLA ratio sits more than ``slo_regression_threshold``
+    below the stable version's over at least ``min_canary_samples``
+    retired requests, the rollout rolls back automatically; otherwise it
+    promotes.  ``warmup_ticks`` is the post-swap AOT warmup countdown a
+    flipped replica serves through before re-opening admission.
+    ``swap_retry_limit`` bounds hot-swap retries per replica (a corrupt
+    new-version checkpoint falls back to the old weights each time);
+    ``max_flip_attempts`` bounds how often the controller re-targets a
+    flip after the victim dies mid-flip — past either bound the rollout
+    rolls back instead of wedging."""
+
+    canary_fraction: float = 0.10
+    canary_observe_ticks: int = 40
+    slo_regression_threshold: float = 0.20
+    min_canary_samples: int = 8
+    warmup_ticks: int = 2
+    swap_retry_limit: int = 2
+    max_flip_attempts: int = 4
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "RolloutConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(
+            canary_fraction=float(_take(d, "canary_fraction", 0.10)),
+            canary_observe_ticks=int(_take(d, "canary_observe_ticks", 40)),
+            slo_regression_threshold=float(
+                _take(d, "slo_regression_threshold", 0.20)),
+            min_canary_samples=int(_take(d, "min_canary_samples", 8)),
+            warmup_ticks=int(_take(d, "warmup_ticks", 2)),
+            swap_retry_limit=int(_take(d, "swap_retry_limit", 2)),
+            max_flip_attempts=int(_take(d, "max_flip_attempts", 4)),
+        )
+        if not 0.0 < out.canary_fraction <= 1.0:
+            raise ConfigError(
+                f"serving.rollout.canary_fraction must be in (0, 1], got "
+                f"{out.canary_fraction}")
+        if out.canary_observe_ticks < 1:
+            raise ConfigError(
+                f"serving.rollout.canary_observe_ticks must be >= 1, got "
+                f"{out.canary_observe_ticks}")
+        if not 0.0 <= out.slo_regression_threshold <= 1.0:
+            raise ConfigError(
+                f"serving.rollout.slo_regression_threshold must be in "
+                f"[0, 1], got {out.slo_regression_threshold}")
+        if out.min_canary_samples < 1:
+            raise ConfigError(
+                f"serving.rollout.min_canary_samples must be >= 1, got "
+                f"{out.min_canary_samples}")
+        if out.warmup_ticks < 0:
+            raise ConfigError(
+                f"serving.rollout.warmup_ticks must be >= 0, got "
+                f"{out.warmup_ticks}")
+        if out.swap_retry_limit < 0:
+            raise ConfigError(
+                f"serving.rollout.swap_retry_limit must be >= 0, got "
+                f"{out.swap_retry_limit}")
+        if out.max_flip_attempts < 1:
+            raise ConfigError(
+                f"serving.rollout.max_flip_attempts must be >= 1, got "
+                f"{out.max_flip_attempts}")
+        _warn_unknown(d, "serving.rollout")
+        return out
 
 
 @dataclass
@@ -898,9 +1075,9 @@ class ServingConfig:
     ``model_version`` is the weights' version a replica starts serving
     (bumped by ``hot_swap``); ``kv_tier`` is the global KV tier's block
     (:class:`KVTierConfig`); ``fleet`` is the multi-replica front-end's
-    block (:class:`FleetConfig`). The ``region`` and ``rollout`` blocks
-    raise ``NotImplementedError`` unless empty: they come with the region
-    (ROADMAP.md, Queue A item 5b).
+    block (:class:`FleetConfig`); ``region`` is the cell-based region's
+    block (:class:`RegionConfig`) and ``rollout`` the rollout
+    controller's (:class:`RolloutConfig`).
 
     ``speculative`` turns on prompt-lookup speculative decoding inside the
     serving tick: draft chains (``spec_ngram``-gram lookups, at most
@@ -932,6 +1109,8 @@ class ServingConfig:
     kv_quant: str = "none"
     model_version: int = 0
     fleet: FleetConfig = field(default_factory=FleetConfig)
+    region: RegionConfig = field(default_factory=RegionConfig)
+    rollout: RolloutConfig = field(default_factory=RolloutConfig)
     kv_tier: KVTierConfig = field(default_factory=KVTierConfig)
 
     @classmethod
@@ -939,16 +1118,10 @@ class ServingConfig:
         if not d:
             return cls()
         d = dict(d)
-        for key in _LATER_SLICE_KEYS:
-            if key in d:
-                v = d.pop(key)
-                if v:
-                    raise NotImplementedError(
-                        f"serving.{key}={v!r}: not ported yet — it comes "
-                        f"with a later slice of deepspeed_tpu_torch "
-                        f"(the region: ROADMAP.md, Queue A item 5b)")
         out = cls(
             fleet=FleetConfig.from_dict(_take(d, "fleet", None)),
+            region=RegionConfig.from_dict(_take(d, "region", None)),
+            rollout=RolloutConfig.from_dict(_take(d, "rollout", None)),
             kv_tier=KVTierConfig.from_dict(_take(d, "kv_tier", None)),
             max_queue=int(_take(d, "max_queue", 256)),
             policy=str(_take(d, "policy", "slo")),

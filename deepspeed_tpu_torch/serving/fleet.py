@@ -37,8 +37,8 @@ lock. With ``start=False`` nothing runs on its own and :meth:`step`
 drives one poll and one tick per replica.
 
 A region's hooks (``on_retire``, ``on_handoff_escalation``,
-``on_route_escalation``, the cell ``name``) are plain arguments here; the
-region itself comes with a later slice (ROADMAP.md, Queue A item 5b).
+``on_route_escalation``, the cell ``name``) are plain arguments here;
+:class:`~.region.Region` sets them for each of its cells' fleets.
 
 Telemetry: the fleet's counters and gauges live under
 ``serving[/<name>]/fleet/...`` (``routed``, ``affinity_{hits,misses}``,

@@ -628,11 +628,7 @@ class ServingEngine:
                     self._accepting = True
             return False
         if warmup_ticks is None:
-            # the fleet's rollout block sets it in the JAX package; its
-            # default here
-            from ..config import DEFAULT_WARMUP_TICKS
-
-            warmup_ticks = DEFAULT_WARMUP_TICKS
+            warmup_ticks = self.config.rollout.warmup_ticks
         with self._lock:
             self.model_version = int(version)
             self._warmup_remaining = max(0, int(warmup_ticks))

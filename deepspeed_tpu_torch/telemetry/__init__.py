@@ -1,8 +1,7 @@
 """Unified telemetry: the shared metrics registry, request/step span
 records, sinks, heartbeat and stall detection, the request-scoped tracer
-and the replica digest (ports ``deepspeed_tpu/telemetry``; ``slo.py``,
-whose one user is the region, comes with it: ROADMAP.md Queue A item
-5b)."""
+and the replica digest, and the per-tenant SLO tracker the region rolls up
+(ports ``deepspeed_tpu/telemetry``)."""
 
 from .registry import (  # noqa: F401
     Counter,
@@ -17,6 +16,10 @@ from .digest import (  # noqa: F401
     DigestAccumulator,
     DigestSource,
     TelemetryDigest,
+)
+from .slo import (  # noqa: F401
+    SLOObjective,
+    TenantSLOTracker,
 )
 from .spans import (  # noqa: F401
     REQUEST_RECORD_SCHEMA,

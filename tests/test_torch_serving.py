@@ -256,7 +256,7 @@ def test_serving_config():
         ServingConfig.from_dict({"policy": "lifo"})
     with pytest.raises(ConfigError):
         ServingConfig.from_dict({"kv_pressure": 2.0})
-    # the replica's keys are ported; the region's blocks still raise
+    # the replica's keys are ported
     c = ServingConfig.from_dict({"model_version": 1,
                                  "kv_tier": {"enabled": True},
                                  "stuck_tick_timeout_s": 0.5,
@@ -266,18 +266,17 @@ def test_serving_config():
     assert ServingConfig().stuck_tick_timeout_s == 30.0
     with pytest.raises(ConfigError, match="model_version"):
         ServingConfig.from_dict({"model_version": -1})
-    for key, val in (("region", {"cells": 2}),
-                     ("rollout", {"warmup_ticks": 3})):
-        with pytest.raises(NotImplementedError, match="later slice.*item 5b"):
-            ServingConfig.from_dict({key: val})
-    # the fleet's block is ported: it parses to the JAX package's values
+    # the fleet's and the region's blocks are ported: they parse to the
+    # JAX package's values
     import dataclasses
 
     from deepspeed_tpu.config import ServingConfig as JaxServingConfig
 
-    assert dataclasses.asdict(ServingConfig.from_dict(
-        {"fleet": {"replicas": 2}}).fleet) == dataclasses.asdict(
-            JaxServingConfig.from_dict({"fleet": {"replicas": 2}}).fleet)
+    for key, val in (("fleet", {"replicas": 2}), ("region", {"cells": 2}),
+                     ("rollout", {"warmup_ticks": 3})):
+        assert dataclasses.asdict(getattr(ServingConfig.from_dict(
+            {key: val}), key)) == dataclasses.asdict(getattr(
+                JaxServingConfig.from_dict({key: val}), key))
     # speculative serving is ported (tests/test_torch_spec.py)
     assert ServingConfig.from_dict({"speculative": True}).speculative
     assert ServingConfig.from_dict({"kv_quant": "int4"}).kv_quant == "int4"
