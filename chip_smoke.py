@@ -139,6 +139,22 @@ CPU path — without a CUDA device the script fails):
    near-ties), then a rollout with an injected canary SLO regression
    that rolls back; (e) the phase's paged launches (from 0), tile and
    lane items, peak memory;
+6f. tensor-parallel serving: 2 rank processes on the one card over gloo,
+   each building the seed-0 Llama-2-7B (one rank at a time) and cutting
+   it to its shard (16 of 32 heads, half of d_ff and of the vocab, half
+   of every page's KV heads); rank 0 is the controller, rank 1 replays
+   its step records (``serve_worker``). (a) ``ServingEngine`` over a
+   512-page bf16 TP engine, phase 5's 8 requests: streams equal phase
+   5's up to near-ties, each rank's paged launches one a layer a put
+   (tile items for the prefills), layer 0's put held against the plain
+   version at the rank's shape and timed, no leak, TTFT, tokens/s, the
+   share of a put in the model group's host-staged collectives, peak
+   memory a rank; (b) the same over an int8 pool, 4 requests; (c) v1
+   ``init_inference(tensor_parallel=2, kernel_backend="pallas")``, 4 x
+   128 tokens, 32 new: tokens equal a tp-1 run up to near-ties, one
+   fused ``decode_mlp_all_reduce`` and one row-8 launch a layer for each
+   decode step on each rank; (d) row 8 at that decode shape, [4, 5504]
+   x [5504, 4096] bf16, timed beside its bound and ``torch.mm``;
 6a. inference: ``init_inference(Llama("7b"))`` with int8 weights at group
    256 (path A), then bf16 and int4 weights: 4 prompts of 128 tokens, 32
    new tokens greedy; weight bytes, memory, prefill and decode times,
@@ -1309,7 +1325,8 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
     if not ok:
         raise SystemExit("serving phase failed")
     paths = {"launches": launches, "tile_launches": counts["tile_launches"],
-             "split_launches": counts["split_launches"], "mixed": mixed}
+             "split_launches": counts["split_launches"], "mixed": mixed,
+             "streams": [list(r.tokens) for r in reqs]}
     return paths, eng, prompts
 
 
@@ -3339,6 +3356,410 @@ def phase_region(model, card: str, err: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 6f
+TP_WORLD = 2
+TP_DECODE_SHAPE = (4, 5504, 4096)   # v1 TP decode: x [4, d_ff / 2] . w_down
+
+
+class _TPMeter:
+    """One rank's meter of a tensor-parallel engine: wraps its ``_core``
+    (one call a put or a decode step) to count the calls, those whose
+    paged tile / split counters moved (by 0 or one a layer, else odd) and
+    their time, and times the model group's host-staged collectives
+    (``comm.all_reduce`` / ``all_gather`` / ``all_to_all``, each after a
+    synchronize) inside them. Two ranks share the one card, so a
+    collective's time includes waiting for the other rank's kernels."""
+
+    def __init__(self, n_layers: int):
+        from deepspeed_tpu_torch.comm import comm as comm_mod
+
+        self.n_layers = n_layers
+        self.reset()
+        for name in ("all_reduce", "all_gather", "all_to_all"):
+            real = getattr(comm_mod, name)
+
+            def timed(*a, _real=real, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(*a, **k)
+                self.coll_s += time.perf_counter() - t0
+                self.n_coll += 1
+                return out
+
+            setattr(comm_mod, name, timed)
+
+    def reset(self) -> None:
+        self.calls = self.tile = self.split = self.odd = self.n_coll = 0
+        self.core_s = self.coll_s = 0.0
+
+    def wrap(self, eng):
+        real = eng._core
+
+        def core(*a, **k):
+            before = _paged_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = real(*a, **k)
+            torch.cuda.synchronize()
+            self.core_s += time.perf_counter() - t0
+            moved = [n - b for n, b in zip(_paged_counts(), before)]
+            self.calls += 1
+            self.tile += moved[0] > 0
+            self.split += moved[1] > 0
+            self.odd += any(n not in (0, self.n_layers) for n in moved)
+            return x
+
+        eng._core = core
+        return eng
+
+    def summary(self) -> dict:
+        return {"calls": self.calls, "tile": self.tile, "split": self.split,
+                "odd": self.odd, "core_s": self.core_s,
+                "coll_s": self.coll_s, "n_coll": self.n_coll,
+                "counts": {n: getattr(pa.paged_attention, n)
+                           for n in PAGED_PATH_COUNTERS}}
+
+
+def _record_paged(kept: dict, quantized: bool):
+    """Keep (not copy) the inputs of layer 0's paged call of the first put
+    of this rank that runs a prefill on tile items and decode lanes on
+    lane items (lane items only on a quantized pool), for a check at the
+    rank's shape after the run. Returns the hook's undo."""
+    import deepspeed_tpu_torch.inference.ragged as ragged_mod
+
+    real = ragged_mod.paged_attention
+
+    def recording(q, kp, vp, tables, positions, **kw):
+        work = kw.get("work")
+        if not kept and work is not None and work.n_lanes > work.n_pad \
+                and (quantized or work.n_tiles) and work.n_items:
+            kept.update(q=q, kp=kp, vp=vp, tab=tables, pos=positions,
+                        slots=kw["seq_slots"], live=kw["live_pages"],
+                        work=work, quant={k: kw[k] for k in
+                                          ("k_scale", "v_scale", "kv_bits")
+                                          if kw.get(k) is not None})
+        return real(q, kp, vp, tables, positions, **kw)
+
+    ragged_mod.paged_attention = recording
+
+    def undo():
+        ragged_mod.paged_attention = real
+
+    return undo
+
+
+def _tp_serve(eng, prompts, meter, tag: str, warm: bool) -> dict:
+    """ServingEngine on the controller over the TP engine (the workers in
+    ``serve_worker``): a warm-up request, then the paged counters, the
+    meter and the peak memory set to 0 on every rank, then ``prompts`` x
+    32 new tokens. Each rank then holds layer 0's recorded paged call
+    against the plain version at its own shape. Returns this rank's
+    numbers."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+
+    if warm:
+        if eng.is_controller:
+            srv = ServingEngine(eng, REPLICA_SERVING)
+            srv.submit(prompts[0][:16], max_new_tokens=2).result(timeout=600)
+            srv.close(timeout=60)
+        else:
+            eng.serve_worker()
+    torch.cuda.synchronize()
+    comm.barrier()
+    for name in PAGED_PATH_COUNTERS:
+        setattr(pa.paged_attention, name, 0)
+    meter.reset()
+    torch.cuda.reset_peak_memory_stats()
+    kept: dict = {}
+    undo = _record_paged(kept, eng.config.kv_quant != "none")
+    comm.barrier()
+    out: dict = {}
+    try:
+        if eng.is_controller:
+            srv = ServingEngine(eng, REPLICA_SERVING)
+            t1 = time.perf_counter()
+            reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
+            for r in reqs:
+                r.wait(timeout=900)
+            torch.cuda.synchronize()
+            out["wall"] = time.perf_counter() - t1
+            out.update(meter.summary())
+            srv.close(timeout=60)
+            out.update(streams=[list(r.tokens) for r in reqs],
+                       states=[r.state.value for r in reqs],
+                       ttft=sorted(r.ttft_s for r in reqs
+                                   if r.ttft_s is not None),
+                       leaks=srv.block_leaks(),
+                       errors=[r.error for r in reqs if r.error])
+        else:
+            out["replayed"] = eng.serve_worker()
+            out.update(meter.summary())
+    finally:
+        undo()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    rank = eng.topo.rank("model")
+    if not kept:
+        raise SystemExit(f"tp {tag} rank {rank}: no put ran the recorded "
+                         f"mix of work items")
+    k = kept
+    args = (k["q"], k["kp"], k["vp"], k["tab"], k["pos"], k["slots"],
+            k["live"])
+    out["max_abs_err"] = _paged_twice(
+        f"tp_{tag}_put_rank{rank} hq={k['q'].shape[1]} "
+        f"hkv={k['kp'].shape[1]}", *args, 0, work=k["work"], **k["quant"])
+    if eng.is_controller:
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                            device="cuda")
+        out["timing"] = _time_paged(f"tp_{tag}_put rank 0", *args, flush,
+                                    work=k["work"], **k["quant"])
+        del flush
+    kept.clear()
+    return out
+
+
+def _job_tp(rank, world, device, prompts, ids, new):
+    """A rank of phase 6f: the seed-0 Llama-2-7B built at full width (one
+    rank at a time) and cut to this rank's shard, then (a) TP serving over
+    a bf16 pool, (b) over an int8 pool, (c) v1 ``init_inference`` with
+    ``tensor_parallel`` and the fused backend (plain SPMD)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint.jax_params import shard_params
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.models.llama import Llama
+    from deepspeed_tpu_torch.parallel.mesh import Topology
+    from deepspeed_tpu_torch.telemetry.registry import (MetricsRegistry,
+                                                        get_registry,
+                                                        set_registry)
+
+    t0 = time.perf_counter()
+    topo = Topology.build({"model": world})
+    model = None
+    for r in range(world):          # one full-width model at a time
+        if r == rank:
+            model = shard_params(Llama("7b", dtype=torch.bfloat16, seed=0),
+                                 topo)
+            gc.collect()
+            torch.cuda.empty_cache()
+        comm.barrier()
+    out = {"built_s": time.perf_counter() - t0,
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters())}
+    meter = _TPMeter(model.config.n_layers)
+    for tag, kvq, reqs in (("bf16", "none", prompts),
+                           ("int8", "int8", prompts[:4])):
+        eng = meter.wrap(RaggedInferenceEngine(
+            model, RaggedConfig(n_kv_blocks=REPLICA_PAGES, kv_quant=kvq,
+                                **REPLICA_SHAPE), topology=topo))
+        out[tag] = _tp_serve(eng, reqs, meter, tag, warm=tag == "bf16")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    eng = deepspeed_tpu_torch.init_inference(
+        model, {"tensor_parallel": world, "kernel_backend": "pallas",
+                "dtype": "bfloat16", "temperature": 0.0})
+    eng.generate(ids, max_new_tokens=2)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_registry(MetricsRegistry())
+    fc.matmul_pallas.launches = fc.matmul_pallas.wgmma_launches = 0
+    meter.reset()
+    t1 = time.perf_counter()
+    tokens = eng.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    out["v1"] = {"ids": tokens, "wall": time.perf_counter() - t1,
+                 "fused": get_registry().counter(
+                     "comm/facade/fused/decode_mlp_all_reduce").value,
+                 "launches": fc.matmul_pallas.launches,
+                 "wgmma_launches": fc.matmul_pallas.wgmma_launches,
+                 "coll_s": meter.coll_s, "n_coll": meter.n_coll,
+                 "bound": model._comm_backend is not None,
+                 "peak": torch.cuda.max_memory_allocated()}
+    return out
+
+
+def _tp_decode_matmul(card: str) -> dict:
+    """6f (d): row 8 (``matmul_pallas``) at the v1 TP decode MLP's shape,
+    x [4, 5504] . w_down's shard [5504, 4096] in bf16, against the plain
+    version, then timed (L2 flushed) beside its bound and
+    ``torch.mm(x, w, out_dtype=torch.float32)``."""
+    m, k, n = TP_DECODE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device="cuda")
+         / math.sqrt(k)).to(torch.bfloat16)
+    hopper = fc.wgmma_path(x.dtype, m, n, k, (x.data_ptr(), w.data_ptr()))
+    w0 = fc.matmul_pallas.wgmma_launches
+    got = fc.matmul_pallas(x, w)
+    again = fc.matmul_pallas(x, w)
+    torch.cuda.synchronize()
+    on_hopper = fc.matmul_pallas.wgmma_launches - w0
+    ref = fc.matmul_reference(x, w)
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    ok = err <= FUSED_REL * scale and torch.equal(got, again) \
+        and on_hopper == (2 if hopper else 0)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    p1 = cuda_ms(lambda: fc.matmul_reference(x, w), 20, flush)
+    l1 = cuda_ms(lambda: torch.mm(x, w, out_dtype=torch.float32), 50, flush)
+    k1 = cuda_ms(lambda: fc.matmul_pallas(x, w), 50, flush)
+    k2 = cuda_ms(lambda: fc.matmul_pallas(x, w), 50, flush)
+    l2 = cuda_ms(lambda: torch.mm(x, w, out_dtype=torch.float32), 50, flush)
+    p2 = cuda_ms(lambda: fc.matmul_reference(x, w), 20, flush)
+    del flush
+    nbytes = (m * k + k * n) * 2 + m * n * 4
+    ops = 2 * m * k * n
+    bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                   ops / PEAK_OPS_PER_S[torch.bfloat16]) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
+        ops / PEAK_OPS_PER_S[torch.bfloat16] else "operations"
+    log(f"tp (d) [{card}]: matmul_pallas [{m}, {k}] x [{k}, {n}] bf16 on "
+        f"{'the Hopper (wgmma) kernel' if hopper else 'the mma.sync kernel (wgmma_path refuses it)'}"
+        f": max_abs_err {err:.3e} (max |plain| {scale:.3e}, rel tol "
+        f"{FUSED_REL}), twice bitwise {torch.equal(got, again)}; kernel "
+        f"{k1:.4f}/{k2:.4f} ms, torch.mm out_dtype=fp32 {l1:.4f}/{l2:.4f} "
+        f"ms, plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}, {nbytes} B, {ops:.3e} ops), "
+        f"{nbytes / min(k1, k2) / 1e6:.1f} GB/s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("row 8 at the TP decode shape failed")
+    return {"shape": f"{m}x{k}x{n}_bf16", "ms": min(k1, k2),
+            "plain_ms": min(p1, p2), "library_ms": min(l1, l2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "hopper": bool(hopper)}
+
+
+def phase_tp(model, card: str, err: dict, prompts, ref: dict) -> dict:
+    """6f, tensor-parallel serving: 2 rank processes on the one card over
+    gloo, each with the seed-0 Llama-2-7B's shard (16 of 32 heads, half
+    of d_ff and of the vocab, half of every page's KV heads). (a)
+    ServingEngine on the controller over a 512-page bf16 TP engine, phase
+    5's 8 requests; (b) an int8 pool, 4 of them; (c) v1 ``init_inference
+    (tensor_parallel=2, kernel_backend="pallas")``, 4 x 128-token prompts,
+    32 new; (d) row 8 at the TP decode shape. Streams are held to the
+    single-card runs (phase 5's (a)/(b) streams, a tp-1 v1 run here) up
+    to near-ties within 2 x phase 6b's verify error; every rank's paged
+    launches to one a layer for each of its puts. ``ref``: phase 5's
+    streams by pool. Returns the numbers for the kernels line."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+
+    t_phase = time.perf_counter()
+    n_layers = model.config.n_layers
+    # phase 5's seed-0 weights again (6c's hot swap left seed 1's in the
+    # shared model): the ranks build seed 0, and the references and the
+    # near-tie gaps must come from the same weights
+    model.init(0)
+    ids = np.random.default_rng(8).integers(1, 32000, (4, 128))
+    v1 = deepspeed_tpu_torch.init_inference(
+        model, {"dtype": "bfloat16", "temperature": 0.0})
+    ref_v1 = v1.generate(ids, max_new_tokens=32)
+    del v1
+    decode = _tp_decode_matmul(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = _join_ranks(*_start_ranks(TP_WORLD, "cuda", "tp",
+                                    (prompts, ids, 32)), timeout=900)
+    ctrl = res[0]
+    ok = True
+    refs = {}
+    for tag, kvq in (("bf16", "none"), ("int8", "int8")):
+        reqs = prompts if tag == "bf16" else prompts[:4]
+        c = ctrl[tag]
+        ref_eng = RaggedInferenceEngine(model, RaggedConfig(
+            n_kv_blocks=REPLICA_PAGES, kv_quant=kvq, **REPLICA_SHAPE))
+        ok_s, same, ties = _streams_ok(ref_eng, reqs, c["streams"],
+                                       ref[tag][:len(reqs)], err[kvq])
+        if tag == "bf16":
+            refs["eng"] = ref_eng
+        del ref_eng
+        counter = PAGED_COUNTER[kvq]
+        good = (ok_s and c["states"] == ["finished"] * len(reqs)
+                and c["leaks"] == [] and not c["errors"])
+        for r, rr in enumerate(res):
+            x = rr[tag]
+            cn = x["counts"]
+            rank_ok = (cn[counter] == n_layers * x["calls"] and x["calls"] > 0
+                       and cn["tile_launches"] == n_layers * x["tile"]
+                       and cn["split_launches"] == n_layers * x["split"]
+                       and x["odd"] == 0 and x["calls"] == c["calls"]
+                       and (x["tile"] > 0) == (kvq == "none"))
+            good = good and rank_ok
+            log(f"tp ({'a' if tag == 'bf16' else 'b'}) {tag} rank {r} "
+                f"[{card}]: "
+                f"{x['calls']} puts, paged_attention launches {cn} "
+                f"({n_layers} x puts = {n_layers * x['calls']}; {x['tile']} "
+                f"puts on tile items, {x['split']} on lane items, {x['odd']} "
+                f"odd), layer 0's recorded put at this rank's shape "
+                f"max_abs_err {x['max_abs_err']:.3e}; peak while serving "
+                f"{x['peak']} B {'ok' if rank_ok else 'FAIL'}"
+                + (f"; replayed {x['replayed']}" if r else ""))
+        ttft = c["ttft"]
+        ntok = sum(len(s) for s in c["streams"])
+        share = c["coll_s"] / c["core_s"] if c["core_s"] else float("nan")
+        log(f"tp ({'a' if tag == 'bf16' else 'b'}) {tag} [{card}]: "
+            f"{len(reqs)} requests, wall {c['wall']:.3f} s, "
+            f"{ntok / c['wall']:.1f} generated tokens/s, TTFT p50 "
+            f"{ttft[len(ttft) // 2]:.3f} s max {ttft[-1]:.3f} s; model "
+            f"group collectives {c['n_coll']} in {c['calls']} puts "
+            f"({c['n_coll'] / max(c['calls'], 1):.1f} a put), "
+            f"{c['coll_s']:.3f} s of the puts' {c['core_s']:.3f} s "
+            f"(share {share:.3f}); streams identical to the single-card "
+            f"run {same} of {len(reqs)}, differing (request, first "
+            f"position, top-two gap) {ties} against 2 x {err[kvq]:.4e}; "
+            f"leaks {c['leaks']} {'ok' if good else 'FAIL'}")
+        ctrl[tag]["share"] = share
+        ok = ok and good
+    # (c) v1: tokens of every rank equal, and equal to the tp-1 run up to
+    # near-ties; one fused decode_mlp_all_reduce and one row-8 launch a
+    # layer for each decode step on each rank
+    steps = 31
+    got = [rr["v1"]["ids"] for rr in res]
+    ref_rows = [ref_v1[i, 128:].tolist() for i in range(4)]
+    ok_s, same, ties = _streams_ok(
+        refs["eng"], [ids[i].tolist() for i in range(4)],
+        [got[0][i, 128:].tolist() for i in range(4)], ref_rows, err["none"])
+    good = ok_s and all(np.array_equal(g, got[0]) for g in got)
+    for r, rr in enumerate(res):
+        x = rr["v1"]
+        rank_ok = (x["bound"] and x["fused"] == n_layers * steps
+                   and x["launches"] == n_layers * steps)
+        good = good and rank_ok
+        log(f"tp (c) v1 rank {r} [{card}]: 4 x 128-token prompts, 32 new "
+            f"tokens in {x['wall']:.4f} s = {4 * 32 / x['wall']:.1f} tokens/s;"
+            f" decode_mlp_all_reduce fused {x['fused']} and matmul_pallas "
+            f"launches {x['launches']} ({n_layers} layers x {steps} decode "
+            f"steps = {n_layers * steps}), on the Hopper (wgmma) kernel "
+            f"{x['wgmma_launches']}, the rest on mma.sync; model group "
+            f"collectives {x['n_coll']} in {x['coll_s']:.3f} s; peak "
+            f"{x['peak']} B {'ok' if rank_ok else 'FAIL'}")
+    log(f"tp (c) v1: tokens identical to the tp-1 run {same} of 4, "
+        f"differing {ties}; ranks agree "
+        f"{all(np.array_equal(g, got[0]) for g in got)} "
+        f"{'ok' if good else 'FAIL'}")
+    ok = ok and good
+    del refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    log(f"tp: weights a rank {ctrl['weight_bytes']} B, built (both ranks, "
+        f"one at a time) in {ctrl['built_s']:.1f} s; phase 6f took "
+        f"{took:.1f} s")
+    if not ok:
+        raise SystemExit("tensor-parallel serving phase failed")
+    return {"launches": ctrl["bf16"]["counts"]["launches"],
+            "tile_launches": ctrl["bf16"]["counts"]["tile_launches"],
+            "split_launches": ctrl["bf16"]["counts"]["split_launches"],
+            "int8_launches": ctrl["int8"]["counts"]["int8_launches"],
+            "bf16": ctrl["bf16"]["timing"], "int8": ctrl["int8"]["timing"],
+            "v1_launches": ctrl["v1"]["launches"],
+            "v1_wgmma_launches": ctrl["v1"]["wgmma_launches"],
+            "decode": decode, "seconds": took}
+
+
 # --------------------------------------------------------------- phase 6a
 def _device_events(prof) -> list:
     """A profile's device work, its CUDA kernels and memcpys, by name. A
@@ -4767,7 +5188,7 @@ def _profile_zero3_step(engine, batch) -> dict:
             {g: us / 1e3 for g, us in groups.items()}, "top": top}
 
 
-RANK_JOBS = {"parity": _job_parity, "train": _job_train}
+RANK_JOBS = {"parity": _job_parity, "train": _job_train, "tp": _job_tp}
 PARITY_DIMS = (64, 256, 512, 64)
 ZERO3_DIMS = (4096, 11008, 4096, 11008, 4096)   # Llama-2-7B MLP widths
 
@@ -5007,6 +5428,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     region = phase_region(model, dev["card"], spec["err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = phase_tp(model, dev["card"], spec["err"], prompts,
+                  {"bf16": paths["streams"],
+                   "int8": paged_q["int8"]["streams"]})
     del model, prompts
     gc.collect()
     torch.cuda.empty_cache()
@@ -5037,13 +5463,17 @@ def main() -> int:
                 "region_launches": region["launches"],
                 "region_tile_launches": region["tile_launches"],
                 "region_split_launches": region["split_launches"],
+                "tp_launches": tp["launches"],
+                "tp_tile_launches": tp["tile_launches"],
+                "tp_split_launches": tp["split_launches"],
                 "max_abs_err": kern["max_abs_err"],
                 "ms": d["ms"], "kernel_ms": d["ms"],
                 "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
                 "bound_by": d["bound_by"], "library_ms": None,
                 "parity": "ok", "shape": "decode_16x1024", "path": PAGED_PATH,
                 "timings": {**kern["timings"], "mixed_put": mixed_t,
-                            "verify_put": spec["bf16"]},
+                            "verify_put": spec["bf16"],
+                            "tp_put_rank0": tp["bf16"]},
                 "card": dev["card"]}]
     for bits in (8, 4):
         kq, run = kern_q[bits], paged_q[f"int{bits}"]
@@ -5062,8 +5492,10 @@ def main() -> int:
     entries[1]["verify_launches"] = spec["int8_launches"]
     entries[1]["replica_launches"] = replicas["int8_launches"]
     entries[1]["fleet_launches"] = fleet["int8_launches"]
+    entries[1]["tp_launches"] = tp["int8_launches"]
     entries[1]["timings"] = {**entries[1]["timings"],
-                             "verify_put": spec["int8"]}
+                             "verify_put": spec["int8"],
+                             "tp_put_rank0": tp["int8"]}
     for name, (_, replaces, _) in FLASH_KERNELS.items():
         t = flash_t[name]
         entries.append({
@@ -5105,6 +5537,13 @@ def main() -> int:
             entries[-1]["converter_ms"] = t["converter"]
         if "mma_sync_ms" in t:
             entries[-1]["mma_sync_ms"] = t["mma_sync_ms"]
+        if name == "matmul_pallas":
+            # 6f (c): the v1 TP decode MLP's launches on rank 0, (d) the
+            # kernel timed at that shape
+            entries[-1].update(tp_decode_launches=tp["v1_launches"],
+                               tp_decode_wgmma_launches=tp[
+                                   "v1_wgmma_launches"],
+                               tp_decode=tp["decode"])
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

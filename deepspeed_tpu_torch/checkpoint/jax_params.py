@@ -13,6 +13,14 @@ The JAX ``SequentialBlockModel`` tree is ``{"block_i": {"w": [din, dout],
 "b": [dout]}}``; the port's model names the same leaves ``block_i.w`` and
 ``block_i.b`` (:func:`load_block_params`, :func:`export_block_params`).
 
+Tensor parallelism: :func:`shard_params` cuts a model (in place) or a
+JAX tree (numpy views) to one rank's shard by the JAX package's
+PartitionSpecs (``Transformer.partition_specs``), and
+:func:`gather_params` puts the ranks' shards back together. A model
+that is already sharded takes :func:`load_jax_params` of the full JAX
+tree: each leaf is sliced to the rank's shard before it is copied, one
+leaf at a time.
+
 The JAX ragged engine's hand-off objects carry over too: a ``KVExport``
 (:func:`load_kv_export`) or a ``PrefixExport`` (:func:`load_prefix_export`)
 with numpy pages and scales becomes the port's, bytes unchanged, so the
@@ -21,13 +29,14 @@ port's engine can continue a prefill that the JAX engine ran.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..inference.ragged import KVExport
 from ..models.transformer import LAYER_LEAVES as _LAYER_LEAVES, Transformer
+from ..parallel.mesh import shard_slices
 from ..parallel.zero import SequentialBlockModel
 from ..serving.kvtier import PrefixExport
 
@@ -60,8 +69,11 @@ def load_jax_params(model: Transformer, params_np: Dict[str, Any]
         raise ValueError(f"JAX params do not match the Llama flag set: "
                          f"missing {sorted(missing)}, unexpected "
                          f"{sorted(extra)}")
+    # a sharded model takes this rank's slice of each full-width leaf
+    local = model.local_shard if model._tp_size > 1 else (lambda _, a: a)
     for name in _TOP_LEAVES:
-        _copy(getattr(model, name), params_np[name], name)
+        _copy(getattr(model, name), local(name, np.asarray(params_np[name])),
+              name)
     n = len(model.layers)
     for name in _LAYER_LEAVES:
         stacked = np.asarray(layers[name])
@@ -69,8 +81,62 @@ def load_jax_params(model: Transformer, params_np: Dict[str, Any]
             raise ValueError(f"layers/{name}: {stacked.shape[0]} layers, the "
                              f"model has {n}")
         for i, blk in enumerate(model.layers):
-            _copy(getattr(blk, name), stacked[i], f"layers/{name}[{i}]")
+            _copy(getattr(blk, name), local(f"layers.{i}.{name}", stacked[i]),
+                  f"layers/{name}[{i}]")
     return model
+
+
+def _tree_specs(specs: Dict[str, Any]):
+    """(path, spec) of every leaf of a JAX-layout spec tree."""
+    for name, spec in specs.items():
+        if isinstance(spec, dict):
+            for leaf, sp in spec.items():
+                yield (name, leaf), sp
+        else:
+            yield (name,), spec
+
+
+def shard_params(params: Union[Transformer, Dict[str, Any]], topology,
+                 model: Optional[Transformer] = None):
+    """This rank's shard over ``topology``'s ``model`` axis. A
+    :class:`Transformer` is cut in place (``Transformer.shard_``) and
+    returned; a JAX tree of numpy arrays (``model`` gives its specs)
+    becomes the same tree of this rank's slices, views of its leaves."""
+    if isinstance(params, Transformer):
+        return params.shard_(topology)
+    if model is None:
+        raise ValueError("shard_params of a JAX tree needs the model whose "
+                         "partition_specs place it")
+    tp, rank = topology.model_parallel_size, topology.rank("model")
+    out: Dict[str, Any] = {}
+    for path, spec in _tree_specs(model.partition_specs()):
+        arr = np.asarray(params[path[0]] if len(path) == 1
+                         else params[path[0]][path[1]])
+        piece = arr[shard_slices(arr.shape, spec, tp, rank)]
+        if len(path) == 1:
+            out[path[0]] = piece
+        else:
+            out.setdefault(path[0], {})[path[1]] = piece
+    return out
+
+
+def gather_params(shards: Sequence[Dict[str, Any]], model: Transformer
+                  ) -> Dict[str, Any]:
+    """The inverse of :func:`shard_params` on JAX trees: the ranks' shards
+    (in rank order, as :func:`export_params` gives them on each rank)
+    joined along each leaf's ``model`` dimension; replicated leaves are
+    rank 0's."""
+    out: Dict[str, Any] = {}
+    for path, spec in _tree_specs(model.partition_specs()):
+        pieces = [np.asarray(t[path[0]] if len(path) == 1
+                             else t[path[0]][path[1]]) for t in shards]
+        axis = list(spec).index("model") if "model" in spec else None
+        full = pieces[0] if axis is None else np.concatenate(pieces, axis)
+        if len(path) == 1:
+            out[path[0]] = full
+        else:
+            out.setdefault(path[0], {})[path[1]] = full
+    return out
 
 
 def export_params(params: Union[Transformer, Mapping[str, torch.Tensor]]

@@ -7,8 +7,11 @@ Ports the host-level half of ``deepspeed_tpu/comm/comm.py``:
 in-program collectives are ``jax.lax`` primitives inside ``shard_map``;
 here each rank is a process and a collective is a ``torch.distributed``
 call on the process group of a mesh axis (``parallel/mesh.py``). The
-facade (``comm/compressed.py``) is the only caller of the raw collectives
-below, and it books every call in the ledger.
+facade (``comm/compressed.py``) and the tensor-parallel model group's
+helpers at the end of this file (the row-parallel all-reduce of
+``models/transformer.py``, :func:`all_gather_columns`,
+:func:`broadcast_record`) are the callers of the raw collectives below,
+and each books its calls in the ledger.
 
 Backends: ``"nccl"`` for CUDA tensors (the default), ``"gloo"`` when asked.
 Nothing switches backend on failure. NCCL refuses two ranks on one
@@ -22,9 +25,10 @@ the result back, explicitly, and nowhere else.
 from __future__ import annotations
 
 import os
+import pickle
 from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -296,3 +300,54 @@ def ring_send_recv(x: torch.Tensor, group=None) -> PendingRecv:
     buf = _empty_like_on(w)
     works = [dist.isend(w, nxt, group=group), dist.irecv(buf, prv, group=group)]
     return PendingRecv(works, buf, w, x.device)
+
+
+def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Group rank ``src``'s ``t`` on every rank of the group; the other
+    ranks pass a buffer of the same shape and dtype. On ``t``'s device."""
+    _chaos("broadcast")
+    w = to_transport(t, group)
+    root = dist.get_global_rank(group, src) if group is not None else src
+    dist.broadcast(w, root, group=group)
+    return from_transport(w, t.device)
+
+
+# ----------------------------------------------------------------------
+# the model group's collectives that the facade does not carry: tensor
+# parallelism gathers vocab-sharded logits and sends the controller's host
+# step records (inference/ragged.py)
+
+def all_gather_columns(x: torch.Tensor, group=None,
+                       axis_name: Optional[str] = None) -> torch.Tensor:
+    """Every rank's ``x [..., n]`` side by side on the last dimension, in
+    group-rank order (``[..., world * n]``), on ``x``'s device. Booked as
+    an ``all_gather`` of ``x``'s bytes."""
+    world = get_world_size(group)
+    nbytes = x.numel() * x.element_size()
+    record_collective("all_gather", nbytes, nbytes, axis_name, world)
+    return torch.cat(all_gather(x, group), dim=-1)
+
+
+def broadcast_record(record: Optional[Dict[str, Any]], group=None,
+                     axis_name: Optional[str] = None,
+                     src: int = 0) -> Dict[str, Any]:
+    """A host step record (a dict of plain ints and strings and integer
+    numpy arrays) from group rank ``src`` to every rank of the group; the
+    other ranks pass None and get the record. Two broadcasts: the
+    payload's length, then the pickled payload. Booked as
+    ``step_record`` with the payload's bytes."""
+    me = get_rank(group)
+    if me == src:
+        payload = torch.frombuffer(bytearray(pickle.dumps(record)),
+                                   dtype=torch.uint8)
+        size = torch.tensor([payload.numel()], dtype=torch.int64)
+    else:
+        size = torch.zeros(1, dtype=torch.int64)
+    size = broadcast(size, src, group)
+    n = int(size[0])
+    if me != src:
+        payload = torch.empty(n, dtype=torch.uint8)
+    payload = broadcast(payload, src, group)
+    record_collective("step_record", n + 8, n + 8, axis_name,
+                      get_world_size(group))
+    return record if me == src else pickle.loads(payload.numpy().tobytes())

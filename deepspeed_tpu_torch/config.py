@@ -307,7 +307,10 @@ def _mesh_from_dict(d: Optional[Dict[str, Any]]) -> Dict[str, int]:
             raise ConfigError(f"unknown mesh axis '{axis}'")
         n = int(n)
         if axis != "data" and n > 1:
-            _later_slice(f"mesh.{axis}", n, LATER_AXES[axis])
+            # the model axis serves (inference/); training over it is later
+            _later_slice(f"mesh.{axis}", n, LATER_AXES.get(
+                axis, "tensor-parallel training: ROADMAP.md, Queue A "
+                "item 6b"))
         sizes[axis] = n
     return sizes
 

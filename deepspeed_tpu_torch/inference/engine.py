@@ -23,9 +23,23 @@ package dequantizes the whole tree at the top of each program), so the
 transient bf16 copy is one layer's weights; the values are the same
 because the dequantize is elementwise.
 
-Not ported (later slices, ROADMAP.md Queue A): tensor parallelism
-(``tensor_parallel`` > 1), the fused ``pallas`` comm backend (TPU kernel
-rows 7-9) and loading a ``checkpoint`` named in the config.
+Tensor parallelism (``tensor_parallel`` > 1, one process per rank): the
+engine builds the topology ``{"model": tp}`` over the process group (its
+world size must be ``tp``), cuts the model to this rank's shard
+(``Transformer.shard_``, unless it is cut already), binds the topology
+and, when ``kernel_backend`` resolves to the fused backend (``"pallas"``,
+or ``"auto"`` on the card), binds it too: a decode step's MLP
+down-projection then runs as ``matmul_all_reduce`` (TPU kernel row 8,
+``models/transformer.py`` ``_down_proj``). The static KV cache holds this
+rank's ``n_kv_heads / tp`` heads. Plain SPMD: every rank calls
+``generate`` with the same ids, and since the logits are gathered on
+every rank and the sampler's generator has the same seed everywhere, the
+ranks draw the same tokens; ``generate`` reads no clock, so they stay in
+step. ZeRO-Inference quantization under tensor parallelism raises
+(ROADMAP.md, Queue A item 6b).
+
+Not ported (later slices, ROADMAP.md Queue A): loading a ``checkpoint``
+named in the config.
 ``generate`` records its request telemetry (TTFT, latency, decode
 tokens/s) into the global pipeline when one is enabled.
 """
@@ -41,6 +55,7 @@ import numpy as np
 import torch
 
 from ..ops import quant
+from ..parallel.mesh import Topology, set_topology
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
 
@@ -122,7 +137,8 @@ class InferenceEngine:
     """Generation engine over a port ``Transformer`` on one device.
 
     ``params`` (default: the model's own weights) is a ``{name: tensor}``
-    dict with the names of the model's ``named_parameters()``. Without
+    dict with the names of the model's ``named_parameters()`` (this
+    rank's shards under tensor parallelism). Without
     ``params`` the engine casts and moves the model's weights in place to
     ``config.dtype`` on ``device``, as the ragged engine does; with
     quantization on it then keeps only the quantized copies and empties
@@ -134,13 +150,11 @@ class InferenceEngine:
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  device=None):
         self.config = cfg = config or InferenceConfig()
-        if cfg.tensor_parallel > 1:
+        tp = cfg.tensor_parallel
+        if tp > 1 and (cfg.quant or {}).get("enabled", False):
             raise NotImplementedError(
-                f"tensor_parallel={cfg.tensor_parallel}: tensor-parallel "
-                f"inference comes with a later slice (ROADMAP.md, Queue A "
-                f"item 6); the fused backend's matmul_all_reduce "
-                f"(comm/backends.py, kernel rows 7-9) is ready for its "
-                f"decode MLP")
+                f"ZeRO-Inference weight quantization with tensor_parallel="
+                f"{tp} comes with ROADMAP.md, Queue A item 6b")
         # kernel_backend binds the fused comm backend only under tensor
         # parallelism, as the JAX engine does: at tp 1 it changes nothing
         if cfg.kernel_backend not in ("auto", "xla", "pallas"):
@@ -166,6 +180,9 @@ class InferenceEngine:
         if self._quant_enabled and self._quant_bits not in (4, 8):
             raise ValueError(f"quant.bits must be 4 or 8, got "
                              f"{self._quant_bits}")
+        self.topo = self.comm_backend = None
+        if tp > 1:
+            self._bind_tensor_parallel(model, tp)
         owned = params is None
         if owned:
             model.to(device=self.device, dtype=self.dtype)
@@ -184,7 +201,30 @@ class InferenceEngine:
                      f"{self._quant_block}")
         self._view = _DequantizedParams(self)
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        log_dist(f"InferenceEngine up: dtype={cfg.dtype} device={self.device}")
+        log_dist(f"InferenceEngine up: tp={tp} dtype={cfg.dtype} "
+                 f"device={self.device}")
+
+    def _bind_tensor_parallel(self, model, tp: int) -> None:
+        """The JAX engine's TP path: the topology ``{"model": tp}`` made
+        current, the model cut to this rank's shard and bound to it, and
+        the fused comm backend bound when ``kernel_backend`` resolves to
+        it."""
+        from ..comm.backends import resolve_backend
+
+        self.topo = Topology.build({"model": tp})
+        set_topology(self.topo)
+        if model._tp_size == 1:
+            model.shard_(self.topo)
+        elif model._tp_size != tp:
+            raise ValueError(f"the model is sharded over a model axis of "
+                             f"{model._tp_size}, tensor_parallel is {tp}")
+        else:
+            model.bind_topology(self.topo)
+        self.comm_backend = resolve_backend(self.config.kernel_backend,
+                                            self.device)
+        model.bind_comm_backend(self.comm_backend
+                                if self.comm_backend.name == "pallas"
+                                else None)
 
     # -- weight-only quantization (ZeRO-Inference) ----------------------
     def _quantizes(self, name: str, t: torch.Tensor) -> bool:
@@ -248,8 +288,11 @@ class InferenceEngine:
 
     # -- cache and steps -------------------------------------------------
     def _alloc_cache(self, batch: int, max_len: int):
+        """The static cache, sharded on heads under tensor parallelism:
+        this rank's ``n_kv_heads / tp``."""
         c = self.model.config
-        shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
+        shape = (c.n_layers, batch, max_len,
+                 c.n_kv_heads // self.model._tp_size, c.head_dim)
         return (torch.zeros(shape, dtype=self.dtype, device=self.device),
                 torch.zeros(shape, dtype=self.dtype, device=self.device))
 

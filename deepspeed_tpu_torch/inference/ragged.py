@@ -48,13 +48,34 @@ occupancy series, the ``record_spec`` mirror and the hand-off counters;
 all host dict updates. ``export_prefix`` carries the chaos injector's
 wire-corruption hook.
 
-Not in the port yet (ROADMAP.md): tensor parallelism.
+Tensor parallelism (``topology`` with a ``model`` axis above 1, FastGen
+v2's TP configuration): one process per rank. Each rank holds its shard
+of the model (``Transformer.shard_``: ``n_heads / tp`` heads, ``d_ff /
+tp`` of the MLP, ``vocab / tp`` of the embedding and head) and
+``n_kv_heads / tp`` heads of every page of the pool (payload and scales
+together). Group rank 0 is the controller: it runs everything on the
+host, as the JAX package's single controller does (admission,
+SplitFuse, the allocator, the prefix cache, preemption, the host
+builder), and before each device step it broadcasts one step record
+(``core``: the flat lanes, block tables, page walk and selected rows;
+``decode``: a ``decode_steps`` chunk; ``copy_page``; ``stop``) to the
+other ranks, which replay it on their shard in :meth:`RaggedInferenceEngine.
+serve_worker`. Every rank plans the step's paged-attention work list
+from the record itself. The head's logit columns are gathered on every
+rank, so a decode chunk's greedy or reseeded sampled tokens are the same
+on every rank without another message. A step that fails on the
+controller (a rank that died or hung, within the process group's
+timeout) raises :class:`RankFailure`, and every later step raises it
+too: the engine never carries on with fewer ranks. ``put_spec``, the
+KV hand-off, prefix export / adoption and the KV tier raise under tensor
+parallelism (ROADMAP.md, Queue A item 6b).
 """
 
 from __future__ import annotations
 
 import bisect
 import collections
+import dataclasses
 import hashlib
 import time
 from dataclasses import dataclass, field
@@ -63,6 +84,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..comm import comm
 from ..comm.comm import record_collective
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_attention, plan_paged_work
@@ -79,6 +101,15 @@ class PoolExhausted(RuntimeError):
     """The KV page pool cannot satisfy a schedule's block demand — the
     RECOVERABLE condition the serving driver answers by preempting a
     decode and retrying (distinct from a device error)."""
+
+
+class RankFailure(RuntimeError):
+    """A tensor-parallel step failed on the controller, so the model
+    group's ranks are no longer in step: this and every later step of the
+    engine raise it."""
+
+
+TP_LATER = "under tensor parallelism comes with ROADMAP.md, Queue A item 6b"
 
 
 class BlockedAllocator:
@@ -504,11 +535,18 @@ class RaggedInferenceEngine:
     """
 
     def __init__(self, model, config: Optional[RaggedConfig] = None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, topology=None):
         self.config = cfg = config or RaggedConfig()
         self.device = resolve_device(device)
         self.model = model
         c = model.config
+        tp = topology.model_parallel_size if topology is not None else 1
+        if tp > 1 and c.n_kv_heads % tp:
+            raise ValueError(
+                f"n_kv_heads {c.n_kv_heads} not divisible by the model "
+                f"axis {tp} — TP serving shards the KV pool by head")
+        self.topo = topology
+        self._tp = tp
         if cfg.max_context > c.max_seq_len:
             raise ValueError(
                 f"max_context {cfg.max_context} exceeds model "
@@ -533,7 +571,17 @@ class RaggedInferenceEngine:
         if c.window_binds(cfg.max_context):
             log_dist("RaggedInferenceEngine: binding sliding window — "
                      "banded paged attention")
+        if tp > 1 and model._tp_size == 1:
+            model.shard_(topology)
+        if model._tp_size != tp:
+            raise ValueError(f"the model is sharded over a model axis of "
+                             f"{model._tp_size}, the topology's is {tp}")
         model.to(device=self.device, dtype=cfg.dtype)
+        # this rank's heads; group rank 0 is the controller
+        self._hq, self._hkv = c.n_heads // tp, c.n_kv_heads // tp
+        self._tp_rank = topology.rank("model") if tp > 1 else 0
+        self.is_controller = self._tp_rank == 0
+        self._tp_failed: Optional[BaseException] = None
         self.allocator = BlockedAllocator(cfg.n_kv_blocks)
         self.prefix_cache = (PrefixCache(cfg.kv_block_size)
                              if cfg.enable_prefix_cache else None)
@@ -550,7 +598,7 @@ class RaggedInferenceEngine:
         # int8 [.., hd] or nibble-packed uint8 [.., hd // 2] payloads, plus
         # (k scales, v scales) [n_blocks + 1, hkv, block] fp32 leaves; all
         # start at zero, so an unwritten page dequantizes to zeros
-        pages = (cfg.n_kv_blocks + 1, c.n_kv_heads, cfg.kv_block_size)
+        pages = (cfg.n_kv_blocks + 1, self._hkv, cfg.kv_block_size)
         shape, dtype = {
             0: (pages + (c.head_dim,), cfg.dtype),
             8: (pages + (c.head_dim,), torch.int8),
@@ -595,9 +643,99 @@ class RaggedInferenceEngine:
         self._host_gen = torch.Generator()
         self._decode_step_counter = 0
         self._prefill_round_counter = 0
+        if tp > 1:
+            self._check_same_engines()
         log_dist(f"RaggedInferenceEngine: budget={cfg.token_budget} "
                  f"blocks={cfg.n_kv_blocks}x{cfg.kv_block_size} "
-                 f"device={self.device}")
+                 f"device={self.device}"
+                 + (f" tp={tp} rank={self._tp_rank}" if tp > 1 else ""))
+
+    # -- tensor parallelism: the controller's step records -----------------
+    def _check_same_engines(self) -> None:
+        """Every rank of the model group must build the same engine
+        (config, model config, seed): the workers replay the controller's
+        records with their own. A digest of the three is gathered; any
+        difference raises on every rank."""
+        c = self.model.config
+        text = repr((dataclasses.asdict(self.config), dataclasses.asdict(c),
+                     self._seed, self._tp))
+        mine = int.from_bytes(hashlib.sha256(text.encode()).digest()[:8],
+                              "little") >> 1
+        got = comm.all_gather_columns(
+            torch.tensor([mine], dtype=torch.int64), self.topo.group("model"),
+            "model")
+        if bool((got != mine).any()):
+            raise ValueError("the model group's ranks built engines with "
+                             "different configs, model configs or seeds")
+
+    def _no_tp(self, what: str) -> None:
+        if self._tp > 1:
+            raise NotImplementedError(f"{what} {TP_LATER}")
+
+    def _tp_guarded(self, fn):
+        """``fn()`` under the model group's failure latch: once a step
+        failed, the ranks are out of step, so it and every later one raise
+        :class:`RankFailure`."""
+        if self._tp_failed is not None:
+            raise RankFailure(
+                f"model group rank {self._tp_rank}: an earlier step failed "
+                f"({type(self._tp_failed).__name__}: {self._tp_failed}); "
+                f"the engine does not serve with fewer ranks")
+        try:
+            return fn()
+        except Exception as e:
+            self._tp_failed = e
+            raise RankFailure(
+                f"model group rank {self._tp_rank}: a tensor-parallel step "
+                f"failed ({type(e).__name__}: {e}); the ranks are no longer "
+                f"in step") from e
+
+    def _send(self, record: Dict[str, Any]) -> None:
+        comm.broadcast_record(record, self.topo.group("model"), "model")
+
+    def _device_step(self, op: str, **record) -> Any:
+        """Run one device step (``_REPLAY[op]`` of ``record``). Under
+        tensor parallelism the controller first broadcasts the record, and
+        the workers replay it in :meth:`serve_worker`."""
+        record["op"] = op
+        if self._tp <= 1:
+            return self._REPLAY[op](self, record)
+        if not self.is_controller:
+            raise RuntimeError(
+                f"model group rank {self._tp_rank} is a worker: it replays "
+                f"the controller's steps in serve_worker()")
+
+        def step():
+            self._send(record)
+            return self._REPLAY[op](self, record)
+
+        return self._tp_guarded(step)
+
+    def serve_worker(self) -> Dict[str, int]:
+        """Ranks above 0 of the model group: replay the controller's step
+        records on this rank's shard until it sends ``stop``. Returns how
+        many records of each op were replayed. A worker may serve again
+        after a ``stop``; a failed step raises :class:`RankFailure`."""
+        if self._tp <= 1 or self.is_controller:
+            raise RuntimeError("serve_worker() runs on the ranks above 0 "
+                               "of a tensor-parallel engine's model group")
+        group = self.topo.group("model")
+        counts: Dict[str, int] = {}
+        while True:
+            record = self._tp_guarded(
+                lambda: comm.broadcast_record(None, group, "model"))
+            op = record["op"]
+            counts[op] = counts.get(op, 0) + 1
+            if op == "stop":
+                return counts
+            self._tp_guarded(lambda: self._REPLAY[op](self, record))
+
+    def stop_workers(self) -> None:
+        """Controller: send the workers ``stop`` (their ``serve_worker``
+        returns). Nothing to do without tensor parallelism or after a
+        failed step, when the workers cannot be reached in step."""
+        if self._tp > 1 and self.is_controller and self._tp_failed is None:
+            self._tp_guarded(lambda: self._send({"op": "stop"}))
 
     # -- scheduling API (parity engine_v2.query/can_schedule) -----------
     def query(self, uid: int) -> Tuple[int, int]:
@@ -798,6 +936,7 @@ class RaggedInferenceEngine:
         engine to continue (a prefill replica hands a sequence to a
         decode replica). The sequence must be fully prefilled. Nothing is
         released: the caller then ``preempt``s or ``discard``s it."""
+        self._no_tp("export_kv")
         seq = self.seqs.get(uid)
         if seq is None:
             raise KeyError(f"uid {uid} has no live sequence to export")
@@ -840,6 +979,7 @@ class RaggedInferenceEngine:
 
         Raises :class:`PoolExhausted` (recoverable) or ``ValueError`` on a
         geometry mismatch; on any failure nothing is mutated."""
+        self._no_tp("import_kv")
         cfg = self.config
         if uid in self.seqs:
             raise ValueError(f"uid {uid} already live in this engine")
@@ -917,6 +1057,7 @@ class RaggedInferenceEngine:
         :class:`~deepspeed_tpu_torch.serving.kvtier.ColdTier`) receives
         evicted prefixes, and ``on_invalidate(hash)`` drops the
         directory entry at eviction time."""
+        self._no_tp("the global KV tier")
         self._kv_tier_member = str(member)
         self._cold_tier = cold_tier
         self._on_prefix_invalidate = on_invalidate
@@ -968,6 +1109,7 @@ class RaggedInferenceEngine:
         injector may corrupt the wire payload after the checksum was
         stamped (``on_prefix_export``): the importer's verify must catch
         it."""
+        self._no_tp("export_prefix")
         if self.prefix_cache is None:
             return None
         key, blocks = self.prefix_cache.lookup(tokens)
@@ -1006,6 +1148,7 @@ class RaggedInferenceEngine:
         the cache ends holding the only references. Returns False when
         the prefix is already resident; raises ValueError or
         :class:`PoolExhausted` (the caller falls back to prefill)."""
+        self._no_tp("import_prefix")
         if self.prefix_cache is None:
             raise ValueError("prefix cache disabled; nothing to adopt into")
         cfg = self.config
@@ -1118,13 +1261,16 @@ class RaggedInferenceEngine:
             self.allocator.release([old])
             seq.blocks[keep - 1] = cow_new
 
-    @torch.inference_mode()
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy page ``src`` to ``dst`` in every leaf of every layer,
         scales included (trim's copy-on-write)."""
+        self._device_step("copy_page", src=int(src), dst=int(dst))
+
+    @torch.inference_mode()
+    def _replay_copy_page(self, rec: Dict[str, Any]) -> None:
         for leaves in self.kv_pool:
             for leaf in leaves:
-                leaf[dst].copy_(leaf[src])
+                leaf[rec["dst"]].copy_(leaf[rec["src"]])
 
     # -- step ------------------------------------------------------------
     def _admit_tokens(self, uids: Sequence[int],
@@ -1201,13 +1347,12 @@ class RaggedInferenceEngine:
         sel_idx = np.zeros((cfg.max_seqs,), np.int64)
         for uid, idx in last_index.items():
             sel_idx[self.seqs[uid].slot] = idx
-        live_pages = self._live_pages_bucket()
-        x = self._core(self._dev(flat_tokens), self._dev(flat_slot),
-                       self._dev(flat_pos), self._dev(self._host_tables()),
-                       live_pages, self._paged_work(flat_slot, live_pages))
         # head only on each sequence's selected (last) token; only the
         # [max_seqs, vocab] rows travel to the host
-        logits = self.model._head(x[self._dev(sel_idx)]).cpu().numpy()
+        logits = self._device_step(
+            "core", tokens=flat_tokens, slot=flat_slot, pos=flat_pos,
+            tables=self._host_tables(), live_pages=self._live_pages_bucket(),
+            sel=sel_idx).cpu().numpy()
         out = np.full((len(uids), logits.shape[-1]), np.nan, np.float32)
         now = time.perf_counter()
         for i, uid in enumerate(uids):
@@ -1240,6 +1385,7 @@ class RaggedInferenceEngine:
         is appended, and on PoolExhausted every draft token is stripped
         before the raise, so a retry with a plain ``put`` of empty chunks
         sees exactly put()'s admitted state."""
+        self._no_tp("put_spec")
         cfg = self.config
         self._admit_tokens(uids, tokens)
         for uid, d in zip(uids, drafts):
@@ -1346,13 +1492,22 @@ class RaggedInferenceEngine:
         from the same ``_paged_work``), then the head on the [max_seqs,
         k_max] ``sel_rows`` rows (k_max a power of two). -> fp32 logits
         [max_seqs, k_max, vocab] on the host."""
-        live_pages = self._live_pages_bucket()
-        x = self._core(self._dev(flat_tokens), self._dev(flat_slot),
-                       self._dev(flat_pos), self._dev(self._host_tables()),
-                       live_pages, self._paged_work(flat_slot, live_pages))
-        rows = self._dev(sel_rows.reshape(-1))
-        logits = self.model._head(x[rows])
-        return logits.reshape(sel_rows.shape + (-1,)).cpu().numpy()
+        return self._device_step(
+            "core", tokens=flat_tokens, slot=flat_slot, pos=flat_pos,
+            tables=self._host_tables(), live_pages=self._live_pages_bucket(),
+            sel=sel_rows).cpu().numpy()
+
+    @torch.inference_mode()
+    def _replay_core(self, rec: Dict[str, Any]) -> torch.Tensor:
+        """A put / verify step: the ragged forward over the record's lanes,
+        then the head on the rows ``sel`` names -> fp32 logits ``[*sel.
+        shape, vocab]`` on the device."""
+        slot, live_pages, sel = rec["slot"], rec["live_pages"], rec["sel"]
+        x = self._core(self._dev(rec["tokens"]), self._dev(slot),
+                       self._dev(rec["pos"]), self._dev(rec["tables"]),
+                       live_pages, self._paged_work(slot, live_pages))
+        logits = self.model._head(x[self._dev(sel.reshape(-1))])
+        return logits.reshape(sel.shape + (-1,))
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -1484,34 +1639,12 @@ class RaggedInferenceEngine:
             pos[seq.slot] = seq.seen
             slots[seq.slot] = seq.slot
         eos = -1 if eos_token_id is None else int(eos_token_id)
-        toks_t, pos_t, slots_t = self._dev(toks), self._dev(pos), \
-            self._dev(slots)
-        tables = self._dev(self._host_tables())
-        live_pages = self._live_pages_bucket()
-        # one decode lane per sequence, each on its own slot: lane items
-        # only (no run of one slot makes a tile), so a lane whose slot
-        # drops to -1 mid-chunk (EOS) never sits inside a tile
-        work = self._paged_work(slots, live_pages)
-        alive = slots_t >= 0
-        if eos >= 0:
-            alive = alive & (toks_t != eos)
-        gens = []
         step0 = self._decode_step_counter
         self._decode_step_counter += k
-        for i in range(k):
-            slots_eff = torch.where(alive, slots_t, torch.full_like(slots_t, -1))
-            x = self._core(toks_t, slots_eff, pos_t, tables, live_pages,
-                           work)
-            nxt = self._next_tokens(self.model._head(x), step0 + i)
-            if eos >= 0:
-                nxt = torch.where(alive, nxt, torch.full_like(nxt, eos))
-                new_alive = alive & (nxt != eos)
-            else:
-                new_alive = alive
-            pos_t = pos_t + alive.to(pos_t.dtype)
-            gens.append(nxt)
-            toks_t, alive = nxt, new_alive
-        gen = torch.stack(gens, dim=1).cpu().numpy()             # [S, k]
+        gen = self._device_step(
+            "decode", toks=toks, pos=pos, slots=slots,
+            tables=self._host_tables(), live_pages=self._live_pages_bucket(),
+            k=int(k), eos=eos, step0=step0).cpu().numpy()        # [S, k]
 
         out = {}
         for uid, first in first_tokens.items():
@@ -1534,6 +1667,41 @@ class RaggedInferenceEngine:
                 seq.seen += k
             out[uid] = chain
         return out
+
+    @torch.inference_mode()
+    def _replay_decode(self, rec: Dict[str, Any]) -> torch.Tensor:
+        """A ``decode_steps`` chunk: ``k`` ragged steps with the tokens fed
+        back on the device -> int32 tokens [max_seqs, k] on the device."""
+        eos, step0 = rec["eos"], rec["step0"]
+        toks_t, pos_t, slots_t = self._dev(rec["toks"]), \
+            self._dev(rec["pos"]), self._dev(rec["slots"])
+        tables = self._dev(rec["tables"])
+        live_pages = rec["live_pages"]
+        # one decode lane per sequence, each on its own slot: lane items
+        # only (no run of one slot makes a tile), so a lane whose slot
+        # drops to -1 mid-chunk (EOS) never sits inside a tile
+        work = self._paged_work(rec["slots"], live_pages)
+        alive = slots_t >= 0
+        if eos >= 0:
+            alive = alive & (toks_t != eos)
+        gens = []
+        for i in range(rec["k"]):
+            slots_eff = torch.where(alive, slots_t, torch.full_like(slots_t, -1))
+            x = self._core(toks_t, slots_eff, pos_t, tables, live_pages,
+                           work)
+            nxt = self._next_tokens(self.model._head(x), step0 + i)
+            if eos >= 0:
+                nxt = torch.where(alive, nxt, torch.full_like(nxt, eos))
+                new_alive = alive & (nxt != eos)
+            else:
+                new_alive = alive
+            pos_t = pos_t + alive.to(pos_t.dtype)
+            gens.append(nxt)
+            toks_t, alive = nxt, new_alive
+        return torch.stack(gens, dim=1)
+
+    _REPLAY = {"core": _replay_core, "decode": _replay_decode,
+               "copy_page": _replay_copy_page}
 
     # -- sampling ----------------------------------------------------------
     def _reseed(self, gen: torch.Generator, stream: str,
@@ -1681,6 +1849,7 @@ class RaggedInferenceEngine:
         the rejected tail. Greedy acceptance makes the output
         token-identical to ``generate()``; acceptance only changes how
         many steps it takes. Stats land in ``self.spec_stats``."""
+        self._no_tp("speculative decoding")
         if self.config.temperature != 0.0:
             raise NotImplementedError(
                 "speculative decoding is greedy-only (temperature == 0); "
@@ -1773,9 +1942,9 @@ class RaggedInferenceEngine:
             ks = self.kv_pool[2][li] if self._kv_bits else None
             vs = self.kv_pool[3][li] if self._kv_bits else None
             h = rms_norm(x, blk.attn_norm_w, c.norm_eps)
-            q = (h @ blk.wq).reshape(-1, c.n_heads, c.head_dim)
-            kk = (h @ blk.wk).reshape(-1, c.n_kv_heads, c.head_dim)
-            vv = (h @ blk.wv).reshape(-1, c.n_kv_heads, c.head_dim)
+            q = (h @ blk.wq).reshape(-1, self._hq, c.head_dim)
+            kk = (h @ blk.wk).reshape(-1, self._hkv, c.head_dim)
+            vv = (h @ blk.wv).reshape(-1, self._hkv, c.head_dim)
             q = apply_rotary(q[:, None], self._angles, rope_pos,
                              rotary_dim=c.rotary_dim,
                              interleaved=c.rope_interleaved)[:, 0]
@@ -1798,8 +1967,8 @@ class RaggedInferenceEngine:
                                    window=self._windows[li], k_scale=ks,
                                    v_scale=vs, kv_bits=self._kv_bits,
                                    work=work)
-            attn = attn.to(x.dtype).reshape(-1, c.n_heads * c.head_dim)
-            x = x + attn @ blk.wo
+            attn = attn.to(x.dtype).reshape(-1, self._hq * c.head_dim)
+            x = x + model._row_parallel(attn, blk.wo)
             h = rms_norm(x, blk.mlp_norm_w, c.norm_eps)
             x = x + model._mlp(h, blk)
         return x

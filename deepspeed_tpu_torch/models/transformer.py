@@ -36,6 +36,21 @@ Two paths share the weights:
   that makes a leaf when it is read (the engine's dequantizing view) holds
   one layer's weights at a time.
 
+Tensor parallelism (``bind_topology`` with a ``model`` axis above 1, after
+:meth:`Transformer.shard_` cut this rank's leaves): the JAX package's
+Megatron layout (:meth:`Transformer.partition_specs`), made explicit
+where GSPMD inserts the collectives. A rank holds ``n_heads / tp`` query
+and ``n_kv_heads / tp`` KV heads (column-parallel ``wq`` / ``wk`` /
+``wv`` / ``w_gate`` / ``w_up``), the matching rows of the row-parallel
+``wo`` / ``w_down``, whose partial products are summed over the model
+group, and ``vocab / tp`` rows of ``tok_embed`` and columns of
+``lm_head``: the embedding is a masked lookup of the local rows summed
+over the group (the JAX one-hot contraction, bit for bit: each row has
+one non-zero), and the head's fp32 logit columns are gathered in rank
+order. With a fused comm backend bound (``bind_comm_backend``, by the
+v1 engine), a one-position decode step's down-projection runs as the
+backend's ``matmul_all_reduce`` (:meth:`Transformer._down_proj`).
+
 Sequence parallelism, ALiBi, encoder masks and sliding windows on the
 KV-cache path come with later slices.
 
@@ -53,9 +68,11 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..comm import comm
 from ..ops.attention import dot_product_attention, flash_attention
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rotary, rope_frequencies
+from ..parallel.mesh import PartitionSpec as P, shard_slices
 from ..runtime.activation_checkpointing import checkpoint_wrapper
 from ..utils.device import resolve_device
 
@@ -264,10 +281,112 @@ class Transformer(nn.Module):
         self.final_norm_w = p(c.d_model)
         self.lm_head = p(c.d_model, c.vocab_size)
         self.init(seed)
+        # tensor parallelism (bind_topology / bind_comm_backend)
+        self._topo = None
+        self._tp_size, self._tp_rank = 1, 0
+        self._comm_backend = None
 
     @property
     def device(self) -> torch.device:
         return self.tok_embed.device
+
+    # -- tensor parallelism --------------------------------------------
+    def partition_specs(self, params: Any = None, topo: Any = None
+                        ) -> Dict[str, Any]:
+        """The JAX package's tensor-parallel PartitionSpecs of the Llama
+        flag set, key for key, over its stacked tree (layer leaves ``[
+        n_layers, ...]``, so a layer spec leads with the layer dim):
+        column-parallel QKV / gate / up, row-parallel O / down, the
+        vocab-sharded embedding and head. ``params`` and ``topo`` are
+        taken for the JAX signature; no pipe axis is ported."""
+        layers = {"attn_norm_w": P(None, None), "wq": P(None, None, "model"),
+                  "wk": P(None, None, "model"), "wv": P(None, None, "model"),
+                  "wo": P(None, "model", None), "mlp_norm_w": P(None, None),
+                  "w_up": P(None, None, "model"),
+                  "w_down": P(None, "model", None),
+                  "w_gate": P(None, None, "model")}
+        return {"tok_embed": P("model", None), "layers": layers,
+                "final_norm_w": P(None), "lm_head": P(None, "model")}
+
+    def leaf_spec(self, name: str) -> P:
+        """The spec of one of ``named_parameters()``'s leaves (a layer
+        leaf's without the stacked layer dim)."""
+        specs = self.partition_specs()
+        if name.startswith("layers."):
+            return P(*specs["layers"][name.split(".")[-1]][1:])
+        return specs[name]
+
+    def local_shard(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a full-width leaf ``name`` (a view)."""
+        return t[shard_slices(t.shape, self.leaf_spec(name), self._tp_size,
+                              self._tp_rank)]
+
+    @torch.no_grad()
+    def shard_(self, topo) -> "Transformer":
+        """Cut every leaf to this rank's shard over ``topo``'s model axis,
+        in place (each leaf is replaced by a copy of its slice, so the
+        full-width tensor is freed), and bind the topology. The heads,
+        ``d_ff`` and the vocab must divide by the axis."""
+        c = self.config
+        tp = topo.model_parallel_size
+        if self._tp_size > 1:
+            raise ValueError("the model is already sharded")
+        for what, n in (("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads),
+                        ("d_ff", c.d_ff), ("vocab_size", c.vocab_size)):
+            if n % tp:
+                raise ValueError(f"{what} {n} not divisible by the model "
+                                 f"axis {tp}")
+        self.bind_topology(topo)
+        for name, p in self.named_parameters():
+            p.data = self.local_shard(name, p.data).clone()
+        return self
+
+    def bind_topology(self, topo) -> "Transformer":
+        """Attach the mesh whose ``model`` axis this rank's leaves are
+        sharded over (:meth:`shard_` cuts them)."""
+        self._topo = topo
+        self._tp_size = topo.model_parallel_size
+        self._tp_rank = topo.rank("model")
+        return self
+
+    def bind_comm_backend(self, backend) -> "Transformer":
+        """Attach a fused comm backend (``comm/backends.py``): a decode
+        step's MLP down-projection then runs as its ``matmul_all_reduce``
+        (:meth:`_down_proj`). The v1 engine binds it under tensor
+        parallelism when its ``kernel_backend`` resolves to the fused
+        backend."""
+        self._comm_backend = backend
+        return self
+
+    def _group(self):
+        return self._topo.group("model")
+
+    def _all_reduce(self, y: torch.Tensor) -> torch.Tensor:
+        """The model group's sum of a row-parallel partial product (the
+        psum GSPMD inserts); ``y`` itself without tensor parallelism."""
+        if self._tp_size <= 1:
+            return y
+        nbytes = y.numel() * y.element_size()
+        comm.record_collective("all_reduce", nbytes, nbytes, "model",
+                               self._tp_size)
+        return comm.all_reduce(y, group=self._group())
+
+    def _row_parallel(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``a @ w`` for a weight sharded on its input rows: the partial
+        products summed over the model group. The partials stay fp32
+        through the sum (exact products, fp32 accumulation: ``torch.mm``
+        with an fp32 output on the card, fp32 operands on the CPU) and
+        are rounded to ``a``'s dtype once, as one device's full-width
+        matmul rounds its sum. Without tensor parallelism, ``a @ w``."""
+        if self._tp_size <= 1:
+            return a @ w
+        flat = a.reshape(-1, a.shape[-1])
+        if a.is_cuda and a.dtype != torch.float32:
+            y = torch.mm(flat, w, out_dtype=torch.float32)
+        else:
+            y = flat.float() @ w.float()
+        y = self._all_reduce(y).to(a.dtype)
+        return y.reshape(*a.shape[:-1], w.shape[-1])
 
     @torch.no_grad()
     def init(self, seed: int = 0) -> "Transformer":
@@ -389,10 +508,12 @@ class Transformer(nn.Module):
         c = self.config
         hd = c.head_dim
         b, s, _ = x.shape
+        # this rank's heads (all of them without tensor parallelism)
+        hq, hkv = c.n_heads // self._tp_size, c.n_kv_heads // self._tp_size
         h = rms_norm(x, lp["attn_norm_w"], c.norm_eps)
-        q = (h @ lp["wq"]).reshape(b, s, c.n_heads, hd)
-        kk = (h @ lp["wk"]).reshape(b, s, c.n_kv_heads, hd)
-        vv = (h @ lp["wv"]).reshape(b, s, c.n_kv_heads, hd)
+        q = (h @ lp["wq"]).reshape(b, s, hq, hd)
+        kk = (h @ lp["wk"]).reshape(b, s, hkv, hd)
+        vv = (h @ lp["wv"]).reshape(b, s, hkv, hd)
         q = apply_rotary(q, angles, positions, rotary_dim=c.rotary_dim,
                          interleaved=c.rope_interleaved)
         kk = apply_rotary(kk, angles, positions, rotary_dim=c.rotary_dim,
@@ -413,7 +534,7 @@ class Transformer(nn.Module):
             attend = flash_attention if c.use_flash else dot_product_attention
             attn = attend(q, kk, vv, causal=True, scale=c.attn_scale,
                           window=window)
-        x = x + attn.reshape(b, s, c.n_heads * hd) @ lp["wo"]
+        x = x + self._row_parallel(attn.reshape(b, s, hq * hd), lp["wo"])
         h = rms_norm(x, lp["mlp_norm_w"], c.norm_eps)
         return x + self._mlp(h, lp)
 
@@ -529,18 +650,54 @@ class Transformer(nn.Module):
         layer leaf is read for it; else the dtype of ``wq``)."""
         p = self._params(params)
         dtype = getattr(p, "compute_dtype", None) or p["layers.0.wq"].dtype
-        return F.embedding(tokens.long(), p["tok_embed"]).to(dtype)
+        table = p["tok_embed"]
+        if self._tp_size <= 1:
+            return F.embedding(tokens.long(), table).to(dtype)
+        # vocab-parallel: this rank's rows, zeros for the other ranks'
+        # ids, summed over the group. Ids are clipped to the vocab first,
+        # as the JAX one-hot path does
+        rows = table.shape[0]
+        ids = tokens.long().clamp(0, self.config.vocab_size - 1) \
+            - self._tp_rank * rows
+        mine = (ids >= 0) & (ids < rows)
+        x = F.embedding(ids.clamp(0, rows - 1), table).to(dtype)
+        x = torch.where(mine[..., None], x, torch.zeros((), dtype=dtype,
+                                                        device=x.device))
+        return self._all_reduce(x)
 
     def _mlp(self, h: torch.Tensor, lp) -> torch.Tensor:
         """Gated-SiLU FFN: (silu(h @ w_gate) * (h @ w_up)) @ w_down. ``lp``
         is a :class:`Block` or a dict of one layer's leaves."""
         up = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
-        return up @ lp["w_down"]
+        return self._down_proj(up, lp["w_down"])
+
+    def _down_proj(self, up: torch.Tensor, w_down: torch.Tensor
+                   ) -> torch.Tensor:
+        """Row-parallel MLP down-projection, as the JAX package's: with a
+        fused backend bound under tensor parallelism and one query
+        position in flight (``up`` ``[b, 1, f / tp]``, a v1 decode step),
+        the partial matmul and its all-reduce run as the backend's
+        ``matmul_all_reduce``; every other shape (prefill, the ragged
+        engine's ``[T, f / tp]`` lanes) is a plain matmul followed by the
+        model group's all-reduce (:meth:`_row_parallel`)."""
+        backend = self._comm_backend
+        if (backend is None or self._tp_size <= 1 or up.dim() != 3
+                or up.shape[1] != 1):
+            return self._row_parallel(up, w_down)
+        b, _, f = up.shape
+        y = backend.matmul_all_reduce(up.reshape(b, f), w_down, "model",
+                                      out_dtype=up.dtype)
+        return y.reshape(b, 1, w_down.shape[-1])
 
     def _head(self, x: torch.Tensor,
               params: Optional[Mapping[str, torch.Tensor]] = None
               ) -> torch.Tensor:
-        """Final norm + LM head: [..., d] -> fp32 logits [..., vocab]."""
+        """Final norm + LM head: [..., d] -> fp32 logits [..., vocab].
+        Under tensor parallelism each rank computes its vocab columns and
+        the group gathers them in rank order."""
         p = self._params(params)
         x = rms_norm(x, p["final_norm_w"], self.config.norm_eps)
-        return (x @ p["lm_head"].to(x.dtype)).float()
+        logits = (x @ p["lm_head"].to(x.dtype)).float()
+        if self._tp_size > 1:
+            logits = comm.all_gather_columns(logits, self._group(), "model")
+        return logits

@@ -805,7 +805,8 @@ class ServingEngine:
 
     def close(self, timeout: Optional[float] = None) -> None:
         """Graceful shutdown: drain, cancel whatever would not finish,
-        stop the driver + watchdog threads."""
+        stop the driver + watchdog threads, and send a tensor-parallel
+        engine's workers ``stop``."""
         drained = self.drain(timeout=timeout)
         if not drained:
             with self._lock:
@@ -824,6 +825,10 @@ class ServingEngine:
         self._flush_handoffs()
         self._flush_spans()
         self._update_gauges()
+        # a tensor-parallel engine's workers leave serve_worker()
+        stop_workers = getattr(self._engine, "stop_workers", None)
+        if stop_workers is not None:
+            stop_workers()
 
     def _join_threads(self) -> None:
         """Join the driver and watchdog (a device call in flight on the

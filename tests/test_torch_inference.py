@@ -287,10 +287,12 @@ def test_generation_past_max_seq_len_raises(greedy_pair):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(tensor_parallel=2), NotImplementedError, "tensor_parallel"),
-    (dict(mp_size=2), NotImplementedError, "tensor_parallel"),
-    (dict(tensor_parallel=2, kernel_backend="pallas"), NotImplementedError,
-     "rows 7-9"),
+    # tensor parallelism needs as many ranks as tensor_parallel (one
+    # process here: world size 1); TP with quantized weights is item 6b
+    (dict(tensor_parallel=2), ValueError, "world size"),
+    (dict(mp_size=2), ValueError, "world size"),
+    (dict(tensor_parallel=2, quant={"enabled": True}), NotImplementedError,
+     "6b"),
     (dict(checkpoint="/nonexistent"), NotImplementedError, "checkpoint"),
     (dict(enable_cuda_graph=True), NotImplementedError, "CUDA graph"),
     (dict(kernel_backend="tpu"), ValueError, "kernel_backend"),

@@ -5,7 +5,8 @@
 JAX model on carried weights. Also here: the presets, the weight carry's
 checks, the unsupported-flag errors, the serving and training entry
 points' CUDA default, and the scan showing that the port and
-``chip_smoke.py`` import neither ``jax`` nor ``deepspeed_tpu``.
+``chip_smoke.py`` import neither ``jax`` nor ``deepspeed_tpu``, nor does a
+tensor-parallel rank process (controller and worker) load them.
 """
 
 import ast
@@ -247,3 +248,12 @@ def test_importing_the_port_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_a_tensor_parallel_rank_loads_no_jax():
+    """The worker entry point too: two gloo rank processes serve a
+    tensor-parallel engine (the controller's generate, the worker's
+    serve_worker) and report the JAX modules they loaded."""
+    from torch_ranks import start_ranks
+
+    assert start_ranks(2, "tp_import_job", timeout=120).results() == [[], []]

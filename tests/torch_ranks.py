@@ -6,12 +6,15 @@ this module with one thread, and sends back what the job returns (numpy
 arrays and plain values). Nothing here imports JAX: the JAX side of each
 test runs in the pytest process while the ranks run. :meth:`Ranks.results`
 waits for all ranks within a deadline and kills every child when one
-fails or time runs out.
+fails or time runs out. A job that returns :class:`Exit` sends its value
+and ends its process at once, without leaving the group: a rank that
+dies mid-run.
 """
 
 from __future__ import annotations
 
 import importlib
+import os
 import queue as queue_mod
 import socket
 import time
@@ -29,6 +32,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+class Exit:
+    """A job's value, after which its rank process ends at once (no
+    barrier, no leaving the group)."""
+
+    def __init__(self, value: Any):
+        self.value = value
+
+
 def _entry(rank: int, world: int, port: int, job: str, args: tuple,
            out) -> None:
     torch.set_num_threads(1)
@@ -38,7 +49,13 @@ def _entry(rank: int, world: int, port: int, job: str, args: tuple,
         comm.init_distributed("gloo", init_method=f"tcp://127.0.0.1:{port}",
                               world_size=world, rank=rank, timeout_s=120)
         fn = getattr(importlib.import_module(__name__), job)
-        out.put((rank, "ok", fn(rank, world, *args)))
+        value = fn(rank, world, *args)
+        if isinstance(value, Exit):
+            out.put((rank, "ok", value.value))
+            out.close()
+            out.join_thread()
+            os._exit(0)
+        out.put((rank, "ok", value))
         comm.barrier()
         comm.destroy()
     except BaseException:  # noqa: BLE001 — reported to the parent
@@ -290,3 +307,182 @@ def engine_job(rank: int, world: int, init_np, batch_np, dims, runs,
                      "params": export_block_params(full) if rank == 0
                      else None}
     return out
+
+
+# ----------------------------------------------------------------------
+# jobs of tests/test_torch_tensor_parallel.py
+
+def drive_puts(eng, prompts: Dict[int, List[int]], n_decode: int
+               ) -> List[np.ndarray]:
+    """The logits of every ``put`` of a greedy run: the prompts (and any
+    prefill continuation), then ``n_decode`` one-token puts of each uid's
+    argmax. Runs the same on the JAX engine and on the port's (the
+    controller under tensor parallelism). Flushes the uids."""
+    uids = list(prompts)
+    rows = [eng.put(uids, [list(p) for p in prompts.values()])]
+    first: Dict[int, int] = {}
+    pending = uids
+    while True:
+        for u, r in zip(pending, rows[-1]):
+            if not np.isnan(r).any():
+                first[u] = int(np.argmax(r))
+        pending = [u for u in uids if u not in first]
+        if not pending:
+            break
+        rows.append(eng.put(pending, [[] for _ in pending]))
+    toks = first
+    for _ in range(n_decode):
+        rows.append(eng.put(uids, [[toks[u]] for u in uids]))
+        toks = {u: int(np.argmax(r)) for u, r in zip(uids, rows[-1])}
+    eng.flush(uids)
+    return [np.asarray(r) for r in rows]
+
+
+def _tp_model(model_kw: Dict[str, Any], params: Dict[str, Any], topo):
+    """A port Llama cut to this rank's shard, with the carried JAX
+    weights loaded leaf by leaf into the shard."""
+    from deepspeed_tpu_torch.checkpoint.jax_params import (load_jax_params,
+                                                           shard_params)
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    model = shard_params(Llama("tiny", device="cpu", **model_kw), topo)
+    return load_jax_params(model, params)
+
+
+def tp_job(rank: int, world: int, cases: Dict[str, Any]) -> Dict[str, Any]:
+    """Every tensor-parallel case of the file on this rank: the ragged
+    engine (``put`` logits and ``generate`` streams), v1 ``generate``
+    (plain SPMD) with the fused counters, ServingEngine over a TP engine,
+    and the shards of the carried weights. Workers return what they
+    replayed."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.jax_params import export_params
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.parallel.mesh import Topology
+    from deepspeed_tpu_torch.serving.server import ServingEngine
+
+    topo = Topology.build({"model": world})
+    out: Dict[str, Any] = {"shards": None}
+    for name, case in cases.get("ragged", {}).items():
+        model = _tp_model(case["model"], case["params"], topo)
+        if name == "fp32":
+            out["shards"] = export_params(model)
+        eng = RaggedInferenceEngine(
+            model, RaggedConfig(dtype=torch.float32, **case["cfg"]),
+            device="cpu", topology=topo)
+        k_leaf = eng.kv_pool[0][0]          # layer 0's K pages
+        if not eng.is_controller:
+            out[name] = eng.serve_worker()
+            out[name]["copied"] = bool(torch.equal(k_leaf[5], k_leaf[3]))
+            continue
+        rows = drive_puts(eng, case["prompts"], case["n_decode"])
+        streams = eng.generate(dict(case["prompts"]),
+                               max_new_tokens=case["new"])
+        # trim's copy-on-write page copy goes through a step record too
+        differed = not torch.equal(k_leaf[5], k_leaf[3])
+        eng._copy_page(3, 5)
+        out[name] = {"rows": rows, "streams": streams,
+                     "free": eng.allocator.free_blocks,
+                     "copied": differed and bool(torch.equal(k_leaf[5],
+                                                             k_leaf[3]))}
+        eng.stop_workers()
+    for kb, case in cases.get("v1", {}).items():
+        model = _tp_model(case["model"], case["params"], topo)
+        _fresh_registry()
+        eng = dst.init_inference(model, case["config"], device="cpu")
+        ids = eng.generate(case["ids"], max_new_tokens=case["new"])
+        out[f"v1_{kb}"] = {"ids": ids, "counters": _counters(),
+                           "bound": model._comm_backend is not None}
+    serve = cases.get("serve")
+    if serve:
+        model = _tp_model(serve["model"], serve["params"], topo)
+        eng = RaggedInferenceEngine(
+            model, RaggedConfig(dtype=torch.float32, **serve["cfg"]),
+            device="cpu", topology=topo)
+        if eng.is_controller:
+            srv = ServingEngine(eng, {"policy": "fcfs"}, start=False,
+                                device="cpu")
+            reqs = [srv.submit(p, max_new_tokens=serve["new"])
+                    for p in serve["prompts"]]
+            for _ in range(500):
+                if all(r.is_terminal for r in reqs):
+                    break
+                srv.step()
+            srv.close()
+            out["serve"] = {"tokens": [r.tokens for r in reqs],
+                            "states": [r.state.value for r in reqs],
+                            "leaks": srv.block_leaks()}
+        else:
+            out["serve"] = eng.serve_worker()
+    return out
+
+
+def tp_rank_death_job(rank: int, world: int, case: Dict[str, Any]):
+    """The worker replays ``case["steps"]`` records, then its process
+    ends mid-run; the controller's ``generate`` must raise RankFailure
+    well inside the process group's timeout, and so must the next call."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine,
+                                                      RankFailure)
+    from deepspeed_tpu_torch.parallel.mesh import Topology
+
+    topo = Topology.build({"model": world})
+    model = _tp_model(case["model"], case["params"], topo)
+    eng = RaggedInferenceEngine(
+        model, RaggedConfig(dtype=torch.float32, **case["cfg"]),
+        device="cpu", topology=topo)
+    if not eng.is_controller:
+        replay, seen = dict(eng._REPLAY), [0]
+
+        def dying(self, rec):
+            seen[0] += 1
+            if seen[0] > case["steps"]:
+                raise SystemExit(0)
+            return replay[rec["op"]](self, rec)
+
+        eng._REPLAY = {op: dying for op in replay}
+        try:
+            eng.serve_worker()
+        except SystemExit:
+            pass
+        return Exit({"replayed": seen[0] - 1})
+    t0 = time.monotonic()
+    try:
+        eng.generate(dict(case["prompts"]), max_new_tokens=case["new"])
+        first = None
+    except RankFailure as e:
+        first = str(e)
+    elapsed = time.monotonic() - t0
+    try:
+        eng.put([99], [[1, 2, 3]])
+        second = None
+    except RankFailure as e:
+        second = str(e)
+    return Exit({"first": first, "second": second, "elapsed": elapsed})
+
+
+def tp_import_job(rank: int, world: int) -> List[str]:
+    """A rank of tensor-parallel serving (the controller's ``generate``,
+    the worker's ``serve_worker``) on a small model; returns the JAX
+    modules loaded in the process (none are expected)."""
+    import sys
+
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.models.llama import Llama
+    from deepspeed_tpu_torch.parallel.mesh import Topology
+
+    model = Llama("tiny", device="cpu", n_layers=1, d_model=32, n_heads=2,
+                  n_kv_heads=2, vocab_size=64, max_seq_len=64)
+    eng = RaggedInferenceEngine(
+        model, RaggedConfig(token_budget=16, max_seqs=2, n_kv_blocks=8,
+                            max_context=64, dtype=torch.float32),
+        device="cpu", topology=Topology.build({"model": world}))
+    if eng.is_controller:
+        eng.generate({1: [1, 2, 3]}, max_new_tokens=3)
+        eng.stop_workers()
+    else:
+        eng.serve_worker()
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu"))
