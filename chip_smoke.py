@@ -21,7 +21,9 @@ CPU path — without a CUDA device the script fails):
 3. kernels: paged attention against its plain PyTorch version on the card
    at the serving path's shapes and at tile and lane cases (chunks that
    are no multiple of 64 or start mid-page, two sequences in one 64-lane
-   window, blocks 8-64, windows, 1 and 16 decode lanes), with stated
+   window, blocks 8-64, windows, 1 and 16 decode lanes, and phase 6g's
+   OPT-6.7B (32 heads of 128) and GPT-2 XL (25 heads of 64) shapes with
+   decode lanes and a prefill chunk), with stated
    tolerances (TF32 is off for both cuBLAS and cuDNN), each run twice for
    bitwise-equal outputs and failing unless tile items and lane items ran
    exactly where the work list has them; then, at a decode and a prefill
@@ -155,6 +157,19 @@ CPU path — without a CUDA device the script fails):
    fused ``decode_mlp_all_reduce`` and one row-8 launch a layer for each
    decode step on each rank; (d) row 8 at that decode shape, [4, 5504]
    x [5504, 4096] bf16, timed beside its bound and ``torch.mm``;
+6g. families: (a) OPT-6.7B and (b) GPT-2 XL (25 heads of head_dim 64)
+   at full width and depth, seeded random bf16 weights with every bias
+   and norm term drawn, each behind ``ServingEngine`` over
+   ``RaggedInferenceEngine`` as phase 5 serves Llama-2-7B (8 requests, 32
+   new tokens, a pool of phase 5's bytes, launches counted from 0, tile
+   items in the prefill puts, one put's logits finite at the model's
+   vocabulary), then layer 0's paged call of a mixed put against the
+   plain version and timed as in 5b; (c) ``init_inference`` of the same
+   OPT-6.7B, bf16 then int8 weights (group 256): path A's 4 x 128-token
+   prompts, 32 new tokens, quantize / dequantize launches counted over
+   the flag set's leaves (biases, norm biases, ``pos_embed``, the tied
+   ``tok_embed``), payloads, scales and dequantized weights bitwise the
+   plain versions';
 6a. inference: ``init_inference(Llama("7b"))`` with int8 weights at group
    256 (path A), then bf16 and int4 weights: 4 prompts of 128 tokens, 32
    new tokens greedy; weight bytes, memory, prefill and decode times,
@@ -709,6 +724,13 @@ def phase_kernels() -> dict:
          2, None),
         ("decode16x4096-gqa-bf16", [4096] * 16, 32, 4, 64, 16,
          torch.bfloat16, 0, 256, 256, None),
+        # 6g's serving shapes: OPT-6.7B (32 heads of 128, 2048 context)
+        # and GPT-2 XL (25 heads of 64, 1024 context), decode lanes and a
+        # prefill chunk on tile items
+        ("opt-6.7b-bf16", [1, 17, 1000, 2048], 32, 32, 128, 16,
+         torch.bfloat16, 0, 128, 128, (2, 48)),
+        ("gpt2-xl-hd64-h25-bf16", [1, 17, 700, 1024], 25, 25, 64, 16,
+         torch.bfloat16, 0, 64, 64, (2, 48)),
     ]
     worst = 0.0
     for (name, contexts, hq, hkv, hd, block, dtype, window, mp, live,
@@ -1204,13 +1226,17 @@ def phase_inference_parity() -> None:
 
 
 # ---------------------------------------------------------------- phase 5
-def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
-    """Llama-2-7B, full width and depth, bf16, seeded random weights,
-    behind ServingEngine (FCFS): 8 requests of 64-1536 prompt tokens, 32
-    new tokens each, over a bf16 pool of 2048 pages or, with ``kv_quant``,
-    an int8/int4 pool of the same bytes (path B). ``model`` reuses an
-    earlier phase's weights. Returns (the paged-attention launches of the
-    run, the engine, the prompts) for the profile phase."""
+def phase_serving(card: str, model=None, kv_quant: str = "none",
+                  name: str = "Llama-2-7B", max_context: int = 4096,
+                  max_prompt: int = 1536) -> tuple:
+    """Llama-2-7B (or ``model``, called ``name``), full width and depth,
+    bf16, seeded random weights, behind ServingEngine (FCFS): 8 requests
+    of 64-``max_prompt`` prompt tokens drawn from the model's vocabulary,
+    32 new tokens each, over a bf16 pool of phase 5's bytes (2048 pages of
+    Llama-2-7B) or, with ``kv_quant``, an int8/int4 pool of the same bytes
+    (path B). ``model`` reuses an earlier phase's weights. Returns (the
+    paged-attention launches of the run, the engine, the prompts) for the
+    profile phase."""
     import deepspeed_tpu_torch.inference.ragged as ragged_mod
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                       RaggedInferenceEngine,
@@ -1225,8 +1251,10 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
         model = Llama("7b", dtype=torch.bfloat16, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
     n_layers = model.config.n_layers
+    vocab = model.config.vocab_size
     shape = dict(token_budget=512, max_seqs=16, kv_block_size=16,
-                 max_context=4096, dtype=torch.bfloat16, kv_quant=kv_quant)
+                 max_context=max_context, dtype=torch.bfloat16,
+                 kv_quant=kv_quant)
     pages = kv_blocks_for_bytes(FP_POOL_BYTES, model.config,
                                 RaggedConfig(**shape))
     cfg = RaggedConfig(n_kv_blocks=pages, **shape)
@@ -1236,7 +1264,9 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
                      for leaves in eng.kv_pool for t in leaves)
     counter = PAGED_COUNTER[kv_quant]
     tag = "serving" if kv_quant == "none" else f"serving {kv_quant}"
-    log(f"{tag}: Llama-2-7B {n_params} params bf16, kv_quant={kv_quant} "
+    if name != "Llama-2-7B":
+        tag = f"families: serving {name}"
+    log(f"{tag}: {name} {n_params} params bf16, kv_quant={kv_quant} "
         f"pool {cfg.n_kv_blocks}x{cfg.kv_block_size} pages, {pool_bytes} B "
         f"(budget {FP_POOL_BYTES} B), built in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1272,8 +1302,8 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
 
     ragged_mod.paged_attention = recording
     rng = np.random.default_rng(0)
-    lengths = rng.integers(64, 1537, 8)
-    prompts = [rng.integers(1, 32000, int(n)).tolist() for n in lengths]
+    lengths = rng.integers(64, max_prompt + 1, 8)
+    prompts = [rng.integers(1, vocab, int(n)).tolist() for n in lengths]
     srv = ServingEngine(eng, {"policy": "fcfs", "kv_quant": kv_quant})
     try:
         # warm-up request (cuBLAS handles, allocator), outside the count
@@ -1303,7 +1333,7 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
         f"{[s.value for s in states]}, tokens {ntok}")
     ok = (all(s is RequestState.FINISHED for s in states)
           and ntok == [32] * 8 and leaks == [] and len(ttft) == 8
-          and all(0 <= t < 32000 for r in reqs for t in r.tokens)
+          and all(0 <= t < vocab for r in reqs for t in r.tokens)
           and launches == n_layers * n_puts and launches > 0
           and sum(counts[n] for n in PAGED_COUNTER.values()) == launches
           and counts["tile_launches"] == n_layers * tile_puts
@@ -1319,11 +1349,13 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
         f"{sum(ntok) / wall:.1f} generated tokens/s")
     logits = eng.put([10_000], [prompts[1][:40]])
     eng.flush([10_000])
-    ok = ok and logits.shape == (1, 32000) and np.isfinite(logits).all()
+    ok = ok and logits.shape == (1, vocab) and np.isfinite(logits).all()
+    log(f"{tag}: one put's logits {tuple(logits.shape)}, finite "
+        f"{bool(np.isfinite(logits).all())}")
     log(f"{tag}: torch.cuda.max_memory_allocated() = "
         f"{torch.cuda.max_memory_allocated()} B")
     if not ok:
-        raise SystemExit("serving phase failed")
+        raise SystemExit(f"{tag} phase failed")
     paths = {"launches": launches, "tile_launches": counts["tile_launches"],
              "split_launches": counts["split_launches"], "mixed": mixed,
              "streams": [list(r.tokens) for r in reqs]}
@@ -1331,7 +1363,8 @@ def phase_serving(card: str, model=None, kv_quant: str = "none") -> tuple:
 
 
 # --------------------------------------------------------------- phase 5b
-def phase_paged_mixed(mixed: dict, card: str) -> dict:
+def phase_paged_mixed(mixed: dict, card: str,
+                      label: str = "mixed_put") -> dict:
     """Layer 0's paged-attention call of a mixed put recorded in phase 5
     (decode lanes + a prefill chunk over the serving pool): compared with
     the plain version twice, then timed beside the replaced kernel, the
@@ -1342,14 +1375,14 @@ def phase_paged_mixed(mixed: dict, card: str) -> dict:
     m = mixed
     args = (m["q"], m["kp"], m["vp"], m["tab"], m["pos"], m["slots"],
             m["live"])
-    _paged_twice("mixed_put", *args, 0, work=m["work"])
+    _paged_twice(label, *args, 0, work=m["work"])
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    t = _time_paged(f"mixed_put [{card}]", *args, flush, work=m["work"])
+    t = _time_paged(f"{label} [{card}]", *args, flush, work=m["work"])
     plan = m["work"].plan.cpu().numpy()
     t["work"] = {"T": m["work"].T, "tiles": plan[:2 * m["work"].n_tiles]
                  .reshape(-1, 2).tolist(), "lane_items": m["work"].n_items,
                  "lanes": m["work"].n_lanes, "padding": m["work"].n_pad}
-    log(f"kernels: paged_attention mixed_put work list {t['work']}")
+    log(f"kernels: paged_attention {label} work list {t['work']}")
     return t
 
 
@@ -3761,6 +3794,173 @@ def phase_tp(model, card: str, err: dict, prompts, ref: dict) -> dict:
 
 
 # --------------------------------------------------------------- phase 6a
+# --------------------------------------------------------------- phase 6g
+FAMILY_SERVING = {   # name -> (preset, size, max_context, longest prompt)
+    "OPT-6.7B": ("opt", "6.7b", 2048, 1536),
+    "GPT-2 XL": ("gpt2", "xl", 1024, 960),
+}
+FAMILY_V1_QUANT = {"enabled": True, "bits": 8, "group_size": 256}
+FAMILY_KEYS = (("opt", "OPT-6.7B"), ("gpt2xl", "GPT-2 XL"))  # kernels line
+
+
+def _family_model(preset: str, size: str, seed: int = 0):
+    """A family preset at full width and depth, bf16, random weights from
+    ``seed``; then every bias and norm bias drawn N(0, 0.02^2) and every
+    norm weight 1 + N(0, 0.02^2) from a generator seeded with ``seed`` on
+    the card, so that a bias or norm term the path dropped would move its
+    logits (the init's zeros and ones would hide it)."""
+    from deepspeed_tpu_torch.models import gpt2
+
+    model = {"opt": gpt2.OPT, "gpt2": gpt2.GPT2}[preset](
+        size, dtype=torch.bfloat16, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 1:
+                noise = torch.randn(p.shape, generator=gen, device="cuda",
+                                    dtype=torch.float32) * 0.02
+                p.copy_(noise + (1.0 if name.endswith("norm_w") else 0.0))
+    return model
+
+
+def _family_v1(model, card: str) -> dict:
+    """6g (c): ``init_inference`` of OPT-6.7B, bf16 then int8 weights at
+    group 256, path A's 4 x 128-token prompts, 32 new tokens greedy. The
+    int8 engine is built from ``(model, params)``, so the bf16 weights
+    stay beside it: every quantized leaf's payload and scales are bitwise
+    the plain quantize's of the bf16 leaf, and its dequantized weight
+    bitwise the plain dequantize's. The quantize and dequantize counts are
+    set to 0 just before the int8 engine is built and read after its
+    32-token generate; every layer leaf of the flag set (biases, norm
+    weights and biases: 16 a layer), ``pos_embed`` and the tied
+    ``tok_embed`` are quantized, and a forward dequantizes each once, the
+    tied ``tok_embed`` twice (embedding and head)."""
+    import deepspeed_tpu_torch
+
+    c = model.config
+    ids = np.random.default_rng(8).integers(1, c.vocab_size, (4, 128))
+    params = dict(model.named_parameters())
+    logits, out = {}, {}
+    for mode in ("bf16", "int8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = {"dtype": "bfloat16", "temperature": 0.0}
+        if mode == "int8":
+            cfg["quant"] = FAMILY_V1_QUANT
+            for wrapper, *_ in QUANT_KERNELS.values():
+                wrapper.launches = 0
+        t0 = time.perf_counter()
+        eng = deepspeed_tpu_torch.init_inference((model, params), cfg)
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        n_quant = qk.quantize_blockwise.launches
+        eng.generate(ids, max_new_tokens=2)                  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.generate(ids, max_new_tokens=1)                  # prefill + 1
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        d0 = qk.dequantize_blockwise.launches
+        t1 = time.perf_counter()
+        toks = eng.generate(ids, max_new_tokens=32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        n_deq = qk.dequantize_blockwise.launches - d0
+        if mode == "int8":
+            out["launches"] = {n: w.launches
+                               for n, (w, *_) in QUANT_KERNELS.items()}
+        logits[mode] = eng.forward(ids[:1])[0, -1].float().cpu().numpy()
+        names = set(eng._wq_shapes)
+        per_fwd = len(names) + (c.tie_embeddings and "tok_embed" in names)
+        layer_q = {n.split(".")[2] for n in names if n.startswith("layers.")}
+        want_layer = {"attn_norm_w", "attn_norm_b", "wq", "wk", "wv", "bq",
+                      "bk", "bv", "wo", "bo", "mlp_norm_w", "mlp_norm_b",
+                      "w_up", "b_up", "w_down", "b_down"}
+        ok = (toks.shape == (4, 160)
+              and ((toks >= 0) & (toks < c.vocab_size)).all()
+              and np.isfinite(logits[mode]).all())
+        if mode == "int8":
+            ok = ok and (layer_q == want_layer
+                         and {"pos_embed", "tok_embed"} <= names
+                         and len(names) == 16 * c.n_layers + 2
+                         and n_quant == len(names)
+                         and n_deq == 32 * per_fwd)
+            same_q = same_w = True
+            for n in sorted(names):
+                leaf = eng.params[n]
+                rq, rs = qk.quantize_blockwise_reference(
+                    params[n].contiguous(), 8, 256)
+                same_q &= bool(torch.equal(leaf["__wq__"], rq)
+                               and torch.equal(leaf["s"], rs))
+                same_w &= bool(torch.equal(
+                    eng._leaf(n), qk.dequantize_blockwise_reference(
+                        rq, rs, 256, torch.bfloat16)))
+            ok = ok and same_q and same_w
+            log(f"families: v1 OPT-6.7B int8: {n_quant} quantize launches "
+                f"({len(names)} leaves: 16 a layer x {c.n_layers} + "
+                f"pos_embed + tok_embed), {n_deq} dequantize launches in "
+                f"the 32-token generate ({per_fwd} a forward); payloads "
+                f"and scales bitwise the plain quantize's {same_q}, "
+                f"dequantized weights bitwise the plain dequantize's "
+                f"{same_w}; param_bytes {eng.param_bytes()}")
+        log(f"families: v1 OPT-6.7B {mode} [{card}]: built in "
+            f"{built_s:.1f} s; 4 x 128-token prompts: prefill (+1 token) "
+            f"{prefill_s * 1e3:.2f} ms; 32 new tokens in {wall:.4f} s = "
+            f"{4 * 32 / wall:.1f} tokens/s, decode "
+            f"{(wall - prefill_s) / 31 * 1e3:.3f} ms per step; "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"families: v1 OPT-6.7B {mode} failed")
+        out[f"{mode}_tokens_per_s"] = 4 * 32 / wall
+        del eng
+    a, b = logits["int8"], logits["bf16"]
+    cos = float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+    log(f"families: v1 OPT-6.7B last-token logits int8 vs bf16 weights: "
+        f"cosine {cos:.5f}, same argmax {a.argmax() == b.argmax()}")
+    if cos < 0.95:
+        raise SystemExit("families: int8 weights moved OPT-6.7B's logits "
+                         "too far from the bf16 weights' (cosine < 0.95)")
+    return out
+
+
+def phase_families(card: str) -> dict:
+    """6g: the decoder families beyond Llama at full width and depth. (a)
+    OPT-6.7B and (b) GPT-2 XL (25 heads of head_dim 64) each through
+    ``ServingEngine`` over ``RaggedInferenceEngine`` as phase 5 serves
+    Llama-2-7B (8 requests, 32 new tokens, the paged launch counts set to
+    0 just before and read after, tile items in the prefill puts), then
+    layer 0's paged call of a mixed put against the plain version and
+    timed (phase 5b); (c) ``init_inference`` of the same OPT-6.7B, bf16
+    and int8 (:func:`_family_v1`). Each model is freed before the next."""
+    t0 = time.perf_counter()
+    out = {}
+    model = None
+    for name, (preset, size, ctx, longest) in FAMILY_SERVING.items():
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        model = _family_model(preset, size)
+        paths, eng, _ = phase_serving(card, model, name=name,
+                                      max_context=ctx, max_prompt=longest)
+        mixed = phase_paged_mixed(paths.pop("mixed"), card,
+                                  f"{name} mixed_put")
+        del paths["streams"], eng
+        out[name] = {**paths, "mixed_put": mixed}
+        log(f"families: {name} served in {time.perf_counter() - t1:.1f} s")
+        if name == "OPT-6.7B":
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["v1"] = _family_v1(model, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"families: phase 6g in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _device_events(prof) -> list:
     """A profile's device work, its CUDA kernels and memcpys, by name. A
     ``record_function`` range (``gloo:recv``, ``gloo:send``) is mirrored
@@ -5436,6 +5636,7 @@ def main() -> int:
     del model, prompts
     gc.collect()
     torch.cuda.empty_cache()
+    fam = phase_families(dev["card"])
     quant_launches = phase_inference(dev["card"])
     phase_trainer_parity()
     engine, batch, flash_launches, flash_wgmma = phase_training(dev["card"])
@@ -5466,6 +5667,9 @@ def main() -> int:
                 "tp_launches": tp["launches"],
                 "tp_tile_launches": tp["tile_launches"],
                 "tp_split_launches": tp["split_launches"],
+                **{f"{key}_{n}": fam[name][n] for key, name in FAMILY_KEYS
+                   for n in ("launches", "tile_launches",
+                             "split_launches")},
                 "max_abs_err": kern["max_abs_err"],
                 "ms": d["ms"], "kernel_ms": d["ms"],
                 "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
@@ -5473,7 +5677,9 @@ def main() -> int:
                 "parity": "ok", "shape": "decode_16x1024", "path": PAGED_PATH,
                 "timings": {**kern["timings"], "mixed_put": mixed_t,
                             "verify_put": spec["bf16"],
-                            "tp_put_rank0": tp["bf16"]},
+                            "tp_put_rank0": tp["bf16"],
+                            **{f"{key}_mixed_put": fam[name]["mixed_put"]
+                               for key, name in FAMILY_KEYS}},
                 "card": dev["card"]}]
     for bits in (8, 4):
         kq, run = kern_q[bits], paged_q[f"int{bits}"]
@@ -5519,6 +5725,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "parity": "bitwise",
+            "opt_launches": fam["v1"]["launches"][name],
             "shape": "4096x11008_bf16_int8_block256", "card": dev["card"]})
     for name, (_, replaces) in FUSED_KERNELS.items():
         t = fused_t[name]

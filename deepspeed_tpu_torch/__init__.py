@@ -6,12 +6,15 @@ its module paths (``deepspeed_tpu_torch/<sub>/<mod>.py`` ports
 ``jax`` or ``deepspeed_tpu``. Its kernels are hand-written for Hopper
 (``csrc/``), each beside a plain PyTorch version of the same function.
 
-It serves Llama through the ragged engine and the serving front-end
-(optionally over int8/int4 KV pools), generates through the v1 inference
-engine (optionally with ZeRO-Inference int8/int4 weights), trains it on
-one device, and trains a ``zero3_blocks`` model with ZeRO stage 3 over
-several ranks through the compressed-collective facade:
+It serves Llama, GPT-2 and OPT through the ragged engine and the serving
+front-end (optionally over int8/int4 KV pools), generates from every
+decoder family of the JAX package (Llama, GPT-2, OPT, GPT-Neo and the
+GPT-J / Bloom flag sets) through the v1 inference engine (optionally with
+ZeRO-Inference int8/int4 weights), trains Llama on one device, and trains
+a ``zero3_blocks`` model with ZeRO stage 3 over several ranks through the
+compressed-collective facade:
 
+    from deepspeed_tpu_torch.models.gpt2 import GPT2, OPT, GPTNeo
     from deepspeed_tpu_torch.models.llama import Llama
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                       RaggedInferenceEngine)
@@ -22,6 +25,9 @@ several ranks through the compressed-collective facade:
     engine, opt, _, sched = deepspeed_tpu_torch.initialize(
         model=Llama("1b"), config={"train_batch_size": 8, ...})
     metrics = engine.train_batch({"input_ids": tokens})
+
+    serving = RaggedInferenceEngine(OPT("6.7b", dtype=torch.bfloat16),
+                                    RaggedConfig(max_context=2048))
 
     engine = deepspeed_tpu_torch.init_inference(
         Llama("7b", dtype=torch.bfloat16),
@@ -48,6 +54,7 @@ from typing import Any, Callable, Optional, Tuple
 from .comm.comm import init_distributed  # noqa: F401
 from .config import Config, ConfigError  # noqa: F401
 from .inference.engine import InferenceConfig, InferenceEngine
+from .models.transformer import Transformer, non_llama_flags
 from .runtime.engine import TrainEngine
 
 __version__ = "0.1.0"
@@ -70,8 +77,16 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
     whose ``zero3_blocks`` ZeRO stage 3 needs), whose own weights are the
     initial parameters unless ``params`` is given. ``config`` is a dict or
     a path to a DeepSpeed-style JSON file. The dataloader
-    (``training_data``) comes with a later slice."""
+    (``training_data``) comes with a later slice, and so does training a
+    model off the Llama flag set (GPT-2, OPT, GPT-Neo, ...)."""
     cfg = Config.from_any(config if config is not None else config_params)
+    bad = non_llama_flags(model.config) \
+        if isinstance(model, Transformer) else []
+    if bad:
+        raise NotImplementedError(
+            f"training a model with the non-Llama flags {bad} comes with a "
+            f"later slice (ROADMAP.md, Queue A item 7, the training part); "
+            f"serve it with init_inference or the ragged engine")
     if training_data is not None:
         raise NotImplementedError(
             "training_data (runtime/dataloader.py) comes with a later slice "

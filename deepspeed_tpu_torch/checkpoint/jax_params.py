@@ -3,9 +3,13 @@
 
 The JAX package's ``Transformer.init`` returns a tree of arrays: top-level
 ``tok_embed`` ``[vocab, d]``, ``final_norm_w`` ``[d]``, ``lm_head``
-``[d, vocab]``, and ``layers`` whose leaves are stacked ``[n_layers, ...]``
-(``deepspeed_tpu/models/transformer.py``). Both packages keep the ``[in,
-out]`` layout, so a leaf copies over as it is. The port imports nothing
+``[d, vocab]`` (untied models), ``final_norm_b``, ``pos_embed``
+``[max_seq_len, d]`` and ``embed_norm_w`` / ``_b`` where the config has
+them, and ``layers`` whose leaves (weights, norm weights and biases) are
+stacked ``[n_layers, ...]`` (``deepspeed_tpu/models/transformer.py``).
+The config decides the leaf set (``models.transformer.layer_leaves`` /
+``top_leaves``). Both packages keep the ``[in, out]`` layout, so a leaf
+copies over as it is. The port imports nothing
 of JAX for this: the caller converts the tree to nested dicts of numpy
 arrays first (``jax.tree_util.tree_map(np.asarray, params)``).
 
@@ -16,7 +20,8 @@ The JAX ``SequentialBlockModel`` tree is ``{"block_i": {"w": [din, dout],
 Tensor parallelism: :func:`shard_params` cuts a model (in place) or a
 JAX tree (numpy views) to one rank's shard by the JAX package's
 PartitionSpecs (``Transformer.partition_specs``), and
-:func:`gather_params` puts the ranks' shards back together. A model
+:func:`gather_params` puts the ranks' shards back together; both take
+the Llama flag set only (ROADMAP.md, Queue A item 6b). A model
 that is already sharded takes :func:`load_jax_params` of the full JAX
 tree: each leaf is sliced to the rank's shard before it is copied, one
 leaf at a time.
@@ -35,12 +40,10 @@ import numpy as np
 import torch
 
 from ..inference.ragged import KVExport
-from ..models.transformer import LAYER_LEAVES as _LAYER_LEAVES, Transformer
+from ..models.transformer import Transformer, layer_leaves, top_leaves
 from ..parallel.mesh import shard_slices
 from ..parallel.zero import SequentialBlockModel
 from ..serving.kvtier import PrefixExport
-
-_TOP_LEAVES = ("tok_embed", "final_norm_w", "lm_head")
 
 
 def _copy(dst: torch.Tensor, src: Any, name: str) -> None:
@@ -61,21 +64,21 @@ def load_jax_params(model: Transformer, params_np: Dict[str, Any]
     layers = params_np.get("layers")
     if not isinstance(layers, dict):
         raise ValueError("params has no 'layers' dict")
-    extra = (set(params_np) - set(_TOP_LEAVES) - {"layers"}) \
-        | (set(layers) - set(_LAYER_LEAVES))
-    missing = (set(_TOP_LEAVES) - set(params_np)) \
-        | (set(_LAYER_LEAVES) - set(layers))
+    tops, leaves = top_leaves(model.config), layer_leaves(model.config)
+    extra = (set(params_np) - set(tops) - {"layers"}) \
+        | (set(layers) - set(leaves))
+    missing = (set(tops) - set(params_np)) | (set(leaves) - set(layers))
     if extra or missing:
-        raise ValueError(f"JAX params do not match the Llama flag set: "
+        raise ValueError(f"JAX params do not match the model's flag set: "
                          f"missing {sorted(missing)}, unexpected "
                          f"{sorted(extra)}")
     # a sharded model takes this rank's slice of each full-width leaf
     local = model.local_shard if model._tp_size > 1 else (lambda _, a: a)
-    for name in _TOP_LEAVES:
+    for name in tops:
         _copy(getattr(model, name), local(name, np.asarray(params_np[name])),
               name)
     n = len(model.layers)
-    for name in _LAYER_LEAVES:
+    for name in leaves:
         stacked = np.asarray(layers[name])
         if stacked.shape[0] != n:
             raise ValueError(f"layers/{name}: {stacked.shape[0]} layers, the "
@@ -107,6 +110,7 @@ def shard_params(params: Union[Transformer, Dict[str, Any]], topology,
     if model is None:
         raise ValueError("shard_params of a JAX tree needs the model whose "
                          "partition_specs place it")
+    model._check_tp(topology.model_parallel_size)
     tp, rank = topology.model_parallel_size, topology.rank("model")
     out: Dict[str, Any] = {}
     for path, spec in _tree_specs(model.partition_specs()):
@@ -126,6 +130,7 @@ def gather_params(shards: Sequence[Dict[str, Any]], model: Transformer
     (in rank order, as :func:`export_params` gives them on each rank)
     joined along each leaf's ``model`` dimension; replicated leaves are
     rank 0's."""
+    model._check_tp(len(shards))
     out: Dict[str, Any] = {}
     for path, spec in _tree_specs(model.partition_specs()):
         pieces = [np.asarray(t[path[0]] if len(path) == 1
@@ -153,10 +158,12 @@ def export_params(params: Union[Transformer, Mapping[str, torch.Tensor]]
         return t.detach().float().cpu().numpy()
 
     n = 1 + max(int(k.split(".")[1]) for k in params if k.startswith("layers."))
-    out: Dict[str, Any] = {name: arr(params[name]) for name in _TOP_LEAVES}
+    leaves = [k.split(".", 2)[2] for k in params if k.startswith("layers.0.")]
+    out: Dict[str, Any] = {name: arr(t) for name, t in params.items()
+                           if not name.startswith("layers.")}
     out["layers"] = {name: np.stack([arr(params[f"layers.{i}.{name}"])
                                      for i in range(n)])
-                     for name in _LAYER_LEAVES}
+                     for name in leaves}
     return out
 
 

@@ -3,7 +3,9 @@ ZeRO-Inference weight-only quantization.
 
 Ports ``deepspeed_tpu/inference/engine.py`` on one device: greedy, sampled
 and beam-search ``generate`` and a raw-logits ``forward`` over a
-:class:`~deepspeed_tpu_torch.models.transformer.Transformer`, through the
+:class:`~deepspeed_tpu_torch.models.transformer.Transformer` of any
+decoder flag set (Llama, GPT-2, OPT, GPT-Neo, GPT-J and Bloom-style),
+through the
 KV-cache branch of its ``apply``. PyTorch runs eagerly, so prefill, decode
 and the beam step are plain method calls (jitted, donated programs in the
 JAX package); the cache is updated in place.
@@ -14,8 +16,10 @@ stored as a blockwise-quantized payload plus fp32 block scales, quantized
 once at construction by the hand-written quantize kernel
 (:func:`deepspeed_tpu_torch.ops.quant.quantize_blockwise`) after the cast
 to ``dtype``, so the scales are those of the cast values. The JAX package
-stacks layer leaves ``[n_layers, ...]``, so a layer's norm vector is 2-D
-there and is quantized too; only ``final_norm_w`` stays as it is. int4
+stacks layer leaves ``[n_layers, ...]``, so a layer's norm vectors and
+biases are 2-D there and are quantized too, as are ``pos_embed`` and the
+(tied) ``tok_embed``; only the top-level vectors (``final_norm_w`` / ``_b``,
+``embed_norm_w`` / ``_b``) stay as they are. int4
 payloads pack two offset-binary nibbles per byte, ``(q + 8)``, element 2k
 in the low nibble. Each forward dequantizes with the hand-written
 dequantize kernel one layer at a time, just before the layer runs (the JAX

@@ -4,11 +4,16 @@ Ports ``deepspeed_tpu/inference/ragged.py`` (FastGen v2 parity: ``put`` /
 ``query`` / ``can_schedule`` / ``flush``, a refcounted block allocator, an
 optional prefix cache, Dynamic SplitFuse packing). Each ``put`` packs all
 pending decodes plus as many prompt tokens as fit the token budget into
-one ragged step, then runs the decoder layer by layer: RMSNorm → QKV →
-RoPE → scatter the step's K/V into the paged pool → paged attention (the
-hand-written Hopper kernel, :mod:`deepspeed_tpu_torch.ops.paged_attention`)
-→ o-proj → RMSNorm → gated-SiLU MLP. The head runs only on each
-sequence's last token. The other matrix products stay ``torch.matmul``.
+one ragged step, then runs the decoder layer by layer: the model's norm
+(RMSNorm, or LayerNorm with its bias) → QKV (+ biases) → RoPE where the
+model has it (learned positions enter with the embedding) → scatter the
+step's K/V into the paged pool → paged attention (the hand-written
+Hopper kernel, :mod:`deepspeed_tpu_torch.ops.paged_attention`) → o-proj
+(+ bias) → norm → the model's MLP. The head runs only on each sequence's
+last token. The other matrix products stay ``torch.matmul``. The Llama,
+GPT-2 and OPT flag sets run here; ALiBi, parallel residual and
+attention-scale overrides raise as in the JAX engine (the v1 engine
+serves them).
 
 Quantized pools (``kv_quant`` ``"int8"`` / ``"int4"``): each K/V
 head-vector is quantized on its way into the pool
@@ -86,7 +91,6 @@ import torch
 
 from ..comm import comm
 from ..comm.comm import record_collective
-from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_attention, plan_paged_work
 from ..ops.quantizer import quantize_kv, quantized_nbytes
 from ..ops.ragged_host import build_batch, fill_tables
@@ -551,6 +555,16 @@ class RaggedInferenceEngine:
             raise ValueError(
                 f"max_context {cfg.max_context} exceeds model "
                 f"max_seq_len {c.max_seq_len} (RoPE/position table bound)")
+        if c.position == "alibi" or c.parallel_residual:
+            # the ragged step inlines the block math without ALiBi bias /
+            # parallel-residual wiring; loud failure beats wrong logits
+            raise NotImplementedError(
+                "RaggedInferenceEngine does not support ALiBi or parallel-"
+                "residual families yet; use InferenceEngine (dense KV cache)")
+        if c.attn_scale is not None:
+            raise NotImplementedError(
+                "RaggedInferenceEngine does not support attention-scale "
+                "overrides (GPT-Neo); use InferenceEngine (dense KV cache)")
         if cfg.max_context % cfg.kv_block_size != 0:
             raise ValueError(
                 f"max_context {cfg.max_context} must be a multiple of "
@@ -1925,7 +1939,9 @@ class RaggedInferenceEngine:
         c = model.config
         cfg = self.config
         bs = cfg.kv_block_size
-        x = model._embed(tokens)                                   # [T, d]
+        # learned positions are clamped to the table inside _embed; a lane
+        # past the context scatters into the sink page below
+        x = model._embed(tokens, positions=positions)              # [T, d]
         active = slots >= 0
         safe_slot = torch.clamp(slots, min=0)
         pos_l = positions.long()
@@ -1941,16 +1957,20 @@ class RaggedInferenceEngine:
             kp, vp = self.kv_pool[0][li], self.kv_pool[1][li]
             ks = self.kv_pool[2][li] if self._kv_bits else None
             vs = self.kv_pool[3][li] if self._kv_bits else None
-            h = rms_norm(x, blk.attn_norm_w, c.norm_eps)
-            q = (h @ blk.wq).reshape(-1, self._hq, c.head_dim)
-            kk = (h @ blk.wk).reshape(-1, self._hkv, c.head_dim)
-            vv = (h @ blk.wv).reshape(-1, self._hkv, c.head_dim)
-            q = apply_rotary(q[:, None], self._angles, rope_pos,
-                             rotary_dim=c.rotary_dim,
-                             interleaved=c.rope_interleaved)[:, 0]
-            kk = apply_rotary(kk[:, None], self._angles, rope_pos,
-                              rotary_dim=c.rotary_dim,
-                              interleaved=c.rope_interleaved)[:, 0]
+            h = model._norm(x, blk, "attn_norm")
+            q, kk, vv = h @ blk.wq, h @ blk.wk, h @ blk.wv
+            if c.qkv_bias:
+                q, kk, vv = q + blk.bq, kk + blk.bk, vv + blk.bv
+            q = q.reshape(-1, self._hq, c.head_dim)
+            kk = kk.reshape(-1, self._hkv, c.head_dim)
+            vv = vv.reshape(-1, self._hkv, c.head_dim)
+            if c.position == "rope":
+                q = apply_rotary(q[:, None], self._angles, rope_pos,
+                                 rotary_dim=c.rotary_dim,
+                                 interleaved=c.rope_interleaved)[:, 0]
+                kk = apply_rotary(kk[:, None], self._angles, rope_pos,
+                                  rotary_dim=c.rotary_dim,
+                                  interleaved=c.rope_interleaved)[:, 0]
             # pool [pages, hkv, block, hd]; two advanced indices around a
             # slice put the lane dim first: the value is [T, hkv, hd].
             # Quantized pools take the payload and its scale [T, hkv]
@@ -1968,7 +1988,11 @@ class RaggedInferenceEngine:
                                    v_scale=vs, kv_bits=self._kv_bits,
                                    work=work)
             attn = attn.to(x.dtype).reshape(-1, self._hq * c.head_dim)
-            x = x + model._row_parallel(attn, blk.wo)
-            h = rms_norm(x, blk.mlp_norm_w, c.norm_eps)
-            x = x + model._mlp(h, blk)
+            attn = model._row_parallel(attn, blk.wo)
+            # attn_o_bias, not use_bias: InternLM has use_bias=False with
+            # a real o_proj bias
+            if c.attn_o_bias:
+                attn = attn + blk.bo
+            x = x + attn
+            x = x + model._mlp(model._norm(x, blk, "mlp_norm"), blk)
         return x

@@ -1,23 +1,33 @@
 """Decoder-only transformer core, as a PyTorch module.
 
-Ports ``deepspeed_tpu/models/transformer.py`` for the Llama flag set: RMSNorm,
-gated-SiLU MLP, RoPE (half-split or interleaved, optional partial
-``rotary_dim``), GQA, pre-norm, untied LM head, no biases. Other flags
-raise ``NotImplementedError``; their families come in later slices.
+Ports ``deepspeed_tpu/models/transformer.py`` for every decoder flag of
+its config: RMSNorm or LayerNorm (with biases), gated-SiLU or a GELU
+(tanh form, ``gelu_exact``) / ReLU / ``quick_gelu`` MLP, RoPE (half-split
+or interleaved, optional partial ``rotary_dim``), learned positions or
+ALiBi, GQA, qkv / o / MLP biases, tied or untied head, ``logits_softcap``,
+``attn_scale``, ``parallel_residual``, ``embed_norm`` and per-layer
+sliding windows: Llama, GPT-2, OPT, GPT-Neo, GPT-J and Bloom-style flag
+sets. The encoder flags (``causal=False``, ``prenorm=False``,
+``type_vocab_size``, ``mlm_head``, ``pooler``) raise
+``NotImplementedError``: they come with BERT / CLIP (ROADMAP.md, Queue A
+item 7).
 
 Weight layout: the JAX package's ``[in, out]`` for ``h @ W`` (``wq`` is
 ``[d_model, n_heads * head_dim]``, ``lm_head`` is ``[d_model, vocab]``), so
 a carried JAX parameter tree loads without transposes
 (:mod:`deepspeed_tpu_torch.checkpoint.jax_params`). The JAX package stacks
 layer leaves ``[n_layers, ...]``; here each layer is a :class:`Block` in
-``Transformer.layers`` holding the same leaf names.
+``Transformer.layers`` holding the same leaf names, those the config
+implies (:func:`layer_leaves`, :func:`top_leaves`): a tied model has no
+``lm_head``, a model without ``silu_glu`` no ``w_gate``.
 
-Two paths share the weights:
+Three paths share the weights:
 
 * serving: the ragged engine (:mod:`deepspeed_tpu_torch.inference.ragged`)
   runs the attention block itself over the paged KV pool and calls
-  :meth:`Transformer._embed`, :meth:`Transformer._mlp` and
-  :meth:`Transformer._head`, under ``torch.inference_mode()``;
+  :meth:`Transformer._embed`, :meth:`Transformer._norm`,
+  :meth:`Transformer._mlp` and :meth:`Transformer._head`, under
+  ``torch.inference_mode()``;
 * training: :meth:`Transformer.apply` and :meth:`Transformer.loss`, the
   dense path. Like the JAX package's functional ``apply(params, ...)``,
   they take an optional ``params`` dict (``{name: tensor}`` with the names
@@ -26,7 +36,8 @@ Two paths share the weights:
   ``torch.utils.checkpoint`` when ``remat`` is on, with its weights passed
   in explicitly, so the backward pass replays it on the same tensors.
   Attention is :func:`~deepspeed_tpu_torch.ops.attention.flash_attention`
-  (``use_flash``) or the plain ``dot_product_attention``;
+  (``use_flash``) or the plain ``dot_product_attention``; ALiBi and
+  per-layer-varying windows take the plain one, as in the JAX package;
 * generation: the KV-cache branch of :meth:`Transformer.apply`, which the
   v1 inference engine (:mod:`deepspeed_tpu_torch.inference.engine`) runs
   over a static cache. The new K/V are written into the cache in place at
@@ -37,7 +48,8 @@ Two paths share the weights:
   one layer's weights at a time.
 
 Tensor parallelism (``bind_topology`` with a ``model`` axis above 1, after
-:meth:`Transformer.shard_` cut this rank's leaves): the JAX package's
+:meth:`Transformer.shard_` cut this rank's leaves), for the Llama flag set
+only (others raise, ROADMAP.md Queue A item 6b): the JAX package's
 Megatron layout (:meth:`Transformer.partition_specs`), made explicit
 where GSPMD inserts the collectives. A rank holds ``n_heads / tp`` query
 and ``n_kv_heads / tp`` KV heads (column-parallel ``wq`` / ``wk`` /
@@ -51,8 +63,7 @@ order. With a fused comm backend bound (``bind_comm_backend``, by the
 v1 engine), a one-position decode step's down-projection runs as the
 backend's ``matmul_all_reduce`` (:meth:`Transformer._down_proj`).
 
-Sequence parallelism, ALiBi, encoder masks and sliding windows on the
-KV-cache path come with later slices.
+Sequence parallelism and encoder masks come with later slices.
 
 The module's own parameters never require grad (serving needs none); the
 trainer's compute copy does.
@@ -70,15 +81,13 @@ from torch.nn import functional as F
 
 from ..comm import comm
 from ..ops.attention import dot_product_attention, flash_attention
-from ..ops.norms import rms_norm
-from ..ops.rotary import apply_rotary, rope_frequencies
+from ..ops.norms import layer_norm, rms_norm
+from ..ops.rotary import alibi_slopes, apply_rotary, rope_frequencies
 from ..parallel.mesh import PartitionSpec as P, shard_slices
 from ..runtime.activation_checkpointing import checkpoint_wrapper
 from ..utils.device import resolve_device
 
 Params = Dict[str, torch.Tensor]
-LAYER_LEAVES = ("attn_norm_w", "wq", "wk", "wv", "wo", "mlp_norm_w",
-                "w_gate", "w_up", "w_down")
 
 
 @dataclass
@@ -208,48 +217,84 @@ class TransformerConfig:
             + 12.0 * self.d_model * self._attn_flop_len(seq_len)
 
 
+def layer_leaves(c: TransformerConfig) -> Tuple[str, ...]:
+    """One layer's leaf names under ``c``, as the JAX package's ``init``
+    makes them (the Llama set first, in its order)."""
+    names = ["attn_norm_w", "wq", "wk", "wv", "wo", "mlp_norm_w"]
+    if c.activation == "silu_glu":
+        names.append("w_gate")
+    names += ["w_up", "w_down"]
+    if c.norm == "layer":
+        names += ["attn_norm_b", "mlp_norm_b"]
+    if c.qkv_bias:
+        names += ["bq", "bk", "bv"]
+    if c.attn_o_bias:
+        names.append("bo")
+    if c.use_bias:
+        names += ["b_up", "b_down"]
+    return tuple(names)
+
+
+def top_leaves(c: TransformerConfig) -> Tuple[str, ...]:
+    """The top-level (unstacked) leaf names under ``c``."""
+    names = ["tok_embed", "final_norm_w"]
+    if c.norm == "layer":
+        names.append("final_norm_b")
+    if c.position == "learned":
+        names.append("pos_embed")
+    if c.embed_norm:
+        names += ["embed_norm_w", "embed_norm_b"]
+    if not c.tie_embeddings:
+        names.append("lm_head")
+    return tuple(names)
+
+
+# the flags whose values off the Llama set tensor parallelism does not take
+_LLAMA_FLAGS = {"norm": "rms", "activation": "silu_glu", "position": "rope",
+                "tie_embeddings": False, "use_bias": False, "qkv_bias": False,
+                "attn_o_bias": False, "parallel_residual": False,
+                "embed_norm": False, "attn_scale": None,
+                "logits_softcap": 0.0}
+
+
+def non_llama_flags(c: TransformerConfig) -> list:
+    """The flags of ``c`` that differ from the Llama flag set."""
+    return [k for k, v in _LLAMA_FLAGS.items() if getattr(c, k) != v]
+
+
 def _check_supported(c: TransformerConfig) -> None:
-    """The Llama flag set only; everything else belongs to a later slice."""
-    unsupported = {
-        "norm": c.norm != "rms", "activation": c.activation != "silu_glu",
-        "position": c.position != "rope", "tie_embeddings": c.tie_embeddings,
-        "use_bias": c.use_bias, "qkv_bias": c.qkv_bias,
-        "attn_o_bias": c.attn_o_bias, "parallel_residual": c.parallel_residual,
-        "embed_norm": c.embed_norm, "causal": not c.causal,
-        "prenorm": not c.prenorm, "type_vocab_size": c.type_vocab_size > 0,
-        "mlm_head": c.mlm_head, "pooler": c.pooler,
-        "attn_scale": c.attn_scale is not None,
-        "logits_softcap": c.logits_softcap != 0.0,
-    }
-    bad = [k for k, v in unsupported.items() if v]
+    """Every decoder flag is ported; the encoder flags raise."""
+    encoder = {"causal": not c.causal, "prenorm": not c.prenorm,
+               "type_vocab_size": c.type_vocab_size > 0,
+               "mlm_head": c.mlm_head, "pooler": c.pooler}
+    bad = [k for k, v in encoder.items() if v]
     if bad:
         raise NotImplementedError(
-            f"deepspeed_tpu_torch ports the Llama flag set (rms, silu_glu, "
-            f"rope, untied head, no bias, pre-norm); {bad} come with their "
-            f"model families in a later slice (ROADMAP.md, Queue A)")
+            f"deepspeed_tpu_torch ports the decoder flags; the encoder flags "
+            f"{bad} come with models/{{bert, clip}}.py (ROADMAP.md, Queue A "
+            f"item 7, the encoder part)")
 
 
 class Block(nn.Module):
     """One decoder layer's parameters, named as the JAX leaves, ``[in,
-    out]`` layout."""
+    out]`` layout; the config decides which leaves exist
+    (:func:`layer_leaves`)."""
 
     def __init__(self, c: TransformerConfig, device, dtype):
         super().__init__()
         hd, d, f = c.head_dim, c.d_model, c.d_ff
-
-        def p(*shape):
-            return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                                requires_grad=False)
-
-        self.attn_norm_w = p(d)
-        self.wq = p(d, c.n_heads * hd)
-        self.wk = p(d, c.n_kv_heads * hd)
-        self.wv = p(d, c.n_kv_heads * hd)
-        self.wo = p(c.n_heads * hd, d)
-        self.mlp_norm_w = p(d)
-        self.w_gate = p(d, f)
-        self.w_up = p(d, f)
-        self.w_down = p(f, d)
+        shapes = {"attn_norm_w": (d,), "wq": (d, c.n_heads * hd),
+                  "wk": (d, c.n_kv_heads * hd), "wv": (d, c.n_kv_heads * hd),
+                  "wo": (c.n_heads * hd, d), "mlp_norm_w": (d,),
+                  "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d),
+                  "attn_norm_b": (d,), "mlp_norm_b": (d,),
+                  "bq": (c.n_heads * hd,), "bk": (c.n_kv_heads * hd,),
+                  "bv": (c.n_kv_heads * hd,), "bo": (d,), "b_up": (f,),
+                  "b_down": (d,)}
+        for name in layer_leaves(c):
+            setattr(self, name, nn.Parameter(
+                torch.empty(shapes[name], device=device, dtype=dtype),
+                requires_grad=False))
 
     def __getitem__(self, name: str) -> torch.Tensor:
         """``block["wq"]``: a Block reads like the dict of one layer's
@@ -258,8 +303,9 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Llama-style decoder. ``device`` defaults to ``"cuda"`` and raises
-    without a CUDA device unless ``device="cpu"`` is asked for. Weights
+    """A decoder of any ported flag set. ``device`` defaults to
+    ``"cuda"`` and raises without a CUDA device unless ``device="cpu"``
+    is asked for. Weights
     are made with :meth:`init` from ``seed`` (a seeded ``torch.Generator``
     on the model's device), or loaded from a JAX tree with
     :func:`~deepspeed_tpu_torch.checkpoint.jax_params.load_jax_params`."""
@@ -275,11 +321,16 @@ class Transformer(nn.Module):
             return nn.Parameter(torch.empty(shape, device=dev, dtype=dtype),
                                 requires_grad=False)
 
-        self.tok_embed = p(c.vocab_size, c.d_model)
+        shapes = {"tok_embed": (c.vocab_size, c.d_model),
+                  "final_norm_w": (c.d_model,), "final_norm_b": (c.d_model,),
+                  "pos_embed": (c.max_seq_len, c.d_model),
+                  "embed_norm_w": (c.d_model,), "embed_norm_b": (c.d_model,),
+                  "lm_head": (c.d_model, c.vocab_size)}
+        self.tok_embed = p(*shapes["tok_embed"])
         self.layers = nn.ModuleList(Block(c, dev, dtype)
                                     for _ in range(c.n_layers))
-        self.final_norm_w = p(c.d_model)
-        self.lm_head = p(c.d_model, c.vocab_size)
+        for name in top_leaves(c)[1:]:
+            setattr(self, name, p(*shapes[name]))
         self.init(seed)
         # tensor parallelism (bind_topology / bind_comm_backend)
         self._topo = None
@@ -329,6 +380,7 @@ class Transformer(nn.Module):
         ``d_ff`` and the vocab must divide by the axis."""
         c = self.config
         tp = topo.model_parallel_size
+        self._check_tp(tp)
         if self._tp_size > 1:
             raise ValueError("the model is already sharded")
         for what, n in (("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads),
@@ -344,10 +396,20 @@ class Transformer(nn.Module):
     def bind_topology(self, topo) -> "Transformer":
         """Attach the mesh whose ``model`` axis this rank's leaves are
         sharded over (:meth:`shard_` cuts them)."""
+        self._check_tp(topo.model_parallel_size)
         self._topo = topo
         self._tp_size = topo.model_parallel_size
         self._tp_rank = topo.rank("model")
         return self
+
+    def _check_tp(self, tp: int) -> None:
+        """Tensor parallelism takes the Llama flag set only."""
+        bad = non_llama_flags(self.config)
+        if tp > 1 and bad:
+            raise NotImplementedError(
+                f"tensor parallelism over a model axis of {tp} with the "
+                f"non-Llama flags {bad} comes with ROADMAP.md, Queue A "
+                f"item 6b")
 
     def bind_comm_backend(self, backend) -> "Transformer":
         """Attach a fused comm backend (``comm/backends.py``): a decode
@@ -405,16 +467,28 @@ class Transformer(nn.Module):
 
         n = c.n_layers
         for blk in self.layers:
-            blk.attn_norm_w.fill_(1.0)
-            blk.mlp_norm_w.fill_(1.0)
+            for name, w in blk.named_parameters():
+                if name.endswith("norm_w"):
+                    w.fill_(1.0)
+                elif w.dim() == 1:
+                    w.zero_()
             for name in ("wq", "wk", "wv", "w_gate", "w_up"):
-                w = getattr(blk, name)
-                normal_(w, 1.0 / math.sqrt(w.shape[0]))
+                if hasattr(blk, name):
+                    w = getattr(blk, name)
+                    normal_(w, 1.0 / math.sqrt(w.shape[0]))
             normal_(blk.wo, 1.0 / math.sqrt(c.d_model * 2 * n))
             normal_(blk.w_down, 1.0 / math.sqrt(c.d_ff * 2 * n))
         normal_(self.tok_embed, 0.02)
-        self.final_norm_w.fill_(1.0)
-        normal_(self.lm_head, 1.0 / math.sqrt(c.d_model))
+        for name in top_leaves(c)[1:]:
+            w = getattr(self, name)
+            if name == "pos_embed":
+                normal_(w, 0.02)
+            elif name == "lm_head":
+                normal_(w, 1.0 / math.sqrt(c.d_model))
+            elif name.endswith("norm_w"):
+                w.fill_(1.0)
+            else:
+                w.zero_()
         return self
 
     # ------------------------------------------------------------------
@@ -445,15 +519,17 @@ class Transformer(nn.Module):
         max_len, hkv, hd]`` tensor or a sequence of per-layer ``[b,
         max_len, hkv, hd]`` tensors. This step's K/V are written into them
         in place at ``cache_pos`` (an int), query i attends cache slots
-        ``k <= cache_pos + i``, and ``(out, kv_caches)`` is returned.
-        ``positions`` (default ``0..s-1``) are the RoPE positions; decode
-        passes the absolute ones. ``last_token_only`` keeps only the last
-        position before the head."""
+        ``k <= cache_pos + i`` (inside its layer's window), and ``(out,
+        kv_caches)`` is returned. ``positions`` (default ``0..s-1``) are
+        the RoPE and learned-position positions; decode passes the
+        absolute ones. ``last_token_only`` keeps only the last position
+        before the head."""
         p = self._params(params)
         c = self.config
-        x = self._embed(tokens, p)
+        x = self._embed(tokens, p, positions=positions)
         angles = rope_frequencies(c.rotary_dim, c.max_seq_len, c.rope_theta,
-                                  device=x.device)
+                                  device=x.device) \
+            if c.position == "rope" else None
         if kv_caches is None:
             x = self._encode(p, x, angles, positions)
         else:
@@ -467,12 +543,9 @@ class Transformer(nn.Module):
     def _cached_layers(self, p, x, angles, positions, kv_caches,
                        cache_pos: Optional[int]) -> torch.Tensor:
         """The layer stack of the KV-cache branch (JAX ``apply`` with
-        ``kv_caches``): each layer's leaves are read just before it runs."""
+        ``kv_caches``): each layer's leaves are read just before it runs,
+        and each layer keeps its own window (0 = global)."""
         c = self.config
-        if c.attn_windows is not None and any(w > 0 for w in c.attn_windows):
-            raise NotImplementedError(
-                "sliding windows on the KV-cache path come with a later "
-                "slice (ROADMAP.md, Queue A)")
         ks, vs = kv_caches
         if cache_pos is None:
             raise ValueError("kv_caches needs cache_pos")
@@ -480,82 +553,128 @@ class Transformer(nn.Module):
         if not 0 <= int(cache_pos) <= max_len - x.shape[1]:
             raise ValueError(f"cache_pos {cache_pos} + {x.shape[1]} tokens "
                              f"does not fit a cache of {max_len} slots")
+        names = layer_leaves(c)
+        windows = c.attn_windows or (0,) * c.n_layers
         for i in range(c.n_layers):
-            lp = {n: p[f"layers.{i}.{n}"] for n in LAYER_LEAVES}
-            x = self._block(x, lp, angles, positions,
+            lp = {n: p[f"layers.{i}.{n}"] for n in names}
+            x = self._block(x, lp, angles, positions, window=windows[i],
                             kv_cache=(ks[i], vs[i], int(cache_pos)))
         return x
 
-    def _static_window(self, length: int) -> int:
-        """The uniform sliding window that binds at this length, else 0
-        (per-layer-varying windows are a later slice's)."""
+    def _dense_windows(self, length: int) -> Tuple[Tuple[int, ...], bool]:
+        """(each layer's window, whether they vary) of the dense path at
+        this length, as the JAX ``_encode`` decides: no window where none
+        binds (w == length attends everything), one static window where
+        all layers share it (the banded flash kernel), else the
+        per-layer windows on the plain masked attention (GPT-Neo)."""
         c = self.config
         if not c.window_binds(length):
-            return 0
-        if len(set(c.attn_windows)) != 1:
-            raise NotImplementedError(
-                "per-layer-varying attention windows in the dense path come "
-                "with a later slice (ROADMAP.md, Queue A)")
-        return int(c.attn_windows[0])
+            return (0,) * c.n_layers, False
+        return c.attn_windows, len(set(c.attn_windows)) > 1
+
+    def _norm(self, x: torch.Tensor, leaves, prefix: str) -> torch.Tensor:
+        """The config's norm with the leaves ``{prefix}_w`` (and, for
+        LayerNorm, ``{prefix}_b``) of ``leaves`` (a :class:`Block`, a
+        layer's dict or the top-level params): RMSNorm or LayerNorm."""
+        c = self.config
+        if c.norm == "rms":
+            return rms_norm(x, leaves[f"{prefix}_w"], c.norm_eps)
+        return layer_norm(x, leaves[f"{prefix}_w"], leaves[f"{prefix}_b"],
+                          c.norm_eps)
+
+    def _alibi_bias(self, skv: int, device) -> torch.Tensor:
+        """ALiBi's additive logits [h, 1, skv]: ``slopes * k_pos``. The
+        per-row ``-slopes * q_pos`` shift is constant along the softmax
+        axis and cancels, so this alone is exact under the row softmax."""
+        slopes = alibi_slopes(self.config.n_heads, device=device)
+        return slopes[:, None, None] * torch.arange(
+            skv, dtype=torch.float32, device=device)[None, None, :]
 
     def _block(self, x: torch.Tensor, lp: Mapping[str, torch.Tensor],
-               angles: torch.Tensor, positions=None,
-               window: int = 0, kv_cache=None) -> torch.Tensor:
+               angles: Optional[torch.Tensor], positions=None,
+               window: int = 0, kv_cache=None,
+               varying: bool = False) -> torch.Tensor:
         """One pre-norm decoder layer. x: [b, s, d]; ``lp`` maps the leaf
-        names of :data:`LAYER_LEAVES` to this layer's weights. With
+        names of :func:`layer_leaves` to this layer's weights. With
         ``kv_cache`` = (k cache, v cache, cache_pos), this step's K/V are
-        written into the caches in place and attention runs over them."""
+        written into the caches in place and attention runs over them.
+        ``window`` (0 = global) bands this layer's attention; ``varying``
+        says the layers' windows differ, which takes the plain attention
+        in the dense path (the JAX masked branch)."""
         c = self.config
         hd = c.head_dim
         b, s, _ = x.shape
         # this rank's heads (all of them without tensor parallelism)
         hq, hkv = c.n_heads // self._tp_size, c.n_kv_heads // self._tp_size
-        h = rms_norm(x, lp["attn_norm_w"], c.norm_eps)
-        q = (h @ lp["wq"]).reshape(b, s, hq, hd)
-        kk = (h @ lp["wk"]).reshape(b, s, hkv, hd)
-        vv = (h @ lp["wv"]).reshape(b, s, hkv, hd)
-        q = apply_rotary(q, angles, positions, rotary_dim=c.rotary_dim,
-                         interleaved=c.rope_interleaved)
-        kk = apply_rotary(kk, angles, positions, rotary_dim=c.rotary_dim,
-                          interleaved=c.rope_interleaved)
+        h = self._norm(x, lp, "attn_norm")
+        q, kk, vv = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+        if c.qkv_bias:
+            q, kk, vv = q + lp["bq"], kk + lp["bk"], vv + lp["bv"]
+        q = q.reshape(b, s, hq, hd)
+        kk = kk.reshape(b, s, hkv, hd)
+        vv = vv.reshape(b, s, hkv, hd)
+        if c.position == "rope":
+            q = apply_rotary(q, angles, positions, rotary_dim=c.rotary_dim,
+                             interleaved=c.rope_interleaved)
+            kk = apply_rotary(kk, angles, positions, rotary_dim=c.rotary_dim,
+                              interleaved=c.rope_interleaved)
+        alibi = c.position == "alibi"
         if kv_cache is not None:
             ck, cv, pos0 = kv_cache
             ck[:, pos0:pos0 + s] = kk
             cv[:, pos0:pos0 + s] = vv
             # query i sits at absolute position pos0 + i and sees every
-            # cache slot up to itself (which also masks the unwritten tail)
+            # cache slot up to itself (which also masks the unwritten
+            # tail), inside its layer's window
             q_abs = pos0 + torch.arange(s, device=x.device)
             k_pos = torch.arange(ck.shape[1], device=x.device)
             mask = k_pos[None, :] <= q_abs[:, None]
-            attn = dot_product_attention(q, ck, cv, causal=False,
-                                         mask=mask[None, None],
-                                         scale=c.attn_scale)
+            if window > 0:
+                mask = mask & (k_pos[None, :] > q_abs[:, None] - window)
+            attn = dot_product_attention(
+                q, ck, cv, causal=False, mask=mask[None, None],
+                bias=self._alibi_bias(ck.shape[1], x.device) if alibi
+                else None, scale=c.attn_scale)
+        elif alibi:
+            # the JAX dense ALiBi branch: the plain attention, no scale
+            # override and no window
+            attn = dot_product_attention(
+                q, kk, vv, causal=True, bias=self._alibi_bias(s, x.device))
+        elif varying or not c.use_flash:
+            attn = dot_product_attention(q, kk, vv, causal=True,
+                                         scale=c.attn_scale, window=window)
         else:
-            attend = flash_attention if c.use_flash else dot_product_attention
-            attn = attend(q, kk, vv, causal=True, scale=c.attn_scale,
-                          window=window)
-        x = x + self._row_parallel(attn.reshape(b, s, hq * hd), lp["wo"])
-        h = rms_norm(x, lp["mlp_norm_w"], c.norm_eps)
-        return x + self._mlp(h, lp)
+            attn = flash_attention(q, kk, vv, causal=True,
+                                   scale=c.attn_scale, window=window)
+        attn = self._row_parallel(attn.reshape(b, s, hq * hd), lp["wo"])
+        if c.attn_o_bias:
+            attn = attn + lp["bo"]
+        if c.parallel_residual:
+            # GPT-J / GPT-NeoX: both branches read the same input x
+            return x + attn + self._mlp(self._norm(x, lp, "mlp_norm"), lp)
+        x = x + attn
+        return x + self._mlp(self._norm(x, lp, "mlp_norm"), lp)
 
     def _encode(self, p: Mapping[str, torch.Tensor], x: torch.Tensor,
-                angles: torch.Tensor, positions=None) -> torch.Tensor:
+                angles: Optional[torch.Tensor], positions=None
+                ) -> torch.Tensor:
         """The layer stack over embedded inputs x: [b, s, d]. With
         ``remat`` (and autograd recording), each layer runs under
         :func:`~deepspeed_tpu_torch.runtime.activation_checkpointing.checkpoint_wrapper`
         with ``remat_policy``: only its input is kept, and the backward
         pass runs it again."""
         c = self.config
-        window = self._static_window(x.shape[1])
+        windows, varying = self._dense_windows(x.shape[1])
+        names = layer_leaves(c)
 
-        def block(x, *leaves):
-            return self._block(x, dict(zip(LAYER_LEAVES, leaves)), angles,
-                               positions, window)
+        def block(x, window, *leaves):
+            return self._block(x, dict(zip(names, leaves)), angles,
+                               positions, window, varying=varying)
 
         if c.remat and torch.is_grad_enabled():
             block = checkpoint_wrapper(block, policy=c.remat_policy)
         for i in range(c.n_layers):
-            x = block(x, *(p[f"layers.{i}.{n}"] for n in LAYER_LEAVES))
+            x = block(x, windows[i], *(p[f"layers.{i}.{n}"] for n in names))
         return x
 
     # ------------------------------------------------------------------
@@ -643,33 +762,71 @@ class Transformer(nn.Module):
 
     # ------------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor,
-               params: Optional[Mapping[str, torch.Tensor]] = None
-               ) -> torch.Tensor:
-        """Token embedding: [..., s] -> [..., s, d] in the compute dtype
+               params: Optional[Mapping[str, torch.Tensor]] = None,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token (+ learned position, + embedding LayerNorm) embedding:
+        [..., s] -> [..., s, d] in the compute dtype
         (``params.compute_dtype`` where the mapping has one, so that no
-        layer leaf is read for it; else the dtype of ``wq``)."""
+        layer leaf is read for it; else the dtype of ``wq``). Learned
+        positions are ``positions`` (default ``0..s-1``), clamped to the
+        table as the JAX gather clamps: a multi-step decode lane past the
+        context reads the last row, and scatters into the sink page."""
         p = self._params(params)
+        c = self.config
         dtype = getattr(p, "compute_dtype", None) or p["layers.0.wq"].dtype
         table = p["tok_embed"]
         if self._tp_size <= 1:
-            return F.embedding(tokens.long(), table).to(dtype)
-        # vocab-parallel: this rank's rows, zeros for the other ranks'
-        # ids, summed over the group. Ids are clipped to the vocab first,
-        # as the JAX one-hot path does
-        rows = table.shape[0]
-        ids = tokens.long().clamp(0, self.config.vocab_size - 1) \
-            - self._tp_rank * rows
-        mine = (ids >= 0) & (ids < rows)
-        x = F.embedding(ids.clamp(0, rows - 1), table).to(dtype)
-        x = torch.where(mine[..., None], x, torch.zeros((), dtype=dtype,
-                                                        device=x.device))
-        return self._all_reduce(x)
+            x = F.embedding(tokens.long(), table).to(dtype)
+        else:
+            # vocab-parallel: this rank's rows, zeros for the other ranks'
+            # ids, summed over the group. Ids are clipped to the vocab
+            # first, as the JAX one-hot path does
+            rows = table.shape[0]
+            ids = tokens.long().clamp(0, c.vocab_size - 1) \
+                - self._tp_rank * rows
+            mine = (ids >= 0) & (ids < rows)
+            x = F.embedding(ids.clamp(0, rows - 1), table).to(dtype)
+            x = torch.where(mine[..., None], x,
+                            torch.zeros((), dtype=dtype, device=x.device))
+            x = self._all_reduce(x)
+        if c.position == "learned":
+            pos_table = p["pos_embed"]
+            if positions is None:
+                pos = pos_table[: tokens.shape[-1]]
+            else:
+                pos = F.embedding(positions.long().clamp(
+                    0, c.max_seq_len - 1), pos_table)
+            x = x + pos.to(dtype)
+        if c.embed_norm:
+            x = layer_norm(x, p["embed_norm_w"], p["embed_norm_b"],
+                           c.norm_eps)
+        return x
 
     def _mlp(self, h: torch.Tensor, lp) -> torch.Tensor:
-        """Gated-SiLU FFN: (silu(h @ w_gate) * (h @ w_up)) @ w_down. ``lp``
-        is a :class:`Block` or a dict of one layer's leaves."""
-        up = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
-        return self._down_proj(up, lp["w_down"])
+        """The config's FFN: gated SiLU, (silu(h @ w_gate) * (h @ w_up)) @
+        w_down, or act(h @ w_up + b_up) @ w_down with GELU (tanh form,
+        ``jax.nn.gelu``'s default), ``gelu_exact`` (erf), ReLU or
+        ``quick_gelu``; ``+ b_down`` with ``use_bias``. ``lp`` is a
+        :class:`Block` or a dict of one layer's leaves."""
+        c = self.config
+        if c.activation == "silu_glu":
+            up = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
+        else:
+            up = h @ lp["w_up"]
+            if c.use_bias:
+                up = up + lp["b_up"]
+            if c.activation == "relu":
+                up = F.relu(up)
+            elif c.activation == "gelu_exact":
+                up = F.gelu(up)
+            elif c.activation == "quick_gelu":
+                up = up * torch.sigmoid(1.702 * up)
+            else:
+                up = F.gelu(up, approximate="tanh")
+        down = self._down_proj(up, lp["w_down"])
+        if c.use_bias:
+            down = down + lp["b_down"]
+        return down
 
     def _down_proj(self, up: torch.Tensor, w_down: torch.Tensor
                    ) -> torch.Tensor:
@@ -692,12 +849,17 @@ class Transformer(nn.Module):
     def _head(self, x: torch.Tensor,
               params: Optional[Mapping[str, torch.Tensor]] = None
               ) -> torch.Tensor:
-        """Final norm + LM head: [..., d] -> fp32 logits [..., vocab].
-        Under tensor parallelism each rank computes its vocab columns and
-        the group gathers them in rank order."""
+        """Final norm + LM head (``tok_embed.T`` when tied), then
+        ``logits_softcap``: [..., d] -> fp32 logits [..., vocab]. Under
+        tensor parallelism each rank computes its vocab columns and the
+        group gathers them in rank order."""
         p = self._params(params)
-        x = rms_norm(x, p["final_norm_w"], self.config.norm_eps)
-        logits = (x @ p["lm_head"].to(x.dtype)).float()
+        c = self.config
+        x = self._norm(x, p, "final_norm")
+        w_out = p["tok_embed"].T if c.tie_embeddings else p["lm_head"]
+        logits = (x @ w_out.to(x.dtype)).float()
         if self._tp_size > 1:
             logits = comm.all_gather_columns(logits, self._group(), "model")
+        if c.logits_softcap > 0:
+            logits = torch.tanh(logits / c.logits_softcap) * c.logits_softcap
         return logits

@@ -1,9 +1,11 @@
 """Normalization ops.
 
-Ports ``rms_norm`` from ``deepspeed_tpu/ops/norms.py``. The JAX package
-leaves it to XLA's fusion (no Pallas kernel), and the port leaves it to
-PyTorch's eager ops. ``layer_norm`` / ``group_norm`` come with the model
-families that use them (later slices).
+Ports ``rms_norm`` and ``layer_norm`` from ``deepspeed_tpu/ops/norms.py``.
+The JAX package leaves them to XLA's fusion (no Pallas kernel), and the
+port leaves them to PyTorch's eager ops, with the JAX arithmetic step for
+step: fp32 statistics, ``reciprocal(sqrt(var + eps))``, weight (and bias)
+applied in fp32, then the cast back to the input's dtype. ``group_norm``
+comes with the diffusion models (ROADMAP.md, Queue A item 7).
 """
 
 from __future__ import annotations
@@ -19,3 +21,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.reciprocal(torch.sqrt(var + eps))
     return (y * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim (GPT-2 / OPT / GPT-Neo, Bloom's
+    embedding norm): the fp32 mean, then the mean of squares of the
+    centred values; the result has x's dtype."""
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    xc = x32 - mean
+    var = torch.mean(torch.square(xc), dim=-1, keepdim=True)
+    y = xc * torch.reciprocal(torch.sqrt(var + eps))
+    return (y * weight.float() + bias.float()).to(x.dtype)

@@ -1,12 +1,13 @@
 """Rotary position embeddings.
 
-Ports ``rope_frequencies`` and ``apply_rotary`` from
+Ports ``rope_frequencies``, ``apply_rotary`` and ``alibi_slopes`` from
 ``deepspeed_tpu/ops/rotary.py`` (plain tensor code there and here; no
-kernel). ``alibi_slopes`` comes with the ALiBi families (later slice).
+kernel).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -53,3 +54,22 @@ def apply_rotary(x: torch.Tensor, angles: torch.Tensor,
         x1, x2 = torch.chunk(xf, 2, dim=-1)
         out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
+    """ALiBi per-head slopes [n_heads] fp32 (Press et al. 2022; Bloom's
+    position scheme): the geometric sequence of the largest power of two
+    of heads at or below ``n_heads``, then every other slope of twice
+    that count for the heads left over (Bloom has 14/32/112 heads)."""
+
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        slopes = pow2_slopes(n_heads)
+    else:
+        base = 2 ** math.floor(math.log2(n_heads))
+        slopes = pow2_slopes(base)
+        slopes += pow2_slopes(2 * base)[0::2][: n_heads - base]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)

@@ -3,7 +3,8 @@
 ``rms_norm`` and ``apply_rotary`` are held to the JAX functions at fp32,
 1e-6; the Llama ``Transformer``'s ``_embed`` / ``_mlp`` / ``_head`` to the
 JAX model on carried weights. Also here: the presets, the weight carry's
-checks, the unsupported-flag errors, the serving and training entry
+checks, the flags that still raise (encoder, training and tensor
+parallelism off the Llama flag set), the serving and training entry
 points' CUDA default, and the scan showing that the port and
 ``chip_smoke.py`` import neither ``jax`` nor ``deepspeed_tpu``, nor does a
 tensor-parallel rank process (controller and worker) load them.
@@ -14,6 +15,7 @@ import dataclasses
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -27,7 +29,9 @@ from deepspeed_tpu.models.llama import llama_config as jax_llama_config
 from deepspeed_tpu.ops.norms import rms_norm as jax_rms_norm
 from deepspeed_tpu.ops.rotary import (apply_rotary as jax_apply_rotary,
                                       rope_frequencies as jax_rope_frequencies)
-from deepspeed_tpu_torch.checkpoint.jax_params import load_jax_params
+from deepspeed_tpu_torch.checkpoint.jax_params import (export_params,
+                                                       load_jax_params,
+                                                       shard_params)
 from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                   RaggedInferenceEngine)
 from deepspeed_tpu_torch.models.llama import Llama, llama_config
@@ -132,20 +136,37 @@ def test_init_is_seeded():
     assert abs(std - 64 ** -0.5) < 0.02
 
 
-@pytest.mark.parametrize("flag", [dict(tie_embeddings=True),
-                                  dict(norm="layer"), dict(use_bias=True),
-                                  dict(activation="gelu"),
-                                  dict(position="learned"),
-                                  dict(logits_softcap=30.0)])
-def test_other_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Llama("tiny", device="cpu", **{**TINY, **flag})
-    # the KV-cache branch runs; sliding windows on it come with a later slice
-    caches = (torch.zeros(2, 1, 8, 2, 16), torch.zeros(2, 1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Llama("tiny", device="cpu", **{**TINY, "attn_windows": (4, 4)})(
-            torch.zeros(1, 2, dtype=torch.long), kv_caches=caches,
-            cache_pos=0)
+@pytest.mark.parametrize("where,flag", [
+    ("model", dict(causal=False)), ("model", dict(prenorm=False)),
+    ("model", dict(type_vocab_size=2)), ("model", dict(mlm_head=True)),
+    ("model", dict(pooler=True)), ("initialize", dict(norm="layer")),
+    ("tensor_parallel", dict(use_bias=True))])
+def test_other_flags_raise(where, flag):
+    """The decoder flags are ported (tests/test_torch_families.py holds
+    them to JAX); what still raises: the encoder flags, training a
+    non-Llama flag set, and a non-Llama flag set over a model axis."""
+    if where == "model":
+        with pytest.raises(NotImplementedError, match="encoder part"):
+            Llama("tiny", device="cpu", **{**TINY, **flag})
+        return
+    model = Llama("tiny", device="cpu", **{**TINY, **flag})
+    if where == "initialize":
+        import deepspeed_tpu_torch
+
+        with pytest.raises(NotImplementedError, match="training part"):
+            deepspeed_tpu_torch.initialize(
+                model=model, config={"train_batch_size": 2}, device="cpu")
+        return
+    topo = SimpleNamespace(model_parallel_size=2)
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        model.shard_(topo)
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        shard_params(export_params(model), topo, model)
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        RaggedInferenceEngine(model, RaggedConfig(
+            token_budget=8, max_seqs=2, kv_block_size=4, n_kv_blocks=8,
+            max_context=32), device="cpu", topology=topo)
+    assert model._tp_size == 1
 
 
 def test_weight_carry_checks_shapes_and_leaves(carried):
