@@ -51,10 +51,11 @@ CPU path — without a CUDA device the script fails):
    writes them; row 9 twice bitwise); row 7's converter share from two
    scratch builds;
    flash: the forward, dq and dk/dv kernels through
-   ``FlashAttentionFunction`` against their plain versions (15 cases: the
+   ``FlashAttentionFunction`` against their plain versions (19 cases: the
    1b shape in bf16 at the training shape's micro-batch 4 and in
    fp16/fp32, d 128 and d 256, non-causal, sq < skv, sq > skv, odd
-   lengths, windows), one case twice for bitwise-equal results; each case
+   lengths, windows, phase 6h's encoder shapes: non-causal at 257, 77
+   and 512, causal at 77), one case twice for bitwise-equal results; each case
    logs which kernels took it and fails unless the Hopper forward ran
    exactly where ``flash_forward_wgmma_path`` accepts it and the Hopper
    dq and dk/dv kernels (TMA + wgmma) exactly where ``flash_wgmma_path``
@@ -170,6 +171,30 @@ CPU path — without a CUDA device the script fails):
    the flag set's leaves (biases, norm biases, ``pos_embed``, the tied
    ``tok_embed``), payloads, scales and dequantized weights bitwise the
    plain versions';
+6h. encoders: (e) first: 2-layer BERT-large- and CLIP-L/14-width models
+   in fp32, the same weights on cuda and cpu (MLM logits plain and padded
+   with segments, text / image embeddings, the similarity within 1e-3),
+   then the BERT model in bf16 on the card against the cpu fp32 hidden
+   states, which sets (b)'s tolerance; (a) BERT-large (seeded bf16 weights,
+   every bias and norm term drawn) through ``init_inference``: 10 timed
+   forwards of 32 x 512 ids (sequences/s, ms, peak memory), flash
+   launches counted from 0 (24 a forward, all on the Hopper forward,
+   non-causal), one profiled forward (idle share, device time by kernel),
+   row 2 at layer 0's call against the plain version, twice bitwise,
+   timed beside its bound, the plain version and SDPA; (b) 8 rows of
+   64-512 real tokens padded to 512 with two segments through
+   ``model.apply(..., attn_mask=...)`` (the plain masked path): hidden
+   states at the real positions and the pooled ``[CLS]`` match each row
+   run alone unpadded on the kernel path; (c) int8 weights at group 256:
+   389 quantize launches at build and 389 dequantize launches a forward
+   (16 leaves a layer, ``tok_embed`` twice, ``pos_embed``, ``type_embed``,
+   ``mlm_dense_w``), payloads, scales and dequantized weights bitwise the
+   plain versions', ``param_bytes``, sequences/s, MLM-logit cosine and
+   argmax agreement against bf16; (d) CLIP ViT-L/14 at 224 (the public
+   widths, seeded bf16 weights): ``similarity`` over 64 texts x 64 images
+   with its flash launches counted from 0 (12 causal at 77 + 24
+   non-causal at 257), images/s and texts/s, peak memory, row 2 at the
+   text and vision towers' layer-0 calls as in (a);
 6a. inference: ``init_inference(Llama("7b"))`` with int8 weights at group
    256 (path A), then bf16 and int4 weights: 4 prompts of 128 tokens, 32
    new tokens greedy; weight bytes, memory, prefill and decode times,
@@ -3811,13 +3836,20 @@ def _family_model(preset: str, size: str, seed: int = 0):
     logits (the init's zeros and ones would hide it)."""
     from deepspeed_tpu_torch.models import gpt2
 
-    model = {"opt": gpt2.OPT, "gpt2": gpt2.GPT2}[preset](
-        size, dtype=torch.bfloat16, seed=seed)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return _draw_vectors({"opt": gpt2.OPT, "gpt2": gpt2.GPT2}[preset](
+        size, dtype=torch.bfloat16, seed=seed), seed)
+
+
+def _draw_vectors(model, seed: int):
+    """``model`` with every 1-D leaf (biases, norm biases, and the norm
+    weights as 1 + the draw) drawn N(0, 0.02^2) from a generator seeded
+    with ``seed`` on the model's device."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.dim() == 1:
-                noise = torch.randn(p.shape, generator=gen, device="cuda",
+                noise = torch.randn(p.shape, generator=gen, device=dev,
                                     dtype=torch.float32) * 0.02
                 p.copy_(noise + (1.0 if name.endswith("norm_w") else 0.0))
     return model
@@ -3958,6 +3990,490 @@ def phase_families(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"families: phase 6g in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------- phase 6h
+ENCODER_BATCH = (32, 512)          # (a): BERT-large MLM forwards, rows x tokens
+ENCODER_TIMED = 10                 # (a): timed forwards after 2 warm-ups
+ENCODER_PADDED = 8                 # (b): rows of 64-512 real tokens
+ENCODER_QUANT = {"enabled": True, "bits": 8, "group_size": 256}
+ENCODER_QUANT_TIMED = 5            # (c): timed int8 forwards after 1 warm-up
+CLIP_BATCH = 64                    # (d): texts and images a similarity
+CLIP_TIMED = 5                     # (d): timed encode_text / encode_image
+ENCODER_CPU_ABS = 1e-3             # (e): fp32 cuda vs cpu, as phase 4
+# (d): the public openai/clip-vit-large-patch14 widths
+CLIP_L14 = dict(text=dict(d_model=768, n_layers=12, n_heads=12, d_ff=3072),
+                vision=dict(d_model=1024, n_layers=24, n_heads=16, d_ff=4096),
+                proj_dim=768, image_size=224, patch_size=14)
+
+
+@contextlib.contextmanager
+def _first_flash_call(kept: dict):
+    """Record the first ``flash_attention`` call the model core makes
+    inside the block, of each ``causal`` value: ``kept[causal]`` holds its
+    q, k, v (copies) and keywords (layer 0's call of a tower)."""
+    from deepspeed_tpu_torch.models import transformer as tr
+
+    real = tr.flash_attention
+
+    def recording(q, k, v, **kw):
+        if kw["causal"] not in kept:
+            kept[kw["causal"]] = dict(q=q.clone(), k=k.clone(), v=v.clone(),
+                                      **kw)
+        return real(q, k, v, **kw)
+
+    tr.flash_attention = recording
+    try:
+        yield kept
+    finally:
+        tr.flash_attention = real
+
+
+def _flash_zero() -> None:
+    fa.flash_forward.launches = fa.flash_forward.wgmma_launches = 0
+
+
+def _encoder_row2(kept: dict, flush, card: str, tag: str) -> dict:
+    """Row 2 at one encoder call (``kept`` from :func:`_first_flash_call`):
+    against the plain version (out within HALF_TOL, lse within 1e-4 abs +
+    1e-5 rel), twice bitwise, both launches on the Hopper forward; then
+    timed with L2 flushed, in turns with the plain version, beside SDPA on
+    the same inputs and the bound (4 d operations per visible pair at 989
+    TFLOP/s; q, k, v read and out, lse written at 3.35 TB/s)."""
+    import torch.nn.functional as F
+
+    q, k, v = kept["q"], kept["k"], kept["v"]
+    causal, scale = kept["causal"], kept.get("scale")
+    b, s, hq, d = q.shape
+    before = fa.flash_forward.wgmma_launches
+    out, lse = fa.flash_forward(q, k, v, causal=causal, scale=scale)
+    again, lse2 = fa.flash_forward(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    hopper = fa.flash_forward.wgmma_launches - before == 2
+    ref, ref_lse = fa.flash_attention_forward_reference(
+        q, k, v, causal=causal, scale=scale)
+    ok, err, tol = check_half_or_fp32(out, ref)
+    ok &= bool(((lse - ref_lse).abs() <= 1e-4 + 1e-5 * ref_lse.abs()).all())
+    same = torch.equal(out, again) and torch.equal(lse, lse2)
+
+    def kern():
+        return fa.flash_forward(q, k, v, causal=causal, scale=scale)
+
+    def plain():
+        return fa.flash_attention_forward_reference(q, k, v, causal=causal,
+                                                    scale=scale)
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              scale=scale)
+
+    p1 = cuda_ms(plain, 3, flush)
+    k1, k2 = cuda_ms(kern, 20, flush), cuda_ms(kern, 20, flush)
+    p2 = cuda_ms(plain, 3, flush)
+    lib_ms = cuda_ms(lib, 20, flush)
+    pairs = _visible_pairs(b, s, s, hq, causal, 0)
+    ops = 4.0 * d * pairs
+    nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
+    t_ops = ops / PEAK_OPS_PER_S[q.dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    res = {"shape": f"b{b} s{s} h{hq} d{d} {str(q.dtype)[6:]} "
+                    f"{'causal' if causal else 'non-causal'}",
+           "ms": min(k1, k2), "plain_ms": min(p1, p2),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": lib_ms, "max_abs_err": err}
+    log(f"encoders: {tag} row 2 at layer 0's call, {res['shape']}: max abs "
+        f"err {err:.3e} vs plain ({tol}; lse 1e-4 abs + 1e-5 rel), twice "
+        f"bitwise {same}, Hopper forward {hopper}; kernel {k1:.4f}/"
+        f"{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}: {ops:.3e} ops, "
+        f"{nbytes} B), {ops / res['ms'] / 1e9:.1f} TFLOP/s [{card}] "
+        f"{'ok' if ok and same and hopper else 'FAIL'}")
+    if not (ok and same and hopper):
+        raise SystemExit(f"encoders: row 2 at {tag}'s shape failed")
+    return res
+
+
+def _hidden_err(got, ref, lens) -> float:
+    """Max |got - ref| over each row's real positions."""
+    return max(float((got[i, :n].float() - ref[i, :n].float()).abs().max())
+               for i, n in enumerate(lens))
+
+
+def _padded_batch(vocab: int, rows: int, seed: int):
+    """``rows`` rows of 64-512 real tokens (row 0 a full 512) padded to
+    512: ids (0 at the pads), two segments (the second half of each row's
+    real tokens type 1) and the mask, as numpy, and the lengths."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 513, rows)
+    lens[0] = 512
+    pos = np.arange(512)[None, :]
+    mask = (pos < lens[:, None]).astype(np.int64)
+    ids = rng.integers(1000, vocab, (rows, 512)) * mask
+    types = (pos >= lens[:, None] // 2).astype(np.int64) * mask
+    return ids, types, mask, [int(n) for n in lens]
+
+
+def _bert_hidden(model, dev, ids, types, mask, lens):
+    """(the padded batch's hidden states through the masked path, each row
+    alone and unpadded through the flash path, zero-padded to 512)."""
+    t = {n: torch.from_numpy(a).to(dev) for n, a in
+         (("ids", ids), ("types", types), ("mask", mask))}
+    padded = model.apply(t["ids"], return_hidden=True,
+                         token_type_ids=t["types"], attn_mask=t["mask"])
+    alone = torch.zeros_like(padded)
+    for i, n in enumerate(lens):
+        alone[i, :n] = model.apply(t["ids"][i:i + 1, :n], return_hidden=True,
+                                   token_type_ids=t["types"][i:i + 1, :n])[0]
+    return padded, alone
+
+
+@torch.inference_mode()
+def _encoder_cpu_parity(card: str) -> float:
+    """6h (e): 2-layer BERT-large-width and CLIP-L/14-width models in fp32,
+    the same weights on cuda and cpu: MLM logits (plain and padded with
+    segments), text and image embeddings and the similarity within
+    ENCODER_CPU_ABS. Then the BERT model's weights in bf16 on the card
+    against the cpu fp32 hidden states, through the masked padded path and
+    the unpadded flash path: returns that error, which sets (b)'s
+    tolerance."""
+    from deepspeed_tpu_torch.models.bert import Bert
+    from deepspeed_tpu_torch.models.clip import (CLIP, CLIPConfig,
+                                                 clip_text_config,
+                                                 clip_vision_config)
+
+    t0 = time.perf_counter()
+    cpu = _draw_vectors(Bert("large", device="cpu", n_layers=2, seed=3), 3)
+    gpu = Bert("large", device="cuda", n_layers=2, seed=3)
+    gpu.load_state_dict(cpu.state_dict())
+    ids, types, mask, lens = _padded_batch(cpu.config.vocab_size, 2, 12)
+    finite, errs = True, {}
+    for tag, kw in (("plain", {}), ("padded", {"types": types,
+                                              "mask": mask})):
+        outs = {}
+        for dev, m in (("cuda", gpu), ("cpu", cpu)):
+            args = {"token_type_ids": torch.from_numpy(kw["types"]).to(dev),
+                    "attn_mask": torch.from_numpy(kw["mask"]).to(dev)} \
+                if kw else {}
+            outs[dev] = m.apply(torch.from_numpy(ids).to(dev), **args) \
+                .float().cpu().numpy()
+        errs[tag] = _max_err(outs["cuda"], outs["cpu"])
+        finite &= bool(np.isfinite(outs["cuda"]).all())
+    ref_h = cpu.apply(torch.from_numpy(ids), return_hidden=True,
+                      token_type_ids=torch.from_numpy(types),
+                      attn_mask=torch.from_numpy(mask))
+    gpu.to(torch.bfloat16)
+    padded, alone = _bert_hidden(gpu, "cuda", ids, types, mask, lens)
+    bf16_err = max(_hidden_err(padded.cpu(), ref_h, lens),
+                   _hidden_err(alone.cpu(), ref_h, lens))
+    del cpu, gpu
+    c = CLIP_L14
+    cfg = CLIPConfig(clip_text_config(**{**c["text"], "n_layers": 2}),
+                     clip_vision_config(**{**c["vision"], "n_layers": 2}),
+                     proj_dim=c["proj_dim"], image_size=c["image_size"],
+                     patch_size=c["patch_size"])
+    ccpu = _draw_vectors(CLIP(cfg, device="cpu", seed=4), 4)
+    cgpu = CLIP(cfg, device="cuda", seed=4)
+    cgpu.load_state_dict(ccpu.state_dict())
+    toks, pixels = _clip_inputs(2, 13)
+    outs = {}
+    for dev, m in (("cuda", cgpu), ("cpu", ccpu)):
+        tt, pp = torch.from_numpy(toks).to(dev), torch.from_numpy(pixels) \
+            .to(dev)
+        outs[dev] = [x.float().cpu().numpy() for x in (
+            m.encode_text(tt), m.encode_image(pp), m.similarity(tt, pp)[0])]
+    for tag, g, r in zip(("text", "image", "similarity"), outs["cuda"],
+                         outs["cpu"]):
+        errs[tag] = _max_err(g, r)
+        finite &= bool(np.isfinite(g).all())
+    ok = finite and max(errs.values()) <= ENCODER_CPU_ABS
+    log(f"encoders: (e) 2-layer BERT-large and CLIP-L/14-width fp32, cuda vs "
+        f"cpu max abs err: " + ", ".join(f"{k} {e:.3e}" for k, e in
+                                         errs.items())
+        + f" (tol {ENCODER_CPU_ABS}); the BERT weights in bf16 on the card "
+        f"vs cpu fp32 hidden states (masked padded and unpadded flash "
+        f"paths, real positions of rows of {lens} tokens): {bf16_err:.4f} "
+        f"[{card}] ({time.perf_counter() - t0:.1f} s) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("encoders: cuda disagrees with cpu")
+    del ccpu, cgpu
+    return bf16_err
+
+
+def _clip_inputs(n: int, seed: int):
+    """``n`` texts of 77 ids (a random length of 5-77 ending in the EOS
+    49407, the highest id: argmax pooling; zeros after it) and ``n``
+    images [3, 224, 224] of N(0, 1) pixels, as numpy."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(5, 78, n)
+    toks = rng.integers(1, 49406, (n, 77)) * (np.arange(77)[None, :]
+                                              < lens[:, None] - 1)
+    toks[np.arange(n), lens - 1] = 49407
+    return toks, rng.standard_normal((n, 3, 224, 224)).astype(np.float32)
+
+
+@torch.inference_mode()
+def _bert_large(card: str, flush, tol: float) -> dict:
+    """6h (a)-(c) on BERT-large (seeded bf16 weights, every bias and norm
+    term drawn)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import Bert
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    model = _draw_vectors(Bert("large", dtype=torch.bfloat16, seed=0), 0)
+    c = model.config
+    b, s = ENCODER_BATCH
+    ids = np.random.default_rng(10).integers(0, c.vocab_size, (b, s))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = deepspeed_tpu_torch.init_inference(model, {"dtype": "bfloat16"})
+    for _ in range(2):
+        eng.forward(ids)
+    torch.cuda.synchronize()
+    # (a) the main path: the counts from 0 just before, read just after
+    _flash_zero()
+    kept: dict = {}
+    with _first_flash_call(kept):
+        t1 = time.perf_counter()
+        for _ in range(ENCODER_TIMED):
+            logits = eng.forward(ids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    launches = (fa.flash_forward.launches, fa.flash_forward.wgmma_launches)
+    peak = torch.cuda.max_memory_allocated()
+    ok = (launches == (c.n_layers * ENCODER_TIMED,) * 2
+          and logits.shape == (b, s, c.vocab_size)
+          and bool(torch.isfinite(logits).all()) and list(kept) == [False])
+    per = wall / ENCODER_TIMED
+    log(f"encoders: (a) BERT-large ({c.param_count()} params, "
+        f"{c.n_layers} x d {c.d_model}, {c.n_heads} heads of {c.head_dim}, "
+        f"post-LN, non-causal) init_inference bf16 [{card}]: "
+        f"{ENCODER_TIMED} forwards of {b} x {s} tokens in {wall:.4f} s = "
+        f"{per * 1e3:.2f} ms a forward, {b / per:.1f} sequences/s, "
+        f"{b * s / per:.0f} tokens/s; flash launches {launches[0]} "
+        f"(Hopper forward {launches[1]}; {c.n_layers} a forward); "
+        f"max_memory_allocated {peak} B; MLM logits {tuple(logits.shape)} "
+        f"finite {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("encoders: BERT-large forward failed")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        eng.forward(ids)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t1
+    total_us, groups, kernels = _device_groups(
+        prof, {"flash": ("flash",),
+               "gemm": ("nvjet", "gemm", "xmma", "cutlass")})
+    if total_us > 0:
+        log(f"encoders: (a) one profiled forward: wall {pwall * 1e3:.2f} ms, "
+            f"device busy {total_us / 1e3:.2f} ms, idle share "
+            f"{max(0.0, 1 - total_us / 1e6 / pwall):.3f}; device time "
+            + ", ".join(f"{g} {us / 1e3:.2f} ms ({us / total_us:.1%})"
+                        for g, us in groups.items()))
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"encoders: {e.self_device_time_total / 1e3:9.3f} ms "
+                f"x{e.count:<5d} {e.key[:110]}")
+    else:
+        log("encoders: torch.profiler recorded no device time: breakdown "
+            "not measured")
+    out = {"seq_per_s": b / per, "ms": per * 1e3, "peak": peak,
+           "launches": launches[0], "wgmma_launches": launches[1],
+           "row2": _encoder_row2(kept[False], flush, card, "BERT-large")}
+    del kept
+    # (b) the padded batch: the plain masked path against each row alone
+    ids8, types, mask, lens = _padded_batch(c.vocab_size, ENCODER_PADDED, 11)
+    before = fa.flash_forward.wgmma_launches
+    padded, alone = _bert_hidden(model, "cuda", ids8, types, mask, lens)
+    moved = fa.flash_forward.wgmma_launches - before
+    nomask = model.apply(torch.from_numpy(ids8).cuda(), return_hidden=True,
+                         token_type_ids=torch.from_numpy(types).cuda())
+    pooled = model.pooled(padded)
+    cls_alone = model.pooled(alone)
+    err = _hidden_err(padded, alone, lens)
+    perr = float((pooled.float() - cls_alone.float()).abs().max())
+    control = _hidden_err(nomask, alone, lens)
+    limit = tol * c.n_layers / 2
+    ok = (err <= limit and perr <= limit and moved == c.n_layers * len(lens)
+          and bool(torch.isfinite(padded).all())
+          and bool(torch.isfinite(pooled).all()))
+    log(f"encoders: (b) {len(lens)} rows of {lens} real tokens padded to 512, "
+        f"two segments, through model.apply(..., attn_mask=...) (the plain "
+        f"masked path): hidden states at the real positions vs each row "
+        f"alone unpadded on the kernel path max abs err {err:.4f}, pooled "
+        f"[CLS] {perr:.4f} (tol {limit:.4f} = {c.n_layers} / 2 layers x "
+        f"(e)'s 2-layer bf16 vs cpu fp32 error {tol:.4f}); the padded rows "
+        f"without the mask {control:.4f} (control); the rows alone took "
+        f"{moved} Hopper forward launches, the masked batch none "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("encoders: the padded batch disagrees with its "
+                         "rows run alone")
+    del padded, alone, nomask
+    out["padded_err"], out["padded_tol"] = err, limit
+    # (c) int8 weights, group 256, beside the bf16 engine's weights
+    ref_logits = logits
+    del logits
+    params = dict(model.named_parameters())
+    for wrapper, *_ in QUANT_KERNELS.values():
+        wrapper.launches = 0
+    t1 = time.perf_counter()
+    eng8 = deepspeed_tpu_torch.init_inference(
+        (model, params), {"dtype": "bfloat16", "quant": ENCODER_QUANT})
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t1
+    n_quant = qk.quantize_blockwise.launches
+    eng8.forward(ids)
+    torch.cuda.synchronize()
+    d0 = qk.dequantize_blockwise.launches
+    t1 = time.perf_counter()
+    for _ in range(ENCODER_QUANT_TIMED):
+        lg8 = eng8.forward(ids)
+    torch.cuda.synchronize()
+    wall8 = time.perf_counter() - t1
+    per_fwd = (qk.dequantize_blockwise.launches - d0) / ENCODER_QUANT_TIMED
+    int8_launches = {n: w.launches for n, (w, *_) in QUANT_KERNELS.items()}
+    names = set(eng8._wq_shapes)
+    # every layer leaf, tok_embed (read twice: embedding and tied head),
+    # pos_embed, type_embed, mlm_dense_w; pooler_w is quantized, unread
+    want = 16 * c.n_layers + 5
+    same_q = same_w = True
+    for n in sorted(names):
+        leaf = eng8.params[n]
+        rq, rs = qk.quantize_blockwise_reference(params[n].contiguous(), 8,
+                                                 256)
+        same_q &= bool(torch.equal(leaf["__wq__"], rq)
+                       and torch.equal(leaf["s"], rs))
+        same_w &= bool(torch.equal(eng8._leaf(n), qk.
+                                   dequantize_blockwise_reference(
+                                       rq, rs, 256, torch.bfloat16)))
+    a, r = lg8.double().reshape(-1), ref_logits.double().reshape(-1)
+    cos = float(a @ r / a.norm() / r.norm())
+    agree = float((lg8.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+    ok = (len(names) == want and n_quant == want and per_fwd == want
+          and {"type_embed", "mlm_dense_w", "pooler_w", "pos_embed",
+               "tok_embed"} <= names and same_q and same_w and cos >= 0.95
+          and bool(torch.isfinite(lg8).all()))
+    per8 = wall8 / ENCODER_QUANT_TIMED
+    log(f"encoders: (c) BERT-large int8 (group 256) [{card}]: built in "
+        f"{built:.2f} s, {n_quant} quantize launches ({len(names)} leaves: "
+        f"16 a layer x {c.n_layers} + tok_embed, pos_embed, type_embed, "
+        f"mlm_dense_w, pooler_w), {per_fwd:g} dequantize launches a forward "
+        f"(the tied tok_embed twice, pooler_w unread); payloads and scales "
+        f"bitwise the plain quantize's {same_q}, dequantized weights "
+        f"bitwise the plain dequantize's {same_w}; param_bytes "
+        f"{eng8.param_bytes()} (bf16 {eng.param_bytes()}); "
+        f"{per8 * 1e3:.2f} ms a forward = {b / per8:.1f} sequences/s "
+        f"({per / per8:.2f}x bf16's rate); MLM logits vs bf16 weights cosine "
+        f"{cos:.5f}, argmax agreement {agree:.4f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("encoders: BERT-large int8 failed")
+    out.update(int8_seq_per_s=b / per8, quant_launches=n_quant,
+               dequant_per_forward=per_fwd, int8_launches=int8_launches)
+    del eng8, lg8, ref_logits, eng, params, model
+    log(f"encoders: BERT-large (a)-(c) in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+@torch.inference_mode()
+def _clip_l14(card: str, flush) -> dict:
+    """6h (d): CLIP ViT-L/14 at 224, seeded bf16 weights with every bias
+    and norm term drawn, ``similarity`` over 64 texts x 64 images."""
+    from deepspeed_tpu_torch.models.clip import (CLIP, CLIPConfig,
+                                                 clip_text_config,
+                                                 clip_vision_config)
+
+    t0 = time.perf_counter()
+    c = CLIP_L14
+    cfg = CLIPConfig(clip_text_config(**c["text"]),
+                     clip_vision_config(**c["vision"]),
+                     proj_dim=c["proj_dim"], image_size=c["image_size"],
+                     patch_size=c["patch_size"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = _draw_vectors(CLIP(cfg, dtype=torch.bfloat16, seed=0), 0)
+    n_params = sum(p.numel() for p in model.parameters())
+    toks, pixels = _clip_inputs(CLIP_BATCH, 14)
+    tt, pp = torch.from_numpy(toks).cuda(), torch.from_numpy(pixels).cuda()
+    model.similarity(tt, pp)
+    torch.cuda.synchronize()
+    # the main path: the counts from 0 just before, read just after
+    _flash_zero()
+    kept: dict = {}
+    with _first_flash_call(kept):
+        lpt, lpi = model.similarity(tt, pp)
+    torch.cuda.synchronize()
+    launches = (fa.flash_forward.launches, fa.flash_forward.wgmma_launches)
+    per_sim = cfg.text.n_layers + cfg.vision.n_layers
+    text, vision = kept[True], kept[False]
+    times = {}
+    for name, fn in (("texts", lambda: model.encode_text(tt)),
+                     ("images", lambda: model.encode_image(pp))):
+        t1 = time.perf_counter()
+        for _ in range(CLIP_TIMED):
+            fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t1) / CLIP_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    ok = (launches == (per_sim,) * 2
+          and lpt.shape == (CLIP_BATCH, CLIP_BATCH)
+          and torch.equal(lpt, lpi.T) and bool(torch.isfinite(lpt).all())
+          and tuple(vision["q"].shape[1:3]) == (257, 16)
+          and tuple(text["q"].shape[1:3]) == (77, 12))
+    log(f"encoders: (d) CLIP ViT-L/14 at 224 ({n_params} params; text "
+        f"{cfg.text.n_layers} x d {cfg.text.d_model} causal at 77 tokens, "
+        f"vision {cfg.vision.n_layers} x d {cfg.vision.d_model} non-causal "
+        f"at 257) [{card}]: encode_image {times['images'] * 1e3:.2f} ms = "
+        f"{CLIP_BATCH / times['images']:.1f} images/s, encode_text "
+        f"{times['texts'] * 1e3:.2f} ms = {CLIP_BATCH / times['texts']:.1f} "
+        f"texts/s ({CLIP_BATCH} a call); flash launches {launches[0]} "
+        f"(Hopper forward {launches[1]}; {cfg.text.n_layers} + "
+        f"{cfg.vision.n_layers} a similarity); logits per text "
+        f"{tuple(lpt.shape)} finite, the transpose of logits per image; "
+        f"max_memory_allocated {peak} B {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("encoders: CLIP ViT-L/14 failed")
+    out = {"images_per_s": CLIP_BATCH / times["images"],
+           "texts_per_s": CLIP_BATCH / times["texts"], "peak": peak,
+           "launches": launches[0], "wgmma_launches": launches[1],
+           "row2_vision": _encoder_row2(vision, flush, card, "CLIP vision"),
+           "row2_text": _encoder_row2(text, flush, card, "CLIP text")}
+    del model, kept, text, vision
+    log(f"encoders: CLIP (d) in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_encoders(card: str) -> dict:
+    """6h: the encoder families at full width. (e) first, since its bf16
+    error sets (b)'s tolerance: 2-layer BERT-large and CLIP-L/14-width
+    models cuda vs cpu in fp32; (a) BERT-large through ``init_inference``
+    (bf16), 10 forwards of 32 x 512, its flash launches counted from 0,
+    one profiled forward, row 2 at layer 0's call; (b) a padded batch
+    through the masked path against its rows alone; (c) int8 weights;
+    (d) CLIP ViT-L/14 ``similarity`` over 64 x 64, row 2 at the vision
+    and text towers' calls."""
+    t0 = time.perf_counter()
+    tol = _encoder_cpu_parity(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = {"bert": _bert_large(card, flush, tol)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["clip"] = _clip_l14(card, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"encoders: phase 6h in {out['seconds']:.1f} s")
     return out
 
 
@@ -4141,6 +4657,16 @@ FLASH_CASES = [
     ("sq333-skv517-window100-fp16", 1, 333, 517, 8, 2, 128, True, 100,
      torch.float16),
     ("window256-bf16", 1, 2048, 2048, 8, 2, 64, True, 256, torch.bfloat16),
+    # phase 6h's encoder shapes: CLIP ViT-L/14's vision tower (257 = 1 +
+    # 16^2, a ragged last key tile non-causal) and text tower (77), and
+    # BERT-large at 512
+    ("clip-vision-257-nc-bf16", 2, 257, 257, 16, 16, 64, False, 0,
+     torch.bfloat16),
+    ("nc-77-bf16", 2, 77, 77, 12, 12, 64, False, 0, torch.bfloat16),
+    ("bert-large-512-nc-bf16", 2, 512, 512, 16, 16, 64, False, 0,
+     torch.bfloat16),
+    ("clip-text-77-causal-bf16", 2, 77, 77, 12, 12, 64, True, 0,
+     torch.bfloat16),
 ]
 TRAIN_SHAPE = dict(b=4, s=2048, hq=32, hkv=4, d=64)   # Llama("1b"), GAS 2
 # the kernel each flash row takes at the training shape
@@ -5637,6 +6163,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fam = phase_families(dev["card"])
+    enc = phase_encoders(dev["card"])
     quant_launches = phase_inference(dev["card"])
     phase_trainer_parity()
     engine, batch, flash_launches, flash_wgmma = phase_training(dev["card"])
@@ -5716,6 +6243,18 @@ def main() -> int:
         if name in flash_wgmma:
             entries[-1]["wgmma_launches"] = flash_wgmma[name]
             entries[-1]["mma_sync_ms"] = t["mma_ms"]
+        if name == "flash_forward":
+            # 6h: BERT-large's 10 timed forwards, CLIP's similarity, and
+            # row 2 timed at their layer-0 calls
+            bert, clip = enc["bert"], enc["clip"]
+            entries[-1].update(
+                bert_launches=bert["launches"],
+                bert_wgmma_launches=bert["wgmma_launches"],
+                clip_launches=clip["launches"],
+                clip_wgmma_launches=clip["wgmma_launches"],
+                encoder_timings={"bert_large": bert["row2"],
+                                 "clip_vision": clip["row2_vision"],
+                                 "clip_text": clip["row2_text"]})
     for name, (_, replaces, _) in QUANT_KERNELS.items():
         t = quant_t[name]
         entries.append({
@@ -5726,6 +6265,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "parity": "bitwise",
             "opt_launches": fam["v1"]["launches"][name],
+            "bert_launches": enc["bert"]["int8_launches"][name],
             "shape": "4096x11008_bf16_int8_block256", "card": dev["card"]})
     for name, (_, replaces) in FUSED_KERNELS.items():
         t = fused_t[name]

@@ -10,7 +10,9 @@ It serves Llama, GPT-2 and OPT through the ragged engine and the serving
 front-end (optionally over int8/int4 KV pools), generates from every
 decoder family of the JAX package (Llama, GPT-2, OPT, GPT-Neo and the
 GPT-J / Bloom flag sets) through the v1 inference engine (optionally with
-ZeRO-Inference int8/int4 weights), trains Llama on one device, and trains
+ZeRO-Inference int8/int4 weights), runs the encoders (BERT and DistilBERT
+MLM logits through the same engine's ``forward``, CLIP's two towers
+through ``models.clip.CLIP``), trains Llama on one device, and trains
 a ``zero3_blocks`` model with ZeRO stage 3 over several ranks through the
 compressed-collective facade:
 
@@ -34,6 +36,11 @@ compressed-collective facade:
         config={"dtype": "bfloat16", "temperature": 0.0,
                 "quant": {"enabled": True, "bits": 8, "group_size": 256}})
     out = engine.generate(ids, max_new_tokens=32)
+
+    from deepspeed_tpu_torch.models.bert import Bert
+    mlm = deepspeed_tpu_torch.init_inference(
+        Bert("large", dtype=torch.bfloat16), config={"dtype": "bfloat16"})
+    logits = mlm.forward(ids)          # [b, s, 30522]
 
     # each rank (one process per rank):
     deepspeed_tpu_torch.init_distributed(dist_backend="nccl")   # or "gloo"
@@ -78,7 +85,8 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
     initial parameters unless ``params`` is given. ``config`` is a dict or
     a path to a DeepSpeed-style JSON file. The dataloader
     (``training_data``) comes with a later slice, and so does training a
-    model off the Llama flag set (GPT-2, OPT, GPT-Neo, ...)."""
+    model off the Llama flag set (GPT-2, OPT, GPT-Neo, ..., and the
+    encoders: BERT, DistilBERT, CLIP's towers)."""
     cfg = Config.from_any(config if config is not None else config_params)
     bad = non_llama_flags(model.config) \
         if isinstance(model, Transformer) else []

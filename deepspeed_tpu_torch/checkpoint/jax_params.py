@@ -2,14 +2,19 @@
 ``SequentialBlockModel``, and export it back.
 
 The JAX package's ``Transformer.init`` returns a tree of arrays: top-level
-``tok_embed`` ``[vocab, d]``, ``final_norm_w`` ``[d]``, ``lm_head``
-``[d, vocab]`` (untied models), ``final_norm_b``, ``pos_embed``
-``[max_seq_len, d]`` and ``embed_norm_w`` / ``_b`` where the config has
-them, and ``layers`` whose leaves (weights, norm weights and biases) are
+``tok_embed`` ``[vocab, d]``, ``final_norm_w`` ``[d]`` (pre-LN models),
+``lm_head`` ``[d, vocab]`` (untied models), ``final_norm_b``,
+``pos_embed`` ``[max_seq_len, d]``, ``type_embed``, ``embed_norm_w`` /
+``_b``, the MLM head's ``mlm_dense_w`` / ``_b``, ``mlm_norm_w`` / ``_b``
+and ``mlm_bias``, and ``pooler_w`` / ``_b`` where the config has them,
+and ``layers`` whose leaves (weights, norm weights and biases) are
 stacked ``[n_layers, ...]`` (``deepspeed_tpu/models/transformer.py``).
 The config decides the leaf set (``models.transformer.layer_leaves`` /
-``top_leaves``). Both packages keep the ``[in, out]`` layout, so a leaf
-copies over as it is. The port imports nothing
+``top_leaves``); CLIP's vision tower adds ``patch_w``, ``cls_embed`` and
+its own ``pos_embed`` (``Transformer.top_shapes``). A ``CLIP`` tree nests
+the two towers' trees: ``{"text": ..., "vision": ..., "text_proj",
+"vision_proj", "logit_scale"}``. Both packages keep the ``[in, out]``
+layout, so a leaf copies over as it is. The port imports nothing
 of JAX for this: the caller converts the tree to nested dicts of numpy
 arrays first (``jax.tree_util.tree_map(np.asarray, params)``).
 
@@ -40,7 +45,8 @@ import numpy as np
 import torch
 
 from ..inference.ragged import KVExport
-from ..models.transformer import Transformer, layer_leaves, top_leaves
+from ..models.clip import CLIP
+from ..models.transformer import Transformer, layer_leaves
 from ..parallel.mesh import shard_slices
 from ..parallel.zero import SequentialBlockModel
 from ..serving.kvtier import PrefixExport
@@ -54,17 +60,31 @@ def _copy(dst: torch.Tensor, src: Any, name: str) -> None:
     dst.copy_(torch.from_numpy(np.array(arr, np.float32)))
 
 
+_CLIP_TOP = ("text_proj", "vision_proj", "logit_scale")
+
+
 @torch.no_grad()
-def load_jax_params(model: Transformer, params_np: Dict[str, Any]
-                    ) -> Transformer:
+def load_jax_params(model: Union[Transformer, CLIP],
+                    params_np: Dict[str, Any]) -> Union[Transformer, CLIP]:
     """Copy ``params_np`` (nested dicts of numpy arrays in the JAX
     package's layout) into ``model``'s weights, in place, on the model's
     device and in its dtype. Missing or extra leaves and shape mismatches
     raise. Returns ``model``."""
+    if isinstance(model, CLIP):
+        keys = {"text", "vision", *_CLIP_TOP}
+        if set(params_np) != keys:
+            raise ValueError(f"JAX CLIP params: missing "
+                             f"{sorted(keys - set(params_np))}, unexpected "
+                             f"{sorted(set(params_np) - keys)}")
+        load_jax_params(model.text, params_np["text"])
+        load_jax_params(model.vision, params_np["vision"])
+        for name in _CLIP_TOP:
+            _copy(getattr(model, name), params_np[name], name)
+        return model
     layers = params_np.get("layers")
     if not isinstance(layers, dict):
         raise ValueError("params has no 'layers' dict")
-    tops, leaves = top_leaves(model.config), layer_leaves(model.config)
+    tops, leaves = list(model.top_shapes()), layer_leaves(model.config)
     extra = (set(params_np) - set(tops) - {"layers"}) \
         | (set(layers) - set(leaves))
     missing = (set(tops) - set(params_np)) | (set(leaves) - set(layers))
@@ -144,24 +164,29 @@ def gather_params(shards: Sequence[Dict[str, Any]], model: Transformer
     return out
 
 
-def export_params(params: Union[Transformer, Mapping[str, torch.Tensor]]
+def _arr(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def export_params(params: Union[Transformer, CLIP,
+                                Mapping[str, torch.Tensor]]
                   ) -> Dict[str, Any]:
     """The inverse of :func:`load_jax_params`: a model's weights (or a
     ``{name: tensor}`` dict with the names of its ``named_parameters()``,
     such as a ``TrainEngine``'s ``params``) as nested dicts of fp32 numpy
     arrays in the JAX package's layout, layer leaves stacked
-    ``[n_layers, ...]``."""
+    ``[n_layers, ...]``; a ``CLIP``'s as its nested tree."""
+    if isinstance(params, CLIP):
+        return {"text": export_params(params.text),
+                "vision": export_params(params.vision),
+                **{name: _arr(getattr(params, name)) for name in _CLIP_TOP}}
     if isinstance(params, Transformer):
         params = dict(params.named_parameters())
-
-    def arr(t: torch.Tensor) -> np.ndarray:
-        return t.detach().float().cpu().numpy()
-
     n = 1 + max(int(k.split(".")[1]) for k in params if k.startswith("layers."))
     leaves = [k.split(".", 2)[2] for k in params if k.startswith("layers.0.")]
-    out: Dict[str, Any] = {name: arr(t) for name, t in params.items()
+    out: Dict[str, Any] = {name: _arr(t) for name, t in params.items()
                            if not name.startswith("layers.")}
-    out["layers"] = {name: np.stack([arr(params[f"layers.{i}.{name}"])
+    out["layers"] = {name: np.stack([_arr(params[f"layers.{i}.{name}"])
                                      for i in range(n)])
                      for name in leaves}
     return out

@@ -4,9 +4,10 @@ ZeRO-Inference weight-only quantization.
 Ports ``deepspeed_tpu/inference/engine.py`` on one device: greedy, sampled
 and beam-search ``generate`` and a raw-logits ``forward`` over a
 :class:`~deepspeed_tpu_torch.models.transformer.Transformer` of any
-decoder flag set (Llama, GPT-2, OPT, GPT-Neo, GPT-J and Bloom-style),
-through the
-KV-cache branch of its ``apply``. PyTorch runs eagerly, so prefill, decode
+flag set: ``generate`` through the KV-cache branch of its ``apply``
+(decoders: Llama, GPT-2, OPT, GPT-Neo, GPT-J and Bloom-style; an encoder
+raises there, as in the JAX package), ``forward`` through the dense
+branch (BERT / DistilBERT: the MLM logits). PyTorch runs eagerly, so prefill, decode
 and the beam step are plain method calls (jitted, donated programs in the
 JAX package); the cache is updated in place.
 
@@ -534,9 +535,13 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def forward(self, input_ids, **kw) -> torch.Tensor:
-        """Raw fp32 logits [b, s, vocab] of ``input_ids`` [b, s]."""
+        """Raw fp32 logits [b, s, vocab] of ``input_ids`` [b, s]. Keyword
+        arguments are taken and dropped, as the JAX engine's ``forward``
+        drops them: an encoder's padded batch goes through
+        ``model.apply(..., attn_mask=...)`` in both packages."""
+        del kw
         _, tokens = self._ids(input_ids)
-        return self.model.apply(tokens, params=self._view, **kw)
+        return self.model.apply(tokens, params=self._view)
 
     __call__ = forward
 

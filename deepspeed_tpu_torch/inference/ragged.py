@@ -13,7 +13,9 @@ Hopper kernel, :mod:`deepspeed_tpu_torch.ops.paged_attention`) → o-proj
 last token. The other matrix products stay ``torch.matmul``. The Llama,
 GPT-2 and OPT flag sets run here; ALiBi, parallel residual and
 attention-scale overrides raise as in the JAX engine (the v1 engine
-serves them).
+serves them). Encoders (``causal=False`` or ``prenorm=False``) raise too:
+the JAX engine takes them and computes them causally and pre-normed
+(ROADMAP.md Queue C, C7).
 
 Quantized pools (``kv_quant`` ``"int8"`` / ``"int4"``): each K/V
 head-vector is quantized on its way into the pool
@@ -555,6 +557,17 @@ class RaggedInferenceEngine:
             raise ValueError(
                 f"max_context {cfg.max_context} exceeds model "
                 f"max_seq_len {c.max_seq_len} (RoPE/position table bound)")
+        if not c.causal or not c.prenorm:
+            # the JAX engine's _core pre-norms every block and attends
+            # causally over the paged pool whatever the config says, so it
+            # serves an encoder wrong logits (ROADMAP.md Queue C, C7)
+            raise NotImplementedError(
+                "RaggedInferenceEngine serves causal pre-LN decoders only: "
+                "causal=False / prenorm=False (encoders) would be attended "
+                "causally and pre-normed over the paged pool, as the JAX "
+                "engine silently does (ROADMAP.md Queue C, C7); run an "
+                "encoder through init_inference(...).forward or "
+                "model.apply")
         if c.position == "alibi" or c.parallel_residual:
             # the ragged step inlines the block math without ALiBi bias /
             # parallel-residual wiring; loud failure beats wrong logits

@@ -1,0 +1,190 @@
+"""CLIP family: contrastive text and vision towers.
+
+Ports ``deepspeed_tpu/models/clip.py``. Both towers run on the shared
+:class:`~deepspeed_tpu_torch.models.transformer.Transformer` core:
+
+* the text tower: a causal pre-LN encoder with learned positions and
+  quick-GELU; its features are the final-LN hidden state at the EOS
+  position, projected without bias;
+* the vision tower (:class:`CLIPVision`): a ViT on the same block stack.
+  The stride-p patch convolution is a reshape into (c, ph, pw)-ordered
+  patch vectors and one matmul (a plain product, outside any kernel in
+  both packages), then a learned class token and positions,
+  ``embed_norm`` as the pre-LN and ``final_norm`` on the class token as
+  the post-LN.
+
+The contrastive head L2-normalizes both embeddings and scales their
+products by ``exp(logit_scale)``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.norms import layer_norm
+from ..utils.device import resolve_device
+from .transformer import Transformer, TransformerConfig
+
+
+def clip_text_config(vocab_size=49408, d_model=512, n_layers=12, n_heads=8,
+                     d_ff=2048, max_seq_len=77, **overrides) -> TransformerConfig:
+    kw = dict(vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
+              n_heads=n_heads, d_ff=d_ff, max_seq_len=max_seq_len,
+              norm="layer", activation="quick_gelu", position="learned",
+              causal=True, tie_embeddings=True, use_bias=True, norm_eps=1e-5)
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def clip_vision_config(d_model=768, n_layers=12, n_heads=12, d_ff=3072,
+                       **overrides) -> TransformerConfig:
+    kw = dict(vocab_size=1,  # token table unused by the pixel path
+              d_model=d_model, n_layers=n_layers, n_heads=n_heads, d_ff=d_ff,
+              max_seq_len=1, norm="layer", activation="quick_gelu",
+              position="none",  # learned positions are added in apply_pixels
+              causal=False, embed_norm=True, tie_embeddings=True,
+              use_bias=True, norm_eps=1e-5)
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+class CLIPVision(Transformer):
+    """ViT tower: pixels [b, c, H, W] -> (hidden [b, 1 + n, d], pooled
+    [b, d]). Beside the core's leaves it holds ``patch_w`` [c p^2, d],
+    ``cls_embed`` [d] and ``pos_embed`` [n_patches + 1, d]."""
+
+    def __init__(self, config: TransformerConfig, image_size: int = 224,
+                 patch_size: int = 32, n_channels: int = 3, device=None,
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        if image_size % patch_size:
+            raise ValueError(f"image_size {image_size} is not a multiple of "
+                             f"patch_size {patch_size}")
+        # plain attributes, set before the core makes (top_shapes) and
+        # draws the leaves
+        self.image_size = image_size
+        self.patch_size = patch_size
+        self.n_channels = n_channels
+        self.n_patches = (image_size // patch_size) ** 2
+        super().__init__(config, device=device, dtype=dtype, seed=seed)
+
+    def top_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        d = self.config.d_model
+        return {**super().top_shapes(),
+                "patch_w": (self.n_channels * self.patch_size ** 2, d),
+                "cls_embed": (d,), "pos_embed": (self.n_patches + 1, d)}
+
+    def apply_pixels(self, pixels: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pixels [b, c, H, W] (float) -> (hidden states [b, 1 + n, d],
+        the post-LN class token [b, d]) in the weights' dtype."""
+        c = self.config
+        p = self.patch_size
+        b, ch, H, W = pixels.shape
+        if ch != self.n_channels or not H == W == self.image_size:
+            raise ValueError(f"expected [b, {self.n_channels}, "
+                             f"{self.image_size}, {self.image_size}], got "
+                             f"{tuple(pixels.shape)}")
+        hp = H // p
+        dtype = self.layers[0].wq.dtype
+        patches = pixels.reshape(b, ch, hp, p, hp, p) \
+                        .permute(0, 2, 4, 1, 3, 5) \
+                        .reshape(b, hp * hp, ch * p * p).to(dtype)
+        x = patches @ self.patch_w.to(dtype)
+        cls = self.cls_embed.to(dtype).expand(b, 1, c.d_model)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dtype)
+        x = layer_norm(x, self.embed_norm_w, self.embed_norm_b, c.norm_eps)
+        h = self._encode(dict(self.named_parameters()), x)
+        pooled = layer_norm(h[:, 0], self.final_norm_w, self.final_norm_b,
+                            c.norm_eps)
+        return h, pooled
+
+
+@dataclass
+class CLIPConfig:
+    text: TransformerConfig
+    vision: TransformerConfig
+    proj_dim: int = 512
+    image_size: int = 224
+    patch_size: int = 32
+    n_channels: int = 3
+    eos_token_id: Optional[int] = None  # None -> argmax pooling
+
+
+class CLIP(nn.Module):
+    """The two-tower contrastive model: ``text`` (a
+    :class:`~deepspeed_tpu_torch.models.transformer.Transformer`),
+    ``vision`` (:class:`CLIPVision`), the projections ``text_proj`` [d_t,
+    proj] and ``vision_proj`` [d_v, proj], and the 0-dim ``logit_scale``
+    (log(1 / 0.07) at init). The towers' weights are made from ``seed``
+    and ``seed + 1``, the projections from ``seed + 2``, on ``device``
+    (default ``"cuda"``)."""
+
+    def __init__(self, config: CLIPConfig, device=None,
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.config = c = config
+        self.text = Transformer(c.text, device=dev, dtype=dtype, seed=seed)
+        self.vision = CLIPVision(c.vision, c.image_size, c.patch_size,
+                                 c.n_channels, device=dev, dtype=dtype,
+                                 seed=seed + 1)
+        gen = torch.Generator(device=dev).manual_seed(seed + 2)
+
+        def proj(d_in):
+            w = torch.randn((d_in, c.proj_dim), generator=gen, device=dev,
+                            dtype=torch.float32) / math.sqrt(d_in)
+            return nn.Parameter(w.to(dtype), requires_grad=False)
+
+        self.text_proj = proj(c.text.d_model)
+        self.vision_proj = proj(c.vision.d_model)
+        self.logit_scale = nn.Parameter(torch.tensor(
+            math.log(1 / 0.07), device=dev, dtype=dtype), requires_grad=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.text_proj.device
+
+    def encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [b, s] -> projected text embedding [b, proj]: the
+        final-LN hidden state at the EOS position (the first
+        ``eos_token_id``, or the highest id as in the original CLIP)."""
+        t = self.text
+        h = t.apply(tokens, return_hidden=True)
+        h = layer_norm(h, t.final_norm_w, t.final_norm_b,
+                       self.config.text.norm_eps)
+        if self.config.eos_token_id is not None:
+            eos = torch.argmax((tokens == self.config.eos_token_id).int(),
+                               dim=-1)
+        else:
+            eos = torch.argmax(tokens, dim=-1)
+        pooled = h[torch.arange(h.shape[0], device=h.device), eos]
+        return pooled @ self.text_proj.to(pooled.dtype)
+
+    def encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
+        """pixels [b, c, H, W] -> projected image embedding [b, proj]."""
+        _, pooled = self.vision.apply_pixels(pixels)
+        return pooled @ self.vision_proj.to(pooled.dtype)
+
+    def similarity(self, tokens: torch.Tensor, pixels: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits per text [bt, bi], logits per image [bi, bt])."""
+        t = self.encode_text(tokens)
+        v = self.encode_image(pixels)
+        t = t / torch.linalg.norm(t, dim=-1, keepdim=True)
+        v = v / torch.linalg.norm(v, dim=-1, keepdim=True)
+        lpt = (t @ v.T) * torch.exp(self.logit_scale).to(t.dtype)
+        return lpt, lpt.T
+
+    def loss(self, batch) -> torch.Tensor:
+        """Symmetric InfoNCE over the in-batch pairs of ``batch``
+        (``input_ids`` [n, s], ``pixel_values`` [n, c, H, W])."""
+        lpt, lpi = self.similarity(batch["input_ids"], batch["pixel_values"])
+        labels = torch.arange(lpt.shape[0], device=lpt.device)[:, None]
+        lt = -torch.gather(torch.log_softmax(lpt, -1), -1, labels).mean()
+        li = -torch.gather(torch.log_softmax(lpi, -1), -1, labels).mean()
+        return 0.5 * (lt + li)

@@ -1,16 +1,18 @@
-"""Decoder-only transformer core, as a PyTorch module.
+"""Transformer core (decoders and encoders), as a PyTorch module.
 
-Ports ``deepspeed_tpu/models/transformer.py`` for every decoder flag of
-its config: RMSNorm or LayerNorm (with biases), gated-SiLU or a GELU
-(tanh form, ``gelu_exact``) / ReLU / ``quick_gelu`` MLP, RoPE (half-split
-or interleaved, optional partial ``rotary_dim``), learned positions or
-ALiBi, GQA, qkv / o / MLP biases, tied or untied head, ``logits_softcap``,
-``attn_scale``, ``parallel_residual``, ``embed_norm`` and per-layer
-sliding windows: Llama, GPT-2, OPT, GPT-Neo, GPT-J and Bloom-style flag
-sets. The encoder flags (``causal=False``, ``prenorm=False``,
-``type_vocab_size``, ``mlm_head``, ``pooler``) raise
-``NotImplementedError``: they come with BERT / CLIP (ROADMAP.md, Queue A
-item 7).
+Ports ``deepspeed_tpu/models/transformer.py`` for every flag of its
+config: RMSNorm or LayerNorm (with biases), gated-SiLU or a GELU (tanh
+form, ``gelu_exact``) / ReLU / ``quick_gelu`` MLP, RoPE (half-split or
+interleaved, optional partial ``rotary_dim``), learned positions, ALiBi
+or none (``position="none"``, CLIP's vision tower), GQA, qkv / o / MLP
+biases, tied or untied head, ``logits_softcap``, ``attn_scale``,
+``parallel_residual``, ``embed_norm`` and per-layer sliding windows
+(Llama, GPT-2, OPT, GPT-Neo, GPT-J and Bloom-style flag sets), and the
+encoder flags: bidirectional attention (``causal=False``, with an
+optional ``[b, s]`` padding ``attn_mask``), post-LN blocks
+(``prenorm=False``: the norm after each residual add, no final norm),
+segment embeddings (``type_vocab_size``), BERT's MLM head (``mlm_head``)
+and the ``[CLS]`` tanh ``pooler`` (BERT, DistilBERT, CLIP's towers).
 
 Weight layout: the JAX package's ``[in, out]`` for ``h @ W`` (``wq`` is
 ``[d_model, n_heads * head_dim]``, ``lm_head`` is ``[d_model, vocab]``), so
@@ -63,7 +65,10 @@ order. With a fused comm backend bound (``bind_comm_backend``, by the
 v1 engine), a one-position decode step's down-projection runs as the
 backend's ``matmul_all_reduce`` (:meth:`Transformer._down_proj`).
 
-Sequence parallelism and encoder masks come with later slices.
+An encoder without a padding mask takes the flash kernel with
+``causal=False``; with one, the plain ``dot_product_attention`` under the
+key mask broadcast to ``[b, 1, 1, s]``, as the JAX package computes it
+outside any Pallas kernel. Sequence parallelism comes with a later slice.
 
 The module's own parameters never require grad (serving needs none); the
 trainer's compute copy does.
@@ -236,25 +241,38 @@ def layer_leaves(c: TransformerConfig) -> Tuple[str, ...]:
 
 
 def top_leaves(c: TransformerConfig) -> Tuple[str, ...]:
-    """The top-level (unstacked) leaf names under ``c``."""
-    names = ["tok_embed", "final_norm_w"]
-    if c.norm == "layer":
-        names.append("final_norm_b")
+    """The top-level (unstacked) leaf names under ``c``, in the JAX
+    ``init``'s order. A post-LN model (``prenorm=False``) has no final
+    norm."""
+    names = ["tok_embed"]
+    if c.prenorm:
+        names.append("final_norm_w")
+        if c.norm == "layer":
+            names.append("final_norm_b")
     if c.position == "learned":
         names.append("pos_embed")
+    if c.type_vocab_size > 0:
+        names.append("type_embed")
     if c.embed_norm:
         names += ["embed_norm_w", "embed_norm_b"]
     if not c.tie_embeddings:
         names.append("lm_head")
+    if c.mlm_head:
+        names += ["mlm_dense_w", "mlm_dense_b", "mlm_norm_w", "mlm_norm_b",
+                  "mlm_bias"]
+    if c.pooler:
+        names += ["pooler_w", "pooler_b"]
     return tuple(names)
 
 
-# the flags whose values off the Llama set tensor parallelism does not take
+# the flags whose values off the Llama set tensor parallelism and training
+# do not take
 _LLAMA_FLAGS = {"norm": "rms", "activation": "silu_glu", "position": "rope",
                 "tie_embeddings": False, "use_bias": False, "qkv_bias": False,
                 "attn_o_bias": False, "parallel_residual": False,
                 "embed_norm": False, "attn_scale": None,
-                "logits_softcap": 0.0}
+                "logits_softcap": 0.0, "causal": True, "prenorm": True,
+                "type_vocab_size": 0, "mlm_head": False, "pooler": False}
 
 
 def non_llama_flags(c: TransformerConfig) -> list:
@@ -262,21 +280,8 @@ def non_llama_flags(c: TransformerConfig) -> list:
     return [k for k, v in _LLAMA_FLAGS.items() if getattr(c, k) != v]
 
 
-def _check_supported(c: TransformerConfig) -> None:
-    """Every decoder flag is ported; the encoder flags raise."""
-    encoder = {"causal": not c.causal, "prenorm": not c.prenorm,
-               "type_vocab_size": c.type_vocab_size > 0,
-               "mlm_head": c.mlm_head, "pooler": c.pooler}
-    bad = [k for k, v in encoder.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"deepspeed_tpu_torch ports the decoder flags; the encoder flags "
-            f"{bad} come with models/{{bert, clip}}.py (ROADMAP.md, Queue A "
-            f"item 7, the encoder part)")
-
-
 class Block(nn.Module):
-    """One decoder layer's parameters, named as the JAX leaves, ``[in,
+    """One layer's parameters, named as the JAX leaves, ``[in,
     out]`` layout; the config decides which leaves exist
     (:func:`layer_leaves`)."""
 
@@ -303,7 +308,7 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """A decoder of any ported flag set. ``device`` defaults to
+    """A decoder or encoder of any ported flag set. ``device`` defaults to
     ``"cuda"`` and raises without a CUDA device unless ``device="cpu"``
     is asked for. Weights
     are made with :meth:`init` from ``seed`` (a seeded ``torch.Generator``
@@ -313,7 +318,6 @@ class Transformer(nn.Module):
     def __init__(self, config: TransformerConfig, device=None,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
-        _check_supported(config)
         dev = resolve_device(device)
         self.config = c = config
 
@@ -321,15 +325,11 @@ class Transformer(nn.Module):
             return nn.Parameter(torch.empty(shape, device=dev, dtype=dtype),
                                 requires_grad=False)
 
-        shapes = {"tok_embed": (c.vocab_size, c.d_model),
-                  "final_norm_w": (c.d_model,), "final_norm_b": (c.d_model,),
-                  "pos_embed": (c.max_seq_len, c.d_model),
-                  "embed_norm_w": (c.d_model,), "embed_norm_b": (c.d_model,),
-                  "lm_head": (c.d_model, c.vocab_size)}
+        shapes = self.top_shapes()
         self.tok_embed = p(*shapes["tok_embed"])
         self.layers = nn.ModuleList(Block(c, dev, dtype)
                                     for _ in range(c.n_layers))
-        for name in top_leaves(c)[1:]:
+        for name in list(shapes)[1:]:
             setattr(self, name, p(*shapes[name]))
         self.init(seed)
         # tensor parallelism (bind_topology / bind_comm_backend)
@@ -340,6 +340,22 @@ class Transformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.tok_embed.device
+
+    def top_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """The shape of each top-level leaf (:func:`top_leaves`, in its
+        order); a subclass with leaves of its own (CLIP's vision tower)
+        adds them here."""
+        c = self.config
+        d, v = c.d_model, c.vocab_size
+        shapes = {"tok_embed": (v, d), "final_norm_w": (d,),
+                  "final_norm_b": (d,), "pos_embed": (c.max_seq_len, d),
+                  "type_embed": (c.type_vocab_size, d),
+                  "embed_norm_w": (d,), "embed_norm_b": (d,),
+                  "lm_head": (d, v), "mlm_dense_w": (d, d),
+                  "mlm_dense_b": (d,), "mlm_norm_w": (d,),
+                  "mlm_norm_b": (d,), "mlm_bias": (v,), "pooler_w": (d, d),
+                  "pooler_b": (d,)}
+        return {name: shapes[name] for name in top_leaves(c)}
 
     # -- tensor parallelism --------------------------------------------
     def partition_specs(self, params: Any = None, topo: Any = None
@@ -455,7 +471,9 @@ class Transformer(nn.Module):
         """Fill every weight in place from a ``torch.Generator`` seeded
         with ``seed``, with the JAX package's scheme: dense weights
         ~ N(0, 1/fan_in), ``wo`` ~ N(0, 1/(2 d n_layers)), ``w_down``
-        ~ N(0, 1/(2 d_ff n_layers)), embeddings ~ N(0, 0.02^2), norms 1.
+        ~ N(0, 1/(2 d_ff n_layers)), embeddings (tokens, positions,
+        segments, CLIP's class token) ~ N(0, 0.02^2), norm weights 1,
+        biases 0.
         (The two frameworks draw different numbers from one seed; tests
         carry JAX weights across instead.)"""
         c = self.config
@@ -478,13 +496,12 @@ class Transformer(nn.Module):
                     normal_(w, 1.0 / math.sqrt(w.shape[0]))
             normal_(blk.wo, 1.0 / math.sqrt(c.d_model * 2 * n))
             normal_(blk.w_down, 1.0 / math.sqrt(c.d_ff * 2 * n))
-        normal_(self.tok_embed, 0.02)
-        for name in top_leaves(c)[1:]:
+        for name in self.top_shapes():
             w = getattr(self, name)
-            if name == "pos_embed":
+            if name in ("tok_embed", "pos_embed", "type_embed", "cls_embed"):
                 normal_(w, 0.02)
-            elif name == "lm_head":
-                normal_(w, 1.0 / math.sqrt(c.d_model))
+            elif w.dim() == 2:
+                normal_(w, 1.0 / math.sqrt(w.shape[0]))
             elif name.endswith("norm_w"):
                 w.fill_(1.0)
             else:
@@ -499,16 +516,20 @@ class Transformer(nn.Module):
     def forward(self, tokens, positions=None, return_hidden: bool = False,
                 params: Optional[Params] = None, kv_caches=None,
                 cache_pos: Optional[int] = None,
-                last_token_only: bool = False):
+                last_token_only: bool = False, token_type_ids=None,
+                attn_mask=None):
         return self.apply(tokens, positions, return_hidden, params=params,
                           kv_caches=kv_caches, cache_pos=cache_pos,
-                          last_token_only=last_token_only)
+                          last_token_only=last_token_only,
+                          token_type_ids=token_type_ids, attn_mask=attn_mask)
 
     def apply(self, tokens: torch.Tensor, positions=None,
               return_hidden: bool = False, *,
               params: Optional[Mapping[str, torch.Tensor]] = None,
               kv_caches=None, cache_pos: Optional[int] = None,
-              last_token_only: bool = False):
+              last_token_only: bool = False,
+              token_type_ids: Optional[torch.Tensor] = None,
+              attn_mask: Optional[torch.Tensor] = None):
         """Forward. tokens: [b, s] int -> fp32 logits [b, s, vocab], or the
         pre-head hidden states [b, s, d] with ``return_hidden``. ``params``
         (default: the module's own) maps the names of
@@ -523,15 +544,23 @@ class Transformer(nn.Module):
         kv_caches)`` is returned. ``positions`` (default ``0..s-1``) are
         the RoPE and learned-position positions; decode passes the
         absolute ones. ``last_token_only`` keeps only the last position
-        before the head."""
+        before the head.
+
+        Encoders: ``token_type_ids`` [b, s] are the segment ids (zeros
+        when None and the config has ``type_embed``); ``attn_mask`` [b, s]
+        (1 = attend) masks padded keys of a bidirectional model and
+        raises on a causal one. KV-cache decode needs a causal model."""
         p = self._params(params)
         c = self.config
-        x = self._embed(tokens, p, positions=positions)
+        if kv_caches is not None and not c.causal:
+            raise ValueError("KV-cache decode requires a causal model")
+        x = self._embed(tokens, p, positions=positions,
+                        token_type_ids=token_type_ids)
         angles = rope_frequencies(c.rotary_dim, c.max_seq_len, c.rope_theta,
                                   device=x.device) \
             if c.position == "rope" else None
         if kv_caches is None:
-            x = self._encode(p, x, angles, positions)
+            x = self._encode(p, x, angles, positions, attn_mask=attn_mask)
         else:
             x = self._cached_layers(p, x, angles, positions, kv_caches,
                                     cache_pos)
@@ -593,20 +622,29 @@ class Transformer(nn.Module):
     def _block(self, x: torch.Tensor, lp: Mapping[str, torch.Tensor],
                angles: Optional[torch.Tensor], positions=None,
                window: int = 0, kv_cache=None,
-               varying: bool = False) -> torch.Tensor:
-        """One pre-norm decoder layer. x: [b, s, d]; ``lp`` maps the leaf
-        names of :func:`layer_leaves` to this layer's weights. With
-        ``kv_cache`` = (k cache, v cache, cache_pos), this step's K/V are
-        written into the caches in place and attention runs over them.
-        ``window`` (0 = global) bands this layer's attention; ``varying``
-        says the layers' windows differ, which takes the plain attention
-        in the dense path (the JAX masked branch)."""
+               varying: bool = False,
+               attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One layer, pre-norm or post-norm (``prenorm=False``: the branch
+        reads x and the norm follows each residual add). x: [b, s, d];
+        ``lp`` maps the leaf names of :func:`layer_leaves` to this layer's
+        weights. With ``kv_cache`` = (k cache, v cache, cache_pos), this
+        step's K/V are written into the caches in place and attention runs
+        over them. ``window`` (0 = global) bands this layer's attention;
+        ``varying`` says the layers' windows differ, which takes the plain
+        attention in the dense path (the JAX masked branch).
+        ``attn_mask`` [b, s] (1 = attend) masks a bidirectional layer's
+        padded keys."""
         c = self.config
         hd = c.head_dim
         b, s, _ = x.shape
+        if attn_mask is not None and c.causal:
+            raise NotImplementedError(
+                "attn_mask with a causal model is not supported (padding "
+                "masks are an encoder feature; causal batches should pack "
+                "or left-trim instead)")
         # this rank's heads (all of them without tensor parallelism)
         hq, hkv = c.n_heads // self._tp_size, c.n_kv_heads // self._tp_size
-        h = self._norm(x, lp, "attn_norm")
+        h = self._norm(x, lp, "attn_norm") if c.prenorm else x
         q, kk, vv = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
         if c.qkv_bias:
             q, kk, vv = q + lp["bq"], kk + lp["bk"], vv + lp["bv"]
@@ -640,11 +678,16 @@ class Transformer(nn.Module):
             # override and no window
             attn = dot_product_attention(
                 q, kk, vv, causal=True, bias=self._alibi_bias(s, x.device))
+        elif attn_mask is not None:
+            # encoder padding: the padded keys are masked for every query
+            attn = dot_product_attention(
+                q, kk, vv, causal=False,
+                mask=attn_mask.bool()[:, None, None, :], scale=c.attn_scale)
         elif varying or not c.use_flash:
-            attn = dot_product_attention(q, kk, vv, causal=True,
+            attn = dot_product_attention(q, kk, vv, causal=c.causal,
                                          scale=c.attn_scale, window=window)
         else:
-            attn = flash_attention(q, kk, vv, causal=True,
+            attn = flash_attention(q, kk, vv, causal=c.causal,
                                    scale=c.attn_scale, window=window)
         attn = self._row_parallel(attn.reshape(b, s, hq * hd), lp["wo"])
         if c.attn_o_bias:
@@ -652,14 +695,19 @@ class Transformer(nn.Module):
         if c.parallel_residual:
             # GPT-J / GPT-NeoX: both branches read the same input x
             return x + attn + self._mlp(self._norm(x, lp, "mlp_norm"), lp)
+        if not c.prenorm:
+            x = self._norm(x + attn, lp, "attn_norm")
+            return self._norm(x + self._mlp(x, lp), lp, "mlp_norm")
         x = x + attn
         return x + self._mlp(self._norm(x, lp, "mlp_norm"), lp)
 
     def _encode(self, p: Mapping[str, torch.Tensor], x: torch.Tensor,
-                angles: Optional[torch.Tensor], positions=None
-                ) -> torch.Tensor:
-        """The layer stack over embedded inputs x: [b, s, d]. With
-        ``remat`` (and autograd recording), each layer runs under
+                angles: Optional[torch.Tensor] = None, positions=None,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The layer stack over embedded inputs x: [b, s, d], shared by
+        the token path (:meth:`apply`) and towers that embed something
+        else (CLIP's patches). With ``remat`` (and autograd recording),
+        each layer runs under
         :func:`~deepspeed_tpu_torch.runtime.activation_checkpointing.checkpoint_wrapper`
         with ``remat_policy``: only its input is kept, and the backward
         pass runs it again."""
@@ -669,7 +717,8 @@ class Transformer(nn.Module):
 
         def block(x, window, *leaves):
             return self._block(x, dict(zip(names, leaves)), angles,
-                               positions, window, varying=varying)
+                               positions, window, varying=varying,
+                               attn_mask=attn_mask)
 
         if c.remat and torch.is_grad_enabled():
             block = checkpoint_wrapper(block, policy=c.remat_policy)
@@ -682,12 +731,18 @@ class Transformer(nn.Module):
         """(inputs, targets, mask) for next-token CE. batch:
         {"input_ids": [b, s]} with optional "labels" (shifted internally
         when absent) and "loss_mask". The shift keeps the full length and
-        masks the last position instead of slicing."""
+        masks the last position instead of slicing. A bidirectional model
+        needs explicit "labels" (MLM)."""
         tokens = batch["input_ids"]
         if "labels" in batch:
             mask = batch.get("loss_mask")
             return tokens, batch["labels"], (None if mask is None
                                               else mask.float())
+        if not self.config.causal:
+            raise ValueError(
+                "bidirectional (causal=False) models require explicit "
+                "'labels' (+ 'loss_mask') in the batch — next-token "
+                "prediction is not a valid encoder objective")
         targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         last_off = torch.ones(tokens.shape, dtype=torch.float32,
                               device=tokens.device)
@@ -719,18 +774,28 @@ class Transformer(nn.Module):
 
     def loss(self, batch: Mapping[str, Any],
              params: Optional[Params] = None) -> torch.Tensor:
-        """Next-token cross entropy (+ z-loss), a 0-dim fp32 tensor. With
-        ``loss_chunk_size`` > 0 the head and CE run over token chunks, each
-        recomputed in the backward pass, so the full fp32 logits never
-        exist at once."""
+        """Next-token (or masked-LM, through explicit labels) cross
+        entropy (+ z-loss), a 0-dim fp32 tensor. An encoder's batch may
+        carry "attention_mask" (padding) and "token_type_ids" (segments);
+        only encoder configs read them, so a decoder's all-ones
+        "attention_mask" does not trip the causal model's mask refusal.
+        With ``loss_chunk_size`` > 0 the head and CE run over token
+        chunks, each recomputed in the backward pass, so the full fp32
+        logits never exist at once."""
         p = self._params(params)
+        c = self.config
         inputs, targets, mask = self._targets_from_batch(batch)
-        cs = self.config.loss_chunk_size
+        fwd = {}
+        if not c.causal and "attention_mask" in batch:
+            fwd["attn_mask"] = batch["attention_mask"]
+        if c.type_vocab_size > 0 and "token_type_ids" in batch:
+            fwd["token_type_ids"] = batch["token_type_ids"]
+        cs = c.loss_chunk_size
         if cs > 0:
-            x = self.apply(inputs, return_hidden=True, params=p)
+            x = self.apply(inputs, return_hidden=True, params=p, **fwd)
             nll_sum, denom, z_sum = self._ce_chunked(p, x, targets, mask, cs)
         else:
-            logits = self.apply(inputs, params=p)
+            logits = self.apply(inputs, params=p, **fwd)
             nll_sum, denom, z_sum = self._ce_terms(logits, targets, mask)
         denom = torch.clamp(denom, min=1.0)
         loss = nll_sum / denom
@@ -763,9 +828,11 @@ class Transformer(nn.Module):
     # ------------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor,
                params: Optional[Mapping[str, torch.Tensor]] = None,
-               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Token (+ learned position, + embedding LayerNorm) embedding:
-        [..., s] -> [..., s, d] in the compute dtype
+               positions: Optional[torch.Tensor] = None,
+               token_type_ids: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """Token (+ learned position, + segment, + embedding LayerNorm)
+        embedding: [..., s] -> [..., s, d] in the compute dtype
         (``params.compute_dtype`` where the mapping has one, so that no
         layer leaf is read for it; else the dtype of ``wq``). Learned
         positions are ``positions`` (default ``0..s-1``), clamped to the
@@ -797,6 +864,12 @@ class Transformer(nn.Module):
                 pos = F.embedding(positions.long().clamp(
                     0, c.max_seq_len - 1), pos_table)
             x = x + pos.to(dtype)
+        if c.type_vocab_size > 0:
+            # BERT: the embedding norm below takes the sum of word,
+            # position and segment embeddings
+            tt = torch.zeros_like(tokens) if token_type_ids is None \
+                else token_type_ids
+            x = x + F.embedding(tt.long(), p["type_embed"]).to(dtype)
         if c.embed_norm:
             x = layer_norm(x, p["embed_norm_w"], p["embed_norm_b"],
                            c.norm_eps)
@@ -849,17 +922,44 @@ class Transformer(nn.Module):
     def _head(self, x: torch.Tensor,
               params: Optional[Mapping[str, torch.Tensor]] = None
               ) -> torch.Tensor:
-        """Final norm + LM head (``tok_embed.T`` when tied), then
-        ``logits_softcap``: [..., d] -> fp32 logits [..., vocab]. Under
-        tensor parallelism each rank computes its vocab columns and the
-        group gathers them in rank order."""
+        """Final norm (pre-LN models) + LM head (``tok_embed.T`` when
+        tied), then ``logits_softcap``: [..., d] -> fp32 logits [...,
+        vocab]. With ``mlm_head``, BERT's transform (dense, the FFN's
+        activation, LayerNorm) runs before the tied decoder and a vocab
+        bias after it. Under tensor parallelism each rank computes its
+        vocab columns and the group gathers them in rank order."""
         p = self._params(params)
         c = self.config
-        x = self._norm(x, p, "final_norm")
+        if c.prenorm:
+            x = self._norm(x, p, "final_norm")
+        if c.mlm_head:
+            x = x @ p["mlm_dense_w"].to(x.dtype) + p["mlm_dense_b"].to(x.dtype)
+            # HF's BertPredictionHeadTransform reuses the FFN's activation
+            if c.activation == "relu":
+                x = F.relu(x)
+            else:
+                x = F.gelu(x, approximate="none" if c.activation ==
+                           "gelu_exact" else "tanh")
+            x = layer_norm(x, p["mlm_norm_w"], p["mlm_norm_b"], c.norm_eps)
         w_out = p["tok_embed"].T if c.tie_embeddings else p["lm_head"]
         logits = (x @ w_out.to(x.dtype)).float()
+        if c.mlm_head:
+            logits = logits + p["mlm_bias"].float()
         if self._tp_size > 1:
             logits = comm.all_gather_columns(logits, self._group(), "model")
         if c.logits_softcap > 0:
             logits = torch.tanh(logits / c.logits_softcap) * c.logits_softcap
         return logits
+
+    def pooled(self, hidden: torch.Tensor,
+               params: Optional[Mapping[str, torch.Tensor]] = None
+               ) -> torch.Tensor:
+        """BERT's pooler: tanh of a dense layer on the first (``[CLS]``)
+        position of the final hidden states ``[b, s, d]`` (from
+        ``apply(..., return_hidden=True)``) -> ``[b, d]``."""
+        if not self.config.pooler:
+            raise ValueError("model config has pooler=False")
+        p = self._params(params)
+        cls = hidden[:, 0]
+        return torch.tanh(cls @ p["pooler_w"].to(cls.dtype)
+                          + p["pooler_b"].to(cls.dtype))

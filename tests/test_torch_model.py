@@ -142,15 +142,19 @@ def test_init_is_seeded():
     ("model", dict(pooler=True)), ("initialize", dict(norm="layer")),
     ("tensor_parallel", dict(use_bias=True))])
 def test_other_flags_raise(where, flag):
-    """The decoder flags are ported (tests/test_torch_families.py holds
-    them to JAX); what still raises: the encoder flags, training a
+    """Every flag of the model core is ported (tests/test_torch_families.py
+    and tests/test_torch_encoders.py hold them to JAX); what still raises:
+    a model with an encoder flag in the ragged engine (``causal=False``,
+    ``prenorm=False``: C7) or in training (the others), training a
     non-Llama flag set, and a non-Llama flag set over a model axis."""
-    if where == "model":
-        with pytest.raises(NotImplementedError, match="encoder part"):
-            Llama("tiny", device="cpu", **{**TINY, **flag})
-        return
     model = Llama("tiny", device="cpu", **{**TINY, **flag})
-    if where == "initialize":
+    if where == "model" and {"causal", "prenorm"} & set(flag):
+        with pytest.raises(NotImplementedError, match="C7"):
+            RaggedInferenceEngine(model, RaggedConfig(
+                token_budget=8, max_seqs=2, kv_block_size=4, n_kv_blocks=8,
+                max_context=32), device="cpu")
+        return
+    if where in ("model", "initialize"):
         import deepspeed_tpu_torch
 
         with pytest.raises(NotImplementedError, match="training part"):
