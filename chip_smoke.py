@@ -195,6 +195,21 @@ CPU path — without a CUDA device the script fails):
    with its flash launches counted from 0 (12 causal at 77 + 24
    non-causal at 257), images/s and texts/s, peak memory, row 2 at the
    text and vision towers' layer-0 calls as in (a);
+6i. MoE: DeepSpeed-MoE's 350M+MoE-128 (24 layers, d 1024, 128 experts
+   top-2 a layer, 25.9e9 parameters, seeded bf16 weights): (a) behind
+   ``ServingEngine`` over ``RaggedInferenceEngine`` (2048 16-token pages,
+   ``max_context`` 2048) as phase 5 serves Llama-2-7B, paged launches
+   counted from 0 (one a layer a put, tile items in the prefill puts),
+   TTFT, tokens/s, peak memory, then a 512-lane prefill put, a decode put
+   and one profiled decode put (idle share, launches); (b) layer 0's
+   expert FFN of those two puts: the grouped-GEMM route against the
+   per-group loop on the same rows and routing, experts hit, both timed
+   beside the bound; (c) ``init_inference`` bf16 then int8 weights (group
+   256): path A's prompts, quantize / dequantize launches against the
+   leaf set's count (expert banks and ``wg`` included), ``param_bytes``,
+   tokens/s, logits cosine and expert agreement against bf16; (d) a
+   2-layer full-width model (32 experts) in fp32, cuda against cpu:
+   logits within 1e-3, expert flips reported with their gate-logit gaps;
 6a. inference: ``init_inference(Llama("7b"))`` with int8 weights at group
    256 (path A), then bf16 and int4 weights: 4 prompts of 128 tokens, 32
    new tokens greedy; weight bytes, memory, prefill and decode times,
@@ -1253,13 +1268,15 @@ def phase_inference_parity() -> None:
 # ---------------------------------------------------------------- phase 5
 def phase_serving(card: str, model=None, kv_quant: str = "none",
                   name: str = "Llama-2-7B", max_context: int = 4096,
-                  max_prompt: int = 1536) -> tuple:
+                  max_prompt: int = 1536, pages: Optional[int] = None,
+                  tag: Optional[str] = None) -> tuple:
     """Llama-2-7B (or ``model``, called ``name``), full width and depth,
     bf16, seeded random weights, behind ServingEngine (FCFS): 8 requests
     of 64-``max_prompt`` prompt tokens drawn from the model's vocabulary,
     32 new tokens each, over a bf16 pool of phase 5's bytes (2048 pages of
-    Llama-2-7B) or, with ``kv_quant``, an int8/int4 pool of the same bytes
-    (path B). ``model`` reuses an earlier phase's weights. Returns (the
+    Llama-2-7B; ``pages`` pages where given) or, with ``kv_quant``, an
+    int8/int4 pool of the same bytes (path B). ``model`` reuses an earlier
+    phase's weights; ``tag`` prefixes the log lines. Returns (the
     paged-attention launches of the run, the engine, the prompts) for the
     profile phase."""
     import deepspeed_tpu_torch.inference.ragged as ragged_mod
@@ -1280,17 +1297,19 @@ def phase_serving(card: str, model=None, kv_quant: str = "none",
     shape = dict(token_budget=512, max_seqs=16, kv_block_size=16,
                  max_context=max_context, dtype=torch.bfloat16,
                  kv_quant=kv_quant)
-    pages = kv_blocks_for_bytes(FP_POOL_BYTES, model.config,
-                                RaggedConfig(**shape))
+    if pages is None:
+        pages = kv_blocks_for_bytes(FP_POOL_BYTES, model.config,
+                                    RaggedConfig(**shape))
     cfg = RaggedConfig(n_kv_blocks=pages, **shape)
     eng = RaggedInferenceEngine(model, cfg)
     torch.cuda.synchronize()
     pool_bytes = sum(t.numel() * t.element_size()
                      for leaves in eng.kv_pool for t in leaves)
     counter = PAGED_COUNTER[kv_quant]
-    tag = "serving" if kv_quant == "none" else f"serving {kv_quant}"
-    if name != "Llama-2-7B":
-        tag = f"families: serving {name}"
+    if tag is None:
+        tag = "serving" if kv_quant == "none" else f"serving {kv_quant}"
+        if name != "Llama-2-7B":
+            tag = f"families: serving {name}"
     log(f"{tag}: {name} {n_params} params bf16, kv_quant={kv_quant} "
         f"pool {cfg.n_kv_blocks}x{cfg.kv_block_size} pages, {pool_bytes} B "
         f"(budget {FP_POOL_BYTES} B), built in "
@@ -4477,6 +4496,398 @@ def phase_encoders(card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 6i
+MOE_PRESET = ("350m", 128)        # DeepSpeed-MoE's 350M+MoE-128
+MOE_PAGES = 2048                  # (a): 16-token bf16 pages, 3.22 GB
+MOE_CONTEXT = 2048                # the preset's max_seq_len
+MOE_QUANT = {"enabled": True, "bits": 8, "group_size": 256}
+MOE_PARITY = {"n_layers": 2}      # (d): full width, 32 experts, fp32
+MOE_PARITY_EXPERTS = 32
+MOE_CPU_ABS = 1e-3                # (d): fp32 cuda vs cpu, as phase 4
+MOE_FFN_TIMED = 10                # (b): timed calls of each route
+
+
+def _moe_choices(model, sink: list):
+    """Make ``model``'s expert bank append each call's top-k expert ids
+    ``[tokens, k]`` and fp32 gate logits (host copies) to ``sink``,
+    routed as ``MoELayer.apply``'s eval route routes them; returns the
+    undo."""
+    layer = model.moe
+    real = layer.apply
+
+    def recording(params, x, generator=None, training=True):
+        logits = (x.float() @ params["wg"].float()).reshape(-1, params[
+            "wg"].shape[1])
+        topi = torch.topk(torch.softmax(logits, dim=-1),
+                          layer.gate.top_k, dim=-1).indices
+        sink.append((topi.cpu(), logits.cpu()))
+        return real(params, x, generator, training)
+
+    layer.apply = recording
+    return lambda: layer.__dict__.pop("apply", None)
+
+
+def _same_experts(a: list, b: list) -> tuple:
+    """(share of (layer, token) whose top-k expert sets agree, each
+    layer's share)."""
+    per = []
+    for (ta, _), (tb, _) in zip(a, b):
+        sa, sb = ta.sort(-1).values, tb.sort(-1).values
+        per.append(float((sa == sb).all(-1).float().mean()))
+    return sum(per) / max(len(per), 1), per
+
+
+def _moe_ffn(model, h: torch.Tensor, tag: str, flush, card: str) -> dict:
+    """6i (b): layer 0's expert FFN on one put's input ``h`` ``[1, T, d]``
+    (padding lanes included, as the engine runs them), routed once as the
+    eval route routes; the grouped route against the per-group loop on
+    the same rows and routing, each timed beside the bound: the larger of
+    the bytes of the experts hit plus the rows in and out at 3.35 TB/s
+    and 2 x pairs x d x f x 2 operations at 989 TFLOP/s."""
+    from deepspeed_tpu_torch.parallel import moe
+
+    c = model.config
+    blk = model.layers[0]
+    params = {k: blk[k] for k in model.moe.shapes()}
+    x = h.reshape(-1, c.d_model)
+    with torch.inference_mode():
+        probs = torch.softmax(x.float() @ params["wg"].float(), dim=-1)
+        topw, topi = torch.topk(probs, c.top_k, dim=-1)
+        topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+
+        def run(route):
+            return moe.no_drop_moe(x, topw, topi, params, c.activation, route)
+
+        grouped, loop = run("grouped"), run("loop")
+        again = run("grouped")
+        torch.cuda.synchronize()
+        ok, err, tol = check_half_or_fp32(grouped, loop)
+        ok = ok and bool(torch.equal(grouped, again))
+        t = {r: cuda_ms(lambda: run(r), MOE_FFN_TIMED, flush)
+             for r in ("grouped", "loop")}
+    hit = int(torch.unique(topi).numel())
+    pairs, d, f = topi.numel(), c.d_model, c.d_ff
+    wbytes = hit * 2 * d * f * x.element_size()
+    nbytes = wbytes + 2 * x.numel() * x.element_size()
+    ops = 2 * pairs * d * f * 2
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / 989e12) * 1e3
+    out = {"T": x.shape[0], "pairs": pairs, "experts_hit": hit,
+           "grouped_ms": t["grouped"], "loop_ms": t["loop"],
+           "bound_ms": bound_ms,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+           >= ops / 989e12 else "operations",
+           "bytes": nbytes, "max_abs_err": err}
+    log(f"moe (b) layer-0 FFN of a {tag} put [{card}]: T {x.shape[0]} rows "
+        f"({pairs} pairs), {hit} of {c.n_experts} experts hit; grouped "
+        f"route {t['grouped']:.4f} ms, per-group loop {t['loop']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({out['bound_by']}: {nbytes} B, {ops} "
+        f"operations); grouped vs loop max_abs_err {err:.3e} (tol {tol}), "
+        f"grouped twice bitwise {torch.equal(grouped, again)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"moe (b): the grouped route disagrees with the "
+                         f"loop at the {tag} put")
+    return out
+
+
+def _moe_puts(model, eng, card: str) -> dict:
+    """6i (b) and the profiled decode put: 16 sequences of 32 tokens in
+    one 512-lane prefill put, then decode puts of one token each; layer
+    0's FFN input of the prefill put and of a decode put is kept for
+    (b), and one decode put runs under ``torch.profiler`` (idle share,
+    launches, device time by group)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    c = model.config
+    rng = np.random.default_rng(16)
+    uids = list(range(30_000, 30_016))
+    prompts = [rng.integers(1, c.vocab_size, 32).tolist() for _ in uids]
+    kept = {}
+    real = model._mlp
+
+    def recording(h, lp, *a, **kw):
+        if "want" in kept and lp is model.layers[0]:
+            kept[kept.pop("want")] = h.detach().clone()
+        return real(h, lp, *a, **kw)
+
+    model._mlp = recording
+    try:
+        kept["want"] = "prefill"
+        logits = eng.put(uids, prompts)
+        if np.isnan(logits).any():
+            raise SystemExit("moe: the 16 prompts did not fit one put")
+        nxt = [[int(t)] for t in np.argmax(logits, -1)]
+        kept["want"] = "decode"
+        logits = eng.put(uids, nxt)
+    finally:
+        del model._mlp
+    nxt = [[int(t)] for t in np.argmax(logits, -1)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.put(uids, nxt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.flush(uids)
+    total_us, groups, kernels = _device_groups(
+        prof, {"paged_attention": ("paged_",),
+               "grouped_mm": ("group",),
+               "gemm": ("nvjet", "gemm", "xmma", "cutlass", "cublas")})
+    n_launch = sum(e.count for e in kernels)
+    if total_us <= 0:
+        log(f"moe (a) profile [{card}]: torch.profiler recorded no device "
+            f"time: breakdown not measured")
+    else:
+        log(f"moe (a) profile of a 16-lane decode put [{card}]: wall "
+            f"{wall * 1e3:.3f} ms, {n_launch} kernel launches, device busy "
+            f"{total_us / 1e3:.3f} ms, idle share "
+            f"{max(0.0, 1 - total_us / 1e6 / wall):.3f}; device time "
+            + ", ".join(f"{g} {us / 1e3:.3f} ms ({us / total_us:.1%})"
+                        for g, us in groups.items()))
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"moe (a) profile: {e.self_device_time_total / 1e3:9.3f} ms "
+                f"x{e.count:<5d} {e.key[:110]}")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = {tag: _moe_ffn(model, kept[tag], tag, flush, card)
+           for tag in ("decode", "prefill")}
+    del flush
+    out["profile"] = {"wall_ms": wall * 1e3, "launches": n_launch,
+                      "busy_ms": total_us / 1e3}
+    return out
+
+
+def _moe_quantized_leaves(model, block: int) -> tuple:
+    """(leaves the JAX rule quantizes, dequantizes a forward): every
+    floating leaf of two or more dimensions on the JAX stacked shape
+    whose stacked size divides by ``block``; a forward reads each once,
+    the tied ``tok_embed`` twice (embedding and head)."""
+    n = model.config.n_layers
+    names = []
+    for name, p in model.named_parameters():
+        stacked = name.startswith("layers.")
+        if p.dim() + stacked >= 2 and (
+                (n if stacked else 1) * p.numel()) % block == 0:
+            names.append(name)
+    per_fwd = len(names) + (model.config.tie_embeddings
+                            and "tok_embed" in names)
+    return names, per_fwd
+
+
+def _moe_v1(model, card: str) -> dict:
+    """6i (c): ``init_inference`` of the same model, bf16 then int8
+    weights at group 256, phase 6a's 4 x 128-token prompts, 32 new tokens
+    greedy. The bf16 engine casts nothing (the weights are bf16 already);
+    the int8 engine is built from the model itself, so it empties the
+    model's leaves as it quantizes them. The quantize count is set to 0
+    just before the int8 build, the dequantize count read around its
+    32-token generate, both against the leaf set's count. Layer 0's
+    leaves and ``tok_embed`` are copied to the host before the int8
+    build: their payloads and scales must be bitwise the plain quantize's
+    of the bf16 leaves, their dequantized weights bitwise the plain
+    dequantize's. The last position's logits and every layer's expert
+    choices of a forward over the 4 prompts are compared between the two
+    and reported: a bank's quantization noise moves gate logits enough to
+    flip near-tied experts, and a flip changes a token's whole FFN
+    output, so no cosine bound is set."""
+    import deepspeed_tpu_torch
+
+    c = model.config
+    ids = np.random.default_rng(8).integers(1, c.vocab_size, (4, 128))
+    names, per_fwd = _moe_quantized_leaves(model, MOE_QUANT["group_size"])
+    out, logits, choices = {}, {}, {}
+    for mode in ("bf16", "int8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = {"dtype": "bfloat16", "temperature": 0.0}
+        if mode == "int8":
+            cfg["quant"] = MOE_QUANT
+            kept = {n: p.detach().cpu() for n, p in model.named_parameters()
+                    if n.startswith("layers.0.") or n == "tok_embed"}
+            for wrapper, *_ in QUANT_KERNELS.values():
+                wrapper.launches = 0
+        t0 = time.perf_counter()
+        q0 = qk.quantize_blockwise.launches
+        eng = deepspeed_tpu_torch.init_inference(model, cfg)
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        n_quant = qk.quantize_blockwise.launches - q0
+        eng.generate(ids, max_new_tokens=2)                  # warm-up
+        torch.cuda.synchronize()
+        d0 = qk.dequantize_blockwise.launches
+        t1 = time.perf_counter()
+        toks = eng.generate(ids, max_new_tokens=32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        n_deq = qk.dequantize_blockwise.launches - d0
+        if mode == "int8":
+            out["launches"] = {n: w.launches
+                               for n, (w, *_) in QUANT_KERNELS.items()}
+        sink = []
+        undo = _moe_choices(model, sink)
+        try:
+            full = eng.forward(ids)
+        finally:
+            undo()
+        logits[mode] = full[:, -1].float().cpu().numpy()
+        choices[mode] = sink
+        del full
+        ok = (toks.shape == (4, 160)
+              and ((toks >= 0) & (toks < c.vocab_size)).all()
+              and np.isfinite(logits[mode]).all()
+              and len(sink) == c.n_layers)
+        if mode == "int8":
+            ok = ok and (sorted(eng._wq_shapes) == sorted(names)
+                         and n_quant == len(names)
+                         and n_deq == 32 * per_fwd)
+            block = MOE_QUANT["group_size"]
+            same_q = same_w = True
+            for n, host in kept.items():
+                rq, rs = qk.quantize_blockwise_reference(
+                    host.to("cuda").contiguous(), 8, block)
+                same_q &= bool(torch.equal(eng.params[n]["__wq__"], rq)
+                               and torch.equal(eng.params[n]["s"], rs))
+                same_w &= bool(torch.equal(
+                    eng._leaf(n), qk.dequantize_blockwise_reference(
+                        rq, rs, block, torch.bfloat16)
+                    .reshape(host.shape)))
+                del rq, rs
+            ok = ok and same_q and same_w
+            log(f"moe (c) v1 int8: layer 0's {len(kept) - 1} leaves and "
+                f"tok_embed: payloads and scales bitwise the plain "
+                f"quantize's {same_q}, dequantized weights bitwise the "
+                f"plain dequantize's {same_w}")
+            del kept
+            log(f"moe (c) v1 int8: {n_quant} quantize launches at the build "
+                f"({len(names)} leaves by the JAX rule on the stacked "
+                f"shapes: {len(names) - 2} layer leaves, expert banks and "
+                f"wg included, + pos_embed + tok_embed), {n_deq} dequantize "
+                f"launches in the 32-token generate ({per_fwd} a forward, "
+                f"the tied table twice; worked out {32 * per_fwd}); "
+                f"param_bytes {eng.param_bytes()}")
+        else:
+            ok = ok and n_quant == 0 and n_deq == 0
+            out["bf16_param_bytes"] = eng.param_bytes()
+        log(f"moe (c) v1 {mode} [{card}]: built in {built_s:.1f} s; 4 x "
+            f"128-token prompts, 32 new tokens in {wall:.4f} s = "
+            f"{4 * 32 / wall:.1f} tokens/s; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} B {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"moe (c): v1 {mode} failed")
+        out[f"{mode}_tokens_per_s"] = 4 * 32 / wall
+        out[f"{mode}_param_bytes"] = eng.param_bytes()
+        del eng
+    a, b = logits["int8"], logits["bf16"]
+    cos = float((a * b).sum() / np.linalg.norm(a) / np.linalg.norm(b))
+    same, per_layer = _same_experts(choices["int8"], choices["bf16"])
+    out.update(cosine=cos, same_experts=same, same_by_layer=per_layer)
+    log(f"moe (c) int8 vs bf16 weights: last-position logits cosine "
+        f"{cos:.5f}, same argmax {(a.argmax(-1) == b.argmax(-1)).mean():.2f}; "
+        f"same top-{c.top_k} experts at {same:.4f} of the {c.n_layers} "
+        f"layers x {ids.size} tokens; by layer "
+        + " ".join(f"{x:.3f}" for x in per_layer)
+        + " (a flip changes a token's FFN output, and the layers after "
+          "it see another input)")
+    return out
+
+
+def _moe_cpu_parity(card: str) -> dict:
+    """6i (d): a 2-layer model at full width (d 1024, f 4096, 32 experts,
+    top-2) in fp32, the same weights on cuda (the grouped route) and cpu
+    (the loop): logits within 1e-3; expert choices identical, or each
+    flip's gate-logit gap reported."""
+    import copy
+
+    from deepspeed_tpu_torch.models.moe import MoETransformer, gpt_moe_config
+
+    cfg = gpt_moe_config(MOE_PRESET[0], MOE_PARITY_EXPERTS, **MOE_PARITY)
+    cpu = MoETransformer(cfg, device="cpu", seed=5)
+    dev = copy.deepcopy(cpu).to("cuda")
+    ids = np.random.default_rng(17).integers(1, cfg.vocab_size, (2, 64))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = {}
+    try:
+        for name, m in (("cuda", dev), ("cpu", cpu)):
+            sink = []
+            undo = _moe_choices(m, sink)
+            try:
+                with torch.inference_mode():
+                    got[name] = (m.apply(torch.from_numpy(ids).to(m.device))
+                                 .cpu(), sink)
+            finally:
+                undo()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lg, cg), (lc, cc) = got["cuda"], got["cpu"]
+    err = float((lg - lc).abs().max())
+    flips = []
+    for li, ((ti, _), (tc, logit)) in enumerate(zip(cg, cc)):
+        bad = (ti.sort(-1).values != tc.sort(-1).values).any(-1)
+        for tok in bad.nonzero().flatten().tolist():
+            top = logit[tok].topk(cfg.top_k + 1).values
+            flips.append((li, tok, float(top[-2] - top[-1])))
+    ok = err <= MOE_CPU_ABS and bool(torch.isfinite(lg).all())
+    log(f"moe (d) 2-layer d {cfg.d_model} f {cfg.d_ff} x "
+        f"{cfg.n_experts} experts top-{cfg.top_k} fp32, cuda (grouped) vs "
+        f"cpu (loop) [{card}]: logits max_abs_err {err:.3e} (tol "
+        f"{MOE_CPU_ABS}); expert flips {len(flips)} of "
+        f"{cfg.n_layers * ids.size} (layer, token)"
+        + "".join(f"; layer {li} token {t}: gate-logit gap {g:.3e}"
+                  for li, t, g in flips) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("moe (d): cuda and cpu disagree")
+    return {"max_abs_err": err, "flips": len(flips)}
+
+
+def phase_moe(card: str) -> dict:
+    """6i: DeepSpeed-MoE's 350M+MoE-128 (24 layers, d 1024, 16 heads of
+    64, d_ff 4096, 128 experts top-2, GELU, LayerNorm, learned positions,
+    tied head; 25.9e9 parameters, seeded bf16 weights) on one card. (a)
+    behind ``ServingEngine`` over ``RaggedInferenceEngine`` as phase 5
+    serves Llama-2-7B (8 requests, 32 new tokens, 2048 16-token pages,
+    ``max_context`` 2048, paged launches counted from 0: one a layer a
+    put, tile items in the prefill puts), then a 512-lane prefill put, a
+    decode put and one profiled decode put; (b) layer 0's expert FFN of
+    those two puts, the grouped route against the loop, timed; (c)
+    ``init_inference`` bf16 and int8; (d) a 2-layer full-width model in
+    fp32, cuda against cpu."""
+    from deepspeed_tpu_torch.models.moe import GPTMoE
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPTMoE(*MOE_PRESET, dtype=torch.bfloat16, seed=0)
+    c = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"moe: GPT-MoE {MOE_PRESET[0]} x {MOE_PRESET[1]} experts "
+        f"top-{c.top_k}: {n_params} parameters (param_count "
+        f"{c.param_count()}, active a token {c.active_param_count()}), "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    if n_params != c.param_count():
+        raise SystemExit("moe: the model's leaves do not add up to "
+                         "param_count")
+    paths, eng, _ = phase_serving(card, model, name="GPT-MoE 350M+MoE-128",
+                                  max_context=MOE_CONTEXT, pages=MOE_PAGES,
+                                  tag="moe (a) serving")
+    del paths["mixed"], paths["streams"]
+    out = {**paths, **_moe_puts(model, eng, card)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["v1"] = _moe_v1(model, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cpu"] = _moe_cpu_parity(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"moe: phase 6i in {out['seconds']:.1f} s")
+    return out
+
+
 def _device_events(prof) -> list:
     """A profile's device work, its CUDA kernels and memcpys, by name. A
     ``record_function`` range (``gloo:recv``, ``gloo:send``) is mirrored
@@ -6164,6 +6575,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     fam = phase_families(dev["card"])
     enc = phase_encoders(dev["card"])
+    moe = phase_moe(dev["card"])
     quant_launches = phase_inference(dev["card"])
     phase_trainer_parity()
     engine, batch, flash_launches, flash_wgmma = phase_training(dev["card"])
@@ -6197,6 +6609,8 @@ def main() -> int:
                 **{f"{key}_{n}": fam[name][n] for key, name in FAMILY_KEYS
                    for n in ("launches", "tile_launches",
                              "split_launches")},
+                **{f"moe_{n}": moe[n] for n in ("launches", "tile_launches",
+                                                "split_launches")},
                 "max_abs_err": kern["max_abs_err"],
                 "ms": d["ms"], "kernel_ms": d["ms"],
                 "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
@@ -6266,6 +6680,7 @@ def main() -> int:
             "library_ms": None, "parity": "bitwise",
             "opt_launches": fam["v1"]["launches"][name],
             "bert_launches": enc["bert"]["int8_launches"][name],
+            "moe_launches": moe["v1"]["launches"][name],
             "shape": "4096x11008_bf16_int8_block256", "card": dev["card"]})
     for name, (_, replaces) in FUSED_KERNELS.items():
         t = fused_t[name]

@@ -12,12 +12,15 @@ decoder family of the JAX package (Llama, GPT-2, OPT, GPT-Neo and the
 GPT-J / Bloom flag sets) through the v1 inference engine (optionally with
 ZeRO-Inference int8/int4 weights), runs the encoders (BERT and DistilBERT
 MLM logits through the same engine's ``forward``, CLIP's two towers
-through ``models.clip.CLIP``), trains Llama on one device, and trains
+through ``models.clip.CLIP``), serves DeepSpeed-MoE's GPT-MoE
+(``models.moe.GPTMoE``: top-k routed expert banks on grouped GEMMs)
+through both engines, trains Llama on one device, and trains
 a ``zero3_blocks`` model with ZeRO stage 3 over several ranks through the
 compressed-collective facade:
 
     from deepspeed_tpu_torch.models.gpt2 import GPT2, OPT, GPTNeo
     from deepspeed_tpu_torch.models.llama import Llama
+    from deepspeed_tpu_torch.models.moe import GPTMoE
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                       RaggedInferenceEngine)
     from deepspeed_tpu_torch.parallel.zero import SequentialBlockModel
@@ -36,6 +39,9 @@ compressed-collective facade:
         config={"dtype": "bfloat16", "temperature": 0.0,
                 "quant": {"enabled": True, "bits": 8, "group_size": 256}})
     out = engine.generate(ids, max_new_tokens=32)
+
+    moe = RaggedInferenceEngine(GPTMoE("350m", 128, dtype=torch.bfloat16),
+                                RaggedConfig(max_context=2048))
 
     from deepspeed_tpu_torch.models.bert import Bert
     mlm = deepspeed_tpu_torch.init_inference(
@@ -61,6 +67,8 @@ from typing import Any, Callable, Optional, Tuple
 from .comm.comm import init_distributed  # noqa: F401
 from .config import Config, ConfigError  # noqa: F401
 from .inference.engine import InferenceConfig, InferenceEngine
+from .models.moe import (GPTMoE, MoETransformer,  # noqa: F401
+                         MoETransformerConfig, gpt_moe_config)
 from .models.transformer import Transformer, non_llama_flags
 from .runtime.engine import TrainEngine
 
@@ -86,8 +94,16 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
     a path to a DeepSpeed-style JSON file. The dataloader
     (``training_data``) comes with a later slice, and so does training a
     model off the Llama flag set (GPT-2, OPT, GPT-Neo, ..., and the
-    encoders: BERT, DistilBERT, CLIP's towers)."""
+    encoders: BERT, DistilBERT, CLIP's towers) or any Mixture-of-Experts
+    model."""
     cfg = Config.from_any(config if config is not None else config_params)
+    if isinstance(model, MoETransformer):
+        # whatever its flags: a silu_glu / rms / rope MoE has the Llama set
+        raise NotImplementedError(
+            "training a Mixture-of-Experts model (its capacity route and "
+            "aux loss under TrainEngine) comes with a later slice "
+            "(ROADMAP.md, Queue A item 7, the training part); serve it "
+            "with init_inference or the ragged engine")
     bad = non_llama_flags(model.config) \
         if isinstance(model, Transformer) else []
     if bad:

@@ -5,11 +5,12 @@ Ports ``deepspeed_tpu/inference/engine.py`` on one device: greedy, sampled
 and beam-search ``generate`` and a raw-logits ``forward`` over a
 :class:`~deepspeed_tpu_torch.models.transformer.Transformer` of any
 flag set: ``generate`` through the KV-cache branch of its ``apply``
-(decoders: Llama, GPT-2, OPT, GPT-Neo, GPT-J and Bloom-style; an encoder
-raises there, as in the JAX package), ``forward`` through the dense
-branch (BERT / DistilBERT: the MLM logits). PyTorch runs eagerly, so prefill, decode
-and the beam step are plain method calls (jitted, donated programs in the
-JAX package); the cache is updated in place.
+(decoders: Llama, GPT-2, OPT, GPT-Neo, GPT-J and Bloom-style, GPT-MoE on
+its no-drop expert route; an encoder raises there, as in the JAX
+package), ``forward`` through the dense branch (BERT / DistilBERT: the
+MLM logits; a keyword argument raises, C8). PyTorch runs eagerly, so
+prefill, decode and the beam step are plain method calls (jitted,
+donated programs in the JAX package); the cache is updated in place.
 
 ZeRO-Inference (``quant: {"enabled": True, "bits": 8 | 4, "group_size":
 N}``): every floating weight whose JAX leaf has two or more dimensions is
@@ -20,7 +21,10 @@ to ``dtype``, so the scales are those of the cast values. The JAX package
 stacks layer leaves ``[n_layers, ...]``, so a layer's norm vectors and
 biases are 2-D there and are quantized too, as are ``pos_embed`` and the
 (tied) ``tok_embed``; only the top-level vectors (``final_norm_w`` / ``_b``,
-``embed_norm_w`` / ``_b``) stay as they are. int4
+``embed_norm_w`` / ``_b``) stay as they are. An MoE model's expert
+banks (``w_up`` / ``w_down`` / ``w_gate`` ``[E, ...]``, 4-D stacked) and
+its gate ``wg`` ``[d, E]`` are layer leaves like the rest: judged on the
+stacked shape, quantized per layer. int4
 payloads pack two offset-binary nibbles per byte, ``(q + 8)``, element 2k
 in the low nibble. Each forward dequantizes with the hand-written
 dequantize kernel one layer at a time, just before the layer runs (the JAX
@@ -535,11 +539,20 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def forward(self, input_ids, **kw) -> torch.Tensor:
-        """Raw fp32 logits [b, s, vocab] of ``input_ids`` [b, s]. Keyword
-        arguments are taken and dropped, as the JAX engine's ``forward``
-        drops them: an encoder's padded batch goes through
-        ``model.apply(..., attn_mask=...)`` in both packages."""
-        del kw
+        """Raw fp32 logits [b, s, vocab] of ``input_ids`` [b, s]. The JAX
+        engine's ``forward`` takes keyword arguments and drops them, so a
+        padded BERT batch attends over its padding and segment-B ids read
+        segment 0 (ROADMAP.md Queue C, C8); this one raises on any keyword
+        argument that is not None (``attn_mask``, ``token_type_ids``, ...).
+        A padded or two-segment batch goes through ``model.apply(...,
+        attn_mask=..., token_type_ids=...)``."""
+        given = sorted(k for k, v in kw.items() if v is not None)
+        if given:
+            raise NotImplementedError(
+                f"InferenceEngine.forward does not honour {given}: the JAX "
+                f"engine drops them silently (ROADMAP.md Queue C, C8); run "
+                f"a padded or segmented batch through model.apply(..., "
+                f"attn_mask=..., token_type_ids=...)")
         _, tokens = self._ids(input_ids)
         return self.model.apply(tokens, params=self._view)
 

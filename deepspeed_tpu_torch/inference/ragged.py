@@ -11,11 +11,14 @@ step's K/V into the paged pool → paged attention (the hand-written
 Hopper kernel, :mod:`deepspeed_tpu_torch.ops.paged_attention`) → o-proj
 (+ bias) → norm → the model's MLP. The head runs only on each sequence's
 last token. The other matrix products stay ``torch.matmul``. The Llama,
-GPT-2 and OPT flag sets run here; ALiBi, parallel residual and
-attention-scale overrides raise as in the JAX engine (the v1 engine
-serves them). Encoders (``causal=False`` or ``prenorm=False``) raise too:
-the JAX engine takes them and computes them causally and pre-normed
-(ROADMAP.md Queue C, C7).
+GPT-2 and OPT flag sets run here, and GPT-MoE: the MLP is the model's own
+``_mlp``, for an MoE model the no-drop expert route
+(:func:`~deepspeed_tpu_torch.parallel.moe.no_drop_moe`, one grouped GEMM
+a projection; it refuses tensor parallelism, items 6b and 13); ALiBi,
+parallel residual and attention-scale overrides raise as in the JAX
+engine (the v1 engine serves them). Encoders (``causal=False`` or
+``prenorm=False``) raise too: the JAX engine takes them and computes
+them causally and pre-normed (ROADMAP.md Queue C, C7).
 
 Quantized pools (``kv_quant`` ``"int8"`` / ``"int4"``): each K/V
 head-vector is quantized on its way into the pool
@@ -551,6 +554,10 @@ class RaggedInferenceEngine:
             raise ValueError(
                 f"n_kv_heads {c.n_kv_heads} not divisible by the model "
                 f"axis {tp} — TP serving shards the KV pool by head")
+        if tp > 1:
+            # the flag sets tensor parallelism does not take (MoE banks:
+            # items 6b and 13) raise here, before the pool is built
+            model._check_tp(tp)
         self.topo = topology
         self._tp = tp
         if cfg.max_context > c.max_seq_len:
@@ -2007,5 +2014,9 @@ class RaggedInferenceEngine:
             if c.attn_o_bias:
                 attn = attn + blk.bo
             x = x + attn
-            x = x + model._mlp(model._norm(x, blk, "mlp_norm"), blk)
+            # the model's own FFN over the lanes as one [1, T, d] row (an
+            # MoE model routes every lane, padding too, to its top-k
+            # experts: harmless, as in the JAX engine); its aux is dropped
+            down, _ = model._mlp(model._norm(x, blk, "mlp_norm")[None], blk)
+            x = x + down[0]
         return x

@@ -98,7 +98,7 @@ class CLIPVision(Transformer):
         cls = self.cls_embed.to(dtype).expand(b, 1, c.d_model)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dtype)
         x = layer_norm(x, self.embed_norm_w, self.embed_norm_b, c.norm_eps)
-        h = self._encode(dict(self.named_parameters()), x)
+        h, _ = self._encode(dict(self.named_parameters()), x)
         pooled = layer_norm(h[:, 0], self.final_norm_w, self.final_norm_b,
                             c.norm_eps)
         return h, pooled

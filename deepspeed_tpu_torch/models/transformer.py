@@ -23,6 +23,12 @@ layer leaves ``[n_layers, ...]``; here each layer is a :class:`Block` in
 implies (:func:`layer_leaves`, :func:`top_leaves`): a tied model has no
 ``lm_head``, a model without ``silu_glu`` no ``w_gate``.
 
+The FFN is :meth:`Transformer._mlp`, which returns ``(out, aux loss)``
+as the JAX package's does; an MoE model (:mod:`.moe`) overrides it with
+its routed expert bank, and the training flags of :meth:`apply`
+(``training``, ``generator``, ``return_aux``) reach it from
+:meth:`loss`.
+
 Three paths share the weights:
 
 * serving: the ragged engine (:mod:`deepspeed_tpu_torch.inference.ragged`)
@@ -221,23 +227,33 @@ class TransformerConfig:
         return 6.0 * self.param_count() \
             + 12.0 * self.d_model * self._attn_flop_len(seq_len)
 
+    def layer_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """One layer's leaves and their shapes (without the JAX stacked
+        layer dim), in the order the JAX package's ``init`` makes them
+        (the Llama set first); a config with other FFN leaves (MoE's
+        expert bank) overrides it."""
+        hd, d, f = self.head_dim, self.d_model, self.d_ff
+        qd, kvd = self.n_heads * hd, self.n_kv_heads * hd
+        s = {"attn_norm_w": (d,), "wq": (d, qd), "wk": (d, kvd),
+             "wv": (d, kvd), "wo": (qd, d), "mlp_norm_w": (d,)}
+        if self.activation == "silu_glu":
+            s["w_gate"] = (d, f)
+        s.update(w_up=(d, f), w_down=(f, d))
+        if self.norm == "layer":
+            s.update(attn_norm_b=(d,), mlp_norm_b=(d,))
+        if self.qkv_bias:
+            s.update(bq=(qd,), bk=(kvd,), bv=(kvd,))
+        if self.attn_o_bias:
+            s["bo"] = (d,)
+        if self.use_bias:
+            s.update(b_up=(f,), b_down=(d,))
+        return s
+
 
 def layer_leaves(c: TransformerConfig) -> Tuple[str, ...]:
-    """One layer's leaf names under ``c``, as the JAX package's ``init``
-    makes them (the Llama set first, in its order)."""
-    names = ["attn_norm_w", "wq", "wk", "wv", "wo", "mlp_norm_w"]
-    if c.activation == "silu_glu":
-        names.append("w_gate")
-    names += ["w_up", "w_down"]
-    if c.norm == "layer":
-        names += ["attn_norm_b", "mlp_norm_b"]
-    if c.qkv_bias:
-        names += ["bq", "bk", "bv"]
-    if c.attn_o_bias:
-        names.append("bo")
-    if c.use_bias:
-        names += ["b_up", "b_down"]
-    return tuple(names)
+    """One layer's leaf names under ``c`` (``c.layer_shapes()``'s keys),
+    as the JAX package's ``init`` makes them."""
+    return tuple(c.layer_shapes())
 
 
 def top_leaves(c: TransformerConfig) -> Tuple[str, ...]:
@@ -287,18 +303,9 @@ class Block(nn.Module):
 
     def __init__(self, c: TransformerConfig, device, dtype):
         super().__init__()
-        hd, d, f = c.head_dim, c.d_model, c.d_ff
-        shapes = {"attn_norm_w": (d,), "wq": (d, c.n_heads * hd),
-                  "wk": (d, c.n_kv_heads * hd), "wv": (d, c.n_kv_heads * hd),
-                  "wo": (c.n_heads * hd, d), "mlp_norm_w": (d,),
-                  "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d),
-                  "attn_norm_b": (d,), "mlp_norm_b": (d,),
-                  "bq": (c.n_heads * hd,), "bk": (c.n_kv_heads * hd,),
-                  "bv": (c.n_kv_heads * hd,), "bo": (d,), "b_up": (f,),
-                  "b_down": (d,)}
-        for name in layer_leaves(c):
+        for name, shape in c.layer_shapes().items():
             setattr(self, name, nn.Parameter(
-                torch.empty(shapes[name], device=device, dtype=dtype),
+                torch.empty(shape, device=device, dtype=dtype),
                 requires_grad=False))
 
     def __getitem__(self, name: str) -> torch.Tensor:
@@ -471,9 +478,9 @@ class Transformer(nn.Module):
         """Fill every weight in place from a ``torch.Generator`` seeded
         with ``seed``, with the JAX package's scheme: dense weights
         ~ N(0, 1/fan_in), ``wo`` ~ N(0, 1/(2 d n_layers)), ``w_down``
-        ~ N(0, 1/(2 d_ff n_layers)), embeddings (tokens, positions,
-        segments, CLIP's class token) ~ N(0, 0.02^2), norm weights 1,
-        biases 0.
+        ~ N(0, 1/(2 d_ff n_layers)) (:meth:`_leaf_std`), embeddings
+        (tokens, positions, segments, CLIP's class token) ~ N(0, 0.02^2),
+        norm weights 1, biases 0.
         (The two frameworks draw different numbers from one seed; tests
         carry JAX weights across instead.)"""
         c = self.config
@@ -483,19 +490,17 @@ class Transformer(nn.Module):
             w.copy_(torch.randn(w.shape, generator=gen, device=self.device,
                                 dtype=torch.float32).mul_(std))
 
-        n = c.n_layers
+        drawn = ("wq", "wk", "wv", "wg", "w_gate", "w_up", "wo", "w_down")
         for blk in self.layers:
             for name, w in blk.named_parameters():
                 if name.endswith("norm_w"):
                     w.fill_(1.0)
-                elif w.dim() == 1:
+                elif name not in drawn:
                     w.zero_()
-            for name in ("wq", "wk", "wv", "w_gate", "w_up"):
+            for name in drawn:
                 if hasattr(blk, name):
                     w = getattr(blk, name)
-                    normal_(w, 1.0 / math.sqrt(w.shape[0]))
-            normal_(blk.wo, 1.0 / math.sqrt(c.d_model * 2 * n))
-            normal_(blk.w_down, 1.0 / math.sqrt(c.d_ff * 2 * n))
+                    normal_(w, self._leaf_std(name, w))
         for name in self.top_shapes():
             w = getattr(self, name)
             if name in ("tok_embed", "pos_embed", "type_embed", "cls_embed"):
@@ -507,6 +512,15 @@ class Transformer(nn.Module):
             else:
                 w.zero_()
         return self
+
+    def _leaf_std(self, name: str, w: torch.Tensor) -> float:
+        """The init's standard deviation of the drawn layer leaf ``name``."""
+        c = self.config
+        if name == "wo":
+            return 1.0 / math.sqrt(c.d_model * 2 * c.n_layers)
+        if name == "w_down":
+            return 1.0 / math.sqrt(c.d_ff * 2 * c.n_layers)
+        return 1.0 / math.sqrt(w.shape[0])
 
     # ------------------------------------------------------------------
     def _params(self, params: Optional[Mapping[str, torch.Tensor]]
@@ -529,7 +543,9 @@ class Transformer(nn.Module):
               kv_caches=None, cache_pos: Optional[int] = None,
               last_token_only: bool = False,
               token_type_ids: Optional[torch.Tensor] = None,
-              attn_mask: Optional[torch.Tensor] = None):
+              attn_mask: Optional[torch.Tensor] = None,
+              training: bool = False, return_aux: bool = False,
+              generator: Optional[torch.Generator] = None):
         """Forward. tokens: [b, s] int -> fp32 logits [b, s, vocab], or the
         pre-head hidden states [b, s, d] with ``return_hidden``. ``params``
         (default: the module's own) maps the names of
@@ -549,7 +565,14 @@ class Transformer(nn.Module):
         Encoders: ``token_type_ids`` [b, s] are the segment ids (zeros
         when None and the config has ``type_embed``); ``attn_mask`` [b, s]
         (1 = attend) masks padded keys of a bidirectional model and
-        raises on a causal one. KV-cache decode needs a causal model."""
+        raises on a causal one. KV-cache decode needs a causal model.
+
+        ``training`` takes an MoE layer's capacity (drop) route, with
+        noise from ``generator`` under a noisy gate policy (each layer
+        draws from a generator seeded from it, so a remat replay draws
+        the same noise); ``return_aux`` returns ``(out, aux)`` with the
+        layers' summed aux loss (0.0 for a dense model) on the dense
+        path. The KV-cache path drops the aux, as the JAX one does."""
         p = self._params(params)
         c = self.config
         if kv_caches is not None and not c.causal:
@@ -559,15 +582,20 @@ class Transformer(nn.Module):
         angles = rope_frequencies(c.rotary_dim, c.max_seq_len, c.rope_theta,
                                   device=x.device) \
             if c.position == "rope" else None
+        aux = 0.0
         if kv_caches is None:
-            x = self._encode(p, x, angles, positions, attn_mask=attn_mask)
+            x, aux = self._encode(p, x, angles, positions,
+                                  attn_mask=attn_mask, training=training,
+                                  generator=generator)
         else:
             x = self._cached_layers(p, x, angles, positions, kv_caches,
                                     cache_pos)
         if last_token_only:
             x = x[:, -1:]
         out = x if return_hidden else self._head(x, p)
-        return out if kv_caches is None else (out, kv_caches)
+        if kv_caches is not None:
+            return out, kv_caches
+        return (out, aux) if return_aux else out
 
     def _cached_layers(self, p, x, angles, positions, kv_caches,
                        cache_pos: Optional[int]) -> torch.Tensor:
@@ -586,8 +614,8 @@ class Transformer(nn.Module):
         windows = c.attn_windows or (0,) * c.n_layers
         for i in range(c.n_layers):
             lp = {n: p[f"layers.{i}.{n}"] for n in names}
-            x = self._block(x, lp, angles, positions, window=windows[i],
-                            kv_cache=(ks[i], vs[i], int(cache_pos)))
+            x, _ = self._block(x, lp, angles, positions, window=windows[i],
+                               kv_cache=(ks[i], vs[i], int(cache_pos)))
         return x
 
     def _dense_windows(self, length: int) -> Tuple[Tuple[int, ...], bool]:
@@ -623,7 +651,9 @@ class Transformer(nn.Module):
                angles: Optional[torch.Tensor], positions=None,
                window: int = 0, kv_cache=None,
                varying: bool = False,
-               attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               attn_mask: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               training: bool = False) -> Tuple[torch.Tensor, Any]:
         """One layer, pre-norm or post-norm (``prenorm=False``: the branch
         reads x and the norm follows each residual add). x: [b, s, d];
         ``lp`` maps the leaf names of :func:`layer_leaves` to this layer's
@@ -633,7 +663,8 @@ class Transformer(nn.Module):
         ``varying`` says the layers' windows differ, which takes the plain
         attention in the dense path (the JAX masked branch).
         ``attn_mask`` [b, s] (1 = attend) masks a bidirectional layer's
-        padded keys."""
+        padded keys. Returns (x, the FFN's aux loss); ``generator`` and
+        ``training`` go to the FFN (:meth:`_mlp`)."""
         c = self.config
         hd = c.head_dim
         b, s, _ = x.shape
@@ -694,37 +725,58 @@ class Transformer(nn.Module):
             attn = attn + lp["bo"]
         if c.parallel_residual:
             # GPT-J / GPT-NeoX: both branches read the same input x
-            return x + attn + self._mlp(self._norm(x, lp, "mlp_norm"), lp)
+            down, aux = self._mlp(self._norm(x, lp, "mlp_norm"), lp,
+                                  generator, training)
+            return x + attn + down, aux
         if not c.prenorm:
             x = self._norm(x + attn, lp, "attn_norm")
-            return self._norm(x + self._mlp(x, lp), lp, "mlp_norm")
+            down, aux = self._mlp(x, lp, generator, training)
+            return self._norm(x + down, lp, "mlp_norm"), aux
         x = x + attn
-        return x + self._mlp(self._norm(x, lp, "mlp_norm"), lp)
+        down, aux = self._mlp(self._norm(x, lp, "mlp_norm"), lp, generator,
+                              training)
+        return x + down, aux
 
     def _encode(self, p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 angles: Optional[torch.Tensor] = None, positions=None,
-                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_mask: Optional[torch.Tensor] = None,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Any]:
         """The layer stack over embedded inputs x: [b, s, d], shared by
         the token path (:meth:`apply`) and towers that embed something
         else (CLIP's patches). With ``remat`` (and autograd recording),
         each layer runs under
         :func:`~deepspeed_tpu_torch.runtime.activation_checkpointing.checkpoint_wrapper`
         with ``remat_policy``: only its input is kept, and the backward
-        pass runs it again."""
+        pass runs it again. With ``generator``, layer i draws its noise
+        from a generator seeded with the i-th of ``n_layers`` seeds drawn
+        from it (the JAX per-layer key split), so a replay draws the
+        same. Returns (x, the layers' summed aux loss: 0.0 for dense
+        FFNs)."""
         c = self.config
         windows, varying = self._dense_windows(x.shape[1])
         names = layer_leaves(c)
+        seeds = [None] * c.n_layers if generator is None else torch.randint(
+            0, 2 ** 62, (c.n_layers,), generator=generator,
+            device=generator.device).tolist()
 
-        def block(x, window, *leaves):
+        def block(x, window, seed, *leaves):
+            gen = None if seed is None else \
+                torch.Generator(device=x.device).manual_seed(seed)
             return self._block(x, dict(zip(names, leaves)), angles,
                                positions, window, varying=varying,
-                               attn_mask=attn_mask)
+                               attn_mask=attn_mask, generator=gen,
+                               training=training)
 
         if c.remat and torch.is_grad_enabled():
             block = checkpoint_wrapper(block, policy=c.remat_policy)
+        total = 0.0
         for i in range(c.n_layers):
-            x = block(x, windows[i], *(p[f"layers.{i}.{n}"] for n in names))
-        return x
+            x, aux = block(x, windows[i], seeds[i],
+                           *(p[f"layers.{i}.{n}"] for n in names))
+            total = total + aux
+        return x, total
 
     # ------------------------------------------------------------------
     def _targets_from_batch(self, batch: Mapping[str, Any]):
@@ -773,9 +825,12 @@ class Transformer(nn.Module):
         return nll_sum, denom, z_sum
 
     def loss(self, batch: Mapping[str, Any],
-             params: Optional[Params] = None) -> torch.Tensor:
+             params: Optional[Params] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Next-token (or masked-LM, through explicit labels) cross
-        entropy (+ z-loss), a 0-dim fp32 tensor. An encoder's batch may
+        entropy (+ z-loss, + an MoE model's weighted aux loss, from the
+        forward's training route with ``generator``'s noise), a 0-dim
+        fp32 tensor. An encoder's batch may
         carry "attention_mask" (padding) and "token_type_ids" (segments);
         only encoder configs read them, so a decoder's all-ones
         "attention_mask" does not trip the causal model's mask refusal.
@@ -790,18 +845,20 @@ class Transformer(nn.Module):
             fwd["attn_mask"] = batch["attention_mask"]
         if c.type_vocab_size > 0 and "token_type_ids" in batch:
             fwd["token_type_ids"] = batch["token_type_ids"]
+        fwd.update(training=True, return_aux=True, generator=generator)
         cs = c.loss_chunk_size
         if cs > 0:
-            x = self.apply(inputs, return_hidden=True, params=p, **fwd)
+            x, aux = self.apply(inputs, return_hidden=True, params=p, **fwd)
             nll_sum, denom, z_sum = self._ce_chunked(p, x, targets, mask, cs)
         else:
-            logits = self.apply(inputs, params=p, **fwd)
+            logits, aux = self.apply(inputs, params=p, **fwd)
             nll_sum, denom, z_sum = self._ce_terms(logits, targets, mask)
         denom = torch.clamp(denom, min=1.0)
         loss = nll_sum / denom
         if self.config.z_loss > 0:
             loss = loss + self.config.z_loss * z_sum / denom
-        return loss
+        # a dense model's aux is the float 0.0: nothing to add
+        return loss + aux if torch.is_tensor(aux) else loss
 
     def _ce_chunked(self, p, x, targets, mask, chunk: int):
         """Head + CE over flattened token chunks of ``chunk`` rows, each
@@ -875,12 +932,16 @@ class Transformer(nn.Module):
                            c.norm_eps)
         return x
 
-    def _mlp(self, h: torch.Tensor, lp) -> torch.Tensor:
-        """The config's FFN: gated SiLU, (silu(h @ w_gate) * (h @ w_up)) @
-        w_down, or act(h @ w_up + b_up) @ w_down with GELU (tanh form,
-        ``jax.nn.gelu``'s default), ``gelu_exact`` (erf), ReLU or
-        ``quick_gelu``; ``+ b_down`` with ``use_bias``. ``lp`` is a
-        :class:`Block` or a dict of one layer's leaves."""
+    def _mlp(self, h: torch.Tensor, lp, generator=None,
+             training: bool = False) -> Tuple[torch.Tensor, Any]:
+        """The config's FFN -> (out, aux loss): gated SiLU, (silu(h @
+        w_gate) * (h @ w_up)) @ w_down, or act(h @ w_up + b_up) @ w_down
+        with GELU (tanh form, ``jax.nn.gelu``'s default), ``gelu_exact``
+        (erf), ReLU or ``quick_gelu``; ``+ b_down`` with ``use_bias``.
+        ``lp`` is a :class:`Block` or a dict of one layer's leaves. The
+        dense FFN's aux is the float 0.0 and it takes no ``generator`` or
+        ``training``; an MoE model overrides this with its expert bank
+        (the JAX ``_mlp(h, lp, rng, training)`` seam)."""
         c = self.config
         if c.activation == "silu_glu":
             up = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
@@ -899,7 +960,7 @@ class Transformer(nn.Module):
         down = self._down_proj(up, lp["w_down"])
         if c.use_bias:
             down = down + lp["b_down"]
-        return down
+        return down, 0.0
 
     def _down_proj(self, up: torch.Tensor, w_down: torch.Tensor
                    ) -> torch.Tensor:

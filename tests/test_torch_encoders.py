@@ -393,9 +393,11 @@ def test_init_inference_trees_match_jax(quant):
 
 @pytest.mark.parametrize("quant", [None, 8])
 def test_init_inference_forward_matches_jax(quant):
-    """MLM logits of ``forward`` equal JAX's; a keyword argument (a
-    padding mask) is dropped in both, so it changes neither. ``generate``
-    raises in both: KV-cache decode needs a causal model."""
+    """MLM logits of ``forward`` equal JAX's. A keyword argument (a
+    padding mask, segment ids) is dropped silently by JAX's ``forward``,
+    which changes nothing there, and refused by the port's (ROADMAP.md
+    Queue C, C8). ``generate`` raises in both: KV-cache decode needs a
+    causal model."""
     jm, params, _, tm = _models("bert", seed=8)
     cfg = {"dtype": "float32", "temperature": 0.0}
     if quant:
@@ -406,8 +408,12 @@ def test_init_inference_forward_matches_jax(quant):
     ref = np.asarray(je.forward(toks))
     got = te.forward(toks).numpy()
     np.testing.assert_allclose(got, ref, **TOL)
-    np.testing.assert_array_equal(te.forward(toks, attn_mask=_t(mask))
-                                  .numpy(), got)
+    with pytest.raises(NotImplementedError, match="C8"):
+        te.forward(toks, attn_mask=_t(mask))
+    with pytest.raises(NotImplementedError, match="token_type_ids"):
+        te.forward(toks, token_type_ids=_t(np.ones_like(toks)))
+    np.testing.assert_array_equal(te.forward(toks, attn_mask=None).numpy(),
+                                  got)
     np.testing.assert_array_equal(
         np.asarray(je.forward(toks, attn_mask=jnp.asarray(mask))), ref)
     with pytest.raises(ValueError, match="requires a causal model") as jerr:

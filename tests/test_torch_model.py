@@ -102,10 +102,11 @@ def test_embed_mlp_head_match_jax(carried):
     lp = jax.tree_util.tree_map(lambda a: a[1], params["layers"])
     jdown, _ = jm._mlp(jnp.asarray(h), lp)
     with torch.no_grad():
-        down = tm._mlp(torch.from_numpy(h), tm.layers[1])
+        down, aux = tm._mlp(torch.from_numpy(h), tm.layers[1])
         logits = tm._head(torch.from_numpy(h))
     np.testing.assert_allclose(down.numpy(), np.asarray(jdown), rtol=1e-5,
                                atol=1e-5)
+    assert aux == 0.0       # a dense FFN's aux loss, as JAX's zeros
     jlogits = jm._head(params, jnp.asarray(h))
     assert logits.dtype == torch.float32
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
@@ -259,6 +260,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             bad += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
     assert len(_port_sources()) > 10
+    assert {REPO / "deepspeed_tpu_torch" / sub / "moe.py"
+            for sub in ("parallel", "models")} <= set(_port_sources())
     assert bad == []
 
 
