@@ -254,6 +254,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import math
 import os
@@ -5099,6 +5100,28 @@ def _visible_pairs(b, sq, skv, hq, causal, window) -> int:
     return b * hq * int(np.clip(hi - lo, 0, None).sum())
 
 
+def _flash_bounds(q, k, causal: bool) -> dict:
+    """{kernel: (operations, bytes, bound ms, "operations" | "bytes")} of
+    rows 2-4 on q [b, s, hq, d], k/v [b, s, hkv, d]: 4d, 6d, 8d
+    operations a visible pair over the bf16 peak, or each input read
+    once and each output written once over HBM's rate."""
+    b, s, hq, d = q.shape
+    pairs = _visible_pairs(b, s, s, hq, causal, 0)
+    e = q.element_size()
+    qb, kvb, rowb = q.numel() * e, k.numel() * e, b * hq * s * 4
+    nbytes = {"flash_forward": 2 * qb + 2 * kvb + rowb,
+              "flash_backward_dq": 3 * qb + 2 * kvb + 2 * rowb,
+              "flash_backward_dkv": 2 * qb + 4 * kvb + 2 * rowb}
+    out = {}
+    for name, (_, _, per_pair) in FLASH_KERNELS.items():
+        ops = float(per_pair) * d * pairs
+        t_ops = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = (ops, nbytes[name], max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
 def _flash_inputs(gen, b, sq, skv, hq, hkv, d, dtype):
     """q, k, v, dO: seeded normal values in ``dtype`` on the card."""
     def mk(*shape):
@@ -5307,27 +5330,15 @@ def phase_flash_timing(flush: torch.Tensor) -> dict:
     lib_f = cuda_ms(lib_fwd, 10, flush)
     lib_b = cuda_ms(lib_fwd_bwd, 10, flush) - lib_f
 
-    pairs = _visible_pairs(b, s, s, hq, True, 0)
-    e = q.element_size()
-    qbytes, kvbytes, rowbytes = q.numel() * e, k.numel() * e, b * hq * s * 4
-    nbytes = {  # each input read once, each output written once
-        "flash_forward": 2 * qbytes + 2 * kvbytes + rowbytes,
-        "flash_backward_dq": 3 * qbytes + 2 * kvbytes + 2 * rowbytes,
-        "flash_backward_dkv": 2 * qbytes + 4 * kvbytes + 2 * rowbytes,
-    }
     res = {}
-    for name, (_, _, per_pair) in FLASH_KERNELS.items():
-        ops = float(per_pair) * d * pairs
-        t_ops = ops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
-        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+    for name, (ops, nbytes, bound, by) in _flash_bounds(q, k, True).items():
         fwd = name == "flash_forward"
         res[name] = {
             "ms": min(kms[name]),
             "plain_ms": min(p_f1, p_f2) if fwd else min(p_b1, p_b2),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound, "bound_by": by,
             "library_ms": lib_f if fwd else lib_b,
-            "ops": ops, "bytes": nbytes[name],
+            "ops": ops, "bytes": nbytes,
             "path": FLASH_PATH[name]}
         r = res[name]
         r["mma_ms"] = min(mms[name])
@@ -5337,10 +5348,10 @@ def phase_flash_timing(flush: torch.Tensor) -> dict:
             f"{mms[name][0]:.4f}/{mms[name][1]:.4f} ms)"
             + f", plain {(p_f1, p_f2) if fwd else (p_b1, p_b2)} ms"
             f"{'' if fwd else ' (the whole plain backward)'}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {ops:.3e} ops, "
-            f"{nbytes[name]} B), sdpa {r['library_ms']:.4f} ms"
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['ops']:.3e} ops, "
+            f"{r['bytes']} B), sdpa {r['library_ms']:.4f} ms"
             f"{'' if fwd else ' (its whole backward)'}; "
-            f"{ops / r['ms'] / 1e9:.1f} TFLOP/s")
+            f"{r['ops'] / r['ms'] / 1e9:.1f} TFLOP/s")
     bwd = res["flash_backward_dq"]["ms"] + res["flash_backward_dkv"]["ms"]
     log(f"flash: backward dq + dk/dv {bwd:.4f} ms, {bwd / lib_b:.2f}x SDPA's "
         f"whole backward ({lib_b:.4f} ms)")
@@ -5350,26 +5361,37 @@ def phase_flash_timing(flush: torch.Tensor) -> dict:
 # ---------------------------------------------------------------- phase 7
 def phase_trainer_parity() -> None:
     """A 2-layer Llama("1b") in fp32, the same weights on cuda and cpu, seq
-    256, micro-batch 2, GAS 2, one train_batch each: loss within 1e-5 rel,
-    grad norm within 1e-4 rel, and the updated weights within 1e-6 abs
-    except where a gradient element lies within 100x of Adam's eps (1e-8):
-    there the first step is lr * g / (|g| + eps) and carries g's summation
-    noise, bounded by 2 lr."""
-    import deepspeed_tpu_torch
+    256, micro-batch 2, GAS 2, one train_batch each
+    (:func:`_trainer_parity`)."""
     from deepspeed_tpu_torch.models.llama import Llama
+
+    toks = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 32000, (4, 256)))
+    _trainer_parity("2-layer Llama-1b fp32, 4x256 tokens, GAS 2",
+                    Llama("1b", device="cpu", seed=2, n_layers=2),
+                    {"input_ids": toks}, gas=2)
+
+
+def _trainer_parity(label: str, cpu_model, batch: dict, gas: int) -> dict:
+    """One ``train_batch`` of the same fp32 weights (``cpu_model`` and a
+    copy of it on the card) on cuda and cpu, AdamW lr 1e-4, clipping 1.0:
+    loss within 1e-5 rel, grad norm within 1e-4 rel, and the updated
+    weights within 1e-6 abs except where a gradient element lies within
+    100x of Adam's eps (1e-8): there the first step is lr * g / (|g| +
+    eps) and carries g's summation noise, bounded by 2 lr."""
+    import copy
+
+    import deepspeed_tpu_torch
     from deepspeed_tpu_torch.runtime.optimizers import Transform
 
     t0 = time.perf_counter()
     lr = 1e-4
-    cfg = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+    rows = next(iter(batch.values())).shape[0]
+    cfg = {"train_batch_size": rows, "gradient_accumulation_steps": gas,
            "gradient_clipping": 1.0, "steps_per_print": 1000,
            "optimizer": {"type": "adamw",
                          "params": {"lr": lr, "weight_decay": 0.1}}}
-    cpu_model = Llama("1b", device="cpu", seed=2, n_layers=2)
-    gpu_model = Llama("1b", device="cuda", seed=2, n_layers=2)
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    toks = torch.from_numpy(
-        np.random.default_rng(5).integers(0, 32000, (4, 256)))
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
     out, small = {}, {}
     for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
         eng, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
@@ -5382,7 +5404,7 @@ def phase_trainer_parity() -> None:
                 return inner.update(grads, state, params)
 
             eng.optimizer = Transform(inner.init, update)
-        m = eng.train_batch({"input_ids": toks})
+        m = eng.train_batch(batch)
         out[dev] = (float(m["loss"]), float(m["grad_norm"]), eng.params)
     torch.cuda.synchronize()
     (gl, gn, gp), (cl, cn, cp) = out["cuda"], out["cpu"]
@@ -5397,22 +5419,26 @@ def phase_trainer_parity() -> None:
         if beyond.any():
             worst_near_eps = max(worst_near_eps, d[beyond].max().item())
             if not bool(small[name][beyond].all()):
-                raise SystemExit(f"trainer: {name} moved differently on "
-                                 f"cuda and cpu where its gradient is not "
-                                 f"near Adam's eps")
+                raise SystemExit(f"trainer: {label}: {name} moved "
+                                 f"differently on cuda and cpu where its "
+                                 f"gradient is not near Adam's eps")
     ok = (abs(gl - cl) <= 1e-5 * abs(cl) and abs(gn - cn) <= 1e-4 * abs(cn)
-          and worst <= 1e-6 and worst_near_eps <= 2 * lr)
-    log(f"trainer: 2-layer Llama-1b fp32, 4x256 tokens, GAS 2: loss cuda "
-        f"{gl:.7f} cpu {cl:.7f} (1e-5 rel), grad_norm cuda {gn:.6f} cpu "
-        f"{cn:.6f} (1e-4 rel); updated weights max |cuda - cpu| {worst:.2e} "
-        f"where |g| >= 1e-6 (tol 1e-6), {n_out} of {n_all} elements beyond "
-        f"1e-6, all with |g| < 1e-6, max {worst_near_eps:.2e} (<= 2 lr) "
-        f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+          and worst <= 1e-6 and worst_near_eps <= 2 * lr
+          and np.isfinite(gl) and np.isfinite(gn))
+    log(f"trainer: {label}: loss cuda {gl:.7f} cpu {cl:.7f} (1e-5 rel), "
+        f"grad_norm cuda {gn:.6f} cpu {cn:.6f} (1e-4 rel); updated weights "
+        f"max |cuda - cpu| {worst:.2e} where |g| >= 1e-6 (tol 1e-6), "
+        f"{n_out} of {n_all} elements beyond 1e-6, all with |g| < 1e-6, "
+        f"max {worst_near_eps:.2e} (<= 2 lr) {'ok' if ok else 'FAIL'} "
+        f"({time.perf_counter() - t0:.1f} s)")
     if not ok:
-        raise SystemExit("trainer on cuda disagrees with cpu")
-    del cpu_model, gpu_model, out
+        raise SystemExit(f"trainer on cuda disagrees with cpu: {label}")
+    del cpu_model, gpu_model, out, eng
     gc.collect()
     torch.cuda.empty_cache()
+    return {"loss_rel": abs(gl - cl) / abs(cl),
+            "grad_norm_rel": abs(gn - cn) / abs(cn), "weights": worst,
+            "near_eps": n_out}
 
 
 # ---------------------------------------------------------------- phase 8
@@ -5458,15 +5484,10 @@ def phase_training(card: str):
 
     for _ in range(2):
         step()
-    for wrapper, *_ in FLASH_KERNELS.values():
-        wrapper.launches = 0
-        if hasattr(wrapper, "wgmma_launches"):
-            wrapper.wgmma_launches = 0
+    _flash_reset()
     for _ in range(4):
         step()
-    launches = {n: w.launches for n, (w, *_) in FLASH_KERNELS.items()}
-    hopper = {n: w.wgmma_launches for n, (w, *_) in FLASH_KERNELS.items()
-              if hasattr(w, "wgmma_launches")}
+    launches, hopper = _flash_read()
     per_step = {"flash_forward": c.n_layers * 2 * 2,     # fwd + replay, GAS
                 "flash_backward_dq": c.n_layers * 2,
                 "flash_backward_dkv": c.n_layers * 2}
@@ -5496,7 +5517,8 @@ def phase_training(card: str):
 
 
 # ---------------------------------------------------------------- phase 9
-def phase_training_profile(engine, batch, card: str) -> None:
+def phase_training_profile(engine, batch, card: str,
+                           label: str = "train") -> None:
     """One more training step under torch.profiler: device time by group
     and the device's idle share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -5510,7 +5532,7 @@ def phase_training_profile(engine, batch, card: str) -> None:
     kernels = _device_events(prof)
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us <= 0:
-        log(f"train profile [{card}]: torch.profiler recorded no device "
+        log(f"{label} profile [{card}]: torch.profiler recorded no device "
             f"time: breakdown not measured")
         return
     groups = {"flash_forward": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
@@ -5524,14 +5546,610 @@ def phase_training_profile(engine, batch, card: str) -> None:
                                                "cutlass", "cublas"))
              else "other")
         groups[g] += e.self_device_time_total
-    log(f"train profile [{card}]: profiled step wall {wall:.3f} s, device "
+    log(f"{label} profile [{card}]: profiled step wall {wall:.3f} s, "
+        f"{len(kernels)} kernel names, {sum(e.count for e in kernels)} "
+        f"device events, device "
         f"busy {total_us / 1e6:.3f} s, idle share "
         f"{max(0.0, 1 - total_us / 1e6 / wall):.3f}; device time "
         + ", ".join(f"{g} {us / 1e3:.1f} ms ({us / total_us:.1%})"
                     for g, us in groups.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"train profile: {e.self_device_time_total / 1e3:9.2f} ms "
+        log(f"{label} profile: {e.self_device_time_total / 1e3:9.2f} ms "
             f"x{e.count:<6d} {e.key[:110]}")
+
+
+# --------------------------------------------------------------- phase 8b
+TRAIN_LR = 1e-4
+TRAIN_WARM, TRAIN_TIMED = 2, 3
+TRAIN_SPAN = 1024              # ids drawn from 1024 of the vocab: a unigram
+#                                that five steps can start to learn
+TRAIN_SHAPES = {               # rows x tokens a step, GAS
+    "gpt2": (16, 1024, 2), "opt": (8, 512, 1), "bert": (32, 512, 2),
+    "clip": (64, 77, 1), "moe": (4, 1024, 1)}
+TRAIN_DATASETS = {"gpt2": 64, "opt": 40}   # (a), (b): sequences loaded
+TRAIN_MOE = dict(n_experts=128, n_layers=2)    # (e): depth cut from 24
+TRAIN_PARITY_MOE = dict(n_experts=32, n_layers=2)   # (f), as 6i (d)
+TRAIN_PARITY_ROWS = (4, 128)   # (f): rows x tokens of each family's batch
+# row 2-4 at each family's micro-batch: label, b, s, heads, causal
+TRAIN_FLASH_SHAPES = [("gpt2", 8, 1024, 12, True), ("opt", 8, 512, 32, True),
+                      ("bert", 16, 512, 16, False),
+                      ("clip_vision", 64, 257, 16, False),
+                      ("clip_text", 64, 77, 12, True),
+                      ("moe", 4, 1024, 16, True)]
+
+
+def _train_cfg(rows: int, gas: int, seed: int = 0, **extra) -> dict:
+    return {"train_batch_size": rows, "gradient_accumulation_steps": gas,
+            "gradient_clipping": 1.0, "steps_per_print": 1000,
+            "bf16": {"enabled": True}, "seed": seed,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": TRAIN_LR, "weight_decay": 0.1}},
+            **extra}
+
+
+def _flash_reset() -> None:
+    for wrapper, *_ in FLASH_KERNELS.values():
+        wrapper.launches = 0
+        wrapper.wgmma_launches = 0
+
+
+def _flash_read() -> tuple:
+    return ({n: w.launches for n, (w, *_) in FLASH_KERNELS.items()},
+            {n: w.wgmma_launches for n, (w, *_) in FLASH_KERNELS.items()})
+
+
+def _flash_per_step(towers, gas: int) -> dict:
+    """Flash launches a step, from the code: each layer of each tower
+    calls ``flash_attention`` once a micro-batch (every config here takes
+    it: ``use_flash``, no ALiBi, no padding mask, no varying windows),
+    and once more in the backward pass when ``remat`` replays it; the
+    backward runs dq and dk/dv once a layer."""
+    fwd = bwd = 0
+    for c in towers:
+        if not c.use_flash or c.position == "alibi" or (
+                c.attn_windows and len(set(c.attn_windows)) > 1):
+            raise SystemExit(f"phase 8b: a tower that leaves the flash "
+                             f"path: {c}")
+        fwd += c.n_layers * (2 if c.remat else 1)
+        bwd += c.n_layers
+    return {"flash_forward": fwd * gas, "flash_backward_dq": bwd * gas,
+            "flash_backward_dkv": bwd * gas}
+
+
+def _train_timed(label: str, engine, batches, towers, gas: int,
+                 work: float, unit: str, flops: float, card: str,
+                 on_step=None) -> dict:
+    """TRAIN_WARM warm-up steps, then TRAIN_TIMED timed ones with the
+    flash counters reset just before and read just after. ``work`` is
+    the tokens (or samples) a step, ``flops`` the model's operations a
+    step. Correct: finite losses and norms, no skipped step, the last
+    loss below the first, and every flash launch of the timed steps on
+    the Hopper kernels in the count :func:`_flash_per_step` gives. Then
+    one more step on the last batch under the profiler."""
+    losses, norms, skipped, times = [], [], [], []
+    for i in range(TRAIN_WARM + TRAIN_TIMED):
+        if i == TRAIN_WARM:
+            _flash_reset()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        m = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        skipped.append(bool(m["skipped"]))
+        if on_step is not None:
+            on_step(i)
+    launches, hopper = _flash_read()
+    per_step = _flash_per_step(towers, gas)
+    want = {n: TRAIN_TIMED * k for n, k in per_step.items()}
+    step_s = sum(times[TRAIN_WARM:]) / TRAIN_TIMED
+    rate = work / step_s
+    mfu = flops / step_s / PEAK_OPS_PER_S[torch.bfloat16]
+    peak = torch.cuda.max_memory_allocated()
+    ok = (all(np.isfinite(losses)) and all(np.isfinite(norms))
+          and not any(skipped) and losses[-1] < losses[0]
+          and launches == want and hopper == launches)
+    log(f"train {label}: losses {[round(x, 5) for x in losses]}, grad "
+        f"norms {[round(x, 4) for x in norms]}, skipped {skipped}")
+    log(f"train {label}: flash launches in {TRAIN_TIMED} timed steps "
+        f"{launches} (expected {want}: {per_step} a step), on the Hopper "
+        f"kernels {hopper}")
+    log(f"train {label} [{card}]: step times {[round(x, 4) for x in times]}"
+        f" s; timed step {step_s:.4f} s, {rate:.1f} {unit}/s, MFU "
+        f"{mfu:.4f} ({flops:.4e} operations a step, peak 989 TFLOP/s "
+        f"bf16); torch.cuda.max_memory_allocated() = {peak} B "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase 8b: training {label} failed")
+    phase_training_profile(engine, batch, card, f"train {label}")
+    return {"step_s": step_s, "rate": rate, "unit": unit, "mfu": mfu,
+            "peak": peak, "losses": losses, "launches": launches,
+            "wgmma_launches": hopper}
+
+
+def _decoder_flops(c, rows: int, seq: int) -> float:
+    return rows * (seq - 1) * c.flops_per_token(seq)
+
+
+def _train_loader_family(key: str, model, label: str, card: str,
+                         check_batches: bool) -> dict:
+    """(a) / (b): a decoder fed through ``initialize(training_data=...)``
+    from a seeded numpy dataset, prefetch depth 2 (the producer uploads
+    on its own stream). With ``check_batches``, each batch is copied on
+    the step's stream as the step starts and again after it, and both
+    copies are held bitwise against the same loader run with prefetch
+    depth 0: the batches' order and contents. The step here syncs and
+    its uploads are small, so the two stream faults cannot show in it;
+    :func:`_loader_faults` plants them where they do."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.dataloader import (DataLoader,
+                                                        RepeatingLoader)
+
+    rows, seq, gas = TRAIN_SHAPES[key]
+    c = model.config
+    data = {"input_ids": np.random.default_rng(21).integers(
+        0, TRAIN_SPAN, (TRAIN_DATASETS[key], seq)).astype(np.int32)}
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=_train_cfg(rows, gas, seed=1,
+                                       dataloader={"prefetch_depth": 2}),
+        training_data=data)
+    seen, real = [], engine.train_batch
+
+    def fed(batch):
+        start = {k: v.clone() for k, v in batch.items()}
+        m = real(batch)
+        seen.append((start, {k: v.clone() for k, v in batch.items()}))
+        return m
+
+    if check_batches:
+        engine.train_batch = fed
+    waits = []
+    res = _train_timed(
+        label, engine, iter(RepeatingLoader(loader)), [c], gas,
+        rows * (seq - 1), "tokens", _decoder_flops(c, rows, seq), card,
+        on_step=lambda i: waits.append(loader.data_wait_s))
+    side = loader._upload_stream is not None and \
+        loader._upload_stream.cuda_stream != \
+        torch.cuda.current_stream().cuda_stream
+    active = loader._active_prefetch and loader._active_prefetch()
+    if active is not None:
+        active.close()
+    res["data_wait_s"] = waits[-1] - waits[TRAIN_WARM - 1]
+    ok = side and res["data_wait_s"] >= 0
+    if check_batches:
+        ref = iter(RepeatingLoader(DataLoader(data, rows, "cuda", seed=1,
+                                              prefetch_depth=0)))
+        # the profiled step after the timed ones is not compared
+        seen = seen[:TRAIN_WARM + TRAIN_TIMED]
+        same = [all(torch.equal(s[k], r[k]) and torch.equal(e[k], r[k])
+                    for k in r) for (s, e), r in zip(seen, ref)]
+        ok &= len(same) == TRAIN_WARM + TRAIN_TIMED and all(same)
+        res["batches_bitwise"] = same
+    log(f"train {label}: loader {TRAIN_DATASETS[key]} sequences, prefetch "
+        f"depth 2, upload on its own stream: {side}; data_wait_s over the "
+        f"timed steps {res['data_wait_s']:.6f} s (all steps "
+        f"{waits[-1]:.6f} s)"
+        + (f"; batches at step start and end bitwise those of prefetch "
+           f"depth 0: {res['batches_bitwise']}" if check_batches else "")
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase 8b: {label}: the loader's batches differ")
+    del engine, loader, seen
+    return res
+
+
+LOADER_PLANT = (6, 4 << 20)     # batches x int32 elements: 16 MiB each
+LOADER_SLEEP_CYCLES = 10 ** 8   # a sleep kernel of ~50 ms
+
+
+def _loader_reads(loader_cls, data: np.ndarray, late: bool) -> int:
+    """Batches of ``data`` read wrong by a consumer of ``loader_cls``
+    (batch 1, prefetch depth 1) that copies each batch on its stream and
+    drops it, with no host sync. A sleep kernel before each read holds
+    back either the loader's upload stream (``late`` False: the read
+    runs while the upload waits, and is right only if the consumer's
+    stream waits for the upload) or the consumer's stream (``late``
+    True: the read runs after the batch was freed on the host and the
+    next uploads were made, and is right only if ``record_stream`` kept
+    its memory from them)."""
+    loader = loader_cls(data, 1, "cuda", shuffle=False, prefetch_depth=1)
+    # the loader makes its stream lazily; made here, it can be held back
+    loader._upload_stream = torch.cuda.Stream()
+    slow = torch.cuda.current_stream() if late else loader._upload_stream
+
+    def hold():
+        with torch.cuda.stream(slow):
+            torch.cuda._sleep(LOADER_SLEEP_CYCLES)
+
+    hold()
+    reads = []
+    for batch in loader:
+        reads.append(batch.clone())
+        del batch
+        hold()
+    torch.cuda.synchronize()
+    return sum(not np.array_equal(r[0].cpu().numpy(), data[i])
+               for i, r in enumerate(reads))
+
+
+def _loader_faults() -> dict:
+    """(a'): the loader's two stream faults planted, each in a copy of
+    the loader that leaves out one step of ``_receive``, and shown to
+    corrupt batches that the loader as it is reads right: the consumer's
+    stream not waiting for the upload, and no ``record_stream``."""
+    from deepspeed_tpu_torch.runtime.dataloader import DataLoader
+
+    class NoWait(DataLoader):
+        def _receive(self, batch, done):
+            batch.record_stream(torch.cuda.current_stream(self.device))
+            return batch
+
+    class NoRecord(DataLoader):
+        def _receive(self, batch, done):
+            torch.cuda.current_stream(self.device).wait_event(done)
+            return batch
+
+    n, width = LOADER_PLANT
+    data = np.random.default_rng(31).integers(
+        0, 2 ** 31 - 1, (n, width), dtype=np.int32)
+    out = {"loader_upload_held": _loader_reads(DataLoader, data, False),
+           "loader_read_held": _loader_reads(DataLoader, data, True),
+           "no_wait": _loader_reads(NoWait, data, False),
+           "no_record_stream": _loader_reads(NoRecord, data, True)}
+    ok = (out["loader_upload_held"] == out["loader_read_held"] == 0
+          and out["no_wait"] > 0 and out["no_record_stream"] > 0)
+    log(f"train loader faults: batches read wrong of {n} ({width * 4} B "
+        f"each, prefetch depth 1, no host sync): the loader with its "
+        f"upload held back {out['loader_upload_held']}, with the read held "
+        f"back {out['loader_read_held']}; planted, no wait on the upload "
+        f"{out['no_wait']}, no record_stream {out['no_record_stream']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 8b: the loader's stream check")
+    return out
+
+
+def _mlm_batch(rng, rows: int, seq: int, device) -> dict:
+    """BERT MLM: ids from TRAIN_SPAN, 15 % of positions replaced by
+    [MASK] (103) with their ids as labels and in ``loss_mask``, two
+    segments split at a random point of each row, no padding."""
+    toks = rng.integers(1000, 1000 + TRAIN_SPAN, (rows, seq))
+    pick = rng.random((rows, seq)) < 0.15
+    split = rng.integers(seq // 4, 3 * seq // 4, rows)
+    batch = {"input_ids": np.where(pick, 103, toks),
+             "labels": toks, "loss_mask": pick.astype(np.float32),
+             "token_type_ids": (np.arange(seq)[None, :] >= split[:, None])
+             .astype(np.int64)}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _train_clip(card: str) -> dict:
+    """(d): CLIP ViT-L/14 InfoNCE over 64 pairs (text 77 causal, vision
+    257 non-causal), the projections and ``logit_scale`` checked for
+    nonzero gradients at every step."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.clip import (CLIP, CLIPConfig,
+                                                 clip_text_config,
+                                                 clip_vision_config)
+    from deepspeed_tpu_torch.runtime.optimizers import Transform
+
+    c = CLIP_L14
+    cfg = CLIPConfig(clip_text_config(**c["text"]),
+                     clip_vision_config(**c["vision"]),
+                     proj_dim=c["proj_dim"], image_size=c["image_size"],
+                     patch_size=c["patch_size"])
+    model = _draw_vectors(CLIP(cfg, seed=0), 0)
+    n = TRAIN_SHAPES["clip"][0]
+    toks, pixels = _clip_inputs(n, 15)
+    batch = {"input_ids": torch.from_numpy(toks).cuda(),
+             "pixel_values": torch.from_numpy(pixels).cuda()}
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                                config=_train_cfg(n, 1))
+    heads = ("text_proj", "vision_proj", "logit_scale")
+    got = []
+    inner = engine.optimizer
+
+    def update(grads, state, params):
+        got.append(torch.stack([grads[h].abs().max() for h in heads]))
+        return inner.update(grads, state, params)
+
+    engine.optimizer = Transform(inner.init, update)
+    npatch = model.vision.patch_w.numel()
+    per_pair = (cfg.text.flops_per_token(77) * 77
+                + cfg.vision.flops_per_token(257) * 257
+                + 6 * (npatch * 256 + model.text_proj.numel()
+                       + model.vision_proj.numel()))
+    res = _train_timed("CLIP ViT-L/14", engine, itertools.repeat(batch),
+                       [cfg.text, cfg.vision], 1, n, "samples",
+                       n * per_pair, card)
+    g = torch.stack(got).cpu()
+    ok = bool((g > 0).all())
+    log(f"train CLIP ViT-L/14: max |g| of {heads} by step "
+        f"{[[f'{x:.3e}' for x in row] for row in g.tolist()]} (the last "
+        f"step profiled; all "
+        f"nonzero: {ok}); remat on both towers' {cfg.text.n_layers} + "
+        f"{cfg.vision.n_layers} layers (JAX's _encode checkpoints its "
+        f"blocks whenever remat is set, training or not)")
+    if not ok:
+        raise SystemExit("phase 8b: CLIP's heads got no gradient")
+    res["head_grads"] = g.tolist()
+    del engine, model
+    return res
+
+
+def _train_moe(card: str) -> dict:
+    """(e): GPT-MoE at 350M+MoE-128's widths and 128 experts, depth cut
+    to 2 layers, the capacity route with top-2 and the weighted aux loss
+    in the loss; each layer's gate is recorded (on the device) to report
+    the experts that received tokens, the (token, choice) pairs dropped
+    and the aux loss by step."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.moe import GPTMoE
+    from deepspeed_tpu_torch.parallel import moe as pmoe
+
+    model = _draw_vectors(GPTMoE("350m", seed=0, **TRAIN_MOE), 0)
+    c = model.config
+    rows, seq, gas = TRAIN_SHAPES["moe"]
+    ids = torch.from_numpy(np.random.default_rng(23).integers(
+        0, TRAIN_SPAN, (rows, seq))).cuda()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=_train_cfg(rows, gas))
+    calls = []
+    real = pmoe.top_k_gating
+
+    def recording(logits, cfg, cap, generator=None, training=True):
+        combine, dispatch, aux = real(logits, cfg, cap, generator, training)
+        calls.append(torch.cat([(dispatch.sum(dim=(0, 1, 3)) > 0).float(),
+                                dispatch.sum().float()[None],
+                                aux.mean()[None]]))
+        return combine, dispatch, aux
+
+    pmoe.top_k_gating = recording
+    try:
+        res = _train_timed(
+            f"GPT-MoE 350M+MoE-{c.n_experts} at {c.n_layers} layers",
+            engine, itertools.repeat({"input_ids": ids}), [c], gas, rows * (
+                seq - 1), "tokens", _decoder_flops(c, rows, seq), card)
+    finally:
+        pmoe.top_k_gating = real
+    # the warm-up, timed and profiled steps; a micro-batch runs each
+    # layer's gate twice: the forward, then the remat replay (the same
+    # choices, the layers in reverse)
+    steps = TRAIN_WARM + TRAIN_TIMED + 1
+    if len(calls) != steps * gas * 2 * c.n_layers:
+        raise SystemExit(f"phase 8b: MoE gate calls {len(calls)}")
+    rec = torch.stack(calls).cpu().reshape(steps, gas, 2 * c.n_layers, -1)
+    fwd = rec[:, :, : c.n_layers]
+    hit = fwd[..., : c.n_experts].sum(-1).int().tolist()
+    pairs = rows // gas * seq * c.top_k      # (token, choice) a micro-batch
+    dropped = (pairs - fwd[..., c.n_experts]).int().tolist()
+    aux = fwd[..., -1].tolist()
+    log(f"train GPT-MoE: by step (the last one profiled) and "
+        f"micro-batch, each layer's experts "
+        f"that received tokens (of {c.n_experts}) {hit}, (token, choice) "
+        f"pairs dropped (of {pairs}, capacity factor {c.capacity_factor}) "
+        f"{dropped}, aux loss "
+        f"{[[[round(x, 5) for x in m] for m in a] for a in aux]} (weight "
+        f"{c.aux_loss_weight}); {c.param_count()} parameters, "
+        f"active_param_count {c.active_param_count()}")
+    res.update(experts_hit=hit, dropped=dropped, aux=aux,
+               params=c.param_count())
+    del engine, model
+    return res
+
+
+def _sdpa_backward(backend: str, qt, kt, vt, dot, causal: bool):
+    """A closure that makes the one aten call that autograd makes for the
+    backward of SDPA's ``backend`` (cuDNN's or FlashAttention-2's), on
+    that backend's own forward's saved out and lse; [b, h, s, d]
+    inputs, dO laid out as the saved out."""
+    aten = torch.ops.aten
+    if backend == "CUDNN_ATTENTION":
+        o, lse, cq, ck, mq, mk, seed, off = \
+            aten._scaled_dot_product_cudnn_attention(
+                qt, kt, vt, None, True, 0.0, causal)[:8]
+        do_ = torch.empty_like(o).copy_(dot)
+        return lambda: aten._scaled_dot_product_cudnn_attention_backward(
+            do_, qt, kt, vt, o, lse, seed, off, None, cq, ck, mq, mk, 0.0,
+            causal)
+    o, lse, cq, ck, mq, mk, seed, off = \
+        aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0,
+                                                 causal)[:8]
+    do_ = torch.empty_like(o).copy_(dot)
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        do_, qt, kt, vt, o, lse, cq, ck, mq, mk, 0.0, causal, seed, off)
+
+
+def _flash_train_shapes(flush) -> dict:
+    """Rows 2-4 at each family's training micro-batch (TRAIN_FLASH_SHAPES,
+    bf16, hd 64): held against their plain versions once, then forward,
+    dq and dk/dv each timed beside its bound, the plain version and SDPA:
+    its forward, and its whole backward alone (:func:`_sdpa_backward`,
+    so no autograd host time is in the reading) for the backend SDPA's
+    dispatch picks, cuDNN's and FlashAttention-2's both timed and their
+    gradients held to the plain version's too. Every launch on the
+    Hopper kernels."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    backends = {int(x): x.name for x in (
+        SDPBackend.MATH, SDPBackend.FLASH_ATTENTION,
+        SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION)}
+
+    gen = torch.Generator().manual_seed(8)
+    out = {}
+    for label, b, s, h, causal in TRAIN_FLASH_SHAPES:
+        d = 64
+        q, k, v, do = _flash_inputs(gen, b, s, s, h, h, d, torch.bfloat16)
+        before = _flash_counts()
+        got = _flash_kernels(q, k, v, do, causal, 0)
+        ref = _flash_plain(q, k, v, do, causal, 0)
+        ok, errs, tol = _flash_errors(got, ref, torch.bfloat16)
+        lse, delta = got[1], fa._delta(got[0], do)
+        kernels = {
+            "flash_forward": lambda: fa.flash_forward(q, k, v,
+                                                      causal=causal),
+            "flash_backward_dq": lambda: fa.flash_backward_dq(
+                q, k, v, do, lse, delta, causal=causal),
+            "flash_backward_dkv": lambda: fa.flash_backward_dkv(
+                q, k, v, do, lse, delta, causal=causal)}
+        kms = {n: cuda_ms(fn, 10, flush) for n, fn in kernels.items()}
+        moved = [a - b_ for a, b_ in zip(_flash_counts(), before)]
+        # one checked call and 12 timed calls (2 warm-ups) of each kernel
+        path_ok = moved == [13] * 6
+        p_f = cuda_ms(lambda: fa.flash_attention_forward_reference(
+            q, k, v, causal=causal), 3, flush, warmup=1)
+        p_b = cuda_ms(lambda: fa._backward_from_delta(
+            q, k, v, lse, delta, do, causal, None, 0), 3, flush, warmup=1)
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), 10, flush)
+        choice = backends.get(int(torch._fused_sdp_choice(
+            qt, kt, vt, is_causal=causal)), "other")
+        lib_bwds = {n: _sdpa_backward(n, qt, kt, vt, dot, causal)
+                    for n in ("CUDNN_ATTENTION", "FLASH_ATTENTION")}
+        lib_errs = {n: [((g.transpose(1, 2).float() - r.float()).abs().max()
+                         .item(), r.float().abs().max().item())
+                        for g, r in zip(fn(), ref[2:])]
+                    for n, fn in lib_bwds.items()}
+        lib_ok = all(e_ <= GRAD_REL_TOL * m for errs_ in lib_errs.values()
+                     for e_, m in errs_)
+        lib_bs = {n: cuda_ms(fn, 10, flush) for n, fn in lib_bwds.items()}
+        # SDPA's backward is its default backend's (the forward's); a
+        # backend not timed here is named, and FlashAttention-2's stands
+        lib_name = choice if choice in lib_bs else "FLASH_ATTENTION"
+        lib_b = lib_bs[lib_name]
+        row = {}
+        for name, (ops, _, bound, by) in _flash_bounds(q, k, causal).items():
+            fwd = name == "flash_forward"
+            row[name] = {"ms": kms[name], "bound_ms": bound,
+                         "bound_by": by, "plain_ms": p_f if fwd else p_b,
+                         "library_ms": lib_f if fwd else lib_b,
+                         "sdpa_backends_ms": None if fwd else lib_bs,
+                         "sdpa_backend": choice if fwd else lib_name,
+                         "max_abs_err": errs["out"][0] if fwd else
+                         errs["dq"][0] if name == "flash_backward_dq" else
+                         max(errs["dk"][0], errs["dv"][0]),
+                         "tflops": ops / kms[name] / 1e9}
+        out[label] = row
+        log(f"flash train shape {label}: b {b} s {s} h {h} d 64 bf16 "
+            f"{'causal' if causal else 'non-causal'}: " + "; ".join(
+                f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
+                f"{r['bound_by']}, plain {r['plain_ms']:.3f}, sdpa "
+                f"{r['library_ms']:.4f}"
+                f"{'' if n == 'flash_forward' else ' whole backward'}, "
+                f"{r['tflops']:.1f} TFLOP/s)" for n, r in row.items())
+            + f"; errors " + " ".join(f"{n} {e_:.2e}/{m:.2e}"
+                                      for n, (e_, m) in errs.items())
+            + f" ({tol}); launches {moved}; SDPA's default backend here "
+            f"{choice}; its backends' backward alone: " + "; ".join(
+                f"{n} {lib_bs[n]:.4f} ms, dq/dk/dv errors " + " ".join(
+                    f"{e_:.2e}/{m:.2e}" for e_, m in lib_errs[n])
+                for n in lib_bwds)
+            + f" {'ok' if ok and path_ok and lib_ok else 'FAIL'}")
+        if not (ok and path_ok and lib_ok):
+            raise SystemExit(f"phase 8b: flash kernels at {label}")
+        del q, k, v, do, got, ref, qt, kt, vt, dot, lib_bwds
+        torch.cuda.empty_cache()
+    return out
+
+
+def _parity_families() -> dict:
+    """(f): one fp32 train_batch of each family at full width and 2
+    layers (MoE at 32 experts), cuda against cpu (:func:`_trainer_parity`)."""
+    from deepspeed_tpu_torch.models import GPT2, OPT, Bert, GPTMoE
+    from deepspeed_tpu_torch.models.clip import (CLIP, CLIPConfig,
+                                                 clip_text_config,
+                                                 clip_vision_config)
+
+    rows, seq = TRAIN_PARITY_ROWS
+    rng = np.random.default_rng(29)
+    out = {}
+    for key, make, gas in (
+            ("gpt2", lambda: GPT2("small", device="cpu", seed=3, n_layers=2),
+             2),
+            ("opt", lambda: OPT("1.3b", device="cpu", seed=3, n_layers=2), 2),
+            ("bert", lambda: Bert("large", device="cpu", seed=3, n_layers=2),
+             2),
+            ("moe", lambda: GPTMoE("350m", device="cpu", seed=3,
+                                   **TRAIN_PARITY_MOE), 2)):
+        model = _draw_vectors(make(), 3)
+        c = model.config
+        batch = _mlm_batch(rng, rows, seq, "cpu") if key == "bert" else {
+            "input_ids": torch.from_numpy(rng.integers(0, c.vocab_size,
+                                                       (rows, seq)))}
+        out[key] = _trainer_parity(
+            f"(f) {key} 2 layers d {c.d_model} fp32, {rows}x{seq} tokens, "
+            f"GAS {gas}", model, batch, gas)
+    c = CLIP_L14
+    cfg = CLIPConfig(clip_text_config(**{**c["text"], "n_layers": 2}),
+                     clip_vision_config(**{**c["vision"], "n_layers": 2}),
+                     proj_dim=c["proj_dim"], image_size=c["image_size"],
+                     patch_size=c["patch_size"])
+    toks, pixels = _clip_inputs(rows, 16)
+    out["clip"] = _trainer_parity(
+        f"(f) CLIP ViT-L/14 widths 2 + 2 layers fp32, {rows} pairs",
+        _draw_vectors(CLIP(cfg, device="cpu", seed=3), 3),
+        {"input_ids": torch.from_numpy(toks),
+         "pixel_values": torch.from_numpy(pixels)}, 1)
+    return out
+
+
+def phase_train_families(card: str) -> dict:
+    """8b: the model families trained on the card through ``initialize``
+    and ``TrainEngine``: fp32 masters from seeded random weights (every
+    bias and norm term drawn), bf16 compute, AdamW (lr 1e-4, weight
+    decay 0.1), clipping 1.0, 2 warm-up then 3 timed steps. (a) GPT-2
+    small, 16 x 1024, GAS 2, and (b) OPT-1.3B, 8 x 512, through the
+    loader; (c) BERT-large MLM, 32 x 512, GAS 2; (d) CLIP ViT-L/14, 64
+    pairs; (e) GPT-MoE 350M+MoE-128 at 2 layers, 4 x 1024; rows 2-4 at
+    each family's shapes; (f) each family fp32 cuda vs cpu."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import GPT2, OPT, Bert
+
+    t0 = time.perf_counter()
+    out = {}
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    fresh()
+    out["gpt2"] = _train_loader_family(
+        "gpt2", _draw_vectors(GPT2("small", seed=0), 0), "GPT-2 small",
+        card, check_batches=True)
+    out["loader_faults"] = _loader_faults()
+    fresh()
+    out["opt"] = _train_loader_family(
+        "opt", _draw_vectors(OPT("1.3b", seed=0), 0), "OPT-1.3B", card,
+        check_batches=False)
+    fresh()
+    model = _draw_vectors(Bert("large", seed=0), 0)
+    c = model.config
+    rows, seq, gas = TRAIN_SHAPES["bert"]
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=_train_cfg(rows, gas))
+    batch = _mlm_batch(np.random.default_rng(22), rows, seq, "cuda")
+    out["bert"] = _train_timed(
+        "BERT-large MLM", engine, itertools.repeat(batch), [c], gas,
+        rows * seq, "tokens", rows * seq * c.flops_per_token(seq), card)
+    del engine, model, batch
+    fresh()
+    out["clip"] = _train_clip(card)
+    fresh()
+    out["moe"] = _train_moe(card)
+    fresh()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out["flash"] = _flash_train_shapes(flush)
+    del flush
+    fresh()
+    out["parity"] = _parity_families()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"train families: phase 8b in {out['seconds']:.1f} s")
+    return out
 
 
 # ------------------------------------------------------ phase 3 (fused)
@@ -6583,6 +7201,7 @@ def main() -> int:
     del engine, batch
     gc.collect()
     torch.cuda.empty_cache()
+    fam_train = phase_train_families(dev["card"])
     phase_zero3_parity()
     fused_launches, fused_wgmma = phase_zero3_training(dev["card"])
     d = kern["timings"]["decode_16x1024"]
@@ -6648,7 +7267,9 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces, "launches": flash_launches[name],
-            "max_abs_err": flash_err[name], "ms": t["ms"],
+            "max_abs_err": max([flash_err[name]] + [
+                v[name]["max_abs_err"] for v in fam_train["flash"].values()]),
+            "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "parity": "ok", "shape": "b4_s2048_hq32_hkv4_d64_bf16_causal",
@@ -6657,6 +7278,16 @@ def main() -> int:
         if name in flash_wgmma:
             entries[-1]["wgmma_launches"] = flash_wgmma[name]
             entries[-1]["mma_sync_ms"] = t["mma_ms"]
+        # 8b: launches in each family's 3 timed training steps, and the
+        # kernel at each family's training shape
+        entries[-1].update(
+            train_family_launches={k: fam_train[k]["launches"][name]
+                                   for k in TRAIN_SHAPES},
+            train_family_wgmma_launches={
+                k: fam_train[k]["wgmma_launches"][name]
+                for k in TRAIN_SHAPES},
+            train_family_timings={k: v[name]
+                                  for k, v in fam_train["flash"].items()})
         if name == "flash_forward":
             # 6h: BERT-large's 10 timed forwards, CLIP's similarity, and
             # row 2 timed at their layer-0 calls

@@ -14,8 +14,10 @@ ZeRO-Inference int8/int4 weights), runs the encoders (BERT and DistilBERT
 MLM logits through the same engine's ``forward``, CLIP's two towers
 through ``models.clip.CLIP``), serves DeepSpeed-MoE's GPT-MoE
 (``models.moe.GPTMoE``: top-k routed expert banks on grouped GEMMs)
-through both engines, trains Llama on one device, and trains
-a ``zero3_blocks`` model with ZeRO stage 3 over several ranks through the
+through both engines, trains every one of these families on one device
+(fed by :class:`~deepspeed_tpu_torch.runtime.dataloader.DataLoader`
+when ``initialize`` is given ``training_data``), and trains a
+``zero3_blocks`` model with ZeRO stage 3 over several ranks through the
 compressed-collective facade:
 
     from deepspeed_tpu_torch.models.gpt2 import GPT2, OPT, GPTNeo
@@ -30,6 +32,13 @@ compressed-collective facade:
     engine, opt, _, sched = deepspeed_tpu_torch.initialize(
         model=Llama("1b"), config={"train_batch_size": 8, ...})
     metrics = engine.train_batch({"input_ids": tokens})
+
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=GPT2("small"), config={"train_batch_size": 16, "seed": 1,
+                                     "bf16": {"enabled": True}, ...},
+        training_data={"input_ids": tokens_np})    # [n, 1024] numpy
+    for batch in loader:                           # on the card
+        metrics = engine.train_batch(batch)
 
     serving = RaggedInferenceEngine(OPT("6.7b", dtype=torch.bfloat16),
                                     RaggedConfig(max_context=2048))
@@ -69,7 +78,7 @@ from .config import Config, ConfigError  # noqa: F401
 from .inference.engine import InferenceConfig, InferenceEngine
 from .models.moe import (GPTMoE, MoETransformer,  # noqa: F401
                          MoETransformerConfig, gpt_moe_config)
-from .models.transformer import Transformer, non_llama_flags
+from .runtime.dataloader import DataLoader, RepeatingLoader  # noqa: F401
 from .runtime.engine import TrainEngine
 
 __version__ = "0.1.0"
@@ -79,6 +88,7 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
                model: Any = None, config: Any = None,
                config_params: Any = None, optimizer: Any = None,
                lr_scheduler: Any = None, training_data: Any = None,
+               collate_fn: Optional[Callable] = None,
                device=None) -> Tuple[TrainEngine, Any, Any, Any]:
     """Bring up a training engine (one device, or ZeRO-3 over the ranks of
     ``init_distributed``); returns ``(engine, optimizer, dataloader,
@@ -86,36 +96,20 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
 
     Pass either ``loss_fn(params, batch) -> loss | (loss, aux)`` plus
     ``params`` (a ``{name: tensor}`` dict), or ``model`` — an object with
-    ``named_parameters()`` and ``loss(batch, params=...)`` (the port's
-    :class:`~deepspeed_tpu_torch.models.transformer.Transformer`, or a
+    ``named_parameters()`` and ``loss(batch, params=...)``: any of the
+    port's models (every decoder flag set, BERT, DistilBERT, CLIP, an MoE
+    model), or a
     :class:`~deepspeed_tpu_torch.parallel.zero.SequentialBlockModel`,
-    whose ``zero3_blocks`` ZeRO stage 3 needs), whose own weights are the
-    initial parameters unless ``params`` is given. ``config`` is a dict or
-    a path to a DeepSpeed-style JSON file. The dataloader
-    (``training_data``) comes with a later slice, and so does training a
-    model off the Llama flag set (GPT-2, OPT, GPT-Neo, ..., and the
-    encoders: BERT, DistilBERT, CLIP's towers) or any Mixture-of-Experts
-    model."""
+    whose ``zero3_blocks`` ZeRO stage 3 needs. The model's own weights
+    are the initial parameters unless ``params`` is given. ``config`` is
+    a dict or a path to a DeepSpeed-style JSON file.
+
+    ``training_data`` (a sequence of samples, an array or a dict of
+    arrays) becomes a :class:`DataLoader` of ``train_batch_size`` global
+    batches on the engine's device, shuffled from the config's ``seed``,
+    collated by ``collate_fn`` and prefetched ``dataloader.
+    prefetch_depth`` deep; it is bound to the engine and returned."""
     cfg = Config.from_any(config if config is not None else config_params)
-    if isinstance(model, MoETransformer):
-        # whatever its flags: a silu_glu / rms / rope MoE has the Llama set
-        raise NotImplementedError(
-            "training a Mixture-of-Experts model (its capacity route and "
-            "aux loss under TrainEngine) comes with a later slice "
-            "(ROADMAP.md, Queue A item 7, the training part); serve it "
-            "with init_inference or the ragged engine")
-    bad = non_llama_flags(model.config) \
-        if isinstance(model, Transformer) else []
-    if bad:
-        raise NotImplementedError(
-            f"training a model with the non-Llama flags {bad} comes with a "
-            f"later slice (ROADMAP.md, Queue A item 7, the training part); "
-            f"serve it with init_inference or the ragged engine")
-    if training_data is not None:
-        raise NotImplementedError(
-            "training_data (runtime/dataloader.py) comes with a later slice "
-            "of deepspeed_tpu_torch (ROADMAP.md, Queue A); pass batches to "
-            "engine.train_batch")
     if loss_fn is None and (model is None or not hasattr(model, "loss")):
         raise ValueError("initialize() needs loss_fn+params, or a model "
                          "exposing .loss()")
@@ -127,7 +121,14 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
     engine = TrainEngine(loss_fn=loss_fn, params=params, config=cfg,
                          model=model, optimizer=optimizer,
                          lr_scheduler=lr_scheduler, device=device)
-    return engine, engine.optimizer, None, engine.lr_schedule
+    dataloader = None
+    if training_data is not None:
+        dataloader = DataLoader(training_data, cfg.train_batch_size,
+                                engine.device, seed=cfg.train_seed,
+                                collate_fn=collate_fn,
+                                prefetch_depth=cfg.dataloader.prefetch_depth)
+        engine.bind_dataloader(dataloader)
+    return engine, engine.optimizer, dataloader, engine.lr_schedule
 
 
 def init_inference(model: Any = None, config: Any = None, *, device=None,

@@ -14,9 +14,9 @@ Ports the parts of ``deepspeed_tpu/config.py`` that the ported paths read:
   and the ``optimizer`` / ``scheduler`` / ``fp16`` / ``bf16`` blocks; the
   ``zero_optimization`` block for stages 0 and 3 (:class:`ZeroConfig`),
   ``comm_compression`` (:class:`CommCompressionConfig`) and ``mesh`` with
-  the ``data`` axis, with the same keys, defaults and checks. ``seed`` is
-  not read: the port's models hold their weights from their own seed
-  (``Llama(..., seed=...)``), so the key gets the unknown-key warning.
+  the ``data`` axis, with the same keys, defaults and checks; ``seed``
+  (``train_seed``, the trainer's random stream and the data loader's
+  shuffle) and the ``dataloader`` block (:class:`DataLoaderConfig`).
   Settings of later slices (ZeRO stages 1-2, hpZ, MiCS, offload, mesh
   axes other than ``data``, pipelining, telemetry, checkpoint saving,
   resilience) raise :class:`ConfigError` naming that slice; other unknown
@@ -336,6 +336,30 @@ def _check_later_slice_blocks(d: Dict[str, Any]) -> None:
 
 
 @dataclass
+class DataLoaderConfig:
+    """The ``dataloader`` block: ``prefetch_depth`` batches are collated
+    and uploaded by a producer thread ahead of the training loop (0 =
+    synchronous loading; 2 = double buffering, the default).
+    ``initialize()`` passes it to the
+    :class:`~deepspeed_tpu_torch.runtime.dataloader.DataLoader` it
+    builds."""
+
+    prefetch_depth: int = 2
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "DataLoaderConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(prefetch_depth=int(_take(d, "prefetch_depth", 2)))
+        if out.prefetch_depth < 0:
+            raise ConfigError(f"dataloader.prefetch_depth must be >= 0, got "
+                              f"{out.prefetch_depth}")
+        _warn_unknown(d, "dataloader")
+        return out
+
+
+@dataclass
 class Config:
     """Top-level typed config of the single-device trainer (the keys this
     slice reads; see the module docstring)."""
@@ -345,6 +369,7 @@ class Config:
     gradient_accumulation_steps: Optional[int] = None
     steps_per_print: int = 10
     gradient_clipping: float = 0.0
+    train_seed: int = 42
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     fp16: FP16Config = field(default_factory=FP16Config)
@@ -353,6 +378,7 @@ class Config:
     comm_compression: CommCompressionConfig = field(
         default_factory=CommCompressionConfig)
     mesh: Dict[str, int] = field(default_factory=dict)
+    dataloader: DataLoaderConfig = field(default_factory=DataLoaderConfig)
 
     @classmethod
     def from_any(cls, config: Union[str, Dict[str, Any], "Config", None]
@@ -389,6 +415,7 @@ class Config:
             gradient_accumulation_steps=intval("gradient_accumulation_steps"),
             steps_per_print=int(_take(d, "steps_per_print", 10)),
             gradient_clipping=float(_take(d, "gradient_clipping", 0.0)),
+            train_seed=int(_take(d, "seed", 42)),
             optimizer=OptimizerConfig.from_dict(_take(d, "optimizer", None)),
             scheduler=SchedulerConfig.from_dict(_take(d, "scheduler", None)),
             fp16=FP16Config.from_dict(_take(d, "fp16", None)),
@@ -397,6 +424,8 @@ class Config:
             comm_compression=CommCompressionConfig.from_dict(
                 _take(d, "comm_compression", None)),
             mesh=_mesh_from_dict(_take(d, "mesh", None)),
+            dataloader=DataLoaderConfig.from_dict(
+                _take(d, "dataloader", None)),
         )
         if cfg.fp16.enabled and cfg.bf16.enabled:
             raise ConfigError("fp16 and bf16 cannot both be enabled")

@@ -15,13 +15,22 @@ Ports ``deepspeed_tpu/models/clip.py``. Both towers run on the shared
 
 The contrastive head L2-normalizes both embeddings and scales their
 products by ``exp(logit_scale)``.
+
+As in the JAX package, every method takes an optional ``params`` mapping
+(default: the model's own weights) keyed by the names of
+``CLIP.named_parameters()`` (``text.*``, ``vision.*``, ``text_proj``,
+``vision_proj``, ``logit_scale``), so the trainer's compute copy is what
+:meth:`CLIP.loss` reads. The towers run without the training flags, as
+the JAX ``loss`` runs them; each layer still runs under remat when its
+config has ``remat`` and autograd records, as the JAX ``_encode``
+checkpoints its blocks whenever ``remat`` is set.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -78,11 +87,14 @@ class CLIPVision(Transformer):
                 "patch_w": (self.n_channels * self.patch_size ** 2, d),
                 "cls_embed": (d,), "pos_embed": (self.n_patches + 1, d)}
 
-    def apply_pixels(self, pixels: torch.Tensor
+    def apply_pixels(self, pixels: torch.Tensor,
+                     params: Optional[Mapping[str, torch.Tensor]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """pixels [b, c, H, W] (float) -> (hidden states [b, 1 + n, d],
-        the post-LN class token [b, d]) in the weights' dtype."""
+        the post-LN class token [b, d]) in the dtype of ``params``'
+        ``layers.0.wq`` (default: the tower's own weights)."""
         c = self.config
+        w = self._params(params)
         p = self.patch_size
         b, ch, H, W = pixels.shape
         if ch != self.n_channels or not H == W == self.image_size:
@@ -90,16 +102,16 @@ class CLIPVision(Transformer):
                              f"{self.image_size}, {self.image_size}], got "
                              f"{tuple(pixels.shape)}")
         hp = H // p
-        dtype = self.layers[0].wq.dtype
+        dtype = w["layers.0.wq"].dtype
         patches = pixels.reshape(b, ch, hp, p, hp, p) \
                         .permute(0, 2, 4, 1, 3, 5) \
                         .reshape(b, hp * hp, ch * p * p).to(dtype)
-        x = patches @ self.patch_w.to(dtype)
-        cls = self.cls_embed.to(dtype).expand(b, 1, c.d_model)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dtype)
-        x = layer_norm(x, self.embed_norm_w, self.embed_norm_b, c.norm_eps)
-        h, _ = self._encode(dict(self.named_parameters()), x)
-        pooled = layer_norm(h[:, 0], self.final_norm_w, self.final_norm_b,
+        x = patches @ w["patch_w"].to(dtype)
+        cls = w["cls_embed"].to(dtype).expand(b, 1, c.d_model)
+        x = torch.cat([cls, x], dim=1) + w["pos_embed"].to(dtype)
+        x = layer_norm(x, w["embed_norm_w"], w["embed_norm_b"], c.norm_eps)
+        h, _ = self._encode(w, x)
+        pooled = layer_norm(h[:, 0], w["final_norm_w"], w["final_norm_b"],
                             c.norm_eps)
         return h, pooled
 
@@ -149,13 +161,29 @@ class CLIP(nn.Module):
     def device(self) -> torch.device:
         return self.text_proj.device
 
-    def encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _params(self, params: Optional[Mapping[str, torch.Tensor]]
+                ) -> Mapping[str, torch.Tensor]:
+        return dict(self.named_parameters()) if params is None else params
+
+    @staticmethod
+    def _tower(params: Mapping[str, torch.Tensor], prefix: str
+               ) -> Dict[str, torch.Tensor]:
+        """The ``prefix.*`` entries of ``params`` with the prefix cut: one
+        tower's ``{name: tensor}`` mapping."""
+        cut = len(prefix) + 1
+        return {k[cut:]: v for k, v in params.items()
+                if k.startswith(prefix + ".")}
+
+    def encode_text(self, tokens: torch.Tensor,
+                    params: Optional[Mapping[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
         """tokens [b, s] -> projected text embedding [b, proj]: the
         final-LN hidden state at the EOS position (the first
         ``eos_token_id``, or the highest id as in the original CLIP)."""
-        t = self.text
-        h = t.apply(tokens, return_hidden=True)
-        h = layer_norm(h, t.final_norm_w, t.final_norm_b,
+        p = self._params(params)
+        tp = self._tower(p, "text")
+        h = self.text.apply(tokens, return_hidden=True, params=tp)
+        h = layer_norm(h, tp["final_norm_w"], tp["final_norm_b"],
                        self.config.text.norm_eps)
         if self.config.eos_token_id is not None:
             eos = torch.argmax((tokens == self.config.eos_token_id).int(),
@@ -163,27 +191,37 @@ class CLIP(nn.Module):
         else:
             eos = torch.argmax(tokens, dim=-1)
         pooled = h[torch.arange(h.shape[0], device=h.device), eos]
-        return pooled @ self.text_proj.to(pooled.dtype)
+        return pooled @ p["text_proj"].to(pooled.dtype)
 
-    def encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
+    def encode_image(self, pixels: torch.Tensor,
+                     params: Optional[Mapping[str, torch.Tensor]] = None
+                     ) -> torch.Tensor:
         """pixels [b, c, H, W] -> projected image embedding [b, proj]."""
-        _, pooled = self.vision.apply_pixels(pixels)
-        return pooled @ self.vision_proj.to(pooled.dtype)
+        p = self._params(params)
+        _, pooled = self.vision.apply_pixels(pixels,
+                                             self._tower(p, "vision"))
+        return pooled @ p["vision_proj"].to(pooled.dtype)
 
-    def similarity(self, tokens: torch.Tensor, pixels: torch.Tensor
+    def similarity(self, tokens: torch.Tensor, pixels: torch.Tensor,
+                   params: Optional[Mapping[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits per text [bt, bi], logits per image [bi, bt])."""
-        t = self.encode_text(tokens)
-        v = self.encode_image(pixels)
+        p = self._params(params)
+        t = self.encode_text(tokens, p)
+        v = self.encode_image(pixels, p)
         t = t / torch.linalg.norm(t, dim=-1, keepdim=True)
         v = v / torch.linalg.norm(v, dim=-1, keepdim=True)
-        lpt = (t @ v.T) * torch.exp(self.logit_scale).to(t.dtype)
+        lpt = (t @ v.T) * torch.exp(p["logit_scale"]).to(t.dtype)
         return lpt, lpt.T
 
-    def loss(self, batch) -> torch.Tensor:
+    def loss(self, batch, params: Optional[Mapping[str, torch.Tensor]] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Symmetric InfoNCE over the in-batch pairs of ``batch``
-        (``input_ids`` [n, s], ``pixel_values`` [n, c, H, W])."""
-        lpt, lpi = self.similarity(batch["input_ids"], batch["pixel_values"])
+        (``input_ids`` [n, s], ``pixel_values`` [n, c, H, W]), a 0-dim
+        tensor in the dtype of ``params``. ``generator`` (the trainer's
+        random stream) is not drawn from: the towers have no noise."""
+        lpt, lpi = self.similarity(batch["input_ids"], batch["pixel_values"],
+                                   params)
         labels = torch.arange(lpt.shape[0], device=lpt.device)[:, None]
         lt = -torch.gather(torch.log_softmax(lpt, -1), -1, labels).mean()
         li = -torch.gather(torch.log_softmax(lpi, -1), -1, labels).mean()

@@ -11,9 +11,10 @@ The model serves through the ragged engine (its ``_core`` runs the
 model's own ``_mlp``, as the JAX engine runs "the MoE override") and the
 v1 engine (``init_inference``, bf16 or int8 / int4 weights), on the
 no-drop route. :meth:`Transformer.loss` takes the training route
-(capacity and drops) and adds the aux loss times ``aux_loss_weight``.
-Training it through ``initialize`` comes with ROADMAP.md Queue A item 7
-(the training part); tensor parallelism over its banks with items 6b
+(capacity and drops, a noisy gate's noise from the ``generator`` that
+the trainer draws a micro-batch) and adds the aux loss times
+``aux_loss_weight``; ``initialize`` trains it on one device. Tensor and
+expert parallelism over its banks come with ROADMAP.md Queue A items 6b
 and 13.
 """
 

@@ -281,8 +281,7 @@ def top_leaves(c: TransformerConfig) -> Tuple[str, ...]:
     return tuple(names)
 
 
-# the flags whose values off the Llama set tensor parallelism and training
-# do not take
+# the flags whose values off the Llama set tensor parallelism does not take
 _LLAMA_FLAGS = {"norm": "rms", "activation": "silu_glu", "position": "rope",
                 "tie_embeddings": False, "use_bias": False, "qkv_bias": False,
                 "attn_o_bias": False, "parallel_residual": False,
@@ -749,17 +748,19 @@ class Transformer(nn.Module):
         each layer runs under
         :func:`~deepspeed_tpu_torch.runtime.activation_checkpointing.checkpoint_wrapper`
         with ``remat_policy``: only its input is kept, and the backward
-        pass runs it again. With ``generator``, layer i draws its noise
-        from a generator seeded with the i-th of ``n_layers`` seeds drawn
-        from it (the JAX per-layer key split), so a replay draws the
-        same. Returns (x, the layers' summed aux loss: 0.0 for dense
-        FFNs)."""
+        pass runs it again. With ``generator`` and a noisy MoE gate, layer
+        i draws its noise from a generator seeded with the i-th of
+        ``n_layers`` seeds drawn from it (the JAX per-layer key split), so
+        a replay draws the same; a model without one draws nothing.
+        Returns (x, the layers' summed aux loss: 0.0 for dense FFNs)."""
         c = self.config
         windows, varying = self._dense_windows(x.shape[1])
         names = layer_leaves(c)
-        seeds = [None] * c.n_layers if generator is None else torch.randint(
-            0, 2 ** 62, (c.n_layers,), generator=generator,
-            device=generator.device).tolist()
+        seeds = [None] * c.n_layers
+        if generator is not None and getattr(c, "noisy_gate_policy", None):
+            seeds = torch.randint(0, 2 ** 62, (c.n_layers,),
+                                  generator=generator,
+                                  device=generator.device).tolist()
 
         def block(x, window, seed, *leaves):
             gen = None if seed is None else \

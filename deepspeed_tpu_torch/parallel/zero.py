@@ -268,9 +268,10 @@ class SequentialBlockModel(nn.Module):
     def _params(self, params) -> Dict[str, Any]:
         return dict(self.named_parameters()) if params is None else params
 
-    def loss(self, batch: Dict[str, torch.Tensor], params=None
-             ) -> torch.Tensor:
-        """The composed (unstaged) loss, ``mean((f(x) - y)^2)``."""
+    def loss(self, batch: Dict[str, torch.Tensor], params=None,
+             generator=None) -> torch.Tensor:
+        """The composed (unstaged) loss, ``mean((f(x) - y)^2)``;
+        ``generator`` (the trainer's random stream) is not drawn from."""
         p = self._params(params)
         h = batch["x"]
         for i in range(self.n_blocks):

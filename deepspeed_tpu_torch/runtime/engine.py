@@ -29,14 +29,22 @@ the model trains in place.
 Loss protocol: ``loss_fn(params, batch) -> loss | (loss, aux)``, where
 ``params`` is the ``{name: tensor}`` compute copy (the names of the model's
 ``named_parameters()``) and ``batch`` a dict of tensors on the engine's
-device. ``initialize(model=...)`` uses ``model.loss(batch, params=...)``.
+device; ``aux`` is dropped from the metrics, as the JAX engine drops it.
+``initialize(model=...)`` uses ``model.loss(batch, params=...)``: any of
+the port's models (every decoder and encoder flag set, CLIP, an MoE
+model). A model's ``loss`` also gets ``generator=``, a fresh one for
+every micro-batch, seeded from the engine's random stream
+(``train_seed``, the JAX engine's ``self.rng`` split per micro-batch; a
+noisy MoE gate draws its noise from it, other models ignore it). The
+stream is a host generator, so drawing from it never waits for the card;
+the draws differ from JAX's. A custom ``loss_fn`` gets no generator.
 
 Stage 3 needs a model with ``zero3_blocks`` trained on its own loss; the
 JAX package's other ZeRO paths (stages 1-2, the GSPMD and qgZ facade paths
 for models without ``zero3_blocks``, hpZ, MiCS, offload) come with later
 slices and raise. So do ``train_steps``, AOT warmup, telemetry, fault
-tolerance, checkpoints and the compat ``forward``/``backward``/``step``
-(ROADMAP.md, Queue A).
+tolerance, checkpoints (which would carry a bound loader's position) and
+the compat ``forward``/``backward``/``step`` (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -83,10 +91,14 @@ class TrainEngine:
             custom_loss = False
 
             def loss_fn(p, batch):
-                return model.loss(batch, params=p)
+                return model.loss(batch, params=p,
+                                  generator=self._next_generator())
         else:
             custom_loss = True
         self.loss_fn = loss_fn
+        # the random stream: one generator a micro-batch is drawn from it
+        self.rng = torch.Generator().manual_seed(config.train_seed)
+        self._dataloader = None
         self.topo = Topology.build(config.mesh)
         set_topology(self.topo)
         dp = self.topo.data_parallel_size
@@ -209,9 +221,24 @@ class TrainEngine:
                 if p.is_floating_point() else p
                 for n, p in self.params.items()}
 
+    def _next_generator(self) -> torch.Generator:
+        """A fresh host generator for one micro-batch, seeded from the
+        stream (the JAX ``rng, sub = split(rng)``). A noisy MoE model
+        seeds each layer's device generator from it, so the remat replay
+        redraws the same noise."""
+        seed = int(torch.randint(0, 2 ** 62, (), generator=self.rng))
+        return torch.Generator().manual_seed(seed)
+
     def _loss(self, params: Params, batch) -> torch.Tensor:
         out = self.loss_fn(params, batch)
         return out[0] if isinstance(out, tuple) else out
+
+    def bind_dataloader(self, loader: Any) -> None:
+        """Bind the loader that feeds this engine (``initialize`` binds the
+        one it builds from ``training_data``); a checkpoint would carry
+        its position (checkpoints come with ROADMAP.md Queue A item
+        10)."""
+        self._dataloader = loader
 
     def _loss_and_grads(self, batch, scale: float):
         """One micro-batch: (fp32 gradients of ``scale * loss`` with respect

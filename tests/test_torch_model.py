@@ -146,8 +146,10 @@ def test_other_flags_raise(where, flag):
     """Every flag of the model core is ported (tests/test_torch_families.py
     and tests/test_torch_encoders.py hold them to JAX); what still raises:
     a model with an encoder flag in the ragged engine (``causal=False``,
-    ``prenorm=False``: C7) or in training (the others), training a
-    non-Llama flag set, and a non-Llama flag set over a model axis."""
+    ``prenorm=False``: C7) and a non-Llama flag set over a model axis.
+    Training takes every flag set now (tests/test_torch_train_families.py
+    and tests/test_torch_train_encoders.py hold it to JAX): one step
+    here."""
     model = Llama("tiny", device="cpu", **{**TINY, **flag})
     if where == "model" and {"causal", "prenorm"} & set(flag):
         with pytest.raises(NotImplementedError, match="C7"):
@@ -158,9 +160,10 @@ def test_other_flags_raise(where, flag):
     if where in ("model", "initialize"):
         import deepspeed_tpu_torch
 
-        with pytest.raises(NotImplementedError, match="training part"):
-            deepspeed_tpu_torch.initialize(
-                model=model, config={"train_batch_size": 2}, device="cpu")
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=model, config={"train_batch_size": 2}, device="cpu")
+        m = engine.train_batch({"input_ids": torch.randint(0, 64, (2, 8))})
+        assert torch.isfinite(m["loss"]) and not m["skipped"]
         return
     topo = SimpleNamespace(model_parallel_size=2)
     with pytest.raises(NotImplementedError, match="item 6b"):
