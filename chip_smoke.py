@@ -210,6 +210,24 @@ CPU path — without a CUDA device the script fails):
    tokens/s, logits cosine and expert agreement against bf16; (d) a
    2-layer full-width model (32 experts) in fp32, cuda against cpu:
    logits within 1e-3, expert flips reported with their gate-logit gaps;
+6j. diffusion: Stable Diffusion 1.5 at full width (UNet 320/640/1280/1280,
+   2 layers a block, 8 heads, cross-attention 768, 859,520,964
+   parameters; VAE 128/256/512/512; the CLIP ViT-L/14 text tower; seeded
+   bf16 weights with every bias and norm term drawn, fp32 latents, so the
+   UNet computes in fp32 with TF32 off): (a) the models, parameter counts
+   and peak memory; (b) 2 seeded prompts and 2 empty rows through the
+   text tower's final-LN states, row 2's launches counted from 0 (12, all
+   on the Hopper forward), held against the plain attention on the card;
+   (c) 50 DDIM steps at guidance 7.5 on 64 x 64 latents and the VAE
+   decode to 2 x 512 x 512 images: ms a step (CUDA events), s an image,
+   operations a step from the flop counter and TFLOP/s against the fp32
+   peak, the same seed twice bitwise; one UNet call with TF32 on (then
+   set back); the VAE encode of a 512 x 512 image; (d) full widths in fp32
+   on 16 x 16 latents, cuda against cpu: a UNet call, the VAE encode and
+   decode, a 3-step pipeline; (e) one denoise step profiled (convolution,
+   GEMM, attention softmax, GroupNorm / elementwise, idle share,
+   launches); (f) a module wrapped by ``from_module`` trains 3 steps
+   through ``initialize``, cuda against cpu;
 6a. inference: ``init_inference(Llama("7b"))`` with int8 weights at group
    256 (path A), then bf16 and int4 weights: 4 prompts of 128 tokens, 32
    new tokens greedy; weight bytes, memory, prefill and decode times,
@@ -253,6 +271,7 @@ The line before the last is the ``kernels`` JSON object; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -1453,27 +1472,14 @@ def phase_profile(eng, prompts, card: str, tag: str = "profile") -> None:
             wall = time.perf_counter() - t0
     finally:
         srv.close(timeout=60)
-    kernels = _device_events(prof)
-    total_us = sum(e.self_device_time_total for e in kernels)
-    if total_us <= 0:
+    d = _device_groups(prof, {"paged_attention": ("paged_",),
+                              "gemm": ("nvjet", "gemm", "xmma", "cutlass")},
+                       wall)
+    if d["busy_us"] <= 0:
         log(f"{tag} [{card}]: torch.profiler recorded no device time: "
             f"kernel breakdown not measured")
         return
-    groups = {"paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
-    for e in kernels:
-        name = e.key.lower()
-        g = "paged_attention" if "paged_" in name else \
-            "gemm" if any(k in name for k in ("nvjet", "gemm", "xmma",
-                                               "cutlass")) else "other"
-        groups[g] += e.self_device_time_total
-    log(f"{tag} [{card}]: profiled wall {wall:.3f} s, device busy "
-        f"{total_us / 1e6:.3f} s, idle share "
-        f"{max(0.0, 1 - total_us / 1e6 / wall):.3f}; device time "
-        + ", ".join(f"{g} {us / 1e3:.1f} ms ({us / total_us:.1%})"
-                    for g, us in groups.items()))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"{tag}: {e.self_device_time_total / 1e3:9.2f} ms "
-            f"x{e.count:<6d} {e.key[:110]}")
+    _log_device_groups(tag, card, "profiled run", wall, d, 8)
 
 
 # --------------------------------------------------------------- phase 6b
@@ -3862,8 +3868,9 @@ def _family_model(preset: str, size: str, seed: int = 0):
 
 def _draw_vectors(model, seed: int):
     """``model`` with every 1-D leaf (biases, norm biases, and the norm
-    weights as 1 + the draw) drawn N(0, 0.02^2) from a generator seeded
-    with ``seed`` on the model's device."""
+    weights, ``*norm_w`` and the diffusion models' ``*.scale``, as 1 + the
+    draw) drawn N(0, 0.02^2) from a generator seeded with ``seed`` on the
+    model's device."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
@@ -3871,7 +3878,8 @@ def _draw_vectors(model, seed: int):
             if p.dim() == 1:
                 noise = torch.randn(p.shape, generator=gen, device=dev,
                                     dtype=torch.float32) * 0.02
-                p.copy_(noise + (1.0 if name.endswith("norm_w") else 0.0))
+                p.copy_(noise + (1.0 if name.endswith(("norm_w", ".scale"))
+                                 else 0.0))
     return model
 
 
@@ -4288,18 +4296,12 @@ def _bert_large(card: str, flush, tol: float) -> dict:
         eng.forward(ids)
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t1
-    total_us, groups, kernels = _device_groups(
-        prof, {"flash": ("flash",),
-               "gemm": ("nvjet", "gemm", "xmma", "cutlass")})
-    if total_us > 0:
-        log(f"encoders: (a) one profiled forward: wall {pwall * 1e3:.2f} ms, "
-            f"device busy {total_us / 1e3:.2f} ms, idle share "
-            f"{max(0.0, 1 - total_us / 1e6 / pwall):.3f}; device time "
-            + ", ".join(f"{g} {us / 1e3:.2f} ms ({us / total_us:.1%})"
-                        for g, us in groups.items()))
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"encoders: {e.self_device_time_total / 1e3:9.3f} ms "
-                f"x{e.count:<5d} {e.key[:110]}")
+    d = _device_groups(prof, {"flash": ("flash",),
+                              "gemm": ("nvjet", "gemm", "xmma", "cutlass")},
+                       pwall)
+    if d["busy_us"] > 0:
+        _log_device_groups("encoders: (a)", card, "one profiled forward",
+                           pwall, d, 8)
     else:
         log("encoders: torch.profiler recorded no device time: breakdown "
             "not measured")
@@ -4631,30 +4633,22 @@ def _moe_puts(model, eng, card: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.flush(uids)
-    total_us, groups, kernels = _device_groups(
+    d = _device_groups(
         prof, {"paged_attention": ("paged_",),
                "grouped_mm": ("group",),
-               "gemm": ("nvjet", "gemm", "xmma", "cutlass", "cublas")})
-    n_launch = sum(e.count for e in kernels)
-    if total_us <= 0:
+               "gemm": ("nvjet", "gemm", "xmma", "cutlass", "cublas")}, wall)
+    if d["busy_us"] <= 0:
         log(f"moe (a) profile [{card}]: torch.profiler recorded no device "
             f"time: breakdown not measured")
     else:
-        log(f"moe (a) profile of a 16-lane decode put [{card}]: wall "
-            f"{wall * 1e3:.3f} ms, {n_launch} kernel launches, device busy "
-            f"{total_us / 1e3:.3f} ms, idle share "
-            f"{max(0.0, 1 - total_us / 1e6 / wall):.3f}; device time "
-            + ", ".join(f"{g} {us / 1e3:.3f} ms ({us / total_us:.1%})"
-                        for g, us in groups.items()))
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-            log(f"moe (a) profile: {e.self_device_time_total / 1e3:9.3f} ms "
-                f"x{e.count:<5d} {e.key[:110]}")
+        _log_device_groups("moe (a) profile", card,
+                           "a 16-lane decode put", wall, d, 6)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     out = {tag: _moe_ffn(model, kept[tag], tag, flush, card)
            for tag in ("decode", "prefill")}
     del flush
-    out["profile"] = {"wall_ms": wall * 1e3, "launches": n_launch,
-                      "busy_ms": total_us / 1e3}
+    out["profile"] = {"wall_ms": wall * 1e3, "launches": d["launches"],
+                      "busy_ms": d["busy_us"] / 1e3}
     return out
 
 
@@ -4889,34 +4883,527 @@ def phase_moe(card: str) -> dict:
     return out
 
 
-def _device_events(prof) -> list:
-    """A profile's device work, its CUDA kernels and memcpys, by name. A
-    ``record_function`` range (``gloo:recv``, ``gloo:send``) is mirrored
-    onto the device timeline as a user annotation spanning the host's
-    wait; it is not device work and is left out, as is any other name
-    that also names a host op."""
-    on_dev, host = [], set()
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            on_dev.append(e)
+# --------------------------------------------------------------- phase 6j
+SD_PROMPTS = 2                     # (b): seeded prompts (+ as many empty)
+SD_LATENT = 64                     # (c): 64 x 64 latents, 512 x 512 images
+SD_GUIDANCE = 7.5
+SD_PARITY_LATENT = 16              # (d): cuda vs cpu, 128 x 128 images
+SD_PARITY_STEPS = 3
+SD_CPU_REL = 1e-4                  # (d): max abs err / max |cpu|, fp32
+# (b): kernel vs plain attention through 12 bf16 layers: the norm of the
+# difference over the norm of the plain states, and the largest element
+# (8 bf16 ulps at the final LN's |x| ~ 4)
+SD_TEXT_TOL = (2e-2, 0.25)
+SD_PREDICTED_S = 45.0              # stated before the first chip run
+SD_PROFILE_GROUPS = {
+    "convolution": ("conv", "fprop", "winograd", "implicit", "cudnn"),
+    "gemm": ("gemm", "nvjet", "cutlass", "cublas", "xmma"),
+    "attention softmax": ("softmax",),
+    "groupnorm / elementwise": ("elementwise", "reduce", "vectorized",
+                                "norm", "cat", "copy", "fill", "index",
+                                "pad", "upsample")}
+
+
+def _sd_ids(seed: int) -> np.ndarray:
+    """[2 * SD_PROMPTS, 77] ids: SD_PROMPTS unconditional rows (the empty
+    prompt: BOS 49406, EOS 49407, zeros), then SD_PROMPTS prompts of a
+    random 5-77 ids, BOS first and EOS last."""
+    rng = np.random.default_rng(seed)
+    toks = np.zeros((2 * SD_PROMPTS, 77), np.int64)
+    toks[:, 0] = 49406
+    toks[:SD_PROMPTS, 1] = 49407
+    for i, n in enumerate(rng.integers(5, 78, SD_PROMPTS)):
+        toks[SD_PROMPTS + i, 1:n - 1] = rng.integers(1, 49406, n - 2)
+        toks[SD_PROMPTS + i, n - 1] = 49407
+    return toks
+
+
+def _sd_models(card: str) -> tuple:
+    """6j (a): SD 1.5's UNet and VAE and the CLIP ViT-L/14 text tower's
+    model, seeded bf16 weights with every bias and norm term drawn."""
+    from deepspeed_tpu_torch.models.clip import (CLIP, CLIPConfig,
+                                                 clip_text_config,
+                                                 clip_vision_config)
+    from deepspeed_tpu_torch.models.diffusion import (AutoencoderKL,
+                                                      UNet2DCondition,
+                                                      UNetConfig, VAEConfig)
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    unet = _draw_vectors(UNet2DCondition(UNetConfig(), dtype=torch.bfloat16,
+                                         seed=0), 0)
+    vae = _draw_vectors(AutoencoderKL(VAEConfig(), dtype=torch.bfloat16,
+                                      seed=1), 1)
+    c = CLIP_L14
+    clip = _draw_vectors(CLIP(CLIPConfig(
+        clip_text_config(**c["text"]), clip_vision_config(**c["vision"]),
+        proj_dim=c["proj_dim"], image_size=c["image_size"],
+        patch_size=c["patch_size"]), dtype=torch.bfloat16, seed=2), 2)
+    torch.cuda.synchronize()
+    counts = {"unet": sum(p.numel() for p in unet.parameters()),
+              "vae": sum(p.numel() for p in vae.parameters()),
+              "text": sum(p.numel() for p in clip.text.parameters())}
+    peak = torch.cuda.max_memory_allocated()
+    ok = counts["unet"] == unet.config.param_count() == 859_520_964
+    log(f"diffusion: (a) SD 1.5 UNet {counts['unet']} params (param_count "
+        f"{unet.config.param_count()}), VAE {counts['vae']}, CLIP ViT-L/14 "
+        f"text tower {counts['text']}, seeded bf16, made in "
+        f"{time.perf_counter() - t0:.1f} s; max_memory_allocated {peak} B "
+        f"[{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("diffusion: the UNet does not count SD 1.5's "
+                         "859,520,964 parameters")
+    return unet, vae, clip, counts
+
+
+def _sd_text(clip, card: str) -> tuple:
+    """6j (b): the prompts' final-LN text states, row 2's launches counted
+    from 0 around the encode, held against the same encode with the plain
+    attention on the card."""
+    ids = torch.from_numpy(_sd_ids(17)).cuda()
+    with torch.inference_mode():
+        clip.text_states(ids)
+        torch.cuda.synchronize()
+        # the main path: the counts from 0 just before, read just after
+        _flash_zero()
+        states = clip.text_states(ids)
+        torch.cuda.synchronize()
+        launches = (fa.flash_forward.launches,
+                    fa.flash_forward.wgmma_launches)
+        cfg = clip.text.config
+        clip.text.config = dataclasses.replace(cfg, use_flash=False)
+        try:
+            plain = clip.text_states(ids)
+        finally:
+            clip.text.config = cfg
+    diff = (states.float() - plain.float())
+    rel = float(diff.norm() / plain.float().norm())
+    err = float(diff.abs().max())
+    n = cfg.n_layers
+    ok = (launches == (n, n) and tuple(states.shape) == (
+        2 * SD_PROMPTS, 77, cfg.d_model) and states.dtype == torch.bfloat16
+        and bool(torch.isfinite(states).all()) and rel <= SD_TEXT_TOL[0]
+        and err <= SD_TEXT_TOL[1])
+    log(f"diffusion: (b) text states {tuple(states.shape)} "
+        f"{str(states.dtype)[6:]} of {SD_PROMPTS} prompts + {SD_PROMPTS} "
+        f"empty: flash launches {launches[0]} (Hopper forward "
+        f"{launches[1]}; {n} expected, causal at 77), vs the plain "
+        f"attention: |diff| / |plain| {rel:.3e} (tol {SD_TEXT_TOL[0]}), "
+        f"max abs err {err:.4f} (tol {SD_TEXT_TOL[1]}) [{card}] "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("diffusion: the text encode failed")
+    return states, launches
+
+
+def _unet_flops(unet, lat2, t, ctx) -> tuple:
+    """(operations, {aten op: operations}) of one UNet call on these
+    inputs, counted by ``torch.utils.flop_counter`` from the convolutions
+    and matmuls it dispatches (2 a multiply-add)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        unet.apply(lat2, t, ctx)
+    by_op = {str(k): float(v)
+             for k, v in counter.get_flop_counts()["Global"].items()}
+    return float(counter.get_total_flops()), by_op
+
+
+def _sd_generate(pipe, ctx: tuple, card: str) -> dict:
+    """6j (c): 50 DDIM steps at guidance 7.5 on 64 x 64 latents, then the
+    decode to 512 x 512, every step between CUDA events; the same seed
+    again through ``pipe(...)`` must give the same image bitwise."""
+    uncond, cond = ctx
+    ts, alpha_t, alpha_prev = pipe.schedule.arrays("cuda")
+    both = torch.cat([uncond, cond], dim=0)
+    gen = torch.Generator(device="cuda")
+    n = len(pipe.schedule.timesteps)
+    with torch.inference_mode():
+        lat = torch.randn(pipe.latent_shape(SD_PROMPTS, SD_LATENT,
+                                            SD_LATENT), device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(99))
+        lat2 = torch.cat([lat, lat])
+        flops, by_op = _unet_flops(pipe.unet, lat2, ts[0], both)
+        pipe.step(lat, ts[0], alpha_t[0], alpha_prev[0], both)   # warm
+        pipe.vae.decode(lat)
+        torch.cuda.synchronize()
+        gen.manual_seed(7)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 2)]
+        t0 = time.perf_counter()
+        lat = torch.randn(pipe.latent_shape(SD_PROMPTS, SD_LATENT,
+                                            SD_LATENT), generator=gen,
+                          device="cuda", dtype=torch.float32)
+        events[0].record()
+        for i in range(n):
+            lat = pipe.step(lat, ts[i], alpha_t[i], alpha_prev[i], both)
+            events[i + 1].record()
+        img = pipe.vae.decode(lat)
+        events[-1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = [events[i].elapsed_time(events[i + 1]) for i in range(n)]
+        decode_ms = events[n].elapsed_time(events[-1])
+        gen.manual_seed(7)
+        again = pipe(cond, uncond, gen, SD_LATENT, SD_LATENT)
+        torch.cuda.synchronize()
+    step_ms = sum(steps) / n
+    out = {"step_ms": step_ms, "step_ms_min": min(steps),
+           "step_ms_max": max(steps), "decode_ms": decode_ms,
+           "wall_s": wall, "s_per_image": wall / SD_PROMPTS,
+           "flops_step": flops, "tflops": flops / step_ms / 1e9,
+           "shape": tuple(img.shape)}
+    up = 2 ** (len(pipe.vae.config.block_out_channels) - 1)   # 8 in SD
+    ok = (tuple(img.shape) == (SD_PROMPTS, up * SD_LATENT, up * SD_LATENT, 3)
+          and bool(torch.isfinite(img).all())
+          and bool(torch.isfinite(lat).all()) and torch.equal(img, again))
+    log(f"diffusion: (c) {n} DDIM steps at guidance {pipe.guidance_scale}, "
+        f"{SD_PROMPTS} images {SD_LATENT} x {SD_LATENT} latents -> "
+        f"{tuple(img.shape)} [{card}]: {step_ms:.2f} ms a step (CUDA "
+        f"events; min {min(steps):.2f}, max {max(steps):.2f}), decode "
+        f"{decode_ms:.2f} ms, {wall:.3f} s wall = "
+        f"{out['s_per_image']:.3f} s an image; {flops:.4e} operations a "
+        f"step (flop counter: "
+        + ", ".join(f"{k} {v:.4e}" for k, v in sorted(by_op.items()))
+        + f") = {out['tflops']:.2f} TFLOP/s, "
+        f"{out['tflops'] * 1e12 / PEAK_OPS_PER_S[torch.float32]:.1%} of "
+        f"the fp32 "
+        f"peak (67 TFLOP/s, TF32 off); finite, the same seed twice bitwise "
+        f"{torch.equal(img, again)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("diffusion: generation failed")
+    return out, img
+
+
+def _sd_timings(pipe, ctx: tuple, img, card: str, flush) -> dict:
+    """6j (c): one UNet call with TF32 on (then set back), and the VAE
+    encode of a 512 x 512 image, timed with CUDA events."""
+    uncond, cond = ctx
+    both = torch.cat([uncond, cond], dim=0)
+    ts, _, _ = pipe.schedule.arrays("cuda")
+    lat2 = torch.randn((2 * SD_PROMPTS, SD_LATENT, SD_LATENT, 4),
+                       device="cuda", generator=torch.Generator(
+                           device="cuda").manual_seed(5))
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    with torch.inference_mode():
+        def unet():
+            return pipe.unet.apply(lat2, ts[0], both)
+        fp32_ms = cuda_ms(unet, 3, flush, warmup=1)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32_ms = cuda_ms(unet, 3, flush, warmup=1)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+        encode_ms = cuda_ms(lambda: pipe.vae.encode(img[:1]), 3, flush,
+                            warmup=1)
+    back = flags == (False, False) == (
+        torch.backends.cuda.matmul.allow_tf32,
+        torch.backends.cudnn.allow_tf32)
+    log(f"diffusion: (c) one UNet call at batch {2 * SD_PROMPTS}: "
+        f"{fp32_ms:.2f} ms fp32 (TF32 off), {tf32_ms:.2f} ms with "
+        f"allow_tf32 on for cuBLAS and cuDNN (off before and set back: "
+        f"{back}); VAE encode of one {tuple(img.shape[1:])} image "
+        f"{encode_ms:.2f} "
+        f"ms [{card}] {'ok' if back else 'FAIL'}")
+    if not back:
+        raise SystemExit("diffusion: TF32 was on before the timing")
+    return {"unet_fp32_ms": fp32_ms, "unet_tf32_ms": tf32_ms,
+            "vae_encode_ms": encode_ms}
+
+
+def _sd_cpu_parity(unet, vae, ctx: tuple, card: str) -> dict:
+    """6j (d): SD's full widths in fp32 on a 16 x 16 latent (128 x 128
+    image), the card's weights on the cpu: one UNet call, the VAE encode
+    and decode, and a 3-step pipeline from the same latents, each within
+    SD_CPU_REL of the cpu's largest magnitude. The card's run again with
+    TF32 on is the control: the check must catch it (one output or more
+    outside the tolerance), or it could not tell a reduced-precision
+    convolution or GEMM from fp32."""
+    import copy
+
+    from deepspeed_tpu_torch.inference.diffusion import (
+        DDIMSchedule, StableDiffusionPipeline)
+
+    t0 = time.perf_counter()
+    # copies of the card's models (a seeded init of the UNet on the host
+    # would draw 860M numbers there first)
+    cpu = {key: copy.deepcopy(m).to("cpu", torch.float32)
+           for key, m in (("unet", unet), ("vae", vae))}
+    uncond, cond = (c[:1].float() for c in ctx)
+    rng = np.random.default_rng(21)
+    hw = SD_PARITY_LATENT
+    up = 2 ** (len(vae.config.block_out_channels) - 1)    # 8 in SD
+    lat = torch.from_numpy(rng.standard_normal((1, hw, hw, 4))
+                           .astype(np.float32))
+    image = torch.from_numpy(rng.uniform(-1, 1, (1, up * hw, up * hw, 3))
+                             .astype(np.float32))
+    t = torch.tensor([981, 1])
+    sched = DDIMSchedule(num_inference_steps=SD_PARITY_STEPS)
+    def run(dev: str) -> dict:
+        u = unet if dev == "cuda" else cpu["unet"]
+        v = vae if dev == "cuda" else cpu["vae"]
+        pipe = StableDiffusionPipeline(u, v, sched, SD_GUIDANCE)
+        with torch.inference_mode():
+            ctx2 = torch.cat([uncond, cond]).to(dev)
+            res = {"unet": u.apply(torch.cat([lat, lat]).to(dev), t.to(dev),
+                                   ctx2),
+                   "vae encode": v.encode(image.to(dev))[0],
+                   "vae decode": v.decode(lat.to(dev)),
+                   "3-step": pipe.denoise(lat.to(dev), cond.to(dev),
+                                          uncond.to(dev))}
+        return {k: x.float().cpu() for k, x in res.items()}
+
+    ref, got = run("cpu"), run("cuda")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = run("cuda")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    del cpu
+    scale = {k: float(r.abs().max()) for k, r in ref.items()}
+    errs = {k: float((got[k] - r).abs().max()) for k, r in ref.items()}
+    ctrl = {k: float((tf32[k] - r).abs().max()) for k, r in ref.items()}
+    ok = all(bool(torch.isfinite(got[k]).all())
+             and errs[k] <= SD_CPU_REL * scale[k] for k in ref)
+    caught = any(ctrl[k] > SD_CPU_REL * scale[k] for k in ref)
+    log(f"diffusion: (d) full widths in fp32 at {hw} x {hw} latents, cuda "
+        f"vs cpu max abs err / max |cpu|: "
+        + ", ".join(f"{k} {errs[k] / scale[k]:.3e} ({errs[k]:.3e} of "
+                    f"{scale[k]:.3e})" for k in ref)
+        + f" (tol {SD_CPU_REL}) {'ok' if ok else 'FAIL'}; control, the "
+        f"card's with TF32 on: "
+        + ", ".join(f"{k} {ctrl[k] / scale[k]:.3e}" for k in ref)
+        + f" ({'caught' if caught else 'NOT caught: FAIL'}) [{card}] "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        raise SystemExit("diffusion: cuda disagrees with cpu")
+    if not caught:
+        raise SystemExit("diffusion: the cuda-vs-cpu tolerance lets TF32 "
+                         "through")
+    return {k: (errs[k], scale[k], ctrl[k]) for k in ref}
+
+
+def _sd_profile(pipe, ctx: tuple, card: str) -> dict:
+    """6j (e): one denoise step under torch.profiler: device time by
+    group, launches, and the device's idle share of the step's wall
+    time (``_device_groups``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    uncond, cond = ctx
+    both = torch.cat([uncond, cond], dim=0)
+    ts, alpha_t, alpha_prev = pipe.schedule.arrays("cuda")
+    lat = torch.randn((SD_PROMPTS, SD_LATENT, SD_LATENT, 4), device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(3))
+    with torch.inference_mode():
+        pipe.step(lat, ts[0], alpha_t[0], alpha_prev[0], both)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe.step(lat, ts[0], alpha_t[0], alpha_prev[0], both)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    d = _device_groups(prof, SD_PROFILE_GROUPS, wall)
+    if d["busy_us"] <= 0:
+        log(f"diffusion: (e) torch.profiler recorded no device time "
+            f"[{card}]: breakdown not measured")
+        return {}
+    # did cuDNN keep the channels_last layout (an NHWC-contiguous output)?
+    from deepspeed_tpu_torch.models.diffusion import conv2d
+    with torch.inference_mode():
+        nhwc = conv2d(torch.cat([lat, lat]),
+                      pipe.unet["conv_in"]).is_contiguous()
+    _log_device_groups("diffusion: (e)", card, "one denoise step profiled",
+                       wall, d, 10)
+    log(f"diffusion: (e) conv outputs NHWC-contiguous {nhwc}")
+    return {"wall_ms": wall * 1e3, "busy_ms": d["busy_us"] / 1e3,
+            "launches": d["launches"], "idle_share": d["idle_share"],
+            "groups_ms": {g: us / 1e3 for g, us in d["groups"].items()}}
+
+
+class _BatchMLP(torch.nn.Module):
+    """A foreign module for 6j (f): ``batch["x"]`` through Linear 256-512,
+    GELU, Linear 512-16."""
+
+    def __init__(self):
+        super().__init__()
+        self.net = torch.nn.Sequential(torch.nn.Linear(256, 512),
+                                       torch.nn.GELU(),
+                                       torch.nn.Linear(512, 16))
+
+    def forward(self, batch):
+        return self.net(batch["x"])
+
+
+def _sd_from_module(card: str) -> list:
+    """6j (f): a seeded two-layer MLP wrapped by ``from_module`` trains 3
+    AdamW steps on one batch through ``initialize``, on the card and on
+    the cpu in fp32 (TF32 off): the loss falls, cuda within 1e-5 of
+    cpu."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.api import from_module
+
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32))
+    cfg = {"train_batch_size": 64,
+           "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
+
+    def run(dev):
+        torch.manual_seed(0)
+        net = _BatchMLP().to(dev)
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=from_module(net, lambda out, b: torch.mean(
+                torch.square(out - b["y"]))), config=cfg, device=dev)
+        batch = {"x": x.to(dev), "y": y.to(dev)}
+        return [float(eng.train_batch(batch)["loss"]) for _ in range(3)]
+
+    card_run, cpu_run = run("cuda"), run("cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_run, cpu_run))
+    ok = card_run[2] < card_run[0] and rel <= 1e-5
+    log(f"diffusion: (f) from_module MLP 256-512-16, mean squared error, 3 "
+        f"AdamW steps: cuda losses {card_run}, cpu {cpu_run}, max rel diff "
+        f"{rel:.2e} (tol 1e-5) [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("diffusion: from_module training failed")
+    return card_run
+
+
+def phase_diffusion(card: str) -> dict:
+    """6j: Stable Diffusion 1.5 at full width on one card (UNet
+    320/640/1280/1280, 2 layers a block, 8 heads, cross-attention 768;
+    VAE 128/256/512/512; the CLIP ViT-L/14 text tower), seeded bf16
+    weights, fp32 latents (the UNet computes in fp32, TF32 off): (a) the
+    models and their parameter counts; (b) 2 prompts and 2 empty rows
+    through the text tower, row 2's launches counted from 0; (c) 50 DDIM
+    steps at guidance 7.5 on 64 x 64 latents and the decode to 512 x 512,
+    timed, twice bitwise; a UNet call with TF32 on; the VAE encode; (d)
+    cuda against cpu at full width on 16 x 16 latents; (e) one profiled
+    denoise step; (f) ``from_module`` training."""
+    from deepspeed_tpu_torch.inference.diffusion import (
+        DDIMSchedule, StableDiffusionPipeline)
+
+    t0 = time.perf_counter()
+    log(f"diffusion: phase 6j predicted {SD_PREDICTED_S:.0f} s")
+    unet, vae, clip, counts = _sd_models(card)
+    states, launches = _sd_text(clip, card)
+    del clip
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = (states[:SD_PROMPTS], states[SD_PROMPTS:])
+    pipe = StableDiffusionPipeline(unet, vae, DDIMSchedule(), SD_GUIDANCE)
+    torch.cuda.reset_peak_memory_stats()
+    gen, img = _sd_generate(pipe, ctx, card)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"diffusion: (c) max_memory_allocated over the generation {peak} B "
+        f"[{card}]")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    timings = _sd_timings(pipe, ctx, img, card, flush)
+    del flush
+    prof = _sd_profile(pipe, ctx, card)
+    parity = _sd_cpu_parity(unet, vae, ctx, card)
+    del pipe, unet, vae, img
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = _sd_from_module(card)
+    out = {"launches": launches[0], "wgmma_launches": launches[1],
+           "params": counts, "peak": peak, **gen, **timings,
+           "profile": prof, "cpu_parity": parity, "from_module": losses,
+           "seconds": time.perf_counter() - t0}
+    log(f"diffusion: phase 6j in {out['seconds']:.1f} s (predicted "
+        f"{SD_PREDICTED_S:.0f} s)")
+    return out
+
+
+def _covered_us(spans: list) -> float:
+    """The time (start us, end us, ...) spans in start order cover,
+    overlaps counted once."""
+    total, start, end = 0.0, None, None
+    for s, e, *_ in spans:
+        if end is None or s > end:
+            total += 0.0 if end is None else end - start
+            start, end = s, e
         else:
-            host.add(e.key)
-    return [e for e in on_dev if not getattr(e, "is_user_annotation", False)
-            and e.key not in host and not e.key.startswith("gloo:")]
+            end = max(end, e)
+    return total + (0.0 if end is None else end - start)
 
 
-def _device_groups(prof, groups: dict) -> tuple:
-    """(total device us, {group: us}) of a profile's CUDA kernels, each
-    kernel in the first group whose keys its name contains, else
-    "other"."""
-    kernels = _device_events(prof)
-    out = {g: 0.0 for g in list(groups) + ["other"]}
-    for e in kernels:
-        name = e.key.lower()
-        g = next((g for g, keys in groups.items()
-                  if any(k in name for k in keys)), "other")
-        out[g] += e.self_device_time_total
-    return sum(out.values()), out, kernels
+def _device_groups(prof, groups, wall_s: float) -> dict:
+    """A profile's device work, its CUDA kernels and memcpys, as distinct
+    (start us, end us, name) spans: ``prof.events()`` can hold a span
+    twice and spans can overlap, so summing durations (what
+    ``key_averages``' ``self_device_time_total`` does) can exceed the
+    wall. Returns ``busy_us``, the time the spans cover; ``idle_share``,
+    1 - busy / ``wall_s``; ``launches``, the distinct spans; ``groups``,
+    {group: us its spans cover}, a span in the first group whose keys its
+    lower-cased name contains (``groups`` a dict of key tuples) or in
+    ``groups(lower-cased name)`` (a callable), else "other"; ``by_name``,
+    [(name, us summed over its spans, spans)], most time first; and
+    ``events_us``, every event's duration summed as ``key_averages``
+    sums it, printed beside ``busy_us`` only. A ``record_function``
+    range (``gloo:recv``, ``gloo:send``) is mirrored onto the device
+    timeline as a user annotation spanning the host's wait; it is not
+    device work and is left out, as is any other name that also names a
+    host op."""
+    host, events = set(), []
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            host.add(e.name)
+        elif not getattr(e, "is_user_annotation", False):
+            events.append(e)
+    events = [e for e in events
+              if e.name not in host and not e.name.startswith("gloo:")]
+    spans = sorted({(e.time_range.start, e.time_range.end, e.name)
+                    for e in events})
+    if callable(groups):
+        names, of = [], groups
+    else:
+        names = list(groups)
+
+        def of(low: str) -> str:
+            return next((g for g, keys in groups.items()
+                         if any(k in low for k in keys)), "other")
+    of_group: dict = {g: [] for g in names + ["other"]}
+    by_name: dict = {}
+    for sp in spans:
+        of_group.setdefault(of(sp[2].lower()), []).append(sp)
+        t, n = by_name.get(sp[2], (0.0, 0))
+        by_name[sp[2]] = (t + sp[1] - sp[0], n + 1)
+    busy = _covered_us(spans)
+    return {"busy_us": busy,
+            "idle_share": max(0.0, 1 - busy / 1e6 / wall_s),
+            "launches": len(spans),
+            "groups": {g: _covered_us(sp) for g, sp in of_group.items()},
+            "by_name": sorted(((k, t, n) for k, (t, n) in by_name.items()),
+                              key=lambda x: -x[1]),
+            "events_us": sum(e.time_range.end - e.time_range.start
+                             for e in events)}
+
+
+def _log_device_groups(tag: str, card: str, what: str, wall_s: float,
+                       d: dict, top: int) -> None:
+    """One line of ``d`` (``_device_groups``) for ``what``, then its
+    ``top`` kernels by time."""
+    busy = d["busy_us"]
+    log(f"{tag} [{card}]: {what}: wall {wall_s * 1e3:.3f} ms, "
+        f"{d['launches']} kernel launches (distinct spans), device busy "
+        f"{busy / 1e3:.3f} ms covered (events summed "
+        f"{d['events_us'] / 1e3:.3f} ms), idle share "
+        f"{d['idle_share']:.3f}; device time covered "
+        + ", ".join(f"{g} {us / 1e3:.3f} ms ({us / busy:.1%})"
+                    for g, us in d["groups"].items()))
+    for name, us, n in d["by_name"][:top]:
+        log(f"{tag}: {us / 1e3:9.3f} ms x{n:<6d} {name[:110]}")
 
 
 def phase_inference(card: str) -> dict:
@@ -5028,24 +5515,15 @@ def _profile_decode_step(eng, ids, card: str, mode: str) -> None:
             eng._step_logits(nxt, caches, ids.shape[1])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    total_us, groups, kernels = _device_groups(
+    d = _device_groups(
         prof, {"dequantize": ("dequantize",),
-               "gemm": ("nvjet", "gemm", "xmma", "cutlass", "cublas")})
-    if total_us <= 0:
+               "gemm": ("nvjet", "gemm", "xmma", "cutlass", "cublas")}, wall)
+    if d["busy_us"] <= 0:
         log(f"inference profile {mode} [{card}]: torch.profiler recorded no "
             f"device time: breakdown not measured")
         return
-    n_launch = sum(e.count for e in kernels)
-    log(f"inference profile {mode} decode step [{card}]: wall "
-        f"{wall * 1e3:.3f} ms, {n_launch} kernel launches, device busy "
-        f"{total_us / 1e3:.3f} ms, idle share "
-        f"{max(0.0, 1 - total_us / 1e6 / wall):.3f}; device time "
-        + ", ".join(f"{g} {us / 1e3:.3f} ms ({us / total_us:.1%})"
-                    for g, us in groups.items()))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"inference profile {mode}: "
-            f"{e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
-            f"{e.key[:110]}")
+    _log_device_groups(f"inference profile {mode}", card, "decode step",
+                       wall, d, 6)
 
 
 # ------------------------------------------------------- phase 3 (flash)
@@ -5529,33 +6007,16 @@ def phase_training_profile(engine, batch, card: str,
         engine.train_batch(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = _device_events(prof)
-    total_us = sum(e.self_device_time_total for e in kernels)
-    if total_us <= 0:
+    d = _device_groups(
+        prof, {"flash_forward": ("flash_forward",),
+               "flash_dq": ("flash_backward_dq",),
+               "flash_dkv": ("flash_backward_dkv",),
+               "gemm": ("nvjet", "gemm", "xmma", "cutlass", "cublas")}, wall)
+    if d["busy_us"] <= 0:
         log(f"{label} profile [{card}]: torch.profiler recorded no device "
             f"time: breakdown not measured")
         return
-    groups = {"flash_forward": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
-              "gemm": 0.0, "other": 0.0}
-    for e in kernels:
-        name = e.key.lower()
-        g = ("flash_forward" if "flash_forward" in name else
-             "flash_dq" if "flash_backward_dq" in name else
-             "flash_dkv" if "flash_backward_dkv" in name else
-             "gemm" if any(x in name for x in ("nvjet", "gemm", "xmma",
-                                               "cutlass", "cublas"))
-             else "other")
-        groups[g] += e.self_device_time_total
-    log(f"{label} profile [{card}]: profiled step wall {wall:.3f} s, "
-        f"{len(kernels)} kernel names, {sum(e.count for e in kernels)} "
-        f"device events, device "
-        f"busy {total_us / 1e6:.3f} s, idle share "
-        f"{max(0.0, 1 - total_us / 1e6 / wall):.3f}; device time "
-        + ", ".join(f"{g} {us / 1e3:.1f} ms ({us / total_us:.1%})"
-                    for g, us in groups.items()))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"{label} profile: {e.self_device_time_total / 1e3:9.2f} ms "
-            f"x{e.count:<6d} {e.key[:110]}")
+    _log_device_groups(f"{label} profile", card, "profiled step", wall, d, 8)
 
 
 # --------------------------------------------------------------- phase 8b
@@ -6911,36 +7372,34 @@ def _profile_zero3_step(engine, batch) -> dict:
         engine.train_batch(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = _device_events(prof)
-    total_us = sum(e.self_device_time_total for e in kernels)
-    groups = {g: 0.0 for g in ("dequant_matmul", "matmul_pallas",
-                               "matmul_quantize", "quantize", "dequantize",
-                               "gemm", "memcpy", "other")}
-    for e in kernels:
-        n = e.key.lower()
+
+    def group(n: str) -> str:
         # mma_kernel<T, Tile<BM, BN, ..>, TRANS_A, MODE, QUANT, VEC>: the
         # quantize epilogue's QUANT is true; MODE 0 is the dense twin; the
         # Hopper kernel is wgmma_kernel<T, MODE, TRANS_A, QBITS>, QBITS > 0
         # for row 9
         mma = re.search(r"mma_kernel<[^,]+, [^>]+>, (\w+), (\d), (\w+)", n)
         hop = re.search(r"wgmma_kernel<[^,]+, (\d), \w+, (\d)>", n)
-        g = ("matmul_quantize" if hop and hop.group(2) != "0"
-             else "matmul_pallas" if hop and hop.group(1) == "0"
-             else "dequant_matmul" if hop
-             else "matmul_quantize" if mma and mma.group(3) == "true"
-             else "matmul_pallas" if mma and mma.group(2) == "0"
-             else "dequant_matmul" if mma
-             else "dequantize" if "dequantize_kernel" in n
-             else "quantize" if "quantize_kernel" in n
-             else "memcpy" if "memcpy" in n
-             else "gemm" if any(x in n for x in ("nvjet", "gemm", "xmma",
-                                                  "cutlass", "cublas"))
-             else "other")
-        groups[g] += e.self_device_time_total
-    top = [(e.key[:100], e.self_device_time_total / 1e3, e.count)
-           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]]
-    return {"wall_s": wall, "busy_s": total_us / 1e6, "groups_ms":
-            {g: us / 1e3 for g, us in groups.items()}, "top": top}
+        return ("matmul_quantize" if hop and hop.group(2) != "0"
+                else "matmul_pallas" if hop and hop.group(1) == "0"
+                else "dequant_matmul" if hop
+                else "matmul_quantize" if mma and mma.group(3) == "true"
+                else "matmul_pallas" if mma and mma.group(2) == "0"
+                else "dequant_matmul" if mma
+                else "dequantize" if "dequantize_kernel" in n
+                else "quantize" if "quantize_kernel" in n
+                else "memcpy" if "memcpy" in n
+                else "gemm" if any(x in n for x in ("nvjet", "gemm", "xmma",
+                                                     "cutlass", "cublas"))
+                else "other")
+
+    d = _device_groups(prof, group, wall)
+    return {"wall_s": wall, "busy_s": d["busy_us"] / 1e6,
+            "idle_share": d["idle_share"], "launches": d["launches"],
+            "events_s": d["events_us"] / 1e6,
+            "groups_ms": {g: us / 1e3 for g, us in d["groups"].items()},
+            "top": [(name[:100], us / 1e3, n)
+                    for name, us, n in d["by_name"][:8]]}
 
 
 RANK_JOBS = {"parity": _job_parity, "train": _job_train, "tp": _job_tp}
@@ -7118,9 +7577,10 @@ def phase_zero3_training(card: str) -> dict:
     prof = res[0]["compressed_fused"]["profile"]
     if prof["busy_s"] > 0:
         log(f"zero3 profile [{card}] compressed fused rank 0: wall "
-            f"{prof['wall_s']:.3f} s, device busy {prof['busy_s']:.3f} s, "
-            f"idle share {max(0.0, 1 - prof['busy_s'] / prof['wall_s']):.3f}"
-            f"; device time " + ", ".join(
+            f"{prof['wall_s']:.3f} s, {prof['launches']} kernel launches "
+            f"(distinct spans), device busy {prof['busy_s']:.3f} s covered "
+            f"(events summed {prof['events_s']:.3f} s), idle share "
+            f"{prof['idle_share']:.3f}; device time covered " + ", ".join(
                 f"{g} {ms:.1f} ms" for g, ms in prof["groups_ms"].items()))
         for key, ms, count in prof["top"]:
             log(f"zero3 profile: {ms:9.2f} ms x{count:<5d} {key}")
@@ -7194,6 +7654,7 @@ def main() -> int:
     fam = phase_families(dev["card"])
     enc = phase_encoders(dev["card"])
     moe = phase_moe(dev["card"])
+    sd = phase_diffusion(dev["card"])
     quant_launches = phase_inference(dev["card"])
     phase_trainer_parity()
     engine, batch, flash_launches, flash_wgmma = phase_training(dev["card"])
@@ -7297,6 +7758,8 @@ def main() -> int:
                 bert_wgmma_launches=bert["wgmma_launches"],
                 clip_launches=clip["launches"],
                 clip_wgmma_launches=clip["wgmma_launches"],
+                sd_text_launches=sd["launches"],
+                sd_text_wgmma_launches=sd["wgmma_launches"],
                 encoder_timings={"bert_large": bert["row2"],
                                  "clip_vision": clip["row2_vision"],
                                  "clip_text": clip["row2_text"]})

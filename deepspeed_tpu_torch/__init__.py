@@ -16,7 +16,10 @@ through ``models.clip.CLIP``), serves DeepSpeed-MoE's GPT-MoE
 (``models.moe.GPTMoE``: top-k routed expert banks on grouped GEMMs)
 through both engines, trains every one of these families on one device
 (fed by :class:`~deepspeed_tpu_torch.runtime.dataloader.DataLoader`
-when ``initialize`` is given ``training_data``), and trains a
+when ``initialize`` is given ``training_data``), and any ``nn.Module``
+wrapped by ``models.api.from_module``, generates images with Stable
+Diffusion (``models.diffusion``'s UNet and VAE, the DDIM pipeline of
+``inference.diffusion`` fed by CLIP's text tower), and trains a
 ``zero3_blocks`` model with ZeRO stage 3 over several ranks through the
 compressed-collective facade:
 
@@ -51,6 +54,16 @@ compressed-collective facade:
 
     moe = RaggedInferenceEngine(GPTMoE("350m", 128, dtype=torch.bfloat16),
                                 RaggedConfig(max_context=2048))
+
+    from deepspeed_tpu_torch.inference.diffusion import (
+        StableDiffusionPipeline)
+    from deepspeed_tpu_torch.models import (AutoencoderKL, CLIP,
+                                            UNet2DCondition)
+    states = clip.text_states(torch.cat([empty_ids, prompt_ids]))
+    sd = StableDiffusionPipeline(UNet2DCondition(dtype=torch.bfloat16),
+                                 AutoencoderKL(dtype=torch.bfloat16))
+    images = sd(states[b:], states[:b],             # [b, 512, 512, 3]
+                torch.Generator("cuda").manual_seed(0))
 
     from deepspeed_tpu_torch.models.bert import Bert
     mlm = deepspeed_tpu_torch.init_inference(

@@ -14,7 +14,14 @@ The config decides the leaf set (``models.transformer.layer_leaves`` /
 its own ``pos_embed`` (``Transformer.top_shapes``). A ``CLIP`` tree nests
 the two towers' trees: ``{"text": ..., "vision": ..., "text_proj",
 "vision_proj", "logit_scale"}``. Both packages keep the ``[in, out]``
-layout, so a leaf copies over as it is. The port imports nothing
+layout, so a leaf copies over as it is. The diffusion models'
+(``UNet2DCondition``, ``AutoencoderKL``) trees are nested dicts with lists
+(``down_blocks[i].resnets[j]``, ``attentions``, ``downsamplers``,
+``upsamplers``, ``mid_block``, ``encoder`` / ``decoder``, ``quant_conv``,
+``post_quant_conv``); the port names each leaf by its path
+(``down_blocks.0.resnets.1.conv1.kernel``), keeps the ``[in, out]``
+linears and stores conv kernels OIHW where JAX has HWIO, so a conv
+kernel is transposed on the way in and out. The port imports nothing
 of JAX for this: the caller converts the tree to nested dicts of numpy
 arrays first (``jax.tree_util.tree_map(np.asarray, params)``).
 
@@ -46,6 +53,8 @@ import torch
 
 from ..inference.ragged import KVExport
 from ..models.clip import CLIP
+from ..models.diffusion import (AutoencoderKL, UNet2DCondition, flat_tree,
+                                nest_tree)
 from ..models.transformer import Transformer, layer_leaves
 from ..parallel.mesh import shard_slices
 from ..parallel.zero import SequentialBlockModel
@@ -61,15 +70,34 @@ def _copy(dst: torch.Tensor, src: Any, name: str) -> None:
 
 
 _CLIP_TOP = ("text_proj", "vision_proj", "logit_scale")
+_Diffusion = (UNet2DCondition, AutoencoderKL)
+
+
+def _load_tree(model, params_np: Dict[str, Any]):
+    """A diffusion model's weights from its JAX tree: leaves by path, the
+    HWIO conv kernels transposed to the port's OIHW."""
+    own, theirs = dict(model.named_parameters()), flat_tree(params_np)
+    if set(own) != set(theirs):
+        raise ValueError(f"JAX params do not match the model: missing "
+                         f"{sorted(set(own) - set(theirs))}, unexpected "
+                         f"{sorted(set(theirs) - set(own))}")
+    for name, dst in own.items():
+        arr = np.asarray(theirs[name])
+        _copy(dst, arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr,
+              name)
+    return model
 
 
 @torch.no_grad()
-def load_jax_params(model: Union[Transformer, CLIP],
-                    params_np: Dict[str, Any]) -> Union[Transformer, CLIP]:
+def load_jax_params(model: Union[Transformer, CLIP, UNet2DCondition,
+                                 AutoencoderKL],
+                    params_np: Dict[str, Any]):
     """Copy ``params_np`` (nested dicts of numpy arrays in the JAX
     package's layout) into ``model``'s weights, in place, on the model's
     device and in its dtype. Missing or extra leaves and shape mismatches
     raise. Returns ``model``."""
+    if isinstance(model, _Diffusion):
+        return _load_tree(model, params_np)
     if isinstance(model, CLIP):
         keys = {"text", "vision", *_CLIP_TOP}
         if set(params_np) != keys:
@@ -168,14 +196,24 @@ def _arr(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def export_params(params: Union[Transformer, CLIP,
-                                Mapping[str, torch.Tensor]]
+def export_params(params: Union[Transformer, CLIP, UNet2DCondition,
+                                AutoencoderKL, Mapping[str, torch.Tensor]]
                   ) -> Dict[str, Any]:
     """The inverse of :func:`load_jax_params`: a model's weights (or a
     ``{name: tensor}`` dict with the names of its ``named_parameters()``,
     such as a ``TrainEngine``'s ``params``) as nested dicts of fp32 numpy
     arrays in the JAX package's layout, layer leaves stacked
-    ``[n_layers, ...]``; a ``CLIP``'s as its nested tree."""
+    ``[n_layers, ...]``; a ``CLIP``'s as its nested tree; a diffusion
+    model's as its tree with HWIO conv kernels (and the UNet's empty
+    ``attentions`` lists of blocks without attention)."""
+    if isinstance(params, _Diffusion):
+        tree = nest_tree({name: _arr(t).transpose(2, 3, 1, 0)
+                          if t.dim() == 4 else _arr(t)
+                          for name, t in params.named_parameters()})
+        if isinstance(params, UNet2DCondition):
+            for blk in tree["down_blocks"] + tree["up_blocks"]:
+                blk.setdefault("attentions", [])
+        return tree
     if isinstance(params, CLIP):
         return {"text": export_params(params.text),
                 "vision": export_params(params.vision),

@@ -174,6 +174,16 @@ class CLIP(nn.Module):
         return {k[cut:]: v for k, v in params.items()
                 if k.startswith(prefix + ".")}
 
+    def text_states(self, tokens: torch.Tensor,
+                    params: Optional[Mapping[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+        """tokens [b, s] -> the text tower's final-LN hidden states [b, s,
+        d_text]: what a Stable Diffusion UNet cross-attends to."""
+        tp = self._tower(self._params(params), "text")
+        h = self.text.apply(tokens, return_hidden=True, params=tp)
+        return layer_norm(h, tp["final_norm_w"], tp["final_norm_b"],
+                          self.config.text.norm_eps)
+
     def encode_text(self, tokens: torch.Tensor,
                     params: Optional[Mapping[str, torch.Tensor]] = None
                     ) -> torch.Tensor:
@@ -181,10 +191,7 @@ class CLIP(nn.Module):
         final-LN hidden state at the EOS position (the first
         ``eos_token_id``, or the highest id as in the original CLIP)."""
         p = self._params(params)
-        tp = self._tower(p, "text")
-        h = self.text.apply(tokens, return_hidden=True, params=tp)
-        h = layer_norm(h, tp["final_norm_w"], tp["final_norm_b"],
-                       self.config.text.norm_eps)
+        h = self.text_states(tokens, p)
         if self.config.eos_token_id is not None:
             eos = torch.argmax((tokens == self.config.eos_token_id).int(),
                                dim=-1)
