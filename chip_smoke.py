@@ -273,6 +273,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -1932,6 +1933,7 @@ def phase_speculative(model, card: str) -> dict:
             "split_launches": spec["counts"]["split_launches"],
             "int8_launches": int8_launches, "bf16": t_bf16, "int8": t_int8,
             "handoff": handoff, "spec_stats": stats,
+            "prompts": prompts, "streams": [list(r.tokens) for r in sreqs],
             "err": {"none": verify["err"], "int8": verify_q["err"]}}
 
 
@@ -1988,8 +1990,7 @@ def _streams_ok(eng, prompts, got, ref, err: float, n: int = 32) -> tuple:
         if g == r:
             same += 1
             continue
-        j = next((k for k, (x, y) in enumerate(zip(g, r)) if x != y),
-                 min(len(g), len(r)))
+        j = _first_diff(g, r)
         ties.append((i, j, _near_tie(eng, p, r, j)))
     ok = (all(len(g) == n for g in got)
           and all(gap <= 2 * err for _, _, gap in ties))
@@ -2981,6 +2982,7 @@ def phase_fleet(model, card: str, err: dict) -> dict:
 
 
 # --------------------------------------------------------------- phase 6e
+REGION_LAYERS = 8             # Llama-2-7B's 32 layers cut (time)
 REGION_FLEET = {"replicas": 2, "router": "prefix_affinity"}
 REGION_DISAGG = {"disaggregated": True, "prefill_replicas": 1,
                  "replicas": 1, "respawn": False}
@@ -3240,7 +3242,8 @@ def _region_rollout(model, counter, cfg, ref_eng, err: float,
     from deepspeed_tpu_torch.resilience.clock import SimClock
     from deepspeed_tpu_torch.serving import TERMINAL_PHASES, Region
 
-    v2 = Llama("7b", dtype=torch.bfloat16, seed=2)
+    v2 = Llama("7b", dtype=torch.bfloat16, seed=2,
+               n_layers=model.config.n_layers)
     models = {1: model, 2: v2}
     rng = np.random.default_rng(12)
     pool = [rng.integers(1, 32000, int(n)).tolist()
@@ -3443,6 +3446,21 @@ def phase_region(model, card: str, err: dict) -> dict:
 # --------------------------------------------------------------- phase 6f
 TP_WORLD = 2
 TP_DECODE_SHAPE = (4, 5504, 4096)   # v1 TP decode: x [4, d_ff / 2] . w_down
+TP_OPT_DECODE_SHAPE = (4, 8192, 4096)   # (f): OPT-6.7B's
+TP_DEQUANT_SHAPE = (4096, 8192)     # (f): an OPT-6.7B w_up shard, int8
+TP_OPT_SHAPE = dict(REPLICA_SHAPE, max_context=2048)    # OPT's max_seq_len
+TP_MOE_LAYERS = 4                   # (i): 350M+MoE-128's 24 layers cut
+# (i): fp32, then bf16 (the dtype 6i serves in; a rank's w_down partials
+# stay fp32 through the group's sum in both)
+TP_MOE_DTYPES = (torch.float32, torch.bfloat16)
+# (i): GPT-2's 50257 ids padded as Megatron-DeepSpeed pads them for a model
+# axis of 2 (to a multiple of 128 x 2): an odd vocab does not shard
+TP_MOE_VOCAB = 50432
+TP_MOE_SHAPE = dict(REPLICA_SHAPE, max_context=2048)
+TP_MOE_REQUESTS = 4
+TP_HANDOFF_TOKENS = 300             # (h): the handed-off prompt
+TP_PREFIX_TOKENS = 72               # (h): the prefix tier's prompt
+TP_PREDICTED_S = 200.0              # stated in PERF.md before the first run
 
 
 class _TPMeter:
@@ -3532,16 +3550,20 @@ def _record_paged(kept: dict, quantized: bool):
     return undo
 
 
-def _tp_serve(eng, prompts, meter, tag: str, warm: bool) -> dict:
-    """ServingEngine on the controller over the TP engine (the workers in
-    ``serve_worker``): a warm-up request, then the paged counters, the
-    meter and the peak memory set to 0 on every rank, then ``prompts`` x
-    32 new tokens. Each rank then holds layer 0's recorded paged call
-    against the plain version at its own shape. Returns this rank's
+def _tp_serve(eng, prompts, meter, tag: str, warm: bool,
+              serving: Optional[dict] = None, timed: bool = True) -> dict:
+    """ServingEngine (``serving``, default ``REPLICA_SERVING``) on the
+    controller over the TP engine (the workers in ``serve_worker``): a
+    warm-up request, then the paged counters, the meter and the peak
+    memory set to 0 on every rank, then ``prompts`` x 32 new tokens, the
+    controller's verify puts (``put_spec``) counted. Each rank then holds
+    layer 0's recorded paged call against the plain version at its own
+    shape; with ``timed`` the controller times it. Returns this rank's
     numbers."""
     from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.serving.server import ServingEngine
 
+    serving = serving or REPLICA_SERVING
     if warm:
         if eng.is_controller:
             srv = ServingEngine(eng, REPLICA_SERVING)
@@ -3561,7 +3583,14 @@ def _tp_serve(eng, prompts, meter, tag: str, warm: bool) -> dict:
     out: dict = {}
     try:
         if eng.is_controller:
-            srv = ServingEngine(eng, REPLICA_SERVING)
+            verify, real_spec = [0], eng.put_spec
+
+            def put_spec(*a):
+                verify[0] += 1
+                return real_spec(*a)
+
+            eng.put_spec = put_spec
+            srv = ServingEngine(eng, serving)
             t1 = time.perf_counter()
             reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
             for r in reqs:
@@ -3570,11 +3599,12 @@ def _tp_serve(eng, prompts, meter, tag: str, warm: bool) -> dict:
             out["wall"] = time.perf_counter() - t1
             out.update(meter.summary())
             srv.close(timeout=60)
+            del eng.put_spec
             out.update(streams=[list(r.tokens) for r in reqs],
                        states=[r.state.value for r in reqs],
                        ttft=sorted(r.ttft_s for r in reqs
                                    if r.ttft_s is not None),
-                       leaks=srv.block_leaks(),
+                       leaks=srv.block_leaks(), verify_puts=verify[0],
                        errors=[r.error for r in reqs if r.error])
         else:
             out["replayed"] = eng.serve_worker()
@@ -3592,7 +3622,7 @@ def _tp_serve(eng, prompts, meter, tag: str, warm: bool) -> dict:
     out["max_abs_err"] = _paged_twice(
         f"tp_{tag}_put_rank{rank} hq={k['q'].shape[1]} "
         f"hkv={k['kp'].shape[1]}", *args, 0, work=k["work"], **k["quant"])
-    if eng.is_controller:
+    if eng.is_controller and timed:
         flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                             device="cuda")
         out["timing"] = _time_paged(f"tp_{tag}_put rank 0", *args, flush,
@@ -3602,14 +3632,325 @@ def _tp_serve(eng, prompts, meter, tag: str, warm: bool) -> dict:
     return out
 
 
-def _job_tp(rank, world, device, prompts, ids, new):
-    """A rank of phase 6f: the seed-0 Llama-2-7B built at full width (one
-    rank at a time) and cut to this rank's shard, then (a) TP serving over
-    a bf16 pool, (b) over an int8 pool, (c) v1 ``init_inference`` with
-    ``tensor_parallel`` and the fused backend (plain SPMD)."""
+def _one_at_a_time(rank: int, world: int, build):
+    """``build()`` on each rank in turn (the others wait at a barrier), so
+    that one full-width model at a time is on the card. Returns this
+    rank's result."""
+    from deepspeed_tpu_torch.comm import comm
+
+    got = None
+    for r in range(world):
+        if r == rank:
+            got = build()
+            gc.collect()
+            torch.cuda.empty_cache()
+        comm.barrier()
+    return got
+
+
+def _same_export(a, b) -> bool:
+    """Two ``KVExport`` s with the same tokens and bitwise the same pages
+    and scales."""
+    pairs = [(a.k_pages, b.k_pages), (a.v_pages, b.v_pages),
+             (a.k_scales, b.k_scales), (a.v_scales, b.v_scales)]
+    return (a.tokens == b.tokens and a.seen == b.seen
+            and all((x is None and y is None) or (
+                x is not None and y is not None and torch.equal(x, y))
+                for x, y in pairs))
+
+
+def _tp_handoff(model, topo, path: str) -> dict:
+    """6f (h) on a rank. The controller imports the single-card engine's
+    export (``to_tp.pt``), re-exports it (bitwise the import) and decodes
+    the rest; then prefills the same prompt, exports it (``from_tp.pt``,
+    for the single-card engine). Then a prefix-cached TP engine with a
+    cold tier: ``export_prefix``, the cache dropped (each evicted entry
+    spilled through a ``gather_pages`` record), ``import_prefix`` (its
+    re-export bitwise), dropped again, and the prompt served again, its
+    prefix re-admitted from the cold tier. Workers replay."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine,
+                                                      block_balance_report)
+    from deepspeed_tpu_torch.serving.kvtier import ColdTier
+
+    out: dict = {}
+    cfg = dict(n_kv_blocks=REPLICA_PAGES, **REPLICA_SHAPE)
+    eng = RaggedInferenceEngine(model, RaggedConfig(**cfg), topology=topo)
+    if not eng.is_controller:
+        out["replayed"] = eng.serve_worker()
+    else:
+        got = torch.load(os.path.join(path, "to_tp.pt"), weights_only=False)
+        x1, first, prompt = got["export"], got["first"], got["prompt"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.import_kv(7, x1)
+        torch.cuda.synchronize()
+        out["import_s"] = time.perf_counter() - t0
+        out["to_tp_bitwise"] = _same_export(x1, eng.export_kv(7))
+        out["to_tp"] = [first] + eng.decode_steps({7: first}, 31)[7]
+        eng.flush([7])
+        first2 = int(np.argmax(_resolve(eng, [8], [prompt])[8]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x2 = eng.export_kv(8)
+        out["export_s"] = time.perf_counter() - t0
+        out["export_bytes"] = x2.nbytes
+        eng.flush([8])
+        torch.save({"export": x2, "first": first2},
+                   os.path.join(path, "from_tp.pt"))
+        out["leaks"] = block_balance_report(eng)["problems"]
+        eng.stop_workers()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = RaggedInferenceEngine(model, RaggedConfig(
+        enable_prefix_cache=True, **cfg), topology=topo)
+    if not eng.is_controller:
+        out["prefix_replayed"] = eng.serve_worker()
+        return out
+    eng.enable_kv_tier(member="tp", cold_tier=ColdTier(REPLICA_PAGES))
+    prompt = prompt[:TP_PREFIX_TOKENS]
+    first = eng.generate({1: prompt}, max_new_tokens=32)[1]
+    t0 = time.perf_counter()
+    pe = eng.export_prefix(prompt)
+    export_s = time.perf_counter() - t0
+    eng.prefix_cache.drop_all(eng.allocator)
+    spills = eng.kvtier_cold_spills
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adopted = eng.import_prefix(pe)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    again = eng.export_prefix(prompt)
+    bitwise = all(torch.equal(x, y) for x, y in zip(
+        pe.pages + (pe.scales or ()), again.pages + (again.scales or ())))
+    eng.prefix_cache.drop_all(eng.allocator)
+    second = eng.generate({2: prompt}, max_new_tokens=32)[2]
+    out["prefix"] = {"first": first, "second": second, "pages": pe.n_pages,
+                     "bytes": pe.wire_bytes, "export_s": export_s,
+                     "import_s": import_s, "spills": spills,
+                     "adopted": adopted, "bitwise": bitwise,
+                     "checksum": pe.verify(),
+                     "readmits": eng.kvtier_cold_readmits,
+                     "leaks": block_balance_report(eng)["problems"]}
+    eng.stop_workers()
+    return out
+
+
+def _moe_greedy(model, eng, prompts, n: int = 32) -> dict:
+    """Greedy streams of ``prompts`` driven by puts (the prompts until
+    prefilled, then one token a put), with each generated position's
+    top-two logit gap, every expert-bank call's top-k experts and fp32
+    gate logits on the put's real lanes (the padding lanes after them
+    carry no token) and each put's lanes as ``(uid, first position,
+    tokens)`` runs. On the TP controller the workers replay each put."""
+    sink: list = []
+    undo = _moe_choices(model, sink)
+    puts, real, lanes = [0], eng.put, []
+    real_tel = eng._record_step_telemetry
+
+    def put(uids, toks):
+        puts[0] += 1
+        return real(uids, toks)
+
+    def tel(sched):
+        # after the put: each sequence's seen already counts its take
+        lanes.append([(seq.uid, seq.seen - take, take)
+                      for seq, take in sched])
+        return real_tel(sched)
+
+    eng._record_step_telemetry = tel
+
+    uids = list(range(40_000, 40_000 + len(prompts)))
+    streams = {u: [] for u in uids}
+    gaps = {u: [] for u in uids}
+    eng.put = put
+    try:
+        rows = _resolve(eng, uids, prompts)
+        for step in range(n):
+            for u in uids:
+                top2 = np.sort(rows[u])[-2:]
+                gaps[u].append(float(top2[1] - top2[0]))
+                streams[u].append(int(np.argmax(rows[u])))
+            if step < n - 1:
+                logits = eng.put(uids, [[streams[u][-1]] for u in uids])
+                rows = dict(zip(uids, logits))
+        eng.flush(uids)
+    finally:
+        del eng.put, eng._record_step_telemetry
+        undo()
+    n_layers = model.config.n_layers
+    real_lanes = [sum(take for *_, take in put) for put in lanes]
+    return {"streams": [streams[u] for u in uids],
+            "gaps": [gaps[u] for u in uids],
+            "choices": [topi.numpy()[:real_lanes[k // n_layers]]
+                        for k, (topi, _) in enumerate(sink)],
+            "logits": [g.numpy()[:real_lanes[k // n_layers]]
+                       for k, (_, g) in enumerate(sink)],
+            "lanes": lanes, "puts": puts[0]}
+
+
+def _tp_moe(rank, world, topo, prompts, dtype) -> dict:
+    """6f (i) on a rank: 350M+MoE-128 at full width, depth cut to
+    ``TP_MOE_LAYERS``, in ``dtype``, every norm vector drawn
+    (``_draw_vectors``; the preset has no biases), built one rank at a
+    time; rank 0 first serves the full model alone (the TP-1 reference:
+    streams, gaps, experts), then every rank cuts it (``d_ff / 2`` of
+    every expert) and the TP engine serves the same puts twice. Counts this
+    rank's grouped GEMMs by route (``_grouped_mm``, and the loop that
+    keeps a narrower dtype's ``w_down`` partials fp32) and digests its
+    expert choices."""
+    from deepspeed_tpu_torch.checkpoint.jax_params import shard_params
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.models.moe import GPTMoE
+    from deepspeed_tpu_torch.parallel import moe as moe_mod
+
+    cfg = RaggedConfig(n_kv_blocks=REPLICA_PAGES,
+                       **dict(TP_MOE_SHAPE, dtype=dtype))
+    out: dict = {}
+
+    def build():
+        full = _draw_vectors(GPTMoE(*MOE_PRESET, n_layers=TP_MOE_LAYERS,
+                                    vocab_size=TP_MOE_VOCAB, dtype=dtype,
+                                    seed=0), 0)
+        if rank == 0:
+            ref = RaggedInferenceEngine(full, cfg)
+            out["ref"] = _moe_greedy(full, ref, prompts)
+            del ref
+        return shard_params(full, topo)
+
+    model = _one_at_a_time(rank, world, build)
+    grouped, wide, real = [0], [0], moe_mod.grouped_mm
+
+    def counted(a, b, sizes, route=None, out_dtype=None):
+        if a.shape[0] > 0:
+            grouped[0] += (route or moe_mod.grouped_route(
+                a, b, out_dtype)) == "grouped"
+            wide[0] += out_dtype not in (None, a.dtype)
+        return real(a, b, sizes, route, out_dtype)
+
+    moe_mod.grouped_mm = counted
+    # every rank's top-k experts of every call (padding lanes too): the
+    # ranks must route alike
+    routes: list = []
+    undo = _moe_choices(model, routes)
+    try:
+        eng = RaggedInferenceEngine(model, cfg, topology=topo)
+        if eng.is_controller:
+            out["tp"] = _moe_greedy(model, eng, prompts)
+            # the same puts again: the TP run repeats bitwise
+            out["again"] = _moe_greedy(model, eng, prompts)
+            eng.stop_workers()
+        else:
+            out["replayed"] = eng.serve_worker()
+    finally:
+        moe_mod.grouped_mm = real
+        undo()
+    out["routes"] = (len(routes), hashlib.sha256(b"".join(
+        topi.numpy().tobytes() for topi, _ in routes)).hexdigest())
+    out["grouped"], out["wide"] = grouped[0], wide[0]
+    out["puts"] = out["tp"]["puts"] + out["again"]["puts"] if rank == 0 \
+        else out["replayed"]["core"]
+    return out
+
+
+def _digest(t: torch.Tensor) -> tuple:
+    """An exact fingerprint of a 2-byte tensor's bits, on its device: the
+    sum of its 16-bit words and their sum weighted by position, in int64,
+    so two processes compare a shard without moving it."""
+    w = t.contiguous().view(torch.int16).reshape(-1)
+    total = weighted = 0
+    step = 1 << 26
+    for i in range(0, w.numel(), step):
+        c = w[i:i + step].to(torch.int64)
+        pos = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+        total += int(c.sum())
+        weighted += int((c * pos).sum())
+    return total, weighted
+
+
+def _tp_opt(rank, world, topo, meter, args) -> dict:
+    """6f (e) and (f) on a rank. OPT-6.7B built twice a rank and cut, one
+    rank at a time (every bias and norm drawn, as 6g). ``init_inference(
+    tensor_parallel=2, kernel_backend="pallas", quant=FAMILY_V1_QUANT)``
+    on the first cut, on both ranks together: each shard quantized (row
+    5) in its full leaf's blocks (a straddled one would be gathered over
+    the model group first); the second cut serves the ragged engine.
+    (e) 6g's requests through ``ServingEngine`` over a 512-page bf16 TP
+    engine
+    (``_tp_serve``); (f) the v1 engine's 32-token generate of 4 x 128
+    prompts, row 6 and row 8 launches counted, and a digest of every
+    dequantized shard."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.checkpoint.jax_params import shard_params
     from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.telemetry.registry import (MetricsRegistry,
+                                                        get_registry,
+                                                        set_registry)
+
+    cut, shard = _one_at_a_time(rank, world, lambda: tuple(
+        shard_params(_family_model("opt", "6.7b"), topo) for _ in range(2)))
+    qk.quantize_blockwise.launches = 0
+    comm.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v1 = deepspeed_tpu_torch.init_inference(
+        cut, {"tensor_parallel": world, "kernel_backend": "pallas",
+              "dtype": "bfloat16", "temperature": 0.0,
+              "quant": FAMILY_V1_QUANT})
+    torch.cuda.synchronize()
+    built = {"quantize": qk.quantize_blockwise.launches,
+             "v1_built_s": time.perf_counter() - t0}
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = meter.wrap(RaggedInferenceEngine(shard, RaggedConfig(
+        n_kv_blocks=REPLICA_PAGES, **TP_OPT_SHAPE), topology=topo))
+    out = {"opt": _tp_serve(eng, args["prompts"], meter, "opt", warm=True)}
+    del eng, shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    ids = args["ids"]
+    v1.generate(ids, max_new_tokens=2)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_registry(MetricsRegistry())
+    fc.matmul_pallas.launches = fc.matmul_pallas.wgmma_launches = 0
+    d0 = qk.dequantize_blockwise.launches
+    meter.reset()
+    t1 = time.perf_counter()
+    tokens = v1.generate(ids, max_new_tokens=32)
+    torch.cuda.synchronize()
+    out["opt_v1"] = {
+        **built, "ids": tokens, "wall": time.perf_counter() - t1,
+        "dequantize": qk.dequantize_blockwise.launches - d0,
+        "fused": get_registry().counter(
+            "comm/facade/fused/decode_mlp_all_reduce").value,
+        "launches": fc.matmul_pallas.launches,
+        "wgmma_launches": fc.matmul_pallas.wgmma_launches,
+        "coll_s": meter.coll_s, "n_coll": meter.n_coll,
+        "bound": v1.model._comm_backend is not None,
+        "leaves": len(v1._wq_shapes),
+        "blocks": sorted(set(v1._wq_blocks.values())),
+        "param_bytes": v1.param_bytes(),
+        "peak": torch.cuda.max_memory_allocated(),
+        "digests": {n: _digest(v1._leaf(n)) for n in sorted(v1._wq_shapes)}}
+    return out
+
+
+def _job_tp(rank, world, device, prompts, ids, new, more):
+    """A rank of phase 6f: the seed-0 Llama-2-7B built at full width (one
+    rank at a time) and cut to this rank's shard, then (a) TP serving over
+    a bf16 pool, (b) over an int8 pool, (g) speculative serving of 6b's
+    requests over a bf16 pool, (h) the hand-off and the prefix tier, (c)
+    v1 ``init_inference`` with ``tensor_parallel`` and the fused backend
+    (plain SPMD); then OPT-6.7B (e, f, :func:`_tp_opt`) and 350M+MoE-128
+    (i, :func:`_tp_moe`)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint.jax_params import shard_params
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                       RaggedInferenceEngine)
     from deepspeed_tpu_torch.models.llama import Llama
@@ -3620,27 +3961,32 @@ def _job_tp(rank, world, device, prompts, ids, new):
 
     t0 = time.perf_counter()
     topo = Topology.build({"model": world})
-    model = None
-    for r in range(world):          # one full-width model at a time
-        if r == rank:
-            model = shard_params(Llama("7b", dtype=torch.bfloat16, seed=0),
-                                 topo)
-            gc.collect()
-            torch.cuda.empty_cache()
-        comm.barrier()
+    model = _one_at_a_time(rank, world, lambda: shard_params(
+        Llama("7b", dtype=torch.bfloat16, seed=0), topo))
     out = {"built_s": time.perf_counter() - t0,
            "weight_bytes": sum(p.numel() * p.element_size()
                                for p in model.parameters())}
     meter = _TPMeter(model.config.n_layers)
-    for tag, kvq, reqs in (("bf16", "none", prompts),
-                           ("int8", "int8", prompts[:4])):
+    spec_serving = {**REPLICA_SERVING, **SPEC_SERVING}
+    for tag, kvq, reqs, serving in (
+            ("bf16", "none", prompts, None),
+            ("int8", "int8", prompts[:4], None),
+            ("spec", "none", more["spec_prompts"], spec_serving)):
+        t1 = time.perf_counter()
         eng = meter.wrap(RaggedInferenceEngine(
             model, RaggedConfig(n_kv_blocks=REPLICA_PAGES, kv_quant=kvq,
                                 **REPLICA_SHAPE), topology=topo))
-        out[tag] = _tp_serve(eng, reqs, meter, tag, warm=tag == "bf16")
+        out[tag] = _tp_serve(eng, reqs, meter, tag, warm=tag == "bf16",
+                             serving=serving, timed=tag != "spec")
+        out[tag]["seconds"] = time.perf_counter() - t1
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["handoff"] = _tp_handoff(model, topo, more["handoff"])
+    out["handoff"]["seconds"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
     eng = deepspeed_tpu_torch.init_inference(
         model, {"tensor_parallel": world, "kernel_backend": "pallas",
                 "dtype": "bfloat16", "temperature": 0.0})
@@ -3661,15 +4007,31 @@ def _job_tp(rank, world, device, prompts, ids, new):
                  "coll_s": meter.coll_s, "n_coll": meter.n_coll,
                  "bound": model._comm_backend is not None,
                  "peak": torch.cuda.max_memory_allocated()}
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out.update(_tp_opt(rank, world, topo, meter, more["opt"]))
+    out["opt_seconds"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    for dtype in TP_MOE_DTYPES:
+        key = "moe_" + str(dtype)[6:]
+        out[key] = _tp_moe(rank, world, topo, more["moe"], dtype)
+        out[key]["seconds"] = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
     return out
 
 
-def _tp_decode_matmul(card: str) -> dict:
-    """6f (d): row 8 (``matmul_pallas``) at the v1 TP decode MLP's shape,
-    x [4, 5504] . w_down's shard [5504, 4096] in bf16, against the plain
-    version, then timed (L2 flushed) beside its bound and
-    ``torch.mm(x, w, out_dtype=torch.float32)``."""
-    m, k, n = TP_DECODE_SHAPE
+def _tp_decode_matmul(card: str, shape: tuple, tag: str) -> dict:
+    """Row 8 (``matmul_pallas``) at a v1 TP decode MLP's shape, x [m, k]
+    . w_down's shard [k, n] in bf16 (6f (d): Llama-2-7B's, (f):
+    OPT-6.7B's), against the plain version, then timed (L2 flushed)
+    beside its bound and ``torch.mm(x, w, out_dtype=torch.float32)``."""
+    m, k, n = shape
     gen = torch.Generator(device="cuda").manual_seed(13)
     x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn(k, n, generator=gen, device="cuda")
@@ -3699,7 +4061,7 @@ def _tp_decode_matmul(card: str) -> dict:
                    ops / PEAK_OPS_PER_S[torch.bfloat16]) * 1e3
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
         ops / PEAK_OPS_PER_S[torch.bfloat16] else "operations"
-    log(f"tp (d) [{card}]: matmul_pallas [{m}, {k}] x [{k}, {n}] bf16 on "
+    log(f"tp ({tag}) [{card}]: matmul_pallas [{m}, {k}] x [{k}, {n}] bf16 on "
         f"{'the Hopper (wgmma) kernel' if hopper else 'the mma.sync kernel (wgmma_path refuses it)'}"
         f": max_abs_err {err:.3e} (max |plain| {scale:.3e}, rel tol "
         f"{FUSED_REL}), twice bitwise {torch.equal(got, again)}; kernel "
@@ -3708,30 +4070,205 @@ def _tp_decode_matmul(card: str) -> dict:
         f"({bound_by}, {nbytes} B, {ops:.3e} ops), "
         f"{nbytes / min(k1, k2) / 1e6:.1f} GB/s {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit("row 8 at the TP decode shape failed")
+        raise SystemExit(f"row 8 at the TP decode shape {shape} failed")
     return {"shape": f"{m}x{k}x{n}_bf16", "ms": min(k1, k2),
             "plain_ms": min(p1, p2), "library_ms": min(l1, l2),
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
             "hopper": bool(hopper)}
 
 
-def phase_tp(model, card: str, err: dict, prompts, ref: dict) -> dict:
+def _tp_dequant_timing(card: str) -> dict:
+    """Row 6 at an OPT-6.7B ``w_up`` shard, [4096, 8192] int8 at block 256
+    (what 6f (f) dequantizes for a layer on a rank): bitwise against the
+    plain version, timed beside its bound (bf16 out, int8 and fp32 scales
+    in, at 3.35 TB/s)."""
+    rows, cols = TP_DEQUANT_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn(rows, cols, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, s = qk.quantize_blockwise(x, bits=8, block=256)
+    got = qk.dequantize_blockwise(q, s, block=256, dtype=torch.bfloat16)
+    same = bool(torch.equal(got, qk.dequantize_blockwise_reference(
+        q, s, 256, torch.bfloat16)))
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def kern():
+        return qk.dequantize_blockwise(q, s, block=256, dtype=torch.bfloat16)
+
+    def plain():
+        return qk.dequantize_blockwise_reference(q, s, 256, torch.bfloat16)
+
+    p1, k1, k2, p2 = (cuda_ms(plain, 3, flush), cuda_ms(kern, 20, flush),
+                      cuda_ms(kern, 20, flush), cuda_ms(plain, 3, flush))
+    del flush
+    nbytes = x.numel() * 2 + q.numel() + s.numel() * 4
+    ops = float(QUANT_KERNELS["dequantize_blockwise"][2]) * x.numel()
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"shape": f"{rows}x{cols}_int8_block256", "ms": min(k1, k2),
+           "plain_ms": min(p1, p2), "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes",
+           "max_abs_err": 0.0}
+    log(f"tp (f) [{card}]: dequantize_blockwise [{rows}, {cols}] int8 block "
+        f"256 -> bf16: bitwise the plain version {same}; kernel "
+        f"{k1:.4f}/{k2:.4f} ms plain {p1:.4f}/{p2:.4f} ms bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}, {nbytes} B); "
+        f"{nbytes / min(k1, k2) / 1e6:.1f} GB/s {'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("row 6 at the OPT shard shape disagrees")
+    return out
+
+
+def _tp_straddle(model, card: str) -> bool:
+    """6f (f): Llama-2-7B's ``lm_head`` [4096, 32000] quantized at full
+    width (row 5, block 256), each TP 2 rank's slice cut as the v1 engine
+    cuts it (16000 columns a row: 62.5 blocks, re-blocked at 128) and
+    dequantized (row 6 at block 128), bitwise the slice of the full
+    leaf's dequantize at block 256."""
+    from deepspeed_tpu_torch.inference.engine import local_blocks
+
+    w = model.lm_head.contiguous()
+    q, s = qk.quantize_blockwise(w, bits=8, block=256)
+    full = qk.dequantize_blockwise(q, s, block=256, dtype=torch.bfloat16)
+    spec, cols = model.leaf_spec("lm_head"), w.shape[1] // TP_WORLD
+    same, blocks = True, []
+    for r in range(TP_WORLD):
+        pq, ps, g = local_blocks(q, s, tuple(w.shape), spec, TP_WORLD, r,
+                                 256, 8)
+        got = qk.dequantize_blockwise(pq, ps, block=g, dtype=torch.bfloat16)
+        same &= bool(torch.equal(got, full[:, r * cols:(r + 1) * cols]))
+        blocks.append(g)
+    log(f"tp (f) [{card}]: Llama-2-7B lm_head [4096, 32000] int8 at block "
+        f"256, cut for {TP_WORLD} ranks ({cols} columns a row: "
+        f"{cols / 256} blocks) and re-blocked at {blocks}: each rank's "
+        f"dequantized slice bitwise the one-card leaf's {same} "
+        f"{'ok' if same else 'FAIL'}")
+    del q, s, full
+    return same
+
+
+def _handoff_to_tp(model, path: str, prompt) -> dict:
+    """6f (h), the single-card side before the ranks start: the
+    uninterrupted 32-token stream of ``prompt`` and an export of it
+    prefilled, saved for the TP controller (``to_tp.pt``)."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+
+    eng = RaggedInferenceEngine(model, RaggedConfig(
+        n_kv_blocks=REPLICA_PAGES, **REPLICA_SHAPE))
+    ref = eng.generate({1: prompt}, max_new_tokens=32)[1]
+    first = int(np.argmax(_resolve(eng, [2], [prompt])[2]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = eng.export_kv(2)
+    export_s = time.perf_counter() - t0
+    eng.flush([2])
+    torch.save({"export": x, "first": first, "prompt": prompt},
+               os.path.join(path, "to_tp.pt"))
+    return {"ref": ref, "export_s": export_s, "bytes": x.nbytes}
+
+
+def _handoff_from_tp(eng, path: str) -> dict:
+    """6f (h), the single-card side after the ranks: import the TP
+    controller's export (``from_tp.pt``), re-export it (bitwise the
+    import) and decode the rest."""
+    got = torch.load(os.path.join(path, "from_tp.pt"), weights_only=False)
+    x, first = got["export"], got["first"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.import_kv(9, x)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    bitwise = _same_export(x, eng.export_kv(9))
+    stream = [first] + eng.decode_steps({9: first}, 31)[9]
+    eng.flush([9])
+    return {"stream": stream, "bitwise": bitwise, "import_s": import_s}
+
+
+def _first_diff(got, ref) -> Optional[int]:
+    """The first position where two streams differ (the shorter one's
+    length where one is a prefix of the other); None where equal."""
+    return next((k for k, (x, y) in enumerate(zip(got, ref)) if x != y),
+                None if len(got) == len(ref) else min(len(got), len(ref)))
+
+
+def _tp_counts_ok(res, tag: str, counter: str, n_layers: int, card: str,
+                  letter: str, tiles: bool) -> bool:
+    """Every rank's paged launches of a TP serving run: one a layer a put,
+    tile / split launches a layer for each put that ran them, the same
+    puts on every rank; logged. Returns whether all held."""
+    ctrl = res[0][tag]
+    good = True
+    for r, rr in enumerate(res):
+        x = rr[tag]
+        cn = x["counts"]
+        rank_ok = (cn[counter] == n_layers * x["calls"] and x["calls"] > 0
+                   and cn["tile_launches"] == n_layers * x["tile"]
+                   and cn["split_launches"] == n_layers * x["split"]
+                   and x["odd"] == 0 and x["calls"] == ctrl["calls"]
+                   and (x["tile"] > 0) == tiles)
+        good = good and rank_ok
+        log(f"tp ({letter}) {tag} rank {r} [{card}]: "
+            f"{x['calls']} puts, paged_attention launches {cn} "
+            f"({n_layers} x puts = {n_layers * x['calls']}; {x['tile']} "
+            f"puts on tile items, {x['split']} on lane items, {x['odd']} "
+            f"odd), layer 0's recorded put at this rank's shape "
+            f"max_abs_err {x['max_abs_err']:.3e}; peak while serving "
+            f"{x['peak']} B {'ok' if rank_ok else 'FAIL'}"
+            + (f"; replayed {x['replayed']}" if r else ""))
+    return good
+
+
+def _tp_summary(c, n: int, tag: str, letter: str, card: str, same, ties,
+                err: float, good: bool) -> float:
+    """Log a TP serving run's controller numbers; returns the model
+    group's collectives' share of the puts' time."""
+    ttft = c["ttft"]
+    ntok = sum(len(s) for s in c["streams"])
+    share = c["coll_s"] / c["core_s"] if c["core_s"] else float("nan")
+    log(f"tp ({letter}) {tag} [{card}]: "
+        f"{n} requests, wall {c['wall']:.3f} s, "
+        f"{ntok / c['wall']:.1f} generated tokens/s, TTFT p50 "
+        f"{ttft[len(ttft) // 2]:.3f} s max {ttft[-1]:.3f} s; model "
+        f"group collectives {c['n_coll']} in {c['calls']} puts "
+        f"({c['n_coll'] / max(c['calls'], 1):.1f} a put), "
+        f"{c['coll_s']:.3f} s of the puts' {c['core_s']:.3f} s "
+        f"(share {share:.3f}); verify puts {c['verify_puts']}; streams "
+        f"identical to the single-card run {same} of {n}, differing "
+        f"(request, first position, top-two gap) {ties} against 2 x "
+        f"{err:.4e}; leaks {c['leaks']} {'ok' if good else 'FAIL'}")
+    return share
+
+
+def phase_tp(model, card: str, err: dict, prompts, ref: dict, spec: dict,
+             opt: dict) -> dict:
     """6f, tensor-parallel serving: 2 rank processes on the one card over
-    gloo, each with the seed-0 Llama-2-7B's shard (16 of 32 heads, half
-    of d_ff and of the vocab, half of every page's KV heads). (a)
-    ServingEngine on the controller over a 512-page bf16 TP engine, phase
-    5's 8 requests; (b) an int8 pool, 4 of them; (c) v1 ``init_inference
-    (tensor_parallel=2, kernel_backend="pallas")``, 4 x 128-token prompts,
-    32 new; (d) row 8 at the TP decode shape. Streams are held to the
-    single-card runs (phase 5's (a)/(b) streams, a tp-1 v1 run here) up
-    to near-ties within 2 x phase 6b's verify error; every rank's paged
-    launches to one a layer for each of its puts. ``ref``: phase 5's
-    streams by pool. Returns the numbers for the kernels line."""
+    gloo (one job, :func:`_job_tp`). On the seed-0 Llama-2-7B's shards
+    (16 of 32 heads, half of d_ff and of the vocab, half of every page's
+    KV heads): (a) ServingEngine on the controller over a 512-page bf16
+    TP engine, phase 5's 8 requests; (b) an int8 pool, 4 of them; (g)
+    speculative serving of 6b's 8 requests; (h) the hand-off both ways
+    between the TP controller and a single-card engine (through files)
+    and the prefix tier; (c) v1 ``init_inference(tensor_parallel=2,
+    kernel_backend="pallas")``, 4 x 128-token prompts, 32 new; (d) row 8
+    at the TP decode shape. On OPT-6.7B (``opt``: 6g's model, requests,
+    streams and int8 engine): (e) 6g's requests over a 512-page bf16 TP
+    engine; (f) v1 int8 at TP 2, its tokens and dequantized shards held
+    to 6g (c)'s, rows 6 and 8 at OPT's shard shapes, Llama-2-7B's
+    straddling ``lm_head`` cut and dequantized. (i) 350M+MoE-128 cut to
+    ``TP_MOE_LAYERS`` layers, fp32, at TP 2 against its TP-1 run. Streams are
+    held to the single-card runs up to near-ties within 2 x phase 6b's
+    verify error; every rank's paged launches to one a layer for each of
+    its puts. ``ref``: phase 5's streams by pool; ``spec``: 6b's prompts
+    and speculative streams. Returns the numbers for the kernels line."""
+    import tempfile
+
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                       RaggedInferenceEngine)
 
     t_phase = time.perf_counter()
+    log(f"tp: phase 6f (a)-(i) predicted {TP_PREDICTED_S:.0f} s")
     n_layers = model.config.n_layers
     # phase 5's seed-0 weights again (6c's hot swap left seed 1's in the
     # shared model): the ranks build seed 0, and the references and the
@@ -3742,61 +4279,95 @@ def phase_tp(model, card: str, err: dict, prompts, ref: dict) -> dict:
         model, {"dtype": "bfloat16", "temperature": 0.0})
     ref_v1 = v1.generate(ids, max_new_tokens=32)
     del v1
-    decode = _tp_decode_matmul(card)
+    decode = _tp_decode_matmul(card, TP_DECODE_SHAPE, "d")
+    decode_opt = _tp_decode_matmul(card, TP_OPT_DECODE_SHAPE, "f")
+    dequant = _tp_dequant_timing(card)
+    straddle = _tp_straddle(model, card)
+    tmp = tempfile.mkdtemp(prefix="dst_tp_")
+    hand_prompt = prompts[1][:TP_HANDOFF_TOKENS]
+    to_tp = _handoff_to_tp(model, tmp, hand_prompt)
     gc.collect()
     torch.cuda.empty_cache()
-    res = _join_ranks(*_start_ranks(TP_WORLD, "cuda", "tp",
-                                    (prompts, ids, 32)), timeout=900)
+    rng = np.random.default_rng(18)
+    moe_prompts = [rng.integers(1, 50257, int(n)).tolist()
+                   for n in rng.integers(64, 513, TP_MOE_REQUESTS)]
+    more = {"spec_prompts": spec["prompts"], "handoff": tmp,
+            "opt": {"prompts": opt["prompts"], "ids": opt["ids"]},
+            "moe": moe_prompts}
+    try:
+        res = _join_ranks(*_start_ranks(TP_WORLD, "cuda", "tp",
+                                        (prompts, ids, 32, more)),
+                          timeout=1000)
+        ref_eng = RaggedInferenceEngine(model, RaggedConfig(
+            n_kv_blocks=REPLICA_PAGES, **REPLICA_SHAPE))
+        from_tp = _handoff_from_tp(ref_eng, tmp)
+    finally:
+        for name in ("to_tp.pt", "from_tp.pt"):
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(os.path.join(tmp, name))
+        os.rmdir(tmp)
     ctrl = res[0]
-    ok = True
-    refs = {}
-    for tag, kvq in (("bf16", "none"), ("int8", "int8")):
+    ok = straddle
+    for tag, kvq, letter in (("bf16", "none", "a"), ("int8", "int8", "b")):
         reqs = prompts if tag == "bf16" else prompts[:4]
         c = ctrl[tag]
-        ref_eng = RaggedInferenceEngine(model, RaggedConfig(
-            n_kv_blocks=REPLICA_PAGES, kv_quant=kvq, **REPLICA_SHAPE))
-        ok_s, same, ties = _streams_ok(ref_eng, reqs, c["streams"],
+        # a near-tie is measured on an engine with the reference's pool
+        gap_eng = ref_eng if kvq == "none" else RaggedInferenceEngine(
+            model, RaggedConfig(n_kv_blocks=REPLICA_PAGES, kv_quant=kvq,
+                                **REPLICA_SHAPE))
+        ok_s, same, ties = _streams_ok(gap_eng, reqs, c["streams"],
                                        ref[tag][:len(reqs)], err[kvq])
-        if tag == "bf16":
-            refs["eng"] = ref_eng
-        del ref_eng
-        counter = PAGED_COUNTER[kvq]
+        del gap_eng
         good = (ok_s and c["states"] == ["finished"] * len(reqs)
-                and c["leaks"] == [] and not c["errors"])
-        for r, rr in enumerate(res):
-            x = rr[tag]
-            cn = x["counts"]
-            rank_ok = (cn[counter] == n_layers * x["calls"] and x["calls"] > 0
-                       and cn["tile_launches"] == n_layers * x["tile"]
-                       and cn["split_launches"] == n_layers * x["split"]
-                       and x["odd"] == 0 and x["calls"] == c["calls"]
-                       and (x["tile"] > 0) == (kvq == "none"))
-            good = good and rank_ok
-            log(f"tp ({'a' if tag == 'bf16' else 'b'}) {tag} rank {r} "
-                f"[{card}]: "
-                f"{x['calls']} puts, paged_attention launches {cn} "
-                f"({n_layers} x puts = {n_layers * x['calls']}; {x['tile']} "
-                f"puts on tile items, {x['split']} on lane items, {x['odd']} "
-                f"odd), layer 0's recorded put at this rank's shape "
-                f"max_abs_err {x['max_abs_err']:.3e}; peak while serving "
-                f"{x['peak']} B {'ok' if rank_ok else 'FAIL'}"
-                + (f"; replayed {x['replayed']}" if r else ""))
-        ttft = c["ttft"]
-        ntok = sum(len(s) for s in c["streams"])
-        share = c["coll_s"] / c["core_s"] if c["core_s"] else float("nan")
-        log(f"tp ({'a' if tag == 'bf16' else 'b'}) {tag} [{card}]: "
-            f"{len(reqs)} requests, wall {c['wall']:.3f} s, "
-            f"{ntok / c['wall']:.1f} generated tokens/s, TTFT p50 "
-            f"{ttft[len(ttft) // 2]:.3f} s max {ttft[-1]:.3f} s; model "
-            f"group collectives {c['n_coll']} in {c['calls']} puts "
-            f"({c['n_coll'] / max(c['calls'], 1):.1f} a put), "
-            f"{c['coll_s']:.3f} s of the puts' {c['core_s']:.3f} s "
-            f"(share {share:.3f}); streams identical to the single-card "
-            f"run {same} of {len(reqs)}, differing (request, first "
-            f"position, top-two gap) {ties} against 2 x {err[kvq]:.4e}; "
-            f"leaks {c['leaks']} {'ok' if good else 'FAIL'}")
-        ctrl[tag]["share"] = share
+                and c["leaks"] == [] and not c["errors"]
+                and c["verify_puts"] == 0)
+        good = _tp_counts_ok(res, tag, PAGED_COUNTER[kvq], n_layers, card,
+                             letter, kvq == "none") and good
+        ctrl[tag]["share"] = _tp_summary(c, len(reqs), tag, letter, card,
+                                         same, ties, err[kvq], good)
         ok = ok and good
+    # (g) speculative serving of 6b's requests: streams as 6b's
+    c = ctrl["spec"]
+    ok_s, same, ties = _streams_ok(ref_eng, spec["prompts"], c["streams"],
+                                   spec["streams"], err["none"])
+    good = (ok_s and c["states"] == ["finished"] * len(spec["prompts"])
+            and c["leaks"] == [] and not c["errors"]
+            and c["verify_puts"] > 0)
+    good = _tp_counts_ok(res, "spec", "launches", n_layers, card, "g",
+                         True) and good
+    _tp_summary(c, len(spec["prompts"]), "spec", "g", card, same, ties,
+                err["none"], good)
+    ok = ok and good
+    # (h) the hand-off both ways and the prefix tier
+    h = ctrl["handoff"]
+    p = h["prefix"]
+    ok_s, same, ties = _streams_ok(
+        ref_eng, [hand_prompt] * 2 + [hand_prompt[:TP_PREFIX_TOKENS]],
+        [h["to_tp"], from_tp["stream"], p["second"]],
+        [to_tp["ref"], to_tp["ref"], p["first"]], err["none"])
+    good = (ok_s and h["to_tp_bitwise"] and from_tp["bitwise"]
+            and h["leaks"] == [] and p["leaks"] == [] and p["adopted"]
+            and p["bitwise"] and p["checksum"] and p["spills"] > 0
+            and p["readmits"] == 1
+            and res[1]["handoff"]["replayed"].get("write_pages") == 1
+            and res[1]["handoff"]["replayed"].get("gather_pages") == 2)
+    log(f"tp (h) hand-off [{card}]: a {len(hand_prompt)}-token prompt; "
+        f"single card -> TP 2: export {to_tp['export_s'] * 1e3:.2f} ms, "
+        f"{to_tp['bytes']} B, import on the TP controller "
+        f"{h['import_s'] * 1e3:.2f} ms, its re-export bitwise "
+        f"{h['to_tp_bitwise']}; TP 2 -> single card: export "
+        f"{h['export_s'] * 1e3:.2f} ms, {h['export_bytes']} B, import "
+        f"{from_tp['import_s'] * 1e3:.2f} ms, re-export bitwise "
+        f"{from_tp['bitwise']}; prefix tier: export_prefix "
+        f"{p['pages']} pages, {p['bytes']} B in {p['export_s'] * 1e3:.2f} "
+        f"ms, import_prefix {p['import_s'] * 1e3:.2f} ms, re-export "
+        f"bitwise {p['bitwise']}, cold spills {p['spills']}, cold "
+        f"re-admissions {p['readmits']}; worker replayed "
+        f"{res[1]['handoff']['replayed']} and "
+        f"{res[1]['handoff']['prefix_replayed']}; streams (to TP, from TP, "
+        f"re-admitted) identical to the uninterrupted runs {same} of 3, "
+        f"differing {ties} {'ok' if good else 'FAIL'}")
+    ok = ok and good
     # (c) v1: tokens of every rank equal, and equal to the tp-1 run up to
     # near-ties; one fused decode_mlp_all_reduce and one row-8 launch a
     # layer for each decode step on each rank
@@ -3804,7 +4375,7 @@ def phase_tp(model, card: str, err: dict, prompts, ref: dict) -> dict:
     got = [rr["v1"]["ids"] for rr in res]
     ref_rows = [ref_v1[i, 128:].tolist() for i in range(4)]
     ok_s, same, ties = _streams_ok(
-        refs["eng"], [ids[i].tolist() for i in range(4)],
+        ref_eng, [ids[i].tolist() for i in range(4)],
         [got[0][i, 128:].tolist() for i in range(4)], ref_rows, err["none"])
     good = ok_s and all(np.array_equal(g, got[0]) for g in got)
     for r, rr in enumerate(res):
@@ -3825,23 +4396,257 @@ def phase_tp(model, card: str, err: dict, prompts, ref: dict) -> dict:
         f"{all(np.array_equal(g, got[0]) for g in got)} "
         f"{'ok' if good else 'FAIL'}")
     ok = ok and good
-    del refs
+    del ref_eng
     gc.collect()
     torch.cuda.empty_cache()
+    ok = _tp_opt_checks(res, opt, card, err) and ok
+    ok = _tp_moe_checks(res, card, err, moe_prompts) and ok
     took = time.perf_counter() - t_phase
     log(f"tp: weights a rank {ctrl['weight_bytes']} B, built (both ranks, "
-        f"one at a time) in {ctrl['built_s']:.1f} s; phase 6f took "
-        f"{took:.1f} s")
+        f"one at a time) in {ctrl['built_s']:.1f} s; (g) "
+        f"{ctrl['spec']['seconds']:.1f} s, (h) "
+        f"{ctrl['handoff']['seconds']:.1f} s, (e)+(f) "
+        f"{ctrl['opt_seconds']:.1f} s, (i) "
+        + " + ".join(f"{ctrl['moe_' + str(d)[6:]]['seconds']:.1f}"
+                     for d in TP_MOE_DTYPES) + " s "
+        f"on the controller; phase 6f took {took:.1f} s (predicted "
+        f"{TP_PREDICTED_S:.0f} s)")
     if not ok:
         raise SystemExit("tensor-parallel serving phase failed")
+    ov = ctrl["opt_v1"]
     return {"launches": ctrl["bf16"]["counts"]["launches"],
             "tile_launches": ctrl["bf16"]["counts"]["tile_launches"],
             "split_launches": ctrl["bf16"]["counts"]["split_launches"],
             "int8_launches": ctrl["int8"]["counts"]["int8_launches"],
+            "spec_launches": ctrl["spec"]["counts"]["launches"],
+            "spec_verify_puts": ctrl["spec"]["verify_puts"],
+            "opt_launches": ctrl["opt"]["counts"]["launches"],
+            "opt_tile_launches": ctrl["opt"]["counts"]["tile_launches"],
+            "opt_split_launches": ctrl["opt"]["counts"]["split_launches"],
             "bf16": ctrl["bf16"]["timing"], "int8": ctrl["int8"]["timing"],
+            "opt": ctrl["opt"]["timing"],
             "v1_launches": ctrl["v1"]["launches"],
             "v1_wgmma_launches": ctrl["v1"]["wgmma_launches"],
-            "decode": decode, "seconds": took}
+            "opt_v1_launches": ov["launches"],
+            "opt_v1_wgmma_launches": ov["wgmma_launches"],
+            "opt_quantize": ov["quantize"], "opt_dequantize": ov["dequantize"],
+            "decode": decode, "decode_opt": decode_opt, "dequant": dequant,
+            "seconds": took}
+
+
+def _v1_gap(eng, prompt, stream, j) -> float:
+    """Top-two logit gap of the v1 engine's last position on ``prompt +
+    stream[:j]``: how close the reference run's position j was to a
+    tie."""
+    x = np.asarray(list(prompt) + list(stream[:j]))[None]
+    row = eng.forward(x)[0, -1].float().cpu().numpy()
+    top2 = np.sort(row)[-2:]
+    return float(top2[1] - top2[0])
+
+
+def _tp_opt_checks(res, opt: dict, card: str, err: dict) -> bool:
+    """6f (e) and (f) on the parent: OPT-6.7B's TP streams against 6g's,
+    each rank's launches, and every dequantized shard's digest against
+    the slice of 6g (c)'s TP-1 int8 engine's leaf."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.parallel.mesh import shard_slices
+
+    model, ctrl = opt["model"], res[0]
+    n_layers = model.config.n_layers
+    ref_eng = RaggedInferenceEngine(model, RaggedConfig(
+        n_kv_blocks=REPLICA_PAGES, **TP_OPT_SHAPE))
+    c = ctrl["opt"]
+    n = len(opt["prompts"])
+    ok_s, same, ties = _streams_ok(ref_eng, opt["prompts"], c["streams"],
+                                   opt["streams"], err["none"])
+    good = (ok_s and c["states"] == ["finished"] * n and c["leaks"] == []
+            and not c["errors"])
+    good = _tp_counts_ok(res, "opt", "launches", n_layers, card, "e",
+                         True) and good
+    _tp_summary(c, n, "OPT-6.7B", "e", card, same, ties, err["none"], good)
+    del ref_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (f): tokens against the TP-1 int8 run, up to near-ties of its logits
+    one, ids, want = opt["engine"], opt["ids"], opt["tokens"]
+    got = [rr["opt_v1"]["ids"] for rr in res]
+    agree = all(np.array_equal(g, got[0]) for g in got)
+    same, ties = 0, []
+    for i in range(len(ids)):
+        g, w = got[0][i, 128:].tolist(), want[i, 128:].tolist()
+        j = _first_diff(g, w)
+        if j is None:
+            same += 1
+        else:
+            ties.append((i, j, _v1_gap(one, ids[i], w, j)))
+    names = sorted(one._wq_shapes)
+    per_fwd = len(names) + ("tok_embed" in names)
+    steps = 31
+    good_f = agree and all(gap <= 2 * err["none"] for _, _, gap in ties)
+    mismatched = []
+    for r, rr in enumerate(res):
+        x = rr["opt_v1"]
+        for name in names:
+            full = one._leaf(name)
+            mine = full[shard_slices(full.shape, model.leaf_spec(name),
+                                     TP_WORLD, r)]
+            if _digest(mine) != tuple(x["digests"][name]):
+                mismatched.append((r, name))
+        rank_ok = (x["bound"] and x["quantize"] == len(names)
+                   and x["leaves"] == len(names)
+                   and x["dequantize"] == 32 * per_fwd
+                   and x["fused"] == n_layers * steps
+                   and x["launches"] == n_layers * steps
+                   and not any(m[0] == r for m in mismatched))
+        good_f = good_f and rank_ok
+        log(f"tp (f) v1 OPT-6.7B int8 rank {r} [{card}]: built (cut, then "
+            f"each shard quantized in its full leaf's blocks) in "
+            f"{x['v1_built_s']:.1f} s, quantize launches "
+            f"{x['quantize']} ({len(names)} leaves), blocks {x['blocks']}, "
+            f"param_bytes {x['param_bytes']}; 32 new tokens in "
+            f"{x['wall']:.4f} s = {4 * 32 / x['wall']:.1f} tokens/s; "
+            f"dequantize launches {x['dequantize']} ({per_fwd} a forward x "
+            f"32 = {32 * per_fwd}); decode_mlp_all_reduce fused "
+            f"{x['fused']}, matmul_pallas launches {x['launches']} "
+            f"({n_layers} x {steps}), {x['wgmma_launches']} on the Hopper "
+            f"kernel; dequantized shards bitwise the TP-1 leaves' slices "
+            f"{not any(m[0] == r for m in mismatched)}; peak {x['peak']} B "
+            f"{'ok' if rank_ok else 'FAIL'}")
+    log(f"tp (f) v1 OPT-6.7B int8: tokens identical to 6g (c)'s TP-1 int8 "
+        f"run {same} of {len(ids)}, differing (row, first position, TP-1 "
+        f"top-two gap) {ties} against 2 x {err['none']:.4e}; ranks agree "
+        f"{agree}; mismatched shards {mismatched[:4]} "
+        f"{'ok' if good_f else 'FAIL'}")
+    return good and good_f
+
+
+def _routing_flips(ref: dict, tp: dict, prompts, n_layers: int) -> dict:
+    """Two ``_moe_greedy`` runs of one model on the same puts (``ref`` the
+    TP-1 run): the expert-bank lanes whose stream still has the same
+    history in both (its prompt and the generated tokens before the
+    stream's first difference) are compared. A routing flip is such a
+    lane whose top-k sets differ. A flip at (position p, layer l) changes
+    its stream's states from layer l + 1 on, at p and, through
+    attention, after it: a lane is clean when no flip of its stream lies
+    at a position <= its own in a lower layer, and a flip on a clean lane
+    is primary (the states it read differ from the TP-1 run's by
+    rounding alone). Returns each stream's first difference, the primary
+    flips ``(request, position, layer, the TP-1 gap between the k-th and
+    the next gate logit)``, by layer the largest gate-logit difference on
+    clean lanes and the share of compared lanes whose top-k sets agree,
+    and the number of lanes compared."""
+    uids = sorted({u for put in ref["lanes"] for u, *_ in put})
+    n = len(ref["streams"][0])
+    first = [_first_diff(g, w) for g, w in zip(tp["streams"],
+                                               ref["streams"])]
+    limit = {u: len(p) + (n if j is None else j)
+             for u, p, j in zip(uids, prompts, first)}
+    k = tp["choices"][0].shape[-1]
+    lanes = []                   # (request, position, layer, same, gap, diff)
+    for c, (a, b, la, lb) in enumerate(zip(tp["choices"], ref["choices"],
+                                           tp["logits"], ref["logits"])):
+        put, layer = divmod(c, n_layers)
+        i = 0
+        for u, start, take in ref["lanes"][put]:
+            for pos in range(start, start + take):
+                if pos < limit[u]:
+                    top = np.sort(lb[i])[::-1]
+                    lanes.append((uids.index(u), pos, layer,
+                                  set(a[i].tolist()) == set(b[i].tolist()),
+                                  float(top[k - 1] - top[k]),
+                                  float(np.abs(la[i] - lb[i]).max())))
+                i += 1
+    flips = [x for x in lanes if not x[3]]
+
+    def clean(r, pos, layer):
+        return not any(f[0] == r and f[1] <= pos and f[2] < layer
+                       for f in flips)
+
+    err = [0.0] * n_layers
+    agree = [[] for _ in range(n_layers)]
+    for r, pos, layer, same, _, diff in lanes:
+        agree[layer].append(same)
+        if clean(r, pos, layer):
+            err[layer] = max(err[layer], diff)
+    return {"first": first,
+            "primary": [(r, pos, layer, gap) for r, pos, layer, _, gap, _
+                        in flips if clean(r, pos, layer)],
+            "flips": len(flips), "err": err,
+            "agree": [sum(v) / max(len(v), 1) for v in agree],
+            "compared": len(lanes)}
+
+
+def _tp_moe_checks(res, card: str, err: dict, prompts) -> bool:
+    """6f (i) on the parent, for each of ``TP_MOE_DTYPES``: each rank's
+    grouped GEMMs (two a layer a put, GELU experts; ``w_down``'s on the
+    fp32-output loop in bf16) and expert choices (bitwise rank 0's); the
+    TP run repeated bitwise; and the TP streams against rank 0's TP-1
+    run. A stream is identical, or parts at a near-tie of the TP-1
+    logits (a top-two gap within twice 6b's verify error), or after one
+    of its own primary routing flips (:func:`_routing_flips`). Every
+    primary flip must lie within what the TP rounding moves the gate
+    logits: its TP-1 gap at most twice the largest gate-logit difference
+    on clean lanes of its layer, and that difference itself within the
+    logits' near-tie."""
+    tie = 2 * err["none"]
+    good = True
+    for dtype in TP_MOE_DTYPES:
+        name = str(dtype)[6:]
+        key = "moe_" + name
+        m = res[0][key]
+        ref, tp, again = m["ref"], m["tp"], m["again"]
+        rf = _routing_flips(ref, tp, prompts, TP_MOE_LAYERS)
+        flipped = {r for r, *_ in rf["primary"]}
+        parted, ok_streams = [], True
+        for i, j in enumerate(rf["first"]):
+            if j is None:
+                continue
+            gap = ref["gaps"][i][j]
+            why = "tie" if gap <= tie else "flip" if i in flipped else None
+            parted.append((i, j, gap, why))
+            ok_streams = ok_streams and why is not None
+        repeat = (again["streams"] == tp["streams"]
+                  and all(np.array_equal(a, b) for a, b in
+                          zip(again["choices"], tp["choices"])))
+        ok = (all(len(s) == 32 for s in tp["streams"]) and ok_streams
+              and all(gap <= 2 * rf["err"][layer]
+                      for _, _, layer, gap in rf["primary"])
+              and max(rf["err"]) <= tie
+              and tp["puts"] == ref["puts"] == again["puts"]
+              and tp["lanes"] == ref["lanes"] and repeat)
+        calls = TP_MOE_LAYERS * m["puts"]
+        wide = 0 if dtype == torch.float32 else calls
+        for r, rr in enumerate(res):
+            x = rr[key]
+            rank_ok = (x["puts"] == m["puts"]
+                       and x["grouped"] == 2 * calls - wide
+                       and x["wide"] == wide
+                       and x["routes"] == m["routes"])
+            ok = ok and rank_ok
+            log(f"tp (i) MoE {name} rank {r} [{card}]: {x['puts']} puts "
+                f"(the TP run twice), _grouped_mm calls {x['grouped']} and "
+                f"fp32-output loop calls {x['wide']} (2 a layer a put = "
+                f"{2 * calls}, w_down's {wide} on the loop); expert choices "
+                f"of its {x['routes'][0]} bank calls bitwise rank 0's "
+                f"{x['routes'] == m['routes']} {'ok' if rank_ok else 'FAIL'}")
+        log(f"tp (i) 350M+MoE-128 at {TP_MOE_LAYERS} layers, {name}, TP 2 "
+            f"[{card}]: {len(tp['streams'])} requests, streams identical to "
+            f"the TP-1 run {len(tp['streams']) - len(parted)} of "
+            f"{len(tp['streams'])}, parted (request, first position, TP-1 "
+            f"top-two gap, cause) {parted}; the TP run repeated bitwise "
+            f"{repeat}; {rf['compared']} bank lanes with the same history "
+            f"compared, top-k agreeing by layer "
+            + " ".join(f"{x:.4f}" for x in rf["agree"])
+            + f", {rf['flips']} routing flips, primary (request, position, "
+            f"layer, TP-1 gate gap) {rf['primary']}; gate-logit difference "
+            f"on clean lanes by layer "
+            + " ".join(f"{x:.3e}" for x in rf["err"])
+            + f" (a primary flip's gap within 2 x its layer's); near-tie "
+            f"{tie:.4e}; took {m['seconds']:.1f} s on the "
+            f"controller {'ok' if ok else 'FAIL'}")
+        good = good and ok
+    return good
 
 
 # --------------------------------------------------------------- phase 6a
@@ -3974,6 +4779,9 @@ def _family_v1(model, card: str) -> dict:
         if not ok:
             raise SystemExit(f"families: v1 OPT-6.7B {mode} failed")
         out[f"{mode}_tokens_per_s"] = 4 * 32 / wall
+        if mode == "int8":
+            # 6f (f) holds the TP engine's tokens and shards to these
+            out["keep"] = {"engine": eng, "tokens": toks, "ids": ids}
         del eng
     a, b = logits["int8"], logits["bf16"]
     cos = float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
@@ -3993,28 +4801,32 @@ def phase_families(card: str) -> dict:
     0 just before and read after, tile items in the prefill puts), then
     layer 0's paged call of a mixed put against the plain version and
     timed (phase 5b); (c) ``init_inference`` of the same OPT-6.7B, bf16
-    and int8 (:func:`_family_v1`). Each model is freed before the next."""
+    and int8 (:func:`_family_v1`). GPT-2 XL is freed; OPT-6.7B, its
+    requests and streams and the int8 engine and tokens stay for 6f (e)
+    and (f), under ``out["opt"]``."""
     t0 = time.perf_counter()
     out = {}
-    model = None
     for name, (preset, size, ctx, longest) in FAMILY_SERVING.items():
-        del model
         gc.collect()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         model = _family_model(preset, size)
-        paths, eng, _ = phase_serving(card, model, name=name,
-                                      max_context=ctx, max_prompt=longest)
+        paths, eng, prompts = phase_serving(card, model, name=name,
+                                            max_context=ctx,
+                                            max_prompt=longest)
         mixed = phase_paged_mixed(paths.pop("mixed"), card,
                                   f"{name} mixed_put")
-        del paths["streams"], eng
+        streams = paths.pop("streams")
+        del eng
         out[name] = {**paths, "mixed_put": mixed}
         log(f"families: {name} served in {time.perf_counter() - t1:.1f} s")
         if name == "OPT-6.7B":
             gc.collect()
             torch.cuda.empty_cache()
             out["v1"] = _family_v1(model, card)
-    del model
+            out["opt"] = {"model": model, "prompts": prompts,
+                          "streams": streams, **out["v1"].pop("keep")}
+        del model
     gc.collect()
     torch.cuda.empty_cache()
     log(f"families: phase 6g in {time.perf_counter() - t0:.1f} s")
@@ -4516,18 +5328,26 @@ def _moe_choices(model, sink: list):
     routed as ``MoELayer.apply``'s eval route routes them; returns the
     undo."""
     layer = model.moe
-    real = layer.apply
+    real, prev = layer.apply, layer.__dict__.get("apply")
 
-    def recording(params, x, generator=None, training=True):
+    def recording(params, x, generator=None, training=True, reduce=None):
         logits = (x.float() @ params["wg"].float()).reshape(-1, params[
             "wg"].shape[1])
         topi = torch.topk(torch.softmax(logits, dim=-1),
                           layer.gate.top_k, dim=-1).indices
         sink.append((topi.cpu(), logits.cpu()))
-        return real(params, x, generator, training)
+        return real(params, x, generator, training, reduce)
 
     layer.apply = recording
-    return lambda: layer.__dict__.pop("apply", None)
+
+    def undo():
+        # back to the wrapper this one wrapped, if any
+        if prev is None:
+            layer.__dict__.pop("apply", None)
+        else:
+            layer.apply = prev
+
+    return undo
 
 
 def _same_experts(a: list, b: list) -> tuple:
@@ -7601,6 +8421,8 @@ def phase_zero3_training(card: str) -> dict:
 
 
 def main() -> int:
+    from deepspeed_tpu_torch.models.llama import Llama
+
     t0 = time.perf_counter()
     dev = phase_device()
     phase_build()
@@ -7642,16 +8464,21 @@ def main() -> int:
     fleet = phase_fleet(model, dev["card"], spec["err"])
     gc.collect()
     torch.cuda.empty_cache()
-    region = phase_region(model, dev["card"], spec["err"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    tp = phase_tp(model, dev["card"], spec["err"], prompts,
-                  {"bf16": paths["streams"],
-                   "int8": paged_q["int8"]["streams"]})
-    del model, prompts
+    # 6e's regions over Llama-2-7B's width at a quarter of its depth (time)
+    shallow = Llama("7b", dtype=torch.bfloat16, seed=0,
+                    n_layers=REGION_LAYERS)
+    region = phase_region(shallow, dev["card"], spec["err"])
+    del shallow
     gc.collect()
     torch.cuda.empty_cache()
     fam = phase_families(dev["card"])
+    opt = fam.pop("opt")
+    tp = phase_tp(model, dev["card"], spec["err"], prompts,
+                  {"bf16": paths["streams"],
+                   "int8": paged_q["int8"]["streams"]}, spec, opt)
+    del model, prompts, opt
+    gc.collect()
+    torch.cuda.empty_cache()
     enc = phase_encoders(dev["card"])
     moe = phase_moe(dev["card"])
     sd = phase_diffusion(dev["card"])
@@ -7686,6 +8513,11 @@ def main() -> int:
                 "tp_launches": tp["launches"],
                 "tp_tile_launches": tp["tile_launches"],
                 "tp_split_launches": tp["split_launches"],
+                "tp_spec_launches": tp["spec_launches"],
+                "tp_spec_verify_puts": tp["spec_verify_puts"],
+                "tp_opt_launches": tp["opt_launches"],
+                "tp_opt_tile_launches": tp["opt_tile_launches"],
+                "tp_opt_split_launches": tp["opt_split_launches"],
                 **{f"{key}_{n}": fam[name][n] for key, name in FAMILY_KEYS
                    for n in ("launches", "tile_launches",
                              "split_launches")},
@@ -7699,6 +8531,7 @@ def main() -> int:
                 "timings": {**kern["timings"], "mixed_put": mixed_t,
                             "verify_put": spec["bf16"],
                             "tp_put_rank0": tp["bf16"],
+                            "tp_opt_put_rank0": tp["opt"],
                             **{f"{key}_mixed_put": fam[name]["mixed_put"]
                                for key, name in FAMILY_KEYS}},
                 "card": dev["card"]}]
@@ -7773,9 +8606,13 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "parity": "bitwise",
             "opt_launches": fam["v1"]["launches"][name],
+            "tp_opt_launches": tp["opt_quantize" if name.startswith(
+                "quantize") else "opt_dequantize"],
             "bert_launches": enc["bert"]["int8_launches"][name],
             "moe_launches": moe["v1"]["launches"][name],
             "shape": "4096x11008_bf16_int8_block256", "card": dev["card"]})
+        if name.startswith("dequantize"):
+            entries[-1]["tp_shard"] = tp["dequant"]
     for name, (_, replaces) in FUSED_KERNELS.items():
         t = fused_t[name]
         entries.append({
@@ -7799,7 +8636,11 @@ def main() -> int:
             entries[-1].update(tp_decode_launches=tp["v1_launches"],
                                tp_decode_wgmma_launches=tp[
                                    "v1_wgmma_launches"],
-                               tp_decode=tp["decode"])
+                               tp_decode=tp["decode"],
+                               tp_opt_decode_launches=tp["opt_v1_launches"],
+                               tp_opt_decode_wgmma_launches=tp[
+                                   "opt_v1_wgmma_launches"],
+                               tp_opt_decode=tp["decode_opt"])
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

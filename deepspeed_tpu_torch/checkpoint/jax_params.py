@@ -31,9 +31,9 @@ The JAX ``SequentialBlockModel`` tree is ``{"block_i": {"w": [din, dout],
 
 Tensor parallelism: :func:`shard_params` cuts a model (in place) or a
 JAX tree (numpy views) to one rank's shard by the JAX package's
-PartitionSpecs (``Transformer.partition_specs``), and
-:func:`gather_params` puts the ranks' shards back together; both take
-the Llama flag set only (ROADMAP.md, Queue A item 6b). A model
+PartitionSpecs (``Transformer.partition_specs``: every flag set, and
+an MoE model's expert banks), and :func:`gather_params` puts the ranks'
+shards back together. A model
 that is already sharded takes :func:`load_jax_params` of the full JAX
 tree: each leaf is sliced to the rank's shard before it is copied, one
 leaf at a time.
@@ -158,7 +158,6 @@ def shard_params(params: Union[Transformer, Dict[str, Any]], topology,
     if model is None:
         raise ValueError("shard_params of a JAX tree needs the model whose "
                          "partition_specs place it")
-    model._check_tp(topology.model_parallel_size)
     tp, rank = topology.model_parallel_size, topology.rank("model")
     out: Dict[str, Any] = {}
     for path, spec in _tree_specs(model.partition_specs()):
@@ -178,7 +177,6 @@ def gather_params(shards: Sequence[Dict[str, Any]], model: Transformer
     (in rank order, as :func:`export_params` gives them on each rank)
     joined along each leaf's ``model`` dimension; replicated leaves are
     rank 0's."""
-    model._check_tp(len(shards))
     out: Dict[str, Any] = {}
     for path, spec in _tree_specs(model.partition_specs()):
         pieces = [np.asarray(t[path[0]] if len(path) == 1

@@ -312,6 +312,33 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     return from_transport(w, t.device)
 
 
+def gather(x: torch.Tensor, group=None, dst: int = 0
+           ) -> Optional[List[torch.Tensor]]:
+    """Every rank's ``x`` on group rank ``dst``, in group-rank order, on
+    ``x``'s device; None on the other ranks."""
+    _chaos("gather")
+    w = to_transport(x, group)
+    mine = get_rank(group) == dst
+    parts = [_empty_like_on(w) for _ in range(dist.get_world_size(group))] \
+        if mine else None
+    root = dist.get_global_rank(group, dst) if group is not None else dst
+    dist.gather(w, parts, dst=root, group=group)
+    return [from_transport(p, x.device) for p in parts] if mine else None
+
+
+def scatter(parts: Optional[List[torch.Tensor]], out: torch.Tensor,
+            group=None, src: int = 0) -> torch.Tensor:
+    """Group rank ``src``'s ``parts[r]`` on group rank ``r``: every rank
+    passes ``out``, a buffer of its part's shape and dtype, and gets its
+    part on ``out``'s device; only ``src`` passes ``parts``."""
+    _chaos("scatter")
+    w = to_transport(out, group)
+    sent = None if parts is None else [to_transport(p, group) for p in parts]
+    root = dist.get_global_rank(group, src) if group is not None else src
+    dist.scatter(w, sent, src=root, group=group)
+    return from_transport(w, out.device)
+
+
 # ----------------------------------------------------------------------
 # the model group's collectives that the facade does not carry: tensor
 # parallelism gathers vocab-sharded logits and sends the controller's host

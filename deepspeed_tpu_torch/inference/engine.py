@@ -44,8 +44,19 @@ rank's ``n_kv_heads / tp`` heads. Plain SPMD: every rank calls
 ``generate`` with the same ids, and since the logits are gathered on
 every rank and the sampler's generator has the same seed everywhere, the
 ranks draw the same tokens; ``generate`` reads no clock, so they stay in
-step. ZeRO-Inference quantization under tensor parallelism raises
-(ROADMAP.md, Queue A item 6b).
+step. ZeRO-Inference under tensor parallelism quantizes in the full
+leaf's blocks, as the JAX engine quantizes its sharded global leaf (flat
+row-major blocks of the whole leaf). The model is cut first (an
+unsharded one by the engine). A shard whose runs hold whole blocks has
+exactly the full leaf's blocks and is quantized as it is. A block that
+straddles two ranks' shards (Llama-2-7B's ``lm_head`` at TP 2: 16000
+columns a rank, 62.5 blocks of 256) cannot be held by one rank: that
+leaf is gathered over the model group, quantized at full width, and this
+rank's slice is stored at block ``g = gcd(block, the shard's run
+length)`` with each block's scale repeated ``block / g`` times. The
+dequantize kernel reads it at block ``g``; either way the dequantized
+shard is bitwise the slice of the one-device engine's dequantized
+leaf.
 
 Not ported (later slices, ROADMAP.md Queue A): loading a ``checkpoint``
 named in the config.
@@ -55,6 +66,7 @@ tokens/s) into the global pipeline when one is enabled.
 
 from __future__ import annotations
 
+import math
 import time
 from collections.abc import Mapping
 from dataclasses import dataclass, field
@@ -142,6 +154,35 @@ class _DequantizedParams(Mapping):
         return len(self._engine.params)
 
 
+def local_blocks(payload: torch.Tensor, scale: torch.Tensor,
+                 shape: Tuple[int, ...], spec, tp: int, rank: int,
+                 block: int, bits: int):
+    """Rank ``rank``'s slice of a full-width leaf's blockwise payload and
+    scales (leaf ``shape``, quantized in flat row-major blocks of
+    ``block``; int8 with the leaf's shape or, at 4 bits, packed ``[numel
+    // 2]``), for the leaf placed by ``spec`` over ``tp`` ranks. The shard
+    is ``outer`` runs of ``run`` contiguous elements (the ``model``
+    dimension and everything after it, cut ``tp`` ways), so a block of
+    ``g = gcd(block, run)`` lies inside one of the full leaf's blocks and
+    takes its scale. Returns ``(payload, scales, g)``."""
+    axis = list(spec).index("model")
+    outer = math.prod(shape[:axis])
+    run = math.prod(shape[axis:]) // tp
+    g = math.gcd(block, run)
+    per = 2 if bits == 4 else 1                  # elements a payload byte
+    if run % per:
+        raise ValueError(f"a shard run of {run} elements splits an int4 "
+                         f"byte")
+    mine = payload.reshape(outer, -1)[:, rank * run // per:
+                                      (rank + 1) * run // per]
+    local = list(shape)
+    local[axis] //= tp
+    mine = mine.contiguous().reshape(-1 if per == 2 else local)
+    scales = scale.repeat_interleave(block // g).reshape(outer, -1)[
+        :, rank * run // g:(rank + 1) * run // g].contiguous().reshape(-1)
+    return mine, scales, g
+
+
 class InferenceEngine:
     """Generation engine over a port ``Transformer`` on one device.
 
@@ -160,10 +201,6 @@ class InferenceEngine:
                  device=None):
         self.config = cfg = config or InferenceConfig()
         tp = cfg.tensor_parallel
-        if tp > 1 and (cfg.quant or {}).get("enabled", False):
-            raise NotImplementedError(
-                f"ZeRO-Inference weight quantization with tensor_parallel="
-                f"{tp} comes with ROADMAP.md, Queue A item 6b")
         # kernel_backend binds the fused comm backend only under tensor
         # parallelism, as the JAX engine does: at tp 1 it changes nothing
         if cfg.kernel_backend not in ("auto", "xla", "pallas"):
@@ -203,6 +240,7 @@ class InferenceEngine:
             if t.is_floating_point() else t.detach().to(self.device)
             for n, t in params.items()}
         self._wq_shapes: Dict[str, Tuple[int, ...]] = {}
+        self._wq_blocks: Dict[str, int] = {}
         if self._quant_enabled:
             self._quantize_tree(model if owned else None)
             log_dist(f"ZeRO-Inference weight quant: {len(self._wq_shapes)} "
@@ -263,19 +301,53 @@ class InferenceEngine:
         """Replace each quantizable leaf by ``{"__wq__": payload, "s":
         scales}`` (int8 with the leaf's shape, or packed uint8
         ``[numel // 2]`` at 4 bits). With ``model``, the model's own copy
-        of each quantized leaf is emptied right after it is quantized."""
+        of each quantized leaf is emptied right after it is quantized.
+        Under tensor parallelism the rule sees the full-width leaf's
+        shape. A shard whose runs hold whole blocks of the full leaf
+        (every leaf of OPT-6.7B at TP 2) has exactly the full leaf's
+        blocks and is quantized as it is; a shard that a block straddles
+        is gathered over the model group, quantized at full width and cut
+        back (:func:`local_blocks`)."""
         bits, block = self._quant_bits, self._quant_block
+        m = self.model
         for name in list(self.params):    # names only: hold one leaf at a time
             t = self.params[name]
-            if not self._quantizes(name, t):
+            spec = m.leaf_spec(name) if m._tp_size > 1 else ()
+            axis = list(spec).index("model") if "model" in spec else None
+            full = list(t.shape)
+            if axis is not None:
+                full[axis] *= m._tp_size
+            if not self._quantizes(name, torch.empty(full, dtype=t.dtype,
+                                                     device="meta")):
                 continue
-            payload, scale = quant.quantize_blockwise(
-                t.contiguous(), bits=bits, block=block, pack=bits == 4)
+            g = block
+            if axis is None or math.prod(t.shape[axis:]) % block == 0:
+                payload, scale = quant.quantize_blockwise(
+                    t.contiguous(), bits=bits, block=block, pack=bits == 4)
+            else:
+                payload, scale = quant.quantize_blockwise(
+                    self._gather_leaf(t, axis), bits=bits, block=block,
+                    pack=bits == 4)
+                payload, scale, g = local_blocks(
+                    payload, scale, tuple(full), spec, m._tp_size,
+                    m._tp_rank, block, bits)
             self._wq_shapes[name] = tuple(t.shape)
+            self._wq_blocks[name] = g
             self.params[name] = {"__wq__": payload, "s": scale}
+            del t
             if model is not None:
                 model.get_parameter(name).data = torch.empty(
                     0, device=self.device, dtype=self.dtype)
+
+    def _gather_leaf(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        """The full-width leaf of this rank's shard ``t``: the model
+        group's shards joined along ``axis``. The shards travel as bytes,
+        so any dtype crosses the host transport."""
+        from ..comm import comm
+
+        parts = comm.all_gather(t.contiguous().view(torch.uint8),
+                                self.topo.group("model"))
+        return torch.cat(parts, dim=axis).view(t.dtype)
 
     def _leaf(self, name: str) -> torch.Tensor:
         """A weight in ``dtype``: dequantized when stored quantized."""
@@ -283,7 +355,7 @@ class InferenceEngine:
         if not _is_wq(leaf):
             return leaf
         out = quant.dequantize_blockwise(
-            leaf["__wq__"], leaf["s"], block=self._quant_block,
+            leaf["__wq__"], leaf["s"], block=self._wq_blocks[name],
             dtype=self.dtype, packed=self._quant_bits == 4)
         return out.reshape(self._wq_shapes[name])
 

@@ -14,7 +14,7 @@ last token. The other matrix products stay ``torch.matmul``. The Llama,
 GPT-2 and OPT flag sets run here, and GPT-MoE: the MLP is the model's own
 ``_mlp``, for an MoE model the no-drop expert route
 (:func:`~deepspeed_tpu_torch.parallel.moe.no_drop_moe`, one grouped GEMM
-a projection; it refuses tensor parallelism, items 6b and 13); ALiBi,
+a projection); ALiBi,
 parallel residual and attention-scale overrides raise as in the JAX
 engine (the v1 engine serves them). Encoders (``causal=False`` or
 ``prenorm=False``) raise too: the JAX engine takes them and computes
@@ -76,9 +76,18 @@ rank, so a decode chunk's greedy or reseeded sampled tokens are the same
 on every rank without another message. A step that fails on the
 controller (a rank that died or hung, within the process group's
 timeout) raises :class:`RankFailure`, and every later step raises it
-too: the engine never carries on with fewer ranks. ``put_spec``, the
-KV hand-off, prefix export / adoption and the KV tier raise under tensor
-parallelism (ROADMAP.md, Queue A item 6b).
+too: the engine never carries on with fewer ranks. Every flag set the
+engine serves and GPT-MoE (each rank ``d_ff / tp`` of every expert) run
+sharded. ``put_spec`` and ``generate_speculative`` verify on ``core``
+records whose ``sel`` is ``[max_seqs, k_max]``; a rejected tail's
+copy-on-write is a ``copy_page`` record. The KV hand-off, prefix export
+/ adoption and the KV tier (the prefix cache's eviction hook and the
+cold-tier re-admission run inside the controller's admission) move pages
+through two more records: ``gather_pages`` (every rank's head slices of
+a page list gathered on the controller) and ``write_pages`` (an import's
+head slices, payload and scales, scattered to their ranks). Exports keep
+the full-head layout, so engines of any model axis hand off to each
+other.
 """
 
 from __future__ import annotations
@@ -116,9 +125,6 @@ class RankFailure(RuntimeError):
     """A tensor-parallel step failed on the controller, so the model
     group's ranks are no longer in step: this and every later step of the
     engine raise it."""
-
-
-TP_LATER = "under tensor parallelism comes with ROADMAP.md, Queue A item 6b"
 
 
 class BlockedAllocator:
@@ -555,8 +561,8 @@ class RaggedInferenceEngine:
                 f"n_kv_heads {c.n_kv_heads} not divisible by the model "
                 f"axis {tp} — TP serving shards the KV pool by head")
         if tp > 1:
-            # the flag sets tensor parallelism does not take (MoE banks:
-            # items 6b and 13) raise here, before the pool is built
+            # heads, d_ff and the vocab must divide, before the pool is
+            # built
             model._check_tp(tp)
         self.topo = topology
         self._tp = tp
@@ -702,10 +708,6 @@ class RaggedInferenceEngine:
             raise ValueError("the model group's ranks built engines with "
                              "different configs, model configs or seeds")
 
-    def _no_tp(self, what: str) -> None:
-        if self._tp > 1:
-            raise NotImplementedError(f"{what} {TP_LATER}")
-
     def _tp_guarded(self, fn):
         """``fn()`` under the model group's failure latch: once a step
         failed, the ranks are out of step, so it and every later one raise
@@ -727,13 +729,17 @@ class RaggedInferenceEngine:
     def _send(self, record: Dict[str, Any]) -> None:
         comm.broadcast_record(record, self.topo.group("model"), "model")
 
-    def _device_step(self, op: str, **record) -> Any:
+    def _device_step(self, op: str, local: Optional[Dict[str, Any]] = None,
+                     **record) -> Any:
         """Run one device step (``_REPLAY[op]`` of ``record``). Under
         tensor parallelism the controller first broadcasts the record, and
-        the workers replay it in :meth:`serve_worker`."""
+        the workers replay it in :meth:`serve_worker`. ``local`` holds the
+        controller's own arguments of the replay, which are not broadcast
+        (an import's pages: ``write_pages`` scatters them)."""
         record["op"] = op
+        local = local or {}
         if self._tp <= 1:
-            return self._REPLAY[op](self, record)
+            return self._REPLAY[op](self, record, **local)
         if not self.is_controller:
             raise RuntimeError(
                 f"model group rank {self._tp_rank} is a worker: it replays "
@@ -741,7 +747,7 @@ class RaggedInferenceEngine:
 
         def step():
             self._send(record)
-            return self._REPLAY[op](self, record)
+            return self._REPLAY[op](self, record, **local)
 
         return self._tp_guarded(step)
 
@@ -944,12 +950,26 @@ class RaggedInferenceEngine:
     # -- KV export / import (disaggregated prefill -> decode hand-off) ---
     def _gather_pages(self, blocks: Sequence[int]):
         """Host copies of ``blocks`` from every layer's leaves, stacked
-        [n_layers, n_pages, ...]: (k, v, k_scales or None, v_scales or
-        None)."""
-        idx = torch.as_tensor(list(blocks), dtype=torch.long,
-                              device=self.device)
+        [n_layers, n_pages, n_kv_heads, ...] with every KV head (a
+        ``gather_pages`` step: under tensor parallelism each rank's head
+        slices are gathered on the controller): (k, v, k_scales or None,
+        v_scales or None)."""
+        return self._device_step("gather_pages",
+                                 blocks=np.asarray(list(blocks), np.int64))
+
+    def _replay_gather_pages(self, rec: Dict[str, Any]):
+        idx = self._dev(rec["blocks"])
         out = [torch.stack([leaf[idx] for leaf in group]).cpu()
                for group in self.kv_pool]
+        if self._tp > 1:
+            # the head dim (2) of each rank's slice; bytes on the wire, so
+            # every pool dtype crosses the host transport
+            group = self.topo.group("model")
+            parts = [comm.gather(t.view(torch.uint8), group) for t in out]
+            if not self.is_controller:
+                return None
+            out = [torch.cat(p, dim=2).view(t.dtype)
+                   for p, t in zip(parts, out)]
         return tuple(out) if self._kv_bits else (out[0], out[1], None, None)
 
     def _logical_bytes(self, n_pages: int) -> int:
@@ -970,7 +990,6 @@ class RaggedInferenceEngine:
         engine to continue (a prefill replica hands a sequence to a
         decode replica). The sequence must be fully prefilled. Nothing is
         released: the caller then ``preempt``s or ``discard``s it."""
-        self._no_tp("export_kv")
         seq = self.seqs.get(uid)
         if seq is None:
             raise KeyError(f"uid {uid} has no live sequence to export")
@@ -1013,7 +1032,6 @@ class RaggedInferenceEngine:
 
         Raises :class:`PoolExhausted` (recoverable) or ``ValueError`` on a
         geometry mismatch; on any failure nothing is mutated."""
-        self._no_tp("import_kv")
         cfg = self.config
         if uid in self.seqs:
             raise ValueError(f"uid {uid} already live in this engine")
@@ -1061,28 +1079,46 @@ class RaggedInferenceEngine:
         if t.enabled:
             t.registry.counter("inference/kv_imports").inc()
 
-    @torch.inference_mode()
     def _write_pages(self, blocks: Sequence[int], k, v, ks=None,
                      vs=None) -> None:
-        """Write imported pages into every layer's leaves at ``blocks``
-        (payload and, on quantized pools, scales: the pool ends up holding
-        the exported bytes, never a requantization). The JAX package pads
-        the page count to a power of two to bound its compile cache; the
-        eager port writes exactly these pages."""
-        idx = torch.as_tensor(list(blocks), dtype=torch.long,
-                              device=self.device)
+        """Write imported pages (every KV head) into every layer's leaves
+        at ``blocks`` (payload and, on quantized pools, scales: the pool
+        ends up holding the exported bytes, never a requantization), as a
+        ``write_pages`` step: under tensor parallelism each rank receives
+        its head slices. The JAX package pads the page count to a power
+        of two to bound its compile cache; the eager port writes exactly
+        these pages."""
         groups = (k, v, ks, vs) if self._kv_bits else (k, v)
         for src, leaves in zip(groups, self.kv_pool):
-            if tuple(src.shape) != (len(leaves), len(blocks)) \
-                    + tuple(leaves[0].shape[1:]):
+            want = (len(leaves), len(blocks), leaves[0].shape[1] * self._tp) \
+                + tuple(leaves[0].shape[2:])
+            if tuple(src.shape) != want:
                 raise ValueError(
                     f"imported pages {tuple(src.shape)} do not fit leaves "
                     f"{tuple(leaves[0].shape)} x {len(leaves)} layers at "
                     f"{len(blocks)} pages")
-        for src, leaves in zip(groups, self.kv_pool):
+        self._device_step("write_pages",
+                          local={"groups": groups},
+                          blocks=np.asarray(list(blocks), np.int64))
+
+    @torch.inference_mode()
+    def _replay_write_pages(self, rec: Dict[str, Any], groups=None) -> None:
+        idx = self._dev(rec["blocks"])
+        for gi, leaves in enumerate(self.kv_pool):
+            leaf0 = leaves[0]
+            src = None if groups is None else groups[gi].to(leaf0.dtype)
+            if self._tp > 1:
+                # this rank's head slices, as bytes (see gather_pages)
+                buf = torch.empty((len(leaves), len(idx))
+                                  + tuple(leaf0.shape[1:]), dtype=leaf0.dtype)
+                parts = None if src is None else [
+                    c.contiguous().view(torch.uint8)
+                    for c in src.chunk(self._tp, dim=2)]
+                src = comm.scatter(parts, buf.view(torch.uint8),
+                                   self.topo.group("model")).view(leaf0.dtype)
             src = src.to(self.device)
             for i, leaf in enumerate(leaves):
-                leaf[idx] = src[i].to(leaf.dtype)
+                leaf[idx] = src[i]
 
     # -- global KV tier seams ---------------------------------------------
     def enable_kv_tier(self, *, member: str = "", cold_tier=None,
@@ -1091,7 +1127,6 @@ class RaggedInferenceEngine:
         :class:`~deepspeed_tpu_torch.serving.kvtier.ColdTier`) receives
         evicted prefixes, and ``on_invalidate(hash)`` drops the
         directory entry at eviction time."""
-        self._no_tp("the global KV tier")
         self._kv_tier_member = str(member)
         self._cold_tier = cold_tier
         self._on_prefix_invalidate = on_invalidate
@@ -1143,7 +1178,6 @@ class RaggedInferenceEngine:
         injector may corrupt the wire payload after the checksum was
         stamped (``on_prefix_export``): the importer's verify must catch
         it."""
-        self._no_tp("export_prefix")
         if self.prefix_cache is None:
             return None
         key, blocks = self.prefix_cache.lookup(tokens)
@@ -1182,7 +1216,6 @@ class RaggedInferenceEngine:
         the cache ends holding the only references. Returns False when
         the prefix is already resident; raises ValueError or
         :class:`PoolExhausted` (the caller falls back to prefill)."""
-        self._no_tp("import_prefix")
         if self.prefix_cache is None:
             raise ValueError("prefix cache disabled; nothing to adopt into")
         cfg = self.config
@@ -1419,7 +1452,6 @@ class RaggedInferenceEngine:
         is appended, and on PoolExhausted every draft token is stripped
         before the raise, so a retry with a plain ``put`` of empty chunks
         sees exactly put()'s admitted state."""
-        self._no_tp("put_spec")
         cfg = self.config
         self._admit_tokens(uids, tokens)
         for uid, d in zip(uids, drafts):
@@ -1735,7 +1767,9 @@ class RaggedInferenceEngine:
         return torch.stack(gens, dim=1)
 
     _REPLAY = {"core": _replay_core, "decode": _replay_decode,
-               "copy_page": _replay_copy_page}
+               "copy_page": _replay_copy_page,
+               "gather_pages": _replay_gather_pages,
+               "write_pages": _replay_write_pages}
 
     # -- sampling ----------------------------------------------------------
     def _reseed(self, gen: torch.Generator, stream: str,
@@ -1883,7 +1917,6 @@ class RaggedInferenceEngine:
         the rejected tail. Greedy acceptance makes the output
         token-identical to ``generate()``; acceptance only changes how
         many steps it takes. Stats land in ``self.spec_stats``."""
-        self._no_tp("speculative decoding")
         if self.config.temperature != 0.0:
             raise NotImplementedError(
                 "speculative decoding is greedy-only (temperature == 0); "

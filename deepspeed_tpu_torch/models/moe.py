@@ -13,9 +13,11 @@ v1 engine (``init_inference``, bf16 or int8 / int4 weights), on the
 no-drop route. :meth:`Transformer.loss` takes the training route
 (capacity and drops, a noisy gate's noise from the ``generator`` that
 the trainer draws a micro-batch) and adds the aux loss times
-``aux_loss_weight``; ``initialize`` trains it on one device. Tensor and
-expert parallelism over its banks come with ROADMAP.md Queue A items 6b
-and 13.
+``aux_loss_weight``; ``initialize`` trains it on one device. Over the
+``model`` axis (serving, both engines) each rank holds ``d_ff / tp`` of
+every expert (:meth:`MoETransformer.partition_specs`, JAX's) and sums the
+bank's ``w_down`` rows over the group; expert parallelism comes with
+ROADMAP.md Queue A item 13.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..parallel.moe import EXPERT_AXES_LATER, GateConfig, MoELayer
+from ..parallel.moe import GateConfig, MoELayer
 from .transformer import Transformer, TransformerConfig
 
 _DENSE_FFN = ("w_gate", "w_up", "w_down", "b_up", "b_down")
@@ -102,21 +104,23 @@ class MoETransformer(Transformer):
     def _mlp(self, h: torch.Tensor, lp, generator=None,
              training: bool = False):
         """The expert bank over ``h`` ``[b, s, d]`` -> (out, aux loss x
-        ``aux_loss_weight``)."""
+        ``aux_loss_weight``); under tensor parallelism the bank's
+        ``w_down`` rows are summed over the model group."""
         params = {k: lp[k] for k in self.moe.shapes()}
-        out, aux = self.moe.apply(params, h, generator=generator,
-                                  training=training)
+        out, aux = self.moe.apply(
+            params, h, generator=generator, training=training,
+            reduce=self._all_reduce if self._tp_size > 1 else None)
         return out, aux * self.config.aux_loss_weight
 
-    def _check_tp(self, tp: int) -> None:
-        if tp > 1:
-            raise NotImplementedError(
-                f"tensor parallelism over a model axis of {tp} for a "
-                f"Mixture-of-Experts model: {EXPERT_AXES_LATER}")
-
     def partition_specs(self, params=None, topo=None):
-        raise NotImplementedError(f"MoETransformer.partition_specs: "
-                                  f"{EXPERT_AXES_LATER}")
+        """The JAX package's specs: the dense model's without its FFN
+        leaves, and the bank's (:meth:`MoELayer.partition_specs`)."""
+        specs = super().partition_specs(params, topo)
+        layers = {k: v for k, v in specs["layers"].items()
+                  if k not in _DENSE_FFN}
+        layers.update(self.moe.partition_specs(n_layers=self.config.n_layers))
+        specs["layers"] = layers
+        return specs
 
 
 def gpt_moe_config(size: str = "350m", n_experts: int = 8,

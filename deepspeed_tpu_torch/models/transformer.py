@@ -56,18 +56,20 @@ Three paths share the weights:
   one layer's weights at a time.
 
 Tensor parallelism (``bind_topology`` with a ``model`` axis above 1, after
-:meth:`Transformer.shard_` cut this rank's leaves), for the Llama flag set
-only (others raise, ROADMAP.md Queue A item 6b): the JAX package's
-Megatron layout (:meth:`Transformer.partition_specs`), made explicit
-where GSPMD inserts the collectives. A rank holds ``n_heads / tp`` query
-and ``n_kv_heads / tp`` KV heads (column-parallel ``wq`` / ``wk`` /
-``wv`` / ``w_gate`` / ``w_up``), the matching rows of the row-parallel
+:meth:`Transformer.shard_` cut this rank's leaves), for every flag set:
+the JAX package's Megatron layout (:meth:`Transformer.partition_specs`),
+made explicit where GSPMD inserts the collectives. A rank holds ``n_heads
+/ tp`` query and ``n_kv_heads / tp`` KV heads (column-parallel ``wq`` /
+``wk`` / ``wv`` / ``w_gate`` / ``w_up`` and ``bq`` / ``bk`` / ``bv`` /
+``b_up``) and their ALiBi slopes, the matching rows of the row-parallel
 ``wo`` / ``w_down``, whose partial products are summed over the model
-group, and ``vocab / tp`` rows of ``tok_embed`` and columns of
-``lm_head``: the embedding is a masked lookup of the local rows summed
-over the group (the JAX one-hot contraction, bit for bit: each row has
-one non-zero), and the head's fp32 logit columns are gathered in rank
-order. With a fused comm backend bound (``bind_comm_backend``, by the
+group before ``bo`` / ``b_down`` are added once, and ``vocab / tp`` rows
+of ``tok_embed`` (columns of ``lm_head``, entries of ``mlm_bias``): the
+embedding is a masked lookup of the local rows summed over the group (the
+JAX one-hot contraction, bit for bit: each row has one non-zero), and
+the head's fp32 logit columns (tied, untied or the MLM decoder) are
+gathered in rank order. Norms, positions, segments, the MLM transform
+and the pooler are replicated. With a fused comm backend bound (``bind_comm_backend``, by the
 v1 engine), a one-position decode step's down-projection runs as the
 backend's ``matmul_all_reduce`` (:meth:`Transformer._down_proj`).
 
@@ -281,20 +283,6 @@ def top_leaves(c: TransformerConfig) -> Tuple[str, ...]:
     return tuple(names)
 
 
-# the flags whose values off the Llama set tensor parallelism does not take
-_LLAMA_FLAGS = {"norm": "rms", "activation": "silu_glu", "position": "rope",
-                "tie_embeddings": False, "use_bias": False, "qkv_bias": False,
-                "attn_o_bias": False, "parallel_residual": False,
-                "embed_norm": False, "attn_scale": None,
-                "logits_softcap": 0.0, "causal": True, "prenorm": True,
-                "type_vocab_size": 0, "mlm_head": False, "pooler": False}
-
-
-def non_llama_flags(c: TransformerConfig) -> list:
-    """The flags of ``c`` that differ from the Llama flag set."""
-    return [k for k, v in _LLAMA_FLAGS.items() if getattr(c, k) != v]
-
-
 class Block(nn.Module):
     """One layer's parameters, named as the JAX leaves, ``[in,
     out]`` layout; the config decides which leaves exist
@@ -366,20 +354,56 @@ class Transformer(nn.Module):
     # -- tensor parallelism --------------------------------------------
     def partition_specs(self, params: Any = None, topo: Any = None
                         ) -> Dict[str, Any]:
-        """The JAX package's tensor-parallel PartitionSpecs of the Llama
-        flag set, key for key, over its stacked tree (layer leaves ``[
-        n_layers, ...]``, so a layer spec leads with the layer dim):
-        column-parallel QKV / gate / up, row-parallel O / down, the
-        vocab-sharded embedding and head. ``params`` and ``topo`` are
-        taken for the JAX signature; no pipe axis is ported."""
+        """The JAX package's tensor-parallel PartitionSpecs, key for key,
+        over its stacked tree (layer leaves ``[n_layers, ...]``, so a
+        layer spec leads with the layer dim): column-parallel QKV / gate /
+        up and their biases, row-parallel O / down (their biases
+        replicated: added once, after the model group's sum), the
+        vocab-sharded embedding, head and MLM decoder bias; norms,
+        positions, segments, the MLM transform and the pooler replicated.
+        ``params`` (a JAX-layout dict) adds ``lm_head_b`` where it holds
+        one, as JAX's does; ``topo`` is taken for the JAX signature (no
+        pipe axis is ported)."""
+        c = self.config
         layers = {"attn_norm_w": P(None, None), "wq": P(None, None, "model"),
                   "wk": P(None, None, "model"), "wv": P(None, None, "model"),
                   "wo": P(None, "model", None), "mlp_norm_w": P(None, None),
                   "w_up": P(None, None, "model"),
-                  "w_down": P(None, "model", None),
-                  "w_gate": P(None, None, "model")}
-        return {"tok_embed": P("model", None), "layers": layers,
-                "final_norm_w": P(None), "lm_head": P(None, "model")}
+                  "w_down": P(None, "model", None)}
+        if c.activation == "silu_glu":
+            layers["w_gate"] = P(None, None, "model")
+        if c.norm == "layer":
+            layers.update(attn_norm_b=P(None, None), mlp_norm_b=P(None, None))
+        if c.qkv_bias:
+            layers.update(bq=P(None, "model"), bk=P(None, "model"),
+                          bv=P(None, "model"))
+        if c.attn_o_bias:
+            layers["bo"] = P(None, None)
+        if c.use_bias:
+            layers.update(b_up=P(None, "model"), b_down=P(None, None))
+        specs: Dict[str, Any] = {"tok_embed": P("model", None),
+                                 "layers": layers}
+        if c.prenorm:
+            specs["final_norm_w"] = P(None)
+            if c.norm == "layer":
+                specs["final_norm_b"] = P(None)
+        if c.position == "learned":
+            specs["pos_embed"] = P(None, None)
+        if c.type_vocab_size > 0:
+            specs["type_embed"] = P(None, None)
+        if c.embed_norm:
+            specs.update(embed_norm_w=P(None), embed_norm_b=P(None))
+        if not c.tie_embeddings:
+            specs["lm_head"] = P(None, "model")
+            if isinstance(params, dict) and "lm_head_b" in params:
+                specs["lm_head_b"] = P("model")
+        if c.mlm_head:
+            specs.update(mlm_dense_w=P(None, None), mlm_dense_b=P(None),
+                         mlm_norm_w=P(None), mlm_norm_b=P(None),
+                         mlm_bias=P("model"))
+        if c.pooler:
+            specs.update(pooler_w=P(None, None), pooler_b=P(None))
+        return specs
 
     def leaf_spec(self, name: str) -> P:
         """The spec of one of ``named_parameters()``'s leaves (a layer
@@ -400,16 +424,8 @@ class Transformer(nn.Module):
         in place (each leaf is replaced by a copy of its slice, so the
         full-width tensor is freed), and bind the topology. The heads,
         ``d_ff`` and the vocab must divide by the axis."""
-        c = self.config
-        tp = topo.model_parallel_size
-        self._check_tp(tp)
         if self._tp_size > 1:
             raise ValueError("the model is already sharded")
-        for what, n in (("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads),
-                        ("d_ff", c.d_ff), ("vocab_size", c.vocab_size)):
-            if n % tp:
-                raise ValueError(f"{what} {n} not divisible by the model "
-                                 f"axis {tp}")
         self.bind_topology(topo)
         for name, p in self.named_parameters():
             p.data = self.local_shard(name, p.data).clone()
@@ -425,13 +441,20 @@ class Transformer(nn.Module):
         return self
 
     def _check_tp(self, tp: int) -> None:
-        """Tensor parallelism takes the Llama flag set only."""
-        bad = non_llama_flags(self.config)
-        if tp > 1 and bad:
-            raise NotImplementedError(
-                f"tensor parallelism over a model axis of {tp} with the "
-                f"non-Llama flags {bad} comes with ROADMAP.md, Queue A "
-                f"item 6b")
+        """A model axis of ``tp`` must divide the heads, the KV heads,
+        ``d_ff`` and the vocab. The JAX package's placement raises on an
+        indivisible vocab too (``device_put`` of the vocab-sharded
+        embedding); where only the heads do not divide, its v1 engine lets
+        GSPMD reshard them, which the port does not (ROADMAP.md, the
+        differences)."""
+        if tp <= 1:
+            return
+        c = self.config
+        for what, n in (("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads),
+                        ("d_ff", c.d_ff), ("vocab_size", c.vocab_size)):
+            if n % tp:
+                raise ValueError(f"{what} {n} not divisible by the model "
+                                 f"axis {tp}")
 
     def bind_comm_backend(self, backend) -> "Transformer":
         """Attach a fused comm backend (``comm/backends.py``): a decode
@@ -643,6 +666,10 @@ class Transformer(nn.Module):
         per-row ``-slopes * q_pos`` shift is constant along the softmax
         axis and cancels, so this alone is exact under the row softmax."""
         slopes = alibi_slopes(self.config.n_heads, device=device)
+        if self._tp_size > 1:
+            # this rank's heads' slopes (GSPMD shards JAX's by head)
+            h = self.config.n_heads // self._tp_size
+            slopes = slopes[self._tp_rank * h:(self._tp_rank + 1) * h]
         return slopes[:, None, None] * torch.arange(
             skv, dtype=torch.float32, device=device)[None, None, :]
 

@@ -37,28 +37,40 @@ package, an XLA op, not a Pallas kernel) has two routes, chosen by
 * ``"loop"``: the plain version, one ``torch.matmul`` a non-empty group
   after a host copy of the group sizes. CPU tensors take it (so the
   tests' JAX parity runs through it), as do CUDA tensors whose widths are
-  not 16-byte multiples. An empty ``a`` gives an empty product on either
-  route without a call.
+  not 16-byte multiples, and a product asked for in a wider ``out_dtype``
+  than ``a``'s (``_grouped_mm`` writes ``a``'s dtype only): each group's
+  ``torch.mm(..., out_dtype=...)`` on the card, fp32 operands on the CPU.
+  An empty ``a`` gives an empty product on either route without a call.
 
-Expert parallelism (the ``expert`` mesh axis, ROADMAP.md Queue A item
-13) and expert banks over the ``model`` axis (item 6b) are not ported:
-:meth:`MoELayer.partition_specs` raises.
+Tensor parallelism: :meth:`MoELayer.partition_specs` are the JAX
+package's (``w_up`` / ``w_gate`` ``(expert, None, model)``, ``w_down``
+``(expert, model, None)``, ``b_up`` ``(expert, model)``, ``b_down`` and
+``wg`` replicated). Over the ``model`` axis a rank holds ``d_ff / tp`` of
+every expert, routes every token itself (the gate reads the same states
+on every rank: they come out of the model group's all-reduce, which
+hands every rank the same bits) and sums its fp32 ``w_down`` partial rows
+over the group (``reduce``) before they are rounded and ``b_down`` is
+added, so each row is rounded once, where one device's grouped GEMM
+rounds it. Training over ``model`` (the capacity route) comes with
+ROADMAP.md Queue A item 6b's training half. The ``expert`` axis stays
+size 1: expert parallelism comes with item 13 (``parallel/mesh.py``
+refuses the axis).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
 
+from .mesh import PartitionSpec as P
+
 Params = Dict[str, torch.Tensor]
 
-EXPERT_AXES_LATER = (
-    "expert banks sharded over the 'expert' mesh axis come with ROADMAP.md, "
-    "Queue A item 13, and over the 'model' axis with item 6b")
+Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 @dataclass
@@ -149,12 +161,14 @@ def top_k_gating(logits: torch.Tensor, cfg: GateConfig, cap: int,
     return combine, combine > 0, aux
 
 
-def grouped_route(a: torch.Tensor, b: torch.Tensor) -> str:
+def grouped_route(a: torch.Tensor, b: torch.Tensor,
+                  out_dtype: Optional[torch.dtype] = None) -> str:
     """The grouped GEMM's route for ``a [M, in]`` times a bank ``b [E, in,
     out]``: ``"grouped"`` (``torch._grouped_mm``) on CUDA tensors whose
-    in and out widths are 16-byte multiples, else ``"loop"``. Decided
-    from the device, dtype and widths alone, before the call."""
-    if not a.is_cuda:
+    in and out widths are 16-byte multiples and whose product is wanted
+    in ``a``'s dtype, else ``"loop"``. Decided from the device, dtypes and
+    widths alone, before the call."""
+    if not a.is_cuda or out_dtype not in (None, a.dtype):
         return "loop"
     align = 16 // a.element_size()
     return "grouped" if a.shape[-1] % align == 0 \
@@ -162,40 +176,56 @@ def grouped_route(a: torch.Tensor, b: torch.Tensor) -> str:
 
 
 def _grouped_mm_loop(a: torch.Tensor, b: torch.Tensor,
-                     group_sizes: torch.Tensor) -> torch.Tensor:
+                     group_sizes: torch.Tensor,
+                     out_dtype: torch.dtype) -> torch.Tensor:
     """The plain grouped GEMM: rows ``[off_g, off_g + n_g)`` of ``a`` times
-    ``b[g]``, one ``torch.matmul`` a non-empty group (the group sizes are
-    read on the host). -> ``[M, out]`` in ``a``'s dtype."""
-    out = torch.empty((a.shape[0], b.shape[-1]), dtype=a.dtype,
+    ``b[g]``, one matmul a non-empty group (the group sizes are read on
+    the host). -> ``[M, out]`` in ``out_dtype``: a wider one than ``a``'s
+    keeps the fp32 accumulator unrounded (``torch.mm``'s ``out_dtype`` on
+    the card, fp32 operands on the CPU)."""
+    out = torch.empty((a.shape[0], b.shape[-1]), dtype=out_dtype,
                       device=a.device)
     start = 0
     for g, n in enumerate(group_sizes.tolist()):
         if n:
-            torch.matmul(a[start:start + n], b[g], out=out[start:start + n])
+            rows = out[start:start + n]
+            if out_dtype == a.dtype:
+                torch.matmul(a[start:start + n], b[g], out=rows)
+            elif a.is_cuda:
+                rows.copy_(torch.mm(a[start:start + n], b[g],
+                                    out_dtype=out_dtype))
+            else:
+                torch.matmul(a[start:start + n].to(out_dtype),
+                             b[g].to(out_dtype), out=rows)
         start += n
     return out
 
 
 def grouped_mm(a: torch.Tensor, b: torch.Tensor, group_sizes: torch.Tensor,
-               route: Optional[str] = None) -> torch.Tensor:
+               route: Optional[str] = None,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``jax.lax.ragged_dot(a, b, group_sizes)``: ``a [M, in]`` whose rows
     are grouped contiguously by expert (``group_sizes [E]``, summing to
-    M), times ``b [E, in, out]`` -> ``[M, out]`` in ``a``'s dtype. ``route``
-    (default :func:`grouped_route`) is ``"grouped"`` or ``"loop"``."""
-    route = route or grouped_route(a, b)
+    M), times ``b [E, in, out]`` -> ``[M, out]`` in ``out_dtype`` (default
+    ``a``'s). ``route`` (default :func:`grouped_route`) is ``"grouped"``
+    or ``"loop"``."""
+    out_dtype = out_dtype or a.dtype
+    route = route or grouped_route(a, b, out_dtype)
     if a.shape[0] == 0:
-        return a.new_empty((0, b.shape[-1]))
+        return a.new_empty((0, b.shape[-1]), dtype=out_dtype)
     if route == "loop":
-        return _grouped_mm_loop(a, b, group_sizes)
-    if route != "grouped":
-        raise ValueError(f"route must be 'grouped' or 'loop', got {route!r}")
+        return _grouped_mm_loop(a, b, group_sizes, out_dtype)
+    if route != "grouped" or out_dtype != a.dtype:
+        raise ValueError(f"route must be 'grouped' (in a's dtype) or "
+                         f"'loop', got {route!r} to {out_dtype}")
     offs = torch.cumsum(group_sizes, 0, dtype=torch.int32)
     return torch._grouped_mm(a, b, offs=offs)
 
 
 def no_drop_moe(x_flat: torch.Tensor, probs: torch.Tensor, idx: torch.Tensor,
                 params: Params, activation: str,
-                route: Optional[str] = None) -> torch.Tensor:
+                route: Optional[str] = None,
+                reduce: Reduce = None) -> torch.Tensor:
     """Sort-based no-drop expert dispatch on grouped GEMMs (the JAX
     ``no_drop_moe``, FastGen's ``moe_gather`` / grouped GEMM /
     ``moe_scatter``). x_flat: ``[S, d]``; probs / idx: ``[S, k]`` top-k
@@ -205,7 +235,16 @@ def no_drop_moe(x_flat: torch.Tensor, probs: torch.Tensor, idx: torch.Tensor,
     indexed by the sorted expert id, the activation is the tanh GELU
     (``jax.nn.gelu``) or gated SiLU, and the gate-weighted rows, cast to
     ``x``'s dtype, are added into zeros at their tokens. Nothing is read
-    back to the host on the ``"grouped"`` route."""
+    back to the host on the ``"grouped"`` route. With banks sharded on
+    ``d_ff`` over the model axis, ``reduce`` sums the fp32 ``w_down``
+    partial rows over the group (the ``"loop"`` route then takes that
+    product); the sum is rounded to ``x``'s dtype once, as one device's
+    grouped GEMM rounds its accumulator, and ``b_down``, the gate weights
+    and the scatter-add follow as on one device. (Reducing the ``[S, d]``
+    combined rows instead would move half the bytes at top-2 but round
+    once where one device rounds three times: bf16 outputs would part
+    from one device's by an ulp in many elements and flip near-tied
+    gates.)"""
     S, k = idx.shape
     E = params["w_up"].shape[0]
     flat_e = idx.reshape(-1)
@@ -226,7 +265,11 @@ def no_drop_moe(x_flat: torch.Tensor, probs: torch.Tensor, idx: torch.Tensor,
         if "b_up" in params:
             h = h + params["b_up"][e_sorted].to(h.dtype)
         h = F.gelu(h, approximate="tanh")
-    ys = grouped_mm(h, params["w_down"], group_sizes, route)  # [S*k, d]
+    if reduce is None:
+        ys = grouped_mm(h, params["w_down"], group_sizes, route)  # [S*k, d]
+    else:
+        ys = reduce(grouped_mm(h, params["w_down"], group_sizes,
+                               out_dtype=torch.float32)).to(h.dtype)
     if "b_down" in params:
         ys = ys + params["b_down"][e_sorted].to(ys.dtype)
     w = probs.reshape(-1)[order][:, None].to(ys.dtype)
@@ -279,12 +322,15 @@ class MoELayer:
 
     def apply(self, params: Params, x: torch.Tensor,
               generator: Optional[torch.Generator] = None,
-              training: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+              training: bool = True,
+              reduce: Reduce = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: ``[b, s, d]`` -> (out ``[b, s, d]``, aux loss, a 0-dim fp32
         tensor). Token groups are the batch rows (the JAX per-row
         capacity). Eval, or training without ``drop_tokens``, takes the
         no-drop route; its aux is the same load-balance diagnostic over
-        the first choice."""
+        the first choice. ``reduce`` sums a bank's fp32 ``w_down``
+        partial products over the model group (banks sharded on ``d_ff``;
+        the no-drop route only)."""
         b, s, d = x.shape
         cfg = self.gate
         if not training or not cfg.drop_tokens:
@@ -294,10 +340,14 @@ class MoELayer:
             topw = topw / torch.clamp(torch.sum(topw, dim=-1, keepdim=True),
                                       min=1e-9)
             out = no_drop_moe(x.reshape(b * s, d), topw, topi, params,
-                              self.activation)
+                              self.activation, reduce=reduce)
             assign = torch.mean(_one_hot(topi[:, 0], cfg.n_experts), dim=0)
             aux = cfg.n_experts * torch.sum(torch.mean(probs, dim=0) * assign)
             return out.reshape(b, s, d), aux
+        if reduce is not None:
+            raise NotImplementedError(
+                "capacity dispatch over the model axis (training) comes with "
+                "ROADMAP.md, Queue A item 6b's training half")
         cap = capacity(s, cfg, training)
         x_r = x
         if cfg.noisy_gate_policy == "Jitter" and generator is not None:
@@ -328,7 +378,17 @@ class MoELayer:
 
     def partition_specs(self, n_layers: Optional[int] = None,
                         pipe: Optional[str] = None):
-        """The JAX specs shard the banks over ``expert`` and ``model``; the
-        port has neither for experts yet."""
-        raise NotImplementedError(f"MoELayer.partition_specs: "
-                                  f"{EXPERT_AXES_LATER}")
+        """The JAX package's specs of the bank (stacked ``[n_layers, ...]``
+        when ``n_layers`` is given, its layer dim over ``pipe``): experts
+        over ``expert``, ``d_ff`` over ``model``, ``wg`` and ``b_down``
+        replicated."""
+        lead = (pipe,) if n_layers else ()
+        specs = {"wg": P(*lead, None, None),
+                 "w_up": P(*lead, "expert", None, "model"),
+                 "w_down": P(*lead, "expert", "model", None)}
+        if self.activation == "silu_glu":
+            specs["w_gate"] = P(*lead, "expert", None, "model")
+        if self.use_bias:
+            specs["b_up"] = P(*lead, "expert", "model")
+            specs["b_down"] = P(*lead, "expert", None)
+        return specs

@@ -146,7 +146,8 @@ def test_other_flags_raise(where, flag):
     """Every flag of the model core is ported (tests/test_torch_families.py
     and tests/test_torch_encoders.py hold them to JAX); what still raises:
     a model with an encoder flag in the ragged engine (``causal=False``,
-    ``prenorm=False``: C7) and a non-Llama flag set over a model axis.
+    ``prenorm=False``: C7). A non-Llama flag set over a model axis is
+    sharded now (tests/test_torch_tp_serving.py serves it): one cut here.
     Training takes every flag set now (tests/test_torch_train_families.py
     and tests/test_torch_train_encoders.py hold it to JAX): one step
     here."""
@@ -165,16 +166,16 @@ def test_other_flags_raise(where, flag):
         m = engine.train_batch({"input_ids": torch.randint(0, 64, (2, 8))})
         assert torch.isfinite(m["loss"]) and not m["skipped"]
         return
-    topo = SimpleNamespace(model_parallel_size=2)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        model.shard_(topo)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        shard_params(export_params(model), topo, model)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        RaggedInferenceEngine(model, RaggedConfig(
-            token_budget=8, max_seqs=2, kv_block_size=4, n_kv_blocks=8,
-            max_context=32), device="cpu", topology=topo)
-    assert model._tp_size == 1
+    topo = SimpleNamespace(model_parallel_size=2, rank=lambda axis: 1)
+    tree = shard_params(export_params(model), topo, model)
+    assert tree["layers"]["b_up"].shape == (2, model.config.d_ff // 2)
+    assert tree["layers"]["b_down"].shape == (2, 64)      # replicated
+    d_ff = model.config.d_ff
+    b_up = model.layers[0].b_up.clone()
+    model.shard_(topo)
+    assert model._tp_size == 2 and model._tp_rank == 1
+    assert torch.equal(model.layers[0].b_up, b_up[d_ff // 2:])
+    assert model.layers[0].b_down.shape == (64,)
 
 
 def test_weight_carry_checks_shapes_and_leaves(carried):

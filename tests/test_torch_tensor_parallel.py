@@ -17,7 +17,8 @@ module and run every case in one job each (TP 2 and TP 4).
   TP 4: the logits of every ``put`` of a greedy run within 1e-4 of both
   JAX engines', and ``generate``'s greedy streams identical to theirs.
 * ``ValueError`` on ``n_kv_heads`` that the model axis does not divide;
-  the item-6b operations and ``data`` x ``model`` raise naming the item;
+  ``data`` x ``model`` raises naming item 6b; the operations item 6b
+  lifted are step records (``tests/test_torch_tp_serving.py`` runs them);
   ``tensor_parallel`` / ``mp_size`` / ``{"tp_size": n}`` parse as JAX's.
 * v1 ``init_inference(tensor_parallel=2)`` (plain SPMD): tokens equal to
   JAX's ``InferenceEngine(tensor_parallel=2)`` on the fused (``"pallas"``)
@@ -247,24 +248,18 @@ def test_indivisible_kv_heads_and_later_items_raise():
         Topology.build({"data": 2, "model": 2})
     with pytest.raises(ConfigError, match="world size"):
         Topology.build({"model": 2})
-    with pytest.raises(NotImplementedError, match="6b"):
+    # quantized weights under tensor parallelism are served now
+    # (tests/test_torch_tp_serving.py): the call gets as far as the
+    # topology, which one process cannot make
+    with pytest.raises(ConfigError, match="world size"):
         init_inference(Llama("tiny", device="cpu", **BASE),
                        {"tensor_parallel": 2, "quant": {"enabled": True}},
                        device="cpu")
-    # the item-6b operations of a TP engine, checked before any collective
-    eng = RaggedInferenceEngine(Llama("tiny", device="cpu", **BASE),
-                                RaggedConfig(max_context=128,
-                                             enable_prefix_cache=True),
-                                device="cpu")
-    eng._tp = 2
-    for call in (lambda: eng.put_spec([1], [[1]], [[2]]),
-                 lambda: eng.export_kv(1), lambda: eng.import_kv(1, None),
-                 lambda: eng.export_prefix([1, 2]),
-                 lambda: eng.import_prefix(None),
-                 lambda: eng.enable_kv_tier(member="a"),
-                 lambda: eng.generate_speculative({1: [1, 2, 3]})):
-        with pytest.raises(NotImplementedError, match="6b"):
-            call()
+    # the operations item 6b lifted run as step records on a TP engine
+    # (tests/test_torch_tp_serving.py drives them at TP 2 and 4)
+    assert not hasattr(RaggedInferenceEngine, "_no_tp")
+    assert set(RaggedInferenceEngine._REPLAY) == {
+        "core", "decode", "copy_page", "gather_pages", "write_pages"}
 
 
 @pytest.mark.parametrize("config", [

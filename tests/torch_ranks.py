@@ -17,6 +17,7 @@ import importlib
 import os
 import queue as queue_mod
 import socket
+import threading
 import time
 import traceback
 from typing import Any, Dict, List
@@ -73,8 +74,13 @@ class Ranks:
                                   args=(r, world, port, job, args,
                                         self.queue))
                       for r in range(world)]
-        for p in self.procs:
-            p.start()
+        # a spawned child takes its pickled arguments only once it has
+        # imported torch: start the ranks side by side, not one by one
+        starters = [threading.Thread(target=p.start) for p in self.procs]
+        for t in starters:
+            t.start()
+        for t in starters:
+            t.join()
         self._results: Dict[int, Any] = {}
 
     def kill(self) -> None:
@@ -486,3 +492,228 @@ def tp_import_job(rank: int, world: int) -> List[str]:
         eng.serve_worker()
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu"))
+
+
+# ----------------------------------------------------------------------
+# jobs of tests/test_torch_tp_serving.py
+
+def _family(case: Dict[str, Any]):
+    """A port model of ``case``'s flag set (``"dense"`` or ``"moe"``) on
+    the CPU, full width."""
+    from deepspeed_tpu_torch.models.moe import (MoETransformer,
+                                                MoETransformerConfig)
+    from deepspeed_tpu_torch.models.transformer import (Transformer,
+                                                        TransformerConfig)
+
+    if case["family"] == "moe":
+        return MoETransformer(MoETransformerConfig(**case["config"]),
+                              device="cpu")
+    return Transformer(TransformerConfig(**case["config"]), device="cpu")
+
+
+def _full(case: Dict[str, Any]):
+    """``case``'s model at full width with the carried JAX weights."""
+    from deepspeed_tpu_torch.checkpoint.jax_params import load_jax_params
+
+    return load_jax_params(_family(case), case["params"])
+
+
+def _shard(case: Dict[str, Any], topo):
+    """``case``'s model cut to this rank's shard (``shard_params``), the
+    carried JAX weights loaded into the shard."""
+    from deepspeed_tpu_torch.checkpoint.jax_params import (load_jax_params,
+                                                           shard_params)
+
+    return load_jax_params(shard_params(_family(case), topo), case["params"])
+
+
+def _routing_log():
+    """Record a digest of every no-drop route's gate input and chosen
+    experts on this rank (the ranks must route alike). Returns the list
+    the digests go to and the undo."""
+    import hashlib
+
+    from deepspeed_tpu_torch.parallel import moe as moe_mod
+
+    real, log = moe_mod.no_drop_moe, []
+
+    def logged(x_flat, probs, idx, *a, **k):
+        log.append(hashlib.sha256(x_flat.detach().numpy().tobytes()
+                                  + idx.numpy().tobytes()).hexdigest())
+        return real(x_flat, probs, idx, *a, **k)
+
+    moe_mod.no_drop_moe = logged
+
+    def undo():
+        moe_mod.no_drop_moe = real
+
+    return log, undo
+
+
+def _pages(export) -> Dict[str, np.ndarray]:
+    """A ``KVExport``'s or ``PrefixExport``'s pages and scales as numpy
+    (bf16 through fp32: exact)."""
+    if hasattr(export, "k_pages"):
+        leaves = {"k": export.k_pages, "v": export.v_pages,
+                  "ks": export.k_scales, "vs": export.v_scales}
+    else:
+        k, v = export.pages
+        ks, vs = export.scales or (None, None)
+        leaves = {"k": k, "v": v, "ks": ks, "vs": vs}
+    return {n: _np(t) for n, t in leaves.items() if t is not None}
+
+
+def _same_pages(a, b) -> bool:
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[n], b[n]) for n in a)
+
+
+def _handoffs(case, topo, pool: str) -> Dict[str, Any]:
+    """Both directions of the hand-off between a TP engine and a
+    one-device engine over ``pool`` (``"fp32"``, ``"bf16"``, ``"int8"``):
+    each export re-exported by its importer bitwise, each continued
+    stream against the one-device engine's uninterrupted one. Workers
+    replay the TP engine's records."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine,
+                                                      assert_block_balance)
+
+    dtype = torch.bfloat16 if pool == "bf16" else torch.float32
+    cfg = RaggedConfig(dtype=dtype, kv_quant="int8" if pool == "int8"
+                       else "none", **case["cfg"])
+    e2 = RaggedInferenceEngine(_shard(case, topo), cfg, device="cpu",
+                               topology=topo)
+    if not e2.is_controller:
+        return e2.serve_worker()
+    e1 = RaggedInferenceEngine(_full(case), cfg, device="cpu")
+    p, n = case["handoff"], case["new"]
+    ref = e1.generate({9: p}, max_new_tokens=n)[9]
+    out: Dict[str, Any] = {"ref": ref}
+    for src, dst, uid in ((e1, e2, 1), (e2, e1, 2)):
+        first = int(np.argmax(src.put([uid], [p])[0]))
+        x = src.export_kv(uid)
+        src.flush([uid])
+        dst.import_kv(uid, x)
+        again = dst.export_kv(uid)
+        tag = "to_tp" if src is e1 else "from_tp"
+        out[tag] = {"pages": _pages(x),
+                    "bitwise": _same_pages(_pages(x), _pages(again)),
+                    "stream": [first] + dst.decode_steps(
+                        {uid: first}, n - 1)[uid]}
+        dst.flush([uid])
+    for e in (e1, e2):
+        assert_block_balance(e, expect_free=cfg.n_kv_blocks)
+    e2.stop_workers()
+    return out
+
+
+def _prefix_tier(case, topo) -> Dict[str, Any]:
+    """A TP engine with a prefix cache and a cold tier: export_prefix,
+    eviction into the cold tier (gather records inside the controller's
+    admission), import_prefix re-exported bitwise, then a cold-tier
+    re-admission whose stream equals the first."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine,
+                                                      assert_block_balance)
+    from deepspeed_tpu_torch.serving.kvtier import ColdTier
+
+    cfg = RaggedConfig(dtype=torch.float32, enable_prefix_cache=True,
+                       **case["cfg"])
+    eng = RaggedInferenceEngine(_shard(case, topo), cfg, device="cpu",
+                                topology=topo)
+    if not eng.is_controller:
+        return eng.serve_worker()
+    cold = ColdTier(capacity_pages=64)
+    eng.enable_kv_tier(member="tp", cold_tier=cold)
+    p, n = case["prefix"], case["new"]
+    first = eng.generate({1: p}, max_new_tokens=n)[1]
+    pe = eng.export_prefix(p)
+    eng.prefix_cache.drop_all(eng.allocator)
+    spills = eng.kvtier_cold_spills
+    adopted = eng.import_prefix(pe)
+    again = eng.export_prefix(p)
+    eng.prefix_cache.drop_all(eng.allocator)
+    second = eng.generate({2: p}, max_new_tokens=n)[2]
+    assert_block_balance(eng)
+    out = {"first": first, "second": second, "pages": _pages(pe),
+           "n_pages": pe.n_pages, "spills": spills, "adopted": adopted,
+           "bitwise": _same_pages(_pages(pe), _pages(again)),
+           "readmits": eng.kvtier_cold_readmits, "checksum": pe.verify()}
+    eng.stop_workers()
+    return out
+
+
+def tp_serving_job(rank: int, world: int, cases: Dict[str, Any]
+                   ) -> Dict[str, Any]:
+    """Every case of tests/test_torch_tp_serving.py on this rank: the
+    ragged engine over each flag set (``put`` logits, ``generate``
+    streams, for MoE the routing digests), speculative decoding, the
+    hand-offs and the prefix tier on the OPT set, and v1
+    ``init_inference`` (tokens or MLM logits, dequantized shards; rank 0
+    also the one-device engine's dequantized leaves). Workers return
+    what they replayed."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.jax_params import export_params
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.parallel.mesh import Topology
+
+    topo = Topology.build({"model": world})
+    out: Dict[str, Any] = {"shards": {}}
+    for name, case in cases.get("ragged", {}).items():
+        model = _shard(case, topo)
+        out["shards"][name] = export_params(model)
+        routes, undo = _routing_log() if case["family"] == "moe" \
+            else (None, None)
+        eng = RaggedInferenceEngine(
+            model, RaggedConfig(dtype=torch.float32, **case["cfg"]),
+            device="cpu", topology=topo)
+        if not eng.is_controller:
+            out[name] = eng.serve_worker()
+        else:
+            out[name] = {
+                "rows": drive_puts(eng, case["prompts"], case["n_decode"]),
+                "streams": eng.generate(dict(case["prompts"]),
+                                        max_new_tokens=case["new"])}
+            if "spec" in case:
+                spec = case["spec"]
+                out[name]["spec"] = eng.generate_speculative(
+                    dict(spec["prompts"]), max_new_tokens=case["new"],
+                    ngram=2, lookahead=3)
+                out[name]["spec_stats"] = dict(eng.spec_stats)
+                uids = list(spec["prompts"])
+                rows = eng.put(uids, list(spec["prompts"].values()))
+                toks = [[int(np.argmax(r))] for r in rows]
+                o, verified = eng.put_spec(uids, toks, spec["drafts"])
+                out[name]["put_spec"] = {
+                    "out": o, "verified": {u: (c, np.asarray(r)) for u, (c, r)
+                                           in verified.items()}}
+                eng.flush(uids)
+            eng.stop_workers()
+        if routes is not None:
+            undo()
+            out[name + "_routes"] = routes
+        if "handoff" in case:
+            for pool in ("fp32", "bf16", "int8"):
+                out[f"handoff_{pool}"] = _handoffs(case, topo, pool)
+        if "prefix" in case:
+            out["prefix"] = _prefix_tier(case, topo)
+    for name, case in cases.get("v1", {}).items():
+        # an unsharded model (the engine cuts it) or one cut first: either
+        # way each leaf is gathered for the quantize
+        model = _shard(case, topo) if case.get("cut") else _full(case)
+        eng = dst.init_inference(model, case["engine"], device="cpu")
+        res: Dict[str, Any] = {}
+        if case.get("forward"):
+            res["logits"] = _np(eng.forward(case["ids"]))
+        else:
+            res["ids"] = eng.generate(case["ids"],
+                                      max_new_tokens=case["new"])
+        res["deq"] = {n: _np(eng._leaf(n)) for n in eng._wq_shapes}
+        res["blocks"] = dict(eng._wq_blocks)
+        if rank == 0 and eng._wq_shapes:
+            one = dst.init_inference(_full(case), {
+                **case["engine"], "tensor_parallel": 1}, device="cpu")
+            res["deq_tp1"] = {n: _np(one._leaf(n)) for n in one._wq_shapes}
+        out[f"v1_{name}"] = res
+    return out
