@@ -96,6 +96,8 @@ CPU path — without a CUDA device the script fails):
    (identical tokens, bitwise pages, equal checksums, only the suffix
    scheduled); sampled ``generate`` (temperature 0.8, top-k 50, top-p
    0.9), seeded and chunk-invariant;
+6c-6e run Llama-2-7B's width at 8 of its 32 layers (``SHALLOW_LAYERS``,
+   time; each phase makes its own single-engine references);
 6c. replicas: two ``ServingEngine`` replicas over 512-page engines on
    the same Llama-2-7B, phase 5's 8 requests: (a) with the JSON-lines
    request sink, tracing and a fault injector on (valid records, TTFT p50
@@ -243,6 +245,23 @@ CPU path — without a CUDA device the script fails):
    on the Hopper kernels); step time (the four timed steps' mean),
    tokens/s, MFU, peak memory;
 9. train profile: one more step under ``torch.profiler``;
+8c. tensor-parallel training (after 8b, the families): TP 2 through
+   ``initialize(config={"mesh": {"model": 2}})``, two gloo rank
+   processes on the one card (and two on the host for (b)): (a)
+   TinyLlama-1.1B (``llama_config("1b")``) at full width and depth, bf16
+   on fp32 masters, full remat, AdamW lr 1e-4, clipping 1.0, GAS 2 of 1 x
+   2048 tokens, 1 warm-up and 3 timed steps with the flash counts and the
+   comms ledger set to 0 between them: step time, tokens/s, MFU, the
+   collectives a step and their share of it, peak memory a rank; every
+   forward, dq and dk/dv launch on the Hopper kernels (22 x 2 x 2, 44, 44
+   a step a rank), a finite falling loss, no skipped step, the replicated
+   leaves bitwise equal on both ranks; (b) its widths at 2 layers in fp32,
+   3 steps: TP 2 on the card against TP 1 on the card (losses 1e-5, grad
+   norms 1e-4, the masters gathered to full width within 1e-6 but for
+   Adam's near-eps elements) and against TP 2 on the host; (c)
+   350M+MoE-128's widths at 2 layers and 32 experts (vocab padded to
+   50432), fp32, the capacity route top-2 without noise: TP 2 against TP
+   1 as (b), and each rank's expert choices equal;
 10. ZeRO-3 parity: ``SequentialBlockModel((64, 256, 512, 64))`` in fp32,
    ZeRO stage 3 over 2 ranks, one pair of rank processes on cuda (both on
    the one card, over gloo) and one on cpu, from the same seed-made
@@ -2353,7 +2372,8 @@ def _hot_swap(model, prompts, card: str, counter) -> None:
         return [list(r.tokens) for r in reqs]
 
     def load_seed1():
-        new = Llama("7b", dtype=torch.bfloat16, seed=1)
+        new = Llama("7b", dtype=torch.bfloat16, seed=1,
+                    n_layers=model.config.n_layers)
         with torch.no_grad():
             for (_, p), (_, q) in zip(model.named_parameters(),
                                       new.named_parameters()):
@@ -2402,7 +2422,8 @@ def _hot_swap(model, prompts, card: str, counter) -> None:
 
 
 def phase_replicas(model, card: str, err: dict) -> dict:
-    """Two Llama-2-7B replicas on the card (phase 5's model and requests),
+    """Two Llama-2-7B replicas on the card (phase 5's requests; ``model``
+    at the width of phase 5's, its depth the caller's),
     each a ``ServingEngine`` over its own 512-page engine: (a) telemetry,
     tracing and a fault injector on, then off / on interleaved; (f) the
     native host library on every put of (a), timed against numpy; (b)
@@ -2982,7 +3003,7 @@ def phase_fleet(model, card: str, err: dict) -> dict:
 
 
 # --------------------------------------------------------------- phase 6e
-REGION_LAYERS = 8             # Llama-2-7B's 32 layers cut (time)
+SHALLOW_LAYERS = 8            # 6c-6e: Llama-2-7B's 32 layers cut (time)
 REGION_FLEET = {"replicas": 2, "router": "prefix_affinity"}
 REGION_DISAGG = {"disaggregated": True, "prefill_replicas": 1,
                  "replicas": 1, "respawn": False}
@@ -5330,13 +5351,13 @@ def _moe_choices(model, sink: list):
     layer = model.moe
     real, prev = layer.apply, layer.__dict__.get("apply")
 
-    def recording(params, x, generator=None, training=True, reduce=None):
+    def recording(params, x, generator=None, training=True, **tp):
         logits = (x.float() @ params["wg"].float()).reshape(-1, params[
             "wg"].shape[1])
         topi = torch.topk(torch.softmax(logits, dim=-1),
                           layer.gate.top_k, dim=-1).indices
         sink.append((topi.cpu(), logits.cpu()))
-        return real(params, x, generator, training, reduce)
+        return real(params, x, generator, training, **tp)
 
     layer.apply = recording
 
@@ -7433,6 +7454,354 @@ def phase_train_families(card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 8c
+TP_TRAIN_WORLD = 2
+TP_TRAIN_SHAPE = (2, 2048, 2)  # (a): rows x tokens a step, GAS (phase 8's
+#                                4 x 2048 micro-batch cut to 1 x 2048: time)
+TP_TRAIN_TIMED = 3             # (a): after 1 warm-up step
+TP_TRAIN_ROWS = (2, 256)       # (b), (c): rows x tokens a step, GAS 2
+TP_TRAIN_STEPS = 3             # (b), (c)
+TP_TRAIN_LR = 1e-4
+TP_TRAIN_PREDICTED_S = 55.0    # stated in PERF.md before the first run
+
+
+def _tp_train_cfg(rows: int, gas: int, tp: int, bf16: bool) -> dict:
+    cfg = {"train_batch_size": rows, "gradient_accumulation_steps": gas,
+           "gradient_clipping": 1.0, "steps_per_print": 1000,
+           "optimizer": {"type": "adamw",
+                         "params": {"lr": TP_TRAIN_LR,
+                                    "weight_decay": 0.1}}}
+    if tp > 1:
+        cfg["mesh"] = {"model": tp}
+    if bf16:
+        cfg["bf16"] = {"enabled": True}
+    return cfg
+
+
+def _tp_parity_model(kind: str, device: str):
+    """(b) / (c)'s full-width 2-layer model from a seed, norm vectors
+    drawn: Llama-1b's widths made on the host (the cpu ranks and the
+    card get the same weights), or 350M+MoE-128's at 32 experts made on
+    ``device``, with the vocab padded 50257 -> 50432 (an odd vocab cannot
+    shard; 6f (i)'s pad)."""
+    from deepspeed_tpu_torch.models.llama import Llama
+    from deepspeed_tpu_torch.models.moe import GPTMoE
+
+    if kind == "llama":
+        return _draw_vectors(Llama("1b", device="cpu", seed=2, n_layers=2),
+                             2).to(device)
+    return _draw_vectors(GPTMoE("350m", 32, device=device, seed=3,
+                                n_layers=2, vocab_size=TP_MOE_VOCAB), 3)
+
+
+def _min_abs_g(engine) -> dict:
+    """Wrap ``engine``'s optimizer to keep each element's smallest |g|
+    over the steps; returns the dict it fills."""
+    from deepspeed_tpu_torch.runtime.optimizers import Transform
+
+    lo = {}
+    inner = engine.optimizer
+
+    def update(grads, state, params):
+        for n, g in grads.items():
+            a = g.abs()
+            lo[n] = torch.minimum(lo[n], a) if n in lo else a.clone()
+        return inner.update(grads, state, params)
+
+    engine.optimizer = Transform(inner.init, update)
+    return lo
+
+
+def _tp_steps(engine, batch) -> list:
+    steps = []
+    for _ in range(TP_TRAIN_STEPS):
+        m = engine.train_batch(batch)
+        steps.append((float(m["loss"]), float(m["grad_norm"]),
+                      bool(m["skipped"])))
+    return steps
+
+
+def _tp_parity(rank, world, device, kind: str, ids: np.ndarray,
+               keep_ref: bool) -> tuple:
+    """(b) / (c) on one rank: the 2-layer fp32 model through
+    ``initialize`` at TP ``world`` (``initialize`` cuts it), 3 steps; for
+    MoE each gate call's dispatch fingerprinted. Returns (the steps and
+    fingerprints, the masters gathered to full width, with ``keep_ref``
+    a copy of the model as it started)."""
+    import copy
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.parallel import moe as pmoe
+
+    model = _tp_parity_model(kind, device)
+    ref = copy.deepcopy(model) if keep_ref else None
+    batch = {"input_ids": torch.from_numpy(ids).to(device)}
+    routes = []
+    real = pmoe.top_k_gating
+
+    def recording(logits, cfg, cap, generator=None, training=True):
+        out = real(logits, cfg, cap, generator, training)
+        routes.append(_digest(out[1].to(torch.int16)))
+        return out
+
+    pmoe.top_k_gating = recording
+    try:
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=model, device=device,
+            config=_tp_train_cfg(TP_TRAIN_ROWS[0], 2, world, False))
+        steps = _tp_steps(engine, batch)
+    finally:
+        pmoe.top_k_gating = real
+    out = {"steps": steps, "routes": routes,
+           "sharded": len(engine.tp_sharded), "leaves": len(engine.params)}
+    return out, engine.full_params(), ref, batch
+
+
+def _tp_against_tp1(device, ref, full: dict, batch) -> dict:
+    """The same weights (``ref``) trained at TP 1 on the card, 3 steps,
+    and the TP run's gathered masters ``full`` held against its masters:
+    within 1e-6 except where a TP-1 gradient element fell below 1e-6 at
+    some step (Adam's near-eps elements), those within 2 lr a step."""
+    from deepspeed_tpu_torch.config import Config
+    from deepspeed_tpu_torch.parallel.mesh import Topology
+    from deepspeed_tpu_torch.runtime.engine import TrainEngine
+
+    cfg = Config.from_dict(_tp_train_cfg(TP_TRAIN_ROWS[0], 2, 1, False))
+    one = TrainEngine(params=dict(ref.named_parameters()), config=cfg,
+                      model=ref, device=device, topology=Topology({}, {}))
+    lo = _min_abs_g(one)
+    out = {"tp1": _tp_steps(one, batch)}
+    worst = near = 0.0
+    n_out = n_all = 0
+    for n, w in one.params.items():
+        d = (full[n] - w).abs()
+        small = lo[n] < 1e-6
+        beyond = d > 1e-6
+        n_all += d.numel()
+        if (~small).any():
+            worst = max(worst, d[~small].max().item())
+        if beyond.any():
+            if not bool(small[beyond].all()):
+                raise SystemExit(f"phase 8c: {n} moved differently at TP 2 "
+                                 f"and TP 1 where its gradient is not near "
+                                 f"Adam's eps")
+            n_out += int(beyond.sum())
+            near = max(near, d[beyond].max().item())
+    out["weights"] = {"worst": worst, "near_eps": n_out, "near_max": near,
+                      "elements": n_all,
+                      "ok": near <= 2 * TP_TRAIN_LR * TP_TRAIN_STEPS}
+    return out
+
+
+def _tp_train_full(rank, world, ids: np.ndarray) -> dict:
+    """(a) on one rank: ``Llama("1b")`` at full width and depth built on
+    the card from seed 0, cut by ``initialize`` to this rank's half (hq
+    16, hkv 2 of d 64), bf16 compute on fp32 masters, full remat, AdamW,
+    clipping 1.0, GAS 2 of 1 x 2048 tokens: 1 warm-up step, then the
+    flash counts and the comms ledger set to 0 and 3 timed steps, each
+    collective timed after a synchronize (:class:`_TPMeter`; the other
+    rank's kernels on the shared card are part of the wait)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Llama("1b", seed=0)
+    rows, seq, gas = TP_TRAIN_SHAPE
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=_tp_train_cfg(rows, gas, world, True))
+    built = time.perf_counter() - t0
+    batch = {"input_ids": torch.from_numpy(ids).cuda()}
+    comm.configure_comms_logger(True)
+    ledger = comm.get_comms_logger()
+    losses, norms, skipped, times = [], [], [], []
+
+    def step():
+        t1 = time.perf_counter()
+        m = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        skipped.append(bool(m["skipped"]))
+
+    step()
+    _flash_reset()
+    ledger.reset()
+    meter = _TPMeter(model.config.n_layers)
+    for _ in range(TP_TRAIN_TIMED):
+        step()
+    launches, hopper = _flash_read()
+    comm.configure_comms_logger(False)
+    replicated = {n: _digest(p) for n, p in engine.params.items()
+                  if n not in engine.tp_sharded}
+    return {"losses": losses, "norms": norms, "skipped": skipped,
+            "times": times, "built_s": built,
+            "coll_s": meter.coll_s, "coll_calls": meter.n_coll,
+            "ledger": ledger.snapshot_totals(), "launches": launches,
+            "wgmma_launches": hopper, "replicated": replicated,
+            "peak": torch.cuda.max_memory_allocated(),
+            "sharded": len(engine.tp_sharded),
+            "params_local": sum(p.numel() for p in engine.params.values()),
+            "params": model.config.param_count()}
+
+
+def _job_tp_train(rank, world, device, ids: dict) -> dict:
+    """A rank of phase 8c: on cpu ranks (b) only; on the card (b) and
+    (c) at TP 2, then the two TP-1 references side by side (rank 0 (b)'s,
+    rank 1 (c)'s), then (a), so that the cpu ranks' host work is over
+    before (a) is timed."""
+    if device == "cpu":
+        return {"parity": _tp_parity(rank, world, device, "llama",
+                                     ids["parity"], False)[0]}
+    out, held = {}, []
+    for i, (key, kind) in enumerate((("parity", "llama"), ("moe", "moe"))):
+        res, full, ref, batch = _tp_parity(rank, world, device, kind,
+                                           ids[key], rank == i)
+        out[key] = res
+        if ref is not None:
+            held.append((key, ref, full, batch))
+        del full, ref
+        gc.collect()
+    while held:
+        key, *run = held.pop()
+        out[key].update(_tp_against_tp1(device, *run))
+        del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["a"] = _tp_train_full(rank, world, ids["a"])
+    return out
+
+
+def _tp_steps_ok(got, ref) -> tuple:
+    """(worst loss rel, worst grad-norm rel, within 1e-5 / 1e-4 and no
+    step skipped)."""
+    lr = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, ref))
+    nr = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, ref))
+    ok = lr <= 1e-5 and nr <= 1e-4 and not any(a[2] or b[2]
+                                               for a, b in zip(got, ref))
+    return lr, nr, ok
+
+
+def phase_tp_training(card: str) -> dict:
+    """8c: tensor-parallel training at TP 2, two gloo rank processes on
+    the one card (and, for (b), two on the host; :func:`_job_tp_train`):
+    (a) TinyLlama-1.1B
+    (``llama_config("1b")``) at full width and depth, bf16 on fp32
+    masters, GAS 2 of 1 x 2048: step time, tokens/s, MFU, the
+    collectives a step and their share of it, peak memory a rank, flash
+    launches a rank (all on the Hopper kernels), a finite falling loss,
+    no skipped step, the replicated leaves bitwise equal on both ranks;
+    (b) its widths at 2 layers in fp32: TP 2 on the card against TP 1 on
+    the card and TP 2 on the host, 3 steps; (c) 350M+MoE-128's widths at 2
+    layers and 32 experts, fp32, the capacity route (top-2, no noise):
+    TP 2 against TP 1 on the card, each rank's expert choices equal."""
+    from deepspeed_tpu_torch.models.llama import llama_config
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(37)
+    rows, seq, _ = TP_TRAIN_SHAPE
+    prow, pseq = TP_TRAIN_ROWS
+    ids = {"a": rng.integers(0, 32000, (rows, seq)),
+           "parity": rng.integers(0, 32000, (prow, pseq)),
+           "moe": rng.integers(0, 50257, (prow, pseq))}
+    cuda = _start_ranks(TP_TRAIN_WORLD, "cuda", "tp_train", (ids,))
+    cpu = _start_ranks(TP_TRAIN_WORLD, "cpu", "tp_train", (ids,))
+    res_cpu = _join_ranks(*cpu, timeout=600)
+    res = _join_ranks(*cuda, timeout=600)
+    ok = True
+    # (b), (c): TP 2 against TP 1 on the card, (b) against TP 2 on the host
+    for key, label in (("parity", "(b) Llama-1b widths, 2 layers"),
+                       ("moe", "(c) 350M+MoE-128 widths, 2 layers, 32 "
+                               "experts")):
+        r0 = res[0][key]
+        same = all(r[key]["steps"] == r0["steps"] for r in res)
+        held = next(r[key] for r in res if "tp1" in r[key])
+        lr, nr, good = _tp_steps_ok(r0["steps"], held["tp1"])
+        w = held["weights"]
+        good = good and same and w["ok"] and w["worst"] <= 1e-6
+        line = (f"tp train {label} fp32 [{card}]: TP 2 losses "
+                f"{[round(s[0], 6) for s in r0['steps']]}, grad norms "
+                f"{[round(s[1], 5) for s in r0['steps']]}; against TP 1 on "
+                f"the card: loss rel {lr:.2e} (1e-5), grad norm rel "
+                f"{nr:.2e} (1e-4); gathered weights max |TP 2 - TP 1| "
+                f"{w['worst']:.2e} (1e-6) where |g| >= 1e-6, {w['near_eps']} "
+                f"of {w['elements']} elements beyond, all near Adam's eps, "
+                f"max {w['near_max']:.2e} (<= {2 * TP_TRAIN_LR * TP_TRAIN_STEPS:g}); "
+                f"{r0['sharded']} of {r0['leaves']} leaves cut")
+        if key == "parity":
+            lc, nc, gc_ = _tp_steps_ok(r0["steps"], res_cpu[0][key]["steps"])
+            good = good and gc_
+            line += (f"; against TP 2 on the host: loss rel {lc:.2e}, grad "
+                     f"norm rel {nc:.2e}")
+        else:
+            routes = [r[key]["routes"] for r in res]
+            agree = all(x == routes[0] for x in routes) and routes[0]
+            good = good and bool(agree)
+            line += (f"; expert choices of {len(routes[0])} gate calls "
+                     f"equal on both ranks: {bool(agree)}")
+        ok = ok and good
+        log(line + f" {'ok' if good else 'FAIL'}")
+    # (a)
+    a = [r["a"] for r in res]
+    c = llama_config("1b")
+    rows, seq, gas = TP_TRAIN_SHAPE
+    tokens = rows * (seq - 1)
+    c_flops = tokens * c.flops_per_token(seq)
+    step_s = max(sum(x["times"][1:]) / TP_TRAIN_TIMED for x in a)
+    tok_s = tokens / step_s
+    mfu = c_flops / step_s / PEAK_OPS_PER_S[torch.bfloat16]
+    per_step = {"flash_forward": c.n_layers * 2 * gas,   # + the replay
+                "flash_backward_dq": c.n_layers * gas,
+                "flash_backward_dkv": c.n_layers * gas}
+    want = {n: TP_TRAIN_TIMED * k for n, k in per_step.items()}
+    for r, x in enumerate(a):
+        good = (all(np.isfinite(x["losses"])) and all(np.isfinite(x["norms"]))
+                and not any(x["skipped"]) and x["losses"][-1] < x["losses"][0]
+                and x["launches"] == want and x["wgmma_launches"] == want)
+        ok = ok and good
+        timed = sum(x["times"][1:])
+        share = x["coll_s"] / timed
+        led = {op: (int(v["count"] / TP_TRAIN_TIMED),
+                    int(v["bytes"] / TP_TRAIN_TIMED))
+               for op, v in x["ledger"].items()}
+        log(f"tp train (a) rank {r}: losses "
+            f"{[round(v, 5) for v in x['losses']]}, grad norms "
+            f"{[round(v, 4) for v in x['norms']]}, skipped {x['skipped']}; "
+            f"flash launches in {TP_TRAIN_TIMED} timed steps "
+            f"{x['launches']} (expected {want}), on the Hopper kernels "
+            f"{x['wgmma_launches']} {'ok' if good else 'FAIL'}")
+        log(f"tp train (a) rank {r} [{card}]: step times "
+            f"{[round(v, 4) for v in x['times']]} s; collectives a step "
+            f"{x['coll_calls'] / TP_TRAIN_TIMED:g} ({led}: count, bytes), "
+            f"{x['coll_s'] / TP_TRAIN_TIMED:.4f} s of the step, share "
+            f"{share:.3f}; torch.cuda.max_memory_allocated() = {x['peak']} "
+            f"B; {x['params_local']} of {x['params']} parameters on this "
+            f"rank ({x['sharded']} leaves cut); built in "
+            f"{x['built_s']:.1f} s")
+    same = a[0]["replicated"] == a[1]["replicated"]
+    ok = ok and same
+    log(f"tp train (a): {len(a[0]['replicated'])} replicated leaves "
+        f"bitwise equal on both ranks after the steps: {same}")
+    seconds = time.perf_counter() - t0
+    log(f"tp train (a) [{card}]: TinyLlama-1.1B at TP 2 ({c.n_layers} "
+        f"layers, d {c.d_model}, {c.n_heads} / {c.n_kv_heads} heads, "
+        f"d_ff {c.d_ff}, vocab {c.vocab_size}), GAS {gas} x {rows // gas} x "
+        f"{seq}: timed step {step_s:.4f} s (the slower rank's mean), "
+        f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} ({c_flops:.4e} operations a "
+        f"step, peak 989 TFLOP/s bf16)")
+    log(f"tp train: phase 8c in {seconds:.1f} s (predicted "
+        f"{TP_TRAIN_PREDICTED_S:g} s)")
+    if not ok:
+        raise SystemExit("phase 8c: tensor-parallel training failed")
+    return {"launches": a[0]["launches"],
+            "wgmma_launches": a[0]["wgmma_launches"], "step_s": step_s,
+            "tok_s": tok_s, "mfu": mfu, "seconds": seconds}
+
+
 # ------------------------------------------------------ phase 3 (fused)
 def _exact_payload(gen, k, b, bits, block):
     """A payload whose dequantized weight is integer levels times powers
@@ -8222,7 +8591,8 @@ def _profile_zero3_step(engine, batch) -> dict:
                     for name, us, n in d["by_name"][:8]]}
 
 
-RANK_JOBS = {"parity": _job_parity, "train": _job_train, "tp": _job_tp}
+RANK_JOBS = {"parity": _job_parity, "train": _job_train, "tp": _job_tp,
+             "tp_train": _job_tp_train}
 PARITY_DIMS = (64, 256, 512, 64)
 ZERO3_DIMS = (4096, 11008, 4096, 11008, 4096)   # Llama-2-7B MLP widths
 
@@ -8424,8 +8794,13 @@ def main() -> int:
     from deepspeed_tpu_torch.models.llama import Llama
 
     t0 = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"chip_smoke: {what} done at {time.perf_counter() - t0:.1f} s")
+
     dev = phase_device()
     phase_build()
+    mark("build")
     kern = phase_kernels()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     kern_q = phase_paged_quant(flush)
@@ -8433,11 +8808,13 @@ def main() -> int:
     flash_err = phase_flash_kernels()
     flash_t = phase_flash_timing(flush)
     fused_t = phase_fused_kernels(flush)
+    mark("kernels (3, 5, 5q, 6k)")
     del flush
     torch.cuda.empty_cache()
     phase_engine()
     phase_ragged_quant_parity()
     phase_inference_parity()
+    mark("engine parity (4)")
     paths, eng, prompts = phase_serving(dev["card"])
     mixed_t = phase_paged_mixed(paths.pop("mixed"), dev["card"])
     phase_profile(eng, prompts, dev["card"])
@@ -8445,7 +8822,9 @@ def main() -> int:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    mark("serving (5, 5b, profile)")
     spec = phase_speculative(model, dev["card"])
+    mark("6b")
     paged_q, eng = {}, None
     for kvq in ("int8", "int4"):
         del eng
@@ -8458,40 +8837,57 @@ def main() -> int:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    replicas = phase_replicas(model, dev["card"], spec["err"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    fleet = phase_fleet(model, dev["card"], spec["err"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    # 6e's regions over Llama-2-7B's width at a quarter of its depth (time)
+    mark("int8 / int4 serving")
+    # 6c-6e's replicas, fleets and regions over Llama-2-7B's width at a
+    # quarter of its depth (time; each phase makes its own references)
     shallow = Llama("7b", dtype=torch.bfloat16, seed=0,
-                    n_layers=REGION_LAYERS)
+                    n_layers=SHALLOW_LAYERS)
+    replicas = phase_replicas(shallow, dev["card"], spec["err"])
+    mark("6c")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(shallow, dev["card"], spec["err"])
+    mark("6d")
+    gc.collect()
+    torch.cuda.empty_cache()
     region = phase_region(shallow, dev["card"], spec["err"])
+    mark("6e")
     del shallow
     gc.collect()
     torch.cuda.empty_cache()
     fam = phase_families(dev["card"])
+    mark("6g")
     opt = fam.pop("opt")
     tp = phase_tp(model, dev["card"], spec["err"], prompts,
                   {"bf16": paths["streams"],
                    "int8": paged_q["int8"]["streams"]}, spec, opt)
+    mark("6f")
     del model, prompts, opt
     gc.collect()
     torch.cuda.empty_cache()
     enc = phase_encoders(dev["card"])
+    mark("6h")
     moe = phase_moe(dev["card"])
+    mark("6i")
     sd = phase_diffusion(dev["card"])
+    mark("6j")
     quant_launches = phase_inference(dev["card"])
+    mark("6a")
     phase_trainer_parity()
     engine, batch, flash_launches, flash_wgmma = phase_training(dev["card"])
     phase_training_profile(engine, batch, dev["card"])
+    mark("7, 8, 9")
     del engine, batch
     gc.collect()
     torch.cuda.empty_cache()
     fam_train = phase_train_families(dev["card"])
+    mark("8b")
+    tp_train = phase_tp_training(dev["card"])
+    mark("8c")
     phase_zero3_parity()
+    mark("10")
     fused_launches, fused_wgmma = phase_zero3_training(dev["card"])
+    mark("11")
     d = kern["timings"]["decode_16x1024"]
     entries = [{"name": "paged_attention", "route": "cuda",
                 "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
@@ -8581,7 +8977,11 @@ def main() -> int:
                 k: fam_train[k]["wgmma_launches"][name]
                 for k in TRAIN_SHAPES},
             train_family_timings={k: v[name]
-                                  for k, v in fam_train["flash"].items()})
+                                  for k, v in fam_train["flash"].items()},
+            # 8c: rank 0's launches in TinyLlama-1.1B's 3 timed steps at
+            # TP 2 (hq 16, hkv 2 a rank)
+            tp_train_launches=tp_train["launches"][name],
+            tp_train_wgmma_launches=tp_train["wgmma_launches"][name])
         if name == "flash_forward":
             # 6h: BERT-large's 10 timed forwards, CLIP's similarity, and
             # row 2 timed at their layer-0 calls

@@ -15,8 +15,9 @@ MLM logits through the same engine's ``forward``, CLIP's two towers
 through ``models.clip.CLIP``), serves DeepSpeed-MoE's GPT-MoE
 (``models.moe.GPTMoE``: top-k routed expert banks on grouped GEMMs)
 through both engines, trains every one of these families on one device
-(fed by :class:`~deepspeed_tpu_torch.runtime.dataloader.DataLoader`
-when ``initialize`` is given ``training_data``), and any ``nn.Module``
+or over a ``data`` x ``model`` mesh of ranks at ZeRO stage 0 (fed by
+:class:`~deepspeed_tpu_torch.runtime.dataloader.DataLoader` when
+``initialize`` is given ``training_data``), and any ``nn.Module``
 wrapped by ``models.api.from_module``, generates images with Stable
 Diffusion (``models.diffusion``'s UNet and VAE, the DDIM pipeline of
 ``inference.diffusion`` fed by CLIP's text tower), and trains a
@@ -78,6 +79,12 @@ compressed-collective facade:
             "comm_compression": {"enabled": True, "grad_bits": 4}})
     metrics = engine.train_batch({"x": x, "y": y})   # the global batch
 
+    # tensor-parallel training, each rank (gloo for ranks sharing a card):
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=Llama("1b"), config={"train_batch_size": 4,
+                                   "mesh": {"data": 2, "model": 2}, ...})
+    metrics = engine.train_batch({"input_ids": tokens})  # the global batch
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``.
 """
@@ -88,6 +95,7 @@ from typing import Any, Callable, Optional, Tuple
 
 from .comm.comm import init_distributed  # noqa: F401
 from .config import Config, ConfigError  # noqa: F401
+from .parallel.mesh import Topology
 from .inference.engine import InferenceConfig, InferenceEngine
 from .models.moe import (GPTMoE, MoETransformer,  # noqa: F401
                          MoETransformerConfig, gpt_moe_config)
@@ -103,9 +111,10 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
                lr_scheduler: Any = None, training_data: Any = None,
                collate_fn: Optional[Callable] = None,
                device=None) -> Tuple[TrainEngine, Any, Any, Any]:
-    """Bring up a training engine (one device, or ZeRO-3 over the ranks of
-    ``init_distributed``); returns ``(engine, optimizer, dataloader,
-    lr_scheduler)`` as ``deepspeed_tpu.initialize`` does.
+    """Bring up a training engine (one device, a ``data`` x ``model`` mesh
+    of the ranks of ``init_distributed`` at stage 0, or ZeRO-3 over them);
+    returns ``(engine, optimizer, dataloader, lr_scheduler)`` as
+    ``deepspeed_tpu.initialize`` does.
 
     Pass either ``loss_fn(params, batch) -> loss | (loss, aux)`` plus
     ``params`` (a ``{name: tensor}`` dict), or ``model`` — an object with
@@ -117,6 +126,14 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
     are the initial parameters unless ``params`` is given. ``config`` is
     a dict or a path to a DeepSpeed-style JSON file.
 
+    The config's ``mesh`` becomes the topology, and a model of the port
+    (``bind_topology``) is bound to it. Under ``mesh.model`` > 1 the model
+    is cut to this rank's shards by its ``partition_specs`` (``shard_``,
+    as the JAX ``initialize`` places the tree by ``tp_specs``), or, with
+    ``params`` given at full width, each leaf is sliced to the shard; a
+    model already cut (``checkpoint.jax_params.shard_params``) is only
+    bound.
+
     ``training_data`` (a sequence of samples, an array or a dict of
     arrays) becomes a :class:`DataLoader` of ``train_batch_size`` global
     batches on the engine's device, shuffled from the config's ``seed``,
@@ -126,14 +143,19 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
     if loss_fn is None and (model is None or not hasattr(model, "loss")):
         raise ValueError("initialize() needs loss_fn+params, or a model "
                          "exposing .loss()")
+    if params is None and (model is None
+                           or not hasattr(model, "named_parameters")):
+        raise ValueError("initialize() needs params, or a model exposing "
+                         ".named_parameters()")
+    topo = Topology.build(cfg.mesh)
+    if hasattr(model, "bind_topology"):
+        params = _place(model, params, topo)
     if params is None:
-        if model is None or not hasattr(model, "named_parameters"):
-            raise ValueError("initialize() needs params, or a model exposing "
-                             ".named_parameters()")
         params = dict(model.named_parameters())
     engine = TrainEngine(loss_fn=loss_fn, params=params, config=cfg,
                          model=model, optimizer=optimizer,
-                         lr_scheduler=lr_scheduler, device=device)
+                         lr_scheduler=lr_scheduler, device=device,
+                         topology=topo)
     dataloader = None
     if training_data is not None:
         dataloader = DataLoader(training_data, cfg.train_batch_size,
@@ -142,6 +164,26 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
                                 prefetch_depth=cfg.dataloader.prefetch_depth)
         engine.bind_dataloader(dataloader)
     return engine, engine.optimizer, dataloader, engine.lr_schedule
+
+
+def _place(model, params, topo):
+    """Bind ``model`` to ``topo``, cutting it (or the full-width
+    ``params``) to this rank's shards over a model axis above 1; returns
+    the params to train (None: the model's own)."""
+    bound = getattr(model, "_topo", None)
+    cut = 1 if bound is None else bound.model_parallel_size
+    tp = topo.model_parallel_size
+    if cut > 1 and cut != tp:
+        raise ValueError(f"the model is cut over a model axis of {cut}; "
+                         f"the config's mesh has {tp}")
+    if cut > 1 or tp == 1:
+        model.bind_topology(topo)
+        return params
+    if params is None:
+        model.shard_(topo)
+        return None
+    model.bind_topology(topo)
+    return {n: model.local_shard(n, p) for n, p in params.items()}
 
 
 def init_inference(model: Any = None, config: Any = None, *, device=None,

@@ -199,7 +199,8 @@ def export_params(params: Union[Transformer, CLIP, UNet2DCondition,
                   ) -> Dict[str, Any]:
     """The inverse of :func:`load_jax_params`: a model's weights (or a
     ``{name: tensor}`` dict with the names of its ``named_parameters()``,
-    such as a ``TrainEngine``'s ``params``) as nested dicts of fp32 numpy
+    such as a ``TrainEngine``'s ``params`` or ``full_params()``, a CLIP's
+    too) as nested dicts of fp32 numpy
     arrays in the JAX package's layout, layer leaves stacked
     ``[n_layers, ...]``; a ``CLIP``'s as its nested tree; a diffusion
     model's as its tree with HWIO conv kernels (and the UNet's empty
@@ -212,12 +213,16 @@ def export_params(params: Union[Transformer, CLIP, UNet2DCondition,
             for blk in tree["down_blocks"] + tree["up_blocks"]:
                 blk.setdefault("attentions", [])
         return tree
-    if isinstance(params, CLIP):
-        return {"text": export_params(params.text),
-                "vision": export_params(params.vision),
-                **{name: _arr(getattr(params, name)) for name in _CLIP_TOP}}
-    if isinstance(params, Transformer):
+    if isinstance(params, (CLIP, Transformer)):
         params = dict(params.named_parameters())
+    if "text_proj" in params:
+        # a CLIP's leaves by name (its named_parameters(), or a trainer's
+        # full_params()): the towers' trees nested under their prefixes
+        return {tower: export_params({k[len(tower) + 1:]: v
+                                      for k, v in params.items()
+                                      if k.startswith(tower + ".")})
+                for tower in ("text", "vision")} | {
+            name: _arr(params[name]) for name in _CLIP_TOP}
     n = 1 + max(int(k.split(".")[1]) for k in params if k.startswith("layers."))
     leaves = [k.split(".", 2)[2] for k in params if k.startswith("layers.0.")]
     out: Dict[str, Any] = {name: _arr(t) for name, t in params.items()

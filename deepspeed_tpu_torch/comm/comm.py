@@ -8,17 +8,19 @@ in-program collectives are ``jax.lax`` primitives inside ``shard_map``;
 here each rank is a process and a collective is a ``torch.distributed``
 call on the process group of a mesh axis (``parallel/mesh.py``). The
 facade (``comm/compressed.py``) and the tensor-parallel model group's
-helpers at the end of this file (the row-parallel all-reduce of
-``models/transformer.py``, :func:`all_gather_columns`,
-:func:`broadcast_record`) are the callers of the raw collectives below,
-and each books its calls in the ledger.
+helpers at the end of this file (:func:`broadcast_record`, and the
+differentiable :func:`tp_sum`, :func:`tp_copy` and :func:`tp_gather`
+that the model's forward and backward passes run through, serving and
+training alike) are the callers of the raw collectives below, and each
+books its calls in the ledger.
 
 Backends: ``"nccl"`` for CUDA tensors (the default), ``"gloo"`` when asked.
 Nothing switches backend on failure. NCCL refuses two ranks on one
 device, so :func:`init_distributed` raises :class:`SharedDeviceError`
 before it tries; gloo takes them, which is how one card runs several
 ranks. gloo moves host memory only: :func:`to_transport` copies a device
-tensor to the host before a gloo call and :func:`from_transport` copies
+tensor to page-locked host memory (PyTorch's caching host allocator
+keeps the buffers) before a gloo call and :func:`from_transport` copies
 the result back, explicitly, and nowhere else.
 """
 
@@ -221,10 +223,12 @@ def uses_host_transport(group=None) -> bool:
 
 def to_transport(t: torch.Tensor, group=None) -> torch.Tensor:
     """``t`` as the group's backend takes it: contiguous, and copied to
-    the host under gloo (the one place a device payload is staged)."""
+    page-locked host memory under gloo (the one place a device payload is
+    staged; the copy waits for it)."""
     t = t.contiguous()
     if uses_host_transport(group) and t.device.type != "cpu":
-        return t.cpu()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t)
     return t
 
 
@@ -234,8 +238,11 @@ def from_transport(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 def _empty_like_on(t: torch.Tensor, shape=None) -> torch.Tensor:
+    """A buffer like ``t`` (page-locked where ``t`` is: a staged payload's
+    receive buffers copy back to the device from it)."""
+    pinned = t.device.type == "cpu" and t.is_pinned()
     return torch.empty(t.shape if shape is None else shape, dtype=t.dtype,
-                       device=t.device)
+                       device=t.device, pin_memory=pinned)
 
 
 def all_gather(x: torch.Tensor, group=None) -> List[torch.Tensor]:
@@ -341,19 +348,7 @@ def scatter(parts: Optional[List[torch.Tensor]], out: torch.Tensor,
 
 # ----------------------------------------------------------------------
 # the model group's collectives that the facade does not carry: tensor
-# parallelism gathers vocab-sharded logits and sends the controller's host
-# step records (inference/ragged.py)
-
-def all_gather_columns(x: torch.Tensor, group=None,
-                       axis_name: Optional[str] = None) -> torch.Tensor:
-    """Every rank's ``x [..., n]`` side by side on the last dimension, in
-    group-rank order (``[..., world * n]``), on ``x``'s device. Booked as
-    an ``all_gather`` of ``x``'s bytes."""
-    world = get_world_size(group)
-    nbytes = x.numel() * x.element_size()
-    record_collective("all_gather", nbytes, nbytes, axis_name, world)
-    return torch.cat(all_gather(x, group), dim=-1)
-
+# parallelism sends the controller's host step records (inference/ragged.py)
 
 def broadcast_record(record: Optional[Dict[str, Any]], group=None,
                      axis_name: Optional[str] = None,
@@ -378,3 +373,91 @@ def broadcast_record(record: Optional[Dict[str, Any]], group=None,
     record_collective("step_record", n + 8, n + 8, axis_name,
                       get_world_size(group))
     return record if me == src else pickle.loads(payload.numpy().tobytes())
+
+
+# ----------------------------------------------------------------------
+# the tensor-parallel model's collectives, differentiable: what GSPMD
+# inserts in the JAX package's forward and backward passes, explicit.
+# Without autograd recording (serving) each is its forward alone. Each
+# books itself in the ledger where it moves data (the forward of tp_sum
+# and tp_gather, the backward of tp_copy and of a summed tp_gather), so a
+# remat replay's collectives are counted too.
+
+def _book(op: str, x: torch.Tensor, group, axis_name) -> None:
+    """A ledger row: ``op`` of ``x``'s bytes on the group."""
+    nbytes = x.numel() * x.element_size()
+    record_collective(op, nbytes, nbytes, axis_name, get_world_size(group))
+
+
+def group_sum(x: torch.Tensor, group, axis_name: Optional[str] = None
+              ) -> torch.Tensor:
+    """The group's sum of ``x`` (no gradient), booked as an
+    ``all_reduce``."""
+    _book("all_reduce", x, group, axis_name)
+    return all_reduce(x, group=group)
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis_name):
+        return group_sum(x, group, axis_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis_name):
+        ctx.group, ctx.axis_name = group, axis_name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return group_sum(g, ctx.group, ctx.axis_name), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis_name, dim, sum_grad):
+        ctx.group, ctx.axis_name, ctx.sum_grad = group, axis_name, sum_grad
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        _book("all_gather", x, group, axis_name)
+        return torch.cat(all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grad:
+            g = group_sum(g, ctx.group, ctx.axis_name)
+        mine = g.narrow(ctx.dim, get_rank(ctx.group) * ctx.n, ctx.n)
+        return mine.contiguous(), None, None, None, None
+
+
+def tp_sum(x: torch.Tensor, group, axis_name: str = "model"
+           ) -> torch.Tensor:
+    """The group's sum of ``x`` (a row-parallel partial product, the
+    vocab-parallel embedding's rows); the backward pass hands the
+    gradient through unchanged: every rank's partial fed the same sum."""
+    return _Sum.apply(x, group, axis_name)
+
+
+def tp_copy(x: torch.Tensor, group, axis_name: str = "model"
+            ) -> torch.Tensor:
+    """``x`` itself (a replicated activation entering a column-parallel
+    weight); the backward pass sums the ranks' input gradients over the
+    group, each rank's being its columns' part."""
+    return _Copy.apply(x, group, axis_name)
+
+
+def tp_gather(x: torch.Tensor, group, dim: int = -1,
+              axis_name: str = "model", sum_grad: bool = False
+              ) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in group-rank order; the
+    backward pass takes this rank's part of the gradient. Every rank of
+    the group must compute the same function of the joined tensor (the
+    head's logits under the same loss): then that part is the whole
+    gradient. With ``sum_grad`` (each rank's loss is its share of a sum,
+    as the data-parallel CLIP loss is), the gradient is summed over the
+    group before the part is taken."""
+    return _Gather.apply(x, group, axis_name, dim % x.dim(), sum_grad)

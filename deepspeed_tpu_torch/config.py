@@ -42,6 +42,11 @@ class ConfigError(ValueError):
     pass
 
 
+class LaterSliceError(ConfigError, NotImplementedError):
+    """A combination of ported features whose port comes later: a
+    ``ConfigError`` that is also a ``NotImplementedError``."""
+
+
 def _take(d: Dict[str, Any], key: str, default: Any) -> Any:
     v = d.pop(key, default)
     return default if v is None else v
@@ -296,9 +301,10 @@ class CommCompressionConfig:
 
 
 def _mesh_from_dict(d: Optional[Dict[str, Any]]) -> Dict[str, int]:
-    """The ``mesh`` block: axis sizes. ``data`` (-1: all ranks) is
-    checked against the world size when the engine builds its topology
-    (``parallel/mesh.py``); another axis above 1 raises here."""
+    """The ``mesh`` block: axis sizes. ``data`` (-1: all ranks) and
+    ``model`` are checked against the world size when the engine builds
+    its topology (``parallel/mesh.py``); another axis above 1 raises
+    here."""
     from .parallel.mesh import LATER_AXES, MESH_AXES
 
     sizes = {}
@@ -306,11 +312,8 @@ def _mesh_from_dict(d: Optional[Dict[str, Any]]) -> Dict[str, int]:
         if axis not in MESH_AXES:
             raise ConfigError(f"unknown mesh axis '{axis}'")
         n = int(n)
-        if axis != "data" and n > 1:
-            # the model axis serves (inference/); training over it is later
-            _later_slice(f"mesh.{axis}", n, LATER_AXES.get(
-                axis, "tensor-parallel training: ROADMAP.md, Queue A "
-                "item 6b"))
+        if axis in LATER_AXES and n > 1:
+            _later_slice(f"mesh.{axis}", n, LATER_AXES[axis])
         sizes[axis] = n
     return sizes
 
@@ -429,6 +432,13 @@ class Config:
         )
         if cfg.fp16.enabled and cfg.bf16.enabled:
             raise ConfigError("fp16 and bf16 cannot both be enabled")
+        tp = int(cfg.mesh.get("model", 1) or 1)
+        if tp > 1 and cfg.zero.stage > 0:
+            raise LaterSliceError(
+                f"zero_optimization.stage {cfg.zero.stage} with mesh.model = "
+                f"{tp}: ZeRO over a tensor-parallel mesh comes with a later "
+                f"slice of deepspeed_tpu_torch (ROADMAP.md, Queue A item "
+                f"12); tensor-parallel training runs at stage 0")
         _warn_unknown(d, "<top-level>")
         return cfg
 

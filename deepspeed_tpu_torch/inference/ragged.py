@@ -701,9 +701,8 @@ class RaggedInferenceEngine:
                      self._seed, self._tp))
         mine = int.from_bytes(hashlib.sha256(text.encode()).digest()[:8],
                               "little") >> 1
-        got = comm.all_gather_columns(
-            torch.tensor([mine], dtype=torch.int64), self.topo.group("model"),
-            "model")
+        got = comm.tp_gather(torch.tensor([mine], dtype=torch.int64),
+                             self.topo.group("model"))
         if bool((got != mine).any()):
             raise ValueError("the model group's ranks built engines with "
                              "different configs, model configs or seeds")

@@ -16,6 +16,18 @@ Ports ``deepspeed_tpu/models/clip.py``. Both towers run on the shared
 The contrastive head L2-normalizes both embeddings and scales their
 products by ``exp(logit_scale)``.
 
+Tensor parallelism (:meth:`CLIP.shard_` / :meth:`CLIP.bind_topology`)
+cuts both towers by the JAX package's specs (:meth:`CLIP.partition_specs`,
+key for key): each tower's own, the vision tower's unused one-row
+``tok_embed``, ``patch_w``, ``cls_embed`` and ``pos_embed`` replicated,
+and the projections and ``logit_scale`` replicated. Under a ``data``
+axis above 1 (the trainer's data parallelism) :meth:`CLIP.loss` gathers
+the projected embeddings of every data rank's rows (``comm.tp_gather``
+over the data group, the gradient summed before a rank takes its rows),
+so the in-batch negatives are the global batch's, as in the JAX
+package's GSPMD loss; each rank returns its share, the loss over the
+data ranks.
+
 As in the JAX package, every method takes an optional ``params`` mapping
 (default: the model's own weights) keyed by the names of
 ``CLIP.named_parameters()`` (``text.*``, ``vision.*``, ``text_proj``,
@@ -35,7 +47,9 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from ..comm import comm
 from ..ops.norms import layer_norm
+from ..parallel.mesh import PartitionSpec as P
 from ..utils.device import resolve_device
 from .transformer import Transformer, TransformerConfig
 
@@ -86,6 +100,27 @@ class CLIPVision(Transformer):
         return {**super().top_shapes(),
                 "patch_w": (self.n_channels * self.patch_size ** 2, d),
                 "cls_embed": (d,), "pos_embed": (self.n_patches + 1, d)}
+
+    def partition_specs(self, params=None, topo=None):
+        """The core's specs with the JAX vision tower's replicated
+        leaves: the unused one-row ``tok_embed``, ``patch_w``,
+        ``cls_embed`` and ``pos_embed``."""
+        specs = super().partition_specs(params, topo)
+        specs.update(tok_embed=P(None, None), patch_w=P(None, None),
+                     cls_embed=P(None), pos_embed=P(None, None))
+        return specs
+
+    def _check_tp(self, tp: int) -> None:
+        """The heads and ``d_ff`` must divide by the model axis; the
+        one-row token table is replicated, so the vocab need not."""
+        if tp <= 1:
+            return
+        c = self.config
+        for what, n in (("n_heads", c.n_heads), ("n_kv_heads", c.n_kv_heads),
+                        ("d_ff", c.d_ff)):
+            if n % tp:
+                raise ValueError(f"{what} {n} not divisible by the model "
+                                 f"axis {tp}")
 
     def apply_pixels(self, pixels: torch.Tensor,
                      params: Optional[Mapping[str, torch.Tensor]] = None
@@ -156,6 +191,49 @@ class CLIP(nn.Module):
         self.vision_proj = proj(c.vision.d_model)
         self.logit_scale = nn.Parameter(torch.tensor(
             math.log(1 / 0.07), device=dev, dtype=dtype), requires_grad=False)
+        self._topo = None
+
+    # -- tensor parallelism --------------------------------------------
+    def partition_specs(self, params=None, topo=None) -> Dict[str, object]:
+        """The JAX package's specs, key for key: each tower's own
+        (``params`` a JAX-layout tree, as the towers take it) and the
+        projections and ``logit_scale`` replicated."""
+        params = params if isinstance(params, dict) else {}
+        return {"text": self.text.partition_specs(params.get("text"), topo),
+                "vision": self.vision.partition_specs(params.get("vision"),
+                                                      topo),
+                "text_proj": P(None, None), "vision_proj": P(None, None),
+                "logit_scale": P()}
+
+    def leaf_spec(self, name: str) -> P:
+        """The spec of one of ``named_parameters()``'s leaves."""
+        tower, _, rest = name.partition(".")
+        if tower in ("text", "vision") and rest:
+            return getattr(self, tower).leaf_spec(rest)
+        return self.partition_specs()[name]
+
+    def local_shard(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a full-width leaf ``name`` (a view)."""
+        tower, _, rest = name.partition(".")
+        if tower in ("text", "vision") and rest:
+            return getattr(self, tower).local_shard(rest, t)
+        return t
+
+    def shard_(self, topo) -> "CLIP":
+        """Cut both towers to this rank's shards over ``topo``'s model
+        axis, in place, and bind the topology."""
+        self.text.shard_(topo)
+        self.vision.shard_(topo)
+        self._topo = topo
+        return self
+
+    def bind_topology(self, topo) -> "CLIP":
+        """Attach the mesh to both towers (their leaves already cut, or a
+        model axis of 1)."""
+        self.text.bind_topology(topo)
+        self.vision.bind_topology(topo)
+        self._topo = topo
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -214,8 +292,12 @@ class CLIP(nn.Module):
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits per text [bt, bi], logits per image [bi, bt])."""
         p = self._params(params)
-        t = self.encode_text(tokens, p)
-        v = self.encode_image(pixels, p)
+        return self._contrast(self.encode_text(tokens, p),
+                              self.encode_image(pixels, p), p)
+
+    @staticmethod
+    def _contrast(t: torch.Tensor, v: torch.Tensor, p
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         t = t / torch.linalg.norm(t, dim=-1, keepdim=True)
         v = v / torch.linalg.norm(v, dim=-1, keepdim=True)
         lpt = (t @ v.T) * torch.exp(p["logit_scale"]).to(t.dtype)
@@ -226,10 +308,20 @@ class CLIP(nn.Module):
         """Symmetric InfoNCE over the in-batch pairs of ``batch``
         (``input_ids`` [n, s], ``pixel_values`` [n, c, H, W]), a 0-dim
         tensor in the dtype of ``params``. ``generator`` (the trainer's
-        random stream) is not drawn from: the towers have no noise."""
-        lpt, lpi = self.similarity(batch["input_ids"], batch["pixel_values"],
-                                   params)
+        random stream) is not drawn from: the towers have no noise. Under
+        a ``data`` axis above 1, this rank's share of the global batch's
+        loss (the module docstring)."""
+        p = self._params(params)
+        t = self.encode_text(batch["input_ids"], p)
+        v = self.encode_image(batch["pixel_values"], p)
+        topo = self._topo
+        dp = 1 if topo is None else topo.data_parallel_size
+        if dp > 1:
+            group = topo.group("data")
+            t = comm.tp_gather(t, group, 0, "data", sum_grad=True)
+            v = comm.tp_gather(v, group, 0, "data", sum_grad=True)
+        lpt, lpi = self._contrast(t, v, p)
         labels = torch.arange(lpt.shape[0], device=lpt.device)[:, None]
         lt = -torch.gather(torch.log_softmax(lpt, -1), -1, labels).mean()
         li = -torch.gather(torch.log_softmax(lpi, -1), -1, labels).mean()
-        return 0.5 * (lt + li)
+        return 0.5 * (lt + li) / dp

@@ -13,11 +13,12 @@ v1 engine (``init_inference``, bf16 or int8 / int4 weights), on the
 no-drop route. :meth:`Transformer.loss` takes the training route
 (capacity and drops, a noisy gate's noise from the ``generator`` that
 the trainer draws a micro-batch) and adds the aux loss times
-``aux_loss_weight``; ``initialize`` trains it on one device. Over the
-``model`` axis (serving, both engines) each rank holds ``d_ff / tp`` of
-every expert (:meth:`MoETransformer.partition_specs`, JAX's) and sums the
-bank's ``w_down`` rows over the group; expert parallelism comes with
-ROADMAP.md Queue A item 13.
+``aux_loss_weight``; ``initialize`` trains it on one device or over a
+``data`` x ``model`` mesh. Over the ``model`` axis (serving, both
+engines, and training) each rank holds ``d_ff / tp`` of every expert
+(:meth:`MoETransformer.partition_specs`, JAX's) and sums the bank's
+``w_down`` rows over the group; expert parallelism comes with ROADMAP.md
+Queue A item 13.
 """
 
 from __future__ import annotations
@@ -105,11 +106,14 @@ class MoETransformer(Transformer):
              training: bool = False):
         """The expert bank over ``h`` ``[b, s, d]`` -> (out, aux loss x
         ``aux_loss_weight``); under tensor parallelism the bank's
-        ``w_down`` rows are summed over the model group."""
+        ``w_down`` rows are summed over the model group, and in training
+        the bank's input goes through the differentiable copy."""
         params = {k: lp[k] for k in self.moe.shapes()}
+        tp = self._tp_size > 1
         out, aux = self.moe.apply(
             params, h, generator=generator, training=training,
-            reduce=self._all_reduce if self._tp_size > 1 else None)
+            reduce=self._all_reduce if tp else None,
+            copy=self._tp_copy if tp else None)
         return out, aux * self.config.aux_loss_weight
 
     def partition_specs(self, params=None, topo=None):

@@ -72,6 +72,21 @@ gathered in rank order. Norms, positions, segments, the MLM transform
 and the pooler are replicated. With a fused comm backend bound (``bind_comm_backend``, by the
 v1 engine), a one-position decode step's down-projection runs as the
 backend's ``matmul_all_reduce`` (:meth:`Transformer._down_proj`).
+The model group's collectives are the differentiable ones of
+:mod:`~deepspeed_tpu_torch.comm.comm` (serving runs their forward
+alone), the Megatron pair that GSPMD inserts in the JAX package's
+training step: ``tp_copy`` where a
+replicated activation enters a column-parallel weight (Q/K/V, gate/up,
+the head; its backward sums the input gradients over the group),
+``tp_sum`` for the row-parallel and embedding sums (backward: the
+identity), ``tp_gather`` for the head's logit columns (backward: this
+rank's columns). Every rank runs the same layers in the same order, so
+the remat replay's collectives meet too. Under a ``data`` axis above 1
+(the trainer's data parallelism) :meth:`Transformer.loss` returns this
+rank's share of the global batch's loss: its rows' terms over the
+denominator summed over the data group, so the shares (and their
+gradients) sum to the loss of the whole batch, as the JAX package's
+GSPMD loss over the data-sharded batch is.
 
 An encoder without a padding mask takes the flash kernel with
 ``causal=False``; with one, the plain ``dot_product_attention`` under the
@@ -301,6 +316,26 @@ class Block(nn.Module):
         return getattr(self, name)
 
 
+class _MatmulFp32(torch.autograd.Function):
+    """``a @ w`` with an fp32 output (``torch.mm``'s ``out_dtype`` on the
+    card, which has no derivative formula); the backward computes dA =
+    dY . W^T and dW = A^T . dY in ``a``'s dtype, as the one-device
+    product's backward does (dY arrives as ``a``-dtype values in fp32:
+    the output is rounded to ``a``'s dtype after the model group's
+    sum)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.mm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ w.t(), a.t() @ g
+
+
 class Transformer(nn.Module):
     """A decoder or encoder of any ported flag set. ``device`` defaults to
     ``"cuda"`` and raises without a CUDA device unless ``device="cpu"``
@@ -470,13 +505,27 @@ class Transformer(nn.Module):
 
     def _all_reduce(self, y: torch.Tensor) -> torch.Tensor:
         """The model group's sum of a row-parallel partial product (the
-        psum GSPMD inserts); ``y`` itself without tensor parallelism."""
+        psum GSPMD inserts; ``comm.tp_sum``, whose backward is the
+        identity); ``y`` itself without tensor parallelism."""
         if self._tp_size <= 1:
             return y
-        nbytes = y.numel() * y.element_size()
-        comm.record_collective("all_reduce", nbytes, nbytes, "model",
-                               self._tp_size)
-        return comm.all_reduce(y, group=self._group())
+        return comm.tp_sum(y, self._group())
+
+    def _tp_copy(self, h: torch.Tensor) -> torch.Tensor:
+        """``h`` entering a column-parallel weight: under tensor
+        parallelism ``comm.tp_copy`` (the identity, whose backward sums
+        the ranks' input gradients over the model group); else ``h``."""
+        if self._tp_size <= 1:
+            return h
+        return comm.tp_copy(h, self._group())
+
+    def _data_group(self):
+        """The data group of a bound topology with ``data`` above 1 (the
+        trainer's data parallelism), else None."""
+        topo = self._topo
+        if topo is None or topo.data_parallel_size <= 1:
+            return None
+        return topo.group("data")
 
     def _row_parallel(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``a @ w`` for a weight sharded on its input rows: the partial
@@ -489,7 +538,7 @@ class Transformer(nn.Module):
             return a @ w
         flat = a.reshape(-1, a.shape[-1])
         if a.is_cuda and a.dtype != torch.float32:
-            y = torch.mm(flat, w, out_dtype=torch.float32)
+            y = _MatmulFp32.apply(flat, w)
         else:
             y = flat.float() @ w.float()
         y = self._all_reduce(y).to(a.dtype)
@@ -702,6 +751,7 @@ class Transformer(nn.Module):
         # this rank's heads (all of them without tensor parallelism)
         hq, hkv = c.n_heads // self._tp_size, c.n_kv_heads // self._tp_size
         h = self._norm(x, lp, "attn_norm") if c.prenorm else x
+        h = self._tp_copy(h)
         q, kk, vv = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
         if c.qkv_bias:
             q, kk, vv = q + lp["bq"], kk + lp["bk"], vv + lp["bv"]
@@ -864,7 +914,9 @@ class Transformer(nn.Module):
         "attention_mask" does not trip the causal model's mask refusal.
         With ``loss_chunk_size`` > 0 the head and CE run over token
         chunks, each recomputed in the backward pass, so the full fp32
-        logits never exist at once."""
+        logits never exist at once. Bound to a topology whose ``data``
+        axis is above 1, the loss is this rank's share of the global
+        batch's (the module docstring)."""
         p = self._params(params)
         c = self.config
         inputs, targets, mask = self._targets_from_batch(batch)
@@ -881,6 +933,12 @@ class Transformer(nn.Module):
         else:
             logits, aux = self.apply(inputs, params=p, **fwd)
             nll_sum, denom, z_sum = self._ce_terms(logits, targets, mask)
+        group = self._data_group()
+        if group is not None:
+            # this rank's share: its terms over the global batch's weight,
+            # the aux loss (a mean over rows) over the data ranks
+            denom = comm.group_sum(denom.detach(), group, "data")
+            aux = aux / self._topo.data_parallel_size
         denom = torch.clamp(denom, min=1.0)
         loss = nll_sum / denom
         if self.config.z_loss > 0:
@@ -971,6 +1029,7 @@ class Transformer(nn.Module):
         ``training``; an MoE model overrides this with its expert bank
         (the JAX ``_mlp(h, lp, rng, training)`` seam)."""
         c = self.config
+        h = self._tp_copy(h)
         if c.activation == "silu_glu":
             up = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
         else:
@@ -1031,11 +1090,11 @@ class Transformer(nn.Module):
                            "gelu_exact" else "tanh")
             x = layer_norm(x, p["mlm_norm_w"], p["mlm_norm_b"], c.norm_eps)
         w_out = p["tok_embed"].T if c.tie_embeddings else p["lm_head"]
-        logits = (x @ w_out.to(x.dtype)).float()
+        logits = (self._tp_copy(x) @ w_out.to(x.dtype)).float()
         if c.mlm_head:
             logits = logits + p["mlm_bias"].float()
         if self._tp_size > 1:
-            logits = comm.all_gather_columns(logits, self._group(), "model")
+            logits = comm.tp_gather(logits, self._group())
         if c.logits_softcap > 0:
             logits = torch.tanh(logits / c.logits_softcap) * c.logits_softcap
         return logits

@@ -8,11 +8,14 @@ a named dimension of a device mesh and a collective names it inside
 takes the same axis names as the JAX facade and looks the group up in the
 current topology.
 
-Two axes are ported: ``data`` (ZeRO-3) and ``model`` (tensor parallelism).
-``data * model`` must equal the world size (``data`` ``-1`` means the
-ranks that are left). ``data`` and ``model`` both above 1 raise
-(ROADMAP.md, Queue A item 6b), so an axis above 1 spans every rank; with
-both, ``model`` would be the innermost axis, as in the JAX package. Any
+Two axes are ported: ``data`` (ZeRO-3, and data parallelism at stage 0)
+and ``model`` (tensor parallelism). ``data * model`` must equal the world
+size (``data`` ``-1`` means the ranks that are left). ``model`` is the
+innermost axis, as in the JAX mesh: rank ``r`` sits at data ``r // model``
+and model ``r % model``. With one axis above 1 its group is every rank;
+with both, each data row (the ``model`` ranks ``i * model ...``) and each
+model column (the ``data`` ranks ``j, j + model, ...``) is a group of its
+own, made by ``dist.new_group`` in the same order on every rank. Any
 other axis above 1 raises ``ConfigError`` naming the slice it comes
 with.
 """
@@ -34,8 +37,6 @@ LATER_AXES = {
     "pipe": "pipeline parallelism (Queue A item 13)",
     "expert": "expert parallelism (Queue A item 13)",
 }
-MODEL_AND_DATA = ("a 'data' axis above 1 beside a 'model' axis above 1 "
-                  "comes with ROADMAP.md, Queue A item 6b")
 
 
 class PartitionSpec(tuple):
@@ -73,9 +74,6 @@ class Topology:
                     f"{LATER_AXES[axis]}; this slice shards over 'data' "
                     f"and 'model' only")
         model = int(sizes.get("model", 1) or 1)
-        if model > 1 and int(sizes.get("data", 1) or 1) > 1:
-            raise ConfigError(f"mesh {{'data': {sizes['data']}, 'model': "
-                              f"{model}}}: {MODEL_AND_DATA}")
         if model < 1 or world % model:
             raise ConfigError(f"mesh {{'model': {model}}} must divide the "
                               f"world size {world}")
@@ -87,13 +85,8 @@ class Topology:
                                         if model > 1 else "")
             raise ConfigError(f"mesh {{{live}}} must equal the world size "
                               f"{world}")
-        if data > 1 and model > 1:
-            raise ConfigError(f"mesh {{'data': {data}, 'model': {model}}}: "
-                              f"{MODEL_AND_DATA}")
-        # one axis above 1 at a time: its group is every rank
-        groups = {a: dist.group.WORLD for a, n in (("data", data),
-                                                   ("model", model)) if n > 1}
-        return cls({"data": data, "model": model}, groups)
+        return cls({"data": data, "model": model},
+                   _axis_groups(data, model))
 
     def axis_size(self, axis: Optional[str]) -> int:
         return 1 if axis is None else self.sizes.get(axis, 1)
@@ -118,6 +111,27 @@ class Topology:
     def __repr__(self) -> str:
         live = {a: n for a, n in self.sizes.items() if n > 1}
         return f"Topology({live or {'data': 1}})"
+
+
+def _axis_groups(data: int, model: int) -> Dict[str, Any]:
+    """This rank's group of each axis above 1. With one such axis, every
+    rank; with both, ``dist.new_group`` over each data row and each model
+    column (every rank makes every group, rows first, in order: a
+    collective call), and this rank keeps the two it belongs to."""
+    if data <= 1 or model <= 1:
+        return {a: dist.group.WORLD for a, n in (("data", data),
+                                                 ("model", model)) if n > 1}
+    me = dist.get_rank()
+    groups = {}
+    for i in range(data):
+        g = dist.new_group([i * model + j for j in range(model)])
+        if me // model == i:
+            groups["model"] = g
+    for j in range(model):
+        g = dist.new_group([i * model + j for i in range(data)])
+        if me % model == j:
+            groups["data"] = g
+    return groups
 
 
 _TOPOLOGY: Optional[Topology] = None

@@ -51,10 +51,15 @@ on every rank: they come out of the model group's all-reduce, which
 hands every rank the same bits) and sums its fp32 ``w_down`` partial rows
 over the group (``reduce``) before they are rounded and ``b_down`` is
 added, so each row is rounded once, where one device's grouped GEMM
-rounds it. Training over ``model`` (the capacity route) comes with
-ROADMAP.md Queue A item 6b's training half. The ``expert`` axis stays
-size 1: expert parallelism comes with item 13 (``parallel/mesh.py``
-refuses the axis).
+rounds it. The capacity route (training) runs over ``model`` the same
+way: every rank gates every token from the same bits (a noisy gate draws
+the same noise from the same generator), the dispatched rows enter the
+rank's ``d_ff`` slice of ``w_up`` / ``w_gate`` through ``copy`` (in
+training ``comm.tp_copy``: the backward sums the input gradients over
+the group) and the fp32 ``w_down`` partials go through ``reduce`` (in
+training ``comm.tp_sum``) before they are rounded and combined. The
+``expert`` axis stays size 1: expert parallelism comes with item 13
+(``parallel/mesh.py`` refuses the axis).
 """
 
 from __future__ import annotations
@@ -323,14 +328,17 @@ class MoELayer:
     def apply(self, params: Params, x: torch.Tensor,
               generator: Optional[torch.Generator] = None,
               training: bool = True,
-              reduce: Reduce = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              reduce: Reduce = None,
+              copy: Reduce = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: ``[b, s, d]`` -> (out ``[b, s, d]``, aux loss, a 0-dim fp32
         tensor). Token groups are the batch rows (the JAX per-row
         capacity). Eval, or training without ``drop_tokens``, takes the
         no-drop route; its aux is the same load-balance diagnostic over
-        the first choice. ``reduce`` sums a bank's fp32 ``w_down``
-        partial products over the model group (banks sharded on ``d_ff``;
-        the no-drop route only)."""
+        the first choice. With banks sharded on ``d_ff`` over the model
+        group, ``reduce`` sums a bank's fp32 ``w_down`` partial products
+        over the group, and ``copy`` (the capacity route) takes ``x``
+        into the bank's column-parallel ``w_up`` / ``w_gate``; the gate
+        reads ``x`` itself."""
         b, s, d = x.shape
         cfg = self.gate
         if not training or not cfg.drop_tokens:
@@ -344,10 +352,6 @@ class MoELayer:
             assign = torch.mean(_one_hot(topi[:, 0], cfg.n_experts), dim=0)
             aux = cfg.n_experts * torch.sum(torch.mean(probs, dim=0) * assign)
             return out.reshape(b, s, d), aux
-        if reduce is not None:
-            raise NotImplementedError(
-                "capacity dispatch over the model axis (training) comes with "
-                "ROADMAP.md, Queue A item 6b's training half")
         cap = capacity(s, cfg, training)
         x_r = x
         if cfg.noisy_gate_policy == "Jitter" and generator is not None:
@@ -359,7 +363,8 @@ class MoELayer:
         combine, dispatch, aux = top_k_gating(logits, cfg, cap, generator,
                                               training)
         aux = torch.mean(aux)
-        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x)
+        xe = x if copy is None else copy(x)
+        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), xe)
         if self.activation == "silu_glu":
             h = F.silu(torch.einsum("ebcd,edf->ebcf", expert_in,
                                     params["w_gate"])) \
@@ -369,7 +374,13 @@ class MoELayer:
             if "b_up" in params:
                 h = h + params["b_up"][:, None, None, :].to(h.dtype)
             h = F.gelu(h, approximate="tanh")
-        expert_out = torch.einsum("ebcf,efd->ebcd", h, params["w_down"])
+        if reduce is None:
+            expert_out = torch.einsum("ebcf,efd->ebcd", h, params["w_down"])
+        else:
+            # the rank's d_ff slice: fp32 partials, summed, rounded once
+            expert_out = reduce(torch.einsum(
+                "ebcf,efd->ebcd", h.float(),
+                params["w_down"].float())).to(h.dtype)
         if "b_down" in params:
             expert_out = expert_out \
                 + params["b_down"][:, None, None, :].to(expert_out.dtype)

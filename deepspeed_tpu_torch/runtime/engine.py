@@ -1,11 +1,27 @@
-"""The training engine: one device, or ZeRO-3 over the ``data`` ranks.
+"""The training engine: one device, a ``data`` x ``model`` mesh at ZeRO
+stage 0, or ZeRO-3 over the ``data`` ranks.
 
-Ports two paths of ``deepspeed_tpu/runtime/engine.py``'s ``TrainEngine``:
+Ports three paths of ``deepspeed_tpu/runtime/engine.py``'s ``TrainEngine``:
 
 * one device: fp32 master weights, a compute-dtype copy for the forward and
   backward passes (bf16/fp16 mixed precision), gradient accumulation over
   ``gradient_accumulation_steps`` micro-batches, global-norm clipping, fp16
   dynamic loss scaling with skipped steps, and the optimizer step;
+* stage 0 over a ``data`` x ``model`` mesh (the JAX engine with
+  ``tp_specs``, GSPMD's placement made explicit): under ``model`` > 1 the
+  model is cut by its ``partition_specs`` (``initialize`` does it), so the
+  fp32 masters and the AdamW moments are this rank's shards and AdamW,
+  elementwise, runs on them; the forward and backward collectives are the
+  model's differentiable ones (``comm.tp_copy`` / ``tp_sum`` /
+  ``tp_gather``). Under ``data`` > 1 each rank takes its rows of every
+  micro-batch; a topology-aware model (every model of the port) returns
+  its share of the global batch's loss, so one all-reduce of the
+  gradients and the loss over the data group gives the global batch's, as
+  JAX's GSPMD gradient sum does (a custom ``loss_fn`` or another model's
+  loss is a mean over the rank's rows, divided by the data ranks: the
+  shares then average). The global norm sums the sharded leaves' squares
+  over the model group and counts the replicated leaves once; the fp16
+  overflow flag is reduced over every rank;
 * ZeRO stage 3 with the staged block schedule (``_loss_and_grads_staged``):
   every rank of the ``data`` group keeps the fp32 master shards and AdamW
   moment shards of ``ZeroShardingRules.param_spec``, takes its rows of the
@@ -40,11 +56,12 @@ stream is a host generator, so drawing from it never waits for the card;
 the draws differ from JAX's. A custom ``loss_fn`` gets no generator.
 
 Stage 3 needs a model with ``zero3_blocks`` trained on its own loss; the
-JAX package's other ZeRO paths (stages 1-2, the GSPMD and qgZ facade paths
-for models without ``zero3_blocks``, hpZ, MiCS, offload) come with later
-slices and raise. So do ``train_steps``, AOT warmup, telemetry, fault
-tolerance, checkpoints (which would carry a bound loader's position) and
-the compat ``forward``/``backward``/``step`` (ROADMAP.md, Queue A).
+JAX package's other ZeRO paths (stages 1-2, ZeRO over a ``model`` axis,
+the GSPMD and qgZ facade paths for models without ``zero3_blocks``, hpZ,
+MiCS, offload) come with later slices and raise. So do ``train_steps``,
+AOT warmup, telemetry, fault tolerance, checkpoints (which would carry a
+bound loader's position) and the compat ``forward``/``backward``/``step``
+(ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -53,9 +70,10 @@ from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
+from ..comm import comm
 from ..comm import compressed as ccomm
 from ..comm.backends import dot_fp32, resolve_backend
-from ..config import Config, ConfigError
+from ..config import Config
 from ..parallel.mesh import PartitionSpec, Topology, set_topology
 from ..parallel.zero import (FusedBlockOps, ZeroShardingRules,
                              Zero3BlockSchedule, block_vjp, shard_of,
@@ -64,23 +82,28 @@ from ..utils.device import resolve_device
 from ..utils.logging import logger
 from . import loss_scaler as ls
 from .lr_schedules import Schedule, build_schedule, constant_lr
-from .optimizers import Transform, build_optimizer, global_norm
+from .optimizers import (Transform, build_optimizer, global_norm,
+                         sharded_global_norm)
 
 Params = Dict[str, torch.Tensor]
 LossFn = Callable[[Params, Dict[str, torch.Tensor]], Any]
 
 
 class TrainEngine:
-    """Trainer on one device, or ZeRO-3 over the ``data`` ranks (see the
-    module docstring). ``device`` defaults to ``"cuda"`` and raises without
-    a CUDA device unless ``device="cpu"`` is asked for. ``loss_fn`` None
-    means the model's own ``loss``."""
+    """Trainer on one device, over a ``data`` x ``model`` mesh at stage 0,
+    or ZeRO-3 over the ``data`` ranks (see the module docstring).
+    ``device`` defaults to ``"cuda"`` and raises without a CUDA device
+    unless ``device="cpu"`` is asked for. ``loss_fn`` None means the
+    model's own ``loss``. ``topology`` (default: built from the config's
+    ``mesh``) is the mesh; under ``model`` > 1 the model and ``params``
+    must be this rank's shards (``initialize`` cuts them)."""
 
     def __init__(self, *, loss_fn: Optional[LossFn] = None,
                  params: Mapping[str, torch.Tensor], config: Config,
                  model: Optional[Any] = None,
                  optimizer: Optional[Transform] = None,
-                 lr_scheduler: Optional[Schedule] = None, device=None):
+                 lr_scheduler: Optional[Schedule] = None, device=None,
+                 topology: Optional[Topology] = None):
         self.config = config
         self.model = model
         self.device = resolve_device(device)
@@ -99,18 +122,24 @@ class TrainEngine:
         # the random stream: one generator a micro-batch is drawn from it
         self.rng = torch.Generator().manual_seed(config.train_seed)
         self._dataloader = None
-        self.topo = Topology.build(config.mesh)
+        self.topo = topology if topology is not None else \
+            Topology.build(config.mesh)
         set_topology(self.topo)
         dp = self.topo.data_parallel_size
+        tp = self.topo.model_parallel_size
         self._zero3 = config.zero.stage == 3
         if self._zero3:
             self._check_staged(model, custom_loss)
-        elif dp > 1:
-            raise ConfigError(
-                f"{dp} data-parallel ranks with zero_optimization.stage "
-                f"{config.zero.stage}: only stage 3 (the staged block "
-                f"schedule) runs over several ranks in this slice; stages "
-                f"0-2 over ranks come later (ROADMAP.md, Queue A item 12)")
+        # the model's loss is its share of the global batch's when the
+        # model reads the topology; another loss is a mean over the rank's
+        # rows, divided by the data ranks here
+        shares = not custom_loss and hasattr(model, "bind_topology")
+        if shares and tp == 1 and getattr(model, "_topo", None) is None:
+            model.bind_topology(self.topo)
+        self._loss_div = dp if dp > 1 and not self._zero3 and not shares \
+            else 1
+        if tp > 1:
+            self._check_tensor_parallel(model, custom_loss)
         config.resolve_batch_config(dp)
         logger.info(f"batch config: train_batch={config.train_batch_size} "
                     f"micro_batch={config.train_micro_batch_size_per_gpu} "
@@ -125,8 +154,12 @@ class TrainEngine:
         rank = self.topo.rank("data")
         self.params: Params = {
             n: shard_of(p.detach(), self.param_specs[n], rank, dp).to(
-                device=self.device, dtype=torch.float32, copy=dp > 1)
+                device=self.device, dtype=torch.float32,
+                copy=self._zero3 and dp > 1)
             for n, p in params.items()}
+        # tensor parallelism: the leaves cut over the model axis
+        self.tp_sharded = frozenset(
+            n for n in params if tp > 1 and "model" in model.leaf_spec(n))
 
         base_lr = float(config.optimizer.params.get("lr", 1e-3))
         if lr_scheduler is not None and callable(lr_scheduler):
@@ -189,6 +222,21 @@ class TrainEngine:
         self._comm_backend = resolve_backend(cc.kernel_backend, self.device)
         self._wants_quant_err = bool(cc.error_stats)
 
+    def _check_tensor_parallel(self, model, custom_loss: bool) -> None:
+        """``model`` > 1 trains a model of the port cut over the model
+        axis, on its own loss."""
+        tp = self.topo.model_parallel_size
+        if custom_loss or not hasattr(model, "leaf_spec"):
+            raise ValueError(
+                f"mesh.model = {tp} trains a model of deepspeed_tpu_torch "
+                f"(one with partition_specs) on its own loss; a custom "
+                f"loss_fn over sharded leaves is not supported")
+        if getattr(model, "_topo", None) is None:
+            raise ValueError(
+                f"mesh.model = {tp}: the model is not cut to this rank's "
+                f"shards; build the engine through initialize(), or call "
+                f"model.shard_(topology) first")
+
     # ------------------------------------------------------------------
     @property
     def train_batch_size(self) -> int:
@@ -231,7 +279,32 @@ class TrainEngine:
 
     def _loss(self, params: Params, batch) -> torch.Tensor:
         out = self.loss_fn(params, batch)
-        return out[0] if isinstance(out, tuple) else out
+        loss = out[0] if isinstance(out, tuple) else out
+        return loss / self._loss_div if self._loss_div > 1 else loss
+
+    def _my_rows(self, batch: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a (micro-)batch: ``P("data")``."""
+        dp = self.topo.data_parallel_size
+        if dp == 1:
+            return batch
+        rank = self.topo.rank("data")
+        n = next(iter(batch.values())).shape[0] // dp
+        return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+    def _data_sum(self, grads: Params, loss: torch.Tensor):
+        """The data group's sum of every gradient and of the loss, in one
+        flat all-reduce (the shares add up to the global batch's)."""
+        names = list(grads)
+        flat = torch.cat([grads[n].reshape(-1) for n in names]
+                         + [loss.reshape(1)])
+        flat = comm.group_sum(flat, self.topo.group("data"), "data")
+        off = 0
+        for n in names:
+            k = grads[n].numel()
+            grads[n] = flat[off:off + k].view_as(grads[n])
+            off += k
+        return grads, flat[-1]
 
     def bind_dataloader(self, loader: Any) -> None:
         """Bind the loader that feeds this engine (``initialize`` binds the
@@ -294,9 +367,8 @@ class TrainEngine:
         over the ranks, aux)."""
         dp = self.topo.data_parallel_size
         rank = self.topo.rank("data")
-        n = next(iter(batch.values())).shape[0] // dp
-        mine = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
-        grads, loss, aux = self._loss_and_grads_staged(mine, scale)
+        grads, loss, aux = self._loss_and_grads_staged(self._my_rows(batch),
+                                                       scale)
         shards = {}
         for name, g in grads.items():
             g = shard_of(g.float(), self.param_specs[name], rank, dp)
@@ -399,10 +471,29 @@ class TrainEngine:
         return FusedBlockOps(forward=forward, backward=backward)
 
     def full_params(self) -> Params:
-        """The full fp32 master weights on every rank (a dense gather of the
-        shards under ZeRO-3; the masters themselves on one rank)."""
+        """The full fp32 master weights on every rank: a dense gather of
+        the shards under ZeRO-3; under ``model`` > 1 each cut leaf's
+        shards joined over the model group along its ``model`` dimension
+        in rank order (``checkpoint.jax_params.gather_params``' layout);
+        else the masters themselves."""
+        if self.tp_sharded:
+            return self.full_width(self.params)
         return {n: ccomm.gather_param_leaf(p, self.param_specs[n])
                 for n, p in self.params.items()}
+
+    def full_width(self, tree: Params) -> Params:
+        """A tree keyed like the masters (their gradients, moments) with
+        each leaf cut over the model axis joined to full width: the
+        model group's shards along its ``model`` dimension, in rank
+        order. Every rank of the group must call it."""
+        group = self.topo.group("model") if self.tp_sharded else None
+        out = {}
+        for n, t in tree.items():
+            if n in self.tp_sharded:
+                dim = list(self.model.leaf_spec(n)).index("model")
+                t = torch.cat(comm.all_gather(t.contiguous(), group), dim=dim)
+            out[n] = t
+        return out
 
     # ------------------------------------------------------------------
     def _to_device(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -436,7 +527,7 @@ class TrainEngine:
                 if "quant_rel_err" in aux:
                     errs.append(aux["quant_rel_err"])
             else:
-                g, l = self._loss_and_grads(mb, scale)
+                g, l = self._loss_and_grads(self._my_rows(mb), scale)
             if grads is None:
                 grads, loss = g, l
             else:
@@ -444,6 +535,8 @@ class TrainEngine:
                     grads[n].add_(g[n])
                 loss = loss + l
             del g
+        if not self._zero3 and self.topo.data_parallel_size > 1:
+            grads, loss = self._data_sum(grads, loss)
         if gas > 1:
             inv = 1.0 / gas
             for g in grads.values():
@@ -465,7 +558,14 @@ class TrainEngine:
     def _global_norm(self, grads: Params) -> torch.Tensor:
         """sqrt of the sum of squares of every gradient element: under
         ZeRO-3 an all_reduce of the shards' squared sums (a leaf kept whole
-        on every rank is counted on rank 0 only)."""
+        on every rank is counted on rank 0 only); under ``model`` > 1 the
+        model group's sum of the cut leaves' squares plus the replicated
+        leaves' once (:func:`sharded_global_norm`)."""
+        if self.tp_sharded:
+            return sharded_global_norm(
+                [g for n, g in grads.items() if n in self.tp_sharded],
+                [g for n, g in grads.items() if n not in self.tp_sharded],
+                self.topo.group("model"))
         if not self._zero3 or self.topo.data_parallel_size == 1:
             return global_norm(grads.values()).to(self.device)
         first = self.topo.rank("data") == 0
@@ -491,6 +591,8 @@ class TrainEngine:
             if self._zero3:
                 flag = torch.tensor(float(finite), device=self.device)
                 finite = bool(ccomm.pmin(flag, "data") > 0)
+            elif comm.get_world_size() > 1:
+                finite = ls.finite_everywhere(finite, self.device)
         gnorm = self._global_norm(grads)
         if cfg.gradient_clipping > 0:
             factor = torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6),
@@ -512,11 +614,16 @@ class TrainEngine:
     @torch.no_grad()
     def eval_batch(self, batch: Mapping[str, Any]) -> torch.Tensor:
         """The loss of ``batch`` on the compute copy, with no gradient
-        (under ZeRO-3: the full weights, each rank's rows, meaned)."""
+        (under ZeRO-3: the full weights, each rank's rows, meaned; at
+        stage 0 over ``data`` ranks: each rank's share, summed)."""
         batch = {k: torch.as_tensor(v).to(self.device)
                  for k, v in batch.items()}
         if not self._zero3:
-            return self._loss(self._compute_copy(), batch)
+            loss = self._loss(self._compute_copy(), self._my_rows(batch))
+            if self.topo.data_parallel_size > 1:
+                loss = comm.group_sum(loss.float(), self.topo.group("data"),
+                                      "data")
+            return loss
         dp = self.topo.data_parallel_size
         rank = self.topo.rank("data")
         n = next(iter(batch.values())).shape[0] // dp

@@ -38,6 +38,20 @@ def grads_finite(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.stack(flags).all()
 
 
+def finite_everywhere(finite: bool, device) -> bool:
+    """``finite`` and every other rank's (a MIN all-reduce over the
+    world): one rank's overflow in its shard skips the step on every
+    rank, as the JAX package's flag over the global gradient tree
+    does."""
+    import torch.distributed as dist
+
+    from ..comm import comm
+
+    flag = torch.tensor(float(finite), device=device)
+    comm.record_collective("all_reduce", 4, 4, None, comm.get_world_size())
+    return bool(comm.all_reduce(flag, op=dist.ReduceOp.MIN) > 0)
+
+
 def update(state: LossScaleState, finite: bool, *, dynamic: bool = True,
            scale_window: int = 1000, scale_factor: float = 2.0,
            min_scale: float = 1.0, max_scale: float = 2.0 ** 24,

@@ -2,7 +2,9 @@
 
 Ports ``adam``, ``adamw``, ``AdamState`` and ``build_optimizer`` of
 ``deepspeed_tpu/runtime/optimizers.py`` for the two Adam rules, and
-``global_norm`` of ``deepspeed_tpu/runtime/engine.py``. The interface is
+``global_norm`` of ``deepspeed_tpu/runtime/engine.py`` (and
+:func:`sharded_global_norm`, the same norm over a tensor-parallel rank's
+shards). The interface is
 the JAX package's optax-style ``Transform(init, update)`` over dicts of
 tensors, except that ``update`` steps the parameters and the state IN
 PLACE (JAX returns new arrays; on the card that would hold a second copy
@@ -133,3 +135,23 @@ def global_norm(grads) -> torch.Tensor:
     if not grads:
         return torch.zeros([])
     return torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+
+
+def sharded_global_norm(sharded, replicated, group) -> torch.Tensor:
+    """The global norm of a tree cut over a model group, as JAX's
+    ``global_norm`` over the global arrays: the square root of the group's
+    sum of this rank's ``sharded`` leaves' squared sums, plus the
+    ``replicated`` leaves' (each the same on every rank of the group, so
+    counted once, not once a rank)."""
+    from ..comm import comm
+
+    sharded, replicated = list(sharded), list(replicated)
+    dev = (sharded or replicated)[0].device
+    zero = torch.zeros((), device=dev)
+    sq = torch.stack([g.float().square().sum() for g in sharded]).sum() \
+        if sharded else zero
+    sq = comm.group_sum(sq, group, "model")
+    if replicated:
+        sq = sq + torch.stack([g.float().square().sum()
+                               for g in replicated]).sum()
+    return sq.sqrt()

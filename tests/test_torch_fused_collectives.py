@@ -397,7 +397,8 @@ def test_config_accepts_stage3_and_refuses_later_slices():
                 "device": "cpu"}}}, "offload"),
             ({"zero_optimization": {"stage": 3, "offload_optimizer": {
                 "device": "nvme"}}}, "offload"),
-            ({"mesh": {"model": 2}}, "mesh.model"),
+            ({"mesh": {"model": 2}, "zero_optimization": {"stage": 3}},
+             "mesh.model"),
             ({"comm_compression": {"kernel_backend": "cuda"}},
              "kernel_backend"),
             ({"comm_compression": {"overlap": "eager"}}, "overlap")):

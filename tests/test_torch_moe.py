@@ -545,12 +545,17 @@ def test_refusals_name_their_items():
     assert torch.equal(tm.layers[0].w_up, w_up[..., : f // 2])
     assert tm.layers[0].w_down.shape == (4, f // 2, 64)
     assert tm.layers[0].wg.shape == (64, 4)
-    # what still raises: the capacity route (training) over the model
-    # axis, item 6b's training half; the expert axis, item 13
+    # the capacity route (training) runs over the model axis too (item
+    # 6b's training half; tests/test_torch_tp_train.py trains it at TP 2):
+    # with the group's sum and copy as identities (one rank) it is the
+    # plain route, bitwise. What still raises: the expert axis, item 13
     lp = {n: getattr(tm.layers[0], n) for n in tm.moe.shapes()}
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tm.moe.apply(lp, torch.zeros(1, 4, 64), training=True,
-                     reduce=lambda y: y)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 8, 64)).astype(np.float32))
+    plain, aux = tm.moe.apply(lp, x, training=True)
+    cut, cut_aux = tm.moe.apply(lp, x, training=True, reduce=lambda y: y,
+                                copy=lambda y: y)
+    assert torch.equal(cut, plain) and torch.equal(cut_aux, aux)
     with pytest.raises(ConfigError, match="item 13"):
         Topology.build({"expert": 2})
 

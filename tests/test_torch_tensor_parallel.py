@@ -17,7 +17,8 @@ module and run every case in one job each (TP 2 and TP 4).
   TP 4: the logits of every ``put`` of a greedy run within 1e-4 of both
   JAX engines', and ``generate``'s greedy streams identical to theirs.
 * ``ValueError`` on ``n_kv_heads`` that the model axis does not divide;
-  ``data`` x ``model`` raises naming item 6b; the operations item 6b
+  ``data`` x ``model`` is a mesh (``tests/test_torch_tp_train.py`` trains
+  over it) that one process cannot make; the operations item 6b
   lifted are step records (``tests/test_torch_tp_serving.py`` runs them);
   ``tensor_parallel`` / ``mp_size`` / ``{"tp_size": n}`` parse as JAX's.
 * v1 ``init_inference(tensor_parallel=2)`` (plain SPMD): tokens equal to
@@ -244,7 +245,9 @@ def test_indivisible_kv_heads_and_later_items_raise():
         RaggedInferenceEngine(model, RaggedConfig(max_context=128),
                               device="cpu",
                               topology=Topology({"model": 2}, {}))
-    with pytest.raises(ConfigError, match="6b"):
+    # data beside model is a mesh now (tests/test_torch_tp_train.py
+    # trains over data 2 x model 2): one process cannot make it
+    with pytest.raises(ConfigError, match="world size 1"):
         Topology.build({"data": 2, "model": 2})
     with pytest.raises(ConfigError, match="world size"):
         Topology.build({"model": 2})

@@ -717,3 +717,138 @@ def tp_serving_job(rank: int, world: int, cases: Dict[str, Any]
             res["deq_tp1"] = {n: _np(one._leaf(n)) for n in one._wq_shapes}
         out[f"v1_{name}"] = res
     return out
+
+
+# ----------------------------------------------------------------------
+# jobs of tests/test_torch_tp_train.py
+
+def _train_model(case: Dict[str, Any]):
+    """A full-width port model of ``case`` (``family`` dense / moe /
+    clip, its config kwargs) carrying ``case["params"]`` (the JAX
+    layout)."""
+    from deepspeed_tpu_torch.checkpoint.jax_params import load_jax_params
+    from deepspeed_tpu_torch.models import clip
+    from deepspeed_tpu_torch.models.moe import (MoETransformer,
+                                                MoETransformerConfig)
+    from deepspeed_tpu_torch.models.transformer import (Transformer,
+                                                        TransformerConfig)
+
+    kw = case["config"]
+    if case["family"] == "clip":
+        model = clip.CLIP(clip.CLIPConfig(
+            clip.clip_text_config(**kw["text"]),
+            clip.clip_vision_config(**kw["vision"]), **kw["pixels"]),
+            device="cpu")
+    elif case["family"] == "moe":
+        model = MoETransformer(MoETransformerConfig(**kw), device="cpu")
+    else:
+        model = Transformer(TransformerConfig(**kw), device="cpu")
+    return load_jax_params(model, case["params"])
+
+
+def tp_train_job(rank: int, world: int, cases: Dict[str, Any],
+                 mesh: Dict[str, int]) -> Dict[str, Any]:
+    """Each case of tests/test_torch_tp_train.py through ``initialize``
+    over ``mesh``: the full-width model cut by ``initialize``, three
+    ``train_batch`` steps on the global batches (every rank passes the
+    same), each step's metrics, this rank's masters, ``eval_batch`` of
+    the first batch after the steps, and on rank 0 the
+    masters gathered to full width (as the JAX tree, ``export_params``)
+    with the smallest and largest |g| of each element that the optimizer
+    received. A case with ``plant`` = (rank, step)
+    sets one element of that rank's first cut leaf's gradient to inf at
+    that step."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.jax_params import export_params
+    from deepspeed_tpu_torch.runtime import optimizers as opt
+
+    out = {}
+    for name, case in cases.items():
+        model = _train_model(case)
+        eng, *_ = dst.initialize(model=model,
+                                 config={**case["cfg"], "mesh": mesh},
+                                 device="cpu")
+        lo: Dict[str, torch.Tensor] = {}
+        hi: Dict[str, torch.Tensor] = {}
+        inner = eng.optimizer
+
+        def update(grads, state, params, lo=lo, hi=hi, inner=inner):
+            for n, g in grads.items():
+                a = g.abs()
+                lo[n] = torch.minimum(lo[n], a) if n in lo else a.clone()
+                hi[n] = torch.maximum(hi[n], a) if n in hi else a.clone()
+            return inner.update(grads, state, params)
+
+        eng.optimizer = opt.Transform(inner.init, update)
+        plant = case.get("plant")
+        if plant is not None and plant[0] == rank:
+            leaf = sorted(eng.tp_sharded)[0]
+            plain = eng._loss_and_grads
+
+            def planted(batch, scale, plain=plain, leaf=leaf):
+                g, loss = plain(batch, scale)
+                if eng.global_steps == plant[1]:
+                    g[leaf].view(-1)[0] = float("inf")
+                return g, loss
+
+            eng._loss_and_grads = planted
+        steps = []
+        for batch in case["batches"]:
+            m = eng.train_batch({k: torch.from_numpy(np.asarray(v))
+                                 for k, v in batch.items()})
+            steps.append({k: float(v) for k, v in m.items()})
+        res = {"steps": steps, "sharded": sorted(eng.tp_sharded),
+               "local": {n: _np(p) for n, p in eng.params.items()},
+               "eval": float(eng.eval_batch(case["batches"][0]))}
+        full = export_params(eng.full_params())      # the JAX layout
+        lo_full, hi_full = eng.full_width(lo), eng.full_width(hi)
+        if rank == 0:
+            res.update(full=full, lo={n: _np(t) for n, t in lo_full.items()},
+                       hi={n: _np(t) for n, t in hi_full.items()})
+        out[name] = res
+    return out
+
+
+def tp_card_job(rank: int, world: int, device: str, bf16: bool
+                ) -> Dict[str, Any]:
+    """tests/test_torch_tp_train_gpu.py: a 2-layer Llama (hd 64) made on
+    the host from seed 0, moved to ``device`` and trained 3 steps through
+    ``initialize`` at TP ``world`` (fp32, or bf16 on fp32 masters); the
+    steps and, on the card, the flash wrappers' launch counts."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = card_model().to(device)
+    eng, *_ = dst.initialize(model=model, config=card_config(world, bf16),
+                             device=device)
+    wrappers = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    for w in wrappers:
+        w.launches = w.wgmma_launches = 0
+    ids = torch.from_numpy(card_tokens()).to(device)
+    steps = [{k: float(v) for k, v in eng.train_batch(
+        {"input_ids": ids}).items()} for _ in range(3)]
+    return {"steps": steps,
+            "launches": [(w.launches, w.wgmma_launches) for w in wrappers]}
+
+
+def card_model():
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    return Llama("tiny", device="cpu", seed=0, n_layers=2, d_model=256,
+                 n_heads=4, n_kv_heads=2, vocab_size=512, max_seq_len=128)
+
+
+def card_config(tp: int, bf16: bool) -> Dict[str, Any]:
+    cfg = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+           "gradient_clipping": 1.0, "steps_per_print": 100,
+           "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
+    if tp > 1:
+        cfg["mesh"] = {"model": tp}
+    if bf16:
+        cfg["bf16"] = {"enabled": True}
+    return cfg
+
+
+def card_tokens() -> np.ndarray:
+    return np.random.default_rng(3).integers(0, 512, (4, 128))

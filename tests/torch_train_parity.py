@@ -107,12 +107,23 @@ def assert_parity(jeng, teng, steps, min_abs_g, rtol=1e-5):
     assert teng.global_steps == len(steps)
     lr_sum = sum(teng.lr_schedule(c) for c in range(1, len(steps) + 1))
     ref = flat_jax(jax.tree_util.tree_map(np.asarray, jeng.params))
-    assert set(ref) == set(teng.params)
+    return assert_weights({n: w.detach().numpy()
+                           for n, w in teng.params.items()}, ref,
+                          {n: (g.numpy(), hi)
+                           for n, (g, hi) in min_abs_g.items()}, lr_sum)
+
+
+def assert_weights(got, ref, min_abs_g, lr_sum):
+    """The weights ``got`` against ``ref`` (both ``{port name: numpy}``)
+    as the module docstring says, ``min_abs_g`` ``{name: (smallest |g| of
+    each element, largest |g| of the leaf)}`` over the steps and
+    ``lr_sum`` the learning rates' sum. Returns the number of elements
+    held only by the near-eps rule."""
+    assert set(ref) == set(got)
     n_out, n_all = 0, 0
-    for name, w in teng.params.items():
-        d = np.abs(w.detach().numpy() - ref[name])
+    for name, w in got.items():
+        d = np.abs(w - ref[name])
         g, hi = min_abs_g[name]
-        g = g.numpy()
         out = d > 2e-5
         assert np.all(g[out] < 1e-7), (name, d[out], g[out])
         assert np.all(d <= 2 * lr_sum), name
