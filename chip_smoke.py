@@ -262,6 +262,28 @@ CPU path — without a CUDA device the script fails):
    350M+MoE-128's widths at 2 layers and 32 experts (vocab padded to
    50432), fp32, the capacity route top-2 without noise: TP 2 against TP
    1 as (b), and each rank's expert choices equal;
+8d. ZeRO stages 1-3 over ``data`` (after 8c): ``initialize(config=
+   {"mesh": {"data": 2}, "zero_optimization": {"stage": s}})``, two gloo
+   rank processes on the one card (and two on the host for (d)), bf16
+   on fp32 masters, full remat, AdamW lr 1e-4, clipping 1.0, 1 warm-up
+   and 2 timed steps a run with the flash counts, the comms ledger and a
+   collective meter set to 0 between them: (a) GPT-2 small at full
+   depth, stages 0, 1 and 2, 16 x 1024, GAS 2; (b) OPT-1.3B's widths at
+   6 of 24 layers, stages 0 and 2, 8 x 512; (c) Llama-2-7B's widths at 2
+   of 32 layers, stage 3 on the per-layer gather, 2 x 2048: step time,
+   tokens/s, MFU, peak memory a rank (falling with the stage in (a) and
+   (b)), masters', moments' and gradient accumulator's bytes a rank, the
+   collectives a step (comms ledger) and their share of it, flash
+   launches a rank (d 64 on the Hopper kernels; (c)'s d 128 dq and dk/dv
+   on the mma.sync kernels), a finite falling loss, no skipped step, the
+   masters bitwise equal on both ranks at stages 1-2; (d) Llama-1b's
+   widths and OPT's flag set (at OPT-125m's) at 2 layers in fp32, one
+   step of 2 x 128: stages 1-3 (OPT: 3) and stage 2 with qgZ on the card,
+   each against the card's stage 0 (losses 1e-5, grad norms 1e-4, the
+   masters within 1e-6 but for Adam's near-eps elements; qgZ not) and
+   against the same stage on two host ranks (qgZ's loss 1e-4, its masters
+   within 1e-5 but for at most 1 in 200, each within 2 lr), the
+   quantizer's launches under qgZ;
 10. ZeRO-3 parity: ``SequentialBlockModel((64, 256, 512, 64))`` in fp32,
    ZeRO stage 3 over 2 ranks, one pair of rank processes on cuda (both on
    the one card, over gloo) and one on cpu, from the same seed-made
@@ -3484,23 +3506,22 @@ TP_PREFIX_TOKENS = 72               # (h): the prefix tier's prompt
 TP_PREDICTED_S = 200.0              # stated in PERF.md before the first run
 
 
-class _TPMeter:
-    """One rank's meter of a tensor-parallel engine: wraps its ``_core``
-    (one call a put or a decode step) to count the calls, those whose
-    paged tile / split counters moved (by 0 or one a layer, else odd) and
-    their time, and times the model group's host-staged collectives
-    (``comm.all_reduce`` / ``all_gather`` / ``all_to_all``, each after a
-    synchronize) inside them. Two ranks share the one card, so a
-    collective's time includes waiting for the other rank's kernels."""
+class _CollMeter:
+    """One rank's meter of the host-staged collectives: ``comm.all_reduce``
+    / ``all_gather`` / ``all_to_all`` / ``reduce_scatter``, each timed
+    after a synchronize (two ranks share the one card, so a collective's
+    time includes waiting for the other rank's kernels); :meth:`close`
+    puts them back."""
 
-    def __init__(self, n_layers: int):
+    NAMES = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter")
+
+    def __init__(self):
         from deepspeed_tpu_torch.comm import comm as comm_mod
 
-        self.n_layers = n_layers
+        self._mod = comm_mod
+        self._real = {n: getattr(comm_mod, n) for n in self.NAMES}
         self.reset()
-        for name in ("all_reduce", "all_gather", "all_to_all"):
-            real = getattr(comm_mod, name)
-
+        for name, real in self._real.items():
             def timed(*a, _real=real, **k):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -3512,8 +3533,28 @@ class _TPMeter:
             setattr(comm_mod, name, timed)
 
     def reset(self) -> None:
-        self.calls = self.tile = self.split = self.odd = self.n_coll = 0
-        self.core_s = self.coll_s = 0.0
+        self.coll_s, self.n_coll = 0.0, 0
+
+    def close(self) -> None:
+        for name, real in self._real.items():
+            setattr(self._mod, name, real)
+
+
+class _TPMeter(_CollMeter):
+    """One rank's meter of a tensor-parallel engine: wraps its ``_core``
+    (one call a put or a decode step) to count the calls, those whose
+    paged tile / split counters moved (by 0 or one a layer, else odd) and
+    their time, and times the model group's collectives inside them
+    (:class:`_CollMeter`)."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers = n_layers
+        super().__init__()
+
+    def reset(self) -> None:
+        super().reset()
+        self.calls = self.tile = self.split = self.odd = 0
+        self.core_s = 0.0
 
     def wrap(self, eng):
         real = eng._core
@@ -6870,6 +6911,8 @@ TRAIN_SHAPES = {               # rows x tokens a step, GAS
     "clip": (64, 77, 1), "moe": (4, 1024, 1)}
 TRAIN_DATASETS = {"gpt2": 64, "opt": 40}   # (a), (b): sequences loaded
 TRAIN_MOE = dict(n_experts=128, n_layers=2)    # (e): depth cut from 24
+TRAIN_CUT_LAYERS = 12          # (b), (c): OPT-1.3B's and BERT-large's 24
+#                                layers cut for the time limit
 TRAIN_PARITY_MOE = dict(n_experts=32, n_layers=2)   # (f), as 6i (d)
 TRAIN_PARITY_ROWS = (4, 128)   # (f): rows x tokens of each family's batch
 # row 2-4 at each family's micro-batch: label, b, s, heads, causal
@@ -7263,15 +7306,18 @@ def _sdpa_backward(backend: str, qt, kt, vt, dot, causal: bool):
         do_, qt, kt, vt, o, lse, cq, ck, mq, mk, 0.0, causal, seed, off)
 
 
-def _flash_train_shapes(flush) -> dict:
-    """Rows 2-4 at each family's training micro-batch (TRAIN_FLASH_SHAPES,
-    bf16, hd 64): held against their plain versions once, then forward,
-    dq and dk/dv each timed beside its bound, the plain version and SDPA:
-    its forward, and its whole backward alone (:func:`_sdpa_backward`,
-    so no autograd host time is in the reading) for the backend SDPA's
-    dispatch picks, cuDNN's and FlashAttention-2's both timed and their
-    gradients held to the plain version's too. Every launch on the
-    Hopper kernels."""
+def _flash_train_shapes(flush, shapes=None, phase: str = "8b") -> dict:
+    """Rows 2-4 at each family's training micro-batch (``shapes``: label,
+    b, s, heads, causal and optionally the head dim, default
+    TRAIN_FLASH_SHAPES at hd 64; bf16): held against their plain versions
+    once, then forward, dq and dk/dv each timed beside its bound, the
+    plain version and SDPA: its forward, and its whole backward alone
+    (:func:`_sdpa_backward`, so no autograd host time is in the reading)
+    for the backend SDPA's dispatch picks, cuDNN's and
+    FlashAttention-2's both timed and their gradients held to the plain
+    version's too. Every launch on the Hopper kernels where
+    ``flash_forward_wgmma_path`` / ``flash_wgmma_path`` take the shape,
+    the rest on the mma.sync kernels."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
 
@@ -7281,8 +7327,8 @@ def _flash_train_shapes(flush) -> dict:
 
     gen = torch.Generator().manual_seed(8)
     out = {}
-    for label, b, s, h, causal in TRAIN_FLASH_SHAPES:
-        d = 64
+    for label, b, s, h, causal, *hd in shapes or TRAIN_FLASH_SHAPES:
+        d = hd[0] if hd else 64
         q, k, v, do = _flash_inputs(gen, b, s, s, h, h, d, torch.bfloat16)
         before = _flash_counts()
         got = _flash_kernels(q, k, v, do, causal, 0)
@@ -7299,7 +7345,11 @@ def _flash_train_shapes(flush) -> dict:
         kms = {n: cuda_ms(fn, 10, flush) for n, fn in kernels.items()}
         moved = [a - b_ for a, b_ in zip(_flash_counts(), before)]
         # one checked call and 12 timed calls (2 warm-ups) of each kernel
-        path_ok = moved == [13] * 6
+        hopper_fwd = fa.flash_forward_wgmma_path(
+            q.dtype, d, h, h, (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+            1.0 / math.sqrt(d))
+        hopper_bwd = fa._hopper(q, k, v, do)
+        path_ok = moved == [13, 13 * hopper_fwd] + [13, 13 * hopper_bwd] * 2
         p_f = cuda_ms(lambda: fa.flash_attention_forward_reference(
             q, k, v, causal=causal), 3, flush, warmup=1)
         p_b = cuda_ms(lambda: fa._backward_from_delta(
@@ -7336,7 +7386,7 @@ def _flash_train_shapes(flush) -> dict:
                          max(errs["dk"][0], errs["dv"][0]),
                          "tflops": ops / kms[name] / 1e9}
         out[label] = row
-        log(f"flash train shape {label}: b {b} s {s} h {h} d 64 bf16 "
+        log(f"flash train shape {label}: b {b} s {s} h {h} d {d} bf16 "
             f"{'causal' if causal else 'non-causal'}: " + "; ".join(
                 f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
                 f"{r['bound_by']}, plain {r['plain_ms']:.3f}, sdpa "
@@ -7352,7 +7402,7 @@ def _flash_train_shapes(flush) -> dict:
                 for n in lib_bwds)
             + f" {'ok' if ok and path_ok and lib_ok else 'FAIL'}")
         if not (ok and path_ok and lib_ok):
-            raise SystemExit(f"phase 8b: flash kernels at {label}")
+            raise SystemExit(f"phase {phase}: flash kernels at {label}")
         del q, k, v, do, got, ref, qt, kt, vt, dot, lib_bwds
         torch.cuda.empty_cache()
     return out
@@ -7404,8 +7454,10 @@ def phase_train_families(card: str) -> dict:
     and ``TrainEngine``: fp32 masters from seeded random weights (every
     bias and norm term drawn), bf16 compute, AdamW (lr 1e-4, weight
     decay 0.1), clipping 1.0, 2 warm-up then 3 timed steps. (a) GPT-2
-    small, 16 x 1024, GAS 2, and (b) OPT-1.3B, 8 x 512, through the
-    loader; (c) BERT-large MLM, 32 x 512, GAS 2; (d) CLIP ViT-L/14, 64
+    small, 16 x 1024, GAS 2, and (b) OPT-1.3B at ``TRAIN_CUT_LAYERS``
+    of 24 layers, 8 x 512, through the loader; (c) BERT-large MLM at
+    ``TRAIN_CUT_LAYERS`` of 24 layers, 32 x 512, GAS 2; (d) CLIP
+    ViT-L/14, 64
     pairs; (e) GPT-MoE 350M+MoE-128 at 2 layers, 4 x 1024; rows 2-4 at
     each family's shapes; (f) each family fp32 cuda vs cpu."""
     import deepspeed_tpu_torch
@@ -7426,17 +7478,21 @@ def phase_train_families(card: str) -> dict:
     out["loader_faults"] = _loader_faults()
     fresh()
     out["opt"] = _train_loader_family(
-        "opt", _draw_vectors(OPT("1.3b", seed=0), 0), "OPT-1.3B", card,
+        "opt", _draw_vectors(OPT("1.3b", seed=0,
+                                 n_layers=TRAIN_CUT_LAYERS), 0),
+        f"OPT-1.3B, {TRAIN_CUT_LAYERS} of 24 layers", card,
         check_batches=False)
     fresh()
-    model = _draw_vectors(Bert("large", seed=0), 0)
+    model = _draw_vectors(Bert("large", seed=0,
+                               n_layers=TRAIN_CUT_LAYERS), 0)
     c = model.config
     rows, seq, gas = TRAIN_SHAPES["bert"]
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model, config=_train_cfg(rows, gas))
     batch = _mlm_batch(np.random.default_rng(22), rows, seq, "cuda")
     out["bert"] = _train_timed(
-        "BERT-large MLM", engine, itertools.repeat(batch), [c], gas,
+        f"BERT-large MLM, {TRAIN_CUT_LAYERS} of 24 layers", engine,
+        itertools.repeat(batch), [c], gas,
         rows * seq, "tokens", rows * seq * c.flops_per_token(seq), card)
     del engine, model, batch
     fresh()
@@ -7800,6 +7856,479 @@ def phase_tp_training(card: str) -> dict:
     return {"launches": a[0]["launches"],
             "wgmma_launches": a[0]["wgmma_launches"], "step_s": step_s,
             "tok_s": tok_s, "mfu": mfu, "seconds": seconds}
+
+
+# --------------------------------------------------------------- phase 8d
+ZERO_WORLD = 2
+ZERO_WARM, ZERO_TIMED = 1, 2
+ZERO_LR = 1e-4
+ZERO_RUNS = {      # (model, stages, rows x tokens a step, GAS, label)
+    "a": ("gpt2", (0, 1, 2), 16, 1024, 2, "GPT-2 small, 12 of 12 layers"),
+    "b": ("opt", (0, 2), 8, 512, 1, "OPT-1.3B widths, 6 of 24 layers"),
+    "c": ("llama7b", (3,), 2, 2048, 1, "Llama-2-7B widths, 2 of 32 layers")}
+ZERO_OPT_LAYERS = 6             # (b): the step's gloo bytes (time)
+ZERO_LLAMA_LAYERS = 2           # (c)
+ZERO_PARITY_ROWS = (2, 128)     # (d): rows x tokens of its one step
+# (d): (model, stage, qgZ) on the card, each held to the card's stage 0
+# of its model (the masters after the step; qgZ not), and every run but
+# stage 0 on the two host ranks too; OPT's flag set at OPT-125m's widths.
+# The host ranks are held at tolerances, so they run unpinned on
+# ``ZERO_HOST_THREADS`` threads each
+ZERO_PARITY_CARD = (("llama", 0, False), ("llama", 1, False),
+                    ("llama", 2, False), ("llama", 3, False),
+                    ("llama", 2, True), ("opt125m", 0, False),
+                    ("opt125m", 3, False))
+ZERO_PARITY_HOST = tuple(run for run in ZERO_PARITY_CARD if run[1])
+ZERO_HOST_THREADS = 3
+ZERO_PREDICTED_S = 145.0        # stated in PERF.md before the run
+_ZERO_HOST_MODELS: dict = {}    # (d)'s drawn host models, copied a run
+
+
+def _zero_cfg(rows: int, gas: int, stage: int, bf16: bool,
+              qgz: bool = False) -> dict:
+    cfg = {"train_batch_size": rows, "gradient_accumulation_steps": gas,
+           "gradient_clipping": 1.0, "steps_per_print": 1000,
+           "mesh": {"data": ZERO_WORLD},
+           "optimizer": {"type": "adamw",
+                         "params": {"lr": ZERO_LR, "weight_decay": 0.1}},
+           "zero_optimization": {"stage": stage,
+                                 "zero_quantized_gradients": qgz}}
+    if bf16:
+        cfg["bf16"] = {"enabled": True}
+    return cfg
+
+
+def _zero_model(kind: str, device: str = "cuda"):
+    """8d's models from a seed, every bias and norm term drawn: (a)-(c) at
+    full width built on the card ((c)'s then moved to the host), (d)'s
+    2-layer fp32 ones drawn on the host once a process and copied to
+    ``device`` a run (the cpu ranks and the card get the same
+    weights)."""
+    import copy
+
+    from deepspeed_tpu_torch.models import GPT2, OPT
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    if kind == "gpt2":
+        return _draw_vectors(GPT2("small", seed=0), 0)
+    if kind == "opt":
+        return _draw_vectors(OPT("1.3b", seed=0,
+                                 n_layers=ZERO_OPT_LAYERS), 0)
+    if kind == "llama7b":
+        # stage 3: the engine copies the rank's shards to the card, so the
+        # whole model waits on the host
+        return _draw_vectors(Llama("7b", seed=0,
+                                   n_layers=ZERO_LLAMA_LAYERS), 0).cpu()
+    if kind not in _ZERO_HOST_MODELS:
+        make = Llama("1b", device="cpu", seed=2, n_layers=2) \
+            if kind == "llama" else OPT("125m", device="cpu", seed=2,
+                                        n_layers=2)     # "opt125m"
+        _ZERO_HOST_MODELS[kind] = _draw_vectors(make, 2)
+    return copy.deepcopy(_ZERO_HOST_MODELS[kind]).to(device)
+
+
+def _zero_timed(rank, world, key: str, stage: int, ids: np.ndarray) -> dict:
+    """One of (a)-(c) on one rank: the model through ``initialize`` at
+    ZeRO ``stage`` over the two ranks, bf16 on fp32 masters, full remat,
+    AdamW; ``ZERO_WARM`` warm-up and ``ZERO_TIMED`` timed steps with the
+    flash counts, the comms ledger and the collective meter set to 0
+    between them; peak memory over the steps, the moments' and the
+    gradient accumulator's bytes, the masters' digests."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+
+    kind, _, rows, seq, gas, _ = ZERO_RUNS[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=_zero_model(kind), config=_zero_cfg(rows, gas, stage, True),
+        device="cuda")
+    built = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    acc = []
+    real_update = engine._update
+
+    def update(grads, scale):
+        acc.append(sum(g.numel() * g.element_size() for g in grads.values()))
+        return real_update(grads, scale)
+
+    engine._update = update
+    batch = {"input_ids": torch.from_numpy(ids).cuda()}
+    comm.configure_comms_logger(True)
+    ledger = comm.get_comms_logger()
+    meter = _CollMeter()
+    losses, norms, skipped, times = [], [], [], []
+    try:
+        for i in range(ZERO_WARM + ZERO_TIMED):
+            if i == ZERO_WARM:
+                _flash_reset()
+                ledger.reset()
+                meter.reset()
+            t1 = time.perf_counter()
+            m = engine.train_batch(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            skipped.append(bool(m["skipped"]))
+    finally:
+        meter.close()
+        comm.configure_comms_logger(False)
+    launches, hopper = _flash_read()
+    mu, nu = engine.opt_state.mu, engine.opt_state.nu
+    whole = [n for n, p in engine.params.items()
+             if tuple(p.shape) == engine.full_shapes[n]]
+    out = {"losses": losses, "norms": norms, "skipped": skipped,
+           "times": times, "built_s": built, "launches": launches,
+           "wgmma_launches": hopper, "coll_s": meter.coll_s,
+           "coll_calls": meter.n_coll, "ledger": ledger.snapshot_totals(),
+           "peak": torch.cuda.max_memory_allocated(),
+           "moment_bytes": sum(t.numel() * t.element_size()
+                               for t in (*mu.values(), *nu.values())),
+           "grad_bytes": acc[-1],
+           "master_bytes": sum(p.numel() * p.element_size()
+                               for p in engine.params.values()),
+           "whole_masters": len(whole), "leaves": len(engine.params),
+           "digest": [_digest(engine.params[n]) for n in sorted(whole)]
+           if stage in (1, 2) else None,
+           "route": engine._route}
+    del engine, batch, mu, nu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zero_parity(rank, world, device: str, kind: str, stage: int, qgz: bool,
+                 ids: np.ndarray, keep: bool) -> dict:
+    """One (d) run on one rank: the 2-layer fp32 model through
+    ``initialize`` at ``stage`` over the two ranks, one step; the masters
+    gathered whole, kept with ``keep`` (rank 0), with, on the card, the
+    quantizer's launches and at stage 0 each element's |g| as the
+    optimizer saw it."""
+    import deepspeed_tpu_torch
+
+    rows, _ = ZERO_PARITY_ROWS
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=_zero_model(kind, device), device=device,
+        config=_zero_cfg(rows, 1, stage, False, qgz))
+    lo = _min_abs_g(engine)
+    batch = {"input_ids": torch.from_numpy(ids).to(device)}
+    if device == "cuda":
+        for w, *_ in QUANT_KERNELS.values():
+            w.launches = 0
+    m = engine.train_batch(batch)
+    out = {"step": (float(m["loss"]), float(m["grad_norm"]),
+                    bool(m["skipped"])), "route": engine._route}
+    if device == "cuda":
+        out["quant_launches"] = {n: w.launches
+                                 for n, (w, *_) in QUANT_KERNELS.items()}
+    full = engine.full_params()             # every rank of the group
+    if keep:
+        out["full"] = full
+        if stage == 0 and device == "cuda":  # whole at stage 0
+            out["lo"] = lo
+    del full
+    del engine
+    gc.collect()
+    return out
+
+
+def _zero_weights(full: dict, ref: dict, lo: dict) -> dict:
+    """The masters ``full`` against ``ref`` after the step: the largest
+    difference where the card's stage 0 saw |g| >= 1e-6 (``lo``), and
+    the elements beyond 1e-6 (all near Adam's eps, each within 2 lr)."""
+    worst = near = 0.0
+    n_out = n_all = 0
+    ok = True
+    for n, w in ref.items():
+        d = (full[n] - w).abs()
+        small = lo[n] < 1e-6
+        beyond = d > 1e-6
+        n_all += d.numel()
+        if (~small).any():
+            worst = max(worst, d[~small].max().item())
+        if beyond.any():
+            ok &= bool(small[beyond].all())
+            n_out += int(beyond.sum())
+            near = max(near, d[beyond].max().item())
+    ok &= near <= 2 * ZERO_LR and worst <= 1e-6
+    return {"worst": worst, "near_eps": n_out, "near_max": near,
+            "elements": n_all, "ok": ok}
+
+
+def _zero_facade(full: dict, ref: dict) -> dict:
+    """qgZ's masters ``full`` against ``ref`` after the step, by the
+    compressed facade's rule: within 1e-5 but for at most 1 in 200
+    elements, each within 2 lr (a gradient a quantization level apart
+    can flip Adam's first update)."""
+    worst, n_out, n_all = 0.0, 0, 0
+    for n, w in ref.items():
+        d = (full[n] - w).abs()
+        n_all += d.numel()
+        n_out += int((d > 1e-5).sum())
+        worst = max(worst, d.max().item())
+    return {"worst": worst, "beyond": n_out, "elements": n_all,
+            "ok": n_out <= n_all // 200 and worst <= 2 * ZERO_LR + 1e-5}
+
+
+def _zero_host_file(tmp: str, key: tuple) -> str:
+    kind, stage, qgz = key
+    return os.path.join(tmp, f"{kind}_{stage}_{int(qgz)}.pt")
+
+
+def _job_zero(rank, world, device, ids: dict, host_done, tmp: str) -> dict:
+    """A rank of phase 8d: on cpu ranks (d)'s host runs, rank 0 writing
+    each run's masters under ``tmp``; on the card (d)'s runs, each held
+    against the card's stage 0 of its model (rank 0 keeps the masters),
+    then, once the host ranks are done (``host_done``, so that their work
+    is off the host's cores), rank 0 holds each run's masters against the
+    host's and (a)-(c) are timed."""
+    runs = ZERO_PARITY_HOST if device == "cpu" else ZERO_PARITY_CARD
+    out, ref, kept = {"d": {}}, {}, {}
+    for key in runs:
+        res = _zero_parity(rank, world, device, *key, ids["d"], rank == 0)
+        full, lo = res.pop("full", None), res.pop("lo", None)
+        if full is not None and device == "cpu":
+            torch.save(full, _zero_host_file(tmp, key))
+        elif full is not None and key[1] == 0:
+            ref[key[0]] = (full, lo)
+        elif full is not None:
+            if not key[2]:
+                res["weights"] = _zero_weights(full, *ref[key[0]])
+            kept[key] = full
+        out["d"][key] = res
+        del full, lo
+    if device == "cpu":
+        return out
+    if not host_done.wait(timeout=900):
+        raise RuntimeError("phase 8d: the host ranks did not finish")
+    for key in list(kept):
+        host = torch.load(_zero_host_file(tmp, key), map_location="cuda")
+        full = kept.pop(key)
+        out["d"][key]["host_weights"] = (
+            _zero_facade(full, host) if key[2]
+            else _zero_weights(full, host, ref[key[0]][1]))
+        del host, full
+    ref.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, (_, stages, *_) in ZERO_RUNS.items():
+        out[key] = {s: _zero_timed(rank, world, key, s, ids[key])
+                    for s in stages}
+    return out
+
+
+def _zero_steps_ok(got, ref, loss_rtol: float = 1e-5) -> tuple:
+    """(worst loss rel, worst grad-norm rel, within ``loss_rtol`` / 1e-4
+    and no step skipped)."""
+    lr = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, ref))
+    nr = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, ref))
+    ok = lr <= loss_rtol and nr <= 1e-4 and not any(
+        a[2] or b[2] for a, b in zip(got, ref))
+    return lr, nr, ok
+
+
+def _zero_parity_checks(res, res_cpu, card: str) -> bool:
+    """(d)'s lines: each card run against the card's stage 0 of its model
+    (but qgZ) and against the host ranks' run of the same stage."""
+    ok = True
+    for key in ZERO_PARITY_HOST:
+        kind, stage, qgz = key
+        r0 = res[0]["d"][key]
+        step = r0["step"]
+        same = all(r["d"][key]["step"] == step for r in res)
+        s0 = res[0]["d"][(kind, 0, False)]["step"]
+        l0, n0, good0 = _zero_steps_ok([step], [s0])
+        host = res_cpu[0]["d"][key]["step"]
+        lh, nh, goodh = _zero_steps_ok([step], [host], 1e-4 if qgz else 1e-5)
+        hw = r0["host_weights"]
+        good = (same and goodh and hw["ok"]
+                and (stage < 3 or r0["route"] == "gather"))
+        line = (f"zero train (d) {kind} 2 layers fp32 stage {stage}"
+                f"{' qgZ' if qgz else ''} [{card}]: loss {step[0]:.6f}, "
+                f"grad norm {step[1]:.5f}; against stage 0 on the card: "
+                f"loss rel {l0:.2e}, grad norm rel {n0:.2e} "
+                + ("(quantized: not held to stage 0)" if qgz else
+                   "(1e-5 / 1e-4)")
+                + f"; against the host ranks: loss rel {lh:.2e} "
+                f"({1e-4 if qgz else 1e-5:g}), grad norm rel {nh:.2e} (1e-4)")
+        if qgz:
+            q = r0["quant_launches"]
+            good = good and all(v > 0 for v in q.values())
+            line += (f", masters max |card - host| {hw['worst']:.2e}, "
+                     f"{hw['beyond']} of {hw['elements']} elements beyond "
+                     f"1e-5 (at most 1 in 200, each within 2 lr); "
+                     f"quantizer launches on the card {q}")
+        else:
+            w = r0["weights"]
+            good = good and good0 and w["ok"]
+            for name, x in ((f"stage {stage} - stage 0", w),
+                            ("card - host", hw)):
+                line += (f"; masters max |{name}| {x['worst']:.2e} (1e-6) "
+                         f"where |g| >= 1e-6, {x['near_eps']} of "
+                         f"{x['elements']} elements beyond, all near "
+                         f"Adam's eps, max {x['near_max']:.2e}")
+        ok = ok and good
+        log(line + f" {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def _zero_model_config(kind: str):
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_config, opt_config
+    from deepspeed_tpu_torch.models.llama import llama_config
+
+    if kind == "gpt2":
+        return gpt2_config("small")
+    if kind == "opt":
+        return opt_config("1.3b", n_layers=ZERO_OPT_LAYERS)
+    return llama_config("7b", n_layers=ZERO_LLAMA_LAYERS)
+
+
+def _zero_timed_checks(res, card: str) -> tuple:
+    """(a)-(c)'s lines; returns (ok, the flash launches of rank 0 by run,
+    their Hopper share, each run's step time)."""
+    ok, launches, wgmma, step = True, {}, {}, {}
+    for key, (kind, stages, rows, seq, gas, label) in ZERO_RUNS.items():
+        c = _zero_model_config(kind)
+        per_step = _flash_per_step([c], gas)
+        want = {n: ZERO_TIMED * k for n, k in per_step.items()}
+        # d 128 (c): the forward on the Hopper kernel, dq and dk/dv on
+        # the mma.sync kernels (flash_wgmma_path takes d 64 only)
+        hopper_want = want if c.head_dim == 64 else {
+            n: (k if n == "flash_forward" else 0) for n, k in want.items()}
+        tokens = rows * (seq - 1)
+        flops = _decoder_flops(c, rows, seq)
+        peaks = {}
+        for s in stages:
+            runs = [r[key][s] for r in res]
+            step_s = max(sum(x["times"][ZERO_WARM:]) / ZERO_TIMED
+                         for x in runs)
+            mfu = flops / step_s / PEAK_OPS_PER_S[torch.bfloat16]
+            step[f"{key}{s}"] = step_s
+            launches[f"{key}_stage{s}"] = runs[0]["launches"]
+            wgmma[f"{key}_stage{s}"] = runs[0]["wgmma_launches"]
+            same = all(x["losses"] == runs[0]["losses"]
+                       and x["norms"] == runs[0]["norms"] for x in runs)
+            equal = s not in (1, 2) or all(
+                x["digest"] == runs[0]["digest"] for x in runs)
+            peaks[s] = max(x["peak"] for x in runs)
+            for r, x in enumerate(runs):
+                good = (all(np.isfinite(x["losses"]))
+                        and all(np.isfinite(x["norms"]))
+                        and not any(x["skipped"])
+                        and x["losses"][-1] < x["losses"][0]
+                        and x["launches"] == want
+                        and x["wgmma_launches"] == hopper_want
+                        and same and equal
+                        and (s < 3 or x["route"] == "gather"))
+                ok = ok and good
+                timed = sum(x["times"][ZERO_WARM:])
+                led = {op: (int(v["count"] / ZERO_TIMED),
+                            int(v["bytes"] / ZERO_TIMED))
+                       for op, v in x["ledger"].items()}
+                log(f"zero train ({key}) {label} stage {s} rank {r} "
+                    f"[{card}]: losses {[round(v, 5) for v in x['losses']]}"
+                    f", grad norms {[round(v, 4) for v in x['norms']]}, "
+                    f"skipped {x['skipped']}; step times "
+                    f"{[round(v, 4) for v in x['times']]} s; peak "
+                    f"torch.cuda.max_memory_allocated() = {x['peak']} B; "
+                    f"masters {x['master_bytes']} B ({x['whole_masters']} "
+                    f"of {x['leaves']} leaves whole), moments "
+                    f"{x['moment_bytes']} B, gradient accumulator "
+                    f"{x['grad_bytes']} B; collectives a step "
+                    f"{x['coll_calls'] / ZERO_TIMED:g} ({led}: count, "
+                    f"bytes), {x['coll_s'] / ZERO_TIMED:.4f} s of the "
+                    f"step, share {x['coll_s'] / timed:.3f}; flash "
+                    f"launches in {ZERO_TIMED} timed steps {x['launches']} "
+                    f"(expected {want}), on the Hopper wgmma kernels "
+                    f"{x['wgmma_launches']} (expected {hopper_want}; the "
+                    f"rest on the mma.sync kernels); masters bitwise equal "
+                    f"on both ranks: {equal}; built in {x['built_s']:.1f} "
+                    f"s {'ok' if good else 'FAIL'}")
+            log(f"zero train ({key}) {label} stage {s} [{card}]: "
+                f"{c.param_count()} parameters, GAS {gas} x {rows // gas} x "
+                f"{seq}: timed step {step_s:.4f} s (the slower rank's "
+                f"mean), {tokens / step_s:.1f} tokens/s, MFU {mfu:.4f} "
+                f"({flops:.4e} operations a step, peak 989 TFLOP/s bf16)")
+        order = [peaks[s] for s in stages]
+        falls = all(a > b for a, b in zip(order, order[1:]))
+        ok = ok and falls
+        log(f"zero train ({key}): peak memory a rank by stage "
+            f"{dict(zip(stages, order))} B, falling: {falls}")
+    return ok, launches, wgmma, step
+
+
+def phase_zero_training(card: str) -> dict:
+    """8d: ZeRO stages 1-3 over the ``data`` axis, two gloo rank
+    processes on the one card (and two on the host for (d);
+    :func:`_job_zero`), through ``initialize`` -> ``train_batch``: (a)
+    GPT-2 small at full depth, stages 0, 1 and 2, 16 x 1024, GAS 2; (b)
+    OPT-1.3B's widths at 6 of 24 layers, stages 0 and 2, 8 x 512; (c)
+    Llama-2-7B's widths at 2 of 32 layers, stage 3 (the per-layer
+    gather), 2 x 2048: bf16 on fp32 masters, full remat, AdamW, 1 warm-up
+    and 2 timed steps each: step time, tokens/s, MFU, peak memory a rank
+    (falling with the stage), moment and gradient-accumulator bytes, the
+    collectives a step from the comms ledger and their share of the step,
+    flash launches (d 64 on the Hopper kernels; (c)'s d 128 backward on
+    the mma.sync kernels), a finite falling loss, no skipped step, the
+    masters bitwise equal on both ranks at stages 1-2; (d) Llama-1b's
+    widths and OPT's flag set (OPT-125m's widths) at 2 layers in fp32, one
+    step of 2 x 128: stages 1, 2, 3 (OPT: 3) and 2 with qgZ on the card,
+    each against the card's stage 0 (losses 1e-5, grad norms 1e-4, the
+    masters within 1e-6 but for Adam's near-eps elements; qgZ not) and
+    against the same stage on the host ranks (the same tolerances, qgZ's
+    loss 1e-4 and its masters by the compressed facade's rule), the
+    quantizer's launches under qgZ."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(41)
+    ids = {key: rng.integers(0, TRAIN_SPAN, (rows, seq))
+           for key, (_, _, rows, seq, _, _) in ZERO_RUNS.items()}
+    ids["d"] = rng.integers(0, 32000, ZERO_PARITY_ROWS)
+    host_done = mp.get_context("spawn").Event()
+    tmp = tempfile.mkdtemp(prefix="dst_zero_")
+    try:
+        cpu = _start_ranks(ZERO_WORLD, "cpu", "zero", (ids, host_done, tmp),
+                           pin=False, threads=ZERO_HOST_THREADS)
+        cuda = _start_ranks(ZERO_WORLD, "cuda", "zero",
+                            (ids, host_done, tmp))
+        res_cpu = _join_ranks(*cpu, timeout=600)
+        host_s = time.perf_counter() - t0
+        host_done.set()
+        res = _join_ranks(*cuda, timeout=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"zero train (d): the host ranks' {len(ZERO_PARITY_HOST)} runs "
+        f"done {host_s:.1f} s into the phase ({ZERO_HOST_THREADS} threads "
+        f"a rank)")
+    ok = _zero_parity_checks(res, res_cpu, card)
+    good, launches, wgmma, step = _zero_timed_checks(res, card)
+    ok = ok and good
+    # rows 2-4 at (c)'s micro-batch on a rank (d 128: dq and dk/dv on
+    # the mma.sync kernels)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    c = _zero_model_config("llama7b")
+    rows, seq = ZERO_RUNS["c"][2:4]
+    flash = _flash_train_shapes(
+        flush, [("zero3_llama7b", rows // ZERO_WORLD, seq, c.n_heads, True,
+                 c.head_dim)], "8d")["zero3_llama7b"]
+    del flush
+    seconds = time.perf_counter() - t0
+    log(f"zero train: phase 8d in {seconds:.1f} s (predicted "
+        f"{ZERO_PREDICTED_S:g} s)")
+    if not ok:
+        raise SystemExit("phase 8d: ZeRO training failed")
+    return {"launches": launches, "wgmma_launches": wgmma,
+            "quant_launches": res[0]["d"][("llama", 2, True)][
+                "quant_launches"],
+            "flash": flash, "step_s": step, "seconds": seconds}
 
 
 # ------------------------------------------------------ phase 3 (fused)
@@ -8592,7 +9121,7 @@ def _profile_zero3_step(engine, batch) -> dict:
 
 
 RANK_JOBS = {"parity": _job_parity, "train": _job_train, "tp": _job_tp,
-             "tp_train": _job_tp_train}
+             "tp_train": _job_tp_train, "zero": _job_zero}
 PARITY_DIMS = (64, 256, 512, 64)
 ZERO3_DIMS = (4096, 11008, 4096, 11008, 4096)   # Llama-2-7B MLP widths
 
@@ -8884,6 +9413,8 @@ def main() -> int:
     mark("8b")
     tp_train = phase_tp_training(dev["card"])
     mark("8c")
+    zero_train = phase_zero_training(dev["card"])
+    mark("8d")
     phase_zero3_parity()
     mark("10")
     fused_launches, fused_wgmma = phase_zero3_training(dev["card"])
@@ -8981,7 +9512,14 @@ def main() -> int:
             # 8c: rank 0's launches in TinyLlama-1.1B's 3 timed steps at
             # TP 2 (hq 16, hkv 2 a rank)
             tp_train_launches=tp_train["launches"][name],
-            tp_train_wgmma_launches=tp_train["wgmma_launches"][name])
+            tp_train_wgmma_launches=tp_train["wgmma_launches"][name],
+            # 8d: rank 0's launches in each ZeRO run's 2 timed steps
+            # ((c) at d 128: dq and dk/dv on the mma.sync kernels)
+            zero_train_launches={k: v[name] for k, v in
+                                 zero_train["launches"].items()},
+            zero_train_wgmma_launches={k: v[name] for k, v in
+                                       zero_train["wgmma_launches"].items()},
+            zero3_timing=zero_train["flash"][name])
         if name == "flash_forward":
             # 6h: BERT-large's 10 timed forwards, CLIP's similarity, and
             # row 2 timed at their layer-0 calls
@@ -9009,6 +9547,8 @@ def main() -> int:
             "tp_opt_launches": tp["opt_quantize" if name.startswith(
                 "quantize") else "opt_dequantize"],
             "bert_launches": enc["bert"]["int8_launches"][name],
+            # 8d (d): rank 0's launches in 2 steps of qgZ at stage 2
+            "zero_qgz_launches": zero_train["quant_launches"][name],
             "moe_launches": moe["v1"]["launches"][name],
             "shape": "4096x11008_bf16_int8_block256", "card": dev["card"]})
         if name.startswith("dequantize"):

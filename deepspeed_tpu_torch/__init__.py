@@ -15,7 +15,8 @@ MLM logits through the same engine's ``forward``, CLIP's two towers
 through ``models.clip.CLIP``), serves DeepSpeed-MoE's GPT-MoE
 (``models.moe.GPTMoE``: top-k routed expert banks on grouped GEMMs)
 through both engines, trains every one of these families on one device
-or over a ``data`` x ``model`` mesh of ranks at ZeRO stage 0 (fed by
+or over a ``data`` x ``model`` mesh of ranks at ZeRO stage 0, or at
+ZeRO stages 1-3 over ``data`` ranks (fed by
 :class:`~deepspeed_tpu_torch.runtime.dataloader.DataLoader` when
 ``initialize`` is given ``training_data``), and any ``nn.Module``
 wrapped by ``models.api.from_module``, generates images with Stable
@@ -112,8 +113,10 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
                collate_fn: Optional[Callable] = None,
                device=None) -> Tuple[TrainEngine, Any, Any, Any]:
     """Bring up a training engine (one device, a ``data`` x ``model`` mesh
-    of the ranks of ``init_distributed`` at stage 0, or ZeRO-3 over them);
-    returns ``(engine, optimizer, dataloader, lr_scheduler)`` as
+    of the ranks of ``init_distributed`` at stage 0, or ZeRO stages 1-3
+    over their ``data`` axis, the engine placing the masters, gradients
+    and optimizer state by ``parallel.zero.ZeroShardingRules``); returns
+    ``(engine, optimizer, dataloader, lr_scheduler)`` as
     ``deepspeed_tpu.initialize`` does.
 
     Pass either ``loss_fn(params, batch) -> loss | (loss, aux)`` plus
@@ -122,7 +125,8 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
     port's models (every decoder flag set, BERT, DistilBERT, CLIP, an MoE
     model), or a
     :class:`~deepspeed_tpu_torch.parallel.zero.SequentialBlockModel`,
-    whose ``zero3_blocks`` ZeRO stage 3 needs. The model's own weights
+    whose ``zero3_blocks`` stage 3 runs on the staged block schedule. The
+    model's own weights
     are the initial parameters unless ``params`` is given. ``config`` is
     a dict or a path to a DeepSpeed-style JSON file.
 

@@ -7,8 +7,9 @@ Ports the host-level half of ``deepspeed_tpu/comm/comm.py``:
 in-program collectives are ``jax.lax`` primitives inside ``shard_map``;
 here each rank is a process and a collective is a ``torch.distributed``
 call on the process group of a mesh axis (``parallel/mesh.py``). The
-facade (``comm/compressed.py``) and the tensor-parallel model group's
-helpers at the end of this file (:func:`broadcast_record`, and the
+facade (``comm/compressed.py``), ZeRO's placement
+(``parallel/zero.py``, ``runtime/engine.py``) and the tensor-parallel
+model group's helpers at the end of this file (:func:`broadcast_record`, and the
 differentiable :func:`tp_sum`, :func:`tp_copy` and :func:`tp_gather`
 that the model's forward and backward passes run through, serving and
 training alike) are the callers of the raw collectives below, and each
@@ -274,6 +275,25 @@ def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM,
         w = x.clone()
     dist.all_reduce(w, op=op, group=group)
     return from_transport(w, x.device)
+
+
+def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x [world * n]`` summed over the group (order up to the backend);
+    group rank r gets elements ``[r * n, (r + 1) * n)`` of the sum, on
+    ``x``'s device. ``dist.reduce_scatter_single`` where this torch has
+    it (it replaces ``reduce_scatter_tensor``, which newer releases
+    deprecate); the two are one call."""
+    _chaos("reduce_scatter")
+    world = dist.get_world_size(group)
+    if x.dim() != 1 or x.numel() % world:
+        raise ValueError(f"reduce_scatter takes a flat tensor of a multiple "
+                         f"of {world} elements, got {tuple(x.shape)}")
+    w = to_transport(x, group)
+    out = _empty_like_on(w, (x.numel() // world,))
+    call = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    call(out, w, group=group)
+    return from_transport(out, x.device)
 
 
 class PendingRecv:

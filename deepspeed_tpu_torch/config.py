@@ -12,13 +12,14 @@ Ports the parts of ``deepspeed_tpu/config.py`` that the ported paths read:
 * :class:`Config` for the trainer: the batch triple and its resolution
   over the data-parallel world, ``gradient_clipping``, ``steps_per_print``
   and the ``optimizer`` / ``scheduler`` / ``fp16`` / ``bf16`` blocks; the
-  ``zero_optimization`` block for stages 0 and 3 (:class:`ZeroConfig`),
+  ``zero_optimization`` block for stages 0-3 (:class:`ZeroConfig`),
   ``comm_compression`` (:class:`CommCompressionConfig`) and ``mesh`` with
   the ``data`` axis, with the same keys, defaults and checks; ``seed``
   (``train_seed``, the trainer's random stream and the data loader's
   shuffle) and the ``dataloader`` block (:class:`DataLoaderConfig`).
-  Settings of later slices (ZeRO stages 1-2, hpZ, MiCS, offload, mesh
-  axes other than ``data``, pipelining, telemetry, checkpoint saving,
+  Settings of later slices (ZeRO beside a ``model`` axis, hpZ, MiCS,
+  offload, mesh axes other than ``data`` and ``model``, pipelining,
+  telemetry, checkpoint saving,
   resilience) raise :class:`ConfigError` naming that slice; other unknown
   keys warn.
 """
@@ -173,11 +174,12 @@ _INERT_ZERO_KEYS = (
 
 @dataclass
 class ZeroConfig:
-    """The ``zero_optimization`` block. Stage 0 (one device) and stage 3
-    (parameters, gradients and optimizer state sharded over the ``data``
-    axis, trained through the staged block schedule) are ported; stages 1
-    and 2, hpZ (``zero_hpz_partition_size`` > 1), MiCS and offload raise
-    :class:`ConfigError` naming their slice (ROADMAP.md, Queue A item 12)."""
+    """The ``zero_optimization`` block. Stages 0-3 over the ``data`` axis
+    are ported (optimizer state sharded from stage 1, gradients from stage
+    2, parameters at stage 3: ``parallel/zero.py``); hpZ
+    (``zero_hpz_partition_size`` > 1), MiCS and offload raise
+    :class:`ConfigError` naming their slice (ROADMAP.md, Queue A item 12),
+    and so does a stage above 0 beside a ``model`` axis (:class:`Config`)."""
 
     stage: int = 0
     stage3_param_persistence_threshold: int = 10_000
@@ -202,8 +204,6 @@ class ZeroConfig:
         if out.stage not in (0, 1, 2, 3):
             raise ConfigError(f"zero_optimization.stage must be 0..3, got "
                               f"{out.stage}")
-        if out.stage in (1, 2):
-            _later_slice("zero_optimization.stage", out.stage, where)
         hpz = int(_take(d, "zero_hpz_partition_size", 1))
         if hpz > 1:
             _later_slice("zero_optimization.zero_hpz_partition_size", hpz,

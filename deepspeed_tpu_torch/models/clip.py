@@ -26,7 +26,9 @@ the projected embeddings of every data rank's rows (``comm.tp_gather``
 over the data group, the gradient summed before a rank takes its rows),
 so the in-batch negatives are the global batch's, as in the JAX
 package's GSPMD loss; each rank returns its share, the loss over the
-data ranks.
+data ranks. A ``data_local`` compute copy (the trainer's under qgZ)
+keeps the rank's own rows, as JAX's shard_map loss does; under ZeRO-3
+each tower reads its part of the trainer's view (:meth:`CLIP._tower`).
 
 As in the JAX package, every method takes an optional ``params`` mapping
 (default: the model's own weights) keyed by the names of
@@ -127,6 +129,7 @@ class CLIPVision(Transformer):
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """pixels [b, c, H, W] (float) -> (hidden states [b, 1 + n, d],
         the post-LN class token [b, d]) in the dtype of ``params``'
+        ``compute_dtype`` where the mapping has one, else of its
         ``layers.0.wq`` (default: the tower's own weights)."""
         c = self.config
         w = self._params(params)
@@ -137,7 +140,7 @@ class CLIPVision(Transformer):
                              f"{self.image_size}, {self.image_size}], got "
                              f"{tuple(pixels.shape)}")
         hp = H // p
-        dtype = w["layers.0.wq"].dtype
+        dtype = getattr(w, "compute_dtype", None) or w["layers.0.wq"].dtype
         patches = pixels.reshape(b, ch, hp, p, hp, p) \
                         .permute(0, 2, 4, 1, 3, 5) \
                         .reshape(b, hp * hp, ch * p * p).to(dtype)
@@ -248,6 +251,9 @@ class CLIP(nn.Module):
                ) -> Dict[str, torch.Tensor]:
         """The ``prefix.*`` entries of ``params`` with the prefix cut: one
         tower's ``{name: tensor}`` mapping."""
+        subtree = getattr(params, "subtree", None)
+        if subtree is not None:     # the trainer's ZeRO-3 view
+            return subtree(prefix + ".")
         cut = len(prefix) + 1
         return {k[cut:]: v for k, v in params.items()
                 if k.startswith(prefix + ".")}
@@ -315,7 +321,8 @@ class CLIP(nn.Module):
         t = self.encode_text(batch["input_ids"], p)
         v = self.encode_image(batch["pixel_values"], p)
         topo = self._topo
-        dp = 1 if topo is None else topo.data_parallel_size
+        dp = 1 if topo is None or getattr(p, "data_local", False) else \
+            topo.data_parallel_size
         if dp > 1:
             group = topo.group("data")
             t = comm.tp_gather(t, group, 0, "data", sum_grad=True)

@@ -86,7 +86,12 @@ the remat replay's collectives meet too. Under a ``data`` axis above 1
 rank's share of the global batch's loss: its rows' terms over the
 denominator summed over the data group, so the shares (and their
 gradients) sum to the loss of the whole batch, as the JAX package's
-GSPMD loss over the data-sharded batch is.
+GSPMD loss over the data-sharded batch is; a ``data_local`` compute copy
+(the trainer's under qgZ) keeps the loss over the rank's rows alone, as
+the JAX facade's shard_map loss is. Under ZeRO-3 the trainer passes a
+:class:`~deepspeed_tpu_torch.parallel.zero.Zero3Params` view: the layer
+loop reads each layer's shards and gathers them inside the layer's remat
+region (:meth:`Transformer._encode`).
 
 An encoder without a padding mask takes the flash kernel with
 ``causal=False``; with one, the plain ``dot_product_attention`` under the
@@ -829,6 +834,9 @@ class Transformer(nn.Module):
         i draws its noise from a generator seeded with the i-th of
         ``n_layers`` seeds drawn from it (the JAX per-layer key split), so
         a replay draws the same; a model without one draws nothing.
+        Under ZeRO-3 ``p`` is the trainer's
+        :class:`~deepspeed_tpu_torch.parallel.zero.Zero3Params`: each
+        layer reads its leaves' shards and gathers them inside the block.
         Returns (x, the layers' summed aux loss: 0.0 for dense FFNs)."""
         c = self.config
         windows, varying = self._dense_windows(x.shape[1])
@@ -839,7 +847,15 @@ class Transformer(nn.Module):
                                   generator=generator,
                                   device=generator.device).tolist()
 
-        def block(x, window, seed, *leaves):
+        # ZeRO-3 (a Zero3Params view): a layer's leaves come in as this
+        # rank's shards and are gathered inside the block, so remat keeps
+        # only the shards and its replay gathers again
+        gather = getattr(p, "gather_layer", None)
+        read = p.__getitem__ if gather is None else p.shard
+
+        def block(x, window, seed, i, *leaves):
+            if gather is not None:
+                leaves = gather([f"layers.{i}.{n}" for n in names], leaves)
             gen = None if seed is None else \
                 torch.Generator(device=x.device).manual_seed(seed)
             return self._block(x, dict(zip(names, leaves)), angles,
@@ -851,8 +867,8 @@ class Transformer(nn.Module):
             block = checkpoint_wrapper(block, policy=c.remat_policy)
         total = 0.0
         for i in range(c.n_layers):
-            x, aux = block(x, windows[i], seeds[i],
-                           *(p[f"layers.{i}.{n}"] for n in names))
+            x, aux = block(x, windows[i], seeds[i], i,
+                           *(read(f"layers.{i}.{n}") for n in names))
             total = total + aux
         return x, total
 
@@ -933,7 +949,10 @@ class Transformer(nn.Module):
         else:
             logits, aux = self.apply(inputs, params=p, **fwd)
             nll_sum, denom, z_sum = self._ce_terms(logits, targets, mask)
-        group = self._data_group()
+        # a compute copy that is ``data_local`` (the trainer under qgZ)
+        # asks for the loss over this rank's rows alone
+        group = None if getattr(p, "data_local", False) else \
+            self._data_group()
         if group is not None:
             # this rank's share: its terms over the global batch's weight,
             # the aux loss (a mean over rows) over the data ranks

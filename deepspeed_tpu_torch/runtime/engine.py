@@ -1,7 +1,7 @@
 """The training engine: one device, a ``data`` x ``model`` mesh at ZeRO
-stage 0, or ZeRO-3 over the ``data`` ranks.
+stage 0, or ZeRO stages 1-3 over the ``data`` ranks.
 
-Ports three paths of ``deepspeed_tpu/runtime/engine.py``'s ``TrainEngine``:
+Ports these paths of ``deepspeed_tpu/runtime/engine.py``'s ``TrainEngine``:
 
 * one device: fp32 master weights, a compute-dtype copy for the forward and
   backward passes (bf16/fp16 mixed precision), gradient accumulation over
@@ -22,18 +22,46 @@ Ports three paths of ``deepspeed_tpu/runtime/engine.py``'s ``TrainEngine``:
   shares then average). The global norm sums the sharded leaves' squares
   over the model group and counts the replicated leaves once; the fp16
   overflow flag is reduced over every rank;
-* ZeRO stage 3 with the staged block schedule (``_loss_and_grads_staged``):
-  every rank of the ``data`` group keeps the fp32 master shards and AdamW
-  moment shards of ``ZeroShardingRules.param_spec``, takes its rows of the
-  global batch, and runs the model's ``zero3_blocks`` program through
+* ZeRO stages 1 and 2 over ``data`` (JAX's placement,
+  ``ZeroShardingRules``): the masters stay whole on every rank and the
+  AdamW moments are this rank's ``state_spec`` shards. Stage 1 sums the
+  full gradients over the data group as stage 0 does; stage 2
+  reduce-scatters each micro-batch's gradients, so the accumulator is the
+  rank's shard. Each rank then updates its slice of every master (Adam is
+  elementwise: a slice's update is stage 0's on those elements) and the
+  updated fp32 slices are all-gathered back into the whole masters, what
+  XLA emits for JAX's replicated ``param_shardings`` after the sharded
+  update;
+* ZeRO stage 3 with the staged block schedule (``_loss_and_grads_staged``)
+  for a model with ``zero3_blocks`` trained on its own loss: every rank of
+  the ``data`` group keeps the fp32 master shards of
+  ``ZeroShardingRules.param_spec``, takes its rows of the global batch,
+  and runs the model's ``zero3_blocks`` program through
   ``Zero3BlockSchedule`` with the compressed-collective facade: per block a
   (quantized, qwZ) weight all-gather and a (quantized, qgZ) gradient mean,
   or, on the fused backend for blocks whose weight is sharded on its
   output dim, the gather inside the matmul kernel and the quantization in
   the weight-gradient kernel's epilogue (``_fused_block_ops``). The reduced
-  gradients are sliced to the rank's shard; the global norm is the square
-  root of an all_reduce of the shards' squared sums; clipping and AdamW
-  run on the shard.
+  gradients are sliced to the rank's shard;
+* ZeRO stage 3 for every other model, a custom ``loss_fn`` or
+  ``comm_compression.overlap = "off"`` (JAX's GSPMD and qgZ facade paths,
+  ``_loss_and_grads_gather``): the model reads
+  :class:`~deepspeed_tpu_torch.parallel.zero.Zero3Params` over the master
+  shards, which gathers each layer's leaves inside its remat region
+  (quantized under qwZ) and reduce-scatters their gradients to the shards
+  in the backward pass (each leaf's facade mean under qgZ).
+
+At stages 1-3 the global norm is the square root of an all-reduce of the
+shards' squared sums (a leaf kept whole on every rank is counted on rank 0
+only; stage 1 takes it over its whole gradients, as stage 0), the fp16
+overflow flag is every rank's, and clipping and AdamW run on the shard.
+With qgZ (``zero_quantized_gradients``, or ``comm_compression`` on at
+stage 2 or 3) a micro-batch's gradients are the facade's mean
+(JAX's ``tree_hierarchical_pmean``, leaf by leaf: ``qgz_mean``) of each
+rank's gradients of the loss
+over its own rows (JAX ``_loss_and_grads_qgz``, whose shard_map loss is a
+rank's rows'): the compute copy then carries ``data_local``, and the
+port's models take the loss over the rank's rows alone.
 
 The JAX package jits the whole step (``_build_train_step``) and returns new
 arrays; here the step runs eagerly and updates the master weights and the
@@ -55,9 +83,7 @@ noisy MoE gate draws its noise from it, other models ignore it). The
 stream is a host generator, so drawing from it never waits for the card;
 the draws differ from JAX's. A custom ``loss_fn`` gets no generator.
 
-Stage 3 needs a model with ``zero3_blocks`` trained on its own loss; the
-JAX package's other ZeRO paths (stages 1-2, ZeRO over a ``model`` axis,
-the GSPMD and qgZ facade paths for models without ``zero3_blocks``, hpZ,
+The JAX package's other ZeRO paths (ZeRO over a ``model`` axis, hpZ,
 MiCS, offload) come with later slices and raise. So do ``train_steps``,
 AOT warmup, telemetry, fault tolerance, checkpoints (which would carry a
 bound loader's position) and the compat ``forward``/``backward``/``step``
@@ -76,8 +102,9 @@ from ..comm.backends import dot_fp32, resolve_backend
 from ..config import Config
 from ..parallel.mesh import PartitionSpec, Topology, set_topology
 from ..parallel.zero import (FusedBlockOps, ZeroShardingRules,
-                             Zero3BlockSchedule, block_vjp, shard_of,
-                             sharded_dim)
+                             Zero3BlockSchedule, block_vjp, gather_slices,
+                             qgz_mean, reduce_to_shards, shard_of,
+                             sharded_dim, stack_counts, zero3_params)
 from ..utils.device import resolve_device
 from ..utils.logging import logger
 from . import loss_scaler as ls
@@ -89,14 +116,24 @@ Params = Dict[str, torch.Tensor]
 LossFn = Callable[[Params, Dict[str, torch.Tensor]], Any]
 
 
+class _RowParams(dict):
+    """A compute copy whose loss a model of the port takes over this
+    rank's rows alone (``data_local``; the module docstring)."""
+
+    data_local = True
+
+
 class TrainEngine:
     """Trainer on one device, over a ``data`` x ``model`` mesh at stage 0,
-    or ZeRO-3 over the ``data`` ranks (see the module docstring).
+    or ZeRO stages 1-3 over the ``data`` ranks (see the module docstring).
     ``device`` defaults to ``"cuda"`` and raises without a CUDA device
     unless ``device="cpu"`` is asked for. ``loss_fn`` None means the
     model's own ``loss``. ``topology`` (default: built from the config's
     ``mesh``) is the mesh; under ``model`` > 1 the model and ``params``
-    must be this rank's shards (``initialize`` cuts them)."""
+    must be this rank's shards (``initialize`` cuts them). At stage 3 the
+    masters are copies of this rank's shards on ``device`` and the
+    model's own weights are left as they are: a model built on the host
+    keeps only the shards on the card."""
 
     def __init__(self, *, loss_fn: Optional[LossFn] = None,
                  params: Mapping[str, torch.Tensor], config: Config,
@@ -127,17 +164,20 @@ class TrainEngine:
         set_topology(self.topo)
         dp = self.topo.data_parallel_size
         tp = self.topo.model_parallel_size
-        self._zero3 = config.zero.stage == 3
-        if self._zero3:
-            self._check_staged(model, custom_loss)
+        self._stage = config.zero.stage
+        self._route = self._zero_route(model, custom_loss)
         # the model's loss is its share of the global batch's when the
         # model reads the topology; another loss is a mean over the rank's
-        # rows, divided by the data ranks here
+        # rows, divided by the data ranks here. Under qgZ (and the staged
+        # schedule) the gradients are meaned over the ranks, so the loss
+        # is each rank's rows' own
         shares = not custom_loss and hasattr(model, "bind_topology")
         if shares and tp == 1 and getattr(model, "_topo", None) is None:
             model.bind_topology(self.topo)
-        self._loss_div = dp if dp > 1 and not self._zero3 and not shares \
-            else 1
+        self._data_local = dp > 1 and (self._qgz or self._route == "staged")
+        self._shares = shares
+        self._loss_div = dp if (dp > 1 and not self._data_local
+                                and not shares) else 1
         if tp > 1:
             self._check_tensor_parallel(model, custom_loss)
         config.resolve_batch_config(dp)
@@ -145,18 +185,31 @@ class TrainEngine:
                     f"micro_batch={config.train_micro_batch_size_per_gpu} "
                     f"gas={config.gradient_accumulation_steps} dp={dp}")
 
-        # master params: fp32 on the device (no copy when already so); under
-        # ZeRO-3 each rank owns a copy of its shard of every leaf
+        # master params: fp32 on the device (no copy when already so); at
+        # stage 3 each rank owns a copy of its shard of every leaf. The
+        # optimizer state is laid out by state_spec (_state_layout)
         self.zero_rules = ZeroShardingRules(self.topo, config.zero)
+        self.full_shapes = {n: tuple(p.shape) for n, p in params.items()}
+        self._stack = stack_counts(list(params))
         self.param_specs: Dict[str, PartitionSpec] = {
-            n: self.zero_rules.param_spec(tuple(p.shape))
-            for n, p in params.items()}
+            n: self.zero_rules.param_spec(s, self._stack[n])
+            for n, s in self.full_shapes.items()}
+        self.state_specs: Dict[str, PartitionSpec] = {
+            n: self.zero_rules.state_spec(s)
+            for n, s in self.full_shapes.items()}
+        self.grad_specs = self.zero_rules.grad_specs(self.full_shapes)
         rank = self.topo.rank("data")
         self.params: Params = {
             n: shard_of(p.detach(), self.param_specs[n], rank, dp).to(
                 device=self.device, dtype=torch.float32,
-                copy=self._zero3 and dp > 1)
+                copy=self._stage == 3 and dp > 1)
             for n, p in params.items()}
+        # leaves kept whole but updated as this rank's slice: all-gathered
+        # after every update (stages 1-2; a stage-3 leaf kept whole below
+        # the persistence threshold)
+        self._regather = [n for n in params if dp > 1
+                          and sharded_dim(self.param_specs[n]) is None
+                          and sharded_dim(self.state_specs[n]) is not None]
         # tensor parallelism: the leaves cut over the model axis
         self.tp_sharded = frozenset(
             n for n in params if tp > 1 and "model" in model.leaf_spec(n))
@@ -179,7 +232,7 @@ class TrainEngine:
             raise NotImplementedError(
                 f"a client optimizer ({type(optimizer)}) comes with a later "
                 f"slice of deepspeed_tpu_torch (ROADMAP.md, Queue A)")
-        self.opt_state = self.optimizer.init(self.params)
+        self.opt_state = self.optimizer.init(self._state_layout(self.params))
 
         fp16 = config.fp16
         if fp16.enabled and fp16.dynamic_loss_scale:
@@ -195,32 +248,39 @@ class TrainEngine:
         self.micro_steps = 0
         self.skipped_steps = 0
 
-    def _check_staged(self, model, custom_loss: bool) -> None:
-        """Stage 3 runs the staged block schedule: the facade's qwZ/qgZ legs
-        and the kernel backend (JAX ``TrainEngine.__init__``)."""
+    def _zero_route(self, model, custom_loss: bool) -> str:
+        """The facade's qwZ / qgZ legs, the kernel backend and the step's
+        route (JAX ``TrainEngine.__init__``): ``"staged"`` (stage 3, a
+        model with ``zero3_blocks`` on its own loss, overlap on),
+        ``"gather"`` (stage 3 otherwise, over two or more data ranks: the
+        facade path, :meth:`_loss_and_grads_gather`) or ``"whole"``
+        (stages 0-2, and stage 3 on one rank: whole parameters in the
+        forward and backward passes)."""
         cfg = self.config
-        later = ("comes with a later slice of deepspeed_tpu_torch "
-                 "(ROADMAP.md, Queue A item 12)")
-        if model is None or not hasattr(model, "zero3_blocks"):
-            raise NotImplementedError(
-                f"ZeRO stage 3 for a model without zero3_blocks (the GSPMD "
-                f"and qgZ facade paths, e.g. Llama) {later}")
-        if custom_loss:
-            raise NotImplementedError(
-                f"ZeRO stage 3 with a custom loss_fn: the staged schedule "
-                f"trains the model's own loss (zero3_blocks' loss_tail); "
-                f"the unstaged facade path {later}")
         cc = cfg.comm_compression
-        if cc.overlap == "off":
-            raise NotImplementedError(
-                f"comm_compression.overlap='off' (the unstaged facade path) "
-                f"{later}")
-        cc_on = cc.resolve_enabled(self.topo.data_parallel_size)
-        self._qwz = bool(cfg.zero.zero_quantized_weights) or cc_on
-        self._qgz = bool(cfg.zero.zero_quantized_gradients) or cc_on
+        dp = self.topo.data_parallel_size
+        stage = cfg.zero.stage
+        cc_on = cc.resolve_enabled(dp)
+        self._qwz = (bool(cfg.zero.zero_quantized_weights) or cc_on) \
+            and stage >= 3
+        self._qgz = bool(cfg.zero.zero_quantized_gradients) or (
+            cc_on and stage >= 2)
         self._overlapped = cc.overlap == "staged"
         self._comm_backend = resolve_backend(cc.kernel_backend, self.device)
         self._wants_quant_err = bool(cc.error_stats)
+        if stage < 3:
+            return "whole"
+        blocks = model is not None and hasattr(model, "zero3_blocks")
+        if blocks and not custom_loss and cc.overlap != "off":
+            return "staged"
+        if blocks:
+            logger.warning(
+                "staged ZeRO-3 schedule off: "
+                + ("a custom loss_fn was given, and the model's zero3_blocks"
+                   " defines its own loss_tail" if custom_loss else
+                   "comm_compression.overlap is 'off'")
+                + "; training proceeds on the facade path")
+        return "gather" if dp > 1 else "whole"
 
     def _check_tensor_parallel(self, model, custom_loss: bool) -> None:
         """``model`` > 1 trains a model of the port cut over the model
@@ -231,6 +291,11 @@ class TrainEngine:
                 f"mesh.model = {tp} trains a model of deepspeed_tpu_torch "
                 f"(one with partition_specs) on its own loss; a custom "
                 f"loss_fn over sharded leaves is not supported")
+        if self._qgz:
+            raise NotImplementedError(
+                f"quantized gradients (qgZ) beside mesh.model = {tp} come "
+                f"with a later slice of deepspeed_tpu_torch (ROADMAP.md, "
+                f"Queue A item 12)")
         if getattr(model, "_topo", None) is None:
             raise ValueError(
                 f"mesh.model = {tp}: the model is not cut to this rank's "
@@ -261,13 +326,17 @@ class TrainEngine:
         return float(self.scaler_state.scale)
 
     # ------------------------------------------------------------------
-    def _compute_copy(self) -> Params:
+    def _compute_copy(self, data_local: Optional[bool] = None) -> Params:
         """Every floating master leaf cast to the compute dtype, as a leaf
         that records its gradient (for fp32 compute, a view of the master;
-        nothing writes it before the gradient is taken)."""
-        return {n: p.to(self.compute_dtype).detach().requires_grad_(True)
-                if p.is_floating_point() else p
-                for n, p in self.params.items()}
+        nothing writes it before the gradient is taken); ``data_local``
+        (by default under qgZ)."""
+        if data_local is None:
+            data_local = self._data_local
+        kind = _RowParams if data_local else dict
+        return kind((n, p.to(self.compute_dtype).detach().requires_grad_(True)
+                     if p.is_floating_point() else p)
+                    for n, p in self.params.items())
 
     def _next_generator(self) -> torch.Generator:
         """A fresh host generator for one micro-batch, seeded from the
@@ -329,6 +398,99 @@ class TrainEngine:
                    else g.float())
                for n, g in zip(names, grads)}
         return out, loss.detach().float()
+
+    def _micro_batch(self, mb, scale: float):
+        """One micro-batch of the global batch on the step's route:
+        (gradients, loss, aux). On the ``"whole"`` route the gradients of
+        this rank's rows, then over two or more data ranks under qgZ the
+        facade's mean (and the loss's), cut to the rank's shards at stage
+        2; at stage 2 without qgZ, reduce-scattered to them. Stages 0-1
+        without qgZ sum over the data group once a step
+        (:meth:`_data_sum`)."""
+        if self._route == "staged":
+            return self._loss_and_grads_zero3(mb, scale)
+        if self._route == "gather":
+            return self._loss_and_grads_gather(self._my_rows(mb), scale)
+        grads, loss = self._loss_and_grads(self._my_rows(mb), scale)
+        dp = self.topo.data_parallel_size
+        if dp == 1:
+            return grads, loss, {}
+        rank = self.topo.rank("data")
+        aux = {}
+        if self._qgz:
+            _, gq = self._facade_qspecs()
+            stats = [] if self._wants_quant_err else None
+            grads = {n: qgz_mean(g, dp, gq, self._stack[n], stats)
+                     for n, g in grads.items()}
+            loss = ccomm.pmean(loss, "data")
+            if self._stage >= 2:
+                grads = {n: shard_of(g, self.grad_specs[n], rank, dp).clone()
+                         for n, g in grads.items()}
+            if stats is not None:
+                aux["quant_rel_err"] = self._quant_err(stats)
+        elif self._stage >= 2:
+            names = list(grads)
+            shards = reduce_to_shards(
+                [grads.pop(n) for n in names],
+                [self.grad_specs[n] for n in names], self.topo.group("data"),
+                rank, dp, "zero_grad")
+            grads = dict(zip(names, shards))
+        return grads, loss, aux
+
+    def _quant_err(self, stats) -> torch.Tensor:
+        """The largest quantization error of this micro-batch's facade
+        collectives over the data ranks."""
+        local = (torch.stack(stats).max() if stats else
+                 torch.zeros((), device=self.device))
+        return ccomm.pmax(local, "data")
+
+    def _zero3_view(self, stats=None, data_local: bool = False):
+        """:class:`Zero3Params` over this rank's master shards, each a leaf
+        that records its gradient (a view: nothing writes the masters
+        before the gradient is taken)."""
+        wq, gq = self._facade_qspecs()
+        shards = {n: p.detach().requires_grad_(True)
+                  for n, p in self.params.items()}
+        return zero3_params(shards, self.param_specs, self.topo,
+                            self.compute_dtype, wq=wq, gq=gq, stats=stats,
+                            data_local=data_local)
+
+    def _loss_and_grads_gather(self, batch, scale: float):
+        """One micro-batch of ZeRO-3 for a model without ``zero3_blocks``
+        (JAX's GSPMD path, or ``_loss_and_grads_qgz`` under qgZ): the loss
+        over :class:`Zero3Params`, whose gathers and reduce-scatters run
+        inside the forward and backward passes. Returns (this rank's fp32
+        gradient shards, the leaves kept whole reduced whole; its loss
+        share, or under qgZ the loss meaned over the ranks; aux)."""
+        stats = [] if self._wants_quant_err and (self._qwz or self._qgz) \
+            else None
+        view = self._zero3_view(stats, self._data_local)
+        names = list(self.params)
+        with torch.enable_grad():
+            loss = self._loss(view, batch)
+            grads = torch.autograd.grad(loss.float() * scale,
+                                        [view.shard(n) for n in names],
+                                        allow_unused=True)
+        out = {n: (torch.zeros_like(self.params[n]) if g is None else g)
+               for n, g in zip(names, grads)}
+        loss = loss.detach().float()
+        if self._data_local:
+            loss = ccomm.pmean(loss, "data")
+        aux = {} if stats is None else {"quant_rel_err":
+                                        self._quant_err(stats)}
+        return out, loss, aux
+
+    def _state_layout(self, tree: Params) -> Params:
+        """A tree keyed like the masters (the masters, their gradients)
+        as the optimizer sees it: each leaf that is whole here cut to this
+        rank's ``state_spec`` slice (a view); a stage-3 shard as it is."""
+        dp = self.topo.data_parallel_size
+        if dp == 1:
+            return tree
+        rank = self.topo.rank("data")
+        return {n: shard_of(t, self.state_specs[n], rank, dp)
+                if tuple(t.shape) == self.full_shapes[n] else t
+                for n, t in tree.items()}
 
     # ------------------------------------------------------------------
     # ZeRO-3: the staged block schedule over the facade
@@ -472,7 +634,7 @@ class TrainEngine:
 
     def full_params(self) -> Params:
         """The full fp32 master weights on every rank: a dense gather of
-        the shards under ZeRO-3; under ``model`` > 1 each cut leaf's
+        the shards at stage 3; under ``model`` > 1 each cut leaf's
         shards joined over the model group along its ``model`` dimension
         in rank order (``checkpoint.jax_params.gather_params``' layout);
         else the masters themselves."""
@@ -480,6 +642,15 @@ class TrainEngine:
             return self.full_width(self.params)
         return {n: ccomm.gather_param_leaf(p, self.param_specs[n])
                 for n, p in self.params.items()}
+
+    def full_state(self, tree: Params) -> Params:
+        """A tree laid out as the optimizer sees it (its moments, the
+        gradients it was given: this rank's ``state_spec`` slices) with
+        each leaf gathered whole over the data group. Every rank of the
+        group must call it."""
+        return {n: ccomm.gather_param_leaf(t, self.state_specs[n])
+                if tuple(t.shape) != self.full_shapes[n] else t
+                for n, t in tree.items()}
 
     def full_width(self, tree: Params) -> Params:
         """A tree keyed like the masters (their gradients, moments) with
@@ -507,12 +678,12 @@ class TrainEngine:
     def train_batch(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
         """One optimizer step over a global batch of ``train_batch_size``
         rows (every rank passes the same global batch): GAS micro-batches
-        are ``x.reshape(gas, B / gas, ...)[i]``, and under ZeRO-3 each rank
-        takes its rows of each; their fp32 gradients are summed and scaled
-        by ``1 / gas``, and so are their losses. Returns ``{"loss",
-        "grad_norm"}`` (0-dim fp32 tensors on the device), ``"loss_scale"``
-        and ``"skipped"``, and ``"quant_rel_err"`` under
-        ``comm_compression.error_stats``."""
+        are ``x.reshape(gas, B / gas, ...)[i]``, and over data ranks each
+        rank takes its rows of each (:meth:`_micro_batch`); their fp32
+        gradients are summed and scaled by ``1 / gas``, and so are their
+        losses. Returns ``{"loss", "grad_norm"}`` (0-dim fp32 tensors on
+        the device), ``"loss_scale"`` and ``"skipped"``, and
+        ``"quant_rel_err"`` under ``comm_compression.error_stats``."""
         batch = self._to_device(batch)
         gas = self.gradient_accumulation_steps
         fp16 = self.config.fp16.enabled
@@ -522,12 +693,9 @@ class TrainEngine:
             mb = batch if gas == 1 else {
                 k: v.reshape((gas, v.shape[0] // gas) + v.shape[1:])[i]
                 for k, v in batch.items()}
-            if self._zero3:
-                g, l, aux = self._loss_and_grads_zero3(mb, scale)
-                if "quant_rel_err" in aux:
-                    errs.append(aux["quant_rel_err"])
-            else:
-                g, l = self._loss_and_grads(self._my_rows(mb), scale)
+            g, l, aux = self._micro_batch(mb, scale)
+            if "quant_rel_err" in aux:
+                errs.append(aux["quant_rel_err"])
             if grads is None:
                 grads, loss = g, l
             else:
@@ -535,8 +703,11 @@ class TrainEngine:
                     grads[n].add_(g[n])
                 loss = loss + l
             del g
-        if not self._zero3 and self.topo.data_parallel_size > 1:
-            grads, loss = self._data_sum(grads, loss)
+        if self.topo.data_parallel_size > 1 and not self._data_local:
+            if self._route == "whole" and self._stage < 2:
+                grads, loss = self._data_sum(grads, loss)
+            else:       # the gradients came reduced; the loss shares
+                loss = comm.group_sum(loss, self.topo.group("data"), "data")
         if gas > 1:
             inv = 1.0 / gas
             for g in grads.values():
@@ -556,31 +727,36 @@ class TrainEngine:
         return out
 
     def _global_norm(self, grads: Params) -> torch.Tensor:
-        """sqrt of the sum of squares of every gradient element: under
-        ZeRO-3 an all_reduce of the shards' squared sums (a leaf kept whole
-        on every rank is counted on rank 0 only); under ``model`` > 1 the
-        model group's sum of the cut leaves' squares plus the replicated
-        leaves' once (:func:`sharded_global_norm`)."""
+        """sqrt of the sum of squares of every gradient element. Whole
+        gradients (one device, stages 0-1) are summed here; a tree with
+        shards (stages 2-3) by an all_reduce of the ranks' squared sums,
+        a leaf kept whole on every rank counted on rank 0 only; under
+        ``model`` > 1 the model group's sum of the cut leaves' squares
+        plus the replicated leaves' once (:func:`sharded_global_norm`)."""
         if self.tp_sharded:
             return sharded_global_norm(
                 [g for n, g in grads.items() if n in self.tp_sharded],
                 [g for n, g in grads.items() if n not in self.tp_sharded],
                 self.topo.group("model"))
-        if not self._zero3 or self.topo.data_parallel_size == 1:
+        whole = [tuple(g.shape) == self.full_shapes[n]
+                 for n, g in grads.items()]
+        if self.topo.data_parallel_size == 1 or all(whole):
             return global_norm(grads.values()).to(self.device)
         first = self.topo.rank("data") == 0
-        parts = [g.float().square().sum() for n, g in grads.items()
-                 if first or sharded_dim(self.param_specs[n]) is not None]
+        parts = [g.float().square().sum()
+                 for g, w in zip(grads.values(), whole) if first or not w]
         sq = torch.stack(parts).sum() if parts else torch.zeros(
             (), device=self.device)
         return ccomm.psum(sq, "data").sqrt()
 
     @torch.no_grad()
     def _update(self, grads: Params, scale: float):
-        """Unscale (fp16), check finiteness (fp16, on every rank's shards),
-        global norm, clip by ``min(1, clip / (gnorm + 1e-6))``, optimizer
-        step in place — kept out on overflow — and the loss scaler's step.
-        Returns (gnorm, skipped)."""
+        """Unscale (fp16), check finiteness (fp16, every rank's), global
+        norm, clip by ``min(1, clip / (gnorm + 1e-6))``, optimizer step in
+        place on this rank's slices (:meth:`_state_layout`) — kept out on
+        overflow — the updated slices of the leaves kept whole gathered
+        back (:meth:`_gather_masters`), and the loss scaler's step.
+        ``grads`` is emptied. Returns (gnorm, skipped)."""
         cfg = self.config
         fp16 = cfg.fp16.enabled
         finite = True
@@ -588,10 +764,7 @@ class TrainEngine:
             for g in grads.values():
                 g.div_(scale)
             finite = bool(ls.grads_finite(grads.values()))
-            if self._zero3:
-                flag = torch.tensor(float(finite), device=self.device)
-                finite = bool(ccomm.pmin(flag, "data") > 0)
-            elif comm.get_world_size() > 1:
+            if comm.get_world_size() > 1:
                 finite = ls.finite_everywhere(finite, self.device)
         gnorm = self._global_norm(grads)
         if cfg.gradient_clipping > 0:
@@ -600,8 +773,11 @@ class TrainEngine:
             for g in grads.values():
                 g.mul_(factor)
         if finite:
-            self.opt_state = self.optimizer.update(grads, self.opt_state,
-                                                   self.params)
+            self.opt_state = self.optimizer.update(
+                self._state_layout(grads), self.opt_state,
+                self._state_layout(self.params))
+            grads.clear()
+            self._gather_masters()
         self.scaler_state = ls.update(
             self.scaler_state, finite,
             dynamic=fp16 and cfg.fp16.dynamic_loss_scale,
@@ -611,26 +787,50 @@ class TrainEngine:
             init_hysteresis=cfg.fp16.hysteresis)
         return gnorm, not finite
 
+    def _gather_masters(self) -> None:
+        """Every rank's updated slice of each master kept whole but
+        updated as a slice (stages 1-2, and a stage-3 leaf kept whole
+        below the persistence threshold) all-gathered into the whole
+        masters (``zero_master_all_gather``): what XLA emits for JAX's
+        replicated ``param_shardings`` after the sharded update. Each
+        element has one writer, so every rank's masters are bitwise
+        equal."""
+        if not self._regather:
+            return
+        gather_slices([self.params[n] for n in self._regather],
+                      [self.state_specs[n] for n in self._regather],
+                      self.topo.group("data"), self.topo.rank("data"),
+                      self.topo.data_parallel_size, "zero_master_all_gather")
+
     @torch.no_grad()
     def eval_batch(self, batch: Mapping[str, Any]) -> torch.Tensor:
-        """The loss of ``batch`` on the compute copy, with no gradient
-        (under ZeRO-3: the full weights, each rank's rows, meaned; at
-        stage 0 over ``data`` ranks: each rank's share, summed)."""
+        """The loss of ``batch`` on the compute copy, with no gradient,
+        over the whole batch as JAX's ``eval_batch`` takes it on every
+        route (qgZ's and the staged schedule's training losses are each
+        rank's own, meaned): each rank's rows, their loss shares (a loss
+        that is no share divided by the data ranks) summed over the data
+        ranks; at stage 3 the model reads the masters gathered unquantized
+        (the staged schedule's model every leaf at once, another model a
+        layer's leaves at a time)."""
         batch = {k: torch.as_tensor(v).to(self.device)
                  for k, v in batch.items()}
-        if not self._zero3:
-            loss = self._loss(self._compute_copy(), self._my_rows(batch))
-            if self.topo.data_parallel_size > 1:
-                loss = comm.group_sum(loss.float(), self.topo.group("data"),
-                                      "data")
-            return loss
+        rows = self._my_rows(batch)
+        if self._route == "staged":
+            pc = {k: v.to(self.compute_dtype)
+                  for k, v in self.full_params().items()}
+        elif self._route == "gather":
+            pc = zero3_params(dict(self.params), self.param_specs, self.topo,
+                              self.compute_dtype)
+        else:
+            pc = self._compute_copy(data_local=False)
+        out = self.loss_fn(pc, rows)
+        loss = (out[0] if isinstance(out, tuple) else out).float()
         dp = self.topo.data_parallel_size
-        rank = self.topo.rank("data")
-        n = next(iter(batch.values())).shape[0] // dp
-        mine = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
-        pc = {k: v.to(self.compute_dtype)
-              for k, v in self.full_params().items()}
-        return ccomm.pmean(self._loss(pc, mine).float(), "data")
+        if dp == 1:
+            return loss
+        if not self._shares:
+            loss = loss / dp
+        return comm.group_sum(loss, self.topo.group("data"), "data")
 
 
 def _epilogue_vjp(epilogue, y, rest, h_in, g_out):

@@ -16,6 +16,12 @@ The arithmetic is copied from the JAX rule, not taken from
 ``step = (m / c1) / (sqrt(v / c2) + eps) + wd p`` and ``p += -lr step``,
 with ``c1 = 1 - b1^count`` and ``c2 = 1 - b2^count`` in fp32 and the
 learning rate read at ``count`` after the increment.
+
+Under ZeRO stages 1-3 the trainer passes ``init`` and ``update`` this
+rank's slices of each leaf (views into the whole masters, with the
+gradients' matching slices), so the moments are the rank's shards and
+the update writes through the views; Adam is elementwise, so a slice's
+update is the whole leaf's on those elements.
 """
 
 from __future__ import annotations

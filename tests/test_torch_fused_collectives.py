@@ -385,10 +385,15 @@ def test_config_accepts_stage3_and_refuses_later_slices():
     assert cfg.comm_compression.grad_bits == 4
     assert cfg.comm_compression.resolve_enabled(1)
     assert not Config.from_dict({}).comm_compression.resolve_enabled(8)
+    for stage in (1, 2):
+        assert Config.from_dict({"train_batch_size": 8, "zero_optimization":
+                                 {"stage": stage}}).zero.stage == stage
     assert Config.from_dict({}).comm_compression.resolve_enabled(16)
     for block, match in (
-            ({"zero_optimization": {"stage": 1}}, "stage"),
-            ({"zero_optimization": {"stage": 2}}, "stage"),
+            ({"zero_optimization": {"stage": 1, "mics_shard_size": 2}},
+             "mics"),
+            ({"zero_optimization": {"stage": 2, "offload_optimizer": {
+                "device": "cpu"}}}, "offload"),
             ({"zero_optimization": {"stage": 3,
                                     "zero_hpz_partition_size": 2}}, "hpz"),
             ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}},
@@ -413,25 +418,58 @@ def test_config_accepts_stage3_and_refuses_later_slices():
 
 
 def test_stage3_needs_zero3_blocks_and_the_models_loss():
+    """The staged schedule needs a model with ``zero3_blocks`` trained on
+    its own loss with overlap on; a custom ``loss_fn``, ``overlap="off"``
+    or a model without ``zero3_blocks`` trains at stage 3 all the same,
+    off the schedule, as the JAX engine warns and proceeds on its facade
+    path (``_staged_mode`` None there). On one rank that path is the
+    whole-parameter step; tests/test_torch_zero.py runs it over ranks."""
     from deepspeed_tpu_torch import initialize
 
-    cfg = {"train_batch_size": 4, "zero_optimization": {"stage": 3}}
-    model = SequentialBlockModel((8, 16, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="custom loss_fn"):
-        initialize(loss_fn=lambda p, b: model.loss(b, params=p),
-                   params=dict(model.named_parameters()), model=model,
-                   config=cfg, device="cpu")
+    cfg = {"train_batch_size": 4, "zero_optimization": {"stage": 3},
+           "optimizer": {"type": "adamw", "params": {"lr": 1e-2}}}
+    rng = np.random.default_rng(4)
+    batch = {"x": rng.normal(size=(4, 8)).astype(np.float32),
+             "y": rng.normal(size=(4, 8)).astype(np.float32)}
 
     class NoBlocks(torch.nn.Module):
         def __init__(self):
             super().__init__()
-            self.w = torch.nn.Parameter(torch.zeros(4))
+            self.w = torch.nn.Parameter(torch.full((8, 8), 0.1))
 
-        def loss(self, batch, params=None):
-            return params["w"].sum()
+        def loss(self, batch, params=None, generator=None):
+            return torch.mean((batch["x"] @ params["w"] - batch["y"]) ** 2)
 
-    with pytest.raises(NotImplementedError, match="zero3_blocks"):
-        initialize(model=NoBlocks(), config=cfg, device="cpu")
+    model = SequentialBlockModel((8, 16, 8), device="cpu")
+    runs = {
+        "custom_loss": dict(loss_fn=lambda p, b: model.loss(b, params=p),
+                            params=dict(model.named_parameters()),
+                            model=model, config=cfg),
+        "overlap_off": dict(model=SequentialBlockModel((8, 16, 8),
+                                                       device="cpu"),
+                            config={**cfg, "comm_compression": {
+                                "overlap": "off"}}),
+        "no_blocks": dict(model=NoBlocks(), config=cfg),
+        "staged": dict(model=SequentialBlockModel((8, 16, 8), device="cpu"),
+                       config=cfg)}
+    for name, kw in runs.items():
+        eng, *_ = initialize(device="cpu", **kw)
+        assert eng._route == ("staged" if name == "staged" else "whole"), \
+            name
+        losses = [float(eng.train_batch(batch)["loss"]) for _ in range(3)]
+        assert losses[2] < losses[0], name
+    # the JAX engine takes the same decisions, on a 2-device data mesh
+    jm = JaxBlockModel((8, 16, 8))
+    jp = jm.init(jax.random.PRNGKey(0))
+    for name, loss_fn, overlap, want in (
+            ("custom_loss", lambda p, b, r: jm.loss(p, b, r), "staged", None),
+            ("overlap_off", None, "off", None),
+            ("staged", None, "staged", "staged")):
+        jeng, *_ = jdst.initialize(
+            model=jm, params=jp, loss_fn=loss_fn,
+            config={**cfg, "comm_compression": {"overlap": overlap}},
+            topology=Topology.build_virtual({"data": 2}))
+        assert jeng._staged_mode == want, name
 
 
 @pytest.mark.parametrize("gas", [1, 2])

@@ -328,7 +328,7 @@ def test_batch_resolution_errors(given, match):
 
 
 @pytest.mark.parametrize("block", [
-    {"zero_optimization": {"stage": 2}},
+    {"zero_optimization": {"stage": 2, "mics_shard_size": 2}},
     {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
     {"mesh": {"model": 2}, "zero_optimization": {"stage": 3}},
     {"pipeline": {"stages": 2}},

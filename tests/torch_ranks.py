@@ -852,3 +852,142 @@ def card_config(tp: int, bf16: bool) -> Dict[str, Any]:
 
 def card_tokens() -> np.ndarray:
     return np.random.default_rng(3).integers(0, 512, (4, 128))
+
+
+# ----------------------------------------------------------------------
+# jobs of tests/test_torch_zero.py and tests/test_torch_zero_gpu.py
+
+def _ledger_counts() -> Dict[str, float]:
+    from deepspeed_tpu_torch.comm import comm
+
+    return {op: v["count"] for op, v in
+            comm.get_comms_logger().snapshot_totals().items()}
+
+
+def zero_train_job(rank: int, world: int, cases: Dict[str, Any],
+                   runs: Dict[str, Any]) -> Dict[str, Any]:
+    """tests/test_torch_zero.py: each run ``runs[key] = (case name, ZeRO
+    config overrides)`` through ``initialize`` over ``{"data": world}``:
+    three ``train_batch`` steps on the case's global batches, each step's
+    metrics, ``eval_batch`` of the first batch, and of the same batch on
+    a stage-0 engine over the same ranks that starts from the run's
+    trained masters, the comms ledger's counts of the steps, the shapes
+    of this rank's masters and moments, a digest of the masters whole on
+    every rank, and on rank 0 the masters gathered whole (the JAX layout,
+    ``export_params`` where the case is a port model) with the smallest
+    and largest |g| of each element that the optimizer received,
+    gathered whole. A case with ``loss_fn`` (a ``SequentialBlockModel``'s)
+    trains that custom loss."""
+    import hashlib
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.jax_params import export_params
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.parallel.zero import SequentialBlockModel
+    from deepspeed_tpu_torch.runtime import optimizers as opt
+
+    def engine(case, cfg, params=None):
+        if case["family"] != "blocks":
+            return dst.initialize(model=_train_model(case), config=cfg,
+                                  params=params, device="cpu")[0]
+        model = SequentialBlockModel(case["dims"], seed=2, device="cpu")
+        params = params or dict(model.named_parameters())
+        if case.get("custom_loss"):
+            return dst.initialize(
+                loss_fn=lambda p, b, m=model: m.loss(b, params=p),
+                params=params, config=cfg, device="cpu")[0]
+        return dst.initialize(model=model, params=params, config=cfg,
+                              device="cpu")[0]
+
+    out = {}
+    for key, (name, zero) in runs.items():
+        case = cases[name]
+        base = {**case["cfg"], "mesh": {"data": world}}
+        cfg = {**base, "zero_optimization": dict(
+            zero.get("zero_optimization", {}))}
+        cfg.update({k: v for k, v in zero.items()
+                    if k != "zero_optimization"})
+        comm.configure_comms_logger(True)
+        comm.get_comms_logger().reset()
+        eng = engine(case, cfg)
+        lo: Dict[str, torch.Tensor] = {}
+        hi: Dict[str, torch.Tensor] = {}
+        inner = eng.optimizer
+
+        def update(grads, state, params, lo=lo, hi=hi, inner=inner):
+            for n, g in grads.items():
+                a = g.abs()
+                lo[n] = torch.minimum(lo[n], a) if n in lo else a.clone()
+                hi[n] = torch.maximum(hi[n], a) if n in hi else a.clone()
+            return inner.update(grads, state, params)
+
+        eng.optimizer = opt.Transform(inner.init, update)
+        steps = []
+        for batch in case["batches"]:
+            m = eng.train_batch({k: torch.from_numpy(np.asarray(v))
+                                 for k, v in batch.items()})
+            steps.append({k: float(v) for k, v in m.items()})
+        ledger = _ledger_counts()
+        comm.configure_comms_logger(False)
+        whole = sorted(n for n, p in eng.params.items()
+                       if tuple(p.shape) == eng.full_shapes[n])
+        digest = hashlib.sha256(b"".join(
+            eng.params[n].numpy().tobytes() for n in whole)).hexdigest()
+        res = {"steps": steps, "ledger": ledger, "route": eng._route,
+               "eval": float(eng.eval_batch(case["batches"][0])),
+               "shapes": {n: tuple(p.shape) for n, p in eng.params.items()},
+               "moments": {n: tuple(t.shape)
+                           for n, t in eng.opt_state.mu.items()},
+               "whole": whole, "digest": digest}
+        full = {n: p.detach() for n, p in eng.full_params().items()}
+        lo_full, hi_full = eng.full_state(lo), eng.full_state(hi)
+        res["eval_stage0"] = float(engine(
+            case, {**base, "zero_optimization": {"stage": 0}},
+            {n: p.clone() for n, p in full.items()}).eval_batch(
+                case["batches"][0]))
+        if rank == 0:
+            res.update(
+                full=({n: _np(p) for n, p in full.items()}
+                      if case["family"] == "blocks" else export_params(full)),
+                lo={n: _np(t) for n, t in lo_full.items()},
+                hi={n: _np(t) for n, t in hi_full.items()})
+        out[key] = res
+    return out
+
+
+def zero_card_job(rank: int, world: int, device: str, runs: List[tuple]
+                  ) -> List[Dict[str, Any]]:
+    """tests/test_torch_zero_gpu.py: for each ``(stage, qgz)`` of
+    ``runs``, the 2-layer Llama of :func:`card_model` on ``device``
+    trained 3 steps through ``initialize`` at ZeRO ``stage`` over
+    ``{"data": world}`` (fp32, or with ``qgz`` bf16 on fp32 masters with
+    ``zero_quantized_gradients``): the steps, and the flash and quantizer
+    wrappers' launch counts (which only the card's kernels move)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import quant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    qk = (quant.quantize_blockwise, quant.dequantize_blockwise)
+    ids = torch.from_numpy(card_tokens()).to(device)
+    out = []
+    for stage, qgz in runs:
+        cfg = card_config(1, qgz)
+        cfg["mesh"] = {"data": world}
+        cfg["zero_optimization"] = {"stage": stage,
+                                    "stage3_param_persistence_threshold": 0,
+                                    "zero_quantized_gradients": qgz}
+        eng, *_ = dst.initialize(model=card_model().to(device), config=cfg,
+                                 device=device)
+        for w in wrappers:
+            w.launches = w.wgmma_launches = 0
+        for w in qk:
+            w.launches = 0
+        steps = [{k: float(v) for k, v in eng.train_batch(
+            {"input_ids": ids}).items()} for _ in range(3)]
+        out.append({"steps": steps,
+                    "launches": [(w.launches, w.wgmma_launches)
+                                 for w in wrappers],
+                    "quant_launches": [w.launches for w in qk]})
+    return out
