@@ -51,17 +51,19 @@ CPU path — without a CUDA device the script fails):
    writes them; row 9 twice bitwise); row 7's converter share from two
    scratch builds;
    flash: the forward, dq and dk/dv kernels through
-   ``FlashAttentionFunction`` against their plain versions (19 cases: the
+   ``FlashAttentionFunction`` against their plain versions (22 cases: the
    1b shape in bf16 at the training shape's micro-batch 4 and in
-   fp16/fp32, d 128 and d 256, non-causal, sq < skv, sq > skv, odd
-   lengths, windows, phase 6h's encoder shapes: non-causal at 257, 77
-   and 512, causal at 77), one case twice for bitwise-equal results; each case
-   logs which kernels took it and fails unless the Hopper forward ran
-   exactly where ``flash_forward_wgmma_path`` accepts it and the Hopper
-   dq and dk/dv kernels (TMA + wgmma) exactly where ``flash_wgmma_path``
-   does; then each kernel timed at the training shape beside its bound,
-   its plain version, ``scaled_dot_product_attention`` as a yardstick and
-   the mma.sync kernel it replaced, in turns;
+   fp16/fp32, d 128 (8d (c)'s Llama-2-7B shape, GQA groups 1, 4 and 8,
+   sq > skv) and d 256, non-causal, sq < skv, sq > skv, odd lengths,
+   windows, phase 6h's encoder shapes: non-causal at 257, 77 and 512,
+   causal at 77), the training shape and 8d (c)'s twice for
+   bitwise-equal results; each case logs which kernels took it and fails
+   unless the Hopper forward ran exactly where
+   ``flash_forward_wgmma_path`` accepts it and the Hopper dq and dk/dv
+   kernels (TMA + wgmma) exactly where ``flash_wgmma_path`` does; then
+   each kernel timed at the training shape and at 8d (c)'s (d 128)
+   beside its bound, its plain version, ``scaled_dot_product_attention``
+   as a yardstick and the mma.sync kernel it replaced, in turns;
 4. engine: a 2-layer Llama-2-7B-width engine (d_model 4096) in fp32, the
    same weights on cuda and on cpu, one ``put`` of 3 mixed-length prompts;
    logits must agree within 1e-3; then path B (int8 and int4 KV pools, in
@@ -274,9 +276,9 @@ CPU path — without a CUDA device the script fails):
    tokens/s, MFU, peak memory a rank (falling with the stage in (a) and
    (b)), masters', moments' and gradient accumulator's bytes a rank, the
    collectives a step (comms ledger) and their share of it, flash
-   launches a rank (d 64 on the Hopper kernels; (c)'s d 128 dq and dk/dv
-   on the mma.sync kernels), a finite falling loss, no skipped step, the
-   masters bitwise equal on both ranks at stages 1-2; (d) Llama-1b's
+   launches a rank (all on the Hopper kernels, (c)'s d 128 too), a
+   finite falling loss, no skipped step, the masters bitwise equal on
+   both ranks at stages 1-2; (d) Llama-1b's
    widths and OPT's flag set (at OPT-125m's) at 2 layers in fp32, one
    step of 2 x 128: stages 1-3 (OPT: 3) and stage 2 with qgZ on the card,
    each against the card's stage 0 (losses 1e-5, grad norms 1e-4, the
@@ -552,10 +554,18 @@ def phase_build() -> None:
             f"shared memory {lib.dst_fc_wgmma_smem(bits)} B")
     lib = fa._library()
     for kernel, used in _ptxas_report("flash_attention", ("wgmma",)).items():
-        which = (2 if "Li64" in kernel else 3) if "forward" in kernel else \
-            1 if "dkv" in kernel else 0
+        d64 = "Li64" in kernel
+        which = (2 if d64 else 3) if "forward" in kernel else \
+            (1 if d64 else 5) if "dkv" in kernel else (0 if d64 else 4)
         log(f"build[flash_attention]: Hopper {kernel}: {used}; dynamic "
             f"shared memory {lib.dst_flash_wgmma_smem(which)} B")
+        # the d 128 backward trades registers between its warpgroups
+        # (setmaxnreg): the counts add up only from 168 at entry, and a
+        # consumer would wait for registers forever from fewer
+        if "backward" in kernel and not d64 and \
+                "Used 168 registers" not in used:
+            raise SystemExit(f"flash_attention: {kernel} does not start at "
+                             f"168 registers a thread: {used}")
     lib = pa._library()
     for kernel, used in _ptxas_report(
             "paged_attention", ("paged_tile", "paged_split",
@@ -6418,6 +6428,13 @@ FLASH_CASES = [
     ("1b-fp32", 2, 2048, 2048, 32, 4, 64, True, 0, torch.float32),
     ("d128-mha-bf16", 1, 1024, 1024, 16, 16, 128, True, 0, torch.bfloat16),
     ("d128-gqa-fp16", 1, 1024, 1024, 16, 4, 128, True, 0, torch.float16),
+    # 8d (c)'s shape (ZERO3_FLASH_SHAPE: Llama-2-7B's 32 heads of 128, a
+    # rank's micro-batch), GQA group 8 and sq > skv at d 128
+    ("llama7b-zero3-bf16", 1, 2048, 2048, 32, 32, 128, True, 0,
+     torch.bfloat16),
+    ("d128-gqa8-bf16", 1, 1024, 1024, 32, 4, 128, True, 0, torch.bfloat16),
+    ("d128-sq517-skv333-bf16", 1, 517, 333, 8, 2, 128, True, 0,
+     torch.bfloat16),
     ("d256-gqa-bf16", 1, 512, 512, 8, 2, 256, True, 0, torch.bfloat16),
     ("d256-gqa-fp32", 1, 512, 512, 8, 2, 256, True, 0, torch.float32),
     ("non-causal-bf16", 2, 512, 512, 8, 2, 64, False, 0, torch.bfloat16),
@@ -6441,6 +6458,11 @@ FLASH_CASES = [
      torch.bfloat16),
 ]
 TRAIN_SHAPE = dict(b=4, s=2048, hq=32, hkv=4, d=64)   # Llama("1b"), GAS 2
+# 8d (c): Llama-2-7B's heads at a rank's micro-batch of 1 x 2048
+ZERO3_FLASH_SHAPE = dict(b=1, s=2048, hq=32, hkv=32, d=128)
+# cases run twice for bitwise-equal results: the training shape, and the
+# d 128 backward at 8d (c)'s
+FLASH_REPEAT = ("1b-bf16", "llama7b-zero3-bf16")
 # the kernel each flash row takes at the training shape
 FLASH_PATH = {"flash_forward": "wgmma: TMA ring of K/V tiles, 128 q rows "
                                "a block, m64n64k16",
@@ -6550,9 +6572,9 @@ def _flash_old_path(dtype, d) -> str:
 
 def phase_flash_kernels() -> dict:
     """The three flash kernels (through FlashAttentionFunction, backward
-    from a fixed random dO) against their plain versions, one case run
-    twice for bitwise-equal gradients. Returns the worst max abs error of
-    each kernel's outputs."""
+    from a fixed random dO) against their plain versions, the
+    FLASH_REPEAT cases run twice for bitwise-equal gradients. Returns the
+    worst max abs error of each kernel's outputs."""
     gen = torch.Generator().manual_seed(1)
     worst = {"flash_forward": 0.0, "flash_backward_dq": 0.0,
              "flash_backward_dkv": 0.0}
@@ -6598,7 +6620,7 @@ def phase_flash_kernels() -> dict:
                                          errs["dq"][0])
         worst["flash_backward_dkv"] = max(worst["flash_backward_dkv"],
                                           errs["dk"][0], errs["dv"][0])
-        if label == "1b-bf16":
+        if label in FLASH_REPEAT:
             again = _flash_kernels(q, k, v, do, causal, window)
             same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
             log(f"flash: {label} run twice: out, lse, dq, dk, dv bitwise "
@@ -6611,16 +6633,31 @@ def phase_flash_kernels() -> dict:
 
 
 def phase_flash_timing(flush: torch.Tensor) -> dict:
-    """Forward, dq and dk/dv at the training shape (b 4, s 2048, hq 32,
-    hkv 4, d 64, bf16, causal), each timed with CUDA events after an L2
-    flush, beside its bound, its plain version (one plain backward computes
-    dq, dk and dv together) and scaled_dot_product_attention as the
-    library yardstick (its backward = fwd+bwd - fwd; never on the port's
-    path)."""
+    """Forward, dq and dk/dv at the training shape (TRAIN_SHAPE: b 4, s
+    2048, hq 32, hkv 4, d 64) and at 8d (c)'s (ZERO3_FLASH_SHAPE: b 1, s
+    2048, hq = hkv = 32, d 128), bf16, causal (:func:`_flash_timing_at`).
+    Returns the training shape's readings, each kernel's with its reading
+    at d 128 under "d128"."""
+    res = _flash_timing_at(TRAIN_SHAPE, flush)
+    d128 = _flash_timing_at(ZERO3_FLASH_SHAPE, flush)
+    for name, r in res.items():
+        r["d128"] = d128[name]
+    return res
+
+
+def _flash_timing_at(t: dict, flush: torch.Tensor) -> dict:
+    """Forward, dq and dk/dv at shape ``t`` (bf16, causal), each timed
+    with CUDA events after an L2 flush, in turns with the mma.sync kernel
+    of the same function (the yardstick the Hopper kernel replaced),
+    beside its bound, its plain version (one plain backward computes dq,
+    dk and dv together) and scaled_dot_product_attention as the library
+    yardstick (its backward = fwd+bwd - fwd; where hq = hkv also cuDNN's
+    backward as the one aten call, :func:`_sdpa_backward`; never on the
+    port's path)."""
     import torch.nn.functional as F
 
-    t = TRAIN_SHAPE
     b, s, hq, hkv, d = t["b"], t["s"], t["hq"], t["hkv"], t["d"]
+    shape = f"b{b} s{s} hq{hq} hkv{hkv} d{d} bf16 causal"
     gen = torch.Generator().manual_seed(2)
     q, k, v, do = _flash_inputs(gen, b, s, s, hq, hkv, d, torch.bfloat16)
     out, lse = fa.flash_forward(q, k, v, causal=True)
@@ -6648,8 +6685,8 @@ def phase_flash_timing(flush: torch.Tensor) -> dict:
                                            enable_gqa=True)
         return torch.autograd.grad(o, (qg, kg, vg), dot)
 
-    # the mma.sync backward kernels that the Hopper ones replaced at this
-    # shape, on the same inputs, called through the library
+    # the mma.sync kernels that the Hopper ones replaced at this shape, on
+    # the same inputs, called through the library
     lib = fa._library()
     args = fa._backward_args(q, k, v, do, lse, delta, True, None, 0)
     ptrs = tuple(x.data_ptr() for x in (q, k, v, do, lse, delta))
@@ -6685,10 +6722,12 @@ def phase_flash_timing(flush: torch.Tensor) -> dict:
     p_f2, p_b2 = cuda_ms(plain_fwd, 3, flush), cuda_ms(plain_bwd, 3, flush)
     moved = [a - b_ for a, b_ in zip(_flash_counts(), before)]
     if moved != [24] * 6:
-        raise SystemExit(f"flash timing: the timed calls were not all on "
-                         f"the Hopper kernels: {moved}")
+        raise SystemExit(f"flash timing at {shape}: the timed calls were "
+                         f"not all on the Hopper kernels: {moved}")
     lib_f = cuda_ms(lib_fwd, 10, flush)
     lib_b = cuda_ms(lib_fwd_bwd, 10, flush) - lib_f
+    cudnn_b = cuda_ms(_sdpa_backward("CUDNN_ATTENTION", qt, kt, vt, dot,
+                                     True), 10, flush) if hq == hkv else None
 
     res = {}
     for name, (ops, nbytes, bound, by) in _flash_bounds(q, k, True).items():
@@ -6702,19 +6741,29 @@ def phase_flash_timing(flush: torch.Tensor) -> dict:
             "path": FLASH_PATH[name]}
         r = res[name]
         r["mma_ms"] = min(mms[name])
-        log(f"flash: {name} b4 s2048 hq32 hkv4 d64 bf16 causal: kernel "
+        r["tflops"] = ops / r["ms"] / 1e9
+        if cudnn_b is not None and not fwd:
+            r["cudnn_backward_ms"] = cudnn_b
+        log(f"flash: {name} {shape}: kernel "
             f"{kms[name][0]:.4f}/{kms[name][1]:.4f} ms"
             + f" ({r['path']}; the mma.sync kernel "
-            f"{mms[name][0]:.4f}/{mms[name][1]:.4f} ms)"
+            f"{mms[name][0]:.4f}/{mms[name][1]:.4f} ms, "
+            f"{r['mma_ms'] / r['ms']:.2f}x the Hopper kernel's time)"
             + f", plain {(p_f1, p_f2) if fwd else (p_b1, p_b2)} ms"
             f"{'' if fwd else ' (the whole plain backward)'}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['ops']:.3e} ops, "
             f"{r['bytes']} B), sdpa {r['library_ms']:.4f} ms"
             f"{'' if fwd else ' (its whole backward)'}; "
-            f"{r['ops'] / r['ms'] / 1e9:.1f} TFLOP/s")
+            f"{r['tflops']:.1f} TFLOP/s")
     bwd = res["flash_backward_dq"]["ms"] + res["flash_backward_dkv"]["ms"]
-    log(f"flash: backward dq + dk/dv {bwd:.4f} ms, {bwd / lib_b:.2f}x SDPA's "
-        f"whole backward ({lib_b:.4f} ms)")
+    old = res["flash_backward_dq"]["mma_ms"] + \
+        res["flash_backward_dkv"]["mma_ms"]
+    log(f"flash: {shape}: backward dq + dk/dv {bwd:.4f} ms (the mma.sync "
+        f"kernels {old:.4f} ms, {old / bwd:.2f}x), {bwd / lib_b:.2f}x SDPA's "
+        f"whole backward ({lib_b:.4f} ms)"
+        + ("" if cudnn_b is None else
+           f", {bwd / cudnn_b:.2f}x cuDNN's backward as one aten call "
+           f"({cudnn_b:.4f} ms)"))
     return res
 
 
@@ -8194,11 +8243,8 @@ def _zero_timed_checks(res, card: str) -> tuple:
     for key, (kind, stages, rows, seq, gas, label) in ZERO_RUNS.items():
         c = _zero_model_config(kind)
         per_step = _flash_per_step([c], gas)
+        # every launch on the Hopper kernels, (c)'s at d 128 too
         want = {n: ZERO_TIMED * k for n, k in per_step.items()}
-        # d 128 (c): the forward on the Hopper kernel, dq and dk/dv on
-        # the mma.sync kernels (flash_wgmma_path takes d 64 only)
-        hopper_want = want if c.head_dim == 64 else {
-            n: (k if n == "flash_forward" else 0) for n, k in want.items()}
         tokens = rows * (seq - 1)
         flops = _decoder_flops(c, rows, seq)
         peaks = {}
@@ -8221,7 +8267,7 @@ def _zero_timed_checks(res, card: str) -> tuple:
                         and not any(x["skipped"])
                         and x["losses"][-1] < x["losses"][0]
                         and x["launches"] == want
-                        and x["wgmma_launches"] == hopper_want
+                        and x["wgmma_launches"] == want
                         and same and equal
                         and (s < 3 or x["route"] == "gather"))
                 ok = ok and good
@@ -8244,8 +8290,8 @@ def _zero_timed_checks(res, card: str) -> tuple:
                     f"step, share {x['coll_s'] / timed:.3f}; flash "
                     f"launches in {ZERO_TIMED} timed steps {x['launches']} "
                     f"(expected {want}), on the Hopper wgmma kernels "
-                    f"{x['wgmma_launches']} (expected {hopper_want}; the "
-                    f"rest on the mma.sync kernels); masters bitwise equal "
+                    f"{x['wgmma_launches']} (expected all of them); "
+                    f"masters bitwise equal "
                     f"on both ranks: {equal}; built in {x['built_s']:.1f} "
                     f"s {'ok' if good else 'FAIL'}")
             log(f"zero train ({key}) {label} stage {s} [{card}]: "
@@ -8272,9 +8318,9 @@ def phase_zero_training(card: str) -> dict:
     and 2 timed steps each: step time, tokens/s, MFU, peak memory a rank
     (falling with the stage), moment and gradient-accumulator bytes, the
     collectives a step from the comms ledger and their share of the step,
-    flash launches (d 64 on the Hopper kernels; (c)'s d 128 backward on
-    the mma.sync kernels), a finite falling loss, no skipped step, the
-    masters bitwise equal on both ranks at stages 1-2; (d) Llama-1b's
+    flash launches (every one on the Hopper kernels, (c)'s at d 128
+    too), a finite falling loss, no skipped step, the masters bitwise
+    equal on both ranks at stages 1-2; (d) Llama-1b's
     widths and OPT's flag set (OPT-125m's widths) at 2 layers in fp32, one
     step of 2 x 128: stages 1, 2, 3 (OPT: 3) and 2 with qgZ on the card,
     each against the card's stage 0 (losses 1e-5, grad norms 1e-4, the
@@ -8311,8 +8357,7 @@ def phase_zero_training(card: str) -> dict:
     ok = _zero_parity_checks(res, res_cpu, card)
     good, launches, wgmma, step = _zero_timed_checks(res, card)
     ok = ok and good
-    # rows 2-4 at (c)'s micro-batch on a rank (d 128: dq and dk/dv on
-    # the mma.sync kernels)
+    # rows 2-4 at (c)'s micro-batch on a rank (d 128)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     c = _zero_model_config("llama7b")
     rows, seq = ZERO_RUNS["c"][2:4]
@@ -9499,6 +9544,15 @@ def main() -> int:
         if name in flash_wgmma:
             entries[-1]["wgmma_launches"] = flash_wgmma[name]
             entries[-1]["mma_sync_ms"] = t["mma_ms"]
+        # the kernel at 8d (c)'s shape (d 128) beside its mma.sync kernel
+        t128 = t["d128"]
+        entries[-1]["d128_timing"] = {
+            "shape": "b1_s2048_hq32_hkv32_d128_bf16_causal",
+            **{key: t128[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "tflops")},
+            "mma_sync_ms": t128["mma_ms"],
+            "cudnn_backward_ms": t128.get("cudnn_backward_ms")}
         # 8b: launches in each family's 3 timed training steps, and the
         # kernel at each family's training shape
         entries[-1].update(
@@ -9513,8 +9567,8 @@ def main() -> int:
             # TP 2 (hq 16, hkv 2 a rank)
             tp_train_launches=tp_train["launches"][name],
             tp_train_wgmma_launches=tp_train["wgmma_launches"][name],
-            # 8d: rank 0's launches in each ZeRO run's 2 timed steps
-            # ((c) at d 128: dq and dk/dv on the mma.sync kernels)
+            # 8d: rank 0's launches in each ZeRO run's 2 timed steps,
+            # all on the Hopper kernels ((c)'s at d 128 too)
             zero_train_launches={k: v[name] for k, v in
                                  zero_train["launches"].items()},
             zero_train_wgmma_launches={k: v[name] for k, v in

@@ -52,26 +52,28 @@
 //   consumer warpgroups of 64 q rows run attn_fwd.cuh's mainloop (wgmma
 //   m64n64k16 for S = Q.K^T and O += P.V, the online softmax in
 //   registers between them), 128 q rows a block, heaviest q tiles first.
-//   The backward in bf16/fp16 at d 64 (the training path) takes the
-//   Hopper kernels `flash_backward_dq_wgmma_kernel` (replacing
+//   The backward in bf16/fp16 at d 64 and 128 (the training path) takes
+//   the Hopper kernels `flash_backward_dq_wgmma_kernel` (replacing
 //   `_dq_kernel`) and `flash_backward_dkv_wgmma_kernel` (replacing
 //   `_dkv_kernel`): a producer warp keeps TMA loads of the streamed tiles
 //   (K/V for dq, Q/dO with their lse and delta rows for dk/dv) in flight
 //   into a 4-stage ring of mbarrier-guarded shared memory, and two
 //   consumer warpgroups of 64 rows run wgmma m64n64k16 on the tiles as TMA
-//   wrote them (128-byte swizzle): K-major for S = Q.K^T and dP = dO.V^T,
-//   MN-major through wgmma's transpose bit for dQ = dS.K, dV = P^T.dO and
-//   dK = dS^T.Q, so no tile is ever copied transposed. A dq block owns 128
-//   q rows, a dk/dv block 128 keys; the grids launch the heaviest tiles of
-//   the causal triangle first. The Hopper sections below say more.
-// - the backward at d 128 (whose dK and dV accumulators would not fit the
-//   wgmma kernels' registers), and the forward and backward wherever the
-//   caller does not take the Hopper kernels: four warps per block,
-//   mma.sync m16n8k16 on T operands staged in shared memory, fp32
-//   accumulators; P and dS pass from the score accumulators straight into
-//   the next product's A operand (see the tensor-core section below).
-//   `flash_forward_mma_kernel` stays as the yardstick the Hopper forward
-//   is timed against.
+//   wrote them (128-byte swizzle; a d 128 row as two atoms): K-major for
+//   S = Q.K^T and dP = dO.V^T, MN-major through wgmma's transpose bit for
+//   dQ = dS.K, dV = P^T.dO and dK = dS^T.Q, so no tile is ever copied
+//   transposed. A dq block owns 128 q rows, a dk/dv block 128 keys; the
+//   grids launch the heaviest tiles of the causal triangle first. At d 128
+//   the consumers take registers from the producer warpgroup (setmaxnreg)
+//   for their 192 accumulators. The Hopper sections below say more.
+// - the forward and backward wherever the caller does not take the Hopper
+//   kernels: four warps per block, mma.sync m16n8k16 on T operands staged
+//   in shared memory, fp32 accumulators; P and dS pass from the score
+//   accumulators straight into the next product's A operand (see the
+//   tensor-core section below). `flash_forward_mma_kernel` and the
+//   mma.sync dq and dk/dv kernels stay as the yardsticks the Hopper
+//   kernels are timed against (`dst_flash_forward`, `dst_flash_backward_dq`,
+//   `dst_flash_backward_dkv`).
 // - fp32, and d 256: 256 threads on a 16 x 16 grid, scalar fp32 FMA over
 //   tiles converted to fp32 in shared memory (rows padded by one float);
 //   kv tiles are 32 rows at d 256 so dk/dv stays under 227 KB.
@@ -1040,25 +1042,36 @@ flash_backward_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------- Hopper path: TMA + wgmma
-// The backward's two kernels for bf16/fp16 at head_dim 64 (what
+// The backward's two kernels for bf16/fp16 at head_dim 64 and 128 (what
 // `hopper_ok` and ops/flash_attention.py `flash_wgmma_path` accept). A
 // block is three warpgroups: warpgroup 0's first warp is the producer,
 // which keeps TMA loads of the streamed tiles in flight into a ring of
 // shared memory (128-byte swizzle: a row of 64 16-bit channels is one
-// swizzle atom wide); warpgroups 1 and 2 are the consumers, 64 rows of
-// the block's tile each, and run wgmma m64n64k16 with fp32 accumulators
-// in registers. Every product reads its tiles as TMA wrote them: Q, dO, K
-// and V lie [rows][d], which is K-major for the score products (the
-// contraction runs over d) and MN-major, through wgmma's transpose bit,
-// for dV, dK and dQ (the contraction runs over the rows). P and dS go from
-// the score accumulators into the next product's A registers, rounded to
-// T (the accumulator layout of a warp is the A fragment's, as
-// `scores_as_a` uses for mma.sync). The tensor maps are 4-D over
-// (d, heads, seq, batch): a box never crosses into the next sequence, and
-// TMA fills the ragged tail with zeros, which `Problem::visible` masks.
-// Tiles that the mask cannot touch (`all_visible`) skip it.
+// swizzle atom wide; at d 128 a row is two atoms, kept as two tiles,
+// "halves", at a fixed byte stride, as the forward keeps them); warpgroups
+// 1 and 2 are the consumers, 64 rows of the block's tile each, and run
+// wgmma m64n64k16 with fp32 accumulators in registers. Every product reads
+// its tiles as TMA wrote them: Q, dO, K and V lie [rows][d], which is
+// K-major for the score products (the contraction runs over d: attn_fwd.cuh
+// `fwd_scores`, D / 16 k steps over the halves) and MN-major, through
+// wgmma's transpose bit, for dV, dK and dQ (the contraction runs over the
+// rows: `fwd_pv`, one n64 product a half and k step). P and dS go from the
+// score accumulators into the next product's A registers, rounded to T
+// (the accumulator layout of a warp is the A fragment's, as `scores_as_a`
+// uses for mma.sync). The tensor maps are 4-D over (d, heads, seq, batch):
+// a box never crosses into the next sequence, and TMA fills the ragged
+// tail with zeros, which `Problem::visible` masks. Tiles that the mask
+// cannot touch (`all_visible`) skip it.
+// At d 128 a consumer thread holds dQ (64 fp32) beside S and dP (32 each),
+// or dK and dV (64 each) beside S^T and dP^T: 192 accumulators, more than
+// the 168 registers a thread that 384 threads get. So there the producer
+// warpgroup gives back all but kProducerRegs and the consumers take
+// kConsumerRegs (setmaxnreg; 128 x 40 + 256 x 232 = 384 x 168).
 constexpr int kHopThreads = 384;
 constexpr int kStages = 4;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs == kHopThreads * 168,
+              "the registers the warpgroups trade add up to the block's");
 // dq: a block owns 128 q rows and streams kv tiles of 64 keys
 constexpr int kDqRows = 128, kDqKv = 64;
 // dk/dv: a block owns 128 keys and streams q tiles of 64 rows of each
@@ -1068,24 +1081,30 @@ constexpr int kDkvKeys = 128, kDkvQ = 64;
 // shared memory, from a 1024-byte aligned base: the resident tiles, the
 // ring, then the mbarriers (one for the resident tiles, full and empty a
 // stage); 1024 bytes of slack for the alignment
+template <int D>
 struct DqLayout {
-  static constexpr int Q = 0, DO = kDqRows * 128;  // 16384 bytes each
-  static constexpr int RING = 2 * kDqRows * 128;
-  static constexpr int STAGE = 2 * kRows64;        // K, then V
+  static constexpr int H = D / 64;              // swizzle atoms a row
+  static constexpr int QH = kDqRows * 128;      // bytes between halves
+  static constexpr int Q = 0, DO = H * QH;      // [H][128 rows][128 B] each
+  static constexpr int RING = 2 * H * QH;
+  static constexpr int STAGE = 2 * H * kRows64;  // K halves, then V halves
   static constexpr int BARS = RING + kStages * STAGE;
   static constexpr int SMEM = 1024 + BARS + 8 * (1 + 2 * kStages);
 };
+template <int D>
 struct DkvLayout {
-  static constexpr int K = 0, V = kDkvKeys * 128;  // 16384 bytes each
-  static constexpr int RING = 2 * kDkvKeys * 128;
-  // Q, dO, then lse * log2(e) and delta of the tile's 64 rows (fp32), the
-  // stage padded to a multiple of 1024 bytes
-  static constexpr int STATS = 2 * kRows64;
-  static constexpr int STAGE = 2 * kRows64 + 1024;
+  static constexpr int H = D / 64;
+  static constexpr int KH = kDkvKeys * 128;     // bytes between halves
+  static constexpr int K = 0, V = H * KH;       // [H][128 keys][128 B] each
+  static constexpr int RING = 2 * H * KH;
+  // Q halves, dO halves, then lse * log2(e) and delta of the tile's 64
+  // rows (fp32), the stage padded to a multiple of 1024 bytes
+  static constexpr int STATS = 2 * H * kRows64;
+  static constexpr int STAGE = STATS + 1024;
   static constexpr int BARS = RING + kStages * STAGE;
   static constexpr int SMEM = 1024 + BARS + 8 * (1 + 2 * kStages);
 };
-static_assert(DqLayout::SMEM <= 232448 && DkvLayout::SMEM <= 232448,
+static_assert(DqLayout<128>::SMEM <= 232448 && DkvLayout<128>::SMEM <= 232448,
               "shared memory of a block");
 
 // dq of one kv tile in place of s (S = Q.K^T, fp32) for the thread's rows
@@ -1107,7 +1126,7 @@ __device__ __forceinline__ void dq_scores(const Problem& p, float (&s)[32],
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kHopThreads, 1)
 flash_backward_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_do,
@@ -1116,7 +1135,8 @@ flash_backward_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
                                T* __restrict__ dq, Problem p) {
-  using L = DqLayout;
+  using L = DqLayout<D>;
+  constexpr int H = L::H;
   extern __shared__ __align__(1024) unsigned char ring_raw[];
   const uint32_t raw = smem_addr(ring_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1150,24 +1170,34 @@ flash_backward_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   if (wg == 0) {
-    // ---- producer: Q and dO once, then K and V of each kv tile
+    if constexpr (D == 128) reg_dealloc<kProducerRegs>();
+    // ---- producer: Q and dO once, then K and V of each kv tile, each
+    // tile as H boxes of one swizzle atom
     if (t == 0) {
       prefetch_tensormap(&tm_k);
       prefetch_tensormap(&tm_v);
-      mbar_expect_tx(qbar, 2 * kDqRows * 128);
-      tma_load_4d(base + L::Q, &tm_q, qbar, 0, h, r0, b);
-      tma_load_4d(base + L::DO, &tm_do, qbar, 0, h, r0, b);
+      mbar_expect_tx(qbar, 2 * H * L::QH);
+      for (int hh = 0; hh < H; ++hh) {
+        tma_load_4d(base + L::Q + hh * L::QH, &tm_q, qbar, 64 * hh, h, r0, b);
+        tma_load_4d(base + L::DO + hh * L::QH, &tm_do, qbar, 64 * hh, h, r0,
+                    b);
+      }
       for (int j = lo; j < hi; ++j) {
         const int i = j - lo, s = i % kStages;
         mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
         const uint32_t st = base + L::RING + s * L::STAGE;
         mbar_expect_tx(full(s), L::STAGE);
-        tma_load_4d(st, &tm_k, full(s), 0, hk, j * kDqKv, b);
-        tma_load_4d(st + kRows64, &tm_v, full(s), 0, hk, j * kDqKv, b);
+        for (int hh = 0; hh < H; ++hh) {
+          tma_load_4d(st + hh * kRows64, &tm_k, full(s), 64 * hh, hk,
+                      j * kDqKv, b);
+          tma_load_4d(st + (H + hh) * kRows64, &tm_v, full(s), 64 * hh, hk,
+                      j * kDqKv, b);
+        }
       }
     }
     return;
   }
+  if constexpr (D == 128) reg_alloc<kConsumerRegs>();
 
   // ---- consumers: q rows 64 c .. 64 c + 63 of the tile
   const int c = wg - 1;
@@ -1181,25 +1211,23 @@ flash_backward_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     lse2[ri] = row < p.sq ? lse[at] * kLog2e : 0.f;
     dl[ri] = row < p.sq ? delta[at] : 0.f;
   }
-  float acc[32];
+  float acc[H][32];
 #pragma unroll
-  for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+  for (int hh = 0; hh < H; ++hh)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[hh][x] = 0.f;
   const uint32_t qa = base + L::Q + c * kRows64;
   const uint32_t da = base + L::DO + c * kRows64;
   mbar_wait(qbar, 0);
   for (int j = lo; j < hi; ++j) {
     const int i = j - lo, s = i % kStages, k0 = j * kDqKv;
     mbar_wait(full(s), (i / kStages) & 1);
-    const uint32_t ks = base + L::RING + s * L::STAGE, vs = ks + kRows64;
+    const uint32_t ks = base + L::RING + s * L::STAGE, vs = ks + H * kRows64;
     // S = Q.K^T and dP = dO.V^T, the contraction over d (K-major)
     float sc[32], dp[32];
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss<T, 0>(sc, desc_k(qa, kk), desc_k(ks, kk), kk);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss<T, 0>(dp, desc_k(da, kk), desc_k(vs, kk), kk);
+    fwd_scores<T, D>(sc, qa, L::QH, ks, kRows64);
+    fwd_scores<T, D>(dp, da, L::QH, vs, kRows64);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(sc);
@@ -1208,16 +1236,16 @@ flash_backward_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       dq_scores<false>(p, sc, dp, lse2, dl, row0, k0, tq);
     else
       dq_scores<true>(p, sc, dp, lse2, dl, row0, k0, tq);
-    // dQ += dS.K with dS rounded to T, the contraction over the keys
-    // (K read MN-major)
+    // dQ += dS.K with dS rounded to T, the contraction over the keys (K
+    // read MN-major: the forward's P.V product with dS for P, K for V)
     uint32_t a[4][4];
     acc_as_a<T>(a, sc);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, 1>(acc, a[kk], desc_mn(ks, kk));
+    fwd_pv<T, D>(acc, a, ks, kRows64);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(acc);
+#pragma unroll
+    for (int hh = 0; hh < H; ++hh) fence_acc(acc[hh]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
     if (lane == 0) mbar_arrive(empty(s));
@@ -1227,11 +1255,9 @@ flash_backward_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int ri = 0; ri < 2; ++ri) {
     const int row = row0 + 8 * ri;
     if (row >= p.sq) continue;
-    T* o = dq + ((static_cast<long long>(b) * p.sq + row) * p.hq + h) * 64;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-      *reinterpret_cast<uint32_t*>(o + 8 * jj + 2 * tq) =
-          pack2<T>(acc[4 * jj + 2 * ri], acc[4 * jj + 2 * ri + 1]);
+    fwd_store_row<T, D>(
+        dq + ((static_cast<long long>(b) * p.sq + row) * p.hq + h) * D, acc,
+        ri);
   }
 }
 
@@ -1262,7 +1288,7 @@ __device__ __forceinline__ void dkv_scores(const Problem& p, float (&st)[32],
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kHopThreads, 1)
 flash_backward_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 const __grid_constant__ CUtensorMap tm_do,
@@ -1272,7 +1298,8 @@ flash_backward_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 const float* __restrict__ delta,
                                 T* __restrict__ dk, T* __restrict__ dv,
                                 Problem p) {
-  using L = DkvLayout;
+  using L = DkvLayout<D>;
+  constexpr int H = L::H;
   extern __shared__ __align__(1024) unsigned char ring_raw[];
   const uint32_t raw = smem_addr(ring_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1305,15 +1332,21 @@ flash_backward_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   if (wg == 0) {
-    // ---- producer warp: K and V once; each step's Q and dO by TMA, its
-    // lse and delta rows by the warp's lanes
+    if constexpr (D == 128) reg_dealloc<kProducerRegs>();
+    // ---- producer warp: K and V once; each step's Q and dO by TMA (H
+    // boxes of one swizzle atom a tile), its lse and delta rows by the
+    // warp's lanes
     if (t < 32) {
       if (t == 0) {
         prefetch_tensormap(&tm_q);
         prefetch_tensormap(&tm_do);
-        mbar_expect_tx(kvbar, 2 * kDkvKeys * 128);
-        tma_load_4d(base + L::K, &tm_k, kvbar, 0, hk, k0, b);
-        tma_load_4d(base + L::V, &tm_v, kvbar, 0, hk, k0, b);
+        mbar_expect_tx(kvbar, 2 * H * L::KH);
+        for (int hh = 0; hh < H; ++hh) {
+          tma_load_4d(base + L::K + hh * L::KH, &tm_k, kvbar, 64 * hh, hk, k0,
+                      b);
+          tma_load_4d(base + L::V + hh * L::KH, &tm_v, kvbar, 64 * hh, hk, k0,
+                      b);
+        }
       }
       for (int i = 0; i < steps; ++i) {
         const int s = i % kStages;
@@ -1330,9 +1363,12 @@ flash_backward_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           stats[kDkvQ + r] = row < p.sq ? delta[at] : 0.f;
         }
         if (t == 0) {
-          mbar_expect_tx(full(s), 2 * kRows64);
-          tma_load_4d(st, &tm_q, full(s), 0, h, r0, b);
-          tma_load_4d(st + kRows64, &tm_do, full(s), 0, h, r0, b);
+          mbar_expect_tx(full(s), L::STATS);
+          for (int hh = 0; hh < H; ++hh) {
+            tma_load_4d(st + hh * kRows64, &tm_q, full(s), 64 * hh, h, r0, b);
+            tma_load_4d(st + (H + hh) * kRows64, &tm_do, full(s), 64 * hh, h,
+                        r0, b);
+          }
         } else {
           mbar_arrive(full(s));
         }
@@ -1340,33 +1376,32 @@ flash_backward_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     return;
   }
+  if constexpr (D == 128) reg_alloc<kConsumerRegs>();
 
   // ---- consumers: keys 64 c .. 64 c + 63 of the tile
   const int c = wg - 1;
   const int lane = t & 31, tq = lane & 3;
   const int kc0 = k0 + 64 * c;
   const int key0 = kc0 + 16 * (t >> 5) + (lane >> 2);  // and key0 + 8
-  float dka[32], dva[32];
+  float dka[H][32], dva[H][32];
 #pragma unroll
-  for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.f;
+  for (int hh = 0; hh < H; ++hh)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) dka[hh][x] = dva[hh][x] = 0.f;
   const uint32_t ka = base + L::K + c * kRows64;
   const uint32_t va = base + L::V + c * kRows64;
   mbar_wait(kvbar, 0);
   for (int i = 0; i < steps; ++i) {
     const int s = i % kStages, r0 = (lo + i % nqt) * kDkvQ;
     mbar_wait(full(s), (i / kStages) & 1);
-    const uint32_t qs = base + L::RING + s * L::STAGE, dos = qs + kRows64;
+    const uint32_t qs = base + L::RING + s * L::STAGE, dos = qs + H * kRows64;
     const float* stats = reinterpret_cast<const float*>(
         smem + L::RING + s * L::STAGE + L::STATS);
     // S^T = K.Q^T and dP^T = V.dO^T, the contraction over d (K-major)
     float st[32], dpt[32];
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss<T, 0>(st, desc_k(ka, kk), desc_k(qs, kk), kk);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss<T, 0>(dpt, desc_k(va, kk), desc_k(dos, kk), kk);
+    fwd_scores<T, D>(st, ka, L::KH, qs, kRows64);
+    fwd_scores<T, D>(dpt, va, L::KH, dos, kRows64);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(st);
@@ -1381,16 +1416,15 @@ flash_backward_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     acc_as_a<T>(ap, st);
     acc_as_a<T>(ads, dpt);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<T, 1>(dva, ap[kk], desc_mn(dos, kk));
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<T, 1>(dka, ads[kk], desc_mn(qs, kk));
+    fwd_pv<T, D>(dva, ap, dos, kRows64);
+    fwd_pv<T, D>(dka, ads, qs, kRows64);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(dva);
-    fence_acc(dka);
+#pragma unroll
+    for (int hh = 0; hh < H; ++hh) {
+      fence_acc(dva[hh]);
+      fence_acc(dka[hh]);
+    }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       fence_regs(ap[kk]);
@@ -1404,14 +1438,9 @@ flash_backward_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int key = key0 + 8 * ri;
     if (key >= p.skv) continue;
     const long long off =
-        ((static_cast<long long>(b) * p.skv + key) * p.hkv + hk) * 64;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * jj + 2 * tq) =
-          pack2<T>(dka[4 * jj + 2 * ri], dka[4 * jj + 2 * ri + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * jj + 2 * tq) =
-          pack2<T>(dva[4 * jj + 2 * ri], dva[4 * jj + 2 * ri + 1]);
-    }
+        ((static_cast<long long>(b) * p.skv + key) * p.hkv + hk) * D;
+    fwd_store_row<T, D>(dk + off, dka, ri);
+    fwd_store_row<T, D>(dv + off, dva, ri);
   }
 }
 
@@ -1712,45 +1741,52 @@ int dispatch(Which which, const Args& a, int sq, int skv, int hq, int hkv,
 
 // ------------------------------------------- Hopper path: the launcher
 // What the Hopper backward takes (ops/flash_attention.py
-// `flash_wgmma_path` states the same): bf16/fp16 at head_dim 64, whose
-// rows are one 128-byte swizzle atom (so every stride of the tensor maps
-// is a multiple of 16 bytes), TMA's 16-byte aligned bases, and tile counts
-// that fit the grid's z dimension.
+// `flash_wgmma_path` states the same): bf16/fp16 at head_dim 64 or 128,
+// whose rows are one or two 128-byte swizzle atoms (so every stride of the
+// tensor maps is a multiple of 16 bytes), TMA's 16-byte aligned bases, and
+// tile counts that fit the grid's z dimension.
 bool hopper_ok(const Args& a, int sq, int skv, int d, int dtype) {
-  return (dtype == 1 || dtype == 2) && d == 64 && aligned16(a.q) &&
-         aligned16(a.k) && aligned16(a.v) && aligned16(a.dout) &&
-         (sq + kDqRows - 1) / kDqRows <= 65535 &&
+  return (dtype == 1 || dtype == 2) && (d == 64 || d == 128) &&
+         aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+         aligned16(a.dout) && (sq + kDqRows - 1) / kDqRows <= 65535 &&
          (skv + kDkvKeys - 1) / kDkvKeys <= 65535;
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_wgmma(Which which, const Args& a, const Problem& p,
                  cudaStream_t s) {
   const bool dq = which == Which::kDq;
   const int qrows = dq ? kDqRows : kDkvQ, kvrows = dq ? kDqKv : kDkvKeys;
   CUtensorMap tq, tdo, tk, tv;
-  int err = encode_heads<T>(&tq, a.q, a.b, p.sq, p.hq, 64, qrows);
-  if (!err) err = encode_heads<T>(&tdo, a.dout, a.b, p.sq, p.hq, 64, qrows);
-  if (!err) err = encode_heads<T>(&tk, a.k, a.b, p.skv, p.hkv, 64, kvrows);
-  if (!err) err = encode_heads<T>(&tv, a.v, a.b, p.skv, p.hkv, 64, kvrows);
+  int err = encode_heads<T>(&tq, a.q, a.b, p.sq, p.hq, D, qrows);
+  if (!err) err = encode_heads<T>(&tdo, a.dout, a.b, p.sq, p.hq, D, qrows);
+  if (!err) err = encode_heads<T>(&tk, a.k, a.b, p.skv, p.hkv, D, kvrows);
+  if (!err) err = encode_heads<T>(&tv, a.v, a.b, p.skv, p.hkv, D, kvrows);
   if (err) return err;
   if (dq) {
-    auto kernel = flash_backward_dq_wgmma_kernel<T>;
-    err = prepare(kernel, DqLayout::SMEM);
+    auto kernel = flash_backward_dq_wgmma_kernel<T, D>;
+    err = prepare(kernel, DqLayout<D>::SMEM);
     if (err) return err;
     const dim3 grid(p.hq, a.b, (p.sq + kDqRows - 1) / kDqRows);
-    kernel<<<grid, kHopThreads, DqLayout::SMEM, s>>>(
+    kernel<<<grid, kHopThreads, DqLayout<D>::SMEM, s>>>(
         tq, tdo, tk, tv, a.lse_in, a.delta, static_cast<T*>(a.out), p);
   } else {
-    auto kernel = flash_backward_dkv_wgmma_kernel<T>;
-    err = prepare(kernel, DkvLayout::SMEM);
+    auto kernel = flash_backward_dkv_wgmma_kernel<T, D>;
+    err = prepare(kernel, DkvLayout<D>::SMEM);
     if (err) return err;
     const dim3 grid(p.hkv, a.b, (p.skv + kDkvKeys - 1) / kDkvKeys);
-    kernel<<<grid, kHopThreads, DkvLayout::SMEM, s>>>(
+    kernel<<<grid, kHopThreads, DkvLayout<D>::SMEM, s>>>(
         tq, tdo, tk, tv, a.lse_in, a.delta, static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), p);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_wgmma_d(Which which, const Args& a, const Problem& p, int d,
+                   cudaStream_t s) {
+  return d == 64 ? launch_wgmma<T, 64>(which, a, p, s)
+                 : launch_wgmma<T, 128>(which, a, p, s);
 }
 
 // What the Hopper forward takes (ops/flash_attention.py
@@ -1804,8 +1840,8 @@ int dispatch_wgmma(Which which, const Args& a, int sq, int skv, int hq,
   if (fwd)
     return dtype == 1 ? launch_forward_wgmma_d<__half>(a, p, d, s)
                       : launch_forward_wgmma_d<__nv_bfloat16>(a, p, d, s);
-  return dtype == 1 ? launch_wgmma<__half>(which, a, p, s)
-                    : launch_wgmma<__nv_bfloat16>(which, a, p, s);
+  return dtype == 1 ? launch_wgmma_d<__half>(which, a, p, d, s)
+                    : launch_wgmma_d<__nv_bfloat16>(which, a, p, d, s);
 }
 
 }  // namespace
@@ -1881,17 +1917,22 @@ extern "C" int dst_flash_backward_dkv_wgmma(
 }
 
 // dynamic shared memory a launch of a Hopper kernel asks for, for the
-// build report: dq (0), dk/dv (1), the forward at d 64 (2) and d 128 (3)
+// build report: dq (0), dk/dv (1), the forward at d 64 (2) and d 128 (3),
+// dq (4) and dk/dv (5) at d 128
 extern "C" int dst_flash_wgmma_smem(int which) {
   switch (which) {
     case 0:
-      return DqLayout::SMEM;
+      return DqLayout<64>::SMEM;
     case 1:
-      return DkvLayout::SMEM;
+      return DkvLayout<64>::SMEM;
     case 2:
       return FwdLayout<64>::SMEM;
-    default:
+    case 3:
       return FwdLayout<128>::SMEM;
+    case 4:
+      return DqLayout<128>::SMEM;
+    default:
+      return DkvLayout<128>::SMEM;
   }
 }
 

@@ -143,6 +143,21 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// register reallocation between the warpgroups of a block (sm_90a): every
+// thread of a warpgroup runs the same one. The block starts with the
+// count ptxas gives each thread at entry (the launch bounds' maximum); a
+// warpgroup that lowers its count to N gives the rest back to the block,
+// and one that raises it waits until the block has them
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // generic-proxy writes to shared memory, read next by the async proxy
 // (wgmma, TMA)
 __device__ __forceinline__ void fence_proxy_async() {

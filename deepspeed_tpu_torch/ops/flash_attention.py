@@ -9,8 +9,9 @@ Ports ``deepspeed_tpu/ops/pallas/flash_attention.py``: ``_flash_forward``
 design and what bounds them), built by ``nvcc`` at first use and called
 through ``ctypes`` (:mod:`.op_builder`). The forward's bf16/fp16 work at
 head_dim 64 and 128 goes to its Hopper kernel (TMA + ``wgmma``,
-:func:`flash_forward_wgmma_path`), the backward's at head_dim 64 to its
-two (:func:`flash_wgmma_path`).
+:func:`flash_forward_wgmma_path`), the backward's to its two
+(:func:`flash_wgmma_path`); fp32 and head_dim 256 take the scalar
+kernels.
 
 Layout contract (the JAX package's, unchanged):
   q:    [b, sq, hq, d]        k, v: [b, skv, hkv, d]   (hq % hkv == 0)
@@ -246,13 +247,16 @@ def flash_forward(q, k, v, *, causal: bool = True,
 def flash_wgmma_path(dtype: torch.dtype, d: int, hq: int, hkv: int,
                      addrs: Tuple[int, ...]) -> bool:
     """Whether the backward's Hopper kernels (TMA + ``wgmma``) compute dq
-    and dk/dv; else the ``mma.sync`` (bf16/fp16 at d 64/128) or scalar
-    kernels do. ``addrs`` are the base addresses that TMA reads (q, k, v,
-    dout). It takes bf16/fp16 at head_dim 64 (a row is one 128-byte
-    swizzle atom, so every stride of the tensor maps is a whole 16 bytes)
-    with 16-byte aligned bases; ``flash_attention.cu``'s ``hopper_ok``
-    checks the same and refuses the rest."""
-    return (dtype in (torch.bfloat16, torch.float16) and d == 64
+    and dk/dv; else the scalar kernels do (fp32, head_dim 256). The
+    ``mma.sync`` dq and dk/dv kernels stay in the library only as a
+    yardstick (``dst_flash_backward_dq`` / ``dst_flash_backward_dkv``
+    called directly): no wrapper gives way to them. ``addrs`` are the base
+    addresses that TMA reads (q, k, v, dout). It takes bf16/fp16 at
+    head_dim 64 or 128 (a row is one or two 128-byte swizzle atoms, so
+    every stride of the tensor maps is a whole 16 bytes) with 16-byte
+    aligned bases; ``flash_attention.cu``'s ``hopper_ok`` checks the same
+    and refuses the rest."""
+    return (dtype in (torch.bfloat16, torch.float16) and d in (64, 128)
             and hkv >= 1 and hq % hkv == 0
             and all(a % 16 == 0 for a in addrs))
 

@@ -44,6 +44,12 @@ CASES = {
     "window": (1, 32, 32, 4, 2, 64, True, 5, None, 8),
     "window-sq-lt-skv": (1, 16, 32, 2, 2, 64, True, 12, None, 8),
     "scale-d128": (1, 16, 16, 2, 2, 128, True, 0, 0.3, 16),
+    # head_dim 128, the Hopper backward's second width: GQA group 4 at a
+    # length that is no multiple of the CUDA kernels' 64-row tiles, sq >
+    # skv under MQA, and a window
+    "d128-gqa-ragged": (1, 40, 40, 8, 2, 128, True, 0, None, 8),
+    "d128-sq-gt-skv": (1, 24, 16, 4, 1, 128, True, 0, None, 8),
+    "d128-window": (1, 32, 32, 4, 2, 128, True, 6, None, 8),
 }
 
 
@@ -187,7 +193,10 @@ WGMMA_PATH_CASES = {
     "fp16-mha": ((torch.float16, 64, 8, 8, 0), True),
     "mqa-bf16": ((torch.bfloat16, 64, 8, 1, 0), True),
     "fp32": ((torch.float32, 64, 32, 4, 0), False),
-    "d128": ((torch.bfloat16, 128, 16, 4, 0), False),
+    "d128": ((torch.bfloat16, 128, 16, 4, 0), True),
+    "d128-fp16-mha": ((torch.float16, 128, 32, 32, 0), True),
+    "d128-fp32": ((torch.float32, 128, 32, 32, 0), False),
+    "d128-unaligned": ((torch.bfloat16, 128, 32, 32, 8), False),
     "d256": ((torch.float16, 256, 8, 2, 0), False),
     "unaligned": ((torch.bfloat16, 64, 32, 4, 8), False),
     "heads-not-grouped": ((torch.bfloat16, 64, 6, 4, 0), False),
@@ -287,17 +296,28 @@ def test_cuda_kernels_match_plain_versions(case):
 
 
 HOPPER_CASES = [
-    # b, sq, skv, hq, hkv, causal, window, dtype at d 64: GQA groups 1, 2,
-    # 4 and 8, sq < skv and sq > skv, ragged lengths (TMA zero-fills the
-    # tail of the last tile), windows, non-causal
-    (1, 256, 256, 4, 4, True, 0, torch.bfloat16),
-    (2, 300, 300, 8, 4, True, 0, torch.float16),
-    (1, 1000, 1000, 16, 2, True, 0, torch.bfloat16),
-    (1, 333, 517, 8, 2, True, 0, torch.float16),
-    (1, 517, 333, 8, 2, True, 0, torch.bfloat16),
-    (1, 600, 600, 8, 2, True, 100, torch.bfloat16),
-    (1, 333, 517, 8, 2, True, 100, torch.float16),
-    (1, 200, 330, 4, 1, False, 0, torch.bfloat16),
+    # b, sq, skv, hq, hkv, d, causal, window, dtype at d 64 and 128: GQA
+    # groups 1, 2, 4 and 8, sq < skv and sq > skv, ragged lengths (TMA
+    # zero-fills the tail of the last tile), windows, non-causal, bf16 and
+    # fp16; at d 128 also Llama-2-7B's heads at 2048 (ZeRO-3 training)
+    (1, 256, 256, 4, 4, 64, True, 0, torch.bfloat16),
+    (2, 300, 300, 8, 4, 64, True, 0, torch.float16),
+    (1, 1000, 1000, 16, 2, 64, True, 0, torch.bfloat16),
+    (1, 333, 517, 8, 2, 64, True, 0, torch.float16),
+    (1, 517, 333, 8, 2, 64, True, 0, torch.bfloat16),
+    (1, 600, 600, 8, 2, 64, True, 100, torch.bfloat16),
+    (1, 333, 517, 8, 2, 64, True, 100, torch.float16),
+    (1, 200, 330, 4, 1, 64, False, 0, torch.bfloat16),
+    (1, 256, 256, 4, 4, 128, True, 0, torch.bfloat16),
+    (2, 300, 300, 8, 2, 128, True, 0, torch.float16),
+    (1, 1000, 1000, 16, 2, 128, True, 0, torch.bfloat16),
+    (1, 333, 517, 8, 2, 128, True, 0, torch.float16),
+    (1, 517, 333, 8, 2, 128, True, 0, torch.bfloat16),
+    (1, 600, 600, 8, 2, 128, True, 100, torch.bfloat16),
+    (1, 333, 517, 8, 1, 128, True, 100, torch.float16),
+    (1, 200, 330, 4, 1, 128, False, 0, torch.bfloat16),
+    (1, 300, 300, 8, 8, 128, False, 0, torch.float16),
+    (1, 2048, 2048, 32, 32, 128, True, 0, torch.bfloat16),
 ]
 
 
@@ -306,9 +326,9 @@ HOPPER_CASES = [
 def test_cuda_hopper_backward_matches_plain_and_repeats(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    b, sq, skv, hq, hkv, causal, window, dtype = case
-    q, k, v, do = _cuda_case(1, b, sq, skv, hq, hkv, 64, dtype)
-    assert fa.flash_wgmma_path(dtype, 64, hq, hkv,
+    b, sq, skv, hq, hkv, d, causal, window, dtype = case
+    q, k, v, do = _cuda_case(1, b, sq, skv, hq, hkv, d, dtype)
+    assert fa.flash_wgmma_path(dtype, d, hq, hkv,
                                tuple(t.data_ptr() for t in (q, k, v, do)))
     kw = dict(causal=causal, window=window)
     out, lse = fa.flash_attention_forward_reference(q, k, v, **kw)
