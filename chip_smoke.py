@@ -12,7 +12,9 @@ CPU path — without a CUDA device the script fails):
    limit;
 2. build: compile every kernel library from the sources in the checkout
    with ``nvcc`` (one process each, all started together, with two
-   scratch builds of fused_collectives.cu for a measurement) and print
+   scratch builds of fused_collectives.cu for a measurement; phase 4,
+   which needs none of fused_collectives.cu's three, runs while they
+   finish, and phase 3 starts once all are built) and print
    each kernel's ``-Xptxas -v`` registers, spills and shared memory, with
    a summary of the Hopper kernels: the fused collectives' wgmma_kernel
    (rows 7-9), the flash kernels and the paged tile, split and combine
@@ -147,12 +149,13 @@ CPU path — without a CUDA device the script fails):
    that rolls back; (e) the phase's paged launches (from 0), tile and
    lane items, peak memory;
 6f. tensor-parallel serving: 2 rank processes on the one card over gloo,
-   each building the seed-0 Llama-2-7B (one rank at a time) and cutting
-   it to its shard (16 of 32 heads, half of d_ff and of the vocab, half
-   of every page's KV heads); rank 0 is the controller, rank 1 replays
-   its step records (``serve_worker``). (a) ``ServingEngine`` over a
-   512-page bf16 TP engine, phase 5's 8 requests: streams equal phase
-   5's up to near-ties, each rank's paged launches one a layer a put
+   each building the seed-0 Llama-2-7B at 8 of its 32 layers (time; one
+   rank at a time) and cutting it to its shard (16 of 32 heads, half of
+   d_ff and of the vocab, half of every page's KV heads); rank 0 is the
+   controller, rank 1 replays its step records (``serve_worker``). (a)
+   ``ServingEngine`` over a 512-page bf16 TP engine, phase 5's 8
+   requests: streams equal one card's at that depth (512-page replicas
+   made first) up to near-ties, each rank's paged launches one a layer a put
    (tile items for the prefills), layer 0's put held against the plain
    version at the rank's shape and timed, no leak, TTFT, tokens/s, the
    share of a put in the model group's host-staged collectives, peak
@@ -271,7 +274,7 @@ CPU path — without a CUDA device the script fails):
    and 2 timed steps a run with the flash counts, the comms ledger and a
    collective meter set to 0 between them: (a) GPT-2 small at full
    depth, stages 0, 1 and 2, 16 x 1024, GAS 2; (b) OPT-1.3B's widths at
-   6 of 24 layers, stages 0 and 2, 8 x 512; (c) Llama-2-7B's widths at 2
+   3 of 24 layers, stages 0 and 2, 8 x 512; (c) Llama-2-7B's widths at 2
    of 32 layers, stage 3 on the per-layer gather, 2 x 2048: step time,
    tokens/s, MFU, peak memory a rank (falling with the stage in (a) and
    (b)), masters', moments' and gradient accumulator's bytes a rank, the
@@ -279,7 +282,7 @@ CPU path — without a CUDA device the script fails):
    launches a rank (all on the Hopper kernels, (c)'s d 128 too), a
    finite falling loss, no skipped step, the masters bitwise equal on
    both ranks at stages 1-2; (d) Llama-1b's
-   widths and OPT's flag set (at OPT-125m's) at 2 layers in fp32, one
+   widths and OPT's flag set (at OPT-125m's) at 1 layer in fp32, one
    step of 2 x 128: stages 1-3 (OPT: 3) and stage 2 with qgZ on the card,
    each against the card's stage 0 (losses 1e-5, grad norms 1e-4, the
    masters within 1e-6 but for Adam's near-eps elements; qgZ not) and
@@ -306,6 +309,26 @@ CPU path — without a CUDA device the script fails):
    matmul_pallas / matmul_quantize counts set to 0 between them and read
    per rank (every row 7-9 launch on the Hopper kernel); step time,
    peak memory, and one profiled step of the compressed fused run.
+12. checkpoints, under a temporary directory (removed after; a disk with
+   too little room fails): (a) TinyLlama-1.1B's widths at 4 of 22
+   layers, bf16 on fp32 masters, AdamW, 2 x 2048 GAS 2 from a bound
+   loader, a save every 2 steps: 4 steps (A), then a fresh
+   ``initialize`` with ``auto_resume`` on the step-2 tag (the load
+   bitwise A's step-2 state) runs steps 3-4, its flash launches counted
+   from 0 (all on the Hopper kernels): losses, masters, moments, scaler,
+   step, random stream and loader position equal A's (were they not, A's
+   steps again without saves, A', would give the step's own spread to
+   hold them within); a torn save (chaos ``before_commit``) and a
+   flipped byte in the newest tag each send auto-resume back to the
+   previous valid tag, loaded bitwise; save / load / CRC seconds and
+   GB/s; (c) that engine's ``get_fp32_state_dict``, ``save_16bit_model``
+   read back, and ``hot_swap_checkpoint`` (weights only); (b) Llama-2-7B's
+   widths at 2 layers exported by ``export_hf_llama`` as sharded
+   safetensors (an index and at least 2 shards), read back by
+   ``from_pretrained``, phase 5's 8 requests
+   (16 new tokens each) served from it with the paged counters from 0,
+   streams and the first put's logits bitwise an in-memory engine's, and
+   ``init_inference(config={"checkpoint": ...})`` likewise.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -522,22 +545,38 @@ def _timed_load(build) -> float:
     return time.perf_counter() - t0
 
 
-def phase_build() -> None:
-    """Build every kernel library at once (one nvcc each, in parallel),
-    with the two scratch builds of row 7's converter (SCRATCH_BUILDS).
-    Each library's own seconds are printed beside the wall time: their sum
-    is what a one-after-another loop would take. The ptxas report is
-    printed for the libraries the port runs, and the Hopper kernel's
-    dynamic shared memory, which ptxas does not report."""
+def phase_build() -> dict:
+    """Start every kernel library's build at once (one nvcc each, in
+    parallel), with the two scratch builds of row 7's converter
+    (SCRATCH_BUILDS), and wait for all but fused_collectives.cu's: its
+    three builds take the longest, and phase 4, which needs none of them,
+    runs beside them. :func:`phase_build_report` waits for the rest."""
     builds = [(name, None) for name in LIBRARIES] + SCRATCH_BUILDS
     keys = [" ".join([name] + [f"-D{k}={v}" for k, v in
                                sorted((defines or {}).items())])
             for name, defines in builds]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builds)) as pool:
-        secs = dict(zip(keys, pool.map(_timed_load, builds)))
-    log(f"build: {time.perf_counter() - t0:.2f} s wall for {keys} in "
-        f"parallel; each library's own seconds "
+    pool = ThreadPoolExecutor(len(builds))
+    futures = {k: pool.submit(_timed_load, b) for k, b in zip(keys, builds)}
+    early = [k for k in keys if not k.startswith("fused_collectives")]
+    for k in early:
+        futures[k].result()
+    log(f"build: {early} built in {time.perf_counter() - t0:.2f} s wall; "
+        f"fused_collectives.cu's builds go on beside phase 4")
+    return {"pool": pool, "futures": futures, "t0": t0}
+
+
+def phase_build_report(pending: dict) -> None:
+    """Wait for the builds :func:`phase_build` started. Each library's own
+    seconds are printed beside the wall time (phase 4 ran within it):
+    their sum is what a one-after-another loop would take. The ptxas
+    report is printed for the libraries the port runs, and the Hopper
+    kernel's dynamic shared memory, which ptxas does not report."""
+    secs = {k: f.result() for k, f in pending["futures"].items()}
+    pending["pool"].shutdown()
+    log(f"build: {time.perf_counter() - pending['t0']:.2f} s wall for "
+        f"{list(secs)} in parallel, phase 4 beside fused_collectives.cu's; "
+        f"each library's own seconds "
         + ", ".join(f"{n} {s:.2f}" for n, s in secs.items())
         + f" (sum {sum(secs.values()):.2f})")
     for name in LIBRARIES:
@@ -3498,6 +3537,7 @@ def phase_region(model, card: str, err: dict) -> dict:
 
 # --------------------------------------------------------------- phase 6f
 TP_WORLD = 2
+TP_LAYERS = 8                       # (a)-(d), (g), (h): Llama-2-7B's 32 cut
 TP_DECODE_SHAPE = (4, 5504, 4096)   # v1 TP decode: x [4, d_ff / 2] . w_down
 TP_OPT_DECODE_SHAPE = (4, 8192, 4096)   # (f): OPT-6.7B's
 TP_DEQUANT_SHAPE = (4096, 8192)     # (f): an OPT-6.7B w_up shard, int8
@@ -3513,7 +3553,7 @@ TP_MOE_SHAPE = dict(REPLICA_SHAPE, max_context=2048)
 TP_MOE_REQUESTS = 4
 TP_HANDOFF_TOKENS = 300             # (h): the handed-off prompt
 TP_PREFIX_TOKENS = 72               # (h): the prefix tier's prompt
-TP_PREDICTED_S = 200.0              # stated in PERF.md before the first run
+TP_PREDICTED_S = 90.0               # stated in PERF.md before the run
 
 
 class _CollMeter:
@@ -4014,8 +4054,9 @@ def _tp_opt(rank, world, topo, meter, args) -> dict:
 
 
 def _job_tp(rank, world, device, prompts, ids, new, more):
-    """A rank of phase 6f: the seed-0 Llama-2-7B built at full width (one
-    rank at a time) and cut to this rank's shard, then (a) TP serving over
+    """A rank of phase 6f: the seed-0 Llama-2-7B at ``TP_LAYERS`` of its 32
+    layers, built at full width (one rank at a time) and cut to this
+    rank's shard, then (a) TP serving over
     a bf16 pool, (b) over an int8 pool, (g) speculative serving of 6b's
     requests over a bf16 pool, (h) the hand-off and the prefix tier, (c)
     v1 ``init_inference`` with ``tensor_parallel`` and the fused backend
@@ -4034,7 +4075,8 @@ def _job_tp(rank, world, device, prompts, ids, new, more):
     t0 = time.perf_counter()
     topo = Topology.build({"model": world})
     model = _one_at_a_time(rank, world, lambda: shard_params(
-        Llama("7b", dtype=torch.bfloat16, seed=0), topo))
+        Llama("7b", dtype=torch.bfloat16, seed=0, n_layers=TP_LAYERS),
+        topo))
     out = {"built_s": time.perf_counter() - t0,
            "weight_bytes": sum(p.numel() * p.element_size()
                                for p in model.parameters())}
@@ -4083,7 +4125,11 @@ def _job_tp(rank, world, device, prompts, ids, new, more):
     gc.collect()
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    out.update(_tp_opt(rank, world, topo, meter, more["opt"]))
+    # OPT-6.7B keeps its depth: a put moves the counters by its layers
+    from deepspeed_tpu_torch.models.gpt2 import opt_config
+
+    out.update(_tp_opt(rank, world, topo,
+                       _TPMeter(opt_config("6.7b").n_layers), more["opt"]))
     out["opt_seconds"] = time.perf_counter() - t1
     gc.collect()
     torch.cuda.empty_cache()
@@ -4312,12 +4358,35 @@ def _tp_summary(c, n: int, tag: str, letter: str, card: str, same, ties,
     return share
 
 
-def phase_tp(model, card: str, err: dict, prompts, ref: dict, spec: dict,
-             opt: dict) -> dict:
+def _tp_references(model, prompts, spec_prompts) -> dict:
+    """6f's one-card references at its depth (``TP_LAYERS``), as 6c-6e
+    make theirs: the greedy 32-token streams of phase 5's requests over a
+    512-page bf16 pool and of the first 4 over an int8 one, and of 6b's
+    draftable requests, each through one manually driven replica."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+
+    out = {}
+    for tag, kvq in (("bf16", "none"), ("int8", "int8")):
+        eng = RaggedInferenceEngine(model, RaggedConfig(
+            n_kv_blocks=REPLICA_PAGES, kv_quant=kvq, **REPLICA_SHAPE))
+        out[tag] = _serve_once(eng, prompts if tag == "bf16"
+                               else prompts[:4])
+        if tag == "bf16":
+            out["spec"] = _serve_once(eng, spec_prompts)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(card: str, err: dict, prompts, spec: dict, opt: dict) -> dict:
     """6f, tensor-parallel serving: 2 rank processes on the one card over
-    gloo (one job, :func:`_job_tp`). On the seed-0 Llama-2-7B's shards
-    (16 of 32 heads, half of d_ff and of the vocab, half of every page's
-    KV heads): (a) ServingEngine on the controller over a 512-page bf16
+    gloo (one job, :func:`_job_tp`). On the seed-0 Llama-2-7B at
+    ``TP_LAYERS`` of its 32 layers (time), cut in shards (16 of 32 heads,
+    half of d_ff and of the vocab, half of every page's KV heads), held to
+    one-card references at that depth (:func:`_tp_references`): (a)
+    ServingEngine on the controller over a 512-page bf16
     TP engine, phase 5's 8 requests; (b) an int8 pool, 4 of them; (g)
     speculative serving of 6b's 8 requests; (h) the hand-off both ways
     between the TP controller and a single-card engine (through files)
@@ -4331,21 +4400,25 @@ def phase_tp(model, card: str, err: dict, prompts, ref: dict, spec: dict,
     ``TP_MOE_LAYERS`` layers, fp32, at TP 2 against its TP-1 run. Streams are
     held to the single-card runs up to near-ties within 2 x phase 6b's
     verify error; every rank's paged launches to one a layer for each of
-    its puts. ``ref``: phase 5's streams by pool; ``spec``: 6b's prompts
-    and speculative streams. Returns the numbers for the kernels line."""
+    its puts. ``prompts``: phase 5's requests; ``spec``: 6b's draftable
+    prompts. Returns the numbers for the kernels line."""
     import tempfile
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                       RaggedInferenceEngine)
+    from deepspeed_tpu_torch.models.llama import Llama
 
     t_phase = time.perf_counter()
     log(f"tp: phase 6f (a)-(i) predicted {TP_PREDICTED_S:.0f} s")
+    # the ranks build the same seed-0 weights at this depth; the
+    # references and the near-tie gaps come from these
+    model = Llama("7b", dtype=torch.bfloat16, seed=0, n_layers=TP_LAYERS)
     n_layers = model.config.n_layers
-    # phase 5's seed-0 weights again (6c's hot swap left seed 1's in the
-    # shared model): the ranks build seed 0, and the references and the
-    # near-tie gaps must come from the same weights
-    model.init(0)
+    t_ref = time.perf_counter()
+    ref = _tp_references(model, prompts, spec["prompts"])
+    log(f"tp: one-card references at {n_layers} of 32 layers in "
+        f"{time.perf_counter() - t_ref:.1f} s")
     ids = np.random.default_rng(8).integers(1, 32000, (4, 128))
     v1 = deepspeed_tpu_torch.init_inference(
         model, {"dtype": "bfloat16", "temperature": 0.0})
@@ -4398,10 +4471,10 @@ def phase_tp(model, card: str, err: dict, prompts, ref: dict, spec: dict,
         ctrl[tag]["share"] = _tp_summary(c, len(reqs), tag, letter, card,
                                          same, ties, err[kvq], good)
         ok = ok and good
-    # (g) speculative serving of 6b's requests: streams as 6b's
+    # (g) speculative serving of 6b's requests: streams as one card's
     c = ctrl["spec"]
     ok_s, same, ties = _streams_ok(ref_eng, spec["prompts"], c["streams"],
-                                   spec["streams"], err["none"])
+                                   ref["spec"], err["none"])
     good = (ok_s and c["states"] == ["finished"] * len(spec["prompts"])
             and c["leaks"] == [] and not c["errors"]
             and c["verify_puts"] > 0)
@@ -7913,11 +7986,12 @@ ZERO_WARM, ZERO_TIMED = 1, 2
 ZERO_LR = 1e-4
 ZERO_RUNS = {      # (model, stages, rows x tokens a step, GAS, label)
     "a": ("gpt2", (0, 1, 2), 16, 1024, 2, "GPT-2 small, 12 of 12 layers"),
-    "b": ("opt", (0, 2), 8, 512, 1, "OPT-1.3B widths, 6 of 24 layers"),
+    "b": ("opt", (0, 2), 8, 512, 1, "OPT-1.3B widths, 3 of 24 layers"),
     "c": ("llama7b", (3,), 2, 2048, 1, "Llama-2-7B widths, 2 of 32 layers")}
-ZERO_OPT_LAYERS = 6             # (b): the step's gloo bytes (time)
+ZERO_OPT_LAYERS = 3             # (b): the step's gloo bytes (time)
 ZERO_LLAMA_LAYERS = 2           # (c)
 ZERO_PARITY_ROWS = (2, 128)     # (d): rows x tokens of its one step
+ZERO_PARITY_LAYERS = 1          # (d): the host ranks' work (time)
 # (d): (model, stage, qgZ) on the card, each held to the card's stage 0
 # of its model (the masters after the step; qgZ not), and every run but
 # stage 0 on the two host ranks too; OPT's flag set at OPT-125m's widths.
@@ -7929,7 +8003,7 @@ ZERO_PARITY_CARD = (("llama", 0, False), ("llama", 1, False),
                     ("opt125m", 3, False))
 ZERO_PARITY_HOST = tuple(run for run in ZERO_PARITY_CARD if run[1])
 ZERO_HOST_THREADS = 3
-ZERO_PREDICTED_S = 145.0        # stated in PERF.md before the run
+ZERO_PREDICTED_S = 125.0        # stated in PERF.md before the run
 _ZERO_HOST_MODELS: dict = {}    # (d)'s drawn host models, copied a run
 
 
@@ -7950,7 +8024,7 @@ def _zero_cfg(rows: int, gas: int, stage: int, bf16: bool,
 def _zero_model(kind: str, device: str = "cuda"):
     """8d's models from a seed, every bias and norm term drawn: (a)-(c) at
     full width built on the card ((c)'s then moved to the host), (d)'s
-    2-layer fp32 ones drawn on the host once a process and copied to
+    1-layer fp32 ones drawn on the host once a process and copied to
     ``device`` a run (the cpu ranks and the card get the same
     weights)."""
     import copy
@@ -7969,9 +8043,10 @@ def _zero_model(kind: str, device: str = "cuda"):
         return _draw_vectors(Llama("7b", seed=0,
                                    n_layers=ZERO_LLAMA_LAYERS), 0).cpu()
     if kind not in _ZERO_HOST_MODELS:
-        make = Llama("1b", device="cpu", seed=2, n_layers=2) \
+        make = Llama("1b", device="cpu", seed=2,
+                     n_layers=ZERO_PARITY_LAYERS) \
             if kind == "llama" else OPT("125m", device="cpu", seed=2,
-                                        n_layers=2)     # "opt125m"
+                                        n_layers=ZERO_PARITY_LAYERS)
         _ZERO_HOST_MODELS[kind] = _draw_vectors(make, 2)
     return copy.deepcopy(_ZERO_HOST_MODELS[kind]).to(device)
 
@@ -8052,7 +8127,7 @@ def _zero_timed(rank, world, key: str, stage: int, ids: np.ndarray) -> dict:
 
 def _zero_parity(rank, world, device: str, kind: str, stage: int, qgz: bool,
                  ids: np.ndarray, keep: bool) -> dict:
-    """One (d) run on one rank: the 2-layer fp32 model through
+    """One (d) run on one rank: the 1-layer fp32 model through
     ``initialize`` at ``stage`` over the two ranks, one step; the masters
     gathered whole, kept with ``keep`` (rank 0), with, on the card, the
     quantizer's launches and at stage 0 each element's |g| as the
@@ -8196,7 +8271,8 @@ def _zero_parity_checks(res, res_cpu, card: str) -> bool:
         hw = r0["host_weights"]
         good = (same and goodh and hw["ok"]
                 and (stage < 3 or r0["route"] == "gather"))
-        line = (f"zero train (d) {kind} 2 layers fp32 stage {stage}"
+        line = (f"zero train (d) {kind} {ZERO_PARITY_LAYERS} layer fp32 "
+                f"stage {stage}"
                 f"{' qgZ' if qgz else ''} [{card}]: loss {step[0]:.6f}, "
                 f"grad norm {step[1]:.5f}; against stage 0 on the card: "
                 f"loss rel {l0:.2e}, grad norm rel {n0:.2e} "
@@ -8312,7 +8388,7 @@ def phase_zero_training(card: str) -> dict:
     processes on the one card (and two on the host for (d);
     :func:`_job_zero`), through ``initialize`` -> ``train_batch``: (a)
     GPT-2 small at full depth, stages 0, 1 and 2, 16 x 1024, GAS 2; (b)
-    OPT-1.3B's widths at 6 of 24 layers, stages 0 and 2, 8 x 512; (c)
+    OPT-1.3B's widths at 3 of 24 layers, stages 0 and 2, 8 x 512; (c)
     Llama-2-7B's widths at 2 of 32 layers, stage 3 (the per-layer
     gather), 2 x 2048: bf16 on fp32 masters, full remat, AdamW, 1 warm-up
     and 2 timed steps each: step time, tokens/s, MFU, peak memory a rank
@@ -8321,7 +8397,7 @@ def phase_zero_training(card: str) -> dict:
     flash launches (every one on the Hopper kernels, (c)'s at d 128
     too), a finite falling loss, no skipped step, the masters bitwise
     equal on both ranks at stages 1-2; (d) Llama-1b's
-    widths and OPT's flag set (OPT-125m's widths) at 2 layers in fp32, one
+    widths and OPT's flag set (OPT-125m's widths) at 1 layer in fp32, one
     step of 2 x 128: stages 1, 2, 3 (OPT: 3) and 2 with qgZ on the card,
     each against the card's stage 0 (losses 1e-5, grad norms 1e-4, the
     masters within 1e-6 but for Adam's near-eps elements; qgZ not) and
@@ -9364,6 +9440,379 @@ def phase_zero3_training(card: str) -> dict:
              if n in run[n]["wgmma_launches"]})
 
 
+# ---------------------------------------------------------------- phase 12
+CKPT_LAYERS = 4                # (a): TinyLlama-1.1B's 22 layers cut (time)
+CKPT_ROWS = (2, 2048)          # (a): micro-batch rows x tokens, GAS 2
+CKPT_GAS = 2
+CKPT_STEPS = 4
+CKPT_HF_LAYERS = 2             # (b): Llama-2-7B's 32 layers cut
+CKPT_HF_NEW = 16               # (b): new tokens a request
+CKPT_HF_SHARD = 512 << 20      # (b): bytes a shard of the HF export
+CKPT_FREE_BYTES = 24 << 30     # the tags, the export and slack
+CKPT_PREDICTED_S = 55.0        # stated in PERF.md before the first run
+
+
+def _ckpt_engine(ids, save_dir: Optional[str] = None, **ck):
+    """(a)'s trainer: ``llama_config("1b")``'s widths at ``CKPT_LAYERS``
+    layers from seed 12, fp32 masters (the model's own weights) with bf16
+    compute, AdamW, clip 1.0, GAS 2, fed by a bound loader over ``ids``;
+    ``ck`` is the ``checkpoint`` block under ``save_dir``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    cfg = {"train_batch_size": CKPT_ROWS[0] * CKPT_GAS,
+           "gradient_accumulation_steps": CKPT_GAS,
+           "bf16": {"enabled": True}, "gradient_clipping": 1.0, "seed": 12,
+           "steps_per_print": 1000,
+           "optimizer": {"type": "adamw",
+                         "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+    if save_dir is not None:
+        cfg["checkpoint"] = {"save_dir": save_dir, **ck}
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=Llama("1b", seed=12, n_layers=CKPT_LAYERS), config=cfg,
+        training_data={"input_ids": ids})
+    return engine, iter(loader)
+
+
+def _ckpt_state(e) -> dict:
+    """Copies on the card (3.7 GB a copy there; the host would take
+    seconds a copy) of everything a resume restores."""
+    def copy(tree):
+        return {n: t.detach().clone() for n, t in tree.items()}
+
+    return {"params": copy(e.params), "mu": copy(e.opt_state.mu),
+            "nu": copy(e.opt_state.nu), "count": e.opt_state.count,
+            "scaler": tuple(e.scaler_state), "step": e.global_steps,
+            "micro": e.micro_steps, "rng": e.rng.get_state(),
+            "loader": e._dataloader.state_dict()}
+
+
+def _ckpt_diff(a: dict, b: dict) -> dict:
+    """Where two states differ: per tree, leaves not bitwise equal and
+    the largest |difference|; the scalars that differ."""
+    out = {}
+    for k in ("params", "mu", "nu"):
+        bad = [n for n in a[k] if not torch.equal(a[k][n], b[k][n])]
+        if bad:
+            out[k] = (len(bad), max(float((a[k][n] - b[k][n]).abs().max())
+                                    for n in bad))
+    for k in ("count", "scaler", "step", "micro", "loader"):
+        if a[k] != b[k]:
+            out[k] = (a[k], b[k])
+    if not torch.equal(a["rng"], b["rng"]):
+        out["rng"] = "differs"
+    return out
+
+
+def _ckpt_gb_s(nbytes: float, s: float) -> str:
+    return f"{nbytes / 1e9:.3f} GB in {s:.3f} s = {nbytes / 1e9 / s:.3f} GB/s"
+
+
+def _ckpt_run(engine, batches, steps: int, at=()) -> tuple:
+    """``steps`` training steps: (losses, each auto-save's numbers, the
+    state at the steps in ``at``)."""
+    losses, saves, states = [], [], {}
+    for _ in range(steps):
+        losses.append(float(engine.train_batch(next(batches))["loss"]))
+        step = engine.global_steps
+        if engine._ckpt_save_dir and step % 2 == 0:
+            saves.append(dict(engine.ckpt_engine.last_save))
+        if step in at:
+            states[step] = _ckpt_state(engine)
+    return losses, saves, states
+
+
+def _ckpt_resume(card: str, tmp: str) -> dict:
+    """12 (a): A runs ``CKPT_STEPS`` steps with a save every 2 (tags at
+    steps 2 and 4). With A's step-4 tag set aside, R (a fresh
+    ``initialize`` with ``auto_resume`` and no auto-save) loads the
+    step-2 tag, which must equal A's state at step 2 bit for bit, and
+    runs steps 3-4 with its flash launches counted from 0: its losses,
+    masters, moments, scaler, step, random stream and loader position
+    must equal A's. Bitwise; only were they not would A' (A's steps
+    again, no saves) run, to measure the step's own spread on the card,
+    and R be held within it. Two planted faults: R's save after step 4 is
+    torn (chaos ``before_commit``), and with A's step-4 tag back, one
+    byte of it is flipped; auto-resume must fall back each time to the
+    previous valid tag, loaded bit for bit."""
+    from deepspeed_tpu_torch.resilience import chaos
+    from deepspeed_tpu_torch.runtime.checkpoint import find_valid_tag
+
+    ids = np.random.default_rng(12).integers(
+        0, 32000, (CKPT_STEPS * CKPT_ROWS[0] * CKPT_GAS, CKPT_ROWS[1]))
+    d = os.path.join(tmp, "a")
+    last = f"global_step{CKPT_STEPS}"
+    ea, it = _ckpt_engine(ids, d, save_interval=2, keep_last_n=2)
+    la, saves, sa = _ckpt_run(ea, it, CKPT_STEPS, at=(2, CKPT_STEPS))
+    nbytes = saves[0]["bytes"]
+    del ea, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"ckpt (a) [{card}]: A's losses {la}")
+    for i, s in enumerate(saves):
+        log(f"ckpt (a) save {i + 1} of A [{card}]: "
+            f"{_ckpt_gb_s(s['bytes'], s['total_s'])} (write + CRC "
+            f"{s['write_s']:.3f} s, commit {s['commit_s']:.3f} s)")
+    aside = os.path.join(tmp, "a_last")
+    os.rename(os.path.join(d, last), aside)
+    t0 = time.perf_counter()
+    er, it = _ckpt_engine(ids, d, keep_last_n=2, auto_resume=True)
+    init_s = time.perf_counter() - t0
+    load = dict(er.last_load)
+    round_trip = _ckpt_diff(_ckpt_state(er), sa[2])
+    log(f"ckpt (a) load [{card}]: initialize with auto_resume took "
+        f"{init_s:.3f} s; the load of tag {load['tag']} "
+        f"{_ckpt_gb_s(nbytes, load['s'])}, its CRC pass "
+        f"{load['verify_s']:.3f} s ({nbytes / 1e9 / load['verify_s']:.3f} "
+        f"GB/s); state against A's at step 2: "
+        f"{'bitwise' if not round_trip else round_trip}")
+    # steps 3-4, then a save that is torn: the process dies before the
+    # commit rename
+    _flash_reset()
+    lr, _, _ = _ckpt_run(er, it, CKPT_STEPS - 2)
+    launches, hopper = _flash_read()
+    sr = _ckpt_state(er)
+    chaos.install_fault_injector(chaos.FaultInjector(
+        crash_before_commit_at_save=1))
+    torn = False
+    try:
+        er.save_checkpoint(d)
+    except chaos.InjectedFault:
+        torn = True
+    finally:
+        chaos.install_fault_injector(None)
+    want = {n: 2 * k for n, k in
+            _flash_per_step([er.model.config], CKPT_GAS).items()}
+    diff = _ckpt_diff(sr, sa[CKPT_STEPS])
+    same = not diff
+    if not same:
+        # the step's own spread on the card: A's steps again
+        eb, itb = _ckpt_engine(ids)
+        lb, _, sb = _ckpt_run(eb, itb, CKPT_STEPS, at=(CKPT_STEPS,))
+        del eb, itb
+        spread = _ckpt_diff(sb[CKPT_STEPS], sa[CKPT_STEPS])
+        same = set(diff) <= set(spread) and all(
+            diff[k][1] <= spread[k][1] for k in ("params", "mu", "nu")
+            if k in diff)
+        log(f"ckpt (a) [{card}]: R is not bitwise A; A' (A's steps again) "
+            f"losses {lb}, A vs A' {spread}: R within that spread {same}")
+    log(f"ckpt (a) R [{card}]: steps 3-4's losses {lr} (A's {la[2:]}); state "
+        f"after step {CKPT_STEPS} against A's: "
+        f"{'bitwise' if not diff else diff}; flash launches {launches} "
+        f"(expected {want}), on the Hopper kernels {hopper}")
+    ok = (not round_trip and load["tag"] == "global_step2" and same
+          and lr == la[2:] and launches == want and hopper == launches
+          and all(np.isfinite(la)))
+    # (i) the torn save: auto-resume falls back to step 2's tag
+    er.load_checkpoint(d, auto=True)
+    torn_tag = er.last_load["tag"]
+    torn_ok = (torn and not os.path.isdir(os.path.join(d, last))
+               and torn_tag == "global_step2"
+               and not _ckpt_diff(_ckpt_state(er), sa[2]))
+    log(f"ckpt (a) torn save [{card}]: R's save after step {CKPT_STEPS} crashed "
+        f"before commit {torn}; auto-resume took {torn_tag} "
+        f"({er.last_load['s']:.3f} s, CRC {er.last_load['verify_s']:.3f} "
+        f"s), state bitwise A's at step 2 {'ok' if torn_ok else 'FAIL'}")
+    # (ii) A's step-4 tag back as the newest, one bit of it flipped
+    os.rename(aside, os.path.join(d, last))
+    newest = find_valid_tag(d, checksums=False)
+    victim = os.path.join(d, last, "state", "params.safetensors")
+    with open(victim, "r+b") as f:
+        f.seek(os.path.getsize(victim) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0x01]))
+    er.load_checkpoint(d, auto=True)
+    flip_tag = er.last_load["tag"]
+    flip_ok = (newest == last and flip_tag == "global_step2"
+               and not _ckpt_diff(_ckpt_state(er), sa[2]))
+    log(f"ckpt (a) flipped byte [{card}]: one bit of the newest tag's "
+        f"{victim[len(tmp) + 1:]} flipped; auto-resume took {flip_tag} "
+        f"({er.last_load['s']:.3f} s, two CRC passes "
+        f"{er.last_load['verify_s']:.3f} s), state bitwise A's at step 2 "
+        f"{'ok' if flip_ok else 'FAIL'}")
+    ok = ok and torn_ok and flip_ok
+    if not ok:
+        raise SystemExit("phase 12 (a): resume failed")
+    return {"engine": er, "batches": it, "dir": d, "state2": sa[2],
+            "bytes": nbytes, "saves": saves, "load": load,
+            "launches": launches, "wgmma_launches": hopper}
+
+
+def _ckpt_exports(res: dict, card: str, tmp: str) -> None:
+    """12 (c), on (a)'s resumed engine R (at A's step-2 state):
+    ``get_fp32_state_dict`` and ``save_16bit_model`` (read back) bitwise
+    the masters and their bf16 cast, keyed as JAX keys them; then one
+    step, and ``hot_swap_checkpoint`` onto the step-2 tag: the weights
+    become that tag's again, while the step, moments, scaler, random
+    stream and loader position stay."""
+    from deepspeed_tpu_torch.checkpoint import safetensors_io as sio
+    from deepspeed_tpu_torch.runtime.engine import jax_tree_keys
+
+    er, want = res["engine"], res["state2"]["params"]
+    fp32 = er.get_fp32_state_dict()
+    fp32_ok = fp32.keys() == want.keys() and all(
+        torch.equal(fp32[n], want[n].cpu()) for n in want)
+    t0 = time.perf_counter()
+    path = er.save_16bit_model(os.path.join(tmp, "export"))
+    save16_s = time.perf_counter() - t0
+    back = sio.load_file(path)
+    ref16 = jax_tree_keys({n: t.bfloat16() for n, t in want.items()})
+    b16_ok = back.keys() == ref16.keys() and all(
+        torch.equal(back[k], ref16[k].cpu()) for k in ref16)
+    er.train_batch(next(res["batches"]))
+    before = _ckpt_state(er)
+    t0 = time.perf_counter()
+    version = er.hot_swap_checkpoint(res["dir"], tag="global_step2")
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    after = _ckpt_state(er)
+    diff = _ckpt_diff(after, before)
+    swapped = all(torch.equal(t, want[n]) for n, t in after["params"].items())
+    swap_ok = (swapped and set(diff) == {"params"} and version is None
+               and after["step"] == 3)
+    log(f"ckpt (c) [{card}]: get_fp32_state_dict bitwise the masters "
+        f"{fp32_ok}; save_16bit_model {os.path.getsize(path)} B in "
+        f"{save16_s:.3f} s, read back bitwise the bf16 cast under JAX's "
+        f"keys {b16_ok}; after one more step, hot_swap_checkpoint in "
+        f"{swap_s:.3f} s: weights now the step-2 tag's {swapped}, step "
+        f"{after['step']}, moments, scaler, stream and loader position "
+        f"unchanged {set(diff) == {'params'}} "
+        f"{'ok' if fp32_ok and b16_ok and swap_ok else 'FAIL'}")
+    if not (fp32_ok and b16_ok and swap_ok):
+        raise SystemExit("phase 12 (c): exports failed")
+
+
+def _ckpt_hf(card: str, tmp: str, prompts) -> dict:
+    """12 (b): Llama-2-7B's widths at ``CKPT_HF_LAYERS`` layers, seed 3,
+    bf16, exported by ``export_hf_llama`` as a sharded safetensors
+    directory and read back by ``from_pretrained`` onto the card (every
+    leaf bitwise); then phase 5's 8 requests, ``CKPT_HF_NEW`` new tokens
+    each, through ``ServingEngine`` over the loaded model with the paged
+    counters from 0 (one launch a layer a put, tile / lane counts), held
+    to an engine on the in-memory weights: the first put's logits and the
+    streams bitwise; and the v1 engine of ``init_inference(config=
+    {"checkpoint": ...})`` against one on the in-memory model."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint import safetensors_io as sio
+    from deepspeed_tpu_torch.checkpoint.export import export_hf_llama
+    from deepspeed_tpu_torch.checkpoint.hf import from_pretrained
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    model = Llama("7b", dtype=torch.bfloat16, seed=3,
+                  n_layers=CKPT_HF_LAYERS)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    out = os.path.join(tmp, "hf")
+    t0 = time.perf_counter()
+    export_hf_llama(model, None, out, max_shard_bytes=CKPT_HF_SHARD)
+    export_s = time.perf_counter() - t0
+    with open(os.path.join(out, sio.INDEX_FILE)) as f:
+        shards = sorted(set(json.load(f)["weight_map"].values()))
+    t0 = time.perf_counter()
+    loaded, params = from_pretrained(out, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    own = dict(model.named_parameters())
+    leaves_ok = params.keys() == own.keys() and all(
+        torch.equal(params[n], own[n]) for n in own)
+    log(f"ckpt (b) [{card}]: {sum(p.numel() for p in own.values())} "
+        f"parameters exported as {len(shards)} shards + index: "
+        f"{_ckpt_gb_s(nbytes, export_s)}; from_pretrained onto the card "
+        f"{_ckpt_gb_s(nbytes, load_s)}; every leaf bitwise {leaves_ok}")
+    cfg = RaggedConfig(n_kv_blocks=REPLICA_PAGES, **REPLICA_SHAPE)
+    ref_eng = RaggedInferenceEngine(model, cfg)
+    counter = _PutCounter(CKPT_HF_LAYERS)
+    got_eng = counter.wrap(RaggedInferenceEngine(loaded, cfg))
+    first_ref = _resolve(ref_eng, [1], [prompts[0]])[1]
+    first_got = _resolve(got_eng, [1], [prompts[0]])[1]
+    ref_eng.flush([1])
+    got_eng.flush([1])
+    logits_ok = bool(np.array_equal(first_ref, first_got))
+    for name in PAGED_PATH_COUNTERS:
+        setattr(pa.paged_attention, name, 0)
+    counter.steps = {k: 0 for k in counter.steps}
+    streams = _serve_once(got_eng, prompts, n=CKPT_HF_NEW)
+    torch.cuda.synchronize()
+    counts = {n: getattr(pa.paged_attention, n) for n in PAGED_PATH_COUNTERS}
+    steps = dict(counter.steps)
+    ref = _serve_once(ref_eng, prompts, n=CKPT_HF_NEW)
+    del ref_eng, got_eng
+    counts_ok = (counts["launches"] == CKPT_HF_LAYERS * steps["put"] > 0
+                 and counts["tile_launches"]
+                 == CKPT_HF_LAYERS * steps["tile"] > 0
+                 and counts["split_launches"]
+                 == CKPT_HF_LAYERS * steps["split"] > 0
+                 and steps["odd"] == 0)
+    streams_ok = streams == ref and all(len(s) == CKPT_HF_NEW
+                                        for s in streams)
+    log(f"ckpt (b) serving [{card}]: {len(prompts)} requests x "
+        f"{CKPT_HF_NEW} new tokens over the loaded checkpoint: first put's "
+        f"logits bitwise {logits_ok}; streams identical to the in-memory "
+        f"engine's {streams_ok}; paged launches {counts['launches']} "
+        f"({CKPT_HF_LAYERS} layers x {steps['put']} puts; tile items in "
+        f"{steps['tile']} puts = {counts['tile_launches']} launches, lane "
+        f"items in {steps['split']} = {counts['split_launches']})")
+    ids = np.random.default_rng(13).integers(1, 32000, (4, 128))
+    v1_ref = deepspeed_tpu_torch.init_inference(
+        model, {"dtype": "bfloat16", "temperature": 0.0})
+    want = v1_ref.generate(ids, max_new_tokens=CKPT_HF_NEW)
+    want_logits = v1_ref.forward(ids)
+    del v1_ref
+    v1 = deepspeed_tpu_torch.init_inference(
+        config={"checkpoint": out, "dtype": "bfloat16", "temperature": 0.0})
+    got = v1.generate(ids, max_new_tokens=CKPT_HF_NEW)
+    v1_ok = bool(np.array_equal(np.asarray(got), np.asarray(want))
+                 and torch.equal(v1.forward(ids), want_logits))
+    del v1
+    log(f"ckpt (b) v1 [{card}]: init_inference(config={{'checkpoint': "
+        f"...}}) streams and forward logits bitwise the in-memory "
+        f"engine's {v1_ok}")
+    ok = (len(shards) >= 2 and leaves_ok and logits_ok and streams_ok
+          and counts_ok and v1_ok)
+    if not ok:
+        raise SystemExit("phase 12 (b): HF checkpoint serving failed")
+    return {**counts, "puts": steps["put"], "bytes": nbytes,
+            "export_s": export_s, "load_s": load_s}
+
+
+def phase_checkpoints(card: str, prompts) -> dict:
+    """12, checkpoints and recovery: (a) resume, (b) HF in, serving out,
+    (c) the exports of (a)'s engine, all under one temporary directory
+    (removed at the end) on a disk with ``CKPT_FREE_BYTES`` free."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    log(f"ckpt: phase 12 predicted {CKPT_PREDICTED_S:.0f} s")
+    tmp = tempfile.mkdtemp(prefix="dst_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < CKPT_FREE_BYTES:
+            raise SystemExit(f"phase 12: {free} B free under {tmp}; the "
+                             f"checkpoints need {CKPT_FREE_BYTES} B")
+        res = _ckpt_resume(card, tmp)
+        t_a = time.perf_counter() - t_phase
+        _ckpt_exports(res, card, tmp)
+        del res["engine"], res["batches"], res["state2"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_c = time.perf_counter() - t_phase - t_a
+        hf = _ckpt_hf(card, tmp, prompts)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    log(f"ckpt: (a) {t_a:.1f} s, (c) {t_c:.1f} s, (b) "
+        f"{took - t_a - t_c:.1f} s; phase 12 took {took:.1f} s (predicted "
+        f"{CKPT_PREDICTED_S:.0f} s)")
+    return {"launches": res["launches"],
+            "wgmma_launches": res["wgmma_launches"], "hf": hf,
+            "seconds": took}
+
+
 def main() -> int:
     from deepspeed_tpu_torch.models.llama import Llama
 
@@ -9373,7 +9822,13 @@ def main() -> int:
         log(f"chip_smoke: {what} done at {time.perf_counter() - t0:.1f} s")
 
     dev = phase_device()
-    phase_build()
+    pending = phase_build()
+    mark("build of all but fused_collectives.cu")
+    phase_engine()
+    phase_ragged_quant_parity()
+    phase_inference_parity()
+    mark("engine parity (4)")
+    phase_build_report(pending)
     mark("build")
     kern = phase_kernels()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -9385,10 +9840,6 @@ def main() -> int:
     mark("kernels (3, 5, 5q, 6k)")
     del flush
     torch.cuda.empty_cache()
-    phase_engine()
-    phase_ragged_quant_parity()
-    phase_inference_parity()
-    mark("engine parity (4)")
     paths, eng, prompts = phase_serving(dev["card"])
     mixed_t = phase_paged_mixed(paths.pop("mixed"), dev["card"])
     phase_profile(eng, prompts, dev["card"])
@@ -9432,11 +9883,12 @@ def main() -> int:
     fam = phase_families(dev["card"])
     mark("6g")
     opt = fam.pop("opt")
-    tp = phase_tp(model, dev["card"], spec["err"], prompts,
-                  {"bf16": paths["streams"],
-                   "int8": paged_q["int8"]["streams"]}, spec, opt)
+    del model             # 6f builds its own depth; phase 5's prompts
+    gc.collect()          # serve 6f and 12 (b) again
+    torch.cuda.empty_cache()
+    tp = phase_tp(dev["card"], spec["err"], prompts, spec, opt)
     mark("6f")
-    del model, prompts, opt
+    del opt
     gc.collect()
     torch.cuda.empty_cache()
     enc = phase_encoders(dev["card"])
@@ -9464,6 +9916,8 @@ def main() -> int:
     mark("10")
     fused_launches, fused_wgmma = phase_zero3_training(dev["card"])
     mark("11")
+    ckpt = phase_checkpoints(dev["card"], prompts)
+    mark("12")
     d = kern["timings"]["decode_16x1024"]
     entries = [{"name": "paged_attention", "route": "cuda",
                 "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
@@ -9495,6 +9949,9 @@ def main() -> int:
                              "split_launches")},
                 **{f"moe_{n}": moe[n] for n in ("launches", "tile_launches",
                                                 "split_launches")},
+                # 12 (b): serving a Hugging Face export read back
+                **{f"ckpt_{n}": ckpt["hf"][n] for n in (
+                    "launches", "tile_launches", "split_launches")},
                 "max_abs_err": kern["max_abs_err"],
                 "ms": d["ms"], "kernel_ms": d["ms"],
                 "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
@@ -9573,7 +10030,10 @@ def main() -> int:
                                  zero_train["launches"].items()},
             zero_train_wgmma_launches={k: v[name] for k, v in
                                        zero_train["wgmma_launches"].items()},
-            zero3_timing=zero_train["flash"][name])
+            zero3_timing=zero_train["flash"][name],
+            # 12 (a): the 2 resumed steps
+            ckpt_resume_launches=ckpt["launches"][name],
+            ckpt_resume_wgmma_launches=ckpt["wgmma_launches"][name])
         if name == "flash_forward":
             # 6h: BERT-large's 10 timed forwards, CLIP's similarity, and
             # row 2 timed at their layer-0 calls

@@ -21,9 +21,13 @@ ZeRO stages 1-3 over ``data`` ranks (fed by
 ``initialize`` is given ``training_data``), and any ``nn.Module``
 wrapped by ``models.api.from_module``, generates images with Stable
 Diffusion (``models.diffusion``'s UNet and VAE, the DDIM pipeline of
-``inference.diffusion`` fed by CLIP's text tower), and trains a
+``inference.diffusion`` fed by CLIP's text tower), trains a
 ``zero3_blocks`` model with ZeRO stage 3 over several ranks through the
-compressed-collective facade:
+compressed-collective facade, saves crash-safe checkpoints that resume
+at any stage or layout (``runtime/checkpoint.py``, the config's
+``checkpoint`` and ``resilience`` blocks, ``launcher/agent.py``) and
+loads and exports Hugging Face weights (``checkpoint/hf.py``,
+``checkpoint/export.py``):
 
     from deepspeed_tpu_torch.models.gpt2 import GPT2, OPT, GPTNeo
     from deepspeed_tpu_torch.models.llama import Llama
@@ -167,6 +171,12 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
                                 collate_fn=collate_fn,
                                 prefetch_depth=cfg.dataloader.prefetch_depth)
         engine.bind_dataloader(dataloader)
+    if cfg.checkpoint.auto_resume and cfg.checkpoint.save_dir:
+        # preemption-safe auto-resume: the newest VALID tag (torn or
+        # corrupt tags are skipped by the manifest check); a missing
+        # directory is the first boot. After bind_dataloader, so the
+        # loader's position is restored too
+        engine.load_checkpoint(cfg.checkpoint.save_dir, auto=True)
     return engine, engine.optimizer, dataloader, engine.lr_schedule
 
 
@@ -196,13 +206,41 @@ def init_inference(model: Any = None, config: Any = None, *, device=None,
     does. ``model`` is a model, or a ``(model, params)`` pair whose
     ``params`` is a ``{name: tensor}`` dict as :func:`initialize` takes.
     ``config`` is a dict (or an ``InferenceConfig``); ``kwargs`` override
-    its keys. A ``checkpoint`` entry (loading from a checkpoint directory)
-    comes with a later slice and raises."""
+    its keys. A ``checkpoint`` entry naming a Hugging Face checkpoint
+    directory loads it with ``checkpoint.hf.from_pretrained`` when no
+    params are given (the checkpoint's own config builds the model unless
+    one is passed, whose config must then match it); under
+    ``tensor_parallel`` each rank reads its own shards."""
     icfg = InferenceConfig.from_any(config, **kwargs)
     params = None
     if isinstance(model, tuple):
         model, params = model
-    if model is None and not icfg.extras.get("checkpoint"):
+    ckpt = icfg.extras.get("checkpoint")
+    if model is None and not ckpt:
         raise ValueError("init_inference() needs a model or a (model, "
                          "params) pair")
+    if ckpt and params is None:
+        if isinstance(ckpt, dict):
+            raise NotImplementedError(
+                f"checkpoint={ckpt!r}: a checkpoint description (Megatron "
+                f"or universal checkpoints, checkpoint/megatron.py and "
+                f"universal.py) comes with a later slice of "
+                f"deepspeed_tpu_torch (ROADMAP.md, Queue A item 13); name "
+                f"a Hugging Face checkpoint directory")
+        from .checkpoint.hf import from_pretrained
+
+        topo = None
+        if icfg.tensor_parallel > 1:
+            from .comm import comm
+
+            if comm.get_world_size() != icfg.tensor_parallel:
+                raise ValueError(
+                    f"tensor_parallel={icfg.tensor_parallel} needs a world "
+                    f"size of {icfg.tensor_parallel} "
+                    f"(init_distributed), got {comm.get_world_size()}")
+            topo = Topology.build({"model": icfg.tensor_parallel})
+        loaded, params = from_pretrained(ckpt, dtype=icfg.torch_dtype,
+                                         topology=topo, device=device)
+        if model is None:
+            model = loaded
     return InferenceEngine(model, icfg, params=params, device=device)

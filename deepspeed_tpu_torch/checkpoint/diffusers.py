@@ -20,8 +20,10 @@ proj_in/proj_out (SD2 ``use_linear_projection``) are reshaped to 1x1
 convs so one forward serves both variants.
 
 Reading the files (``read_diffusers_state``, ``load_unet``, ``load_vae``)
-goes through the safetensors / ``.bin`` readers of ``checkpoint/hf.py``,
-which come with ROADMAP.md Queue A item 10; until then they raise.
+goes through the safetensors / ``.bin`` readers of ``checkpoint/hf.py``
+(torch tensors in the file's dtype); ``load_unet`` / ``load_vae`` take
+each tensor to float32 numpy for the map above and carry the tree into
+the port's module with ``load_jax_params``.
 """
 
 from __future__ import annotations
@@ -31,19 +33,29 @@ import os
 from typing import Any, Dict, Tuple
 
 import numpy as np
+import torch
 
 __all__ = ["map_diffusers_unet", "map_diffusers_vae", "unet_config",
            "vae_config", "read_diffusers_state", "load_unet", "load_vae"]
 
-_READERS_LATER = ("reading diffusers weight files needs checkpoint/hf.py's "
-                  "readers, which come with a later slice of "
-                  "deepspeed_tpu_torch (ROADMAP.md, Queue A item 10); map a "
-                  "state dict you read yourself with map_diffusers_unet / "
-                  "map_diffusers_vae")
+
+def read_diffusers_state(model_dir: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a diffusers component directory
+    (``diffusion_pytorch_model.safetensors`` / ``.bin``, or the HF
+    names), as CPU tensors in the file's dtype."""
+    from .hf import read_hf_state, read_one
+
+    d = str(model_dir)
+    for name in ("diffusion_pytorch_model.safetensors",
+                 "diffusion_pytorch_model.bin"):
+        path = os.path.join(d, name)
+        if os.path.exists(path):
+            return read_one(path)
+    return read_hf_state(d)
 
 
-def read_diffusers_state(model_dir: str) -> Dict[str, np.ndarray]:
-    raise NotImplementedError(_READERS_LATER)
+def _numpy_state(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.float().numpy() for k, v in state.items()}
 
 
 # -- name/layout normalization -----------------------------------------
@@ -183,13 +195,29 @@ def vae_config(model_dir: str):
     )
 
 
-def load_unet(model_dir: str):
-    """(UNet2DCondition, params) from a diffusers unet/ directory: needs
-    the file readers (ROADMAP.md, Queue A item 10)."""
-    raise NotImplementedError(_READERS_LATER)
+def load_unet(model_dir: str, dtype: torch.dtype = torch.float32,
+              device=None):
+    """(UNet2DCondition, params) from a diffusers unet/ directory: the
+    port's module on ``device`` (default ``"cuda"``) in ``dtype`` with the
+    checkpoint's weights, and its ``{name: tensor}``."""
+    from ..models.diffusion import UNet2DCondition
+    from .jax_params import load_jax_params
+
+    tree = map_diffusers_unet(_numpy_state(read_diffusers_state(model_dir)))
+    model = UNet2DCondition(unet_config(model_dir), device=device,
+                            dtype=dtype)
+    load_jax_params(model, tree)
+    return model, dict(model.named_parameters())
 
 
-def load_vae(model_dir: str):
-    """(AutoencoderKL, params) from a diffusers vae/ directory: needs the
-    file readers (ROADMAP.md, Queue A item 10)."""
-    raise NotImplementedError(_READERS_LATER)
+def load_vae(model_dir: str, dtype: torch.dtype = torch.float32,
+             device=None):
+    """(AutoencoderKL, params) from a diffusers vae/ directory, as
+    :func:`load_unet`."""
+    from ..models.diffusion import AutoencoderKL
+    from .jax_params import load_jax_params
+
+    tree = map_diffusers_vae(_numpy_state(read_diffusers_state(model_dir)))
+    model = AutoencoderKL(vae_config(model_dir), device=device, dtype=dtype)
+    load_jax_params(model, tree)
+    return model, dict(model.named_parameters())

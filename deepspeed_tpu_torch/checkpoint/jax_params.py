@@ -113,6 +113,8 @@ def load_jax_params(model: Union[Transformer, CLIP, UNet2DCondition,
     if not isinstance(layers, dict):
         raise ValueError("params has no 'layers' dict")
     tops, leaves = list(model.top_shapes()), layer_leaves(model.config)
+    if "lm_head_b" in model._parameters:    # Transformer.add_head_bias
+        tops.append("lm_head_b")
     extra = (set(params_np) - set(tops) - {"layers"}) \
         | (set(layers) - set(leaves))
     missing = (set(tops) - set(params_np)) | (set(leaves) - set(layers))

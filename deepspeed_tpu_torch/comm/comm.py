@@ -372,12 +372,13 @@ def scatter(parts: Optional[List[torch.Tensor]], out: torch.Tensor,
 
 def broadcast_record(record: Optional[Dict[str, Any]], group=None,
                      axis_name: Optional[str] = None,
-                     src: int = 0) -> Dict[str, Any]:
+                     src: int = 0, op: str = "step_record"
+                     ) -> Dict[str, Any]:
     """A host step record (a dict of plain ints and strings and integer
     numpy arrays) from group rank ``src`` to every rank of the group; the
     other ranks pass None and get the record. Two broadcasts: the
-    payload's length, then the pickled payload. Booked as
-    ``step_record`` with the payload's bytes."""
+    payload's length, then the pickled payload. Booked as ``op`` with
+    the payload's bytes."""
     me = get_rank(group)
     if me == src:
         payload = torch.frombuffer(bytearray(pickle.dumps(record)),
@@ -390,7 +391,7 @@ def broadcast_record(record: Optional[Dict[str, Any]], group=None,
     if me != src:
         payload = torch.empty(n, dtype=torch.uint8)
     payload = broadcast(payload, src, group)
-    record_collective("step_record", n + 8, n + 8, axis_name,
+    record_collective(op, n + 8, n + 8, axis_name,
                       get_world_size(group))
     return record if me == src else pickle.loads(payload.numpy().tobytes())
 

@@ -16,12 +16,13 @@ Ports the parts of ``deepspeed_tpu/config.py`` that the ported paths read:
   ``comm_compression`` (:class:`CommCompressionConfig`) and ``mesh`` with
   the ``data`` axis, with the same keys, defaults and checks; ``seed``
   (``train_seed``, the trainer's random stream and the data loader's
-  shuffle) and the ``dataloader`` block (:class:`DataLoaderConfig`).
+  shuffle), the ``dataloader`` block (:class:`DataLoaderConfig`), the
+  ``checkpoint`` block (:class:`CheckpointConfig`) and the ``resilience``
+  block (:class:`ResilienceConfig`: divergence guards and chaos).
   Settings of later slices (ZeRO beside a ``model`` axis, hpZ, MiCS,
   offload, mesh axes other than ``data`` and ``model``, pipelining,
-  telemetry, checkpoint saving,
-  resilience) raise :class:`ConfigError` naming that slice; other unknown
-  keys warn.
+  training telemetry, universal checkpoints) raise :class:`ConfigError`
+  naming that slice; other unknown keys warn.
 """
 
 from __future__ import annotations
@@ -330,12 +331,127 @@ def _check_later_slice_blocks(d: Dict[str, Any]) -> None:
         _later_slice("telemetry.enabled", tel["enabled"],
                      "TrainEngine step telemetry: ROADMAP.md, Queue A "
                      "item 9")
-    ckpt = d.pop("checkpoint", None) or {}
-    if ckpt.get("save_dir"):
-        _later_slice("checkpoint.save_dir", ckpt["save_dir"])
-    res = d.pop("resilience", None)
-    if res:
-        _later_slice("resilience", res)
+    ckpt = d.get("checkpoint") or {}
+    if ckpt.get("load_universal"):
+        _later_slice("checkpoint.load_universal", ckpt["load_universal"],
+                     "checkpoint/universal.py: ROADMAP.md, Queue A item 13")
+
+
+@dataclass
+class CheckpointConfig:
+    """The ``checkpoint`` block (JAX ``CheckpointConfig``): tag validation,
+    and the fault-tolerance knobs — a save dir the engine auto-saves to,
+    rolls back from and saves to on preemption, auto-resume in
+    ``initialize``, keep-last-N garbage collection, and manifest checksum
+    verification on load. ``load_universal`` comes with a later slice
+    and raises."""
+
+    tag_validation: str = "Warn"  # Ignore | Warn | Fail
+    load_universal: bool = False
+    async_save: bool = False
+    save_dir: Optional[str] = None
+    auto_resume: bool = False
+    save_interval: int = 0
+    keep_last_n: int = 0
+    verify_checksums: bool = True
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "CheckpointConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(
+            tag_validation=str(_take(d, "tag_validation",
+                                     "Warn")).capitalize(),
+            load_universal=bool(_take(d, "load_universal", False)),
+            async_save=bool(_take(d, "async_save", False)),
+            save_dir=_take(d, "save_dir", None),
+            auto_resume=bool(_take(d, "auto_resume", False)),
+            save_interval=int(_take(d, "save_interval", 0)),
+            keep_last_n=int(_take(d, "keep_last_n", 0)),
+            verify_checksums=bool(_take(d, "verify_checksums", True)),
+        )
+        if out.save_interval < 0:
+            raise ConfigError(f"checkpoint.save_interval must be >= 0, got "
+                              f"{out.save_interval}")
+        if out.keep_last_n < 0:
+            raise ConfigError(f"checkpoint.keep_last_n must be >= 0, got "
+                              f"{out.keep_last_n}")
+        _warn_unknown(d, "checkpoint")
+        return out
+
+
+@dataclass
+class DivergenceConfig:
+    """Divergence guards in the trainer's step path
+    (``resilience/divergence.py``). ``nan_action``: off | skip | rollback
+    | halt — "skip" keeps the old weights and moments inside the step (no
+    extra host sync); rollback / halt read the loss each step.
+    ``spike_action``: off | warn | rollback | halt — a loss above
+    ``spike_factor`` x the rolling median of the last ``window`` finite
+    losses (after ``warmup_steps``). A rollback that does not progress
+    past the diverging step escalates to halt after ``max_rollbacks``."""
+
+    nan_action: str = "off"
+    spike_action: str = "off"
+    spike_factor: float = 10.0
+    window: int = 20
+    warmup_steps: int = 5
+    max_rollbacks: int = 2
+
+    @property
+    def wants_host_check(self) -> bool:
+        return self.nan_action in ("rollback", "halt") \
+            or self.spike_action != "off"
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "DivergenceConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(
+            nan_action=str(_take(d, "nan_action", "off")).lower(),
+            spike_action=str(_take(d, "spike_action", "off")).lower(),
+            spike_factor=float(_take(d, "spike_factor", 10.0)),
+            window=int(_take(d, "window", 20)),
+            warmup_steps=int(_take(d, "warmup_steps", 5)),
+            max_rollbacks=int(_take(d, "max_rollbacks", 2)),
+        )
+        if out.max_rollbacks < 1:
+            raise ConfigError(f"divergence.max_rollbacks must be >= 1, got "
+                              f"{out.max_rollbacks}")
+        if out.nan_action not in ("off", "skip", "rollback", "halt"):
+            raise ConfigError(f"divergence.nan_action must be "
+                              f"off|skip|rollback|halt, got "
+                              f"{out.nan_action!r}")
+        if out.spike_action not in ("off", "warn", "rollback", "halt"):
+            raise ConfigError(f"divergence.spike_action must be "
+                              f"off|warn|rollback|halt, got "
+                              f"{out.spike_action!r}")
+        if out.spike_action != "off" and out.spike_factor <= 1.0:
+            raise ConfigError(f"divergence.spike_factor must exceed 1.0, "
+                              f"got {out.spike_factor}")
+        _warn_unknown(d, "resilience.divergence")
+        return out
+
+
+@dataclass
+class ResilienceConfig:
+    """The ``resilience`` block: divergence guards + chaos injection."""
+
+    divergence: DivergenceConfig = field(default_factory=DivergenceConfig)
+    chaos: "ChaosConfig" = field(default_factory=lambda: ChaosConfig())
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ResilienceConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(divergence=DivergenceConfig.from_dict(
+                      _take(d, "divergence", None)),
+                  chaos=ChaosConfig.from_dict(_take(d, "chaos", None)))
+        _warn_unknown(d, "resilience")
+        return out
 
 
 @dataclass
@@ -382,6 +498,10 @@ class Config:
         default_factory=CommCompressionConfig)
     mesh: Dict[str, int] = field(default_factory=dict)
     dataloader: DataLoaderConfig = field(default_factory=DataLoaderConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    #: the dict the config was built from (a checkpoint's config snapshot)
+    raw: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
     def from_any(cls, config: Union[str, Dict[str, Any], "Config", None]
@@ -402,6 +522,7 @@ class Config:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Config":
+        raw = copy.deepcopy(d)
         d = copy.deepcopy(d)
 
         def intval(key):
@@ -429,6 +550,11 @@ class Config:
             mesh=_mesh_from_dict(_take(d, "mesh", None)),
             dataloader=DataLoaderConfig.from_dict(
                 _take(d, "dataloader", None)),
+            checkpoint=CheckpointConfig.from_dict(
+                _take(d, "checkpoint", None)),
+            resilience=ResilienceConfig.from_dict(
+                _take(d, "resilience", None)),
+            raw=raw,
         )
         if cfg.fp16.enabled and cfg.bf16.enabled:
             raise ConfigError("fp16 and bf16 cannot both be enabled")

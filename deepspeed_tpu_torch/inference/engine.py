@@ -206,11 +206,6 @@ class InferenceEngine:
         if cfg.kernel_backend not in ("auto", "xla", "pallas"):
             raise ValueError(f"kernel_backend must be 'auto', 'xla' or "
                              f"'pallas', got '{cfg.kernel_backend}'")
-        if cfg.extras.get("checkpoint"):
-            raise NotImplementedError(
-                "loading a checkpoint named in the config (checkpoint/hf.py) "
-                "comes with a later slice (ROADMAP.md, Queue A item 10); "
-                "pass (model, params) instead")
         if cfg.extras.get("enable_cuda_graph"):
             raise NotImplementedError(
                 "enable_cuda_graph=True: capturing the decode step in a CUDA "

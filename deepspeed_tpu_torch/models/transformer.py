@@ -402,8 +402,9 @@ class Transformer(nn.Module):
         vocab-sharded embedding, head and MLM decoder bias; norms,
         positions, segments, the MLM transform and the pooler replicated.
         ``params`` (a JAX-layout dict) adds ``lm_head_b`` where it holds
-        one, as JAX's does; ``topo`` is taken for the JAX signature (no
-        pipe axis is ported)."""
+        one, as JAX's does, and so does a model with an LM-head bias
+        (:meth:`add_head_bias`); ``topo`` is taken for the JAX signature
+        (no pipe axis is ported)."""
         c = self.config
         layers = {"attn_norm_w": P(None, None), "wq": P(None, None, "model"),
                   "wk": P(None, None, "model"), "wv": P(None, None, "model"),
@@ -435,7 +436,8 @@ class Transformer(nn.Module):
             specs.update(embed_norm_w=P(None), embed_norm_b=P(None))
         if not c.tie_embeddings:
             specs["lm_head"] = P(None, "model")
-            if isinstance(params, dict) and "lm_head_b" in params:
+            if (isinstance(params, dict) and "lm_head_b" in params) \
+                    or "lm_head_b" in self._parameters:
                 specs["lm_head_b"] = P("model")
         if c.mlm_head:
             specs.update(mlm_dense_w=P(None, None), mlm_dense_b=P(None),
@@ -444,6 +446,21 @@ class Transformer(nn.Module):
         if c.pooler:
             specs.update(pooler_w=P(None, None), pooler_b=P(None))
         return specs
+
+    @torch.no_grad()
+    def add_head_bias(self) -> "Transformer":
+        """Give an untied model the LM-head bias ``lm_head_b`` [vocab]
+        (zeros; GPT-J checkpoints carry one, JAX ``_head`` adds it to the
+        logits), sharded with the head's vocab columns. Call it before
+        :meth:`shard_`."""
+        if self.config.tie_embeddings:
+            raise ValueError("a tied head has no lm_head_b")
+        if self._tp_size > 1:
+            raise ValueError("add the head bias before shard_()")
+        self.lm_head_b = nn.Parameter(
+            torch.zeros(self.config.vocab_size, device=self.device,
+                        dtype=self.tok_embed.dtype), requires_grad=False)
+        return self
 
     def leaf_spec(self, name: str) -> P:
         """The spec of one of ``named_parameters()``'s leaves (a layer
@@ -1112,6 +1129,8 @@ class Transformer(nn.Module):
         logits = (self._tp_copy(x) @ w_out.to(x.dtype)).float()
         if c.mlm_head:
             logits = logits + p["mlm_bias"].float()
+        if "lm_head_b" in self._parameters:  # GPT-J's (this rank's columns)
+            logits = logits + p["lm_head_b"].float()
         if self._tp_size > 1:
             logits = comm.tp_gather(logits, self._group())
         if c.logits_softcap > 0:

@@ -83,19 +83,38 @@ noisy MoE gate draws its noise from it, other models ignore it). The
 stream is a host generator, so drawing from it never waits for the card;
 the draws differ from JAX's. A custom ``loss_fn`` gets no generator.
 
+Checkpoints and fault tolerance (JAX ``save_checkpoint`` /
+``load_checkpoint`` and the guards of ``_after_step``):
+:meth:`TrainEngine.save_checkpoint` writes the state ``{params,
+opt_state, scaler, step, rng}`` through
+:class:`~deepspeed_tpu_torch.runtime.checkpoint.CheckpointEngine`'s
+commit protocol, each leaf gathered to its full logical array (every rank
+of the data and model groups takes part in each gather, in one order;
+rank 0 writes), with ``micro_steps``, ``skipped_steps`` and the bound
+loader's position in the client state. :meth:`load_checkpoint` reads the
+newest valid tag (or ``tag``) and cuts each rank's slices again by this
+engine's layout, so a tag saved at one stage, rank count or TP degree
+loads at another. The config's ``checkpoint.save_dir`` turns on the
+auto-save every ``save_interval`` steps, the rollback of the divergence
+guard and the emergency save of an attached preemption guard; with every
+guard off :meth:`_after_step` never runs (no extra host sync).
+
 The JAX package's other ZeRO paths (ZeRO over a ``model`` axis, hpZ,
 MiCS, offload) come with later slices and raise. So do ``train_steps``,
-AOT warmup, telemetry, fault tolerance, checkpoints (which would carry a
-bound loader's position) and the compat ``forward``/``backward``/``step``
+AOT warmup, telemetry and the compat ``forward``/``backward``/``step``
 (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional
+import os
+import re
+import time
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from ..checkpoint import safetensors_io as sio
 from ..comm import comm
 from ..comm import compressed as ccomm
 from ..comm.backends import dot_fp32, resolve_backend
@@ -106,8 +125,10 @@ from ..parallel.zero import (FusedBlockOps, ZeroShardingRules,
                              qgz_mean, reduce_to_shards, shard_of,
                              sharded_dim, stack_counts, zero3_params)
 from ..utils.device import resolve_device
-from ..utils.logging import logger
+from ..utils.logging import log_dist, logger
 from . import loss_scaler as ls
+from .checkpoint import (CheckpointEngine, Leaves, consolidate_full_state,
+                         validate_tag_consistency)
 from .lr_schedules import Schedule, build_schedule, constant_lr
 from .optimizers import (Transform, build_optimizer, global_norm,
                          sharded_global_norm)
@@ -247,6 +268,43 @@ class TrainEngine:
         self.global_steps = 0
         self.micro_steps = 0
         self.skipped_steps = 0
+        self._init_fault_tolerance(config)
+
+    def _init_fault_tolerance(self, config: Config) -> None:
+        """The checkpoint engine and the guards (JAX ``TrainEngine``'s
+        fault-tolerance block). With every knob off ``_ft_active`` stays
+        False and the step path reads nothing back from the device."""
+        ck = config.checkpoint
+        self.ckpt_engine = CheckpointEngine(
+            async_save=ck.async_save, keep_last_n=ck.keep_last_n,
+            verify_checksums=ck.verify_checksums)
+        self.last_load: Dict[str, Any] = {}
+        rcfg = config.resilience
+        self._step_hooks: List[Callable[["TrainEngine", int], None]] = []
+        self._nan_skip = rcfg.divergence.nan_action == "skip"
+        self._divergence = None
+        if rcfg.divergence.wants_host_check:
+            from ..resilience.divergence import DivergenceGuard
+
+            dv = rcfg.divergence
+            self._divergence = DivergenceGuard(
+                nan_action=dv.nan_action, spike_action=dv.spike_action,
+                spike_factor=dv.spike_factor, window=dv.window,
+                warmup_steps=dv.warmup_steps)
+        self.preemption_guard = None
+        self._stop_reason: Optional[str] = None
+        self._rollback_streak = 0   # rollbacks without progress past...
+        self._ft_high_step = 0      # ...this high-water step
+        self._ckpt_save_dir = ck.save_dir
+        self._ft_active = (self._divergence is not None
+                           or bool(self._ckpt_save_dir
+                                   and ck.save_interval > 0))
+        if rcfg.chaos.enabled:
+            from ..resilience.chaos import (FaultInjector,
+                                            install_fault_injector)
+
+            inj = install_fault_injector(FaultInjector(rcfg.chaos))
+            self.register_step_hook(lambda _eng, step: inj.on_step(step))
 
     def _zero_route(self, model, custom_loss: bool) -> str:
         """The facade's qwZ / qgZ legs, the kernel backend and the step's
@@ -377,9 +435,10 @@ class TrainEngine:
 
     def bind_dataloader(self, loader: Any) -> None:
         """Bind the loader that feeds this engine (``initialize`` binds the
-        one it builds from ``training_data``); a checkpoint would carry
-        its position (checkpoints come with ROADMAP.md Queue A item
-        10)."""
+        one it builds from ``training_data``): checkpoints carry its
+        position (the consumer's: the batch it hands out next) in the
+        client state, and :meth:`load_checkpoint` restores it, so a
+        resumed run replays the exact remaining batch order."""
         self._dataloader = loader
 
     def _loss_and_grads(self, batch, scale: float):
@@ -683,7 +742,11 @@ class TrainEngine:
         gradients are summed and scaled by ``1 / gas``, and so are their
         losses. Returns ``{"loss", "grad_norm"}`` (0-dim fp32 tensors on
         the device), ``"loss_scale"`` and ``"skipped"``, and
-        ``"quant_rel_err"`` under ``comm_compression.error_stats``."""
+        ``"quant_rel_err"`` under ``comm_compression.error_stats``.
+        The step hooks (chaos) run first; the guards, emergency save and
+        auto-save after the step (:meth:`_after_step`)."""
+        for hook in self._step_hooks:
+            hook(self, self.global_steps)
         batch = self._to_device(batch)
         gas = self.gradient_accumulation_steps
         fp16 = self.config.fp16.enabled
@@ -724,6 +787,8 @@ class TrainEngine:
                "loss_scale": self.get_loss_scale(), "skipped": skipped}
         if errs:
             out["quant_rel_err"] = torch.stack(errs).max()
+        if self._ft_active or self.preemption_guard is not None:
+            self._after_step(out)
         return out
 
     def _global_norm(self, grads: Params) -> torch.Tensor:
@@ -756,13 +821,17 @@ class TrainEngine:
         place on this rank's slices (:meth:`_state_layout`) — kept out on
         overflow — the updated slices of the leaves kept whole gathered
         back (:meth:`_gather_masters`), and the loss scaler's step.
-        ``grads`` is emptied. Returns (gnorm, skipped)."""
+        ``grads`` is emptied. Returns (gnorm, skipped). Under the
+        divergence guard's ``nan_action="skip"`` a full-precision step
+        takes the same finiteness check and keeps a non-finite update
+        out (JAX's ``nan_skip``; here it reads one flag back)."""
         cfg = self.config
         fp16 = cfg.fp16.enabled
         finite = True
         if fp16:
             for g in grads.values():
                 g.div_(scale)
+        if fp16 or self._nan_skip:
             finite = bool(ls.grads_finite(grads.values()))
             if comm.get_world_size() > 1:
                 finite = ls.finite_everywhere(finite, self.device)
@@ -831,6 +900,359 @@ class TrainEngine:
         if not self._shares:
             loss = loss / dp
         return comm.group_sum(loss, self.topo.group("data"), "data")
+
+    # ------------------------------------------------------------------
+    # fault tolerance (JAX TrainEngine's, step-boundary guards)
+    @property
+    def should_stop(self) -> bool:
+        """True once a preemption was handled (emergency checkpoint saved)
+        or a guard halted the run: the training loop's drain signal."""
+        return self._stop_reason is not None
+
+    @property
+    def stop_reason(self) -> Optional[str]:
+        return self._stop_reason
+
+    def register_step_hook(self, fn: Callable[["TrainEngine", int], None]
+                           ) -> None:
+        """``fn(engine, global_steps)`` at the start of every step."""
+        self._step_hooks.append(fn)
+
+    def attach_preemption_guard(self, guard: Optional[Any] = None):
+        """Wire a PreemptionGuard into the step path: when its signal
+        latches, the NEXT step boundary saves an emergency checkpoint
+        (into ``checkpoint.save_dir``) and sets :attr:`should_stop`. Pass
+        an entered guard, or None to construct one (the caller still
+        manages its context)."""
+        if guard is None:
+            from ..resilience.preemption import PreemptionGuard
+
+            guard = PreemptionGuard()
+        self.preemption_guard = guard
+        return guard
+
+    def _after_step(self, metrics: Dict[str, Any]) -> None:
+        """Step-boundary checks; never called when every knob is off."""
+        step = self.global_steps
+        if step > self._ft_high_step:
+            # progress past the previous high-water step: an earlier
+            # divergence was transient, the rollback did its job
+            self._ft_high_step = step
+            self._rollback_streak = 0
+        if self._divergence is not None:
+            # the one host read the divergence guard costs
+            verdict = self._divergence.observe(step, float(metrics["loss"]))
+            if verdict is not None:
+                kind, action = verdict
+                from ..resilience.divergence import DivergenceError
+                from ..telemetry.registry import get_registry
+
+                get_registry().counter(f"resilience/divergence/{kind}").inc()
+                if action == "halt":
+                    self._stop_reason = f"divergence:{kind}"
+                    raise DivergenceError(
+                        f"{kind} divergence at step {step} (action=halt)")
+                if action == "rollback":
+                    self._rollback_streak += 1
+                    limit = self.config.resilience.divergence.max_rollbacks
+                    if self._rollback_streak > limit:
+                        # a bit-exact resume replays a deterministic fault
+                        # identically: rolling back again would loop
+                        self._stop_reason = f"divergence:{kind}:rollback-loop"
+                        raise DivergenceError(
+                            f"{kind} divergence at step {step} persisted "
+                            f"through {limit} rollbacks (deterministic "
+                            f"fault?) — halting")
+                    self._rollback(kind)
+                    return  # don't checkpoint the rolled-back state twice
+        if (self.preemption_guard is not None
+                and self._stop_reason is None and self._preempted()):
+            self._emergency_checkpoint()
+            self._stop_reason = "preempted"
+            return
+        if (self._ckpt_save_dir and self.config.checkpoint.save_interval > 0
+                and step % self.config.checkpoint.save_interval == 0):
+            self.save_checkpoint(self._ckpt_save_dir)
+
+    def _preempted(self) -> bool:
+        """The attached guard's latch, agreed over every rank (max): a
+        signal that reaches one rank before this boundary and another
+        after it must not send the first into the save's collectives
+        while the second starts the next step's."""
+        stop = bool(self.preemption_guard.should_stop)
+        if comm.get_world_size() > 1:
+            flag = torch.tensor([int(stop)], dtype=torch.int32,
+                                device=self.device)
+            stop = bool(comm.all_reduce(
+                flag, op=torch.distributed.ReduceOp.MAX).item())
+        return stop
+
+    def _rollback(self, kind: str) -> None:
+        from ..resilience.counters import record_rollback
+        from ..resilience.divergence import DivergenceError
+
+        if not self._ckpt_save_dir:
+            raise DivergenceError(
+                f"{kind} divergence: rollback requested but "
+                f"checkpoint.save_dir is not configured")
+        bad_step = self.global_steps
+        if self.load_checkpoint(self._ckpt_save_dir, auto=True) is None:
+            raise DivergenceError(
+                f"{kind} divergence at step {bad_step}: no valid "
+                f"checkpoint to roll back to")
+        self._divergence.reset()
+        record_rollback()
+        logger.warning(f"divergence ({kind}) at step {bad_step}: rolled "
+                       f"back to step {self.global_steps}")
+
+    def _emergency_checkpoint(self) -> None:
+        """Preemption drain: checkpoint into ``checkpoint.save_dir``."""
+        from ..resilience.counters import record_emergency_save
+
+        if self._ckpt_save_dir:
+            self.save_checkpoint(self._ckpt_save_dir)
+            self.ckpt_engine.wait()
+            record_emergency_save()
+            log_dist(f"emergency checkpoint at step {self.global_steps} "
+                     f"(preemption drain)")
+        else:
+            logger.warning("preempted with no checkpoint.save_dir — "
+                           "draining without an emergency checkpoint")
+
+    def close(self) -> None:
+        """Wait for an async checkpoint's writer (and raise its failure)."""
+        self.ckpt_engine.wait()
+
+    # ------------------------------------------------------------------
+    # checkpoints: every leaf as its full logical array
+    def _logical_shape(self, name: str) -> Tuple[int, ...]:
+        """The full shape of a master leaf (joined over the model axis)."""
+        shape = list(self.full_shapes[name])
+        if name in self.tp_sharded:
+            dim = list(self.model.leaf_spec(name)).index("model")
+            shape[dim] *= self.topo.model_parallel_size
+        return tuple(shape)
+
+    def _full_leaf(self, name: str, t: torch.Tensor, spec) -> torch.Tensor:
+        """``t`` (this rank's piece of leaf ``name``: a data shard by
+        ``spec`` or whole, a model-axis shard or whole) gathered to its
+        full logical array. Every rank of the groups must call it."""
+        if tuple(t.shape) != self.full_shapes[name]:
+            t = ccomm.gather_param_leaf(t, spec)
+        if name in self.tp_sharded:
+            dim = list(self.model.leaf_spec(name)).index("model")
+            t = torch.cat(comm.all_gather(t.contiguous(),
+                                          self.topo.group("model")), dim=dim)
+        return t
+
+    def _local_piece(self, name: str, full: torch.Tensor, spec,
+                     target: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of the full array ``full`` of leaf ``name``,
+        laid out as ``target`` (the inverse of :meth:`_full_leaf`)."""
+        if tuple(full.shape) != self._logical_shape(name):
+            raise ValueError(f"checkpoint leaf {name} has shape "
+                             f"{tuple(full.shape)}; the model's is "
+                             f"{self._logical_shape(name)}")
+        if name in self.tp_sharded:
+            full = self.model.local_shard(name, full)
+        if tuple(target.shape) != tuple(full.shape):
+            full = shard_of(full, spec, self.topo.rank("data"),
+                            self.topo.data_parallel_size)
+        return full
+
+    def _opt_trees(self) -> Dict[str, Params]:
+        """The optimizer state's per-leaf trees (AdamW's ``mu``, ``nu``)."""
+        return {k: v for k, v in self.opt_state._asdict().items()
+                if isinstance(v, dict)}
+
+    def _state_dict(self) -> Dict[str, Any]:
+        """The checkpoint engine's files: ``params`` (the masters) and
+        ``opt_state.<tree>`` (each of the optimizer's trees: AdamW's
+        ``mu``, ``nu``) as :class:`Leaves` gathered leaf by leaf, one file
+        each so a load checks them in parallel; the scaler, step, the
+        optimizer's scalars and the random stream in ``engine``."""
+        fp32 = torch.float32
+        specs = [(n, fp32, self._logical_shape(n)) for n in self.params]
+
+        def leaves(tree, spec_of):
+            return Leaves(specs, lambda n: self._full_leaf(n, tree[n],
+                                                           spec_of[n]))
+
+        state: Dict[str, Any] = {
+            "params": leaves(self.params, self.param_specs),
+            **{f"opt_state.{k}": leaves(tree, self.state_specs)
+               for k, tree in self._opt_trees().items()}}
+        state["engine"] = {
+            "rng": self.rng.get_state(), "step": int(self.global_steps),
+            **{f"opt/{k}": v for k, v in self.opt_state._asdict().items()
+               if not isinstance(v, dict)},
+            **{f"scaler/{k}": v
+               for k, v in self.scaler_state._asdict().items()}}
+        return state
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict[str, Any]] = None,
+                        model_version: Optional[int] = None) -> str:
+        """Save a committed checkpoint tag (default ``global_step<N>``) of
+        the whole training state; every rank calls it. Returns the tag's
+        path."""
+        tag = tag if tag is not None else f"global_step{self.global_steps}"
+        validate_tag_consistency(str(tag),
+                                 self.config.checkpoint.tag_validation)
+        client = {**(client_state or {}),
+                  "global_steps": self.global_steps,
+                  "micro_steps": self.micro_steps,
+                  "skipped_steps": self.skipped_steps}
+        if self._dataloader is not None and hasattr(self._dataloader,
+                                                    "state_dict"):
+            client["dataloader"] = self._dataloader.state_dict()
+        return self.ckpt_engine.save(
+            save_dir, str(tag), self._state_dict(), client_state=client,
+            config_snapshot=self.config.raw, model_version=model_version)
+
+    @torch.no_grad()
+    def _load_params(self, tree: Mapping[str, torch.Tensor]) -> None:
+        missing = set(self.params) - set(tree)
+        if missing:
+            raise ValueError(f"checkpoint has no leaves {sorted(missing)}")
+        for n, p in self.params.items():
+            p.copy_(self._local_piece(n, tree[n], self.param_specs[n], p))
+
+    @torch.no_grad()
+    def _load_opt(self, state: Mapping[str, Any]) -> None:
+        fields = {}
+        for k, v in self.opt_state._asdict().items():
+            if isinstance(v, dict):
+                tree = state[f"opt_state.{k}"]
+                for n, t in v.items():
+                    t.copy_(self._local_piece(n, tree[n],
+                                              self.state_specs[n], t))
+                fields[k] = v
+            else:
+                fields[k] = type(v)(state["engine"][f"opt/{k}"])
+        self.opt_state = type(self.opt_state)(**fields)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        auto: bool = False) -> Optional[Dict[str, Any]]:
+        """Restore the engine's state from the newest VALID tag (torn,
+        uncommitted or corrupt tags are skipped), or from ``tag``; returns
+        the client state, or None when there is nothing to load. Each
+        rank cuts its own slices from the full arrays (any stage, rank
+        count or TP degree saved the tag). ``auto=True`` is the
+        resume-after-restart entry point: a missing directory is a quiet
+        no-op."""
+        t0 = time.perf_counter()
+        groups = ["params", "engine"] + (
+            [f"opt_state.{k}" for k in self._opt_trees()]
+            if load_optimizer_states else [])
+        result = self.ckpt_engine.load(load_dir, tag, groups=groups,
+                                       quiet=auto)
+        if result is None:
+            return None
+        #: the last load's tag, its seconds (manifest check included, the
+        #: copies onto the device finished) and its manifest check's
+        self.last_load = {"tag": result["tag"],
+                          "verify_s": self.ckpt_engine.last_verify_s}
+        state = result["state"]
+        self._load_params(state["params"])
+        eng = state["engine"]
+        if load_optimizer_states:
+            self._load_opt(state)
+            self.scaler_state = type(self.scaler_state)(
+                **{k: type(v)(eng[f"scaler/{k}"])
+                   for k, v in self.scaler_state._asdict().items()})
+        self.global_steps = int(eng["step"])
+        self.rng.set_state(eng["rng"].clone())
+        client = result["meta"].get("client_state", {})
+        self.micro_steps = int(client.get(
+            "micro_steps",
+            self.global_steps * self.gradient_accumulation_steps))
+        self.skipped_steps = int(client.get("skipped_steps", 0))
+        if (self._dataloader is not None and "dataloader" in client
+                and hasattr(self._dataloader, "load_state_dict")):
+            self._dataloader.load_state_dict(client["dataloader"])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_load["s"] = time.perf_counter() - t0
+        return client
+
+    def hot_swap_checkpoint(self, load_dir: str,
+                            tag: Optional[str] = None) -> Optional[int]:
+        """Weight-only swap (zero-downtime rollout): ONLY the master
+        weights are loaded — the optimizer state, scaler, step counters,
+        random stream and loader position stay. The tag is verified as
+        :meth:`load_checkpoint` verifies it; a torn or corrupt tag raises
+        instead of half-swapping. Returns the tag's ``model_version``
+        (None when it has none)."""
+        result = self.ckpt_engine.load(load_dir, tag, groups=["params"])
+        if result is None:
+            raise ValueError(
+                f"hot_swap_checkpoint: no valid checkpoint under "
+                f"{load_dir!r} (tag={tag!r}) — refusing to swap")
+        self._load_params(result["state"]["params"])
+        version = result["meta"].get("model_version")
+        return int(version) if version is not None else None
+
+    def _consolidated(self, dtype) -> Dict[str, torch.Tensor]:
+        """The masters gathered whole, as host copies in ``dtype`` (one
+        gathered leaf on the device at a time)."""
+        return consolidate_full_state(
+            ((n, self._full_leaf(n, p, self.param_specs[n]))
+             for n, p in self.params.items()), dtype)
+
+    def save_16bit_model(self, save_dir: str,
+                         filename: str = "model_16bit.safetensors") -> str:
+        """Consolidated 16-bit export (the reference's
+        ``save_16bit_model``): the masters gathered whole (never the
+        model's own buffers, which ZeRO-3 replaced by shards) and cast to
+        bf16, keyed as the JAX package's ``save_16bit_model`` keys its
+        tree (``['layers']['wq']``, layer leaves stacked ``[n_layers,
+        ...]``), in a safetensors file. Every rank calls it; rank 0
+        writes. Returns the file's path."""
+        full = self._consolidated(torch.bfloat16)
+        path = os.path.join(save_dir, filename)
+        if comm.get_rank() == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            sio.save_file(jax_tree_keys(full), path, fsync=True)
+        return path
+
+    def get_fp32_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The fp32 masters gathered whole, ``{name: CPU tensor}`` (the
+        reference's ``zero_to_fp32`` read-out). Every rank calls it."""
+        return self._consolidated(torch.float32)
+
+
+_LAYER = re.compile(r"(^|\.)layers\.(\d+)\.")
+
+
+def jax_tree_keys(params: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """A ``{name: tensor}`` tree of the port keyed as the JAX package's
+    ``jax.tree_util.keystr`` keys the same leaves: names nest on their
+    dots (``text.final_norm_w`` -> ``['text']['final_norm_w']``) and the
+    per-layer leaves ``layers.<i>.<leaf>`` are stacked ``[n_layers, ...]``
+    under ``['layers']['<leaf>']``."""
+    stacks: Dict[str, Dict[int, torch.Tensor]] = {}
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in params.items():
+        m = _LAYER.search(name)
+        if m:
+            key = name[:m.start()] + m.group(1) + "layers." \
+                + name[m.end():]
+            stacks.setdefault(key, {})[int(m.group(2))] = t
+        else:
+            out[_keystr(name)] = t
+    for key, layers in stacks.items():
+        out[_keystr(key)] = torch.stack([layers[i]
+                                         for i in range(len(layers))])
+    return out
+
+
+def _keystr(name: str) -> str:
+    """``jax.tree_util.keystr`` of a dotted path (list indices bare)."""
+    return "".join(f"[{p}]" if p.isdigit() else f"['{p}']"
+                   for p in name.split("."))
 
 
 def _epilogue_vjp(epilogue, y, rest, h_in, g_out):

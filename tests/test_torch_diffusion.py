@@ -482,10 +482,42 @@ def test_diffusers_configs_and_readers(tmp_path):
         got = getattr(port_diffusers, name)(tmp_path)
         want = getattr(jax_diffusers, name)(tmp_path)
         assert vars(got) == vars(want)
-    for fn in (port_diffusers.read_diffusers_state, port_diffusers.load_unet,
-               port_diffusers.load_vae):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn(tmp_path)
+    # the readers: a diffusers UNet directory (safetensors) and a VAE one
+    # (torch pickle) written from the reference modules load into the
+    # port's modules with the map's weights, bit for bit, the files'
+    # tensors read back unchanged
+    from safetensors.torch import save_file
+
+    torch.manual_seed(0)
+    refs = {"unet": UNet2DConditionRef(groups=8, **TINY).eval(),
+            "vae": AutoencoderKLRef(groups=8, **VAE_TINY).eval()}
+    for kind, ref in refs.items():
+        d = tmp_path / kind
+        d.mkdir()
+        conf = dict(TINY if kind == "unet" else VAE_TINY,
+                    norm_num_groups=8)
+        (d / "config.json").write_text(json.dumps(conf))
+        state = {k: v.detach().contiguous()
+                 for k, v in ref.state_dict().items()}
+        if kind == "unet":
+            save_file(state, str(d / "diffusion_pytorch_model.safetensors"))
+        else:
+            torch.save(state, str(d / "diffusion_pytorch_model.bin"))
+        read = port_diffusers.read_diffusers_state(d)
+        assert set(read) == set(state)
+        for k, v in state.items():
+            assert read[k].dtype == v.dtype and torch.equal(read[k], v), k
+        load = getattr(port_diffusers, f"load_{kind}")
+        model, params = load(d, device="cpu")
+        mapper = getattr(port_diffusers, f"map_diffusers_{kind}")
+        want = load_jax_params(
+            (diff.UNet2DCondition(diff.UNetConfig(norm_num_groups=8, **TINY),
+                                  device="cpu") if kind == "unet" else
+             diff.AutoencoderKL(diff.VAEConfig(norm_num_groups=8,
+                                               **VAE_TINY), device="cpu")),
+            mapper(_np_state(ref)))
+        for n, p in want.named_parameters():
+            assert torch.equal(params[n], p), (kind, n)
 
 
 # -- the weight carry ---------------------------------------------------------

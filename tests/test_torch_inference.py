@@ -293,7 +293,8 @@ def test_generation_past_max_seq_len_raises(greedy_pair):
     (dict(mp_size=2), ValueError, "world size"),
     (dict(tensor_parallel=2, quant={"enabled": True}), ValueError,
      "world size"),
-    (dict(checkpoint="/nonexistent"), NotImplementedError, "checkpoint"),
+    (dict(checkpoint={"type": "Megatron", "checkpoints": []}),
+     NotImplementedError, "checkpoint"),
     (dict(enable_cuda_graph=True), NotImplementedError, "CUDA graph"),
     (dict(kernel_backend="tpu"), ValueError, "kernel_backend"),
     (dict(quant={"enabled": True, "bits": 2}), ValueError, "bits"),

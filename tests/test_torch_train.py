@@ -334,8 +334,8 @@ def test_batch_resolution_errors(given, match):
     {"pipeline": {"stages": 2}},
     {"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
     {"telemetry": {"enabled": True}},
-    {"checkpoint": {"save_dir": "ckpt"}},
-    {"resilience": {"divergence": {"nan_action": "skip"}}},
+    {"checkpoint": {"load_universal": True}},
+    {"mesh": {"expert": 2}},
     {"fp16": {"enabled": True}, "bf16": {"enabled": True}},
 ])
 def test_config_blocks_of_later_slices_raise(block):

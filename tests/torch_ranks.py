@@ -991,3 +991,145 @@ def zero_card_job(rank: int, world: int, device: str, runs: List[tuple]
                                  for w in wrappers],
                     "quant_launches": [w.launches for w in qk]})
     return out
+
+
+# ----------------------------------------------------------------------
+# jobs of tests/test_torch_checkpoint.py
+
+def ckpt_job(rank: int, world: int, case: Dict[str, Any],
+             runs: Dict[str, Any], root: str) -> Dict[str, Any]:
+    """tests/test_torch_checkpoint.py: each run ``runs[key] = (mesh, ZeRO
+    stage)`` through ``initialize``: two ``train_batch`` steps on the
+    case's global batches, ``save_checkpoint(root/key, tag="t")``, then
+    the remaining batches' losses; on rank 0 the masters and the AdamW
+    moments at the save, gathered to full width."""
+    import deepspeed_tpu_torch as dst
+
+    out = {}
+    for key, (mesh, stage) in runs.items():
+        cfg = {**case["cfg"], "mesh": mesh,
+               "zero_optimization": {"stage": stage}}
+        eng = dst.initialize(model=_train_model(case), config=cfg,
+                             device="cpu")[0]
+        batches = [{k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+                   for b in case["batches"]]
+        for b in batches[:2]:
+            eng.train_batch(b)
+        eng.save_checkpoint(os.path.join(root, key), tag="t")
+        # copies now: a leaf kept whole is the master itself, which the
+        # steps below update in place
+        saved = {"full": eng.full_params(),
+                 "mu": eng.full_width(eng.full_state(eng.opt_state.mu)),
+                 "nu": eng.full_width(eng.full_state(eng.opt_state.nu))}
+        saved = {k: {n: _np(t).copy() for n, t in v.items()}
+                 for k, v in saved.items()}
+        res = {"steps": [float(eng.train_batch(b)["loss"])
+                         for b in batches[2:]]}
+        if rank == 0:
+            res.update(saved)
+        out[key] = res
+    return out
+
+
+def hf_tp_job(rank: int, world: int, dirs: Dict[str, str],
+              tokens: np.ndarray) -> Dict[str, Any]:
+    """tests/test_torch_hf_checkpoint.py: each HF directory loaded with
+    ``from_pretrained`` over ``{"model": world}`` (this rank's shards):
+    the logits of ``tokens``, this rank's leaves, and the greedy stream
+    of ``init_inference(config={"checkpoint": ...,
+    "tensor_parallel": world})``."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.hf import from_pretrained
+    from deepspeed_tpu_torch.parallel.mesh import Topology
+
+    out = {}
+    ids = torch.from_numpy(tokens).long()
+    for key, d in dirs.items():
+        topo = Topology.build({"model": world})
+        model, params = from_pretrained(d, dtype=torch.float32,
+                                        topology=topo, device="cpu")
+        with torch.no_grad():
+            logits = model.apply(ids)
+        eng = dst.init_inference(config={"checkpoint": d, "dtype": "float32",
+                                         "tensor_parallel": world},
+                                 device="cpu")
+        stream = eng.generate(ids[:1, :8], max_new_tokens=6)
+        out[key] = {"logits": _np(logits),
+                    "leaves": {n: _np(p) for n, p in params.items()},
+                    "stream": np.asarray(stream)}
+    return out
+
+
+# ----------------------------------------------------------------------
+# jobs of tests/test_torch_fault_tolerance.py
+
+def _ft_loss(params, batch):
+    p = batch["x"] @ params["w"] + params["b"]
+    return ((p - batch["y"]) ** 2).mean()
+
+
+def _ft_engine(world: int, root: str, resume: bool = False):
+    import deepspeed_tpu_torch as dst
+
+    cfg = {"train_batch_size": 16,
+           "optimizer": {"type": "adamw", "params": {"lr": 1e-2}},
+           "mesh": {"data": world}, "zero_optimization": {"stage": 3},
+           "checkpoint": {"save_dir": root, "auto_resume": resume},
+           "steps_per_print": 1000}
+    params = {"w": torch.ones(8, 4) * 0.1, "b": torch.zeros(4)}
+    return dst.initialize(loss_fn=_ft_loss, params=params, config=cfg,
+                          device="cpu")[0]
+
+
+def _ft_batch(i: int) -> Dict[str, torch.Tensor]:
+    rng = np.random.default_rng(1000 + i)
+    return {"x": torch.from_numpy(rng.normal(size=(16, 8)).astype(np.float32)),
+            "y": torch.from_numpy(rng.normal(size=(16, 4)).astype(np.float32))}
+
+
+def preempt_job(rank: int, world: int, root: str, late_rank: int
+                ) -> Dict[str, Any]:
+    """SIGTERM reaches every rank entering step 2, except ``late_rank``,
+    which it reaches entering step 3: a ZeRO-3 trainer over the data
+    axis with a preemption guard, drained when it asks to stop. Then a
+    fresh trainer auto-resumes from the save dir. Returns the stop
+    reason, the steps taken, the gathered masters at the stop and after
+    the resume, the resumed step, and how many tags this rank verified
+    while resuming."""
+    import signal
+
+    from deepspeed_tpu_torch.resilience.preemption import PreemptionGuard
+    from deepspeed_tpu_torch.runtime import checkpoint as ck
+
+    eng = _ft_engine(world, root)
+    at = 3 if rank == late_rank else 2
+
+    def hook(engine, step):
+        if step == at:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    eng.register_step_hook(hook)
+    steps = 0
+    with PreemptionGuard() as guard:
+        eng.attach_preemption_guard(guard)
+        for i in range(6):
+            eng.train_batch(_ft_batch(i))
+            steps += 1
+            if eng.should_stop:
+                break
+    stopped = {n: _np(t) for n, t in eng.full_params().items()}
+    verified = []
+    orig = ck.verify_tag
+
+    def counting(*a, **k):
+        verified.append(a[0])
+        return orig(*a, **k)
+
+    ck.verify_tag = counting
+    try:
+        eng2 = _ft_engine(world, root, resume=True)
+    finally:
+        ck.verify_tag = orig
+    return {"reason": eng.stop_reason, "steps": steps, "stopped": stopped,
+            "resumed": eng2.global_steps, "verified": len(verified),
+            "params": {n: _np(t) for n, t in eng2.full_params().items()}}
