@@ -53,7 +53,7 @@ CPU path — without a CUDA device the script fails):
    writes them; row 9 twice bitwise); row 7's converter share from two
    scratch builds;
    flash: the forward, dq and dk/dv kernels through
-   ``FlashAttentionFunction`` against their plain versions (22 cases: the
+   ``flash_attention_op`` against their plain versions (22 cases: the
    1b shape in bf16 at the training shape's micro-batch 4 and in
    fp16/fp32, d 128 (8d (c)'s Llama-2-7B shape, GQA groups 1, 4 and 8,
    sq > skv) and d 256, non-causal, sq < skv, sq > skv, odd lengths,
@@ -250,10 +250,29 @@ CPU path — without a CUDA device the script fails):
    on the Hopper kernels); step time (the four timed steps' mean),
    tokens/s, MFU, peak memory;
 9. train profile: one more step under ``torch.profiler``;
+8e. the trainer's rest on phase 8's engine: (a) one step from one saved
+   state under each remat policy (``full``, ``selective``,
+   ``selective_flash``, ``dots_with_no_batch_dims``, ``nothing``): loss
+   and grad norm bitwise ``full``'s, rows 2-4's launches 88 / 44 / 44
+   where the forward is replayed and 44 / 44 / 44 where it is saved, all
+   on the Hopper kernels, peak memory, step time, tokens/s; (b) two steps
+   through ``forward`` / ``backward`` / ``step`` against two
+   ``train_batch`` steps, losses and masters bitwise; (c)
+   ``train_steps`` over 4 batches against 4 ``train_batch`` calls,
+   bitwise, tokens/s both ways, and its per-step fallback with a step
+   hook; (d) sgd, lamb, lion and adagrad at full width and 4 of 22
+   layers, 2 steps each, and LAMB at 2 layers fp32 cuda against cpu as
+   phase 7; (e) step telemetry and the CSV monitor on: every StepStats
+   record valid, the monitor's rows, the counted MFU beside the
+   analytic, the step time with telemetry on and off; (f) QAT of the
+   layers plus sparse pruning at 2 layers fp32, cuda against cpu, and
+   ``redundancy_clean``; (g) ``warmup_async`` on a fresh engine, joined
+   by its first step;
 8c. tensor-parallel training (after 8b, the families): TP 2 through
    ``initialize(config={"mesh": {"model": 2}})``, two gloo rank
    processes on the one card (and two on the host for (b)): (a)
-   TinyLlama-1.1B (``llama_config("1b")``) at full width and depth, bf16
+   TinyLlama-1.1B (``llama_config("1b")``) at full width and 11 of 22
+   layers (``TP_TRAIN_LAYERS``, since PR 24; time), bf16
    on fp32 masters, full remat, AdamW lr 1e-4, clipping 1.0, GAS 2 of 1 x
    2048 tokens, 1 warm-up and 3 timed steps with the flash counts and the
    comms ledger set to 0 between them: step time, tokens/s, MFU, the
@@ -274,7 +293,7 @@ CPU path — without a CUDA device the script fails):
    and 2 timed steps a run with the flash counts, the comms ledger and a
    collective meter set to 0 between them: (a) GPT-2 small at full
    depth, stages 0, 1 and 2, 16 x 1024, GAS 2; (b) OPT-1.3B's widths at
-   3 of 24 layers, stages 0 and 2, 8 x 512; (c) Llama-2-7B's widths at 2
+   3 of 24 layers, stages 0 and 2, 8 x 512; (c) Llama-2-7B's widths at 1
    of 32 layers, stage 3 on the per-layer gather, 2 x 2048: step time,
    tokens/s, MFU, peak memory a rank (falling with the stage in (a) and
    (b)), masters', moments' and gradient accumulator's bytes a rank, the
@@ -287,7 +306,8 @@ CPU path — without a CUDA device the script fails):
    each against the card's stage 0 (losses 1e-5, grad norms 1e-4, the
    masters within 1e-6 but for Adam's near-eps elements; qgZ not) and
    against the same stage on two host ranks (qgZ's loss 1e-4, its masters
-   within 1e-5 but for at most 1 in 200, each within 2 lr), the
+   within 1e-5 but for at most 1 in 200, each within 2 lr; the host
+   ranks run beside phase 10, and their lines follow it), the
    quantizer's launches under qgZ;
 10. ZeRO-3 parity: ``SequentialBlockModel((64, 256, 512, 64))`` in fp32,
    ZeRO stage 3 over 2 ranks, one pair of rank processes on cuda (both on
@@ -338,6 +358,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import itertools
@@ -1041,31 +1062,58 @@ def phase_quant_kernels(flush: torch.Tensor) -> dict:
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_engine() -> None:
-    """2-layer Llama-2-7B-width engine, fp32, the same weights on cuda and
-    cpu: one put of 3 mixed-length prompts; logits agree within 1e-3."""
-    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
-                                                      RaggedInferenceEngine)
+def _beside(card_fn, cpu_fn) -> tuple:
+    """(card_fn(), cpu_fn(), cpu_fn's seconds): the CPU reference runs on
+    a thread beside the card's half (phase 4's cut for the time limit)."""
+    def timed():
+        t0 = time.perf_counter()
+        return cpu_fn(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(timed)
+        card = card_fn()
+        torch.cuda.synchronize()
+        cpu, cpu_s = fut.result()
+    return card, cpu, cpu_s
+
+
+def phase_engine_parity() -> None:
+    """Phase 4: the engine and path B on one pair of seed-1 models (a
+    2-layer Llama-2-7B-width model takes ~9 s to build on the host; the
+    ragged engines do not write their weights), then path A."""
     from deepspeed_tpu_torch.models.llama import Llama
 
-    t0 = time.perf_counter()
-    cfg = dict(token_budget=512, max_seqs=4, kv_block_size=16,
-               n_kv_blocks=64, max_context=4096, dtype=torch.float32)
     cpu_model = Llama("7b", device="cpu", dtype=torch.float32, seed=1,
                       n_layers=2)
     gpu_model = Llama("7b", device="cuda", dtype=torch.float32, seed=1,
                       n_layers=2)
     gpu_model.load_state_dict(cpu_model.state_dict())
+    phase_engine(cpu_model, gpu_model)
+    phase_ragged_quant_parity(cpu_model, gpu_model)
+    del cpu_model, gpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_inference_parity()
+
+
+def phase_engine(cpu_model, gpu_model) -> None:
+    """2-layer Llama-2-7B-width engine, fp32, the same weights on cuda and
+    cpu: one put of 3 mixed-length prompts; logits agree within 1e-3."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+
+    t0 = time.perf_counter()
+    cfg = dict(token_budget=512, max_seqs=4, kv_block_size=16,
+               n_kv_blocks=64, max_context=4096, dtype=torch.float32)
     rng = np.random.default_rng(4)
     prompts = {1: rng.integers(1, 32000, 5).tolist(),
                2: rng.integers(1, 32000, 77).tolist(),
                3: rng.integers(1, 32000, 300).tolist()}
-    outs = {}
-    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
-        eng = RaggedInferenceEngine(model, RaggedConfig(**cfg), device=dev)
-        outs[dev] = eng.put(list(prompts), list(prompts.values()))
-    torch.cuda.synchronize()
-    got, ref = outs["cuda"], outs["cpu"]
+    engs = {dev: RaggedInferenceEngine(model, RaggedConfig(**cfg), device=dev)
+            for dev, model in (("cuda", gpu_model), ("cpu", cpu_model))}
+    got, ref, _ = _beside(
+        *(lambda e=engs[dev]: e.put(list(prompts), list(prompts.values()))
+          for dev in ("cuda", "cpu")))
     err = float(np.abs(got - ref).max())
     ok = got.shape == (3, 32000) and np.isfinite(got).all() and err <= 1e-3
     log(f"engine: 2-layer d_model=4096 fp32 put of 3 prompts "
@@ -1074,7 +1122,7 @@ def phase_engine() -> None:
         f"({time.perf_counter() - t0:.1f} s)")
     if not ok:
         raise SystemExit("engine logits on cuda disagree with cpu")
-    del cpu_model, gpu_model
+    del engs
     torch.cuda.empty_cache()
 
 
@@ -1187,7 +1235,7 @@ def _bf16_generate(engines: dict, prompts: dict) -> None:
         raise SystemExit("path B: generate over a bf16 pool failed")
 
 
-def phase_ragged_quant_parity() -> None:
+def phase_ragged_quant_parity(cpu_model, gpu_model) -> None:
     """Path B at Llama-2-7B's width, 2 layers, the same weights on cuda
     and cpu, one put of 3 prompts (5, 40 and 77 tokens) over int8 and int4
     KV pools, in fp32 then bf16. Three cpu engines per case: one computes
@@ -1205,14 +1253,8 @@ def phase_ragged_quant_parity() -> None:
     from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
                                                       RaggedInferenceEngine,
                                                       assert_block_balance)
-    from deepspeed_tpu_torch.models.llama import Llama
 
     t0 = time.perf_counter()
-    cpu_model = Llama("7b", device="cpu", dtype=torch.float32, seed=1,
-                      n_layers=2)
-    gpu_model = Llama("7b", device="cuda", dtype=torch.float32, seed=1,
-                      n_layers=2)
-    gpu_model.load_state_dict(cpu_model.state_dict())
     rng = np.random.default_rng(7)
     prompts = {1: rng.integers(1, 32000, 5).tolist(),
                2: rng.integers(1, 32000, 40).tolist(),
@@ -1230,7 +1272,9 @@ def phase_ragged_quant_parity() -> None:
         t1 = time.perf_counter()
         plain = {dev: engine(m, dev, "none")
                  for dev, m in (("cuda", gpu_model), ("cpu", cpu_model))}
-        none = {dev: e.put(uids, toks) for dev, e in plain.items()}
+        none = dict(zip(("cuda", "cpu"), _beside(
+            *(lambda e=plain[dev]: e.put(uids, toks)
+              for dev in ("cuda", "cpu")))))
         err_none = _max_err(none["cuda"], none["cpu"])
         log(f"parity B: 2-layer d_model 4096 {dname} kv_quant=none: put "
             f"logits cuda vs cpu max_abs_err={err_none:.3e}, max|ref| "
@@ -1274,8 +1318,8 @@ def phase_ragged_quant_parity() -> None:
                 ok &= err_own <= QUANT_ENGINE_ABS < control
                 for e in (gpu, own):
                     e.flush(uids)
-                streams = [e.generate(prompts, max_new_tokens=16)
-                           for e in (gpu, own)]
+                streams = _beside(*(lambda e=e: e.generate(
+                    prompts, max_new_tokens=16) for e in (gpu, own)))[:2]
                 same = streams[0] == streams[1]
                 ok &= same
                 line += (f"; own tol {QUANT_ENGINE_ABS:.0e}; 16 greedy "
@@ -1289,7 +1333,6 @@ def phase_ragged_quant_parity() -> None:
                 raise SystemExit(f"path B on cuda disagrees with cpu ({dname} "
                                  f"{kvq})")
             del gpu, own, fed, recorded
-    del cpu_model, gpu_model
     gc.collect()
     torch.cuda.empty_cache()
     log(f"parity B: done in {time.perf_counter() - t0:.1f} s")
@@ -1319,22 +1362,21 @@ def phase_inference_parity() -> None:
         conf = {"dtype": "bfloat16", "quant": quant}
         t1 = time.perf_counter()
         before = qk.quantize_blockwise.launches
-        g = deepspeed_tpu_torch.init_inference((gpu_model, params), conf)
+        g, c, t_cpu = _beside(
+            lambda: deepspeed_tpu_torch.init_inference((gpu_model, params),
+                                                       conf),
+            lambda: deepspeed_tpu_torch.init_inference(
+                (cpu_model, params), conf, device="cpu"))
         n_quant = qk.quantize_blockwise.launches - before
-        t2 = time.perf_counter()
-        c = deepspeed_tpu_torch.init_inference((cpu_model, params), conf,
-                                               device="cpu")
-        t_cpu = time.perf_counter() - t2
         same_q = all(torch.equal(t.cpu(), c.params[n][k] if _is_wq(
             c.params[n]) else c.params[n])
             for n, leaf in g.params.items()
             for k, t in (leaf.items() if _is_wq(leaf) else [(None, leaf)]))
         same_w = all(torch.equal(g._leaf(n).cpu(), c._leaf(n))
                      for n in c.params)
-        lg = g.forward(ids)[:, -1].cpu().numpy()
-        t2 = time.perf_counter()
-        lc = c.forward(ids)[:, -1].numpy()
-        t_cpu += time.perf_counter() - t2
+        lg, lc, t2 = _beside(lambda: g.forward(ids)[:, -1].cpu().numpy(),
+                             lambda: c.forward(ids)[:, -1].numpy())
+        t_cpu += t2
         ok, err = _close(lg, lc, ENGINE_REL)
         ok &= same_q and same_w and n_quant == 20
         log(f"parity A: 2-layer d_model 4096 bf16 int{bits} group 256: "
@@ -1355,11 +1397,11 @@ def phase_inference_parity() -> None:
                           "quant": quant}, device=dev)
             for dev, m in (("cuda", gpu_model), ("cpu", cpu_model))}
         before = qk.dequantize_blockwise.launches
-        toks = {"cuda": engs["cuda"].generate(ids, max_new_tokens=16)}
+        card, cpu, t_cpu = _beside(
+            *(lambda e=engs[dev]: e.generate(ids, max_new_tokens=16)
+              for dev in ("cuda", "cpu")))
+        toks = {"cuda": card, "cpu": cpu}
         n_deq = qk.dequantize_blockwise.launches - before
-        t2 = time.perf_counter()
-        toks["cpu"] = engs["cpu"].generate(ids, max_new_tokens=16)
-        t_cpu = time.perf_counter() - t2
         same = np.array_equal(toks["cuda"], toks["cpu"])
         ok = same and n_deq == 16 * 20 and toks["cuda"].shape == (2, 32)
         log(f"parity A: 2-layer fp32 int{bits}: 16 greedy tokens x 2 "
@@ -6586,10 +6628,10 @@ def _flash_inputs(gen, b, sq, skv, hq, hkv, d, dtype):
 
 
 def _flash_kernels(q, k, v, do, causal, window):
-    """(out, lse, dq, dk, dv) through FlashAttentionFunction: the forward
+    """(out, lse, dq, dk, dv) through flash_attention_op: the forward
     kernel, then the dq and dk/dv kernels backward from ``do``."""
     q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
-    out, lse = fa.FlashAttentionFunction.apply(q, k, v, causal, None, window)
+    out, lse = fa.flash_attention_op(q, k, v, causal, None, window)
     dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
     return out.detach(), lse, dq, dk, dv
 
@@ -6644,7 +6686,7 @@ def _flash_old_path(dtype, d) -> str:
 
 
 def phase_flash_kernels() -> dict:
-    """The three flash kernels (through FlashAttentionFunction, backward
+    """The three flash kernels (through flash_attention_op, backward
     from a fixed random dO) against their plain versions, the
     FLASH_REPEAT cases run twice for bitwise-equal gradients. Returns the
     worst max abs error of each kernel's outputs."""
@@ -6845,34 +6887,50 @@ def phase_trainer_parity() -> None:
     """A 2-layer Llama("1b") in fp32, the same weights on cuda and cpu, seq
     256, micro-batch 2, GAS 2, one train_batch each
     (:func:`_trainer_parity`)."""
-    from deepspeed_tpu_torch.models.llama import Llama
-
     toks = torch.from_numpy(
         np.random.default_rng(5).integers(0, 32000, (4, 256)))
     _trainer_parity("2-layer Llama-1b fp32, 4x256 tokens, GAS 2",
-                    Llama("1b", device="cpu", seed=2, n_layers=2),
-                    {"input_ids": toks}, gas=2)
+                    _parity_model(), {"input_ids": toks}, gas=2)
 
 
-def _trainer_parity(label: str, cpu_model, batch: dict, gas: int) -> dict:
+_PARITY_BASE: list = []
+
+
+def _parity_model():
+    """A copy of the 2-layer Llama("1b") in fp32 on the cpu, seed 2, that
+    phases 7 and 8e hold cuda against: built once (~4 s on the host), each
+    check trains its own copy."""
+    import copy
+
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    if not _PARITY_BASE:
+        _PARITY_BASE.append(Llama("1b", device="cpu", seed=2, n_layers=2))
+    return copy.deepcopy(_PARITY_BASE[0])
+
+
+def _trainer_parity(label: str, cpu_model, batch: dict, gas: int,
+                    optimizer: Optional[dict] = None) -> dict:
     """One ``train_batch`` of the same fp32 weights (``cpu_model`` and a
-    copy of it on the card) on cuda and cpu, AdamW lr 1e-4, clipping 1.0:
-    loss within 1e-5 rel, grad norm within 1e-4 rel, and the updated
-    weights within 1e-6 abs except where a gradient element lies within
-    100x of Adam's eps (1e-8): there the first step is lr * g / (|g| +
-    eps) and carries g's summation noise, bounded by 2 lr."""
+    copy of it on the card) on cuda and cpu, AdamW lr 1e-4 (or
+    ``optimizer``'s block), clipping 1.0: loss within 1e-5 rel, grad norm
+    within 1e-4 rel, and the updated weights within 1e-6 abs except where
+    a gradient element lies within 100x of Adam's eps (1e-8): there the
+    first step is lr * g / (|g| + eps) and carries g's summation noise,
+    bounded by 2 lr (LAMB's step near its eps likewise)."""
     import copy
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.runtime.optimizers import Transform
 
     t0 = time.perf_counter()
-    lr = 1e-4
+    optimizer = optimizer or {"type": "adamw",
+                              "params": {"lr": 1e-4, "weight_decay": 0.1}}
+    lr = optimizer["params"]["lr"]
     rows = next(iter(batch.values())).shape[0]
     cfg = {"train_batch_size": rows, "gradient_accumulation_steps": gas,
            "gradient_clipping": 1.0, "steps_per_print": 1000,
-           "optimizer": {"type": "adamw",
-                         "params": {"lr": lr, "weight_decay": 0.1}}}
+           "optimizer": optimizer}
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     out, small = {}, {}
     for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
@@ -6911,7 +6969,7 @@ def _trainer_parity(label: str, cpu_model, batch: dict, gas: int) -> dict:
         f"grad_norm cuda {gn:.6f} cpu {cn:.6f} (1e-4 rel); updated weights "
         f"max |cuda - cpu| {worst:.2e} where |g| >= 1e-6 (tol 1e-6), "
         f"{n_out} of {n_all} elements beyond 1e-6, all with |g| < 1e-6, "
-        f"max {worst_near_eps:.2e} (<= 2 lr) {'ok' if ok else 'FAIL'} "
+        f"max {worst_near_eps!r} (<= 2 lr) {'ok' if ok else 'FAIL'} "
         f"({time.perf_counter() - t0:.1f} s)")
     if not ok:
         raise SystemExit(f"trainer on cuda disagrees with cpu: {label}")
@@ -7023,6 +7081,471 @@ def phase_training_profile(engine, batch, card: str,
     _log_device_groups(f"{label} profile", card, "profiled step", wall, d, 8)
 
 
+# --------------------------------------------------------------- phase 8e
+REMAT_POLICIES = ("full", "selective", "selective_flash",
+                  "dots_with_no_batch_dims", "nothing")
+REMAT_REPLAYED = ("full", "selective", "dots_with_no_batch_dims")
+REST_OPT_LAYERS = 4            # (d): TinyLlama-1.1B's 22 layers cut (time)
+REST_OPTIMIZERS = {"sgd": {"lr": 1e-2, "momentum": 0.9,
+                           "weight_decay": 0.01},
+                   "lamb": {"lr": 1e-3, "weight_decay": 0.01},
+                   "lion": {"lr": 1e-4, "weight_decay": 0.1},
+                   "adagrad": {"lr": 1e-3, "weight_decay": 0.01}}
+REST_PARITY_ROWS = (2, 128)    # (d), (f): rows x tokens, cuda vs cpu fp32
+REST_SEQ = 2048                # (d), (g): tokens a row, as phase 8
+REST_COMPRESSION = {"compression_training": {
+    "weight_quantization": {
+        "shared_parameters": {"enabled": True, "schedule_offset": 0},
+        "different_groups": {"wq": {"params": {"target_bits": 8},
+                                    "modules": ["layers"]}}},
+    "sparse_pruning": {
+        "shared_parameters": {"enabled": True, "schedule_offset": 0},
+        "different_groups": {"sp": {"params": {"dense_ratio": 0.5},
+                                    "modules": ["w_up", "w_down"]}}}}}
+REST_PREDICTED_S = 60.0        # stated in PERF.md before the first run
+
+
+def _rest_state(engine) -> dict:
+    """A copy on the card of what a step changes: the masters, the
+    optimizer's trees and scalars, the random stream and the counters."""
+    with torch.no_grad():
+        return {"params": {n: p.clone() for n, p in engine.params.items()},
+                "trees": {k: {n: t.clone() for n, t in v.items()}
+                          for k, v in engine._opt_trees().items()},
+                "opt": engine.opt_state, "rng": engine.rng.get_state(),
+                "steps": (engine.global_steps, engine.micro_steps,
+                          engine.skipped_steps)}
+
+
+@torch.no_grad()
+def _rest_restore(engine, state: dict) -> None:
+    for n, p in engine.params.items():
+        p.copy_(state["params"][n])
+    trees = engine._opt_trees()
+    for k, v in state["trees"].items():
+        for n, t in v.items():
+            trees[k][n].copy_(t)
+    engine.opt_state = state["opt"]._replace(**trees)
+    engine.rng.set_state(state["rng"])
+    engine.global_steps, engine.micro_steps, engine.skipped_steps = \
+        state["steps"]
+    engine.tput.step_count = engine.global_steps
+
+
+def _masters(engine) -> dict:
+    with torch.no_grad():
+        return {n: p.clone() for n, p in engine.params.items()}
+
+
+def _same(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[n], b[n]) for n in a)
+
+
+def _rest_policies(engine, batch, state, card: str) -> tuple:
+    """(a): one step from ``state`` under each remat policy (the model's
+    ``remat_policy``): loss and grad norm bitwise ``full``'s, rows 2-4's
+    launches as the policy saves or replays the forward, all on the
+    Hopper kernels; peak memory, step time, tokens/s. Each policy's timed
+    step follows an untimed one from the same state: the first step
+    after a change of footprint waits on the allocator's new blocks."""
+    c = engine.model.config
+    rows, seq = batch["input_ids"].shape
+    gas = engine.gradient_accumulation_steps
+    ok, launches, wgmma, ref = True, {}, {}, None
+    for policy in REMAT_POLICIES:
+        c.remat_policy = policy
+        _rest_restore(engine, state)
+        engine.train_batch(batch)
+        _rest_restore(engine, state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _flash_reset()
+        t0 = time.perf_counter()
+        m = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n, h = _flash_read()
+        fwd = (2 if policy in REMAT_REPLAYED else 1) * c.n_layers * gas
+        want = {"flash_forward": fwd, "flash_backward_dq": c.n_layers * gas,
+                "flash_backward_dkv": c.n_layers * gas}
+        if ref is None:
+            ref = (m["loss"], m["grad_norm"])
+        same = torch.equal(m["loss"], ref[0]) and torch.equal(
+            m["grad_norm"], ref[1])
+        good = same and n == want and h == n and not m["skipped"]
+        ok = ok and good
+        launches[policy], wgmma[policy] = n, h
+        log(f"trainer rest (a) [{card}]: remat {policy}: loss "
+            f"{m['loss'].item()!r} grad norm {m['grad_norm'].item()!r} "
+            f"(bitwise full's: {same}); flash launches {n} (expected "
+            f"{want}), on the Hopper kernels {h}; step {dt:.4f} s, "
+            f"{rows * (seq - 1) / dt:.1f} tokens/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+            f"{'ok' if good else 'FAIL'}")
+    c.remat_policy = "full"
+    return ok, launches, wgmma
+
+
+def _rest_compat(engine, batches, state, card: str) -> bool:
+    """(b): two steps through ``forward`` / ``backward`` / ``step``
+    against two ``train_batch`` steps from ``state``: the mean of each
+    step's micro-batch losses and the masters bitwise."""
+    gas = engine.gradient_accumulation_steps
+    _rest_restore(engine, state)
+    ref = [engine.train_batch(b)["loss"] for b in batches]
+    ref_masters = _masters(engine)
+    _rest_restore(engine, state)
+    got, evals = [], []
+    for b in batches:
+        n = b["input_ids"].shape[0] // gas
+        mbs = [{k: v[i * n:(i + 1) * n] for k, v in b.items()}
+               for i in range(gas)]
+        evals.append(engine.forward(mbs[0]))
+        losses = []
+        for mb in mbs:
+            losses.append(engine.backward(mb))
+            engine.step()
+        got.append(sum(losses[1:], losses[0]) * (1.0 / gas))
+    torch.cuda.synchronize()
+    same_loss = all(torch.equal(a, r) for a, r in zip(got, ref))
+    same = _same(ref_masters, engine.params)
+    ok = (same_loss and same and engine.global_steps == state["steps"][0]
+          + len(batches) and all(bool(torch.isfinite(e)) for e in evals))
+    del ref_masters
+    log(f"trainer rest (b) [{card}]: 2 steps through forward / backward / "
+        f"step against 2 train_batch steps: losses {[x.item() for x in got]}"
+        f" bitwise {same_loss}, masters bitwise {same}; forward (an "
+        f"evaluation) {[round(e.item(), 5) for e in evals]} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _rest_steps(engine, batches, state, card: str) -> bool:
+    """(c): ``train_steps`` over 4 batches against 4 ``train_batch``
+    calls from ``state``: losses, grad norms and masters bitwise,
+    tokens/s both ways; then the per-step fallback with a step hook."""
+    rows, seq = batches[0]["input_ids"].shape
+    _rest_restore(engine, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per = [engine.train_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    t_per = time.perf_counter() - t0
+    ref_masters = _masters(engine)
+    _rest_restore(engine, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.train_steps(batches)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    k = len(batches)
+    same = (torch.equal(out["losses"], torch.stack([m["loss"] for m in per]))
+            and torch.equal(out["grad_norms"],
+                            torch.stack([m["grad_norm"] for m in per]))
+            and _same(ref_masters, engine.params))
+    del ref_masters
+    calls = []
+    engine.register_step_hook(lambda _e, step: calls.append(step))
+    before = engine.global_steps
+    fell = engine.train_steps(batches[:2])
+    engine._step_hooks.clear()
+    fallback = (calls == [before, before + 1] and len(fell["losses"]) == 2
+                and "per-step hooks registered"
+                in engine._steps_fallback_logged)
+    ok = same and fallback
+    log(f"trainer rest (c) [{card}]: train_steps({k}) against {k} "
+        f"train_batch calls: losses, grad norms and masters bitwise {same};"
+        f" {k * rows * (seq - 1) / t_per:.1f} tokens/s per step, "
+        f"{k * rows * (seq - 1) / t_k:.1f} tokens/s as one train_steps "
+        f"({t_per:.4f} s vs {t_k:.4f} s); with a step hook it ran "
+        f"{len(calls)} per-step calls (fallback logged: {fallback}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _rest_cfg(rows: int, gas: int, optimizer: dict, **extra) -> dict:
+    return {"train_batch_size": rows, "gradient_accumulation_steps": gas,
+            "gradient_clipping": 1.0, "steps_per_print": 1000,
+            "bf16": {"enabled": True}, "optimizer": optimizer, **extra}
+
+
+def _rest_optimizers(card: str) -> tuple:
+    """(d): sgd, lamb, lion and adagrad at full width and 4 of 22
+    layers, 2 steps each from the same seeded weights: finite, not
+    skipped (LAMB at 2 layers in fp32, cuda against cpu, is
+    :func:`_rest_parity`). Returns (ok, the 4-layer model for (g))."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    model = Llama("1b", seed=0, n_layers=REST_OPT_LAYERS)
+    init = _masters_of(model)
+    batch = {"input_ids": torch.from_numpy(np.random.default_rng(8).integers(
+        0, TRAIN_SPAN, (8, REST_SEQ))).cuda()}
+    ok = True
+    for name, params in REST_OPTIMIZERS.items():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=model, config=_rest_cfg(8, 2, {"type": name,
+                                                 "params": params}))
+        t0 = time.perf_counter()
+        ms = [engine.train_batch(batch) for _ in range(2)]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 2
+        losses = [m["loss"].item() for m in ms]
+        norms = [m["grad_norm"].item() for m in ms]
+        good = (all(np.isfinite(losses + norms))
+                and not any(m["skipped"] for m in ms))
+        ok = ok and good
+        log(f"trainer rest (d) [{card}]: {name} {params} at {REST_OPT_LAYERS}"
+            f" layers: losses {losses}, grad norms {norms}, "
+            f"{dt:.4f} s a step {'ok' if good else 'FAIL'}")
+        del engine, ms
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok, model
+
+
+def _rest_parity() -> None:
+    """(d)'s 2-layer fp32 cuda-against-cpu check, phase 7's, on LAMB (the
+    rule whose update reads whole-leaf norms). The other rules' cuda
+    against cpu are ``tests/test_torch_optimizers.py``'s ``gpu`` case; a
+    CPU reference of this model takes ~7 s of the host a rule."""
+    rows, seq = REST_PARITY_ROWS
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 32000, (rows, seq)))
+    _trainer_parity(f"2-layer Llama-1b fp32 lamb, {rows}x{seq} tokens",
+                    _parity_model(), {"input_ids": toks}, gas=1,
+                    optimizer={"type": "lamb",
+                               "params": REST_OPTIMIZERS["lamb"]})
+
+
+def _masters_of(model) -> dict:
+    with torch.no_grad():
+        return {n: p.clone() for n, p in model.named_parameters()}
+
+
+def _rest_telemetry(engine, batch, card: str, tmp: str) -> bool:
+    """(e): an engine over the same model with telemetry and the CSV
+    monitor on: every record valid, the monitor's rows written, the
+    record's MFU beside the analytic MFU, the step time with telemetry on
+    against the plain engine's."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.telemetry import validate_step_record
+
+    c = engine.model.config
+    rows, seq = batch["input_ids"].shape
+    logger_on = comm.get_comms_logger().enabled
+    times = {}
+    for label, eng in (("off", engine), ("on", None)):
+        if eng is None:
+            eng, *_ = deepspeed_tpu_torch.initialize(
+                model=engine.model, config=_rest_cfg(
+                    rows, engine.gradient_accumulation_steps,
+                    {"type": "adamw", "params": {"lr": 1e-4,
+                                                 "weight_decay": 0.1}},
+                    telemetry={"enabled": True,
+                               "output_dir": os.path.join(tmp, "tel")},
+                    csv_monitor={"enabled": True, "output_path": tmp,
+                                 "job_name": "8e"}))
+            eng.train_batch(batch)        # counts the step's operations
+        else:
+            eng.train_batch(batch)        # after (d): the allocator's blocks
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.train_batch(batch)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        times[label] = sum(ts) / len(ts)
+    eng.close()
+    comm.configure_comms_logger(logger_on)
+    with open(os.path.join(tmp, "tel", "steps.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    with open(os.path.join(tmp, "8e", "Train_loss.csv")) as f:
+        csv_rows = f.read().splitlines()
+    bad = [validate_step_record(r) for r in recs if validate_step_record(r)]
+    analytic = rows * (seq - 1) * c.flops_per_token(seq)
+    rec = recs[-1]
+    mfu_analytic = analytic / rec["wall_time_s"] / PEAK_OPS_PER_S[
+        torch.bfloat16]
+    ok = (len(recs) == 4 and not bad and len(csv_rows) == 5
+          and rec["mfu"] > 0 and rec["memory"].get("hbm_peak_gb", 0) > 0)
+    log(f"trainer rest (e) [{card}]: telemetry + CSV monitor: {len(recs)} "
+        f"step records, all valid ({bad or 'no violations'}), "
+        f"Train_loss.csv {len(csv_rows) - 1} rows; last record: wall "
+        f"{rec['wall_time_s']:.4f} s, {rec['tokens_per_s']:.1f} tokens/s, "
+        f"MFU {rec['mfu']:.4f} from the counted {eng._step_flops:.4e} "
+        f"operations a step beside the analytic {mfu_analytic:.4f} "
+        f"(flops_per_token: {analytic:.4e}; the count is "
+        f"{eng._step_flops / analytic:.4f}x it: the remat replay's forward "
+        f"and the attention as run), peak {rec['memory']['hbm_peak_gb']} "
+        f"GB; step time telemetry on {times['on']:.4f} s, off "
+        f"{times['off']:.4f} s ({times['on'] / times['off'] - 1:+.2%}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _rest_compression(card: str) -> bool:
+    """(f): QAT on the layers' matrices (the embedding and the head, 60 % of
+    the weights, stay fp32: their fake quantization on the host's CPU was
+    the phase's longest part) plus sparse pruning of the MLP (dense
+    0.5), 3 fp32 steps of a 2-layer Llama-1b on cuda and on cpu from the
+    same weights: the same masks, the first step's loss within 1e-5 and
+    the next two within 1e-4 (from step 2 the weights differ by rounding,
+    and QAT can put a weight a quantization level apart on the two
+    devices, as phase 10's compressed runs; Adam's near-eps elements move
+    by up to 2 lr), and ``redundancy_clean`` baking the same zeros."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.compression import (init_compression,
+                                                 redundancy_clean)
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    t0 = time.perf_counter()
+    rows, seq = REST_PARITY_ROWS
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        0, 32000, (rows, seq)))
+    cpu_model = _parity_model()
+    cfg = {"train_batch_size": rows, "steps_per_print": 1000,
+           "optimizer": {"type": "adamw", "params": {"lr": 1e-4}}}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = _copy_model(cpu_model, dev)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    device=dev)
+        comp = init_compression(engine, REST_COMPRESSION)
+        losses = [engine.train_batch({"input_ids": toks})["loss"].item()
+                  for _ in range(3)]
+        clean = redundancy_clean(engine, REST_COMPRESSION, compressor=comp)
+        zeros = {n: (t == 0).cpu() for n, t in clean.items()
+                 if "w_up" in n or "w_down" in n}
+        out[dev] = (losses, comp.masks, zeros)
+        del engine, model, clean
+    (gl, gm, gz), (cl, cm, cz) = out["cuda"], out["cpu"]
+    same_masks = set(gm) == set(cm) and all(np.array_equal(gm[k], cm[k])
+                                            for k in gm)
+    rels = [abs(a - b) / abs(b) for a, b in zip(gl, cl)]
+    density = float(np.mean([m.mean() for m in gm.values()]))
+    # the stack's threshold keeps half of its elements (and its ties):
+    # each layer's leaf keeps about half (JAX's test: > 0.4 zeros)
+    baked = all(torch.equal(gz[n], cz[n]) for n in cz) and all(
+        float(z.float().mean()) > 0.4 for z in gz.values())
+    ok = (same_masks and rels[0] <= 1e-5 and max(rels[1:]) <= 1e-4
+          and baked and all(np.isfinite(gl)))
+    log(f"trainer rest (f) [{card}]: compression (QAT int8 on the layers, "
+        f"sparse MLP masks dense 0.5) on a 2-layer Llama-1b fp32, "
+        f"{rows}x{seq} tokens: losses cuda {gl} cpu {cl} (rel "
+        f"{[f'{r:.2e}' for r in rels]}, tol 1e-5 at step 1, 1e-4 after); "
+        f"masks equal {same_masks} ({len(gm)} stacked "
+        f"leaves, density {density:.3f}); redundancy_clean's zeros equal "
+        f"and > 0.4 a leaf: {baked} ({time.perf_counter() - t0:.1f} s) "
+        f"{'ok' if ok else 'FAIL'}")
+    del cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _copy_model(model, device: str):
+    """``model`` itself on the cpu, a copy of it on the card."""
+    import copy
+
+    return copy.deepcopy(model).to(device) if device != "cpu" else model
+
+
+def _rest_warmup(model, card: str) -> bool:
+    """(g): ``warmup_async`` on a fresh engine over (d)'s 4-layer model
+    returns True, and the first step joins it."""
+    import deepspeed_tpu_torch
+
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=_rest_cfg(8, 2, {"type": "adamw",
+                                             "params": {"lr": 1e-4}}))
+    batch = {"input_ids": torch.from_numpy(np.random.default_rng(11)
+                                           .integers(0, TRAIN_SPAN,
+                                                     (8, REST_SEQ))).cuda()}
+    t0 = time.perf_counter()
+    thread = engine.warmup_async(batch)
+    started = time.perf_counter() - t0
+    _flash_reset()
+    m = engine.train_batch(batch)
+    torch.cuda.synchronize()
+    n, h = _flash_read()
+    ok = (engine.warmed_up is True and not thread.is_alive()
+          and engine._warmup_thread is None and bool(torch.isfinite(
+              m["loss"])) and h == n and n["flash_forward"] > 0)
+    log(f"trainer rest (g) [{card}]: warmup_async returned in "
+        f"{started * 1e3:.2f} ms, its result {engine.warmed_up} (the "
+        f"libraries {engine._step_libraries()} loaded), joined by the first"
+        f" step (thread alive: {thread.is_alive()}); that step's flash "
+        f"launches {n}, on the Hopper kernels {h} {'ok' if ok else 'FAIL'}")
+    del engine
+    return ok
+
+
+def phase_trainer_rest(engine, batch, card: str) -> dict:
+    """8e: the trainer's rest on phase 8's TinyLlama-1.1B engine (22
+    layers, bf16 on fp32 masters, 4 x 2048 at GAS 2): (a) every remat
+    policy, (b) the micro-step API, (c) ``train_steps``, from one saved
+    state; (d) the other optimizers at 4 layers and LAMB at 2 layers
+    fp32 cuda against cpu; (e) step telemetry and the CSV monitor; (f)
+    compression cuda against cpu; (g) ``warmup_async``."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    batches = [batch] + [{"input_ids": torch.from_numpy(rng.integers(
+        0, engine.model.config.vocab_size, tuple(batch["input_ids"].shape)))
+        .cuda()} for _ in range(3)]
+    marks = {}
+
+    def mark(part: str) -> None:
+        marks[part] = time.perf_counter() - t0 - sum(marks.values())
+
+    state = _rest_state(engine)
+    ok, launches, wgmma = _rest_policies(engine, batch, state, card)
+    mark("a")
+    ok &= _rest_compat(engine, batches[:2], state, card)
+    mark("b")
+    ok &= _rest_steps(engine, batches, state, card)
+    mark("c")
+    _rest_restore(engine, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    good, model4 = _rest_optimizers(card)
+    ok &= good
+    mark("d")
+    _rest_parity()
+    mark("d: cuda vs cpu")
+    tmp = tempfile.mkdtemp(prefix="dst_8e_")
+    try:
+        ok &= _rest_telemetry(engine, batch, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("e")
+    ok &= _rest_compression(card)
+    mark("f")
+    ok &= _rest_warmup(model4, card)
+    del model4
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("g")
+    seconds = time.perf_counter() - t0
+    log(f"trainer rest: phase 8e in {seconds:.1f} s (predicted "
+        f"{REST_PREDICTED_S:g} s): "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in marks.items()))
+    if not ok:
+        raise SystemExit("phase 8e: the trainer's rest failed")
+    return {"launches": launches, "wgmma_launches": wgmma,
+            "seconds": seconds}
+
+
 # --------------------------------------------------------------- phase 8b
 TRAIN_LR = 1e-4
 TRAIN_WARM, TRAIN_TIMED = 2, 3
@@ -7035,7 +7558,8 @@ TRAIN_DATASETS = {"gpt2": 64, "opt": 40}   # (a), (b): sequences loaded
 TRAIN_MOE = dict(n_experts=128, n_layers=2)    # (e): depth cut from 24
 TRAIN_CUT_LAYERS = 12          # (b), (c): OPT-1.3B's and BERT-large's 24
 #                                layers cut for the time limit
-TRAIN_PARITY_MOE = dict(n_experts=32, n_layers=2)   # (f), as 6i (d)
+TRAIN_PARITY_MOE = dict(n_experts=32, n_layers=1)   # (f): 6i (d)'s at 1
+#                                                     layer (2 until PR 24)
 TRAIN_PARITY_ROWS = (4, 128)   # (f): rows x tokens of each family's batch
 # row 2-4 at each family's micro-batch: label, b, s, heads, causal
 TRAIN_FLASH_SHAPES = [("gpt2", 8, 1024, 12, True), ("opt", 8, 512, 32, True),
@@ -7634,6 +8158,7 @@ def phase_train_families(card: str) -> dict:
 
 # --------------------------------------------------------------- phase 8c
 TP_TRAIN_WORLD = 2
+TP_TRAIN_LAYERS = 11           # (a): TinyLlama-1.1B's 22 cut (PR 24; time)
 TP_TRAIN_SHAPE = (2, 2048, 2)  # (a): rows x tokens a step, GAS (phase 8's
 #                                4 x 2048 micro-batch cut to 1 x 2048: time)
 TP_TRAIN_TIMED = 3             # (a): after 1 warm-up step
@@ -7772,7 +8297,8 @@ def _tp_against_tp1(device, ref, full: dict, batch) -> dict:
 
 
 def _tp_train_full(rank, world, ids: np.ndarray) -> dict:
-    """(a) on one rank: ``Llama("1b")`` at full width and depth built on
+    """(a) on one rank: ``Llama("1b")`` at full width and ``TP_TRAIN_LAYERS``
+    of its 22 layers built on
     the card from seed 0, cut by ``initialize`` to this rank's half (hq
     16, hkv 2 of d 64), bf16 compute on fp32 masters, full remat, AdamW,
     clipping 1.0, GAS 2 of 1 x 2048 tokens: 1 warm-up step, then the
@@ -7787,7 +8313,7 @@ def _tp_train_full(rank, world, ids: np.ndarray) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = Llama("1b", seed=0)
+    model = Llama("1b", seed=0, n_layers=TP_TRAIN_LAYERS)
     rows, seq, gas = TP_TRAIN_SHAPE
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model, config=_tp_train_cfg(rows, gas, world, True))
@@ -7868,7 +8394,8 @@ def phase_tp_training(card: str) -> dict:
     """8c: tensor-parallel training at TP 2, two gloo rank processes on
     the one card (and, for (b), two on the host; :func:`_job_tp_train`):
     (a) TinyLlama-1.1B
-    (``llama_config("1b")``) at full width and depth, bf16 on fp32
+    (``llama_config("1b")``) at full width and ``TP_TRAIN_LAYERS`` of its
+    22 layers, bf16 on fp32
     masters, GAS 2 of 1 x 2048: step time, tokens/s, MFU, the
     collectives a step and their share of it, peak memory a rank, flash
     launches a rank (all on the Hopper kernels), a finite falling loss,
@@ -7925,7 +8452,7 @@ def phase_tp_training(card: str) -> dict:
         log(line + f" {'ok' if good else 'FAIL'}")
     # (a)
     a = [r["a"] for r in res]
-    c = llama_config("1b")
+    c = llama_config("1b", n_layers=TP_TRAIN_LAYERS)
     rows, seq, gas = TP_TRAIN_SHAPE
     tokens = rows * (seq - 1)
     c_flops = tokens * c.flops_per_token(seq)
@@ -7987,9 +8514,9 @@ ZERO_LR = 1e-4
 ZERO_RUNS = {      # (model, stages, rows x tokens a step, GAS, label)
     "a": ("gpt2", (0, 1, 2), 16, 1024, 2, "GPT-2 small, 12 of 12 layers"),
     "b": ("opt", (0, 2), 8, 512, 1, "OPT-1.3B widths, 3 of 24 layers"),
-    "c": ("llama7b", (3,), 2, 2048, 1, "Llama-2-7B widths, 2 of 32 layers")}
+    "c": ("llama7b", (3,), 2, 2048, 1, "Llama-2-7B widths, 1 of 32 layers")}
 ZERO_OPT_LAYERS = 3             # (b): the step's gloo bytes (time)
-ZERO_LLAMA_LAYERS = 2           # (c)
+ZERO_LLAMA_LAYERS = 1           # (c): 2 until PR 24 (time)
 ZERO_PARITY_ROWS = (2, 128)     # (d): rows x tokens of its one step
 ZERO_PARITY_LAYERS = 1          # (d): the host ranks' work (time)
 # (d): (model, stage, qgZ) on the card, each held to the card's stage 0
@@ -8198,20 +8725,19 @@ def _zero_facade(full: dict, ref: dict) -> dict:
             "ok": n_out <= n_all // 200 and worst <= 2 * ZERO_LR + 1e-5}
 
 
-def _zero_host_file(tmp: str, key: tuple) -> str:
+def _zero_host_file(tmp: str, key: tuple, what: str = "host") -> str:
     kind, stage, qgz = key
-    return os.path.join(tmp, f"{kind}_{stage}_{int(qgz)}.pt")
+    return os.path.join(tmp, f"{what}_{kind}_{stage}_{int(qgz)}.pt")
 
 
-def _job_zero(rank, world, device, ids: dict, host_done, tmp: str) -> dict:
+def _job_zero(rank, world, device, ids: dict, tmp: str) -> dict:
     """A rank of phase 8d: on cpu ranks (d)'s host runs, rank 0 writing
     each run's masters under ``tmp``; on the card (d)'s runs, each held
-    against the card's stage 0 of its model (rank 0 keeps the masters),
-    then, once the host ranks are done (``host_done``, so that their work
-    is off the host's cores), rank 0 holds each run's masters against the
-    host's and (a)-(c) are timed."""
+    against the card's stage 0 of its model, rank 0 writing each run's
+    masters (and the stage-0 run's |g|) under ``tmp`` for the host
+    comparison (:func:`_zero_host_finish`), then (a)-(c) timed."""
     runs = ZERO_PARITY_HOST if device == "cpu" else ZERO_PARITY_CARD
-    out, ref, kept = {"d": {}}, {}, {}
+    out, ref = {"d": {}}, {}
     for key in runs:
         res = _zero_parity(rank, world, device, *key, ids["d"], rank == 0)
         full, lo = res.pop("full", None), res.pop("lo", None)
@@ -8219,23 +8745,18 @@ def _job_zero(rank, world, device, ids: dict, host_done, tmp: str) -> dict:
             torch.save(full, _zero_host_file(tmp, key))
         elif full is not None and key[1] == 0:
             ref[key[0]] = (full, lo)
+            torch.save({n: t.cpu() for n, t in lo.items()},
+                       _zero_host_file(tmp, key, "card_lo"))
         elif full is not None:
             if not key[2]:
                 res["weights"] = _zero_weights(full, *ref[key[0]])
-            kept[key] = full
+            if key in ZERO_PARITY_HOST:
+                torch.save({n: t.cpu() for n, t in full.items()},
+                           _zero_host_file(tmp, key, "card"))
         out["d"][key] = res
         del full, lo
     if device == "cpu":
         return out
-    if not host_done.wait(timeout=900):
-        raise RuntimeError("phase 8d: the host ranks did not finish")
-    for key in list(kept):
-        host = torch.load(_zero_host_file(tmp, key), map_location="cuda")
-        full = kept.pop(key)
-        out["d"][key]["host_weights"] = (
-            _zero_facade(full, host) if key[2]
-            else _zero_weights(full, host, ref[key[0]][1]))
-        del host, full
     ref.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -8389,7 +8910,7 @@ def phase_zero_training(card: str) -> dict:
     :func:`_job_zero`), through ``initialize`` -> ``train_batch``: (a)
     GPT-2 small at full depth, stages 0, 1 and 2, 16 x 1024, GAS 2; (b)
     OPT-1.3B's widths at 3 of 24 layers, stages 0 and 2, 8 x 512; (c)
-    Llama-2-7B's widths at 2 of 32 layers, stage 3 (the per-layer
+    Llama-2-7B's widths at 1 of 32 layers, stage 3 (the per-layer
     gather), 2 x 2048: bf16 on fp32 masters, full remat, AdamW, 1 warm-up
     and 2 timed steps each: step time, tokens/s, MFU, peak memory a rank
     (falling with the stage), moment and gradient-accumulator bytes, the
@@ -8403,36 +8924,25 @@ def phase_zero_training(card: str) -> dict:
     masters within 1e-6 but for Adam's near-eps elements; qgZ not) and
     against the same stage on the host ranks (the same tolerances, qgZ's
     loss 1e-4 and its masters by the compressed facade's rule), the
-    quantizer's launches under qgZ."""
+    quantizer's launches under qgZ. The host ranks run after the phase,
+    beside phase 10 (:func:`_zero_host_start` / :func:`_zero_host_finish`):
+    the card's (a)-(c) no longer wait for them."""
     import shutil
     import tempfile
-
-    import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(41)
     ids = {key: rng.integers(0, TRAIN_SPAN, (rows, seq))
            for key, (_, _, rows, seq, _, _) in ZERO_RUNS.items()}
     ids["d"] = rng.integers(0, 32000, ZERO_PARITY_ROWS)
-    host_done = mp.get_context("spawn").Event()
     tmp = tempfile.mkdtemp(prefix="dst_zero_")
     try:
-        cpu = _start_ranks(ZERO_WORLD, "cpu", "zero", (ids, host_done, tmp),
-                           pin=False, threads=ZERO_HOST_THREADS)
-        cuda = _start_ranks(ZERO_WORLD, "cuda", "zero",
-                            (ids, host_done, tmp))
-        res_cpu = _join_ranks(*cpu, timeout=600)
-        host_s = time.perf_counter() - t0
-        host_done.set()
-        res = _join_ranks(*cuda, timeout=900)
-    finally:
+        res = _join_ranks(*_start_ranks(ZERO_WORLD, "cuda", "zero",
+                                        (ids, tmp)), timeout=900)
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"zero train (d): the host ranks' {len(ZERO_PARITY_HOST)} runs "
-        f"done {host_s:.1f} s into the phase ({ZERO_HOST_THREADS} threads "
-        f"a rank)")
-    ok = _zero_parity_checks(res, res_cpu, card)
-    good, launches, wgmma, step = _zero_timed_checks(res, card)
-    ok = ok and good
+        raise
+    ok, launches, wgmma, step = _zero_timed_checks(res, card)
     # rows 2-4 at (c)'s micro-batch on a rank (d 128)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     c = _zero_model_config("llama7b")
@@ -8443,13 +8953,57 @@ def phase_zero_training(card: str) -> dict:
     del flush
     seconds = time.perf_counter() - t0
     log(f"zero train: phase 8d in {seconds:.1f} s (predicted "
-        f"{ZERO_PREDICTED_S:g} s)")
+        f"{ZERO_PREDICTED_S:g} s; (d)'s host runs follow, behind phase 10)")
     if not ok:
+        shutil.rmtree(tmp, ignore_errors=True)
         raise SystemExit("phase 8d: ZeRO training failed")
     return {"launches": launches, "wgmma_launches": wgmma,
             "quant_launches": res[0]["d"][("llama", 2, True)][
                 "quant_launches"],
-            "flash": flash, "step_s": step, "seconds": seconds}
+            "flash": flash, "step_s": step, "seconds": seconds,
+            "host": {"ids": ids, "tmp": tmp, "res": res}}
+
+
+def _zero_host_start(zero: dict) -> dict:
+    """8d (d)'s host ranks, started beside phase 10 (which reads no
+    time; its pinned cpu ranks share the host's cores with them)."""
+    h = zero["host"]
+    h["t0"] = time.perf_counter()
+    h["ranks"] = _start_ranks(ZERO_WORLD, "cpu", "zero",
+                              (h["ids"], h["tmp"]), pin=False,
+                              threads=ZERO_HOST_THREADS)
+    return h
+
+
+def _zero_host_finish(h: dict, card: str) -> None:
+    """8d (d)'s host comparison once its ranks are done: each card run's
+    masters against the host's run of the same stage, and the lines
+    :func:`_zero_parity_checks` prints."""
+    import shutil
+
+    try:
+        res_cpu = _join_ranks(*h["ranks"], timeout=900)
+        host_s = time.perf_counter() - h["t0"]
+        res, tmp = h["res"], h["tmp"]
+        for key in ZERO_PARITY_HOST:
+            load = functools.partial(torch.load, map_location="cuda")
+            full = load(_zero_host_file(tmp, key, "card"))
+            host = load(_zero_host_file(tmp, key))
+            res[0]["d"][key]["host_weights"] = (
+                _zero_facade(full, host) if key[2] else _zero_weights(
+                    full, host, load(_zero_host_file(
+                        tmp, (key[0], 0, False), "card_lo"))))
+            del full, host
+    finally:
+        shutil.rmtree(h["tmp"], ignore_errors=True)
+    log(f"zero train (d): the host ranks' {len(ZERO_PARITY_HOST)} runs "
+        f"done in {host_s:.1f} s beside phase 10 ({ZERO_HOST_THREADS} "
+        f"threads a rank)")
+    ok = _zero_parity_checks(res, res_cpu, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("phase 8d (d): ZeRO against the host ranks failed")
 
 
 # ------------------------------------------------------ phase 3 (fused)
@@ -9356,13 +9910,16 @@ def _bf16_ulp(x: float) -> float:
     return math.ldexp(1.0, math.frexp(abs(x))[1] - 8)
 
 
+ZERO3_WARM = 1                 # phase 11's warm-up steps a run
+
+
 def phase_zero3_training(card: str) -> dict:
     """The slice's path at full width: SequentialBlockModel(ZERO3_DIMS),
     world 2 on the one card over gloo, bf16 compute on fp32 masters, a bf16
     batch of 4096 x 4096 (2048 rows a rank), AdamW lr 1e-3, compressed
-    (w8/g4) and dense, each on the fused and the reference backend: 2
-    warm-up and 4 timed steps with the kernel counts set to 0 between
-    them. Every launch of rows 7-9 in a fused run must take the Hopper
+    (w8/g4) and dense, each on the fused and the reference backend: 1
+    warm-up (2 until PR 24; time) and 4 timed steps with the kernel counts
+    set to 0 between them. Every launch of rows 7-9 in a fused run must take the Hopper
     kernel. Returns each fused kernel's launches on rank 0 in the four
     timed steps of the run that takes it, and its launches on the Hopper
     kernel there."""
@@ -9371,7 +9928,7 @@ def phase_zero3_training(card: str) -> dict:
              else "xla") for c in ("compressed", "dense")
             for b in ("fused", "reference")]
     res = _join_ranks(*_start_ranks(2, "cuda", "train",
-                                    (ZERO3_DIMS, runs, 4096, 2, 4)),
+                                    (ZERO3_DIMS, runs, 4096, ZERO3_WARM, 4)),
                       timeout=900)
     n_params = sum(ZERO3_DIMS[i] * ZERO3_DIMS[i + 1] + ZERO3_DIMS[i + 1]
                    for i in range(len(ZERO3_DIMS) - 1))
@@ -9396,7 +9953,7 @@ def phase_zero3_training(card: str) -> dict:
                 counts_ok = all(per_step[k] == 0 for k in FUSED_KERNELS)
             good = falling and finite and counts_ok
             ok = ok and good
-            step = sum(x["times"][2:]) / 4
+            step = sum(x["times"][ZERO3_WARM:]) / 4
             log(f"zero3 [{card}] {name} rank {r}: losses "
                 f"{[round(v, 6) for v in x['losses']]}, step times "
                 f"{[round(v, 4) for v in x['times']]} s, timed step (mean "
@@ -9824,9 +10381,7 @@ def main() -> int:
     dev = phase_device()
     pending = phase_build()
     mark("build of all but fused_collectives.cu")
-    phase_engine()
-    phase_ragged_quant_parity()
-    phase_inference_parity()
+    phase_engine_parity()
     mark("engine parity (4)")
     phase_build_report(pending)
     mark("build")
@@ -9903,6 +10458,8 @@ def main() -> int:
     engine, batch, flash_launches, flash_wgmma = phase_training(dev["card"])
     phase_training_profile(engine, batch, dev["card"])
     mark("7, 8, 9")
+    rest = phase_trainer_rest(engine, batch, dev["card"])
+    mark("8e")
     del engine, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -9912,8 +10469,12 @@ def main() -> int:
     mark("8c")
     zero_train = phase_zero_training(dev["card"])
     mark("8d")
+    zero_host = _zero_host_start(zero_train)
     phase_zero3_parity()
     mark("10")
+    _zero_host_finish(zero_host, dev["card"])
+    del zero_train["host"]
+    mark("8d (d)'s host runs")
     fused_launches, fused_wgmma = phase_zero3_training(dev["card"])
     mark("11")
     ckpt = phase_checkpoints(dev["card"], prompts)
@@ -10033,7 +10594,12 @@ def main() -> int:
             zero3_timing=zero_train["flash"][name],
             # 12 (a): the 2 resumed steps
             ckpt_resume_launches=ckpt["launches"][name],
-            ckpt_resume_wgmma_launches=ckpt["wgmma_launches"][name])
+            ckpt_resume_wgmma_launches=ckpt["wgmma_launches"][name],
+            # 8e (a): one step of TinyLlama-1.1B under each remat policy
+            remat_launches={k: v[name] for k, v in
+                            rest["launches"].items()},
+            remat_wgmma_launches={k: v[name] for k, v in
+                                  rest["wgmma_launches"].items()})
         if name == "flash_forward":
             # 6h: BERT-large's 10 timed forwards, CLIP's similarity, and
             # row 2 timed at their layer-0 calls

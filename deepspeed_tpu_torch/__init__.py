@@ -90,6 +90,22 @@ loads and exports Hugging Face weights (``checkpoint/hf.py``,
                                    "mesh": {"data": 2, "model": 2}, ...})
     metrics = engine.train_batch({"input_ids": tokens})  # the global batch
 
+    # the rest of the trainer: any optimizer rule (sgd, lamb, lion,
+    # adagrad and the reference's aliases) or a client Transform, remat
+    # policies (the model's remat_policy), k steps back to back, the
+    # micro-step API, warmup, step records and monitors, compression
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=Llama("1b", remat_policy="selective_flash"), config={
+            "train_batch_size": 8, "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "lamb", "params": {"lr": 1e-3}},
+            "telemetry": {"enabled": True, "output_dir": "telemetry"},
+            "csv_monitor": {"enabled": True, "output_path": "monitor"}})
+    engine.warmup_async({"input_ids": tokens})
+    out = engine.train_steps([batch_a, batch_b, batch_c])   # out["losses"]
+    for mb in micro_batches:                        # train_batch_size / gas
+        engine.backward(mb)
+        engine.step()                               # applies at the boundary
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``.
 """
@@ -106,6 +122,8 @@ from .models.moe import (GPTMoE, MoETransformer,  # noqa: F401
                          MoETransformerConfig, gpt_moe_config)
 from .runtime.dataloader import DataLoader, RepeatingLoader  # noqa: F401
 from .runtime.engine import TrainEngine
+from .telemetry import MetricsRegistry, StepStats, get_telemetry  # noqa: F401
+from .utils.logging import log_dist, logger  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -122,6 +140,12 @@ def initialize(*, loss_fn: Optional[Callable] = None, params: Any = None,
     and optimizer state by ``parallel.zero.ZeroShardingRules``); returns
     ``(engine, optimizer, dataloader, lr_scheduler)`` as
     ``deepspeed_tpu.initialize`` does.
+
+    ``optimizer`` is a client optimizer (a
+    :class:`~deepspeed_tpu_torch.runtime.optimizers.Transform`, or any
+    object with ``init`` / ``update``, ``as_transform``'s protocol) in
+    place of the config's ``optimizer`` block; ``lr_scheduler`` a
+    callable ``count -> lr`` in place of its ``scheduler``.
 
     Pass either ``loss_fn(params, batch) -> loss | (loss, aux)`` plus
     ``params`` (a ``{name: tensor}`` dict), or ``model`` — an object with

@@ -18,11 +18,15 @@ Ports the parts of ``deepspeed_tpu/config.py`` that the ported paths read:
   (``train_seed``, the trainer's random stream and the data loader's
   shuffle), the ``dataloader`` block (:class:`DataLoaderConfig`), the
   ``checkpoint`` block (:class:`CheckpointConfig`) and the ``resilience``
-  block (:class:`ResilienceConfig`: divergence guards and chaos).
-  Settings of later slices (ZeRO beside a ``model`` axis, hpZ, MiCS,
-  offload, mesh axes other than ``data`` and ``model``, pipelining,
-  training telemetry, universal checkpoints) raise :class:`ConfigError`
-  naming that slice; other unknown keys warn.
+  block (:class:`ResilienceConfig`: divergence guards and chaos), the
+  ``telemetry`` block of step records, ``activation_checkpointing``,
+  the monitors' ``tensorboard`` / ``csv_monitor`` / ``wandb`` blocks,
+  ``flops_profiler``, ``comms_logger``, ``wall_clock_breakdown`` and
+  ``memory_breakdown`` (``compression_training`` is
+  ``compression.init_compression``'s, accepted here). Settings of later
+  slices (ZeRO beside a ``model`` axis, hpZ, MiCS, offload, mesh axes
+  other than ``data`` and ``model``, pipelining, universal checkpoints)
+  raise :class:`ConfigError` naming that slice; other unknown keys warn.
 """
 
 from __future__ import annotations
@@ -324,13 +328,6 @@ def _check_later_slice_blocks(d: Dict[str, Any]) -> None:
     pipe = d.pop("pipeline", None) or {}
     if int(pipe.get("stages", 1) or 1) > 1:
         _later_slice("pipeline.stages", pipe["stages"])
-    tel = d.pop("telemetry", None) or {}
-    if tel.get("enabled"):
-        # serving telemetry is ported (TelemetryConfig); the trainer's
-        # per-step StepStats records are not yet
-        _later_slice("telemetry.enabled", tel["enabled"],
-                     "TrainEngine step telemetry: ROADMAP.md, Queue A "
-                     "item 9")
     ckpt = d.get("checkpoint") or {}
     if ckpt.get("load_universal"):
         _later_slice("checkpoint.load_universal", ckpt["load_universal"],
@@ -479,6 +476,137 @@ class DataLoaderConfig:
 
 
 @dataclass
+class ActivationCheckpointingConfig:
+    """The ``activation_checkpointing`` block (the reference's keys; JAX
+    ``ActivationCheckpointingConfig``). ``policy`` names the remat policy
+    of ``runtime/activation_checkpointing.py``; ``cpu_checkpointing``
+    offloads its saved dot outputs to pinned host memory. The process-wide
+    default comes from ``activation_checkpointing.configure``; a model
+    names its own policy (``remat_policy``)."""
+
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    policy: str = "full"
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]
+                  ) -> "ActivationCheckpointingConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(
+            partition_activations=bool(_take(d, "partition_activations",
+                                             False)),
+            cpu_checkpointing=bool(_take(d, "cpu_checkpointing", False)),
+            contiguous_memory_optimization=bool(_take(
+                d, "contiguous_memory_optimization", False)),
+            number_checkpoints=_take(d, "number_checkpoints", None),
+            synchronize_checkpoint_boundary=bool(_take(
+                d, "synchronize_checkpoint_boundary", False)),
+            profile=bool(_take(d, "profile", False)),
+            policy=str(_take(d, "policy", "full")),
+        )
+        _warn_unknown(d, "activation_checkpointing")
+        return out
+
+
+@dataclass
+class MonitorConfig:
+    """The ``tensorboard`` / ``csv_monitor`` / ``wandb`` blocks (the
+    reference's ``monitor/config.py``): ``monitor/monitor.py``'s
+    writers."""
+
+    tensorboard_enabled: bool = False
+    tensorboard_output_path: str = ""
+    tensorboard_job_name: str = "DeepSpeedTPUJob"
+    csv_enabled: bool = False
+    csv_output_path: str = ""
+    csv_job_name: str = "DeepSpeedTPUJob"
+    wandb_enabled: bool = False
+    wandb_project: Optional[str] = None
+    wandb_team: Optional[str] = None
+    wandb_group: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, tb: Optional[Dict], csv: Optional[Dict],
+                  wandb: Optional[Dict]) -> "MonitorConfig":
+        tb, csv, wandb = dict(tb or {}), dict(csv or {}), dict(wandb or {})
+        return cls(
+            tensorboard_enabled=bool(tb.get("enabled", False)),
+            tensorboard_output_path=str(tb.get("output_path", "")),
+            tensorboard_job_name=str(tb.get("job_name", "DeepSpeedTPUJob")),
+            csv_enabled=bool(csv.get("enabled", False)),
+            csv_output_path=str(csv.get("output_path", "")),
+            csv_job_name=str(csv.get("job_name", "DeepSpeedTPUJob")),
+            wandb_enabled=bool(wandb.get("enabled", False)),
+            wandb_project=wandb.get("project"),
+            wandb_team=wandb.get("team"),
+            wandb_group=wandb.get("group"),
+        )
+
+    @property
+    def enabled(self) -> bool:
+        return self.tensorboard_enabled or self.csv_enabled \
+            or self.wandb_enabled
+
+
+@dataclass
+class FlopsProfilerConfig:
+    """The ``flops_profiler`` block (the reference's keys)."""
+
+    enabled: bool = False
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]
+                  ) -> "FlopsProfilerConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(enabled=bool(_take(d, "enabled", False)),
+                  profile_step=int(_take(d, "profile_step", 1)),
+                  module_depth=int(_take(d, "module_depth", -1)),
+                  top_modules=int(_take(d, "top_modules", 1)),
+                  detailed=bool(_take(d, "detailed", True)),
+                  output_file=_take(d, "output_file", None))
+        _warn_unknown(d, "flops_profiler")
+        return out
+
+
+@dataclass
+class CommsLoggerConfig:
+    """The ``comms_logger`` block: the collectives' ledger
+    (``comm.comm.configure_comms_logger``)."""
+
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: list = field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "CommsLoggerConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(enabled=bool(_take(d, "enabled", False)),
+                  verbose=bool(_take(d, "verbose", False)),
+                  prof_all=bool(_take(d, "prof_all", True)),
+                  debug=bool(_take(d, "debug", False)),
+                  prof_ops=list(_take(d, "prof_ops", [])))
+        _warn_unknown(d, "comms_logger")
+        return out
+
+
+@dataclass
 class Config:
     """Top-level typed config of the single-device trainer (the keys this
     slice reads; see the module docstring)."""
@@ -488,6 +616,8 @@ class Config:
     gradient_accumulation_steps: Optional[int] = None
     steps_per_print: int = 10
     gradient_clipping: float = 0.0
+    wall_clock_breakdown: bool = False
+    memory_breakdown: bool = False
     train_seed: int = 42
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
@@ -500,6 +630,15 @@ class Config:
     dataloader: DataLoaderConfig = field(default_factory=DataLoaderConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    activation_checkpointing: ActivationCheckpointingConfig = field(
+        default_factory=ActivationCheckpointingConfig)
+    monitor: MonitorConfig = field(default_factory=MonitorConfig)
+    telemetry: "TelemetryConfig" = field(
+        default_factory=lambda: TelemetryConfig())
+    flops_profiler: FlopsProfilerConfig = field(
+        default_factory=FlopsProfilerConfig)
+    comms_logger: CommsLoggerConfig = field(
+        default_factory=CommsLoggerConfig)
     #: the dict the config was built from (a checkpoint's config snapshot)
     raw: Dict[str, Any] = field(default_factory=dict)
 
@@ -554,8 +693,23 @@ class Config:
                 _take(d, "checkpoint", None)),
             resilience=ResilienceConfig.from_dict(
                 _take(d, "resilience", None)),
+            wall_clock_breakdown=bool(_take(d, "wall_clock_breakdown",
+                                            False)),
+            memory_breakdown=bool(_take(d, "memory_breakdown", False)),
+            activation_checkpointing=ActivationCheckpointingConfig.from_dict(
+                _take(d, "activation_checkpointing", None)),
+            monitor=MonitorConfig.from_dict(_take(d, "tensorboard", None),
+                                            _take(d, "csv_monitor", None),
+                                            _take(d, "wandb", None)),
+            telemetry=TelemetryConfig.from_dict(_take(d, "telemetry", None)),
+            flops_profiler=FlopsProfilerConfig.from_dict(
+                _take(d, "flops_profiler", None)),
+            comms_logger=CommsLoggerConfig.from_dict(
+                _take(d, "comms_logger", None)),
             raw=raw,
         )
+        # read by compression.init_compression, not by the engine
+        d.pop("compression_training", None)
         if cfg.fp16.enabled and cfg.bf16.enabled:
             raise ConfigError("fp16 and bf16 cannot both be enabled")
         tp = int(cfg.mesh.get("model", 1) or 1)
@@ -623,10 +777,8 @@ class TelemetryConfig:
     :func:`~deepspeed_tpu_torch.telemetry.configure_telemetry` installs.
 
     The serving path and the engines feed it request records, counters,
-    gauges and (with ``tracing``) request span trees. The trainer's
-    per-step StepStats records come with a later slice (ROADMAP.md,
-    Queue A item 9), so the training config still refuses
-    ``telemetry.enabled``."""
+    gauges and (with ``tracing``) request span trees; the trainer one
+    StepStats record a step (or a ``train_steps`` block)."""
 
     enabled: bool = False
     output_dir: str = "telemetry"

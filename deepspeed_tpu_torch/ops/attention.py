@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import FlashAttentionFunction, repeat_kv
+from .flash_attention import flash_attention_op, repeat_kv
 
 
 def dot_product_attention(q, k, v, *, causal: bool = True,
@@ -73,5 +73,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     (8, 128) tiling; the CUDA kernels mask the ragged tail of the last
     tile themselves, so any ``sq`` and ``skv`` >= 1 go straight in, and
     neither is ported."""
-    out, _lse = FlashAttentionFunction.apply(q, k, v, causal, scale, window)
+    out, _lse = flash_attention_op(q, k, v, bool(causal),
+                                   None if scale is None else float(scale),
+                                   int(window))
     return out

@@ -7,7 +7,12 @@ Ports ``deepspeed_tpu/ops/pallas/flash_attention.py``: ``_flash_forward``
 ``flash_attention`` ``custom_vjp``. The kernels are CUDA C++ in
 ``deepspeed_tpu_torch/csrc/flash_attention.cu`` (see its header for the
 design and what bounds them), built by ``nvcc`` at first use and called
-through ``ctypes`` (:mod:`.op_builder`). The forward's bf16/fp16 work at
+through ``ctypes`` (:mod:`.op_builder`). With its gradient it is the
+dispatcher op :func:`flash_attention_op` (``torch.ops.dst.flash_attention``,
+its backward ``dst.flash_attention_backward``), so that remat policies and
+the flop counter see it; under ``torch.utils.checkpoint`` its forward runs
+again in the backward pass (the remat replay) unless the policy saved
+its outputs, and so counts again. The forward's bf16/fp16 work at
 head_dim 64 and 128 goes to its Hopper kernel (TMA + ``wgmma``,
 :func:`flash_forward_wgmma_path`), the backward's to its two
 (:func:`flash_wgmma_path`); fp32 and head_dim 256 take the scalar
@@ -366,27 +371,108 @@ flash_backward_dq.wgmma_launches = 0
 flash_backward_dkv.wgmma_launches = 0
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """``flash_attention`` with its gradient: ``forward`` runs
-    :func:`flash_forward` and saves (q, k, v, out, lse); ``backward`` runs
-    :func:`flash_backward`. Under ``torch.utils.checkpoint`` the forward
-    runs again in the backward pass (the remat replay), and so counts
-    again."""
+# ---------------------------------------------------------------------
+# The dispatcher op. The forward is registered as a custom op (with a
+# fake implementation and its autograd) so that what dispatches ops sees
+# it: a selective-checkpoint policy can save its (out, lse), the JAX
+# names ``flash_out`` / ``flash_lse`` (``runtime/activation_
+# checkpointing.py``), and ``FlopCounterMode`` counts it by the formulas
+# below. Its CUDA implementation is :func:`flash_forward` (the Hopper
+# kernel, or raises); its CPU implementation the plain version. The
+# backward is an op of its own for the same counter; it runs
+# :func:`flash_backward`, the dq and dk/dv kernels on CUDA tensors.
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool = True,
-                scale: Optional[float] = None, window: int = 0):
-        out, lse = flash_forward(q, k, v, causal=causal, scale=scale,
-                                 window=window)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.window = causal, scale, window
-        ctx.mark_non_differentiable(lse)
-        return out, lse
+@torch.library.custom_op("dst::flash_attention", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, scale: Optional[float], window: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of the forward; see :func:`flash_forward`."""
+    out, lse = flash_forward(q, k, v, causal=causal, scale=scale,
+                             window=window)
+    return out.contiguous(), lse
 
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, dout.contiguous(),
-                                    causal=ctx.causal, scale=ctx.scale,
-                                    window=ctx.window)
-        return dq, dk, dv, None, None, None
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, scale, window):
+    b, sq, hq, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, hq, sq), dtype=torch.float32))
+
+
+@torch.library.custom_op("dst::flash_attention_backward", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def flash_attention_backward_op(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, out: torch.Tensor,
+                                lse: torch.Tensor, dout: torch.Tensor,
+                                causal: bool, scale: Optional[float],
+                                window: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """(dq, dk, dv); see :func:`flash_backward`."""
+    dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal=causal,
+                                scale=scale, window=window)
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
+@flash_attention_backward_op.register_fake
+def _(q, k, v, out, lse, dout, causal, scale, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, scale, window = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale, ctx.window = causal, scale, window
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_backward_op(
+        q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.scale,
+        ctx.window)
+    return dq, dk, dv, None, None, None
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def visible_pairs(b: int, sq: int, skv: int, hq: int, causal: bool,
+                  window: int) -> int:
+    """Query-key pairs the mask keeps, over the batch and the heads."""
+    if not causal:
+        return b * hq * sq * skv
+    pos = torch.arange(sq, dtype=torch.int64) + (skv - sq)
+    seen = (pos + 1).clamp(0, skv)
+    if window > 0:
+        seen = torch.minimum(seen, torch.full_like(seen, window))
+    return b * hq * int(seen.sum())
+
+
+def _register_flop_formulas() -> None:
+    """Operations for ``FlopCounterMode``: 4d a visible pair forward (QK^T
+    and PV), 14d backward (dq's recompute of S, dP and dQ: 6d; dk/dv's S,
+    dP, dV and dK: 8d)."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    def pairs(q_shape, k_shape, causal, window):
+        b, sq, hq, d = q_shape
+        return visible_pairs(b, sq, k_shape[1], hq, causal, window), d
+
+    @register_flop_formula(torch.ops.dst.flash_attention)
+    def _fwd_flops(q_shape, k_shape, v_shape, causal, scale, window, *args,
+                   out_shape=None, **kwargs) -> int:
+        n, d = pairs(q_shape, k_shape, causal, window)
+        return 4 * d * n
+
+    @register_flop_formula(torch.ops.dst.flash_attention_backward)
+    def _bwd_flops(q_shape, k_shape, v_shape, out_shape_, lse_shape,
+                   dout_shape, causal, scale, window, *args,
+                   out_shape=None, **kwargs) -> int:
+        n, d = pairs(q_shape, k_shape, causal, window)
+        return 14 * d * n
+
+
+_register_flop_formulas()

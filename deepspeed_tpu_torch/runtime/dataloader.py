@@ -17,8 +17,10 @@ the memory to another tensor while the step still reads it. The
 checkpointable position (``state_dict``) is always the CONSUMER's,
 never the producer's read-ahead.
 
-Not ported: ``batch_struct`` (the AOT warmup's abstract batch), the
-standalone ``prefetch`` wrapper and ``shard_batch``.
+:meth:`DataLoader.batch_struct` describes the next batch (shape and
+dtype of each leaf, :class:`TensorSpec`) for ``TrainEngine.warmup``;
+:func:`prefetch` keeps batches of any iterator in flight. Not ported:
+``shard_batch`` (the engine slices its ranks' rows itself).
 """
 
 from __future__ import annotations
@@ -27,13 +29,21 @@ import queue as queue_mod
 import threading
 import time
 import weakref
-from typing import Any, Callable, Iterable, Iterator, Optional
+from typing import Any, Callable, Iterable, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
 from ..utils.logging import logger
+
+
+class TensorSpec(NamedTuple):
+    """A batch leaf's description: what ``jax.ShapeDtypeStruct`` is to
+    the JAX package's loader."""
+
+    shape: tuple
+    dtype: torch.dtype
 
 
 def _tree_map(fn: Callable, x: Any) -> Any:
@@ -205,6 +215,21 @@ class DataLoader:
             self._active_prefetch = weakref.ref(it)
             return it
         return self._sync_iter()
+
+    def batch_struct(self) -> Optional[Any]:
+        """The next batch as :class:`TensorSpec` leaves (one collate on
+        the host, nothing uploaded, the position unchanged), or None for
+        an empty loader."""
+        nb = len(self)
+        if nb == 0 or self._n == 0:
+            return None
+        b = self._batch_index if self._batch_index < nb else 0
+        batch = self._assemble(self.epoch, b, self._epoch_order(self.epoch),
+                               nb)
+        if batch is None:
+            return None
+        return _tree_map(lambda x: TensorSpec(
+            tuple(_host_tensor(x).shape), _host_tensor(x).dtype), batch)
 
     def _sync_iter(self) -> Iterator[Any]:
         nb = len(self)
@@ -402,3 +427,37 @@ class RepeatingLoader:
                 self.loader.set_epoch(getattr(self.loader, "epoch", 0) + 1)
             self._it = iter(self.loader)
             return next(self._it)
+
+
+def prefetch(iterator: Iterable, size: int = 2, device=None
+             ) -> Iterator[Any]:
+    """Keep ``size`` batches of ``iterator`` in flight: the next batches'
+    host work (collate, tokenize) runs before the current one is handed
+    out, and with ``device`` given each batch's tensors are copied there
+    as it is queued (``non_blocking``), so the training loop finds them
+    uploaded. For a :class:`DataLoader` its ``prefetch_depth`` is the
+    better tool: a producer thread, and a checkpointable position that
+    counts only what was consumed."""
+    import collections
+
+    queue: collections.deque = collections.deque()
+    it = iter(iterator)
+    dev = None if device is None else torch.device(device)
+
+    def place(item):
+        if dev is None:
+            return item
+        return _tree_map(lambda t: t.to(dev, non_blocking=True)
+                         if isinstance(t, torch.Tensor) else t, item)
+
+    def enqueue(n):
+        for _ in range(n):
+            try:
+                queue.append(place(next(it)))
+            except StopIteration:
+                return
+
+    enqueue(size)
+    while queue:
+        yield queue.popleft()
+        enqueue(1)

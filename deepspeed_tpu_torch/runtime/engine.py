@@ -99,18 +99,37 @@ auto-save every ``save_interval`` steps, the rollback of the divergence
 guard and the emergency save of an attached preemption guard; with every
 guard off :meth:`_after_step` never runs (no extra host sync).
 
+The rest of the JAX trainer's API: any optimizer rule of
+``runtime/optimizers.py`` or a client one (``as_transform``); the compat
+micro-step path (:meth:`TrainEngine.forward`, :meth:`~TrainEngine.
+backward`, :meth:`~TrainEngine.step`) over the same micro-batch and
+update code as :meth:`~TrainEngine.train_batch`; :meth:`~TrainEngine.
+train_steps` (k steps with no host read between them, bitwise k
+``train_batch`` calls, or per-step calls for JAX's reasons); warmup
+(:meth:`~TrainEngine.warmup`: PyTorch compiles nothing ahead, so it
+builds and loads the kernel libraries the step will launch and reads the
+batch's description); ``register_param_transform`` (compression's QAT
+and masks at the cast boundary); and step telemetry: the timers, the
+throughput timer, the monitors and one StepStats record a step through
+``telemetry.Telemetry``, with MFU from ``FlopCounterMode``'s count of
+the first recorded step. With telemetry and every monitor off the step
+reads nothing more back from the card than before (one read at the
+``steps_per_print`` boundary).
+
 The JAX package's other ZeRO paths (ZeRO over a ``model`` axis, hpZ,
-MiCS, offload) come with later slices and raise. So do ``train_steps``,
-AOT warmup, telemetry and the compat ``forward``/``backward``/``step``
-(ROADMAP.md, Queue A).
+MiCS, offload) come with later slices and raise (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 import re
+import threading
 import time
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -126,12 +145,13 @@ from ..parallel.zero import (FusedBlockOps, ZeroShardingRules,
                              sharded_dim, stack_counts, zero3_params)
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist, logger
+from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from . import loss_scaler as ls
 from .checkpoint import (CheckpointEngine, Leaves, consolidate_full_state,
                          validate_tag_consistency)
 from .lr_schedules import Schedule, build_schedule, constant_lr
-from .optimizers import (Transform, build_optimizer, global_norm,
-                         sharded_global_norm)
+from .optimizers import (Transform, as_transform, build_optimizer,
+                         global_norm, sharded_global_norm)
 
 Params = Dict[str, torch.Tensor]
 LossFn = Callable[[Params, Dict[str, torch.Tensor]], Any]
@@ -247,13 +267,15 @@ class TrainEngine:
             self.optimizer = build_optimizer(config.optimizer.type,
                                              config.optimizer.params,
                                              lr_schedule=self.lr_schedule)
-        elif isinstance(optimizer, Transform):
-            self.optimizer = optimizer
         else:
-            raise NotImplementedError(
-                f"a client optimizer ({type(optimizer)}) comes with a later "
-                f"slice of deepspeed_tpu_torch (ROADMAP.md, Queue A)")
-        self.opt_state = self.optimizer.init(self._state_layout(self.params))
+            self.optimizer = as_transform(optimizer)
+        layout = self._state_layout(self.params)
+        self.opt_state = self.optimizer.init(layout)
+        # the leaves the optimizer sees as a slice of the data group's
+        # leaf (ZeRO): LAMB's norms sum them over the group
+        self._sliced = frozenset(
+            n for n, t in layout.items()
+            if t.numel() < math.prod(self.full_shapes[n]))
 
         fp16 = config.fp16
         if fp16.enabled and fp16.dynamic_loss_scale:
@@ -269,6 +291,54 @@ class TrainEngine:
         self.micro_steps = 0
         self.skipped_steps = 0
         self._init_fault_tolerance(config)
+        self._init_observability(config)
+        # the compat path's accumulator: (grads, loss sum, errors)
+        self._acc = None
+        self._last_loss = None
+        # a transform of the compute copy (compression: QAT, masks)
+        self._param_transform: Optional[Callable[[Params], Params]] = None
+        self._warmup_thread: Optional[threading.Thread] = None
+        #: the last warmup's result (None before one ran)
+        self.warmed_up: Optional[bool] = None
+        self._loader_iter = None          # train_steps(k)'s pulls
+        self._loader_iter_src = None
+        self._steps_fallback_logged: set = set()
+
+    def _init_observability(self, config: Config) -> None:
+        """Timers, the throughput timer, the monitors and telemetry (JAX
+        ``TrainEngine.__init__``'s bookkeeping block). With telemetry and
+        every monitor off, ``telemetry.wants_step_records`` is False and
+        the step keeps its reads of the card as they were."""
+        from ..telemetry import Telemetry
+
+        self.timers = SynchronizedWallClockTimer()
+        self.tput = ThroughputTimer(batch_size=config.train_batch_size,
+                                    steps_per_output=config.steps_per_print,
+                                    monitor_memory=config.memory_breakdown)
+        self.monitor = None
+        if config.monitor.enabled:
+            from ..monitor.monitor import MonitorMaster
+
+            self.monitor = MonitorMaster(config.monitor)
+        self.telemetry = Telemetry(config.telemetry, monitor=self.monitor)
+        if config.telemetry.enabled:
+            from ..resilience.counters import restart_count_from_env
+            from ..telemetry import set_telemetry
+
+            set_telemetry(self.telemetry)
+            restart_count_from_env()
+        if config.comms_logger.enabled or config.telemetry.enabled:
+            # switched on for the whole process and never off, as the JAX
+            # engine does: the records' comm breakdown reads the ledger
+            comm.configure_comms_logger(enabled=True,
+                                        verbose=config.comms_logger.verbose)
+        self._step_flops: Optional[float] = None
+        self._peak_flops: Optional[float] = None
+        self._tokens_per_batch: Optional[int] = None
+        self._comm_totals_prev: Dict[str, Dict[str, float]] = {}
+        self._last_call_end_t: Optional[float] = None
+        self._data_wait_prev_s = 0.0
+        self._closed = False
 
     def _init_fault_tolerance(self, config: Config) -> None:
         """The checkpoint engine and the guards (JAX ``TrainEngine``'s
@@ -396,6 +466,13 @@ class TrainEngine:
                      if p.is_floating_point() else p)
                     for n, p in self.params.items())
 
+    def _transformed(self, pc: Params) -> Params:
+        """The compute copy through the registered params transform (the
+        same mapping type: ``data_local`` rides along)."""
+        if self._param_transform is None:
+            return pc
+        return type(pc)(self._param_transform(pc))
+
     def _next_generator(self) -> torch.Generator:
         """A fresh host generator for one micro-batch, seeded from the
         stream (the JAX ``rng, sub = split(rng)``). A noisy MoE model
@@ -438,8 +515,13 @@ class TrainEngine:
         one it builds from ``training_data``): checkpoints carry its
         position (the consumer's: the batch it hands out next) in the
         client state, and :meth:`load_checkpoint` restores it, so a
-        resumed run replays the exact remaining batch order."""
+        resumed run replays the exact remaining batch order;
+        ``train_steps(k)`` pulls its batches from it."""
         self._dataloader = loader
+        self._loader_iter = None
+        self._loader_iter_src = None
+        self._data_wait_prev_s = float(getattr(loader, "data_wait_s", 0.0)
+                                       or 0.0)
 
     def _loss_and_grads(self, batch, scale: float):
         """One micro-batch: (fp32 gradients of ``scale * loss`` with respect
@@ -449,7 +531,7 @@ class TrainEngine:
         pc = self._compute_copy()
         names = [n for n, p in pc.items() if p.requires_grad]
         with torch.enable_grad():
-            loss = self._loss(pc, batch)
+            loss = self._loss(self._transformed(pc), batch)
             grads = torch.autograd.grad(loss.float() * scale,
                                         [pc[n] for n in names],
                                         allow_unused=True)
@@ -726,46 +808,47 @@ class TrainEngine:
         return out
 
     # ------------------------------------------------------------------
-    def _to_device(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    def _to_device(self, batch: Mapping[str, Any],
+                   rows: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """``batch`` as tensors on the engine's device, checked to have
+        ``rows`` rows (default: ``train_batch_size``)."""
+        rows = self.train_batch_size if rows is None else rows
         out = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
-        rows = {v.shape[0] for v in out.values()}
-        if rows != {self.train_batch_size}:
-            raise ValueError(f"batch leaves have {sorted(rows)} rows; "
-                             f"train_batch_size is {self.train_batch_size}")
+        got = {v.shape[0] for v in out.values()}
+        if got != {rows}:
+            what = ("train_batch_size" if rows == self.train_batch_size
+                    else "a micro-batch (train_batch_size / gas)")
+            raise ValueError(f"batch leaves have {sorted(got)} rows; "
+                             f"{what} is {rows}")
         return out
 
-    def train_batch(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
-        """One optimizer step over a global batch of ``train_batch_size``
-        rows (every rank passes the same global batch): GAS micro-batches
-        are ``x.reshape(gas, B / gas, ...)[i]``, and over data ranks each
-        rank takes its rows of each (:meth:`_micro_batch`); their fp32
-        gradients are summed and scaled by ``1 / gas``, and so are their
-        losses. Returns ``{"loss", "grad_norm"}`` (0-dim fp32 tensors on
-        the device), ``"loss_scale"`` and ``"skipped"``, and
-        ``"quant_rel_err"`` under ``comm_compression.error_stats``.
-        The step hooks (chaos) run first; the guards, emergency save and
-        auto-save after the step (:meth:`_after_step`)."""
-        for hook in self._step_hooks:
-            hook(self, self.global_steps)
-        batch = self._to_device(batch)
+    def _scale(self) -> float:
+        return self.scaler_state.scale if self.config.fp16.enabled else 1.0
+
+    def _accumulate(self, acc, mb, scale: float):
+        """One micro-batch of the global batch (:meth:`_micro_batch`)
+        added to the step's accumulator ``acc`` = (fp32 gradients, loss
+        sum, quantization errors), None before the first. Returns (the
+        accumulator, the micro-batch's loss)."""
+        g, l, aux = self._micro_batch(mb, scale)
+        if acc is None:
+            acc = (g, l, [])
+        else:
+            grads, loss, errs = acc
+            for n in grads:
+                grads[n].add_(g[n])
+            acc = (grads, loss + l, errs)
+        del g
+        if "quant_rel_err" in aux:
+            acc[2].append(aux["quant_rel_err"])
+        return acc, l
+
+    def _apply(self, acc, scale: float) -> Dict[str, Any]:
+        """The step boundary of an accumulated global batch: the data
+        group's sums (stages 0-1), the mean over GAS, the update
+        (:meth:`_update`). Returns the step's metrics."""
+        grads, loss, errs = acc
         gas = self.gradient_accumulation_steps
-        fp16 = self.config.fp16.enabled
-        scale = self.scaler_state.scale if fp16 else 1.0
-        grads, loss, errs = None, None, []
-        for i in range(gas):
-            mb = batch if gas == 1 else {
-                k: v.reshape((gas, v.shape[0] // gas) + v.shape[1:])[i]
-                for k, v in batch.items()}
-            g, l, aux = self._micro_batch(mb, scale)
-            if "quant_rel_err" in aux:
-                errs.append(aux["quant_rel_err"])
-            if grads is None:
-                grads, loss = g, l
-            else:
-                for n in grads:
-                    grads[n].add_(g[n])
-                loss = loss + l
-            del g
         if self.topo.data_parallel_size > 1 and not self._data_local:
             if self._route == "whole" and self._stage < 2:
                 grads, loss = self._data_sum(grads, loss)
@@ -777,19 +860,525 @@ class TrainEngine:
                 g.mul_(inv)
             loss = loss * inv
         gnorm, skipped = self._update(grads, scale)
-        self.global_steps += 1
-        self.micro_steps += gas
-        self.skipped_steps += int(skipped)
-        if self.global_steps % max(self.config.steps_per_print, 1) == 0:
-            logger.info(f"step {self.global_steps}: loss {loss.item():.6f} "
-                        f"grad_norm {gnorm.item():.6f} lr {self.get_lr():.3e}")
         out = {"loss": loss, "grad_norm": gnorm,
                "loss_scale": self.get_loss_scale(), "skipped": skipped}
         if errs:
             out["quant_rel_err"] = torch.stack(errs).max()
+        return out
+
+    def _step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """One optimizer step over a global batch on the device: GAS
+        micro-batches ``x.reshape(gas, B / gas, ...)[i]``, accumulated and
+        applied. Reads nothing back from the card (but fp16's and the
+        ``nan_action="skip"`` finiteness flag)."""
+        gas = self.gradient_accumulation_steps
+        scale = self._scale()
+        acc = None
+        for i in range(gas):
+            mb = batch if gas == 1 else {
+                k: v.reshape((gas, v.shape[0] // gas) + v.shape[1:])[i]
+                for k, v in batch.items()}
+            acc, _ = self._accumulate(acc, mb, scale)
+        return self._apply(acc, scale)
+
+    def _counted(self) -> contextlib.AbstractContextManager:
+        """A ``FlopCounterMode`` around the first step that telemetry
+        records (the MFU numerator: the operations that run, the remat
+        replay included), else nothing."""
+        if self._step_flops is not None \
+                or not self.telemetry.wants_step_records:
+            return contextlib.nullcontext()
+        from torch.utils.flop_counter import FlopCounterMode
+
+        return FlopCounterMode(display=False)
+
+    def _note_flops(self, counter, n_steps: int = 1) -> None:
+        if counter is not None and hasattr(counter, "get_total_flops"):
+            self._step_flops = float(counter.get_total_flops()) / n_steps
+
+    def train_batch(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
+        """One optimizer step over a global batch of ``train_batch_size``
+        rows (every rank passes the same global batch): GAS micro-batches
+        are ``x.reshape(gas, B / gas, ...)[i]``, and over data ranks each
+        rank takes its rows of each (:meth:`_micro_batch`); their fp32
+        gradients are summed and scaled by ``1 / gas``, and so are their
+        losses. Returns ``{"loss", "grad_norm"}`` (0-dim fp32 tensors on
+        the device), ``"loss_scale"`` and ``"skipped"``, and
+        ``"quant_rel_err"`` under ``comm_compression.error_stats``.
+        The step hooks (chaos, compression) run first; a pending warmup
+        is joined; the guards, emergency save and auto-save after the
+        step (:meth:`_after_step`); a step record when telemetry or a
+        monitor is on."""
+        t_entry = time.perf_counter()
+        for hook in self._step_hooks:
+            hook(self, self.global_steps)
+        self._join_warmup()
+        batch = self._to_device(batch)
+        self._note_batch_shape(batch)
+        want = self.telemetry.wants_step_records
+        self.tput.start()
+        with self._counted() as counter:
+            out = self._step(batch)
+        self._note_flops(counter)
+        t_dispatched = time.perf_counter()
+        self.global_steps += 1
+        self.micro_steps += self.gradient_accumulation_steps
+        self.skipped_steps += int(out["skipped"])
+        # a read of the card only where asked for: the timing breakdown,
+        # a step record, or the report boundary's log line
+        report = self.tput.will_report_next()
+        sync = out["loss"] if (self.config.wall_clock_breakdown or want
+                               or report) else None
+        step_dt = self.tput.stop(sync_obj=sync, report_speed=True)
+        host = self._host_ledger(t_entry, t_dispatched) if want else None
+        self._emit_step(out, wall_time_s=step_dt, log_step=report, host=host)
+        self._last_call_end_t = time.perf_counter()
+        self._last_loss = out["loss"]
         if self._ft_active or self.preemption_guard is not None:
             self._after_step(out)
+        if self.config.memory_breakdown and report:
+            from ..utils.memory import see_memory_usage
+
+            see_memory_usage(f"step {self.global_steps}")
         return out
+
+    def _host_ledger(self, t_entry: float, t_dispatched: float) -> dict:
+        return {"host_ms": (t_dispatched - t_entry) * 1e3,
+                "data_wait_ms": self._consume_data_wait_ms(),
+                "dispatch_gap_ms": ((t_entry - self._last_call_end_t) * 1e3
+                                    if self._last_call_end_t is not None
+                                    else None)}
+
+    # ------------------------------------------------------------------
+    # k steps without a host read between them (JAX train_steps)
+    def train_steps_eligible(self) -> Tuple[bool, Optional[str]]:
+        """Whether :meth:`train_steps` may run k steps back to back, with
+        the reason when it may not: anything that does host work between
+        optimizer steps forces the per-step path. (Offload and pipelining,
+        JAX's other two reasons, are not ported.)"""
+        if self._step_hooks:
+            return False, "per-step hooks registered"
+        if self.preemption_guard is not None:
+            return False, "preemption-latch polling needs per-step boundaries"
+        if self._divergence is not None:
+            return False, ("host-side divergence guard fetches the loss "
+                           "each step")
+        return True, None
+
+    def train_steps(self, batches: Union[int, Sequence[Any]]
+                    ) -> Dict[str, Any]:
+        """k optimizer steps with no host read between them, bitwise k
+        :meth:`train_batch` calls (each step is the same code). ``batches``
+        is k global batches, or an int k to pull them from the bound
+        loader (cycling epochs like ``RepeatingLoader``; its position
+        advances by k). Returns the last step's metrics plus ``losses``
+        and ``grad_norms`` ([k] tensors on the device). An ineligible
+        engine (:meth:`train_steps_eligible`) runs k ``train_batch``
+        calls, the reason logged once."""
+        if isinstance(batches, int):
+            k, batches = int(batches), None
+        else:
+            batches = list(batches)
+            k = len(batches)
+        if k <= 0:
+            raise ValueError("train_steps: no batches")
+        eligible, reason = self.train_steps_eligible()
+        if not eligible or k == 1:
+            if not eligible and reason not in self._steps_fallback_logged:
+                self._steps_fallback_logged.add(reason)
+                log_dist(f"train_steps: the multi-step path is ineligible "
+                         f"({reason}); running {k} per-step train_batch "
+                         f"calls")
+            # one batch pulled a step: the reasons are exactly the ones
+            # that checkpoint or roll back between steps, where the
+            # loader's position must be what was consumed
+            steps = []
+            for i in range(k):
+                if batches is not None:
+                    b = batches[i]
+                else:
+                    pulled = self._pull_batches(1)
+                    if not pulled:
+                        break
+                    b = pulled[0]
+                steps.append(self.train_batch(b))
+            if not steps:
+                raise ValueError("train_steps: no batches")
+            return self._steps_out(steps)
+        if batches is None:
+            batches = self._pull_batches(k)
+            k = len(batches)
+            if k == 0:
+                raise ValueError("train_steps: no batches")
+            if k == 1:
+                return self._steps_out([self.train_batch(batches[0])])
+        t_entry = time.perf_counter()
+        self._join_warmup()
+        batches = [self._to_device(b) for b in batches]
+        self._note_batch_shape(batches[0])
+        want = self.telemetry.wants_step_records
+        prev_steps = self.global_steps
+        gas = self.gradient_accumulation_steps
+        self.tput.start()
+        steps = []
+        with self._counted() as counter:
+            for b in batches:
+                steps.append(self._step(b))
+                self.global_steps += 1
+                self.micro_steps += gas
+        self._note_flops(counter, k)
+        t_dispatched = time.perf_counter()
+        out = self._steps_out(steps)
+        sync = out["loss"] if (self.config.wall_clock_breakdown
+                               or want) else None
+        block_dt = self.tput.stop(sync_obj=sync, report_speed=False)
+        # stop() booked one step of batch_size; this block ran k
+        self.tput.step_count = self.global_steps
+        self.tput.total_samples += self.train_batch_size * (k - 1)
+        self.skipped_steps += sum(int(m["skipped"]) for m in steps)
+        host = self._host_ledger(t_entry, t_dispatched) if want else None
+        self._emit_step(out, wall_time_s=block_dt, log_step=False, host=host,
+                        n_steps=k)
+        self._last_call_end_t = time.perf_counter()
+        self._last_loss = out["loss"]
+        # the auto-save: a block can cross or land on a save boundary
+        # (preemption and divergence guards never reach here)
+        iv = self.config.checkpoint.save_interval
+        if (self._ckpt_save_dir and iv > 0
+                and self.global_steps // iv != prev_steps // iv):
+            self.save_checkpoint(self._ckpt_save_dir)
+        return out
+
+    @staticmethod
+    def _steps_out(steps: List[Dict[str, Any]]) -> Dict[str, Any]:
+        out = dict(steps[-1])
+        out["losses"] = torch.stack([m["loss"] for m in steps])
+        out["grad_norms"] = torch.stack([m["grad_norm"] for m in steps])
+        return out
+
+    def _pull_batches(self, k: int) -> List[Any]:
+        """k batches from the bound loader through one iterator kept
+        across calls, starting a new epoch like ``RepeatingLoader`` where
+        one ends."""
+        src = self._dataloader
+        if src is None:
+            raise ValueError(
+                "train_steps(k) needs a bound dataloader (bind_dataloader) "
+                "or a sequence of batches")
+        if self._loader_iter is None or self._loader_iter_src is not src:
+            self._loader_iter = iter(src)
+            self._loader_iter_src = src
+        out: List[Any] = []
+        restarts = 0
+        while len(out) < k:
+            try:
+                out.append(next(self._loader_iter))
+                restarts = 0
+            except StopIteration:
+                if restarts:            # an empty loader
+                    break
+                restarts += 1
+                if hasattr(src, "set_epoch"):
+                    src.set_epoch(getattr(src, "epoch", 0) + 1)
+                self._loader_iter = iter(src)
+        return out
+
+    def _consume_data_wait_ms(self) -> Optional[float]:
+        """The bound loader's data-wait time since the last record."""
+        dl = self._dataloader
+        cur = getattr(dl, "data_wait_s", None) if dl is not None else None
+        if cur is None:
+            return None
+        d = float(cur) - self._data_wait_prev_s
+        self._data_wait_prev_s = float(cur)
+        return d * 1e3 if d >= 0 else None
+
+    # ------------------------------------------------------------------
+    # warmup: what can be made ready before the first step
+    def _step_libraries(self) -> List[str]:
+        """The kernel libraries the step launches on this engine's
+        device: the flash kernels when a tower of the model attends with
+        them, the quantize kernels under qwZ / qgZ, the fused collectives
+        on the staged ZeRO-3 schedule's fused backend."""
+        if self.device.type != "cuda":
+            return []
+        m = self.model
+        configs = [getattr(m, "config", None)] + [
+            getattr(v, "config", None) for v in vars(m).values()] \
+            if m is not None else []
+        libs = []
+        if any(getattr(c, "use_flash", False) for c in configs):
+            libs.append("flash_attention")
+        if self._qgz or self._qwz:
+            libs.append("quant")
+        if self._route == "staged" and self._comm_backend.name == "pallas":
+            libs.append("fused_collectives")
+        return libs
+
+    def warmup(self, batch: Any) -> bool:
+        """Make ready what the first step would build: every kernel
+        library the step will launch is built (``nvcc``, once per
+        checkout) and loaded, and the batch's description is read (the
+        tokens a step for the step records). ``batch`` is a batch or its
+        description (:meth:`DataLoader.batch_struct`: leaves with
+        ``shape`` and ``dtype``); nothing of the engine's state is
+        touched. Returns False, with a warning, on any failure: the step
+        then builds what it launches at its first call, and launches the
+        same kernels."""
+        try:
+            leaves = list(batch.values())
+            rows = {int(x.shape[0]) for x in leaves}
+            if rows != {self.train_batch_size}:
+                raise ValueError(f"the batch has {sorted(rows)} rows; "
+                                 f"train_batch_size is "
+                                 f"{self.train_batch_size}")
+            self._note_batch_shape(batch)
+            from ..ops import op_builder
+
+            for lib in self._step_libraries():
+                op_builder.load(lib)
+            self.warmed_up = True
+        except Exception as e:  # noqa: BLE001 - warmup never fails the engine
+            logger.warning(f"warmup failed (the first step builds what it "
+                           f"launches): {e}")
+            self.warmed_up = False
+        return self.warmed_up
+
+    def warmup_async(self, batch: Any) -> threading.Thread:
+        """:meth:`warmup` on a thread (``nvcc`` runs outside the
+        interpreter), beside the caller's own start-up work; the first
+        ``train_batch``, ``train_steps``, ``backward`` or
+        ``register_param_transform`` joins it."""
+        t = threading.Thread(target=self.warmup, args=(batch,),
+                             name="dst-warmup", daemon=True)
+        self._warmup_thread = t
+        t.start()
+        return t
+
+    def _join_warmup(self) -> None:
+        if self._warmup_thread is not None:
+            self._warmup_thread.join()
+            self._warmup_thread = None
+
+    # ------------------------------------------------------------------
+    # the compat micro-step path (the reference's forward/backward/step)
+    def forward(self, batch: Mapping[str, Any]) -> torch.Tensor:
+        """The loss of a micro-batch with no gradient (an evaluation, as
+        the JAX engine's: :meth:`backward` computes its own forward)."""
+        loss = self.eval_batch(batch)
+        self._last_loss = loss
+        return loss
+
+    def backward(self, batch: Mapping[str, Any]) -> torch.Tensor:
+        """Accumulate one micro-batch's gradients (``train_batch_size /
+        gas`` rows, the same global micro-batch on every rank) with the
+        code :meth:`train_batch` runs a micro-batch with; returns its
+        loss, the whole micro-batch's (over data ranks the shares are
+        summed for it, in another order than the step's sum)."""
+        self._join_warmup()
+        gas = self.gradient_accumulation_steps
+        batch = self._to_device(batch, self.train_batch_size // gas)
+        self._note_batch_shape(batch, scale=gas)
+        want = self.telemetry.wants_step_records
+        if want:
+            self.timers("compat/backward").start()
+        self._acc, loss = self._accumulate(self._acc, batch, self._scale())
+        if self.topo.data_parallel_size > 1 and not self._data_local:
+            loss = comm.group_sum(loss, self.topo.group("data"), "data")
+        if want:
+            self.timers("compat/backward").stop(sync_obj=loss)
+        self.micro_steps += 1
+        self._last_loss = loss
+        return loss
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return (self.micro_steps + 1) % self.gradient_accumulation_steps == 0
+
+    def step(self) -> None:
+        """Apply the update at a gradient-accumulation boundary with the
+        code :meth:`train_batch` steps with; off the boundary it does
+        nothing. The step-boundary duties follow: the step record, the
+        guards and the auto-save."""
+        if self.micro_steps % self.gradient_accumulation_steps != 0:
+            return
+        if self._acc is None:
+            logger.warning("step() called with no accumulated gradients")
+            return
+        want = self.telemetry.wants_step_records
+        if want:
+            self.timers("compat/optimizer").start()
+        out = self._apply(self._acc, self._scale())
+        self._acc = None
+        if want:
+            self.timers("compat/optimizer").stop(sync_obj=out["grad_norm"])
+        self.global_steps += 1
+        # global_steps moved without the throughput timer: keep the two
+        # aligned so a later train_batch reports on steps_per_print
+        self.tput.step_count = self.global_steps
+        self.skipped_steps += int(out["skipped"])
+        phase_times = wall = None
+        if want:
+            # forward() is an evaluation, outside the step's phases
+            phase_times = {}
+            for phase in ("backward", "optimizer"):
+                t = self.timers.timers.get(f"compat/{phase}")
+                if t is not None and t.count:
+                    phase_times[phase] = t.elapsed_total
+                    t.reset()
+            wall = sum(phase_times.values()) or None
+        metrics = dict(out, loss=self._last_loss)
+        self._emit_step(metrics, wall_time_s=wall, phase_times=phase_times)
+        if self._ft_active or self.preemption_guard is not None:
+            self._after_step(metrics)
+
+    # ------------------------------------------------------------------
+    # step telemetry (JAX _emit_step / _build_step_stats)
+    def _emit_step(self, metrics: Dict[str, Any],
+                   wall_time_s: Optional[float] = None,
+                   log_step: Optional[bool] = None,
+                   phase_times: Optional[Dict[str, float]] = None,
+                   host: Optional[Dict[str, Optional[float]]] = None,
+                   n_steps: int = 1) -> None:
+        """The log line at the report boundary, and one StepStats record
+        through the telemetry pipeline when a sink wants it."""
+        if log_step is None:
+            log_step = self.global_steps % max(
+                self.config.steps_per_print, 1) == 0
+        if log_step:
+            log_dist(
+                f"step={self.global_steps} loss={float(metrics['loss']):.4f}"
+                f" lr={self.get_lr():.3e} "
+                f"grad_norm={float(metrics['grad_norm']):.3f}"
+                + (f" loss_scale={float(metrics['loss_scale']):.0f}"
+                   if self.config.fp16.enabled else ""))
+        if not self.telemetry.wants_step_records:
+            return
+        self.telemetry.record_step(self._build_step_stats(
+            metrics, wall_time_s, phase_times, host=host, n_steps=n_steps))
+
+    def _build_step_stats(self, metrics: Dict[str, Any],
+                          wall_time_s: Optional[float],
+                          phase_times: Optional[Dict[str, float]] = None,
+                          host: Optional[Dict[str, Optional[float]]] = None,
+                          n_steps: int = 1):
+        from ..telemetry import StepStats
+        from ..telemetry.tracing import get_tracer
+
+        dt = float(wall_time_s) if wall_time_s else 0.0
+        tokens = self._count_batch_tokens() * n_steps
+        comm_delta, comm_s = self._comm_step_delta()
+        if self.telemetry.enabled:
+            from ..utils.memory import device_memory_stats, host_rss_gb
+
+            memory = device_memory_stats(self.device)
+            rss = host_rss_gb()
+            if rss is not None:
+                memory["host_rss_gb"] = rss
+        else:       # a monitor alone: the report boundary's sample
+            memory = dict(self.tput.last_memory)
+        mfu = 0.0
+        peak = self._get_peak_flops()
+        if dt > 0 and self._step_flops and peak:
+            mfu = self._step_flops * n_steps / dt / peak
+        host = host or {}
+        trace_id = span_id = None
+        tracer = get_tracer()
+        if tracer.enabled:
+            from ..resilience.clock import get_clock
+
+            t_end = get_clock().time()
+            sp = tracer.span_complete(
+                "train/step", t_end - dt, t_end, track="train",
+                step=self.global_steps, n_steps=n_steps)
+            trace_id, span_id = sp.trace_id, sp.span_id
+        quant_err = None
+        if metrics.get("quant_rel_err") is not None:
+            quant_err = float(metrics["quant_rel_err"])
+            from ..telemetry.registry import get_registry
+
+            get_registry().histogram("comm/quant_rel_err").observe(quant_err)
+
+        def num(key):
+            v = metrics.get(key)
+            return float(v) if v is not None else None
+
+        return StepStats(
+            step=self.global_steps, n_steps=n_steps, wall_time_s=dt,
+            tokens_per_s=tokens / dt if dt > 0 else 0.0,
+            samples_per_s=(self.train_batch_size * n_steps / dt
+                           if dt > 0 else 0.0),
+            host_ms=host.get("host_ms"),
+            data_wait_ms=host.get("data_wait_ms"),
+            dispatch_gap_ms=host.get("dispatch_gap_ms"),
+            mfu=mfu, loss=num("loss"), grad_norm=num("grad_norm"),
+            loss_scale=(num("loss_scale") if self.config.fp16.enabled
+                        else None),
+            lr=self.get_lr(),
+            skipped=(bool(metrics["skipped"])
+                     if metrics.get("skipped") is not None else None),
+            forward_s=(phase_times or {}).get("forward"),
+            backward_s=(phase_times or {}).get("backward"),
+            optimizer_s=(phase_times or {}).get("optimizer"),
+            comm_s=comm_s, comm=comm_delta, quant_rel_err=quant_err,
+            memory=memory, trace_id=trace_id, span_id=span_id)
+
+    def _count_batch_tokens(self) -> int:
+        """Tokens a step: a sequence batch's ``input_ids`` elements, else
+        its samples."""
+        return (self._tokens_per_batch if self._tokens_per_batch is not None
+                else self.config.train_batch_size)
+
+    def _note_batch_shape(self, batch: Any, scale: int = 1) -> None:
+        """Latch the tokens a step from the first batch seen (``scale``
+        lifts a compat micro-batch to the step)."""
+        if self._tokens_per_batch is not None:
+            return
+        if isinstance(batch, Mapping) and "input_ids" in batch:
+            self._tokens_per_batch = int(
+                math.prod(batch["input_ids"].shape)) * scale
+        else:
+            self._tokens_per_batch = self.config.train_batch_size
+
+    def _comm_step_delta(self):
+        """The comms ledger's totals since the last record, by op (the
+        port's collectives book themselves: no booking is implied).
+        The ledger carries no durations: each entry's ``time_s`` is 0 and
+        ``comm_s`` None."""
+        totals = comm.get_comms_logger().snapshot_totals()
+        delta: Dict[str, Dict[str, float]] = {}
+        for op, cur in totals.items():
+            prev = self._comm_totals_prev.get(op, {})
+            d = {k: cur[k] - prev.get(k, 0.0) for k in cur}
+            if any(d.values()):
+                delta[op] = {**d, "time_s": 0.0}
+        self._comm_totals_prev = totals
+        return delta, None
+
+    def _get_peak_flops(self) -> float:
+        if self._peak_flops is None:
+            from ..profiling.flops_profiler import _peak_flops_per_device
+
+            self._peak_flops = (_peak_flops_per_device(self.compute_dtype,
+                                                       self.device)
+                                if self.device.type == "cuda" else 0.0)
+        return self._peak_flops
+
+    def register_param_transform(self, fn: Optional[Callable[[Params],
+                                                             Params]]
+                                 ) -> None:
+        """Install (or, with None, remove) a transform of the compute copy
+        applied at the cast boundary, inside autograd: the gradients reach
+        the masters through it (compression's QAT and pruning masks). A
+        pending warmup is joined first. At ZeRO stage 3 over data ranks
+        (the facade's gathered leaves) it raises: that comes with a later
+        slice."""
+        self._join_warmup()
+        if fn is not None and self._route != "whole":
+            raise NotImplementedError(
+                "a params transform at ZeRO stage 3 over data ranks comes "
+                "with a later slice of deepspeed_tpu_torch (ROADMAP.md, "
+                "Queue A item 12)")
+        self._param_transform = fn
 
     def _global_norm(self, grads: Params) -> torch.Tensor:
         """sqrt of the sum of squares of every gradient element. Whole
@@ -842,9 +1431,11 @@ class TrainEngine:
             for g in grads.values():
                 g.mul_(factor)
         if finite:
+            kw = {"leaf_sq_sums": self._leaf_sq_sums} \
+                if getattr(self.optimizer, "leaf_norms", False) else {}
             self.opt_state = self.optimizer.update(
                 self._state_layout(grads), self.opt_state,
-                self._state_layout(self.params))
+                self._state_layout(self.params), **kw)
             grads.clear()
             self._gather_masters()
         self.scaler_state = ls.update(
@@ -855,6 +1446,23 @@ class TrainEngine:
             consecutive_hysteresis=cfg.fp16.consecutive_hysteresis,
             init_hysteresis=cfg.fp16.hysteresis)
         return gnorm, not finite
+
+    def _leaf_sq_sums(self, local: Params) -> Params:
+        """Each leaf's sums (LAMB's ``[sum(w^2), sum(u^2)]``) over the
+        group that holds the leaf: the data group's for a slice the
+        optimizer sees under ZeRO, the model group's for a leaf cut over
+        the model axis; one all-reduce a group, in name order on every
+        rank."""
+        out = dict(local)
+        for names, axis in ((self._sliced, "data"),
+                            (self.tp_sharded, "model")):
+            names = sorted(set(names) & set(local))
+            if not names:
+                continue
+            flat = comm.group_sum(torch.stack([local[n] for n in names]),
+                                  self.topo.group(axis), axis)
+            out.update(zip(names, flat.unbind(0)))
+        return out
 
     def _gather_masters(self) -> None:
         """Every rank's updated slice of each master kept whole but
@@ -891,7 +1499,7 @@ class TrainEngine:
             pc = zero3_params(dict(self.params), self.param_specs, self.topo,
                               self.compute_dtype)
         else:
-            pc = self._compute_copy(data_local=False)
+            pc = self._transformed(self._compute_copy(data_local=False))
         out = self.loss_fn(pc, rows)
         loss = (out[0] if isinstance(out, tuple) else out).float()
         dp = self.topo.data_parallel_size
@@ -1020,7 +1628,18 @@ class TrainEngine:
                            "draining without an emergency checkpoint")
 
     def close(self) -> None:
-        """Wait for an async checkpoint's writer (and raise its failure)."""
+        """Engine shutdown: join a pending warmup, flush and close every
+        telemetry sink (the monitors' too), release the process-wide
+        telemetry if it is this engine's, and wait for an async
+        checkpoint's writer (raising its failure). Idempotent."""
+        if not self._closed:
+            self._closed = True
+            self._join_warmup()
+            self.telemetry.close()
+            from ..telemetry import get_telemetry, set_telemetry
+
+            if get_telemetry() is self.telemetry:
+                set_telemetry(None)
         self.ckpt_engine.wait()
 
     # ------------------------------------------------------------------
@@ -1060,9 +1679,16 @@ class TrainEngine:
                             self.topo.data_parallel_size)
         return full
 
+    def _opt_fields(self) -> Dict[str, Any]:
+        """The optimizer state's fields (a NamedTuple's; a client
+        optimizer's state of another kind is not checkpointed)."""
+        as_dict = getattr(self.opt_state, "_asdict", None)
+        return as_dict() if as_dict is not None else {}
+
     def _opt_trees(self) -> Dict[str, Params]:
-        """The optimizer state's per-leaf trees (AdamW's ``mu``, ``nu``)."""
-        return {k: v for k, v in self.opt_state._asdict().items()
+        """The optimizer state's per-leaf trees (AdamW's ``mu``, ``nu``;
+        SGD's ``momentum``, Adagrad's ``accum``, ...)."""
+        return {k: v for k, v in self._opt_fields().items()
                 if isinstance(v, dict)}
 
     def _state_dict(self) -> Dict[str, Any]:
@@ -1084,8 +1710,8 @@ class TrainEngine:
                for k, tree in self._opt_trees().items()}}
         state["engine"] = {
             "rng": self.rng.get_state(), "step": int(self.global_steps),
-            **{f"opt/{k}": v for k, v in self.opt_state._asdict().items()
-               if not isinstance(v, dict)},
+            **{f"opt/{k}": v for k, v in self._opt_fields().items()
+               if v is not None and not isinstance(v, dict)},
             **{f"scaler/{k}": v
                for k, v in self.scaler_state._asdict().items()}}
         return state
@@ -1120,9 +1746,13 @@ class TrainEngine:
 
     @torch.no_grad()
     def _load_opt(self, state: Mapping[str, Any]) -> None:
+        if not self._opt_fields():
+            return
         fields = {}
-        for k, v in self.opt_state._asdict().items():
-            if isinstance(v, dict):
+        for k, v in self._opt_fields().items():
+            if v is None:
+                fields[k] = None
+            elif isinstance(v, dict):
                 tree = state[f"opt_state.{k}"]
                 for n, t in v.items():
                     t.copy_(self._local_piece(n, tree[n],
@@ -1163,6 +1793,7 @@ class TrainEngine:
                 **{k: type(v)(eng[f"scaler/{k}"])
                    for k, v in self.scaler_state._asdict().items()})
         self.global_steps = int(eng["step"])
+        self.tput.step_count = self.global_steps
         self.rng.set_state(eng["rng"].clone())
         client = result["meta"].get("client_state", {})
         self.micro_steps = int(client.get(

@@ -4,7 +4,7 @@ The port's plain versions (what the wrappers run on CPU tensors) are held
 against the JAX Pallas kernels in interpret mode, fp32, 1e-5 abs + rel, on
 inputs made with numpy from a seed: the forward's (out, lse) against
 ``_flash_forward``, the backward's (dq, dk, dv) against ``_flash_backward``
-on the same (out, lse), and ``FlashAttentionFunction``'s gradients against
+on the same (out, lse), and ``flash_attention_op``'s gradients against
 ``jax.grad`` of the JAX ``flash_attention`` ``custom_vjp``. The cases cover
 causal and non-causal, GQA/MQA, sq < skv, sq > skv (rows that see no key:
 0 and LSE 1e30), a window band, a scale override and multi-tile grids.

@@ -955,6 +955,48 @@ def zero_train_job(rank: int, world: int, cases: Dict[str, Any],
     return out
 
 
+def optimizer_layout_job(rank: int, world: int, case: Dict[str, Any],
+                         runs: Dict[str, Any]) -> Dict[str, Any]:
+    """tests/test_torch_optimizers.py: each run ``runs[key] = (mesh, ZeRO
+    stage, optimizer block, compat)`` through ``initialize``: two steps on
+    the case's global batches, by ``train_batch`` or, with ``compat``,
+    by ``backward`` on each micro-batch and ``step``; each step's loss
+    (the compat path's: the mean of its micro-batches' losses) and grad
+    norm (None on the compat path) and, on rank 0, the masters gathered
+    to full width."""
+    import deepspeed_tpu_torch as dst
+
+    out = {}
+    for key, (mesh, stage, optimizer, compat) in runs.items():
+        cfg = {**case["cfg"], "mesh": mesh, "optimizer": optimizer,
+               "zero_optimization": {"stage": stage}}
+        model = _train_model(case)
+        eng = dst.initialize(model=model, config=cfg, device="cpu")[0]
+        gas = eng.gradient_accumulation_steps
+        steps = []
+        for b in case["batches"]:
+            b = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+            if compat:
+                n = next(iter(b.values())).shape[0] // gas
+                losses = []
+                for i in range(gas):
+                    losses.append(eng.backward(
+                        {k: v[i * n:(i + 1) * n] for k, v in b.items()}))
+                    eng.step()
+                loss = sum(losses[1:], losses[0]) * (1.0 / gas)
+                steps.append((float(loss), None, False))
+                continue
+            m = eng.train_batch(b)
+            steps.append((float(m["loss"]), float(m["grad_norm"]),
+                          bool(m["skipped"])))
+        full = eng.full_params()
+        res = {"steps": steps}
+        if rank == 0:
+            res["full"] = {n: _np(t).copy() for n, t in full.items()}
+        out[key] = res
+    return out
+
+
 def zero_card_job(rank: int, world: int, device: str, runs: List[tuple]
                   ) -> List[Dict[str, Any]]:
     """tests/test_torch_zero_gpu.py: for each ``(stage, qgz)`` of
