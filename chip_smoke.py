@@ -17,8 +17,9 @@ CPU path — without a CUDA device the script fails):
    finish, and phase 3 starts once all are built) and print
    each kernel's ``-Xptxas -v`` registers, spills and shared memory, with
    a summary of the Hopper kernels: the fused collectives' wgmma_kernel
-   (rows 7-9), the flash kernels and the paged tile, split and combine
-   kernels (registers, spills, dynamic shared memory; a spill there fails
+   (rows 7-9), the flash kernels and the paged tile (fp and quantized
+   pools), split and combine kernels (registers, spills, dynamic shared
+   memory; a spill there fails
    the script);
 3. kernels: paged attention against its plain PyTorch version on the card
    at the serving path's shapes and at tile and lane cases (chunks that
@@ -31,8 +32,10 @@ CPU path — without a CUDA device the script fails):
    exactly where the work list has them; then, at a decode and a prefill
    shape, timed with CUDA events (L2 flushed before every call) beside
    the per-(token, kv-head) kernel they replaced, the plain version and
-   the bound; the same over int8 and int4 pools (lane items, beside the
-   replaced quantized-pool kernel); blockwise quantize and dequantize
+   the bound; the same over int8 and int4 pools (with the tile cases in
+   bf16 and fp16 q on ``paged_tile_quant_kernel``; the prefill timed also
+   with every lane on lane items, beside the replaced quantized-pool
+   kernel); blockwise quantize and dequantize
    bitwise against their plain versions (fp32/bf16/fp16, bits 8/4,
    blocks 128/256, row counts that are not multiples of 32, path A's
    weight shapes), timed at [4096, 11008] bf16;
@@ -84,8 +87,8 @@ CPU path — without a CUDA device the script fails):
    phase 3 shapes are;
 6. profile: the same requests again under ``torch.profiler``: device time
    by kernel and the device's idle share; then the same 8 requests over an
-   int8 and an int4 KV pool at the bf16 pool's byte budget (path B), the
-   int8 run profiled too;
+   int8 and an int4 KV pool at the bf16 pool's byte budget (path B; their
+   prefill puts on tile items too), the int8 run profiled too;
 6b. speculative serving and the KV hand-off on the same model: 8
    requests of draftable prompts (random segments repeated in place)
    through ``ServingEngine`` with ``serving.speculative`` on, then off,
@@ -401,10 +404,18 @@ PAGED_COUNTER = {"none": "launches", "int8": "int8_launches",
 # ... and of the calls that ran tile items / lane items
 PAGED_PATH_COUNTERS = (*PAGED_COUNTER.values(), "tile_launches",
                        "split_launches")
-PAGED_PATH = ("tile items (prefill runs, bf16/fp16 at hd 64/128): TMA page "
-              "loads + wgmma m64n64k16, 64 lanes a block; lane items (decode "
-              "and the rest): split-K over pages, bulk-copy ring, fp32 "
-              "SIMT, combine pass")
+PAGED_PATH = ("tile items (prefill runs, bf16/fp16 at hd 64/128): "
+              "paged_tile_kernel, TMA page loads + wgmma m64n64k16, 64 lanes "
+              "a block; lane items (decode and the rest): paged_split_kernel, "
+              "split-K over pages, bulk-copy ring, fp32 SIMT, "
+              "paged_combine_kernel")
+# ... and over int8 / int4 pools
+PAGED_QUANT_PATH = ("tile items (prefill runs, bf16/fp16 q at hd 64/128): "
+                    "paged_tile_quant_kernel, TMA payload and scale rows, "
+                    "converter warps to exact 16-bit K / V tiles, wgmma "
+                    "m64n64k16 with the scales outside the products and P "
+                    "as two bf16 parts; lane items (decode and the rest): "
+                    "paged_split_kernel + paged_combine_kernel, fp32 SIMT")
 QUANT_SOURCE = "deepspeed_tpu_torch/csrc/quant.cu"
 QUANT_KERNELS = {
     # name: (wrapper whose .launches counts it, replaced pallas_call,
@@ -630,9 +641,12 @@ def phase_build_report(pending: dict) -> None:
     for kernel, used in _ptxas_report(
             "paged_attention", ("paged_tile", "paged_split",
                                 "paged_combine")).items():
+        # paged_tile_kernel<T, D>, paged_tile_quant_kernel<T, D, BITS>
+        m = re.search(r"Li(64|128)E?(?:Li([48]))?>", kernel)
         smem = "" if "tile" not in kernel else (
             f"; dynamic shared memory "
-            f"{lib.dst_paged_tile_smem(64 if 'Li64' in kernel else 128)} B")
+            f"{lib.dst_paged_tile_smem(int(m.group(1)), int(m.group(2) or 0))}"
+            f" B")
         log(f"build[paged_attention]: {kernel}: {used}{smem}")
 def _ptxas_report(library: str, markers: tuple) -> dict:
     """{kernel entry (mangled, abridged): ptxas's "Used ..." line and any
@@ -700,11 +714,15 @@ def _paged_inputs(gen, contexts, hq, hkv, hd, block, dtype, *,
 
 def _bound(q, kp, tables, positions, seq_slots, live_pages, window,
            kv_bits: int = 0):
-    """(bound_ms, bound_by, bytes, ops) for one call on these inputs:
-    bytes = the distinct K/V pages the walk needs (with ``kv_bits``, their
-    payload and one fp32 scale per head-vector), q, out, tables, positions
-    and slots, each once; ops = 4 per (query head, visible key, channel),
-    at q's type's peak (fp32's for quantized pools, whose math is fp32)."""
+    """(bound_ms, bound_by, bytes, ops, fp32_bound_ms) for one call on
+    these inputs: bytes = the distinct K/V pages the walk needs (with
+    ``kv_bits``, their payload and one fp32 scale per head-vector), q,
+    out, tables, positions and slots, each once; ops = 4 per (query head,
+    visible key, channel), at q's type's peak: a quantized pool's payload
+    is exact in bf16 and fp16, so its products can run on exact 16-bit
+    operands too.
+    fp32_bound_ms counts the ops at the fp32 peak instead (the bound of
+    quantized pools' fp32 lane items, beside which older figures stand)."""
     T, hq, hd = q.shape
     _, hkv, block, _ = kp.shape
     tab = tables.cpu().numpy()
@@ -724,9 +742,10 @@ def _bound(q, kp, tables, positions, seq_slots, live_pages, window,
               + 4 * (tables.numel() + positions.numel() + seq_slots.numel()))
     ops = 4.0 * keys * hq * hd
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[torch.float32 if kv_bits else q.dtype] * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[q.dtype] * 1e3
+    t_fp32 = max(t_bytes, ops / PEAK_OPS_PER_S[torch.float32] * 1e3)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, ops)
+            nbytes, ops, t_fp32)
 
 
 PAGED_SHAPES = {
@@ -739,13 +758,24 @@ PAGED_SHAPES = {
 }
 
 
-def _paged_path(q, kp, tab, slots, live, quantized=False) -> tuple:
+def _paged_path(q, kp, tab, slots, live) -> tuple:
     """(tile items?, lane items?) in the work list the wrapper runs for
     this call (ops/paged_attention.py ``paged_work_arrays``)."""
     t, i, _ = pa.paged_work_arrays(
         slots.cpu().numpy(), q.shape[0], pa._walk_bound(live, tab.shape[1]),
-        kp.shape[1], pa._takes_tiles(True, q.dtype, kp, quantized, None))
+        kp.shape[1], pa._takes_tiles(True, q.dtype, kp, None))
     return len(t) > 0, len(i) > 0
+
+
+def _lane_work(slots, T, walk, kp) -> "pa.PagedWork":
+    """The work list of a call with every lane on lane items
+    (``paged_work_arrays(..., tiles=False)``): the path quantized pools
+    ran before they took tile items."""
+    t, i, l = pa.paged_work_arrays(slots.cpu().numpy(), T, walk,
+                                   kp.shape[1], False)
+    flat = np.concatenate([t.ravel(), i.ravel(), l.ravel()]).astype(np.int32)
+    return pa.PagedWork(torch.from_numpy(flat).to(kp.device), 0, len(i),
+                        len(l), T, walk, kp.shape[1])
 
 
 def _paged_counts() -> tuple:
@@ -759,7 +789,7 @@ def _paged_twice(name, q, kp, vp, tab, pos, slots, live, window, work=None,
     against the plain version: stated tolerance, bitwise-equal runs, and
     tile / lane items launched exactly where the work list has them.
     Returns the max abs error."""
-    want = _paged_path(q, kp, tab, slots, live, bool(quant)) if work is None \
+    want = _paged_path(q, kp, tab, slots, live) if work is None \
         else (work.n_tiles > 0, work.n_items > 0)
     before = _paged_counts()
     kw = dict(seq_slots=slots, live_pages=live, window=window, **quant)
@@ -811,18 +841,22 @@ def _time_paged(label, q, kp, vp, tab, pos, slots, live, flush, work=None,
                 **quant):
     """The new paths (``work``, or a work list planned once, as an engine
     put does), the replaced kernel and the plain version on one input, in
-    turns (plain, old, new, new, old, plain), beside the bound. Returns
-    the timing."""
+    turns (plain, old, new, new, old, plain), beside the bound. A
+    quantized pool's call with tile items also times it with every lane
+    on lane items (:func:`_lane_work`), in the same turns ("lane_ms").
+    Returns the timing."""
     T = q.shape[0]
+    walk = pa._walk_bound(live, tab.shape[1])
     if work is None:
-        work = pa.plan_paged_work(
-            slots.cpu().numpy(), T, pa._walk_bound(live, tab.shape[1]), kp,
-            dtype=q.dtype, quantized=bool(quant))
+        work = pa.plan_paged_work(slots.cpu().numpy(), T, walk, kp,
+                                  dtype=q.dtype)
     tiles, items = work.n_tiles > 0, work.n_items > 0
     kw = dict(seq_slots=slots, live_pages=live, **quant)
+    quantized = quant.get("k_scale") is not None
+    lanes = _lane_work(slots, T, walk, kp) if quantized and tiles else None
 
-    def kern():
-        return pa.paged_attention(q, kp, vp, tab, pos, work=work, **kw)
+    def kern(w=work):
+        return pa.paged_attention(q, kp, vp, tab, pos, work=w, **kw)
 
     def old():
         return _old_paged(q, kp, vp, tab, pos, slots, live, **quant)
@@ -831,27 +865,41 @@ def _time_paged(label, q, kp, vp, tab, pos, slots, live, flush, work=None,
         return pa.paged_attention_reference(q, kp, vp, tab, pos, **kw)
 
     ref = plain()
-    for what, fn in (("kernel", kern), ("old kernel", old)):
+    runs = [("kernel", kern), ("old kernel", old)]
+    if lanes is not None:
+        runs.append(("lane-item path", lambda: kern(lanes)))
+    for what, fn in runs:
         ok, err, tol = check_half_or_fp32(fn(), ref)
         if not ok:
             raise SystemExit(f"paged_attention {label}: the {what} disagrees "
                              f"with the plain version ({err:.3e}, {tol})")
     p1, o1 = cuda_ms(plain, 3, flush), cuda_ms(old, 20, flush)
+    l1 = None if lanes is None else cuda_ms(lambda: kern(lanes), 20, flush)
     k1, k2 = cuda_ms(kern, 20, flush), cuda_ms(kern, 20, flush)
+    l2 = None if lanes is None else cuda_ms(lambda: kern(lanes), 20, flush)
     o2, p2 = cuda_ms(old, 20, flush), cuda_ms(plain, 3, flush)
-    bits = quant.get("kv_bits", 0) if quant else 0
-    bound_ms, bound_by, nbytes, ops = _bound(q, kp, tab, pos, slots, live, 0,
-                                             kv_bits=bits)
+    bits = quant["kv_bits"] if quantized else 0
+    bound_ms, bound_by, nbytes, ops, fp32_ms = _bound(
+        q, kp, tab, pos, slots, live, 0, kv_bits=bits)
     path = " + ".join(n for n, on in (("tile items", tiles),
                                       ("lane items", items)) if on)
+    lane_note = "" if lanes is None else \
+        f", every lane on lane items {l1:.4f}/{l2:.4f} ms"
+    fp32_note = f", {fp32_ms:.4f} ms at the fp32 peak" if bits else ""
     log(f"kernels: paged_attention {label} T={T} ({path}) kernel "
-        f"{k1:.4f}/{k2:.4f} ms, the replaced kernel {o1:.4f}/{o2:.4f} ms, "
-        f"plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-        f"{nbytes} B, {ops:.3e} ops); {nbytes / min(k1, k2) / 1e6:.1f} GB/s, "
+        f"{k1:.4f}/{k2:.4f} ms{lane_note}, the replaced kernel "
+        f"{o1:.4f}/{o2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes} B, {ops:.3e} ops"
+        f"{fp32_note}); {nbytes / min(k1, k2) / 1e6:.1f} GB/s, "
         f"{ops / min(k1, k2) / 1e9:.2f} TFLOP/s")
-    return {"T": T, "ms": min(k1, k2), "old_ms": min(o1, o2),
-            "plain_ms": min(p1, p2), "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": nbytes, "ops": ops, "path": path}
+    out = {"T": T, "ms": min(k1, k2), "old_ms": min(o1, o2),
+           "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "ops": ops, "path": path}
+    if bits:
+        out["bound_fp32_peak_ms"] = fp32_ms
+    if lanes is not None:
+        out["lane_ms"] = min(l1, l2)
+    return out
 
 
 def phase_kernels() -> dict:
@@ -936,31 +984,53 @@ def _quantized_pools(kp, vp, bits):
 
 
 def phase_paged_quant(flush: torch.Tensor) -> dict:
-    """Quantized pools (int8, int4), all on lane items, against the plain
-    version: the 7b shapes in bf16 and fp32 q, a window, GQA with hd
-    64, a prefill chunk, each twice for bitwise-equal runs; then
-    decode_16x1024 and prefill_512 timed beside the replaced
-    quantized-pool kernel and their bound (payload + scale bytes).
-    Returns {bits: {max_abs_err, timings}}."""
+    """Quantized pools (int8, int4) against the plain version: the 7b
+    shapes in bf16 and fp32 q, a window, GQA with hd 64, each beside a
+    16-lane prefill chunk; then phase 3's tile cases (a 70-lane chunk at
+    block 32, a chunk from mid-page, two sequences in one 64-lane window,
+    block 8 with a window, GQA at hd 64) in bf16 and fp16 q; each twice
+    for bitwise-equal runs, tile / lane launches where the work list has
+    them (bf16 / fp16 prefill runs on `paged_tile_quant_kernel`); then
+    decode_16x1024 and prefill_512 timed beside the prefill with every
+    lane on lane items, the replaced quantized-pool kernel and their
+    bound (payload + scale bytes). Returns {bits: {max_abs_err,
+    timings}}."""
     gen = torch.Generator().manual_seed(4)
     ctxs = [1, 17, 1000, 4096]
     cases = [
-        # name, contexts, hq, hkv, hd, block, dtype, window, max_pages, live
-        ("7b-bf16", ctxs, 32, 32, 128, 16, torch.bfloat16, 0, 512, 256),
-        ("7b-fp32", ctxs, 32, 32, 128, 16, torch.float32, 0, 512, 256),
+        # name, contexts, hq, hkv, hd, block, dtype, window, max_pages,
+        # live, prefill chunks (seq, n), decode lanes
+        ("7b-bf16", ctxs, 32, 32, 128, 16, torch.bfloat16, 0, 512, 256,
+         (2, 16), True),
+        ("7b-fp32", ctxs, 32, 32, 128, 16, torch.float32, 0, 512, 256,
+         (2, 16), True),
         ("7b-window256-bf16", ctxs, 32, 32, 128, 16, torch.bfloat16, 256,
-         512, 256),
+         512, 256, (2, 16), True),
         ("gqa-hd64-window-fp32", ctxs, 32, 4, 64, 16, torch.float32, 100,
-         512, 256),
+         512, 256, (2, 16), True),
     ]
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype)[6:]
+        cases += [
+            (f"chunk70-block32-{name}", [200], 32, 32, 128, 32, dtype, 0,
+             64, 8, (0, 70), False),
+            (f"chunk-mid-page-gqa-hd64-{name}", [137], 32, 4, 64, 16, dtype,
+             0, 64, 16, (0, 100), False),
+            (f"two-sequences-one-window-{name}", [90, 120], 32, 32, 128, 16,
+             dtype, 0, 64, 8, [(0, 40), (1, 40)], False),
+            (f"block8-window-{name}", [250], 8, 2, 64, 8, dtype, 40, 64, 32,
+             (0, 100), False),
+            (f"gqa-hd64-window-{name}", ctxs, 32, 4, 64, 16, dtype, 256, 512,
+             256, (2, 16), True),
+        ]
     out = {}
     for bits in (8, 4):
         worst = 0.0
-        for name, contexts, hq, hkv, hd, block, dtype, window, mp, live in \
-                cases:
+        for (name, contexts, hq, hkv, hd, block, dtype, window, mp, live,
+             chunks, decode) in cases:
             q, kp, vp, tab, pos, slots = _paged_inputs(
                 gen, contexts, hq, hkv, hd, block, dtype,
-                prefill_of=(2, 16), max_pages=mp)
+                prefill_of=chunks, max_pages=mp, decode=decode)
             kq, vq, quant = _quantized_pools(kp, vp, bits)
             worst = max(worst, _paged_twice(f"int{bits} {name}", q, kq, vq,
                                             tab, pos, slots, live, window,
@@ -1535,8 +1605,7 @@ def phase_serving(card: str, model=None, kv_quant: str = "none",
           and sum(counts[n] for n in PAGED_COUNTER.values()) == launches
           and counts["tile_launches"] == n_layers * tile_puts
           and counts["split_launches"] == n_layers * item_puts
-          and odd_puts == 0
-          and (tile_puts > 0) == (kv_quant == "none"))
+          and odd_puts == 0 and tile_puts > 0)
     log(f"{tag}: {n_puts} engine puts ({tile_puts} with prefill tile items, "
         f"{item_puts} with lane items), paged_attention launches {counts} "
         f"({n_layers} layers x puts = {n_layers * n_puts}, all {counter}; "
@@ -1766,7 +1835,7 @@ def _verify_round(eng, n_layers: int, rng, prompts, tag: str,
     finally:
         ragged_mod.paged_attention = real_paged
     moved = tuple(a - b for a, b in zip(_paged_counts(), before))
-    want_moved = (0 if eng._kv_bits else n_layers, n_layers)
+    want_moved = (n_layers, n_layers)
     err, scale, near, accepted = 0.0, 0.0, [], {}
     for u, t in zip(oracle, twins):
         got_chain, rows = verified[u]
@@ -3676,11 +3745,11 @@ class _TPMeter(_CollMeter):
                            for n in PAGED_PATH_COUNTERS}}
 
 
-def _record_paged(kept: dict, quantized: bool):
+def _record_paged(kept: dict):
     """Keep (not copy) the inputs of layer 0's paged call of the first put
     of this rank that runs a prefill on tile items and decode lanes on
-    lane items (lane items only on a quantized pool), for a check at the
-    rank's shape after the run. Returns the hook's undo."""
+    lane items (bf16 and quantized pools alike), for a check at the rank's
+    shape after the run. Returns the hook's undo."""
     import deepspeed_tpu_torch.inference.ragged as ragged_mod
 
     real = ragged_mod.paged_attention
@@ -3688,7 +3757,7 @@ def _record_paged(kept: dict, quantized: bool):
     def recording(q, kp, vp, tables, positions, **kw):
         work = kw.get("work")
         if not kept and work is not None and work.n_lanes > work.n_pad \
-                and (quantized or work.n_tiles) and work.n_items:
+                and work.n_tiles and work.n_items:
             kept.update(q=q, kp=kp, vp=vp, tab=tables, pos=positions,
                         slots=kw["seq_slots"], live=kw["live_pages"],
                         work=work, quant={k: kw[k] for k in
@@ -3732,7 +3801,7 @@ def _tp_serve(eng, prompts, meter, tag: str, warm: bool,
     meter.reset()
     torch.cuda.reset_peak_memory_stats()
     kept: dict = {}
-    undo = _record_paged(kept, eng.config.kv_quant != "none")
+    undo = _record_paged(kept)
     comm.barrier()
     out: dict = {}
     try:
@@ -4353,10 +4422,11 @@ def _first_diff(got, ref) -> Optional[int]:
 
 
 def _tp_counts_ok(res, tag: str, counter: str, n_layers: int, card: str,
-                  letter: str, tiles: bool) -> bool:
+                  letter: str) -> bool:
     """Every rank's paged launches of a TP serving run: one a layer a put,
-    tile / split launches a layer for each put that ran them, the same
-    puts on every rank; logged. Returns whether all held."""
+    tile / split launches a layer for each put that ran them, some puts on
+    tile items (bf16 and int8 pools alike), the same puts on every rank;
+    logged. Returns whether all held."""
     ctrl = res[0][tag]
     good = True
     for r, rr in enumerate(res):
@@ -4366,7 +4436,7 @@ def _tp_counts_ok(res, tag: str, counter: str, n_layers: int, card: str,
                    and cn["tile_launches"] == n_layers * x["tile"]
                    and cn["split_launches"] == n_layers * x["split"]
                    and x["odd"] == 0 and x["calls"] == ctrl["calls"]
-                   and (x["tile"] > 0) == tiles)
+                   and x["tile"] > 0)
         good = good and rank_ok
         log(f"tp ({letter}) {tag} rank {r} [{card}]: "
             f"{x['calls']} puts, paged_attention launches {cn} "
@@ -4509,7 +4579,7 @@ def phase_tp(card: str, err: dict, prompts, spec: dict, opt: dict) -> dict:
                 and c["leaks"] == [] and not c["errors"]
                 and c["verify_puts"] == 0)
         good = _tp_counts_ok(res, tag, PAGED_COUNTER[kvq], n_layers, card,
-                             letter, kvq == "none") and good
+                             letter) and good
         ctrl[tag]["share"] = _tp_summary(c, len(reqs), tag, letter, card,
                                          same, ties, err[kvq], good)
         ok = ok and good
@@ -4520,8 +4590,8 @@ def phase_tp(card: str, err: dict, prompts, spec: dict, opt: dict) -> dict:
     good = (ok_s and c["states"] == ["finished"] * len(spec["prompts"])
             and c["leaks"] == [] and not c["errors"]
             and c["verify_puts"] > 0)
-    good = _tp_counts_ok(res, "spec", "launches", n_layers, card, "g",
-                         True) and good
+    good = _tp_counts_ok(res, "spec", "launches", n_layers, card,
+                         "g") and good
     _tp_summary(c, len(spec["prompts"]), "spec", "g", card, same, ties,
                 err["none"], good)
     ok = ok and good
@@ -4649,8 +4719,8 @@ def _tp_opt_checks(res, opt: dict, card: str, err: dict) -> bool:
                                    opt["streams"], err["none"])
     good = (ok_s and c["states"] == ["finished"] * n and c["leaks"] == []
             and not c["errors"])
-    good = _tp_counts_ok(res, "opt", "launches", n_layers, card, "e",
-                         True) and good
+    good = _tp_counts_ok(res, "opt", "launches", n_layers, card,
+                         "e") and good
     _tp_summary(c, n, "OPT-6.7B", "e", card, same, ties, err["none"], good)
     del ref_eng
     gc.collect()
@@ -10537,7 +10607,7 @@ def main() -> int:
             "max_abs_err": kq["max_abs_err"], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": None, "parity": "ok",
-            "shape": "decode_16x1024", "path": "lane items (every lane)",
+            "shape": "decode_16x1024", "path": PAGED_QUANT_PATH,
             "timings": kq["timings"], "card": dev["card"]})
     entries[1]["verify_launches"] = spec["int8_launches"]
     entries[1]["replica_launches"] = replicas["int8_launches"]

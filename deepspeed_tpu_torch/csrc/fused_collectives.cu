@@ -620,20 +620,6 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// 2^23 as fp32 bits: an integer j < 2^23 OR-ed into its mantissa reads as
-// 2^23 + j, and taking 2^23 + bias away gives j - bias exactly
-constexpr uint32_t kTwo23 = 0x4B000000u;
-
-// byte e of x in the low mantissa byte of 2^23 (the selector as an
-// immediate, the constant `two23` in a register)
-template <int E>
-__device__ __forceinline__ float byte_in_two23(uint32_t x, uint32_t two23) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(two23),
-      "n"(0x7650 | E));
-  return __uint_as_float(r);
-}
-
 // 8 consecutive weight elements from their payload bytes and one scale,
 // as 16 bytes of T: to_T(float(q) * s) each, load_b8's arithmetic. float(q)
 // takes no conversion instruction: int8 q + 128 is the byte XOR 0x80, int4

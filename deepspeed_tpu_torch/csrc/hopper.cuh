@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
 // (fused_collectives.cu rows 7/8, flash_attention.cu, paged_attention.cu):
 // mbarriers, TMA tensor loads and bulk copies, wgmma shared-memory
-// descriptors and fences, and the host-side encoding of TMA tensor maps.
+// descriptors and fences, integer payload bytes read as floats, and the
+// host-side encoding of TMA tensor maps.
 // Everything is inline and lives in namespace `hopper`; each .cu file that
 // includes this header gets its own copy inside its own shared library.
 //
@@ -162,6 +163,21 @@ __device__ __forceinline__ void reg_alloc() {
 // (wgmma, TMA)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Integer payloads to floats with no conversion instruction (I2F runs at
+// a quarter of the fp32 rate). 2^23 as fp32 bits: an integer j < 2^23 OR-ed into its mantissa reads as
+// 2^23 + j, and taking 2^23 + bias away gives j - bias exactly
+constexpr uint32_t kTwo23 = 0x4B000000u;
+
+// byte e of x in the low mantissa byte of 2^23 (the selector as an
+// immediate, the constant `two23` in a register)
+template <int E>
+__device__ __forceinline__ float byte_in_two23(uint32_t x, uint32_t two23) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(two23),
+      "n"(0x7650 | E));
+  return __uint_as_float(r);
 }
 
 // -------------------------------------------------------------- host side

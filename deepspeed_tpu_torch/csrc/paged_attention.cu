@@ -21,11 +21,13 @@
 // hkv, block, hd], or int4 nibbles uint8 [n_pages, hkv, block, hd / 2]
 // (channel 2c in the low nibble, 2c+1 in the high one, two's complement),
 // with fp32 scales k_scale/v_scale [n_pages, hkv, block] (one per
-// head-vector, ops/quantizer.py::quantize_kv). Each element is
-// dequantized as float(payload) * scale where it is read; q, both
-// products and P stay fp32 (the JAX kernel's rounding for quantized
-// pools). They move half (int8) or a quarter (int4) of a bf16 pool's
-// payload bytes, plus 4 bytes of scale per head-vector.
+// head-vector, ops/quantizer.py::quantize_kv). Lane items dequantize each
+// element as float(payload) * scale where it is read, with q, both
+// products and P in fp32 (the JAX kernel's rounding for quantized pools);
+// tile items keep the payload exact in 16-bit operands and apply the
+// scales outside the products, P split in two bf16 parts (see
+// `paged_tile_quant_kernel`). They move half (int8) or a quarter (int4) of
+// a bf16 pool's payload bytes, plus 4 bytes of scale per head-vector.
 //
 // What bounds it on the H100: HBM bytes at decode (each (token, kv-head)
 // reads its live pages once and does 4 flops per element read, far below
@@ -49,10 +51,13 @@
 //   O += P.V by wgmma m64n64k16. A page is read once per tile and q-head
 //   instead of once per token; GQA heads of a group re-read their
 //   kv-head's pages from L2. Pages past the walk are zero-filled by TMA
-//   (a coordinate past the pool) and masked.
+//   (a coordinate past the pool) and masked. int8 / int4 pools take
+//   `paged_tile_quant_kernel` (below): the same block with converter warps
+//   that turn each stage's payload into exact 16-bit K and V tiles, the
+//   per-key scales applied outside the products.
 // - lane items (`paged_split_kernel` + `paged_combine_kernel`): every
-//   other lane (decode lanes, short runs, fp32 pools, hd 256, block < 8,
-//   quantized pools). Split-K over pages: an item is (lane, span of
+//   other lane (decode lanes, short runs, fp32 q, hd 256, block < 8).
+//   Split-K over pages: an item is (lane, span of
 //   pages), one block per (item, kv-head) with the group's q rows; its
 //   pages (block * hd contiguous elements of one kv-head) come by 1-D
 //   bulk copies, 64 keys' worth a stage, into a ring of 1-4 stages; with
@@ -537,6 +542,402 @@ paged_tile_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ------------------------------- Hopper path: tile items, quantized pools
+// The same function over int8 / int4 pools (q, both products and P in
+// fp32 in the JAX kernel). Every int8 value (-128..127) and int4 value
+// (-8..7) is exact in bf16 and in fp16, and q already is one of them, so
+// the tensor cores take both products on unrounded operands; the per-key
+// scales act outside the products:
+//   S[i, j] = ks[j] (q_i . Kq_j): the S accumulator's column j times
+//     ks[j] * scale * log2 e before the online softmax (which masks), so
+//     it exponentiates S as it is (sl2 = 1);
+//   O = sum_j (P[i, j] vs[j]) Vq_j: P times vs[j] after the softmax (the
+//     row sum l keeps the unscaled P).
+// P' = P vs enters the P.V product as two bf16 parts, hi = bf16(P') and
+// lo = bf16(P' - hi), issued into one fp32 accumulator: P keeps about 16
+// bits, near the JAX kernel's fp32 P (fp pools round P to one bf16). hi
+// goes from registers, lo through a 64 x 64 bf16 tile of shared memory
+// (wgmma with A from shared memory): held in registers too, it pushed the
+// consumer past the 128 registers that two blocks an SM leave it at hd
+// 128 (ptxas spilled). The V tiles and both parts are bf16 whatever q's
+// type: fp16's range would flush small lo parts. The S product takes q's
+// type.
+//
+// A block (one per tile and q-head) is one consumer warpgroup (warps
+// 0-3), a producer warp (4) and three converter warps (5-7). The producer
+// loads each page's payload by TMA through a 2-D map over the pool as
+// [n_pages * hkv * block, hd * BITS / 8] bytes (no swizzle) into the
+// stage's V tile, and the page's scale rows (block fp32, contiguous per
+// (page, kv-head)) through maps over [n_pages * hkv, block] into 128-byte
+// aligned slots. TMA reads zeros past the pool, so a page outside the
+// walk brings payload 0 and scale 0, never garbage that P = 0 could turn
+// into NaN. The converters write the K tile (q's type; it holds no
+// payload) piece by piece, then read V's payload and the scale slots into
+// registers, meet at a named barrier, and write the V tile (bf16) over
+// the payload, both in the swizzled layout fwd_scores / fwd_pv read, and
+// the scales packed to 4 bytes a key (so a consumer thread reads its
+// columns' scales at fixed offsets, in no more registers: at hd 128 two
+// blocks an SM leave each thread 128); then they fence the generic proxy
+// against the async one before the consumers' wgmma reads the tiles.
+// Barriers a stage: full (TMA landed), ready (converted) and empty (the
+// consumers are done).
+constexpr int kConvThreads = 96;
+constexpr int kQuantThreads = 128 + 32 + kConvThreads;
+constexpr int kScaleSlot = 128;         // least bytes a page's scale row takes
+constexpr int kScaleHalf = 8 * kScaleSlot;  // K's (or V's) slots: 8 pages
+
+template <int D>
+struct QuantTileLayout {
+  static constexpr int H = D / 64;
+  static constexpr int RING = H * kRows64;             // Q: [H][64][128 B]
+  // two stages at d 128 keep two blocks on an SM
+  static constexpr int STAGES = D == 64 ? 4 : 2;
+  static constexpr int CONV = 2 * H * kRows64;         // K halves, V halves
+  static constexpr int STAGE = CONV + 2 * kScaleHalf;  // + K, V scale slots
+  // P's lo part, bf16, two tiles: a warp writes tile i's while another
+  // may still read tile i - 1's, and the barrier before each product
+  // keeps every warp within one tile of the rest
+  static constexpr int PLO = RING + STAGES * STAGE;
+  static constexpr int STATS = PLO + 2 * kRows64;      // min, max position
+  static constexpr int BARS = STATS + 16;
+  static constexpr int SMEM = 1024 + BARS + 8 * (1 + 3 * STAGES);
+};
+static_assert(2 * (QuantTileLayout<128>::SMEM + 1024) <= 233472,
+              "two quantized tile blocks an SM at hd 128");
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 8-channel chunk k of 16 payload bytes (int8: 16 channels, chunk k in
+// words 2k and 2k + 1; int4: 32, chunk k in word k, channel 2c in the low
+// nibble) as 16 bytes of O, exactly: q + 128 is the byte XOR 0x80 (q + 8
+// the nibble XOR 8), and 2^23 + (q + bias) - (2^23 + bias) gives q back
+// with no conversion instruction (decode_chunk's values, unscaled)
+template <typename O, int BITS>
+__device__ __forceinline__ uint4 payload_chunk(uint4 w, int k,
+                                               uint32_t two23) {
+  const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+  float v[8];
+  if constexpr (BITS == 8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t y = x[2 * k + h] ^ 0x80808080u;
+      v[4 * h] = byte_in_two23<0>(y, two23) - 8388736.f;
+      v[4 * h + 1] = byte_in_two23<1>(y, two23) - 8388736.f;
+      v[4 * h + 2] = byte_in_two23<2>(y, two23) - 8388736.f;
+      v[4 * h + 3] = byte_in_two23<3>(y, two23) - 8388736.f;
+    }
+  } else {
+    const uint32_t y = x[k] ^ 0x88888888u;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = __uint_as_float(((y >> (4 * e)) & 0xFu) | two23) - 8388616.f;
+  }
+  return make_uint4(pack2<O>(v[0], v[1]), pack2<O>(v[2], v[3]),
+                    pack2<O>(v[4], v[5]), pack2<O>(v[6], v[7]));
+}
+
+// payload piece `piece` (16 bytes of a stage's K or V payload: rows of ROW
+// bytes) into its key row of a swizzled 64-row tile of O at `tile`, a
+// chunk at a time
+template <typename O, int BITS, int ROW>
+__device__ __forceinline__ void store_piece(uint4 w, int piece,
+                                            unsigned char* tile,
+                                            uint32_t two23) {
+  constexpr int UPR = ROW / 16;        // pieces a head-vector
+  constexpr int CPU = 128 / BITS / 8;  // 8-channel chunks a piece
+  const int r = piece / UPR, c0 = (piece % UPR) * CPU;
+  unsigned char* dst = tile + r * 128;
+  // 128-byte swizzle: 16-byte chunk c of row r lands at c ^ (r % 8)
+#pragma unroll
+  for (int k = 0; k < CPU; ++k) {
+    const int c = c0 + k;
+    *reinterpret_cast<uint4*>(dst + (c >> 3) * kRows64 +
+                              (((c & 7) ^ (r & 7)) << 4)) =
+        payload_chunk<O, BITS>(w, k, two23);
+  }
+}
+
+// the accumulator's column c (8 j + 2 tq + e % 2 at element 4 j + e) times
+// the scale of key c of the stage, from the 64 packed fp32 scales at
+// shared address `keys`
+__device__ __forceinline__ void scale_columns(float (&s)[32], uint32_t keys,
+                                              int tq) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float x, y;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(x), "=f"(y) : "r"(keys + 32 * j + 8 * tq));
+    s[4 * j] *= x;
+    s[4 * j + 1] *= y;
+    s[4 * j + 2] *= x;
+    s[4 * j + 3] *= y;
+  }
+}
+
+// P' (the accumulator layout) in two bf16 parts: hi = bf16(P') as the A
+// fragments of P.V (acc_as_a's layout), and lo = bf16(P' - hi) into the
+// 64 x 64 tile at shared address `plo`, K-major with the 128-byte swizzle
+// (a Q tile's layout: row m's key chunk c at c ^ (m % 8)); the thread's
+// pair (2 r, 2 r + 1) of k step kk is row 16 w + g + 8 (r % 2), keys
+// 16 kk + 8 (r / 2) + 2 tq, +1
+__device__ __forceinline__ void split_p(uint32_t (&hi)[4][4], uint32_t plo,
+                                        const float (&s)[32]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const uint32_t row0 = 16 * (threadIdx.x >> 5) + g;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = s[8 * kk + 2 * r], x1 = s[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(h);
+      const __nv_bfloat162 d = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+      const uint32_t row = row0 + 8 * (r & 1), c = 2 * kk + (r >> 1);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                       plo + row * 128 + ((c ^ (row & 7)) << 4) +
+                       4 * (lane & 3)),
+                   "r"(*reinterpret_cast<const uint32_t*>(&d))
+                   : "memory");
+    }
+}
+
+template <typename T, int D, int BITS>
+__global__ void __launch_bounds__(kQuantThreads, 2)
+paged_tile_quant_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_kp,
+                        const __grid_constant__ CUtensorMap tm_vp,
+                        const __grid_constant__ CUtensorMap tm_ks,
+                        const __grid_constant__ CUtensorMap tm_vs,
+                        const int* __restrict__ tables,
+                        const int* __restrict__ seq_slots,
+                        const int* __restrict__ positions,
+                        const int* __restrict__ tiles, T* __restrict__ out,
+                        PagedArgs a) {
+  using L = QuantTileLayout<D>;
+  constexpr int H = L::H, S = L::STAGES;
+  constexpr int ROW = D * BITS / 8;   // payload bytes of a head-vector
+  constexpr int PAY = 64 * ROW;       // a stage's K (or V) payload
+  extern __shared__ __align__(1024) unsigned char ring_raw[];
+  const uint32_t raw = smem_addr(ring_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sbase = ring_raw + (base - raw);
+  int* stats = reinterpret_cast<int*>(sbase + L::STATS);
+  const uint32_t bars = base + L::BARS;
+  const uint32_t qbar = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto ready = [&](int s) { return bars + 8 * (1 + S + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * S + s); };
+  const int warp = __shfl_sync(0xffffffffu,
+                               static_cast<int>(threadIdx.x) / 32, 0);
+  const int lane = threadIdx.x % 32;
+  const int h = blockIdx.y, hk = h / (a.hq / a.hkv);
+  const int t0 = tiles[2 * blockIdx.x], n = tiles[2 * blockIdx.x + 1];
+  const int* trow =
+      tables + static_cast<long long>(seq_slots[t0]) * a.max_pages;
+  // a page's scale slot: 128 bytes, or its row's block * 4 from block 32
+  const int slot = max(kScaleSlot, 4 * a.block);
+  const float sl2 = a.scale * kLog2e;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(ready(s), kConvThreads);
+      mbar_init(empty(s), 4);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+    stats[0] = 0x7fffffff;
+    stats[1] = -0x7fffffff - 1;
+  }
+  __syncthreads();
+  if (threadIdx.x < n) {
+    const int ps = positions[t0 + threadIdx.x];
+    atomicMin(stats, ps);
+    atomicMax(stats + 1, ps);
+  }
+  __syncthreads();
+  // the tile's keys: [lo_key, hi_key) covers every row's visible keys
+  const int pmin = stats[0], pmax = stats[1];
+  const int walk_keys = a.walk * a.block;
+  const int hi_key = min(pmax + 1, walk_keys);
+  const int lo_key = a.window > 0 ? max(pmin - a.window + 1, 0) : 0;
+  const int jlo = lo_key / 64;
+  const int jhi = hi_key > 0 ? (hi_key + 63) / 64 : 0;
+  const int n_kv = max(jhi - jlo, 0);
+
+  if (warp == 4) {
+    // ---- producer warp: Q once; lane i loads page i of each kv tile
+    const int ppt = 64 / a.block;
+    const int lo_page = lo_key / a.block;
+    const int hi_page = (hi_key + a.block - 1) / a.block;
+    const int past = a.n_pages * a.hkv;  // TMA reads zeros there
+    if (lane == 0) {
+      prefetch_tensormap(&tm_kp);
+      prefetch_tensormap(&tm_vp);
+      mbar_expect_tx(qbar, H * kRows64);
+      for (int hh = 0; hh < H; ++hh)
+        tma_load_4d(base + hh * kRows64, &tm_q, qbar, 64 * hh, h, t0, 0);
+    }
+    for (int i = 0; i < n_kv; ++i) {
+      const int s = i % S, pg = (jlo + i) * ppt + lane;
+      int prow = past;  // (page, kv-head) row of the scale map
+      if (lane < ppt && pg >= lo_page && pg < hi_page)
+        prow = min(max(trow[pg], 0), a.n_pages - 1) * a.hkv + hk;
+      mbar_wait(empty(s), ((i / S) & 1) ^ 1);
+      if (lane == 0) mbar_expect_tx(full(s), 2 * PAY + 2 * 64 * 4);
+      __syncwarp();
+      if (lane < ppt) {
+        const uint32_t st = base + L::RING + s * L::STAGE;
+        const uint32_t pay = st + H * kRows64 + lane * a.block * ROW;
+        tma_load_2d(pay, &tm_kp, full(s), 0, prow * a.block);
+        tma_load_2d(pay + PAY, &tm_vp, full(s), 0, prow * a.block);
+        const uint32_t sc = st + L::CONV + lane * slot;
+        tma_load_2d(sc, &tm_ks, full(s), 0, prow);
+        tma_load_2d(sc + kScaleHalf, &tm_vs, full(s), 0, prow);
+      }
+    }
+    return;
+  }
+
+  if (warp > 4) {
+    // ---- converters: the stage's payload (in its V tile) -> K tile in
+    // T, then V tile in bf16 over it
+    constexpr int PIECES = PAY / 16;  // 16-byte pieces of K's (V's) payload
+    constexpr int NU = (PIECES + kConvThreads - 1) / kConvThreads;
+    const int ct = threadIdx.x - 160;
+    uint32_t two23;  // in a register, so that prmt takes its selector
+    asm("mov.b32 %0, %1;" : "=r"(two23) : "n"(kTwo23));
+    for (int i = 0; i < n_kv; ++i) {
+      const int s = i % S;
+      unsigned char* st = sbase + L::RING + s * L::STAGE;
+      const unsigned char* pay = st + H * kRows64;
+      float* scl = reinterpret_cast<float*>(st + L::CONV);
+      mbar_wait(full(s), (i / S) & 1);
+      // K: the K tile holds no payload, so each piece goes straight over
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const int id = ct + kConvThreads * u;
+        if (id < PIECES)
+          store_piece<T, BITS, ROW>(
+              *reinterpret_cast<const uint4*>(pay + 16 * id), id, st, two23);
+      }
+      // V: its payload, and the K, then V, scales of the stage's 64 keys
+      // from their page slots, all read before any is written over
+      uint4 w[NU];
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const int id = ct + kConvThreads * u;
+        if (id < PIECES)
+          w[u] = *reinterpret_cast<const uint4*>(pay + PAY + 16 * id);
+      }
+      float sc[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int id = ct + kConvThreads * u, key = id & 63;
+        if (id < 128)
+          sc[u] = scl[(id >> 6) * (kScaleHalf / 4) +
+                      (key / a.block) * (slot / 4) + key % a.block];
+      }
+      named_sync(1, kConvThreads);  // all payload read: V's tile over it
+      // packed; K's times scale * log2 e, so the softmax takes S as it is
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int id = ct + kConvThreads * u;
+        if (id < 128)
+          scl[(id >> 6) * (kScaleHalf / 4) + (id & 63)] =
+              id < 64 ? sc[u] * sl2 : sc[u];
+      }
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const int id = ct + kConvThreads * u;
+        if (id < PIECES)
+          store_piece<__nv_bfloat16, BITS, ROW>(w[u], id, st + H * kRows64,
+                                                two23);
+      }
+      // generic-proxy writes, read next by wgmma through the async proxy
+      fence_proxy_async();
+      mbar_arrive(ready(s));
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: the tile's 64 rows, each masked by its own
+  // position (rows past n see nothing and are not written)
+  const int t = threadIdx.x, tq = lane & 3;
+  const int rloc = 16 * (t >> 5) + (lane >> 2);  // rows rloc, rloc + 8
+  int pos[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri)
+    pos[ri] = rloc + 8 * ri < n ? positions[t0 + rloc + 8 * ri] : -1;
+  float o[H][32];
+#pragma unroll
+  for (int hh = 0; hh < H; ++hh)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) o[hh][x] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  auto masked = [&](int i) {
+    const int k0 = (jlo + i) * 64;
+    return !(k0 + 63 < walk_keys && k0 + 63 <= pmin &&
+             (a.window <= 0 || k0 > pmax - a.window));
+  };
+  auto vis = [&](int i, int ri, int col) {
+    const int key = (jlo + i) * 64 + col;
+    return key < walk_keys && key <= pos[ri] &&
+           (a.window <= 0 || key > pos[ri] - a.window);
+  };
+  float s[32], corr[2];
+  uint32_t hi[4][4];
+  const uint32_t plo = base + L::PLO;
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < n_kv; ++i) {
+    const int st = i % S;
+    mbar_wait(ready(st), (i / S) & 1);
+    const uint32_t k = base + L::RING + st * L::STAGE;
+    const uint32_t scl = k + L::CONV;  // the packed K, then V, scales
+    wgmma_fence();
+    fwd_scores<T, D>(s, base, kRows64, k, kRows64);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    scale_columns(s, scl, tq);  // ks * scale * log2 e, before the mask
+    fwd_softmax_tile(i, s, m, l, corr, 1.f, masked, vis);
+    fwd_rescale<D>(o, corr);
+    scale_columns(s, scl + kScaleHalf, tq);  // vs after it
+    const uint32_t lo = plo + (i & 1) * kRows64;
+    split_p(hi, lo, s);
+    // every warp's lo rows written, and seen by the async proxy
+    fence_proxy_async();
+    named_sync(2, 128);
+    wgmma_fence();
+    fwd_pv<__nv_bfloat16, D>(o, hi, k + H * kRows64, kRows64);
+#pragma unroll
+    for (int hh = 0; hh < H; ++hh)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<__nv_bfloat16, 1>(
+            o[hh], desc_k(lo, kk),
+            desc_mn(k + H * kRows64 + hh * kRows64, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int hh = 0; hh < H; ++hh) fence_acc(o[hh]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(hi[kk]);
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+  fwd_finish<D>(o, l);
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int r = rloc + 8 * ri;
+    if (r < n)
+      fwd_store_row<T, D>(
+          out + (static_cast<long long>(t0 + r) * a.hq + h) * D, o, ri);
+  }
+}
+
 // ------------------------------------------------ lane items: split-K
 constexpr int kSplitThreads = 128;
 // a stage holds 64 keys (64 / block pages); the ring's budget of 32 KB
@@ -858,6 +1259,64 @@ int launch_tiles(const void* q, const void* k_pool, const void* v_pool,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int D, int BITS>
+int launch_tiles_quant(const void* q, const void* k_pool, const void* v_pool,
+                       const float* k_scale, const float* v_scale,
+                       const int* tables, const int* seq_slots,
+                       const int* positions, const int* tiles, int n_tiles,
+                       void* out, const PagedArgs& a, cudaStream_t stream) {
+  using L = QuantTileLayout<D>;
+  constexpr int ROW = D * BITS / 8;
+  const int vectors = a.n_pages * a.hkv, rows = vectors * a.block;
+  CUtensorMap tq, tkp, tvp, tks, tvs;
+  int err = encode_heads<T>(&tq, q, 1, a.T, a.hq, D, kTileLanes);
+  if (!err)
+    err = encode_2d(&tkp, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, k_pool, rows, ROW,
+                    a.block, ROW, false);
+  if (!err)
+    err = encode_2d(&tvp, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, v_pool, rows, ROW,
+                    a.block, ROW, false);
+  if (!err)
+    err = encode_2d(&tks, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, k_scale,
+                    vectors, a.block, 1, a.block, false);
+  if (!err)
+    err = encode_2d(&tvs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, v_scale,
+                    vectors, a.block, 1, a.block, false);
+  if (err) return err;
+  auto kernel = paged_tile_quant_kernel<T, D, BITS>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(n_tiles, a.hq), kQuantThreads, L::SMEM, stream>>>(
+      tq, tkp, tvp, tks, tvs, tables, seq_slots, positions, tiles,
+      static_cast<T*>(out), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tile items of q type T at head_dim D over an fp pool (kv_bits 0) or a
+// quantized one (8, 4)
+template <typename T, int D>
+int launch_tiles_bits(int kv_bits, const void* q, const void* k_pool,
+                      const void* v_pool, const float* k_scale,
+                      const float* v_scale, const int* tables,
+                      const int* seq_slots, const int* positions,
+                      const int* tiles, int n_tiles, void* out,
+                      const PagedArgs& a, cudaStream_t s) {
+  switch (kv_bits) {
+    case 8:
+      return launch_tiles_quant<T, D, 8>(q, k_pool, v_pool, k_scale, v_scale,
+                                         tables, seq_slots, positions, tiles,
+                                         n_tiles, out, a, s);
+    case 4:
+      return launch_tiles_quant<T, D, 4>(q, k_pool, v_pool, k_scale, v_scale,
+                                         tables, seq_slots, positions, tiles,
+                                         n_tiles, out, a, s);
+    default:
+      return launch_tiles<T, D>(q, k_pool, v_pool, tables, seq_slots,
+                                positions, tiles, n_tiles, out, a, s);
+  }
+}
+
 // the ring's stages for stages of `stage_bytes`, and the block's dynamic
 // shared memory
 inline int split_stages(int stage_bytes) {
@@ -975,39 +1434,49 @@ extern "C" int dst_paged_attention_quant(
                       : launch_dtype<4>(a, dtype, s);
 }
 
-// Tile items (`paged_tile_kernel`): `tiles` [n_tiles, 2] int32 (first lane,
-// lanes <= 64), every lane of a tile on one seq_slots row. Takes bf16/fp16
-// (dtype 1, 2) at hd 64 or 128, block 8-64, a positive scale and 16-byte
-// aligned q and pools; returns cudaErrorInvalidValue on anything else
+// Tile items: `tiles` [n_tiles, 2] int32 (first lane, lanes <= 64), every
+// lane of a tile on one seq_slots row. kv_bits 0 takes fp pools of q's
+// type (`paged_tile_kernel`), 8 and 4 quantized pools with their fp32
+// scales (`paged_tile_quant_kernel`). Takes bf16/fp16 q (dtype 1, 2) at
+// hd 64 or 128, block 8-64, a positive scale and 16-byte aligned q, pools
+// and scales; returns cudaErrorInvalidValue on anything else
 // (ops/paged_attention.py `paged_tile_path` states the same).
 extern "C" int dst_paged_attention_tiles(
-    const void* q, const void* k_pool, const void* v_pool, const int* tables,
+    const void* q, const void* k_pool, const void* v_pool,
+    const float* k_scale, const float* v_scale, const int* tables,
     const int* seq_slots, const int* positions, const int* tiles,
     int n_tiles, void* out, int T_, int hq, int hkv, int hd, int n_pages,
     int block, int max_pages, int walk, int window, float scale, int dtype,
-    void* stream) {
+    int kv_bits, void* stream) {
   if (bad_geometry(hq, hkv, hd, n_pages, block, max_pages, dtype) ||
       !(dtype == 1 || dtype == 2) || !(hd == 64 || hd == 128) || block < 8 ||
       !(scale > 0.f) || seq_slots == nullptr || !hopper::aligned16(q) ||
-      !hopper::aligned16(k_pool) || !hopper::aligned16(v_pool) || hq > 65535)
+      !hopper::aligned16(k_pool) || !hopper::aligned16(v_pool) ||
+      hq > 65535 || !(kv_bits == 0 || kv_bits == 8 || kv_bits == 4) ||
+      (kv_bits != 0 &&
+       (!hopper::aligned16(k_scale) || !hopper::aligned16(v_scale) ||
+        k_scale == nullptr || v_scale == nullptr ||
+        static_cast<long long>(n_pages) * hkv * block > 0x7fffffff)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
   const PagedArgs a{T_, hq, hkv, hd, n_pages, block, max_pages, walk, window,
                     scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return hd == 64 ? launch_tiles<__half, 64>(q, k_pool, v_pool, tables,
-                                                seq_slots, positions, tiles,
-                                                n_tiles, out, a, s)
-                    : launch_tiles<__half, 128>(q, k_pool, v_pool, tables,
-                                                 seq_slots, positions, tiles,
-                                                 n_tiles, out, a, s);
-  return hd == 64 ? launch_tiles<__nv_bfloat16, 64>(q, k_pool, v_pool, tables,
-                                                     seq_slots, positions,
-                                                     tiles, n_tiles, out, a, s)
-                  : launch_tiles<__nv_bfloat16, 128>(
-                        q, k_pool, v_pool, tables, seq_slots, positions, tiles,
-                        n_tiles, out, a, s);
+    return hd == 64 ? launch_tiles_bits<__half, 64>(
+                          kv_bits, q, k_pool, v_pool, k_scale, v_scale,
+                          tables, seq_slots, positions, tiles, n_tiles, out,
+                          a, s)
+                    : launch_tiles_bits<__half, 128>(
+                          kv_bits, q, k_pool, v_pool, k_scale, v_scale,
+                          tables, seq_slots, positions, tiles, n_tiles, out,
+                          a, s);
+  return hd == 64 ? launch_tiles_bits<__nv_bfloat16, 64>(
+                        kv_bits, q, k_pool, v_pool, k_scale, v_scale, tables,
+                        seq_slots, positions, tiles, n_tiles, out, a, s)
+                  : launch_tiles_bits<__nv_bfloat16, 128>(
+                        kv_bits, q, k_pool, v_pool, k_scale, v_scale, tables,
+                        seq_slots, positions, tiles, n_tiles, out, a, s);
 }
 
 // Lane items (`paged_split_kernel`, then `paged_combine_kernel`): `items`
@@ -1052,8 +1521,11 @@ extern "C" int dst_paged_attention_split(
   }
 }
 
-// dynamic shared memory of a tile block at hd 64 / 128, for the build report
-extern "C" int dst_paged_tile_smem(int hd) {
+// dynamic shared memory of a tile block at hd 64 / 128 over an fp pool
+// (kv_bits 0) or a quantized one, for the build report
+extern "C" int dst_paged_tile_smem(int hd, int kv_bits) {
+  if (kv_bits)
+    return hd == 64 ? QuantTileLayout<64>::SMEM : QuantTileLayout<128>::SMEM;
   return hd == 64 ? TileLayout<64>::SMEM : TileLayout<128>::SMEM;
 }
 

@@ -1647,8 +1647,7 @@ class RaggedInferenceEngine:
         return plan_paged_work(
             np.maximum(flat_slot, 0), len(flat_slot),
             min(live_pages, self.max_pages), self.kv_pool[0][0],
-            dtype=self.config.dtype, quantized=bool(self._kv_bits),
-            pad=flat_slot < 0)
+            dtype=self.config.dtype, pad=flat_slot < 0)
 
     def _live_pages_bucket(self) -> int:
         """Page-walk bound for this step: smallest power of two >= the

@@ -22,16 +22,20 @@ TPU kernel's rounding point, ``paged_attention.py:123``). Quantized pools
 (``k_scale``/``v_scale`` fp32 [n_pages, hkv, block] and ``kv_bits`` 8 or
 4, as ``ops/quantizer.py::quantize_kv`` writes them): the pools are int8
 [n_pages, hkv, block, hd], or nibble-packed uint8 [n_pages, hkv, block,
-hd // 2] at ``kv_bits=4``. Pages are dequantized in the read, and q, both
-products and the probabilities are fp32 (the JAX kernel's rounding for
-quantized pools); the output is cast to q's dtype.
+hd // 2] at ``kv_bits=4``. The function is the JAX kernel's for quantized
+pools: pages dequantized as float(payload) * scale, q, both products and
+the probabilities fp32, the output cast to q's dtype. Lane items compute
+it so; tile items take the payload as exact bf16/fp16 operands, apply
+the scales outside the products and carry P in two bf16 parts (about 16
+bits; ``csrc/paged_attention.cu`` ``paged_tile_quant_kernel``).
 
 On the card a call runs a work list (:func:`plan_paged_work`): runs of at
 least ``MIN_TILE_RUN`` consecutive lanes of one sequence (prefill chunks)
 become tile items of up to 64 lanes where :func:`paged_tile_path` takes
-the pool (TMA + wgmma, a page read once per tile); every other lane
-becomes lane items, split over spans of pages so that a call fills the
-card, whose partials a combine pass merges in a fixed order.
+the call, over fp and quantized pools alike (TMA + wgmma, a page read
+once per tile); every other lane becomes lane items, split over spans
+of pages so that a call fills the card, whose partials a combine pass
+merges in a fixed order.
 """
 
 from __future__ import annotations
@@ -67,12 +71,12 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
             + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         lib.dst_paged_attention_quant.restype = ctypes.c_int
-        # q, pools, tables, slots, positions, tiles; n_tiles, out; 11 ints
-        # of geometry; scale, dtype, stream
+        # q, pools, scales, tables, slots, positions, tiles; n_tiles, out;
+        # geometry; scale, dtype, kv_bits, stream
         lib.dst_paged_attention_tiles.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
             + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
-                                    ctypes.c_void_p])
+                                    ctypes.c_int, ctypes.c_void_p])
         lib.dst_paged_attention_tiles.restype = ctypes.c_int
         # q, pools, scales, tables, slots, positions, items; n_items;
         # lanes; n_lanes; part, part_ml, out; geometry; scale, dtype,
@@ -83,7 +87,7 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.dst_paged_attention_split.restype = ctypes.c_int
-        lib.dst_paged_tile_smem.argtypes = [ctypes.c_int]
+        lib.dst_paged_tile_smem.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.dst_paged_tile_smem.restype = ctypes.c_int
         lib.dst_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dst_cuda_error_string.restype = ctypes.c_char_p
@@ -217,16 +221,15 @@ def paged_attention_reference(q, k_pool, v_pool, tables, positions, *,
     return out.reshape(T, hq, hd).to(q.dtype)
 
 
-def paged_tile_path(dtype: torch.dtype, hd: int, block: int,
-                    quantized: bool) -> bool:
+def paged_tile_path(dtype: torch.dtype, hd: int, block: int) -> bool:
     """Whether tile items (TMA + wgmma) take the prefill runs of a call:
-    bf16/fp16 fp pools at head_dim 64 or 128 (one or two 128-byte swizzle
-    atoms a row) with pages of 8-64 rows (each page's box lands on a whole
-    swizzle pattern); calls with ``seq_slots`` only. ``paged_attention.cu``
-    checks the same and refuses the rest; every other lane takes lane
-    items."""
-    return (not quantized and dtype in (torch.bfloat16, torch.float16)
-            and hd in (64, 128) and block in (8, 16, 32, 64))
+    bf16/fp16 q, over fp pools of q's type or int8 / int4 pools alike, at
+    head_dim 64 or 128 (one or two 128-byte swizzle atoms a row) with
+    pages of 8-64 rows (each page's box lands on a whole swizzle pattern);
+    calls with ``seq_slots`` only. ``paged_attention.cu`` checks the same
+    and refuses the rest; every other lane takes lane items."""
+    return (dtype in (torch.bfloat16, torch.float16) and hd in (64, 128)
+            and block in (8, 16, 32, 64))
 
 
 def paged_work_arrays(seq_slots: Optional[np.ndarray], T: int, walk: int,
@@ -272,15 +275,16 @@ def paged_work_arrays(seq_slots: Optional[np.ndarray], T: int, walk: int,
 
 
 def _takes_tiles(has_slots: bool, dtype: torch.dtype, k_pool,
-                 quantized: bool, scale: Optional[float]) -> bool:
+                 scale: Optional[float]) -> bool:
     """Whether a call may run tile items: it names each lane's table row
-    (``seq_slots``), its scale is positive (the tile kernel folds it into
+    (``seq_slots``), its scale is positive (the tile kernels fold it into
     exp2; lane items take any scale) and :func:`paged_tile_path` takes its
-    pool. The one place that decides it, for the planner and the
-    wrapper."""
-    _, _, block, hd = k_pool.shape
+    pool (an int4 pool, uint8, holds hd // 2 bytes a row). The one place
+    that decides it, for the planner and the wrapper."""
+    _, _, block, row = k_pool.shape
+    hd = 2 * row if k_pool.dtype == torch.uint8 else row
     return (has_slots and (scale is None or scale > 0)
-            and paged_tile_path(dtype, hd, block, quantized))
+            and paged_tile_path(dtype, hd, block))
 
 
 @dataclass(frozen=True)
@@ -300,18 +304,16 @@ class PagedWork:
 
 
 def plan_paged_work(seq_slots: Optional[np.ndarray], T: int, walk: int,
-                    k_pool, *, dtype: torch.dtype, quantized: bool = False,
+                    k_pool, *, dtype: torch.dtype,
                     scale: Optional[float] = None,
                     pad: Optional[np.ndarray] = None) -> PagedWork:
     """The work list of :func:`paged_work_arrays` for a call with q of
-    ``dtype`` over ``k_pool`` (``quantized`` with scales), copied to the
-    pool's device once; prefill runs take tile items where
-    :func:`_takes_tiles` allows. ``walk`` is the page-walk bound
-    min(live_pages, max_pages); the ragged engine builds one per put from
-    the host's slot array (its padding lanes as ``pad``) and shares it
-    between its layers."""
-    tiles = _takes_tiles(seq_slots is not None, dtype, k_pool, quantized,
-                         scale)
+    ``dtype`` over ``k_pool`` (fp, int8 or int4), copied to the pool's
+    device once; prefill runs take tile items where :func:`_takes_tiles`
+    allows. ``walk`` is the page-walk bound min(live_pages, max_pages);
+    the ragged engine builds one per put from the host's slot array (its
+    padding lanes as ``pad``) and shares it between its layers."""
+    tiles = _takes_tiles(seq_slots is not None, dtype, k_pool, scale)
     t, i, l = paged_work_arrays(seq_slots, T, walk, k_pool.shape[1], tiles,
                                 pad)
     flat = np.concatenate([t.ravel(), i.ravel(), l.ravel()]).astype(np.int32)
@@ -381,17 +383,18 @@ def paged_attention(q, k_pool, v_pool, tables, positions, *,
                         k_scale, v_scale) if a is not None]
     if not all(a.is_contiguous() for a in args):
         raise ValueError("paged_attention needs contiguous inputs")
-    if any(a.data_ptr() % 16 for a in (q, k_pool, v_pool)):
-        raise ValueError("q and the pools must be 16-byte aligned")
+    if any(a.data_ptr() % 16 for a in (q, k_pool, v_pool, k_scale, v_scale)
+           if a is not None):
+        raise ValueError("q, the pools and the scales must be 16-byte "
+                         "aligned")
     walk = _walk_bound(live_pages, tables.shape[1])
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    quantized = k_scale is not None
     if work is None:
         work = plan_paged_work(
             None if seq_slots is None else seq_slots.cpu().numpy(), T, walk,
-            k_pool, dtype=q.dtype, quantized=quantized, scale=scale)
+            k_pool, dtype=q.dtype, scale=scale)
     check_paged_work(work, T, walk, hkv, _takes_tiles(
-        seq_slots is not None, q.dtype, k_pool, quantized, scale))
+        seq_slots is not None, q.dtype, k_pool, scale))
     lib = _library()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -399,11 +402,14 @@ def paged_attention(q, k_pool, v_pool, tables, positions, *,
     geometry = (T, hq, hkv, hd, n_pages, block, tables.shape[1], walk,
                 int(window), float(scale), _DTYPE_CODE[q.dtype])
     plan = work.plan.data_ptr()
+    scales = (None, None) if k_scale is None else (k_scale.data_ptr(),
+                                                   v_scale.data_ptr())
+    bits = 0 if k_scale is None else int(kv_bits)
     if work.n_tiles:
         _raise_on(lib, lib.dst_paged_attention_tiles(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
             tables.data_ptr(), slots_ptr, positions.data_ptr(), plan,
-            work.n_tiles, out.data_ptr(), *geometry, stream))
+            work.n_tiles, out.data_ptr(), *geometry, bits, stream))
         paged_attention.tile_launches += 1
     if work.n_items:
         part = torch.empty((work.n_items, hq, hd), dtype=torch.float32,
@@ -412,13 +418,11 @@ def paged_attention(q, k_pool, v_pool, tables, positions, *,
                               device=q.device)
         items = plan + 4 * 2 * work.n_tiles
         _raise_on(lib, lib.dst_paged_attention_split(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            None if k_scale is None else k_scale.data_ptr(),
-            None if v_scale is None else v_scale.data_ptr(),
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
             tables.data_ptr(), slots_ptr, positions.data_ptr(), items,
             work.n_items, items + 4 * 3 * work.n_items, work.n_lanes,
             part.data_ptr(), part_ml.data_ptr(), out.data_ptr(), *geometry,
-            0 if k_scale is None else int(kv_bits), stream))
+            bits, stream))
         paged_attention.split_launches += 1
     if k_scale is None:
         paged_attention.launches += 1

@@ -473,18 +473,22 @@ def test_wrapper_refuses_a_work_list_of_another_call():
 
 
 WORK_PLAN_CASES = {
-    # name: (q dtype, pool, quantized, scale, slots given) -> tile items?
-    "bf16-hd64": ((torch.bfloat16, _pool(torch.bfloat16), False, None,
-                   True), True),
+    # name: (q dtype, pool, scale, slots given) -> tile items?
+    "bf16-hd64": ((torch.bfloat16, _pool(torch.bfloat16), None, True),
+                  True),
     "fp16-hd128-block8": ((torch.float16, _pool(torch.float16, 128, 8),
-                           False, None, True), True),
-    "fp32": ((torch.float32, _pool(torch.float32), False, None, True),
-             False),
-    "int8": ((torch.bfloat16, _pool(torch.int8), True, None, True), False),
-    "negative-scale": ((torch.bfloat16, _pool(torch.bfloat16), False, -0.1,
-                        True), False),
-    "per-token-tables": ((torch.bfloat16, _pool(torch.bfloat16), False,
-                          None, False), False),
+                           None, True), True),
+    "fp32": ((torch.float32, _pool(torch.float32), None, True), False),
+    "int8": ((torch.bfloat16, _pool(torch.int8), None, True), True),
+    # an int4 pool holds hd // 2 bytes a row: hd 64 takes tiles, 256 not
+    "int4-hd64": ((torch.bfloat16, _pool(torch.uint8, 32), None, True),
+                  True),
+    "int4-hd256": ((torch.bfloat16, _pool(torch.uint8, 128), None, True),
+                   False),
+    "negative-scale": ((torch.bfloat16, _pool(torch.bfloat16), -0.1, True),
+                       False),
+    "per-token-tables": ((torch.bfloat16, _pool(torch.bfloat16), None,
+                          False), False),
 }
 
 
@@ -493,12 +497,11 @@ def test_planner_and_wrapper_share_the_tile_decision(name):
     """plan_paged_work plans tile items exactly where _takes_tiles (the
     wrapper's check) lets the call run them, so the wrapper accepts every
     list the planner gives for that call."""
-    (dtype, pool, quantized, scale, has_slots), want = WORK_PLAN_CASES[name]
-    assert pa._takes_tiles(has_slots, dtype, pool, quantized, scale) is want
+    (dtype, pool, scale, has_slots), want = WORK_PLAN_CASES[name]
+    assert pa._takes_tiles(has_slots, dtype, pool, scale) is want
     slots = np.repeat(np.arange(3, dtype=np.int32), 20)
     work = pa.plan_paged_work(slots if has_slots else None, len(slots), 4,
-                              pool, dtype=dtype, quantized=quantized,
-                              scale=scale)
+                              pool, dtype=dtype, scale=scale)
     assert (work.n_tiles > 0) is want
     pa.check_paged_work(work, len(slots), 4, pool.shape[1], want)
 
@@ -518,21 +521,34 @@ def test_decode_lanes_plan_no_tiles_and_fit_a_tile_call():
 
 
 TILE_PATH_CASES = {
-    # name: (dtype, hd, block, quantized) -> tile items?
-    "7b-bf16": ((torch.bfloat16, 128, 16, False), True),
-    "1b-fp16-block32": ((torch.float16, 64, 32, False), True),
-    "block8": ((torch.bfloat16, 64, 8, False), True),
-    "block4": ((torch.bfloat16, 64, 4, False), False),
-    "fp32": ((torch.float32, 128, 16, False), False),
-    "hd256": ((torch.bfloat16, 256, 16, False), False),
-    "int8": ((torch.bfloat16, 128, 16, True), False),
+    # name: (q dtype, hd, block, pool: "fp", "int8" or "int4") -> tiles?
+    "7b-bf16": ((torch.bfloat16, 128, 16, "fp"), True),
+    "1b-fp16-block32": ((torch.float16, 64, 32, "fp"), True),
+    "block8": ((torch.bfloat16, 64, 8, "fp"), True),
+    "block4": ((torch.bfloat16, 64, 4, "fp"), False),
+    "fp32": ((torch.float32, 128, 16, "fp"), False),
+    "hd256": ((torch.bfloat16, 256, 16, "fp"), False),
+    "int8": ((torch.bfloat16, 128, 16, "int8"), True),
+    "int4-bf16": ((torch.bfloat16, 128, 16, "int4"), True),
+    "int8-fp16-hd64-block8": ((torch.float16, 64, 8, "int8"), True),
+    "int8-fp32": ((torch.float32, 128, 16, "int8"), False),
+    "int8-hd256": ((torch.bfloat16, 256, 16, "int8"), False),
+    "int8-block4": ((torch.bfloat16, 64, 4, "int8"), False),
 }
 
 
 @pytest.mark.parametrize("name", sorted(TILE_PATH_CASES))
 def test_paged_tile_path_predicate(name):
-    args, want = TILE_PATH_CASES[name]
-    assert pa.paged_tile_path(*args) is want
+    """The predicate, and _takes_tiles on a pool of that kind (int8 [..,
+    hd], int4 nibbles uint8 [.., hd // 2]): fp and quantized pools take
+    tile items at the same q types, head dims and page sizes."""
+    (dtype, hd, block, kind), want = TILE_PATH_CASES[name]
+    assert pa.paged_tile_path(dtype, hd, block) is want
+    pool = {"fp": lambda: torch.zeros((4, 2, block, hd), dtype=dtype),
+            "int8": lambda: torch.zeros((4, 2, block, hd), dtype=torch.int8),
+            "int4": lambda: torch.zeros((4, 2, block, hd // 2),
+                                        dtype=torch.uint8)}[kind]()
+    assert pa._takes_tiles(True, dtype, pool, None) is want
 
 
 def _cuda_paged(seed, seqs, lanes, hq, hkv, hd, block, dtype, max_pages=None):
@@ -638,10 +654,13 @@ def test_cuda_tile_and_lane_items_match_plain_and_repeat(name):
 @pytest.mark.parametrize("name", ["decode-16-lanes-1024", "chunk-mid-page",
                                   "window-100-gqa"])
 def test_cuda_quantized_lane_items_match_plain_and_repeat(name, bits):
+    """Quantized pools on the work list's kernels: lane items for the
+    decode lanes and, since quantized pools take tile items, tile items
+    for the prefill runs, exactly as the list plans them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    ctxs, lanes, hq, hkv, hd, block, dtype, window, live, *_ = \
-        CUDA_WORK_CASES[name]
+    (ctxs, lanes, hq, hkv, hd, block, dtype, window, live, want_tiles,
+     want_items) = CUDA_WORK_CASES[name]
     q, kp, vp, tab, pos, slots = _cuda_paged(31, ctxs, lanes, hq, hkv, hd,
                                              block, dtype)
     kq, ks = quantize_kv(kp, bits)
@@ -654,7 +673,49 @@ def test_cuda_quantized_lane_items_match_plain_and_repeat(name, bits):
     again = pa.paged_attention(q, kq, vq, tab, pos, **kw)
     torch.cuda.synchronize()
     assert (pa.paged_attention.tile_launches - counts[0],
-            pa.paged_attention.split_launches - counts[1]) == (0, 2)
+            pa.paged_attention.split_launches - counts[1]) == \
+        (2 * want_tiles, 2 * want_items)
+    ref = pa.paged_attention_reference(q, kq, vq, tab, pos, **kw)
+    ok, err = _half_close(got, ref, dtype)
+    assert ok, err
+    assert torch.equal(got, again)
+
+
+QUANT_TILE_CASES = ["chunk-70-of-200", "chunk-mid-page",
+                    "tile-window-spans-two-sequences", "block8-window",
+                    "window-100-gqa", "block32-fp16",
+                    "mixed-put-live-below-width"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", QUANT_TILE_CASES)
+def test_cuda_quantized_tile_items_match_plain_and_repeat(name, dtype, bits):
+    """int8 / int4 pools on tile items (paged_tile_quant_kernel): within
+    the half-precision tolerance of the plain version (fp32 dequantized
+    pages, fp32 P), two runs bitwise equal, tile / lane launches where the
+    work list has them, in bf16 and fp16 q."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    (ctxs, lanes, hq, hkv, hd, block, _, window, live, want_tiles,
+     want_items) = CUDA_WORK_CASES[name]
+    q, kp, vp, tab, pos, slots = _cuda_paged(
+        32, ctxs, lanes, hq, hkv, hd, block, dtype,
+        max_pages=None if live is None else 2 * live)
+    kq, ks = quantize_kv(kp, bits)
+    vq, vs = quantize_kv(vp, bits)
+    kw = dict(seq_slots=slots, live_pages=live, window=window, k_scale=ks,
+              v_scale=vs, kv_bits=bits)
+    counts = (pa.paged_attention.tile_launches,
+              pa.paged_attention.split_launches)
+    got = pa.paged_attention(q, kq, vq, tab, pos, **kw)
+    again = pa.paged_attention(q, kq, vq, tab, pos, **kw)
+    torch.cuda.synchronize()
+    assert want_tiles
+    assert (pa.paged_attention.tile_launches - counts[0],
+            pa.paged_attention.split_launches - counts[1]) == \
+        (2, 2 * want_items)
     ref = pa.paged_attention_reference(q, kq, vq, tab, pos, **kw)
     ok, err = _half_close(got, ref, dtype)
     assert ok, err
@@ -714,7 +775,7 @@ def test_verify_step_work_list_puts_chains_on_lane_items():
     assert sorted(set(l[:, 0]) & set(chain_lanes)) == chain_lanes.tolist()
     walk = min(live, eng.max_pages)
     pa.check_paged_work(work, len(slots), walk, 2, pa._takes_tiles(
-        True, torch.bfloat16, eng.kv_pool[0][0], False, None))
+        True, torch.bfloat16, eng.kv_pool[0][0], None))
     # the function over that list, on random fp32 q / pools
     safe = np.maximum(slots, 0)
     q = rng.standard_normal((len(slots), 2, 64)).astype(np.float32)
@@ -733,3 +794,173 @@ def test_verify_step_work_list_puts_chains_on_lane_items():
                           walk, 0, i, real)
     np.testing.assert_allclose(got[real[:, 0]], ref.numpy()[real[:, 0]],
                                **TOL)
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "int4"])
+def test_engine_plans_tiles_for_prefill_runs_on_quantized_pools(kv_quant):
+    """RaggedInferenceEngine._plan_work (what _paged_work runs on the
+    card) over an int8 / int4 pool at head_dim 64: a put that prefills a
+    40-token prompt beside three decode lanes sends the prompt's lanes to
+    tile items and the decode lanes to lane items; a decode_steps step
+    plans no tile. The wrapper's check accepts both lists."""
+    from deepspeed_tpu_torch.inference.ragged import (RaggedConfig,
+                                                      RaggedInferenceEngine)
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    model = Llama("tiny", device="cpu", n_layers=1, d_model=128, n_heads=2,
+                  n_kv_heads=2, vocab_size=64, max_seq_len=256)
+    eng = RaggedInferenceEngine(
+        model, RaggedConfig(token_budget=64, max_seqs=8, kv_block_size=16,
+                            n_kv_blocks=40, max_context=128,
+                            dtype=torch.bfloat16, kv_quant=kv_quant),
+        device="cpu")
+    pool = eng.kv_pool[0][0]
+    assert pool.dtype == (torch.int8 if kv_quant == "int8" else torch.uint8)
+    rng = np.random.default_rng(5)
+    nxt = {}
+    for uid in (1, 2, 3):
+        row = eng.put([uid], [rng.integers(1, 64, 5 + 3 * uid).tolist()])
+        nxt[uid] = int(np.argmax(row[0]))
+    steps = []
+    real = eng._paged_work
+
+    def spy(flat_slot, live_pages):
+        steps.append((np.array(flat_slot), live_pages))
+        return real(flat_slot, live_pages)
+
+    eng._paged_work = spy
+    eng.put([1, 2, 3, 4], [[nxt[1]], [nxt[2]], [nxt[3]],
+                           rng.integers(1, 64, 40).tolist()])
+    eng.decode_steps({u: 1 for u in (1, 2, 3, 4)}, 1)
+    (put_slots, put_live), (dec_slots, dec_live) = steps[0], steps[-1]
+
+    def planned(slots, live):
+        work = eng._plan_work(slots, live)
+        walk = min(live, eng.max_pages)
+        pa.check_paged_work(work, len(slots), walk, 2, pa._takes_tiles(
+            True, torch.bfloat16, pool, None))
+        tiles = work.plan.numpy()[:2 * work.n_tiles].reshape(-1, 2)
+        return work, sorted(x for t0, n in tiles for x in range(t0, t0 + n))
+
+    work, tiled = planned(put_slots, put_live)
+    prompt = np.flatnonzero(put_slots == eng.seqs[4].slot)
+    assert len(prompt) == 40 and tiled == prompt.tolist()
+    decode = [np.flatnonzero(put_slots == eng.seqs[u].slot)[0]
+              for u in (1, 2, 3)]
+    lanes = work.plan.numpy()[2 * work.n_tiles + 3 * work.n_items:]
+    assert set(decode) <= set(lanes.reshape(-1, 3)[:, 0].tolist())
+    work, tiled = planned(dec_slots, dec_live)
+    assert work.n_tiles == 0 and tiled == []
+    assert work.n_lanes == len(dec_slots)
+
+
+def _round_to(x: torch.Tensor, dtype) -> torch.Tensor:
+    return x.to(dtype).float()
+
+
+def _tile_quant_model(q, kq, vq, ks, vs, tables, slots, pos, bits, *,
+                      split_p=True):
+    """A plain model of ``paged_tile_quant_kernel``'s arithmetic, one lane
+    (q row) at a time: S = q . Kq in fp32 on the exact payload values,
+    times each key's K scale, then the online softmax over 64-key tiles in
+    base 2 (``fwd_softmax``; the kernel folds scale * log2 e into the K
+    scale, the same function), P times each key's V scale, P.V on the exact
+    payload with P as two bf16 parts (hi, then lo = bf16(P' - hi)) into
+    one fp32 sum, divided by l. ``split_p=False`` rounds P to one bf16
+    (the fp pools' rounding point). Returns fp32 [T, hq, hd]."""
+    from deepspeed_tpu_torch.ops.quantizer import unpack_kv_int4
+    T, hq, hd = q.shape
+    _, hkv, block, _ = kq.shape
+    group = hq // hkv
+    k_int = (unpack_kv_int4(kq) if bits == 4 else kq.to(torch.int32)).float()
+    v_int = (unpack_kv_int4(vq) if bits == 4 else vq.to(torch.int32)).float()
+    sl2 = (1.0 / np.sqrt(hd)) * np.log2(np.e)
+    out = torch.zeros((T, hq, hd))
+    for t in range(T):
+        pages = tables[slots[t]].long()
+        n_keys = (int(pos[t]) // block + 1) * block
+        keys = torch.arange(((n_keys + 63) // 64) * 64)
+        page = pages[torch.clamp(keys // block, max=len(pages) - 1)]
+        inside = keys < n_keys
+        for h in range(hq):
+            g = h // group
+            kr = torch.where(inside[:, None], k_int[page, g, keys % block], 0)
+            vr = torch.where(inside[:, None], v_int[page, g, keys % block], 0)
+            ksr = torch.where(inside, ks[page, g, keys % block], 0)
+            vsr = torch.where(inside, vs[page, g, keys % block], 0)
+            s_all = (kr @ q[t, h].float()) * ksr
+            m, l = torch.tensor(-1e30), torch.tensor(0.0)
+            o = torch.zeros(hd)
+            for k0 in range(0, len(keys), 64):
+                sl = slice(k0, k0 + 64)
+                s = torch.where(keys[sl] <= pos[t], s_all[sl],
+                                torch.tensor(-1e30))
+                mn = torch.maximum(m, s.max())
+                base = 0.0 if mn == -1e30 else mn * sl2
+                corr = torch.exp2(m * sl2 - base)
+                p = torch.exp2(s * sl2 - base)
+                l = l * corr + p.sum()
+                o = o * corr
+                p = p * vsr[sl]
+                hi = _round_to(p, torch.bfloat16)
+                o = o + hi @ vr[sl]
+                if split_p:
+                    o = o + _round_to(p - hi, torch.bfloat16) @ vr[sl]
+                m = mn
+            out[t, h] = torch.where(l == 0, torch.zeros(hd), o / l)
+    return out
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_quantized_tile_arithmetic_matches_jax_kernel(bits, dtype):
+    """The quantized tile kernel's rounding design, on the CPU: K and V
+    as exact 16-bit payload values, the K scale on S, the V scale folded
+    into P, P as two bf16 parts. Held against the JAX Pallas kernel in
+    interpret mode (fp32 P, fp32 dequantized pages) on a 40-lane prefill
+    chunk beside decode lanes over int8 / int4 pools: q of ``dtype``'s
+    values, compared in fp32 within 2e-5 abs + 2e-5 rel (P keeps about 16
+    bits: its error is below 2^-17 of each term), and cast to ``dtype``
+    within one ulp of that type plus the same 2e-5 (outputs near 0, where
+    the fp32 sums cancel). One bf16 P instead of two parts misses by over
+    10x more (by ~300x here): the split is what keeps the JAX rounding
+    point."""
+    rng = np.random.default_rng(40 + bits)
+    hq, hkv, hd, block, max_pages, n_seqs = 4, 2, 64, 16, 8, 3
+    n_pages = n_seqs * max_pages + 2
+    lanes = [(0, 100), (2, 17)] + [(1, p) for p in range(60, 100)] + \
+        [(2, 120)]
+    slots = np.array([s for s, _ in lanes], np.int32)
+    pos = np.array([p for _, p in lanes], np.int32)
+    q = torch.from_numpy(rng.standard_normal((len(lanes), hq, hd))
+                         .astype(np.float32)).to(dtype).float()
+    kp = rng.standard_normal((n_pages, hkv, block, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, hkv, block, hd)).astype(np.float32)
+    tables = rng.permutation(n_pages)[:n_seqs * max_pages] \
+        .reshape(n_seqs, max_pages).astype(np.int32)
+    qk, qv, sk, sv = _quantized(kp, vp, bits)
+    model = _tile_quant_model(q, qk, qv, sk, sv, torch.from_numpy(tables),
+                              slots, pos, bits)
+    one_bf16 = _tile_quant_model(q, qk, qv, sk, sv, torch.from_numpy(tables),
+                                 slots, pos, bits, split_p=False)
+    jquant = dict(k_scale=jnp.asarray(sk.numpy()),
+                  v_scale=jnp.asarray(sv.numpy()), kv_bits=bits)
+
+    def jax_kernel(qv_):
+        return jax_paged_attention(
+            qv_, jnp.asarray(qk.numpy()), jnp.asarray(qv.numpy()),
+            jnp.asarray(tables), jnp.asarray(pos),
+            seq_slots=jnp.asarray(slots), interpret=True, **jquant)
+
+    jk = np.asarray(jax_kernel(jnp.asarray(q.numpy())))
+    err = np.abs(model.numpy() - jk)
+    np.testing.assert_allclose(model.numpy(), jk, rtol=2e-5, atol=2e-5)
+    assert np.abs(one_bf16.numpy() - jk).max() > 10 * err.max()
+    # the output in q's dtype: within one ulp of that type
+    jd = np.asarray(jax_kernel(jnp.asarray(q.numpy(), dtype=jnp.bfloat16
+                                           if dtype == torch.bfloat16
+                                           else jnp.float16)), np.float32)
+    got = model.to(dtype).float().numpy()
+    bits_kept = 7 if dtype == torch.bfloat16 else 10
+    e = np.floor(np.log2(np.maximum(np.abs(jd), 2.0 ** -14)))
+    assert np.all(np.abs(got - jd) <= 2.0 ** (e - bits_kept) + 2e-5)
