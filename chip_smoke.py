@@ -352,6 +352,24 @@ CPU path — without a CUDA device the script fails):
    (16 new tokens each) served from it with the paged counters from 0,
    streams and the first put's logits bitwise an in-memory engine's, and
    ``init_inference(config={"checkpoint": ...})`` likewise.
+13. ZeRO offload (bf16 on fp32 masters, AdamW lr 1e-4, clipping 1.0,
+   full remat, 2 x 2048 a step): (a) Llama-2-7B's widths at 4 of 32
+   layers, ``offload_optimizer: cpu`` then resident from the same
+   seed-made weights and batches, 1 warm-up and 2 timed steps each:
+   losses, masters and moments bitwise, step time and peak memory of
+   each, the offloaded run's H2D / D2H bytes and seconds on its side
+   streams, its peak below the resident one's by at least the moments'
+   bytes less the stream window's; (b) the same widths at 24 of 32
+   layers with the moments in pinned host memory: the resident need
+   reckoned from the engine's buffers (masters, compute copy, gradient
+   accumulator, moments) above the card's memory, the host's memory
+   before and after, 1 warm-up and 1 timed step, a finite loss, step
+   time, peak memory, copies; (c) TinyLlama-1.1B's widths at 2 of 22
+   layers, stage 3 with masters and moments on disk under a temporary
+   directory: 2 steps bitwise the resident stage-3 run's, swap-in /
+   swap-out seconds and GB/s and bytes on disk, and a tag saved with the
+   state parked that a fresh engine loads and resumes bitwise. Every
+   flash launch of the timed steps on the Hopper kernels.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -10440,6 +10458,300 @@ def phase_checkpoints(card: str, prompts) -> dict:
             "seconds": took}
 
 
+OFFLOAD_ROWS = (2, 2048)        # rows x tokens a step, GAS 1
+OFFLOAD_PARITY_LAYERS = 4       # (a): Llama-2-7B's 32 layers cut (time)
+OFFLOAD_FIT_LAYERS = 24         # (b): a resident need above the card's HBM
+OFFLOAD_NVME_LAYERS = 2         # (c): TinyLlama-1.1B's 22 layers cut (time)
+OFFLOAD_PREDICTED_S = 60.0      # stated in PERF.md before the first run
+
+
+def _offload_cfg(**zero) -> dict:
+    """Phase 13's trainer: bf16 on fp32 masters, AdamW lr 1e-4, clipping
+    1.0, ``OFFLOAD_ROWS`` a step; ``zero`` is the ZeRO block."""
+    return {"train_batch_size": OFFLOAD_ROWS[0], "gradient_clipping": 1.0,
+            "steps_per_print": 1000, "bf16": {"enabled": True}, "seed": 5,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-4, "weight_decay": 0.1}},
+            "zero_optimization": {"stage": 1, **zero}}
+
+
+def _offload_batches(n: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": torch.from_numpy(rng.integers(
+        0, 32000, OFFLOAD_ROWS)).cuda()} for _ in range(n)]
+
+
+def _host_memory() -> str:
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return ", ".join(f"{k} {info[k].strip()}" for k in ("MemTotal",
+                                                         "MemAvailable"))
+
+
+def _offload_steps(label: str, engine, batches, warm: int) -> dict:
+    """``warm`` warm-up steps, then the rest timed, with the flash counts
+    set to 0 between them and the peak memory from before the first;
+    each timed step's offload copies (``offload_stats``) on an offloaded
+    engine. Correct: finite losses and norms, no skipped step, every
+    flash launch of the timed steps on the Hopper kernels in the count
+    :func:`_flash_per_step` gives."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times, copies, streamed = [], [], [], [], []
+    for i, b in enumerate(batches):
+        if i == warm:
+            _flash_reset()
+        t1 = time.perf_counter()
+        m = engine.train_batch(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if bool(m["skipped"]):
+            raise SystemExit(f"phase 13: {label}: a skipped step")
+        streamed.append(m.get("offload_streamed"))
+        if i >= warm and engine._offloaded:
+            copies.append(engine.offload_stats())
+    launches, hopper = _flash_read()
+    timed = len(batches) - warm
+    want = {n: timed * k for n, k in _flash_per_step(
+        [engine.model.config], 1).items()}
+    peak = torch.cuda.max_memory_allocated()
+    ok = (all(np.isfinite(losses)) and all(np.isfinite(norms))
+          and launches == want and hopper == launches)
+    log(f"offload {label}: losses {losses}, grad norms {norms}, "
+        f"offload_streamed {streamed}; step times "
+        f"{[round(x, 4) for x in times]} s; peak "
+        f"torch.cuda.max_memory_allocated() {peak} B; flash launches in "
+        f"{timed} timed steps {launches} (expected {want}), on the Hopper "
+        f"kernels {hopper} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase 13: {label} failed")
+    step_s = sum(times[warm:]) / timed
+    for c in copies:
+        log(f"offload {label}: copies a step: H2D "
+            f"{_ckpt_gb_s(c['h2d_bytes'], c['h2d_s'])}, D2H "
+            f"{_ckpt_gb_s(c['d2h_bytes'], c['d2h_s'])} (device-event time "
+            f"of the side streams, beside compute); window "
+            f"{c['window_leaves']:.0f} leaves, {c['window_bytes']:.0f} B")
+    return {"losses": losses, "step_s": step_s, "peak": peak,
+            "copies": copies, "launches": launches}
+
+
+def _offload_parity(card: str) -> dict:
+    """13 (a): Llama-2-7B's widths at ``OFFLOAD_PARITY_LAYERS`` layers,
+    offloaded (``offload_optimizer: cpu``) then resident from the same
+    seed-made weights and batches: losses, masters and moments bitwise,
+    the offloaded peak below the resident one by at least the moments'
+    bytes less the window's."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    batches = _offload_batches(3, 13)
+    runs = {}
+    for label, zero in (("offloaded", {"offload_optimizer": {
+            "device": "cpu"}}), ("resident", {})):
+        model = Llama("7b", seed=13, n_layers=OFFLOAD_PARITY_LAYERS)
+        engine = deepspeed_tpu_torch.initialize(
+            model=model, config=_offload_cfg(**zero))[0]
+        res = _offload_steps(f"(a) {label}", engine, batches, warm=1)
+        if label == "offloaded":
+            engine._fence()
+            res["state"] = {"params": {n: p.detach().cpu() for n, p in
+                                       engine.params.items()},
+                            "mu": engine.opt_state.mu,
+                            "nu": engine.opt_state.nu}
+        else:
+            got = runs["offloaded"]["state"]
+            res["diff"] = [
+                (k, n) for k, tree in (("params", engine.params),
+                                       ("mu", engine.opt_state.mu),
+                                       ("nu", engine.opt_state.nu))
+                for n, t in tree.items()
+                if not torch.equal(t, got[k][n].to(t.device))]
+            res["moment_bytes"] = sum(
+                t.numel() * t.element_size()
+                for tree in (engine.opt_state.mu, engine.opt_state.nu)
+                for t in tree.values())
+        runs[label] = res
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    off, ref = runs["offloaded"], runs["resident"]
+    window = max(c["window_bytes"] for c in off["copies"])
+    drop = ref["peak"] - off["peak"]
+    ok = (off["losses"] == ref["losses"] and not ref["diff"]
+          and drop >= ref["moment_bytes"] - window)
+    log(f"offload (a) [{card}]: {OFFLOAD_PARITY_LAYERS} of 32 layers: step "
+        f"{off['step_s']:.4f} s offloaded, {ref['step_s']:.4f} s resident; "
+        f"peak {off['peak']} B offloaded, {ref['peak']} B resident: "
+        f"{drop} B lower, moments {ref['moment_bytes']} B less the window's "
+        f"{window:.0f} B; losses bitwise {off['losses'] == ref['losses']}; "
+        f"leaves differing {ref['diff'][:4]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 13 (a): offload parity failed")
+    return {"step_s": (off["step_s"], ref["step_s"]),
+            "peak": (off["peak"], ref["peak"])}
+
+
+def _offload_fit(card: str) -> dict:
+    """13 (b): Llama-2-7B's widths at ``OFFLOAD_FIT_LAYERS`` layers with
+    the moments in pinned host memory: the resident need reckoned from
+    the engine's own buffers above the card's memory, 1 warm-up and 1
+    timed step, a finite loss."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    log(f"offload (b): host memory before: {_host_memory()}")
+    t0 = time.perf_counter()
+    model = Llama("7b", seed=13, n_layers=OFFLOAD_FIT_LAYERS)
+    t1 = time.perf_counter()
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, config=_offload_cfg(offload_optimizer={
+            "device": "cpu"}))[0]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    numel = sum(p.numel() for p in engine.params.values())
+    masters = sum(p.numel() * p.element_size()
+                  for p in engine.params.values())
+    moments = sum(t.numel() * t.element_size()
+                  for tree in (engine.opt_state.mu, engine.opt_state.nu)
+                  for t in tree.values())
+    pinned = all(t.is_pinned() for t in engine.opt_state.mu.values())
+    need = masters + numel * 2 + numel * 4 + moments
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"offload (b): {numel} parameters; resident need: masters "
+        f"{masters} + bf16 compute copy {numel * 2} + fp32 gradient "
+        f"accumulator {numel * 4} + moments {moments} = {need} B against "
+        f"the card's {total} B; moments pinned {pinned}; model built in "
+        f"{t1 - t0:.1f} s, engine (moments made and pinned) in "
+        f"{t2 - t1:.1f} s; host memory after: {_host_memory()}")
+    res = _offload_steps("(b)", engine, _offload_batches(2, 14), warm=1)
+    ok = need > total and pinned and all(np.isfinite(res["losses"]))
+    log(f"offload (b) [{card}]: {OFFLOAD_FIT_LAYERS} of 32 layers: step "
+        f"{res['step_s']:.4f} s, peak {res['peak']} B, loss "
+        f"{res['losses'][-1]} {'ok' if ok else 'FAIL'}")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("phase 13 (b): the fit case failed")
+    return {"step_s": res["step_s"], "peak": res["peak"], "need": need}
+
+
+def _offload_nvme(card: str, tmp: str) -> dict:
+    """13 (c): TinyLlama-1.1B's widths at ``OFFLOAD_NVME_LAYERS`` layers,
+    stage 3 on one rank with masters and moments on disk (``"nvme"``
+    under ``tmp``), 2 steps bitwise the resident stage-3 run's; a tag
+    saved after step 1 with the state parked, loaded by a fresh engine,
+    resumes step 2 bitwise."""
+    import copy
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import Llama
+
+    # drawn on the card (the host draws 219 M numbers slowly), kept on
+    # the host: the stage-3 engines copy from it
+    host = Llama("1b", seed=14, n_layers=OFFLOAD_NVME_LAYERS).cpu()
+    batches = _offload_batches(2, 15)
+
+    def engine(cfg):
+        # each engine on its own copy of the host model's weights
+        return deepspeed_tpu_torch.initialize(model=copy.deepcopy(host),
+                                              config=cfg)[0]
+
+    def nvme(where):
+        block = {"device": "nvme", "nvme_path": os.path.join(tmp, where)}
+        return _offload_cfg(stage=3, offload_param=block,
+                            offload_optimizer=block)
+
+    def state(e):
+        e._fence()
+        if e._opt_store is None:
+            return e.params, e.opt_state.mu, e.opt_state.nu
+        return (e._materialized_params(), e._opt_store.read("mu"),
+                e._opt_store.read("nu"))
+
+    def same(a, b):
+        return [n for ta, tb in zip(a, b) for n in ta
+                if not torch.equal(ta[n].cpu(), tb[n].cpu())]
+
+    ref = engine(_offload_cfg(stage=3))
+    ref_losses = [float(ref.train_batch(b)["loss"]) for b in batches]
+    ref_state = tuple({n: t.cpu() for n, t in tree.items()}
+                      for tree in state(ref))
+    del ref
+    torch.cuda.empty_cache()
+    a = engine(nvme("a"))
+    _flash_reset()
+    losses = [float(a.train_batch(batches[0])["loss"])]
+    stats = [a.offload_stats()]
+    t0 = time.perf_counter()
+    a.save_checkpoint(os.path.join(tmp, "ckpt"), tag="s1")
+    save_s = time.perf_counter() - t0
+    losses.append(float(a.train_batch(batches[1])["loss"]))
+    stats.append(a.offload_stats())
+    launches, hopper = _flash_read()
+    parked = a.params is None and a.opt_state is None
+    a_state = state(a)
+    diff = same(a_state, ref_state)
+    b = engine(nvme("b"))
+    t0 = time.perf_counter()
+    b.load_checkpoint(os.path.join(tmp, "ckpt"), tag="s1")
+    load_s = time.perf_counter() - t0
+    resumed = float(b.train_batch(batches[1])["loss"])
+    diff_resume = same(state(b), a_state)
+    want = {n: 2 * k for n, k in _flash_per_step([host.config], 1).items()}
+    ok = (losses == ref_losses and not diff and parked
+          and resumed == losses[1] and not diff_resume
+          and launches == want and hopper == launches)
+    for i, s in enumerate(stats):
+        log(f"offload (c) step {i + 1}: masters swap-in "
+            f"{_ckpt_gb_s(s['param_swap_in_bytes'], s['param_swap_in_s'])},"
+            f" swap-out {_ckpt_gb_s(s['param_swap_out_bytes'], s['param_swap_out_s'])};"
+            f" moments swap-in "
+            f"{_ckpt_gb_s(s['opt_swap_in_bytes'], s['opt_swap_in_s'])}, "
+            f"swap-out {_ckpt_gb_s(s['opt_swap_out_bytes'], s['opt_swap_out_s'])}"
+            f" (host clock, warm page cache); {s['opt_bytes_on_disk']:.0f} B on "
+            f"disk")
+    log(f"offload (c) [{card}]: TinyLlama-1.1B at {OFFLOAD_NVME_LAYERS} of "
+        f"22 layers, stage 3, nvme: losses {losses} (resident "
+        f"{ref_losses}), leaves differing {diff[:4]}, parked {parked}; "
+        f"save {save_s:.2f} s, load {load_s:.2f} s, resumed loss {resumed} "
+        f"(differing {diff_resume[:4]}); flash launches {launches} "
+        f"(expected {want}), Hopper {hopper} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 13 (c): nvme offload failed")
+    return {"stats": stats, "save_s": save_s, "load_s": load_s}
+
+
+def phase_offload(card: str) -> dict:
+    """13, ZeRO offload: (a) parity against resident, (b) the case offload
+    exists for, (c) nvme at stage 3 with a checkpoint, under one temporary
+    directory (removed after)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    log(f"offload: phase 13 predicted {OFFLOAD_PREDICTED_S:.0f} s")
+    a = _offload_parity(card)
+    t_a = time.perf_counter() - t_phase
+    b = _offload_fit(card)
+    t_b = time.perf_counter() - t_phase - t_a
+    tmp = tempfile.mkdtemp(prefix="dst_offload_")
+    try:
+        c = _offload_nvme(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    log(f"offload: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) "
+        f"{took - t_a - t_b:.1f} s; phase 13 took {took:.1f} s (predicted "
+        f"{OFFLOAD_PREDICTED_S:.0f} s)")
+    return {"a": a, "b": b, "c": c, "seconds": took}
+
+
 def main() -> int:
     from deepspeed_tpu_torch.models.llama import Llama
 
@@ -10549,6 +10861,8 @@ def main() -> int:
     mark("11")
     ckpt = phase_checkpoints(dev["card"], prompts)
     mark("12")
+    phase_offload(dev["card"])
+    mark("13")
     d = kern["timings"]["decode_16x1024"]
     entries = [{"name": "paged_attention", "route": "cuda",
                 "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,

@@ -23,10 +23,12 @@ Ports the parts of ``deepspeed_tpu/config.py`` that the ported paths read:
   the monitors' ``tensorboard`` / ``csv_monitor`` / ``wandb`` blocks,
   ``flops_profiler``, ``comms_logger``, ``wall_clock_breakdown`` and
   ``memory_breakdown`` (``compression_training`` is
-  ``compression.init_compression``'s, accepted here). Settings of later
-  slices (ZeRO beside a ``model`` axis, hpZ, MiCS, offload, mesh axes
-  other than ``data`` and ``model``, pipelining, universal checkpoints)
-  raise :class:`ConfigError` naming that slice; other unknown keys warn.
+  ``compression.init_compression``'s, accepted here); ZeRO offload's
+  ``offload_optimizer`` / ``offload_param`` blocks
+  (:class:`OffloadConfig`). Settings of later slices (ZeRO beside a
+  ``model`` axis, hpZ, MiCS, mesh axes other than ``data`` and
+  ``model``, pipelining, universal checkpoints) raise
+  :class:`ConfigError` naming that slice; other unknown keys warn.
 """
 
 from __future__ import annotations
@@ -177,19 +179,71 @@ _INERT_ZERO_KEYS = (
     "legacy_stage1", "mics_hierarchical_params_gather")
 
 
+OFFLOAD_DEVICES = ("none", "cpu", "nvme")
+
+
+@dataclass
+class OffloadConfig:
+    """An ``offload_optimizer`` / ``offload_param`` block (the JAX
+    package's, after the reference's ``runtime/zero/offload_config.py``):
+    ``device`` is ``"none"``, ``"cpu"`` (pinned host memory) or ``"nvme"``
+    (files under ``nvme_path`` through the aio engine). ``pin_memory``,
+    ``buffer_count``, ``buffer_size``, ``fast_init`` and ``ratio`` are
+    read and, as in the JAX package, change nothing (``ratio``: partial
+    offload is not implemented there either); ``max_in_cpu`` is
+    dropped."""
+
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    pin_memory: bool = True
+    buffer_count: int = 4
+    buffer_size: int = 100_000_000
+    fast_init: bool = False
+    ratio: float = 1.0
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "OffloadConfig":
+        if not d:
+            return cls()
+        d = dict(d)
+        out = cls(
+            device=str(_take(d, "device", "none")).lower(),
+            nvme_path=_take(d, "nvme_path", None),
+            pin_memory=bool(_take(d, "pin_memory", True)),
+            buffer_count=int(_take(d, "buffer_count", 4)),
+            buffer_size=int(float(_take(d, "buffer_size", 100_000_000))),
+            fast_init=bool(_take(d, "fast_init", False)),
+            ratio=float(_take(d, "ratio", 1.0)),
+        )
+        if out.device not in OFFLOAD_DEVICES:
+            raise ConfigError(f"offload device must be one of "
+                              f"{OFFLOAD_DEVICES}, got '{out.device}'")
+        d.pop("max_in_cpu", None)
+        _warn_unknown(d, "offload")
+        return out
+
+    @property
+    def enabled(self) -> bool:
+        return self.device != "none"
+
+
 @dataclass
 class ZeroConfig:
     """The ``zero_optimization`` block. Stages 0-3 over the ``data`` axis
     are ported (optimizer state sharded from stage 1, gradients from stage
-    2, parameters at stage 3: ``parallel/zero.py``); hpZ
-    (``zero_hpz_partition_size`` > 1), MiCS and offload raise
-    :class:`ConfigError` naming their slice (ROADMAP.md, Queue A item 12),
-    and so does a stage above 0 beside a ``model`` axis (:class:`Config`)."""
+    2, parameters at stage 3: ``parallel/zero.py``), and so is offload:
+    ``offload_optimizer`` at every stage, ``offload_param`` at stage 3
+    (below it the block is read and, as in the JAX package, unused). hpZ
+    (``zero_hpz_partition_size`` > 1) and MiCS raise :class:`ConfigError`
+    naming their slice (ROADMAP.md, Queue A item 12), and so does a stage
+    above 0 beside a ``model`` axis (:class:`Config`)."""
 
     stage: int = 0
     stage3_param_persistence_threshold: int = 10_000
     zero_quantized_weights: bool = False
     zero_quantized_gradients: bool = False
+    offload_param: OffloadConfig = field(default_factory=OffloadConfig)
+    offload_optimizer: OffloadConfig = field(default_factory=OffloadConfig)
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ZeroConfig":
@@ -205,6 +259,10 @@ class ZeroConfig:
                                               False)),
             zero_quantized_gradients=bool(_take(
                 d, "zero_quantized_gradients", False)),
+            offload_param=OffloadConfig.from_dict(
+                _take(d, "offload_param", None)),
+            offload_optimizer=OffloadConfig.from_dict(
+                _take(d, "offload_optimizer", None)),
         )
         if out.stage not in (0, 1, 2, 3):
             raise ConfigError(f"zero_optimization.stage must be 0..3, got "
@@ -216,10 +274,6 @@ class ZeroConfig:
         mics = int(_take(d, "mics_shard_size", -1))
         if mics > 0:
             _later_slice("zero_optimization.mics_shard_size", mics, where)
-        for key in ("offload_param", "offload_optimizer"):
-            dev = (_take(d, key, None) or {}).get("device", "none")
-            if dev not in (None, "none"):
-                _later_slice(f"zero_optimization.{key}.device", dev, where)
         for k in _INERT_ZERO_KEYS:
             d.pop(k, None)
         _warn_unknown(d, "zero_optimization")

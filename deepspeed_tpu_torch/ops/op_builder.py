@@ -11,10 +11,12 @@ seconds. Libraries land in ``build/kernels/`` at the repo root (listed in
 process. A missing ``nvcc`` or a failed build raises.
 
 A host library ``name`` is ``csrc/<name>.cpp`` with a plain C interface
-(the ragged batch construction): :func:`load_host` compiles it with the host
-C++ compiler (``c++ -O3 -shared -fPIC``) into the same directory, named by
-a digest of its flags and source, and opens it with ``ctypes``. A missing
-compiler or a failed build raises.
+(the ragged batch construction, the aio engine): :func:`load_host`
+compiles it with the host C++ compiler (``c++ -O3 -shared -fPIC``, plus
+the library's own flags in ``HOST_EXTRA_FLAGS``: ``-pthread`` for
+``ds_aio``) into the same directory, named by a digest of its flags and
+source, and opens it with ``ctypes``. A missing compiler or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+# flags of one host library beside HOST_FLAGS (the aio engine's threads)
+HOST_EXTRA_FLAGS: Dict[str, tuple] = {"ds_aio": ("-pthread",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's output per library: the -Xptxas -v register / shared-memory report
@@ -120,10 +124,14 @@ def find_cxx() -> str:
         "deepspeed_tpu_torch are built from source at first use")
 
 
+def _host_flags(name: str) -> tuple:
+    return HOST_FLAGS + HOST_EXTRA_FLAGS.get(name, ())
+
+
 def host_digest(name: str, csrc: Path = CSRC) -> str:
     """Hex digest that names the library of ``csrc/<name>.cpp``: the
-    compiler flags and the source."""
-    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    compiler flags (the library's own too) and the source."""
+    h = hashlib.sha256(" ".join(_host_flags(name)).encode())
     h.update((csrc / f"{name}.cpp").read_bytes())
     return h.hexdigest()
 
@@ -136,5 +144,5 @@ def load_host(name: str) -> ctypes.CDLL:
         return _libs[key]
     out = BUILD_DIR / f"lib{name}-{host_digest(name, CSRC)[:16]}.so"
     return _open(key, out, lambda tmp: [
-        find_cxx(), *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
-        "host library")
+        find_cxx(), *_host_flags(name), "-o", str(tmp),
+        str(CSRC / f"{name}.cpp")], "host library")

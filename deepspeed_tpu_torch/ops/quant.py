@@ -24,7 +24,7 @@ CUDA kernels take any even block up to 4096 and any row count.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -88,6 +88,27 @@ def ieee_div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
+# block rows a pass of the plain quantizer takes on the host: each pass's
+# fp32 temporaries stay small and are reused, where a whole leaf's would
+# be fresh memory the host must fault in (each row's result is the same);
+# on a device one pass takes every row
+_HOST_ROWS = 1 << 14
+
+
+def _row_chunks(t: torch.Tensor, rows: int) -> List[slice]:
+    step = _HOST_ROWS if t.device.type == "cpu" else rows
+    return [slice(i, i + step) for i in range(0, rows, step)]
+
+
+def _quantize_rows(blocks: torch.Tensor, qmax: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    scale = ieee_div(blocks.abs().amax(dim=1, keepdim=True), qmax)
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(blocks / scale), -qmax - 1, qmax) \
+        .to(torch.int8)
+    return q, scale[:, 0]
+
+
 def quantize_blockwise_reference(x: torch.Tensor, bits: int = 8,
                                  block: int = 256, pack: bool = False
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -95,13 +116,13 @@ def quantize_blockwise_reference(x: torch.Tensor, bits: int = 8,
     _check_pack(bits, block, pack)
     rows = _rows(x.numel(), block)
     qmax = 2.0 ** (bits - 1) - 1
-    blocks = x.reshape(rows, block).float()
-    scale = ieee_div(blocks.abs().amax(dim=1, keepdim=True), qmax)
-    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
-    q = torch.clamp(torch.round(blocks / scale), -qmax - 1, qmax) \
-        .to(torch.int8)
+    flat = x.reshape(rows, block)
+    parts = [_quantize_rows(flat[c].float(), qmax)
+             for c in _row_chunks(x, rows)]
+    q, scale = parts[0] if len(parts) == 1 else (
+        torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
     q = pack_int4_offset(q) if pack else q.reshape(x.shape)
-    return q, scale[:, 0]
+    return q, scale
 
 
 def dequantize_blockwise_reference(q: torch.Tensor, scale: torch.Tensor,

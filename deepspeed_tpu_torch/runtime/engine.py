@@ -116,8 +116,28 @@ the first recorded step. With telemetry and every monitor off the step
 reads nothing more back from the card than before (one read at the
 ``steps_per_print`` boundary).
 
+ZeRO offload (JAX ``TrainEngine``'s ``offload_optimizer`` at every stage
+and ``offload_param`` at stage 3): the optimizer state, and at stage 3
+the fp32 master shards, are parked between steps in host memory
+(``"cpu"``, pinned on a CUDA engine) or in files through the aio engine
+(``"nvme"``, staged through host memory around the step), in
+``runtime/swap_tensor.py``'s :class:`OffloadStore`. Where JAX uploads the
+whole state around the step, the update here streams it (``_offload_update``):
+each leaf's parked moments (and master) go to the device a window of
+``buffer_count`` leaves ahead of the update on a side CUDA stream, the
+leaf is updated by the same ``optimizer.update`` on a one-leaf sub-dict
+(``count`` stepped once a step), and the result goes back to its host
+tensor on a second side stream; so the state is on the card only for its
+own update, and the trajectory is bitwise the resident engine's. A
+transform that cannot be split (LAMB's whole-leaf norms, a client
+optimizer) takes the whole state up around its update, as JAX does; the
+step's metrics say which ran (``offload_streamed``). Parked masters feed
+the compute copy leaf by leaf (cast onto the device), and checkpoints
+read parked state without unparking it. Offload never falls back: a
+failed pin, a failed aio build or a short swap file raises.
+
 The JAX package's other ZeRO paths (ZeRO over a ``model`` axis, hpZ,
-MiCS, offload) come with later slices and raise (ROADMAP.md, Queue A).
+MiCS) come with later slices and raise (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -152,9 +172,12 @@ from .checkpoint import (CheckpointEngine, Leaves, consolidate_full_state,
 from .lr_schedules import Schedule, build_schedule, constant_lr
 from .optimizers import (Transform, as_transform, build_optimizer,
                          global_norm, sharded_global_norm)
+from .swap_tensor import LeafStream, OffloadStore
 
 Params = Dict[str, torch.Tensor]
 LossFn = Callable[[Params, Dict[str, torch.Tensor]], Any]
+# leaves of optimizer state made on the card before they are parked
+_PARK_LEAVES = os.cpu_count() or 1
 
 
 class _RowParams(dict):
@@ -240,11 +263,18 @@ class TrainEngine:
             for n, s in self.full_shapes.items()}
         self.grad_specs = self.zero_rules.grad_specs(self.full_shapes)
         rank = self.topo.rank("data")
-        self.params: Params = {
+        self._offload_device = config.zero.offload_optimizer.device
+        self._param_offload_device = (config.zero.offload_param.device
+                                      if self._stage >= 3 else "none")
+        # parked masters are built on the host, never whole on the card
+        home = torch.device("cpu") if self._param_offload_device != "none" \
+            else self.device
+        masters: Params = {
             n: shard_of(p.detach(), self.param_specs[n], rank, dp).to(
-                device=self.device, dtype=torch.float32,
-                copy=self._stage == 3 and dp > 1)
+                device=home, dtype=torch.float32,
+                copy=(self._stage == 3 and dp > 1) or home != self.device)
             for n, p in params.items()}
+        self.params: Optional[Params] = masters
         # leaves kept whole but updated as this rank's slice: all-gathered
         # after every update (stages 1-2; a stage-3 leaf kept whole below
         # the persistence threshold)
@@ -269,13 +299,14 @@ class TrainEngine:
                                              lr_schedule=self.lr_schedule)
         else:
             self.optimizer = as_transform(optimizer)
-        layout = self._state_layout(self.params)
-        self.opt_state = self.optimizer.init(layout)
+        layout = self._state_layout(masters)
         # the leaves the optimizer sees as a slice of the data group's
         # leaf (ZeRO): LAMB's norms sum them over the group
         self._sliced = frozenset(
             n for n, t in layout.items()
             if t.numel() < math.prod(self.full_shapes[n]))
+        self._init_offload(config, masters, layout)
+        del masters, layout
 
         fp16 = config.fp16
         if fp16.enabled and fp16.dynamic_loss_scale:
@@ -376,6 +407,219 @@ class TrainEngine:
             inj = install_fault_injector(FaultInjector(rcfg.chaos))
             self.register_step_hook(lambda _eng, step: inj.on_step(step))
 
+    # ------------------------------------------------------------------
+    # ZeRO offload (JAX TrainEngine's offload block; the module docstring)
+    def _init_offload(self, config: Config, masters: Params,
+                      layout: Params) -> None:
+        """The optimizer state, and the stores offload parks it and the
+        masters in. A separable transform's state is made on the device a
+        leaf at a time and each leaf parked at once; another's is made
+        whole on the device, then parked."""
+        import tempfile
+
+        self._opt_store: Optional[OffloadStore] = None
+        self._param_store: Optional[OffloadStore] = None
+        self._stream: Optional[LeafStream] = None
+        self._opt_skeleton = None      # "nvme": the state, trees as templates
+        self._opt_tree_fields: List[str] = []
+        self._offload_streamed: Optional[bool] = None
+        opt_off, param_off = self._offload_device, self._param_offload_device
+        if opt_off == "none" and param_off == "none":
+            self.opt_state = self.optimizer.init(layout)
+            return
+        zero = config.zero
+
+        def store(mode: str, block) -> OffloadStore:
+            path = block.nvme_path or os.path.join(tempfile.gettempdir(),
+                                                   "dst_torch_swap")
+            if comm.get_world_size() > 1:
+                path = os.path.join(path, f"rank{comm.get_rank()}")
+            return OffloadStore(mode, self.device, path)
+
+        if param_off != "none":
+            self._param_store = store(param_off, zero.offload_param)
+            self._param_store.park("", masters)
+            self.params = self._param_store.trees.get("")
+        if opt_off != "none":
+            self._opt_store = store(opt_off, zero.offload_optimizer)
+        block = zero.offload_optimizer if opt_off != "none" \
+            else zero.offload_param
+        self._stream = LeafStream(self.device, block.buffer_count)
+        parked = self._opt_store
+        trees: Dict[str, Params] = {}
+        if self.optimizer.separable:
+            state = None
+            for i, (n, t) in enumerate(layout.items()):
+                state = self.optimizer.init({n: t.to(self.device)})
+                for f, v in self._state_fields(state).items():
+                    if isinstance(v, dict):
+                        trees.setdefault(f, {})[n] = \
+                            v[n].to("cpu") if opt_off == "nvme" else v[n]
+                # "cpu": parked a few leaves at a time (their host memory
+                # made side by side), so the card holds only those
+                if opt_off == "cpu" and ((i + 1) % _PARK_LEAVES == 0
+                                         or i + 1 == len(layout)):
+                    for f, tree in trees.items():
+                        parked.park(f, tree)
+                    trees = {}
+        else:
+            state = self.optimizer.init({n: t.to(self.device)
+                                         for n, t in layout.items()})
+            if parked is None:         # the masters alone are parked
+                self.opt_state = state
+                return
+            trees = {f: v for f, v in self._state_fields(state).items()
+                     if isinstance(v, dict)}
+            if opt_off == "cpu":
+                for f, tree in trees.items():
+                    parked.park(f, tree)
+        self._opt_tree_fields = [f for f, v in self._state_fields(
+            state).items() if isinstance(v, dict)]
+        if opt_off == "nvme":
+            for f, tree in trees.items():
+                parked.park(f, tree)
+            self._opt_skeleton = state._replace(**{
+                f: parked.template(f) for f in self._opt_tree_fields})
+            self.opt_state = None
+        elif opt_off == "cpu":
+            self.opt_state = state._replace(**{
+                f: parked.host(f) for f in self._opt_tree_fields})
+        else:
+            self.opt_state = state._replace(**trees)
+
+    def _state_fields(self, state) -> Dict[str, Any]:
+        as_dict = getattr(state, "_asdict", None)
+        if as_dict is None:
+            raise NotImplementedError(
+                f"ZeRO offload parks an optimizer state that is a "
+                f"NamedTuple of trees (the port's rules); this optimizer's "
+                f"state is a {type(state).__name__}")
+        return as_dict()
+
+    @property
+    def _offloaded(self) -> bool:
+        return self._stream is not None
+
+    def _params_to_device(self) -> None:
+        """The masters where the step reads them (JAX
+        ``_params_to_device``): under ``"nvme"`` read from their files into
+        host memory; under ``"cpu"`` they are read where they lie (the
+        compute copy casts each onto the device)."""
+        if self._param_offload_device == "nvme" and self.params is None:
+            self._param_store.stage([""])
+            self.params = self._param_store.host("")
+
+    def _params_to_offload(self) -> None:
+        """Under ``"nvme"``, the step's masters back to their files."""
+        if self._param_offload_device == "nvme" and self.params is not None:
+            self._fence()
+            self._param_store.unstage()
+            self.params = None
+
+    def _fence(self) -> None:
+        """Wait for the stream's last write-back before the host reads a
+        parked tensor."""
+        if self._stream is not None:
+            self._stream.fence()
+
+    def _materialized_params(self) -> Params:
+        """The masters for reading (JAX ``_materialized_params``): read
+        from their files under ``"nvme"`` between steps, without
+        unparking them."""
+        if self.params is not None:
+            return self.params
+        return self._param_store.read("")
+
+    def _opt_view(self):
+        """The optimizer state as a NamedTuple (under ``"nvme"`` its trees
+        are templates: shapes and dtypes)."""
+        return self._opt_skeleton if self._offload_device == "nvme" \
+            else self.opt_state
+
+    def offload_stats(self) -> Dict[str, float]:
+        """The last step's offload copies (bytes and seconds each way:
+        device-event time on a CUDA engine), the window's peaks (leaves
+        and bytes), and under ``"nvme"`` each store's last swap-out and
+        swap-in (bytes, host seconds) and bytes on disk. Waits for the
+        copies."""
+        out = self._stream.copy_stats() if self._stream else {}
+        for what, st in (("opt", self._opt_store),
+                         ("param", self._param_store)):
+            if st is not None and st.swapper is not None:
+                out.update({f"{what}_{k}": v
+                            for k, v in st.swapper.last.items()})
+                out[f"{what}_bytes_on_disk"] = float(st.bytes_on_disk())
+        return out
+
+    def _offload_update(self, grads: Params, kw: Dict[str, Any]) -> None:
+        """The optimizer step over parked state (the module docstring): a
+        separable transform streams it leaf by leaf (``LeafStream``), any
+        other takes the whole state up around one update. ``grads`` is
+        emptied."""
+        fields = self._opt_tree_fields
+        ostore, pstore = self._opt_store, self._param_store
+        if ostore is not None:
+            ostore.stage(fields)
+        state = self._opt_view()
+        regather = set(self._regather)
+        if self.optimizer.separable:
+            hosts = {}
+            for n in self.full_shapes:
+                h = {f: ostore.host(f)[n] for f in fields} \
+                    if ostore is not None else {}
+                if pstore is not None:
+                    h[""] = self.params[n]
+                hosts[n] = h
+            last = []
+
+            def leaf(n: str, dev: Params) -> Params:
+                p = dev[""] if "" in dev else self.params[n]
+                sub = state._replace(**{f: {n: dev[f] if f in dev
+                                            else getattr(state, f)[n]}
+                                        for f in fields})
+                new = self.optimizer.update(
+                    self._state_layout({n: grads.pop(n)}), sub,
+                    self._state_layout({n: p}), **kw)
+                if n in regather:
+                    self._gather_masters({n: p})
+                last[:] = [new]
+                out = {f: getattr(new, f)[n] for f in fields if f in dev}
+                if "" in dev:
+                    out[""] = p
+                return out
+
+            self._stream.reset_stats()
+            self._stream.run(list(self.full_shapes), hosts, leaf)
+            new = last[0]
+        else:
+            dev = {f: {n: t.to(self.device) for n, t in
+                       ostore.host(f).items()} for f in fields}
+            masters = {n: t.to(self.device) for n, t in self.params.items()}
+            new = self.optimizer.update(
+                self._state_layout(grads),
+                state._replace(**dev) if dev else state,
+                self._state_layout(masters), **kw)
+            grads.clear()
+            self._gather_masters(masters)
+            if ostore is not None:
+                for f in fields:
+                    for n, t in ostore.host(f).items():
+                        t.copy_(getattr(new, f)[n])
+            if pstore is not None:
+                for n, t in self.params.items():
+                    t.copy_(masters[n])
+        self._offload_streamed = bool(self.optimizer.separable)
+        if ostore is None and not self.optimizer.separable:
+            self.opt_state = new       # resident, any kind of state
+            return
+        rest = {f: v for f, v in new._asdict().items() if f not in fields}
+        if self._offload_device == "nvme":
+            self._fence()
+            ostore.unstage()
+            self._opt_skeleton = state._replace(**rest)
+        else:
+            self.opt_state = state._replace(**rest)
+
     def _zero_route(self, model, custom_loss: bool) -> str:
         """The facade's qwZ / qgZ legs, the kernel backend and the step's
         route (JAX ``TrainEngine.__init__``): ``"staged"`` (stage 3, a
@@ -455,16 +699,18 @@ class TrainEngine:
 
     # ------------------------------------------------------------------
     def _compute_copy(self, data_local: Optional[bool] = None) -> Params:
-        """Every floating master leaf cast to the compute dtype, as a leaf
-        that records its gradient (for fp32 compute, a view of the master;
-        nothing writes it before the gradient is taken); ``data_local``
-        (by default under qgZ)."""
+        """Every floating master leaf cast to the compute dtype on the
+        engine's device, as a leaf that records its gradient (for fp32
+        compute, a view of a resident master, a device copy of a parked
+        one; nothing writes it before the gradient is taken);
+        ``data_local`` (by default under qgZ)."""
         if data_local is None:
             data_local = self._data_local
         kind = _RowParams if data_local else dict
-        return kind((n, p.to(self.compute_dtype).detach().requires_grad_(True)
+        return kind((n, p.to(device=self.device, dtype=self.compute_dtype,
+                              non_blocking=True).detach().requires_grad_(True)
                      if p.is_floating_point() else p)
-                    for n, p in self.params.items())
+                    for n, p in self._materialized_params().items())
 
     def _transformed(self, pc: Params) -> Params:
         """The compute copy through the registered params transform (the
@@ -535,10 +781,14 @@ class TrainEngine:
             grads = torch.autograd.grad(loss.float() * scale,
                                         [pc[n] for n in names],
                                         allow_unused=True)
-        out = {n: (torch.zeros_like(self.params[n]) if g is None
-                   else g.float())
+        out = {n: (self._zero_grad(n) if g is None else g.float())
                for n, g in zip(names, grads)}
         return out, loss.detach().float()
+
+    def _zero_grad(self, name: str) -> torch.Tensor:
+        """The fp32 gradient of a master the loss did not use."""
+        return torch.zeros(self.params[name].shape, dtype=torch.float32,
+                           device=self.device)
 
     def _micro_batch(self, mb, scale: float):
         """One micro-batch of the global batch on the step's route:
@@ -590,7 +840,7 @@ class TrainEngine:
         that records its gradient (a view: nothing writes the masters
         before the gradient is taken)."""
         wq, gq = self._facade_qspecs()
-        shards = {n: p.detach().requires_grad_(True)
+        shards = {n: p.to(self.device).detach().requires_grad_(True)
                   for n, p in self.params.items()}
         return zero3_params(shards, self.param_specs, self.topo,
                             self.compute_dtype, wq=wq, gq=gq, stats=stats,
@@ -612,7 +862,7 @@ class TrainEngine:
             grads = torch.autograd.grad(loss.float() * scale,
                                         [view.shard(n) for n in names],
                                         allow_unused=True)
-        out = {n: (torch.zeros_like(self.params[n]) if g is None else g)
+        out = {n: (self._zero_grad(n) if g is None else g)
                for n, g in zip(names, grads)}
         loss = loss.detach().float()
         if self._data_local:
@@ -658,7 +908,8 @@ class TrainEngine:
         outer, outer_world = self._facade_axes()
         wq, gq = self._facade_qspecs()
         structure = self.model.zero3_blocks(self.param_specs, None)
-        pc = {n: p.to(self.compute_dtype) for n, p in self.params.items()}
+        pc = {n: p.to(self.device, self.compute_dtype)
+              for n, p in self.params.items()}
         return dict(outer=outer, outer_world=outer_world, wq=wq, gq=gq,
                     pc=pc, specs=structure.blocks,
                     mm_specs=structure.matmul_blocks)
@@ -781,8 +1032,9 @@ class TrainEngine:
         else the masters themselves."""
         if self.tp_sharded:
             return self.full_width(self.params)
-        return {n: ccomm.gather_param_leaf(p, self.param_specs[n])
-                for n, p in self.params.items()}
+        return {n: ccomm.gather_param_leaf(p.to(self.device),
+                                           self.param_specs[n])
+                for n, p in self._materialized_params().items()}
 
     def full_state(self, tree: Params) -> Params:
         """A tree laid out as the optimizer sees it (its moments, the
@@ -859,9 +1111,13 @@ class TrainEngine:
             for g in grads.values():
                 g.mul_(inv)
             loss = loss * inv
+        self._offload_streamed = None
         gnorm, skipped = self._update(grads, scale)
         out = {"loss": loss, "grad_norm": gnorm,
                "loss_scale": self.get_loss_scale(), "skipped": skipped}
+        if self._offload_streamed is not None:
+            # which offload path updated the state: streamed or whole
+            out["offload_streamed"] = self._offload_streamed
         if errs:
             out["quant_rel_err"] = torch.stack(errs).max()
         return out
@@ -917,8 +1173,10 @@ class TrainEngine:
         self._note_batch_shape(batch)
         want = self.telemetry.wants_step_records
         self.tput.start()
+        self._params_to_device()
         with self._counted() as counter:
             out = self._step(batch)
+        self._params_to_offload()
         self._note_flops(counter)
         t_dispatched = time.perf_counter()
         self.global_steps += 1
@@ -954,8 +1212,10 @@ class TrainEngine:
     def train_steps_eligible(self) -> Tuple[bool, Optional[str]]:
         """Whether :meth:`train_steps` may run k steps back to back, with
         the reason when it may not: anything that does host work between
-        optimizer steps forces the per-step path. (Offload and pipelining,
-        JAX's other two reasons, are not ported.)"""
+        optimizer steps forces the per-step path. (Pipelining, JAX's
+        other reason, is not ported.)"""
+        if self._offloaded:
+            return False, "zero-offload swaps state around every step"
         if self._step_hooks:
             return False, "per-step hooks registered"
         if self.preemption_guard is not None:
@@ -1182,6 +1442,7 @@ class TrainEngine:
         want = self.telemetry.wants_step_records
         if want:
             self.timers("compat/backward").start()
+        self._params_to_device()
         self._acc, loss = self._accumulate(self._acc, batch, self._scale())
         if self.topo.data_parallel_size > 1 and not self._data_local:
             loss = comm.group_sum(loss, self.topo.group("data"), "data")
@@ -1207,7 +1468,9 @@ class TrainEngine:
         want = self.telemetry.wants_step_records
         if want:
             self.timers("compat/optimizer").start()
+        self._params_to_device()
         out = self._apply(self._acc, self._scale())
+        self._params_to_offload()
         self._acc = None
         if want:
             self.timers("compat/optimizer").stop(sync_obj=out["grad_norm"])
@@ -1433,11 +1696,14 @@ class TrainEngine:
         if finite:
             kw = {"leaf_sq_sums": self._leaf_sq_sums} \
                 if getattr(self.optimizer, "leaf_norms", False) else {}
-            self.opt_state = self.optimizer.update(
-                self._state_layout(grads), self.opt_state,
-                self._state_layout(self.params), **kw)
-            grads.clear()
-            self._gather_masters()
+            if self._offloaded:
+                self._offload_update(grads, kw)
+            else:
+                self.opt_state = self.optimizer.update(
+                    self._state_layout(grads), self.opt_state,
+                    self._state_layout(self.params), **kw)
+                grads.clear()
+                self._gather_masters(self.params)
         self.scaler_state = ls.update(
             self.scaler_state, finite,
             dynamic=fp16 and cfg.fp16.dynamic_loss_scale,
@@ -1464,18 +1730,19 @@ class TrainEngine:
             out.update(zip(names, flat.unbind(0)))
         return out
 
-    def _gather_masters(self) -> None:
-        """Every rank's updated slice of each master kept whole but
-        updated as a slice (stages 1-2, and a stage-3 leaf kept whole
-        below the persistence threshold) all-gathered into the whole
+    def _gather_masters(self, params: Params) -> None:
+        """Every rank's updated slice of each master of ``params`` kept
+        whole but updated as a slice (stages 1-2, and a stage-3 leaf kept
+        whole below the persistence threshold) all-gathered into the whole
         masters (``zero_master_all_gather``): what XLA emits for JAX's
         replicated ``param_shardings`` after the sharded update. Each
         element has one writer, so every rank's masters are bitwise
         equal."""
-        if not self._regather:
+        names = [n for n in self._regather if n in params]
+        if not names:
             return
-        gather_slices([self.params[n] for n in self._regather],
-                      [self.state_specs[n] for n in self._regather],
+        gather_slices([params[n] for n in names],
+                      [self.state_specs[n] for n in names],
                       self.topo.group("data"), self.topo.rank("data"),
                       self.topo.data_parallel_size, "zero_master_all_gather")
 
@@ -1496,8 +1763,9 @@ class TrainEngine:
             pc = {k: v.to(self.compute_dtype)
                   for k, v in self.full_params().items()}
         elif self._route == "gather":
-            pc = zero3_params(dict(self.params), self.param_specs, self.topo,
-                              self.compute_dtype)
+            pc = zero3_params({n: p.to(self.device) for n, p in
+                               self._materialized_params().items()},
+                              self.param_specs, self.topo, self.compute_dtype)
         else:
             pc = self._transformed(self._compute_copy(data_local=False))
         out = self.loss_fn(pc, rows)
@@ -1657,7 +1925,7 @@ class TrainEngine:
         ``spec`` or whole, a model-axis shard or whole) gathered to its
         full logical array. Every rank of the groups must call it."""
         if tuple(t.shape) != self.full_shapes[name]:
-            t = ccomm.gather_param_leaf(t, spec)
+            t = ccomm.gather_param_leaf(t.to(self.device), spec)
         if name in self.tp_sharded:
             dim = list(self.model.leaf_spec(name)).index("model")
             t = torch.cat(comm.all_gather(t.contiguous(),
@@ -1681,8 +1949,9 @@ class TrainEngine:
 
     def _opt_fields(self) -> Dict[str, Any]:
         """The optimizer state's fields (a NamedTuple's; a client
-        optimizer's state of another kind is not checkpointed)."""
-        as_dict = getattr(self.opt_state, "_asdict", None)
+        optimizer's state of another kind is not checkpointed). Under
+        ``"nvme"`` offload its trees are templates."""
+        as_dict = getattr(self._opt_view(), "_asdict", None)
         return as_dict() if as_dict is not None else {}
 
     def _opt_trees(self) -> Dict[str, Params]:
@@ -1691,23 +1960,39 @@ class TrainEngine:
         return {k: v for k, v in self._opt_fields().items()
                 if isinstance(v, dict)}
 
+    @staticmethod
+    def _leaf_reader(store: Optional[OffloadStore], field: str,
+                     tree: Optional[Params]) -> Callable[[str], torch.Tensor]:
+        """One leaf of a tree for reading: of ``tree`` (resident, or
+        parked in host memory), else read from its file a leaf at a time
+        (``"nvme"``), never unparked."""
+        if tree is not None:
+            return tree.__getitem__
+        return lambda n: store.read_leaf(field, n)
+
     def _state_dict(self) -> Dict[str, Any]:
         """The checkpoint engine's files: ``params`` (the masters) and
         ``opt_state.<tree>`` (each of the optimizer's trees: AdamW's
         ``mu``, ``nu``) as :class:`Leaves` gathered leaf by leaf, one file
         each so a load checks them in parallel; the scaler, step, the
-        optimizer's scalars and the random stream in ``engine``."""
+        optimizer's scalars and the random stream in ``engine``. Parked
+        state is read where it lies (a file a leaf at a time)."""
+        self._fence()
+        nvme = self._offload_device == "nvme"
         fp32 = torch.float32
-        specs = [(n, fp32, self._logical_shape(n)) for n in self.params]
+        specs = [(n, fp32, self._logical_shape(n)) for n in self.full_shapes]
 
-        def leaves(tree, spec_of):
-            return Leaves(specs, lambda n: self._full_leaf(n, tree[n],
+        def leaves(read, spec_of):
+            return Leaves(specs, lambda n: self._full_leaf(n, read(n),
                                                            spec_of[n]))
 
         state: Dict[str, Any] = {
-            "params": leaves(self.params, self.param_specs),
-            **{f"opt_state.{k}": leaves(tree, self.state_specs)
-               for k, tree in self._opt_trees().items()}}
+            "params": leaves(self._leaf_reader(self._param_store, "",
+                                               self.params),
+                             self.param_specs),
+            **{f"opt_state.{k}": leaves(self._leaf_reader(
+                self._opt_store, k, None if nvme else tree),
+                self.state_specs) for k, tree in self._opt_trees().items()}}
         state["engine"] = {
             "rng": self.rng.get_state(), "step": int(self.global_steps),
             **{f"opt/{k}": v for k, v in self._opt_fields().items()
@@ -1738,29 +2023,50 @@ class TrainEngine:
 
     @torch.no_grad()
     def _load_params(self, tree: Mapping[str, torch.Tensor]) -> None:
-        missing = set(self.params) - set(tree)
+        """The masters from full arrays; parked ones are parked again
+        (under ``"nvme"`` their files rewritten)."""
+        missing = set(self.full_shapes) - set(tree)
         if missing:
             raise ValueError(f"checkpoint has no leaves {sorted(missing)}")
+        self._fence()
+        if self.params is None:         # "nvme", between steps
+            tmpl = self._param_store.template("")
+            self._param_store.park("", {
+                n: self._local_piece(n, tree[n], self.param_specs[n], t)
+                for n, t in tmpl.items()})
+            return
         for n, p in self.params.items():
             p.copy_(self._local_piece(n, tree[n], self.param_specs[n], p))
 
     @torch.no_grad()
     def _load_opt(self, state: Mapping[str, Any]) -> None:
+        """The optimizer state from full arrays, parked again where
+        offload parks it."""
         if not self._opt_fields():
             return
+        self._fence()
+        nvme = self._offload_device == "nvme"
         fields = {}
         for k, v in self._opt_fields().items():
             if v is None:
                 fields[k] = None
             elif isinstance(v, dict):
                 tree = state[f"opt_state.{k}"]
-                for n, t in v.items():
-                    t.copy_(self._local_piece(n, tree[n],
-                                              self.state_specs[n], t))
+                pieces = {n: self._local_piece(n, tree[n],
+                                               self.state_specs[n], t)
+                          for n, t in v.items()}
+                if nvme:
+                    self._opt_store.park(k, pieces)
+                else:
+                    for n, t in v.items():
+                        t.copy_(pieces[n])
                 fields[k] = v
             else:
                 fields[k] = type(v)(state["engine"][f"opt/{k}"])
-        self.opt_state = type(self.opt_state)(**fields)
+        if nvme:
+            self._opt_skeleton = self._opt_skeleton._replace(**fields)
+        else:
+            self.opt_state = type(self.opt_state)(**fields)
 
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
                         load_optimizer_states: bool = True,
@@ -1828,9 +2134,11 @@ class TrainEngine:
     def _consolidated(self, dtype) -> Dict[str, torch.Tensor]:
         """The masters gathered whole, as host copies in ``dtype`` (one
         gathered leaf on the device at a time)."""
+        self._fence()
+        read = self._leaf_reader(self._param_store, "", self.params)
         return consolidate_full_state(
-            ((n, self._full_leaf(n, p, self.param_specs[n]))
-             for n, p in self.params.items()), dtype)
+            ((n, self._full_leaf(n, read(n), self.param_specs[n]))
+             for n in self.full_shapes), dtype)
 
     def save_16bit_model(self, save_dir: str,
                          filename: str = "model_16bit.safetensors") -> str:
@@ -1867,17 +2175,25 @@ def jax_tree_keys(params: Mapping[str, torch.Tensor]
     stacks: Dict[str, Dict[int, torch.Tensor]] = {}
     out: Dict[str, torch.Tensor] = {}
     for name, t in params.items():
-        m = _LAYER.search(name)
-        if m:
-            key = name[:m.start()] + m.group(1) + "layers." \
-                + name[m.end():]
-            stacks.setdefault(key, {})[int(m.group(2))] = t
+        key, layer = jax_leaf_key(name)
+        if layer is None:
+            out[key] = t
         else:
-            out[_keystr(name)] = t
+            stacks.setdefault(key, {})[layer] = t
     for key, layers in stacks.items():
-        out[_keystr(key)] = torch.stack([layers[i]
-                                         for i in range(len(layers))])
+        out[key] = torch.stack([layers[i] for i in range(len(layers))])
     return out
+
+
+def jax_leaf_key(name: str) -> Tuple[str, Optional[int]]:
+    """(``jax.tree_util.keystr`` of the JAX leaf that holds ``name``, the
+    layer index within it): ``layers.<i>.<leaf>`` is layer ``i`` of
+    ``['layers']['<leaf>']``, another name its own leaf (layer None)."""
+    m = _LAYER.search(name)
+    if m is None:
+        return _keystr(name), None
+    key = name[:m.start()] + m.group(1) + "layers." + name[m.end():]
+    return _keystr(key), int(m.group(2))
 
 
 def _keystr(name: str) -> str:

@@ -48,6 +48,10 @@ class Transform(NamedTuple):
     update: Callable[..., Any]     # (grads, state, params) -> state
     #: the update takes ``leaf_sq_sums`` (LAMB's whole-leaf norms)
     leaf_norms: bool = False
+    #: the update of a sub-dict of leaves (with the same ``count``) is the
+    #: whole update's on those leaves: ZeRO offload then streams the state
+    #: a few leaves at a time (``runtime/swap_tensor.py`` ``LeafStream``)
+    separable: bool = False
 
 
 class AdamState(NamedTuple):
@@ -97,7 +101,7 @@ def adam(lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
             p.add_(step.mul_(-lr_t).to(p.dtype))
         return AdamState(count, state.mu, state.nu)
 
-    return Transform(init, update)
+    return Transform(init, update, separable=True)
 
 
 def adamw(lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
@@ -138,7 +142,7 @@ def sgd(lr=1e-3, momentum: float = 0.0, weight_decay: float = 0.0,
             p.add_((eff * -lr_t).to(p.dtype))
         return SgdState(count, state.momentum)
 
-    return Transform(init, update)
+    return Transform(init, update, separable=True)
 
 
 class LambState(NamedTuple):
@@ -251,7 +255,7 @@ def lion(lr=1e-4, betas=(0.9, 0.99), weight_decay: float = 0.0
             m.mul_(b2).add_(g * (1 - b2))
         return LionState(count, state.mu)
 
-    return Transform(init, update)
+    return Transform(init, update, separable=True)
 
 
 class AdagradState(NamedTuple):
@@ -284,7 +288,7 @@ def adagrad(lr=1e-2, eps: float = 1e-10, weight_decay: float = 0.0,
             p.add_(((g * -lr_t) / (a.sqrt() + eps)).to(p.dtype))
         return AdagradState(count, state.accum)
 
-    return Transform(init, update)
+    return Transform(init, update, separable=True)
 
 
 # the JAX package's registry, name for name: the fused and cpu variants

@@ -392,16 +392,10 @@ def test_config_accepts_stage3_and_refuses_later_slices():
     for block, match in (
             ({"zero_optimization": {"stage": 1, "mics_shard_size": 2}},
              "mics"),
-            ({"zero_optimization": {"stage": 2, "offload_optimizer": {
-                "device": "cpu"}}}, "offload"),
             ({"zero_optimization": {"stage": 3,
                                     "zero_hpz_partition_size": 2}}, "hpz"),
             ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}},
              "mics"),
-            ({"zero_optimization": {"stage": 3, "offload_param": {
-                "device": "cpu"}}}, "offload"),
-            ({"zero_optimization": {"stage": 3, "offload_optimizer": {
-                "device": "nvme"}}}, "offload"),
             ({"mesh": {"model": 2}, "zero_optimization": {"stage": 3}},
              "mesh.model"),
             ({"comm_compression": {"kernel_backend": "cuda"}},
@@ -409,6 +403,17 @@ def test_config_accepts_stage3_and_refuses_later_slices():
             ({"comm_compression": {"overlap": "eager"}}, "overlap")):
         with pytest.raises(ConfigError, match=match):
             Config.from_dict({"train_batch_size": 8, **block})
+    # ZeRO offload is ported: its blocks parse
+    for zero, key, dev in (
+            ({"stage": 2, "offload_optimizer": {"device": "cpu"}},
+             "offload_optimizer", "cpu"),
+            ({"stage": 3, "offload_param": {"device": "cpu"}},
+             "offload_param", "cpu"),
+            ({"stage": 3, "offload_optimizer": {"device": "nvme"}},
+             "offload_optimizer", "nvme")):
+        cfg = Config.from_dict({"train_batch_size": 8,
+                                "zero_optimization": zero})
+        assert getattr(cfg.zero, key).device == dev
     with pytest.raises(ConfigError, match="world size"):
         TorchTopology.build({"data": 2})
     with pytest.raises(ValueError, match="kernel backend"):

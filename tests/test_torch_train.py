@@ -18,8 +18,8 @@ carried into the port with ``load_jax_params``. Everything is fp32.
 * Units: ``lr_schedules`` values, ``loss_scaler.update`` sequences, the
   Adam rules and ``global_norm`` against the JAX functions; ``Config``
   batch resolution and its ``ConfigError``s; the remat policies and the
-  other optimizer rules build and run, and the ``telemetry`` block is
-  read.
+  other optimizer rules build and run, and the ``telemetry`` and
+  ``offload_optimizer`` blocks are read.
 """
 
 import numpy as np
@@ -359,6 +359,11 @@ def test_config_blocks_of_later_slices_raise(block):
         # training telemetry is ported: the block is read, not refused
         cfg = Config.from_dict({"train_batch_size": 2, **block})
         assert cfg.telemetry.enabled is True
+        return
+    if "offload_optimizer" in block.get("zero_optimization", {}):
+        # ZeRO offload is ported: the block is read, not refused
+        cfg = Config.from_dict({"train_batch_size": 2, **block})
+        assert cfg.zero.offload_optimizer.device == "cpu"
         return
     with pytest.raises(ConfigError):
         Config.from_dict({"train_batch_size": 2, **block})

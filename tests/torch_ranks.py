@@ -1175,3 +1175,64 @@ def preempt_job(rank: int, world: int, root: str, late_rank: int
     return {"reason": eng.stop_reason, "steps": steps, "stopped": stopped,
             "resumed": eng2.global_steps, "verified": len(verified),
             "params": {n: _np(t) for n, t in eng2.full_params().items()}}
+
+
+def offload_job(rank: int, world: int, case: Dict[str, Any],
+                runs: Dict[str, Any]) -> Dict[str, Any]:
+    """tests/test_torch_offload.py: each run ``runs[key] = ZeRO config``
+    through ``initialize`` over ``{"data": world}``: three ``train_batch``
+    steps on the case's global batches, each step's metrics, where the
+    masters and moments lie between steps, a digest of this rank's
+    masters and moments (the offloaded runs against the resident ones,
+    bitwise), and on rank 0 the masters gathered whole (the JAX layout)
+    with the smallest |g| of each element that the optimizer received,
+    gathered whole."""
+    import hashlib
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.jax_params import export_params
+    from deepspeed_tpu_torch.runtime import optimizers as opt
+
+    out = {}
+    for key, zero in runs.items():
+        cfg = {**case["cfg"], "mesh": {"data": world},
+               "zero_optimization": zero}
+        eng = dst.initialize(model=_train_model(case), config=cfg,
+                             device="cpu")[0]
+        lo: Dict[str, torch.Tensor] = {}
+        hi: Dict[str, float] = {}
+        inner = eng.optimizer
+
+        def update(grads, state, params, lo=lo, hi=hi, inner=inner):
+            for n, g in grads.items():
+                a = g.abs()
+                lo[n] = torch.minimum(lo[n], a) if n in lo else a.clone()
+                hi[n] = max(hi.get(n, 0.0), float(a.max()))
+            return inner.update(grads, state, params)
+
+        eng.optimizer = opt.Transform(inner.init, update,
+                                      separable=inner.separable)
+        steps = []
+        for batch in case["batches"]:
+            m = eng.train_batch({k: torch.from_numpy(np.asarray(v))
+                                 for k, v in batch.items()})
+            steps.append({k: float(v) for k, v in m.items()})
+        masters = eng._materialized_params()
+        mu = eng._opt_store.read("mu") if eng._opt_store is not None \
+            else eng.opt_state.mu
+        digest = hashlib.sha256(b"".join(
+            t.numpy().tobytes() for tree in (masters, mu)
+            for t in tree.values())).hexdigest()
+        res = {"steps": steps, "digest": digest,
+               "parked": eng.params is None or all(
+                   p is eng._param_store.host("")[n]
+                   for n, p in eng.params.items())
+               if eng._param_store is not None else None,
+               "eligible": eng.train_steps_eligible()}
+        full = {n: p.detach() for n, p in eng.full_params().items()}
+        lo_full = eng.full_state(lo)
+        if rank == 0:
+            res.update(full=export_params(full),
+                       lo={n: _np(t) for n, t in lo_full.items()}, hi=hi)
+        out[key] = res
+    return out

@@ -64,16 +64,17 @@ def _metrics(m):
     return {k: float(np.asarray(v)) for k, v in m.items()}
 
 
-def run_both(jm, jparams, tm, batches, cfg=CFG):
+def run_both(jm, jparams, tm, batches, cfg=CFG, port_cfg=None):
     """(JAX engine, port engine, [(JAX metrics, port metrics)] per step,
     {name: (smallest |g| of each element, largest |g| of the leaf) over
     the steps, as the port's optimizer received them}). ``batches`` are
-    dicts of numpy arrays."""
+    dicts of numpy arrays; ``port_cfg`` (default ``cfg``) is the port
+    engine's config."""
     jeng, *_ = deepspeed_tpu.initialize(
         model=jm, params=jparams, config=cfg,
         topology=Topology.build_virtual({"data": 1}))
     teng, _, loader, schedule = deepspeed_tpu_torch.initialize(
-        model=tm, config=cfg, device="cpu")
+        model=tm, config=cfg if port_cfg is None else port_cfg, device="cpu")
     assert loader is None and schedule is teng.lr_schedule
     min_abs_g = {}
     inner = teng.optimizer
@@ -85,7 +86,8 @@ def run_both(jm, jparams, tm, batches, cfg=CFG):
             min_abs_g[n] = (torch.minimum(lo, a), max(hi, a.max().item()))
         return inner.update(grads, state, params)
 
-    teng.optimizer = opt.Transform(inner.init, update)
+    teng.optimizer = opt.Transform(inner.init, update,
+                                   separable=inner.separable)
     steps = []
     for batch in batches:
         jm_ = jeng.train_batch({k: jnp.asarray(v) for k, v in batch.items()})
